@@ -1,0 +1,33 @@
+"""Architecture config registry of the port (the dense decoders it serves).
+
+``get_config(name)`` returns the full published config; ``reduced(name)``
+the CPU-test variant of the same structure.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import (  # noqa: F401
+    AquaConfig, AttentionConfig, CacheSpec, ModelConfig, ServingConfig,
+    reduce_config,
+)
+
+_MODULES: Dict[str, str] = {
+    "qwen3-0.6b": "qwen3_0_6b",
+    "llama3.1-8b": "llama31_8b",
+}
+ALL_ARCHS = tuple(_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(_MODULES)}")
+    cfg: ModelConfig = importlib.import_module(
+        f"repro_torch.configs.{_MODULES[name]}").CONFIG
+    cfg.validate()
+    return cfg
+
+
+def reduced(name: str, **kw) -> ModelConfig:
+    return reduce_config(get_config(name), **kw)

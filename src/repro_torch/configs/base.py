@@ -1,0 +1,165 @@
+"""Configuration dataclasses of the PyTorch port (stdlib only).
+
+The port's own copy of the JAX package's ``configs/base.py``, cut to what
+the dense decoder serving path uses: ``AquaConfig``, ``AttentionConfig``,
+``ModelConfig``, ``reduce_config``, ``CacheSpec`` and ``ServingConfig``.
+Field names and defaults match the JAX package so a config built from the
+same arguments means the same thing in both.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class AquaConfig:
+    """Paper hyperparameters (§8.1, §8.4) plus kernel tiling knobs."""
+
+    enabled: bool = True
+    # Fraction of (remaining) dims kept for the score dot-product.
+    k_ratio: float = 0.75
+    # AQUA-Memory static slice: fraction of trailing principal dims dropped
+    # before caching. 0.0 disables AQUA-Memory.
+    s_ratio: float = 0.0
+    # H2O heavy-hitter budget as a fraction of the context (1.0 = off).
+    # The port does not serve H2O yet; the engine raises below 1.0.
+    h2o_ratio: float = 1.0
+    # Magnitude selection granularity in dims; the kernels need > 1.
+    block_dims: int = 1
+    # Queries per prefill selection chunk: one dim-block set per chunk.
+    prefill_q_blk: int = 128
+
+    def kept_dims(self, head_dim: int) -> int:
+        """Dims retained after the static slice (AQUA-Memory stage 1)."""
+        d = int(round((1.0 - self.s_ratio) * head_dim))
+        return max(self.block_dims, min(head_dim, d))
+
+    def topk_dims(self, head_dim: int) -> int:
+        """Dims kept by dynamic magnitude selection (stage 2)."""
+        d_kept = self.kept_dims(head_dim)
+        k = int(round(self.k_ratio * d_kept))
+        k = max(self.block_dims, min(d_kept, k))
+        b = self.block_dims
+        return ((k + b - 1) // b) * b
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    # sliding window: not ported yet (prefill/decode raise when set)
+    window: Optional[int] = None
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    # Backend registry key (repro_torch.core.attention): "auto" | "dense" |
+    # "aqua-masked-dense" | "aqua-block-sparse" | "aqua-block-sparse-plain".
+    backend: str = "auto"
+
+    @property
+    def group_size(self) -> int:
+        assert self.num_heads % self.num_kv_heads == 0
+        return self.num_heads // self.num_kv_heads
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # the port serves "dense" only
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attention: Optional[AttentionConfig] = None
+    aqua: Optional[AquaConfig] = None
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"       # activation/compute dtype
+    param_dtype: str = "float32"
+
+    def with_aqua(self, aqua: AquaConfig) -> "ModelConfig":
+        return replace(self, aqua=aqua)
+
+    def validate(self) -> None:
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"family {self.family!r}: the port serves dense decoders only")
+        assert self.attention is not None
+
+
+def reduce_config(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,
+                  vocab: int = 128, ff: int = 128) -> ModelConfig:
+    """Shrink a production config to a CPU-test size, keeping its
+    structure (GQA ratio, qk-norm, tied embeddings) — the same rule as
+    the JAX package's ``reduce_config``."""
+    att = cfg.attention
+    heads = max(2, min(4, att.num_heads))
+    kv = heads if att.num_kv_heads == att.num_heads else max(1, heads // 2)
+    att = replace(att, num_heads=heads, num_kv_heads=kv,
+                  head_dim=max(8, d_model // heads),
+                  window=None if att.window is None else 16)
+    return replace(cfg, num_layers=layers, d_model=d_model, vocab_size=vocab,
+                   d_ff=ff, attention=att, dtype="float32")
+
+
+@dataclass(frozen=True)
+class CacheSpec:
+    """KV-cache layout. ``page_size`` tokens per page turns the per-lane
+    slot stripes into a global page pool with per-lane page tables; None
+    keeps the contiguous layout. ``num_pages`` sizes the pool (None =
+    lane-stripe parity). The port does not share prefixes yet: the engine
+    raises for ``prefix_sharing=True`` with a paged cache."""
+
+    page_size: Optional[int] = None
+    num_pages: Optional[int] = None
+    prefix_sharing: bool = True
+
+    @property
+    def paged(self) -> bool:
+        return self.page_size is not None
+
+    def validate(self) -> None:
+        if self.page_size is not None:
+            assert self.page_size >= 1
+            if self.num_pages is not None:
+                assert self.num_pages >= 1
+        elif self.num_pages is not None:
+            raise ValueError("CacheSpec.num_pages needs page_size")
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """Continuous-batching engine knobs (repro_torch.serving). A *lane* is
+    one batch row of the shared decode state; the decode step always runs
+    over all ``max_lanes`` lanes. Fields the port does not serve yet
+    (``prefill_budget_tokens``, ``mesh_shape``) raise
+    ``NotImplementedError`` at engine construction when set."""
+
+    max_lanes: int = 8
+    max_seq: int = 4096
+    max_new_tokens: int = 128
+    temperature: float = 0.0
+    top_k: int = 0
+    eos_id: int = -1
+    pad_id: int = 0
+    prompt_bucket: int = 16
+    admission_lookahead: int = 4
+    cache: Optional[CacheSpec] = None
+    prefill_budget_tokens: Optional[int] = None
+    mesh_shape: Optional[Tuple[int, ...]] = None
+
+    @property
+    def cache_spec(self) -> CacheSpec:
+        return self.cache if self.cache is not None else CacheSpec()
+
+    def validate(self) -> None:
+        assert self.max_lanes >= 1
+        assert self.max_new_tokens >= 1
+        assert self.prompt_bucket >= 1
+        assert self.admission_lookahead >= 1
+        cache = self.cache_spec
+        cache.validate()
+        if cache.page_size is not None:
+            assert self.max_seq % cache.page_size == 0, \
+                (self.max_seq, cache.page_size)

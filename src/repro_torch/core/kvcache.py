@@ -1,0 +1,265 @@
+"""Decode-time KV caches (full-cache policy) in PyTorch.
+
+Port of the JAX package's ``core/kvcache.py`` for the policy the serving
+path uses: slot ``s`` of a lane holds token position ``s`` (no window
+ring, no H2O eviction — those, and int8 pools, are later work). Keys are
+stored *projected and sliced* when AQUA is on, seq-major; the CUDA decode
+kernel reads the selected dim-blocks of that layout directly.
+
+Two layouts with the same logical slot space:
+
+* :class:`AttnCache` — one contiguous slot stripe per lane;
+* :class:`PagedAttnCache` — a global page pool plus per-lane page tables
+  (logical slot ``s`` of lane ``b`` lives at
+  ``(page_table[b, s // page_size], s % page_size)``).
+
+Unlike the JAX package, which returns new pytrees, the write functions
+here update the cache tensors **in place** (an insert touches one slot per
+lane instead of copying the cache). A cache's tensors may carry a leading
+layer axis; ``layer(i)`` then returns views of layer ``i`` that write
+through to the stacked tensors. The H2O ``acc_score``/``acc_pool``
+statistics are not kept: nothing in the full-cache policy reads them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+
+def _tensors(cache) -> list:
+    """The cache's fields in order (``dataclasses.astuple`` would copy)."""
+    return [getattr(cache, f.name) for f in dataclasses.fields(cache)]
+
+
+@dataclass
+class AttnCache:
+    """k (…, B, KV, S, Dk); v (…, B, KV, S, Dv); positions (…, B, S) int32
+    with -1 empty; count (…, B) int32 = tokens processed (next position).
+    The optional leading axis is the layer."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    positions: torch.Tensor
+    count: torch.Tensor
+
+    @property
+    def num_slots(self) -> int:
+        return self.k.shape[-2]
+
+    def layer(self, i: int) -> "AttnCache":
+        return AttnCache(*(t[i] for t in _tensors(self)))
+
+
+def init_attn_cache(batch: int, num_kv: int, slots: int, dk: int, dv: int,
+                    dtype=torch.bfloat16, device=None,
+                    num_layers: Optional[int] = None) -> AttnCache:
+    lead = () if num_layers is None else (num_layers,)
+    return AttnCache(
+        k=torch.zeros(*lead, batch, num_kv, slots, dk, dtype=dtype,
+                      device=device),
+        v=torch.zeros(*lead, batch, num_kv, slots, dv, dtype=dtype,
+                      device=device),
+        positions=torch.full((*lead, batch, slots), -1, dtype=torch.int32,
+                             device=device),
+        count=torch.zeros(*lead, batch, dtype=torch.int32, device=device))
+
+
+def cache_slots(max_seq: int) -> int:
+    """Slots per lane under the full-cache policy (window rings and H2O
+    budgets, which hold fewer, are not ported)."""
+    return max(max_seq, 1)
+
+
+def select_slot(cache: AttnCache) -> torch.Tensor:
+    """Slot (B,) for the incoming token under the full-cache policy."""
+    return torch.clamp(cache.count, max=cache.num_slots - 1)
+
+
+def _rows(b: int, write_mask: Optional[torch.Tensor], device
+          ) -> torch.Tensor:
+    rows = torch.arange(b, device=device)
+    return rows if write_mask is None else rows[write_mask]
+
+
+def insert(cache: AttnCache, slot: torch.Tensor, k_new: torch.Tensor,
+           v_new: torch.Tensor,
+           write_mask: Optional[torch.Tensor] = None) -> AttnCache:
+    """Write one token's k (B, KV, Dk) / v (B, KV, Dv) at ``slot`` (B,),
+    in place. Rows where ``write_mask`` is False are left untouched (K/V,
+    positions and count): the engine's inactive lanes."""
+    rows = _rows(cache.k.shape[0], write_mask, cache.k.device)
+    s = slot[rows].long()
+    cache.k[rows, :, s] = k_new[rows].to(cache.k.dtype)
+    cache.v[rows, :, s] = v_new[rows].to(cache.v.dtype)
+    cache.positions[rows, s] = cache.count[rows]
+    cache.count[rows] += 1
+    return cache
+
+
+def valid_mask_from(positions: torch.Tensor, count: torch.Tensor
+                    ) -> torch.Tensor:
+    """(B, S) bool — slots attendable by the token at position count-1."""
+    cur = count[:, None] - 1
+    return (positions >= 0) & (positions <= cur)
+
+
+# ---------------------------------------------------------------------------
+# Block-paged cache: global page pool + per-lane page tables
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PagedAttnCache:
+    """k_pool (…, P, KV, ps, Dk); v_pool (…, P, KV, ps, Dv); pos_pool
+    (…, P, ps) int32 position held by each pool slot, -1 empty;
+    page_table (…, B, NP) int32 physical page of each logical page, -1
+    unmapped; count (…, B) int32. Optional leading layer axis."""
+
+    k_pool: torch.Tensor
+    v_pool: torch.Tensor
+    pos_pool: torch.Tensor
+    page_table: torch.Tensor
+    count: torch.Tensor
+
+    @property
+    def num_pages(self) -> int:
+        return self.k_pool.shape[-4]
+
+    @property
+    def page_size(self) -> int:
+        return self.k_pool.shape[-2]
+
+    @property
+    def pages_per_lane(self) -> int:
+        return self.page_table.shape[-1]
+
+    @property
+    def num_slots(self) -> int:
+        return self.pages_per_lane * self.page_size
+
+    def layer(self, i: int) -> "PagedAttnCache":
+        return PagedAttnCache(*(t[i] for t in _tensors(self)))
+
+
+def paged_pages(slots: int, page_size: int) -> int:
+    """Pages per lane for a logical capacity of ``slots``."""
+    assert slots % page_size == 0, \
+        f"cache slots {slots} must be a multiple of page_size {page_size}"
+    return slots // page_size
+
+
+def init_paged_cache(batch: int, num_kv: int, num_pages: int,
+                     pages_per_lane: int, page_size: int, dk: int, dv: int,
+                     dtype=torch.bfloat16, device=None,
+                     num_layers: Optional[int] = None) -> PagedAttnCache:
+    lead = () if num_layers is None else (num_layers,)
+    return PagedAttnCache(
+        k_pool=torch.zeros(*lead, num_pages, num_kv, page_size, dk,
+                           dtype=dtype, device=device),
+        v_pool=torch.zeros(*lead, num_pages, num_kv, page_size, dv,
+                           dtype=dtype, device=device),
+        pos_pool=torch.full((*lead, num_pages, page_size), -1,
+                            dtype=torch.int32, device=device),
+        page_table=torch.full((*lead, batch, pages_per_lane), -1,
+                              dtype=torch.int32, device=device),
+        count=torch.zeros(*lead, batch, dtype=torch.int32, device=device))
+
+
+def paged_lane_view(cache: PagedAttnCache) -> AttnCache:
+    """Gather the per-lane contiguous view of a (single-layer) paged cache
+    — slot-for-slot what the contiguous cache would hold; unmapped pages
+    read position -1. The reference decode path runs on this; the CUDA
+    kernel walks the page table instead and never gathers."""
+    b = cache.page_table.shape[0]
+    table = cache.page_table.long()
+    pages = table.clamp(min=0)
+    kvh = cache.k_pool.shape[1]
+    k = cache.k_pool[pages].transpose(1, 2).reshape(b, kvh, cache.num_slots,
+                                                    -1)
+    v = cache.v_pool[pages].transpose(1, 2).reshape(b, kvh, cache.num_slots,
+                                                    -1)
+    pos = torch.where(table[..., None] >= 0, cache.pos_pool[pages],
+                      torch.full_like(cache.pos_pool[pages], -1))
+    return AttnCache(k=k, v=v, positions=pos.reshape(b, cache.num_slots),
+                     count=cache.count)
+
+
+def paged_select_slot(cache: PagedAttnCache) -> torch.Tensor:
+    """Paged twin of :func:`select_slot` (full-cache policy)."""
+    return torch.clamp(cache.count, max=cache.num_slots - 1)
+
+
+def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor,
+                 write_mask: Optional[torch.Tensor] = None
+                 ) -> PagedAttnCache:
+    """Write one token's k/v at logical ``slot`` through the page table, in
+    place. Rows masked off, or whose slot's page is unmapped, write
+    nothing; masked-off rows keep their count."""
+    b = cache.page_table.shape[0]
+    ps = cache.page_size
+    rows = torch.arange(b, device=slot.device)
+    entry = cache.page_table[rows, (slot // ps).long()]
+    ok = entry >= 0
+    if write_mask is not None:
+        ok &= write_mask
+    phys, off = entry[ok].long(), (slot % ps)[ok].long()
+    cache.k_pool[phys, :, off] = k_new[ok].to(cache.k_pool.dtype)
+    cache.v_pool[phys, :, off] = v_new[ok].to(cache.v_pool.dtype)
+    cache.pos_pool[phys, off] = cache.count[ok]
+    adv = 1 if write_mask is None else write_mask.to(torch.int32)
+    cache.count += adv
+    return cache
+
+
+def paged_graft(cache: PagedAttnCache, req: AttnCache, lane: int,
+                num_slots: int) -> PagedAttnCache:
+    """Copy logical slots [0, num_slots) of a B=1 contiguous cache (an
+    admission prefill) into ``lane``'s pages, in place. Every page the
+    lane maps is cleared first (positions -1): pool pages are recycled, so
+    a previous tenant's positions must never read as valid. The lane's
+    page-table row is installed before this runs."""
+    ps = cache.page_size
+    tbl = cache.page_table[lane].long()
+    cache.pos_pool[tbl[tbl >= 0]] = -1
+    idx = torch.arange(num_slots, device=tbl.device)
+    entry = tbl[idx // ps]
+    ok = entry >= 0
+    phys, off, src = entry[ok], (idx % ps)[ok], idx[ok]
+    cache.k_pool[phys, :, off] = req.k[0][:, src].transpose(0, 1).to(
+        cache.k_pool.dtype)
+    cache.v_pool[phys, :, off] = req.v[0][:, src].transpose(0, 1).to(
+        cache.v_pool.dtype)
+    cache.pos_pool[phys, off] = req.positions[0, src]
+    cache.count[lane] = req.count[0]
+    return cache
+
+
+def paged_reset_lane(cache: PagedAttnCache, lane: int) -> PagedAttnCache:
+    """Return ``lane`` to the empty condition, in place: clear its mapped
+    pages' positions, unmap its table row, zero its count. (Returning the
+    pages to the free list is the host allocator's job.)"""
+    tbl = cache.page_table[lane].long()
+    cache.pos_pool[tbl[tbl >= 0]] = -1
+    cache.page_table[lane] = -1
+    cache.count[lane] = 0
+    return cache
+
+
+def tree_bytes(obj) -> int:
+    """Total bytes of the tensors in a (nested) dataclass / sequence /
+    dict of tensors — the cache-footprint accounting the engine reports."""
+    if isinstance(obj, torch.Tensor):
+        return math.prod(obj.shape) * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(tree_bytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    if isinstance(obj, dict):
+        return sum(tree_bytes(x) for x in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(tree_bytes(x) for x in obj)
+    return 0

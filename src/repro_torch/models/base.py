@@ -1,0 +1,109 @@
+"""Model protocol and decode-state container (PyTorch port)."""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.runtime import resolve_device, torch_dtype
+
+
+@dataclass
+class DecodeState:
+    """Serving state: the per-layer caches stacked on a leading layer axis
+    (an ``AttnCache`` or ``PagedAttnCache`` whose tensors are (L, ...))
+    plus model-level extras."""
+
+    layers: Any
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass(frozen=True)
+class PagingSpec:
+    """Page-pool geometry installed on a model by the serving engine
+    (``LM.enable_paging``): ``init_decode_state`` then allocates a global
+    page pool + per-lane page tables instead of per-lane slot stripes."""
+
+    page_size: int
+    num_pages: int
+
+
+class LM:
+    """Base class: subclasses implement the per-family wiring. ``self``
+    carries the static config and the device; params are passed in.
+
+    Lane surgery (continuous batching): a *lane* is one batch row of a
+    DecodeState. Every cache tensor carries layers at axis 0 and lanes at
+    axis 1, so lane surgery is uniform indexing. The state is updated in
+    place."""
+
+    supports_paging = False
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        cfg.validate()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(cfg.dtype)
+        self.param_dtype = torch_dtype(cfg.param_dtype)
+        self._paging: Optional[PagingSpec] = None
+
+    def enable_paging(self, spec: Optional[PagingSpec]) -> None:
+        if spec is not None and not self.supports_paging:
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} does not support the paged cache")
+        self._paging = spec
+
+    @property
+    def paging(self) -> Optional[PagingSpec]:
+        return self._paging
+
+    # -- required API -------------------------------------------------
+    def init(self, gen: torch.Generator):
+        raise NotImplementedError
+
+    def forward(self, params, batch, aqua_proj=None, capture: bool = False):
+        raise NotImplementedError
+
+    def init_decode_state(self, batch_size: int, max_seq: int) -> DecodeState:
+        raise NotImplementedError
+
+    def prefill(self, params, batch, max_seq: int, aqua_proj=None
+                ) -> Tuple[torch.Tensor, DecodeState]:
+        raise NotImplementedError
+
+    def decode_step(self, params, state: DecodeState, tokens: torch.Tensor,
+                    aqua_proj=None, write_mask=None
+                    ) -> Tuple[torch.Tensor, DecodeState]:
+        raise NotImplementedError
+
+    def graft_paged(self, state: DecodeState, req_state: DecodeState,
+                    lane: int, num_slots: int) -> DecodeState:
+        raise NotImplementedError
+
+    # -- lane surgery -------------------------------------------------
+    def insert_lane(self, state: DecodeState, req_state: DecodeState,
+                    lane: int) -> DecodeState:
+        """Overwrite lane ``lane`` of ``state`` with the single-lane
+        ``req_state`` (K/V slots, positions, count), in place."""
+        for f in dataclasses.fields(state.layers):
+            getattr(state.layers, f.name)[:, lane] = \
+                getattr(req_state.layers, f.name)[:, 0]
+        return state
+
+    def reset_lane(self, state: DecodeState, lane: int,
+                   max_seq: int) -> DecodeState:
+        """Return lane ``lane`` to the freshly-initialized condition."""
+        return self.insert_lane(state, self.init_decode_state(1, max_seq),
+                                lane)
+
+    def prefill_into(self, params, batch, max_seq: int, state: DecodeState,
+                     lane: int, aqua_proj=None
+                     ) -> Tuple[torch.Tensor, DecodeState]:
+        """Prefill one request (batch size 1, optionally ragged via
+        ``batch["lengths"]``) and graft its cache into ``lane``. Returns
+        (next-token logits (1, V), state)."""
+        logits, req_state = self.prefill(params, batch, max_seq, aqua_proj)
+        return logits, self.insert_lane(state, req_state, lane)

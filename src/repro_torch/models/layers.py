@@ -1,0 +1,39 @@
+"""Shared model layers: norms, MLP, embeddings (PyTorch port)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.attention import rms_norm  # noqa: F401  (re-export)
+
+def _normal(gen, shape, std, dtype, device):
+    return torch.randn(*shape, generator=gen, dtype=torch.float32,
+                       device=device).mul_(std).to(dtype)
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+             dtype=torch.float32, device=None) -> dict:
+    """Gated SiLU MLP weights (w1 gate, w3 up, w2 down)."""
+    return {"w1": _normal(gen, (d_model, d_ff), d_model ** -0.5, dtype, device),
+            "w2": _normal(gen, (d_ff, d_model), d_ff ** -0.5, dtype, device),
+            "w3": _normal(gen, (d_model, d_ff), d_model ** -0.5, dtype, device)}
+
+
+def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ p["w1"].to(x.dtype)) * (x @ p["w3"].to(x.dtype))
+    return h @ p["w2"].to(x.dtype)
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
+                   dtype=torch.float32, device=None) -> dict:
+    return {"table": _normal(gen, (vocab, d_model), d_model ** -0.5, dtype,
+                             device)}
+
+
+def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return p["table"][tokens.long()].to(dtype)
+
+
+def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits in float32."""
+    return x.float() @ p["table"].float().T

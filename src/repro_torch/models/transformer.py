@@ -1,0 +1,196 @@
+"""Dense decoder LM (PyTorch port of ``models/transformer.py::DenseLM``).
+
+Params keep the JAX package's tree and layouts — layers stacked on a
+leading axis — so ``repro_torch.bridge.params_from_numpy`` can load a JAX
+param tree unchanged. A Python loop over layers replaces ``lax.scan``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import attention as attn
+from repro_torch.core import kvcache as kv
+from repro_torch.models import layers as L
+from repro_torch.models.base import LM, DecodeState
+
+
+def layer_params(tree, i: int):
+    """Layer ``i``'s views of a stacked param tree."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def init_block(gen: torch.Generator, cfg, dtype, device) -> dict:
+    return {
+        "ln1": torch.ones(cfg.d_model, dtype=dtype, device=device),
+        "ln2": torch.ones(cfg.d_model, dtype=dtype, device=device),
+        "attn": attn.init_attention_params(gen, cfg.d_model, cfg.attention,
+                                           dtype, device),
+        "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
+    }
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def block_forward(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                  proj: Optional[torch.Tensor],
+                  lengths: Optional[torch.Tensor] = None):
+    """One block over a sequence. Returns (x, aux) where aux holds the
+    attention's q/k (capture) and the layer's cache-form k̂ and v."""
+    h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    h, aux = attn.prefill_attention(p["attn"], h_in, cfg.attention, cfg.aqua,
+                                    proj, positions, return_aux=True,
+                                    lengths=lengths)
+    x = x + h
+    return x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps)), aux
+
+
+def block_step(cfg, p: dict, x_t: torch.Tensor, cache,
+               proj: Optional[torch.Tensor],
+               write_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    h = attn.decode_attention(p["attn"], L.rms_norm(x_t, p["ln1"],
+                                                    cfg.norm_eps),
+                              cache, cfg.attention, cfg.aqua, proj,
+                              write_mask=write_mask)
+    x = x_t + h
+    return x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
+class DenseLM(LM):
+    """Decoder-only GQA transformer (qk-norm/bias variants) with AQUA.
+    Serves a contiguous or (``enable_paging``) paged decode state."""
+
+    supports_paging = True
+
+    def init(self, gen: torch.Generator) -> dict:
+        """Random params from ``gen`` (a ``torch.Generator`` on the model's
+        device) in the JAX package's layouts. The values differ from the
+        JAX package's init for the same seed; tests bridge JAX params."""
+        cfg, dt, dev = self.cfg, self.param_dtype, self.device
+        params = {
+            "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt,
+                                      dev),
+            "layers": _stack([init_block(gen, cfg, dt, dev)
+                              for _ in range(cfg.num_layers)]),
+            "ln_f": torch.ones(cfg.d_model, dtype=dt, device=dev),
+        }
+        if not cfg.tie_embeddings:
+            params["unembed"] = L.init_embedding(gen, cfg.vocab_size,
+                                                 cfg.d_model, dt, dev)
+        return params
+
+    def _unembed(self, params, x):
+        table = params["embed" if self.cfg.tie_embeddings else "unembed"]
+        return L.unembed(table, L.rms_norm(x, params["ln_f"],
+                                           self.cfg.norm_eps))
+
+    def _proj(self, aqua_proj, i):
+        return None if aqua_proj is None else aqua_proj[i]
+
+    def _run_layers(self, params, x, aqua_proj, lengths=None):
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        auxes = []
+        for i in range(self.cfg.num_layers):
+            x, aux = block_forward(self.cfg, layer_params(params["layers"], i),
+                                   x, positions, self._proj(aqua_proj, i),
+                                   lengths)
+            auxes.append(aux)
+        return x, auxes
+
+    # -- full-sequence forward ----------------------------------------
+    def forward(self, params, batch, aqua_proj=None, capture: bool = False):
+        """Logits (B, S, V) float32 [, {"qk": [(q, k) per layer]} when
+        ``capture``: post-RoPE activations for calibration]."""
+        x = L.embed(params["embed"], batch["tokens"], self.dtype)
+        x, auxes = self._run_layers(params, x, aqua_proj)
+        logits = self._unembed(params, x)
+        if capture:
+            return logits, {"qk": [(a["q"], a["k"]) for a in auxes]}
+        return logits
+
+    # -- serving --------------------------------------------------------
+    def _cache_dims(self):
+        acfg, aqua = self.cfg.attention, self.cfg.aqua
+        dk = acfg.head_dim
+        if aqua is not None and aqua.enabled:
+            if aqua.h2o_ratio < 1.0:
+                raise NotImplementedError("H2O eviction is not ported")
+            dk = aqua.kept_dims(acfg.head_dim)
+        return dk, acfg.head_dim
+
+    def init_decode_state(self, batch_size: int, max_seq: int,
+                          device=None) -> DecodeState:
+        """Empty lanes on the model's device (or ``device``, e.g. "meta"
+        for shape-only byte accounting)."""
+        cfg, acfg = self.cfg, self.cfg.attention
+        device = self.device if device is None else device
+        dk, dv = self._cache_dims()
+        slots = kv.cache_slots(max_seq)
+        pg = self._paging
+        if pg is not None:
+            layers = kv.init_paged_cache(
+                batch_size, acfg.num_kv_heads, pg.num_pages,
+                kv.paged_pages(slots, pg.page_size), pg.page_size, dk, dv,
+                self.dtype, device, num_layers=cfg.num_layers)
+        else:
+            layers = kv.init_attn_cache(batch_size, acfg.num_kv_heads, slots,
+                                        dk, dv, self.dtype, device,
+                                        num_layers=cfg.num_layers)
+        return DecodeState(layers=layers)
+
+    def prefill(self, params, batch, max_seq: int, aqua_proj=None):
+        """Prefill a (possibly ragged, ``batch["lengths"]``) prompt batch
+        into a fresh contiguous cache. Returns (next-token logits (B, V)
+        from each row's last valid token, DecodeState)."""
+        x = L.embed(params["embed"], batch["tokens"], self.dtype)
+        lengths = batch.get("lengths")
+        x, auxes = self._run_layers(params, x, aqua_proj, lengths)
+        caches = [attn.build_cache_from_prefill(a["k_cache"], a["v"],
+                                                max_seq, lengths)
+                  for a in auxes]
+        layers = kv.AttnCache(
+            *(torch.stack(ts) for ts in zip(*(
+                (c.k, c.v, c.positions, c.count) for c in caches))))
+        if lengths is None:
+            x_last = x[:, -1]
+        else:
+            idx = torch.clamp(lengths.long() - 1, 0, x.shape[1] - 1)
+            x_last = x[torch.arange(x.shape[0], device=x.device), idx]
+        return self._unembed(params, x_last), DecodeState(layers=layers)
+
+    def decode_step(self, params, state: DecodeState, tokens: torch.Tensor,
+                    aqua_proj=None, write_mask=None):
+        """tokens (B,) -> (logits (B, V) float32, state updated in place)."""
+        x = L.embed(params["embed"], tokens, self.dtype)
+        for i in range(self.cfg.num_layers):
+            x = block_step(self.cfg, layer_params(params["layers"], i), x,
+                           state.layers.layer(i), self._proj(aqua_proj, i),
+                           write_mask=write_mask)
+        return self._unembed(params, x), state
+
+    # -- paged lane surgery ---------------------------------------------
+    def graft_paged(self, state: DecodeState, req_state: DecodeState,
+                    lane: int, num_slots: int) -> DecodeState:
+        """Copy logical slots [0, num_slots) of a B=1 contiguous prefill
+        cache into ``lane``'s pages, layer by layer (the page-table row is
+        installed first, by the engine)."""
+        for i in range(self.cfg.num_layers):
+            kv.paged_graft(state.layers.layer(i), req_state.layers.layer(i),
+                           lane, num_slots)
+        return state
+
+    def reset_lane(self, state: DecodeState, lane: int,
+                   max_seq: int) -> DecodeState:
+        if self._paging is None:
+            return super().reset_lane(state, lane, max_seq)
+        for i in range(self.cfg.num_layers):
+            kv.paged_reset_lane(state.layers.layer(i), lane)
+        return state

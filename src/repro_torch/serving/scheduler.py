@@ -1,0 +1,235 @@
+"""Request scheduler for the continuous-batching engine (numpy only).
+
+The port's own copy of the JAX package's ``serving/scheduler.py``, cut to
+what monolithic admission uses (no chunked-prefill cursors, no prefix
+index). Host-side bookkeeping only; all device work is in
+``repro_torch.serving.engine``.
+
+Request lifecycle::
+
+    submit --> pending (arrival-ordered) --> admitted into a free *lane*
+           --> DECODING (one token per engine step) --> retired
+               (EOS, length limit) --> lane freed for the next request
+"""
+from __future__ import annotations
+
+import bisect
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+@dataclass
+class Request:
+    """One generation request. ``None`` sampling fields inherit the
+    engine's ``ServingConfig`` defaults. ``arrival`` is in decode-step
+    units: the engine admits a request once its arrival is <= the step
+    counter, which makes traces exactly reproducible."""
+
+    uid: int
+    tokens: np.ndarray  # (S,) int32 prompt
+    max_new_tokens: Optional[int] = None  # includes the prefill-sampled token
+    temperature: Optional[float] = None
+    top_k: Optional[int] = None
+    eos_id: Optional[int] = None
+    arrival: float = 0.0
+
+    @property
+    def prompt_len(self) -> int:
+        return int(np.asarray(self.tokens).shape[-1])
+
+
+@dataclass
+class StreamEvent:
+    """One streamed output token; ``index`` 0 is the token sampled from
+    the prefill logits."""
+
+    uid: int
+    token: int
+    index: int
+    finished: bool = False
+    finish_reason: str = ""  # "eos" | "length" when finished
+
+
+@dataclass
+class RequestOutput:
+    """Collected terminal result for one request (``engine.run``)."""
+
+    uid: int
+    prompt_len: int
+    tokens: List[int] = field(default_factory=list)
+    finish_reason: str = ""
+    admitted_at: int = -1
+    finished_at: int = -1
+
+
+@dataclass
+class ScheduleStats:
+    """Aggregate statistics of one ``serve``/``run`` drive. Times are host
+    wall-clock seconds."""
+
+    decode_steps: int = 0
+    tokens_emitted: int = 0
+    requests_finished: int = 0
+    occupancy_sum: int = 0       # sum over steps of active lanes
+    admissions: int = 0
+    admit_seconds: float = 0.0   # prefill + graft + first-token sampling
+    decode_seconds: float = 0.0  # decode steps incl. sampling
+    itl_gaps: List[float] = field(default_factory=list)
+
+    @property
+    def mean_occupancy(self) -> float:
+        return self.occupancy_sum / max(self.decode_steps, 1)
+
+    def itl_percentile(self, pct: float) -> float:
+        if not self.itl_gaps:
+            return 0.0
+        return float(np.percentile(np.asarray(self.itl_gaps), pct))
+
+
+class LaneScheduler:
+    """Admit/retire requests into a fixed set of decode lanes. Pending
+    requests are arrival-ordered (FIFO among equal arrivals); lanes are
+    recycled LIFO."""
+
+    def __init__(self, max_lanes: int):
+        assert max_lanes >= 1
+        self.max_lanes = max_lanes
+        self._pending: List[Request] = []
+        self._keys: List[tuple] = []  # (arrival, seq) sort keys
+        self._seq = 0
+        self._last_key: Optional[tuple] = None
+        self._lane_req: List[Optional[Request]] = [None] * max_lanes
+        self._free: List[int] = list(range(max_lanes - 1, -1, -1))
+
+    def submit(self, req: Request) -> None:
+        key = (float(req.arrival), self._seq)
+        i = bisect.bisect(self._keys, key)
+        self._keys.insert(i, key)
+        self._pending.insert(i, req)
+        self._seq += 1
+
+    @property
+    def has_pending(self) -> bool:
+        return bool(self._pending)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self._pending) or self.num_active > 0
+
+    @property
+    def num_active(self) -> int:
+        return self.max_lanes - len(self._free)
+
+    @property
+    def next_arrival(self) -> Optional[float]:
+        return self._keys[0][0] if self._keys else None
+
+    def request_in(self, lane: int) -> Request:
+        req = self._lane_req[lane]
+        assert req is not None, f"lane {lane} is free"
+        return req
+
+    def active_lanes(self) -> List[int]:
+        return [i for i, r in enumerate(self._lane_req) if r is not None]
+
+    def pop_admissible(self, now: float, skip: int = 0) -> Optional[Request]:
+        """Pop the (``skip``+1)-th arrived pending request if a lane is
+        free (``skip`` > 0: head-of-line lookahead past a request the page
+        pool cannot fit yet)."""
+        if not self._free or len(self._pending) <= skip:
+            return None
+        if self._keys[skip][0] > now:
+            return None
+        self._last_key = self._keys.pop(skip)
+        return self._pending.pop(skip)
+
+    def unpop(self, req: Request) -> None:
+        """Return the most recently popped request to its exact queue
+        position."""
+        key = self._last_key
+        i = bisect.bisect_left(self._keys, key)
+        self._keys.insert(i, key)
+        self._pending.insert(i, req)
+
+    def assign(self, req: Request) -> int:
+        lane = self._free.pop()
+        self._lane_req[lane] = req
+        return lane
+
+    def retire(self, lane: int) -> Request:
+        req = self._lane_req[lane]
+        assert req is not None, f"retiring free lane {lane}"
+        self._lane_req[lane] = None
+        self._free.append(lane)
+        return req
+
+
+class PagePool:
+    """Host-side free-list allocator for the paged KV cache: which physical
+    pages back each lane's page-table row. The device only ever receives
+    finished table rows. (No prefix sharing in the port yet, so every page
+    is mapped by at most one lane.)"""
+
+    def __init__(self, num_pages: int, page_size: int):
+        assert num_pages >= 1 and page_size >= 1
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self._free: List[int] = list(range(num_pages - 1, -1, -1))
+        self._lane_pages: Dict[int, List[int]] = {}
+        self.peak_in_use = 0
+        self.util_sum = 0.0
+        self.util_samples = 0
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.num_pages - len(self._free)
+
+    @property
+    def utilization(self) -> float:
+        return self.pages_in_use / self.num_pages
+
+    @property
+    def mean_utilization(self) -> float:
+        return self.util_sum / max(self.util_samples, 1)
+
+    def sample_utilization(self) -> None:
+        self.util_sum += self.utilization
+        self.util_samples += 1
+
+    def can_reserve(self, num_new: int) -> bool:
+        return num_new <= len(self._free)
+
+    def reserve(self, lane: int, num_new: int) -> Optional[List[int]]:
+        """Map ``num_new`` fresh pages into ``lane``; returns them in
+        logical order, or None (nothing changed) when the pool is short."""
+        assert lane not in self._lane_pages, f"lane {lane} already mapped"
+        if num_new > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(num_new)]
+        self._lane_pages[lane] = pages
+        self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
+        return list(pages)
+
+    def release(self, lane: int) -> None:
+        """Return a retired lane's pages to the free list."""
+        self._free.extend(self._lane_pages.pop(lane, []))
+
+
+def poisson_trace(num_requests: int, *, mean_interarrival: float,
+                  prompt_lens: tuple, max_new_tokens: int, vocab_size: int,
+                  seed: int = 0, temperature: float = 0.0) -> List[Request]:
+    """Synthetic mixed-traffic trace: Poisson arrivals (exponential
+    inter-arrival times in decode-step units), prompt lengths cycled from
+    ``prompt_lens``, random token prompts. Draws the same numbers as the
+    JAX package's ``poisson_trace`` for the same arguments."""
+    rng = np.random.default_rng(seed)
+    reqs, t = [], 0.0
+    for i in range(num_requests):
+        t += float(rng.exponential(mean_interarrival))
+        s = int(prompt_lens[i % len(prompt_lens)])
+        toks = rng.integers(0, vocab_size, size=(s,), dtype=np.int32)
+        reqs.append(Request(uid=i, tokens=toks, max_new_tokens=max_new_tokens,
+                            temperature=temperature, arrival=t))
+    return reqs
