@@ -237,14 +237,18 @@ def reset_counts() -> None:
 def serve_drive(eng, reqs) -> dict:
     """Serve ``reqs``; returns tokens per uid, the first admission's
     logits and wall-clock figures (the host reads every sampled token, so
-    each step's time includes its device work)."""
+    each step's time includes its device work). Every admission's logits
+    must be finite."""
     import torch
     tokens, first_logits = {}, None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for ev in eng.serve(reqs):
-        if first_logits is None:
-            first_logits = eng.last_admit_logits.float().clone()
+        if ev.index == 0:               # an admission: its prefill logits
+            logits = eng.last_admit_logits
+            assert torch.isfinite(logits).all(), f"request {ev.uid}"
+            if first_logits is None:
+                first_logits = logits.float().clone()
         tokens.setdefault(ev.uid, []).append(ev.token)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -347,7 +351,6 @@ def serve_phase(card: str) -> dict:
         for toks in run["tokens"].values():
             assert len(toks) == 32, len(toks)
             assert all(0 <= t < cfg.vocab_size for t in toks)
-        assert torch.isfinite(run["first_logits"]).all()
     assert len(run_paged["tokens"]) == 12 and len(run_contig["tokens"]) == 4
     # one more paged drive, traced: where the device time goes
     prof = profiled_drive(eng_paged, trace(4))
