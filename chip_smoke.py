@@ -13,19 +13,25 @@ Phases, each of which raises (non-zero exit) on failure:
    the serving shapes (bf16, D=128) of Qwen3-0.6B (H=16, KV=8) and of
    Llama-3.1-8B (H=32, KV=8): decode B=8, S=4096 (contiguous, and paged
    with 64-token pages and a shuffled page table); prefill B=1, S=2048.
-   One JSON line per kernel and geometry: max abs error against the stated
-   tolerance, kernel / plain / library ms (CUDA events) and the bound.
+   One JSON line per kernel and geometry: max abs error and the worst
+   ratio of error to the per-element tolerance, kernel / plain / library
+   ms (CUDA events) and the bound. Planted faults (one 256-position split
+   of a lane dropped, one head's dim-block selection shifted) must fail
+   the same tolerance: it is tight enough to catch a wrong kernel.
 4. Serve Qwen3-0.6B at its full published width and depth (random bf16
    weights from a seeded generator, AQUA k_ratio=0.75, block_dims=8,
    projections calibrated on ``corpora/calibration.txt``) through the
    continuous-batching engine: 12 Poisson requests (prompts 128/512/1024,
    32 new tokens, greedy) on the paged pool, then 4 on the contiguous
-   cache. The launch counters are zeroed just before and read just after;
-   every kernel of the path must have launched. The same paged trace is
-   also served by the kernels' plain versions (backend
-   ``aqua-block-sparse-plain``) to compare the first admission's logits
-   and the greedy tokens, and a paged drive of 4 requests runs under
-   ``torch.profiler`` for the device's idle share and its top kernels.
+   cache. The launch counters are zeroed just before each drive and read
+   just after it: each path must have launched its kernels once per layer
+   per admission and per decode step, and not the other path's decode
+   kernel. Both traces are also served by the kernels' plain versions
+   (backend ``aqua-block-sparse-plain``): every admission's logits and
+   those of the first decode steps (on lanes whose tokens still agree)
+   must match them within a stated bf16 limit; the greedy token match is
+   reported. A paged drive of 4 requests runs under ``torch.profiler``
+   for the device's idle share and its top kernels.
 5. The ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -43,10 +49,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 K_RATIO, BLOCK_DIMS = 0.75, 8
-# bf16 outputs: kernel and plain version both accumulate in float32 and
-# round once to bf16, in different summation orders -> about one bf16 ulp
-# of an output of magnitude <= 1.
-KERNEL_ATOL = 2e-2
+# bf16 outputs, per element |out - ref| <= KERNEL_RTOL * |ref| +
+# KERNEL_ATOL: kernel and plain version both compute in float32 from the
+# same inputs (in different summation orders) and round once to bf16, so
+# they may differ by one bf16 ulp, at most 2^-7 * |ref|; KERNEL_ATOL covers
+# the float32 difference near zero. Decode outputs average thousands of V
+# rows (|out| ~ 0.02), so an absolute limit alone would be too loose.
+KERNEL_RTOL, KERNEL_ATOL = 2.0 ** -7, 1e-4
+# logits of the bf16 model through 28 layers: kernel and plain attention
+# outputs differ by about one bf16 ulp per layer; each row's logits must
+# stay within 5% of that row's largest magnitude
+LOGIT_RTOL = 0.05
+DECODE_STEPS_CHECKED = 16
 
 
 def log(obj) -> None:
@@ -73,6 +87,34 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def tol_ratio(out, ref) -> float:
+    """Worst ratio of |out - ref| to the per-element tolerance (<= 1 is
+    within it)."""
+    ref = ref.float()
+    return ((out.float() - ref).abs()
+            / (KERNEL_RTOL * ref.abs() + KERNEL_ATOL)).max().item()
+
+
+def check_kernel(out, ref, faults: dict) -> dict:
+    """Error of ``out`` against ``ref``, and the same for each planted
+    fault's output, which must fall outside the tolerance."""
+    ratio = tol_ratio(out, ref)
+    caught = {name: tol_ratio(f, ref) for name, f in faults.items()}
+    return dict(max_abs_err=(out.float() - ref.float()).abs().max().item(),
+                tol_ratio=ratio, fault_tol_ratios=caught,
+                ok=ratio <= 1.0 and all(r > 1.0 for r in caught.values()))
+
+
+def shifted(block_idx, nb: int):
+    """``block_idx`` with lane 0, head 0 (and chunk 0) choosing every
+    selected block one further, mod ``nb``: a planted selection fault."""
+    import torch
+    bad = block_idx.clone()
+    first = (0,) * (bad.ndim - 1)
+    bad[first] = torch.sort((bad[first] + 1) % nb)[0]
+    return bad.contiguous()
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -102,6 +144,9 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen) -> dict:
     scale = d ** -0.5
     nsel = round_k_dims(d, K_RATIO, BLOCK_DIMS)
     block_idx = aqua.topk_block_indices(q, nsel, BLOCK_DIMS).contiguous()
+    nb = d // BLOCK_DIMS
+    cut = lengths.clone()
+    cut[0] -= 256                      # lane 0 loses its last split
     if paged:
         npl = s // ps
         perm = torch.randperm(b * npl, device=dev, generator=gen)
@@ -112,7 +157,7 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen) -> dict:
         k_pool[table.long()] = k.reshape(b, kvh, npl, ps, d).transpose(1, 2)
         v_pool[table.long()] = v.reshape(b, kvh, npl, ps, d).transpose(1, 2)
 
-        def kernel():
+        def kernel(block_idx=block_idx, lengths=lengths):
             return dk.aqua_paged_decode_attention(
                 q, k_pool, v_pool, block_idx, table, lengths,
                 block_dims=BLOCK_DIMS, scale=scale)
@@ -122,7 +167,7 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen) -> dict:
                                         lengths, table,
                                         block_dims=BLOCK_DIMS, scale=scale)
     else:
-        def kernel():
+        def kernel(block_idx=block_idx, lengths=lengths):
             return dk.aqua_decode_attention(q, k, v, block_idx, lengths,
                                             block_dims=BLOCK_DIMS,
                                             scale=scale)
@@ -131,9 +176,9 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen) -> dict:
             return dk.aqua_decode_plain(q, k, v, block_idx, lengths, None,
                                         block_dims=BLOCK_DIMS, scale=scale)
 
-    out, ref = kernel(), plain()
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
+    check = check_kernel(kernel(), plain(), {
+        "dropped_split": kernel(lengths=cut),
+        "shifted_block": kernel(block_idx=shifted(block_idx, nb))})
     # yardstick: one library call on the equivalent masked-q̂ dense problem
     sel = torch.zeros(b, h, d // BLOCK_DIMS, device=dev)
     sel.scatter_(-1, block_idx.long(), 1.0)
@@ -158,8 +203,7 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen) -> dict:
     return dict(name=name, geometry=geom, shape=dict(B=b, H=h, KV=kvh, S=s,
                                                      D=d, page_size=ps
                                                      if paged else None),
-                max_abs_err=err, tol=KERNEL_ATOL, ok=err <= KERNEL_ATOL,
-                ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                **check, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
                 library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
 
 
@@ -182,15 +226,14 @@ def prefill_phase(geom: str, h: int, kvh: int, gen) -> dict:
                                               lengths).contiguous()
     kw = dict(block_dims=BLOCK_DIMS, q_blk=q_blk, causal=True, scale=scale)
 
-    def kernel():
+    def kernel(block_idx=block_idx):
         return pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
 
     def plain():
         return pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
 
-    out, ref = kernel(), plain()
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
+    check = check_kernel(kernel(), plain(), {
+        "shifted_block": kernel(shifted(block_idx, d // BLOCK_DIMS))})
     sel = torch.zeros(b, h, s // q_blk, d // BLOCK_DIMS, device=dev)
     sel.scatter_(-1, block_idx.long(), 1.0)
     qmask = sel.repeat_interleave(BLOCK_DIMS, -1).repeat_interleave(q_blk, 2)
@@ -208,8 +251,7 @@ def prefill_phase(geom: str, h: int, kvh: int, gen) -> dict:
     bms, by = bound(nbytes, ops)
     return dict(name="aqua_prefill", geometry=geom,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, q_blk=q_blk),
-                max_abs_err=err, tol=KERNEL_ATOL, ok=err <= KERNEL_ATOL,
-                ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                **check, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
                 library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
 
 
@@ -235,25 +277,39 @@ def reset_counts() -> None:
 
 
 def serve_drive(eng, reqs) -> dict:
-    """Serve ``reqs``; returns tokens per uid, the first admission's
-    logits and wall-clock figures (the host reads every sampled token, so
-    each step's time includes its device work). Every admission's logits
-    must be finite."""
+    """Serve ``reqs``; returns tokens per uid, each admission's logits, the
+    logits of the first decode steps with each lane's uid and the tokens
+    it held at that step, and wall-clock figures (the host reads every
+    sampled token, so each step's time includes its device work). Every
+    admission's and every decode step's logits must be finite."""
     import torch
-    tokens, first_logits = {}, None
+    tokens, admit_logits, steps = {}, {}, []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for ev in eng.serve(reqs):
         if ev.index == 0:               # an admission: its prefill logits
             logits = eng.last_admit_logits
             assert torch.isfinite(logits).all(), f"request {ev.uid}"
-            if first_logits is None:
-                first_logits = logits.float().clone()
+            admit_logits[ev.uid] = logits.float().clone()
+        elif eng.stats.decode_steps > len(steps):
+            # the first event of a new decode step: ``tokens`` still holds
+            # what each lane had fed in
+            logits = eng.last_step_logits
+            assert torch.isfinite(logits).all(), \
+                f"decode step {eng.stats.decode_steps}"
+            if len(steps) < DECODE_STEPS_CHECKED:
+                uids = [int(u) for u in eng.last_lanes.uid]
+                steps.append(dict(logits=logits.float().clone(), uids=uids,
+                                  held={u: tuple(tokens[u]) for u in uids
+                                        if u in tokens}))
+            else:
+                steps.append(None)
         tokens.setdefault(ev.uid, []).append(ev.token)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = eng.stats
-    return dict(tokens=tokens, first_logits=first_logits, wall_s=wall,
+    return dict(tokens=tokens, admit_logits=admit_logits,
+                step_logits=[x for x in steps if x is not None], wall_s=wall,
                 tokens_emitted=st.tokens_emitted,
                 tokens_per_s=st.tokens_emitted / wall,
                 decode_steps=st.decode_steps,
@@ -264,6 +320,47 @@ def serve_drive(eng, reqs) -> dict:
                 itl_p50_ms=1e3 * st.itl_percentile(50),
                 itl_p99_ms=1e3 * st.itl_percentile(99),
                 mean_occupancy=st.mean_occupancy)
+
+
+def compare_logits(run: dict, ref: dict, max_new: int) -> dict:
+    """Logits of the kernel drive against the plain drive of the same
+    trace: every admission (same prompt), and in each checked decode step
+    every lane that was still generating and held the same tokens in both
+    drives. Each row must stay within LOGIT_RTOL of its largest
+    magnitude; raises otherwise."""
+    def row_check(got, want, what):
+        err = (got - want).abs().max().item()
+        limit = LOGIT_RTOL * want.abs().max().item()
+        assert err <= limit, f"{what}: logits error {err} > {limit}"
+        return err / limit
+    worst_admit = max(row_check(run["admit_logits"][u], want, f"admit {u}")
+                      for u, want in ref["admit_logits"].items())
+    worst_step, rows = 0.0, 0
+    assert len(run["step_logits"]) == len(ref["step_logits"]) \
+        == DECODE_STEPS_CHECKED
+    for i, (got, want) in enumerate(zip(run["step_logits"],
+                                        ref["step_logits"])):
+        assert got["uids"] == want["uids"], (i, got["uids"], want["uids"])
+        for lane, u in enumerate(want["uids"]):
+            held = want["held"].get(u)
+            if held is None or len(held) >= max_new \
+                    or got["held"].get(u) != held:
+                continue
+            worst_step = max(worst_step, row_check(
+                got["logits"][lane], want["logits"][lane],
+                f"decode step {i + 1} lane {lane}"))
+            rows += 1
+    assert rows > 0, "no decode-step logits were compared"
+    pairs = [(a, b) for uid in ref["tokens"]
+             for a, b in zip(run["tokens"][uid], ref["tokens"][uid])]
+    return dict(admissions_compared=len(ref["admit_logits"]),
+                admit_worst_err_over_limit=worst_admit,
+                decode_rows_compared=rows,
+                decode_worst_err_over_limit=worst_step,
+                greedy_token_match=sum(a == b for a, b in pairs) / len(pairs),
+                first_token_match=sum(
+                    run["tokens"][u][0] == ref["tokens"][u][0]
+                    for u in ref["tokens"]) / len(ref["tokens"]))
 
 
 def profiled_drive(eng, reqs) -> dict:
@@ -327,66 +424,54 @@ def serve_phase(card: str) -> dict:
                           cache=CacheSpec(page_size=64, prefix_sharing=False))
     contiguous = dataclasses.replace(paged, cache=None)
 
-    # the reference: the same engine through the kernels' plain versions
-    reset_counts()
-    ref = serve_drive(ContinuousBatchingEngine(
-        cfg, params, proj, serving=paged,
-        backend="aqua-block-sparse-plain"), trace(12))
-    assert sum(launch_counts().values()) == 0, launch_counts()
-
-    eng_paged = ContinuousBatchingEngine(cfg, params, proj, serving=paged)
-    eng_contig = ContinuousBatchingEngine(cfg, params, proj,
-                                          serving=contiguous)
-    reset_counts()
-    run_paged = serve_drive(eng_paged, trace(12))
-    after_paged = launch_counts()
-    run_contig = serve_drive(eng_contig, trace(4))
-    counts = launch_counts()
-    assert after_paged["aqua_prefill"] > 0, after_paged
-    assert after_paged["aqua_paged_decode"] > 0, after_paged
-    assert counts["aqua_decode"] - after_paged["aqua_decode"] > 0, counts
-    assert counts["aqua_prefill"] > after_paged["aqua_prefill"], counts
-
-    for run in (run_paged, run_contig, ref):
+    def drive(serving, n: int, backend=None) -> dict:
+        """One drive with the counters zeroed just before it and read just
+        after it."""
+        eng = ContinuousBatchingEngine(cfg, params, proj, serving=serving,
+                                       backend=backend)
+        reset_counts()
+        run = serve_drive(eng, trace(n))
+        run["launches"], run["engine"] = launch_counts(), eng
+        assert len(run["tokens"]) == n, len(run["tokens"])
         for toks in run["tokens"].values():
             assert len(toks) == 32, len(toks)
             assert all(0 <= t < cfg.vocab_size for t in toks)
-    assert len(run_paged["tokens"]) == 12 and len(run_contig["tokens"]) == 4
+        return run
+
+    layers = cfg.num_layers
+    runs = {}
+    for path, serving, n, decode_kernel in (
+            ("paged", paged, 12, "aqua_paged_decode"),
+            ("contiguous", contiguous, 4, "aqua_decode")):
+        # the reference: the same engine through the kernels' plain versions
+        ref = drive(serving, n, backend="aqua-block-sparse-plain")
+        assert sum(ref["launches"].values()) == 0, ref["launches"]
+        run = drive(serving, n)
+        want = {"aqua_prefill": layers * run["admissions"],
+                "aqua_decode": 0, "aqua_paged_decode": 0}
+        want[decode_kernel] = layers * run["decode_steps"]
+        assert run["launches"] == want, (path, run["launches"], want)
+        run["vs_plain"] = compare_logits(run, ref, 32)
+        runs[path], runs[path + "_plain"] = run, ref
     # one more paged drive, traced: where the device time goes
-    prof = profiled_drive(eng_paged, trace(4))
+    prof = profiled_drive(runs["paged"]["engine"], trace(4))
     log(f"[serve paged, traced] device idle share {prof['idle_share']:.3f} "
         f"on {card}")
-    lk, lp = run_paged["first_logits"], ref["first_logits"]
-    logit_err = (lk - lp).abs().max().item()
-    logit_scale = lp.abs().max().item()
-    # bf16 model: kernel and plain attention outputs differ by ~one bf16
-    # ulp per layer; through 28 layers the first admission's logits must
-    # stay within 5% of their largest magnitude
-    logit_tol = 0.05 * logit_scale
-    assert logit_err <= logit_tol, (logit_err, logit_tol)
-    pairs = [(a, b) for uid in ref["tokens"]
-             for a, b in zip(run_paged["tokens"][uid], ref["tokens"][uid])]
-    match = sum(a == b for a, b in pairs) / len(pairs)
-    same_first = sum(run_paged["tokens"][u][0] == ref["tokens"][u][0]
-                     for u in ref["tokens"]) / len(ref["tokens"])
 
     summary = {}
-    for key, run in (("paged", run_paged), ("contiguous", run_contig),
-                     ("paged_plain", ref)):
+    for key, run in runs.items():
         summary[key] = {k: v for k, v in run.items()
-                        if k not in ("tokens", "first_logits")}
+                        if k not in ("tokens", "admit_logits", "step_logits",
+                                     "engine")}
         log(f"[serve {key}] tokens/s {run['tokens_per_s']:.2f} on {card}")
         log(f"[serve {key}] decode step ms {run['decode_step_ms']:.3f} "
             f"on {card}")
     result = dict(model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-                  setup_s=setup_s, launches=counts,
-                  launches_paged_run=after_paged,
-                  first_logits_max_abs_err=logit_err,
-                  first_logits_tol=logit_tol,
-                  greedy_token_match=match, first_token_match=same_first,
+                  setup_s=setup_s, logit_rtol=LOGIT_RTOL,
                   profile_paged=prof,
-                  cache_bytes_paged=eng_paged.cache_bytes(),
-                  cache_bytes_contiguous=eng_contig.cache_bytes(),
+                  cache_bytes_paged=runs["paged"]["engine"].cache_bytes(),
+                  cache_bytes_contiguous=runs["contiguous"][
+                      "engine"].cache_bytes(),
                   **summary)
     log({"serve": result})
     return result
@@ -436,14 +521,20 @@ def main() -> int:
                    "src/repro/kernels/aqua_decode.py:99"),
                "aqua_prefill": ("src/repro_torch/kernels/csrc/aqua_prefill.cu",
                                 "src/repro/kernels/aqua_prefill.py:58")}
+    # each kernel's launches in the drive of its path (the prefill kernel's
+    # main path is the paged one), and in each path's own drive
+    main_path = {"aqua_decode": "contiguous", "aqua_paged_decode": "paged",
+                 "aqua_prefill": "paged"}
     kernels = []
     for p in phases:
         if p["geometry"] != "qwen3-0.6b":
             continue
         src, rep = sources[p["name"]]
+        by_path = {path: serve[path]["launches"][p["name"]]
+                   for path in ("paged", "contiguous")}
         kernels.append(dict(
             name=p["name"], route="cuda", source=src, replaces=rep,
-            launches=serve["launches"][p["name"]],
+            launches=by_path[main_path[p["name"]]], launches_by_path=by_path,
             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=p["library_ms"]))

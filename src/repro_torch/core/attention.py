@@ -26,6 +26,7 @@ proj P (KV, D, D) per layer.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -34,6 +35,11 @@ from repro_torch.configs.base import AquaConfig, AttentionConfig
 from repro_torch.core import aqua as aqua_lib
 from repro_torch.core import kvcache as kv
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.aqua_decode import (aqua_decode_attention,
+                                             aqua_decode_plain,
+                                             aqua_paged_decode_attention)
+from repro_torch.kernels.aqua_prefill import (aqua_prefill_attention,
+                                              aqua_prefill_plain)
 
 NEG_INF = -1e30
 
@@ -228,65 +234,56 @@ def _dense_prefill(qq, kk, v, *, cfg, aqua, positions, lengths, causal):
     return out, weights
 
 
-def _block_sparse_prefill(qh, kh, v, *, cfg, aqua, positions, lengths,
-                          causal, plain=False):
-    """AQUA block-sparse prefill: per-chunk dim-block selection over
-    unmasked q̂ (``ops.aqua_prefill``). Scores use the FULL head_dim."""
-    b, s, kvh, g, dk = qh.shape
-    dv = v.shape[-1]
-    qf = qh.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, dk)
-    of = kops.aqua_prefill(qf, kh.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                           lengths, k_ratio=aqua.k_ratio,
-                           block_dims=aqua.block_dims,
-                           q_blk=aqua.prefill_q_blk, causal=causal,
-                           scale=1.0 / float(cfg.head_dim) ** 0.5,
-                           plain=plain)
-    return of.reshape(b, kvh, g, s, dv).permute(0, 3, 1, 2, 4), None
+def _block_sparse_backend(name: str, prefill_kernel, decode_kernel,
+                          paged_decode_kernel) -> AttentionBackend:
+    """AQUA block-sparse backend over the given kernel functions, with the
+    shared selection of ``ops.prefill_blocks`` / ``ops.decode_blocks``.
+    Scores use the FULL head_dim. Paged decode hands the kernel the page
+    table: no lane view is gathered."""
 
+    def prefill(qh, kh, v, *, cfg, aqua, positions, lengths, causal):
+        b, s, kvh, g, dk = qh.shape
+        qf = qh.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, dk)
+        block_idx, lens, q_blk = kops.prefill_blocks(
+            qf, lengths, aqua.k_ratio, aqua.block_dims, aqua.prefill_q_blk)
+        of = prefill_kernel(qf, kh.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                            block_idx, lens, block_dims=aqua.block_dims,
+                            q_blk=q_blk, causal=causal,
+                            scale=1.0 / float(cfg.head_dim) ** 0.5)
+        return of.reshape(b, kvh, g, s, -1).permute(0, 3, 1, 2, 4), None
 
-def _block_sparse_decode(q_hat, cache: kv.AttnCache, *, cfg, aqua,
-                         plain=False):
-    """AQUA decode over the contiguous cache. q_hat (B, KV, G, Dk)."""
-    b, kvh, g, dk = q_hat.shape
-    lengths = torch.clamp(cache.count, max=cache.num_slots)
-    out = kops.aqua_decode(q_hat.reshape(b, kvh * g, dk), cache.k, cache.v,
-                           lengths, k_ratio=aqua.k_ratio,
-                           block_dims=aqua.block_dims,
-                           scale=1.0 / float(cfg.head_dim) ** 0.5,
-                           plain=plain)
-    return out.reshape(b, kvh, g, -1)
+    def decode(kernel, q_hat, k, v, cache, cfg, aqua, **table):
+        b, kvh, g, dk = q_hat.shape
+        q = q_hat.reshape(b, kvh * g, dk).contiguous()
+        lengths = torch.clamp(cache.count, max=cache.num_slots)
+        out = kernel(q, k, v, kops.decode_blocks(q, aqua.k_ratio,
+                                                 aqua.block_dims),
+                     lengths=lengths.to(torch.int32).contiguous(),
+                     block_dims=aqua.block_dims,
+                     scale=1.0 / float(cfg.head_dim) ** 0.5, **table)
+        return out.reshape(b, kvh, g, -1)
 
+    def contiguous_decode(q_hat, cache: kv.AttnCache, *, cfg, aqua):
+        return decode(decode_kernel, q_hat, cache.k, cache.v, cache, cfg,
+                      aqua)
 
-def _block_sparse_paged_decode(q_hat, cache: kv.PagedAttnCache, *, cfg, aqua,
-                               plain=False):
-    """AQUA decode over the page pool: the kernel resolves each position's
-    page through the table; no lane view is gathered."""
-    b, kvh, g, dk = q_hat.shape
-    lengths = torch.clamp(cache.count, max=cache.num_slots)
-    out = kops.aqua_paged_decode(q_hat.reshape(b, kvh * g, dk), cache.k_pool,
-                                 cache.v_pool, cache.page_table, lengths,
-                                 k_ratio=aqua.k_ratio,
-                                 block_dims=aqua.block_dims,
-                                 scale=1.0 / float(cfg.head_dim) ** 0.5,
-                                 plain=plain)
-    return out.reshape(b, kvh, g, -1)
+    def paged_decode(q_hat, cache: kv.PagedAttnCache, *, cfg, aqua):
+        return decode(paged_decode_kernel, q_hat, cache.k_pool, cache.v_pool,
+                      cache, cfg, aqua, page_table=cache.page_table.to(
+                          torch.int32).contiguous())
 
-
-def _plain(fn):
-    def run(*args, **kw):
-        return fn(*args, plain=True, **kw)
-    return run
+    return AttentionBackend(name, prefill, decode=contiguous_decode,
+                            paged_decode=paged_decode, aqua_native=True)
 
 
 register_backend(AttentionBackend("dense", _dense_prefill))
 register_backend(AttentionBackend("aqua-masked-dense", _dense_prefill))
-register_backend(AttentionBackend(
-    "aqua-block-sparse", _block_sparse_prefill, decode=_block_sparse_decode,
-    paged_decode=_block_sparse_paged_decode, aqua_native=True))
-register_backend(AttentionBackend(
-    "aqua-block-sparse-plain", _plain(_block_sparse_prefill),
-    decode=_plain(_block_sparse_decode),
-    paged_decode=_plain(_block_sparse_paged_decode), aqua_native=True))
+register_backend(_block_sparse_backend(
+    "aqua-block-sparse", aqua_prefill_attention, aqua_decode_attention,
+    aqua_paged_decode_attention))
+register_backend(_block_sparse_backend(
+    "aqua-block-sparse-plain", aqua_prefill_plain,
+    functools.partial(aqua_decode_plain, page_table=None), aqua_decode_plain))
 
 
 # ---------------------------------------------------------------------------

@@ -7,13 +7,9 @@ the CUDA kernels for CUDA tensors and run the plain versions for CPU
 tensors. Unlike the JAX ops they never build the dim-major view of the
 cache: the CUDA kernels read the selected blocks of the seq-major cache
 directly (:func:`to_dim_major_blocks` is kept for tests and byte
-accounting).
-
-``plain=True`` runs the kernels' plain PyTorch versions on whatever device
-the tensors are on, with the same selection: the reference a GPU run
-compares the kernels against (backend ``aqua-block-sparse-plain``). It is
-only ever an explicit request; without it a CUDA tensor always goes to the
-kernel.
+accounting). The selection helpers :func:`decode_blocks` and
+:func:`prefill_blocks` are shared with the attention backends, including
+the reference backend that runs the plain versions on the card.
 """
 from __future__ import annotations
 
@@ -24,10 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import aqua as aqua_lib
 from repro_torch.kernels.aqua_decode import (aqua_decode_attention,
-                                             aqua_decode_plain,
                                              aqua_paged_decode_attention)
-from repro_torch.kernels.aqua_prefill import (aqua_prefill_attention,
-                                              aqua_prefill_plain)
+from repro_torch.kernels.aqua_prefill import aqua_prefill_attention
 
 
 def to_dim_major_blocks(khat: torch.Tensor, block_dims: int) -> torch.Tensor:
@@ -50,73 +44,26 @@ def block_counts(d: int, k_ratio: float, block_dims: int) -> tuple:
     return d // block_dims, round_k_dims(d, k_ratio, block_dims) // block_dims
 
 
-def _scale(scale: Optional[float], d: int) -> float:
-    return 1.0 / d ** 0.5 if scale is None else scale
-
-
 def _i32(x: torch.Tensor, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.int32).contiguous()
 
 
-def aqua_decode(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
-                lengths: torch.Tensor, *, k_ratio: float = 0.75,
-                block_dims: int = 8, scale: Optional[float] = None,
-                plain: bool = False) -> torch.Tensor:
-    """AQUA decode attention over a contiguous cache (selection + kernel).
-
-    q_hat (B, H, D); khat (B, KV, S, D) seq-major; v (B, KV, S, Dv);
-    lengths (B,). Returns (B, H, Dv)."""
-    d = q_hat.shape[-1]
-    block_idx = aqua_lib.topk_block_indices(
-        q_hat, round_k_dims(d, k_ratio, block_dims), block_dims).contiguous()
-    lengths = _i32(lengths, q_hat.device)
-    if plain:
-        return aqua_decode_plain(q_hat, khat, v, block_idx, lengths, None,
-                                 block_dims=block_dims,
-                                 scale=_scale(scale, d))
-    return aqua_decode_attention(q_hat.contiguous(), khat, v, block_idx,
-                                 lengths, block_dims=block_dims, scale=scale)
+def decode_blocks(q_hat: torch.Tensor, k_ratio: float,
+                  block_dims: int) -> torch.Tensor:
+    """Decode selection: (B, H, NB_sel) int32 dim-blocks by |q̂|."""
+    return aqua_lib.topk_block_indices(
+        q_hat, round_k_dims(q_hat.shape[-1], k_ratio, block_dims),
+        block_dims).contiguous()
 
 
-def aqua_paged_decode(q_hat: torch.Tensor, k_pool: torch.Tensor,
-                      v_pool: torch.Tensor, page_table: torch.Tensor,
-                      lengths: torch.Tensor, *, k_ratio: float = 0.75,
-                      block_dims: int = 8, scale: Optional[float] = None,
-                      plain: bool = False) -> torch.Tensor:
-    """AQUA decode attention over a page pool (full precision).
+def prefill_blocks(q_hat: torch.Tensor, lengths: Optional[torch.Tensor],
+                   k_ratio: float, block_dims: int, q_blk: int) -> tuple:
+    """Prefill selection: queries are taken in chunks of ``q_blk``
+    (clamped to the sequence, rounded up to 8); each chunk shares the
+    dim-blocks selected from its summed |q̂| over valid rows.
 
-    q_hat (B, H, D); k_pool (P, KV, ps, D); v_pool (P, KV, ps, Dv);
-    page_table (B, NP) int32 (-1 unmapped); lengths (B,)."""
-    d = q_hat.shape[-1]
-    block_idx = aqua_lib.topk_block_indices(
-        q_hat, round_k_dims(d, k_ratio, block_dims), block_dims).contiguous()
-    page_table = _i32(page_table, q_hat.device)
-    lengths = _i32(lengths, q_hat.device)
-    if plain:
-        return aqua_decode_plain(q_hat, k_pool, v_pool, block_idx, lengths,
-                                 page_table, block_dims=block_dims,
-                                 scale=_scale(scale, d))
-    return aqua_paged_decode_attention(
-        q_hat.contiguous(), k_pool, v_pool, block_idx, page_table, lengths,
-        block_dims=block_dims, scale=scale)
-
-
-def aqua_prefill(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
-                 lengths: Optional[torch.Tensor] = None, *,
-                 k_ratio: float = 0.75, block_dims: int = 8,
-                 q_blk: int = 128, causal: bool = True,
-                 scale: Optional[float] = None,
-                 plain: bool = False) -> torch.Tensor:
-    """AQUA block-sparse prefill attention.
-
-    Queries are taken in chunks of ``q_blk`` (clamped to the sequence,
-    rounded up to 8); each chunk shares the dim-blocks selected from its
-    summed |q̂| over valid rows (``aqua.chunk_topk_block_indices``).
-
-    q_hat (B, H, S, D); khat (B, KV, S, D); v (B, KV, S, Dv) — views of any
-    strides with a contiguous last axis; lengths (B,) (None = all full).
-    Returns (B, H, S, Dv); rows at or past a row's length are don't-care.
-    """
+    Returns (block_idx (B, H, NQC, NB_sel) int32, lengths (B,) int32 —
+    all full when None —, the chunk size used)."""
     b, h, s, d = q_hat.shape
     dev = q_hat.device
     lengths = (torch.full((b,), s, dtype=torch.int32, device=dev)
@@ -127,10 +74,51 @@ def aqua_prefill(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
     block_idx = aqua_lib.chunk_topk_block_indices(
         qsel, round_k_dims(d, k_ratio, block_dims), block_dims, q_blk,
         lengths).contiguous()
-    if plain:
-        return aqua_prefill_plain(q_hat, khat, v, block_idx, lengths,
+    return block_idx, lengths, q_blk
+
+
+def aqua_decode(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
+                lengths: torch.Tensor, *, k_ratio: float = 0.75,
+                block_dims: int = 8, scale: Optional[float] = None
+                ) -> torch.Tensor:
+    """AQUA decode attention over a contiguous cache (selection + kernel).
+
+    q_hat (B, H, D); khat (B, KV, S, D) seq-major; v (B, KV, S, Dv);
+    lengths (B,). Returns (B, H, Dv)."""
+    return aqua_decode_attention(
+        q_hat.contiguous(), khat, v, decode_blocks(q_hat, k_ratio, block_dims),
+        _i32(lengths, q_hat.device), block_dims=block_dims, scale=scale)
+
+
+def aqua_paged_decode(q_hat: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, page_table: torch.Tensor,
+                      lengths: torch.Tensor, *, k_ratio: float = 0.75,
+                      block_dims: int = 8, scale: Optional[float] = None
+                      ) -> torch.Tensor:
+    """AQUA decode attention over a page pool (full precision).
+
+    q_hat (B, H, D); k_pool (P, KV, ps, D); v_pool (P, KV, ps, Dv);
+    page_table (B, NP) int32 (-1 unmapped); lengths (B,)."""
+    return aqua_paged_decode_attention(
+        q_hat.contiguous(), k_pool, v_pool,
+        decode_blocks(q_hat, k_ratio, block_dims),
+        _i32(page_table, q_hat.device), _i32(lengths, q_hat.device),
+        block_dims=block_dims, scale=scale)
+
+
+def aqua_prefill(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
+                 lengths: Optional[torch.Tensor] = None, *,
+                 k_ratio: float = 0.75, block_dims: int = 8,
+                 q_blk: int = 128, causal: bool = True,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """AQUA block-sparse prefill attention (selection: :func:`prefill_blocks`).
+
+    q_hat (B, H, S, D); khat (B, KV, S, D); v (B, KV, S, Dv) — views of any
+    strides with a contiguous last axis; lengths (B,) (None = all full).
+    Returns (B, H, S, Dv); rows at or past a row's length are don't-care.
+    """
+    block_idx, lengths, q_blk = prefill_blocks(q_hat, lengths, k_ratio,
+                                               block_dims, q_blk)
+    return aqua_prefill_attention(q_hat, khat, v, block_idx, lengths,
                                   block_dims=block_dims, q_blk=q_blk,
-                                  causal=causal, scale=_scale(scale, d))
-    return aqua_prefill_attention(q_hat, khat, v, block_idx,
-                                  lengths, block_dims=block_dims, q_blk=q_blk,
                                   causal=causal, scale=scale)

@@ -94,6 +94,8 @@ class ContinuousBatchingEngine:
 
     ``device`` None serves on the CUDA card (raises without one); the
     tests pass ``device="cpu"``. ``params`` must already live on it.
+    ``last_admit_logits`` / ``last_step_logits`` hold the logits of the
+    latest admission and decode step.
     """
 
     def __init__(self, cfg: ModelConfig, params,
@@ -240,6 +242,7 @@ class ContinuousBatchingEngine:
         logits, _ = self.model.decode_step(self.params, state, tokens,
                                            aqua_proj=self.proj,
                                            write_mask=active)
+        self.last_step_logits = logits
         seeds = np.array([self._seed(int(u), int(g)) if t > 0 else 0
                           for u, g, t in zip(lanes.uid, lanes.generated,
                                              lanes.temperature)])
