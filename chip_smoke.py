@@ -12,26 +12,37 @@ Phases, each of which raises (non-zero exit) on failure:
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes (bf16, D=128) of Qwen3-0.6B (H=16, KV=8) and of
    Llama-3.1-8B (H=32, KV=8): decode B=8, S=4096 (contiguous, and paged
-   with 64-token pages and a shuffled page table); prefill B=1, S=2048.
-   One JSON line per kernel and geometry: max abs error and the worst
-   ratio of error to the per-element tolerance, kernel / plain / library
-   ms (CUDA events) and the bound. Planted faults (one 256-position split
-   of a lane dropped, one head's dim-block selection shifted) must fail
-   the same tolerance: it is tight enough to catch a wrong kernel.
+   with 64-token pages and a shuffled page table; the paged variants with
+   int8 pools and per-(page, head) scales, with the participating pages of
+   hierarchical AQUA at page_keep_ratio 0.25, and with both); prefill and
+   flash attention B=1, S=2048, causal. One JSON line per kernel and
+   geometry: max abs error and the worst ratio of error to the per-element
+   tolerance, kernel / plain / library ms (CUDA events) and the bound.
+   Planted faults must fail the same tolerance, so it is tight enough to
+   catch a wrong kernel: one 256-position split of a lane dropped, one
+   head's dim-block selection shifted (decode, prefill); a window that
+   cuts the far keys and a causal diagonal shifted by one key (flash); one
+   page's key scale doubled (int8); one participating page swapped for a
+   dropped one (participating pages).
 4. Serve Qwen3-0.6B at its full published width and depth (random bf16
-   weights from a seeded generator, AQUA k_ratio=0.75, block_dims=8,
-   projections calibrated on ``corpora/calibration.txt``) through the
-   continuous-batching engine: 12 Poisson requests (prompts 128/512/1024,
-   32 new tokens, greedy) on the paged pool, then 4 on the contiguous
-   cache. The launch counters are zeroed just before each drive and read
-   just after it: each path must have launched its kernels once per layer
-   per admission and per decode step, and not the other path's decode
-   kernel. Both traces are also served by the kernels' plain versions
-   (backend ``aqua-block-sparse-plain``): every admission's logits and
-   those of the first decode steps (on lanes whose tokens still agree)
-   must match them within a stated bf16 limit; the greedy token match is
-   reported. A paged drive of 4 requests runs under ``torch.profiler``
-   for the device's idle share and its top kernels.
+   weights from a seeded generator, projections calibrated on
+   ``corpora/calibration.txt``) through the continuous-batching engine, in
+   six drives of a Poisson trace (prompts 128/512/1024, 32 new tokens,
+   greedy, 8 lanes): AQUA (k_ratio 0.75, block_dims 8) on the paged pool
+   and on the contiguous cache; AQUA off on the paged pool (flash
+   prefill); AQUA on an int8 paged pool; hierarchical AQUA
+   (page_keep_ratio 0.25 of 32 pages, prompts 512/1024) on a bf16 and on
+   an int8 paged pool. The launch counters are zeroed just before each
+   drive and read just after it: each drive must have launched its
+   kernels once per layer per admission and per decode step, and no other
+   kernel. Each trace is also served by its reference (the kernels' plain
+   versions, backend ``aqua-block-sparse-plain``; for AQUA off the
+   ``dense`` backend): every admission's logits and those of the first
+   decode steps (on lanes whose tokens still agree) must match within a
+   stated bf16 limit; the greedy token match is reported. The int8 pool
+   must take < 0.60 of the bf16 pool's bytes. A paged drive of 4 requests
+   runs under ``torch.profiler`` for the device's idle share and its top
+   kernels.
 5. The ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -56,6 +67,9 @@ K_RATIO, BLOCK_DIMS = 0.75, 8
 # the float32 difference near zero. Decode outputs average thousands of V
 # rows (|out| ~ 0.02), so an absolute limit alone would be too loose.
 KERNEL_RTOL, KERNEL_ATOL = 2.0 ** -7, 1e-4
+# float32 outputs (the int8 decode variants): both sides compute in float32
+# in different summation orders over at most 4096 rows
+F32_RTOL, F32_ATOL = 1e-5, 1e-5
 # logits of the bf16 model through 28 layers: kernel and plain attention
 # outputs differ by about one bf16 ulp per layer; each row's logits must
 # stay within 5% of that row's largest magnitude
@@ -63,8 +77,16 @@ LOGIT_RTOL = 0.05
 DECODE_STEPS_CHECKED = 16
 
 
+T_START = time.perf_counter()
+
+
 def log(obj) -> None:
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def log_time(stage: str) -> None:
+    """Wall-clock seconds since the script started, after ``stage``."""
+    log(f"[time] {stage}: {time.perf_counter() - T_START:.1f} s")
 
 
 def card_line() -> str:
@@ -90,11 +112,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def tol_ratio(out, ref) -> float:
-    """Worst ratio of |out - ref| to the per-element tolerance (<= 1 is
-    within it)."""
+    """Worst ratio of |out - ref| to the per-element tolerance of out's
+    dtype (<= 1 is within it)."""
+    import torch
+    rtol, atol = ((F32_RTOL, F32_ATOL) if out.dtype == torch.float32
+                  else (KERNEL_RTOL, KERNEL_ATOL))
     ref = ref.float()
     return ((out.float() - ref).abs()
-            / (KERNEL_RTOL * ref.abs() + KERNEL_ATOL)).max().item()
+            / (rtol * ref.abs() + atol)).max().item()
 
 
 def check_kernel(out, ref, faults: dict) -> dict:
@@ -255,25 +280,187 @@ def prefill_phase(geom: str, h: int, kvh: int, gen) -> dict:
                 library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
 
 
+def flash_phase(geom: str, h: int, kvh: int, gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+
+    b, s, d = 1, 2048, 128
+    dev, bf = "cuda", torch.bfloat16
+    q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
+    k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+    v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+
+    def kernel(k=k, v=v, window=None):
+        return fk.flash_attention(q, k, v, causal=True, window=window)
+
+    def plain():
+        return fk.flash_attention_plain(q, k, v, causal=True)
+
+    # faults: rows past s/2 lose their far keys; every row sees one key
+    # further (the diagonal shifted by one, key 0 lost)
+    check = check_kernel(kernel(), plain(), {
+        "window_cut": kernel(window=s // 2),
+        "shifted_diagonal": kernel(k=torch.roll(k, -1, 2),
+                                   v=torch.roll(v, -1, 2))})
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    ops = 2 * s * (s + 1) / 2 * h * (d + d)
+    nbytes = 2 * (2 * b * h * s * d + 2 * b * kvh * s * d)
+    bms, by = bound(nbytes, ops)
+    return dict(name="flash_attention", geometry=geom,
+                shape=dict(B=b, H=h, KV=kvh, S=s, D=d, causal=True),
+                **check, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+
+
+def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
+                        part: bool, gen) -> dict:
+    """The paged decode over int8 pools (``quant``) and/or over the
+    participating pages of hierarchical AQUA (``part``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import SparsitySpec
+    from repro_torch.core import aqua, selection
+    from repro_torch.kernels import aqua_decode as dk
+    from repro_torch.kernels.ops import round_k_dims
+
+    b, s, d, ps = 8, 4096, 128, 64
+    npl = s // ps
+    dev, bf = "cuda", torch.bfloat16
+    q = torch.randn(b, h, d, device=dev, generator=gen).to(bf)
+    k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+    v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+    lengths = torch.randint(s // 2, s + 1, (b,), device=dev, generator=gen,
+                            dtype=torch.int32)
+    scale = d ** -0.5
+    nsel = round_k_dims(d, K_RATIO, BLOCK_DIMS)
+    block_idx = aqua.topk_block_indices(q, nsel, BLOCK_DIMS).contiguous()
+    table = torch.randperm(b * npl, device=dev, generator=gen).reshape(
+        b, npl).to(torch.int32)
+
+    def to_pool(x):            # (B, KV, S, D) -> (P, KV, ps, D) via table
+        pool = torch.empty(b * npl, kvh, ps, d, device=dev, dtype=x.dtype)
+        pool[table.long()] = x.reshape(b, kvh, npl, ps, d).transpose(1, 2)
+        return pool
+    k_pool, v_pool = to_pool(k), to_pool(v)
+    scales = dict(k_scale=None, v_scale=None)
+    if quant:                  # per-(page, kv head) symmetric int8
+        for name, pool in (("k", k_pool), ("v", v_pool)):
+            sc = pool.float().abs().amax(dim=(2, 3)) / 127.0    # (P, KV)
+            q8 = torch.round(pool.float() / sc[:, :, None, None]).clamp(
+                -127, 127).to(torch.int8)
+            scales[name + "_scale"] = sc.contiguous()
+            if name == "k":
+                k_pool = q8
+            else:
+                v_pool = q8
+    part_idx = None
+    if part:                   # the served rule: no statistics, sink + tail
+        kp = SparsitySpec(page_keep_ratio=0.25).kept_pages(npl)
+        part_idx = selection.participating_pages(
+            torch.zeros(b * npl, kvh, ps, device=dev), table, lengths,
+            page_size=ps, kept_pages=kp, pin_recent_pages=2).contiguous()
+
+    def kernel(part_idx=part_idx, **kw):
+        return dk.aqua_paged_decode_attention(
+            q, k_pool, v_pool, block_idx, table, lengths,
+            block_dims=BLOCK_DIMS, scale=scale, part_idx=part_idx,
+            **{**scales, **kw})
+
+    def plain():
+        return dk.aqua_decode_plain(q, k_pool, v_pool, block_idx, lengths,
+                                    table, block_dims=BLOCK_DIMS, scale=scale,
+                                    part_idx=part_idx, **scales)
+
+    faults = {}
+    if quant:                  # lane 0's tail page (always attended)
+        bad = scales["k_scale"].clone()
+        bad[table[0, (int(lengths[0]) - 1) // ps].long()] *= 2
+        faults["doubled_k_scale"] = kernel(k_scale=bad)
+    if part:                   # lane 0 keeps page 0 -> a dropped page
+        bad = part_idx.clone()
+        dropped = [p for p in range((int(lengths[0]) - 1) // ps)
+                   if p not in set(part_idx[0].tolist())][0]
+        bad[0, 0] = dropped
+        faults["swapped_page"] = kernel(part_idx=torch.sort(bad)[0]
+                                        .contiguous())
+    check = check_kernel(kernel(), plain(), faults)
+
+    # the positions this run attends: below each length, in the
+    # participating pages
+    pos = torch.arange(s, device=dev)
+    valid = pos[None, :] < lengths[:, None]
+    if part:
+        valid &= selection.participation_slot_mask(part_idx, page_size=ps,
+                                                   num_slots=s)
+    # yardstick: one library call on the same attention over the
+    # contiguous (dequantized) view, masked-q̂ and masked positions
+    kc = (k_pool[table.long()].float() if not quant else
+          k_pool[table.long()].float()
+          * scales["k_scale"][table.long()][..., None, None])
+    vc = (v_pool[table.long()].float() if not quant else
+          v_pool[table.long()].float()
+          * scales["v_scale"][table.long()][..., None, None])
+    kc = kc.transpose(1, 2).reshape(b, kvh, s, d).to(bf)
+    vc = vc.transpose(1, 2).reshape(b, kvh, s, d).to(bf)
+    sel = torch.zeros(b, h, d // BLOCK_DIMS, device=dev)
+    sel.scatter_(-1, block_idx.long(), 1.0)
+    qm = (q * sel.repeat_interleave(BLOCK_DIMS, -1).to(bf))[:, :, None]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qm, kc, vc, attn_mask=valid[:, None, None, :], scale=scale,
+            enable_gqa=True)
+
+    # bytes: per (lane, kv head) the union of its G heads' dim-blocks over
+    # the attended rows, plus those V rows (1 byte each for int8), q, the
+    # output, the selection, table, part and scale entries read
+    g = h // kvh
+    union = sel.reshape(b, kvh, g, -1).amax(dim=2).sum(dim=-1)   # (B, KV)
+    rows = valid.sum(dim=1).double()                             # (B,)
+    elem = 1 if quant else 2
+    nbytes = elem * float((rows[:, None] * (union * BLOCK_DIMS + d)).sum())
+    nbytes += 2 * q.numel() + (4 if quant else 2) * b * h * d
+    nbytes += 4 * (block_idx.numel() + b + table.numel())
+    if part:
+        nbytes += 4 * part_idx.numel()
+    if quant:
+        pages_read = -(-rows // ps)
+        nbytes += 2 * 4 * kvh * float(pages_read.sum())
+    ops = 2 * float(rows.sum()) * h * (nsel + d)
+    bms, by = bound(nbytes, ops)
+    return dict(name=dk.body_name(True, quant, part), geometry=geom,
+                shape=dict(B=b, H=h, KV=kvh, S=s, D=d, page_size=ps,
+                           kept_pages=None if part_idx is None
+                           else part_idx.shape[1],
+                           kv_dtype="int8" if quant else "bf16"),
+                **check, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+
+
 # ---------------------------------------------------------------------------
 # Serving phase
 # ---------------------------------------------------------------------------
 
 
+# every kernel body of the port, by the name its launches count under
+KERNELS = ("aqua_decode", "aqua_paged_decode", "aqua_paged_quant_decode",
+           "aqua_paged_part_decode", "aqua_paged_part_quant_decode",
+           "aqua_prefill", "flash_attention")
+
+
 def launch_counts() -> dict:
-    from repro_torch.kernels import aqua_decode as dk
-    from repro_torch.kernels import aqua_prefill as pk
-    return {"aqua_prefill": pk.aqua_prefill_attention.launches,
-            "aqua_decode": dk.aqua_decode_attention.launches,
-            "aqua_paged_decode": dk.aqua_paged_decode_attention.launches}
+    from repro_torch.kernels._build import LAUNCHES
+    return {name: LAUNCHES[name] for name in KERNELS}
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import aqua_decode as dk
-    from repro_torch.kernels import aqua_prefill as pk
-    pk.aqua_prefill_attention.launches = 0
-    dk.aqua_decode_attention.launches = 0
-    dk.aqua_paged_decode_attention.launches = 0
+    from repro_torch.kernels._build import LAUNCHES
+    LAUNCHES.clear()
 
 
 def serve_drive(eng, reqs) -> dict:
@@ -393,8 +580,8 @@ def profiled_drive(eng, reqs) -> dict:
 
 def serve_phase(card: str) -> dict:
     import torch
-    from repro_torch.configs import AquaConfig, CacheSpec, ServingConfig
-    from repro_torch.configs import get_config
+    from repro_torch.configs import (AquaConfig, CacheSpec, QuantSpec,
+                                     ServingConfig, SparsitySpec, get_config)
     from repro_torch.core.calibration import calibrate
     from repro_torch.data.corpus import calibration_batches
     from repro_torch.models import build_model
@@ -415,22 +602,47 @@ def serve_phase(card: str) -> dict:
         cfg.vocab_size, os.path.join(ROOT, "corpora", "calibration.txt"),
         num_batches=2, batch=2, seq=32), cfg)
     setup_s = time.perf_counter() - t0
+    log_time("serve set-up (weights, calibration)")
 
-    def trace(n):
-        return poisson_trace(n, mean_interarrival=4.0,
-                             prompt_lens=(128, 512, 1024), max_new_tokens=32,
-                             vocab_size=cfg.vocab_size, seed=0)
+    def trace(n, prompts=(128, 512, 1024)):
+        return poisson_trace(n, mean_interarrival=4.0, prompt_lens=prompts,
+                             max_new_tokens=32, vocab_size=cfg.vocab_size,
+                             seed=0)
     paged = ServingConfig(max_lanes=8, max_seq=2048, max_new_tokens=32,
                           cache=CacheSpec(page_size=64, prefix_sharing=False))
-    contiguous = dataclasses.replace(paged, cache=None)
+    int8 = QuantSpec(kv_dtype="int8")
+    hier = SparsitySpec(page_keep_ratio=0.25)
+    aqua_off = dataclasses.replace(cfg, aqua=None)
+    long_prompts = (512, 1024)        # 9+ of 32 pages: 8 participate
+    # (path, model config, serving, requests, prompts, reference backend,
+    #  the kernel launched once per layer per admission, and per step)
+    drives = (
+        ("paged", cfg, paged, 8, None, "aqua-block-sparse-plain",
+         "aqua_prefill", "aqua_paged_decode"),
+        ("contiguous", cfg, dataclasses.replace(paged, cache=None), 4, None,
+         "aqua-block-sparse-plain", "aqua_prefill", "aqua_decode"),
+        ("flash_paged", aqua_off, paged, 4, None, "dense",
+         "flash_attention", None),
+        ("int8_paged", cfg, dataclasses.replace(paged, quant=int8), 4, None,
+         "aqua-block-sparse-plain", "aqua_prefill",
+         "aqua_paged_quant_decode"),
+        ("hier_paged", cfg, dataclasses.replace(paged, sparsity=hier), 4,
+         long_prompts, "aqua-block-sparse-plain", "aqua_prefill",
+         "aqua_paged_part_decode"),
+        ("hier_int8_paged", cfg,
+         dataclasses.replace(paged, quant=int8, sparsity=hier), 4,
+         long_prompts, "aqua-block-sparse-plain", "aqua_prefill",
+         "aqua_paged_part_quant_decode"))
 
-    def drive(serving, n: int, backend=None) -> dict:
+    def drive(mcfg, serving, n, prompts, backend=None) -> dict:
         """One drive with the counters zeroed just before it and read just
         after it."""
-        eng = ContinuousBatchingEngine(cfg, params, proj, serving=serving,
-                                       backend=backend)
+        eng = ContinuousBatchingEngine(
+            mcfg, params, None if mcfg.aqua is None else proj,
+            serving=serving, backend=backend)
+        reqs = trace(n) if prompts is None else trace(n, prompts)
         reset_counts()
-        run = serve_drive(eng, trace(n))
+        run = serve_drive(eng, reqs)
         run["launches"], run["engine"] = launch_counts(), eng
         assert len(run["tokens"]) == n, len(run["tokens"])
         for toks in run["tokens"].values():
@@ -440,23 +652,36 @@ def serve_phase(card: str) -> dict:
 
     layers = cfg.num_layers
     runs = {}
-    for path, serving, n, decode_kernel in (
-            ("paged", paged, 12, "aqua_paged_decode"),
-            ("contiguous", contiguous, 4, "aqua_decode")):
-        # the reference: the same engine through the kernels' plain versions
-        ref = drive(serving, n, backend="aqua-block-sparse-plain")
-        assert sum(ref["launches"].values()) == 0, ref["launches"]
-        run = drive(serving, n)
-        want = {"aqua_prefill": layers * run["admissions"],
-                "aqua_decode": 0, "aqua_paged_decode": 0}
-        want[decode_kernel] = layers * run["decode_steps"]
+    for (path, mcfg, serving, n, prompts, ref_backend, admit_kernel,
+         step_kernel) in drives:
+        ref = drive(mcfg, serving, n, prompts, backend=ref_backend)
+        assert sum(ref["launches"].values()) == 0, (path, ref["launches"])
+        run = drive(mcfg, serving, n, prompts)
+        want = dict.fromkeys(KERNELS, 0)
+        want[admit_kernel] = layers * run["admissions"]
+        if step_kernel is not None:
+            want[step_kernel] = layers * run["decode_steps"]
         assert run["launches"] == want, (path, run["launches"], want)
-        run["vs_plain"] = compare_logits(run, ref, 32)
-        runs[path], runs[path + "_plain"] = run, ref
+        eng = run["engine"]
+        if serving.sparsity is not None:
+            assert eng.kept_pages is not None \
+                and eng.kept_pages < eng.pages_per_lane, \
+                (eng.kept_pages, eng.pages_per_lane)
+            run["kept_pages"] = eng.kept_pages
+            run["pages_per_lane"] = eng.pages_per_lane
+        run["reference"] = ref_backend
+        run["vs_reference"] = compare_logits(run, ref, 32)
+        run["cache_bytes"] = eng.cache_bytes()
+        runs[path] = run
+        log_time(f"drive {path} and its reference")
+    int8_share = runs["int8_paged"]["cache_bytes"] / runs["paged"][
+        "cache_bytes"]
+    assert int8_share < 0.60, int8_share
     # one more paged drive, traced: where the device time goes
     prof = profiled_drive(runs["paged"]["engine"], trace(4))
     log(f"[serve paged, traced] device idle share {prof['idle_share']:.3f} "
         f"on {card}")
+    log_time("traced drive")
 
     summary = {}
     for key, run in runs.items():
@@ -468,10 +693,7 @@ def serve_phase(card: str) -> dict:
             f"on {card}")
     result = dict(model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
                   setup_s=setup_s, logit_rtol=LOGIT_RTOL,
-                  profile_paged=prof,
-                  cache_bytes_paged=runs["paged"]["engine"].cache_bytes(),
-                  cache_bytes_contiguous=runs["contiguous"][
-                      "engine"].cache_bytes(),
+                  profile_paged=prof, int8_cache_bytes_share=int8_share,
                   **summary)
     log({"serve": result})
     return result
@@ -501,43 +723,60 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
     log(f"build: {build_s:.1f} s")
+    log_time("build")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phases = []
     for geom, h, kvh in (("qwen3-0.6b", 16, 8), ("llama3.1-8b", 32, 8)):
         phases.append(decode_phase(geom, h, kvh, False, gen))
         phases.append(decode_phase(geom, h, kvh, True, gen))
+        for quant, part in ((True, False), (False, True), (True, True)):
+            phases.append(paged_variant_phase(geom, h, kvh, quant, part,
+                                              gen))
         phases.append(prefill_phase(geom, h, kvh, gen))
+        phases.append(flash_phase(geom, h, kvh, gen))
     for p in phases:
         log(p)
+    log_time("kernel phases")
     bad = [p for p in phases if not p["ok"]]
     assert not bad, f"kernel disagrees with its plain version: {bad}"
 
     serve = serve_phase(card)
-    sources = {"aqua_decode": ("src/repro_torch/kernels/csrc/aqua_decode.cu",
-                               "src/repro/kernels/aqua_decode.py:50"),
-               "aqua_paged_decode": (
-                   "src/repro_torch/kernels/csrc/aqua_decode.cu",
-                   "src/repro/kernels/aqua_decode.py:99"),
-               "aqua_prefill": ("src/repro_torch/kernels/csrc/aqua_prefill.cu",
-                                "src/repro/kernels/aqua_prefill.py:58")}
-    # each kernel's launches in the drive of its path (the prefill kernel's
-    # main path is the paged one), and in each path's own drive
+    src = "src/repro_torch/kernels/csrc/"
+    tpu = "src/repro/kernels/"
+    sources = {
+        "aqua_decode": ("aqua_decode.cu", "aqua_decode.py:50"),
+        "aqua_paged_decode": ("aqua_decode.cu", "aqua_decode.py:99"),
+        "aqua_paged_quant_decode": ("aqua_decode.cu", "aqua_decode.py:222"),
+        "aqua_paged_part_decode": ("aqua_decode.cu", "aqua_decode.py:107"),
+        "aqua_paged_part_quant_decode": ("aqua_decode.cu",
+                                         "aqua_decode.py:164"),
+        "aqua_prefill": ("aqua_prefill.cu", "aqua_prefill.py:58"),
+        "flash_attention": ("flash_attention.cu", "flash_attention.py:22")}
+    # each kernel's launches in the drive of its own path (the prefill
+    # kernel's is the paged one), and in every drive
     main_path = {"aqua_decode": "contiguous", "aqua_paged_decode": "paged",
-                 "aqua_prefill": "paged"}
+                 "aqua_paged_quant_decode": "int8_paged",
+                 "aqua_paged_part_decode": "hier_paged",
+                 "aqua_paged_part_quant_decode": "hier_int8_paged",
+                 "aqua_prefill": "paged", "flash_attention": "flash_paged"}
+    drives = [k for k, v in serve.items() if isinstance(v, dict)
+              and "launches" in v]
     kernels = []
     for p in phases:
         if p["geometry"] != "qwen3-0.6b":
             continue
-        src, rep = sources[p["name"]]
-        by_path = {path: serve[path]["launches"][p["name"]]
-                   for path in ("paged", "contiguous")}
+        name = p["name"]
+        by_path = {path: serve[path]["launches"][name] for path in drives}
+        assert by_path[main_path[name]] > 0, (name, by_path)
         kernels.append(dict(
-            name=p["name"], route="cuda", source=src, replaces=rep,
-            launches=by_path[main_path[p["name"]]], launches_by_path=by_path,
+            name=name, route="cuda", source=src + sources[name][0],
+            replaces=tpu + sources[name][1],
+            launches=by_path[main_path[name]], launches_by_path=by_path,
             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=p["library_ms"]))
+    assert sorted(k["name"] for k in kernels) == sorted(KERNELS)
     log(card)                      # name, power.limit as nvidia-smi prints
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -9,8 +9,9 @@ import importlib
 from typing import Dict
 
 from repro_torch.configs.base import (  # noqa: F401
-    AquaConfig, AttentionConfig, CacheSpec, ModelConfig, ServingConfig,
-    reduce_config,
+    AquaConfig, AttentionConfig, CacheSpec, ModelConfig, QuantSpec,
+    ServingConfig, SparsitySpec, reduce_config, resolve_cache_specs,
+    resolve_sparsity_spec,
 )
 
 _MODULES: Dict[str, str] = {

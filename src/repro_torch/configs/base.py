@@ -2,12 +2,14 @@
 
 The port's own copy of the JAX package's ``configs/base.py``, cut to what
 the dense decoder serving path uses: ``AquaConfig``, ``AttentionConfig``,
-``ModelConfig``, ``reduce_config``, ``CacheSpec`` and ``ServingConfig``.
+``ModelConfig``, ``reduce_config``, ``CacheSpec``, ``QuantSpec``,
+``SparsitySpec`` (with their resolvers) and ``ServingConfig``.
 Field names and defaults match the JAX package so a config built from the
 same arguments means the same thing in both.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
@@ -25,7 +27,9 @@ class AquaConfig:
     # H2O heavy-hitter budget as a fraction of the context (1.0 = off).
     # The port does not serve H2O yet; the engine raises below 1.0.
     h2o_ratio: float = 1.0
-    # Magnitude selection granularity in dims; the kernels need > 1.
+    # Magnitude selection granularity in dims. 1 is the paper's per-dim
+    # selection: the block-sparse backend then runs the flash kernel on the
+    # masked q̂ (prefill) and the masked-dense core (decode), as in JAX.
     block_dims: int = 1
     # Queries per prefill selection chunk: one dim-block set per chunk.
     prefill_q_blk: int = 128
@@ -129,6 +133,85 @@ class CacheSpec:
 
 
 @dataclass(frozen=True)
+class QuantSpec:
+    """KV-pool quantization (paged layout only). ``kv_dtype`` "bf16" keeps
+    full-precision pools (the model dtype); "int8" stores per-page
+    symmetric-quantized K̂/V with float32 scales beside the page table
+    (zero-point 0). ``scale_granularity`` "page_head" keeps one scale per
+    (page, kv head), "page" one per page. ``hot_resident_fraction`` > 0
+    (mixed precision, a full-precision overlay of the hottest pages) is
+    not ported: the engine raises for it."""
+
+    kv_dtype: str = "bf16"                # bf16 | int8
+    scale_granularity: str = "page_head"  # page_head | page
+    hot_resident_fraction: float = 0.0
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype != "bf16"
+
+    def validate(self) -> None:
+        assert self.kv_dtype in ("bf16", "int8"), self.kv_dtype
+        assert self.scale_granularity in ("page_head", "page"), \
+            self.scale_granularity
+        assert 0.0 <= self.hot_resident_fraction <= 1.0, \
+            self.hot_resident_fraction
+
+
+@dataclass(frozen=True)
+class SparsitySpec:
+    """Two-stage hierarchical sparsity (paged layout only). Stage 1 keeps
+    only the top ``page_keep_ratio`` of a lane's pages, ranked by their
+    accumulated attention mass (``PagedAttnCache.acc_pool``), with the
+    last ``pin_recent_pages`` pages always kept; stage 2 is AQUA's |q̂|
+    dim-block selection within them. Ratio 1.0 disables stage 1."""
+
+    page_keep_ratio: float = 1.0
+    pin_recent_pages: int = 2
+
+    @property
+    def hierarchical(self) -> bool:
+        return self.page_keep_ratio < 1.0
+
+    def kept_pages(self, pages_per_lane: int) -> int:
+        """Participating pages per lane (the kernel's page walk)."""
+        k = math.ceil(self.page_keep_ratio * pages_per_lane - 1e-9)
+        k = max(k, min(self.pin_recent_pages, pages_per_lane), 1)
+        return min(k, pages_per_lane)
+
+    def validate(self) -> None:
+        assert 0.0 < self.page_keep_ratio <= 1.0, self.page_keep_ratio
+        assert self.pin_recent_pages >= 1, self.pin_recent_pages
+
+
+def resolve_cache_specs(serving: "ServingConfig"
+                        ) -> Tuple[CacheSpec, QuantSpec]:
+    """A ``ServingConfig``'s (CacheSpec, QuantSpec), validated: the
+    quantization state is per-page metadata, so it needs the paged
+    layout."""
+    cache, quant = serving.cache_spec, serving.quant_spec
+    cache.validate()
+    quant.validate()
+    if quant.quantized and not cache.paged:
+        raise ValueError(
+            f"QuantSpec(kv_dtype={quant.kv_dtype!r}) needs the paged cache "
+            "layout; set CacheSpec.page_size")
+    return cache, quant
+
+
+def resolve_sparsity_spec(serving: "ServingConfig") -> SparsitySpec:
+    """A ``ServingConfig``'s SparsitySpec, validated: stage-1 selection is
+    page-granular, so hierarchical mode needs the paged layout."""
+    spec = serving.sparsity if serving.sparsity is not None else SparsitySpec()
+    spec.validate()
+    if spec.hierarchical and not serving.cache_spec.paged:
+        raise ValueError(
+            f"SparsitySpec(page_keep_ratio={spec.page_keep_ratio}) needs the "
+            "paged cache layout; set CacheSpec.page_size")
+    return spec
+
+
+@dataclass(frozen=True)
 class ServingConfig:
     """Continuous-batching engine knobs (repro_torch.serving). A *lane* is
     one batch row of the shared decode state; the decode step always runs
@@ -146,6 +229,8 @@ class ServingConfig:
     prompt_bucket: int = 16
     admission_lookahead: int = 4
     cache: Optional[CacheSpec] = None
+    quant: Optional[QuantSpec] = None
+    sparsity: Optional[SparsitySpec] = None
     prefill_budget_tokens: Optional[int] = None
     mesh_shape: Optional[Tuple[int, ...]] = None
 
@@ -153,13 +238,17 @@ class ServingConfig:
     def cache_spec(self) -> CacheSpec:
         return self.cache if self.cache is not None else CacheSpec()
 
+    @property
+    def quant_spec(self) -> QuantSpec:
+        return self.quant if self.quant is not None else QuantSpec()
+
     def validate(self) -> None:
         assert self.max_lanes >= 1
         assert self.max_new_tokens >= 1
         assert self.prompt_bucket >= 1
         assert self.admission_lookahead >= 1
-        cache = self.cache_spec
-        cache.validate()
+        cache, _ = resolve_cache_specs(self)
+        resolve_sparsity_spec(self)
         if cache.page_size is not None:
             assert self.max_seq % cache.page_size == 0, \
                 (self.max_seq, cache.page_size)

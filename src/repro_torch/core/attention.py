@@ -14,11 +14,19 @@ and the cache and return (B, KV, G, Dv). Built-in backends:
 
 * ``dense`` — materialized-score reference (the JAX ``dense-jnp``);
 * ``aqua-masked-dense`` — the same with the per-query magnitude mask;
+* ``flash`` — the CUDA flash kernel for prefill (its plain version for CPU
+  tensors); decode runs the masked-dense core, as in JAX;
 * ``aqua-block-sparse`` — the CUDA prefill and decode kernels (their plain
-  versions for CPU tensors);
+  versions for CPU tensors). With ``block_dims`` <= 1 (the paper's per-dim
+  selection) or a kept head dim that is not a multiple of it, prefill runs
+  the flash kernel on the masked q̂ and decode the masked-dense core, as in
+  JAX;
 * ``aqua-block-sparse-plain`` — the same selection and arithmetic through
   the kernels' plain versions on any device: the reference that a run on
   the GPU compares the kernels against. Never chosen automatically.
+
+``auto`` resolves as the JAX package does where it prefers its kernels:
+``aqua-block-sparse`` with AQUA on, ``flash`` with AQUA off.
 
 Conventions: x (B, S, d_model); q (B, S, KV, G, D); k, v (B, S, KV, D);
 proj P (KV, D, D) per layer.
@@ -34,12 +42,15 @@ import torch
 from repro_torch.configs.base import AquaConfig, AttentionConfig
 from repro_torch.core import aqua as aqua_lib
 from repro_torch.core import kvcache as kv
+from repro_torch.core import selection
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.aqua_decode import (aqua_decode_attention,
                                              aqua_decode_plain,
                                              aqua_paged_decode_attention)
 from repro_torch.kernels.aqua_prefill import (aqua_prefill_attention,
                                               aqua_prefill_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 
 NEG_INF = -1e30
 
@@ -165,13 +176,16 @@ def _aqua_mask(qh, aqua: AquaConfig, head_dim: int):
 @dataclasses.dataclass(frozen=True)
 class AttentionBackend:
     """One registry entry (see the module docstring for the contract).
-    ``aqua_native`` backends consume unmasked q̂/k̂ and need AQUA on."""
+    ``aqua_native`` backends consume unmasked q̂/k̂ and need AQUA on;
+    ``per_dim`` is the backend that serves their prefill when the
+    selection is not by whole dim-blocks (on the masked q̂)."""
 
     name: str
     prefill: Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor]]]
     decode: Optional[Callable[..., torch.Tensor]] = None
     paged_decode: Optional[Callable[..., torch.Tensor]] = None
     aqua_native: bool = False
+    per_dim: Optional["AttentionBackend"] = None
 
 
 _BACKENDS: Dict[str, AttentionBackend] = {}
@@ -196,24 +210,24 @@ def get_backend(name: str) -> AttentionBackend:
 
 def resolve_backend(name: str = "auto",
                     aqua: Optional[AquaConfig] = None) -> AttentionBackend:
-    """``auto`` is ``aqua-block-sparse`` with AQUA on and ``dense`` with it
-    off; an AQUA-native backend with AQUA off resolves to ``dense`` (there
-    are no projections to select over)."""
+    """``auto`` is ``aqua-block-sparse`` with AQUA on and ``flash`` with it
+    off; an AQUA-native backend with AQUA off resolves to ``flash`` (there
+    are no projections to select over). ``dense`` is never chosen
+    automatically."""
     aqua_on = _aqua_on(aqua)
     if name in (None, "", "auto"):
-        name = "aqua-block-sparse" if aqua_on else "dense"
+        name = "aqua-block-sparse" if aqua_on else "flash"
     be = get_backend(name)
     if be.aqua_native and not aqua_on:
-        be = get_backend("dense")
+        be = get_backend("flash")
     return be
 
 
-def _check_block_sparse(aqua: AquaConfig, dk: int) -> None:
-    if aqua.block_dims <= 1 or dk % aqua.block_dims:
-        raise ValueError(
-            f"aqua-block-sparse selects whole dim-blocks: block_dims="
-            f"{aqua.block_dims} must be > 1 and divide the kept head dim "
-            f"{dk}; use backend='aqua-masked-dense' for per-dim selection")
+def _whole_blocks(aqua: AquaConfig, dk: int) -> bool:
+    """Whether the selection is by whole dim-blocks of the kept head dim
+    ``dk``, which the block-sparse kernels need; otherwise prefill runs
+    the backend's ``per_dim`` twin and decode the masked-dense core."""
+    return aqua.block_dims > 1 and dk % aqua.block_dims == 0
 
 
 def _dense_prefill(qq, kk, v, *, cfg, aqua, positions, lengths, causal):
@@ -234,12 +248,43 @@ def _dense_prefill(qq, kk, v, *, cfg, aqua, positions, lengths, causal):
     return out, weights
 
 
+def _flash_backend(name: str, flash_fn) -> AttentionBackend:
+    """Flash prefill over ``flash_fn`` (the kernel or its plain version),
+    on the head-major views of the model's tensors (no copy). Non-causal
+    calls, 2-D positions and dk != dv (AQUA-Memory slices) go to
+    ``dense``, as in JAX's ``_flash_prefill``.
+
+    One deliberate difference from JAX, which sends every call with
+    ``lengths`` to its dense reference: the engine's bucket-padded
+    admissions (``lengths`` set, causal, 1-D positions) run the kernel.
+    Under the causal mask a row below its length never sees a padded key,
+    so every valid row is the dense-with-lengths result; rows at or past
+    the length are don't-care, as for the block-sparse prefill kernel.
+    Without this the engine's baseline would never launch the kernel."""
+
+    def prefill(qq, kk, v, *, cfg, aqua, positions, lengths, causal):
+        if not causal or positions.ndim == 2 or qq.shape[-1] != v.shape[-1]:
+            return _dense_prefill(qq, kk, v, cfg=cfg, aqua=aqua,
+                                  positions=positions, lengths=lengths,
+                                  causal=causal)
+        b, s, kvh, g, d = qq.shape
+        of = flash_fn(qq.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, d),
+                      kk.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                      causal=True, window=cfg.window)
+        return of.reshape(b, kvh, g, s, -1).permute(0, 3, 1, 2, 4), None
+
+    return AttentionBackend(name, prefill)
+
+
 def _block_sparse_backend(name: str, prefill_kernel, decode_kernel,
-                          paged_decode_kernel) -> AttentionBackend:
+                          paged_decode_kernel,
+                          per_dim: AttentionBackend) -> AttentionBackend:
     """AQUA block-sparse backend over the given kernel functions, with the
-    shared selection of ``ops.prefill_blocks`` / ``ops.decode_blocks``.
-    Scores use the FULL head_dim. Paged decode hands the kernel the page
-    table: no lane view is gathered."""
+    shared selection of ``ops.prefill_blocks`` / ``ops.decode_blocks``
+    (paged: ``selection.build_decode_plan``, which adds the participating
+    pages of hierarchical AQUA). Scores use the FULL head_dim. Paged
+    decode hands the kernel the page table (and an int8 pool's scales):
+    no lane view is gathered."""
 
     def prefill(qh, kh, v, *, cfg, aqua, positions, lengths, causal):
         b, s, kvh, g, dk = qh.shape
@@ -252,38 +297,54 @@ def _block_sparse_backend(name: str, prefill_kernel, decode_kernel,
                             scale=1.0 / float(cfg.head_dim) ** 0.5)
         return of.reshape(b, kvh, g, s, -1).permute(0, 3, 1, 2, 4), None
 
-    def decode(kernel, q_hat, k, v, cache, cfg, aqua, **table):
-        b, kvh, g, dk = q_hat.shape
-        q = q_hat.reshape(b, kvh * g, dk).contiguous()
-        lengths = torch.clamp(cache.count, max=cache.num_slots)
-        out = kernel(q, k, v, kops.decode_blocks(q, aqua.k_ratio,
-                                                 aqua.block_dims),
-                     lengths=lengths.to(torch.int32).contiguous(),
-                     block_dims=aqua.block_dims,
-                     scale=1.0 / float(cfg.head_dim) ** 0.5, **table)
-        return out.reshape(b, kvh, g, -1)
+    def lengths_of(cache):
+        return torch.clamp(cache.count, max=cache.num_slots).to(
+            torch.int32).contiguous()
 
     def contiguous_decode(q_hat, cache: kv.AttnCache, *, cfg, aqua):
-        return decode(decode_kernel, q_hat, cache.k, cache.v, cache, cfg,
-                      aqua)
+        b, kvh, g, dk = q_hat.shape
+        q = q_hat.reshape(b, kvh * g, dk).contiguous()
+        out = decode_kernel(q, cache.k, cache.v,
+                            kops.decode_blocks(q, aqua.k_ratio,
+                                               aqua.block_dims),
+                            lengths_of(cache), block_dims=aqua.block_dims,
+                            scale=1.0 / float(cfg.head_dim) ** 0.5)
+        return out.reshape(b, kvh, g, -1)
 
-    def paged_decode(q_hat, cache: kv.PagedAttnCache, *, cfg, aqua):
-        return decode(paged_decode_kernel, q_hat, cache.k_pool, cache.v_pool,
-                      cache, cfg, aqua, page_table=cache.page_table.to(
-                          torch.int32).contiguous())
+    def paged_decode(q_hat, cache: kv.PagedAttnCache, *, cfg, aqua,
+                     token_sparsity=None):
+        b, kvh, g, dk = q_hat.shape
+        q = q_hat.reshape(b, kvh * g, dk).contiguous()
+        kept, pin = token_sparsity or (None, 0)
+        plan = selection.build_decode_plan(
+            q, cache, topk_dims=kops.round_k_dims(dk, aqua.k_ratio,
+                                                  aqua.block_dims),
+            block_dims=aqua.block_dims, kept_pages=kept,
+            pin_recent_pages=pin)
+        out = paged_decode_kernel(
+            q, cache.k_pool, cache.v_pool, plan.block_idx.contiguous(),
+            page_table=cache.page_table.to(torch.int32).contiguous(),
+            lengths=lengths_of(cache), block_dims=aqua.block_dims,
+            scale=1.0 / float(cfg.head_dim) ** 0.5, k_scale=cache.k_scale,
+            v_scale=cache.v_scale,
+            part_idx=None if plan.pages is None else plan.pages.contiguous())
+        return out.reshape(b, kvh, g, -1)
 
     return AttentionBackend(name, prefill, decode=contiguous_decode,
-                            paged_decode=paged_decode, aqua_native=True)
+                            paged_decode=paged_decode, aqua_native=True,
+                            per_dim=per_dim)
 
 
 register_backend(AttentionBackend("dense", _dense_prefill))
 register_backend(AttentionBackend("aqua-masked-dense", _dense_prefill))
+register_backend(_flash_backend("flash", flash_attention))
 register_backend(_block_sparse_backend(
     "aqua-block-sparse", aqua_prefill_attention, aqua_decode_attention,
-    aqua_paged_decode_attention))
+    aqua_paged_decode_attention, get_backend("flash")))
 register_backend(_block_sparse_backend(
     "aqua-block-sparse-plain", aqua_prefill_plain,
-    functools.partial(aqua_decode_plain, page_table=None), aqua_decode_plain))
+    functools.partial(aqua_decode_plain, page_table=None), aqua_decode_plain,
+    _flash_backend("flash-plain", flash_attention_plain)))
 
 
 # ---------------------------------------------------------------------------
@@ -311,8 +372,9 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     aqua_on = _aqua_on(aqua)
     qh, kh = _aqua_project(q, k, aqua, proj, cfg.head_dim)
     backend = resolve_backend(cfg.backend, aqua=aqua)
+    if backend.aqua_native and not _whole_blocks(aqua, kh.shape[-1]):
+        backend = backend.per_dim
     if backend.aqua_native:
-        _check_block_sparse(aqua, kh.shape[-1])
         qq, kk = qh, kh
     elif aqua_on:
         qq, kk = qh * _aqua_mask(qh, aqua, cfg.head_dim), kh
@@ -375,11 +437,17 @@ def _masked_dense_decode_core(qq, k, v, positions, count, *, head_dim: int
 def decode_attention(params: dict, x_t: torch.Tensor, cache,
                      cfg: AttentionConfig, aqua: Optional[AquaConfig] = None,
                      proj: Optional[torch.Tensor] = None,
-                     write_mask: Optional[torch.Tensor] = None
+                     write_mask: Optional[torch.Tensor] = None,
+                     token_sparsity: Optional[Tuple[int, int]] = None
                      ) -> torch.Tensor:
     """One decode step. x_t (B, d_model); ``cache`` an :class:`AttnCache`
     or :class:`PagedAttnCache` (one layer), updated in place. Returns out
-    (B, d_model). ``write_mask`` (B,) bool freezes masked-off lanes' cache.
+    (B, d_model) in x_t's dtype. ``write_mask`` (B,) bool freezes
+    masked-off lanes' cache. ``token_sparsity`` (kept_pages,
+    pin_recent_pages) engages hierarchical AQUA on a paged cache: only
+    each lane's participating pages (``core.selection``, ranked by this
+    layer's ``acc_pool``) are attended, by the kernel and by the
+    reference path alike.
     """
     if cfg.window is not None:
         raise NotImplementedError("sliding-window attention is not ported")
@@ -400,13 +468,32 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
                   write_mask=write_mask)
 
     backend = resolve_backend(cfg.backend, aqua=aqua)
-    if backend.aqua_native:
-        _check_block_sparse(aqua, q.shape[-1])
-        fn = backend.paged_decode if paged else backend.decode
-        out = fn(q, cache, cfg=cfg, aqua=aqua)
+    if token_sparsity is not None and \
+            token_sparsity[0] >= cache.pages_per_lane:
+        token_sparsity = None                  # every page participates
+    if backend.aqua_native and _whole_blocks(aqua, q.shape[-1]):
+        if paged:
+            out = backend.paged_decode(q, cache, cfg=cfg, aqua=aqua,
+                                       token_sparsity=token_sparsity)
+        else:
+            out = backend.decode(q, cache, cfg=cfg, aqua=aqua)
     else:
         qq = q * _aqua_mask(q, aqua, cfg.head_dim) if aqua_on else q
         view = kv.paged_lane_view(cache) if paged else cache
-        out = _masked_dense_decode_core(qq, view.k, view.v, view.positions,
+        positions = view.positions
+        if token_sparsity is not None:
+            # the reference twin of the kernel's participation: slots of
+            # dropped pages read position -1, which the valid mask drops
+            part = selection.participating_pages(
+                cache.acc_pool, cache.page_table, cache.count,
+                page_size=cache.page_size, kept_pages=token_sparsity[0],
+                pin_recent_pages=token_sparsity[1])
+            keep = selection.participation_slot_mask(
+                part, page_size=cache.page_size, num_slots=cache.num_slots)
+            positions = torch.where(keep, positions,
+                                    torch.full_like(positions, -1))
+        out = _masked_dense_decode_core(qq, view.k, view.v, positions,
                                         view.count, head_dim=cfg.head_dim)
-    return _proj_out(out, params["wo"])
+    # an int8 pool's kernel (and its dequantized view) give float32, as
+    # in JAX; the residual stream keeps the model dtype
+    return _proj_out(out, params["wo"]).to(x_t.dtype)

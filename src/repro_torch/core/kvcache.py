@@ -2,23 +2,26 @@
 
 Port of the JAX package's ``core/kvcache.py`` for the policy the serving
 path uses: slot ``s`` of a lane holds token position ``s`` (no window
-ring, no H2O eviction — those, and int8 pools, are later work). Keys are
-stored *projected and sliced* when AQUA is on, seq-major; the CUDA decode
-kernel reads the selected dim-blocks of that layout directly.
+ring, no H2O eviction — those are later work). Keys are stored *projected
+and sliced* when AQUA is on, seq-major; the CUDA decode kernel reads the
+selected dim-blocks of that layout directly.
 
 Two layouts with the same logical slot space:
 
 * :class:`AttnCache` — one contiguous slot stripe per lane;
 * :class:`PagedAttnCache` — a global page pool plus per-lane page tables
   (logical slot ``s`` of lane ``b`` lives at
-  ``(page_table[b, s // page_size], s % page_size)``).
+  ``(page_table[b, s // page_size], s % page_size)``), optionally with
+  int8 pools and float32 per-page scales (``QuantSpec``).
 
 Unlike the JAX package, which returns new pytrees, the write functions
 here update the cache tensors **in place** (an insert touches one slot per
 lane instead of copying the cache). A cache's tensors may carry a leading
 layer axis; ``layer(i)`` then returns views of layer ``i`` that write
-through to the stacked tensors. The H2O ``acc_score``/``acc_pool``
-statistics are not kept: nothing in the full-cache policy reads them.
+through to the stacked tensors. The paged pool carries the H2O
+``acc_pool`` statistic, cleared as in JAX on graft, insert and reset:
+hierarchical selection ranks pages by it (``core/selection.py``). The
+contiguous cache keeps no ``acc_score``: nothing reads it there.
 """
 from __future__ import annotations
 
@@ -33,6 +36,13 @@ import torch
 def _tensors(cache) -> list:
     """The cache's fields in order (``dataclasses.astuple`` would copy)."""
     return [getattr(cache, f.name) for f in dataclasses.fields(cache)]
+
+
+def _layer(cache, i: int):
+    """Views of layer ``i`` of a cache with a leading layer axis (None
+    fields stay None)."""
+    return type(cache)(*(None if t is None else t[i]
+                         for t in _tensors(cache)))
 
 
 @dataclass
@@ -51,7 +61,7 @@ class AttnCache:
         return self.k.shape[-2]
 
     def layer(self, i: int) -> "AttnCache":
-        return AttnCache(*(t[i] for t in _tensors(self)))
+        return _layer(self, i)
 
 
 def init_attn_cache(batch: int, num_kv: int, slots: int, dk: int, dv: int,
@@ -115,15 +125,28 @@ def valid_mask_from(positions: torch.Tensor, count: torch.Tensor
 @dataclass
 class PagedAttnCache:
     """k_pool (…, P, KV, ps, Dk); v_pool (…, P, KV, ps, Dv); pos_pool
-    (…, P, ps) int32 position held by each pool slot, -1 empty;
-    page_table (…, B, NP) int32 physical page of each logical page, -1
-    unmapped; count (…, B) int32. Optional leading layer axis."""
+    (…, P, ps) int32 position held by each pool slot, -1 empty; acc_pool
+    (…, P, KV, ps) float32 H2O accumulated attention mass; page_table
+    (…, B, NP) int32 physical page of each logical page, -1 unmapped;
+    count (…, B) int32. Optional leading layer axis.
+
+    Quantized pools (``QuantSpec(kv_dtype="int8")``): ``k_pool``/``v_pool``
+    hold int8 and ``k_scale``/``v_scale`` (…, P, SH) float32 hold each
+    page's scale (``real = int * scale``, 0 = unwritten page); SH is KV
+    for per-(page, kv head) scales and 1 for one scale per page."""
 
     k_pool: torch.Tensor
     v_pool: torch.Tensor
     pos_pool: torch.Tensor
+    acc_pool: torch.Tensor
     page_table: torch.Tensor
     count: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def num_pages(self) -> int:
@@ -142,7 +165,7 @@ class PagedAttnCache:
         return self.pages_per_lane * self.page_size
 
     def layer(self, i: int) -> "PagedAttnCache":
-        return PagedAttnCache(*(t[i] for t in _tensors(self)))
+        return _layer(self, i)
 
 
 def paged_pages(slots: int, page_size: int) -> int:
@@ -152,36 +175,112 @@ def paged_pages(slots: int, page_size: int) -> int:
     return slots // page_size
 
 
+#: int8 symmetric quantization range (zero-point is always 0).
+QUANT_MAX = 127.0
+
+
 def init_paged_cache(batch: int, num_kv: int, num_pages: int,
                      pages_per_lane: int, page_size: int, dk: int, dv: int,
                      dtype=torch.bfloat16, device=None,
-                     num_layers: Optional[int] = None) -> PagedAttnCache:
+                     num_layers: Optional[int] = None,
+                     kv_dtype: str = "bf16",
+                     scale_granularity: str = "page_head") -> PagedAttnCache:
+    """``kv_dtype`` "bf16" keeps full-precision pools (in ``dtype``);
+    "int8" stores quantized pools with float32 per-page scales of
+    ``scale_granularity`` "page_head" (one per page and kv head) or
+    "page" (one per page)."""
+    if kv_dtype not in ("bf16", "int8"):
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+    quant = kv_dtype == "int8"
     lead = () if num_layers is None else (num_layers,)
+    pool_dtype = torch.int8 if quant else dtype
+    scales = {}
+    if quant:
+        sh = num_kv if scale_granularity == "page_head" else 1
+        scales = {name: torch.zeros(*lead, num_pages, sh, dtype=torch.float32,
+                                    device=device)
+                  for name in ("k_scale", "v_scale")}
     return PagedAttnCache(
         k_pool=torch.zeros(*lead, num_pages, num_kv, page_size, dk,
-                           dtype=dtype, device=device),
+                           dtype=pool_dtype, device=device),
         v_pool=torch.zeros(*lead, num_pages, num_kv, page_size, dv,
-                           dtype=dtype, device=device),
+                           dtype=pool_dtype, device=device),
         pos_pool=torch.full((*lead, num_pages, page_size), -1,
                             dtype=torch.int32, device=device),
+        acc_pool=torch.zeros(*lead, num_pages, num_kv, page_size,
+                             dtype=torch.float32, device=device),
         page_table=torch.full((*lead, batch, pages_per_lane), -1,
                               dtype=torch.int32, device=device),
-        count=torch.zeros(*lead, batch, dtype=torch.int32, device=device))
+        count=torch.zeros(*lead, batch, dtype=torch.int32, device=device),
+        **scales)
+
+
+def dequant_pages(pool: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 pages (..., KV, ps, D) x per-page scales (..., SH) -> float32;
+    SH broadcasts over KV when there is one scale per page."""
+    return pool.float() * scale[..., :, None, None]
+
+
+def quantize_tokens(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """float tokens (..., D) / scales broadcastable to ``x[..., 0]`` ->
+    int8, rounding half to even (as ``jnp.round``). A zero scale
+    (unwritten page, all-zero content) quantizes to 0."""
+    s = torch.where(scale > 0.0, scale, torch.ones_like(scale))
+    q = torch.round(x.float() / s[..., None])
+    return q.clamp(-QUANT_MAX, QUANT_MAX).to(torch.int8)
+
+
+def _page_scales(tok: torch.Tensor, ps: int, sh: int) -> torch.Tensor:
+    """Per-page scales for (T, KV, D) tokens laid out from a page boundary
+    -> (ceil(T / ps), SH); the partial last page pads with zeros (which
+    never grow the amax)."""
+    t, kvh, d = tok.shape
+    npg = -(-t // ps)
+    x = torch.nn.functional.pad(tok.float().abs(), (0, 0, 0, 0, 0,
+                                                    npg * ps - t))
+    amax = x.reshape(npg, ps, kvh, d).amax(dim=(1, 3))      # (NPG, KV)
+    if sh == 1:
+        amax = amax.amax(dim=-1, keepdim=True)
+    return amax / QUANT_MAX
+
+
+def _insert_quant_token(pool: torch.Tensor, scale: torch.Tensor,
+                        phys: torch.Tensor, off: torch.Tensor,
+                        x_new: torch.Tensor) -> None:
+    """Quantized single-token insert with a per-page *running* scale, in
+    place: grow each page's scale to cover the new token's amax,
+    requantizing the page's stored ints when it grows, then write the
+    token. ``phys``/``off`` (N,) address the rows that write."""
+    x = x_new.float()                                    # (N, KV, D)
+    amax = x.abs().amax(dim=-1)                          # (N, KV)
+    if scale.shape[1] == 1:
+        amax = amax.amax(dim=-1, keepdim=True)           # (N, 1)
+    s_old = scale[phys]                                  # (N, SH)
+    s_cand = torch.maximum(s_old, amax / QUANT_MAX)
+    ratio = torch.where(s_cand > 0.0, s_old / s_cand, torch.ones_like(s_old))
+    page = pool[phys].float()                            # (N, KV, ps, D)
+    pool[phys] = torch.round(page * ratio[:, :, None, None]).clamp(
+        -QUANT_MAX, QUANT_MAX).to(pool.dtype)
+    pool[phys, :, off] = quantize_tokens(x, s_cand)
+    scale[phys] = s_cand
 
 
 def paged_lane_view(cache: PagedAttnCache) -> AttnCache:
     """Gather the per-lane contiguous view of a (single-layer) paged cache
-    — slot-for-slot what the contiguous cache would hold; unmapped pages
-    read position -1. The reference decode path runs on this; the CUDA
-    kernel walks the page table instead and never gathers."""
+    — slot-for-slot what the contiguous cache would hold, dequantized to
+    float32 for int8 pools; unmapped pages read position -1. The
+    reference decode path runs on this; the CUDA kernel walks the page
+    table instead and never gathers."""
     b = cache.page_table.shape[0]
     table = cache.page_table.long()
     pages = table.clamp(min=0)
     kvh = cache.k_pool.shape[1]
-    k = cache.k_pool[pages].transpose(1, 2).reshape(b, kvh, cache.num_slots,
-                                                    -1)
-    v = cache.v_pool[pages].transpose(1, 2).reshape(b, kvh, cache.num_slots,
-                                                    -1)
+    k, v = cache.k_pool[pages], cache.v_pool[pages]      # (B, NP, KV, ps, D)
+    if cache.quantized:
+        k = dequant_pages(k, cache.k_scale[pages])
+        v = dequant_pages(v, cache.v_scale[pages])
+    k = k.transpose(1, 2).reshape(b, kvh, cache.num_slots, -1)
+    v = v.transpose(1, 2).reshape(b, kvh, cache.num_slots, -1)
     pos = torch.where(table[..., None] >= 0, cache.pos_pool[pages],
                       torch.full_like(cache.pos_pool[pages], -1))
     return AttnCache(k=k, v=v, positions=pos.reshape(b, cache.num_slots),
@@ -198,8 +297,9 @@ def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
                  write_mask: Optional[torch.Tensor] = None
                  ) -> PagedAttnCache:
     """Write one token's k/v at logical ``slot`` through the page table, in
-    place. Rows masked off, or whose slot's page is unmapped, write
-    nothing; masked-off rows keep their count."""
+    place (quantized with the page's running scale for int8 pools; the
+    slot's accumulated score is cleared). Rows masked off, or whose slot's
+    page is unmapped, write nothing; masked-off rows keep their count."""
     b = cache.page_table.shape[0]
     ps = cache.page_size
     rows = torch.arange(b, device=slot.device)
@@ -208,9 +308,14 @@ def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
     if write_mask is not None:
         ok &= write_mask
     phys, off = entry[ok].long(), (slot % ps)[ok].long()
-    cache.k_pool[phys, :, off] = k_new[ok].to(cache.k_pool.dtype)
-    cache.v_pool[phys, :, off] = v_new[ok].to(cache.v_pool.dtype)
+    if cache.quantized:
+        _insert_quant_token(cache.k_pool, cache.k_scale, phys, off, k_new[ok])
+        _insert_quant_token(cache.v_pool, cache.v_scale, phys, off, v_new[ok])
+    else:
+        cache.k_pool[phys, :, off] = k_new[ok].to(cache.k_pool.dtype)
+        cache.v_pool[phys, :, off] = v_new[ok].to(cache.v_pool.dtype)
     cache.pos_pool[phys, off] = cache.count[ok]
+    cache.acc_pool[phys, :, off] = 0.0
     adv = 1 if write_mask is None else write_mask.to(torch.int32)
     cache.count += adv
     return cache
@@ -220,20 +325,33 @@ def paged_graft(cache: PagedAttnCache, req: AttnCache, lane: int,
                 num_slots: int) -> PagedAttnCache:
     """Copy logical slots [0, num_slots) of a B=1 contiguous cache (an
     admission prefill) into ``lane``'s pages, in place. Every page the
-    lane maps is cleared first (positions -1): pool pages are recycled, so
-    a previous tenant's positions must never read as valid. The lane's
-    page-table row is installed before this runs."""
+    lane maps is cleared first (positions -1, scores 0, and scales 0 for
+    int8 pools): pool pages are recycled, so a previous tenant's state
+    must never read as valid. int8 pools get per-page scales over the
+    grafted tokens. The lane's page-table row is installed before this
+    runs."""
     ps = cache.page_size
     tbl = cache.page_table[lane].long()
-    cache.pos_pool[tbl[tbl >= 0]] = -1
+    mapped = tbl[tbl >= 0]
+    cache.pos_pool[mapped] = -1
+    cache.acc_pool[mapped] = 0.0
     idx = torch.arange(num_slots, device=tbl.device)
     entry = tbl[idx // ps]
     ok = entry >= 0
     phys, off, src = entry[ok], (idx % ps)[ok], idx[ok]
-    cache.k_pool[phys, :, off] = req.k[0][:, src].transpose(0, 1).to(
-        cache.k_pool.dtype)
-    cache.v_pool[phys, :, off] = req.v[0][:, src].transpose(0, 1).to(
-        cache.v_pool.dtype)
+    k_tok = req.k[0][:, :num_slots].transpose(0, 1)      # (T, KV, Dk)
+    v_tok = req.v[0][:, :num_slots].transpose(0, 1)
+    if cache.quantized:
+        for pool, scale, tok in ((cache.k_pool, cache.k_scale, k_tok),
+                                 (cache.v_pool, cache.v_scale, v_tok)):
+            scale[mapped] = 0.0
+            pg = _page_scales(tok, ps, scale.shape[1])    # (NPG, SH)
+            pg_tbl = tbl[:pg.shape[0]]
+            scale[pg_tbl[pg_tbl >= 0]] = pg[pg_tbl >= 0]
+            pool[phys, :, off] = quantize_tokens(tok[src], pg[src // ps])
+    else:
+        cache.k_pool[phys, :, off] = k_tok[src].to(cache.k_pool.dtype)
+        cache.v_pool[phys, :, off] = v_tok[src].to(cache.v_pool.dtype)
     cache.pos_pool[phys, off] = req.positions[0, src]
     cache.count[lane] = req.count[0]
     return cache
@@ -241,10 +359,16 @@ def paged_graft(cache: PagedAttnCache, req: AttnCache, lane: int,
 
 def paged_reset_lane(cache: PagedAttnCache, lane: int) -> PagedAttnCache:
     """Return ``lane`` to the empty condition, in place: clear its mapped
-    pages' positions, unmap its table row, zero its count. (Returning the
-    pages to the free list is the host allocator's job.)"""
+    pages' positions, scores (and scales), unmap its table row, zero its
+    count. (Returning the pages to the free list is the host allocator's
+    job.)"""
     tbl = cache.page_table[lane].long()
-    cache.pos_pool[tbl[tbl >= 0]] = -1
+    mapped = tbl[tbl >= 0]
+    cache.pos_pool[mapped] = -1
+    cache.acc_pool[mapped] = 0.0
+    if cache.quantized:
+        cache.k_scale[mapped] = 0.0
+        cache.v_scale[mapped] = 0.0
     cache.page_table[lane] = -1
     cache.count[lane] = 0
     return cache

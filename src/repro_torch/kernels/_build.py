@@ -7,6 +7,10 @@ loaded with ``ctypes``. The library name carries a hash of the source and
 flags, so an edited source never loads a stale build. ``build_all`` starts
 one ``nvcc`` per source at once and waits for all of them.
 
+``LAUNCHES`` counts kernel launches by the name of the TPU kernel body
+each one replaces: a wrapper adds one where it launches a kernel and
+nowhere else (its plain version on CPU tensors does not count).
+
 Nothing here runs at import time: the CPU tests import every module, and
 this machine may have no ``nvcc``.
 """
@@ -18,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List
 
@@ -25,7 +30,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("aqua_decode", "aqua_prefill")
+SOURCES = ("aqua_decode", "aqua_prefill", "flash_attention")
+LAUNCHES: Counter = Counter()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -95,5 +101,7 @@ def load(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
+    """Raise for a failed launch; count a good one under ``what``."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+    LAUNCHES[what] += 1

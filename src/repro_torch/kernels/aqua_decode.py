@@ -1,21 +1,26 @@
 """AQUA block-sparse decode attention: CUDA kernel, plain version, wrappers.
 
-Replaces the Pallas TPU kernels ``src/repro/kernels/aqua_decode.py``
-``_kernel`` (contiguous cache, via ``aqua_decode_attention``) and
-``_paged_kernel`` (page pool, via ``aqua_paged_decode_attention``). Both
-wrappers launch the one CUDA kernel in ``csrc/aqua_decode.cu``: the
-contiguous cache is a page pool with one page per lane and no table.
+Replaces the Pallas TPU kernels of ``src/repro/kernels/aqua_decode.py``:
+``_kernel`` (contiguous cache, via ``aqua_decode_attention``) and, via
+``aqua_paged_decode_attention``, ``_paged_kernel`` (page pool),
+``_paged_quant_kernel`` (int8 pool with per-page scales),
+``_paged_part_kernel`` (hierarchical AQUA: participating pages only) and
+``_paged_part_quant_kernel`` (both). All launch the one CUDA kernel in
+``csrc/aqua_decode.cu``: the contiguous cache is a page pool with one page
+per lane and no table.
 
 Bound on the H100: bytes — per lane, the selected dim-blocks (k_ratio) of
-every valid K̂ row plus every valid V row. The kernel reads K̂ in the
-cache's own seq-major layout (no dim-major copy of the cache per step, which
-would move the whole K̂ once more than the kernel saves), only the selected
-blocks and only positions below ``lengths``, split over the sequence so
-that a small batch still fills the card; see the source's header.
+every valid K̂ row plus every valid V row, of the participating pages only
+(one byte per element for int8 pools). The kernel reads K̂ in the cache's
+own seq-major layout (no dim-major copy of the cache per step, which would
+move the whole K̂ once more than the kernel saves), only the selected
+blocks and only valid positions, split over the sequence so that a small
+batch still fills the card; see the source's header.
 
 Dispatch is by the device of the tensors: CPU tensors run the plain PyTorch
 version (:func:`aqua_decode_plain`), CUDA tensors launch the kernel or
-raise. Each wrapper counts its launches in its ``launches`` attribute.
+raise. Launches count in ``_build.LAUNCHES`` under the name of the body
+they replace (:func:`body_name`).
 """
 from __future__ import annotations
 
@@ -25,94 +30,146 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import aqua_decode_ref
+from repro_torch.kernels.ref import NEG_INF, _block_mask
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"aqua_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-                               _P],
+_SIG = {"aqua_decode_launch": [_P] * 11 + [_I] * 12 + [ctypes.c_float, _I,
+                                                        _P],
         "aqua_decode_split": []}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def body_name(paged: bool, quant: bool = False, part: bool = False) -> str:
+    """Launch-count key of the TPU kernel body a call replaces."""
+    if not paged:
+        return "aqua_decode"
+    return "aqua_paged" + ("_part" if part else "") + (
+        "_quant" if quant else "") + "_decode"
 
 
 def aqua_decode_plain(q_hat: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       block_idx: torch.Tensor, lengths: torch.Tensor,
                       page_table: Optional[torch.Tensor], *, block_dims: int,
-                      scale: float) -> torch.Tensor:
+                      scale: float, k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None,
+                      part_idx: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (masked-dense, float32).
 
     q_hat (B, H, D); k (P, KV, ps, D); v (P, KV, ps, Dv); block_idx
     (B, H, NB_sel) int32; lengths (B,) int32; page_table (B, NP) int32 with
-    -1 unmapped, or None for a contiguous cache (P = B, ps = S). Returns
-    (B, H, Dv) in v's dtype. A lane with ``lengths`` 0 gets the mean of the
-    V slots of its view, as the Pallas kernel does.
+    -1 unmapped, or None for a contiguous cache (P = B, ps = S).
+    int8 pools: k_scale / v_scale (P, SH) float32; the key scale multiplies
+    the score, the value scale each V row. part_idx (B, KP) int32: only
+    those logical pages are attended. Returns (B, H, Dv) in v's dtype, or
+    float32 for int8 pools. A lane with no valid position gets the mean of
+    the V slots of its view, as the Pallas kernel does.
     """
-    if page_table is not None:
-        b, kvh = page_table.shape[0], k.shape[1]
-        pages = page_table.long().clamp(min=0)               # (B, NP)
-        k = k[pages].transpose(1, 2).reshape(b, kvh, -1, k.shape[-1])
-        v = v[pages].transpose(1, 2).reshape(b, kvh, -1, v.shape[-1])
-    return aqua_decode_ref(q_hat, k, v, block_idx, lengths, block_dims,
-                           scale=scale)
+    b, h, d = q_hat.shape
+    kvh, ps = k.shape[1], k.shape[2]
+    rows = (torch.arange(b, device=k.device)[:, None] if page_table is None
+            else page_table.long().clamp(min=0))         # (B, NP) pages
+    s = rows.shape[1] * ps
+    kf, vf = k[rows].float(), v[rows].float()            # (B, NP, KV, ps, D)
+    g = h // kvh
+    factor = scale
+    if k_scale is not None:
+        # the key scale of each (lane, kv head, position), through its page
+        ks = k_scale[rows].float().expand(-1, -1, kvh)   # (B, NP, KV)
+        factor = scale * ks.transpose(1, 2).repeat_interleave(
+            ps, dim=-1)[:, :, None, :]
+        vf = vf * v_scale[rows].float()[..., :, None, None]
+    kf = kf.transpose(1, 2).reshape(b, kvh, s, -1)
+    vf = vf.transpose(1, 2).reshape(b, kvh, s, -1)
+    mask = _block_mask(block_idx, d // block_dims, block_dims)
+    qm = (q_hat.float() * mask).reshape(b, kvh, g, d)
+    scores = torch.einsum("bkgd,bksd->bkgs", qm, kf) * factor
+    pos = torch.arange(s, device=k.device)
+    valid = pos[None, :] < lengths.to(k.device)[:, None]     # (B, S)
+    if part_idx is not None:
+        hit = (torch.arange(s // ps, device=k.device)[None, :, None]
+               == part_idx.to(k.device)[:, None, :]).any(-1)
+        valid &= hit.repeat_interleave(ps, dim=1)
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bksd->bkgd", w, vf).reshape(b, h, -1)
+    return out if k_scale is not None else out.to(v.dtype)
 
 
-def _launch(q_hat, k, v, block_idx, lengths, page_table, block_dims, scale):
+def _launch(q_hat, k, v, block_idx, lengths, page_table, block_dims, scale,
+            k_scale, v_scale, part_idx):
     b, h, d = q_hat.shape
     _, kvh, ps, dk = k.shape
     dv = v.shape[-1]
     nb_sel = block_idx.shape[-1]
-    if q_hat.dtype not in _DTYPES or k.dtype != q_hat.dtype \
-            or v.dtype != q_hat.dtype:
-        raise TypeError(f"aqua_decode kernel takes float32 or bfloat16 "
-                        f"q/k/v of one dtype, got {q_hat.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+    quant = k_scale is not None
+    kv_dtype = torch.int8 if quant else q_hat.dtype
+    if q_hat.dtype not in _DTYPES or k.dtype != kv_dtype \
+            or v.dtype != kv_dtype:
+        raise TypeError(f"aqua_decode kernel takes float32 or bfloat16 q with "
+                        f"k/v of the same dtype (int8 with scales), got "
+                        f"{q_hat.dtype}, {k.dtype}, {v.dtype}")
     if dk != d or h % kvh or nb_sel * block_dims > 256 or dv > 256:
-        raise ValueError(f"aqua_decode kernel: unsupported shapes q {q_hat.shape} "
+        raise ValueError(f"aqua_decode kernel: unsupported shapes q "
+                         f"{q_hat.shape} "
                          f"k {k.shape} v {v.shape} NB_sel {nb_sel}")
-    if page_table is None and k.shape[0] != b:
-        raise ValueError("contiguous cache must have one page per lane")
-    tensors = [q_hat, k, v, block_idx, lengths]
-    if page_table is not None:
-        tensors.append(page_table)
+    if page_table is None and (k.shape[0] != b or quant
+                               or part_idx is not None):
+        raise ValueError("contiguous cache must have one page per lane, no "
+                         "scales and no participation table")
+    if quant and (v_scale is None or k_scale.shape != v_scale.shape
+                  or k_scale.shape[0] != k.shape[0]
+                  or k_scale.shape[1] not in (1, kvh)):
+        raise ValueError("k_scale / v_scale must both be (P, 1) or (P, KV)")
+    optional = (page_table, part_idx, k_scale, v_scale)
     dev = q_hat.device
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
+    for t in (q_hat, k, v, block_idx, lengths, *optional):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError("aqua_decode kernel needs contiguous tensors on "
                              "one CUDA device")
-    for t in (block_idx, lengths, page_table):
+    for t in (block_idx, lengths, page_table, part_idx):
         if t is not None and t.dtype != torch.int32:
-            raise TypeError("block_idx, lengths and page_table must be int32")
+            raise TypeError("block_idx, lengths, page_table and part_idx "
+                            "must be int32")
+    for t in (k_scale, v_scale):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError("k_scale and v_scale must be float32")
     lib = _build.load("aqua_decode", _SIG)
     npl = 0 if page_table is None else page_table.shape[1]
-    # one partial block per `split` positions of the lane capacity; the
-    # float32 scratch holds each split's (max, sum, acc[Dv])
-    nsplit = -(-ps * max(npl, 1) // lib.aqua_decode_split())
-    out = torch.empty((b, h, dv), dtype=v.dtype, device=dev)
+    kp = 0 if part_idx is None else part_idx.shape[1]
+    # one partial block per `split` positions walked; the float32 scratch
+    # holds each split's (max, sum, acc[Dv])
+    walked = ps * (kp if part_idx is not None else max(npl, 1))
+    nsplit = -(-walked // lib.aqua_decode_split())
+    out = torch.empty((b, h, dv), dtype=torch.float32 if quant else v.dtype,
+                      device=dev)
     scratch = torch.empty((b, h, nsplit, dv + 2), dtype=torch.float32,
                           device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.aqua_decode_launch(
             q_hat.data_ptr(), k.data_ptr(), v.data_ptr(), block_idx.data_ptr(),
-            None if page_table is None else page_table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h, kvh,
-            d, dv, nb_sel, block_dims, ps, npl, nsplit, float(scale),
-            _DTYPES[q_hat.dtype], stream)
-    _build.check(err, "aqua_decode")
+            *map(ptr, optional), lengths.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), b, h, kvh, d, dv, nb_sel, block_dims, ps, npl,
+            kp, 0 if k_scale is None else k_scale.shape[1], nsplit,
+            float(scale), _DTYPES[q_hat.dtype], stream)
+    _build.check(err, body_name(page_table is not None, quant,
+                                part_idx is not None))
     return out
 
 
-def _dispatch(q_hat, k, v, block_idx, lengths, page_table, block_dims, scale):
-    """Kernel output for CUDA tensors; None for CPU tensors (the caller
-    then runs the plain version); raises for any other device."""
+def _on_cpu(q_hat: torch.Tensor) -> bool:
+    """True for CPU tensors (the plain version runs); False for CUDA
+    tensors (the kernel launches); raises for any other device."""
     dev = q_hat.device.type
-    if dev == "cpu":
-        return None
-    if dev != "cuda":
+    if dev not in ("cpu", "cuda"):
         raise ValueError(f"aqua_decode: unsupported device {q_hat.device}")
-    return _launch(q_hat, k, v, block_idx, lengths, page_table, block_dims,
-                   scale)
+    return dev == "cpu"
 
 
 def aqua_decode_attention(q_hat: torch.Tensor, khat: torch.Tensor,
@@ -127,38 +184,37 @@ def aqua_decode_attention(q_hat: torch.Tensor, khat: torch.Tensor,
     Returns (B, H, Dv) in v's dtype."""
     if scale is None:
         scale = 1.0 / q_hat.shape[-1] ** 0.5
-    out = _dispatch(q_hat, khat, v, block_idx, lengths, None, block_dims,
-                    scale)
-    if out is None:
+    if _on_cpu(q_hat):
         return aqua_decode_plain(q_hat, khat, v, block_idx, lengths, None,
                                  block_dims=block_dims, scale=scale)
-    aqua_decode_attention.launches += 1
-    return out
+    return _launch(q_hat, khat, v, block_idx, lengths, None, block_dims,
+                   scale, None, None, None)
 
 
 def aqua_paged_decode_attention(q_hat: torch.Tensor, k_pool: torch.Tensor,
                                 v_pool: torch.Tensor, block_idx: torch.Tensor,
                                 page_table: torch.Tensor,
                                 lengths: torch.Tensor, *, block_dims: int = 8,
-                                scale: Optional[float] = None
+                                scale: Optional[float] = None,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None,
+                                part_idx: Optional[torch.Tensor] = None
                                 ) -> torch.Tensor:
     """Block-sparse AQUA decode over a page pool.
 
     k_pool (P, KV, ps, D) / v_pool (P, KV, ps, Dv) seq-major per page;
     page_table (B, NP) int32, -1 unmapped (masked by ``lengths``).
     Position ``pos`` of lane b lives in page ``page_table[b, pos // ps]`` at
-    offset ``pos % ps``; the kernel resolves it per token."""
+    offset ``pos % ps``; the kernel resolves it per token. int8 pools
+    take k_scale / v_scale (P, SH) float32 and return float32. part_idx
+    (B, KP) int32 (sorted logical pages, ``core.selection``) restricts
+    the walk to those pages."""
     if scale is None:
         scale = 1.0 / q_hat.shape[-1] ** 0.5
-    out = _dispatch(q_hat, k_pool, v_pool, block_idx, lengths, page_table,
-                    block_dims, scale)
-    if out is None:
+    if _on_cpu(q_hat):
         return aqua_decode_plain(q_hat, k_pool, v_pool, block_idx, lengths,
                                  page_table, block_dims=block_dims,
-                                 scale=scale)
-    aqua_paged_decode_attention.launches += 1
-    return out
-
-
-aqua_decode_attention.launches = 0
-aqua_paged_decode_attention.launches = 0
+                                 scale=scale, k_scale=k_scale,
+                                 v_scale=v_scale, part_idx=part_idx)
+    return _launch(q_hat, k_pool, v_pool, block_idx, lengths, page_table,
+                   block_dims, scale, k_scale, v_scale, part_idx)

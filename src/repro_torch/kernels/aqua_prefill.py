@@ -13,8 +13,8 @@ strides so the model's (B, S, KV, G, D) layout needs no transpose; see the
 source's header for the tiling.
 
 Dispatch is by device: CPU tensors run :func:`aqua_prefill_plain`, CUDA
-tensors launch the kernel or raise. ``aqua_prefill_attention.launches``
-counts launches.
+tensors launch the kernel or raise. Launches count in
+``_build.LAUNCHES["aqua_prefill"]``.
 """
 from __future__ import annotations
 
@@ -114,10 +114,5 @@ def aqua_prefill_attention(q_hat: torch.Tensor, khat: torch.Tensor,
                                   causal=causal, scale=scale)
     if dev != "cuda":
         raise ValueError(f"aqua_prefill: unsupported device {q_hat.device}")
-    out = _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk,
-                  causal, scale)
-    aqua_prefill_attention.launches += 1
-    return out
-
-
-aqua_prefill_attention.launches = 0
+    return _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk,
+                   causal, scale)

@@ -1,0 +1,89 @@
+"""Dense flash attention: CUDA kernel, plain version, wrapper.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
+``_kernel``: causal (or not) GQA attention with an optional sliding window,
+scale 1/sqrt(D), float32 online softmax. The CUDA source is
+``csrc/flash_attention.cu``. It serves the dense baseline (AQUA off) and
+per-dim AQUA prefill (``block_dims`` 1, on the masked q̂).
+
+Bound on the H100: operations at prompt lengths (the S²/2 score and value
+products against S·2D bytes of K/V per KV head). The kernel walks only the
+key tiles inside the causal bound and the window, and reads q/k/v through
+strides so the model's (B, S, KV, G, D) layout needs no transpose; see the
+source's header for the tiling.
+
+Dispatch is by device: CPU tensors run :func:`flash_attention_plain`, CUDA
+tensors launch the kernel or raise. Launches count in
+``_build.LAUNCHES["flash_attention"]``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = {"flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   ctypes.POINTER(ctypes.c_longlong),
+                                   ctypes.c_float, _I, _I, _I, _P]}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the dense oracle
+    (:func:`repro_torch.kernels.ref.flash_attention_ref`) in float32."""
+    return flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def _launch(q, k, v, causal, window):
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention kernel takes float32 or bfloat16 "
+                        f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if (k.shape != (b, kvh, s, d) or v.shape != k.shape or h % kvh
+            or d > 128):
+        raise ValueError(f"flash_attention kernel: unsupported shapes q "
+                         f"{q.shape} k {k.shape} v {v.shape}")
+    dev = q.device
+    for t in (q, k, v):
+        if t.device != dev or t.stride(-1) != 1:
+            raise ValueError("flash_attention kernel needs q/k/v on one CUDA "
+                             "device with a contiguous last axis")
+    out = torch.empty((b, h, s, d), dtype=v.dtype, device=dev)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *out.stride()[:3])
+    lib = _build.load("flash_attention", _SIG)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            kvh, s, d, strides, 1.0 / d ** 0.5, int(causal),
+            0 if window is None else int(window), _DTYPES[q.dtype], stream)
+    _build.check(err, "flash_attention")
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Flash attention. q (B, H, S, D); k, v (B, KV, S, D) — any strides
+    with a contiguous last axis; kv head = h // (H / KV). ``window``
+    keeps keys with ``kpos > qpos - window``. Returns (B, H, S, D) in v's
+    dtype."""
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    dev = q.device.type
+    if dev == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if dev != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _launch(q, k, v, causal, window)

@@ -1,10 +1,11 @@
 """Public AQUA attention ops: selection plus the kernel wrappers.
 
-``aqua_decode`` / ``aqua_paged_decode`` / ``aqua_prefill`` take the
-model-layout tensors (seq-major K̂ cache, as the JAX package's ops do),
-choose the dim-blocks by |q̂| and call the kernel wrappers, which launch
-the CUDA kernels for CUDA tensors and run the plain versions for CPU
-tensors. Unlike the JAX ops they never build the dim-major view of the
+``flash_attention`` (and its oracle ``flash_attention_ref``) is re-exported
+here as in the JAX package. ``aqua_decode`` / ``aqua_paged_decode`` /
+``aqua_prefill`` take the model-layout tensors (seq-major K̂ cache, as the
+JAX package's ops do), choose the dim-blocks by |q̂| and call the kernel
+wrappers, which launch the CUDA kernels for CUDA tensors and run the plain
+versions for CPU tensors. Unlike the JAX ops they never build the dim-major view of the
 cache: the CUDA kernels read the selected blocks of the seq-major cache
 directly (:func:`to_dim_major_blocks` is kept for tests and byte
 accounting). The selection helpers :func:`decode_blocks` and
@@ -22,6 +23,8 @@ from repro_torch.core import aqua as aqua_lib
 from repro_torch.kernels.aqua_decode import (aqua_decode_attention,
                                              aqua_paged_decode_attention)
 from repro_torch.kernels.aqua_prefill import aqua_prefill_attention
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.ref import flash_attention_ref  # noqa: F401
 
 
 def to_dim_major_blocks(khat: torch.Tensor, block_dims: int) -> torch.Tensor:
@@ -92,18 +95,33 @@ def aqua_decode(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
 
 def aqua_paged_decode(q_hat: torch.Tensor, k_pool: torch.Tensor,
                       v_pool: torch.Tensor, page_table: torch.Tensor,
-                      lengths: torch.Tensor, *, k_ratio: float = 0.75,
-                      block_dims: int = 8, scale: Optional[float] = None
-                      ) -> torch.Tensor:
-    """AQUA decode attention over a page pool (full precision).
+                      lengths: torch.Tensor,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None,
+                      part_idx: Optional[torch.Tensor] = None,
+                      block_idx: Optional[torch.Tensor] = None, *,
+                      k_ratio: float = 0.75, block_dims: int = 8,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """AQUA decode attention over a page pool.
 
     q_hat (B, H, D); k_pool (P, KV, ps, D); v_pool (P, KV, ps, Dv);
-    page_table (B, NP) int32 (-1 unmapped); lengths (B,)."""
+    page_table (B, NP) int32 (-1 unmapped); lengths (B,). k_scale /
+    v_scale (P, SH) float32 for int8 pools (output float32). part_idx
+    (B, KP): hierarchical AQUA's participating logical pages per lane, or
+    None for all pages. block_idx: a precomputed (B, H, NB_sel) dim-block
+    selection, or None to select here from |q̂|."""
+    dev = q_hat.device
+    if block_idx is None:
+        block_idx = decode_blocks(q_hat, k_ratio, block_dims)
+
+    def f32(x):
+        return None if x is None else x.to(device=dev,
+                                           dtype=torch.float32).contiguous()
     return aqua_paged_decode_attention(
-        q_hat.contiguous(), k_pool, v_pool,
-        decode_blocks(q_hat, k_ratio, block_dims),
-        _i32(page_table, q_hat.device), _i32(lengths, q_hat.device),
-        block_dims=block_dims, scale=scale)
+        q_hat.contiguous(), k_pool, v_pool, _i32(block_idx, dev),
+        _i32(page_table, dev), _i32(lengths, dev), block_dims=block_dims,
+        scale=scale, k_scale=f32(k_scale), v_scale=f32(v_scale),
+        part_idx=None if part_idx is None else _i32(part_idx, dev))
 
 
 def aqua_prefill(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,

@@ -25,10 +25,18 @@ class DecodeState:
 class PagingSpec:
     """Page-pool geometry installed on a model by the serving engine
     (``LM.enable_paging``): ``init_decode_state`` then allocates a global
-    page pool + per-lane page tables instead of per-lane slot stripes."""
+    page pool + per-lane page tables instead of per-lane slot stripes.
+    ``kv_dtype`` / ``scale_granularity`` carry the engine's ``QuantSpec``
+    (int8 pools with per-page scales); ``kept_pages`` (None = every page)
+    and ``pin_recent_pages`` its ``SparsitySpec`` (hierarchical AQUA:
+    decode attends each lane's ``kept_pages`` participating pages)."""
 
     page_size: int
     num_pages: int
+    kv_dtype: str = "bf16"                # bf16 | int8
+    scale_granularity: str = "page_head"  # page_head | page
+    kept_pages: Optional[int] = None
+    pin_recent_pages: int = 2
 
 
 class LM:

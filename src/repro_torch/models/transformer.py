@@ -54,11 +54,13 @@ def block_forward(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 def block_step(cfg, p: dict, x_t: torch.Tensor, cache,
                proj: Optional[torch.Tensor],
-               write_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               write_mask: Optional[torch.Tensor] = None,
+               token_sparsity=None) -> torch.Tensor:
     h = attn.decode_attention(p["attn"], L.rms_norm(x_t, p["ln1"],
                                                     cfg.norm_eps),
                               cache, cfg.attention, cfg.aqua, proj,
-                              write_mask=write_mask)
+                              write_mask=write_mask,
+                              token_sparsity=token_sparsity)
     x = x_t + h
     return x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
 
@@ -139,7 +141,9 @@ class DenseLM(LM):
             layers = kv.init_paged_cache(
                 batch_size, acfg.num_kv_heads, pg.num_pages,
                 kv.paged_pages(slots, pg.page_size), pg.page_size, dk, dv,
-                self.dtype, device, num_layers=cfg.num_layers)
+                self.dtype, device, num_layers=cfg.num_layers,
+                kv_dtype=pg.kv_dtype,
+                scale_granularity=pg.scale_granularity)
         else:
             layers = kv.init_attn_cache(batch_size, acfg.num_kv_heads, slots,
                                         dk, dv, self.dtype, device,
@@ -168,12 +172,17 @@ class DenseLM(LM):
 
     def decode_step(self, params, state: DecodeState, tokens: torch.Tensor,
                     aqua_proj=None, write_mask=None):
-        """tokens (B,) -> (logits (B, V) float32, state updated in place)."""
+        """tokens (B,) -> (logits (B, V) float32, state updated in place).
+        A paged state with ``PagingSpec.kept_pages`` set decodes through
+        hierarchical AQUA, the participating pages ranked per layer."""
         x = L.embed(params["embed"], tokens, self.dtype)
+        pg = self._paging
+        sparsity = (None if pg is None or pg.kept_pages is None
+                    else (pg.kept_pages, pg.pin_recent_pages))
         for i in range(self.cfg.num_layers):
             x = block_step(self.cfg, layer_params(params["layers"], i), x,
                            state.layers.layer(i), self._proj(aqua_proj, i),
-                           write_mask=write_mask)
+                           write_mask=write_mask, token_sparsity=sparsity)
         return self._unembed(params, x), state
 
     # -- paged lane surgery ---------------------------------------------

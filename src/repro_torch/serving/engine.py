@@ -1,11 +1,13 @@
 """Continuous-batching serving engine (PyTorch port).
 
 Port of the JAX package's ``ContinuousBatchingEngine`` with monolithic
-admission, on the contiguous or the paged KV cache. Requests are admitted
-into fixed decode *lanes* (batch rows of one shared decode state); each
-admission prefills its prompt alone (bucket-padded, ragged ``lengths``)
-and grafts the cache into its lane — a row copy on the contiguous cache,
-a scatter into the pages the host allocator reserved on the paged pool.
+admission, on the contiguous or the paged KV cache (paged: optionally with
+int8 pools, ``QuantSpec``, and hierarchical AQUA, ``SparsitySpec``).
+Requests are admitted into fixed decode *lanes* (batch rows of one shared
+decode state); each admission prefills its prompt alone (bucket-padded,
+ragged ``lengths``) and grafts the cache into its lane — a row copy on the
+contiguous cache, a scatter into the pages the host allocator reserved on
+the paged pool.
 Every decode step runs all ``max_lanes`` lanes; inactive lanes ride along
 under a ``write_mask`` that freezes their cache. The per-lane bookkeeping
 (last token, counters, stop rules) lives on the host: the host reads each
@@ -17,7 +19,8 @@ package). Temperature sampling draws Gumbel noise from a
 independent of lane placement but not the JAX package's random stream.
 
 Not ported yet (the engine raises ``NotImplementedError``): prefix
-sharing, chunked prefill, meshes, sliding windows, H2O eviction.
+sharing, chunked prefill, meshes, sliding windows, H2O eviction, and
+mixed-precision hot residents (``QuantSpec.hot_resident_fraction`` > 0).
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ from typing import Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, ServingConfig
+from repro_torch.configs.base import (ModelConfig, ServingConfig,
+                                      resolve_cache_specs,
+                                      resolve_sparsity_spec)
 from repro_torch.core import kvcache as kvc
 from repro_torch.core.attention import resolve_backend
 from repro_torch.core.calibration import AquaProjections
@@ -117,7 +122,12 @@ class ContinuousBatchingEngine:
             raise NotImplementedError("sliding-window caches are not ported")
         if cfg.aqua is not None and cfg.aqua.h2o_ratio < 1.0:
             raise NotImplementedError("H2O eviction is not ported yet")
-        cache = serving.cache_spec
+        cache, quant = resolve_cache_specs(serving)
+        self.sparsity_spec = resolve_sparsity_spec(serving)
+        if quant.hot_resident_fraction > 0:
+            raise NotImplementedError(
+                "mixed-precision hot residents (QuantSpec."
+                "hot_resident_fraction > 0) are not ported yet")
         if cache.paged and cache.prefix_sharing:
             raise NotImplementedError(
                 "prefix sharing is not ported yet: pass "
@@ -140,17 +150,40 @@ class ContinuousBatchingEngine:
         self.page_pool: Optional[PagePool] = None
         self._num_slots = kvc.cache_slots(serving.max_seq)
         self._paged = cache.paged
+        self._kept_pages = None
         if self._paged:
             self._pages_per_lane = kvc.paged_pages(self._num_slots,
                                                    cache.page_size)
             self._num_pages = cache.num_pages or (serving.max_lanes
                                                   * self._pages_per_lane)
-            self.model.enable_paging(PagingSpec(cache.page_size,
-                                                self._num_pages))
+            # hierarchical AQUA: the participating page count, resolved
+            # once (the table itself is per step and layer). The JAX
+            # DispatchPlan vetoes it only for windows and H2O eviction
+            # (core/dispatch.py, token_reasons), which this engine refuses
+            # above, so it engages whenever it drops a page.
+            if self.sparsity_spec.hierarchical:
+                kp = self.sparsity_spec.kept_pages(self._pages_per_lane)
+                if kp < self._pages_per_lane:
+                    self._kept_pages = kp
+            self.model.enable_paging(PagingSpec(
+                cache.page_size, self._num_pages, kv_dtype=quant.kv_dtype,
+                scale_granularity=quant.scale_granularity,
+                kept_pages=self._kept_pages,
+                pin_recent_pages=self.sparsity_spec.pin_recent_pages))
 
     @property
     def paged(self) -> bool:
         return self._paged
+
+    @property
+    def kept_pages(self) -> Optional[int]:
+        """Participating pages per lane under hierarchical AQUA, or None
+        when every page participates."""
+        return self._kept_pages
+
+    @property
+    def pages_per_lane(self) -> Optional[int]:
+        return self._pages_per_lane if self._paged else None
 
     # -- host-side helpers ------------------------------------------------
     def _normalize(self, req: Request) -> Request:

@@ -93,6 +93,15 @@ def test_plain_reference_backend_serves_the_same_tokens(models):
         {u: o.tokens for u, o in want.items()}
 
 
+def test_plain_reference_backend_serves_the_same_tokens_paged(models):
+    cache = CacheSpec(page_size=8, prefix_sharing=False)
+    want = _port_engine(models, cache).run(poisson_trace(4, **TRACE))
+    got = _port_engine(models, cache, backend="aqua-block-sparse-plain").run(
+        poisson_trace(4, **TRACE))
+    assert {u: o.tokens for u, o in got.items()} == \
+        {u: o.tokens for u, o in want.items()}
+
+
 def test_cache_bytes_paged_pool_counted_once(models):
     tcfg = models[3]
     att = tcfg.attention
@@ -103,8 +112,10 @@ def test_cache_bytes_paged_pool_counted_once(models):
     assert contiguous == tcfg.num_layers * per_layer
     paged = _port_engine(models, CacheSpec(page_size=8, num_pages=12,
                                            prefix_sharing=False))
+    # k/v pools, positions, accumulated scores (P, KV, ps), table, count
     per_layer = (12 * att.num_kv_heads * 8 * (dk + att.head_dim) * 4
-                 + 12 * 8 * 4 + 3 * 8 * 4 + 3 * 4)
+                 + 12 * 8 * 4 + 12 * att.num_kv_heads * 8 * 4 + 3 * 8 * 4
+                 + 3 * 4)
     assert paged.cache_bytes() == tcfg.num_layers * per_layer
 
 

@@ -16,11 +16,14 @@ import dataclasses
 import pytest
 import torch
 
-from repro_torch.configs import AquaConfig, CacheSpec, ServingConfig, reduced
+from repro_torch.configs import (AquaConfig, CacheSpec, QuantSpec,
+                                 ServingConfig, SparsitySpec, reduced)
 from repro_torch.core.calibration import identity_projections
 from repro_torch.kernels import aqua_decode as dk
 from repro_torch.kernels import aqua_prefill as pk
+from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ops
+from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models import build_model
 from repro_torch.serving import ContinuousBatchingEngine, poisson_trace
 
@@ -59,8 +62,7 @@ def test_decode_kernel_matches_plain(cuda, dtype, paged, h, kv, d, k_ratio):
     k = _rand(gen, b, kv, s + 20, d, dtype=dtype)[:, :, :s].contiguous()
     v = _rand(gen, b, kv, s, d, dtype=dtype)
     lengths = torch.tensor([s, 1, 77, 129], dtype=torch.int32, device=cuda)
-    before = (dk.aqua_decode_attention.launches,
-              dk.aqua_paged_decode_attention.launches)
+    before = LAUNCHES.copy()
     if paged:
         npl = -(-s // ps)
         table = torch.randperm(b * npl, generator=gen, device=cuda).reshape(
@@ -84,10 +86,8 @@ def test_decode_kernel_matches_plain(cuda, dtype, paged, h, kv, d, k_ratio):
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (b, h, d)
     assert _within_tol(out, ref, dtype)
-    after = (dk.aqua_decode_attention.launches,
-             dk.aqua_paged_decode_attention.launches)
-    assert after[int(paged)] == before[int(paged)] + 1
-    assert after[1 - int(paged)] == before[1 - int(paged)]
+    name = dk.body_name(paged)
+    assert LAUNCHES - before == {name: 1}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -102,16 +102,94 @@ def test_prefill_kernel_matches_plain(cuda, dtype, h, kv, d, s, q_blk):
     k = _rand(gen, b, kv, s, d, dtype=dtype)
     v = _rand(gen, b, kv, s, d, dtype=dtype)
     lengths = torch.tensor([s, s // 3], dtype=torch.int32, device=cuda)
-    before = pk.aqua_prefill_attention.launches
+    before = LAUNCHES["aqua_prefill"]
     out = ops.aqua_prefill(q, k, v, lengths, q_blk=q_blk)
     block_idx, _, chunk = ops.prefill_blocks(q, lengths, 0.75, 8, q_blk)
     ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, block_dims=8,
                                 q_blk=chunk, causal=True, scale=d ** -0.5)
     torch.cuda.synchronize()
-    assert pk.aqua_prefill_attention.launches == before + 1
+    assert LAUNCHES["aqua_prefill"] == before + 1
     valid = (torch.arange(s, device=cuda)[None] < lengths[:, None])[
         :, None, :, None]
     assert _within_tol(out, ref, dtype, valid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,d,s,causal,window", [
+    (16, 8, 128, 300, True, None), (8, 2, 64, 100, False, None),
+    (4, 4, 32, 200, True, 50), (4, 1, 128, 77, False, 20)])
+def test_flash_kernel_matches_plain(cuda, dtype, h, kv, d, s, causal,
+                                    window):
+    gen = torch.Generator(device="cuda").manual_seed(s + d)
+    b = 2
+    q = _rand(gen, b, s, h, d, dtype=dtype).transpose(1, 2)   # strided view
+    k = _rand(gen, b, kv, s, d, dtype=dtype)
+    v = _rand(gen, b, s, kv, d, dtype=dtype).transpose(1, 2)
+    before = LAUNCHES.copy()
+    out = fk.flash_attention(q, k, v, causal=causal, window=window)
+    ref = fk.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES - before == {"flash_attention": 1}
+    assert out.dtype == dtype and out.shape == (b, h, s, d)
+    assert _within_tol(out, ref, dtype)
+
+
+def _pools(gen, p, kv, ps, d, dtype, quant):
+    if quant:
+        k = torch.randint(-127, 128, (p, kv, ps, d), generator=gen,
+                          device="cuda").to(torch.int8)
+        v = torch.randint(-127, 128, (p, kv, ps, d), generator=gen,
+                          device="cuda").to(torch.int8)
+        return k, v
+    return (_rand(gen, p, kv, ps, d, dtype=dtype),
+            _rand(gen, p, kv, ps, d, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant,part", [(True, False), (False, True),
+                                        (True, True)])
+@pytest.mark.parametrize("h,kv,d,sh", [(16, 8, 128, 8), (8, 2, 64, 1),
+                                       (32, 8, 128, 1)])
+def test_paged_variant_kernels_match_plain(cuda, dtype, quant, part, h, kv,
+                                           d, sh):
+    """int8 pools (per-page scales looked up per position: a split spans
+    several pages) and participating pages (a partial tail page and pages
+    past the tail)."""
+    gen = torch.Generator(device="cuda").manual_seed(h + d + sh)
+    b, ps, npl = 4, 16, 40
+    p = b * npl + 3
+    q = _rand(gen, b, h, d, dtype=dtype)
+    k_pool, v_pool = _pools(gen, p, kv, ps, d, dtype, quant)
+    scales = [None, None]
+    if quant:
+        scales = [torch.rand(p, sh if sh == 1 else kv, generator=gen,
+                             device="cuda") * 0.02 + 0.001 for _ in range(2)]
+    table = torch.randperm(p, generator=gen, device=cuda)[:b * npl].reshape(
+        b, npl).to(torch.int32)
+    table[1, 5:] = -1
+    lengths = torch.tensor([npl * ps, 5 * ps - 3, 1, 333], dtype=torch.int32,
+                           device=cuda)
+    part_idx = None
+    if part:
+        kp = 12
+        part_idx = torch.stack([
+            torch.sort(torch.randperm(npl, generator=gen, device=cuda)[:kp]
+                       )[0] for _ in range(b)]).to(torch.int32)
+        part_idx[1] = torch.arange(kp, device=cuda)     # pages past the tail
+        part_idx[2, 0] = 0                              # lane 2's one token
+    before = LAUNCHES.copy()
+    out = ops.aqua_paged_decode(q, k_pool, v_pool, table, lengths, *scales,
+                                part_idx=part_idx)
+    ref = dk.aqua_decode_plain(q, k_pool, v_pool,
+                               ops.decode_blocks(q, 0.75, 8), lengths, table,
+                               block_dims=8, scale=d ** -0.5,
+                               k_scale=scales[0], v_scale=scales[1],
+                               part_idx=part_idx)
+    torch.cuda.synchronize()
+    assert LAUNCHES - before == {dk.body_name(True, quant, part): 1}
+    out_dtype = torch.float32 if quant else dtype
+    assert out.dtype == out_dtype and out.shape == (b, h, d)
+    assert _within_tol(out, ref, out_dtype)
 
 
 def test_kernel_wrappers_reject_bad_inputs(cuda):
@@ -135,11 +213,46 @@ def test_engine_on_the_card_matches_plain_reference(cuda):
     reqs = lambda: poisson_trace(6, mean_interarrival=2.0,
                                  prompt_lens=(9, 33, 70), max_new_tokens=8,
                                  vocab_size=512, seed=1)
-    for cache in (None, CacheSpec(page_size=16, prefix_sharing=False)):
+    paged = CacheSpec(page_size=16, prefix_sharing=False)
+    for kw in (dict(cache=None), dict(cache=paged),
+               dict(cache=paged, quant=QuantSpec(kv_dtype="int8")),
+               dict(cache=paged, sparsity=SparsitySpec(page_keep_ratio=0.5)),
+               dict(cache=paged, quant=QuantSpec(kv_dtype="int8"),
+                    sparsity=SparsitySpec(page_keep_ratio=0.5))):
         scfg = ServingConfig(max_lanes=3, max_seq=128, max_new_tokens=8,
-                             cache=cache)
+                             **kw)
         outs = [ContinuousBatchingEngine(cfg, params, proj, serving=scfg,
                                          backend=be).run(reqs())
                 for be in ("aqua-block-sparse", "aqua-block-sparse-plain")]
         assert {u: o.tokens for u, o in outs[0].items()} == \
-            {u: o.tokens for u, o in outs[1].items()}
+            {u: o.tokens for u, o in outs[1].items()}, kw
+
+
+def test_flash_engine_on_the_card_matches_dense_reference(cuda):
+    """AQUA off, and per-dim AQUA (block_dims 1): prefill runs the flash
+    kernel (per admission, once per layer); tokens equal the dense
+    reference's."""
+    for aq in (None, AquaConfig(prefill_q_blk=16)):
+        cfg = dataclasses.replace(reduced("qwen3-0.6b", d_model=256,
+                                          vocab=512), aqua=aq)
+        params = build_model(cfg).init(torch.Generator(device="cuda")
+                                       .manual_seed(0))
+        proj = None if aq is None else identity_projections(
+            cfg.num_layers, cfg.attention.num_kv_heads,
+            cfg.attention.head_dim)
+        reqs = lambda: poisson_trace(4, mean_interarrival=2.0,
+                                     prompt_lens=(9, 70), max_new_tokens=6,
+                                     vocab_size=512, seed=2)
+        scfg = ServingConfig(max_lanes=2, max_seq=128, max_new_tokens=6,
+                             cache=CacheSpec(page_size=16,
+                                             prefix_sharing=False))
+        before = LAUNCHES.copy()
+        got = ContinuousBatchingEngine(cfg, params, proj,
+                                       serving=scfg).run(reqs())
+        assert LAUNCHES - before == {"flash_attention": 4 * cfg.num_layers}
+        ref = ContinuousBatchingEngine(
+            cfg, params, proj, serving=scfg,
+            backend="dense" if aq is None else "aqua-masked-dense").run(
+                reqs())
+        assert {u: o.tokens for u, o in got.items()} == \
+            {u: o.tokens for u, o in ref.items()}

@@ -108,14 +108,19 @@ def test_rope_and_rms_norm_match_jax():
 
 
 def test_resolve_backend_rules():
+    """As the JAX package resolves where it prefers its kernels: ``auto``
+    is the block-sparse kernels with AQUA on and flash with it off; dense
+    is never chosen automatically."""
     aq = AquaConfig(block_dims=8)
     assert attn.resolve_backend("auto", aq).name == "aqua-block-sparse"
-    assert attn.resolve_backend("auto", None).name == "dense"
-    assert attn.resolve_backend("aqua-block-sparse", None).name == "dense"
+    assert attn.resolve_backend("auto", None).name == "flash"
+    assert attn.resolve_backend("aqua-block-sparse", None).name == "flash"
     assert attn.resolve_backend("aqua-masked-dense", aq).name == \
         "aqua-masked-dense"
+    assert attn.resolve_backend("flash", aq).name == "flash"
+    assert attn.get_backend("aqua-block-sparse").per_dim.name == "flash"
     with pytest.raises(KeyError):
-        attn.resolve_backend("flash", aq)
+        attn.resolve_backend("flash-plain", aq)
 
 
 def _insert_trace(rng, steps, b, kvh, d):
@@ -199,5 +204,7 @@ def test_paged_graft_and_reset_match_jax():
 def test_tree_bytes_counts_every_cache_tensor():
     c = kv.init_paged_cache(4, 2, 10, 3, 8, 16, 16, torch.bfloat16, "meta",
                             num_layers=2)
-    want = 2 * (2 * 10 * 2 * 8 * 16 * 2 + 10 * 8 * 4 + 4 * 3 * 4 + 4 * 4)
+    # per layer: k/v pools, positions, accumulated scores, table, count
+    want = 2 * (2 * 10 * 2 * 8 * 16 * 2 + 10 * 8 * 4 + 10 * 2 * 8 * 4
+                + 4 * 3 * 4 + 4 * 4)
     assert kv.tree_bytes(c) == want
