@@ -15,34 +15,44 @@ Phases, each of which raises (non-zero exit) on failure:
    with 64-token pages and a shuffled page table; the paged variants with
    int8 pools and per-(page, head) scales, with the participating pages of
    hierarchical AQUA at page_keep_ratio 0.25, and with both); prefill and
-   flash attention B=1, S=2048, causal. One JSON line per kernel and
-   geometry: max abs error and the worst ratio of error to the per-element
+   flash attention B=1, S=2048, causal; the prefill's ``q_offset`` form
+   (chunked prefill: rows 3072-4095 of S=4096, also held against those
+   rows of the monolithic call) and its participating-chunk walk
+   (``_part_kernel``: B=1, S=4096, 8 of 32 key chunks of 128 per q-tile
+   from ``chunk_participating_tiles`` on seeded scores; the identity table
+   held against the dense walk). One JSON line per kernel and geometry:
+   max abs error and the worst ratio of error to the per-element
    tolerance, kernel / plain / library ms (CUDA events) and the bound.
    Planted faults must fail the same tolerance, so it is tight enough to
    catch a wrong kernel: one 256-position split of a lane dropped, one
-   head's dim-block selection shifted (decode, prefill); a window that
-   cuts the far keys and a causal diagonal shifted by one key (flash); one
-   page's key scale doubled (int8); one participating page swapped for a
-   dropped one (participating pages).
+   head's dim-block selection shifted (decode, prefill); ``q_offset`` one
+   q_blk early; one participating key chunk swapped for a dropped one; a
+   window that cuts the far keys and a causal diagonal shifted by one key
+   (flash); one page's key scale doubled (int8); one participating page
+   swapped for a dropped one (participating pages).
 4. Serve Qwen3-0.6B at its full published width and depth (random bf16
    weights from a seeded generator, projections calibrated on
    ``corpora/calibration.txt``) through the continuous-batching engine, in
-   six drives of a Poisson trace (prompts 128/512/1024, 32 new tokens,
+   seven drives of a Poisson trace (prompts 128/512/1024, 32 new tokens,
    greedy, 8 lanes): AQUA (k_ratio 0.75, block_dims 8) on the paged pool
    and on the contiguous cache; AQUA off on the paged pool (flash
    prefill); AQUA on an int8 paged pool; hierarchical AQUA
    (page_keep_ratio 0.25 of 32 pages, prompts 512/1024) on a bf16 and on
-   an int8 paged pool. The launch counters are zeroed just before each
-   drive and read just after it: each drive must have launched its
-   kernels once per layer per admission and per decode step, and no other
-   kernel. Each trace is also served by its reference (the kernels' plain
-   versions, backend ``aqua-block-sparse-plain``; for AQUA off the
-   ``dense`` backend): every admission's logits and those of the first
-   decode steps (on lanes whose tokens still agree) must match within a
-   stated bf16 limit; the greedy token match is reported. The int8 pool
-   must take < 0.60 of the bf16 pool's bytes. A paged drive of 4 requests
-   runs under ``torch.profiler`` for the device's idle share and its top
-   kernels.
+   an int8 paged pool; chunked prefill (budget 256 tokens per step,
+   prompts 512/1024, every admission chunked) on the paged pool. The
+   launch counters are zeroed just before each drive and read just after
+   it: each drive must have launched its prefill kernel once per layer
+   per monolithic admission and per prefill chunk, its decode kernel once
+   per layer per decode step, and no other kernel. Each trace is also
+   served by its reference (the kernels' plain versions, backend
+   ``aqua-block-sparse-plain``; for AQUA off the ``dense`` backend): every
+   admission's logits and those of the first decode steps (on lanes whose
+   tokens still agree) must match within a stated bf16 limit; the greedy
+   token match is reported. The chunked trace is also served
+   monolithically with the kernels: token match and inter-token gaps of
+   both are reported. The int8 pool must take < 0.60 of the bf16 pool's
+   bytes. A paged drive of 4 requests runs under ``torch.profiler`` for
+   the device's idle share and its top kernels.
 5. The ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -280,6 +290,158 @@ def prefill_phase(geom: str, h: int, kvh: int, gen) -> dict:
                 library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
 
 
+def prefill_chunk_phase(geom: str, h: int, kvh: int, gen) -> dict:
+    """The prefill kernel's ``q_offset`` form, as chunked prefill runs it:
+    the last 1024 of 4096 rows against all 4096 keys, held against its
+    plain version and against the same rows of the monolithic call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import aqua
+    from repro_torch.kernels import aqua_prefill as pk
+    from repro_torch.kernels.ops import prefill_blocks, round_k_dims
+
+    b, s, t, d, q_blk = 1, 4096, 1024, 128, 128
+    off = s - t
+    dev, bf = "cuda", torch.bfloat16
+    q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
+    k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+    v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    scale = d ** -0.5
+    nsel = round_k_dims(d, K_RATIO, BLOCK_DIMS)
+    qc = q[:, :, off:]
+    block_idx, _, _ = prefill_blocks(qc, lengths - off, K_RATIO, BLOCK_DIMS,
+                                     q_blk)
+    kw = dict(block_dims=BLOCK_DIMS, q_blk=q_blk, causal=True, scale=scale)
+
+    def kernel(q_offset=off):
+        return pk.aqua_prefill_attention(qc, k, v, block_idx, lengths,
+                                         q_offset=q_offset, **kw)
+
+    def plain():
+        return pk.aqua_prefill_plain(qc, k, v, block_idx, lengths,
+                                     q_offset=off, **kw)
+
+    out = kernel()
+    check = check_kernel(out, plain(), {
+        "q_offset_one_q_blk_early": kernel(q_offset=off - q_blk)})
+    full_idx = aqua.chunk_topk_block_indices(q, nsel, BLOCK_DIMS, q_blk,
+                                             lengths).contiguous()
+    mono = pk.aqua_prefill_attention(q, k, v, full_idx, lengths,
+                                     **kw)[:, :, off:]
+    vs_mono = tol_ratio(out, mono)
+    check["ok"] = check["ok"] and vs_mono <= 1.0
+    sel = torch.zeros(b, h, t // q_blk, d // BLOCK_DIMS, device=dev)
+    sel.scatter_(-1, block_idx.long(), 1.0)
+    qm = qc * sel.repeat_interleave(BLOCK_DIMS, -1).repeat_interleave(
+        q_blk, 2).to(bf)
+    qpos = off + torch.arange(t, device=dev)
+    mask = qpos[:, None] >= torch.arange(s, device=dev)[None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qm, k, v, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+
+    pairs = t * off + t * (t + 1) / 2
+    ops = 2 * pairs * h * (nsel + d)
+    nbytes = 2 * (b * h * t * nsel + 2 * b * kvh * s * d + b * h * t * d)
+    bms, by = bound(nbytes, ops)
+    return dict(name="aqua_prefill", geometry=geom, form="q_offset",
+                shape=dict(B=b, H=h, KV=kvh, S=s, T=t, q_offset=off, D=d,
+                           q_blk=q_blk),
+                **check, vs_monolithic_tol_ratio=vs_mono,
+                bitwise_equal_to_monolithic=bool(torch.equal(out, mono)),
+                selection_equal_to_monolithic=bool(torch.equal(
+                    full_idx[:, :, off // q_blk:], block_idx)),
+                ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+
+
+def prefill_part_phase(geom: str, h: int, kvh: int, gen) -> dict:
+    """The participating-chunk prefill (``_part_kernel``): each q-tile
+    walks 8 of the 32 key chunks, chosen by ``chunk_participating_tiles``
+    from seeded random scores (the diagonal pinned). Served nowhere, as in
+    the JAX package: its launches are this phase's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import aqua, selection
+    from repro_torch.kernels import aqua_prefill as pk
+    from repro_torch.kernels._build import LAUNCHES
+    from repro_torch.kernels.ops import round_k_dims
+
+    b, s, d, blk, kept = 1, 4096, 128, 128, 8
+    nc = s // blk
+    dev, bf = "cuda", torch.bfloat16
+    q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
+    k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+    v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    scale = d ** -0.5
+    nsel = round_k_dims(d, K_RATIO, BLOCK_DIMS)
+    block_idx = aqua.chunk_topk_block_indices(q, nsel, BLOCK_DIMS, blk,
+                                              lengths).contiguous()
+    table = selection.chunk_participating_tiles(
+        torch.rand(b, nc, device=dev, generator=gen), nqc=nc, q_blk=blk,
+        k_blk=blk, kept_tiles=kept, pin_tiles=1).contiguous()
+    kw = dict(block_dims=BLOCK_DIMS, q_blk=blk, causal=True, scale=scale,
+              k_blk=blk)
+
+    def kernel(kc_part=table):
+        return pk.aqua_prefill_attention(q, k, v, block_idx, lengths,
+                                         kc_part=kc_part, **kw)
+
+    def plain():
+        return pk.aqua_prefill_plain(q, k, v, block_idx, lengths,
+                                     kc_part=table, **kw)
+
+    # fault: the last q-tile swaps its first kept chunk for a dropped one
+    bad = table.clone()
+    dropped = [c for c in range(nc) if c not in set(table[0, -1].tolist())]
+    bad[0, -1, 0] = dropped[0]
+    bad = torch.sort(bad, dim=-1)[0].contiguous()
+    before = LAUNCHES["aqua_prefill_part"]
+    check = check_kernel(kernel(), plain(), {"swapped_chunk": kernel(bad)})
+    ident = torch.arange(nc, dtype=torch.int32, device=dev).expand(
+        b, nc, nc).contiguous()
+    walk = kernel(ident)
+    launches = LAUNCHES["aqua_prefill_part"] - before
+    dense = pk.aqua_prefill_attention(q, k, v, block_idx, lengths,
+                                      **{x: y for x, y in kw.items()
+                                         if x != "k_blk"})
+    vs_dense = tol_ratio(walk, dense)
+    check["ok"] = check["ok"] and vs_dense <= 1.0
+    # the keys each row attends: its q-tile's chunks, causal
+    part = torch.zeros(nc, nc, dtype=torch.bool, device=dev)
+    part.scatter_(-1, table[0].long(), True)
+    pos = torch.arange(s, device=dev)
+    mask = part[pos // blk][:, pos // blk] & (pos[:, None] >= pos[None, :])
+    sel = torch.zeros(b, h, nc, d // BLOCK_DIMS, device=dev)
+    sel.scatter_(-1, block_idx.long(), 1.0)
+    qm = q * sel.repeat_interleave(BLOCK_DIMS, -1).repeat_interleave(
+        blk, 2).to(bf)
+
+    def library():
+        return F.scaled_dot_product_attention(qm, k, v, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+
+    pairs = float(mask.sum())
+    ops = 2 * pairs * h * (nsel + d)
+    chunks_read = int(part.any(dim=0).sum())
+    nbytes = 2 * (b * h * s * nsel + 2 * b * kvh * chunks_read * blk * d
+                  + b * h * s * d) + 4 * table.numel()
+    bms, by = bound(nbytes, ops)
+    return dict(name="aqua_prefill_part", geometry=geom,
+                shape=dict(B=b, H=h, KV=kvh, S=s, D=d, q_blk=blk, k_blk=blk,
+                           kept_tiles=kept, key_chunks=nc),
+                **check, identity_vs_dense_tol_ratio=vs_dense,
+                identity_bitwise_equal_to_dense=bool(torch.equal(walk,
+                                                                 dense)),
+                live_pair_share=pairs / (s * (s + 1) / 2),
+                phase_launches=launches,
+                ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, iters=5),
+                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+
+
 def flash_phase(geom: str, h: int, kvh: int, gen) -> dict:
     import torch
     import torch.nn.functional as F
@@ -450,7 +612,7 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
 # every kernel body of the port, by the name its launches count under
 KERNELS = ("aqua_decode", "aqua_paged_decode", "aqua_paged_quant_decode",
            "aqua_paged_part_decode", "aqua_paged_part_quant_decode",
-           "aqua_prefill", "flash_attention")
+           "aqua_prefill", "aqua_prefill_part", "flash_attention")
 
 
 def launch_counts() -> dict:
@@ -503,6 +665,8 @@ def serve_drive(eng, reqs) -> dict:
                 decode_step_ms=1e3 * st.decode_seconds / max(st.decode_steps,
                                                              1),
                 admissions=st.admissions,
+                chunked_admissions=st.chunked_admissions,
+                prefill_chunks=st.prefill_chunks,
                 admit_ms=1e3 * st.admit_seconds / max(st.admissions, 1),
                 itl_p50_ms=1e3 * st.itl_percentile(50),
                 itl_p99_ms=1e3 * st.itl_percentile(99),
@@ -614,6 +778,9 @@ def serve_phase(card: str) -> dict:
     hier = SparsitySpec(page_keep_ratio=0.25)
     aqua_off = dataclasses.replace(cfg, aqua=None)
     long_prompts = (512, 1024)        # 9+ of 32 pages: 8 participate
+    # every admission chunks: 512 and 1024 tokens in chunks of at most 256
+    # (a multiple of the bucket, the page and prefill_q_blk 128)
+    chunked = dataclasses.replace(paged, prefill_budget_tokens=256)
     # (path, model config, serving, requests, prompts, reference backend,
     #  the kernel launched once per layer per admission, and per step)
     drives = (
@@ -632,7 +799,9 @@ def serve_phase(card: str) -> dict:
         ("hier_int8_paged", cfg,
          dataclasses.replace(paged, quant=int8, sparsity=hier), 4,
          long_prompts, "aqua-block-sparse-plain", "aqua_prefill",
-         "aqua_paged_part_quant_decode"))
+         "aqua_paged_part_quant_decode"),
+        ("chunked_paged", cfg, chunked, 4, long_prompts,
+         "aqua-block-sparse-plain", "aqua_prefill", "aqua_paged_decode"))
 
     def drive(mcfg, serving, n, prompts, backend=None) -> dict:
         """One drive with the counters zeroed just before it and read just
@@ -657,8 +826,14 @@ def serve_phase(card: str) -> dict:
         ref = drive(mcfg, serving, n, prompts, backend=ref_backend)
         assert sum(ref["launches"].values()) == 0, (path, ref["launches"])
         run = drive(mcfg, serving, n, prompts)
+        if serving.prefill_budget_tokens is not None:
+            assert run["chunked_admissions"] == n, run["chunked_admissions"]
+            assert run["prefill_chunks"] > n, run["prefill_chunks"]
         want = dict.fromkeys(KERNELS, 0)
-        want[admit_kernel] = layers * run["admissions"]
+        # once per layer per monolithic admission and per prefill chunk
+        want[admit_kernel] = layers * (run["admissions"]
+                                       - run["chunked_admissions"]
+                                       + run["prefill_chunks"])
         if step_kernel is not None:
             want[step_kernel] = layers * run["decode_steps"]
         assert run["launches"] == want, (path, run["launches"], want)
@@ -674,6 +849,19 @@ def serve_phase(card: str) -> dict:
         run["cache_bytes"] = eng.cache_bytes()
         runs[path] = run
         log_time(f"drive {path} and its reference")
+    # the chunked trace served monolithically with the kernels: tokens and
+    # inter-token gaps beside the chunked drive's (reported, not limited)
+    chunk_run = runs["chunked_paged"]
+    mono = drive(cfg, paged, 4, long_prompts)
+    pairs = [(a, b) for u in mono["tokens"]
+             for a, b in zip(chunk_run["tokens"][u], mono["tokens"][u])]
+    chunk_run["vs_monolithic"] = dict(
+        greedy_token_match=sum(a == b for a, b in pairs) / len(pairs),
+        itl_p50_ms=(chunk_run["itl_p50_ms"], mono["itl_p50_ms"]),
+        itl_p99_ms=(chunk_run["itl_p99_ms"], mono["itl_p99_ms"]),
+        max_itl_ms=(1e3 * max(chunk_run["engine"].stats.itl_gaps),
+                    1e3 * max(mono["engine"].stats.itl_gaps)))
+    log_time("drive chunked_paged served monolithically")
     int8_share = runs["int8_paged"]["cache_bytes"] / runs["paged"][
         "cache_bytes"]
     assert int8_share < 0.60, int8_share
@@ -734,6 +922,8 @@ def main() -> int:
             phases.append(paged_variant_phase(geom, h, kvh, quant, part,
                                               gen))
         phases.append(prefill_phase(geom, h, kvh, gen))
+        phases.append(prefill_chunk_phase(geom, h, kvh, gen))
+        phases.append(prefill_part_phase(geom, h, kvh, gen))
         phases.append(flash_phase(geom, h, kvh, gen))
     for p in phases:
         log(p)
@@ -752,6 +942,7 @@ def main() -> int:
         "aqua_paged_part_quant_decode": ("aqua_decode.cu",
                                          "aqua_decode.py:164"),
         "aqua_prefill": ("aqua_prefill.cu", "aqua_prefill.py:58"),
+        "aqua_prefill_part": ("aqua_prefill.cu", "aqua_prefill.py:129"),
         "flash_attention": ("flash_attention.cu", "flash_attention.py:22")}
     # each kernel's launches in the drive of its own path (the prefill
     # kernel's is the paged one), and in every drive
@@ -759,20 +950,29 @@ def main() -> int:
                  "aqua_paged_quant_decode": "int8_paged",
                  "aqua_paged_part_decode": "hier_paged",
                  "aqua_paged_part_quant_decode": "hier_int8_paged",
-                 "aqua_prefill": "paged", "flash_attention": "flash_paged"}
+                 "aqua_prefill": "paged", "aqua_prefill_part": None,
+                 "flash_attention": "flash_paged"}
     drives = [k for k, v in serve.items() if isinstance(v, dict)
               and "launches" in v]
     kernels = []
     for p in phases:
-        if p["geometry"] != "qwen3-0.6b":
+        if p["geometry"] != "qwen3-0.6b" or p.get("form") == "q_offset":
             continue
         name = p["name"]
         by_path = {path: serve[path]["launches"][name] for path in drives}
-        assert by_path[main_path[name]] > 0, (name, by_path)
+        if main_path[name] is None:
+            # the participating-chunk prefill lies on no served path, as
+            # in the JAX package (only a direct call reaches _part_kernel):
+            # its launches are its own phase's, and no drive may launch it
+            assert not any(by_path.values()), (name, by_path)
+            launches = p["phase_launches"]
+        else:
+            launches = by_path[main_path[name]]
+        assert launches > 0, (name, by_path)
         kernels.append(dict(
             name=name, route="cuda", source=src + sources[name][0],
             replaces=tpu + sources[name][1],
-            launches=by_path[main_path[name]], launches_by_path=by_path,
+            launches=launches, launches_by_path=by_path,
             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=p["library_ms"]))

@@ -33,6 +33,9 @@ class AquaConfig:
     block_dims: int = 1
     # Queries per prefill selection chunk: one dim-block set per chunk.
     prefill_q_blk: int = 128
+    # Keys per participating key chunk of the hierarchical prefill kernel
+    # (``kc_part`` indexes chunks of this size; a multiple of 64).
+    prefill_k_blk: int = 128
 
     def kept_dims(self, head_dim: int) -> int:
         """Dims retained after the static slice (AQUA-Memory stage 1)."""
@@ -150,6 +153,13 @@ class QuantSpec:
     def quantized(self) -> bool:
         return self.kv_dtype != "bf16"
 
+    @property
+    def mode(self) -> str:
+        """Pool precision mode: "none", "int8" or "int8-mixed"."""
+        if not self.quantized:
+            return "none"
+        return "int8-mixed" if self.hot_resident_fraction > 0 else "int8"
+
     def validate(self) -> None:
         assert self.kv_dtype in ("bf16", "int8"), self.kv_dtype
         assert self.scale_granularity in ("page_head", "page"), \
@@ -215,9 +225,11 @@ def resolve_sparsity_spec(serving: "ServingConfig") -> SparsitySpec:
 class ServingConfig:
     """Continuous-batching engine knobs (repro_torch.serving). A *lane* is
     one batch row of the shared decode state; the decode step always runs
-    over all ``max_lanes`` lanes. Fields the port does not serve yet
-    (``prefill_budget_tokens``, ``mesh_shape``) raise
-    ``NotImplementedError`` at engine construction when set."""
+    over all ``max_lanes`` lanes. ``prefill_budget_tokens`` caps the
+    prefill tokens advanced between decode steps (chunked prefill; a
+    multiple of ``prompt_bucket``, and of the page size when paged). The
+    port does not serve ``mesh_shape`` yet: the engine raises
+    ``NotImplementedError`` when it is set."""
 
     max_lanes: int = 8
     max_seq: int = 4096
@@ -249,6 +261,13 @@ class ServingConfig:
         assert self.admission_lookahead >= 1
         cache, _ = resolve_cache_specs(self)
         resolve_sparsity_spec(self)
+        if self.prefill_budget_tokens is not None:
+            assert self.prefill_budget_tokens >= 1
+            assert self.prefill_budget_tokens % self.prompt_bucket == 0, \
+                (self.prefill_budget_tokens, self.prompt_bucket)
+            if cache.page_size is not None:
+                assert self.prefill_budget_tokens % cache.page_size == 0, \
+                    (self.prefill_budget_tokens, cache.page_size)
         if cache.page_size is not None:
             assert self.max_seq % cache.page_size == 0, \
                 (self.max_seq, cache.page_size)

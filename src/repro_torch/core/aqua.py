@@ -35,7 +35,7 @@ def ceil_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+def topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest entries of the last axis, lower index
     first among ties (``jax.lax.top_k`` order)."""
     return torch.sort(x, dim=-1, descending=True, stable=True)[1][..., :k]
@@ -50,13 +50,13 @@ def magnitude_mask(q_hat: torch.Tensor, k_dims: int, *,
         return torch.ones_like(q_hat)
     mag = q_hat.float().abs()
     if block_dims == 1:
-        idx = _topk_indices(mag, k_dims)
+        idx = topk_indices(mag, k_dims)
         return torch.zeros_like(mag).scatter_(-1, idx, 1.0).to(q_hat.dtype)
     assert d % block_dims == 0 and k_dims % block_dims == 0, \
         (d, k_dims, block_dims)
     nb, kb = d // block_dims, k_dims // block_dims
     bmag = mag.reshape(*mag.shape[:-1], nb, block_dims).sum(-1)
-    bmask = torch.zeros_like(bmag).scatter_(-1, _topk_indices(bmag, kb), 1.0)
+    bmask = torch.zeros_like(bmag).scatter_(-1, topk_indices(bmag, kb), 1.0)
     return bmask.repeat_interleave(block_dims, dim=-1).to(q_hat.dtype)
 
 
@@ -69,7 +69,7 @@ def topk_block_indices(q_hat: torch.Tensor, k_dims: int,
     nb, kb = d // block_dims, k_dims // block_dims
     mag = q_hat.float().abs()
     bmag = mag.reshape(*mag.shape[:-1], nb, block_dims).sum(-1)
-    return torch.sort(_topk_indices(bmag, kb), dim=-1)[0].to(torch.int32)
+    return torch.sort(topk_indices(bmag, kb), dim=-1)[0].to(torch.int32)
 
 
 def chunk_topk_block_indices(q_hat: torch.Tensor, k_dims: int,
@@ -95,7 +95,7 @@ def chunk_topk_block_indices(q_hat: torch.Tensor, k_dims: int,
         mag = mag * valid[:, None, :, None]
     bmag = mag.reshape(b, h, s // q_chunk, q_chunk, nb, block_dims
                        ).sum(dim=(3, 5))
-    return torch.sort(_topk_indices(bmag, kb), dim=-1)[0].to(torch.int32)
+    return torch.sort(topk_indices(bmag, kb), dim=-1)[0].to(torch.int32)
 
 
 def project(x: torch.Tensor, p: Optional[torch.Tensor]) -> torch.Tensor:

@@ -25,6 +25,12 @@ and the cache and return (B, KV, G, Dv). Built-in backends:
   the kernels' plain versions on any device: the reference that a run on
   the GPU compares the kernels against. Never chosen automatically.
 
+A chunked-prefill step (:func:`chunk_attention`) attends a prompt chunk
+against the lane's stored prefix plus itself. The two block-sparse
+backends run it through their ``chunk`` entry, the prefill kernel with
+``q_offset``; every other backend runs :func:`prefixed_tail_attention`,
+the masked-dense reference the JAX package serves chunk steps on.
+
 ``auto`` resolves as the JAX package does where it prefers its kernels:
 ``aqua-block-sparse`` with AQUA on, ``flash`` with AQUA off.
 
@@ -168,6 +174,29 @@ def _aqua_mask(qh, aqua: AquaConfig, head_dim: int):
                                    block_dims=aqua.block_dims)
 
 
+def _chunk_tile_mask(qh, aqua: AquaConfig, q_blk: int,
+                     lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-*tile* dim-block mask reproducing the block-sparse prefill's
+    chunk-aggregated selection on the reference layout: all ``q_blk``
+    queries of a tile share the block set their summed |q̂| picks.
+    qh (B, T, KV, G, D) projected queries; ``lengths`` (B,) valid rows
+    (padding is not aggregated). Returns a 0/1 mask shaped like ``qh``."""
+    b, t, kvh, g, d = qh.shape
+    bd = aqua.block_dims
+    if lengths is None:
+        lengths = torch.full((b,), t, dtype=torch.int32, device=qh.device)
+    qf = qh.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, t, d)
+    tpad = aqua_lib.ceil_to(t, q_blk)
+    qf = torch.nn.functional.pad(qf, (0, 0, 0, tpad - t))
+    bidx = aqua_lib.chunk_topk_block_indices(
+        qf, kops.round_k_dims(d, aqua.k_ratio, bd), bd, q_blk, lengths)
+    bmask = torch.zeros(b, kvh * g, tpad // q_blk, d // bd,
+                        dtype=qh.dtype, device=qh.device)
+    bmask.scatter_(-1, bidx.long(), 1.0)
+    mask = bmask.repeat_interleave(bd, dim=-1).repeat_interleave(q_blk, dim=2)
+    return mask[:, :, :t].reshape(b, kvh, g, t, d).permute(0, 3, 1, 2, 4)
+
+
 # ---------------------------------------------------------------------------
 # Attention backend registry
 # ---------------------------------------------------------------------------
@@ -186,6 +215,10 @@ class AttentionBackend:
     paged_decode: Optional[Callable[..., torch.Tensor]] = None
     aqua_native: bool = False
     per_dim: Optional["AttentionBackend"] = None
+    # the chunked-prefill step over the prefix stripe (block-sparse only)
+    chunk: Optional[Callable[..., torch.Tensor]] = None
+    # launches CUDA kernels (the JAX package's ``requires_pallas``)
+    kernel: bool = False
 
 
 _BACKENDS: Dict[str, AttentionBackend] = {}
@@ -273,7 +306,7 @@ def _flash_backend(name: str, flash_fn) -> AttentionBackend:
                       causal=True, window=cfg.window)
         return of.reshape(b, kvh, g, s, -1).permute(0, 3, 1, 2, 4), None
 
-    return AttentionBackend(name, prefill)
+    return AttentionBackend(name, prefill, kernel=flash_fn is flash_attention)
 
 
 def _block_sparse_backend(name: str, prefill_kernel, decode_kernel,
@@ -296,6 +329,22 @@ def _block_sparse_backend(name: str, prefill_kernel, decode_kernel,
                             q_blk=q_blk, causal=causal,
                             scale=1.0 / float(cfg.head_dim) ** 0.5)
         return of.reshape(b, kvh, g, s, -1).permute(0, 3, 1, 2, 4), None
+
+    def chunk(qh, k_stripe, v_stripe, *, cfg, aqua, q_offset, lengths,
+              q_blk):
+        """A prefill chunk of queries qh (B, T, KV, G, Dk) at sequence rows
+        [q_offset, q_offset + T) against the key stripe k_stripe (B, KV,
+        q_offset + T, Dk) / v_stripe; ``lengths`` (B,) global. Selection
+        tiles of ``q_blk`` rows anchor at the chunk's first row
+        (``ops.aqua_prefill_chunk``; the engine keeps cursors on tile
+        boundaries, so no partial tile carries over)."""
+        b, t, kvh, g, dk = qh.shape
+        qf = qh.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, t, dk)
+        of, _ = kops.aqua_prefill_chunk(
+            qf, k_stripe, v_stripe, lengths, q_offset=q_offset,
+            k_ratio=aqua.k_ratio, block_dims=aqua.block_dims, q_blk=q_blk,
+            scale=1.0 / float(cfg.head_dim) ** 0.5, prefill_fn=prefill_kernel)
+        return of.reshape(b, kvh, g, t, -1).permute(0, 3, 1, 2, 4)
 
     def lengths_of(cache):
         return torch.clamp(cache.count, max=cache.num_slots).to(
@@ -332,7 +381,8 @@ def _block_sparse_backend(name: str, prefill_kernel, decode_kernel,
 
     return AttentionBackend(name, prefill, decode=contiguous_decode,
                             paged_decode=paged_decode, aqua_native=True,
-                            per_dim=per_dim)
+                            per_dim=per_dim, chunk=chunk,
+                            kernel=prefill_kernel is aqua_prefill_attention)
 
 
 register_backend(AttentionBackend("dense", _dense_prefill))
@@ -414,6 +464,106 @@ def build_cache_from_prefill(k_cache: torch.Tensor, v: torch.Tensor,
     else:
         cache.count.copy_(lengths)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill: a prompt chunk against the lane's stored prefix
+# ---------------------------------------------------------------------------
+
+
+def prefixed_tail_attention(params: dict, x: torch.Tensor,
+                            cfg: AttentionConfig, aqua: Optional[AquaConfig],
+                            proj: Optional[torch.Tensor], *,
+                            prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                            prefix_positions: torch.Tensor, prefix_len: int,
+                            positions: torch.Tensor,
+                            lengths: Optional[torch.Tensor] = None,
+                            select_q_blk: Optional[int] = None):
+    """Causal attention of a prompt chunk against a read-only cache prefix
+    plus itself: the masked-dense reference chunk step (the JAX package
+    serves every chunk step on it).
+
+    x (1, T, d_model); prefix_k (1, KV, S, Dk) / prefix_v (1, KV, S, Dv)
+    the lane's cache view (keys in stored form); prefix_positions (1, S),
+    -1 empty; prefix keys attend where their position is in [0,
+    prefix_len). positions (1, T) the chunk's absolute positions; lengths
+    (1,) masks chunk padding. ``select_q_blk`` switches the AQUA selection
+    from per query to per ``q_blk`` tile (:func:`_chunk_tile_mask`).
+    Returns (out (1, T, d_model), k_cache (1, T, KV, Dk) in stored form,
+    v (1, T, KV, Dv))."""
+    q, k, v = qkv(params, x, cfg, positions)
+    qh, kh = _aqua_project(q, k, aqua, proj, cfg.head_dim)
+    if _aqua_on(aqua):
+        if select_q_blk is not None:
+            qq = qh * _chunk_tile_mask(qh, aqua, select_q_blk, lengths)
+        else:
+            qq = qh * _aqua_mask(qh, aqua, cfg.head_dim)
+        kk = kh
+    else:
+        qq, kk = q, k
+    scale = 1.0 / float(cfg.head_dim) ** 0.5
+    qpos, ppos = positions, prefix_positions
+    sp = torch.einsum("bskgd,bktd->bkgst", qq, prefix_k.to(qq.dtype))
+    sp = sp.float() * scale
+    mp = ((ppos >= 0) & (ppos < prefix_len))[:, None, None, None, :]
+    st = torch.einsum("bskgd,btkd->bkgst", qq, kk).float() * scale
+    mt = qpos[:, None, None, :, None] >= qpos[:, None, None, None, :]
+    if lengths is not None:
+        t = q.shape[1]
+        mt = mt & (torch.arange(t, device=x.device)[None, :]
+                   < lengths[:, None])[:, None, None, None, :]
+    neg = torch.tensor(NEG_INF, device=x.device)
+    scores = torch.cat([torch.where(mp, sp, neg), torch.where(mt, st, neg)],
+                       dim=-1)
+    weights = torch.softmax(scores, dim=-1)
+    vals = torch.cat([prefix_v.to(v.dtype), v.transpose(1, 2)], dim=2)
+    out = torch.einsum("bkgst,bktd->bskgd", weights.to(v.dtype), vals)
+    return _proj_out(out.to(v.dtype), params["wo"]), kk, v
+
+
+def chunk_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
+                    aqua: Optional[AquaConfig], proj: Optional[torch.Tensor],
+                    *, prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                    prefix_positions: torch.Tensor, prefix_len: int,
+                    positions: torch.Tensor,
+                    lengths: Optional[torch.Tensor] = None,
+                    select_q_blk: Optional[int] = None):
+    """One layer's chunked-prefill attention (arguments and result as in
+    :func:`prefixed_tail_attention`), dispatched by backend.
+
+    With ``select_q_blk`` set on a block-sparse backend whose selection is
+    by whole dim-blocks, the chunk runs the prefill kernel (or its plain
+    version) with ``q_offset = prefix_len`` over the key stripe [0,
+    prefix_len + T): the lane's stored prefix keys and values (already in
+    ``prefix_k``/``prefix_v``, dequantized for int8 pools) followed by the
+    chunk's fresh ones, with global lengths ``prefix_len + lengths``.
+    With the chunk cursor a ``select_q_blk`` multiple its tiles select the
+    monolithic admission's dim-blocks. Every other case runs
+    :func:`prefixed_tail_attention`. The prefix is read before the chunk
+    is written: recycled slots past the prefix still hold a previous
+    tenant's state."""
+    backend = resolve_backend(cfg.backend, aqua=aqua)
+    kept = aqua.kept_dims(cfg.head_dim) if _aqua_on(aqua) else 0
+    if (select_q_blk is None or backend.chunk is None
+            or not _whole_blocks(aqua, kept)):
+        return prefixed_tail_attention(
+            params, x, cfg, aqua, proj, prefix_k=prefix_k,
+            prefix_v=prefix_v, prefix_positions=prefix_positions,
+            prefix_len=prefix_len, positions=positions, lengths=lengths,
+            select_q_blk=select_q_blk)
+    q, k, v = qkv(params, x, cfg, positions)
+    qh, kh = _aqua_project(q, k, aqua, proj, cfg.head_dim)
+    t = x.shape[1]
+    if lengths is None:
+        lengths = torch.full((1,), t, dtype=torch.int32, device=x.device)
+    k_stripe = torch.cat([prefix_k[:, :, :prefix_len].to(kh.dtype),
+                          kh.transpose(1, 2)], dim=2)
+    v_stripe = torch.cat([prefix_v[:, :, :prefix_len].to(v.dtype),
+                          v.transpose(1, 2)], dim=2)
+    out = backend.chunk(qh, k_stripe, v_stripe, cfg=cfg, aqua=aqua,
+                        q_offset=prefix_len, lengths=prefix_len + lengths,
+                        q_blk=select_q_blk)
+    return _proj_out(out.to(v.dtype), params["wo"]), kh, v
 
 
 # ---------------------------------------------------------------------------

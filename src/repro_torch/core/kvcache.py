@@ -110,6 +110,27 @@ def insert(cache: AttnCache, slot: torch.Tensor, k_new: torch.Tensor,
     return cache
 
 
+def lane_write_tail(cache: AttnCache, lane: int, k_tail: torch.Tensor,
+                    v_tail: torch.Tensor, positions: torch.Tensor,
+                    start: int, new_count: int) -> AttnCache:
+    """Write a prefill chunk's k (T, KV, Dk) / v (T, KV, Dv) / positions
+    (T,) into ``lane`` from logical slot ``start`` (the chunk cursor), in
+    place; slots below ``start`` stay untouched. Slots at or past
+    ``start`` are cleared first (position -1): a recycled lane's previous
+    tenant must never read as valid, so the first chunk wipes the lane and
+    later chunks clear ahead of themselves. Rows past the cache are
+    dropped. Full-cache slot placement only (slot i holds position i)."""
+    n = max(0, min(k_tail.shape[0], cache.num_slots - start))
+    cache.positions[lane, start:] = -1
+    cache.k[lane, :, start:start + n] = k_tail[:n].transpose(0, 1).to(
+        cache.k.dtype)
+    cache.v[lane, :, start:start + n] = v_tail[:n].transpose(0, 1).to(
+        cache.v.dtype)
+    cache.positions[lane, start:start + n] = positions[:n].to(torch.int32)
+    cache.count[lane] = new_count
+    return cache
+
+
 def valid_mask_from(positions: torch.Tensor, count: torch.Tensor
                     ) -> torch.Tensor:
     """(B, S) bool — slots attendable by the token at position count-1."""
@@ -287,6 +308,29 @@ def paged_lane_view(cache: PagedAttnCache) -> AttnCache:
                      count=cache.count)
 
 
+def paged_lane_pages(cache: PagedAttnCache, lane: int, dtype=None):
+    """One lane's mapped pages as a contiguous view: (k (1, KV, S_log,
+    Dk), v (1, KV, S_log, Dv), positions (1, S_log)). int8 pools come back
+    dequantized (to ``dtype``, float32 by default), so quantization stays
+    a storage detail of the pool; full-precision pools are cast to
+    ``dtype`` when given. Unmapped pages read position -1. The chunked
+    prefill reads the prefix it already wrote through this."""
+    tbl = cache.page_table[lane].long()                     # (NP,)
+    phys = tbl.clamp(min=0)
+    pk, pv = cache.k_pool[phys], cache.v_pool[phys]         # (NP, KV, ps, D)
+    if cache.quantized:
+        pk = dequant_pages(pk, cache.k_scale[phys])
+        pv = dequant_pages(pv, cache.v_scale[phys])
+    if dtype is not None:
+        pk, pv = pk.to(dtype), pv.to(dtype)
+    ppos = torch.where(tbl[:, None] >= 0, cache.pos_pool[phys],
+                       torch.full_like(cache.pos_pool[phys], -1))
+    kvh, s_log = pk.shape[1], cache.num_slots
+    pk = pk.transpose(0, 1).reshape(1, kvh, s_log, -1)
+    pv = pv.transpose(0, 1).reshape(1, kvh, s_log, -1)
+    return pk, pv, ppos.reshape(1, s_log)
+
+
 def paged_select_slot(cache: PagedAttnCache) -> torch.Tensor:
     """Paged twin of :func:`select_slot` (full-cache policy)."""
     return torch.clamp(cache.count, max=cache.num_slots - 1)
@@ -354,6 +398,45 @@ def paged_graft(cache: PagedAttnCache, req: AttnCache, lane: int,
         cache.v_pool[phys, :, off] = v_tok[src].to(cache.v_pool.dtype)
     cache.pos_pool[phys, off] = req.positions[0, src]
     cache.count[lane] = req.count[0]
+    return cache
+
+
+def paged_write_tail(cache: PagedAttnCache, lane: int, k_tail: torch.Tensor,
+                     v_tail: torch.Tensor, positions: torch.Tensor,
+                     start_page: int, new_count: int) -> PagedAttnCache:
+    """Write a prefill chunk's k (T, KV, Dk) / v (T, KV, Dv) / positions
+    (T,) into ``lane``'s pages from the page-aligned logical page
+    ``start_page``, in place. The lane's pages from ``start_page`` on are
+    cleared first (positions -1, scores 0, and scales 0 for int8 pools):
+    pool pages are recycled. On int8 pools each written page gets its
+    scale from the chunk's tokens (padding rows included, as in JAX);
+    pages below ``start_page`` keep theirs. Rows whose page is unmapped
+    are dropped."""
+    ps = cache.page_size
+    tbl = cache.page_table[lane].long()                     # (NP,)
+    npl = tbl.shape[0]
+    private = (torch.arange(npl, device=tbl.device) >= start_page) & (tbl >= 0)
+    clear = tbl[private]
+    cache.pos_pool[clear] = -1
+    cache.acc_pool[clear] = 0.0
+    t = min(k_tail.shape[0], cache.num_slots - start_page * ps)
+    idx = start_page * ps + torch.arange(t, device=tbl.device)
+    entry = tbl[idx // ps]
+    ok = entry >= 0
+    phys, off, src = entry[ok], (idx % ps)[ok], torch.nonzero(ok)[:, 0]
+    if cache.quantized:
+        for pool, scale, tok in ((cache.k_pool, cache.k_scale, k_tail),
+                                 (cache.v_pool, cache.v_scale, v_tail)):
+            scale[clear] = 0.0
+            pg = _page_scales(tok[:t], ps, scale.shape[1])   # (NPG, SH)
+            pg_tbl = tbl[start_page:start_page + pg.shape[0]]
+            scale[pg_tbl[pg_tbl >= 0]] = pg[pg_tbl >= 0]
+            pool[phys, :, off] = quantize_tokens(tok[src], pg[src // ps])
+    else:
+        cache.k_pool[phys, :, off] = k_tail[src].to(cache.k_pool.dtype)
+        cache.v_pool[phys, :, off] = v_tail[src].to(cache.v_pool.dtype)
+    cache.pos_pool[phys, off] = positions[src].to(torch.int32)
+    cache.count[lane] = new_count
     return cache
 
 

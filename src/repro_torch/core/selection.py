@@ -21,6 +21,10 @@ Ranking semantics (shared with the JAX package and its numpy oracle):
   the ranking is a stable descending sort;
 * the participating set is sorted ascending, so a full keep is the
   identity.
+
+:func:`chunk_participating_tiles` is the prefill twin: per q-tile
+participating key chunks for the prefill kernel's ``kc_part`` walk, with
+the diagonal pinned and the same tie rule.
 """
 from __future__ import annotations
 
@@ -116,3 +120,32 @@ def participation_slot_mask(pages: torch.Tensor, *, page_size: int,
     hit = (torch.arange(npl, device=pages.device)[None, :, None]
            == pages[:, None, :]).any(-1)                       # (B, NP)
     return hit.repeat_interleave(page_size, dim=1)
+
+
+def chunk_participating_tiles(scores: torch.Tensor, *, nqc: int, q_blk: int,
+                              k_blk: int, kept_tiles: int,
+                              pin_tiles: int = 1,
+                              q_offset: int = 0) -> torch.Tensor:
+    """The q-tile analogue of :func:`participating_pages`, for the prefill
+    kernel's participating walk (``kc_part``).
+
+    ``scores`` (B, NKC): per-key-chunk mass (zeros degrade to the sink
+    plus the diagonal). For each of the ``nqc`` q-tiles (rows [q_offset +
+    i·q_blk, q_offset + (i+1)·q_blk)) the ``pin_tiles`` key chunks up to
+    the one holding the tile's last row rank ``+inf`` and chunks past it
+    ``-inf`` (the kernel's causal skip drops them anyway). Ranking is a
+    stable descending sort, lower index first among ties, as
+    ``jax.lax.top_k``. Returns (B, nqc, kept_tiles) int32, sorted
+    ascending per q-tile."""
+    b, nkc = scores.shape
+    dev = scores.device
+    diag = (q_offset + (torch.arange(nqc, device=dev) + 1) * q_blk - 1
+            ) // k_blk
+    tidx = torch.arange(nkc, device=dev)[None, None, :]
+    d = diag[None, :, None]
+    s = scores.float()[:, None, :].expand(b, nqc, nkc)
+    s = torch.where((tidx > d - pin_tiles) & (tidx <= d),
+                    torch.full_like(s, float("inf")), s)
+    s = torch.where(tidx > d, torch.full_like(s, -float("inf")), s)
+    top = aqua_lib.topk_indices(s, kept_tiles)
+    return torch.sort(top, dim=-1)[0].to(torch.int32)

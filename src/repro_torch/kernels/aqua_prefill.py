@@ -1,9 +1,14 @@
 """AQUA block-sparse prefill attention: CUDA kernel, plain version, wrapper.
 
-Replaces the Pallas TPU kernel ``src/repro/kernels/aqua_prefill.py``
-``_kernel`` (``aqua_prefill_attention`` with ``kc_part=None``): causal
-block attention where every query of a ``q_blk`` chunk shares the chunk's
-selected dim-blocks. The CUDA source is ``csrc/aqua_prefill.cu``.
+Replaces the Pallas TPU kernel bodies of ``src/repro/kernels/aqua_prefill.py``:
+``_kernel`` (``aqua_prefill_attention`` with ``kc_part=None``) and
+``_part_kernel`` (with ``kc_part``: each q-tile attends only its
+participating key chunks, hierarchical AQUA's prefill stage). Causal block
+attention where every query of a ``q_blk`` chunk shares the chunk's
+selected dim-blocks; ``q_offset`` places the queries at sequence rows
+``[q_offset, q_offset + T)`` of the key stripe (the chunk-resumable entry
+of chunked prefill). The CUDA source is ``csrc/aqua_prefill.cu``, the
+participating walk its compile-time variant ``kPart``.
 
 Bound on the H100: operations at serving prompt lengths (the S²/2 score
 and value products against S·(D + Dv) bytes of K̂/V per KV head). The
@@ -14,7 +19,8 @@ source's header for the tiling.
 
 Dispatch is by device: CPU tensors run :func:`aqua_prefill_plain`, CUDA
 tensors launch the kernel or raise. Launches count in
-``_build.LAUNCHES["aqua_prefill"]``.
+``_build.LAUNCHES["aqua_prefill"]`` (every key chunk) and
+``_build.LAUNCHES["aqua_prefill_part"]`` (participating chunks).
 """
 from __future__ import annotations
 
@@ -29,20 +35,26 @@ from repro_torch.kernels.ref import aqua_prefill_ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"aqua_prefill_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I,
                                 ctypes.POINTER(ctypes.c_longlong),
-                                ctypes.c_float, _I, _I, _P]}
+                                ctypes.c_float, _I, _P, _I, _I, _I, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: keys per tile of the CUDA walk: a participating chunk is walked as
+#: ``k_blk / KEY_TILE`` tiles
+KEY_TILE = 64
 
 
 def aqua_prefill_plain(q_hat: torch.Tensor, khat: torch.Tensor,
                        v: torch.Tensor, block_idx: torch.Tensor,
                        lengths: torch.Tensor, *, block_dims: int, q_blk: int,
-                       causal: bool, scale: float) -> torch.Tensor:
+                       causal: bool, scale: float, q_offset: int = 0,
+                       kc_part: Optional[torch.Tensor] = None,
+                       k_blk: int = 128) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the masked-dense oracle
     (:func:`repro_torch.kernels.ref.aqua_prefill_ref`) in float32."""
     return aqua_prefill_ref(q_hat, khat, v, block_idx, lengths, block_dims,
-                            q_blk, causal=causal, scale=scale)
+                            q_blk, causal=causal, scale=scale,
+                            q_offset=q_offset, kc_part=kc_part, k_blk=k_blk)
 
 
 def _rows_per_block(q_blk: int) -> int:
@@ -53,9 +65,9 @@ def _rows_per_block(q_blk: int) -> int:
 
 
 def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
-            scale):
-    b, h, s, d = q_hat.shape
-    kvh = khat.shape[1]
+            scale, q_offset, kc_part, k_blk):
+    b, h, t, d = q_hat.shape
+    kvh, s = khat.shape[1], khat.shape[2]
     dv = v.shape[-1]
     nqc, nb_sel = block_idx.shape[2], block_idx.shape[3]
     if q_hat.dtype not in _DTYPES or khat.dtype != q_hat.dtype \
@@ -64,20 +76,23 @@ def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
                         f"of one dtype, got {q_hat.dtype}, {khat.dtype}, "
                         f"{v.dtype}")
     if (khat.shape[-1] != d or h % kvh or nb_sel * block_dims > 128
-            or dv > 128 or nqc * q_blk < s):
+            or dv > 128 or nqc * q_blk < t or v.shape[2] != s):
         raise ValueError(f"aqua_prefill kernel: unsupported shapes q "
                          f"{q_hat.shape} k {khat.shape} v {v.shape} "
                          f"block_idx {block_idx.shape}")
     dev = q_hat.device
-    for t in (q_hat, khat, v):
-        if t.device != dev or t.stride(-1) != 1:
+    for x in (q_hat, khat, v):
+        if x.device != dev or x.stride(-1) != 1:
             raise ValueError("aqua_prefill kernel needs q/k/v on one CUDA "
                              "device with a contiguous last axis")
-    for t in (block_idx, lengths):
-        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError("block_idx and lengths must be contiguous int32 "
-                             "on the kernel's device")
-    out = torch.empty((b, h, s, dv), dtype=v.dtype, device=dev)
+    for x in (block_idx, lengths) + (() if kc_part is None else (kc_part,)):
+        if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError("block_idx, lengths and kc_part must be "
+                             "contiguous int32 on the kernel's device")
+    if kc_part is not None and kc_part.shape[:2] != (b, nqc):
+        raise ValueError(f"kc_part {tuple(kc_part.shape)} must be (B, NQC, "
+                         f"KT) with (B, NQC) = {(b, nqc)}")
+    out = torch.empty((b, h, t, dv), dtype=v.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(*q_hat.stride()[:3], *khat.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     lib = _build.load("aqua_prefill", _SIG)
@@ -86,10 +101,13 @@ def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
         err = lib.aqua_prefill_launch(
             q_hat.data_ptr(), khat.data_ptr(), v.data_ptr(),
             block_idx.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
-            kvh, s, dv, nb_sel, block_dims, q_blk, nqc,
+            kvh, t, s, q_offset, dv, nb_sel, block_dims, q_blk, nqc,
             _rows_per_block(q_blk), strides, float(scale), int(causal),
+            None if kc_part is None else kc_part.data_ptr(),
+            0 if kc_part is None else kc_part.shape[2], k_blk,
             _DTYPES[q_hat.dtype], stream)
-    _build.check(err, "aqua_prefill")
+    _build.check(err, "aqua_prefill" if kc_part is None
+                 else "aqua_prefill_part")
     return out
 
 
@@ -97,22 +115,38 @@ def aqua_prefill_attention(q_hat: torch.Tensor, khat: torch.Tensor,
                            v: torch.Tensor, block_idx: torch.Tensor,
                            lengths: torch.Tensor, *, block_dims: int = 8,
                            q_blk: int = 128, causal: bool = True,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None, q_offset: int = 0,
+                           kc_part: Optional[torch.Tensor] = None,
+                           k_blk: int = 128) -> torch.Tensor:
     """Block-sparse AQUA prefill attention.
 
-    q_hat (B, H, S, D) projected queries; khat (B, KV, S, D); v (B, KV, S,
-    Dv) — any strides with a contiguous last axis; block_idx (B, H,
-    ceil(S / q_blk), NB_sel) int32 per-chunk selections; lengths (B,)
-    int32. ``scale`` defaults to 1/sqrt(D). Returns (B, H, S, Dv); rows at
-    or past a row's length are don't-care."""
+    q_hat (B, H, T, D) projected queries, sequence rows [q_offset,
+    q_offset + T); khat (B, KV, S, D); v (B, KV, S, Dv) with q_offset + T
+    <= S — any strides with a contiguous last axis; block_idx (B, H,
+    ceil(T / q_blk), NB_sel) int32 selections per chunk-local q_blk tile;
+    lengths (B,) int32 valid sequence lengths (global positions).
+    kc_part (B, ceil(T / q_blk), KT) int32: per q-tile, the participating
+    chunks of ``k_blk`` keys (sorted ascending, -1 = none,
+    ``selection.chunk_participating_tiles``), or None for every key;
+    ``k_blk`` must be a multiple of 64. ``scale`` defaults to 1/sqrt(D).
+    Returns (B, H, T, Dv); rows at or past a row's length are
+    don't-care."""
     if scale is None:
         scale = 1.0 / q_hat.shape[-1] ** 0.5
+    if not 0 <= q_offset <= khat.shape[2] - q_hat.shape[2]:
+        raise ValueError(f"aqua_prefill: q_offset {q_offset} + T "
+                         f"{q_hat.shape[2]} exceeds the {khat.shape[2]} keys")
+    if kc_part is not None and (k_blk <= 0 or k_blk % KEY_TILE):
+        raise ValueError(f"aqua_prefill: k_blk {k_blk} must be a multiple "
+                         f"of {KEY_TILE} (the kernel's key tile)")
     dev = q_hat.device.type
     if dev == "cpu":
         return aqua_prefill_plain(q_hat, khat, v, block_idx, lengths,
                                   block_dims=block_dims, q_blk=q_blk,
-                                  causal=causal, scale=scale)
+                                  causal=causal, scale=scale,
+                                  q_offset=q_offset, kc_part=kc_part,
+                                  k_blk=k_blk)
     if dev != "cuda":
         raise ValueError(f"aqua_prefill: unsupported device {q_hat.device}")
     return _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk,
-                   causal, scale)
+                   causal, scale, q_offset, kc_part, k_blk)

@@ -1,14 +1,23 @@
 // AQUA block-sparse prefill attention for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/aqua_prefill.py:_kernel
-// (the kc_part=None form, q_offset 0, no window): causal block attention in
-// which every query of a q_blk chunk shares the chunk's NB_sel dim-blocks
-// selected from its summed |q̂|. Keys at or past lengths[b] are masked.
+// Replaces two Pallas TPU kernel bodies of src/repro/kernels/aqua_prefill.py:
+// _kernel (every key chunk) and, as the compile-time variant kPart,
+// _part_kernel (only each q-tile's participating key chunks, hierarchical
+// AQUA's prefill stage). Causal block attention in which every query of a
+// q_blk chunk shares the chunk's NB_sel dim-blocks selected from its summed
+// |q̂|. Keys at or past lengths[b] are masked; no sliding window.
 //
-// Layout: q (B, H, S, D), k (B, KV, S, D), v (B, KV, S, Dv) addressed by
+// Chunk-resumable form (q_offset): the T query rows are sequence positions
+// [q_offset, q_offset + T) attending the S keys [0, S), q_offset + T <= S.
+// Selection tiles anchor at the first query row (block_idx and kc_part
+// index chunk-local q_blk tiles), the causal bound of a row is its global
+// position. A q_blk-aligned chunk walks exactly the key tiles the matching
+// rows of the monolithic call walk, in the same order.
+//
+// Layout: q (B, H, T, D), k (B, KV, S, D), v (B, KV, S, Dv) addressed by
 // element strides of their batch, head and sequence axes (the innermost
 // dim must be contiguous), so the model's (B, S, KV, G, D) tensors are read
-// in place without a transpose. out is written the same way.
+// in place without a transpose. out (B, H, T, Dv) is written the same way.
 //
 // Bound on the H100: operations at this size (S = 2048: ~S²/2 · H ·
 // (NB_sel·bd + Dv) multiply-adds against ~S · KV · (D + Dv) bytes read).
@@ -22,6 +31,12 @@
 // accumulates the QR x Dv output on register tiles. bd = 8 is below the
 // tensor cores' MMA depth; they are later work. A lane with lengths[b] = 0
 // writes zeros (don't-care rows).
+//
+// kPart: kc_part (B, NQC, KT) lists each q-tile's participating k_blk-key
+// chunks, ascending (-1 = none). The block reads its own q-tile's list and
+// walks each listed chunk as k_blk / 64 tiles (k_blk % 64 == 0); the
+// masks use the logical key positions, so dropped chunks cost no bytes and
+// the identity list walks exactly the tiles of the dense walk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,13 +67,18 @@ __host__ __device__ constexpr int smem_floats(int qr, int nsel, int dv) {
   return qr * (nsel + 1) + kKT * (nsel + 1) + kKT * dv + qr * (kKT + 1) + 3 * qr;
 }
 
-template <typename T, int QR>
+struct Part {
+  const int* kc_part;  // (B, NQC, KT) participating key chunks, or null
+  int kt, k_blk;
+};
+
+template <typename T, int QR, bool kPart>
 __global__ void __launch_bounds__(kThreads) aqua_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ block_idx, const int* __restrict__ lengths,
-    T* __restrict__ out, int H, int KV, int S, int Dv, int nb_sel, int bd,
-    int q_blk, int nqc, Strides qst, Strides kst, Strides vst, Strides ost,
-    float scale, int causal) {
+    T* __restrict__ out, int H, int KV, int Tq, int S, int q_offset, int Dv,
+    int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides kst,
+    Strides vst, Strides ost, float scale, int causal, Part part) {
   // Register tiles: each thread scores RM rows x 4 keys (16 key groups x 8
   // row groups) and accumulates RP rows x 4 output dims (32 dim groups x 4
   // row groups), so each shared-memory load feeds several FMAs.
@@ -92,12 +112,12 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_kernel(
   const T* qb = q + b * qst.b + h * qst.h;
   for (int e = t; e < QR * nsel; e += kThreads) {
     const int r = e / nsel, c = e % nsel;
-    Qs[r * str + c] = row0 + r < S ? to_f(qb[(row0 + r) * qst.s + dim[c]]) : 0.f;
+    Qs[r * str + c] = row0 + r < Tq ? to_f(qb[(row0 + r) * qst.s + dim[c]]) : 0.f;
   }
 
   const int len = lengths[b];
   int kend = min(len, S);
-  if (causal) kend = min(kend, row0 + QR);
+  if (causal) kend = min(kend, q_offset + row0 + QR);
   const T* kb = k + b * kst.b + kv * kst.h;
   const T* vb = v + b * vst.b + kv * vst.h;
   const int srg = t / 16, skg = t % 16;   // score tile: rows srg*RM.., keys skg+16j
@@ -108,7 +128,21 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < kend; k0 += kKT) {
+  // the walk: every 64-key tile below kend, or (kPart) the tiles of this
+  // q-tile's participating chunks below kend; the loop bounds and skips
+  // are uniform over the block, so the barriers below are safe
+  const int per_chunk = kPart ? part.k_blk / kKT : 1;
+  const int* parts = kPart ? part.kc_part + ((int64_t)b * nqc + row0 / q_blk) * part.kt
+                           : nullptr;
+  const int n_iter = kPart ? part.kt * per_chunk : (kend + kKT - 1) / kKT;
+  for (int it = 0; it < n_iter; ++it) {
+    int k0 = it * kKT;
+    if (kPart) {
+      const int kc = parts[it / per_chunk];
+      if (kc < 0) continue;
+      k0 = kc * part.k_blk + (it % per_chunk) * kKT;
+      if (k0 >= kend) continue;
+    }
     for (int e = t; e < kKT * nsel; e += kThreads) {
       const int kk = e / nsel, c = e % nsel;
       const int pos = k0 + kk;
@@ -142,7 +176,7 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = srg * RM + i, kk = skg + 16 * j;
-        const int qpos = row0 + r, kpos = k0 + kk;
+        const int qpos = q_offset + row0 + r, kpos = k0 + kk;
         const bool valid = kpos < len && (!causal || qpos >= kpos);
         Ss[r * sstr + kk] = valid ? sc[i][j] * scale : kNegInf;
       }
@@ -195,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_kernel(
 #pragma unroll
   for (int i = 0; i < RP; ++i) {
     const int r = prg * RP + i;
-    if (row0 + r >= S) continue;
+    if (row0 + r >= Tq) continue;
     const float denom = fmaxf(L[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -205,37 +239,55 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_kernel(
   }
 }
 
-template <typename T, int QR>
+template <typename T, int QR, bool kPart>
 int launch(const void* q, const void* k, const void* v, const int* block_idx,
-           const int* lengths, void* out, int B, int H, int KV, int S, int Dv,
-           int nb_sel, int bd, int q_blk, int nqc, Strides qs, Strides ks, Strides vs,
-           Strides os, float scale, int causal, cudaStream_t st) {
+           const int* lengths, void* out, int B, int H, int KV, int Tq, int S,
+           int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc, Strides qs,
+           Strides ks, Strides vs, Strides os, float scale, int causal, Part part,
+           cudaStream_t st) {
   const int bytes = smem_floats(QR, nb_sel * bd, Dv) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(aqua_prefill_kernel<T, QR>,
+  cudaError_t err = cudaFuncSetAttribute(aqua_prefill_kernel<T, QR, kPart>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + QR - 1) / QR, H, B);
-  aqua_prefill_kernel<T, QR><<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, block_idx, lengths, (T*)out, H, KV, S, Dv,
-      nb_sel, bd, q_blk, nqc, qs, ks, vs, os, scale, causal);
+  const dim3 grid((Tq + QR - 1) / QR, H, B);
+  aqua_prefill_kernel<T, QR, kPart><<<grid, kThreads, bytes, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, block_idx, lengths, (T*)out, H, KV, Tq, S,
+      q_offset, Dv, nb_sel, bd, q_blk, nqc, qs, ks, vs, os, scale, causal, part);
   return (int)cudaGetLastError();
 }
 
+struct Args {
+  const void *q, *k, *v;
+  const int *block_idx, *lengths;
+  void* out;
+  int B, H, KV, Tq, S, q_offset, Dv, nb_sel, bd, q_blk, nqc;
+  Strides qs, ks, vs, os;
+  float scale;
+  int causal;
+  Part part;
+  cudaStream_t st;
+};
+
+template <typename T, int QR>
+int dispatch_part(const Args& a) {
+  if (a.part.kc_part != nullptr)
+    return launch<T, QR, true>(a.q, a.k, a.v, a.block_idx, a.lengths, a.out, a.B, a.H, a.KV,
+                               a.Tq, a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc,
+                               a.qs, a.ks, a.vs, a.os, a.scale, a.causal, a.part, a.st);
+  return launch<T, QR, false>(a.q, a.k, a.v, a.block_idx, a.lengths, a.out, a.B, a.H, a.KV,
+                              a.Tq, a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc,
+                              a.qs, a.ks, a.vs, a.os, a.scale, a.causal, a.part, a.st);
+}
+
 template <typename T>
-int dispatch_rows(int qr, const void* q, const void* k, const void* v, const int* bi,
-                  const int* ln, void* out, int B, int H, int KV, int S, int Dv,
-                  int nb_sel, int bd, int q_blk, int nqc, Strides qs, Strides ks,
-                  Strides vs, Strides os, float scale, int causal, cudaStream_t st) {
+int dispatch_rows(int qr, const Args& a) {
   switch (qr) {
     case 32:
-      return launch<T, 32>(q, k, v, bi, ln, out, B, H, KV, S, Dv, nb_sel, bd, q_blk, nqc,
-                           qs, ks, vs, os, scale, causal, st);
+      return dispatch_part<T, 32>(a);
     case 16:
-      return launch<T, 16>(q, k, v, bi, ln, out, B, H, KV, S, Dv, nb_sel, bd, q_blk, nqc,
-                           qs, ks, vs, os, scale, causal, st);
+      return dispatch_part<T, 16>(a);
     case 8:
-      return launch<T, 8>(q, k, v, bi, ln, out, B, H, KV, S, Dv, nb_sel, bd, q_blk, nqc,
-                          qs, ks, vs, os, scale, causal, st);
+      return dispatch_part<T, 8>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -243,26 +295,47 @@ int dispatch_rows(int qr, const void* q, const void* k, const void* v, const int
 
 }  // namespace
 
-// Strides are in elements: {batch, head, seq} of q, k, v and out. qr is the
-// number of query rows per block (8, 16 or 32, dividing q_blk). dtype: 0 =
-// float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// Strides are in elements: {batch, head, seq} of q, k, v and out. Tq query
+// rows at sequence offset q_offset attend S keys. qr is the number of query
+// rows per block (8, 16 or 32, dividing q_blk). kc_part: null, or (B, nqc,
+// kt) int32 participating key chunks of k_blk keys (k_blk % 64 == 0).
+// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
 extern "C" int aqua_prefill_launch(const void* q, const void* k, const void* v,
                                    const void* block_idx, const void* lengths, void* out,
-                                   int B, int H, int KV, int S, int Dv, int nb_sel, int bd,
-                                   int q_blk, int nqc, int qr, const long long* strides,
-                                   float scale, int causal, int dtype, void* stream) {
-  if (nb_sel * bd > kMaxSel || Dv > kMaxDv || H % KV != 0 || q_blk % qr != 0)
+                                   int B, int H, int KV, int Tq, int S, int q_offset, int Dv,
+                                   int nb_sel, int bd, int q_blk, int nqc, int qr,
+                                   const long long* strides, float scale, int causal,
+                                   const void* kc_part, int kt, int k_blk, int dtype,
+                                   void* stream) {
+  if (nb_sel * bd > kMaxSel || Dv > kMaxDv || H % KV != 0 || q_blk % qr != 0 ||
+      q_offset < 0 || q_offset + Tq > S || (kc_part != nullptr && (k_blk <= 0 || k_blk % kKT != 0)))
     return (int)cudaErrorInvalidValue;
-  const Strides qs{strides[0], strides[1], strides[2]};
-  const Strides ks{strides[3], strides[4], strides[5]};
-  const Strides vs{strides[6], strides[7], strides[8]};
-  const Strides os{strides[9], strides[10], strides[11]};
-  cudaStream_t st = (cudaStream_t)stream;
-  const int* bi = (const int*)block_idx;
-  const int* ln = (const int*)lengths;
-  if (dtype == 0)
-    return dispatch_rows<float>(qr, q, k, v, bi, ln, out, B, H, KV, S, Dv, nb_sel, bd,
-                                q_blk, nqc, qs, ks, vs, os, scale, causal, st);
-  return dispatch_rows<__nv_bfloat16>(qr, q, k, v, bi, ln, out, B, H, KV, S, Dv, nb_sel,
-                                      bd, q_blk, nqc, qs, ks, vs, os, scale, causal, st);
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.block_idx = (const int*)block_idx;
+  a.lengths = (const int*)lengths;
+  a.out = out;
+  a.B = B;
+  a.H = H;
+  a.KV = KV;
+  a.Tq = Tq;
+  a.S = S;
+  a.q_offset = q_offset;
+  a.Dv = Dv;
+  a.nb_sel = nb_sel;
+  a.bd = bd;
+  a.q_blk = q_blk;
+  a.nqc = nqc;
+  a.qs = Strides{strides[0], strides[1], strides[2]};
+  a.ks = Strides{strides[3], strides[4], strides[5]};
+  a.vs = Strides{strides[6], strides[7], strides[8]};
+  a.os = Strides{strides[9], strides[10], strides[11]};
+  a.scale = scale;
+  a.causal = causal;
+  a.part = Part{(const int*)kc_part, kt, k_blk};
+  a.st = (cudaStream_t)stream;
+  if (dtype == 0) return dispatch_rows<float>(qr, a);
+  return dispatch_rows<__nv_bfloat16>(qr, a);
 }

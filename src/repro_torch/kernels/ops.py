@@ -140,3 +140,54 @@ def aqua_prefill(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
     return aqua_prefill_attention(q_hat, khat, v, block_idx, lengths,
                                   block_dims=block_dims, q_blk=q_blk,
                                   causal=causal, scale=scale)
+
+
+def aqua_prefill_chunk(q_hat: torch.Tensor, khat: torch.Tensor,
+                       v: torch.Tensor, lengths: torch.Tensor, *,
+                       q_offset: int,
+                       mag_state: Optional[torch.Tensor] = None,
+                       k_ratio: float = 0.75, block_dims: int = 8,
+                       q_blk: int = 128, causal: bool = True,
+                       scale: Optional[float] = None,
+                       prefill_fn=aqua_prefill_attention) -> tuple:
+    """Chunk-resumable AQUA prefill: attention of query rows [q_offset,
+    q_offset + T) against the key stripe [0, S), through ``prefill_fn``
+    (the kernel wrapper, or its plain version for the plain backend).
+
+    Selection tiles anchor at the chunk's first row, so when every chunk
+    boundary is a ``q_blk`` multiple the chunks select the monolithic
+    call's dim-blocks and walk its key tiles. A chunk ending mid-tile
+    returns that tile's |q̂| aggregate as ``carry``; passed to the next
+    chunk as ``mag_state`` it is added to that chunk's first tile.
+
+    q_hat (B, H, T, D) this chunk's queries; khat (B, KV, S, D) and v (B,
+    KV, S, Dv) covering at least rows [0, q_offset + T); lengths (B,)
+    valid *sequence* lengths (global positions: the key mask and the |q̂|
+    aggregation use them); mag_state (B, H, NB_total) float32 or None.
+    Returns (out (B, H, T, Dv), carry (B, H, NB_total) float32: the
+    trailing tile's aggregate when T % q_blk != 0, else zeros)."""
+    b, h, t, d = q_hat.shape
+    assert 0 <= q_offset and q_offset + t <= khat.shape[2], \
+        (q_offset, t, khat.shape)
+    dev = q_hat.device
+    lengths = _i32(lengths, dev)
+    q_blk = min(q_blk, aqua_lib.ceil_to(t, 8))
+    tpad = aqua_lib.ceil_to(t, q_blk)
+    nqc, nb = tpad // q_blk, d // block_dims
+    kb = round_k_dims(d, k_ratio, block_dims) // block_dims
+    # the same aggregation as chunk_topk_block_indices, masked by global
+    # positions and carrying the previous chunk's partial leading tile
+    mag = F.pad(q_hat.float().abs(), (0, 0, 0, tpad - t))
+    row = torch.arange(tpad, device=dev)
+    valid = (row[None, :] < t) & (q_offset + row[None, :] < lengths[:, None])
+    mag = mag * valid[:, None, :, None]
+    bmag = mag.reshape(b, h, nqc, q_blk, nb, block_dims).sum(dim=(3, 5))
+    if mag_state is not None:
+        bmag[:, :, 0] += mag_state.to(dev, torch.float32)
+    carry = (bmag[:, :, -1].clone() if t % q_blk
+             else torch.zeros(b, h, nb, device=dev))
+    block_idx = torch.sort(aqua_lib.topk_indices(bmag, kb), dim=-1)[0]
+    out = prefill_fn(q_hat, khat, v, _i32(block_idx, dev), lengths,
+                     block_dims=block_dims, q_blk=q_blk, causal=causal,
+                     scale=scale, q_offset=q_offset)
+    return out, carry

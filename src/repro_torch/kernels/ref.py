@@ -28,28 +28,44 @@ def _block_mask(block_idx: torch.Tensor, nb: int, block_dims: int
 def aqua_prefill_ref(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
                      block_idx: torch.Tensor, lengths: torch.Tensor,
                      block_dims: int, q_chunk: int, *, causal: bool = True,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """q_hat: (B, H, S, D); khat: (B, KV, S, D); v: (B, KV, S, Dv);
-    block_idx: (B, H, ceil(S / q_chunk), NB_sel); lengths: (B,). Every
-    query of a chunk shares the chunk's block set. Returns (B, H, S, Dv)."""
-    b, h, s, d = q_hat.shape
-    kvh = khat.shape[1]
+                     scale: Optional[float] = None, q_offset: int = 0,
+                     kc_part: Optional[torch.Tensor] = None,
+                     k_blk: int = 128) -> torch.Tensor:
+    """q_hat: (B, H, T, D) queries at sequence rows [q_offset, q_offset +
+    T); khat: (B, KV, S, D); v: (B, KV, S, Dv); block_idx: (B, H,
+    ceil(T / q_chunk), NB_sel); lengths: (B,). Every query of a
+    (chunk-local) q_chunk tile shares the tile's block set. kc_part (B,
+    ceil(T / q_chunk), KT): a key attends only when its ``k_blk`` chunk is
+    in its query tile's list. Returns (B, H, T, Dv)."""
+    b, h, t, d = q_hat.shape
+    kvh, s = khat.shape[1], khat.shape[2]
     g = h // kvh
+    dev = khat.device
     if scale is None:
         scale = 1.0 / d ** 0.5
     mask = _block_mask(block_idx, d // block_dims, block_dims)  # B,H,NQC,D
-    mask = mask.repeat_interleave(q_chunk, dim=2)[:, :, :s]
-    qm = (q_hat.float() * mask).reshape(b, kvh, g, s, d)
+    mask = mask.repeat_interleave(q_chunk, dim=2)[:, :, :t]
+    qm = (q_hat.float() * mask).reshape(b, kvh, g, t, d)
     scores = torch.einsum("bkgsd,bktd->bkgst", qm, khat.float()) * scale
-    pos = torch.arange(s, device=khat.device)
-    m = (pos[None, :] < lengths.to(khat.device)[:, None])[:, None, :]
+    qpos = q_offset + torch.arange(t, device=dev)
+    kpos = torch.arange(s, device=dev)
+    m = (kpos[None, :] < lengths.to(dev)[:, None])[:, None, :]   # (B, 1, S)
     if causal:
-        m = m & (pos[:, None] >= pos[None, :])[None]
+        m = m & (qpos[:, None] >= kpos[None, :])[None]
+    if kc_part is not None:
+        nkc = -(-s // k_blk)
+        part = torch.zeros(b, kc_part.shape[1], nkc + 1, dtype=torch.bool,
+                           device=dev)                  # column nkc: -1 pads
+        cols = torch.where(kc_part >= 0, kc_part.long(),
+                           torch.full_like(kc_part.long(), nkc))
+        part.scatter_(-1, cols.to(dev), True)
+        rows = part[:, torch.arange(t, device=dev) // q_chunk]   # (B,T,NKC+1)
+        m = m & rows[:, :, kpos // k_blk]
     scores = torch.where(m[:, None, None], scores,
                          torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", w, v.float())
-    return out.reshape(b, h, s, -1).to(v.dtype)
+    return out.reshape(b, h, t, -1).to(v.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -91,6 +91,15 @@ class LM:
                     lane: int, num_slots: int) -> DecodeState:
         raise NotImplementedError
 
+    def prefill_chunk(self, params, batch, state: DecodeState, lane: int,
+                      prefix_len: int, aqua_proj=None, select_q_blk=None,
+                      logits: bool = True
+                      ) -> Tuple[Optional[torch.Tensor], DecodeState]:
+        """Advance ``lane``'s cache by one chunked-prefill chunk starting
+        at position ``prefix_len``; returns (logits (1, V) or, with
+        ``logits=False``, None, state)."""
+        raise NotImplementedError
+
     # -- lane surgery -------------------------------------------------
     def insert_lane(self, state: DecodeState, req_state: DecodeState,
                     lane: int) -> DecodeState:

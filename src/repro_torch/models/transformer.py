@@ -196,6 +196,65 @@ class DenseLM(LM):
                            lane, num_slots)
         return state
 
+    # -- chunked prefill --------------------------------------------------
+    def prefill_chunk(self, params, batch, state: DecodeState, lane: int,
+                      prefix_len: int, aqua_proj=None,
+                      select_q_blk: Optional[int] = None,
+                      logits: bool = True):
+        """Advance ``lane``'s cache by one prefill chunk, in place: the
+        chunk's tokens ``batch["tokens"]`` (1, T) (bucket-padded, valid
+        count ``batch["lengths"]`` (1,)) sit at positions ``prefix_len +
+        arange(T)`` and attend the prefix earlier chunks wrote (slots [0,
+        prefix_len), read through the lane's stripe or, paged, its
+        dequantized pages) plus themselves; then the chunk's K/V land from
+        slot ``prefix_len`` on (``kvcache.lane_write_tail`` /
+        ``paged_write_tail``; a paged cursor is page-aligned). Each layer
+        reads its prefix before it writes. ``select_q_blk`` selects AQUA
+        dim-blocks per kernel q-tile (``attention.chunk_attention``).
+        Returns (next-token logits (1, V) from the chunk's last valid row
+        — None with ``logits=False``, for a non-final chunk —, state)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        lengths = batch.get("lengths")
+        t = tokens.shape[1]
+        x = L.embed(params["embed"], tokens, self.dtype)
+        positions = (prefix_len + torch.arange(t, dtype=torch.int32,
+                                               device=x.device))[None]
+        paged = self._paging is not None
+        tail_count = prefix_len + (t if lengths is None else lengths[0])
+        for i in range(cfg.num_layers):
+            p = layer_params(params["layers"], i)
+            cache = state.layers.layer(i)
+            if paged:
+                pk, pv, ppos = kv.paged_lane_pages(cache, lane,
+                                                   dtype=self.dtype)
+            else:
+                pk, pv = cache.k[lane][None], cache.v[lane][None]
+                ppos = cache.positions[lane][None]
+            # only slots [0, prefix_len) are this prompt's: later slots of
+            # a recycled lane still hold a previous tenant's positions
+            ppos = torch.where(torch.arange(ppos.shape[1], device=x.device)
+                               < prefix_len, ppos, torch.full_like(ppos, -1))
+            h, k_t, v_t = attn.chunk_attention(
+                p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                cfg.attention, cfg.aqua, self._proj(aqua_proj, i),
+                prefix_k=pk, prefix_v=pv, prefix_positions=ppos,
+                prefix_len=prefix_len, positions=positions, lengths=lengths,
+                select_q_blk=select_q_blk)
+            x = x + h
+            x = x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+            if paged:
+                kv.paged_write_tail(cache, lane, k_t[0], v_t[0], positions[0],
+                                    prefix_len // cache.page_size, tail_count)
+            else:
+                kv.lane_write_tail(cache, lane, k_t[0], v_t[0], positions[0],
+                                   prefix_len, tail_count)
+        if not logits:
+            return None, state
+        last = t - 1 if lengths is None else torch.clamp(
+            lengths.long() - 1, 0, t - 1)[0]
+        return self._unembed(params, x[:, last]), state
+
     def reset_lane(self, state: DecodeState, lane: int,
                    max_seq: int) -> DecodeState:
         if self._paging is None:

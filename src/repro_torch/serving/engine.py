@@ -1,17 +1,27 @@
 """Continuous-batching serving engine (PyTorch port).
 
-Port of the JAX package's ``ContinuousBatchingEngine`` with monolithic
-admission, on the contiguous or the paged KV cache (paged: optionally with
-int8 pools, ``QuantSpec``, and hierarchical AQUA, ``SparsitySpec``).
-Requests are admitted into fixed decode *lanes* (batch rows of one shared
-decode state); each admission prefills its prompt alone (bucket-padded,
-ragged ``lengths``) and grafts the cache into its lane — a row copy on the
-contiguous cache, a scatter into the pages the host allocator reserved on
-the paged pool.
-Every decode step runs all ``max_lanes`` lanes; inactive lanes ride along
-under a ``write_mask`` that freezes their cache. The per-lane bookkeeping
-(last token, counters, stop rules) lives on the host: the host reads each
-step's sampled tokens anyway.
+Port of the JAX package's ``ContinuousBatchingEngine``, on the contiguous
+or the paged KV cache (paged: optionally with int8 pools, ``QuantSpec``,
+and hierarchical AQUA, ``SparsitySpec``). Requests are admitted into fixed
+decode *lanes* (batch rows of one shared decode state); a monolithic
+admission prefills its prompt alone (bucket-padded, ragged ``lengths``)
+and grafts the cache into its lane — a row copy on the contiguous cache, a
+scatter into the pages the host allocator reserved on the paged pool.
+
+Chunked prefill (``ServingConfig.prefill_budget_tokens``, when the
+:class:`~repro_torch.core.dispatch.DispatchPlan` admits it): a prompt
+whose padded prefill exceeds the budget enters a PREFILLING lane and is
+written chunk by chunk between decode steps (``DenseLM.prefill_chunk``),
+oldest lane first, at most the budget per step; non-final chunks keep the
+cursor aligned to the bucket, the page size and, on the block-sparse
+backends, the kernel's ``prefill_q_blk``; the final chunk samples the
+first token. A decoding lane thus never waits longer than one budget of
+prefill. Greedy tokens equal monolithic admission's.
+
+Every decode step runs all ``max_lanes`` lanes; inactive and PREFILLING
+lanes ride along under a ``write_mask`` that freezes their cache. The
+per-lane bookkeeping (last token, counters, stop rules) lives on the host:
+the host reads each step's sampled tokens anyway.
 
 Greedy sampling is ``argmax`` (first index among ties, as in the JAX
 package). Temperature sampling draws Gumbel noise from a
@@ -19,12 +29,13 @@ package). Temperature sampling draws Gumbel noise from a
 independent of lane placement but not the JAX package's random stream.
 
 Not ported yet (the engine raises ``NotImplementedError``): prefix
-sharing, chunked prefill, meshes, sliding windows, H2O eviction, and
-mixed-precision hot residents (``QuantSpec.hot_resident_fraction`` > 0).
+sharing, meshes, sliding windows, H2O eviction, and mixed-precision hot
+residents (``QuantSpec.hot_resident_fraction`` > 0).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Dict, Iterable, Iterator, Optional
 
@@ -37,6 +48,8 @@ from repro_torch.configs.base import (ModelConfig, ServingConfig,
 from repro_torch.core import kvcache as kvc
 from repro_torch.core.attention import resolve_backend
 from repro_torch.core.calibration import AquaProjections
+from repro_torch.core.dispatch import (TILE_SELECTING_BACKENDS, DispatchPlan,
+                                       resolve_dispatch_plan)
 from repro_torch.models import build_model
 from repro_torch.models.base import PagingSpec
 from repro_torch.runtime import resolve_device
@@ -114,8 +127,6 @@ class ContinuousBatchingEngine:
                 cfg, attention=dataclasses.replace(cfg.attention,
                                                    backend=backend))
         serving.validate()
-        if serving.prefill_budget_tokens is not None:
-            raise NotImplementedError("chunked prefill is not ported yet")
         if serving.mesh_shape is not None:
             raise NotImplementedError("mesh serving is not ported yet")
         if cfg.attention.window is not None:
@@ -135,6 +146,9 @@ class ContinuousBatchingEngine:
         self.cfg = cfg
         self.scfg = serving
         self.cache_spec = cache
+        self._plan = resolve_dispatch_plan(attention=cfg.attention,
+                                           aqua=cfg.aqua, serving=serving,
+                                           mesh=None)
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)
         self.params = params
@@ -157,11 +171,9 @@ class ContinuousBatchingEngine:
             self._num_pages = cache.num_pages or (serving.max_lanes
                                                   * self._pages_per_lane)
             # hierarchical AQUA: the participating page count, resolved
-            # once (the table itself is per step and layer). The JAX
-            # DispatchPlan vetoes it only for windows and H2O eviction
-            # (core/dispatch.py, token_reasons), which this engine refuses
-            # above, so it engages whenever it drops a page.
-            if self.sparsity_spec.hierarchical:
+            # once (the table itself is per step and layer) where the plan
+            # engages it and it drops a page
+            if self._plan.token_sparsity == "hierarchical":
                 kp = self.sparsity_spec.kept_pages(self._pages_per_lane)
                 if kp < self._pages_per_lane:
                     self._kept_pages = kp
@@ -170,6 +182,28 @@ class ContinuousBatchingEngine:
                 scale_granularity=quant.scale_granularity,
                 kept_pages=self._kept_pages,
                 pin_recent_pages=self.sparsity_spec.pin_recent_pages))
+        # chunked prefill, gated by the plan. Non-final chunks keep the
+        # cursor bucket-aligned (ragged chunk batches) and page-aligned
+        # (paged tail writes start at a page); on the block-sparse
+        # backends also q_blk-aligned, so each chunk's kernel tiles select
+        # the monolithic admission's dim-blocks
+        self._chunked = (serving.prefill_budget_tokens is not None
+                         and self._plan.chunked_prefill)
+        self._chunk_align = serving.prompt_bucket
+        if self._paged:
+            self._chunk_align = math.lcm(self._chunk_align, cache.page_size)
+        self._tile_q_blk = None
+        aq = cfg.aqua
+        if (self._chunked and self._plan.backend in TILE_SELECTING_BACKENDS
+                and aq is not None and aq.enabled and aq.block_dims > 1
+                and aq.kept_dims(cfg.attention.head_dim) % aq.block_dims == 0):
+            self._tile_q_blk = aq.prefill_q_blk
+            self._chunk_align = math.lcm(self._chunk_align, self._tile_q_blk)
+
+    def dispatch_plan(self) -> DispatchPlan:
+        """The engine's resolved :class:`DispatchPlan` (backend, layout,
+        precision, chunked prefill, token sparsity, and the reasons)."""
+        return self._plan
 
     @property
     def paged(self) -> bool:
@@ -238,11 +272,7 @@ class ContinuousBatchingEngine:
         Returns (token, done)."""
         batch = self._prefill_batch(req)
         if self._paged:
-            pages = self.page_pool.reserve(lane, self._pages_needed(req))
-            assert pages is not None       # serve() checked can_reserve
-            row = torch.full((self._pages_per_lane,), -1, dtype=torch.int32)
-            row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
-            state.layers.page_table[:, lane] = row.to(self.device)
+            self._install_pages(req, lane, state)
             logits, req_state = self.model.prefill(
                 self.params, batch, self.scfg.max_seq, aqua_proj=self.proj)
             self.model.graft_paged(state, req_state, lane,
@@ -251,12 +281,27 @@ class ContinuousBatchingEngine:
             logits, _ = self.model.prefill_into(
                 self.params, batch, self.scfg.max_seq, state, lane,
                 aqua_proj=self.proj)
+        return self._finish_admit(req, lane, logits, lanes)
+
+    def _install_pages(self, req: Request, lane: int, state) -> None:
+        """Reserve ``req``'s pages for its whole lifetime and install the
+        lane's page-table row (every layer)."""
+        pages = self.page_pool.reserve(lane, self._pages_needed(req))
+        assert pages is not None       # serve() checked can_reserve
+        row = torch.full((self._pages_per_lane,), -1, dtype=torch.int32)
+        row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        state.layers.page_table[:, lane] = row.to(self.device)
+
+    def _finish_admit(self, req: Request, lane: int, logits, lanes: LaneState):
+        """The admission tail: sample the first token from the prefill
+        logits and install the lane's bookkeeping. Returns (token, done)."""
         self.last_admit_logits = logits
         tok = int(sample_tokens(logits, np.array([req.temperature],
                                                  np.float32),
                                 np.array([req.top_k]),
                                 np.array([self._seed(req.uid, 0)]))[0])
-        done = (req.eos_id >= 0 and tok == req.eos_id) or req.max_new_tokens <= 1
+        done = ((req.eos_id >= 0 and tok == req.eos_id)
+                or req.max_new_tokens <= 1)
         lanes.last_token[lane] = tok
         lanes.active[lane] = not done
         lanes.generated[lane] = 1
@@ -266,6 +311,44 @@ class ContinuousBatchingEngine:
         lanes.eos_id[lane] = req.eos_id
         lanes.uid[lane] = req.uid
         return tok, done
+
+    # -- chunked prefill (host side) ------------------------------------
+    def _should_chunk(self, req: Request) -> bool:
+        """Chunk this admission: the engine interleaves and the padded
+        prefill exceeds the budget (shorter prompts admit monolithically,
+        exactly as without a budget)."""
+        return (self._chunked and self._padded_prompt_len(req.prompt_len)
+                > self.scfg.prefill_budget_tokens)
+
+    def _chunk_padded_len(self, cursor: int, count: int) -> int:
+        """Tokens of a chunk's batch after bucket padding (its cost against
+        the budget), clamped so the padding never runs past the cache."""
+        bucket = self.scfg.prompt_bucket
+        padded = max(bucket, -(-count // bucket) * bucket)
+        cap = self._num_slots if self._paged else self.scfg.max_seq
+        return min(padded, cap - cursor)
+
+    def _chunk_batch(self, req: Request, cursor: int,
+                     count: int) -> Dict[str, torch.Tensor]:
+        """Prompt tokens [cursor, cursor + count), bucket-padded, with the
+        ragged count (non-final chunks are align-sized: no padding)."""
+        padded = np.zeros((1, self._chunk_padded_len(cursor, count)),
+                          np.int32)
+        padded[0, :count] = np.asarray(req.tokens, np.int32)[
+            cursor:cursor + count]
+        return {"tokens": torch.from_numpy(padded).to(self.device),
+                "lengths": torch.tensor([count], dtype=torch.int32,
+                                        device=self.device)}
+
+    def _chunk(self, req: Request, lane: int, cursor: int, count: int,
+               state, final: bool):
+        """Run one chunk of ``req``'s prefill into ``lane``; returns the
+        logits of its last valid row for the ``final`` chunk, else None."""
+        logits, _ = self.model.prefill_chunk(
+            self.params, self._chunk_batch(req, cursor, count), state, lane,
+            cursor, aqua_proj=self.proj, select_q_blk=self._tile_q_blk,
+            logits=final)
+        return logits
 
     def _step(self, state, lanes: LaneState):
         """One decode step over all lanes; inactive lanes are frozen by the
@@ -310,6 +393,7 @@ class ContinuousBatchingEngine:
         self.stats = stats
         emitted_count: Dict[int, int] = {}
         last_emit: Dict[int, float] = {}
+        jobs: Dict[int, Request] = {}      # PREFILLING lanes' requests
         now = 0.0
 
         def finish_reason(tok: int, req: Request) -> str:
@@ -328,6 +412,17 @@ class ContinuousBatchingEngine:
                 self.page_pool.release(lane)
             stats.requests_finished += 1
             last_emit.pop(uid, None)
+
+        def first_token(req: Request, lane: int, tok: int,
+                        done: bool) -> StreamEvent:
+            stats.admissions += 1
+            stats.tokens_emitted += 1
+            emitted_count[req.uid] = 1
+            record_emit(req.uid)
+            if done:
+                retire(lane, req.uid)
+            return StreamEvent(req.uid, tok, 0, done,
+                               finish_reason(tok, req) if done else "")
 
         while sched.has_work:
             # admissions: fill free lanes with every arrived request; a
@@ -358,24 +453,74 @@ class ContinuousBatchingEngine:
                             f"the {skip} arrived request(s) with every lane "
                             "free — raise CacheSpec.num_pages")
                     break
+                if self._should_chunk(req):
+                    # PREFILLING lane: pages reserved for the whole
+                    # lifetime now, prompt written by the budget loop below
+                    lane = sched.assign(req, prefilling=True)
+                    if self._paged:
+                        self._install_pages(req, lane, state)
+                    jobs[lane] = req
+                    stats.chunked_admissions += 1
+                    continue
                 lane = sched.assign(req)
                 t0 = time.perf_counter()
                 tok, done = self._admit(req, lane, state, lanes)
                 stats.admit_seconds += time.perf_counter() - t0
-                stats.admissions += 1
-                stats.tokens_emitted += 1
-                emitted_count[req.uid] = 1
-                record_emit(req.uid)
-                if done:
-                    retire(lane, req.uid)
-                yield StreamEvent(req.uid, tok, 0, done,
-                                  finish_reason(tok, req) if done else "")
+                yield first_token(req, lane, tok, done)
             if sched.num_active == 0:
                 if sched.has_pending:
                     now = max(now, sched.next_arrival)   # idle-jump
                     continue
                 break
 
+            # spend the prefill budget on PREFILLING lanes, oldest first
+            # (strict FIFO: when the oldest lane's next chunk does not fit
+            # what is left, younger lanes wait too). The final chunk
+            # samples the first token and flips the lane to DECODING.
+            if self._chunked and sched.num_prefilling > 0:
+                left = self.scfg.prefill_budget_tokens
+                for lane in sched.prefilling_lanes():
+                    req = jobs[lane]
+                    cursor = sched.prefill_cursor(lane)
+                    rem = sched.prefill_remaining(lane)
+                    if rem > left:
+                        # non-final chunk, align-sized: the next cursor
+                        # stays aligned
+                        n = (left // self._chunk_align) * self._chunk_align
+                        if n <= 0:
+                            break
+                        t0 = time.perf_counter()
+                        self._chunk(req, lane, cursor, n, state, final=False)
+                        stats.admit_seconds += time.perf_counter() - t0
+                        sched.advance_prefill(lane, n)
+                        stats.prefill_chunks += 1
+                        left -= n
+                        if left <= 0:
+                            break
+                        continue
+                    padded = self._chunk_padded_len(cursor, rem)
+                    if padded > left:
+                        break
+                    t0 = time.perf_counter()
+                    logits = self._chunk(req, lane, cursor, rem, state,
+                                         final=True)
+                    tok, done = self._finish_admit(req, lane, logits, lanes)
+                    stats.admit_seconds += time.perf_counter() - t0
+                    jobs.pop(lane)
+                    sched.advance_prefill(lane, rem)
+                    sched.mark_decoding(lane)
+                    stats.prefill_chunks += 1
+                    left -= padded
+                    yield first_token(req, lane, tok, done)
+                    if left <= 0:
+                        break
+
+            # decode step over the DECODING lanes (PREFILLING lanes ride
+            # along frozen); skipped while only prefills are in flight —
+            # time still advances, so arrivals keep flowing
+            if sched.num_decoding == 0:
+                now += 1.0
+                continue
             t0 = time.perf_counter()
             tok, emitted, done = self._step(state, lanes)
             stats.decode_seconds += time.perf_counter() - t0
@@ -384,7 +529,7 @@ class ContinuousBatchingEngine:
             if self._paged:
                 self.page_pool.sample_utilization()
             now += 1.0
-            for lane in sched.active_lanes():
+            for lane in sched.decoding_lanes():
                 if not emitted[lane]:
                     continue
                 req = sched.request_in(lane)

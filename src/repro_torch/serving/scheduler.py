@@ -1,13 +1,14 @@
 """Request scheduler for the continuous-batching engine (numpy only).
 
 The port's own copy of the JAX package's ``serving/scheduler.py``, cut to
-what monolithic admission uses (no chunked-prefill cursors, no prefix
-index). Host-side bookkeeping only; all device work is in
+what the single-device engine uses (no prefix index, no lane order).
+Host-side bookkeeping only; all device work is in
 ``repro_torch.serving.engine``.
 
 Request lifecycle::
 
     submit --> pending (arrival-ordered) --> admitted into a free *lane*
+           --> [PREFILLING: chunk cursor advances between decode steps]
            --> DECODING (one token per engine step) --> retired
                (EOS, length limit) --> lane freed for the next request
 """
@@ -18,6 +19,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
+
+LANE_PREFILLING = "prefilling"
+LANE_DECODING = "decoding"
 
 
 @dataclass
@@ -73,9 +77,11 @@ class ScheduleStats:
     tokens_emitted: int = 0
     requests_finished: int = 0
     occupancy_sum: int = 0       # sum over steps of active lanes
-    admissions: int = 0
-    admit_seconds: float = 0.0   # prefill + graft + first-token sampling
+    admissions: int = 0          # requests admitted, chunked ones included
+    admit_seconds: float = 0.0   # prefill (+ chunks) + graft + first token
     decode_seconds: float = 0.0  # decode steps incl. sampling
+    prefill_chunks: int = 0      # chunk steps run between decode steps
+    chunked_admissions: int = 0  # requests admitted in PREFILLING state
     itl_gaps: List[float] = field(default_factory=list)
 
     @property
@@ -91,7 +97,8 @@ class ScheduleStats:
 class LaneScheduler:
     """Admit/retire requests into a fixed set of decode lanes. Pending
     requests are arrival-ordered (FIFO among equal arrivals); lanes are
-    recycled LIFO."""
+    recycled LIFO. A chunked admission holds its lane in the PREFILLING
+    state with a prompt cursor until its final chunk."""
 
     def __init__(self, max_lanes: int):
         assert max_lanes >= 1
@@ -101,6 +108,12 @@ class LaneScheduler:
         self._seq = 0
         self._last_key: Optional[tuple] = None
         self._lane_req: List[Optional[Request]] = [None] * max_lanes
+        self._lane_state: List[Optional[str]] = [None] * max_lanes
+        # chunked-prefill cursors (prompt tokens written / total) by lane;
+        # ``_prefill_order`` keeps admission order (oldest chunks first)
+        self._prefill_cursor: Dict[int, int] = {}
+        self._prefill_target: Dict[int, int] = {}
+        self._prefill_order: List[int] = []
         self._free: List[int] = list(range(max_lanes - 1, -1, -1))
 
     def submit(self, req: Request) -> None:
@@ -123,6 +136,14 @@ class LaneScheduler:
         return self.max_lanes - len(self._free)
 
     @property
+    def num_decoding(self) -> int:
+        return sum(1 for s in self._lane_state if s == LANE_DECODING)
+
+    @property
+    def num_prefilling(self) -> int:
+        return len(self._prefill_order)
+
+    @property
     def next_arrival(self) -> Optional[float]:
         return self._keys[0][0] if self._keys else None
 
@@ -133,6 +154,14 @@ class LaneScheduler:
 
     def active_lanes(self) -> List[int]:
         return [i for i, r in enumerate(self._lane_req) if r is not None]
+
+    def decoding_lanes(self) -> List[int]:
+        return [i for i, s in enumerate(self._lane_state)
+                if s == LANE_DECODING]
+
+    def prefilling_lanes(self) -> List[int]:
+        """Lanes with an in-flight chunked prefill, in admission order."""
+        return list(self._prefill_order)
 
     def pop_admissible(self, now: float, skip: int = 0) -> Optional[Request]:
         """Pop the (``skip``+1)-th arrived pending request if a lane is
@@ -153,15 +182,57 @@ class LaneScheduler:
         self._keys.insert(i, key)
         self._pending.insert(i, req)
 
-    def assign(self, req: Request) -> int:
+    def assign(self, req: Request, prefilling: bool = False) -> int:
         lane = self._free.pop()
         self._lane_req[lane] = req
+        self._lane_state[lane] = (LANE_PREFILLING if prefilling
+                                  else LANE_DECODING)
+        if prefilling:
+            self._prefill_cursor[lane] = 0
+            self._prefill_target[lane] = req.prompt_len
+            self._prefill_order.append(lane)
         return lane
+
+    # -- chunked-prefill state machine ---------------------------------
+    def begin_prefill(self, lane: int, cursor: int, target: int) -> None:
+        """Set a PREFILLING lane's cursor window: ``cursor`` tokens
+        already in the cache, ``target`` prompt tokens to reach."""
+        assert self._lane_state[lane] == LANE_PREFILLING, lane
+        assert 0 <= cursor < target, (cursor, target)
+        self._prefill_cursor[lane] = cursor
+        self._prefill_target[lane] = target
+
+    def prefill_cursor(self, lane: int) -> int:
+        return self._prefill_cursor[lane]
+
+    def prefill_remaining(self, lane: int) -> int:
+        return self._prefill_target[lane] - self._prefill_cursor[lane]
+
+    def advance_prefill(self, lane: int, num_tokens: int) -> None:
+        """Record ``num_tokens`` prompt tokens written by one chunk."""
+        assert self._lane_state[lane] == LANE_PREFILLING, lane
+        assert num_tokens >= 1, num_tokens
+        cur = self._prefill_cursor[lane] + num_tokens
+        assert cur <= self._prefill_target[lane], (cur, lane)
+        self._prefill_cursor[lane] = cur
+
+    def mark_decoding(self, lane: int) -> None:
+        """PREFILLING -> DECODING (final chunk written, first token
+        sampled); the cursor must have reached the prompt length."""
+        assert self._lane_state[lane] == LANE_PREFILLING, lane
+        assert self._prefill_cursor[lane] == self._prefill_target[lane], lane
+        self._lane_state[lane] = LANE_DECODING
+        self._prefill_cursor.pop(lane)
+        self._prefill_target.pop(lane)
+        self._prefill_order.remove(lane)
 
     def retire(self, lane: int) -> Request:
         req = self._lane_req[lane]
         assert req is not None, f"retiring free lane {lane}"
+        assert self._lane_state[lane] == LANE_DECODING, \
+            f"retiring lane {lane} mid-prefill"
         self._lane_req[lane] = None
+        self._lane_state[lane] = None
         self._free.append(lane)
         return req
 

@@ -123,11 +123,10 @@ def test_engine_refuses_what_is_not_ported(models):
     with pytest.raises(NotImplementedError, match="prefix sharing"):
         _port_engine(models, CacheSpec(page_size=8))
     _, _, _, tcfg, tparams, tproj = models
-    for scfg in (ServingConfig(prefill_budget_tokens=16, **SERVE),
-                 ServingConfig(mesh_shape=(2, 2), **SERVE)):
-        with pytest.raises(NotImplementedError):
-            ContinuousBatchingEngine(tcfg, tparams, tproj, serving=scfg,
-                                     device="cpu")
+    with pytest.raises(NotImplementedError):
+        ContinuousBatchingEngine(tcfg, tparams, tproj, device="cpu",
+                                 serving=ServingConfig(mesh_shape=(2, 2),
+                                                       **SERVE))
     with pytest.raises(NotImplementedError):
         ContinuousBatchingEngine(
             dataclasses.replace(tcfg, aqua=AquaConfig(h2o_ratio=0.5,

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs import (AquaConfig, CacheSpec, QuantSpec,
                                  ServingConfig, SparsitySpec, reduced)
+from repro_torch.core import selection
 from repro_torch.core.calibration import identity_projections
 from repro_torch.kernels import aqua_decode as dk
 from repro_torch.kernels import aqua_prefill as pk
@@ -112,6 +113,81 @@ def test_prefill_kernel_matches_plain(cuda, dtype, h, kv, d, s, q_blk):
     valid = (torch.arange(s, device=cuda)[None] < lengths[:, None])[
         :, None, :, None]
     assert _within_tol(out, ref, dtype, valid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,d,s,t,q_offset,q_blk", [
+    (16, 8, 128, 300, 100, 200, 32),     # ragged last chunk (100 rows)
+    (8, 2, 64, 256, 64, 128, 16),
+    (4, 4, 32, 100, 37, 63, 8)])         # offset off the key tiles
+def test_prefill_chunk_kernel_matches_plain(cuda, dtype, h, kv, d, s, t,
+                                            q_offset, q_blk):
+    """The ``q_offset`` form: T query rows at sequence offset q_offset
+    against S keys; lane 1 ends inside the chunk."""
+    gen = torch.Generator(device="cuda").manual_seed(s + t)
+    b = 2
+    q = _rand(gen, b, t, h, d, dtype=dtype).transpose(1, 2)   # strided view
+    k = _rand(gen, b, kv, s, d, dtype=dtype)
+    v = _rand(gen, b, kv, s, d, dtype=dtype)
+    lengths = torch.tensor([s, q_offset + t // 2], dtype=torch.int32,
+                           device=cuda)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths - q_offset, 0.75, 8,
+                                             q_blk)
+    kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5,
+              q_offset=q_offset)
+    before = LAUNCHES.copy()
+    out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+    ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES - before == {"aqua_prefill": 1}
+    assert out.shape == (b, h, t, d)
+    valid = ((q_offset + torch.arange(t, device=cuda))[None]
+             < lengths[:, None])[:, None, :, None]
+    assert _within_tol(out, ref, dtype, valid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,d,s,t,q_offset,blk,kept,pin", [
+    (16, 8, 128, 512, 512, 0, 128, 2, 1),
+    (8, 2, 64, 320, 200, 120, 64, 3, 2)])    # ragged, straddling tiles
+def test_prefill_part_kernel_matches_plain(cuda, dtype, h, kv, d, s, t,
+                                           q_offset, blk, kept, pin):
+    """Participating key chunks (``chunk_participating_tiles`` on random
+    scores) against the masked-dense plain version; the identity table
+    against the dense walk, bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(s + kept)
+    b = 2
+    q = _rand(gen, b, h, t, d, dtype=dtype)
+    k = _rand(gen, b, kv, s, d, dtype=dtype)
+    v = _rand(gen, b, kv, s, d, dtype=dtype)
+    lengths = torch.tensor([s, s - 70], dtype=torch.int32, device=cuda)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths - q_offset, 0.75, 8,
+                                             blk)
+    nqc, nkc = block_idx.shape[2], -(-s // blk)
+    table = selection.chunk_participating_tiles(
+        torch.rand(b, nkc, generator=gen, device=cuda), nqc=nqc, q_blk=blk,
+        k_blk=blk, kept_tiles=kept, pin_tiles=pin, q_offset=q_offset)
+    kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5,
+              q_offset=q_offset, k_blk=blk)
+    before = LAUNCHES.copy()
+    out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths,
+                                    kc_part=table, **kw)
+    ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, kc_part=table,
+                                **kw)
+    ident = torch.arange(nkc, dtype=torch.int32, device=cuda).expand(
+        b, nqc, nkc).contiguous()
+    walk = pk.aqua_prefill_attention(q, k, v, block_idx, lengths,
+                                     kc_part=ident, **kw)
+    dense = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES - before == {"aqua_prefill_part": 2, "aqua_prefill": 1}
+    valid = ((q_offset + torch.arange(t, device=cuda))[None]
+             < lengths[:, None])[:, None, :, None]
+    assert _within_tol(out, ref, dtype, valid)
+    assert torch.equal(walk, dense)
+    with pytest.raises(ValueError):
+        pk.aqua_prefill_attention(q, k, v, block_idx, lengths,
+                                  kc_part=table, **dict(kw, k_blk=32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -256,3 +332,67 @@ def test_flash_engine_on_the_card_matches_dense_reference(cuda):
                 reqs())
         assert {u: o.tokens for u, o in got.items()} == \
             {u: o.tokens for u, o in ref.items()}
+
+
+# An int8 chunk attends its prefix dequantized from the pool, where a
+# monolithic admission attends the fresh keys (as in the JAX package), so
+# its admission logits drift: at most 1.4% of a row's largest magnitude on
+# an H100 (these weights) and 6.9% on the CPU (the CPU's weights). A page
+# scale stored 1.25x too large, or taken from the neighbouring page, moves
+# them by 34-45% of it.
+INT8_CHUNK_DRIFT = 0.15
+
+
+def _serve_with_admit_logits(eng, reqs):
+    toks, logits = {}, {}
+    for ev in eng.serve(reqs):
+        if ev.index == 0:
+            logits[ev.uid] = eng.last_admit_logits.float().clone()
+        toks.setdefault(ev.uid, []).append(ev.token)
+    return toks, logits
+
+
+def test_chunked_engine_on_the_card_matches_plain_reference(cuda):
+    """Chunked prefill (budget 32, every prompt over it) through the
+    prefill kernel's ``q_offset`` form, contiguous, paged and int8: the
+    same greedy tokens as the plain backend, and (full-precision pools)
+    as monolithic admission; the prefill kernel launches once per layer
+    per chunk. int8 admissions are held to the monolithic ones' logits
+    within ``INT8_CHUNK_DRIFT`` of each row's largest magnitude."""
+    aq = AquaConfig(k_ratio=0.75, block_dims=8, prefill_q_blk=16)
+    cfg = dataclasses.replace(reduced("qwen3-0.6b", d_model=256,
+                                      vocab=512), aqua=aq)
+    params = build_model(cfg).init(torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    proj = identity_projections(cfg.num_layers, cfg.attention.num_kv_heads,
+                                cfg.attention.head_dim)
+    reqs = lambda: poisson_trace(5, mean_interarrival=1.0,
+                                 prompt_lens=(40, 70, 100), max_new_tokens=8,
+                                 vocab_size=512, seed=4)
+    paged = CacheSpec(page_size=16, prefix_sharing=False)
+    for kw in (dict(cache=None), dict(cache=paged),
+               dict(cache=paged, quant=QuantSpec(kv_dtype="int8"))):
+        scfg = ServingConfig(max_lanes=3, max_seq=128, max_new_tokens=8,
+                             prefill_budget_tokens=32, **kw)
+        before = LAUNCHES.copy()
+        eng = ContinuousBatchingEngine(cfg, params, proj, serving=scfg)
+        got, got_logits = _serve_with_admit_logits(eng, reqs())
+        st = eng.stats
+        assert st.chunked_admissions == 5 and st.prefill_chunks > 5
+        launches = LAUNCHES - before
+        assert launches["aqua_prefill"] == cfg.num_layers * st.prefill_chunks
+        ref = ContinuousBatchingEngine(
+            cfg, params, proj, serving=scfg,
+            backend="aqua-block-sparse-plain").run(reqs())
+        assert got == {u: o.tokens for u, o in ref.items()}, kw
+        mono, mono_logits = _serve_with_admit_logits(
+            ContinuousBatchingEngine(
+                cfg, params, proj,
+                serving=dataclasses.replace(scfg, prefill_budget_tokens=None)),
+            reqs())
+        if "quant" not in kw:
+            assert got == mono, kw
+        else:
+            for u, want in mono_logits.items():
+                drift = (got_logits[u] - want).abs().max() / want.abs().max()
+                assert drift <= INT8_CHUNK_DRIFT, (u, float(drift))
