@@ -8,7 +8,10 @@ Phases, each of which raises (non-zero exit) on failure:
 1. Device: require CUDA; print the card's name and power limit, the torch
    and CUDA versions; turn TF32 off for float32 matmuls and convolutions.
 2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed as
-   set-up; one ``nvcc`` per source, in parallel).
+   set-up; one ``nvcc`` per source, in parallel); log ptxas's register
+   and spill lines, and require tensor-core instructions (HMMA or HGMMA)
+   in the SASS of the bf16 prefill and flash kernels (``cuobjdump
+   -sass``).
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes (bf16, D=128) of Qwen3-0.6B (H=16, KV=8) and of
    Llama-3.1-8B (H=32, KV=8): decode B=8, S=4096 (contiguous, and paged
@@ -22,7 +25,10 @@ Phases, each of which raises (non-zero exit) on failure:
    from ``chunk_participating_tiles`` on seeded scores; the identity table
    held against the dense walk). One JSON line per kernel and geometry:
    max abs error and the worst ratio of error to the per-element
-   tolerance, kernel / plain / library ms (CUDA events) and the bound.
+   tolerance, kernel and library ms (a CUDA graph of 20 calls replayed
+   between two CUDA events; a failed capture fails the phase), the
+   kernel's and the plain version's ms over 20 calls from Python (CUDA
+   events) and the bound.
    Planted faults must fail the same tolerance, so it is tight enough to
    catch a wrong kernel: one 256-position split of a lane dropped, one
    head's dim-block selection shifted (decode, prefill); ``q_offset`` one
@@ -107,6 +113,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """ms per call of ``iters`` calls made from Python between two CUDA
+    events: at ~0.1 ms a call this is the host's call rate, not the
+    device's time (see :func:`graph_ms`)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -119,6 +128,56 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call: ``iters`` calls captured in one CUDA graph
+    after a warm-up, replayed once untimed and once between two events,
+    so no host work lies between the launches. A failed capture raises."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def timings(kernel, plain, library, plain_iters: int = 20) -> dict:
+    """A kernel phase's times: kernel and library calls from a replayed
+    CUDA graph (``ms``, ``library_ms``), the plain version from a Python
+    loop, and the kernel's Python-loop time beside its graph time."""
+    return dict(ms=graph_ms(kernel), loop_ms=cuda_ms(kernel),
+                plain_ms=cuda_ms(plain, iters=plain_iters),
+                library_ms=graph_ms(library))
+
+
+def sass_mma_counts(lib: str) -> dict:
+    """Tensor-core instructions (HMMA or HGMMA) per kernel function in the
+    SASS of one built library, from ``cuobjdump -sass``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
 
 
 def tol_ratio(out, ref) -> float:
@@ -238,8 +297,8 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen) -> dict:
     return dict(name=name, geometry=geom, shape=dict(B=b, H=h, KV=kvh, S=s,
                                                      D=d, page_size=ps
                                                      if paged else None),
-                **check, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+                **check, **timings(kernel, plain, library), bound_ms=bms,
+                bound_by=by)
 
 
 def prefill_phase(geom: str, h: int, kvh: int, gen) -> dict:
@@ -286,8 +345,8 @@ def prefill_phase(geom: str, h: int, kvh: int, gen) -> dict:
     bms, by = bound(nbytes, ops)
     return dict(name="aqua_prefill", geometry=geom,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, q_blk=q_blk),
-                **check, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+                **check, **timings(kernel, plain, library), bound_ms=bms,
+                bound_by=by)
 
 
 def prefill_chunk_phase(geom: str, h: int, kvh: int, gen) -> dict:
@@ -353,8 +412,7 @@ def prefill_chunk_phase(geom: str, h: int, kvh: int, gen) -> dict:
                 bitwise_equal_to_monolithic=bool(torch.equal(out, mono)),
                 selection_equal_to_monolithic=bool(torch.equal(
                     full_idx[:, :, off // q_blk:], block_idx)),
-                ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+                **timings(kernel, plain, library), bound_ms=bms, bound_by=by)
 
 
 def prefill_part_phase(geom: str, h: int, kvh: int, gen) -> dict:
@@ -438,8 +496,8 @@ def prefill_part_phase(geom: str, h: int, kvh: int, gen) -> dict:
                                                                  dense)),
                 live_pair_share=pairs / (s * (s + 1) / 2),
                 phase_launches=launches,
-                ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, iters=5),
-                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+                **timings(kernel, plain, library, plain_iters=5),
+                bound_ms=bms, bound_by=by)
 
 
 def flash_phase(geom: str, h: int, kvh: int, gen) -> dict:
@@ -475,8 +533,8 @@ def flash_phase(geom: str, h: int, kvh: int, gen) -> dict:
     bms, by = bound(nbytes, ops)
     return dict(name="flash_attention", geometry=geom,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, causal=True),
-                **check, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+                **check, **timings(kernel, plain, library), bound_ms=bms,
+                bound_by=by)
 
 
 def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
@@ -600,8 +658,8 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
                            kept_pages=None if part_idx is None
                            else part_idx.shape[1],
                            kv_dtype="int8" if quant else "bf16"),
-                **check, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-                library_ms=cuda_ms(library), bound_ms=bms, bound_by=by)
+                **check, **timings(kernel, plain, library), bound_ms=bms,
+                bound_by=by)
 
 
 # ---------------------------------------------------------------------------
@@ -912,6 +970,14 @@ def main() -> int:
                 log(f"[ptxas {name}] {line.strip()}")
     log(f"build: {build_s:.1f} s")
     log_time("build")
+    # the bf16 routes of the prefill and flash kernels run on tensor cores
+    for name, fn_tag in (("aqua_prefill", "aqua_prefill_bf16"),
+                         ("flash_attention", "flash_bf16")):
+        counts = sass_mma_counts(str(_build._lib_path(name)))
+        for fn, n in counts.items():
+            log(f"[sass {name}] {fn}: {n} HMMA/HGMMA")
+        tagged = [n for fn, n in counts.items() if fn_tag in fn]
+        assert tagged and all(n > 0 for n in tagged), (name, counts)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phases = []

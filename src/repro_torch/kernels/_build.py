@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/repro_torch_kernels/`` at the repository root, at first use, then
-loaded with ``ctypes``. The library name carries a hash of the source and
-flags, so an edited source never loads a stale build. ``build_all`` starts
+loaded with ``ctypes``. The library name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header never loads a stale build. ``build_all`` starts
 one ``nvcc`` per source at once and waits for all of them.
 
 ``LAUNCHES`` counts kernel launches by the name of the TPU kernel body
@@ -46,9 +47,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    """The library of ``<name>.cu``, tagged with a hash of the source, every
+    header of ``csrc/`` and the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -98,6 +103,22 @@ def load(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def check_cp_async(what: str, *tensors) -> None:
+    """Raise ``ValueError`` unless every tensor can be copied in 16-byte
+    ``cp.async`` pieces along its last axis: a 16-byte aligned base and
+    outer strides that are whole 16-byte units (the bf16 kernels' loads;
+    the stride of an axis of size 1 is never used)."""
+    for x in tensors:
+        unit = 16 // x.element_size()
+        if x.data_ptr() % 16 or any(st % unit for st, n in
+                                    zip(x.stride()[:-1], x.shape[:-1])
+                                    if n > 1):
+            raise ValueError(f"{what} kernel needs 16-byte aligned "
+                             f"{x.dtype} views (base and outer strides), "
+                             f"got strides {x.stride()} at offset "
+                             f"{x.storage_offset()}")
 
 
 def check(err: int, what: str) -> None:

@@ -14,8 +14,11 @@ Bound on the H100: operations at serving prompt lengths (the S²/2 score
 and value products against S·(D + Dv) bytes of K̂/V per KV head). The
 kernel reads only the selected K̂ dims of each live key tile, skips tiles
 past the causal bound and past ``lengths``, and reads q/k/v through
-strides so the model's (B, S, KV, G, D) layout needs no transpose; see the
-source's header for the tiling.
+strides so the model's (B, S, KV, G, D) layout needs no transpose. bf16
+runs on the tensor cores, float32 on scalar FMAs; see the source's header
+for the tiling. The bf16 kernel copies 16-byte pieces: it needs D and Dv
+multiples of 8, D <= 256, 16-byte aligned bases and outer strides
+(``ValueError`` otherwise).
 
 Dispatch is by device: CPU tensors run :func:`aqua_prefill_plain`, CUDA
 tensors launch the kernel or raise. Launches count in
@@ -35,7 +38,7 @@ from repro_torch.kernels.ref import aqua_prefill_ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"aqua_prefill_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I,
                                 ctypes.POINTER(ctypes.c_longlong),
                                 ctypes.c_float, _I, _P, _I, _I, _I, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,6 +88,11 @@ def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
         if x.device != dev or x.stride(-1) != 1:
             raise ValueError("aqua_prefill kernel needs q/k/v on one CUDA "
                              "device with a contiguous last axis")
+    if q_hat.dtype == torch.bfloat16:
+        if d % 8 or d > 256 or dv % 8:
+            raise ValueError(f"aqua_prefill bf16 kernel needs D and Dv "
+                             f"multiples of 8 and D <= 256, got {d}, {dv}")
+        _build.check_cp_async("aqua_prefill", q_hat, khat, v)
     for x in (block_idx, lengths) + (() if kc_part is None else (kc_part,)):
         if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError("block_idx, lengths and kc_part must be "
@@ -101,7 +109,7 @@ def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
         err = lib.aqua_prefill_launch(
             q_hat.data_ptr(), khat.data_ptr(), v.data_ptr(),
             block_idx.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
-            kvh, t, s, q_offset, dv, nb_sel, block_dims, q_blk, nqc,
+            kvh, t, s, q_offset, d, dv, nb_sel, block_dims, q_blk, nqc,
             _rows_per_block(q_blk), strides, float(scale), int(causal),
             None if kc_part is None else kc_part.data_ptr(),
             0 if kc_part is None else kc_part.shape[2], k_blk,

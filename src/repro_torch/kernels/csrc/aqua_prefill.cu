@@ -5,44 +5,284 @@
 // _part_kernel (only each q-tile's participating key chunks, hierarchical
 // AQUA's prefill stage). Causal block attention in which every query of a
 // q_blk chunk shares the chunk's NB_sel dim-blocks selected from its summed
-// |q̂|. Keys at or past lengths[b] are masked; no sliding window.
+// |q̂|. Keys at or past lengths[b] are masked; no sliding window. A lane
+// with lengths[b] = 0 writes zeros (don't-care rows).
 //
 // Chunk-resumable form (q_offset): the T query rows are sequence positions
 // [q_offset, q_offset + T) attending the S keys [0, S), q_offset + T <= S.
 // Selection tiles anchor at the first query row (block_idx and kc_part
 // index chunk-local q_blk tiles), the causal bound of a row is its global
-// position. A q_blk-aligned chunk walks exactly the key tiles the matching
-// rows of the monolithic call walk, in the same order.
+// position. A chunk whose q_offset is a multiple of 128 has the same
+// 128-row blocks as the monolithic call, which walk the same key tiles in
+// the same order: its rows are bitwise the monolithic rows.
 //
 // Layout: q (B, H, T, D), k (B, KV, S, D), v (B, KV, S, Dv) addressed by
 // element strides of their batch, head and sequence axes (the innermost
 // dim must be contiguous), so the model's (B, S, KV, G, D) tensors are read
 // in place without a transpose. out (B, H, T, Dv) is written the same way.
 //
-// Bound on the H100: operations at this size (S = 2048: ~S²/2 · H ·
-// (NB_sel·bd + Dv) multiply-adds against ~S · KV · (D + Dv) bytes read).
-// Design, simple first: one block of 128 threads per (b, h, QR query rows),
-// QR in {8, 16, 32} dividing q_blk so the rows share one selection. The
-// block walks 64-key tiles up to its causal bound (tiles past the last row
-// or past lengths[b] are skipped, as the TPU kernel skips dead tiles), stages
-// the tile's selected K̂ dims (k_ratio of the K̂ bytes) and its V rows in
-// shared memory as float32, computes the QR x 64 scores with float32 FMAs
-// on register tiles, runs the online softmax one row per thread and
-// accumulates the QR x Dv output on register tiles. bd = 8 is below the
-// tensor cores' MMA depth; they are later work. A lane with lengths[b] = 0
-// writes zeros (don't-care rows).
+// Bound on the H100: operations at serving prompt lengths (S = 2048: ~S²/2
+// · H · (NB_sel·bd + Dv) multiply-adds against ~S · KV · (D + Dv) bytes).
+//
+// bf16 route (every full-size drive), on the tensor cores: one block of
+// 256 threads (two warpgroups, 8 warps x 16 rows) per (b, h, 128 query
+// rows), the machinery of attn_tile.cuh (wgmma for Q̂·K̂ᵀ and P·V, P split
+// into two bf16 terms, the online softmax in registers); both warpgroups
+// read each staged key tile. A block gathers the sorted union of the 8-dim
+// chunks holding a dim selected by the q_blk tiles it covers (one tile's
+// selection when q_blk % 128 == 0 and bd % 8 == 0, as on every served
+// full-size path); each Q̂ row is staged with zeros in the union's dims its
+// own tile did not select (zero products add exactly 0), padded to a
+// depth multiple of 16, then held in registers. The K̂ tile is one 16-byte
+// cp.async per (key, chunk), packed into a dense 64 x depth tile: only the
+// selected chunks are read. K̂ and V tiles go through a three-stage
+// cp.async ring, and P·V of one tile overlaps the scores and softmax of the
+// next (attn_tile.cuh's walk). The walk visits 64-key tiles in ascending
+// order up to the block's causal bound and lengths[b]; blocks are issued
+// heaviest (last rows) first. bf16 needs D % 8 == 0, D <= 256, 16-byte
+// aligned bases and outer strides % 8 == 0 (the wrapper checks).
+//
+// float32 route (the reduced configs of the tests, held at 1e-5, which
+// TF32 tensor cores cannot hold): the first design, scalar f32 FMAs on
+// register tiles. One block of 128 threads per (b, h, QR query rows), QR in
+// {8, 16, 32} dividing q_blk so the rows share one selection; the block
+// stages the tile's selected K̂ dims and V rows in shared memory as f32 and
+// runs the online softmax one row per thread.
 //
 // kPart: kc_part (B, NQC, KT) lists each q-tile's participating k_blk-key
-// chunks, ascending (-1 = none). The block reads its own q-tile's list and
-// walks each listed chunk as k_blk / 64 tiles (k_blk % 64 == 0); the
-// masks use the logical key positions, so dropped chunks cost no bytes and
-// the identity list walks exactly the tiles of the dense walk.
+// chunks, ascending (-1 = none), k_blk % 64 == 0. The bf16 block marks, per
+// key chunk, which of its q-tiles list it, visits the 64-key tiles of the
+// marked chunks in ascending order and masks each row by its own tile's
+// mark; the f32 block walks its q-tile's list. Masks use the logical key
+// positions, so dropped chunks cost no bytes and the identity list walks
+// exactly the tiles of the dense walk (bitwise equal).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <algorithm>
+
+#include "attn_tile.cuh"
 
 namespace {
+
+using attn_tile::bf16;
+using attn_tile::Strides;
+
+struct Part {
+  const int* kc_part;  // (B, NQC, KT) participating key chunks, or null
+  int kt, k_blk;
+};
+
+struct Args {
+  const void *q, *k, *v;
+  const int *block_idx, *lengths;
+  void* out;
+  int B, H, KV, Tq, S, q_offset, D, Dv, nb_sel, bd, q_blk, nqc;
+  Strides qs, ks, vs, os;
+  float scale;
+  int causal;
+  Part part;
+  cudaStream_t st;
+};
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+template <bool kPart>
+__global__ void __launch_bounds__(attn_tile::kThreads) aqua_prefill_bf16(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ block_idx, const int* __restrict__ lengths, bf16* __restrict__ out,
+    int H, int KV, int Tq, int S, int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc,
+    Strides qst, Strides kst, Strides vst, Strides ost, float scale_log2, int causal, Part part,
+    int kstage, int ncv) {
+  using namespace attn_tile;
+  // heaviest blocks first (the last rows walk the most key tiles), heads
+  // fastest: a causal grid's long blocks do not start last
+  const int h = blockIdx.x % H, tile = gridDim.x / H - 1 - blockIdx.x / H;
+  const int b = blockIdx.z, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int kv = h / (H / KV);
+  const int row0 = tile * kRows;
+  const int rlast = min(row0 + kRows, Tq) - 1;
+  const int t_first = row0 / q_blk;                 // the q_blk tiles this block covers
+  const int ntile = rlast / q_blk - t_first + 1;    // <= 16: q_blk >= 8
+  const int nkc = kPart ? (S + part.k_blk - 1) / part.k_blk : 0;
+
+  // three stages of K̂ and V tiles (kstage and kKeys x ncv chunks each), Q̂
+  // staged once (kRows rows, as wide as a K̂ stage)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + 3 * kstage;
+  const int vstage = kKeys * ncv * 8;
+  bf16* Qs = Vs + 3 * vstage;
+  // kPart: half-word c of the array (2 per word) marks which of the
+  // block's q-tiles list key chunk c
+  uint32_t* marks = reinterpret_cast<uint32_t*>(Qs + kstage * kRows / kKeys);
+  __shared__ uint32_t tile_dims[16][8];  // per covered q-tile: its selected dims
+  __shared__ uint32_t union_chunks;      // 8-dim chunks holding a selected dim
+  __shared__ int uc[32];               // union position -> 8-dim chunk
+
+  if (tid < 16 * 8) tile_dims[tid / 8][tid % 8] = 0;
+  if (tid == 0) union_chunks = 0;
+  if (kPart)
+    for (int e = tid; e < (nkc + 1) / 2; e += kThreads) marks[e] = 0;
+  __syncthreads();
+  auto bits = [](int lo, int hi) {  // bits [lo, hi) of a word, 0 <= lo < hi <= 32
+    return (hi == 32 ? ~0u : (1u << hi) - 1) & ~((1u << lo) - 1);
+  };
+  const int* idx = block_idx + (((int64_t)b * H + h) * nqc + t_first) * nb_sel;
+  for (int e = tid; e < ntile * nb_sel; e += kThreads) {
+    const int d0 = idx[e] * bd, d1 = d0 + bd;  // the block's dims [d0, d1)
+    for (int w = d0 / 32; w * 32 < d1; ++w)
+      atomicOr(&tile_dims[e / nb_sel][w], bits(max(d0, 32 * w) - 32 * w, min(d1, 32 * w + 32) - 32 * w));
+    atomicOr(&union_chunks, bits(d0 / 8, (d1 + 7) / 8));
+  }
+  if (kPart) {
+    const int* parts = part.kc_part + ((int64_t)b * nqc + t_first) * part.kt;
+    for (int e = tid; e < ntile * part.kt; e += kThreads) {
+      const int kc = parts[e];
+      if (kc >= 0 && kc < nkc) atomicOr(&marks[kc >> 1], 1u << ((kc & 1) * 16 + e / part.kt));
+    }
+  }
+  __syncthreads();
+  const uint32_t um = union_chunks;
+  const int nu = __popc(um);                  // union width in 8-dim chunks
+  const int nks = (nu + 1) / 2, nck = 2 * nks;  // k-steps of 16 dims
+  const int nvt = Dv / 8;
+  if (tid < 32 && ((um >> tid) & 1)) uc[__popc(um & ((1u << tid) - 1))] = tid;
+  if (nu & 1) zero_chunk(Qs, nck, nu, kRows);
+  for (int st = 0; st < 3; ++st) {            // padding: zeros
+    if (nu & 1) zero_chunk(Ks + st * kstage, nck, nu, kKeys);
+    for (int c = nvt; c < ncv; ++c) zero_chunk(Vs + st * vstage, ncv, c, kKeys);
+  }
+  __syncthreads();
+
+  const bf16* kb = k + b * kst.b + kv * kst.h;
+  const bf16* vb = v + b * vst.b + kv * vst.h;
+  auto load_tile = [&](int j, int stage) {
+    const int k0 = j * kKeys;
+    bf16* ks = Ks + stage * kstage;
+    for_chunks(kKeys, nu, [&](int kk, int u) {
+      const int pos = k0 + kk;
+      const bool ok = pos < S;
+      cp_async16(ks + il(kk, u, nck), ok ? kb + pos * kst.s + uc[u] * 8 : kb, ok ? 16 : 0);
+    });
+    bf16* vs = Vs + stage * vstage;
+    for_chunks(kKeys, nvt, [&](int kk, int c) {
+      const int pos = k0 + kk;
+      const bool ok = pos < S;
+      cp_async16(vs + il(kk, c, ncv), ok ? vb + pos * vst.s + c * 8 : vb, ok ? 16 : 0);
+    });
+  };
+
+  const int klim = min(lengths[b], S);
+  const int kend = causal ? min(klim, q_offset + rlast + 1) : klim;
+  const int ntk = kend > 0 ? (kend + kKeys - 1) / kKeys : 0;
+  auto chunk_marks = [&](int j) -> uint32_t {
+    const int c = j * kKeys / part.k_blk;
+    return (marks[c >> 1] >> ((c & 1) * 16)) & 0xffffu;
+  };
+  auto live = [&](int j) { return !kPart || chunk_marks(j) != 0; };
+  auto next = [&](int j) {
+    do ++j;
+    while (j < ntk && !live(j));
+    return j;
+  };
+
+  // Q̂ rows: each row's own tile's selected dims, zeros in the rest of the
+  // union; staged with the first key tile, then held in registers. A chunk
+  // wholly in or out of the tile's selection is one cp.async (always so
+  // when bd % 8 == 0); one partly in is loaded, masked and stored.
+  const bf16* qb = q + b * qst.b + h * qst.h;
+  for_chunks(kRows, nu, [&](int r, int u) {
+    const int c = uc[u], row = row0 + r;
+    const uint32_t sel =
+        row < Tq ? (tile_dims[row / q_blk - t_first][c / 4] >> (c % 4 * 8)) & 0xffu : 0u;
+    bf16* dst = Qs + il(r, u, nck);
+    const bf16* src = qb + row * qst.s + c * 8;
+    if (sel == 0xffu || sel == 0u) {
+      cp_async16(dst, sel ? src : qb, sel ? 16 : 0);
+    } else {
+      uint4 x = *reinterpret_cast<const uint4*>(src);
+      uint16_t* e = reinterpret_cast<uint16_t*>(&x);
+      for (int i = 0; i < 8; ++i)
+        if (!((sel >> i) & 1)) e[i] = 0;
+      *reinterpret_cast<uint4*>(dst) = x;
+    }
+  });
+
+  const int g = lane >> 2;
+  const int rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+  const int qpos[2] = {q_offset + rows[0], q_offset + rows[1]};
+  // bit of each row's q-tile in a chunk's marks (rows past Tq: any bit)
+  const int rbit[2] = {min(rows[0], rlast) / q_blk - t_first,
+                       min(rows[1], rlast) / q_blk - t_first};
+  const int warp_first = q_offset + row0 + warp * 16;
+  // this warp's rows see keys past klim or the diagonal, or a chunk some
+  // row's tile drops (a tile wholly masked for a row adds exactly nothing)
+  auto masked = [&](int j) {
+    const int k0 = j * kKeys;
+    return kPart || k0 + kKeys > klim || (causal && k0 + kKeys - 1 > warp_first);
+  };
+  auto valid = [&](int j, int r, int kk) {
+    const int kp = j * kKeys + kk;
+    return (!kPart || ((chunk_marks(j) >> rbit[r]) & 1)) && kp < klim &&
+           (!causal || qpos[r] >= kp);
+  };
+
+  float o[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  walk(live(0) ? 0 : next(0), ntk, next, load_tile, masked, valid, Qs, nks, Ks, kstage, Vs,
+       vstage, ncv, scale_log2, o, m, l);
+  store_rows(out + b * ost.b + h * ost.h, ost.s, rows, Tq, nvt, o, l);
+}
+
+// Widest union of 8-dim chunks holding a selected dim that a block of
+// kRows rows can gather, padded to a whole k-step (an even count): one
+// tile's selection when q_blk % kRows == 0.
+int union_chunks(const Args& a) {
+  const int tiles = a.q_blk % attn_tile::kRows == 0 ? 1 : attn_tile::kRows / a.q_blk + 2;
+  // chunks one dim-block can touch
+  const int per = a.bd % 8 == 0 ? a.bd / 8 : 8 % a.bd == 0 ? 1 : a.bd / 8 + 2;
+  const int chunks = std::min(a.D / 8, std::min(tiles, a.nqc) * a.nb_sel * per);
+  return (chunks + 1) / 2 * 2;
+}
+
+template <bool kPart>
+int launch_bf16(const Args& a) {
+  using namespace attn_tile;
+  static int done[16] = {0};
+  // K̂ stages as wide as the widest union, V stages in 64-wide slices
+  const int kstage = kKeys * union_chunks(a) * 8, ncv = (a.Dv + 63) / 64 * 8;
+  const int nkc = kPart ? (a.S + a.part.k_blk - 1) / a.part.k_blk : 0;
+  const int bytes = (3 * (kstage + kKeys * ncv * 8) + kstage * kRows / kKeys) * (int)sizeof(bf16) +
+                    (nkc + 1) / 2 * 4;
+  cudaError_t err = allow_smem(aqua_prefill_bf16<kPart>, bytes, done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.Tq + kRows - 1) / kRows * a.H, 1, a.B);
+  aqua_prefill_bf16<kPart><<<grid, kThreads, bytes, a.st>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, a.block_idx, a.lengths,
+      (bf16*)a.out, a.H, a.KV, a.Tq, a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc,
+      a.qs, a.ks, a.vs, a.os, a.scale * kLog2e, a.causal, a.part, kstage, ncv);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_bf16(const Args& a) {
+  if (a.bd <= 0 || a.D % 8 != 0 || a.D > 256 || a.Dv % 8 != 0 ||
+      a.Dv > attn_tile::kMaxDv || a.q_blk % 8 != 0 ||
+      union_chunks(a) * 8 > attn_tile::kMaxDepth)
+    return (int)cudaErrorInvalidValue;
+  return a.part.kc_part != nullptr ? launch_bf16<true>(a) : launch_bf16<false>(a);
+}
+
+// ---------------------------------------------------------------------------
+// float32: scalar FMAs
+// ---------------------------------------------------------------------------
+
+namespace f32 {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
@@ -50,33 +290,16 @@ constexpr int kKT = 64;          // keys per tile
 constexpr int kMaxSel = 128;     // NB_sel * bd
 constexpr int kMaxDv = kThreads;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-struct Strides {
-  long long b, h, s;
-};
-
 __host__ __device__ constexpr int smem_floats(int qr, int nsel, int dv) {
   // Qs[qr][nsel+1] + Ks[KT][nsel+1] + Vs[KT][dv] + Ss[qr][KT+1] + M, L, C
   return qr * (nsel + 1) + kKT * (nsel + 1) + kKT * dv + qr * (kKT + 1) + 3 * qr;
 }
 
-struct Part {
-  const int* kc_part;  // (B, NQC, KT) participating key chunks, or null
-  int kt, k_blk;
-};
-
-template <typename T, int QR, bool kPart>
-__global__ void __launch_bounds__(kThreads) aqua_prefill_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+template <int QR, bool kPart>
+__global__ void __launch_bounds__(kThreads) aqua_prefill_f32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ block_idx, const int* __restrict__ lengths,
-    T* __restrict__ out, int H, int KV, int Tq, int S, int q_offset, int Dv,
+    float* __restrict__ out, int H, int KV, int Tq, int S, int q_offset, int Dv,
     int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides kst,
     Strides vst, Strides ost, float scale, int causal, Part part) {
   // Register tiles: each thread scores RM rows x 4 keys (16 key groups x 8
@@ -109,17 +332,17 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_kernel(
   }
   __syncthreads();
 
-  const T* qb = q + b * qst.b + h * qst.h;
+  const float* qb = q + b * qst.b + h * qst.h;
   for (int e = t; e < QR * nsel; e += kThreads) {
     const int r = e / nsel, c = e % nsel;
-    Qs[r * str + c] = row0 + r < Tq ? to_f(qb[(row0 + r) * qst.s + dim[c]]) : 0.f;
+    Qs[r * str + c] = row0 + r < Tq ? qb[(row0 + r) * qst.s + dim[c]] : 0.f;
   }
 
   const int len = lengths[b];
   int kend = min(len, S);
   if (causal) kend = min(kend, q_offset + row0 + QR);
-  const T* kb = k + b * kst.b + kv * kst.h;
-  const T* vb = v + b * vst.b + kv * vst.h;
+  const float* kb = k + b * kst.b + kv * kst.h;
+  const float* vb = v + b * vst.b + kv * vst.h;
   const int srg = t / 16, skg = t % 16;   // score tile: rows srg*RM.., keys skg+16j
   const int prg = t / 32, pdg = t % 32;   // value tile: rows prg*RP.., dims pdg+32j
   float acc[RP][4];
@@ -146,12 +369,12 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_kernel(
     for (int e = t; e < kKT * nsel; e += kThreads) {
       const int kk = e / nsel, c = e % nsel;
       const int pos = k0 + kk;
-      Ks[kk * str + c] = pos < S ? to_f(kb[pos * kst.s + dim[c]]) : 0.f;
+      Ks[kk * str + c] = pos < S ? kb[pos * kst.s + dim[c]] : 0.f;
     }
     for (int e = t; e < kKT * Dv; e += kThreads) {
       const int kk = e / Dv, d = e % Dv;
       const int pos = k0 + kk;
-      Vs[e] = pos < S ? to_f(vb[pos * vst.s + d]) : 0.f;
+      Vs[e] = pos < S ? vb[pos * vst.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -225,7 +448,7 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_kernel(
     __syncthreads();  // Ks / Vs / Ss are rewritten by the next tile
   }
 
-  T* ob = out + b * ost.b + h * ost.h;
+  float* ob = out + b * ost.b + h * ost.h;
 #pragma unroll
   for (int i = 0; i < RP; ++i) {
     const int r = prg * RP + i;
@@ -234,82 +457,67 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int d = pdg + 32 * j;
-      if (d < Dv) ob[(row0 + r) * ost.s + d] = from_f<T>(acc[i][j] / denom);
+      if (d < Dv) ob[(row0 + r) * ost.s + d] = acc[i][j] / denom;
     }
   }
 }
 
-template <typename T, int QR, bool kPart>
-int launch(const void* q, const void* k, const void* v, const int* block_idx,
-           const int* lengths, void* out, int B, int H, int KV, int Tq, int S,
-           int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc, Strides qs,
-           Strides ks, Strides vs, Strides os, float scale, int causal, Part part,
-           cudaStream_t st) {
-  const int bytes = smem_floats(QR, nb_sel * bd, Dv) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(aqua_prefill_kernel<T, QR, kPart>,
+
+template <int QR, bool kPart>
+int launch(const Args& a) {
+  const int bytes = smem_floats(QR, a.nb_sel * a.bd, a.Dv) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(aqua_prefill_f32<QR, kPart>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + QR - 1) / QR, H, B);
-  aqua_prefill_kernel<T, QR, kPart><<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, block_idx, lengths, (T*)out, H, KV, Tq, S,
-      q_offset, Dv, nb_sel, bd, q_blk, nqc, qs, ks, vs, os, scale, causal, part);
+  const dim3 grid((a.Tq + QR - 1) / QR, a.H, a.B);
+  aqua_prefill_f32<QR, kPart><<<grid, kThreads, bytes, a.st>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, a.block_idx, a.lengths,
+      (float*)a.out, a.H, a.KV, a.Tq, a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc,
+      a.qs, a.ks, a.vs, a.os, a.scale, a.causal, a.part);
   return (int)cudaGetLastError();
 }
 
-struct Args {
-  const void *q, *k, *v;
-  const int *block_idx, *lengths;
-  void* out;
-  int B, H, KV, Tq, S, q_offset, Dv, nb_sel, bd, q_blk, nqc;
-  Strides qs, ks, vs, os;
-  float scale;
-  int causal;
-  Part part;
-  cudaStream_t st;
-};
-
-template <typename T, int QR>
+template <int QR>
 int dispatch_part(const Args& a) {
-  if (a.part.kc_part != nullptr)
-    return launch<T, QR, true>(a.q, a.k, a.v, a.block_idx, a.lengths, a.out, a.B, a.H, a.KV,
-                               a.Tq, a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc,
-                               a.qs, a.ks, a.vs, a.os, a.scale, a.causal, a.part, a.st);
-  return launch<T, QR, false>(a.q, a.k, a.v, a.block_idx, a.lengths, a.out, a.B, a.H, a.KV,
-                              a.Tq, a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc,
-                              a.qs, a.ks, a.vs, a.os, a.scale, a.causal, a.part, a.st);
+  return a.part.kc_part != nullptr ? launch<QR, true>(a) : launch<QR, false>(a);
 }
 
-template <typename T>
-int dispatch_rows(int qr, const Args& a) {
+int dispatch(int qr, const Args& a) {
+  if (a.nb_sel * a.bd > kMaxSel || a.Dv > kMaxDv || a.q_blk % qr != 0)
+    return (int)cudaErrorInvalidValue;
   switch (qr) {
     case 32:
-      return dispatch_part<T, 32>(a);
+      return dispatch_part<32>(a);
     case 16:
-      return dispatch_part<T, 16>(a);
+      return dispatch_part<16>(a);
     case 8:
-      return dispatch_part<T, 8>(a);
+      return dispatch_part<8>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+}  // namespace f32
+
 }  // namespace
 
 // Strides are in elements: {batch, head, seq} of q, k, v and out. Tq query
-// rows at sequence offset q_offset attend S keys. qr is the number of query
-// rows per block (8, 16 or 32, dividing q_blk). kc_part: null, or (B, nqc,
-// kt) int32 participating key chunks of k_blk keys (k_blk % 64 == 0).
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// rows at sequence offset q_offset attend S keys; D is q̂'s and K̂'s head
+// dim. qr is the float32 route's number of query rows per block (8, 16 or
+// 32, dividing q_blk). kc_part: null, or (B, nqc, kt) int32 participating
+// key chunks of k_blk keys (k_blk % 64 == 0). dtype: 0 = float32, 1 =
+// bfloat16. Returns the cudaError_t of the launch.
 extern "C" int aqua_prefill_launch(const void* q, const void* k, const void* v,
                                    const void* block_idx, const void* lengths, void* out,
-                                   int B, int H, int KV, int Tq, int S, int q_offset, int Dv,
-                                   int nb_sel, int bd, int q_blk, int nqc, int qr,
+                                   int B, int H, int KV, int Tq, int S, int q_offset, int D,
+                                   int Dv, int nb_sel, int bd, int q_blk, int nqc, int qr,
                                    const long long* strides, float scale, int causal,
                                    const void* kc_part, int kt, int k_blk, int dtype,
                                    void* stream) {
-  if (nb_sel * bd > kMaxSel || Dv > kMaxDv || H % KV != 0 || q_blk % qr != 0 ||
-      q_offset < 0 || q_offset + Tq > S || (kc_part != nullptr && (k_blk <= 0 || k_blk % kKT != 0)))
+  if (H % KV != 0 || q_offset < 0 || q_offset + Tq > S ||
+      (kc_part != nullptr && (k_blk <= 0 || k_blk % attn_tile::kKeys != 0)))
     return (int)cudaErrorInvalidValue;
+  if (B == 0 || Tq == 0) return (int)cudaSuccess;
   Args a;
   a.q = q;
   a.k = k;
@@ -323,6 +531,7 @@ extern "C" int aqua_prefill_launch(const void* q, const void* k, const void* v,
   a.Tq = Tq;
   a.S = S;
   a.q_offset = q_offset;
+  a.D = D;
   a.Dv = Dv;
   a.nb_sel = nb_sel;
   a.bd = bd;
@@ -336,6 +545,6 @@ extern "C" int aqua_prefill_launch(const void* q, const void* k, const void* v,
   a.causal = causal;
   a.part = Part{(const int*)kc_part, kt, k_blk};
   a.st = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch_rows<float>(qr, a);
-  return dispatch_rows<__nv_bfloat16>(qr, a);
+  if (dtype == 0) return f32::dispatch(qr, a);
+  return dispatch_bf16(a);
 }

@@ -15,20 +15,151 @@
 // tensors are read in place without a transpose.
 //
 // Bound on the H100: operations at prompt lengths (S = 2048: ~S²/2 · H ·
-// 2D multiply-adds against ~S · KV · 2D bytes of K and V). Design, simple
-// first (the same tiling as aqua_prefill.cu, with every dim): one block of
-// 128 threads per (b, h, QR = 32 query rows). The block walks 64-key tiles
-// from the window's first tile to its causal bound, stages the tile's K
-// and V rows in shared memory as float32, computes the QR x 64 scores with
-// float32 FMAs on register tiles, runs the online softmax one row per
-// thread and accumulates the QR x D output on register tiles. Tensor
-// cores (mma.sync / wgmma) are later work.
+// 2D multiply-adds against ~S · KV · 2D bytes of K and V).
+//
+// bf16 route (every full-size drive), on the tensor cores: one block of
+// 256 threads (two warpgroups, 8 warps x 16 rows) per 128 query rows: the
+// same 64 rows of two heads of one KV group when the group size is even
+// (a 64-row causal bound), else 128 rows of one head; the machinery of
+// attn_tile.cuh (wgmma for Q·Kᵀ and P·V, P split into two bf16 terms, the
+// online softmax in registers); both warpgroups read each staged key tile.
+// Q is staged once and held in registers; K and V 64-key tiles go through
+// a three-stage ring of 16-byte cp.async copies, and P·V of one tile
+// overlaps the scores and softmax of the next (attn_tile.cuh's walk). The
+// block walks the tiles from its window's first tile to its causal bound;
+// blocks are issued heaviest (last rows) first. D is padded with zeros to
+// a multiple of 16 for Q·Kᵀ and of 64 for P·V. bf16 needs D % 8 == 0,
+// 16-byte aligned bases and outer strides % 8 == 0 (the wrapper checks).
+//
+// float32 route (the reduced configs of the tests, held at 1e-5, which
+// TF32 tensor cores cannot hold): the first design, scalar f32 FMAs on
+// register tiles, one block of 128 threads per (b, h, 32 query rows), the
+// online softmax one row per thread.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attn_tile.cuh"
 
 namespace {
+
+using attn_tile::bf16;
+using attn_tile::Strides;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(attn_tile::kThreads) flash_bf16(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ out, int H, int KV, int S, int D, Strides qst, Strides kst, Strides vst,
+    Strides ost, float scale_log2, int causal, int window, int ncv, int hpb) {
+  using namespace attn_tile;
+  // A block holds hpb heads of one KV group (2 when the group size is
+  // even) x rpb = kRows / hpb rows each: a 64-row causal granularity with
+  // 128 rows per key tile. Heaviest blocks first (the last rows walk the
+  // most key tiles), head groups fastest: a causal grid's long blocks do
+  // not start last.
+  const int rpb = kRows / hpb, ng = H / hpb;
+  const int h0 = blockIdx.x % ng * hpb, tile = gridDim.x / ng - 1 - blockIdx.x / ng;
+  const int b = blockIdx.z, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int kv = h0 / (H / KV);
+  const int row0 = tile * rpb;
+  const int rlast = min(row0 + rpb, S) - 1;
+  const int nd = D / 8;                       // 8-dim chunks
+  const int nks = (nd + 1) / 2, nck = 2 * nks;  // 16-dim steps of Q·Kᵀ
+
+  // three stages of K tiles (kKeys x nck chunks) and V tiles (kKeys x
+  // ncv), Q staged once (kRows x nck)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int kstage = kKeys * nck * 8, vstage = kKeys * ncv * 8;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + 3 * kstage;
+  bf16* Qs = Vs + 3 * vstage;
+  if (nd & 1) zero_chunk(Qs, nck, nd, kRows);
+  for (int st = 0; st < 3; ++st) {            // padding: zeros
+    if (nd & 1) zero_chunk(Ks + st * kstage, nck, nd, kKeys);
+    for (int c = nd; c < ncv; ++c) zero_chunk(Vs + st * vstage, ncv, c, kKeys);
+  }
+
+  const bf16* kb = k + b * kst.b + kv * kst.h;
+  const bf16* vb = v + b * vst.b + kv * vst.h;
+  auto load_tile = [&](int j, int stage) {
+    const int k0 = j * kKeys;
+    bf16* ks = Ks + stage * kstage;
+    bf16* vs = Vs + stage * vstage;
+    for_chunks(kKeys, nd, [&](int kk, int c) {
+      const int pos = k0 + kk;
+      const bool ok = pos < S;
+      cp_async16(ks + il(kk, c, nck), ok ? kb + pos * kst.s + c * 8 : kb, ok ? 16 : 0);
+      cp_async16(vs + il(kk, c, ncv), ok ? vb + pos * vst.s + c * 8 : vb, ok ? 16 : 0);
+    });
+  };
+
+  // key tiles this block can see: [jbeg, jend)
+  const int kend = causal ? rlast + 1 : S;
+  const int jbeg = window > 0 ? max(0, row0 - window + 1) / kKeys : 0;
+  const int jend = (kend + kKeys - 1) / kKeys;
+
+  // Q (block row r: head h0 + r / rpb, sequence row row0 + r % rpb),
+  // staged with the first key tile, then held in registers
+  const bf16* qb = q + b * qst.b + h0 * qst.h;
+  for_chunks(kRows, nd, [&](int r, int c) {
+    const int row = row0 + r % rpb;
+    const bool ok = row < S;
+    const bf16* src = qb + r / rpb * qst.h + row * qst.s + c * 8;
+    cp_async16(Qs + il(r, c, nck), ok ? src : qb, ok ? 16 : 0);
+  });
+
+  const int g = lane >> 2;
+  const int h = h0 + warp * 16 / rpb;          // this warp's head and rows
+  const int warp_first = row0 + warp * 16 % rpb;
+  const int rows[2] = {warp_first + g, warp_first + g + 8};
+  const int warp_last = min(warp_first + 15, rlast);
+  // this warp's rows see keys past S or the diagonal, or before some row's
+  // window (a tile wholly masked for a row adds exactly nothing)
+  auto masked = [&](int j) {
+    const int k0 = j * kKeys;
+    return k0 + kKeys > S || (causal && k0 + kKeys - 1 > warp_first) ||
+           (window > 0 && k0 <= warp_last - window);
+  };
+  auto valid = [&](int j, int r, int kk) {
+    const int kp = j * kKeys + kk;
+    return kp < S && (!causal || rows[r] >= kp) && (window <= 0 || kp > rows[r] - window);
+  };
+
+  float o[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  walk(jbeg, jend, [](int j) { return j + 1; }, load_tile, masked, valid, Qs, nks, Ks, kstage,
+       Vs, vstage, ncv, scale_log2, o, m, l);
+  store_rows(out + b * ost.b + h * ost.h, ost.s, rows, S, nd, o, l);
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
+                int S, int D, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                int causal, int window, cudaStream_t st) {
+  using namespace attn_tile;
+  static int done[16] = {0};
+  if (D % 8 != 0 || D > kMaxDepth) return (int)cudaErrorInvalidValue;
+  const int nck = (D / 8 + 1) / 2 * 2, ncv = (D + 63) / 64 * 8;
+  const int bytes = (3 * kKeys * (nck + ncv) + kRows * nck) * 8 * (int)sizeof(bf16);
+  cudaError_t err = allow_smem(flash_bf16, bytes, done);
+  if (err != cudaSuccess) return (int)err;
+  const int hpb = (H / KV) % 2 == 0 ? 2 : 1, rpb = kRows / hpb;
+  const dim3 grid((S + rpb - 1) / rpb * (H / hpb), 1, B);
+  flash_bf16<<<grid, kThreads, bytes, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                            (bf16*)out, H, KV, S, D, qs, ks, vs, os,
+                                            scale * kLog2e, causal, window, ncv, hpb);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: scalar FMAs
+// ---------------------------------------------------------------------------
+
+namespace f32 {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
@@ -36,27 +167,14 @@ constexpr int kKT = 64;        // keys per tile
 constexpr int kQR = 32;        // query rows per block
 constexpr int kMaxD = kThreads;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-struct Strides {
-  long long b, h, s;
-};
-
 __host__ __device__ constexpr int smem_floats(int d) {
   // Qs[QR][D+1] + Ks[KT][D+1] + Vs[KT][D] + Ss[QR][KT+1] + M, L, C
   return kQR * (d + 1) + kKT * (d + 1) + kKT * d + kQR * (kKT + 1) + 3 * kQR;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int H, int KV, int S, int D, Strides qst, Strides kst,
+__global__ void __launch_bounds__(kThreads) flash_f32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, int H, int KV, int S, int D, Strides qst, Strides kst,
     Strides vst, Strides ost, float scale, int causal, int window) {
   // Register tiles: each thread scores RM rows x 4 keys (16 key groups x 8
   // row groups) and accumulates RP rows x 4 output dims (32 dim groups x 4
@@ -82,10 +200,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     M[t] = kNegInf;
     L[t] = 0.f;
   }
-  const T* qb = q + b * qst.b + h * qst.h;
+  const float* qb = q + b * qst.b + h * qst.h;
   for (int e = t; e < kQR * D; e += kThreads) {
     const int r = e / D, c = e % D;
-    Qs[r * str + c] = row0 + r < S ? to_f(qb[(row0 + r) * qst.s + c]) : 0.f;
+    Qs[r * str + c] = row0 + r < S ? qb[(row0 + r) * qst.s + c] : 0.f;
   }
   __syncthreads();
 
@@ -93,8 +211,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   int kend = causal ? min(S, row0 + kQR) : S;
   int kbeg = 0;
   if (window > 0) kbeg = max(0, row0 - window + 1) / kKT * kKT;
-  const T* kb = k + b * kst.b + kv * kst.h;
-  const T* vb = v + b * vst.b + kv * vst.h;
+  const float* kb = k + b * kst.b + kv * kst.h;
+  const float* vb = v + b * vst.b + kv * vst.h;
   const int srg = t / 16, skg = t % 16;   // score tile: rows srg*RM.., keys skg+16j
   const int prg = t / 32, pdg = t % 32;   // value tile: rows prg*RP.., dims pdg+32j
   float acc[RP][4];
@@ -107,8 +225,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     for (int e = t; e < kKT * D; e += kThreads) {
       const int kk = e / D, c = e % D;
       const int pos = k0 + kk;
-      Ks[kk * str + c] = pos < S ? to_f(kb[pos * kst.s + c]) : 0.f;
-      Vs[e] = pos < S ? to_f(vb[pos * vst.s + c]) : 0.f;
+      Ks[kk * str + c] = pos < S ? kb[pos * kst.s + c] : 0.f;
+      Vs[e] = pos < S ? vb[pos * vst.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -183,7 +301,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     __syncthreads();  // Ks / Vs / Ss are rewritten by the next tile
   }
 
-  T* ob = out + b * ost.b + h * ost.h;
+  float* ob = out + b * ost.b + h * ost.h;
 #pragma unroll
   for (int i = 0; i < RP; ++i) {
     const int r = prg * RP + i;
@@ -192,25 +310,27 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int d = pdg + 32 * j;
-      if (d < D) ob[(row0 + r) * ost.s + d] = from_f<T>(acc[i][j] / denom);
+      if (d < D) ob[(row0 + r) * ost.s + d] = acc[i][j] / denom;
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-           int S, int D, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-           int causal, int window, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV, int S,
+           int D, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
+           int window, cudaStream_t st) {
+  if (D > kMaxD) return (int)cudaErrorInvalidValue;
   const int bytes = smem_floats(D) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kQR - 1) / kQR, H, B);
-  flash_kernel<T><<<grid, kThreads, bytes, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                                 (T*)out, H, KV, S, D, qs, ks, vs, os,
-                                                 scale, causal, window);
+  flash_f32<<<grid, kThreads, bytes, st>>>((const float*)q, (const float*)k, (const float*)v,
+                                           (float*)out, H, KV, S, D, qs, ks, vs, os, scale,
+                                           causal, window);
   return (int)cudaGetLastError();
 }
+
+}  // namespace f32
 
 }  // namespace
 
@@ -221,7 +341,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       void* out, int B, int H, int KV, int S, int D,
                                       const long long* strides, float scale, int causal,
                                       int window, int dtype, void* stream) {
-  if (D > kMaxD || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (H % KV != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaSuccess;
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
@@ -229,8 +349,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Strides os{strides[9], strides[10], strides[11]};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal,
-                         window, st);
-  return launch<__nv_bfloat16>(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale,
-                               causal, window, st);
+    return f32::launch(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window, st);
+  return launch_bf16(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window, st);
 }

@@ -9,8 +9,10 @@ per-dim AQUA prefill (``block_dims`` 1, on the masked q̂).
 Bound on the H100: operations at prompt lengths (the S²/2 score and value
 products against S·2D bytes of K/V per KV head). The kernel walks only the
 key tiles inside the causal bound and the window, and reads q/k/v through
-strides so the model's (B, S, KV, G, D) layout needs no transpose; see the
-source's header for the tiling.
+strides so the model's (B, S, KV, G, D) layout needs no transpose. bf16
+runs on the tensor cores, float32 on scalar FMAs; see the source's header
+for the tiling. The bf16 kernel copies 16-byte pieces: it needs D % 8 ==
+0, 16-byte aligned bases and outer strides (``ValueError`` otherwise).
 
 Dispatch is by device: CPU tensors run :func:`flash_attention_plain`, CUDA
 tensors launch the kernel or raise. Launches count in
@@ -58,6 +60,11 @@ def _launch(q, k, v, causal, window):
         if t.device != dev or t.stride(-1) != 1:
             raise ValueError("flash_attention kernel needs q/k/v on one CUDA "
                              "device with a contiguous last axis")
+    if q.dtype == torch.bfloat16:
+        if d % 8:
+            raise ValueError(f"flash_attention bf16 kernel needs D % 8 == 0, "
+                             f"got {d}")
+        _build.check_cp_async("flash_attention", q, k, v)
     out = torch.empty((b, h, s, d), dtype=v.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])

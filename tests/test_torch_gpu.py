@@ -95,7 +95,12 @@ def test_decode_kernel_matches_plain(cuda, dtype, paged, h, kv, d, k_ratio):
 @pytest.mark.parametrize("h,kv,d,s,q_blk", [(16, 8, 128, 300, 128),
                                             (8, 2, 64, 100, 16),
                                             (4, 4, 32, 64, 8),
-                                            (4, 2, 128, 200, 24)])
+                                            (4, 2, 128, 200, 24),
+                                            # a 72-row tile straddles the
+                                            # bf16 kernel's 64-row blocks
+                                            (32, 8, 128, 300, 72),
+                                            # 24 gathered dims, padded to 32
+                                            (4, 4, 32, 200, 64)])
 def test_prefill_kernel_matches_plain(cuda, dtype, h, kv, d, s, q_blk):
     gen = torch.Generator(device="cuda").manual_seed(s + q_blk)
     b = 2
@@ -110,6 +115,30 @@ def test_prefill_kernel_matches_plain(cuda, dtype, h, kv, d, s, q_blk):
                                 q_blk=chunk, causal=True, scale=d ** -0.5)
     torch.cuda.synchronize()
     assert LAUNCHES["aqua_prefill"] == before + 1
+    valid = (torch.arange(s, device=cuda)[None] < lengths[:, None])[
+        :, None, :, None]
+    assert _within_tol(out, ref, dtype, valid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_dims,q_blk", [(4, 128), (2, 24), (16, 32)])
+def test_prefill_kernel_other_block_sizes(cuda, dtype, block_dims, q_blk):
+    """Dim-blocks smaller than the bf16 kernel's 16-byte chunk (a chunk
+    partly selected) and larger ones, aligned and straddling tiles."""
+    gen = torch.Generator(device="cuda").manual_seed(block_dims)
+    b, h, kv, d, s = 2, 8, 2, 64, 150
+    q = _rand(gen, b, s, h, d, dtype=dtype).transpose(1, 2)
+    k = _rand(gen, b, kv, s, d, dtype=dtype)
+    v = _rand(gen, b, kv, s, d, dtype=dtype)
+    lengths = torch.tensor([s, s // 2], dtype=torch.int32, device=cuda)
+    out = ops.aqua_prefill(q, k, v, lengths, block_dims=block_dims,
+                           q_blk=q_blk)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths, 0.75, block_dims,
+                                             q_blk)
+    ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths,
+                                block_dims=block_dims, q_blk=chunk,
+                                causal=True, scale=d ** -0.5)
+    torch.cuda.synchronize()
     valid = (torch.arange(s, device=cuda)[None] < lengths[:, None])[
         :, None, :, None]
     assert _within_tol(out, ref, dtype, valid)
@@ -193,7 +222,8 @@ def test_prefill_part_kernel_matches_plain(cuda, dtype, h, kv, d, s, t,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kv,d,s,causal,window", [
     (16, 8, 128, 300, True, None), (8, 2, 64, 100, False, None),
-    (4, 4, 32, 200, True, 50), (4, 1, 128, 77, False, 20)])
+    (4, 4, 32, 200, True, 50), (4, 1, 128, 77, False, 20),
+    (16, 8, 128, 600, True, 100)])       # a window across key tiles
 def test_flash_kernel_matches_plain(cuda, dtype, h, kv, d, s, causal,
                                     window):
     gen = torch.Generator(device="cuda").manual_seed(s + d)
@@ -208,6 +238,47 @@ def test_flash_kernel_matches_plain(cuda, dtype, h, kv, d, s, causal,
     assert LAUNCHES - before == {"flash_attention": 1}
     assert out.dtype == dtype and out.shape == (b, h, s, d)
     assert _within_tol(out, ref, dtype)
+
+
+def test_prefill_chunk_rows_bitwise_equal_monolithic(cuda):
+    """bf16: a chunk at a 64-aligned q_offset (q_blk 128) has the
+    monolithic call's 64-row blocks, selections and key walk, so its rows
+    are bitwise the monolithic rows."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, h, kv, d, s, off, q_blk = 1, 16, 8, 128, 640, 384, 128
+    bf = torch.bfloat16
+    q = _rand(gen, b, h, s, d, dtype=bf)
+    k = _rand(gen, b, kv, s, d, dtype=bf)
+    v = _rand(gen, b, kv, s, d, dtype=bf)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=cuda)
+    kw = dict(block_dims=8, q_blk=q_blk, causal=True, scale=d ** -0.5)
+    full_idx, _, _ = ops.prefill_blocks(q, lengths, 0.75, 8, q_blk)
+    mono = pk.aqua_prefill_attention(q, k, v, full_idx, lengths, **kw)
+    chunk = pk.aqua_prefill_attention(
+        q[:, :, off:], k, v, full_idx[:, :, off // q_blk:].contiguous(),
+        lengths, q_offset=off, **kw)
+    assert torch.equal(chunk, mono[:, :, off:])
+
+
+def test_bf16_kernels_reject_misaligned_views(cuda):
+    """The bf16 kernels copy 16-byte pieces: a view whose base is 4
+    elements (8 bytes) off raises ValueError from both wrappers."""
+    b, h, kv, s, d = 1, 4, 2, 64, 64
+    bf = torch.bfloat16
+    k = torch.zeros(b, kv, s, d, device=cuda, dtype=bf)
+    q = torch.zeros(b * h * s * d + 4, device=cuda, dtype=bf)[4:].reshape(
+        b, h, s, d)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=cuda)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths, 0.75, 8, 64)
+    with pytest.raises(ValueError):
+        pk.aqua_prefill_attention(q, k, k, block_idx, lengths, block_dims=8,
+                                  q_blk=chunk)
+    with pytest.raises(ValueError):
+        fk.flash_attention(q, k, k)
+    # a K view four elements into a row: its base and seq stride are off
+    wide = torch.zeros(b, kv, s, d + 4, device=cuda, dtype=bf)
+    with pytest.raises(ValueError):
+        fk.flash_attention(q.clone(), wide[..., 4:], k)
 
 
 def _pools(gen, p, kv, ps, d, dtype, quant):
