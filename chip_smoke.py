@@ -10,12 +10,14 @@ Phases, each of which raises (non-zero exit) on failure:
 2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed as
    set-up; one ``nvcc`` per source, in parallel); log ptxas's register
    and spill lines, and require tensor-core instructions (HMMA or HGMMA)
-   in the SASS of the bf16 prefill and flash kernels (``cuobjdump
+   in the SASS of the bf16 prefill, flash and decode kernels (``cuobjdump
    -sass``).
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes (bf16, D=128) of Qwen3-0.6B (H=16, KV=8) and of
    Llama-3.1-8B (H=32, KV=8): decode B=8, S=4096 (contiguous, and paged
-   with 64-token pages and a shuffled page table; the paged variants with
+   with 64-token pages and a shuffled page table; paged also at the
+   drives' contexts, lengths 128-1056 in a 2048-token table; the paged
+   variants with
    int8 pools and per-(page, head) scales, with the participating pages of
    hierarchical AQUA at page_keep_ratio 0.25, and with both); prefill and
    flash attention B=1, S=2048, causal; the prefill's ``q_offset`` form
@@ -28,10 +30,14 @@ Phases, each of which raises (non-zero exit) on failure:
    tolerance, kernel and library ms (a CUDA graph of 20 calls replayed
    between two CUDA events; a failed capture fails the phase), the
    kernel's and the plain version's ms over 20 calls from Python (CUDA
-   events) and the bound.
+   events) and the bound (for the byte-bound decode: the bytes, and the
+   achieved GB/s over them; one PyTorch sum over 256 MiB gives the card's
+   practical read rate beside them).
    Planted faults must fail the same tolerance, so it is tight enough to
-   catch a wrong kernel: one 256-position split of a lane dropped, one
-   head's dim-block selection shifted (decode, prefill); ``q_offset`` one
+   catch a wrong kernel: a lane's last 256 positions dropped, one head's
+   dim-block selection shifted (decode, prefill), the first two heads of a
+   KV group trading selections (decode: a kernel that gave the group's
+   union, or one head's selection, to every head); ``q_offset`` one
    q_blk early; one participating key chunk swapped for a dropped one; a
    window that cuts the far keys and a causal diagonal shifted by one key
    (flash); one page's key scale doubled (int8); one participating page
@@ -216,31 +222,62 @@ def bound(nbytes: float, ops: float) -> tuple:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def byte_rate(nbytes: float, ms: float) -> dict:
+    """The bytes a byte-bound kernel must move and its achieved rate over
+    them (GB/s), beside its bound."""
+    return dict(bound_bytes=nbytes, achieved_gbs=nbytes / ms * 1e-6)
+
+
+def read_rate() -> dict:
+    """The card's practical read rate: one PyTorch sum over 256 MiB of
+    bf16 (GB/s, from a replayed CUDA graph), beside the 3.35 TB/s that the
+    byte bounds use."""
+    import torch
+    x = torch.ones(2 ** 27, device="cuda", dtype=torch.bfloat16)
+    ms = graph_ms(lambda: x.sum())
+    return dict(bytes=2 * x.numel(), ms=ms, gbs=2 * x.numel() / ms * 1e-6)
+
+
+def swapped_group_heads(block_idx):
+    """``block_idx`` with lane 0's first two heads (of KV group 0) trading
+    their selections: a planted fault that a kernel applying the group's
+    union, or one head's selection, to every head of the group misses."""
+    bad = block_idx.clone()
+    assert not bad[0, 0].equal(bad[0, 1]), "heads 0 and 1 select alike"
+    bad[0, [0, 1]] = block_idx[0, [1, 0]]
+    return bad.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Kernel phases
 # ---------------------------------------------------------------------------
 
 
-def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen) -> dict:
+def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
+                 s: int = 4096, len_range: tuple = (2048, 4096),
+                 form: str = None) -> dict:
+    """The bf16 decode (contiguous or paged, 64-token pages) at B=8 over a
+    table of ``s`` positions, lengths uniform in ``len_range``; the served
+    form (``form="served"``) takes the drives' contexts."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import aqua
     from repro_torch.kernels import aqua_decode as dk
     from repro_torch.kernels.ops import round_k_dims
 
-    b, s, d, ps = 8, 4096, 128, 64
+    b, d, ps = 8, 128, 64
     dev, bf = "cuda", torch.bfloat16
     q = torch.randn(b, h, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
-    lengths = torch.randint(s // 2, s + 1, (b,), device=dev, generator=gen,
-                            dtype=torch.int32)
+    lengths = torch.randint(len_range[0], len_range[1] + 1, (b,),
+                            device=dev, generator=gen, dtype=torch.int32)
     scale = d ** -0.5
     nsel = round_k_dims(d, K_RATIO, BLOCK_DIMS)
     block_idx = aqua.topk_block_indices(q, nsel, BLOCK_DIMS).contiguous()
     nb = d // BLOCK_DIMS
     cut = lengths.clone()
-    cut[0] -= 256                      # lane 0 loses its last split
+    cut[0] = max(int(cut[0]) - 256, 1)  # lane 0 loses its last 256 rows
     if paged:
         npl = s // ps
         perm = torch.randperm(b * npl, device=dev, generator=gen)
@@ -272,7 +309,9 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen) -> dict:
 
     check = check_kernel(kernel(), plain(), {
         "dropped_split": kernel(lengths=cut),
-        "shifted_block": kernel(block_idx=shifted(block_idx, nb))})
+        "shifted_block": kernel(block_idx=shifted(block_idx, nb)),
+        "swapped_group_heads": kernel(
+            block_idx=swapped_group_heads(block_idx))})
     # yardstick: one library call on the equivalent masked-q̂ dense problem
     sel = torch.zeros(b, h, d // BLOCK_DIMS, device=dev)
     sel.scatter_(-1, block_idx.long(), 1.0)
@@ -294,11 +333,13 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen) -> dict:
     ops = 2 * float(lens.sum()) * h * (nsel + d)
     bms, by = bound(nbytes, ops)
     name = "aqua_paged_decode" if paged else "aqua_decode"
-    return dict(name=name, geometry=geom, shape=dict(B=b, H=h, KV=kvh, S=s,
-                                                     D=d, page_size=ps
-                                                     if paged else None),
-                **check, **timings(kernel, plain, library), bound_ms=bms,
-                bound_by=by)
+    times = timings(kernel, plain, library)
+    return dict(name=name, geometry=geom, form=form,
+                shape=dict(B=b, H=h, KV=kvh, S=s, D=d,
+                           page_size=ps if paged else None,
+                           lengths=list(len_range)),
+                **check, **times, bound_ms=bms, bound_by=by,
+                **byte_rate(nbytes, times["ms"]))
 
 
 def prefill_phase(geom: str, h: int, kvh: int, gen) -> dict:
@@ -653,13 +694,14 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
         nbytes += 2 * 4 * kvh * float(pages_read.sum())
     ops = 2 * float(rows.sum()) * h * (nsel + d)
     bms, by = bound(nbytes, ops)
+    times = timings(kernel, plain, library)
     return dict(name=dk.body_name(True, quant, part), geometry=geom,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, page_size=ps,
                            kept_pages=None if part_idx is None
                            else part_idx.shape[1],
                            kv_dtype="int8" if quant else "bf16"),
-                **check, **timings(kernel, plain, library), bound_ms=bms,
-                bound_by=by)
+                **check, **times, bound_ms=bms, bound_by=by,
+                **byte_rate(nbytes, times["ms"]))
 
 
 # ---------------------------------------------------------------------------
@@ -970,9 +1012,11 @@ def main() -> int:
                 log(f"[ptxas {name}] {line.strip()}")
     log(f"build: {build_s:.1f} s")
     log_time("build")
-    # the bf16 routes of the prefill and flash kernels run on tensor cores
+    # the bf16 routes of the prefill, flash and decode kernels run on
+    # tensor cores
     for name, fn_tag in (("aqua_prefill", "aqua_prefill_bf16"),
-                         ("flash_attention", "flash_bf16")):
+                         ("flash_attention", "flash_bf16"),
+                         ("aqua_decode", "decode_bf16")):
         counts = sass_mma_counts(str(_build._lib_path(name)))
         for fn, n in counts.items():
             log(f"[sass {name}] {fn}: {n} HMMA/HGMMA")
@@ -984,6 +1028,9 @@ def main() -> int:
     for geom, h, kvh in (("qwen3-0.6b", 16, 8), ("llama3.1-8b", 32, 8)):
         phases.append(decode_phase(geom, h, kvh, False, gen))
         phases.append(decode_phase(geom, h, kvh, True, gen))
+        # the drives' contexts: 128-1056 tokens in a 2048-token table
+        phases.append(decode_phase(geom, h, kvh, True, gen, s=2048,
+                                   len_range=(128, 1056), form="served"))
         for quant, part in ((True, False), (False, True), (True, True)):
             phases.append(paged_variant_phase(geom, h, kvh, quant, part,
                                               gen))
@@ -993,6 +1040,7 @@ def main() -> int:
         phases.append(flash_phase(geom, h, kvh, gen))
     for p in phases:
         log(p)
+    log({"read_rate": read_rate()})
     log_time("kernel phases")
     bad = [p for p in phases if not p["ok"]]
     assert not bad, f"kernel disagrees with its plain version: {bad}"
@@ -1022,7 +1070,7 @@ def main() -> int:
               and "launches" in v]
     kernels = []
     for p in phases:
-        if p["geometry"] != "qwen3-0.6b" or p.get("form") == "q_offset":
+        if p["geometry"] != "qwen3-0.6b" or p.get("form") is not None:
             continue
         name = p["name"]
         by_path = {path: serve[path]["launches"][name] for path in drives}
@@ -1041,7 +1089,7 @@ def main() -> int:
             launches=launches, launches_by_path=by_path,
             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
-            library_ms=p["library_ms"]))
+            achieved_gbs=p.get("achieved_gbs"), library_ms=p["library_ms"]))
     assert sorted(k["name"] for k in kernels) == sorted(KERNELS)
     log(card)                      # name, power.limit as nvidia-smi prints
     log({"kernels": kernels})

@@ -5,17 +5,29 @@ Replaces the Pallas TPU kernels of ``src/repro/kernels/aqua_decode.py``:
 ``aqua_paged_decode_attention``, ``_paged_kernel`` (page pool),
 ``_paged_quant_kernel`` (int8 pool with per-page scales),
 ``_paged_part_kernel`` (hierarchical AQUA: participating pages only) and
-``_paged_part_quant_kernel`` (both). All launch the one CUDA kernel in
-``csrc/aqua_decode.cu``: the contiguous cache is a page pool with one page
-per lane and no table.
+``_paged_part_quant_kernel`` (both). All live in ``csrc/aqua_decode.cu``:
+the contiguous cache is a page pool with one page per lane and no table.
 
-Bound on the H100: bytes — per lane, the selected dim-blocks (k_ratio) of
-every valid K̂ row plus every valid V row, of the participating pages only
-(one byte per element for int8 pools). The kernel reads K̂ in the cache's
-own seq-major layout (no dim-major copy of the cache per step, which would
-move the whole K̂ once more than the kernel saves), only the selected
-blocks and only valid positions, split over the sequence so that a small
-batch still fills the card; see the source's header.
+Bound on the H100: bytes — per lane and KV head, the union of its G heads'
+selected dim-blocks (k_ratio) of every valid K̂ row plus every valid V row,
+of the participating pages only (one byte per element for int8 pools). The
+kernel reads K̂ in the cache's own seq-major layout (no dim-major copy of
+the cache per step, which would move the whole K̂ once more than the kernel
+saves), only the selected blocks and only valid positions, split over the
+sequence so that a small batch still fills the card.
+
+Two routes (see the source's header). bf16 without scales or participating
+pages (``_kernel``, ``_paged_kernel``: the served AQUA decode) takes the
+group route: one block per (split, KV head, lane) for all G heads of the
+group, so each K̂ piece and V row is read once per group; TMA bulk copies
+bring the union of the group's selected 8-dim chunks and the V rows into a
+ring per warp, and the scores and P·V run on the tensor cores
+(``mma.sync``). It needs D and Dv multiples of 8, D <= 256, and 16-byte
+aligned q̂, K̂ and V (``ValueError`` otherwise). float32 (the tests), int8
+pools and participating pages keep the per-head route of the first port
+(one block per query head, scalar loads); they move to the group route's
+machinery separately. Both split the sequence into 256-position blocks
+(``aqua_decode_split``), which sizes the float32 scratch.
 
 Dispatch is by the device of the tensors: CPU tensors run the plain PyTorch
 version (:func:`aqua_decode_plain`), CUDA tensors launch the kernel or
@@ -115,6 +127,12 @@ def _launch(q_hat, k, v, block_idx, lengths, page_table, block_dims, scale,
         raise ValueError(f"aqua_decode kernel: unsupported shapes q "
                          f"{q_hat.shape} "
                          f"k {k.shape} v {v.shape} NB_sel {nb_sel}")
+    # bf16 without scales or participating pages: the group route
+    group = (q_hat.dtype == torch.bfloat16 and not quant
+             and part_idx is None)
+    if group and (d % 8 or dv % 8 or d > 256):
+        raise ValueError(f"aqua_decode bf16 kernel needs D and Dv multiples "
+                         f"of 8 and D <= 256, got D {d}, Dv {dv}")
     if page_table is None and (k.shape[0] != b or quant
                                or part_idx is not None):
         raise ValueError("contiguous cache must have one page per lane, no "
@@ -136,6 +154,8 @@ def _launch(q_hat, k, v, block_idx, lengths, page_table, block_dims, scale,
     for t in (k_scale, v_scale):
         if t is not None and t.dtype != torch.float32:
             raise TypeError("k_scale and v_scale must be float32")
+    if group:
+        _build.check_cp_async("aqua_decode", q_hat, k, v)
     lib = _build.load("aqua_decode", _SIG)
     npl = 0 if page_table is None else page_table.shape[1]
     kp = 0 if part_idx is None else part_idx.shape[1]

@@ -1,12 +1,14 @@
 // AQUA block-sparse decode attention for Hopper (sm_90a).
 //
-// Replaces four Pallas TPU kernel bodies of src/repro/kernels/aqua_decode.py:
+// Replaces five Pallas TPU kernel bodies of src/repro/kernels/aqua_decode.py:
 // _kernel (contiguous cache), _paged_kernel (page pool), _paged_quant_kernel
 // (int8 pool, scale-folded) and _paged_part_kernel / _paged_part_quant_kernel
 // (only the participating pages of hierarchical AQUA, full precision and
 // int8). For each (lane b, query head h): the partial score q̂·K̂ over only
-// the NB_sel dim-blocks that |q̂| selected, masked at positions >= lengths[b],
-// then a fused online softmax and the product with V.
+// the NB_sel dim-blocks that |q̂| selected, times scale, masked at positions
+// >= lengths[b], then an online softmax in float32 and the product with V.
+// A lane with no valid position writes zeros (the Pallas kernel writes the
+// mean of the V slots it visited; callers never read such lanes).
 //
 // Layout: K̂ and V are read in the cache's own seq-major layout,
 // k (P, KV, ps, D) and v (P, KV, ps, Dv). A contiguous cache (B, KV, S, D)
@@ -14,44 +16,88 @@
 // pos of lane b lives in page max(page_table[b, pos / ps], 0) at offset
 // pos % ps. Heads are laid out (KV, G): kv = h / G.
 //
+// Bound on the H100: bytes. Per step the kernel must read, per lane and KV
+// head, the union of its G heads' selected dim-blocks of every valid K̂ row
+// plus every valid V row (of the participating pages only; one byte per
+// element for int8 pools). Decode does ~2 operations per byte, far below
+// the ~295 at which the card's arithmetic would bound it.
+//
+// Both routes split the sequence: a partial pass writes, per (b, h, split
+// of `split` positions), its running (max, sum, acc[Dv]) in float32 to
+// scratch (B, H, nsplit, Dv + 2), and a combine pass merges the splits of
+// each (b, h) with the same online-softmax algebra. Splits at or past
+// lengths[b] exit at once (when every page is walked). The launches hold no
+// host sync and allocate nothing, so a CUDA graph can capture them.
+//
+// bf16 route (namespace gqa; _kernel and _paged_kernel): one block of 4
+// warps per (split, KV head, lane) holds all G query heads of the group (up
+// to 8; a larger group takes several blocks), so each K̂ piece and V row
+// leaves device memory once per group, not G times. Each warp walks
+// its own 16-position tiles of the split (tile j of warp j mod 4) through a
+// private ring of two stages, so no block barrier runs per tile:
+//
+// - Copies: the TMA, one bulk copy per V row and one per run of the K̂
+//   row's staged chunks, completing on the stage's mbarrier; the lines go
+//   first when L2 evicts (read once). The staged chunks are the union of the
+//   group's selected 8-dim chunks with one-chunk holes filled (such a hole
+//   shares its 32-byte sector with a union chunk: no extra device traffic,
+//   fewer copies). Rows past the end are not copied. (16-byte cp.async
+//   copies stall each warp for thousands of cycles at issue here: PERF.md,
+//   Findings.)
+// - Scores and P·V on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+//   accumulate), positions x heads as M x N: S = K̂·q̂ᵀ with the K̂ tile as A
+//   (ldmatrix) and q̂ as B in registers, each head's q̂ zero in the staged
+//   dims it did not select (so block sizes 2 and 4, where a chunk holds
+//   several blocks, and 16, 32, ..., where a block spans chunks, score
+//   exactly the head's own blocks); O = Vᵀ·P with Vᵀ from ldmatrix.trans and
+//   P transposed in registers (movmatrix), split into bf16 hi + lo (P
+//   rounded once to bf16 misses the one-ulp limit). Decode does ~2
+//   operations per byte, yet on FMAs it is bound by instruction issue
+//   (a convert, G FMAs and shared-memory loads per element: PERF.md,
+//   Findings); the tensor cores need several-fold fewer instructions.
+// - The online softmax in registers, in the log2 domain (scale·log2 e
+//   folded into the score): tile max per head by three shuffles, the sum
+//   kept per lane and reduced once.
+// - Set-up without barriers per warp: the length, the heads' selections and
+//   the first tiles' pages go out together; the union is a warp OR-reduce;
+//   the q̂ rows arrive by bulk copy with the first tiles.
+// Every warp keeps its own running (max, sum, acc); at the end the block
+// merges its four warps (one barrier) into the split's scratch entry.
+//
+// Per-head route (float32 tests, int8 pools, participating pages; bodies
+// _paged_quant_kernel, _paged_part_kernel, _paged_part_quant_kernel and
+// the float32 forms of _kernel and _paged_kernel): one block of 128 threads
+// per (split of 256 positions, h, b); each thread scores one position of a
+// 128-position tile from the selected blocks only (scalar loads), the
+// block reduces the tile's max and sum, and each thread accumulates one or
+// two output dims over the tile's V rows. The participating walk and int8
+// are compile-time variants, so the full-precision walk pays nothing for
+// them. It keeps the template of the first port: float32 serves only the
+// tests (kept off the tensor cores, as in the prefill), and the int8 and
+// participating variants move onto the bf16 route's machinery in later
+// changes, one or two kernels at a time.
+//
 // int8 pools: k and v hold int8 and k_scale / v_scale (P, SH) float32 one
 // scale per page (SH = 1) or per page and kv head (SH = KV, s_stride = 1).
 // The key scale folds into the score (dot · scale · k_scale[page]), the value
 // scale into the softmax weight of the row (p · v_scale[page]), so no page is
-// dequantized. A 256-position split spans several pages: the scales are
-// looked up per position, through that position's page. The output is
-// float32, as the Pallas call emits it for int8 pools.
+// dequantized. A split spans several pages: the scales are looked up per
+// position, through that position's page. The output is float32, as the
+// Pallas call emits it for int8 pools.
 //
 // Participating pages (part_idx (B, KP), logical page ids): the walk covers
 // KP·ps virtual positions; virtual position vp maps to logical position
 // part_idx[b, vp / ps]·ps + vp % ps, valid iff below lengths[b]. Validity is
 // tested per position (the tail page is partial, pages past the tail are
 // padding), and every one of the KP·ps / split splits is written and merged.
-//
-// Bound on the H100: bytes. Per step the kernel must read, per lane, the
-// selected dim-blocks of every valid K̂ row plus every valid V row (of the
-// participating pages only). Design (split-sequence, two launches): the
-// partial kernel runs one block of 128 threads per (split of kSplit
-// positions, h, b), so a batch of 8 lanes still fills the card. Each thread
-// scores one token of a 128-token tile from the selected blocks only
-// (k_ratio of the K̂ row bytes; bd = 8 bf16 values are 16 contiguous bytes),
-// the block reduces the tile's max and sum, and each thread accumulates one
-// or two output dims over the tile's V rows (coalesced across threads; the
-// participating walk skips rows of zero weight, its invalid positions).
-// The participating walk and int8 are compile-time variants, so the
-// full-precision walk over every page pays nothing for them. Splits at or past
-// lengths[b] exit at once when every page is walked, so only positions below
-// lengths[b] are read. Each split writes its running (max, sum, acc) in
-// float32 to scratch; the combine kernel merges the splits of each (b, h)
-// with the same online-softmax algebra. Math in float32. A lane with no
-// valid position writes zeros (the Pallas kernel writes the mean of the V
-// slots it visited; callers never read such lanes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "attn_tile.cuh"
 
 namespace {
 
@@ -98,8 +144,9 @@ struct Pages {
   int ps, np_lane, kp, sh, s_stride;
 };
 
-// Partial pass: one block per (split, h, b). Scratch layout per (b, h,
-// split): [m, l, acc[0..Dv)] in float32. kPart walks participating pages;
+// Per-head route. Partial pass: one block per (split, h, b). Scratch
+// layout per (b, h, split): [m, l, acc[0..Dv)] in float32, m in natural
+// units (the max of dot·scale). kPart walks participating pages;
 // int8 K/V (KT = int8_t) read scales. Both are compile-time, so the
 // full-precision walk over every page compiles as it did without them.
 template <typename QT, typename KT, bool kPart>
@@ -194,24 +241,55 @@ __global__ void __launch_bounds__(kThreads) aqua_decode_partial(
   if (t + kThreads < Dv) sc[2 + t + kThreads] = acc1;
 }
 
-// Combine pass: one block per (h, b) merges the splits the partial pass
-// wrote: those below lengths[b], or all of them over participating pages.
+// Combine pass (both routes): one block per (h, b) merges the splits the
+// partial pass wrote: those below lengths[b], or all of them over
+// participating pages.
 template <typename OT>
 __global__ void __launch_bounds__(kThreads) aqua_decode_combine(
     const float* __restrict__ scratch, const int* __restrict__ lengths,
     OT* __restrict__ out, int H, int Dv, int nsplit, int walk_all) {
   const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
   const int n = walk_all ? nsplit : min((lengths[b] + kSplit - 1) / kSplit, nsplit);
-  const float* sc = scratch + ((int64_t)b * H + h) * nsplit * (Dv + 2);
+  const int st = Dv + 2;
+  const float* sc = scratch + ((int64_t)b * H + h) * nsplit * st;
+  // Every thread reads every split's max and sum (broadcasts) and its own
+  // dims' sums: the first kR splits in one round trip into registers (every
+  // load in range, used only below n), the rest after. The max is exact in
+  // any order; the sums run in split order.
+  constexpr int kR = 16;
+  const int d0 = 2 + min(t, Dv - 1), d1 = 2 + min(t + kThreads, Dv - 1);
+  float mi[kR], li[kR], ai0[kR], ai1[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const float* si = sc + (int64_t)min(i, max(n - 1, 0)) * st;
+    mi[i] = si[0];
+    li[i] = si[1];
+    ai0[i] = si[d0];
+    ai1[i] = Dv > kThreads ? si[d1] : 0.f;
+  }
   float m = kNegInf;
-  for (int i = 0; i < n; ++i) m = fmaxf(m, sc[i * (Dv + 2)]);
+#pragma unroll
+  for (int i = 0; i < kR; ++i)
+    if (i < n) m = fmaxf(m, mi[i]);
+#pragma unroll 8
+  for (int i = kR; i < n; ++i) m = fmaxf(m, sc[(int64_t)i * st]);
   float l = 0.f, acc0 = 0.f, acc1 = 0.f;
-  for (int i = 0; i < n; ++i) {
-    const float* si = sc + i * (Dv + 2);
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    if (i < n) {
+      const float w = expf(mi[i] - m);
+      l += w * li[i];
+      acc0 += w * ai0[i];
+      acc1 += w * ai1[i];
+    }
+  }
+#pragma unroll 8
+  for (int i = kR; i < n; ++i) {
+    const float* si = sc + (int64_t)i * st;
     const float w = expf(si[0] - m);
     l += w * si[1];
-    if (t < Dv) acc0 += w * si[2 + t];
-    if (t + kThreads < Dv) acc1 += w * si[2 + t + kThreads];
+    acc0 += w * si[d0];
+    if (Dv > kThreads) acc1 += w * si[d1];
   }
   const float denom = fmaxf(l, 1e-30f);
   OT* o = out + ((int64_t)b * H + h) * Dv;
@@ -227,28 +305,438 @@ int launch(const void* q, const void* k, const void* v, const int* bi, const Pag
     aqua_decode_partial<QT, KT, true><<<dim3(nsplit, H, B), kThreads, 0, st>>>(
         (const QT*)q, (const KT*)k, (const KT*)v, bi, pg, ln, scratch, H, KV, D, Dv,
         nb_sel, bd, nsplit, scale);
-  else
+  else if constexpr (!std::is_same<KT, __nv_bfloat16>::value)  // bf16: the group route
     aqua_decode_partial<QT, KT, false><<<dim3(nsplit, H, B), kThreads, 0, st>>>(
         (const QT*)q, (const KT*)k, (const KT*)v, bi, pg, ln, scratch, H, KV, D, Dv,
         nb_sel, bd, nsplit, scale);
+  else
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  aqua_decode_combine<OT><<<dim3(H, B), kThreads, 0, st>>>(scratch, ln, (OT*)out, H, Dv,
-                                                           nsplit, pg.part != nullptr);
+  aqua_decode_combine<OT><<<dim3(H, B), kThreads, 0, st>>>(
+      scratch, ln, (OT*)out, H, Dv, nsplit, pg.part != nullptr);
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route: one block per (split, KV head, lane) for all heads of the group
+// ---------------------------------------------------------------------------
+
+namespace gqa {
+
+using bf16 = __nv_bfloat16;
+using attn_tile::fast_exp2;
+using attn_tile::ldsm_x4;
+using attn_tile::smem_u32;
+using attn_tile::split_pair;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16;         // positions per warp tile: the m of the score mma
+constexpr int kStages = 2;        // warp tiles in flight per warp
+constexpr int kHeads = 8;         // query heads per block: the n of both mmas
+constexpr float kLn2 = 0.6931471805599453f;
+static_assert(kStages * kRows == 32, "a warp's first tiles give each lane one row");
+
+struct Args {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const int* block_idx;
+  const int* table;   // (B, np_lane) or null: contiguous cache (page = b, ps = S)
+  const int* lengths;
+  float* scratch;     // (B, H, nsplit, Dv + 2)
+  int H, KV, D, Dv, nb_sel, bd, ps, np_lane;
+  int nhg;            // blocks per KV head (groups of more than 8 heads)
+  int nsplit;
+  int kwa;            // staged K̂ row in 16-byte chunks: D / 8 rounded up to even
+  float scale_log2;   // scale · log2 e
+};
+
+// bits [lo, hi) of a word, 0 <= lo < hi <= 32
+__device__ __forceinline__ uint32_t bit_range(int lo, int hi) {
+  return (hi == 32 ? ~0u : (1u << hi) - 1) & ~((1u << lo) - 1);
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d (16x8, f32) += a (16x16, bf16, row) · b (16x8, bf16, col)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+// TMA bulk copy of `bytes` (a multiple of 16) from global to shared memory,
+// completing on the mbarrier at `bar`; its lines go first when L2 evicts
+// (K̂ and V are read once; the splits' scratch stays for the combine pass)
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(phase)
+        : "memory");
+}
+
+// the transposed 8x8 bf16 fragment (row g, cols 2t, 2t + 1 -> the same of
+// the transpose)
+__device__ __forceinline__ uint32_t transpose8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// bits [lo, hi) of word w of a bit set given as the range [d0, d1)
+__device__ __forceinline__ uint32_t range_word(int d0, int d1, int w) {
+  const int lo = min(max(d0 - 32 * w, 0), 32), hi = min(max(d1 - 32 * w, 0), 32);
+  return lo < hi ? bit_range(lo, hi) : 0u;
+}
+
+// kKS: most 16-dim k-steps of the union (8: D <= 128); kMT: most 16-wide
+// slices of the output (8: Dv <= 128). Fragment coordinates g = lane / 4,
+// t = lane % 4: scores hold (positions g, g + 8) x (heads 2t, 2t + 1), the
+// output (dims g, g + 8 of each slice) x (heads 2t, 2t + 1), and q̂'s B
+// operand head g.
+template <int kKS, int kMT>
+__global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
+  constexpr int kWords = kKS / 2;  // 32-dim words of a head's selected dims
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kv = blockIdx.y / a.nhg, hg = blockIdx.y - kv * a.nhg;
+  const int G = a.H / a.KV;
+  const int h0 = kv * G + hg * kHeads, ng = min(kHeads, G - hg * kHeads);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int Dv = a.Dv, vw = Dv / 8, nmt = (Dv + 15) / 16;
+  const int kst = a.kwa * 8 + 8, vst = Dv + 8;  // row strides (+16 bytes: ldmatrix rows
+                                                // fall on distinct banks)
+  const int begin = split * kSplit;
+  const int cap = a.table ? a.ps * a.np_lane : a.ps;  // positions the view holds
+
+  // per warp: kStages tiles of kRows K̂ rows then kRows V rows, each stage
+  // filled by TMA bulk copies that complete on its mbarrier; after the
+  // warps: the q̂ rows of the block's heads
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int stage = kRows * (kst + vst);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw) + warp * kStages * stage;
+  bf16* qsm = reinterpret_cast<bf16*>(smem_raw) + kWarps * kStages * stage;
+  __shared__ int uc_s[kWarps][32];            // per warp: K̂ position -> 8-dim chunk
+  __shared__ uint64_t bar_s[kWarps][kStages];  // per warp and stage: copies landed
+  __shared__ uint64_t q_bar;                   // q̂ rows landed
+
+  // Reads that depend on nothing go out together: the length, head g's
+  // selected blocks (lane t: entries t, t + 4, ...), and the page of this
+  // lane's row of the warp's first tiles (lane 16 s + r: row r of tile s).
+  const int raw_len = a.lengths[b];
+  const int my_pos = begin + (warp + (lane >> 4) * kWarps) * kRows + (lane & 15);
+  int my_page = b;
+  if (a.table && my_pos < cap)
+    my_page = max(a.table[(int64_t)b * a.np_lane + my_pos / a.ps], 0);
+  uint32_t dm[kWords];  // head g's selected dims
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) dm[w] = 0;
+  if (g < ng) {
+    const int* idx = a.block_idx + ((int64_t)b * a.H + h0 + g) * a.nb_sel;
+#pragma unroll 4
+    for (int j = t; j < a.nb_sel; j += 4) {
+      const int d0 = idx[j] * a.bd;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) dm[w] |= range_word(d0, d0 + a.bd, w);
+    }
+  }
+  if (lane < kStages) mbar_init(smem_u32(&bar_s[warp][lane]));
+  if (tid == 0) mbar_init(smem_u32(&q_bar));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();  // the only block barrier before the merge: barriers initialized
+  const int len = min(raw_len, cap);
+  if (begin >= len) return;  // the combine pass reads only splits below len
+  const int end = min(len, begin + kSplit);
+  const int ntile = (end - begin + kRows - 1) / kRows;
+  const uint64_t once = evict_first_policy();
+  if (warp == 0) {  // the q̂ rows, one bulk copy per head
+    if (lane == 0) mbar_expect(smem_u32(&q_bar), ng * a.D * 2);
+    if (lane < ng)
+      bulk_copy(qsm + lane * a.D, a.q + ((int64_t)b * a.H + h0 + lane) * a.D, a.D * 2,
+                smem_u32(&q_bar), once);
+  }
+
+  // Head g's dims over its four lanes; the union of 8-dim chunks over the
+  // warp. K̂ rows are staged over the union with its one-chunk holes filled
+  // (the hole shares a 32-byte sector with a union chunk, so it costs no
+  // device memory traffic, and a row is fewer bulk copies); q̂ is zero there.
+  uint32_t cm = 0;
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    dm[w] |= __shfl_xor_sync(0xffffffffu, dm[w], 1);
+    dm[w] |= __shfl_xor_sync(0xffffffffu, dm[w], 2);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cm |= ((dm[w] >> (8 * j)) & 0xffu) ? 1u << (4 * w + j) : 0u;
+  }
+  const uint32_t un = __reduce_or_sync(0xffffffffu, cm);
+  const uint32_t um = un | (~un & (un << 1) & (un >> 1));  // staged chunks
+  const int nu = __popc(um);     // staged width in chunks
+  const int nks = (nu + 1) / 2;  // 16-dim k-steps
+  int* uc = uc_s[warp];
+  if ((um >> lane) & 1) uc[__popc(um & ((1u << lane) - 1))] = lane;
+  // an odd width's padding chunk of K̂ is zero (so is q̂'s)
+  if (nu & 1)
+    *reinterpret_cast<uint4*>(ring + (lane / kRows) * stage + (lane % kRows) * kst + nu * 8) =
+        make_uint4(0, 0, 0, 0);
+  __syncwarp();
+
+  // the element row of a position of lane b, through its page
+  auto row_of = [&](int pos, int page) -> long long {
+    return ((long long)page * a.KV + kv) * a.ps + (pos - pos / a.ps * a.ps);
+  };
+  // Row r of tile jt (this lane's, at element row ro) into stage st: its V
+  // row and its staged K̂ chunks, one bulk copy per run of them. K̂ rows past
+  // the end are not copied (their scores are masked); V rows past the end
+  // are zeroed (their weight is 0, and 0 · NaN is not 0).
+  const uint32_t run_starts = um & ~(um << 1);
+  auto issue = [&](int jt, int st, long long ro, int r) {
+    const int nval = min(kRows, end - (begin + jt * kRows));
+    const uint32_t bar = smem_u32(&bar_s[warp][st]);
+    bf16* ks = ring + st * stage;
+    bf16* vs = ks + kRows * kst;
+    if (r == 0) mbar_expect(bar, nval * (nu * 16 + Dv * 2));
+    if (r < nval) {
+      bulk_copy(vs + r * vst, a.v + ro * Dv, Dv * 2, bar, once);
+      for (uint32_t m = run_starts; m; m &= m - 1) {
+        const int c0 = __ffs(m) - 1;
+        const int n = __ffsll(~((unsigned long long)um >> c0)) - 1;  // run length
+        const int u0 = __popc(um & ((1u << c0) - 1));
+        bulk_copy(ks + r * kst + u0 * 8, a.k + ro * a.D + c0 * 8, n * 16, bar, once);
+      }
+    } else {
+      for (int c = 0; c < vw; ++c)
+        *reinterpret_cast<uint4*>(vs + r * vst + c * 8) = make_uint4(0, 0, 0, 0);
+    }
+  };
+  // lanes 16 s + r: row r of the warp's tile s
+  if (warp + (lane >> 4) * kWarps < ntile)
+    issue(warp + (lane >> 4) * kWarps, lane >> 4, row_of(my_pos, my_page), lane & 15);
+
+  // q̂ of head g as the B operand of S = K̂·q̂ᵀ: staged dims 16 ks + 2t, 2t + 1
+  // (b0) and + 8 (b1), zero where head g did not select them
+  mbar_wait(smem_u32(&q_bar), 0);
+  uint32_t qf[kKS][2];
+  const bf16* qrow = qsm + min(g, ng - 1) * a.D + 2 * t;
+#pragma unroll
+  for (int ks = 0; ks < kKS; ++ks) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int u = 2 * ks + half, d = uc[min(u, nu - 1)] * 8 + 2 * t;
+      const uint32_t x = *reinterpret_cast<const uint32_t*>(qrow + d - 2 * t);
+      uint32_t bits = 0;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w)
+        if (w == d / 32) bits = dm[w] >> (d % 32);
+      if (u >= nu || g >= ng) bits = 0;
+      qf[ks][half] = x & (((bits & 1) ? 0xffffu : 0u) | ((bits & 2) ? 0xffff0000u : 0u));
+    }
+  }
+
+  float o[kMT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // heads 2t, 2t + 1 (log2 units)
+  // ldmatrix row addresses: K̂ rows lane % 16, chunk + lane / 16; V^T
+  // matrices (dims, positions) = (0-7, 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+  const int k_off = (lane & 15) * kst + (lane >> 4) * 8;
+  const int v_off = ((lane & 7) + ((lane >> 4) << 3)) * vst + ((lane >> 3) & 1) * 8;
+
+  // a tile lies in one page when pages hold whole tiles (or the cache is
+  // contiguous): one lookup serves its rows
+  const bool in_page = !a.table || a.ps % kRows == 0;
+#pragma unroll 1
+  for (int it = 0, jt = warp; jt < ntile; ++it, jt += kWarps) {
+    // the page of this lane's row of the tile that reuses this stage, looked
+    // up before the wait
+    const int jn = jt + kStages * kWarps;
+    const int npos = begin + jn * kRows + (lane & 15);
+    int npage = b;
+    if (jn < ntile && a.table && (in_page ? lane == 0 : lane < kRows) && npos < end)
+      npage = max(a.table[(int64_t)b * a.np_lane + npos / a.ps], 0);
+    mbar_wait(smem_u32(&bar_s[warp][it % kStages]), (it / kStages) & 1);
+    __syncwarp();
+    const bf16* Kt = ring + (it % kStages) * stage;
+    const bf16* Vt = Kt + kRows * kst;
+    const int nval = min(kRows, end - (begin + jt * kRows));
+
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, s_odd[4] = {0.f, 0.f, 0.f, 0.f};  // two chains
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      if (ks < nks) {
+        uint32_t af[4];
+        ldsm_x4(af, Kt + k_off + ks * 16);
+        if (ks % 2)
+          mma16816(s_odd, af, qf[ks][0], qf[ks][1]);
+        else
+          mma16816(s, af, qf[ks][0], qf[ks][1]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[e] += s_odd[e];
+    const bool ok0 = g < nval, ok1 = g + 8 < nval;
+    const float s0 = ok0 ? s[0] * a.scale_log2 : kNegInf;
+    const float s1 = ok0 ? s[1] * a.scale_log2 : kNegInf;
+    const float s2 = ok1 ? s[2] * a.scale_log2 : kNegInf;
+    const float s3 = ok1 ? s[3] * a.scale_log2 : kNegInf;
+    float mx0 = fmaxf(s0, s2), mx1 = fmaxf(s1, s3);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // every tile holds a valid position, so the new max is finite
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = fast_exp2(m0 - mn0), c1 = fast_exp2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    const float p0 = fast_exp2(s0 - mn0), p1 = fast_exp2(s1 - mn1);
+    const float p2 = fast_exp2(s2 - mn0), p3 = fast_exp2(s3 - mn1);
+    l0 = l0 * c0 + p0 + p2;
+    l1 = l1 * c1 + p1 + p3;
+    // P split into bf16 hi + lo (P rounded once misses the one-ulp limit),
+    // transposed into the B operand of O = Vᵀ·P
+    uint32_t ph0, pl0, ph1, pl1;
+    split_pair(p0, p1, ph0, pl0);
+    split_pair(p2, p3, ph1, pl1);
+    const uint32_t bh0 = transpose8(ph0), bh1 = transpose8(ph1);
+    const uint32_t bl0 = transpose8(pl0), bl1 = transpose8(pl1);
+    uint32_t vf[kMT][4];  // the hi products of every slice, then the lo ones
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      if (mt < nmt) {
+        o[mt][0] *= c0;
+        o[mt][1] *= c1;
+        o[mt][2] *= c0;
+        o[mt][3] *= c1;
+        ldsm_x4_t(vf[mt], Vt + v_off + mt * 16);
+        mma16816(o[mt], vf[mt], bh0, bh1);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+      if (mt < nmt) mma16816(o[mt], vf[mt], bl0, bl1);
+    __syncwarp();  // the stage is free for a later tile
+    if (jn < ntile && lane < kRows) {
+      if (in_page) npage = __shfl_sync(0x0000ffffu, npage, 0);
+      issue(jn, it % kStages, row_of(npos, npage), lane);
+    }
+  }
+
+  // this warp's sums over its lanes, then its (m, l, acc) per head into its
+  // own ring ([head][Dv + 2] floats), then the block merges its warps
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const int wst = Dv + 2;
+  float* wr = reinterpret_cast<float*>(ring);
+  float* w0 = wr + 2 * t * wst;
+  float* w1 = w0 + wst;
+  if (g == 0) {
+    w0[0] = m0;
+    w0[1] = l0;
+    w1[0] = m1;
+    w1[1] = l1;
+  }
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int d = mt * 16 + g;
+    if (mt < nmt && d < Dv) {
+      w0[2 + d] = o[mt][0];
+      w1[2 + d] = o[mt][1];
+    }
+    if (mt < nmt && d + 8 < Dv) {
+      w0[2 + d + 8] = o[mt][2];
+      w1[2 + d + 8] = o[mt][3];
+    }
+  }
+  __syncthreads();
+  const float* wb = reinterpret_cast<const float*>(smem_raw);
+  const int wstride = kStages * stage / 2;  // floats per warp's ring
+  for (int e = tid; e < ng * wst; e += kThreads) {
+    const int hh = e / wst, i = e - hh * wst;
+    float mb = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mb = fmaxf(mb, wb[w * wstride + hh * wst]);
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* r = wb + w * wstride + hh * wst;
+      sum += fast_exp2(r[0] - mb) * r[i];
+    }
+    a.scratch[(((int64_t)b * a.H + h0 + hh) * a.nsplit + split) * wst + i] =
+        i == 0 ? mb * kLn2 : sum;
+  }
+}
+
+template <int kKS, int kMT>
+int launch(const Args& a, int B, void* out, cudaStream_t st) {
+  static int done[16] = {0};
+  const int bytes = (kWarps * kStages * kRows * (a.kwa * 8 + 8 + a.Dv + 8) + kHeads * a.D) *
+                    (int)sizeof(bf16);
+  cudaError_t err = attn_tile::allow_smem(decode_bf16<kKS, kMT>, bytes, done);
+  if (err != cudaSuccess) return (int)err;
+  decode_bf16<kKS, kMT><<<dim3(a.nsplit, a.KV * a.nhg, B), kThreads, bytes, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  aqua_decode_combine<bf16><<<dim3(a.H, B), ::kThreads, 0, st>>>(
+      a.scratch, a.lengths, (bf16*)out, a.H, a.Dv, a.nsplit, 0);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gqa
+
 }  // namespace
 
-// Positions per partial block: the wrapper sizes the float32 scratch as
-// B * H * nsplit * (Dv + 2) with nsplit = ceil(positions walked / split).
+// Positions per partial block (both routes): the wrapper sizes the float32
+// scratch as B * H * nsplit * (Dv + 2) with nsplit = ceil(positions walked
+// / split).
 extern "C" int aqua_decode_split() { return kSplit; }
 
 // dtype: 0 = float32, 1 = bfloat16 (of q; of k, v and out too unless
 // quantized). page_table may be null (contiguous cache: P = B, ps = S).
 // k_scale / v_scale non-null: k and v are int8 with (P, sh) scales, out is
-// float32. part_idx non-null: (B, kp) participating logical pages. Returns
-// the cudaError_t of the launches.
+// float32. part_idx non-null: (B, kp) participating logical pages. bf16
+// without scales or participating pages takes the group route, which
+// needs D % 8 == 0, D <= 256 and Dv % 8 == 0 and 16-byte aligned rows.
+// Returns the cudaError_t of the launches.
 extern "C" int aqua_decode_launch(const void* q, const void* k, const void* v,
                                   const void* block_idx, const void* page_table,
                                   const void* part_idx, const void* k_scale,
@@ -264,6 +752,17 @@ extern "C" int aqua_decode_launch(const void* q, const void* k, const void* v,
   const int* bi = (const int*)block_idx;
   const int* ln = (const int*)lengths;
   float* sc = (float*)scratch;
+  if (dtype == 1 && !k_scale && !part_idx) {
+    if (D % 8 != 0 || D > 256 || Dv % 8 != 0) return (int)cudaErrorInvalidValue;
+    const int G = H / KV;
+    const gqa::Args a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                      (const __nv_bfloat16*)v, bi, (const int*)page_table, ln, sc,
+                      H, KV, D, Dv, nb_sel, bd, ps, np_lane,
+                      (G + gqa::kHeads - 1) / gqa::kHeads, nsplit,
+                      (D / 8 + 1) / 2 * 2, scale * attn_tile::kLog2e};
+    if (D <= 128 && Dv <= 128) return gqa::launch<8, 8>(a, B, out, st);
+    return gqa::launch<16, 16>(a, B, out, st);
+  }
   const Pages pg{(const int*)page_table, (const int*)part_idx, (const float*)k_scale,
                  (const float*)v_scale, ps, np_lane, kp, sh, sh > 1 ? 1 : 0};
   if (k_scale) {

@@ -52,41 +52,64 @@ def _rand(gen, *shape, dtype):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
+# (h, kv, d, k_ratio, block_dims): groups of G = 1, 2, 3, 4, 8 and 16
+# heads (16: two blocks per KV head on the bf16 route); 8-dim chunks shared
+# by several blocks (block_dims 2, 4) and blocks spanning chunks (16); head
+# dims past 128 (the bf16 route's wider tiles) and one that is not a
+# multiple of 16 (a padded output slice)
+DECODE_CASES = [(16, 8, 128, 0.75, 8), (8, 2, 64, 0.5, 8), (4, 4, 32, 1.0, 8),
+                (32, 8, 128, 0.75, 8), (16, 2, 64, 0.75, 8),
+                (12, 4, 64, 0.75, 8), (32, 2, 64, 0.75, 8),
+                (8, 2, 64, 0.5, 2), (8, 4, 64, 0.75, 4), (16, 4, 128, 0.5, 16),
+                (8, 4, 256, 0.75, 8), (8, 2, 72, 0.75, 8)]
+
+
+# page sizes 16 and 64 hold whole 16-position tiles; 8 splits a tile
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("paged", [False, True])
-@pytest.mark.parametrize("h,kv,d,k_ratio", [(16, 8, 128, 0.75),
-                                            (8, 2, 64, 0.5), (4, 4, 32, 1.0)])
-def test_decode_kernel_matches_plain(cuda, dtype, paged, h, kv, d, k_ratio):
-    gen = torch.Generator(device="cuda").manual_seed(d + h)
-    b, s, ps = 4, 300, 16
+@pytest.mark.parametrize("paged,ps", [(False, None), (True, 8), (True, 16),
+                                      (True, 64)])
+@pytest.mark.parametrize("h,kv,d,k_ratio,bd", DECODE_CASES)
+def test_decode_kernel_matches_plain(cuda, dtype, paged, ps, h, kv, d,
+                                     k_ratio, bd):
+    """Lengths: the full table, 1, not a multiple of a tile (8 or 128
+    positions), and 0 (the kernel writes zeros; the plain version the mean
+    of V, which no caller reads). Every head of a group matches the plain
+    version, where the group's heads select different dim-blocks."""
+    gen = torch.Generator(device="cuda").manual_seed(d + h + bd)
+    b, s = 6, 320
     q = _rand(gen, b, h, d, dtype=dtype)
     k = _rand(gen, b, kv, s + 20, d, dtype=dtype)[:, :, :s].contiguous()
     v = _rand(gen, b, kv, s, d, dtype=dtype)
-    lengths = torch.tensor([s, 1, 77, 129], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([s, 1, 77, 129, 0, 203], dtype=torch.int32,
+                           device=cuda)
+    block_idx = ops.decode_blocks(q, k_ratio, bd)
+    sel = block_idx.reshape(b, kv, h // kv, -1)
+    if h > kv and k_ratio < 1:
+        assert (sel != sel[:, :, :1]).any()
     before = LAUNCHES.copy()
     if paged:
-        npl = -(-s // ps)
+        npl = s // ps
         table = torch.randperm(b * npl, generator=gen, device=cuda).reshape(
             b, npl).to(torch.int32)
         k_pool = torch.zeros(b * npl, kv, ps, d, dtype=dtype, device=cuda)
         v_pool = torch.zeros_like(k_pool)
-        pad = npl * ps - s
-        kp = torch.nn.functional.pad(k, (0, 0, 0, pad))
-        vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
-        k_pool[table.long()] = kp.reshape(b, kv, npl, ps, d).transpose(1, 2)
-        v_pool[table.long()] = vp.reshape(b, kv, npl, ps, d).transpose(1, 2)
+        k_pool[table.long()] = k.reshape(b, kv, npl, ps, d).transpose(1, 2)
+        v_pool[table.long()] = v.reshape(b, kv, npl, ps, d).transpose(1, 2)
         table[1, 1:] = -1                  # lane 1 maps one page only
+        table[4] = -1                      # lane 4 (length 0) maps none
         out = ops.aqua_paged_decode(q, k_pool, v_pool, table, lengths,
-                                    k_ratio=k_ratio, block_dims=8)
+                                    k_ratio=k_ratio, block_dims=bd)
     else:
         table, k_pool, v_pool = None, k, v
-        out = ops.aqua_decode(q, k, v, lengths, k_ratio=k_ratio, block_dims=8)
-    ref = dk.aqua_decode_plain(q, k_pool, v_pool,
-                               ops.decode_blocks(q, k_ratio, 8), lengths,
-                               table, block_dims=8, scale=d ** -0.5)
+        out = ops.aqua_decode(q, k, v, lengths, k_ratio=k_ratio,
+                              block_dims=bd)
+    ref = dk.aqua_decode_plain(q, k_pool, v_pool, block_idx, lengths, table,
+                               block_dims=bd, scale=d ** -0.5)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (b, h, d)
-    assert _within_tol(out, ref, dtype)
+    attended = (lengths > 0)[:, None, None]
+    assert _within_tol(out, ref, dtype, valid=attended)
+    assert (out[lengths == 0] == 0).all()
     name = dk.body_name(paged)
     assert LAUNCHES - before == {name: 1}
 
@@ -262,7 +285,8 @@ def test_prefill_chunk_rows_bitwise_equal_monolithic(cuda):
 
 def test_bf16_kernels_reject_misaligned_views(cuda):
     """The bf16 kernels copy 16-byte pieces: a view whose base is 4
-    elements (8 bytes) off raises ValueError from both wrappers."""
+    elements (8 bytes) off raises ValueError from every wrapper (prefill,
+    flash, and decode for q̂, K̂ and V)."""
     b, h, kv, s, d = 1, 4, 2, 64, 64
     bf = torch.bfloat16
     k = torch.zeros(b, kv, s, d, device=cuda, dtype=bf)
@@ -279,6 +303,17 @@ def test_bf16_kernels_reject_misaligned_views(cuda):
     wide = torch.zeros(b, kv, s, d + 4, device=cuda, dtype=bf)
     with pytest.raises(ValueError):
         fk.flash_attention(q.clone(), wide[..., 4:], k)
+    # decode: q̂, K̂ or V contiguous but 8 bytes off a 16-byte boundary
+    qd = torch.zeros(b, h, d, device=cuda, dtype=bf)
+    lens = torch.full((b,), s, dtype=torch.int32, device=cuda)
+    idx = ops.decode_blocks(qd, 0.75, 8)
+
+    def off(x):
+        return torch.zeros(x.numel() + 4, device=cuda, dtype=bf)[4:].view(
+            x.shape)
+    for args in ((off(qd), k, k), (qd, off(k), k), (qd, k, off(k))):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            dk.aqua_decode_attention(*args, idx, lens, block_dims=8)
 
 
 def _pools(gen, p, kv, ps, d, dtype, quant):
