@@ -25,7 +25,10 @@ Phases, each of which raises (non-zero exit) on failure:
    rows of the monolithic call) and its participating-chunk walk
    (``_part_kernel``: B=1, S=4096, 8 of 32 key chunks of 128 per q-tile
    from ``chunk_participating_tiles`` on seeded scores; the identity table
-   held against the dense walk). One JSON line per kernel and geometry:
+   held against the dense walk; also under a 1024-key window); and the
+   prefill's window form at H2O-Danube-1.8B's geometry (H=32, KV=8,
+   D=Dv=80, B=1, S=8192, window 4096, causal; the no-window form timed on
+   the same inputs). One JSON line per kernel and geometry:
    max abs error and the worst ratio of error to the per-element
    tolerance, kernel and library ms (a CUDA graph of 20 calls replayed
    between two CUDA events; a failed capture fails the phase), the
@@ -41,7 +44,9 @@ Phases, each of which raises (non-zero exit) on failure:
    q_blk early; one participating key chunk swapped for a dropped one; a
    window that cuts the far keys and a causal diagonal shifted by one key
    (flash); one page's key scale doubled (int8); one participating page
-   swapped for a dropped one (participating pages).
+   swapped for a dropped one (participating pages); the prefill's window
+   one key wider, and its band starting one 64-key tile late (the
+   participating walk over each q-tile's band without its first tile).
 4. Serve Qwen3-0.6B at its full published width and depth (random bf16
    weights from a seeded generator, projections calibrated on
    ``corpora/calibration.txt``) through the continuous-batching engine, in
@@ -51,7 +56,16 @@ Phases, each of which raises (non-zero exit) on failure:
    prefill); AQUA on an int8 paged pool; hierarchical AQUA
    (page_keep_ratio 0.25 of 32 pages, prompts 512/1024) on a bf16 and on
    an int8 paged pool; chunked prefill (budget 256 tokens per step,
-   prompts 512/1024, every admission chunked) on the paged pool. The
+   prompts 512/1024, every admission chunked) on the paged pool. Three
+   more drives, 4 requests each, 64-token pages: H2O-Danube-1.8B at its
+   published width and depth (window 4096, max_seq 8192: 4096 ring slots)
+   under prompts of 4160/4480/4800/5120 tokens, every admission past the
+   window; Qwen3-0.6B under H2O (h2o_ratio 0.5 of max_seq 2048: a
+   1024-slot budget, 512 recents; prompts 512/1000/1024/1536); and
+   AQUA-Memory (s_ratio 0.3, block_dims 2: 90 of 128 dims kept, stored
+   as 96; prompts 128/512/1024), whose KV bytes are reported against the
+   full-width pool. Window and H2O decode run the masked-dense core, as
+   in JAX. The peak device memory of these three drives is reported. The
    launch counters are zeroed just before each drive and read just after
    it: each drive must have launched its prefill kernel once per layer
    per monolithic admission and per prefill chunk, its decode kernel once
@@ -59,8 +73,9 @@ Phases, each of which raises (non-zero exit) on failure:
    served by its reference (the kernels' plain versions, backend
    ``aqua-block-sparse-plain``; for AQUA off the ``dense`` backend): every
    admission's logits and those of the first decode steps (on lanes whose
-   tokens still agree) must match within a stated bf16 limit; the greedy
-   token match is reported. The chunked trace is also served
+   tokens, and under a window or H2O every layer's kept positions, still
+   agree) must match within a stated bf16 limit; the greedy token match,
+   and each lane's first step with other kept positions, are reported. The chunked trace is also served
    monolithically with the kernels: token match and inter-token gaps of
    both are reported. The int8 pool must take < 0.60 of the bf16 pool's
    bytes. A paged drive of 4 requests runs under ``torch.profiler`` for
@@ -485,9 +500,10 @@ def prefill_part_phase(geom: str, h: int, kvh: int, gen) -> dict:
     kw = dict(block_dims=BLOCK_DIMS, q_blk=blk, causal=True, scale=scale,
               k_blk=blk)
 
-    def kernel(kc_part=table):
+    def kernel(kc_part=table, window=None):
         return pk.aqua_prefill_attention(q, k, v, block_idx, lengths,
-                                         kc_part=kc_part, **kw)
+                                         kc_part=kc_part, window=window,
+                                         **kw)
 
     def plain():
         return pk.aqua_prefill_plain(q, k, v, block_idx, lengths,
@@ -523,6 +539,14 @@ def prefill_part_phase(geom: str, h: int, kvh: int, gen) -> dict:
         return F.scaled_dot_product_attention(qm, k, v, attn_mask=mask,
                                               scale=scale, enable_gqa=True)
 
+    # the walk under a window: each q-tile's chunks, cut to its band
+    win = 1024
+    wcheck = check_kernel(
+        kernel(window=win),
+        pk.aqua_prefill_plain(q, k, v, block_idx, lengths, kc_part=table,
+                              window=win, **kw),
+        {"window_off_by_one": kernel(window=win + 1)})
+    check["ok"] = check["ok"] and wcheck["ok"]
     pairs = float(mask.sum())
     ops = 2 * pairs * h * (nsel + d)
     chunks_read = int(part.any(dim=0).sum())
@@ -532,13 +556,92 @@ def prefill_part_phase(geom: str, h: int, kvh: int, gen) -> dict:
     return dict(name="aqua_prefill_part", geometry=geom,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, q_blk=blk, k_blk=blk,
                            kept_tiles=kept, key_chunks=nc),
-                **check, identity_vs_dense_tol_ratio=vs_dense,
+                **check, window_case=dict(window=win, **wcheck),
+                identity_vs_dense_tol_ratio=vs_dense,
                 identity_bitwise_equal_to_dense=bool(torch.equal(walk,
                                                                  dense)),
                 live_pair_share=pairs / (s * (s + 1) / 2),
                 phase_launches=launches,
                 **timings(kernel, plain, library, plain_iters=5),
                 bound_ms=bms, bound_by=by)
+
+
+def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
+                         s: int = 8192, window: int = 4096) -> dict:
+    """The window form of the prefill kernel at the sliding-window model's
+    geometry (H2O-Danube-1.8B: head_dim 80, window 4096), B=1, S=8192,
+    causal, beside the no-window form on the same inputs (the tiles the
+    band skips). Planted faults: the window one key wider, and the band
+    starting one key tile late (the participating walk over each q-tile's
+    band minus its first 64-key tile: the same kernel with that tile
+    skipped)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import aqua
+    from repro_torch.kernels import aqua_prefill as pk
+    from repro_torch.kernels.ops import round_k_dims
+
+    b, q_blk, tile = 1, 128, pk.KEY_TILE
+    dev, bf = "cuda", torch.bfloat16
+    q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
+    k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+    v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    scale = d ** -0.5
+    nsel = round_k_dims(d, K_RATIO, BLOCK_DIMS)
+    block_idx = aqua.chunk_topk_block_indices(q, nsel, BLOCK_DIMS, q_blk,
+                                              lengths).contiguous()
+    kw = dict(block_dims=BLOCK_DIMS, q_blk=q_blk, causal=True, scale=scale)
+
+    def kernel(window=window, **extra):
+        return pk.aqua_prefill_attention(q, k, v, block_idx, lengths,
+                                         window=window, **kw, **extra)
+
+    def plain():
+        return pk.aqua_prefill_plain(q, k, v, block_idx, lengths,
+                                     window=window, **kw)
+
+    # band one tile late: q-tile i's 64-key tiles from its band's first
+    # tile + 1 to its diagonal, as a participation table of 64-key chunks
+    nqc, nkc = s // q_blk, s // tile
+    first = (torch.arange(nqc, device=dev) * q_blk - window + 1).clamp(
+        min=0) // tile
+    last = ((torch.arange(nqc, device=dev) + 1) * q_blk - 1) // tile
+    c = torch.arange(nkc, device=dev)[None, :]
+    keep = (c > first[:, None]) & (c <= last[:, None])
+    late = torch.where(keep, c.expand(nqc, -1), torch.full_like(
+        c.expand(nqc, -1), nkc))
+    late = torch.sort(late, dim=-1)[0]
+    late = torch.where(late == nkc, torch.full_like(late, -1), late)[
+        None, :, :int(keep.sum(-1).max())].to(torch.int32).contiguous()
+    check = check_kernel(kernel(), plain(), {
+        "window_off_by_one": kernel(window=window + 1),
+        "band_starts_one_tile_late": kernel(kc_part=late, k_blk=tile)})
+    sel = torch.zeros(b, h, nqc, d // BLOCK_DIMS, device=dev)
+    sel.scatter_(-1, block_idx.long(), 1.0)
+    qm = q * sel.repeat_interleave(BLOCK_DIMS, -1).repeat_interleave(
+        q_blk, 2).to(bf)
+    pos = torch.arange(s, device=dev)
+    band = (pos[:, None] >= pos[None, :]) & \
+        (pos[None, :] > pos[:, None] - window)
+
+    def library():
+        return F.scaled_dot_product_attention(qm, k, v, attn_mask=band,
+                                              scale=scale, enable_gqa=True)
+
+    # the live (query, key) pairs of the band
+    pairs = float(sum(min(i + 1, window) for i in range(s)))
+    ops = 2 * pairs * h * (nsel + d)
+    nbytes = 2 * (b * h * s * nsel + 2 * b * kvh * s * d + b * h * s * d)
+    bms, by = bound(nbytes, ops)
+    times = timings(kernel, plain, library, plain_iters=3)
+    no_window_ms = graph_ms(lambda: kernel(window=None))
+    return dict(name="aqua_prefill", geometry=geom, form="window",
+                shape=dict(B=b, H=h, KV=kvh, S=s, D=d, Dv=d, q_blk=q_blk,
+                           window=window),
+                **check, **times, no_window_ms=no_window_ms,
+                live_pair_share=pairs / (s * (s + 1) / 2), bound_ms=bms,
+                bound_by=by, peak_bytes=torch.cuda.max_memory_allocated())
 
 
 def flash_phase(geom: str, h: int, kvh: int, gen) -> dict:
@@ -725,12 +828,25 @@ def reset_counts() -> None:
     LAUNCHES.clear()
 
 
-def serve_drive(eng, reqs) -> dict:
+def kept_positions(eng):
+    """(L, B, S) the positions each layer's cache holds per lane after the
+    latest step, sorted (a paged state's logical slots)."""
+    import torch
+    from repro_torch.core import kvcache as kv
+    layers = eng.last_state.layers
+    return torch.stack([torch.sort(kv.gather_positions(layers.layer(i)),
+                                   dim=-1)[0]
+                        for i in range(layers.page_table.shape[0])])
+
+
+def serve_drive(eng, reqs, positions: bool = False) -> dict:
     """Serve ``reqs``; returns tokens per uid, each admission's logits, the
     logits of the first decode steps with each lane's uid and the tokens
-    it held at that step, and wall-clock figures (the host reads every
-    sampled token, so each step's time includes its device work). Every
-    admission's and every decode step's logits must be finite."""
+    it held at that step (with ``positions``, also the positions every
+    layer's cache held: H2O evicts by score), and wall-clock figures (the
+    host reads every sampled token, so each step's time includes its
+    device work). Every admission's and every decode step's logits must
+    be finite."""
     import torch
     tokens, admit_logits, steps = {}, {}, []
     torch.cuda.synchronize()
@@ -750,7 +866,9 @@ def serve_drive(eng, reqs) -> dict:
                 uids = [int(u) for u in eng.last_lanes.uid]
                 steps.append(dict(logits=logits.float().clone(), uids=uids,
                                   held={u: tuple(tokens[u]) for u in uids
-                                        if u in tokens}))
+                                        if u in tokens},
+                                  positions=kept_positions(eng)
+                                  if positions else None))
             else:
                 steps.append(None)
         tokens.setdefault(ev.uid, []).append(ev.token)
@@ -777,8 +895,10 @@ def compare_logits(run: dict, ref: dict, max_new: int) -> dict:
     """Logits of the kernel drive against the plain drive of the same
     trace: every admission (same prompt), and in each checked decode step
     every lane that was still generating and held the same tokens in both
-    drives. Each row must stay within LOGIT_RTOL of its largest
-    magnitude; raises otherwise."""
+    drives — and, where the drives recorded them (H2O), the same kept
+    positions in every layer: the two drives' hidden states differ by
+    bf16 noise, so near-tied scores may evict differently. Each row must
+    stay within LOGIT_RTOL of its largest magnitude; raises otherwise."""
     def row_check(got, want, what):
         err = (got - want).abs().max().item()
         limit = LOGIT_RTOL * want.abs().max().item()
@@ -786,7 +906,7 @@ def compare_logits(run: dict, ref: dict, max_new: int) -> dict:
         return err / limit
     worst_admit = max(row_check(run["admit_logits"][u], want, f"admit {u}")
                       for u, want in ref["admit_logits"].items())
-    worst_step, rows = 0.0, 0
+    worst_step, rows, first_divergent = 0.0, 0, {}
     assert len(run["step_logits"]) == len(ref["step_logits"]) \
         == DECODE_STEPS_CHECKED
     for i, (got, want) in enumerate(zip(run["step_logits"],
@@ -796,6 +916,11 @@ def compare_logits(run: dict, ref: dict, max_new: int) -> dict:
             held = want["held"].get(u)
             if held is None or len(held) >= max_new \
                     or got["held"].get(u) != held:
+                continue
+            if want["positions"] is not None and not bool(
+                    (got["positions"][:, lane]
+                     == want["positions"][:, lane]).all()):
+                first_divergent.setdefault(lane, i + 1)
                 continue
             worst_step = max(worst_step, row_check(
                 got["logits"][lane], want["logits"][lane],
@@ -808,6 +933,7 @@ def compare_logits(run: dict, ref: dict, max_new: int) -> dict:
                 admit_worst_err_over_limit=worst_admit,
                 decode_rows_compared=rows,
                 decode_worst_err_over_limit=worst_step,
+                first_step_with_other_positions_by_lane=first_divergent,
                 greedy_token_match=sum(a == b for a, b in pairs) / len(pairs),
                 first_token_match=sum(
                     run["tokens"][u][0] == ref["tokens"][u][0]
@@ -851,27 +977,35 @@ def serve_phase(card: str) -> dict:
     from repro_torch.models import build_model
     from repro_torch.serving import ContinuousBatchingEngine, poisson_trace
 
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"),
-                              aqua=AquaConfig(k_ratio=K_RATIO,
-                                              block_dims=BLOCK_DIMS),
-                              dtype="bfloat16", param_dtype="bfloat16")
+    aqua = AquaConfig(k_ratio=K_RATIO, block_dims=BLOCK_DIMS)
     t0 = time.perf_counter()
-    model = build_model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
 
-    def fwd_cap(p, batch):
-        toks = torch.from_numpy(batch["tokens"]).cuda()
-        return model.forward(p, {"tokens": toks}, capture=True)[1]
-    proj = calibrate(fwd_cap, params, calibration_batches(
-        cfg.vocab_size, os.path.join(ROOT, "corpora", "calibration.txt"),
-        num_batches=2, batch=2, seq=32), cfg)
+    def load(name, seed):
+        """A model at its published width and depth with random bf16
+        weights from ``seed``, and projections calibrated on the corpus."""
+        mcfg = dataclasses.replace(get_config(name), aqua=aqua,
+                                   dtype="bfloat16", param_dtype="bfloat16")
+        model = build_model(mcfg)
+        mparams = model.init(torch.Generator(device="cuda").manual_seed(seed))
+
+        def fwd_cap(p, batch):
+            toks = torch.from_numpy(batch["tokens"]).cuda()
+            return model.forward(p, {"tokens": toks}, capture=True)[1]
+        mproj = calibrate(fwd_cap, mparams, calibration_batches(
+            mcfg.vocab_size, os.path.join(ROOT, "corpora",
+                                          "calibration.txt"),
+            num_batches=2, batch=2, seq=32), mcfg)
+        return mcfg, mparams, mproj
+    cfg, params, proj = load("qwen3-0.6b", 0)
+    danube, danube_params, danube_proj = load("h2o-danube-1.8b", 1)
+    weights = {cfg.name: (params, proj),
+               danube.name: (danube_params, danube_proj)}
     setup_s = time.perf_counter() - t0
     log_time("serve set-up (weights, calibration)")
 
-    def trace(n, prompts=(128, 512, 1024)):
+    def trace(n, prompts=(128, 512, 1024), vocab=cfg.vocab_size):
         return poisson_trace(n, mean_interarrival=4.0, prompt_lens=prompts,
-                             max_new_tokens=32, vocab_size=cfg.vocab_size,
-                             seed=0)
+                             max_new_tokens=32, vocab_size=vocab, seed=0)
     paged = ServingConfig(max_lanes=8, max_seq=2048, max_new_tokens=32,
                           cache=CacheSpec(page_size=64, prefix_sharing=False))
     int8 = QuantSpec(kv_dtype="int8")
@@ -881,6 +1015,21 @@ def serve_phase(card: str) -> dict:
     # every admission chunks: 512 and 1024 tokens in chunks of at most 256
     # (a multiple of the bucket, the page and prefill_q_blk 128)
     chunked = dataclasses.replace(paged, prefill_budget_tokens=256)
+    # sliding window: Danube's 4096-slot rings (64 pages per lane) under
+    # prompts past the window, so the window masks inside the prefill and
+    # decode starts on a wrapped ring (decode: the masked-dense core)
+    swa = ServingConfig(max_lanes=4, max_seq=8192, max_new_tokens=32,
+                        cache=CacheSpec(page_size=64, prefix_sharing=False))
+    swa_prompts = (4160, 4480, 4800, 5120)
+    # H2O: a 1024-slot budget (16 pages) and 512 recents; the prompts
+    # never evict, evict mid-decode, from the first step, and choose heavy
+    # hitters at prefill
+    h2o_cfg = dataclasses.replace(cfg, aqua=dataclasses.replace(
+        aqua, h2o_ratio=0.5, h2o_recent_frac=0.5))
+    h2o_prompts = (512, 1000, 1024, 1536)
+    # AQUA-Memory: 90 of 128 dims kept (blocks of 2), stored as 96
+    memory_cfg = dataclasses.replace(cfg, aqua=dataclasses.replace(
+        aqua, s_ratio=0.3, block_dims=2))
     # (path, model config, serving, requests, prompts, reference backend,
     #  the kernel launched once per layer per admission, and per step)
     drives = (
@@ -901,35 +1050,59 @@ def serve_phase(card: str) -> dict:
          long_prompts, "aqua-block-sparse-plain", "aqua_prefill",
          "aqua_paged_part_quant_decode"),
         ("chunked_paged", cfg, chunked, 4, long_prompts,
+         "aqua-block-sparse-plain", "aqua_prefill", "aqua_paged_decode"),
+        ("swa_paged", danube, swa, 4, swa_prompts,
+         "aqua-block-sparse-plain", "aqua_prefill", None),
+        ("h2o_paged", h2o_cfg, dataclasses.replace(paged, max_lanes=4), 4,
+         h2o_prompts, "aqua-block-sparse-plain", "aqua_prefill", None),
+        ("aqua_memory_paged", memory_cfg, paged, 4, None,
          "aqua-block-sparse-plain", "aqua_prefill", "aqua_paged_decode"))
 
     def drive(mcfg, serving, n, prompts, backend=None) -> dict:
         """One drive with the counters zeroed just before it and read just
-        after it."""
+        after it, and the peak device memory over it: the card's, and
+        above what was allocated when it started (the weights)."""
+        mparams, mproj = weights[mcfg.name]
         eng = ContinuousBatchingEngine(
-            mcfg, params, None if mcfg.aqua is None else proj,
+            mcfg, mparams, None if mcfg.aqua is None else mproj,
             serving=serving, backend=backend)
-        reqs = trace(n) if prompts is None else trace(n, prompts)
+        reqs = (trace(n, vocab=mcfg.vocab_size) if prompts is None
+                else trace(n, prompts, mcfg.vocab_size))
+        evicting = eng.eviction != "none"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
         reset_counts()
-        run = serve_drive(eng, reqs)
+        run = serve_drive(eng, reqs, positions=evicting)
         run["launches"], run["engine"] = launch_counts(), eng
+        run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        run["drive_peak_memory_bytes"] = run["peak_memory_bytes"] - start
         assert len(run["tokens"]) == n, len(run["tokens"])
         for toks in run["tokens"].values():
             assert len(toks) == 32, len(toks)
-            assert all(0 <= t < cfg.vocab_size for t in toks)
+            assert all(0 <= t < mcfg.vocab_size for t in toks)
+        if evicting:
+            # a ring wrapped / H2O evicted: positions past the slots held
+            run["eviction"], run["slots"] = eng.eviction, eng._num_slots
+            run["max_position_held"] = int(
+                run["step_logits"][-1]["positions"].max())
+            assert run["max_position_held"] >= eng._num_slots, run["slots"]
         return run
 
-    layers = cfg.num_layers
     runs = {}
     for (path, mcfg, serving, n, prompts, ref_backend, admit_kernel,
          step_kernel) in drives:
         ref = drive(mcfg, serving, n, prompts, backend=ref_backend)
         assert sum(ref["launches"].values()) == 0, (path, ref["launches"])
+        del ref["engine"]             # its cache is freed before the next
         run = drive(mcfg, serving, n, prompts)
+        run["reference_drive_peak_memory_bytes"] = ref[
+            "drive_peak_memory_bytes"]
         if serving.prefill_budget_tokens is not None:
             assert run["chunked_admissions"] == n, run["chunked_admissions"]
             assert run["prefill_chunks"] > n, run["prefill_chunks"]
         want = dict.fromkeys(KERNELS, 0)
+        layers = mcfg.num_layers
         # once per layer per monolithic admission and per prefill chunk
         want[admit_kernel] = layers * (run["admissions"]
                                        - run["chunked_admissions"]
@@ -965,6 +1138,26 @@ def serve_phase(card: str) -> dict:
     int8_share = runs["int8_paged"]["cache_bytes"] / runs["paged"][
         "cache_bytes"]
     assert int8_share < 0.60, int8_share
+    # AQUA-Memory: the padded K̂ pool against the full-width one
+    mem = runs["aqua_memory_paged"]
+    att, maq = memory_cfg.attention, memory_cfg.aqua
+    mem["kv_bytes"] = dict(
+        bytes=mem["cache_bytes"], full_width_bytes=runs["paged"][
+            "cache_bytes"],
+        share=mem["cache_bytes"] / runs["paged"]["cache_bytes"],
+        head_dim=att.head_dim, kept_dims=maq.kept_dims(att.head_dim),
+        stored_dims=mem["engine"].model._cache_dims()[0])
+    log(f"[serve aqua_memory_paged] KV bytes {mem['cache_bytes']} of the "
+        f"full-width pool's {runs['paged']['cache_bytes']} "
+        f"({mem['kv_bytes']['share']:.4f}); K̂ {mem['kv_bytes']['kept_dims']}"
+        f" dims stored as {mem['kv_bytes']['stored_dims']} of "
+        f"{att.head_dim} on {card}")
+    for key in ("swa_paged", "h2o_paged", "aqua_memory_paged"):
+        log(f"[serve {key}] peak device memory "
+            f"{runs[key]['peak_memory_bytes']} bytes, "
+            f"{runs[key]['drive_peak_memory_bytes']} over the drive's start "
+            f"(its plain reference: "
+            f"{runs[key]['reference_drive_peak_memory_bytes']}) on {card}")
     # one more paged drive, traced: where the device time goes
     prof = profiled_drive(runs["paged"]["engine"], trace(4))
     log(f"[serve paged, traced] device idle share {prof['idle_share']:.3f} "
@@ -980,6 +1173,10 @@ def serve_phase(card: str) -> dict:
         log(f"[serve {key}] decode step ms {run['decode_step_ms']:.3f} "
             f"on {card}")
     result = dict(model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+                  models={m.name: dict(layers=m.num_layers, d_model=m.d_model,
+                                       head_dim=m.attention.head_dim,
+                                       window=m.attention.window)
+                          for m in (cfg, danube)},
                   setup_s=setup_s, logit_rtol=LOGIT_RTOL,
                   profile_paged=prof, int8_cache_bytes_share=int8_share,
                   **summary)
@@ -1038,6 +1235,9 @@ def main() -> int:
         phases.append(prefill_chunk_phase(geom, h, kvh, gen))
         phases.append(prefill_part_phase(geom, h, kvh, gen))
         phases.append(flash_phase(geom, h, kvh, gen))
+    torch.cuda.reset_peak_memory_stats()
+    window_phase = prefill_window_phase("h2o-danube-1.8b", 32, 8, 80, gen)
+    phases.append(window_phase)
     for p in phases:
         log(p)
     log({"read_rate": read_rate()})
@@ -1090,6 +1290,16 @@ def main() -> int:
             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             achieved_gbs=p.get("achieved_gbs"), library_ms=p["library_ms"]))
+    # the window form of the prefill, at the windowed model's geometry,
+    # launched by the sliding-window drive
+    wp = window_phase
+    next(k for k in kernels if k["name"] == "aqua_prefill")["window_form"] = \
+        dict(geometry=wp["geometry"], shape=wp["shape"],
+             launches=serve["swa_paged"]["launches"]["aqua_prefill"],
+             max_abs_err=wp["max_abs_err"], ms=wp["ms"],
+             plain_ms=wp["plain_ms"], bound_ms=wp["bound_ms"],
+             bound_by=wp["bound_by"], library_ms=wp["library_ms"],
+             no_window_ms=wp["no_window_ms"])
     assert sorted(k["name"] for k in kernels) == sorted(KERNELS)
     log(card)                      # name, power.limit as nvidia-smi prints
     log({"kernels": kernels})

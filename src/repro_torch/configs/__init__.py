@@ -11,12 +11,13 @@ from typing import Dict
 from repro_torch.configs.base import (  # noqa: F401
     AquaConfig, AttentionConfig, CacheSpec, ModelConfig, QuantSpec,
     ServingConfig, SparsitySpec, reduce_config, resolve_cache_specs,
-    resolve_sparsity_spec,
+    resolve_eviction, resolve_sparsity_spec,
 )
 
 _MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
     "llama3.1-8b": "llama31_8b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
 }
 ALL_ARCHS = tuple(_MODULES)
 

@@ -24,9 +24,11 @@ class AquaConfig:
     # AQUA-Memory static slice: fraction of trailing principal dims dropped
     # before caching. 0.0 disables AQUA-Memory.
     s_ratio: float = 0.0
-    # H2O heavy-hitter budget as a fraction of the context (1.0 = off).
-    # The port does not serve H2O yet; the engine raises below 1.0.
+    # H2O heavy-hitter cache budget as a fraction of the context (1.0 =
+    # off), and the fraction of that budget reserved for the most recent
+    # tokens.
     h2o_ratio: float = 1.0
+    h2o_recent_frac: float = 0.5
     # Magnitude selection granularity in dims. 1 is the paper's per-dim
     # selection: the block-sparse backend then runs the flash kernel on the
     # masked q̂ (prefill) and the masked-dense core (decode), as in JAX.
@@ -56,8 +58,8 @@ class AttentionConfig:
     num_heads: int
     num_kv_heads: int
     head_dim: int
-    # sliding window: not ported yet (prefill/decode raise when set)
-    window: Optional[int] = None
+    kind: str = "full"            # full | swa (sliding-window) | local
+    window: Optional[int] = None  # for swa / local: keys kpos > qpos - window
     qk_norm: bool = False
     rope_theta: float = 10000.0
     # Backend registry key (repro_torch.core.attention): "auto" | "dense" |
@@ -116,17 +118,22 @@ class CacheSpec:
     slot stripes into a global page pool with per-lane page tables; None
     keeps the contiguous layout. ``num_pages`` sizes the pool (None =
     lane-stripe parity). The port does not share prefixes yet: the engine
-    raises for ``prefix_sharing=True`` with a paged cache."""
+    raises for ``prefix_sharing=True`` with a paged cache. ``eviction``
+    names the slot policy; "auto" derives it from the model config
+    (:func:`resolve_eviction`), and an explicit name that contradicts the
+    model is refused, as in the JAX package."""
 
     page_size: Optional[int] = None
     num_pages: Optional[int] = None
     prefix_sharing: bool = True
+    eviction: str = "auto"        # auto | none | ring | h2o
 
     @property
     def paged(self) -> bool:
         return self.page_size is not None
 
     def validate(self) -> None:
+        assert self.eviction in ("auto", "none", "ring", "h2o"), self.eviction
         if self.page_size is not None:
             assert self.page_size >= 1
             if self.num_pages is not None:
@@ -192,6 +199,23 @@ class SparsitySpec:
     def validate(self) -> None:
         assert 0.0 < self.page_keep_ratio <= 1.0, self.page_keep_ratio
         assert self.pin_recent_pages >= 1, self.pin_recent_pages
+
+
+def resolve_eviction(cache: CacheSpec, attention: AttentionConfig,
+                     aqua: Optional[AquaConfig]) -> str:
+    """The slot-eviction policy a model config implies: "h2o" when AQUA's
+    ``h2o_ratio`` < 1 (combined with a window ring when the attention is
+    windowed too), "ring" for a windowed attention, "none" otherwise.
+    ``cache.eviction`` "auto" takes it; an explicit name must equal it."""
+    h2o = aqua is not None and aqua.enabled and aqua.h2o_ratio < 1.0
+    policy = ("h2o" if h2o else "ring" if attention.window is not None
+              else "none")
+    if cache.eviction not in ("auto", policy):
+        raise ValueError(
+            f"CacheSpec(eviction={cache.eviction!r}) contradicts the model's "
+            f"slot policy {policy!r} (set by AttentionConfig.window and "
+            "AquaConfig.h2o_ratio); use eviction='auto'")
+    return policy
 
 
 def resolve_cache_specs(serving: "ServingConfig"

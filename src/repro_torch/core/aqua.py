@@ -98,6 +98,27 @@ def chunk_topk_block_indices(q_hat: torch.Tensor, k_dims: int,
     return torch.sort(topk_indices(bmag, kb), dim=-1)[0].to(torch.int32)
 
 
+def stored_dims(aqua, head_dim: int) -> int:
+    """Width of the stored (cached) K̂ and of q̂ under AQUA: the kept dims
+    (``aqua.kept_dims``), padded with zero columns up to a multiple of 8
+    where the selection is by whole dim-blocks of them — the bf16 kernels
+    copy 16-byte pieces, and a zero column adds exactly 0 to every score.
+    Other kept widths (per-dim selection, or blocks that do not tile the
+    kept dims) run the masked-dense paths and stay unpadded."""
+    kept = aqua.kept_dims(head_dim)
+    if aqua.block_dims > 1 and kept % aqua.block_dims == 0:
+        return ceil_to(kept, 8)
+    return kept
+
+
+def stored_projection(p: torch.Tensor, aqua, head_dim: int) -> torch.Tensor:
+    """A projection (…, D, D) cut to its kept columns and padded with zero
+    columns to :func:`stored_dims`: (…, D, width). Projected once with it,
+    q̂ and K̂ come out in stored form with exact zeros in the padding."""
+    kept, width = aqua.kept_dims(head_dim), stored_dims(aqua, head_dim)
+    return torch.nn.functional.pad(p[..., :kept], (0, width - kept))
+
+
 def project(x: torch.Tensor, p: Optional[torch.Tensor]) -> torch.Tensor:
     """q̂ = q P (runtime path, used when RoPE prevents folding)."""
     if p is None:

@@ -20,7 +20,9 @@ and the cache and return (B, KV, G, Dv). Built-in backends:
   versions for CPU tensors). With ``block_dims`` <= 1 (the paper's per-dim
   selection) or a kept head dim that is not a multiple of it, prefill runs
   the flash kernel on the masked q̂ and decode the masked-dense core, as in
-  JAX;
+  JAX. Decode runs the kernel for the full-cache policy only: window rings
+  and H2O eviction decode on the masked-dense core (per-slot position
+  masks, and the weights H2O accumulates), as in JAX;
 * ``aqua-block-sparse-plain`` — the same selection and arithmetic through
   the kernels' plain versions on any device: the reference that a run on
   the GPU compares the kernels against. Never chosen automatically.
@@ -33,6 +35,19 @@ the masked-dense reference the JAX package serves chunk steps on.
 
 ``auto`` resolves as the JAX package does where it prefers its kernels:
 ``aqua-block-sparse`` with AQUA on, ``flash`` with AQUA off.
+
+Stored width under AQUA (``aqua.stored_dims``): q̂ and K̂ keep the
+``kept_dims`` leading projected dims, padded with zero columns to a
+multiple of 8 when the selection is by whole dim-blocks (AQUA-Memory
+slices such as 90 of 128 dims), so the bf16 kernels can read them. A zero
+column adds exactly 0 to every score, and selection ranks only the real
+blocks (``kept`` in ``kernels/ops.py``), so scores and selections are the
+unpadded ones.
+
+Cache policies (``kvcache``): full, sliding-window ring, H2O, and both.
+:func:`build_cache_from_prefill` places a prefill's tokens as each policy
+does; :func:`decode_attention` picks the slot, writes, attends and, under
+H2O, accumulates the step's attention mass.
 
 Conventions: x (B, S, d_model); q (B, S, KV, G, D); k, v (B, S, KV, D);
 proj P (KV, D, D) per layer.
@@ -47,6 +62,7 @@ import torch
 
 from repro_torch.configs.base import AquaConfig, AttentionConfig
 from repro_torch.core import aqua as aqua_lib
+from repro_torch.core import h2o as h2o_lib
 from repro_torch.core import kvcache as kv
 from repro_torch.core import selection
 from repro_torch.kernels import ops as kops
@@ -161,26 +177,53 @@ def _aqua_on(aqua: Optional[AquaConfig]) -> bool:
     return aqua is not None and aqua.enabled
 
 
+def _stored(x: torch.Tensor, aqua: AquaConfig, head_dim: int
+            ) -> torch.Tensor:
+    """A projected q̂ or k̂ (…, E) in stored form (…, ``stored_dims``):
+    its kept dims, then zeros. ``E`` is the projection's width: the full
+    head dim, or the stored width of a projection the engine padded once
+    (``aqua.stored_projection``), whose padding is already zero."""
+    kept = aqua.kept_dims(head_dim)
+    width = aqua_lib.stored_dims(aqua, head_dim)
+    if x.shape[-1] >= width:
+        x = x[..., :width]
+    else:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    if kept < width:
+        x[..., kept:] = 0
+    return x
+
+
 def _aqua_project(q, k, aqua: Optional[AquaConfig], proj, head_dim: int):
-    """Project and statically slice q̂, k̂ (no magnitude mask)."""
+    """Project and statically slice q̂, k̂ to the stored width (no
+    magnitude mask)."""
     if not _aqua_on(aqua):
         return q, k
-    kept = aqua.kept_dims(head_dim)
-    return project_q(q, proj)[..., :kept], project_k(k, proj)[..., :kept]
+    return (_stored(project_q(q, proj), aqua, head_dim),
+            _stored(project_k(k, proj), aqua, head_dim))
 
 
 def _aqua_mask(qh, aqua: AquaConfig, head_dim: int):
-    return aqua_lib.magnitude_mask(qh, aqua.topk_dims(head_dim),
-                                   block_dims=aqua.block_dims)
+    """Per-query magnitude mask over the stored width: the top dims of the
+    kept (real) ones; padding columns are 0."""
+    kept = aqua.kept_dims(head_dim)
+    m = aqua_lib.magnitude_mask(qh[..., :kept], aqua.topk_dims(head_dim),
+                                block_dims=aqua.block_dims)
+    return torch.nn.functional.pad(m, (0, qh.shape[-1] - kept))
 
 
 def _chunk_tile_mask(qh, aqua: AquaConfig, q_blk: int,
-                     lengths: Optional[torch.Tensor]) -> torch.Tensor:
+                     lengths: Optional[torch.Tensor],
+                     head_dim: Optional[int] = None) -> torch.Tensor:
     """Per-*tile* dim-block mask reproducing the block-sparse prefill's
     chunk-aggregated selection on the reference layout: all ``q_blk``
     queries of a tile share the block set their summed |q̂| picks.
-    qh (B, T, KV, G, D) projected queries; ``lengths`` (B,) valid rows
-    (padding is not aggregated). Returns a 0/1 mask shaped like ``qh``."""
+    qh (B, T, KV, G, D) projected queries in stored form; ``lengths`` (B,)
+    valid rows (padding is not aggregated). Returns a 0/1 mask shaped
+    like ``qh`` (0 on padding columns; ``head_dim`` None: no padding)."""
+    width = qh.shape[-1]
+    if head_dim is not None:
+        qh = qh[..., :aqua.kept_dims(head_dim)]
     b, t, kvh, g, d = qh.shape
     bd = aqua.block_dims
     if lengths is None:
@@ -194,7 +237,8 @@ def _chunk_tile_mask(qh, aqua: AquaConfig, q_blk: int,
                         dtype=qh.dtype, device=qh.device)
     bmask.scatter_(-1, bidx.long(), 1.0)
     mask = bmask.repeat_interleave(bd, dim=-1).repeat_interleave(q_blk, dim=2)
-    return mask[:, :, :t].reshape(b, kvh, g, t, d).permute(0, 3, 1, 2, 4)
+    mask = mask[:, :, :t].reshape(b, kvh, g, t, d).permute(0, 3, 1, 2, 4)
+    return torch.nn.functional.pad(mask, (0, width - d))
 
 
 # ---------------------------------------------------------------------------
@@ -256,15 +300,18 @@ def resolve_backend(name: str = "auto",
     return be
 
 
-def _whole_blocks(aqua: AquaConfig, dk: int) -> bool:
+def _whole_blocks(aqua: AquaConfig, head_dim: int) -> bool:
     """Whether the selection is by whole dim-blocks of the kept head dim
-    ``dk``, which the block-sparse kernels need; otherwise prefill runs
-    the backend's ``per_dim`` twin and decode the masked-dense core."""
-    return aqua.block_dims > 1 and dk % aqua.block_dims == 0
+    (``aqua.kept_dims(head_dim)``), which the block-sparse kernels need;
+    otherwise prefill runs the backend's ``per_dim`` twin and decode the
+    masked-dense core."""
+    return (aqua.block_dims > 1
+            and aqua.kept_dims(head_dim) % aqua.block_dims == 0)
 
 
 def _dense_prefill(qq, kk, v, *, cfg, aqua, positions, lengths, causal):
-    """Materialized-score reference (positions are 1-D here)."""
+    """Materialized-score reference (positions are 1-D here), with the
+    sliding window of ``cfg`` on causal calls, as JAX's ``dense-jnp``."""
     scores = torch.einsum("bskgd,btkd->bkgst", qq, kk)
     scores = scores.float() / float(cfg.head_dim) ** 0.5
     s = qq.shape[1]
@@ -272,6 +319,8 @@ def _dense_prefill(qq, kk, v, *, cfg, aqua, positions, lengths, causal):
     mask = torch.ones(1, s, s, dtype=torch.bool, device=qq.device)
     if causal:
         mask = mask & (pos[:, None] >= pos[None, :])[None]
+        if cfg.window is not None:
+            mask = mask & (pos[None, :] > pos[:, None] - cfg.window)[None]
     if lengths is not None:
         mask = mask & (pos[None, None, :] < lengths[:, None, None])
     scores = torch.where(mask[:, None, None], scores,
@@ -315,19 +364,20 @@ def _block_sparse_backend(name: str, prefill_kernel, decode_kernel,
     """AQUA block-sparse backend over the given kernel functions, with the
     shared selection of ``ops.prefill_blocks`` / ``ops.decode_blocks``
     (paged: ``selection.build_decode_plan``, which adds the participating
-    pages of hierarchical AQUA). Scores use the FULL head_dim. Paged
-    decode hands the kernel the page table (and an int8 pool's scales):
-    no lane view is gathered."""
+    pages of hierarchical AQUA), over the real (kept) dims of the stored
+    q̂. Scores use the FULL head_dim. Prefill passes the sliding window of
+    ``cfg`` to the kernel. Paged decode hands the kernel the page table
+    (and an int8 pool's scales): no lane view is gathered."""
 
     def prefill(qh, kh, v, *, cfg, aqua, positions, lengths, causal):
         b, s, kvh, g, dk = qh.shape
         qf = qh.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, dk)
-        block_idx, lens, q_blk = kops.prefill_blocks(
-            qf, lengths, aqua.k_ratio, aqua.block_dims, aqua.prefill_q_blk)
-        of = prefill_kernel(qf, kh.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                            block_idx, lens, block_dims=aqua.block_dims,
-                            q_blk=q_blk, causal=causal,
-                            scale=1.0 / float(cfg.head_dim) ** 0.5)
+        of = kops.aqua_prefill(
+            qf, kh.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), lengths,
+            k_ratio=aqua.k_ratio, block_dims=aqua.block_dims,
+            q_blk=aqua.prefill_q_blk, causal=causal, window=cfg.window,
+            scale=1.0 / float(cfg.head_dim) ** 0.5,
+            kept=aqua.kept_dims(cfg.head_dim), prefill_fn=prefill_kernel)
         return of.reshape(b, kvh, g, s, -1).permute(0, 3, 1, 2, 4), None
 
     def chunk(qh, k_stripe, v_stripe, *, cfg, aqua, q_offset, lengths,
@@ -343,7 +393,8 @@ def _block_sparse_backend(name: str, prefill_kernel, decode_kernel,
         of, _ = kops.aqua_prefill_chunk(
             qf, k_stripe, v_stripe, lengths, q_offset=q_offset,
             k_ratio=aqua.k_ratio, block_dims=aqua.block_dims, q_blk=q_blk,
-            scale=1.0 / float(cfg.head_dim) ** 0.5, prefill_fn=prefill_kernel)
+            scale=1.0 / float(cfg.head_dim) ** 0.5,
+            kept=aqua.kept_dims(cfg.head_dim), prefill_fn=prefill_kernel)
         return of.reshape(b, kvh, g, t, -1).permute(0, 3, 1, 2, 4)
 
     def lengths_of(cache):
@@ -355,7 +406,8 @@ def _block_sparse_backend(name: str, prefill_kernel, decode_kernel,
         q = q_hat.reshape(b, kvh * g, dk).contiguous()
         out = decode_kernel(q, cache.k, cache.v,
                             kops.decode_blocks(q, aqua.k_ratio,
-                                               aqua.block_dims),
+                                               aqua.block_dims,
+                                               aqua.kept_dims(cfg.head_dim)),
                             lengths_of(cache), block_dims=aqua.block_dims,
                             scale=1.0 / float(cfg.head_dim) ** 0.5)
         return out.reshape(b, kvh, g, -1)
@@ -364,12 +416,11 @@ def _block_sparse_backend(name: str, prefill_kernel, decode_kernel,
                      token_sparsity=None):
         b, kvh, g, dk = q_hat.shape
         q = q_hat.reshape(b, kvh * g, dk).contiguous()
-        kept, pin = token_sparsity or (None, 0)
+        kept_pages, pin = token_sparsity or (None, 0)
         plan = selection.build_decode_plan(
-            q, cache, topk_dims=kops.round_k_dims(dk, aqua.k_ratio,
-                                                  aqua.block_dims),
-            block_dims=aqua.block_dims, kept_pages=kept,
-            pin_recent_pages=pin)
+            q, cache, topk_dims=aqua.topk_dims(cfg.head_dim),
+            block_dims=aqua.block_dims, kept_pages=kept_pages,
+            pin_recent_pages=pin, kept=aqua.kept_dims(cfg.head_dim))
         out = paged_decode_kernel(
             q, cache.k_pool, cache.v_pool, plan.block_idx.contiguous(),
             page_table=cache.page_table.to(torch.int32).contiguous(),
@@ -408,13 +459,13 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
                       positions: Optional[torch.Tensor] = None,
                       return_aux: bool = False,
                       lengths: Optional[torch.Tensor] = None):
-    """Causal self-attention over a sequence, dispatched through the
-    backend registry (``cfg.backend``). ``lengths`` (B,) masks ragged
-    rows' keys. Returns out (B, S, d_model) [, aux with the post-RoPE
-    ``q``/``k`` (calibration capture), ``k_cache`` (k in the cache's
-    stored form: projected and sliced under AQUA) and ``v``]."""
-    if cfg.window is not None:
-        raise NotImplementedError("sliding-window attention is not ported")
+    """Causal self-attention over a sequence (windowed where ``cfg.window``
+    is set), dispatched through the backend registry (``cfg.backend``).
+    ``lengths`` (B,) masks ragged rows' keys. Returns out (B, S, d_model)
+    [, aux with the post-RoPE ``q``/``k`` (calibration capture),
+    ``q_hat`` (the projected query in stored form under AQUA, else None),
+    ``k_cache`` (k in the cache's stored form: projected and sliced under
+    AQUA) and ``v``]."""
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -422,7 +473,7 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     aqua_on = _aqua_on(aqua)
     qh, kh = _aqua_project(q, k, aqua, proj, cfg.head_dim)
     backend = resolve_backend(cfg.backend, aqua=aqua)
-    if backend.aqua_native and not _whole_blocks(aqua, kh.shape[-1]):
+    if backend.aqua_native and not _whole_blocks(aqua, cfg.head_dim):
         backend = backend.per_dim
     if backend.aqua_native:
         qq, kk = qh, kh
@@ -435,30 +486,80 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
                                    causal=True)
     out = _proj_out(out.to(v.dtype), params["wo"])
     if return_aux:
-        return out, {"q": q, "k": k, "weights": weights, "k_cache": kh,
+        return out, {"q": q, "k": k, "weights": weights,
+                     "q_hat": qh if aqua_on else None, "k_cache": kh,
                      "v": v}
     return out
 
 
 def build_cache_from_prefill(k_cache: torch.Tensor, v: torch.Tensor,
                              max_seq: int,
-                             lengths: Optional[torch.Tensor] = None
+                             lengths: Optional[torch.Tensor] = None, *,
+                             window: Optional[int] = None,
+                             aqua: Optional[AquaConfig] = None,
+                             q_hat: Optional[torch.Tensor] = None,
+                             head_dim: Optional[int] = None
                              ) -> kv.AttnCache:
-    """Contiguous full-cache decode state after a prefill: slot i holds
-    position i. k_cache (B, S, KV, Dk) in stored form, v (B, S, KV, Dv);
-    ``lengths`` (B,) starts ragged rows' ``count`` at their valid length
-    (their padding slots hold keys that decode masks). Prompts longer
-    than ``max_seq`` keep their last ``max_seq`` tokens."""
+    """Contiguous decode state after a prefill, for the slot policy that
+    ``window`` and ``aqua.h2o_ratio`` imply. k_cache (B, S, KV, Dk) in
+    stored form, v (B, S, KV, Dv).
+
+    * Full cache and window ring: the last ``slots`` tokens, position p in
+      slot p (full) or p % slots (ring). ``lengths`` (B,) (full cache
+      only) starts ragged rows' ``count`` at their valid length; prompts
+      longer than a full cache keep their last ``max_seq`` tokens.
+    * H2O with S > slots: the ``slots - recent`` heavy hitters by the
+      prompt's accumulated attention mass (AQUA-masked scores over q_hat
+      (B, S, KV, G, Dk) in stored form, causal and windowed, softmax,
+      summed over queries, heads and KV heads), then the ``recent`` last
+      tokens; ``acc_score`` holds each kept slot's per-KV-head mass.
+
+    Window rings and H2O place slots assuming a rectangular batch, so
+    they refuse ``lengths``, as in JAX."""
     b, s, kvh, dk = k_cache.shape
-    slots = kv.cache_slots(max_seq)
+    budget = h2o_lib.h2o_budget(aqua, max_seq)
+    if lengths is not None and (window is not None or budget is not None):
+        raise ValueError(
+            "ragged `lengths` require the contiguous full-cache policy; "
+            "sliding-window and H2O caches place slots assuming a "
+            "rectangular batch — prefill unpadded rows separately or drop "
+            "`lengths`")
+    slots = kv.cache_slots(max_seq, window, budget)
+    dev = k_cache.device
+    positions = torch.arange(s, dtype=torch.int32, device=dev)
+    if budget is not None and s > slots:
+        qq = q_hat * _aqua_mask(q_hat, aqua, head_dim)
+        sc = torch.einsum("bskgd,btkd->bkgst", qq, k_cache).float()
+        sc = sc / float(head_dim) ** 0.5
+        seen = positions[:, None] >= positions[None, :]
+        if window is not None:
+            # combined H2O + window: out-of-window keys receive no mass
+            seen &= positions[None, :] > positions[:, None] - window
+        sc = torch.where(seen, sc, torch.full_like(sc, NEG_INF))
+        acc = torch.softmax(sc, dim=-1).sum(dim=(2, 3))    # (B, KV, S)
+        recent = h2o_lib.recent_len(aqua, slots)
+        score = acc.sum(dim=1)
+        score[:, s - recent:] = -float("inf")          # recents kept apart
+        heavy = aqua_lib.topk_indices(score, slots - recent)
+        sel = torch.cat([torch.sort(heavy, dim=-1)[0],
+                         torch.arange(s - recent, s, device=dev).expand(
+                             b, recent)], dim=-1)           # (B, slots)
+        rows = torch.arange(b, device=dev)[:, None]
+        return kv.AttnCache(
+            k=k_cache[rows, sel].transpose(1, 2).contiguous(),
+            v=v[rows, sel].transpose(1, 2).contiguous(),
+            positions=sel.to(torch.int32),
+            count=torch.full((b,), s, dtype=torch.int32, device=dev),
+            acc_score=acc.gather(-1, sel[:, None, :].expand(-1, kvh, -1)))
     cache = kv.init_attn_cache(b, kvh, slots, dk, v.shape[-1],
-                               k_cache.dtype, k_cache.device)
+                               k_cache.dtype, dev, h2o=budget is not None)
     start = max(0, s - slots)
-    n = s - start
-    cache.k[:, :, :n] = k_cache[:, start:].transpose(1, 2)
-    cache.v[:, :, :n] = v[:, start:].transpose(1, 2)
-    cache.positions[:, :n] = torch.arange(start, s, dtype=torch.int32,
-                                          device=k_cache.device)
+    tok_pos = positions[start:]
+    slot_idx = (tok_pos % slots if window is not None
+                else tok_pos - start).long()
+    cache.k[:, :, slot_idx] = k_cache[:, start:].transpose(1, 2)
+    cache.v[:, :, slot_idx] = v[:, start:].transpose(1, 2)
+    cache.positions[:, slot_idx] = tok_pos
     if lengths is None:
         cache.count.fill_(s)
     else:
@@ -495,7 +596,8 @@ def prefixed_tail_attention(params: dict, x: torch.Tensor,
     qh, kh = _aqua_project(q, k, aqua, proj, cfg.head_dim)
     if _aqua_on(aqua):
         if select_q_blk is not None:
-            qq = qh * _chunk_tile_mask(qh, aqua, select_q_blk, lengths)
+            qq = qh * _chunk_tile_mask(qh, aqua, select_q_blk, lengths,
+                                       cfg.head_dim)
         else:
             qq = qh * _aqua_mask(qh, aqua, cfg.head_dim)
         kk = kh
@@ -543,9 +645,8 @@ def chunk_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     is written: recycled slots past the prefix still hold a previous
     tenant's state."""
     backend = resolve_backend(cfg.backend, aqua=aqua)
-    kept = aqua.kept_dims(cfg.head_dim) if _aqua_on(aqua) else 0
     if (select_q_blk is None or backend.chunk is None
-            or not _whole_blocks(aqua, kept)):
+            or not _whole_blocks(aqua, cfg.head_dim)):
         return prefixed_tail_attention(
             params, x, cfg, aqua, proj, prefix_k=prefix_k,
             prefix_v=prefix_v, prefix_positions=prefix_positions,
@@ -571,17 +672,20 @@ def chunk_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
 # ---------------------------------------------------------------------------
 
 
-def _masked_dense_decode_core(qq, k, v, positions, count, *, head_dim: int
-                              ) -> torch.Tensor:
+def _masked_dense_decode_core(qq, k, v, positions, count, *, head_dim: int,
+                              window: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reference decode core. qq (B, KV, G, Dk) — masked when AQUA is on;
-    k (B, KV, S, Dk); v (B, KV, S, Dv); positions (B, S); count (B,)."""
+    k (B, KV, S, Dk); v (B, KV, S, Dv); positions (B, S); count (B,).
+    Returns (out (B, KV, G, Dv), weights (B, KV, G, S) float32): the
+    attention probabilities, which H2O accumulates."""
     scores = torch.einsum("bkgd,bksd->bkgs", qq, k.to(qq.dtype))
     scores = scores.float() / float(head_dim) ** 0.5
-    vm = kv.valid_mask_from(positions, count)
+    vm = kv.valid_mask_from(positions, count, window=window)
     scores = torch.where(vm[:, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
     weights = torch.softmax(scores, dim=-1)
-    return torch.einsum("bkgs,bksd->bkgd", weights.to(v.dtype), v)
+    return torch.einsum("bkgs,bksd->bkgd", weights.to(v.dtype), v), weights
 
 
 def decode_attention(params: dict, x_t: torch.Tensor, cache,
@@ -593,35 +697,49 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
     """One decode step. x_t (B, d_model); ``cache`` an :class:`AttnCache`
     or :class:`PagedAttnCache` (one layer), updated in place. Returns out
     (B, d_model) in x_t's dtype. ``write_mask`` (B,) bool freezes
-    masked-off lanes' cache. ``token_sparsity`` (kept_pages,
-    pin_recent_pages) engages hierarchical AQUA on a paged cache: only
-    each lane's participating pages (``core.selection``, ranked by this
-    layer's ``acc_pool``) are attended, by the kernel and by the
+    masked-off lanes' cache (no write, no count advance, no H2O mass).
+
+    The slot comes from the cache policy (ring under ``cfg.window``, H2O
+    eviction under ``aqua.h2o_ratio`` < 1, both, or the full cache); the
+    block-sparse kernels serve the full-cache policy only, exactly as
+    JAX's ``kernel_ok`` decides. Window and H2O decode the masked-dense
+    core on the (gathered) lane view, and H2O then adds the step's
+    weights to the accumulated scores. ``token_sparsity`` (kept_pages,
+    pin_recent_pages) engages hierarchical AQUA on a paged full cache:
+    only each lane's participating pages (``core.selection``, ranked by
+    this layer's ``acc_pool``) are attended, by the kernel and by the
     reference path alike.
     """
-    if cfg.window is not None:
-        raise NotImplementedError("sliding-window attention is not ported")
     pos = cache.count
     q, k, v = qkv(params, x_t[:, None, :], cfg, pos[:, None])
     q, k_t, v_t = q[:, 0], k[:, 0], v[:, 0]        # (B,KV,G,D), (B,KV,D)
     aqua_on = _aqua_on(aqua)
     if aqua_on:
-        kept = aqua.kept_dims(cfg.head_dim)
-        q = torch.einsum("bkgd,kde->bkge", q, proj.to(q.dtype))[..., :kept]
-        k_t = torch.einsum("bkd,kde->bke", k_t, proj.to(k_t.dtype))[..., :kept]
+        q = _stored(torch.einsum("bkgd,kde->bkge", q, proj.to(q.dtype)),
+                    aqua, cfg.head_dim)
+        k_t = _stored(torch.einsum("bkd,kde->bke", k_t, proj.to(k_t.dtype)),
+                      aqua, cfg.head_dim)
+    window = cfg.window
+    h2o = aqua_on and aqua.h2o_ratio < 1.0
+    recent = h2o_lib.recent_len(aqua, cache.num_slots) if h2o else 0
     paged = isinstance(cache, kv.PagedAttnCache)
     if paged:
-        kv.paged_insert(cache, kv.paged_select_slot(cache), k_t, v_t,
-                        write_mask=write_mask)
+        slot, evict = kv.paged_select_slot(cache, window=window, h2o=h2o,
+                                           recent_len=recent)
+        kv.paged_insert(cache, slot, k_t, v_t, write_mask=write_mask,
+                        evict_page=evict)
     else:
-        kv.insert(cache, kv.select_slot(cache), k_t, v_t,
-                  write_mask=write_mask)
+        kv.insert(cache, kv.select_slot(cache, window=window, h2o=h2o,
+                                        recent_len=recent),
+                  k_t, v_t, write_mask=write_mask)
 
     backend = resolve_backend(cfg.backend, aqua=aqua)
-    if token_sparsity is not None and \
-            token_sparsity[0] >= cache.pages_per_lane:
+    full_cache = window is None and not h2o
+    if (token_sparsity is not None and
+            (not full_cache or token_sparsity[0] >= cache.pages_per_lane)):
         token_sparsity = None                  # every page participates
-    if backend.aqua_native and _whole_blocks(aqua, q.shape[-1]):
+    if (backend.aqua_native and full_cache
+            and _whole_blocks(aqua, cfg.head_dim)):
         if paged:
             out = backend.paged_decode(q, cache, cfg=cfg, aqua=aqua,
                                        token_sparsity=token_sparsity)
@@ -642,8 +760,14 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
                 part, page_size=cache.page_size, num_slots=cache.num_slots)
             positions = torch.where(keep, positions,
                                     torch.full_like(positions, -1))
-        out = _masked_dense_decode_core(qq, view.k, view.v, positions,
-                                        view.count, head_dim=cfg.head_dim)
+        out, weights = _masked_dense_decode_core(
+            qq, view.k, view.v, positions, view.count, head_dim=cfg.head_dim,
+            window=window)
+        if h2o:
+            if paged:
+                kv.paged_accumulate_h2o(cache, weights, write_mask)
+            else:
+                kv.accumulate_h2o(cache, weights, write_mask)
     # an int8 pool's kernel (and its dequantized view) give float32, as
     # in JAX; the residual stream keeps the model dtype
     return _proj_out(out, params["wo"]).to(x_t.dtype)

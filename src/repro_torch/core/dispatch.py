@@ -15,7 +15,7 @@ keep the reference's wording.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 # Cache layouts a plan can pick.
 CACHE_CONTIGUOUS = "contiguous"
@@ -92,14 +92,6 @@ class DispatchPlan:
         return self.cache_layout == CACHE_PAGED
 
 
-def h2o_budget(aqua, max_seq: int) -> Optional[int]:
-    """H2O cache budget in slots, or None when eviction is off (the JAX
-    package's ``core/h2o.py::h2o_budget``)."""
-    if aqua is None or not aqua.enabled or aqua.h2o_ratio >= 1.0:
-        return None
-    return max(8, int(aqua.h2o_ratio * max_seq))
-
-
 def resolve_dispatch_plan(*, attention, aqua, serving,
                           mesh) -> DispatchPlan:
     """Resolve the plan for a model's ``attention``/``aqua`` configs and a
@@ -109,6 +101,7 @@ def resolve_dispatch_plan(*, attention, aqua, serving,
     from repro_torch.configs.base import (resolve_cache_specs,
                                           resolve_sparsity_spec)
     from repro_torch.core.attention import resolve_backend
+    from repro_torch.core.h2o import h2o_budget
 
     if mesh is not None:
         raise NotImplementedError("mesh serving is not ported yet")

@@ -1,10 +1,21 @@
-"""Decode-time KV caches (full-cache policy) in PyTorch.
+"""Decode-time KV caches in PyTorch.
 
-Port of the JAX package's ``core/kvcache.py`` for the policy the serving
-path uses: slot ``s`` of a lane holds token position ``s`` (no window
-ring, no H2O eviction — those are later work). Keys are stored *projected
-and sliced* when AQUA is on, seq-major; the CUDA decode kernel reads the
-selected dim-blocks of that layout directly.
+Port of the JAX package's ``core/kvcache.py``: one slot-based cache for
+every policy the serving path uses —
+
+* full cache (slots = max_seq, slot s holds position s);
+* sliding window (slots = window, a ring: position p lives in slot
+  p % slots);
+* H2O heavy hitters (slots = budget; once full, the incoming token
+  evicts the slot with the least accumulated attention mass outside the
+  recent window);
+* both at once (window + H2O: slots whose position slid out of the window
+  are evicted first).
+
+Keys are stored *projected and sliced* when AQUA is on, seq-major; the
+CUDA decode kernel reads the selected dim-blocks of that layout directly.
+Slots carry explicit ``positions`` (-1 empty), so masking and recency
+protection are uniform across policies.
 
 Two layouts with the same logical slot space:
 
@@ -12,23 +23,34 @@ Two layouts with the same logical slot space:
 * :class:`PagedAttnCache` — a global page pool plus per-lane page tables
   (logical slot ``s`` of lane ``b`` lives at
   ``(page_table[b, s // page_size], s % page_size)``), optionally with
-  int8 pools and float32 per-page scales (``QuantSpec``).
+  int8 pools and float32 per-page scales (``QuantSpec``). Full-cache and
+  ring policies are slot-for-slot those of the contiguous cache; H2O
+  evicts whole pages.
 
 Unlike the JAX package, which returns new pytrees, the write functions
 here update the cache tensors **in place** (an insert touches one slot per
 lane instead of copying the cache). A cache's tensors may carry a leading
 layer axis; ``layer(i)`` then returns views of layer ``i`` that write
-through to the stacked tensors. The paged pool carries the H2O
-``acc_pool`` statistic, cleared as in JAX on graft, insert and reset:
-hierarchical selection ranks pages by it (``core/selection.py``). The
-contiguous cache keeps no ``acc_score``: nothing reads it there.
+through to the stacked tensors. The H2O statistic is the paged pool's
+``acc_pool`` (hierarchical selection ranks pages by it too) and the
+contiguous cache's ``acc_score``, which exists only under H2O: nothing
+else reads it there.
+
+The per-step writes (``insert``, ``paged_insert`` on full-precision
+pools, ``accumulate_h2o``, ``paged_accumulate_h2o``) take their write
+masks as tensors and never read them on the host: no boolean-mask
+indexing, no ``nonzero``. A row that must not write repeats the write of
+a row that does (same address, same value) or rewrites what its address
+holds — the JAX package's out-of-bounds dropped scatter, for an in-place
+scatter that has no drop mode. (The int8 insert, which requantizes whole
+pages, still selects its rows on the host.)
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -48,13 +70,16 @@ def _layer(cache, i: int):
 @dataclass
 class AttnCache:
     """k (…, B, KV, S, Dk); v (…, B, KV, S, Dv); positions (…, B, S) int32
-    with -1 empty; count (…, B) int32 = tokens processed (next position).
-    The optional leading axis is the layer."""
+    with -1 empty; count (…, B) int32 = tokens processed (next position);
+    acc_score (…, B, KV, S) float32 H2O accumulated attention mass, or
+    None when the policy does not evict by score. The optional leading
+    axis is the layer."""
 
     k: torch.Tensor
     v: torch.Tensor
     positions: torch.Tensor
     count: torch.Tensor
+    acc_score: Optional[torch.Tensor] = None
 
     @property
     def num_slots(self) -> int:
@@ -66,7 +91,9 @@ class AttnCache:
 
 def init_attn_cache(batch: int, num_kv: int, slots: int, dk: int, dv: int,
                     dtype=torch.bfloat16, device=None,
-                    num_layers: Optional[int] = None) -> AttnCache:
+                    num_layers: Optional[int] = None,
+                    h2o: bool = False) -> AttnCache:
+    """Empty lanes; ``h2o`` allocates the ``acc_score`` statistic."""
     lead = () if num_layers is None else (num_layers,)
     return AttnCache(
         k=torch.zeros(*lead, batch, num_kv, slots, dk, dtype=dtype,
@@ -75,38 +102,79 @@ def init_attn_cache(batch: int, num_kv: int, slots: int, dk: int, dv: int,
                       device=device),
         positions=torch.full((*lead, batch, slots), -1, dtype=torch.int32,
                              device=device),
-        count=torch.zeros(*lead, batch, dtype=torch.int32, device=device))
+        count=torch.zeros(*lead, batch, dtype=torch.int32, device=device),
+        acc_score=(torch.zeros(*lead, batch, num_kv, slots,
+                               dtype=torch.float32, device=device)
+                   if h2o else None))
 
 
-def cache_slots(max_seq: int) -> int:
-    """Slots per lane under the full-cache policy (window rings and H2O
-    budgets, which hold fewer, are not ported)."""
-    return max(max_seq, 1)
+def cache_slots(max_seq: int, window: Optional[int] = None,
+                h2o_budget: Optional[int] = None) -> int:
+    """Slots per lane: ``max_seq``, cut to the window and to the H2O
+    budget where set."""
+    s = max_seq
+    if window is not None:
+        s = min(s, window)
+    if h2o_budget is not None:
+        s = min(s, h2o_budget)
+    return max(s, 1)
 
 
-def select_slot(cache: AttnCache) -> torch.Tensor:
-    """Slot (B,) for the incoming token under the full-cache policy."""
-    return torch.clamp(cache.count, max=cache.num_slots - 1)
-
-
-def _rows(b: int, write_mask: Optional[torch.Tensor], device
-          ) -> torch.Tensor:
-    rows = torch.arange(b, device=device)
-    return rows if write_mask is None else rows[write_mask]
+def select_slot(cache: AttnCache, *, window: Optional[int] = None,
+                h2o: bool = False, recent_len: int = 0) -> torch.Tensor:
+    """Slot (B,) for the incoming token: the ring (window only), the
+    full-cache slot, or under H2O a free slot while one is left, else the
+    victim — the least summed ``acc_score`` among slots outside the
+    ``recent_len`` newest positions, slots out of the window first when a
+    window is set too (first index among ties, as ``jnp.argmin``)."""
+    s = cache.num_slots
+    count = cache.count
+    if window is not None and not h2o:
+        return count % s
+    if not h2o:
+        return torch.clamp(count, max=s - 1)
+    pos, cur = cache.positions, count[:, None]
+    # empties are never victims by score (the free slot takes them)
+    protected = (pos > cur - recent_len) | (pos < 0)
+    score = cache.acc_score.sum(dim=1)                  # (B, S)
+    score = torch.where(protected, torch.full_like(score, float("inf")),
+                        score)
+    if window is not None:
+        stale = (pos >= 0) & (pos <= cur - window)
+        score = torch.where(stale & ~protected,
+                            torch.full_like(score, -float("inf")), score)
+    victim = torch.argmin(score, dim=-1).to(torch.int32)
+    return torch.where(count < s, torch.clamp(count, max=s - 1), victim)
 
 
 def insert(cache: AttnCache, slot: torch.Tensor, k_new: torch.Tensor,
            v_new: torch.Tensor,
            write_mask: Optional[torch.Tensor] = None) -> AttnCache:
     """Write one token's k (B, KV, Dk) / v (B, KV, Dv) at ``slot`` (B,),
-    in place. Rows where ``write_mask`` is False are left untouched (K/V,
-    positions and count): the engine's inactive lanes."""
-    rows = _rows(cache.k.shape[0], write_mask, cache.k.device)
-    s = slot[rows].long()
-    cache.k[rows, :, s] = k_new[rows].to(cache.k.dtype)
-    cache.v[rows, :, s] = v_new[rows].to(cache.v.dtype)
-    cache.positions[rows, s] = cache.count[rows]
-    cache.count[rows] += 1
+    in place; the slot's ``acc_score`` restarts at 0. Rows where
+    ``write_mask`` is False keep everything (they rewrite their slot's
+    old contents): the engine's inactive lanes."""
+    rows = torch.arange(cache.k.shape[0], device=cache.k.device)
+    s = slot.long()
+    k_new = k_new.to(cache.k.dtype)
+    v_new = v_new.to(cache.v.dtype)
+    pos_new = cache.count
+    acc_new = (None if cache.acc_score is None
+               else torch.zeros_like(cache.acc_score[rows, :, s]))
+    if write_mask is not None:
+        m = write_mask
+        k_new = torch.where(m[:, None, None], k_new, cache.k[rows, :, s])
+        v_new = torch.where(m[:, None, None], v_new, cache.v[rows, :, s])
+        pos_new = torch.where(m, pos_new, cache.positions[rows, s])
+        if acc_new is not None:
+            acc_new = torch.where(m[:, None], acc_new,
+                                  cache.acc_score[rows, :, s])
+    cache.k[rows, :, s] = k_new
+    cache.v[rows, :, s] = v_new
+    cache.positions[rows, s] = pos_new
+    if acc_new is not None:
+        cache.acc_score[rows, :, s] = acc_new
+    cache.count += 1 if write_mask is None else write_mask.to(torch.int32)
     return cache
 
 
@@ -131,11 +199,35 @@ def lane_write_tail(cache: AttnCache, lane: int, k_tail: torch.Tensor,
     return cache
 
 
-def valid_mask_from(positions: torch.Tensor, count: torch.Tensor
-                    ) -> torch.Tensor:
-    """(B, S) bool — slots attendable by the token at position count-1."""
+def valid_mask(cache: AttnCache, *, window: Optional[int] = None
+               ) -> torch.Tensor:
+    """(B, S) bool — slots attendable by the current token."""
+    return valid_mask_from(cache.positions, cache.count, window=window)
+
+
+def valid_mask_from(positions: torch.Tensor, count: torch.Tensor, *,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """(B, S) bool — slots attendable by the token at position count-1:
+    written, not in its future, and (with a window) ``pos > cur -
+    window``."""
     cur = count[:, None] - 1
-    return (positions >= 0) & (positions <= cur)
+    m = (positions >= 0) & (positions <= cur)
+    if window is not None:
+        m &= positions > (cur - window)
+    return m
+
+
+def accumulate_h2o(cache: AttnCache, attn_weights: torch.Tensor,
+                   write_mask: Optional[torch.Tensor] = None) -> AttnCache:
+    """Add one step's attention probabilities (B, KV, G, S), summed over
+    the G query heads of each KV group, to ``acc_score``, in place; rows
+    where ``write_mask`` is False add nothing."""
+    upd = attn_weights.float().sum(dim=2)
+    if write_mask is not None:
+        upd = torch.where(write_mask[:, None, None], upd,
+                          torch.zeros_like(upd))
+    cache.acc_score += upd
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -331,19 +423,89 @@ def paged_lane_pages(cache: PagedAttnCache, lane: int, dtype=None):
     return pk, pv, ppos.reshape(1, s_log)
 
 
-def paged_select_slot(cache: PagedAttnCache) -> torch.Tensor:
-    """Paged twin of :func:`select_slot` (full-cache policy)."""
-    return torch.clamp(cache.count, max=cache.num_slots - 1)
+def gather_positions(cache: PagedAttnCache) -> torch.Tensor:
+    """(B, S_log) int32 logical-slot positions (-1 empty or unmapped)."""
+    b = cache.page_table.shape[0]
+    table = cache.page_table.long()
+    pos = cache.pos_pool[table.clamp(min=0)]                # (B, NP, ps)
+    pos = torch.where(table[..., None] >= 0, pos, torch.full_like(pos, -1))
+    return pos.reshape(b, cache.num_slots)
+
+
+def paged_select_slot(cache: PagedAttnCache, *,
+                      window: Optional[int] = None, h2o: bool = False,
+                      recent_len: int = 0
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Paged twin of :func:`select_slot`: ``(slot (B,), evict_page (B,) |
+    None)``. Full-cache and ring policies are the contiguous cache's
+    arithmetic. H2O evicts whole pages: while the lane has an empty slot
+    the first one is filled (``evict_page`` -1); once full, the logical
+    page with the least summed ``acc_pool`` mass goes — pages holding one
+    of the ``recent_len`` newest positions are protected, and under a
+    window a page wholly out of it goes first — and the token lands in its
+    first slot. :func:`paged_insert` clears the victim page."""
+    b, npl = cache.page_table.shape
+    ps = cache.page_size
+    count = cache.count
+    if window is not None and not h2o:
+        return count % cache.num_slots, None
+    if not h2o:
+        return torch.clamp(count, max=cache.num_slots - 1), None
+    pos = gather_positions(cache)                       # (B, S_log)
+    cur = count[:, None]
+    empty = pos < 0
+    has_empty = empty.any(dim=-1)
+    first_empty = torch.argmax(empty.to(torch.int32), dim=-1)
+    page_prot = (pos > cur - recent_len).reshape(b, npl, ps).any(dim=-1)
+    # unmapped entries read page 0, as in JAX: such a lane has empties
+    acc = cache.acc_pool[cache.page_table.long().clamp(min=0)]
+    score = acc.sum(dim=(2, 3))                         # (B, NP)
+    score = torch.where(page_prot, torch.full_like(score, float("inf")),
+                        score)
+    if window is not None:
+        stale = (pos >= 0) & (pos <= cur - window)
+        page_stale = stale.reshape(b, npl, ps).all(dim=-1)
+        score = torch.where(page_stale & ~page_prot,
+                            torch.full_like(score, -float("inf")), score)
+    victim = torch.argmin(score, dim=-1)
+    slot = torch.where(has_empty, first_empty, victim * ps).to(torch.int32)
+    evict = torch.where(has_empty, torch.full_like(victim, -1),
+                        victim).to(torch.int32)
+    return slot, evict
+
+
+def _stand_in(ok: torch.Tensor, *index: torch.Tensor):
+    """Sync-free masked scatter, addressing: rows where ``ok`` is False
+    take the address of the first row where it is True (each index (B,)).
+    Returns (the redirected indices, the donor row, whether any row is
+    ok)."""
+    donor = torch.argmax(ok.to(torch.int32)).reshape(1)
+    return tuple(torch.where(ok, i, i.index_select(0, donor))
+                 for i in index), donor, ok.any()
+
+
+def _stand_in_values(ok, donor, any_ok, new: torch.Tensor,
+                     old: torch.Tensor) -> torch.Tensor:
+    """Values for :func:`_stand_in`'s addresses: a redirected row writes
+    its donor's value (same address, same value); with no ok row at all
+    every row rewrites what its address holds."""
+    okx = ok.reshape(-1, *([1] * (new.ndim - 1)))
+    return torch.where(any_ok, torch.where(okx, new,
+                                           new.index_select(0, donor)), old)
 
 
 def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor,
-                 write_mask: Optional[torch.Tensor] = None
+                 write_mask: Optional[torch.Tensor] = None,
+                 evict_page: Optional[torch.Tensor] = None
                  ) -> PagedAttnCache:
     """Write one token's k/v at logical ``slot`` through the page table, in
     place (quantized with the page's running scale for int8 pools; the
     slot's accumulated score is cleared). Rows masked off, or whose slot's
-    page is unmapped, write nothing; masked-off rows keep their count."""
+    page is unmapped, write nothing; masked-off rows keep their count.
+    ``evict_page`` (B,) (page-granular H2O, -1 = none): the victim
+    logical page's positions and scores are cleared first, so its other
+    slots read as empty from the next step on."""
     b = cache.page_table.shape[0]
     ps = cache.page_size
     rows = torch.arange(b, device=slot.device)
@@ -351,17 +513,61 @@ def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
     ok = entry >= 0
     if write_mask is not None:
         ok &= write_mask
-    phys, off = entry[ok].long(), (slot % ps)[ok].long()
+    if evict_page is not None:
+        ev = cache.page_table[rows, evict_page.long().clamp(min=0)]
+        ev_ok = (evict_page >= 0) & (ev >= 0)
+        if write_mask is not None:
+            ev_ok &= write_mask
+        (ev_phys,), donor, any_ok = _stand_in(ev_ok, ev.long().clamp(min=0))
+        cache.pos_pool[ev_phys] = _stand_in_values(
+            ev_ok, donor, any_ok, torch.full_like(cache.pos_pool[ev_phys], -1),
+            cache.pos_pool[ev_phys])
+        cache.acc_pool[ev_phys] = _stand_in_values(
+            ev_ok, donor, any_ok, torch.zeros_like(cache.acc_pool[ev_phys]),
+            cache.acc_pool[ev_phys])
     if cache.quantized:
+        phys, off = entry[ok].long(), (slot % ps)[ok].long()
         _insert_quant_token(cache.k_pool, cache.k_scale, phys, off, k_new[ok])
         _insert_quant_token(cache.v_pool, cache.v_scale, phys, off, v_new[ok])
+        cache.pos_pool[phys, off] = cache.count[ok]
+        cache.acc_pool[phys, :, off] = 0.0
     else:
-        cache.k_pool[phys, :, off] = k_new[ok].to(cache.k_pool.dtype)
-        cache.v_pool[phys, :, off] = v_new[ok].to(cache.v_pool.dtype)
-    cache.pos_pool[phys, off] = cache.count[ok]
-    cache.acc_pool[phys, :, off] = 0.0
-    adv = 1 if write_mask is None else write_mask.to(torch.int32)
-    cache.count += adv
+        (phys, off), donor, any_ok = _stand_in(
+            ok, entry.long().clamp(min=0), (slot % ps).long())
+        for pool, new in ((cache.k_pool, k_new), (cache.v_pool, v_new)):
+            pool[phys, :, off] = _stand_in_values(
+                ok, donor, any_ok, new.to(pool.dtype), pool[phys, :, off])
+        cache.pos_pool[phys, off] = _stand_in_values(
+            ok, donor, any_ok, cache.count, cache.pos_pool[phys, off])
+        cache.acc_pool[phys, :, off] = _stand_in_values(
+            ok, donor, any_ok, torch.zeros_like(cache.acc_pool[phys, :, off]),
+            cache.acc_pool[phys, :, off])
+    cache.count += 1 if write_mask is None else write_mask.to(torch.int32)
+    return cache
+
+
+def paged_accumulate_h2o(cache: PagedAttnCache, attn_weights: torch.Tensor,
+                         write_mask: Optional[torch.Tensor] = None
+                         ) -> PagedAttnCache:
+    """Scatter-add one step's probabilities over the *logical* slot view
+    (B, KV, G, S_log), summed over the G heads of each KV group, into
+    ``acc_pool`` through the page table, in place. Rows masked off and
+    unmapped pages add exactly 0 (to page 0); no two lanes share a page
+    under H2O (no prefix sharing), so every other address is written once
+    and the sum is order-free."""
+    b, npl = cache.page_table.shape
+    ps = cache.page_size
+    upd = attn_weights.float().sum(dim=2)                 # (B, KV, S_log)
+    mapped = (cache.page_table >= 0).repeat_interleave(ps, dim=1)
+    if write_mask is not None:
+        mapped = mapped & write_mask[:, None]
+    upd = torch.where(mapped[:, None, :], upd, torch.zeros_like(upd))
+    phys = cache.page_table.long().clamp(min=0).repeat_interleave(ps, dim=1)
+    off = torch.arange(ps, device=phys.device).repeat(npl)
+    kvi = torch.arange(upd.shape[1], device=phys.device)
+    cache.acc_pool.index_put_(
+        (phys[:, None, :], kvi[None, :, None], off[None, None, :]), upd,
+        accumulate=True)
     return cache
 
 
@@ -372,8 +578,8 @@ def paged_graft(cache: PagedAttnCache, req: AttnCache, lane: int,
     lane maps is cleared first (positions -1, scores 0, and scales 0 for
     int8 pools): pool pages are recycled, so a previous tenant's state
     must never read as valid. int8 pools get per-page scales over the
-    grafted tokens. The lane's page-table row is installed before this
-    runs."""
+    grafted tokens; an H2O prefill's ``acc_score`` lands in ``acc_pool``.
+    The lane's page-table row is installed before this runs."""
     ps = cache.page_size
     tbl = cache.page_table[lane].long()
     mapped = tbl[tbl >= 0]
@@ -397,6 +603,9 @@ def paged_graft(cache: PagedAttnCache, req: AttnCache, lane: int,
         cache.k_pool[phys, :, off] = k_tok[src].to(cache.k_pool.dtype)
         cache.v_pool[phys, :, off] = v_tok[src].to(cache.v_pool.dtype)
     cache.pos_pool[phys, off] = req.positions[0, src]
+    if req.acc_score is not None:        # an H2O prefill's statistic
+        cache.acc_pool[phys, :, off] = req.acc_score[0][:, src].transpose(
+            0, 1)
     cache.count[lane] = req.count[0]
     return cache
 

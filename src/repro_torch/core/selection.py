@@ -98,11 +98,16 @@ def reference_participating_pages(acc_pool, page_table, count, *,
 
 def build_decode_plan(q_hat: torch.Tensor, cache, *, topk_dims: int,
                       block_dims: int, kept_pages: Optional[int] = None,
-                      pin_recent_pages: int = 2) -> SelectionPlan:
+                      pin_recent_pages: int = 2,
+                      kept: Optional[int] = None) -> SelectionPlan:
     """One decode step's :class:`SelectionPlan`. q_hat (B, H, Dk)
     projected queries; ``cache`` a single-layer ``PagedAttnCache``.
-    ``kept_pages`` None (or the full page count) disables stage 1."""
-    block_idx = aqua_lib.topk_block_indices(q_hat, topk_dims, block_dims)
+    ``topk_dims`` selected dims (``AquaConfig.topk_dims``) among the first
+    ``kept`` dims of q̂ (None: all of them; the rest is zero padding, never
+    selected). ``kept_pages`` None (or the full page count) disables
+    stage 1."""
+    real = q_hat if kept is None else q_hat[..., :kept]
+    block_idx = aqua_lib.topk_block_indices(real, topk_dims, block_dims)
     pages = None
     if kept_pages is not None and kept_pages < cache.pages_per_lane:
         pages = participating_pages(

@@ -94,7 +94,7 @@ def aqua_decode_plain(q_hat: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vf = vf * v_scale[rows].float()[..., :, None, None]
     kf = kf.transpose(1, 2).reshape(b, kvh, s, -1)
     vf = vf.transpose(1, 2).reshape(b, kvh, s, -1)
-    mask = _block_mask(block_idx, d // block_dims, block_dims)
+    mask = _block_mask(block_idx, d, block_dims)
     qm = (q_hat.float() * mask).reshape(b, kvh, g, d)
     scores = torch.einsum("bkgd,bksd->bkgs", qm, kf) * factor
     pos = torch.arange(s, device=k.device)

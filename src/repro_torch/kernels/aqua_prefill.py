@@ -7,13 +7,15 @@ participating key chunks, hierarchical AQUA's prefill stage). Causal block
 attention where every query of a ``q_blk`` chunk shares the chunk's
 selected dim-blocks; ``q_offset`` places the queries at sequence rows
 ``[q_offset, q_offset + T)`` of the key stripe (the chunk-resumable entry
-of chunked prefill). The CUDA source is ``csrc/aqua_prefill.cu``, the
+of chunked prefill); ``window`` keeps only keys ``kpos > qpos - window``
+(sliding-window models). The CUDA source is ``csrc/aqua_prefill.cu``, the
 participating walk its compile-time variant ``kPart``.
 
 Bound on the H100: operations at serving prompt lengths (the S²/2 score
 and value products against S·(D + Dv) bytes of K̂/V per KV head). The
 kernel reads only the selected K̂ dims of each live key tile, skips tiles
-past the causal bound and past ``lengths``, and reads q/k/v through
+past the causal bound and past ``lengths`` and, under a window, the tiles
+before each block's band (so the work scales with the window), and reads q/k/v through
 strides so the model's (B, S, KV, G, D) layout needs no transpose. bf16
 runs on the tensor cores, float32 on scalar FMAs; see the source's header
 for the tiling. The bf16 kernel copies 16-byte pieces: it needs D and Dv
@@ -40,7 +42,7 @@ _I = ctypes.c_int
 _SIG = {"aqua_prefill_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I,
                                 ctypes.POINTER(ctypes.c_longlong),
-                                ctypes.c_float, _I, _P, _I, _I, _I, _P]}
+                                ctypes.c_float, _I, _I, _P, _I, _I, _I, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: keys per tile of the CUDA walk: a participating chunk is walked as
 #: ``k_blk / KEY_TILE`` tiles
@@ -52,12 +54,14 @@ def aqua_prefill_plain(q_hat: torch.Tensor, khat: torch.Tensor,
                        lengths: torch.Tensor, *, block_dims: int, q_blk: int,
                        causal: bool, scale: float, q_offset: int = 0,
                        kc_part: Optional[torch.Tensor] = None,
-                       k_blk: int = 128) -> torch.Tensor:
+                       k_blk: int = 128,
+                       window: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the masked-dense oracle
     (:func:`repro_torch.kernels.ref.aqua_prefill_ref`) in float32."""
     return aqua_prefill_ref(q_hat, khat, v, block_idx, lengths, block_dims,
                             q_blk, causal=causal, scale=scale,
-                            q_offset=q_offset, kc_part=kc_part, k_blk=k_blk)
+                            q_offset=q_offset, kc_part=kc_part, k_blk=k_blk,
+                            window=window)
 
 
 def _rows_per_block(q_blk: int) -> int:
@@ -68,7 +72,7 @@ def _rows_per_block(q_blk: int) -> int:
 
 
 def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
-            scale, q_offset, kc_part, k_blk):
+            scale, q_offset, kc_part, k_blk, window):
     b, h, t, d = q_hat.shape
     kvh, s = khat.shape[1], khat.shape[2]
     dv = v.shape[-1]
@@ -111,6 +115,7 @@ def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
             block_idx.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
             kvh, t, s, q_offset, d, dv, nb_sel, block_dims, q_blk, nqc,
             _rows_per_block(q_blk), strides, float(scale), int(causal),
+            0 if window is None else int(window),
             None if kc_part is None else kc_part.data_ptr(),
             0 if kc_part is None else kc_part.shape[2], k_blk,
             _DTYPES[q_hat.dtype], stream)
@@ -125,7 +130,8 @@ def aqua_prefill_attention(q_hat: torch.Tensor, khat: torch.Tensor,
                            q_blk: int = 128, causal: bool = True,
                            scale: Optional[float] = None, q_offset: int = 0,
                            kc_part: Optional[torch.Tensor] = None,
-                           k_blk: int = 128) -> torch.Tensor:
+                           k_blk: int = 128,
+                           window: Optional[int] = None) -> torch.Tensor:
     """Block-sparse AQUA prefill attention.
 
     q_hat (B, H, T, D) projected queries, sequence rows [q_offset,
@@ -136,14 +142,17 @@ def aqua_prefill_attention(q_hat: torch.Tensor, khat: torch.Tensor,
     kc_part (B, ceil(T / q_blk), KT) int32: per q-tile, the participating
     chunks of ``k_blk`` keys (sorted ascending, -1 = none,
     ``selection.chunk_participating_tiles``), or None for every key;
-    ``k_blk`` must be a multiple of 64. ``scale`` defaults to 1/sqrt(D).
-    Returns (B, H, T, Dv); rows at or past a row's length are
-    don't-care."""
+    ``k_blk`` must be a multiple of 64. ``window`` (>= 1, or None for
+    none) keeps only keys ``kpos > qpos - window``, causal or not, as the
+    Pallas kernels do. ``scale`` defaults to 1/sqrt(D). Returns (B, H, T,
+    Dv); rows at or past a row's length are don't-care."""
     if scale is None:
         scale = 1.0 / q_hat.shape[-1] ** 0.5
     if not 0 <= q_offset <= khat.shape[2] - q_hat.shape[2]:
         raise ValueError(f"aqua_prefill: q_offset {q_offset} + T "
                          f"{q_hat.shape[2]} exceeds the {khat.shape[2]} keys")
+    if window is not None and window < 1:
+        raise ValueError(f"aqua_prefill: window must be >= 1, got {window}")
     if kc_part is not None and (k_blk <= 0 or k_blk % KEY_TILE):
         raise ValueError(f"aqua_prefill: k_blk {k_blk} must be a multiple "
                          f"of {KEY_TILE} (the kernel's key tile)")
@@ -153,8 +162,8 @@ def aqua_prefill_attention(q_hat: torch.Tensor, khat: torch.Tensor,
                                   block_dims=block_dims, q_blk=q_blk,
                                   causal=causal, scale=scale,
                                   q_offset=q_offset, kc_part=kc_part,
-                                  k_blk=k_blk)
+                                  k_blk=k_blk, window=window)
     if dev != "cuda":
         raise ValueError(f"aqua_prefill: unsupported device {q_hat.device}")
     return _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk,
-                   causal, scale, q_offset, kc_part, k_blk)
+                   causal, scale, q_offset, kc_part, k_blk, window)

@@ -5,8 +5,16 @@
 // _part_kernel (only each q-tile's participating key chunks, hierarchical
 // AQUA's prefill stage). Causal block attention in which every query of a
 // q_blk chunk shares the chunk's NB_sel dim-blocks selected from its summed
-// |q̂|. Keys at or past lengths[b] are masked; no sliding window. A lane
-// with lengths[b] = 0 writes zeros (don't-care rows).
+// |q̂|. Keys at or past lengths[b] are masked. A lane with lengths[b] = 0
+// writes zeros (don't-care rows).
+//
+// Sliding window (window > 0; <= 0 means none, as in flash_attention.cu):
+// a query at position qpos sees only keys kpos > qpos - window, on top of
+// the causal and length masks (the Pallas kernels' `window`, with or
+// without `causal`). The walk starts at the block's band: a key tile whose
+// last key is at or before the block's first query position - window is
+// never visited, so the bytes and operations of a block scale with the
+// window, not with S; inside the band the mask is per row.
 //
 // Chunk-resumable form (q_offset): the T query rows are sequence positions
 // [q_offset, q_offset + T) attending the S keys [0, S), q_offset + T <= S.
@@ -58,6 +66,7 @@
 // exactly the tiles of the dense walk (bitwise equal).
 
 #include <algorithm>
+#include <climits>
 
 #include "attn_tile.cuh"
 
@@ -78,7 +87,7 @@ struct Args {
   int B, H, KV, Tq, S, q_offset, D, Dv, nb_sel, bd, q_blk, nqc;
   Strides qs, ks, vs, os;
   float scale;
-  int causal;
+  int causal, window;
   Part part;
   cudaStream_t st;
 };
@@ -92,8 +101,8 @@ __global__ void __launch_bounds__(attn_tile::kThreads) aqua_prefill_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const int* __restrict__ block_idx, const int* __restrict__ lengths, bf16* __restrict__ out,
     int H, int KV, int Tq, int S, int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc,
-    Strides qst, Strides kst, Strides vst, Strides ost, float scale_log2, int causal, Part part,
-    int kstage, int ncv) {
+    Strides qst, Strides kst, Strides vst, Strides ost, float scale_log2, int causal, int window,
+    Part part, int kstage, int ncv) {
   using namespace attn_tile;
   // heaviest blocks first (the last rows walk the most key tiles), heads
   // fastest: a causal grid's long blocks do not start last
@@ -177,6 +186,10 @@ __global__ void __launch_bounds__(attn_tile::kThreads) aqua_prefill_bf16(
   const int klim = min(lengths[b], S);
   const int kend = causal ? min(klim, q_offset + rlast + 1) : klim;
   const int ntk = kend > 0 ? (kend + kKeys - 1) / kKeys : 0;
+  // the band of the block's first row starts at key kbeg: tiles wholly
+  // before it are masked for every row of the block
+  const int kbeg = window > 0 ? max(0, q_offset + row0 - window + 1) : 0;
+  const int j0 = kbeg / kKeys;
   auto chunk_marks = [&](int j) -> uint32_t {
     const int c = j * kKeys / part.k_blk;
     return (marks[c >> 1] >> ((c & 1) * 16)) & 0xffffu;
@@ -217,16 +230,23 @@ __global__ void __launch_bounds__(attn_tile::kThreads) aqua_prefill_bf16(
   const int rbit[2] = {min(rows[0], rlast) / q_blk - t_first,
                        min(rows[1], rlast) / q_blk - t_first};
   const int warp_first = q_offset + row0 + warp * 16;
-  // this warp's rows see keys past klim or the diagonal, or a chunk some
-  // row's tile drops (a tile wholly masked for a row adds exactly nothing)
+  // this warp's rows see keys past klim or the diagonal, keys before the
+  // band of its last row, or a chunk some row's tile drops (a tile wholly
+  // masked for a row adds exactly nothing)
   auto masked = [&](int j) {
     const int k0 = j * kKeys;
-    return kPart || k0 + kKeys > klim || (causal && k0 + kKeys - 1 > warp_first);
+    return kPart || k0 + kKeys > klim || (causal && k0 + kKeys - 1 > warp_first) ||
+           (window > 0 && k0 <= warp_first + 15 - window);
   };
+  // a row r sees the keys kp with lo[r] < kp <= hi[r]: below lengths[b],
+  // at or before its position (causal), inside its band (window)
+  const int hi[2] = {min(klim - 1, causal ? qpos[0] : INT_MAX),
+                     min(klim - 1, causal ? qpos[1] : INT_MAX)};
+  const int lo[2] = {window > 0 ? qpos[0] - window : INT_MIN,
+                     window > 0 ? qpos[1] - window : INT_MIN};
   auto valid = [&](int j, int r, int kk) {
     const int kp = j * kKeys + kk;
-    return (!kPart || ((chunk_marks(j) >> rbit[r]) & 1)) && kp < klim &&
-           (!causal || qpos[r] >= kp);
+    return (!kPart || ((chunk_marks(j) >> rbit[r]) & 1)) && kp <= hi[r] && kp > lo[r];
   };
 
   float o[kNT][4];
@@ -235,8 +255,9 @@ __global__ void __launch_bounds__(attn_tile::kThreads) aqua_prefill_bf16(
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  walk(live(0) ? 0 : next(0), ntk, next, load_tile, masked, valid, Qs, nks, Ks, kstage, Vs,
-       vstage, ncv, scale_log2, o, m, l);
+  const int first = j0 >= ntk ? ntk : live(j0) ? j0 : next(j0);
+  walk(first, ntk, next, load_tile, masked, valid, Qs, nks, Ks, kstage, Vs, vstage, ncv,
+       scale_log2, o, m, l);
   store_rows(out + b * ost.b + h * ost.h, ost.s, rows, Tq, nvt, o, l);
 }
 
@@ -266,7 +287,7 @@ int launch_bf16(const Args& a) {
   aqua_prefill_bf16<kPart><<<grid, kThreads, bytes, a.st>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, a.block_idx, a.lengths,
       (bf16*)a.out, a.H, a.KV, a.Tq, a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc,
-      a.qs, a.ks, a.vs, a.os, a.scale * kLog2e, a.causal, a.part, kstage, ncv);
+      a.qs, a.ks, a.vs, a.os, a.scale * kLog2e, a.causal, a.window, a.part, kstage, ncv);
   return (int)cudaGetLastError();
 }
 
@@ -301,7 +322,7 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_f32(
     const int* __restrict__ block_idx, const int* __restrict__ lengths,
     float* __restrict__ out, int H, int KV, int Tq, int S, int q_offset, int Dv,
     int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides kst,
-    Strides vst, Strides ost, float scale, int causal, Part part) {
+    Strides vst, Strides ost, float scale, int causal, int window, Part part) {
   // Register tiles: each thread scores RM rows x 4 keys (16 key groups x 8
   // row groups) and accumulates RP rows x 4 output dims (32 dim groups x 4
   // row groups), so each shared-memory load feeds several FMAs.
@@ -341,6 +362,9 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_f32(
   const int len = lengths[b];
   int kend = min(len, S);
   if (causal) kend = min(kend, q_offset + row0 + QR);
+  // the band of the block's first row starts at key kbeg (see the bf16
+  // walk): tiles wholly before it are skipped
+  const int kbeg = window > 0 ? max(0, q_offset + row0 - window + 1) : 0;
   const float* kb = k + b * kst.b + kv * kst.h;
   const float* vb = v + b * vst.b + kv * vst.h;
   const int srg = t / 16, skg = t % 16;   // score tile: rows srg*RM.., keys skg+16j
@@ -351,20 +375,20 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_f32(
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  // the walk: every 64-key tile below kend, or (kPart) the tiles of this
-  // q-tile's participating chunks below kend; the loop bounds and skips
+  // the walk: every 64-key tile in [kbeg, kend), or (kPart) the tiles of
+  // this q-tile's participating chunks there; the loop bounds and skips
   // are uniform over the block, so the barriers below are safe
   const int per_chunk = kPart ? part.k_blk / kKT : 1;
   const int* parts = kPart ? part.kc_part + ((int64_t)b * nqc + row0 / q_blk) * part.kt
                            : nullptr;
   const int n_iter = kPart ? part.kt * per_chunk : (kend + kKT - 1) / kKT;
-  for (int it = 0; it < n_iter; ++it) {
+  for (int it = kPart ? 0 : kbeg / kKT; it < n_iter; ++it) {
     int k0 = it * kKT;
     if (kPart) {
       const int kc = parts[it / per_chunk];
       if (kc < 0) continue;
       k0 = kc * part.k_blk + (it % per_chunk) * kKT;
-      if (k0 >= kend) continue;
+      if (k0 >= kend || k0 + kKT <= kbeg) continue;
     }
     for (int e = t; e < kKT * nsel; e += kThreads) {
       const int kk = e / nsel, c = e % nsel;
@@ -400,7 +424,8 @@ __global__ void __launch_bounds__(kThreads) aqua_prefill_f32(
       for (int j = 0; j < 4; ++j) {
         const int r = srg * RM + i, kk = skg + 16 * j;
         const int qpos = q_offset + row0 + r, kpos = k0 + kk;
-        const bool valid = kpos < len && (!causal || qpos >= kpos);
+        const bool valid = kpos < len && (!causal || qpos >= kpos) &&
+                           (window <= 0 || kpos > qpos - window);
         Ss[r * sstr + kk] = valid ? sc[i][j] * scale : kNegInf;
       }
     }
@@ -473,7 +498,7 @@ int launch(const Args& a) {
   aqua_prefill_f32<QR, kPart><<<grid, kThreads, bytes, a.st>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v, a.block_idx, a.lengths,
       (float*)a.out, a.H, a.KV, a.Tq, a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc,
-      a.qs, a.ks, a.vs, a.os, a.scale, a.causal, a.part);
+      a.qs, a.ks, a.vs, a.os, a.scale, a.causal, a.window, a.part);
   return (int)cudaGetLastError();
 }
 
@@ -504,16 +529,17 @@ int dispatch(int qr, const Args& a) {
 // Strides are in elements: {batch, head, seq} of q, k, v and out. Tq query
 // rows at sequence offset q_offset attend S keys; D is q̂'s and K̂'s head
 // dim. qr is the float32 route's number of query rows per block (8, 16 or
-// 32, dividing q_blk). kc_part: null, or (B, nqc, kt) int32 participating
-// key chunks of k_blk keys (k_blk % 64 == 0). dtype: 0 = float32, 1 =
-// bfloat16. Returns the cudaError_t of the launch.
+// 32, dividing q_blk). window: keys kpos > qpos - window only (<= 0:
+// none). kc_part: null, or (B, nqc, kt) int32 participating key chunks of
+// k_blk keys (k_blk % 64 == 0). dtype: 0 = float32, 1 = bfloat16. Returns
+// the cudaError_t of the launch.
 extern "C" int aqua_prefill_launch(const void* q, const void* k, const void* v,
                                    const void* block_idx, const void* lengths, void* out,
                                    int B, int H, int KV, int Tq, int S, int q_offset, int D,
                                    int Dv, int nb_sel, int bd, int q_blk, int nqc, int qr,
                                    const long long* strides, float scale, int causal,
-                                   const void* kc_part, int kt, int k_blk, int dtype,
-                                   void* stream) {
+                                   int window, const void* kc_part, int kt, int k_blk,
+                                   int dtype, void* stream) {
   if (H % KV != 0 || q_offset < 0 || q_offset + Tq > S ||
       (kc_part != nullptr && (k_blk <= 0 || k_blk % attn_tile::kKeys != 0)))
     return (int)cudaErrorInvalidValue;
@@ -543,6 +569,7 @@ extern "C" int aqua_prefill_launch(const void* q, const void* k, const void* v,
   a.os = Strides{strides[9], strides[10], strides[11]};
   a.scale = scale;
   a.causal = causal;
+  a.window = window;
   a.part = Part{(const int*)kc_part, kt, k_blk};
   a.st = (cudaStream_t)stream;
   if (dtype == 0) return f32::dispatch(qr, a);

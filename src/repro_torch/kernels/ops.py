@@ -11,6 +11,14 @@ directly (:func:`to_dim_major_blocks` is kept for tests and byte
 accounting). The selection helpers :func:`decode_blocks` and
 :func:`prefill_blocks` are shared with the attention backends, including
 the reference backend that runs the plain versions on the card.
+
+``kept`` (the selection helpers and ops): the real width of q̂ when the
+stored K̂ is padded with zero columns past it (AQUA-Memory kept widths that
+are not a multiple of 8, which the bf16 kernels need). The count of
+selected dims is ``round_k_dims(kept, ...)`` and only the ``kept //
+block_dims`` real blocks are ranked, so a padded block is never selected,
+not even on a tie; the kernels then read padded q̂ and K̂ with the same
+block indices. None means the whole width is real.
 """
 from __future__ import annotations
 
@@ -51,22 +59,32 @@ def _i32(x: torch.Tensor, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.int32).contiguous()
 
 
-def decode_blocks(q_hat: torch.Tensor, k_ratio: float,
-                  block_dims: int) -> torch.Tensor:
-    """Decode selection: (B, H, NB_sel) int32 dim-blocks by |q̂|."""
+def _real(q_hat: torch.Tensor, kept: Optional[int]) -> torch.Tensor:
+    """The real (unpadded) dims of q̂: a view of its first ``kept``."""
+    return q_hat if kept is None else q_hat[..., :kept]
+
+
+def decode_blocks(q_hat: torch.Tensor, k_ratio: float, block_dims: int,
+                  kept: Optional[int] = None) -> torch.Tensor:
+    """Decode selection: (B, H, NB_sel) int32 dim-blocks by |q̂| among
+    the real blocks."""
+    q = _real(q_hat, kept)
     return aqua_lib.topk_block_indices(
-        q_hat, round_k_dims(q_hat.shape[-1], k_ratio, block_dims),
+        q, round_k_dims(q.shape[-1], k_ratio, block_dims),
         block_dims).contiguous()
 
 
 def prefill_blocks(q_hat: torch.Tensor, lengths: Optional[torch.Tensor],
-                   k_ratio: float, block_dims: int, q_blk: int) -> tuple:
+                   k_ratio: float, block_dims: int, q_blk: int,
+                   kept: Optional[int] = None) -> tuple:
     """Prefill selection: queries are taken in chunks of ``q_blk``
     (clamped to the sequence, rounded up to 8); each chunk shares the
-    dim-blocks selected from its summed |q̂| over valid rows.
+    dim-blocks selected from its summed |q̂| over valid rows, among the
+    real blocks.
 
     Returns (block_idx (B, H, NQC, NB_sel) int32, lengths (B,) int32 —
     all full when None —, the chunk size used)."""
+    q_hat = _real(q_hat, kept)
     b, h, s, d = q_hat.shape
     dev = q_hat.device
     lengths = (torch.full((b,), s, dtype=torch.int32, device=dev)
@@ -82,14 +100,15 @@ def prefill_blocks(q_hat: torch.Tensor, lengths: Optional[torch.Tensor],
 
 def aqua_decode(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
                 lengths: torch.Tensor, *, k_ratio: float = 0.75,
-                block_dims: int = 8, scale: Optional[float] = None
-                ) -> torch.Tensor:
+                block_dims: int = 8, scale: Optional[float] = None,
+                kept: Optional[int] = None) -> torch.Tensor:
     """AQUA decode attention over a contiguous cache (selection + kernel).
 
     q_hat (B, H, D); khat (B, KV, S, D) seq-major; v (B, KV, S, Dv);
     lengths (B,). Returns (B, H, Dv)."""
     return aqua_decode_attention(
-        q_hat.contiguous(), khat, v, decode_blocks(q_hat, k_ratio, block_dims),
+        q_hat.contiguous(), khat, v,
+        decode_blocks(q_hat, k_ratio, block_dims, kept),
         _i32(lengths, q_hat.device), block_dims=block_dims, scale=scale)
 
 
@@ -101,7 +120,8 @@ def aqua_paged_decode(q_hat: torch.Tensor, k_pool: torch.Tensor,
                       part_idx: Optional[torch.Tensor] = None,
                       block_idx: Optional[torch.Tensor] = None, *,
                       k_ratio: float = 0.75, block_dims: int = 8,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      kept: Optional[int] = None) -> torch.Tensor:
     """AQUA decode attention over a page pool.
 
     q_hat (B, H, D); k_pool (P, KV, ps, D); v_pool (P, KV, ps, Dv);
@@ -112,7 +132,7 @@ def aqua_paged_decode(q_hat: torch.Tensor, k_pool: torch.Tensor,
     selection, or None to select here from |q̂|."""
     dev = q_hat.device
     if block_idx is None:
-        block_idx = decode_blocks(q_hat, k_ratio, block_dims)
+        block_idx = decode_blocks(q_hat, k_ratio, block_dims, kept)
 
     def f32(x):
         return None if x is None else x.to(device=dev,
@@ -128,18 +148,23 @@ def aqua_prefill(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
                  lengths: Optional[torch.Tensor] = None, *,
                  k_ratio: float = 0.75, block_dims: int = 8,
                  q_blk: int = 128, causal: bool = True,
-                 scale: Optional[float] = None) -> torch.Tensor:
-    """AQUA block-sparse prefill attention (selection: :func:`prefill_blocks`).
+                 window: Optional[int] = None,
+                 scale: Optional[float] = None,
+                 kept: Optional[int] = None,
+                 prefill_fn=aqua_prefill_attention) -> torch.Tensor:
+    """AQUA block-sparse prefill attention (selection: :func:`prefill_blocks`)
+    through ``prefill_fn`` (the kernel wrapper, or its plain version).
 
     q_hat (B, H, S, D); khat (B, KV, S, D); v (B, KV, S, Dv) — views of any
-    strides with a contiguous last axis; lengths (B,) (None = all full).
+    strides with a contiguous last axis; lengths (B,) (None = all full);
+    ``window``: keys ``kpos > qpos - window`` only (sliding-window models).
     Returns (B, H, S, Dv); rows at or past a row's length are don't-care.
     """
     block_idx, lengths, q_blk = prefill_blocks(q_hat, lengths, k_ratio,
-                                               block_dims, q_blk)
-    return aqua_prefill_attention(q_hat, khat, v, block_idx, lengths,
-                                  block_dims=block_dims, q_blk=q_blk,
-                                  causal=causal, scale=scale)
+                                               block_dims, q_blk, kept)
+    return prefill_fn(q_hat, khat, v, block_idx, lengths,
+                      block_dims=block_dims, q_blk=q_blk, causal=causal,
+                      scale=scale, window=window)
 
 
 def aqua_prefill_chunk(q_hat: torch.Tensor, khat: torch.Tensor,
@@ -149,6 +174,7 @@ def aqua_prefill_chunk(q_hat: torch.Tensor, khat: torch.Tensor,
                        k_ratio: float = 0.75, block_dims: int = 8,
                        q_blk: int = 128, causal: bool = True,
                        scale: Optional[float] = None,
+                       kept: Optional[int] = None,
                        prefill_fn=aqua_prefill_attention) -> tuple:
     """Chunk-resumable AQUA prefill: attention of query rows [q_offset,
     q_offset + T) against the key stripe [0, S), through ``prefill_fn``
@@ -166,18 +192,20 @@ def aqua_prefill_chunk(q_hat: torch.Tensor, khat: torch.Tensor,
     aggregation use them); mag_state (B, H, NB_total) float32 or None.
     Returns (out (B, H, T, Dv), carry (B, H, NB_total) float32: the
     trailing tile's aggregate when T % q_blk != 0, else zeros)."""
-    b, h, t, d = q_hat.shape
+    b, h, t, _ = q_hat.shape
     assert 0 <= q_offset and q_offset + t <= khat.shape[2], \
         (q_offset, t, khat.shape)
+    d = q_hat.shape[-1] if kept is None else kept
     dev = q_hat.device
     lengths = _i32(lengths, dev)
     q_blk = min(q_blk, aqua_lib.ceil_to(t, 8))
     tpad = aqua_lib.ceil_to(t, q_blk)
     nqc, nb = tpad // q_blk, d // block_dims
     kb = round_k_dims(d, k_ratio, block_dims) // block_dims
-    # the same aggregation as chunk_topk_block_indices, masked by global
-    # positions and carrying the previous chunk's partial leading tile
-    mag = F.pad(q_hat.float().abs(), (0, 0, 0, tpad - t))
+    # the same aggregation as chunk_topk_block_indices over the real
+    # blocks, masked by global positions and carrying the previous
+    # chunk's partial leading tile
+    mag = F.pad(_real(q_hat, kept).float().abs(), (0, 0, 0, tpad - t))
     row = torch.arange(tpad, device=dev)
     valid = (row[None, :] < t) & (q_offset + row[None, :] < lengths[:, None])
     mag = mag * valid[:, None, :, None]

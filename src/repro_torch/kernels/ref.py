@@ -17,12 +17,15 @@ import torch
 NEG_INF = -1e30
 
 
-def _block_mask(block_idx: torch.Tensor, nb: int, block_dims: int
+def _block_mask(block_idx: torch.Tensor, d: int, block_dims: int
                 ) -> torch.Tensor:
-    """(..., NB_sel) selected block ids -> (..., NB*bd) 0/1 float mask."""
+    """(..., NB_sel) selected block ids -> (..., d) 0/1 float mask over the
+    d dims (a tail narrower than a block is never selected)."""
+    nb = d // block_dims
     sel = torch.zeros(*block_idx.shape[:-1], nb, device=block_idx.device)
     sel.scatter_(-1, block_idx.long(), 1.0)
-    return sel.repeat_interleave(block_dims, dim=-1)
+    mask = sel.repeat_interleave(block_dims, dim=-1)
+    return torch.nn.functional.pad(mask, (0, d - nb * block_dims))
 
 
 def aqua_prefill_ref(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
@@ -30,20 +33,22 @@ def aqua_prefill_ref(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
                      block_dims: int, q_chunk: int, *, causal: bool = True,
                      scale: Optional[float] = None, q_offset: int = 0,
                      kc_part: Optional[torch.Tensor] = None,
-                     k_blk: int = 128) -> torch.Tensor:
+                     k_blk: int = 128,
+                     window: Optional[int] = None) -> torch.Tensor:
     """q_hat: (B, H, T, D) queries at sequence rows [q_offset, q_offset +
     T); khat: (B, KV, S, D); v: (B, KV, S, Dv); block_idx: (B, H,
     ceil(T / q_chunk), NB_sel); lengths: (B,). Every query of a
     (chunk-local) q_chunk tile shares the tile's block set. kc_part (B,
     ceil(T / q_chunk), KT): a key attends only when its ``k_blk`` chunk is
-    in its query tile's list. Returns (B, H, T, Dv)."""
+    in its query tile's list. ``window``: only keys ``kpos > qpos -
+    window`` (causal or not). Returns (B, H, T, Dv)."""
     b, h, t, d = q_hat.shape
     kvh, s = khat.shape[1], khat.shape[2]
     g = h // kvh
     dev = khat.device
     if scale is None:
         scale = 1.0 / d ** 0.5
-    mask = _block_mask(block_idx, d // block_dims, block_dims)  # B,H,NQC,D
+    mask = _block_mask(block_idx, d, block_dims)             # B,H,NQC,D
     mask = mask.repeat_interleave(q_chunk, dim=2)[:, :, :t]
     qm = (q_hat.float() * mask).reshape(b, kvh, g, t, d)
     scores = torch.einsum("bkgsd,bktd->bkgst", qm, khat.float()) * scale
@@ -52,6 +57,8 @@ def aqua_prefill_ref(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
     m = (kpos[None, :] < lengths.to(dev)[:, None])[:, None, :]   # (B, 1, S)
     if causal:
         m = m & (qpos[:, None] >= kpos[None, :])[None]
+    if window is not None:
+        m = m & (kpos[None, :] > qpos[:, None] - window)[None]
     if kc_part is not None:
         nkc = -(-s // k_blk)
         part = torch.zeros(b, kc_part.shape[1], nkc + 1, dtype=torch.bool,

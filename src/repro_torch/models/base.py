@@ -106,8 +106,9 @@ class LM:
         """Overwrite lane ``lane`` of ``state`` with the single-lane
         ``req_state`` (K/V slots, positions, count), in place."""
         for f in dataclasses.fields(state.layers):
-            getattr(state.layers, f.name)[:, lane] = \
-                getattr(req_state.layers, f.name)[:, 0]
+            dst = getattr(state.layers, f.name)
+            if dst is not None:
+                dst[:, lane] = getattr(req_state.layers, f.name)[:, 0]
         return state
 
     def reset_lane(self, state: DecodeState, lane: int,

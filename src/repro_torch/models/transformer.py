@@ -11,7 +11,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core import attention as attn
+from repro_torch.core import aqua as aqua_lib
 from repro_torch.core import kvcache as kv
+from repro_torch.core.h2o import h2o_budget
 from repro_torch.models import layers as L
 from repro_torch.models.base import LM, DecodeState
 
@@ -120,13 +122,20 @@ class DenseLM(LM):
 
     # -- serving --------------------------------------------------------
     def _cache_dims(self):
+        """(stored K̂ width, V width): under AQUA the kept dims, padded to
+        a multiple of 8 where the selection is by whole dim-blocks
+        (``aqua.stored_dims``)."""
         acfg, aqua = self.cfg.attention, self.cfg.aqua
         dk = acfg.head_dim
         if aqua is not None and aqua.enabled:
-            if aqua.h2o_ratio < 1.0:
-                raise NotImplementedError("H2O eviction is not ported")
-            dk = aqua.kept_dims(acfg.head_dim)
+            dk = aqua_lib.stored_dims(aqua, acfg.head_dim)
         return dk, acfg.head_dim
+
+    def cache_slots(self, max_seq: int) -> int:
+        """Slots per lane: ``max_seq``, cut to the window and the H2O
+        budget where the config sets them."""
+        return kv.cache_slots(max_seq, self.cfg.attention.window,
+                              h2o_budget(self.cfg.aqua, max_seq))
 
     def init_decode_state(self, batch_size: int, max_seq: int,
                           device=None) -> DecodeState:
@@ -135,7 +144,7 @@ class DenseLM(LM):
         cfg, acfg = self.cfg, self.cfg.attention
         device = self.device if device is None else device
         dk, dv = self._cache_dims()
-        slots = kv.cache_slots(max_seq)
+        slots = self.cache_slots(max_seq)
         pg = self._paging
         if pg is not None:
             layers = kv.init_paged_cache(
@@ -145,24 +154,28 @@ class DenseLM(LM):
                 kv_dtype=pg.kv_dtype,
                 scale_granularity=pg.scale_granularity)
         else:
-            layers = kv.init_attn_cache(batch_size, acfg.num_kv_heads, slots,
-                                        dk, dv, self.dtype, device,
-                                        num_layers=cfg.num_layers)
+            layers = kv.init_attn_cache(
+                batch_size, acfg.num_kv_heads, slots, dk, dv, self.dtype,
+                device, num_layers=cfg.num_layers,
+                h2o=h2o_budget(cfg.aqua, max_seq) is not None)
         return DecodeState(layers=layers)
 
     def prefill(self, params, batch, max_seq: int, aqua_proj=None):
-        """Prefill a (possibly ragged, ``batch["lengths"]``) prompt batch
-        into a fresh contiguous cache. Returns (next-token logits (B, V)
-        from each row's last valid token, DecodeState)."""
+        """Prefill a (possibly ragged, ``batch["lengths"]``; full-cache
+        policy only) prompt batch into a fresh contiguous cache of the
+        config's slot policy. Returns (next-token logits (B, V) from each
+        row's last valid token, DecodeState)."""
+        cfg = self.cfg
         x = L.embed(params["embed"], batch["tokens"], self.dtype)
         lengths = batch.get("lengths")
         x, auxes = self._run_layers(params, x, aqua_proj, lengths)
-        caches = [attn.build_cache_from_prefill(a["k_cache"], a["v"],
-                                                max_seq, lengths)
-                  for a in auxes]
-        layers = kv.AttnCache(
-            *(torch.stack(ts) for ts in zip(*(
-                (c.k, c.v, c.positions, c.count) for c in caches))))
+        caches = [attn.build_cache_from_prefill(
+            a["k_cache"], a["v"], max_seq, lengths,
+            window=cfg.attention.window, aqua=cfg.aqua, q_hat=a["q_hat"],
+            head_dim=cfg.attention.head_dim) for a in auxes]
+        layers = kv.AttnCache(*(
+            None if ts[0] is None else torch.stack(ts)
+            for ts in zip(*(kv._tensors(c) for c in caches))))
         if lengths is None:
             x_last = x[:, -1]
         else:

@@ -18,10 +18,21 @@ backends, the kernel's ``prefill_q_blk``; the final chunk samples the
 first token. A decoding lane thus never waits longer than one budget of
 prefill. Greedy tokens equal monolithic admission's.
 
+Sliding-window and H2O models (``CacheSpec.eviction``, resolved from the
+config) hold fewer slots per lane (``kvcache.cache_slots``): a ring, a
+heavy-hitter budget, or both. They admit at the prompt's exact length (no
+bucket padding, no ragged ``lengths``: their slot placement assumes a
+rectangular batch), a paged lane reserves its whole page stripe (the ring
+wraps and eviction reuses pages), and they never chunk, as in JAX.
+
 Every decode step runs all ``max_lanes`` lanes; inactive and PREFILLING
 lanes ride along under a ``write_mask`` that freezes their cache. The
 per-lane bookkeeping (last token, counters, stop rules) lives on the host:
 the host reads each step's sampled tokens anyway.
+
+Under AQUA the engine pads the projections once, at construction, to the
+stored K̂ width (``aqua.stored_projection``): AQUA-Memory kept widths that
+are not a multiple of 8 then run the bf16 kernels on zero-padded q̂/K̂.
 
 Greedy sampling is ``argmax`` (first index among ties, as in the JAX
 package). Temperature sampling draws Gumbel noise from a
@@ -29,8 +40,8 @@ package). Temperature sampling draws Gumbel noise from a
 independent of lane placement but not the JAX package's random stream.
 
 Not ported yet (the engine raises ``NotImplementedError``): prefix
-sharing, meshes, sliding windows, H2O eviction, and mixed-precision hot
-residents (``QuantSpec.hot_resident_fraction`` > 0).
+sharing, meshes, int8 pools under a window or H2O, and mixed-precision
+hot residents (``QuantSpec.hot_resident_fraction`` > 0).
 """
 from __future__ import annotations
 
@@ -43,8 +54,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import (ModelConfig, ServingConfig,
-                                      resolve_cache_specs,
+                                      resolve_cache_specs, resolve_eviction,
                                       resolve_sparsity_spec)
+from repro_torch.core import aqua as aqua_lib
 from repro_torch.core import kvcache as kvc
 from repro_torch.core.attention import resolve_backend
 from repro_torch.core.calibration import AquaProjections
@@ -129,12 +141,13 @@ class ContinuousBatchingEngine:
         serving.validate()
         if serving.mesh_shape is not None:
             raise NotImplementedError("mesh serving is not ported yet")
-        if cfg.attention.window is not None:
-            raise NotImplementedError("sliding-window caches are not ported")
-        if cfg.aqua is not None and cfg.aqua.h2o_ratio < 1.0:
-            raise NotImplementedError("H2O eviction is not ported yet")
         cache, quant = resolve_cache_specs(serving)
         self.sparsity_spec = resolve_sparsity_spec(serving)
+        self.eviction = resolve_eviction(cache, cfg.attention, cfg.aqua)
+        if quant.quantized and self.eviction != "none":
+            raise NotImplementedError(
+                f"int8 KV pools under the {self.eviction!r} slot policy "
+                "(sliding window / H2O) are not ported yet")
         if quant.hot_resident_fraction > 0:
             raise NotImplementedError(
                 "mixed-precision hot residents (QuantSpec."
@@ -156,16 +169,29 @@ class ContinuousBatchingEngine:
         if cfg.aqua is not None and cfg.aqua.enabled:
             assert projections is not None, \
                 "AQUA enabled: calibrated projections required"
-            self.proj = projections.p.to(self.device)
+            # once, at load: cut to the kept dims and zero-padded to the
+            # stored width, so q̂ and K̂ come out in stored form
+            self.proj = aqua_lib.stored_projection(
+                projections.p.to(self.device), cfg.aqua,
+                cfg.attention.head_dim)
         self._rng_seed = rng_seed
         self._serves = 0
         self._serve_idx = 0
         self.stats = ScheduleStats()
         self.page_pool: Optional[PagePool] = None
-        self._num_slots = kvc.cache_slots(serving.max_seq)
+        # ragged bucketed prefill needs the full-cache policy (window
+        # rings and H2O eviction place slots assuming a rectangular batch)
+        self._supports_ragged = self.eviction == "none"
+        self._num_slots = self.model.cache_slots(serving.max_seq)
         self._paged = cache.paged
         self._kept_pages = None
         if self._paged:
+            if self._num_slots % cache.page_size != 0:
+                raise ValueError(
+                    f"cache slots ({self._num_slots}: window/H2O budget) "
+                    f"must be a multiple of page_size={cache.page_size} so "
+                    "the ring/eviction slot arithmetic tiles into whole "
+                    "pages")
             self._pages_per_lane = kvc.paged_pages(self._num_slots,
                                                    cache.page_size)
             self._num_pages = cache.num_pages or (serving.max_lanes
@@ -240,14 +266,20 @@ class ContinuousBatchingEngine:
         return out
 
     def _padded_prompt_len(self, prompt_len: int) -> int:
+        if not self._supports_ragged:
+            return prompt_len
         bucket = self.scfg.prompt_bucket
         padded = max(bucket, -(-prompt_len // bucket) * bucket)
         return min(padded, self.scfg.max_seq)
 
     def _prefill_batch(self, req: Request) -> Dict[str, torch.Tensor]:
         """Bucket-padded prompt with its ragged length (one prefill shape
-        per bucket, as in the JAX engine)."""
+        per bucket, as in the JAX engine); the exact prompt, without
+        ``lengths``, under a window or H2O."""
         s = req.prompt_len
+        if not self._supports_ragged:
+            tokens = np.asarray(req.tokens, np.int32).reshape(1, s)
+            return {"tokens": torch.from_numpy(tokens).to(self.device)}
         padded = np.zeros((1, self._padded_prompt_len(s)), np.int32)
         padded[0, :s] = np.asarray(req.tokens, np.int32)
         return {"tokens": torch.from_numpy(padded).to(self.device),
@@ -255,7 +287,11 @@ class ContinuousBatchingEngine:
                                         device=self.device)}
 
     def _pages_needed(self, req: Request) -> int:
-        """Pages for the request's whole lifetime (prefill + decode)."""
+        """Pages for the request's whole lifetime (prefill + decode); the
+        whole stripe under a window or H2O, whose slots wrap and evict
+        across all of it."""
+        if not self._supports_ragged:
+            return self._pages_per_lane
         total = min(max(self._padded_prompt_len(req.prompt_len),
                         req.prompt_len + req.max_new_tokens),
                     self._num_slots)
@@ -276,7 +312,9 @@ class ContinuousBatchingEngine:
             logits, req_state = self.model.prefill(
                 self.params, batch, self.scfg.max_seq, aqua_proj=self.proj)
             self.model.graft_paged(state, req_state, lane,
-                                   batch["tokens"].shape[1])
+                                   batch["tokens"].shape[1]
+                                   if self._supports_ragged
+                                   else self._num_slots)
         else:
             logits, _ = self.model.prefill_into(
                 self.params, batch, self.scfg.max_seq, state, lane,

@@ -502,3 +502,113 @@ def test_chunked_engine_on_the_card_matches_plain_reference(cuda):
             for u, want in mono_logits.items():
                 drift = (got_logits[u] - want).abs().max() / want.abs().max()
                 assert drift <= INT8_CHUNK_DRIFT, (u, float(drift))
+
+
+# (block_dims, D, kept): Danube's head_dim 80, the 128 of Qwen3/Llama with
+# blocks spanning two 16-byte chunks, and an AQUA-Memory K̂ of 90 real
+# dims stored as 96 (blocks of 2: chunks partly selected)
+WINDOW_GEOMS = [(8, 80, 80), (16, 128, 128), (2, 96, 90)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("part", [False, True])
+@pytest.mark.parametrize("bd,d,kept", WINDOW_GEOMS)
+@pytest.mark.parametrize("q_offset", [0, 128])
+@pytest.mark.parametrize("window", [1, 64, 100, 1000])
+def test_windowed_prefill_kernel_matches_plain(cuda, dtype, part, bd, d,
+                                               kept, q_offset, window):
+    """The window form (``kpos > qpos - window``; 1000 >= S is no cut),
+    monolithic and at ``q_offset``, with and without participating key
+    chunks, against the plain version; launches count under the body's
+    key."""
+    gen = torch.Generator(device="cuda").manual_seed(window + d + q_offset)
+    b, h, kv, s, blk = 2, 8, 2, 384, 64
+    t = s - q_offset
+    q = _rand(gen, b, h, t, d, dtype=dtype)
+    k = _rand(gen, b, kv, s, d, dtype=dtype)
+    v = _rand(gen, b, kv, s, d, dtype=dtype)
+    q[..., kept:] = 0                      # stored-form padding
+    k[..., kept:] = 0
+    lengths = torch.tensor([s, s - 50], dtype=torch.int32, device=cuda)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths - q_offset, 0.75, bd,
+                                             blk, kept)
+    table = None
+    if part:
+        nqc, nkc = block_idx.shape[2], s // blk
+        table = selection.chunk_participating_tiles(
+            torch.rand(b, nkc, generator=gen, device=cuda), nqc=nqc,
+            q_blk=blk, k_blk=blk, kept_tiles=3, pin_tiles=1,
+            q_offset=q_offset)
+    kw = dict(block_dims=bd, q_blk=chunk, causal=True, scale=d ** -0.5,
+              q_offset=q_offset, kc_part=table, k_blk=blk, window=window)
+    before = LAUNCHES.copy()
+    out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+    ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES - before == {
+        "aqua_prefill_part" if part else "aqua_prefill": 1}
+    valid = ((q_offset + torch.arange(t, device=cuda))[None]
+             < lengths[:, None])[:, None, :, None]
+    assert _within_tol(out, ref, dtype, valid)
+    if window < s:    # the window cuts: a wider one gives other rows
+        wide = pk.aqua_prefill_attention(q, k, v, block_idx, lengths,
+                                         **dict(kw, window=window + 1))
+        assert not _within_tol(wide, ref, dtype, valid)
+
+
+def test_danube_geometry_prefill_kernel_matches_plain(cuda):
+    """H2O-Danube-1.8B's heads (H 32, KV 8, head_dim 80: 10 chunks of
+    V, 8 of 10 K̂ blocks selected) over a 4096-token window at S 5120."""
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    b, h, kv, d, s, window = 1, 32, 8, 80, 5120, 4096
+    q = _rand(gen, b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+    k = _rand(gen, b, kv, s, d, dtype=torch.bfloat16)
+    v = _rand(gen, b, kv, s, d, dtype=torch.bfloat16)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=cuda)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths, 0.75, 8, 128)
+    assert block_idx.shape[-1] == 8
+    kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5,
+              window=window)
+    out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+    ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
+    torch.cuda.synchronize()
+    assert _within_tol(out, ref, torch.bfloat16)
+
+
+def test_aqua_memory_engine_on_the_card_matches_plain_reference(cuda):
+    """``s_ratio`` 0.3 with ``block_dims`` 2 keeps 90 of 128 dims, stored
+    as 96: the bf16 engine runs the kernels (prefill once per layer per
+    admission, decode once per layer per step), and every admission's
+    logits stay within 5% of their largest magnitude of the plain
+    reference's (bf16: the two differ by about one ulp per layer),
+    contiguous and paged."""
+    aq = AquaConfig(k_ratio=0.75, s_ratio=0.3, block_dims=2,
+                    prefill_q_blk=16)
+    cfg = dataclasses.replace(reduced("qwen3-0.6b", d_model=512, vocab=512),
+                              aqua=aq, dtype="bfloat16",
+                              param_dtype="bfloat16")
+    assert cfg.attention.head_dim == 128 and aq.kept_dims(128) == 90
+    params = build_model(cfg).init(torch.Generator(device="cuda")
+                                   .manual_seed(0))
+    proj = identity_projections(cfg.num_layers, cfg.attention.num_kv_heads,
+                                cfg.attention.head_dim)
+    reqs = lambda: poisson_trace(6, mean_interarrival=2.0,
+                                 prompt_lens=(9, 33, 70), max_new_tokens=8,
+                                 vocab_size=512, seed=1)
+    for cache in (None, CacheSpec(page_size=16, prefix_sharing=False)):
+        scfg = ServingConfig(max_lanes=3, max_seq=128, max_new_tokens=8,
+                             cache=cache)
+        LAUNCHES.clear()
+        eng = ContinuousBatchingEngine(cfg, params, proj, serving=scfg)
+        _, got = _serve_with_admit_logits(eng, reqs())
+        body = "aqua_decode" if cache is None else "aqua_paged_decode"
+        assert LAUNCHES == {
+            "aqua_prefill": cfg.num_layers * eng.stats.admissions,
+            body: cfg.num_layers * eng.stats.decode_steps}, dict(LAUNCHES)
+        _, want = _serve_with_admit_logits(ContinuousBatchingEngine(
+            cfg, params, proj, serving=scfg,
+            backend="aqua-block-sparse-plain"), reqs())
+        assert got.keys() == want.keys()
+        for uid, logits in want.items():
+            err = (got[uid] - logits).abs().max().item()
+            assert err <= 0.05 * logits.abs().max().item(), (cache, uid)

@@ -155,7 +155,7 @@ def test_cache_inserts_match_jax_slot_for_slot():
                                  jnp.asarray(v_new), write_mask=jm)
         tk, tv, tm = map(torch.from_numpy, (k_new, v_new, m))
         kv.insert(tc, kv.select_slot(tc), tk, tv, write_mask=tm)
-        kv.paged_insert(tpc, kv.paged_select_slot(tpc), tk, tv,
+        kv.paged_insert(tpc, kv.paged_select_slot(tpc)[0], tk, tv,
                         write_mask=tm)
     for name in ("k", "v", "positions", "count"):
         np.testing.assert_array_equal(getattr(tc, name).numpy(),

@@ -84,7 +84,8 @@ def test_int8_inserts_match_jax_with_scale_growth(gran):
         jp = jax_kv.paged_insert(jp, jslot, jnp.asarray(k_new),
                                  jnp.asarray(v_new),
                                  write_mask=jnp.asarray(m))
-        kv.paged_insert(tp, kv.paged_select_slot(tp), torch.from_numpy(k_new),
+        kv.paged_insert(tp, kv.paged_select_slot(tp)[0],
+                        torch.from_numpy(k_new),
                         torch.from_numpy(v_new),
                         write_mask=torch.from_numpy(m))
     assert tp.k_pool.dtype == torch.int8 and np.abs(_np(tp.k_pool)).max() > 0
