@@ -11,7 +11,8 @@ Phases, each of which raises (non-zero exit) on failure:
    set-up; one ``nvcc`` per source, in parallel); log ptxas's register
    and spill lines, and require tensor-core instructions (HMMA or HGMMA)
    in the SASS of the bf16 prefill, flash and decode kernels (``cuobjdump
-   -sass``).
+   -sass``), the decode's group route in its full-precision, int8 and
+   participating-page instantiations.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes (bf16, D=128) of Qwen3-0.6B (H=16, KV=8) and of
    Llama-3.1-8B (H=32, KV=8): decode B=8, S=4096 (contiguous, and paged
@@ -19,7 +20,8 @@ Phases, each of which raises (non-zero exit) on failure:
    drives' contexts, lengths 128-1056 in a 2048-token table; the paged
    variants with
    int8 pools and per-(page, head) scales, with the participating pages of
-   hierarchical AQUA at page_keep_ratio 0.25, and with both); prefill and
+   hierarchical AQUA at page_keep_ratio 0.25, and with both; the int8 and
+   the participating variant also at the drives' contexts); prefill and
    flash attention B=1, S=2048, causal; the prefill's ``q_offset`` form
    (chunked prefill: rows 3072-4095 of S=4096, also held against those
    rows of the monolithic call) and its participating-chunk walk
@@ -35,7 +37,9 @@ Phases, each of which raises (non-zero exit) on failure:
    kernel's and the plain version's ms over 20 calls from Python (CUDA
    events) and the bound (for the byte-bound decode: the bytes, and the
    achieved GB/s over them; one PyTorch sum over 256 MiB gives the card's
-   practical read rate beside them).
+   practical read rate beside them; the decode phases also give the device
+   microseconds of each kernel a call launches, its partial and its
+   combine pass, from ``torch.profiler``).
    Planted faults must fail the same tolerance, so it is tight enough to
    catch a wrong kernel: a lane's last 256 positions dropped, one head's
    dim-block selection shifted (decode, prefill), the first two heads of a
@@ -43,10 +47,11 @@ Phases, each of which raises (non-zero exit) on failure:
    union, or one head's selection, to every head); ``q_offset`` one
    q_blk early; one participating key chunk swapped for a dropped one; a
    window that cuts the far keys and a causal diagonal shifted by one key
-   (flash); one page's key scale doubled (int8); one participating page
-   swapped for a dropped one (participating pages); the prefill's window
-   one key wider, and its band starting one 64-key tile late (the
-   participating walk over each q-tile's band without its first tile).
+   (flash); one page's key or value scale doubled (int8); one
+   participating page swapped for a dropped one (participating pages); the
+   prefill's window one key wider, and its band starting one 64-key tile
+   late (the participating walk over each q-tile's band without its first
+   tile).
 4. Serve Qwen3-0.6B at its full published width and depth (random bf16
    weights from a seeded generator, projections calibrated on
    ``corpora/calibration.txt``) through the continuous-batching engine, in
@@ -87,6 +92,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -182,6 +188,30 @@ def timings(kernel, plain, library, plain_iters: int = 20) -> dict:
     return dict(ms=graph_ms(kernel), loop_ms=cuda_ms(kernel),
                 plain_ms=cuda_ms(plain, iters=plain_iters),
                 library_ms=graph_ms(library))
+
+
+def device_us(fn, calls: int = 10) -> dict:
+    """Device microseconds per call of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls (the decode: its partial pass
+    and its combine pass)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.split(r"[<(]", e.name.replace(
+                "(anonymous namespace)::", "").removeprefix("void "))[0]
+            name = name.split("::")[-1]
+            by_name[name] = by_name.get(name, 0.0) + \
+                e.time_range.elapsed_us() / calls
+    return by_name
 
 
 def sass_mma_counts(lib: str) -> dict:
@@ -349,6 +379,7 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
     bms, by = bound(nbytes, ops)
     name = "aqua_paged_decode" if paged else "aqua_decode"
     times = timings(kernel, plain, library)
+    times["device_us"] = device_us(kernel)
     return dict(name=name, geometry=geom, form=form,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d,
                            page_size=ps if paged else None,
@@ -682,9 +713,15 @@ def flash_phase(geom: str, h: int, kvh: int, gen) -> dict:
 
 
 def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
-                        part: bool, gen) -> dict:
+                        part: bool, gen, s: int = 4096, len_range=None,
+                        form: str = None) -> dict:
     """The paged decode over int8 pools (``quant``) and/or over the
-    participating pages of hierarchical AQUA (``part``)."""
+    participating pages of hierarchical AQUA (``part``), B=8 over a table of
+    ``s`` positions, lengths uniform in ``len_range`` (default: s/2 to s);
+    the served form (``form="served"``) takes the drives' contexts, where
+    lanes shorter than the kept pages walk pages past their tail (lane 0
+    then takes the longest context, so that it drops pages for the planted
+    page swap)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import SparsitySpec
@@ -692,14 +729,17 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
     from repro_torch.kernels import aqua_decode as dk
     from repro_torch.kernels.ops import round_k_dims
 
-    b, s, d, ps = 8, 4096, 128, 64
+    b, d, ps = 8, 128, 64
     npl = s // ps
+    lo, hi = len_range or (s // 2, s)
     dev, bf = "cuda", torch.bfloat16
     q = torch.randn(b, h, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
-    lengths = torch.randint(s // 2, s + 1, (b,), device=dev, generator=gen,
+    lengths = torch.randint(lo, hi + 1, (b,), device=dev, generator=gen,
                             dtype=torch.int32)
+    if form == "served":
+        lengths[0] = hi
     scale = d ** -0.5
     nsel = round_k_dims(d, K_RATIO, BLOCK_DIMS)
     block_idx = aqua.topk_block_indices(q, nsel, BLOCK_DIMS).contiguous()
@@ -742,9 +782,11 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
 
     faults = {}
     if quant:                  # lane 0's tail page (always attended)
-        bad = scales["k_scale"].clone()
-        bad[table[0, (int(lengths[0]) - 1) // ps].long()] *= 2
-        faults["doubled_k_scale"] = kernel(k_scale=bad)
+        tail = table[0, (int(lengths[0]) - 1) // ps].long()
+        for name in ("k_scale", "v_scale"):
+            bad = scales[name].clone()
+            bad[tail] *= 2
+            faults["doubled_" + name] = kernel(**{name: bad})
     if part:                   # lane 0 keeps page 0 -> a dropped page
         bad = part_idx.clone()
         dropped = [p for p in range((int(lengths[0]) - 1) // ps)
@@ -797,14 +839,23 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
         nbytes += 2 * 4 * kvh * float(pages_read.sum())
     ops = 2 * float(rows.sum()) * h * (nsel + d)
     bms, by = bound(nbytes, ops)
+    route = dk.decode_route(bf, quant=quant, part=part, d=d, dv=d,
+                            nsel=nsel)
+    read = None
+    if route == "group" and quant:
+        # what the int8 group route reads: whole K̂ rows, not the union
+        read = nbytes + float((rows[:, None] * (d - union * BLOCK_DIMS)).sum())
     times = timings(kernel, plain, library)
+    times["device_us"] = device_us(kernel)
     return dict(name=dk.body_name(True, quant, part), geometry=geom,
+                form=form, route=route,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, page_size=ps,
+                           lengths=[lo, hi],
                            kept_pages=None if part_idx is None
                            else part_idx.shape[1],
                            kv_dtype="int8" if quant else "bf16"),
                 **check, **times, bound_ms=bms, bound_by=by,
-                **byte_rate(nbytes, times["ms"]))
+                read_bytes=read, **byte_rate(nbytes, times["ms"]))
 
 
 # ---------------------------------------------------------------------------
@@ -1219,6 +1270,20 @@ def main() -> int:
             log(f"[sass {name}] {fn}: {n} HMMA/HGMMA")
         tagged = [n for fn, n in counts.items() if fn_tag in fn]
         assert tagged and all(n > 0 for n in tagged), (name, counts)
+    # the decode's group route in its full-precision, int8 (kQuant) and
+    # participating-page (kPart) instantiations, each at both widths:
+    # decode_bf16<kKS, kMT, kQuant, kPart>, mangled ...ILi8ELi8ELb1ELb0E...
+    counts = sass_mma_counts(str(_build._lib_path("aqua_decode")))
+    variants = {}
+    for fn, n in counts.items():
+        m = re.search(r"decode_bf16ILi(\d+)ELi(\d+)ELb([01])ELb([01])E", fn)
+        if m:
+            variants[tuple(int(x) for x in m.groups())] = n
+    want = {(ks, ks, qt, pt) for ks in (8, 16)
+            for qt, pt in ((0, 0), (1, 0), (0, 1))}
+    assert set(variants) == want and all(variants.values()), variants
+    log({"sass_decode_group_variants": {
+        f"kKS{k[0]}_quant{k[2]}_part{k[3]}": n for k, n in variants.items()}})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phases = []
@@ -1231,6 +1296,11 @@ def main() -> int:
         for quant, part in ((True, False), (False, True), (True, True)):
             phases.append(paged_variant_phase(geom, h, kvh, quant, part,
                                               gen))
+        # the group route's variants at the drives' contexts
+        for quant, part in ((True, False), (False, True)):
+            phases.append(paged_variant_phase(
+                geom, h, kvh, quant, part, gen, s=2048,
+                len_range=(128, 1056), form="served"))
         phases.append(prefill_phase(geom, h, kvh, gen))
         phases.append(prefill_chunk_phase(geom, h, kvh, gen))
         phases.append(prefill_part_phase(geom, h, kvh, gen))

@@ -16,18 +16,23 @@ the cache per step, which would move the whole K̂ once more than the kernel
 saves), only the selected blocks and only valid positions, split over the
 sequence so that a small batch still fills the card.
 
-Two routes (see the source's header). bf16 without scales or participating
-pages (``_kernel``, ``_paged_kernel``: the served AQUA decode) takes the
-group route: one block per (split, KV head, lane) for all G heads of the
-group, so each K̂ piece and V row is read once per group; TMA bulk copies
-bring the union of the group's selected 8-dim chunks and the V rows into a
-ring per warp, and the scores and P·V run on the tensor cores
-(``mma.sync``). It needs D and Dv multiples of 8, D <= 256, and 16-byte
-aligned q̂, K̂ and V (``ValueError`` otherwise). float32 (the tests), int8
-pools and participating pages keep the per-head route of the first port
-(one block per query head, scalar loads); they move to the group route's
-machinery separately. Both split the sequence into 256-position blocks
-(``aqua_decode_split``), which sizes the float32 scratch.
+Two routes (see the source's header), chosen by :func:`decode_route` from
+dtype, flags and shapes alone. The group route takes bf16 q̂ over a
+contiguous cache, a page pool, an int8 pool or the participating pages
+(``_kernel``, ``_paged_kernel``, ``_paged_quant_kernel``,
+``_paged_part_kernel``): one block per (split, KV head, lane) for all G
+heads of the group, so each K̂ piece and V row is read once per group; TMA
+bulk copies bring the rows into a ring per warp (bf16: the union of the
+group's selected 8-dim chunks and the V rows; int8: whole rows, converted
+exactly to bf16 in registers), and the scores and P·V run on the tensor
+cores (``mma.sync``). It needs D and Dv multiples of 8 (int8: of 16), D <=
+256, and 16-byte aligned views (``ValueError`` otherwise). float32 q̂
+(the tests), bf16 with int8 and participating pages both
+(``_paged_part_quant_kernel``), and the int8 and participating widths the
+group route does not take run the per-head route of the first port (one
+block per query head, scalar loads). Both split the sequence into
+256-position blocks (``aqua_decode_split``), which sizes the float32
+scratch.
 
 Dispatch is by the device of the tensors: CPU tensors run the plain PyTorch
 version (:func:`aqua_decode_plain`), CUDA tensors launch the kernel or
@@ -47,7 +52,7 @@ from repro_torch.kernels.ref import NEG_INF, _block_mask
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"aqua_decode_launch": [_P] * 11 + [_I] * 12 + [ctypes.c_float, _I,
-                                                        _P],
+                                                        _I, _P],
         "aqua_decode_split": []}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -58,6 +63,32 @@ def body_name(paged: bool, quant: bool = False, part: bool = False) -> str:
         return "aqua_decode"
     return "aqua_paged" + ("_part" if part else "") + (
         "_quant" if quant else "") + "_decode"
+
+
+def decode_route(dtype: torch.dtype, *, quant: bool, part: bool, d: int,
+                 dv: int, nsel: int) -> str:
+    """The route a CUDA call takes: ``"group"`` or ``"per_head"``, from
+    q̂'s dtype, int8 pools (``quant``), participating pages (``part``), the
+    widths D and Dv and the selected dims NB_sel·block_dims. Raises
+    ``TypeError`` for a q̂ dtype neither route takes and ``ValueError`` for
+    shapes neither takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"aqua_decode kernel takes float32 or bfloat16 q, "
+                        f"got {dtype}")
+    if nsel > 256 or dv > 256:
+        raise ValueError(f"aqua_decode kernel takes at most 256 selected dims "
+                         f"and Dv <= 256, got {nsel} and {dv}")
+    if dtype == torch.float32 or (quant and part):
+        return "per_head"
+    # bulk copies move whole 16-byte units: bf16 rows of a multiple of 8
+    # dims, int8 rows of a multiple of 16
+    unit = 16 if quant else 8
+    if d % unit == 0 and dv % unit == 0 and d <= 256:
+        return "group"
+    if quant or part:
+        return "per_head"
+    raise ValueError(f"aqua_decode bf16 kernel needs D and Dv multiples "
+                     f"of 8 and D <= 256, got D {d}, Dv {dv}")
 
 
 def aqua_decode_plain(q_hat: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,16 +154,12 @@ def _launch(q_hat, k, v, block_idx, lengths, page_table, block_dims, scale,
         raise TypeError(f"aqua_decode kernel takes float32 or bfloat16 q with "
                         f"k/v of the same dtype (int8 with scales), got "
                         f"{q_hat.dtype}, {k.dtype}, {v.dtype}")
-    if dk != d or h % kvh or nb_sel * block_dims > 256 or dv > 256:
+    if dk != d or h % kvh:
         raise ValueError(f"aqua_decode kernel: unsupported shapes q "
                          f"{q_hat.shape} "
                          f"k {k.shape} v {v.shape} NB_sel {nb_sel}")
-    # bf16 without scales or participating pages: the group route
-    group = (q_hat.dtype == torch.bfloat16 and not quant
-             and part_idx is None)
-    if group and (d % 8 or dv % 8 or d > 256):
-        raise ValueError(f"aqua_decode bf16 kernel needs D and Dv multiples "
-                         f"of 8 and D <= 256, got D {d}, Dv {dv}")
+    route = decode_route(q_hat.dtype, quant=quant, part=part_idx is not None,
+                         d=d, dv=dv, nsel=nb_sel * block_dims)
     if page_table is None and (k.shape[0] != b or quant
                                or part_idx is not None):
         raise ValueError("contiguous cache must have one page per lane, no "
@@ -154,7 +181,7 @@ def _launch(q_hat, k, v, block_idx, lengths, page_table, block_dims, scale,
     for t in (k_scale, v_scale):
         if t is not None and t.dtype != torch.float32:
             raise TypeError("k_scale and v_scale must be float32")
-    if group:
+    if route == "group":
         _build.check_cp_async("aqua_decode", q_hat, k, v)
     lib = _build.load("aqua_decode", _SIG)
     npl = 0 if page_table is None else page_table.shape[1]
@@ -177,7 +204,8 @@ def _launch(q_hat, k, v, block_idx, lengths, page_table, block_dims, scale,
             *map(ptr, optional), lengths.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), b, h, kvh, d, dv, nb_sel, block_dims, ps, npl,
             kp, 0 if k_scale is None else k_scale.shape[1], nsplit,
-            float(scale), _DTYPES[q_hat.dtype], stream)
+            float(scale), _DTYPES[q_hat.dtype], int(route == "group"),
+            stream)
     _build.check(err, body_name(page_table is not None, quant,
                                 part_idx is not None))
     return out

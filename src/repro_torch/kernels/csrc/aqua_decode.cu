@@ -29,21 +29,22 @@
 // lengths[b] exit at once (when every page is walked). The launches hold no
 // host sync and allocate nothing, so a CUDA graph can capture them.
 //
-// bf16 route (namespace gqa; _kernel and _paged_kernel): one block of 4
-// warps per (split, KV head, lane) holds all G query heads of the group (up
-// to 8; a larger group takes several blocks), so each K̂ piece and V row
-// leaves device memory once per group, not G times. Each warp walks
-// its own 16-position tiles of the split (tile j of warp j mod 4) through a
-// private ring of two stages, so no block barrier runs per tile:
+// Group route (namespace gqa; bf16 q̂: _kernel, _paged_kernel, and as
+// compile-time variants _paged_quant_kernel (kQuant) and _paged_part_kernel
+// (kPart)): one block of 4 warps per (split, KV head, lane) holds all G
+// query heads of the group (up to 8; a larger group takes several blocks),
+// so each K̂ piece and V row leaves device memory once per group, not G
+// times. Each warp walks its own 16-position tiles of the split (tile j of
+// warp j mod 4) through a private ring of two stages, so no block barrier
+// runs per tile:
 //
-// - Copies: the TMA, one bulk copy per V row and one per run of the K̂
-//   row's staged chunks, completing on the stage's mbarrier; the lines go
-//   first when L2 evicts (read once). The staged chunks are the union of the
-//   group's selected 8-dim chunks with one-chunk holes filled (such a hole
-//   shares its 32-byte sector with a union chunk: no extra device traffic,
-//   fewer copies). Rows past the end are not copied. (16-byte cp.async
-//   copies stall each warp for thousands of cycles at issue here: PERF.md,
-//   Findings.)
+// - Copies: the TMA, completing on the stage's mbarrier; the lines go first
+//   when L2 evicts (read once). bf16: one bulk copy per V row and one per
+//   run of the K̂ row's staged chunks, the union of the group's selected
+//   8-dim chunks with one-chunk holes filled (such a hole shares its 32-byte
+//   sector with a union chunk: no extra device traffic, fewer copies). Rows
+//   without a token are not copied. (16-byte cp.async copies stall each warp
+//   for thousands of cycles at issue here: PERF.md, Findings.)
 // - Scores and P·V on the tensor cores (mma.sync m16n8k16, bf16 in, f32
 //   accumulate), positions x heads as M x N: S = K̂·q̂ᵀ with the K̂ tile as A
 //   (ldmatrix) and q̂ as B in registers, each head's q̂ zero in the staged
@@ -64,32 +65,57 @@
 // Every warp keeps its own running (max, sum, acc); at the end the block
 // merges its four warps (one barrier) into the split's scratch entry.
 //
-// Per-head route (float32 tests, int8 pools, participating pages; bodies
-// _paged_quant_kernel, _paged_part_kernel, _paged_part_quant_kernel and
-// the float32 forms of _kernel and _paged_kernel): one block of 128 threads
-// per (split of 256 positions, h, b); each thread scores one position of a
-// 128-position tile from the selected blocks only (scalar loads), the
-// block reduces the tile's max and sum, and each thread accumulates one or
-// two output dims over the tile's V rows. The participating walk and int8
-// are compile-time variants, so the full-precision walk pays nothing for
-// them. It keeps the template of the first port: float32 serves only the
-// tests (kept off the tensor cores, as in the prefill), and the int8 and
-// participating variants move onto the bf16 route's machinery in later
-// changes, one or two kernels at a time.
+// kQuant, the group route over int8 pools. An 8-dim int8 chunk is a
+// quarter of a 32-byte sector, and at k_ratio 0.75 the group's union
+// touches nearly every sector of a K̂ row, so staging the union would save
+// almost no bytes: each row with a token is copied whole (one bulk copy of
+// D bytes for K̂, one of Dv for V; D and Dv multiples of 16), into rows
+// padded to an odd number of 16-byte units, where ldmatrix's eight rows fall
+// on distinct banks. It reads 1.00-1.04x the bound's bytes at k_ratio 0.75
+// (PERF.md). The int8 rows are converted exactly to bf16 in registers
+// (|x| <= 128 is exact in bf16: a byte_perm into an f32 and one subtraction
+// per element), so the mma and the result are the bf16 route's: ldmatrix
+// reads a row as byte pairs, so a lane holds dims 4t..4t + 3 of a 16-dim
+// chunk, and q̂'s B operand takes its dims in that order (the dot product
+// is order-free); ldmatrix.trans hands a lane two dims of two positions of
+// V, so output row g of a 16-dim slice is its dim 2g and row g + 8 its dim
+// 2g + 1. (A first design converted each landed tile to bf16 in shared
+// memory: the extra shared-memory round trip took a third of its time,
+// PERF.md.) q̂ stays bf16 (quantizing it for an s8 mma would change the
+// result). Each row's scales are looked up through its page when its copy
+// is issued, so pages of 8 positions (a tile across two pages) and
+// per-(page, kv head) scales take the same lookup.
 //
-// int8 pools: k and v hold int8 and k_scale / v_scale (P, SH) float32 one
-// scale per page (SH = 1) or per page and kv head (SH = KV, s_stride = 1).
-// The key scale folds into the score (dot · scale · k_scale[page]), the value
-// scale into the softmax weight of the row (p · v_scale[page]), so no page is
-// dequantized. A split spans several pages: the scales are looked up per
-// position, through that position's page. The output is float32, as the
-// Pallas call emits it for int8 pools.
+// kPart, the group route's participating walk: rows without a token are not
+// copied and get weight 0 explicitly (a tile may hold none, so its max may
+// stay NEG_INF); a tile with none adds nothing; a split with none writes
+// (NEG_INF, 0, 0) (its threads test the split's 256 positions at the
+// block's one barrier). kQuant and kPart are independent template flags.
 //
-// Participating pages (part_idx (B, KP), logical page ids): the walk covers
-// KP·ps virtual positions; virtual position vp maps to logical position
-// part_idx[b, vp / ps]·ps + vp % ps, valid iff below lengths[b]. Validity is
-// tested per position (the tail page is partial, pages past the tail are
-// padding), and every one of the KP·ps / split splits is written and merged.
+// Per-head route (float32 q̂, the tests' form, kept off the tensor cores as
+// in the prefill; bf16 q̂ with int8 and participating pages both,
+// _paged_part_quant_kernel; and the int8 and participating widths the
+// group route does not take): one block of 128 threads per (split of 256
+// positions, h, b); each thread scores one position of a 128-position tile
+// from the selected blocks only (scalar loads), the block reduces the
+// tile's max and sum, and each thread accumulates one or two output dims
+// over the tile's V rows. The participating walk and int8 are compile-time
+// variants, so the full-precision walk pays nothing for them.
+//
+// int8 pools (both routes): k and v hold int8 and k_scale / v_scale (P, SH)
+// float32, one scale per page (SH = 1) or per page and kv head (SH = KV,
+// s_stride = 1). The key scale folds into the score (dot · scale ·
+// k_scale[page]), the value scale into the row's weight in P·V (p ·
+// v_scale[page], not in the sum), so no page is dequantized. A split spans
+// several pages: the scales are looked up per position, through that
+// position's page. The output is float32, as the Pallas call emits it.
+//
+// Participating pages (both routes; part_idx (B, KP), logical page ids):
+// the walk covers KP·ps virtual positions; virtual position vp maps to
+// logical position part_idx[b, vp / ps]·ps + vp % ps, valid iff below
+// lengths[b]. Validity is tested per position (the tail page is partial, a
+// lane with fewer pages than KP walks pages past its tail), and every one
+// of the KP·ps / split splits is written and merged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -319,7 +345,7 @@ int launch(const void* q, const void* k, const void* v, const int* bi, const Pag
 }
 
 // ---------------------------------------------------------------------------
-// bf16 route: one block per (split, KV head, lane) for all heads of the group
+// Group route: one block per (split, KV head, lane) for all heads of the group
 // ---------------------------------------------------------------------------
 
 namespace gqa {
@@ -337,21 +363,38 @@ constexpr int kStages = 2;        // warp tiles in flight per warp
 constexpr int kHeads = 8;         // query heads per block: the n of both mmas
 constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kStages * kRows == 32, "a warp's first tiles give each lane one row");
+static_assert(2 * kWarps * kStages * kRows == kSplit, "two rows per thread cover a split");
 
 struct Args {
   const bf16* q;
-  const bf16* k;
-  const bf16* v;
+  const void* k;        // (P, KV, ps, D): bf16, or int8 (kQuant)
+  const void* v;        // (P, KV, ps, Dv): the same type
   const int* block_idx;
-  const int* table;   // (B, np_lane) or null: contiguous cache (page = b, ps = S)
+  const int* table;     // (B, np_lane) or null: contiguous cache (page = b, ps = S)
+  const int* part;      // (B, kp) participating logical pages (kPart)
+  const float* ks;      // (P, sh) key scales (kQuant)
+  const float* vs;      // (P, sh) value scales (kQuant)
   const int* lengths;
-  float* scratch;     // (B, H, nsplit, Dv + 2)
-  int H, KV, D, Dv, nb_sel, bd, ps, np_lane;
-  int nhg;            // blocks per KV head (groups of more than 8 heads)
+  float* scratch;       // (B, H, nsplit, Dv + 2)
+  int H, KV, D, Dv, nb_sel, bd, ps, np_lane, kp, sh, s_stride;
+  int nhg;              // blocks per KV head (groups of more than 8 heads)
   int nsplit;
-  int kwa;            // staged K̂ row in 16-byte chunks: D / 8 rounded up to even
-  float scale_log2;   // scale · log2 e
+  int kwa;              // staged K̂ row in 16-byte chunks: D / 8 rounded up to even
+  float scale_log2;     // scale · log2 e
 };
+
+// An int8 row of n bytes (n % 16 == 0) in shared memory: padded to an odd
+// number of 16-byte units, so ldmatrix's eight rows fall on distinct banks
+__host__ __device__ inline int i8_stride(int n) { return 16 * ((n / 16 + 1) | 1); }
+// Shared memory per warp, in bytes: kStages stages of kRows K̂ rows then kRows
+// V rows, filled by the TMA in the padded layouts the tensor cores read
+// (bf16: K̂ over the staged chunks; int8: whole rows)
+__host__ __device__ inline int stage_bytes(bool quant, int kwa, int D, int Dv) {
+  return quant ? kRows * (i8_stride(D) + i8_stride(Dv)) : kRows * (kwa * 8 + 8 + Dv + 8) * 2;
+}
+__host__ __device__ inline int warp_bytes(bool quant, int kwa, int D, int Dv) {
+  return kStages * stage_bytes(quant, kwa, D, Dv);
+}
 
 // bits [lo, hi) of a word, 0 <= lo < hi <= 32
 __device__ __forceinline__ uint32_t bit_range(int lo, int hi) {
@@ -423,12 +466,23 @@ __device__ __forceinline__ uint32_t range_word(int d0, int d1, int w) {
   return lo < hi ? bit_range(lo, hi) : 0u;
 }
 
+// Two bytes of w (already biased: each byte x + 128) into a bf16 pair, exactly:
+// under the exponent of 2^23 the byte reads as the f32 2^23 + x + 128, less
+// 2^23 + 128 that is x, and as |x| <= 128 needs 8 significant bits its bf16 is
+// the f32's upper half. s0 / s1 are byte_perm selectors of the two bytes (the
+// first in the low half).
+__device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t w, uint32_t s0, uint32_t s1) {
+  const float x0 = __uint_as_float(__byte_perm(w, 0x4B000000u, s0)) - 8388736.f;
+  const float x1 = __uint_as_float(__byte_perm(w, 0x4B000000u, s1)) - 8388736.f;
+  return __byte_perm(__float_as_uint(x0), __float_as_uint(x1), 0x7632);
+}
 // kKS: most 16-dim k-steps of the union (8: D <= 128); kMT: most 16-wide
-// slices of the output (8: Dv <= 128). Fragment coordinates g = lane / 4,
-// t = lane % 4: scores hold (positions g, g + 8) x (heads 2t, 2t + 1), the
-// output (dims g, g + 8 of each slice) x (heads 2t, 2t + 1), and q̂'s B
-// operand head g.
-template <int kKS, int kMT>
+// slices of the output (8: Dv <= 128). kQuant: int8 K̂/V with per-page
+// scales, float32 output; kPart: the walk over the participating pages.
+// Fragment coordinates g = lane / 4, t = lane % 4: scores hold (positions
+// g, g + 8) x (heads 2t, 2t + 1), the output (dims g, g + 8 of each slice)
+// x (heads 2t, 2t + 1), and q̂'s B operand head g.
+template <int kKS, int kMT, bool kQuant, bool kPart>
 __global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
   constexpr int kWords = kKS / 2;  // 32-dim words of a head's selected dims
   const int split = blockIdx.x, b = blockIdx.z;
@@ -437,31 +491,42 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
   const int h0 = kv * G + hg * kHeads, ng = min(kHeads, G - hg * kHeads);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int Dv = a.Dv, vw = Dv / 8, nmt = (Dv + 15) / 16;
+  const int D = a.D, Dv = a.Dv, vw = Dv / 8, nmt = (Dv + 15) / 16;
   const int kst = a.kwa * 8 + 8, vst = Dv + 8;  // row strides (+16 bytes: ldmatrix rows
                                                 // fall on distinct banks)
   const int begin = split * kSplit;
   const int cap = a.table ? a.ps * a.np_lane : a.ps;  // positions the view holds
+  // positions walked: every position of the view, or the kp participating
+  // pages' (virtual position vp: page part[b, vp / ps], offset vp % ps)
+  const int vcap = kPart ? a.kp * a.ps : cap;
 
-  // per warp: kStages tiles of kRows K̂ rows then kRows V rows, each stage
-  // filled by TMA bulk copies that complete on its mbarrier; after the
-  // warps: the q̂ rows of the block's heads
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int stage = kRows * (kst + vst);
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw) + warp * kStages * stage;
-  bf16* qsm = reinterpret_cast<bf16*>(smem_raw) + kWarps * kStages * stage;
+  const int stage_b = stage_bytes(kQuant, a.kwa, D, Dv);
+  const int warp_b = warp_bytes(kQuant, a.kwa, D, Dv);
+  unsigned char* wbase = smem_raw + warp * warp_b;
+  const int rsk = i8_stride(D), rsv = i8_stride(Dv);  // int8 row strides in bytes
+  bf16* qsm = reinterpret_cast<bf16*>(smem_raw + kWarps * warp_b);  // the heads' q̂ rows
   __shared__ int uc_s[kWarps][32];            // per warp: K̂ position -> 8-dim chunk
   __shared__ uint64_t bar_s[kWarps][kStages];  // per warp and stage: copies landed
   __shared__ uint64_t q_bar;                   // q̂ rows landed
 
   // Reads that depend on nothing go out together: the length, head g's
   // selected blocks (lane t: entries t, t + 4, ...), and the page of this
-  // lane's row of the warp's first tiles (lane 16 s + r: row r of tile s).
+  // lane's row of the warp's first tiles (lane 16 s + r: row r of tile s),
+  // through its participating page (kPart: also the page of the row 128
+  // positions on, for the split's validity test).
   const int raw_len = a.lengths[b];
-  const int my_pos = begin + (warp + (lane >> 4) * kWarps) * kRows + (lane & 15);
-  int my_page = b;
-  if (a.table && my_pos < cap)
+  const int my_tile = warp + (lane >> 4) * kWarps;
+  const int my_pos = begin + my_tile * kRows + (lane & 15);
+  int my_page = b, my_lp = 0, my_lp2 = 0;
+  if constexpr (kPart) {
+    if (my_pos < vcap) my_lp = a.part[(int64_t)b * a.kp + my_pos / a.ps];
+    if (my_pos + kSplit / 2 < vcap)
+      my_lp2 = a.part[(int64_t)b * a.kp + (my_pos + kSplit / 2) / a.ps];
+    my_page = max(a.table[(int64_t)b * a.np_lane + my_lp], 0);
+  } else if (a.table && my_pos < cap) {
     my_page = max(a.table[(int64_t)b * a.np_lane + my_pos / a.ps], 0);
+  }
   uint32_t dm[kWords];  // head g's selected dims
 #pragma unroll
   for (int w = 0; w < kWords; ++w) dm[w] = 0;
@@ -477,16 +542,39 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
   if (lane < kStages) mbar_init(smem_u32(&bar_s[warp][lane]));
   if (tid == 0) mbar_init(smem_u32(&q_bar));
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  __syncthreads();  // the only block barrier before the merge: barriers initialized
   const int len = min(raw_len, cap);
-  if (begin >= len) return;  // the combine pass reads only splits below len
-  const int end = min(len, begin + kSplit);
+  // a position of the walk holds a token iff it lies below end and (kPart)
+  // its logical position below len
+  auto part_valid = [&](int vp, int lp, int end) {
+    return vp < end && lp * a.ps + (vp - vp / a.ps * a.ps) < len;
+  };
+  // the only block barrier before the merge: barriers initialized, and
+  // (kPart) whether any position of the split holds a token
+  if constexpr (kPart) {
+    const int vend = min(vcap, begin + kSplit);
+    const bool any = part_valid(my_pos, my_lp, vend) ||
+                     part_valid(my_pos + kSplit / 2, my_lp2, vend);
+    if (!__syncthreads_or(any)) {
+      // an empty entry for the combine pass, which merges every split
+      const int wst = Dv + 2;
+      for (int e = tid; e < ng * wst; e += kThreads) {
+        const int hh = e / wst, i = e - hh * wst;
+        a.scratch[(((int64_t)b * a.H + h0 + hh) * a.nsplit + split) * wst + i] =
+            i == 0 ? kNegInf : 0.f;
+      }
+      return;
+    }
+  } else {
+    __syncthreads();
+    if (begin >= len) return;  // the combine pass reads only splits below len
+  }
+  const int end = min(kPart ? vcap : len, begin + kSplit);
   const int ntile = (end - begin + kRows - 1) / kRows;
   const uint64_t once = evict_first_policy();
   if (warp == 0) {  // the q̂ rows, one bulk copy per head
-    if (lane == 0) mbar_expect(smem_u32(&q_bar), ng * a.D * 2);
+    if (lane == 0) mbar_expect(smem_u32(&q_bar), ng * D * 2);
     if (lane < ng)
-      bulk_copy(qsm + lane * a.D, a.q + ((int64_t)b * a.H + h0 + lane) * a.D, a.D * 2,
+      bulk_copy(qsm + lane * D, a.q + ((int64_t)b * a.H + h0 + lane) * D, D * 2,
                 smem_u32(&q_bar), once);
   }
 
@@ -508,64 +596,105 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
   const int nks = (nu + 1) / 2;  // 16-dim k-steps
   int* uc = uc_s[warp];
   if ((um >> lane) & 1) uc[__popc(um & ((1u << lane) - 1))] = lane;
-  // an odd width's padding chunk of K̂ is zero (so is q̂'s)
-  if (nu & 1)
-    *reinterpret_cast<uint4*>(ring + (lane / kRows) * stage + (lane % kRows) * kst + nu * 8) =
-        make_uint4(0, 0, 0, 0);
+  // bf16: an odd width's padding chunk of K̂ is zero (so is q̂'s)
+  if (!kQuant && (nu & 1))
+    *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(wbase + (lane / kRows) * stage_b) +
+                              (lane % kRows) * kst + nu * 8) = make_uint4(0, 0, 0, 0);
   __syncwarp();
 
-  // the element row of a position of lane b, through its page
-  auto row_of = [&](int pos, int page) -> long long {
-    return ((long long)page * a.KV + kv) * a.ps + (pos - pos / a.ps * a.ps);
+  // the element row of position vp of the walk, through its page
+  auto row_of = [&](int vp, int page) -> long long {
+    return ((long long)page * a.KV + kv) * a.ps + (vp - vp / a.ps * a.ps);
   };
-  // Row r of tile jt (this lane's, at element row ro) into stage st: its V
-  // row and its staged K̂ chunks, one bulk copy per run of them. K̂ rows past
-  // the end are not copied (their scores are masked); V rows past the end
-  // are zeroed (their weight is 0, and 0 · NaN is not 0).
+  // bytes of a row's copies (bf16: the staged chunks and V; int8: whole
+  // rows), summed over a tile's 16 lanes for row 0 to expect
+  const int krow = kQuant ? D + Dv : nu * 16 + Dv * 2;
+  // Row r of a tile (this lane's, element row ro) into stage st; `bytes` is
+  // the tile's total, which row 0 expects. Rows without a token are not
+  // copied. bf16: the row's V row and its staged K̂ chunks, one bulk copy
+  // per run of them; V rows without a token are zeroed (their weight is 0,
+  // and 0 · NaN is not 0). int8: the K̂ and V rows (any byte is a finite
+  // value, so a row left from an earlier tile needs no zeroing).
   const uint32_t run_starts = um & ~(um << 1);
-  auto issue = [&](int jt, int st, long long ro, int r) {
-    const int nval = min(kRows, end - (begin + jt * kRows));
+  auto issue = [&](int st, long long ro, int r, bool valid, int bytes) {
     const uint32_t bar = smem_u32(&bar_s[warp][st]);
-    bf16* ks = ring + st * stage;
-    bf16* vs = ks + kRows * kst;
-    if (r == 0) mbar_expect(bar, nval * (nu * 16 + Dv * 2));
-    if (r < nval) {
-      bulk_copy(vs + r * vst, a.v + ro * Dv, Dv * 2, bar, once);
-      for (uint32_t m = run_starts; m; m &= m - 1) {
-        const int c0 = __ffs(m) - 1;
-        const int n = __ffsll(~((unsigned long long)um >> c0)) - 1;  // run length
-        const int u0 = __popc(um & ((1u << c0) - 1));
-        bulk_copy(ks + r * kst + u0 * 8, a.k + ro * a.D + c0 * 8, n * 16, bar, once);
+    unsigned char* sb = wbase + st * stage_b;
+    if (r == 0) mbar_expect(bar, bytes);
+    if constexpr (kQuant) {
+      if (valid) {
+        bulk_copy(sb + r * rsk, static_cast<const int8_t*>(a.k) + ro * D, D, bar, once);
+        bulk_copy(sb + kRows * rsk + r * rsv, static_cast<const int8_t*>(a.v) + ro * Dv, Dv,
+                  bar, once);
       }
     } else {
-      for (int c = 0; c < vw; ++c)
-        *reinterpret_cast<uint4*>(vs + r * vst + c * 8) = make_uint4(0, 0, 0, 0);
+      bf16* ks = reinterpret_cast<bf16*>(sb);
+      bf16* vs = ks + kRows * kst;
+      const bf16* kg = reinterpret_cast<const bf16*>(a.k);
+      if (valid) {
+        bulk_copy(vs + r * vst, reinterpret_cast<const bf16*>(a.v) + ro * Dv, Dv * 2, bar, once);
+        for (uint32_t m = run_starts; m; m &= m - 1) {
+          const int c0 = __ffs(m) - 1;
+          const int n = __ffsll(~((unsigned long long)um >> c0)) - 1;  // run length
+          const int u0 = __popc(um & ((1u << c0) - 1));
+          bulk_copy(ks + r * kst + u0 * 8, kg + ro * D + c0 * 8, n * 16, bar, once);
+        }
+      } else {
+        for (int c = 0; c < vw; ++c)
+          *reinterpret_cast<uint4*>(vs + r * vst + c * 8) = make_uint4(0, 0, 0, 0);
+        // a later copy into this stage is ordered after these stores
+        if constexpr (kPart) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
     }
   };
-  // lanes 16 s + r: row r of the warp's tile s
-  if (warp + (lane >> 4) * kWarps < ntile)
-    issue(warp + (lane >> 4) * kWarps, lane >> 4, row_of(my_pos, my_page), lane & 15);
 
-  // q̂ of head g as the B operand of S = K̂·q̂ᵀ: staged dims 16 ks + 2t, 2t + 1
-  // (b0) and + 8 (b1), zero where head g did not select them
+  // lanes 16 s + r: row r of the warp's tile s. Per stage, the rows of its
+  // tile that hold a token (kPart) and, int8, this lane's row's scales.
+  const bool my_issue = my_tile < ntile;
+  const bool my_valid = kPart ? part_valid(my_pos, my_lp, end) : my_pos < end;
+  int my_bytes = my_issue && my_valid ? krow : 0;
+#pragma unroll
+  for (int o = 1; o < kRows; o <<= 1) my_bytes += __shfl_xor_sync(0xffffffffu, my_bytes, o);
+  const uint32_t vb_first = __ballot_sync(0xffffffffu, my_issue && my_valid);
+  uint32_t vb0 = vb_first & 0xffffu, vb1 = vb_first >> 16;
+  float ksc0 = 1.f, ksc1 = 1.f, vsc0 = 1.f, vsc1 = 1.f;
+  if constexpr (kQuant) {
+    if (my_issue && my_valid) {
+      const int64_t si = (int64_t)my_page * a.sh + kv * a.s_stride;
+      if (lane >> 4) {
+        ksc1 = a.ks[si];
+        vsc1 = a.vs[si];
+      } else {
+        ksc0 = a.ks[si];
+        vsc0 = a.vs[si];
+      }
+    }
+  }
+  if (my_issue)
+    issue(lane >> 4, row_of(my_pos, my_page), lane & 15, my_valid, my_bytes);
+
+  // q̂ of head g as the B operand of S = K̂·q̂ᵀ, zero where head g did not
+  // select the dims. k-step ks, bf16: staged dims 16 ks + 2t, 2t + 1 (b0) and
+  // + 8 (b1); int8: dims 16 ks + 4t, 4t + 1 (b0) and 4t + 2, 4t + 3 (b1),
+  // the order in which ldmatrix hands out byte pairs of the K̂ rows
   mbar_wait(smem_u32(&q_bar), 0);
   uint32_t qf[kKS][2];
-  const bf16* qrow = qsm + min(g, ng - 1) * a.D + 2 * t;
+  const bf16* qrow = qsm + min(g, ng - 1) * D;
 #pragma unroll
   for (int ks = 0; ks < kKS; ++ks) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int u = 2 * ks + half, d = uc[min(u, nu - 1)] * 8 + 2 * t;
-      const uint32_t x = *reinterpret_cast<const uint32_t*>(qrow + d - 2 * t);
+      const int u = 2 * ks + half;
+      const int d = kQuant ? 16 * ks + 4 * t + 2 * half : uc[min(u, nu - 1)] * 8 + 2 * t;
+      const bool in = kQuant ? 16 * ks < D : u < nu;
+      const uint32_t x = in ? *reinterpret_cast<const uint32_t*>(qrow + d) : 0u;
       uint32_t bits = 0;
 #pragma unroll
       for (int w = 0; w < kWords; ++w)
         if (w == d / 32) bits = dm[w] >> (d % 32);
-      if (u >= nu || g >= ng) bits = 0;
+      if (!in || g >= ng) bits = 0;
       qf[ks][half] = x & (((bits & 1) ? 0xffffu : 0u) | ((bits & 2) ? 0xffff0000u : 0u));
     }
   }
-
   float o[kMT][4];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
@@ -573,100 +702,218 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
     for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // heads 2t, 2t + 1 (log2 units)
   // ldmatrix row addresses: K̂ rows lane % 16, chunk + lane / 16; V^T
-  // matrices (dims, positions) = (0-7, 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+  // matrices (dims, positions) = (0-7, 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15).
+  // int8 (in bytes): K̂ and V rows lane % 16, 16-byte chunk + lane / 16
   const int k_off = (lane & 15) * kst + (lane >> 4) * 8;
   const int v_off = ((lane & 7) + ((lane >> 4) << 3)) * vst + ((lane >> 3) & 1) * 8;
+  const int k8_off = (lane & 15) * rsk + (lane >> 4) * 16;
+  const int v8_off = kRows * rsk + (lane & 15) * rsv + (lane >> 4) * 16;
 
   // a tile lies in one page when pages hold whole tiles (or the cache is
   // contiguous): one lookup serves its rows
   const bool in_page = !a.table || a.ps % kRows == 0;
 #pragma unroll 1
   for (int it = 0, jt = warp; jt < ntile; ++it, jt += kWarps) {
-    // the page of this lane's row of the tile that reuses this stage, looked
-    // up before the wait
+    const int st = it % kStages;
+    // the tile that reuses this stage: this lane's row of it (lanes < 16),
+    // its page looked up before the wait (kPart: its participating page,
+    // then the page after the wait)
     const int jn = jt + kStages * kWarps;
     const int npos = begin + jn * kRows + (lane & 15);
-    int npage = b;
-    if (jn < ntile && a.table && (in_page ? lane == 0 : lane < kRows) && npos < end)
+    const bool nrow = jn < ntile && lane < kRows;
+    int npage = b, nlp = 0;
+    bool nvalid = nrow && npos < end;
+    if constexpr (kPart) {
+      if (nvalid) nlp = a.part[(int64_t)b * a.kp + npos / a.ps];
+    } else if (nvalid && a.table && (in_page ? lane == 0 : true)) {
       npage = max(a.table[(int64_t)b * a.np_lane + npos / a.ps], 0);
-    mbar_wait(smem_u32(&bar_s[warp][it % kStages]), (it / kStages) & 1);
+    }
+    mbar_wait(smem_u32(&bar_s[warp][st]), (it / kStages) & 1);
+    if constexpr (kPart) {
+      nvalid = nvalid && part_valid(npos, nlp, end);
+      if (nvalid) npage = max(a.table[(int64_t)b * a.np_lane + nlp], 0);
+    }
     __syncwarp();
-    const bf16* Kt = ring + (it % kStages) * stage;
-    const bf16* Vt = Kt + kRows * kst;
-    const int nval = min(kRows, end - (begin + jt * kRows));
-
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, s_odd[4] = {0.f, 0.f, 0.f, 0.f};  // two chains
+    // this tile's valid rows (kPart), and int8 the scales of rows g and g + 8
+    // (held by the lanes that issued them: 16 st + r for the first tiles)
+    const uint32_t vb = st ? vb1 : vb0;
+    float sk0 = a.scale_log2, sk1 = a.scale_log2, sv0 = 1.f, sv1 = 1.f;
+    if constexpr (kQuant) {
+      const int src = it < kStages ? kRows * st : 0;
+      const float kk = st ? ksc1 : ksc0, vv = st ? vsc1 : vsc0;
+      sk0 = a.scale_log2 * __shfl_sync(0xffffffffu, kk, src + g);
+      sk1 = a.scale_log2 * __shfl_sync(0xffffffffu, kk, src + g + 8);
+      sv0 = __shfl_sync(0xffffffffu, vv, src + g);
+      sv1 = __shfl_sync(0xffffffffu, vv, src + g + 8);
+    }
+    // the tile that reuses this stage: its bytes, valid rows and (int8)
+    // scales, then its copies
+    auto issue_next = [&]() {
+      if (jn >= ntile) return;
+      if (in_page && !kPart) npage = __shfl_sync(0xffffffffu, npage, 0);
+      int bytes = nvalid ? krow : 0;
 #pragma unroll
-    for (int ks = 0; ks < kKS; ++ks) {
-      if (ks < nks) {
-        uint32_t af[4];
-        ldsm_x4(af, Kt + k_off + ks * 16);
-        if (ks % 2)
-          mma16816(s_odd, af, qf[ks][0], qf[ks][1]);
+      for (int o = 1; o < kRows; o <<= 1) bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
+      if constexpr (kPart) {
+        const uint32_t nb = __ballot_sync(0xffffffffu, nvalid);
+        if (st)
+          vb1 = nb;
         else
-          mma16816(s, af, qf[ks][0], qf[ks][1]);
+          vb0 = nb;
       }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[e] += s_odd[e];
-    const bool ok0 = g < nval, ok1 = g + 8 < nval;
-    const float s0 = ok0 ? s[0] * a.scale_log2 : kNegInf;
-    const float s1 = ok0 ? s[1] * a.scale_log2 : kNegInf;
-    const float s2 = ok1 ? s[2] * a.scale_log2 : kNegInf;
-    const float s3 = ok1 ? s[3] * a.scale_log2 : kNegInf;
-    float mx0 = fmaxf(s0, s2), mx1 = fmaxf(s1, s3);
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    // every tile holds a valid position, so the new max is finite
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = fast_exp2(m0 - mn0), c1 = fast_exp2(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    const float p0 = fast_exp2(s0 - mn0), p1 = fast_exp2(s1 - mn1);
-    const float p2 = fast_exp2(s2 - mn0), p3 = fast_exp2(s3 - mn1);
-    l0 = l0 * c0 + p0 + p2;
-    l1 = l1 * c1 + p1 + p3;
-    // P split into bf16 hi + lo (P rounded once misses the one-ulp limit),
-    // transposed into the B operand of O = Vᵀ·P
-    uint32_t ph0, pl0, ph1, pl1;
-    split_pair(p0, p1, ph0, pl0);
-    split_pair(p2, p3, ph1, pl1);
-    const uint32_t bh0 = transpose8(ph0), bh1 = transpose8(ph1);
-    const uint32_t bl0 = transpose8(pl0), bl1 = transpose8(pl1);
-    uint32_t vf[kMT][4];  // the hi products of every slice, then the lo ones
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      if (mt < nmt) {
-        o[mt][0] *= c0;
-        o[mt][1] *= c1;
-        o[mt][2] *= c0;
-        o[mt][3] *= c1;
-        ldsm_x4_t(vf[mt], Vt + v_off + mt * 16);
-        mma16816(o[mt], vf[mt], bh0, bh1);
+      if constexpr (kQuant) {
+        if (nvalid) {
+          const int64_t si = (int64_t)npage * a.sh + kv * a.s_stride;
+          if (st) {
+            ksc1 = a.ks[si];
+            vsc1 = a.vs[si];
+          } else {
+            ksc0 = a.ks[si];
+            vsc0 = a.vs[si];
+          }
+        }
       }
-    }
+      if (nrow) issue(st, row_of(npos, npage), lane, nvalid, bytes);
+    };
+    const unsigned char* sb = wbase + st * stage_b;
+    const bf16* Kt = reinterpret_cast<const bf16*>(sb);
+    const bf16* Vt = Kt + kRows * kst;
+
+    // a tile of the participating walk may hold no token: nothing to add
+    if (!kPart || vb != 0) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f}, s_odd[4] = {0.f, 0.f, 0.f, 0.f};  // two chains
+      if constexpr (kQuant) {
+        // int8 K̂: ldmatrix hands this lane 4 bytes of row g (matrices 0, 2)
+        // and of row g + 8 (1, 3) of two k-steps, dims 4t..4t + 3 of each
+        // 16-byte chunk; converted exactly, they are the A operand in q̂'s order
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-      if (mt < nmt) mma16816(o[mt], vf[mt], bl0, bl1);
+        for (int kp = 0; kp < kKS / 2; ++kp) {
+          if (32 * kp < D) {
+            uint32_t r[4];
+            ldsm_x4(r, reinterpret_cast<const bf16*>(sb + k8_off + 32 * kp));
+#pragma unroll
+            for (int j = 0; j < 4; ++j) r[j] ^= 0x80808080u;
+            const uint32_t a0[4] = {i8x2_bf16x2(r[0], 0x7650, 0x7651),
+                                    i8x2_bf16x2(r[1], 0x7650, 0x7651),
+                                    i8x2_bf16x2(r[0], 0x7652, 0x7653),
+                                    i8x2_bf16x2(r[1], 0x7652, 0x7653)};
+            mma16816(s, a0, qf[2 * kp][0], qf[2 * kp][1]);
+            if (32 * kp + 16 < D) {
+              const uint32_t a1[4] = {i8x2_bf16x2(r[2], 0x7650, 0x7651),
+                                      i8x2_bf16x2(r[3], 0x7650, 0x7651),
+                                      i8x2_bf16x2(r[2], 0x7652, 0x7653),
+                                      i8x2_bf16x2(r[3], 0x7652, 0x7653)};
+              mma16816(s_odd, a1, qf[2 * kp + 1][0], qf[2 * kp + 1][1]);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < kKS; ++ks) {
+          if (ks < nks) {
+            uint32_t af[4];
+            ldsm_x4(af, Kt + k_off + ks * 16);
+            if (ks % 2)
+              mma16816(s_odd, af, qf[ks][0], qf[ks][1]);
+            else
+              mma16816(s, af, qf[ks][0], qf[ks][1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[e] += s_odd[e];
+      bool ok0, ok1;
+      if constexpr (kPart) {
+        ok0 = (vb >> g) & 1;
+        ok1 = (vb >> (g + 8)) & 1;
+      } else {
+        const int nval = min(kRows, end - (begin + jt * kRows));
+        ok0 = g < nval;
+        ok1 = g + 8 < nval;
+      }
+      const float s0 = ok0 ? s[0] * sk0 : kNegInf;
+      const float s1 = ok0 ? s[1] * sk0 : kNegInf;
+      const float s2 = ok1 ? s[2] * sk1 : kNegInf;
+      const float s3 = ok1 ? s[3] * sk1 : kNegInf;
+      float mx0 = fmaxf(s0, s2), mx1 = fmaxf(s1, s3);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // the logical walk's tiles each hold a token, so the new max is
+      // finite; the participating walk's max may stay NEG_INF, so its rows
+      // without a token get weight 0 explicitly
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = fast_exp2(m0 - mn0), c1 = fast_exp2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float p0 = fast_exp2(s0 - mn0), p1 = fast_exp2(s1 - mn1);
+      float p2 = fast_exp2(s2 - mn0), p3 = fast_exp2(s3 - mn1);
+      if constexpr (kPart) {
+        p0 = ok0 ? p0 : 0.f;
+        p1 = ok0 ? p1 : 0.f;
+        p2 = ok1 ? p2 : 0.f;
+        p3 = ok1 ? p3 : 0.f;
+      }
+      l0 = l0 * c0 + p0 + p2;
+      l1 = l1 * c1 + p1 + p3;
+      // P (int8: times each row's value scale) split into bf16 hi + lo (P
+      // rounded once misses the one-ulp limit), transposed into the B
+      // operand of O = Vᵀ·P
+      uint32_t ph0, pl0, ph1, pl1;
+      split_pair(p0 * sv0, p1 * sv0, ph0, pl0);
+      split_pair(p2 * sv1, p3 * sv1, ph1, pl1);
+      const uint32_t bh0 = transpose8(ph0), bh1 = transpose8(ph1);
+      const uint32_t bl0 = transpose8(pl0), bl1 = transpose8(pl1);
+      uint32_t vf[kMT][4];  // the hi products of every slice, then the lo ones
+      if constexpr (kQuant) {
+        // int8 V: ldmatrix.trans hands this lane dims 2g, 2g + 1 of
+        // positions 2t, 2t + 1 (matrices 0, 2) and 2t + 8, 2t + 9 (1, 3) of
+        // two 16-dim slices; output row g of a slice is its dim 2g, row g + 8
+        // its dim 2g + 1
+#pragma unroll
+        for (int mp = 0; mp < kMT / 2; ++mp) {
+          if (2 * mp < nmt) {
+            uint32_t r[4];
+            ldsm_x4_t(r, reinterpret_cast<const bf16*>(sb + v8_off + 32 * mp));
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              r[j] ^= 0x80808080u;
+              vf[2 * mp + j / 2][2 * (j % 2)] = i8x2_bf16x2(r[j], 0x7650, 0x7652);
+              vf[2 * mp + j / 2][2 * (j % 2) + 1] = i8x2_bf16x2(r[j], 0x7651, 0x7653);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if (mt < nmt) {
+          o[mt][0] *= c0;
+          o[mt][1] *= c1;
+          o[mt][2] *= c0;
+          o[mt][3] *= c1;
+          if constexpr (!kQuant) ldsm_x4_t(vf[mt], Vt + v_off + mt * 16);
+          mma16816(o[mt], vf[mt], bh0, bh1);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        if (mt < nmt) mma16816(o[mt], vf[mt], bl0, bl1);
+    }
     __syncwarp();  // the stage is free for a later tile
-    if (jn < ntile && lane < kRows) {
-      if (in_page) npage = __shfl_sync(0x0000ffffu, npage, 0);
-      issue(jn, it % kStages, row_of(npos, npage), lane);
-    }
+    issue_next();
   }
 
   // this warp's sums over its lanes, then its (m, l, acc) per head into its
-  // own ring ([head][Dv + 2] floats), then the block merges its warps
+  // own shared memory ([head][Dv + 2] floats), then the block merges its warps
 #pragma unroll
   for (int off = 4; off < 32; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const int wst = Dv + 2;
-  float* wr = reinterpret_cast<float*>(ring);
+  float* wr = reinterpret_cast<float*>(wbase);
   float* w0 = wr + 2 * t * wst;
   float* w1 = w0 + wst;
   if (g == 0) {
@@ -677,19 +924,20 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
   }
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
-    const int d = mt * 16 + g;
+    // output rows g and g + 8 of slice mt: dims g and g + 8 (int8: 2g, 2g + 1)
+    const int d = mt * 16 + (kQuant ? 2 * g : g), d8 = kQuant ? d + 1 : d + 8;
     if (mt < nmt && d < Dv) {
       w0[2 + d] = o[mt][0];
       w1[2 + d] = o[mt][1];
     }
-    if (mt < nmt && d + 8 < Dv) {
-      w0[2 + d + 8] = o[mt][2];
-      w1[2 + d + 8] = o[mt][3];
+    if (mt < nmt && d8 < Dv) {
+      w0[2 + d8] = o[mt][2];
+      w1[2 + d8] = o[mt][3];
     }
   }
   __syncthreads();
   const float* wb = reinterpret_cast<const float*>(smem_raw);
-  const int wstride = kStages * stage / 2;  // floats per warp's ring
+  const int wstride = warp_b / 4;  // floats per warp's shared memory
   for (int e = tid; e < ng * wst; e += kThreads) {
     const int hh = e / wst, i = e - hh * wst;
     float mb = kNegInf;
@@ -706,19 +954,27 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
   }
 }
 
-template <int kKS, int kMT>
+template <int kKS, int kMT, bool kQuant, bool kPart>
 int launch(const Args& a, int B, void* out, cudaStream_t st) {
   static int done[16] = {0};
-  const int bytes = (kWarps * kStages * kRows * (a.kwa * 8 + 8 + a.Dv + 8) + kHeads * a.D) *
-                    (int)sizeof(bf16);
-  cudaError_t err = attn_tile::allow_smem(decode_bf16<kKS, kMT>, bytes, done);
+  const int bytes = kWarps * warp_bytes(kQuant, a.kwa, a.D, a.Dv) + kHeads * a.D * 2;
+  auto kernel = decode_bf16<kKS, kMT, kQuant, kPart>;
+  cudaError_t err = attn_tile::allow_smem(kernel, bytes, done);
   if (err != cudaSuccess) return (int)err;
-  decode_bf16<kKS, kMT><<<dim3(a.nsplit, a.KV * a.nhg, B), kThreads, bytes, st>>>(a);
+  kernel<<<dim3(a.nsplit, a.KV * a.nhg, B), kThreads, bytes, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  aqua_decode_combine<bf16><<<dim3(a.H, B), ::kThreads, 0, st>>>(
-      a.scratch, a.lengths, (bf16*)out, a.H, a.Dv, a.nsplit, 0);
+  // int8 pools give float32 outputs; the participating walk writes every split
+  using OT = typename std::conditional<kQuant, float, bf16>::type;
+  aqua_decode_combine<OT><<<dim3(a.H, B), ::kThreads, 0, st>>>(
+      a.scratch, a.lengths, (OT*)out, a.H, a.Dv, a.nsplit, kPart ? 1 : 0);
   return (int)cudaGetLastError();
+}
+
+template <bool kQuant, bool kPart>
+int launch_variant(const Args& a, int B, void* out, cudaStream_t st) {
+  if (a.D <= 128 && a.Dv <= 128) return launch<8, 8, kQuant, kPart>(a, B, out, st);
+  return launch<16, 16, kQuant, kPart>(a, B, out, st);
 }
 
 }  // namespace gqa
@@ -733,9 +989,14 @@ extern "C" int aqua_decode_split() { return kSplit; }
 // dtype: 0 = float32, 1 = bfloat16 (of q; of k, v and out too unless
 // quantized). page_table may be null (contiguous cache: P = B, ps = S).
 // k_scale / v_scale non-null: k and v are int8 with (P, sh) scales, out is
-// float32. part_idx non-null: (B, kp) participating logical pages. bf16
-// without scales or participating pages takes the group route, which
-// needs D % 8 == 0, D <= 256 and Dv % 8 == 0 and 16-byte aligned rows.
+// float32. part_idx non-null: (B, kp) participating logical pages.
+// route: 1 = the group route (bf16 q̂, at most one of int8 and
+// participating pages; D % 8 == 0, D <= 256, Dv % 8 == 0, 16-byte aligned
+// bases, and for int8 D and Dv multiples of 16), 0 = the
+// per-head route (float32 q̂, bf16 with int8 and participating pages both,
+// and the int8 and participating widths the group route does not take).
+// The wrapper chooses (kernels/aqua_decode.py::decode_route); shapes the
+// chosen route does not take return cudaErrorInvalidValue.
 // Returns the cudaError_t of the launches.
 extern "C" int aqua_decode_launch(const void* q, const void* k, const void* v,
                                   const void* block_idx, const void* page_table,
@@ -743,7 +1004,8 @@ extern "C" int aqua_decode_launch(const void* q, const void* k, const void* v,
                                   const void* v_scale, const void* lengths, void* out,
                                   void* scratch, int B, int H, int KV, int D, int Dv,
                                   int nb_sel, int bd, int ps, int np_lane, int kp, int sh,
-                                  int nsplit, float scale, int dtype, void* stream) {
+                                  int nsplit, float scale, int dtype, int route,
+                                  void* stream) {
   if (nb_sel * bd > kMaxSel || Dv > kMaxDv || H % KV != 0) return (int)cudaErrorInvalidValue;
   if ((k_scale == nullptr) != (v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   if ((part_idx || k_scale) && !page_table) return (int)cudaErrorInvalidValue;
@@ -752,17 +1014,22 @@ extern "C" int aqua_decode_launch(const void* q, const void* k, const void* v,
   const int* bi = (const int*)block_idx;
   const int* ln = (const int*)lengths;
   float* sc = (float*)scratch;
-  if (dtype == 1 && !k_scale && !part_idx) {
+  if (route == 1) {
+    if (dtype != 1 || (k_scale && part_idx)) return (int)cudaErrorInvalidValue;
     if (D % 8 != 0 || D > 256 || Dv % 8 != 0) return (int)cudaErrorInvalidValue;
+    if (k_scale && (D % 16 != 0 || Dv % 16 != 0)) return (int)cudaErrorInvalidValue;
     const int G = H / KV;
-    const gqa::Args a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-                      (const __nv_bfloat16*)v, bi, (const int*)page_table, ln, sc,
-                      H, KV, D, Dv, nb_sel, bd, ps, np_lane,
-                      (G + gqa::kHeads - 1) / gqa::kHeads, nsplit,
+    const gqa::Args a{(const __nv_bfloat16*)q, k, v, bi, (const int*)page_table,
+                      (const int*)part_idx, (const float*)k_scale, (const float*)v_scale,
+                      ln, sc, H, KV, D, Dv, nb_sel, bd, ps, np_lane, kp, sh,
+                      sh > 1 ? 1 : 0, (G + gqa::kHeads - 1) / gqa::kHeads, nsplit,
                       (D / 8 + 1) / 2 * 2, scale * attn_tile::kLog2e};
-    if (D <= 128 && Dv <= 128) return gqa::launch<8, 8>(a, B, out, st);
-    return gqa::launch<16, 16>(a, B, out, st);
+    if (k_scale) return gqa::launch_variant<true, false>(a, B, out, st);
+    if (part_idx) return gqa::launch_variant<false, true>(a, B, out, st);
+    return gqa::launch_variant<false, false>(a, B, out, st);
   }
+  // bf16 at full precision over every page runs the group route only
+  if (dtype == 1 && !k_scale && !part_idx) return (int)cudaErrorInvalidValue;
   const Pages pg{(const int*)page_table, (const int*)part_idx, (const float*)k_scale,
                  (const float*)v_scale, ps, np_lane, kp, sh, sh > 1 ? 1 : 0};
   if (k_scale) {

@@ -327,30 +327,41 @@ def _pools(gen, p, kv, ps, d, dtype, quant):
             _rand(gen, p, kv, ps, d, dtype=dtype))
 
 
+# (quant, part, per-(page, kv head) scales): int8 pools with one scale per
+# page and per page and KV head, participating pages, and both (which
+# keeps the per-head route in bf16, as float32 does everywhere)
+VARIANTS = [(True, False, False), (True, False, True), (False, True, False),
+            (True, True, False), (True, True, True)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("quant,part", [(True, False), (False, True),
-                                        (True, True)])
-@pytest.mark.parametrize("h,kv,d,sh", [(16, 8, 128, 8), (8, 2, 64, 1),
-                                       (32, 8, 128, 1)])
-def test_paged_variant_kernels_match_plain(cuda, dtype, quant, part, h, kv,
-                                           d, sh):
+@pytest.mark.parametrize("quant,part,per_head_scale", VARIANTS)
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("h,kv,d,k_ratio,bd", DECODE_CASES)
+def test_paged_variant_kernels_match_plain(cuda, dtype, quant, part,
+                                           per_head_scale, ps, h, kv, d,
+                                           k_ratio, bd):
     """int8 pools (per-page scales looked up per position: a split spans
-    several pages) and participating pages (a partial tail page and pages
-    past the tail)."""
-    gen = torch.Generator(device="cuda").manual_seed(h + d + sh)
-    b, ps, npl = 4, 16, 40
+    several pages, pages of 8 split a tile) and participating pages (a
+    partial tail page, pages past the tail, and a lane of one token), over
+    the group route's geometries. bf16 with int8 or with participating
+    pages takes the group route, bf16 with both and float32 the per-head
+    route (``decode_route``); each call counts one launch under its body's
+    name."""
+    gen = torch.Generator(device="cuda").manual_seed(h + d + bd + ps)
+    b, npl = 4, 40
     p = b * npl + 3
     q = _rand(gen, b, h, d, dtype=dtype)
     k_pool, v_pool = _pools(gen, p, kv, ps, d, dtype, quant)
     scales = [None, None]
     if quant:
-        scales = [torch.rand(p, sh if sh == 1 else kv, generator=gen,
+        scales = [torch.rand(p, kv if per_head_scale else 1, generator=gen,
                              device="cuda") * 0.02 + 0.001 for _ in range(2)]
     table = torch.randperm(p, generator=gen, device=cuda)[:b * npl].reshape(
         b, npl).to(torch.int32)
     table[1, 5:] = -1
-    lengths = torch.tensor([npl * ps, 5 * ps - 3, 1, 333], dtype=torch.int32,
-                           device=cuda)
+    lengths = torch.tensor([npl * ps, 5 * ps - 3, 1, 21 * ps - 5],
+                           dtype=torch.int32, device=cuda)
     part_idx = None
     if part:
         kp = 12
@@ -359,12 +370,18 @@ def test_paged_variant_kernels_match_plain(cuda, dtype, quant, part, h, kv,
                        )[0] for _ in range(b)]).to(torch.int32)
         part_idx[1] = torch.arange(kp, device=cuda)     # pages past the tail
         part_idx[2, 0] = 0                              # lane 2's one token
+        part_idx[2] = torch.sort(part_idx[2])[0]
+    assert dk.decode_route(dtype, quant=quant, part=part, d=d, dv=d,
+                           nsel=ops.round_k_dims(d, k_ratio, bd)) == (
+        "group" if dtype == torch.bfloat16 and not (quant and part)
+        and not (quant and d % 16) else "per_head")
     before = LAUNCHES.copy()
     out = ops.aqua_paged_decode(q, k_pool, v_pool, table, lengths, *scales,
-                                part_idx=part_idx)
+                                part_idx=part_idx, k_ratio=k_ratio,
+                                block_dims=bd)
     ref = dk.aqua_decode_plain(q, k_pool, v_pool,
-                               ops.decode_blocks(q, 0.75, 8), lengths, table,
-                               block_dims=8, scale=d ** -0.5,
+                               ops.decode_blocks(q, k_ratio, bd), lengths,
+                               table, block_dims=bd, scale=d ** -0.5,
                                k_scale=scales[0], v_scale=scales[1],
                                part_idx=part_idx)
     torch.cuda.synchronize()
@@ -372,6 +389,46 @@ def test_paged_variant_kernels_match_plain(cuda, dtype, quant, part, h, kv,
     out_dtype = torch.float32 if quant else dtype
     assert out.dtype == out_dtype and out.shape == (b, h, d)
     assert _within_tol(out, ref, out_dtype)
+
+
+@pytest.mark.parametrize("quant,part", [(True, False), (False, True)])
+def test_paged_variants_off_the_group_route_widths(cuda, quant, part):
+    """int8 and participating pages at widths the group route does not take
+    (D 36: not a multiple of 8; int8 rows of 72 bytes) run the per-head
+    route and match the plain version (pages of 16 and of 7 positions)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for d, ps, bd in ((36, 16, 4), (72, 7, 8)):
+        b, npl, h, kv = 3, 20, 8, 2
+        p = b * npl
+        assert dk.decode_route(torch.bfloat16, quant=quant, part=part, d=d,
+                               dv=d, nsel=d // 2) == (
+            "per_head" if quant or d % 8 else "group")
+        q = _rand(gen, b, h, d, dtype=torch.bfloat16)
+        k_pool, v_pool = _pools(gen, p, kv, ps, d, torch.bfloat16, quant)
+        scales = [None, None]
+        if quant:
+            scales = [torch.rand(p, kv, generator=gen, device="cuda") * 0.02
+                      + 0.001 for _ in range(2)]
+        table = torch.randperm(p, generator=gen, device=cuda).reshape(
+            b, npl).to(torch.int32)
+        lengths = torch.tensor([npl * ps, 3 * ps - 2, 1], dtype=torch.int32,
+                               device=cuda)
+        part_idx = None
+        if part:
+            part_idx = torch.stack([torch.arange(0, npl, 2, device=cuda)
+                                    for _ in range(b)]).to(torch.int32)
+        out = ops.aqua_paged_decode(q, k_pool, v_pool, table, lengths,
+                                    *scales, part_idx=part_idx, k_ratio=0.5,
+                                    block_dims=bd)
+        ref = dk.aqua_decode_plain(q, k_pool, v_pool,
+                                   ops.decode_blocks(q, 0.5, bd), lengths,
+                                   table, block_dims=bd, scale=d ** -0.5,
+                                   k_scale=scales[0], v_scale=scales[1],
+                                   part_idx=part_idx)
+        torch.cuda.synchronize()
+        out_dtype = torch.float32 if quant else torch.bfloat16
+        assert out.dtype == out_dtype
+        assert _within_tol(out, ref, out_dtype), (d, ps)
 
 
 def test_kernel_wrappers_reject_bad_inputs(cuda):
