@@ -9,10 +9,13 @@ Phases, each of which raises (non-zero exit) on failure:
    and CUDA versions; turn TF32 off for float32 matmuls and convolutions.
 2. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed as
    set-up; one ``nvcc`` per source, in parallel); log ptxas's register
-   and spill lines, and require tensor-core instructions (HMMA or HGMMA)
-   in the SASS of the bf16 prefill, flash and decode kernels (``cuobjdump
-   -sass``), the decode's group route in its full-precision, int8 and
-   participating-page instantiations.
+   and spill lines (and any wgmma serialization warning), and require
+   tensor-core instructions (HMMA or HGMMA) in the SASS of the bf16
+   prefill, flash and decode kernels (``cuobjdump -sass``), the decode's
+   group route in its full-precision, int8 and participating-page
+   instantiations, and the warp-specialized design's register
+   reallocation (USETMAXREG) and TMA tensor copies (UTMALDG) in the bf16
+   prefill and flash kernels.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes (bf16, D=128) of Qwen3-0.6B (H=16, KV=8) and of
    Llama-3.1-8B (H=32, KV=8): decode B=8, S=4096 (contiguous, and paged
@@ -22,7 +25,12 @@ Phases, each of which raises (non-zero exit) on failure:
    int8 pools and per-(page, head) scales, with the participating pages of
    hierarchical AQUA at page_keep_ratio 0.25, and with both; the int8 and
    the participating variant also at the drives' contexts); prefill and
-   flash attention B=1, S=2048, causal; the prefill's ``q_offset`` form
+   flash attention B=1, S=2048, causal, and at the drives' longest prompt
+   (B=1, S=1024, ``"form": "served"``: one wave of blocks, where
+   per-block latency decides); flash at head_dim 80 (Danube's geometry)
+   and the prefill at k_ratio 0.5 (an 8-chunk union with Dv 128), the
+   shapes that take the generic kernels (``"form": "generic"``); the
+   prefill's ``q_offset`` form
    (chunked prefill: rows 3072-4095 of S=4096, also held against those
    rows of the monolithic call) and its participating-chunk walk
    (``_part_kernel``: B=1, S=4096, 8 of 32 key chunks of 128 per q-tile
@@ -37,9 +45,9 @@ Phases, each of which raises (non-zero exit) on failure:
    kernel's and the plain version's ms over 20 calls from Python (CUDA
    events) and the bound (for the byte-bound decode: the bytes, and the
    achieved GB/s over them; one PyTorch sum over 256 MiB gives the card's
-   practical read rate beside them; the decode phases also give the device
-   microseconds of each kernel a call launches, its partial and its
-   combine pass, from ``torch.profiler``).
+   practical read rate beside them; the decode, prefill and flash phases
+   also give the device microseconds of each kernel a call launches (the
+   decode: its partial and its combine pass), from ``torch.profiler``).
    Planted faults must fail the same tolerance, so it is tight enough to
    catch a wrong kernel: a lane's last 256 positions dropped, one head's
    dim-block selection shifted (decode, prefill), the first two heads of a
@@ -214,20 +222,28 @@ def device_us(fn, calls: int = 10) -> dict:
     return by_name
 
 
-def sass_mma_counts(lib: str) -> dict:
-    """Tensor-core instructions (HMMA or HGMMA) per kernel function in the
-    SASS of one built library, from ``cuobjdump -sass``."""
+SASS_OPS = ("HMMA", "HGMMA", "USETMAXREG", "UTMALDG")
+
+
+def sass_counts(lib: str) -> dict:
+    """Instructions of each opcode in ``SASS_OPS`` (tensor cores: HMMA,
+    HGMMA; register reallocation: USETMAXREG; TMA tensor copies: UTMALDG)
+    per kernel function in the SASS of one built library, from
+    ``cuobjdump -sass``."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", lib], check=True,
                           capture_output=True, text=True).stdout
     counts, fn = {}, None
+    pats = {op: re.compile(rf"\b{op}\b") for op in SASS_OPS}
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op, pat in pats.items():
+                if pat.search(line):
+                    counts[fn][op] += 1
     return counts
 
 
@@ -388,21 +404,24 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
                 **byte_rate(nbytes, times["ms"]))
 
 
-def prefill_phase(geom: str, h: int, kvh: int, gen) -> dict:
+def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
+                  form: str = None, k_ratio: float = K_RATIO) -> dict:
+    """The prefill, B=1, causal, over ``s`` rows; the served form
+    (``form="served"``) at the drives' longest prompt."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import aqua
     from repro_torch.kernels import aqua_prefill as pk
     from repro_torch.kernels.ops import round_k_dims
 
-    b, s, d, q_blk = 1, 2048, 128, 128
+    b, d, q_blk = 1, 128, 128
     dev, bf = "cuda", torch.bfloat16
     q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
     scale = d ** -0.5
-    nsel = round_k_dims(d, K_RATIO, BLOCK_DIMS)
+    nsel = round_k_dims(d, k_ratio, BLOCK_DIMS)
     block_idx = aqua.chunk_topk_block_indices(q, nsel, BLOCK_DIMS, q_blk,
                                               lengths).contiguous()
     kw = dict(block_dims=BLOCK_DIMS, q_blk=q_blk, causal=True, scale=scale)
@@ -430,10 +449,11 @@ def prefill_phase(geom: str, h: int, kvh: int, gen) -> dict:
     # block across the sequence), V, and the output, each once
     nbytes = 2 * (b * h * s * nsel + 2 * b * kvh * s * d + b * h * s * d)
     bms, by = bound(nbytes, ops)
-    return dict(name="aqua_prefill", geometry=geom,
-                shape=dict(B=b, H=h, KV=kvh, S=s, D=d, q_blk=q_blk),
+    return dict(name="aqua_prefill", geometry=geom, form=form,
+                shape=dict(B=b, H=h, KV=kvh, S=s, D=d, q_blk=q_blk,
+                           k_ratio=k_ratio),
                 **check, **timings(kernel, plain, library), bound_ms=bms,
-                bound_by=by)
+                bound_by=by, device_us=device_us(kernel))
 
 
 def prefill_chunk_phase(geom: str, h: int, kvh: int, gen) -> dict:
@@ -671,16 +691,20 @@ def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, Dv=d, q_blk=q_blk,
                            window=window),
                 **check, **times, no_window_ms=no_window_ms,
+                device_us=device_us(kernel),
                 live_pair_share=pairs / (s * (s + 1) / 2), bound_ms=bms,
                 bound_by=by, peak_bytes=torch.cuda.max_memory_allocated())
 
 
-def flash_phase(geom: str, h: int, kvh: int, gen) -> dict:
+def flash_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
+                form: str = None, d: int = 128) -> dict:
+    """Flash attention, B=1, causal, over ``s`` rows of head_dim ``d``;
+    the served form (``form="served"``) at the drives' longest prompt."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
 
-    b, s, d = 1, 2048, 128
+    b = 1
     dev, bf = "cuda", torch.bfloat16
     q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
@@ -706,10 +730,10 @@ def flash_phase(geom: str, h: int, kvh: int, gen) -> dict:
     ops = 2 * s * (s + 1) / 2 * h * (d + d)
     nbytes = 2 * (2 * b * h * s * d + 2 * b * kvh * s * d)
     bms, by = bound(nbytes, ops)
-    return dict(name="flash_attention", geometry=geom,
+    return dict(name="flash_attention", geometry=geom, form=form,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, causal=True),
                 **check, **timings(kernel, plain, library), bound_ms=bms,
-                bound_by=by)
+                bound_by=by, device_us=device_us(kernel))
 
 
 def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
@@ -1256,29 +1280,34 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                       "setmaxnreg")):
                 log(f"[ptxas {name}] {line.strip()}")
     log(f"build: {build_s:.1f} s")
     log_time("build")
     # the bf16 routes of the prefill, flash and decode kernels run on
-    # tensor cores
-    for name, fn_tag in (("aqua_prefill", "aqua_prefill_bf16"),
-                         ("flash_attention", "flash_bf16"),
-                         ("aqua_decode", "decode_bf16")):
-        counts = sass_mma_counts(str(_build._lib_path(name)))
-        for fn, n in counts.items():
-            log(f"[sass {name}] {fn}: {n} HMMA/HGMMA")
-        tagged = [n for fn, n in counts.items() if fn_tag in fn]
-        assert tagged and all(n > 0 for n in tagged), (name, counts)
+    # tensor cores; the prefill's and flash's are warp-specialized
+    # (USETMAXREG) and copy by TMA tensor maps (UTMALDG)
+    for name, fn_tag, design in (
+            ("aqua_prefill", "aqua_prefill_bf16", ("USETMAXREG", "UTMALDG")),
+            ("flash_attention", "flash_bf16", ("USETMAXREG", "UTMALDG")),
+            ("aqua_decode", "decode_bf16", ())):
+        counts = sass_counts(str(_build._lib_path(name)))
+        for fn, c in counts.items():
+            log(f"[sass {name}] {fn}: " + ", ".join(
+                f"{n} {op}" for op, n in c.items()))
+        tagged = [c for fn, c in counts.items() if fn_tag in fn]
+        assert tagged and all(c["HMMA"] + c["HGMMA"] > 0 and all(
+            c[op] > 0 for op in design) for c in tagged), (name, counts)
     # the decode's group route in its full-precision, int8 (kQuant) and
     # participating-page (kPart) instantiations, each at both widths:
     # decode_bf16<kKS, kMT, kQuant, kPart>, mangled ...ILi8ELi8ELb1ELb0E...
-    counts = sass_mma_counts(str(_build._lib_path("aqua_decode")))
+    counts = sass_counts(str(_build._lib_path("aqua_decode")))
     variants = {}
-    for fn, n in counts.items():
+    for fn, c in counts.items():
         m = re.search(r"decode_bf16ILi(\d+)ELi(\d+)ELb([01])ELb([01])E", fn)
         if m:
-            variants[tuple(int(x) for x in m.groups())] = n
+            variants[tuple(int(x) for x in m.groups())] = c["HMMA"] + c["HGMMA"]
     want = {(ks, ks, qt, pt) for ks in (8, 16)
             for qt, pt in ((0, 0), (1, 0), (0, 1))}
     assert set(variants) == want and all(variants.values()), variants
@@ -1287,6 +1316,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phases = []
+
     for geom, h, kvh in (("qwen3-0.6b", 16, 8), ("llama3.1-8b", 32, 8)):
         phases.append(decode_phase(geom, h, kvh, False, gen))
         phases.append(decode_phase(geom, h, kvh, True, gen))
@@ -1294,17 +1324,26 @@ def main() -> int:
         phases.append(decode_phase(geom, h, kvh, True, gen, s=2048,
                                    len_range=(128, 1056), form="served"))
         for quant, part in ((True, False), (False, True), (True, True)):
-            phases.append(paged_variant_phase(geom, h, kvh, quant, part,
-                                              gen))
+            phases.append(paged_variant_phase(geom, h, kvh, quant, part, gen))
         # the group route's variants at the drives' contexts
         for quant, part in ((True, False), (False, True)):
             phases.append(paged_variant_phase(
                 geom, h, kvh, quant, part, gen, s=2048,
                 len_range=(128, 1056), form="served"))
         phases.append(prefill_phase(geom, h, kvh, gen))
+        # the drives' longest prompt: one wave of blocks
+        phases.append(prefill_phase(geom, h, kvh, gen, s=1024, form="served"))
         phases.append(prefill_chunk_phase(geom, h, kvh, gen))
         phases.append(prefill_part_phase(geom, h, kvh, gen))
         phases.append(flash_phase(geom, h, kvh, gen))
+        phases.append(flash_phase(geom, h, kvh, gen, s=1024, form="served"))
+    # the generic kernels: shapes outside the served ones' compile-time
+    # depth and width (flash at head_dim 80, a prefill union of 8 chunks
+    # with Dv 128)
+    phases.append(flash_phase("h2o-danube-1.8b", 32, 8, gen, d=80,
+                              form="generic"))
+    phases.append(prefill_phase("qwen3-0.6b", 16, 8, gen, k_ratio=0.5,
+                                form="generic"))
     torch.cuda.reset_peak_memory_stats()
     window_phase = prefill_window_phase("h2o-danube-1.8b", 32, 8, 80, gen)
     phases.append(window_phase)

@@ -1,0 +1,171 @@
+#!/usr/bin/env python3
+"""Race the bf16 prefill and flash kernels of several checkouts on one GPU.
+
+    python3 kernel_race.py OUT.jsonl PARENT_DIR . . PARENT_DIR
+
+Each directory is a checkout of the repo whose ``src/`` is the tree under
+test; ``git archive <commit>`` unpacked into a gitignored directory gives
+one. The measurements are this checkout's ``chip_smoke.py`` phases
+(``prefill_phase``, ``flash_phase``), so every tree runs the same code
+against its own kernels. Each directory runs in a process of its own, in
+the order given (parent, change, change, parent puts drift on both sides).
+Per tree:
+
+- the prefill and flash at Qwen3-0.6B's and Llama-3.1-8B's geometry, B=1,
+  causal: S=2048 and the served form (S=1024), each against its plain
+  version at chip_smoke's limits;
+- the shapes of the generic kernels (``"form": "generic"``): flash at
+  head_dim 80 (H2O-Danube-1.8B), the prefill at k_ratio 0.5;
+- the host microseconds of one wrapper call at a tiny shape (S=128, where
+  the device work is a few microseconds, so the host bounds a loop of
+  calls; the five repeats of 2000 calls, sorted), and of one
+  ``cuTensorMapEncodeTiled`` call through ctypes beside a no-op ctypes
+  call (the bf16 flash encodes two maps a launch, the prefill five).
+
+Each phase appends one JSON line to OUT with ``"tree"`` set to its
+directory; a table by phase follows on stdout. Exits non-zero if a tree
+fails or a kernel disagrees with its plain version.
+"""
+
+import collections
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+KEEP = ("name", "geometry", "form", "shape", "ms", "loop_ms", "library_ms",
+        "plain_ms", "max_abs_err", "tol_ratio", "ok", "bound_ms",
+        "device_us")
+
+
+def host_us(gen) -> dict:
+    """Host microseconds per wrapper call and per tensor-map encode."""
+    import torch
+    from repro_torch.core import aqua
+    from repro_torch.kernels import aqua_prefill as pk
+    from repro_torch.kernels import flash_attention as fk
+
+    s, h, kvh, d = 128, 16, 8, 128
+    dev, bf = "cuda", torch.bfloat16
+    q = torch.randn(1, h, s, d, device=dev, generator=gen).to(bf)
+    k = torch.randn(1, kvh, s, d, device=dev, generator=gen).to(bf)
+    v = torch.randn(1, kvh, s, d, device=dev, generator=gen).to(bf)
+    lengths = torch.full((1,), s, dtype=torch.int32, device=dev)
+    block_idx = aqua.chunk_topk_block_indices(q, 96, 8, 128,
+                                              lengths).contiguous()
+    calls = {
+        "flash": lambda: fk.flash_attention(q, k, v, causal=True),
+        "prefill": lambda: pk.aqua_prefill_attention(
+            q, k, v, block_idx, lengths, block_dims=8, q_blk=128,
+            causal=True, scale=d ** -0.5)}
+    out = {}
+    for name, fn in calls.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        reps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            reps.append((time.perf_counter() - t0) / 2000 * 1e6)
+            torch.cuda.synchronize()
+        out[name] = sorted(reps)
+    # cuTensorMapEncodeTiled with a V map's arguments: bf16 (9), rank 4,
+    # 64 x 64 boxes, no interleave (0), 128-byte swizzle (3), L2 promotion
+    # 128B (2), no OOB fill (0)
+    enc = ctypes.CDLL("libcuda.so.1").cuTensorMapEncodeTiled
+    buf = (ctypes.c_uint8 * 256)()
+    u64, u32 = ctypes.c_uint64, ctypes.c_uint32
+    args = (ctypes.c_void_p((ctypes.addressof(buf) + 63) // 64 * 64), 9, 4,
+            ctypes.c_void_p(v.data_ptr()), (u64 * 4)(d, s, kvh, 1),
+            (u64 * 3)(2 * d, 2 * d * s, 2 * d * s * kvh),
+            (u32 * 4)(64, 64, 1, 1), (u32 * 4)(1, 1, 1, 1), 0, 3, 2, 0)
+    assert enc(*args) == 0
+    noop = ctypes.CDLL(None).abs
+    n = 20000
+    for name, fn, a in (("encode", enc, args), ("ctypes_noop", noop, (1,))):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*a)
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
+def one_tree(tree: str, out_path: str) -> int:
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    # the tree under test ahead of this checkout's src/
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import torch
+    import repro_torch
+    from repro_torch.kernels import _build
+    assert repro_torch.__file__.startswith(os.path.abspath(tree)), \
+        repro_torch.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    for name, text in _build.build_all().items():
+        for line in text.splitlines():
+            if "C7511" in line or "spill" in line and "bf16" in line:
+                print(f"[ptxas {name}] {line.strip()}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    phases = []
+    for geom, h, kvh in (("qwen3-0.6b", 16, 8), ("llama3.1-8b", 32, 8)):
+        phases += [lambda g=geom, h=h, kv=kvh: cs.prefill_phase(g, h, kv, gen),
+                   lambda g=geom, h=h, kv=kvh: cs.prefill_phase(
+                       g, h, kv, gen, s=1024, form="served"),
+                   lambda g=geom, h=h, kv=kvh: cs.flash_phase(g, h, kv, gen),
+                   lambda g=geom, h=h, kv=kvh: cs.flash_phase(
+                       g, h, kv, gen, s=1024, form="served"),
+                   lambda g=geom, h=h, kv=kvh: cs.prefill_phase(
+                       g, h, kv, gen, k_ratio=0.5, form="generic")]
+    phases.append(lambda: cs.flash_phase("h2o-danube-1.8b", 32, 8, gen, d=80,
+                                         form="generic"))
+    ok = True
+    with open(out_path, "a") as out:
+        for run in phases:
+            p = run()
+            line = dict({k: p.get(k) for k in KEEP}, tree=tree)
+            out.write(json.dumps(line) + "\n")
+            ok = ok and p["ok"]
+        out.write(json.dumps({"tree": tree, "host_us": host_us(gen)}) + "\n")
+    return 0 if ok else 1
+
+
+def main() -> int:
+    if sys.argv[1] == "--one":
+        return one_tree(sys.argv[2], sys.argv[3])
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_race: no CUDA device", file=sys.stderr)
+        return 1
+    out_path, trees = sys.argv[1], sys.argv[2:]
+    rc = 0
+    for tree in trees:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--one", tree, out_path]).returncode
+        print(f"tree {tree}: rc {r}", flush=True)
+        rc = rc or r
+    rows = [json.loads(line) for line in open(out_path)]
+    table = collections.defaultdict(list)
+    for r in rows:
+        if "host_us" in r:
+            print(r["tree"], "host us", json.dumps(r["host_us"]))
+            continue
+        key = (r["name"], r["geometry"], r["form"],
+               (r["shape"] or {}).get("k_ratio"))
+        table[key].append(f"{r['tree']} {r['ms']:.4f}"
+                          f"{'' if r['ok'] else ' FAILED'}")
+    for key, cells in table.items():
+        print(key, " | ".join(cells))
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -121,6 +121,28 @@ def check_cp_async(what: str, *tensors) -> None:
                              f"{x.storage_offset()}")
 
 
+#: TMA tensor maps take strides below 2**40 bytes and sizes below 2**32
+TMA_STRIDE_LIMIT = 2 ** 40
+TMA_SIZE_LIMIT = 2 ** 32
+
+
+def check_tma(what: str, *tensors) -> None:
+    """Raise ``ValueError`` unless every tensor can be described by the
+    bf16 kernels' TMA tensor maps: each axis under 2**32 elements and each
+    outer stride under 2**40 bytes (the stride of an axis of size 1 is
+    never used). The 16-byte alignment TMA also needs is
+    :func:`check_cp_async`'s."""
+    for x in tensors:
+        size = x.element_size()
+        if any(n >= TMA_SIZE_LIMIT for n in x.shape) or any(
+                st * size >= TMA_STRIDE_LIMIT
+                for st, n in zip(x.stride()[:-1], x.shape[:-1]) if n > 1):
+            raise ValueError(f"{what} kernel's tensor maps need axes under "
+                             f"2**32 elements and strides under 2**40 "
+                             f"bytes, got shape {tuple(x.shape)} and strides "
+                             f"{x.stride()}")
+
+
 def check(err: int, what: str) -> None:
     """Raise for a failed launch; count a good one under ``what``."""
     if err != 0:

@@ -18,9 +18,10 @@ past the causal bound and past ``lengths`` and, under a window, the tiles
 before each block's band (so the work scales with the window), and reads q/k/v through
 strides so the model's (B, S, KV, G, D) layout needs no transpose. bf16
 runs on the tensor cores, float32 on scalar FMAs; see the source's header
-for the tiling. The bf16 kernel copies 16-byte pieces: it needs D and Dv
-multiples of 8, D <= 256, 16-byte aligned bases and outer strides
-(``ValueError`` otherwise).
+for the tiling. The bf16 kernel copies K̂ and V by TMA tensor maps and q̂ in
+16-byte pieces: it needs D and Dv multiples of 8, D <= 256, 16-byte
+aligned bases and outer strides, under 2**40 bytes (``ValueError``
+otherwise).
 
 Dispatch is by device: CPU tensors run :func:`aqua_prefill_plain`, CUDA
 tensors launch the kernel or raise. Launches count in
@@ -97,6 +98,7 @@ def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
             raise ValueError(f"aqua_prefill bf16 kernel needs D and Dv "
                              f"multiples of 8 and D <= 256, got {d}, {dv}")
         _build.check_cp_async("aqua_prefill", q_hat, khat, v)
+        _build.check_tma("aqua_prefill", khat, v)
     for x in (block_idx, lengths) + (() if kc_part is None else (kc_part,)):
         if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError("block_idx, lengths and kc_part must be "

@@ -32,23 +32,38 @@
 // Bound on the H100: operations at serving prompt lengths (S = 2048: ~S²/2
 // · H · (NB_sel·bd + Dv) multiply-adds against ~S · KV · (D + Dv) bytes).
 //
-// bf16 route (every full-size drive), on the tensor cores: one block of
-// 256 threads (two warpgroups, 8 warps x 16 rows) per (b, h, 128 query
-// rows), the machinery of attn_tile.cuh (wgmma for Q̂·K̂ᵀ and P·V, P split
-// into two bf16 terms, the online softmax in registers); both warpgroups
-// read each staged key tile. A block gathers the sorted union of the 8-dim
-// chunks holding a dim selected by the q_blk tiles it covers (one tile's
-// selection when q_blk % 128 == 0 and bd % 8 == 0, as on every served
-// full-size path); each Q̂ row is staged with zeros in the union's dims its
-// own tile did not select (zero products add exactly 0), padded to a
-// depth multiple of 16, then held in registers. The K̂ tile is one 16-byte
-// cp.async per (key, chunk), packed into a dense 64 x depth tile: only the
-// selected chunks are read. K̂ and V tiles go through a three-stage
-// cp.async ring, and P·V of one tile overlaps the scores and softmax of the
-// next (attn_tile.cuh's walk). The walk visits 64-key tiles in ascending
-// order up to the block's causal bound and lengths[b]; blocks are issued
-// heaviest (last rows) first. bf16 needs D % 8 == 0, D <= 256, 16-byte
-// aligned bases and outer strides % 8 == 0 (the wrapper checks).
+// bf16 route (every full-size drive), on the tensor cores, with the
+// warp-specialized engine of attn_tile.cuh: one block of 384 threads per
+// (b, h, 128 query rows), two consumer warpgroups of 64 rows and a
+// producer warpgroup, over a four-stage mbarrier ring. A block gathers the
+// sorted union of the 8-dim chunks holding a dim selected by the q_blk
+// tiles it covers (one tile's selection when q_blk % 128 == 0 and bd % 8
+// == 0, as on every served full-size path); each Q̂ row is staged once
+// with zeros in the union's dims its own tile did not select (zero
+// products add exactly 0), padded to a depth multiple of 16, and read by
+// the products from shared memory. Per key tile the producer gathers the
+// K̂ tile by TMA, one box of 64 keys x 1, 2, 4 or 8 chunks per power-of-two
+// piece of each run of consecutive union chunks, from 5D tensor maps over
+// the strided (B, KV, S, D / 8, 8) view, packed chunk-major into a dense
+// 64 x depth tile (only the selected chunks are read; 16-byte cp.async
+// copies by the producer warp took 1.6x as long: PERF.md, Findings), and the V
+// tile from a 4D map over the strided (B, KV, S, Dv) view (boxes of 64
+// dims x 64 keys, 128-byte swizzle); zeros past S and past Dv. What bounds
+// it on the card is the tensor-core time (~1.5x the bound's operations:
+// P·V runs for P's hi and lo halves) and the softmax between the products:
+// the consumers take turns on the tensor cores, so one warpgroup's softmax
+// runs beside the other's products, and P·V of one tile beside the scores
+// of the next. The served shapes (a 12-chunk union with Dv 128, an 8-chunk
+// union with Dv 80) take kernels whose depth and P·V width are fixed at
+// compile time, where the compiler keeps the products asynchronous; in the
+// generic kernel it serializes them for want of registers and its
+// consumers run free of each other instead (PERF.md, Findings). P·V is
+// m64n128, or m64n64 + m64n16 for Dv 80 (head_dim 80), so no product runs
+// on padding columns. The walk visits 64-key tiles in
+// ascending order up to the block's causal bound and lengths[b]; blocks
+// are issued heaviest (last rows) first. bf16 needs D % 8 == 0, D <= 256,
+// 16-byte aligned bases and outer strides that are whole 16-byte units
+// under 2^40 bytes (the wrapper checks).
 //
 // float32 route (the reduced configs of the tests, held at 1e-5, which
 // TF32 tensor cores cannot hold): the first design, scalar f32 FMAs on
@@ -80,6 +95,11 @@ struct Part {
   int kt, k_blk;
 };
 
+// K̂ gather maps, boxes of 1, 2, 4 and 8 chunks (attn_tile::make_chunk_map)
+struct KMaps {
+  CUtensorMap m[4];
+};
+
 struct Args {
   const void *q, *k, *v;
   const int *block_idx, *lengths;
@@ -96,42 +116,49 @@ struct Args {
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-template <bool kPart>
-__global__ void __launch_bounds__(attn_tile::kThreads) aqua_prefill_bf16(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ block_idx, const int* __restrict__ lengths, bf16* __restrict__ out,
-    int H, int KV, int Tq, int S, int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc,
-    Strides qst, Strides kst, Strides vst, Strides ost, float scale_log2, int causal, int window,
-    Part part, int kstage, int ncv) {
+// NKS > 0 and KIND >= 0: every block walks NKS k-steps of Q̂·K̂ᵀ (its union
+// padded with zero chunks) and P·V of width KIND (pv_tile), fixed at compile
+// time; else each block's own union and the launch's width at run time.
+template <bool kPart, int NKS, int KIND>
+__global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16(
+    const __grid_constant__ KMaps kmaps, const __grid_constant__ CUtensorMap vmap,
+    const bf16* __restrict__ q, const int* __restrict__ block_idx,
+    const int* __restrict__ lengths, bf16* __restrict__ out, int H, int KV, int Tq, int S,
+    int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides ost,
+    float scale_log2, int causal, int window, Part part, int kstage) {
   using namespace attn_tile;
   // heaviest blocks first (the last rows walk the most key tiles), heads
   // fastest: a causal grid's long blocks do not start last
   const int h = blockIdx.x % H, tile = gridDim.x / H - 1 - blockIdx.x / H;
   const int b = blockIdx.z, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
   const int kv = h / (H / KV);
   const int row0 = tile * kRows;
   const int rlast = min(row0 + kRows, Tq) - 1;
   const int t_first = row0 / q_blk;                 // the q_blk tiles this block covers
   const int ntile = rlast / q_blk - t_first + 1;    // <= 16: q_blk >= 8
   const int nkc = kPart ? (S + part.k_blk - 1) / part.k_blk : 0;
+  const int nvb = (Dv + 63) / 64;                   // 64-dim boxes of a V tile
 
-  // three stages of K̂ and V tiles (kstage and kKeys x ncv chunks each), Q̂
-  // staged once (kRows rows, as wide as a K̂ stage)
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + 3 * kstage;
-  const int vstage = kKeys * ncv * 8;
-  bf16* Qs = Vs + 3 * vstage;
+  // kStages stages of V tiles (nvb boxes) and K̂ tiles (kstage elements,
+  // chunk-major), Q̂ staged once (kRows rows, as wide as a K̂ stage)
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Vs = align1k(smem_raw);
+  bf16* Ks = Vs + kStages * nvb * kBox;
+  bf16* Qs = Ks + kStages * kstage;
   // kPart: half-word c of the array (2 per word) marks which of the
   // block's q-tiles list key chunk c
   uint32_t* marks = reinterpret_cast<uint32_t*>(Qs + kstage * kRows / kKeys);
   __shared__ uint32_t tile_dims[16][8];  // per covered q-tile: its selected dims
   __shared__ uint32_t union_chunks;      // 8-dim chunks holding a selected dim
   __shared__ int uc[32];               // union position -> 8-dim chunk
+  // the gather's boxes: union position | chunk << 8 | log2 of the width << 16
+  __shared__ uint32_t pieces[16];
+  __shared__ int npieces;
+  __shared__ Ring ring;
 
   if (tid < 16 * 8) tile_dims[tid / 8][tid % 8] = 0;
   if (tid == 0) union_chunks = 0;
+  if (tid == 0) ring.init(1);
   if (kPart)
     for (int e = tid; e < (nkc + 1) / 2; e += kThreads) marks[e] = 0;
   __syncthreads();
@@ -155,33 +182,32 @@ __global__ void __launch_bounds__(attn_tile::kThreads) aqua_prefill_bf16(
   __syncthreads();
   const uint32_t um = union_chunks;
   const int nu = __popc(um);                  // union width in 8-dim chunks
-  const int nks = (nu + 1) / 2, nck = 2 * nks;  // k-steps of 16 dims
-  const int nvt = Dv / 8;
+  const int nks = NKS > 0 ? NKS : (nu + 1) / 2, nck = 2 * nks;  // k-steps of 16 dims
   if (tid < 32 && ((um >> tid) & 1)) uc[__popc(um & ((1u << tid) - 1))] = tid;
-  if (nu & 1) zero_chunk(Qs, nck, nu, kRows);
-  for (int st = 0; st < 3; ++st) {            // padding: zeros
-    if (nu & 1) zero_chunk(Ks + st * kstage, nck, nu, kKeys);
-    for (int c = nvt; c < ncv; ++c) zero_chunk(Vs + st * vstage, ncv, c, kKeys);
+  if (tid == 0) {  // runs of consecutive union chunks, in power-of-two pieces
+    int n = 0;
+    for (int c = 0, u = 0; c < 32;) {
+      if (!((um >> c) & 1)) {
+        ++c;
+        continue;
+      }
+      int run = __ffs(~(um >> c)) - 1;        // the run's length
+      if (run < 0) run = 32 - c;
+      for (int w = 3; w >= 0; --w)
+        for (; run >= (1 << w); run -= 1 << w, c += 1 << w, u += 1 << w)
+          pieces[n++] = u | c << 8 | w << 16;
+    }
+    npieces = n;
+  }
+  if (nu < nck) {                             // padding: zero chunks
+    for (int c = nu; c < nck; ++c) zero_chunk(Qs, nck, c, kRows);
+    const int pad = (nck - nu) * kKeys;       // rows of K̂ padding per stage
+    for (int e = tid; e < kStages * pad; e += kThreads)
+      *reinterpret_cast<uint4*>(Ks + e / pad * kstage + (nu * kKeys + e % pad) * 8) =
+          make_uint4(0, 0, 0, 0);
+    fence_async_smem();
   }
   __syncthreads();
-
-  const bf16* kb = k + b * kst.b + kv * kst.h;
-  const bf16* vb = v + b * vst.b + kv * vst.h;
-  auto load_tile = [&](int j, int stage) {
-    const int k0 = j * kKeys;
-    bf16* ks = Ks + stage * kstage;
-    for_chunks(kKeys, nu, [&](int kk, int u) {
-      const int pos = k0 + kk;
-      const bool ok = pos < S;
-      cp_async16(ks + il(kk, u, nck), ok ? kb + pos * kst.s + uc[u] * 8 : kb, ok ? 16 : 0);
-    });
-    bf16* vs = Vs + stage * vstage;
-    for_chunks(kKeys, nvt, [&](int kk, int c) {
-      const int pos = k0 + kk;
-      const bool ok = pos < S;
-      cp_async16(vs + il(kk, c, ncv), ok ? vb + pos * vst.s + c * 8 : vb, ok ? 16 : 0);
-    });
-  };
 
   const int klim = min(lengths[b], S);
   const int kend = causal ? min(klim, q_offset + rlast + 1) : klim;
@@ -200,65 +226,93 @@ __global__ void __launch_bounds__(attn_tile::kThreads) aqua_prefill_bf16(
     while (j < ntk && !live(j));
     return j;
   };
-
-  // Q̂ rows: each row's own tile's selected dims, zeros in the rest of the
-  // union; staged with the first key tile, then held in registers. A chunk
-  // wholly in or out of the tile's selection is one cp.async (always so
-  // when bd % 8 == 0); one partly in is loaded, masked and stored.
-  const bf16* qb = q + b * qst.b + h * qst.h;
-  for_chunks(kRows, nu, [&](int r, int u) {
-    const int c = uc[u], row = row0 + r;
-    const uint32_t sel =
-        row < Tq ? (tile_dims[row / q_blk - t_first][c / 4] >> (c % 4 * 8)) & 0xffu : 0u;
-    bf16* dst = Qs + il(r, u, nck);
-    const bf16* src = qb + row * qst.s + c * 8;
-    if (sel == 0xffu || sel == 0u) {
-      cp_async16(dst, sel ? src : qb, sel ? 16 : 0);
-    } else {
-      uint4 x = *reinterpret_cast<const uint4*>(src);
-      uint16_t* e = reinterpret_cast<uint16_t*>(&x);
-      for (int i = 0; i < 8; ++i)
-        if (!((sel >> i) & 1)) e[i] = 0;
-      *reinterpret_cast<uint4*>(dst) = x;
-    }
-  });
-
-  const int g = lane >> 2;
-  const int rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
-  const int qpos[2] = {q_offset + rows[0], q_offset + rows[1]};
-  // bit of each row's q-tile in a chunk's marks (rows past Tq: any bit)
-  const int rbit[2] = {min(rows[0], rlast) / q_blk - t_first,
-                       min(rows[1], rlast) / q_blk - t_first};
-  const int warp_first = q_offset + row0 + warp * 16;
-  // this warp's rows see keys past klim or the diagonal, keys before the
-  // band of its last row, or a chunk some row's tile drops (a tile wholly
-  // masked for a row adds exactly nothing)
-  auto masked = [&](int j) {
-    const int k0 = j * kKeys;
-    return kPart || k0 + kKeys > klim || (causal && k0 + kKeys - 1 > warp_first) ||
-           (window > 0 && k0 <= warp_first + 15 - window);
-  };
-  // a row r sees the keys kp with lo[r] < kp <= hi[r]: below lengths[b],
-  // at or before its position (causal), inside its band (window)
-  const int hi[2] = {min(klim - 1, causal ? qpos[0] : INT_MAX),
-                     min(klim - 1, causal ? qpos[1] : INT_MAX)};
-  const int lo[2] = {window > 0 ? qpos[0] - window : INT_MIN,
-                     window > 0 ? qpos[1] - window : INT_MIN};
-  auto valid = [&](int j, int r, int kk) {
-    const int kp = j * kKeys + kk;
-    return (!kPart || ((chunk_marks(j) >> rbit[r]) & 1)) && kp <= hi[r] && kp > lo[r];
-  };
-
-  float o[kNT][4];
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const int first = j0 >= ntk ? ntk : live(j0) ? j0 : next(j0);
-  walk(first, ntk, next, load_tile, masked, valid, Qs, nks, Ks, kstage, Vs, vstage, ncv,
-       scale_log2, o, m, l);
-  store_rows(out + b * ost.b + h * ost.h, ost.s, rows, Tq, nvt, o, l);
+
+  // the role of the thread's warpgroup, warp-uniform as the compiler sees
+  // it (a shuffle from lane 0): only then does it give each side its own
+  // register budget
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == kConsumers / 128) {
+    producer_regs();
+    if (tid == kConsumers)
+      produce(first, ntk, next, ring, [&](int j, int st, uint32_t bar) {
+        const int k0 = j * kKeys;
+        mbar_expect(bar, nvb * kBoxBytes + nu * kKeys * 16);
+        for (int x = 0; x < npieces; ++x) {
+          const uint32_t pc = pieces[x];
+          tma_load5(Ks + st * kstage + (pc & 0xff) * kKeys * 8, &kmaps.m[pc >> 16], bar, 0, k0,
+                    (pc >> 8) & 0xff, kv, b);
+        }
+        for (int x = 0; x < nvb; ++x)
+          tma_load(Vs + (st * nvb + x) * kBox, &vmap, bar, 64 * x, k0, kv, b);
+      });
+  } else {
+    consumer_regs();
+    // Q̂ rows: each row's own tile's selected dims, zeros in the rest of
+    // the union; staged once by both consumer warpgroups. A chunk wholly
+    // in or out of the tile's selection is one cp.async (always so when bd
+    // % 8 == 0); one partly in is loaded, masked and stored.
+    const bf16* qb = q + b * qst.b + h * qst.h;
+    for_chunks(kRows, nu, tid, kConsumers, [&](int r, int u) {
+      const int c = uc[u], row = row0 + r;
+      const uint32_t sel =
+          row < Tq ? (tile_dims[row / q_blk - t_first][c / 4] >> (c % 4 * 8)) & 0xffu : 0u;
+      bf16* dst = Qs + il(r, u, nck);
+      const bf16* src = qb + row * qst.s + c * 8;
+      if (sel == 0xffu || sel == 0u) {
+        cp_async16(dst, sel ? src : qb, sel ? 16 : 0);
+      } else {
+        uint4 x = *reinterpret_cast<const uint4*>(src);
+        uint16_t* e = reinterpret_cast<uint16_t*>(&x);
+        for (int i = 0; i < 8; ++i)
+          if (!((sel >> i) & 1)) e[i] = 0;
+        *reinterpret_cast<uint4*>(dst) = x;
+      }
+    });
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_async_smem();                  // Q is read by wgmma
+    bar_sync(kConsumerBar, kConsumers);
+
+    const int warp = tid >> 5, g = (tid & 31) >> 2;
+    const int rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+    const int qpos[2] = {q_offset + rows[0], q_offset + rows[1]};
+    // bit of each row's q-tile in a chunk's marks (rows past Tq: any bit)
+    const int rbit[2] = {min(rows[0], rlast) / q_blk - t_first,
+                         min(rows[1], rlast) / q_blk - t_first};
+    const int warp_first = q_offset + row0 + warp * 16;
+    // this warp's rows see keys past klim or the diagonal, keys before the
+    // band of its last row, or a chunk some row's tile drops (a tile wholly
+    // masked for a row adds exactly nothing)
+    auto masked = [&](int j) {
+      const int k0 = j * kKeys;
+      return kPart || k0 + kKeys > klim || (causal && k0 + kKeys - 1 > warp_first) ||
+             (window > 0 && k0 <= warp_first + 15 - window);
+    };
+    // a row r sees the keys kp with lo[r] < kp <= hi[r]: below lengths[b],
+    // at or before its position (causal), inside its band (window)
+    const int hi[2] = {min(klim - 1, causal ? qpos[0] : INT_MAX),
+                       min(klim - 1, causal ? qpos[1] : INT_MAX)};
+    const int lo[2] = {window > 0 ? qpos[0] - window : INT_MIN,
+                       window > 0 ? qpos[1] - window : INT_MIN};
+    auto valid = [&](int j, int r, int kk) {
+      const int kp = j * kKeys + kk;
+      return (!kPart || ((chunk_marks(j) >> rbit[r]) & 1)) && kp <= hi[r] && kp > lo[r];
+    };
+
+    float o[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    // the consumers take turns in the per-shape kernels; in the generic one
+    // the compiler serializes their products, and turns were slower there
+    // (PERF.md, Findings)
+    consume<true, (NKS > 0), NKS, KIND>(first, ntk, next, masked, valid, ring, Qs, nks, Ks,
+                                        kstage, Vs, nvb * kBox, pv_kind(Dv), scale_log2, o, m,
+                                        l);
+    store_rows(out + b * ost.b + h * ost.h, ost.s, rows, Tq, Dv / 8, o, l);
+  }
 }
 
 // Widest union of 8-dim chunks holding a selected dim that a block of
@@ -272,23 +326,41 @@ int union_chunks(const Args& a) {
   return (chunks + 1) / 2 * 2;
 }
 
-template <bool kPart>
+template <bool kPart, int NKS, int KIND>
 int launch_bf16(const Args& a) {
   using namespace attn_tile;
   static int done[16] = {0};
-  // K̂ stages as wide as the widest union, V stages in 64-wide slices
-  const int kstage = kKeys * union_chunks(a) * 8, ncv = (a.Dv + 63) / 64 * 8;
+  // K̂ stages as wide as the widest union, V stages in 64-dim boxes
+  const int kstage = kKeys * union_chunks(a) * 8, nvb = (a.Dv + 63) / 64;
   const int nkc = kPart ? (a.S + a.part.k_blk - 1) / a.part.k_blk : 0;
-  const int bytes = (3 * (kstage + kKeys * ncv * 8) + kstage * kRows / kKeys) * (int)sizeof(bf16) +
+  const int bytes = 1024 +
+                    (kStages * (nvb * kBox + kstage) + kstage * kRows / kKeys) * (int)sizeof(bf16) +
                     (nkc + 1) / 2 * 4;
-  cudaError_t err = allow_smem(aqua_prefill_bf16<kPart>, bytes, done);
+  KMaps kmaps;
+  CUtensorMap vmap;
+  cudaError_t err = make_map(&vmap, a.v, a.B, a.KV, a.S, a.Dv, a.vs);
+  for (int w = 0; w < 4 && err == cudaSuccess; ++w)
+    err = make_chunk_map(&kmaps.m[w], a.k, a.B, a.KV, a.S, a.D, a.ks, 1 << w);
+  if (err == cudaSuccess) err = allow_smem(aqua_prefill_bf16<kPart, NKS, KIND>, bytes, done);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Tq + kRows - 1) / kRows * a.H, 1, a.B);
-  aqua_prefill_bf16<kPart><<<grid, kThreads, bytes, a.st>>>(
-      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, a.block_idx, a.lengths,
-      (bf16*)a.out, a.H, a.KV, a.Tq, a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc,
-      a.qs, a.ks, a.vs, a.os, a.scale * kLog2e, a.causal, a.window, a.part, kstage, ncv);
+  aqua_prefill_bf16<kPart, NKS, KIND><<<grid, kThreads, bytes, a.st>>>(
+      kmaps, vmap, (const bf16*)a.q, a.block_idx, a.lengths, (bf16*)a.out, a.H, a.KV, a.Tq,
+      a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc, a.qs, a.os, a.scale * kLog2e,
+      a.causal, a.window, a.part, kstage);
   return (int)cudaGetLastError();
+}
+
+// The served shapes take kernels with depth and width fixed at compile
+// time (one walk per kernel: a kernel holding several walks was slower): a
+// 12-chunk union with Dv 128 (k_ratio 0.75 of head_dim 128) and an 8-chunk
+// union with Dv 80 (Danube's head_dim 80); the others the generic kernel.
+template <bool kPart>
+int launch_shape(const Args& a) {
+  const int uc = union_chunks(a), kind = attn_tile::pv_kind(a.Dv);
+  if (uc == 12 && kind == 2) return launch_bf16<kPart, 6, 2>(a);
+  if (uc == 8 && kind == 1) return launch_bf16<kPart, 4, 1>(a);
+  return launch_bf16<kPart, 0, -1>(a);
 }
 
 int dispatch_bf16(const Args& a) {
@@ -296,7 +368,7 @@ int dispatch_bf16(const Args& a) {
       a.Dv > attn_tile::kMaxDv || a.q_blk % 8 != 0 ||
       union_chunks(a) * 8 > attn_tile::kMaxDepth)
     return (int)cudaErrorInvalidValue;
-  return a.part.kc_part != nullptr ? launch_bf16<true>(a) : launch_bf16<false>(a);
+  return a.part.kc_part != nullptr ? launch_shape<true>(a) : launch_shape<false>(a);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,39 +1,65 @@
-// Tensor-core tile machinery shared by aqua_prefill.cu and flash_attention.cu
-// (their bf16 routes; sm_90a).
+// Warp-specialized tensor-core tile engine shared by aqua_prefill.cu and
+// flash_attention.cu (their bf16 routes; sm_90a).
 //
-// A block of kThreads = 256 threads (two warpgroups of 4 warps) owns kRows
-// = 128 query rows, 16 per warp, and walks kKeys = 64-key tiles staged in
-// shared memory, which both warpgroups read. Per tile and warpgroup
-// (qk_issue, softmax_tile, pv_issue):
+// A block of kThreads = 384 threads owns kRows = 128 query rows and walks
+// kKeys = 64-key tiles through a ring of kStages shared-memory stages:
 //
-// - S = Q·Kᵀ with wgmma m64n64k16 (bf16 in, f32 accumulate): Q's A
-//   fragments stay in registers for the whole walk, the K tile is B, read
-//   from shared memory through a descriptor. bf16 x bf16 products are exact
-//   in f32, so S is the f32 dot product up to the accumulation order.
+// - Warpgroup 2 is the producer. Its registers are lowered with setmaxnreg
+//   and one thread of it owns every copy of a stage: it waits until the
+//   stage is empty, then fills it, all by TMA tensor copies
+//   that complete on the stage's full mbarrier by their bytes: V tiles
+//   (and flash's K tiles) as boxes of 64 dims x 64 keys with a 128-byte
+//   swizzle; the prefill's K̂ gather of selected 8-dim chunks as one box of
+//   1, 2, 4 or 8 chunks x 64 keys per power-of-two piece of each run of
+//   consecutive selected chunks.
+// - Warpgroups 0 and 1 are the consumers, 64 rows each (4 warps x 16
+//   rows), with raised registers. Each waits on a stage's full barrier,
+//   computes, and releases the stage on its empty barrier (one arrive per
+//   warpgroup) once the wgmmas that read it are done. The walk over key
+//   tiles has no block-wide barrier.
+// - The consumers take turns on the tensor cores: named barriers (bar.sync
+//   1 + wg, 256) order their wgmma issues, so one warpgroup's softmax runs
+//   while the other's wgmmas run (consume's kTurns; the prefill's generic
+//   kernel runs its consumers free, see consume). Inside a warpgroup, P·V
+//   of tile j is issued with the scores of tile j + 1 and runs beside their
+//   softmax.
+//
+// Per tile and consumer warpgroup (qk_issue, softmax_tile, pv_issue):
+//
+// - S = Q·Kᵀ with wgmma m64n64k16 (bf16 in, f32 accumulate), both operands
+//   read from shared memory through descriptors: Q, staged once, as A and
+//   the K tile as B. (Q's fragments held in registers would push the
+//   consumers past the 168 registers the compiler allots a thread of a
+//   three-warpgroup block, and it would spill them around every product.)
+//   bf16 x bf16 products are exact in f32, so S is the f32 dot product up
+//   to the accumulation order.
 // - The online softmax in registers, in the log2 domain: a thread holds
 //   two rows (g and g + 8 of its warp's 16) x 16 keys; row max and row sum
 //   reduce over the 4 threads of a quad with shuffles. The row sum l is
 //   kept per thread from the f32 probabilities and reduced once at the end.
-// - O += P·V with wgmma m64n64k16, P from registers (the accumulator
-//   fragments of S repack as the A operand) and the V tile as a transposed
-//   (MN-major) B from shared memory, in 64-wide slices of the output. P is
-//   split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), two wgmmas into the
-//   same accumulator: P rounded once to bf16 misses the one-bf16-ulp limit
-//   of the outputs (PERF.md, Findings), the split holds P to ~2^-16.
+// - O += P·V with wgmma, P from registers (the accumulator fragments of S
+//   repack as the A operand) and the V tile as a transposed (MN-major) B in
+//   the swizzled layout: m64n128 for Dv > 80, m64n64 + m64n16 for Dv <= 80
+//   (head_dim 80), m64n64 for Dv <= 64. P is split into P_hi = bf16(P) and
+//   P_lo = bf16(P - P_hi), two wgmmas into the same accumulator: P rounded
+//   once to bf16 misses the one-bf16-ulp limit of the outputs (PERF.md,
+//   Findings), the split holds P to ~2^-16.
 //
-// The walk over a block's key tiles (walk) keeps a three-stage cp.async
-// ring of K and V tiles and overlaps, per warpgroup, the P·V wgmmas of one
-// tile with the scores and softmax of the next.
+// Each row's arithmetic is the plain sequence O = O·corr_j + P_j·V_j over
+// the block's tiles in ascending order: it does not depend on the overlap,
+// on which consumer holds the row, or on the timing of the ring.
 //
-// Tiles live in shared memory in the interleaved (unswizzled) layout that
-// wgmma reads: the 16-byte chunk c of row n sits at byte (n / 8)·nc·128 +
-// c·128 + (n % 8)·16 for a tile nc chunks wide, so each 8-row x 16-byte
-// core matrix is 128 contiguous bytes (and ldmatrix's eight rows hit
-// distinct banks). They are staged with 16-byte cp.async copies (a src
-// size of 0 fills zeros: keys past the end, unselected dims, padding).
+// Layouts in shared memory: TMA boxes are 64 rows (keys) of 128 bytes,
+// 16-byte chunk c of row r at chunk c ^ (r % 8) of its 1024-byte group
+// (the wgmma B128 layout); boxes start on 1024-byte boundaries. The
+// gathered K̂ is chunk-major and unswizzled: chunk u of key n at byte
+// u·1024 + n·16, so each 8-key x 16-byte core matrix is 128 contiguous
+// bytes. Q is interleaved (unswizzled): the 16-byte chunk c of row n sits
+// at byte (n / 8)·nc·128 + c·128 + (n % 8)·16 for a tile nc chunks wide.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,13 +70,21 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 256;
-constexpr int kRows = 128;           // query rows per block, 16 per warp
-constexpr int kKeys = 64;            // keys per tile
-constexpr int kMaxDepth = 128;       // q·k depth (padded to 16)
-constexpr int kMaxDv = 128;          // value / output width
-constexpr int kKS = kMaxDepth / 16;  // k-steps of S = Q·Kᵀ
-constexpr int kNT = kMaxDv / 8;      // 8-wide n-tiles of O
+constexpr int kConsumers = 256;       // two consumer warpgroups
+constexpr int kThreads = 384;         // and the producer warpgroup
+constexpr int kStages = 4;            // ring depth
+// setmaxnreg: the launch gives each thread 168 registers; the producer
+// warpgroup drops to 40 and the consumers rise to 232 (128 x 40 + 256 x
+// 232 = 384 x 168). The compiler fits all of the kernel in 168.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kRows = 128;            // query rows per block, 16 per consumer warp
+constexpr int kKeys = 64;             // keys per tile
+constexpr int kMaxDepth = 128;        // q·k depth (padded to 16)
+constexpr int kMaxDv = 128;           // value / output width
+constexpr int kNT = kMaxDv / 8;       // 8-wide n-tiles of O
+constexpr int kBox = 64 * kKeys;      // elements of a TMA box: 64 keys x 64 dims
+constexpr int kBoxBytes = 2 * kBox;   // 8 KB, a multiple of the swizzle's 1 KB
 
 struct Strides {
   long long b, h, s;
@@ -58,6 +92,12 @@ struct Strides {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory from its first 1024-byte boundary (the
+// launch asks for 1 KB more): swizzled boxes start on one.
+__device__ __forceinline__ bf16* align1k(unsigned char* p) {
+  return reinterpret_cast<bf16*>(p + ((1024 - (smem_u32(p) & 1023)) & 1023));
 }
 
 // 16-byte global -> shared copy; src_bytes 0 writes 16 zero bytes
@@ -74,6 +114,128 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// mbarriers, TMA, named barriers, register reallocation
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// one arrival that also expects `bytes` of copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+__device__ __forceinline__ uint64_t globaltimer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// A wait on the ring lasts at most one stage's copies or one tile's
+// products by the other role, microseconds; the longest launch (the
+// window form at S 8192) takes under 2 ms. A wait past kHangNs of the
+// card's wall clock can only be a ring that never completes (a wrong
+// count or parity): it traps, a launch failure in place of a hung card.
+// The bound is in time, not spins, because try_wait suspends the thread
+// for a time of the hardware's choosing.
+constexpr uint64_t kHangNs = 4000000000ull;  // 4 s
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = globaltimer_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (globaltimer_ns() - t0 > kHangNs) __trap();
+}
+
+// TMA copy of the box at coordinates (c0 dim, c1 key, c2 head, c3 batch)
+// of a 4D tensor map, completing on the mbarrier at `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ... and of a 5D one: (c0 element, c1 key, c2 8-dim chunk, c3 head, c4
+// batch)
+__device__ __forceinline__ void tma_load5(void* dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                          int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// named barriers: 1 and 2 order the consumers' wgmma issues, 3 joins the
+// two consumer warpgroups (Q staged)
+constexpr int kSchedBar = 1, kConsumerBar = 3;
+
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+}
+
+// The ring's barriers: full[s] completes when stage s holds its tile (the
+// producer's arrivals and the copies' bytes), empty[s] when both consumer
+// warpgroups are done with it.
+struct Ring {
+  uint64_t full[kStages], empty[kStages];
+
+  // one thread, before the block's last barrier ahead of the split
+  __device__ __forceinline__ void init(int full_arrivals) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], full_arrivals);
+      mbar_init(&empty[s], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __device__ __forceinline__ uint32_t full_bar(int it) { return smem_u32(&full[it % kStages]); }
+  __device__ __forceinline__ uint32_t empty_bar(int it) { return smem_u32(&empty[it % kStages]); }
+};
+
+// The producer's side of the walk over a block's live key tiles j = first,
+// next(first), ... (next returns a value >= end past the last): for the
+// it-th tile, wait until its stage is empty (the release of tile it -
+// kStages), then issue(j, stage, full barrier) fills it.
+template <class Next, class Issue>
+__device__ __forceinline__ void produce(int first, int end, Next next, Ring& ring, Issue issue) {
+  int it = 0;
+  for (int j = first; j < end; j = next(j), ++it) {
+    if (it >= kStages) mbar_wait(ring.empty_bar(it), (it / kStages - 1) & 1);
+    issue(j, it % kStages, ring.full_bar(it));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -86,18 +248,51 @@ __device__ __forceinline__ int il(int n, int c, int nc) {
   return ((n >> 3) * nc + c) * 64 + (n & 7) * 8;
 }
 
-// wgmma shared-memory descriptor of an unswizzled operand (PTX's leading
-// and stride byte offsets): lbo is the byte stride between core matrices
-// along K, sbo along M/N, for a K-major operand and for an MN-major one
-// (read with the transpose bit) alike
+// wgmma shared-memory descriptor (PTX's leading and stride byte offsets)
+// of an unswizzled operand: lbo is the byte stride between core matrices
+// along K, sbo along M/N
 __device__ __forceinline__ uint64_t wg_desc(const bf16* p, int lbo, int sbo) {
   return ((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
 }
+// ... and of a 128-byte swizzled one (layout type 1): K-major, sbo is the
+// stride between 8-row groups (lbo unused); MN-major, lbo is the stride
+// between 64-element atoms along M/N and sbo between 8-row groups along K
+__device__ __forceinline__ uint64_t sw128_desc(const bf16* p, int lbo, int sbo) {
+  return wg_desc(p, lbo, sbo) | (1ull << 62);
+}
 
-// d (64x64, f32) (+)= a · b: a from registers (this warp's 16 rows x 16,
-// the m16n8k16 A fragment), b 16 x 64 from shared memory (kTransB: stored
+// d (64xN, f32) (+)= a · b: a from registers (this warp's 16 rows x 16,
+// the m16n8k16 A fragment), b 16 x N from shared memory (kTransB: stored
 // MN-major); acc = 0 overwrites d
+template <int kTransB>
+__device__ __forceinline__ void wgmma16(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                        int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(kTransB));
+}
+// d (64x64, f32) += a · b, both from shared memory, K-major
+__device__ __forceinline__ void wgmma64_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b));
+}
 template <int kTransB>
 __device__ __forceinline__ void wgmma64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
                                         int acc) {
@@ -113,6 +308,30 @@ __device__ __forceinline__ void wgmma64(float (&d)[32], const uint32_t (&a)[4], 
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(kTransB));
+}
+template <int kTransB>
+__device__ __forceinline__ void wgmma128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc), "n"(kTransB));
 }
 __device__ __forceinline__ void wg_fence() {
@@ -139,8 +358,8 @@ __device__ __forceinline__ void hold(uint32_t (&d)[N][4]) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
 }
-// shared-memory writes of this thread (cp.async, stores) become visible to
-// wgmma's reads (the async proxy); a barrier then publishes them
+// shared-memory writes of the generic proxy (cp.async, stores) that this
+// thread has observed become visible to wgmma's reads (the async proxy)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -165,50 +384,55 @@ __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint3
   lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
 }
 
-// Q fragments of this warp's 16 rows for nks k-steps, from an interleaved
-// tile Qs nc chunks wide
-__device__ __forceinline__ void load_q(uint32_t (&qf)[kKS][4], const bf16* Qs, int nc,
-                                       int nks) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row = warp * 16 + (lane & 15), half = lane >> 4;
-#pragma unroll
-  for (int ks = 0; ks < kKS; ++ks) {
-    if (ks < nks) ldsm_x4(qf[ks], Qs + il(row, 2 * ks + half, nc));
-  }
-}
-
 // S (+)= Q·Kᵀ over NKS k-steps of 16 dims: straight-line wgmmas (a branch
 // between two of them would make the compiler fence each one). kd is the
-// K tile's descriptor; a k-step is 256 bytes (16 descriptor units) on.
-template <int NKS>
-__device__ __forceinline__ void qk_tile(float (&sf)[32], const uint32_t (&qf)[kKS][4],
-                                        uint64_t kd) {
+// K tile's descriptor, qd Q's (interleaved: a k-step two chunks, 256
+// bytes, 16 descriptor units on). kGather: the K tile is the chunk-major
+// gather, a k-step 2 KB (128 units) on; else 128-byte swizzled boxes of 64
+// dims, a k-step 32 bytes (2 units) on inside a box and the next box 8 KB
+// (512 units) on.
+template <int NKS, bool kGather>
+__device__ __forceinline__ void qk_tile(float (&sf)[32], uint64_t qd, uint64_t kd) {
 #pragma unroll
-  for (int ks = 0; ks < NKS; ++ks) wgmma64<0>(sf, qf[ks], kd + 16 * ks, 1);
+  for (int ks = 0; ks < NKS; ++ks)
+    wgmma64_ss(sf, qd + 16 * ks, kd + (kGather ? 128 * ks : (ks >> 2) * 512 + (ks & 3) * 2));
 }
 
-// O += (P_hi + P_lo)·V over 64 keys for NC 64-wide output slices; vd is
-// the V tile's descriptor (ncv chunks wide): 16 keys are 2·ncv core
-// matrices on, a slice is 8 core matrices (8 descriptor units each) on.
-template <int NC>
+// O += (P_hi + P_lo)·V over 64 keys; vd is the V tile's descriptor (its
+// first swizzled box): 16 keys are 2 KB (128 units) on, the second box 8 KB
+// (512 units). kKind 0: Dv <= 64, one m64n64; 1: Dv <= 80, m64n64 and
+// m64n16 on the second box; 2: Dv <= 128, one m64n128 over both boxes.
+template <int kKind>
 __device__ __forceinline__ void pv_tile(float (&o)[kNT][4], const uint32_t (&ph)[4][4],
-                                        const uint32_t (&pl)[4][4], uint64_t vd, int ncv) {
+                                        const uint32_t (&pl)[4][4], uint64_t vd) {
+  float(&o128)[64] = *reinterpret_cast<float(*)[64]>(&o[0][0]);
+  float(&o64)[32] = *reinterpret_cast<float(*)[32]>(&o[0][0]);
+  float(&o16)[8] = *reinterpret_cast<float(*)[8]>(&o[8][0]);
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    float(&oc)[32] = *reinterpret_cast<float(*)[32]>(&o[8 * c][0]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t d = vd + (2 * kk * ncv + 8 * c) * 8;
-      wgmma64<1>(oc, ph[kk], d, 1);
-      wgmma64<1>(oc, pl[kk], d, 1);
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t d = vd + kk * 128;
+    if (kKind == 2) {
+      wgmma128<1>(o128, ph[kk], d, 1);
+      wgmma128<1>(o128, pl[kk], d, 1);
+    } else {
+      wgmma64<1>(o64, ph[kk], d, 1);
+      wgmma64<1>(o64, pl[kk], d, 1);
+      if (kKind == 1) {
+        wgmma16<1>(o16, ph[kk], d + 512, 1);
+        wgmma16<1>(o16, pl[kk], d + 512, 1);
+      }
     }
   }
 }
 
-// S = Q·Kᵀ for one key tile (Ks: kKeys x 2·nks chunks, interleaved),
-// issued asynchronously as one wgmma group.
-__device__ __forceinline__ void qk_issue(float (&s)[8][4], const uint32_t (&qf)[kKS][4], int nks,
-                                         const bf16* Ks) {
+// the P·V width of a Dv-wide output (pv_tile's kKind)
+__host__ __device__ inline int pv_kind(int dv) { return dv <= 64 ? 0 : dv <= 80 ? 1 : 2; }
+
+// S = Q·Kᵀ for one key tile (Ks: the chunk-major gather of 2·nks chunks
+// when kGather, else swizzled boxes), issued asynchronously as one wgmma
+// group; NKS > 0 fixes nks at compile time.
+template <bool kGather, int NKS>
+__device__ __forceinline__ void qk_issue(float (&s)[8][4], uint64_t qd, int nks, const bf16* Ks) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -216,33 +440,44 @@ __device__ __forceinline__ void qk_issue(float (&s)[8][4], const uint32_t (&qf)[
   float(&sf)[32] = *reinterpret_cast<float(*)[32]>(&s[0][0]);
   hold(sf);
   wg_fence();
-  const uint64_t kd = wg_desc(Ks, 128, nks * 256);
+  const uint64_t kd = kGather ? wg_desc(Ks, kKeys * 16, 128) : sw128_desc(Ks, 16, 1024);
+  if constexpr (NKS > 0) {
+    qk_tile<NKS, kGather>(sf, qd, kd);
+    wg_commit();
+    return;
+  }
   switch (nks) {
-    case 1: qk_tile<1>(sf, qf, kd); break;
-    case 2: qk_tile<2>(sf, qf, kd); break;
-    case 3: qk_tile<3>(sf, qf, kd); break;
-    case 4: qk_tile<4>(sf, qf, kd); break;
-    case 5: qk_tile<5>(sf, qf, kd); break;
-    case 6: qk_tile<6>(sf, qf, kd); break;
-    case 7: qk_tile<7>(sf, qf, kd); break;
-    default: qk_tile<8>(sf, qf, kd); break;
+    case 1: qk_tile<1, kGather>(sf, qd, kd); break;
+    case 2: qk_tile<2, kGather>(sf, qd, kd); break;
+    case 3: qk_tile<3, kGather>(sf, qd, kd); break;
+    case 4: qk_tile<4, kGather>(sf, qd, kd); break;
+    case 5: qk_tile<5, kGather>(sf, qd, kd); break;
+    case 6: qk_tile<6, kGather>(sf, qd, kd); break;
+    case 7: qk_tile<7, kGather>(sf, qd, kd); break;
+    default: qk_tile<8, kGather>(sf, qd, kd); break;
   }
   wg_commit();
 }
 
-// O += P·V for one key tile (Vs: kKeys x ncv chunks, interleaved, ncv a
-// multiple of 8), issued asynchronously as one wgmma group.
+// O += P·V for one key tile (Vs: swizzled boxes), issued asynchronously as
+// one wgmma group; KIND >= 0 fixes kind at compile time.
+template <int KIND>
 __device__ __forceinline__ void pv_issue(float (&o)[kNT][4], const uint32_t (&ph)[4][4],
-                                         const uint32_t (&pl)[4][4], const bf16* Vs, int ncv) {
+                                         const uint32_t (&pl)[4][4], const bf16* Vs, int kind) {
   float(&of)[kNT * 4] = *reinterpret_cast<float(*)[kNT * 4]>(&o[0][0]);
   hold(of);
   wg_fence();
-  const uint64_t vd = wg_desc(Vs, ncv * 128, 128);
-  static_assert(kNT == 16, "two 64-wide output slices");
-  if (ncv > 8)
-    pv_tile<2>(o, ph, pl, vd, ncv);
-  else
-    pv_tile<1>(o, ph, pl, vd, ncv);
+  const uint64_t vd = sw128_desc(Vs, kBoxBytes, 1024);
+  if constexpr (KIND >= 0) {
+    pv_tile<KIND>(o, ph, pl, vd);
+    wg_commit();
+    return;
+  }
+  switch (kind) {
+    case 0: pv_tile<0>(o, ph, pl, vd); break;
+    case 1: pv_tile<1>(o, ph, pl, vd); break;
+    default: pv_tile<2>(o, ph, pl, vd); break;
+  }
   wg_commit();
 }
 
@@ -323,62 +558,77 @@ __device__ __forceinline__ void rescale_split(float (&o)[kNT][4], const float (&
   }
 }
 
-// The walk over a block's live key tiles j = first, next(first), ...
-// (next returns a value >= end past the last), with a three-stage
-// cp.async ring of K and V tiles (kstage and vstage elements per stage)
-// and the tensor work pipelined across tiles: while P·V of tile j runs,
-// the scores of the following tile are computed and put through the
-// softmax. Per tile the arithmetic is the plain sequence O = O·corr_j +
-// P_j·V_j, so the result does not depend on the overlap. The caller has
-// issued Q's copies into Qs (kRows x 2·nks chunks, interleaved);
-// load(j, stage) issues tile j's copies; masked(j) and valid(j, r, kk)
-// give tile j's masks (softmax_tile). Each warpgroup accumulates its 64
-// rows into o, m and l.
-template <class Next, class Load, class Masked, class Valid>
-__device__ __forceinline__ void walk(int first, int end, Next next, Load load, Masked masked,
-                                     Valid valid, const bf16* Qs, int nks, const bf16* Ks,
-                                     int kstage, const bf16* Vs, int vstage, int ncv,
-                                     float scale_log2, float (&o)[kNT][4], float (&m)[2],
-                                     float (&l)[2]) {
-  const int j = first;
-  int nxt = j < end ? next(j) : end;
-  int sj = 0, sn = 1, sf = 2;       // stages of the current tile, nxt and the free one
-  if (j < end) load(j, sj);
-  cp_async_commit();                // with Q's copies
-  if (nxt < end) load(nxt, sn);
-  cp_async_commit();
-  cp_async_wait<1>();
-  fence_async_smem();
-  __syncthreads();
-  uint32_t qf[kKS][4];
-  load_q(qf, Qs, 2 * nks, nks);
-  if (j >= end) return;
+// A consumer warpgroup's side of the walk over the block's live key tiles
+// j = first, next(first), ... (as produce walks them): Q is staged in Qs
+// (kRows x 2·nks chunks, interleaved); the it-th tile's K (kGather: the
+// chunk-major gather, 2·nks chunks; else swizzled boxes) and V (swizzled
+// boxes) sit in stage it % kStages at Ks + stage·kstage and Vs +
+// stage·vstage. masked(j) and valid(j, r, kk) give tile j's masks
+// (softmax_tile); each warpgroup accumulates its 64 rows into o, m and l.
+//
+// kTurns: the warpgroups take turns on the tensor cores. Warpgroup w waits
+// on named barrier kSchedBar + w before it issues wgmmas and arrives on the
+// other's after; warpgroup 1 arrives once up front, so warpgroup 0 issues
+// first, and skips its last arrival, so both barriers end balanced. Both
+// warpgroups walk the same tiles. Turns pay only while the compiler keeps
+// the products asynchronous: where the consumers' registers run short it
+// serializes them (ptxas C7511), a warpgroup then holds its turn until its
+// products end, and free-running warpgroups are faster (PERF.md, Findings).
+// No branch lies between a wgmma and the wait that ends it, so the P·V of
+// one tile stays overlapped with the next tile's scores and softmax.
+//
+// NKS > 0 and KIND >= 0 fix nks and the P·V width (pv_tile's kKind) at
+// compile time. A walk that picks its products at run time between issue
+// points costs the consumers registers, and the compiler may then
+// serialize their products (ptxas C7511); flash and the prefill have a
+// kernel per served shape (a kernel holding several walks was slower).
+template <bool kGather, bool kTurns, int NKS = 0, int KIND = -1, class Next, class Masked,
+          class Valid>
+__device__ __forceinline__ void consume(int first, int end, Next next, Masked masked, Valid valid,
+                                        Ring& ring, const bf16* Qs, int nks, const bf16* Ks,
+                                        int kstage, const bf16* Vs, int vstage,
+                                        int kind, float scale_log2, float (&o)[kNT][4],
+                                        float (&m)[2], float (&l)[2]) {
+  if (first >= end) return;
+  const int wg = threadIdx.x >> 7;
+  const bool leader = (threadIdx.x & 127) == 0;
+  auto my_turn = [&] {
+    if (kTurns) bar_sync(kSchedBar + wg, kConsumers);
+  };
+  auto pass_turn = [&] {
+    if (kTurns) bar_arrive(kSchedBar + (wg ^ 1), kConsumers);
+  };
+  auto wait_full = [&](int it) { mbar_wait(ring.full_bar(it), (it / kStages) & 1); };
+  // this warpgroup's 64 rows of Q: a core matrix (8 rows x 16 bytes) 128
+  // bytes on along K, 2·nks of them along M
+  const uint64_t qd = wg_desc(Qs + il(64 * wg, 0, 2 * nks), 128, nks * 256);
+  if (wg == 1) pass_turn();
 
   float s[8][4], corr[2];
   uint32_t ph[4][4], pl[4][4];
   float(&sv)[32] = *reinterpret_cast<float(*)[32]>(&s[0][0]);
   float(&of)[kNT * 4] = *reinterpret_cast<float(*)[kNT * 4]>(&o[0][0]);
-  qk_issue(s, qf, nks, Ks + sj * kstage);
+  int j = first, it = 0;
+  int nxt = next(j);
+  wait_full(0);
+  my_turn();
+  qk_issue<kGather, NKS>(s, qd, nks, Ks);
+  pass_turn();
   wg_wait<0>();
   hold(sv);
   softmax_tile(s, m, l, corr, scale_log2, masked(j),
                [&](int r, int kk) { return valid(j, r, kk); });
   rescale_split(o, corr, s, ph, pl);
-  // Every tile but the last: P·V of the current tile runs while the next
-  // tile's scores go through the softmax. No branch lies between a wgmma
-  // and the wait that ends it, so the compiler keeps the two overlapped.
+  // Every tile but the last: P·V of tile it runs while tile it + 1's
+  // scores go through the softmax.
   while (nxt < end) {
-    // tile nxt has landed for every thread, and every warpgroup is done
-    // with the tile before the current one, whose stage takes tile nxt2
-    cp_async_wait<0>();
-    fence_async_smem();
-    __syncthreads();
-    const int nxt2 = next(nxt);
-    if (nxt2 < end) load(nxt2, sf);
-    cp_async_commit();
-    qk_issue(s, qf, nks, Ks + sn * kstage);
-    pv_issue(o, ph, pl, Vs + sj * vstage, ncv);
-    wg_wait<1>();                   // the scores; P·V may run on
+    const int st = it % kStages, sn = (it + 1) % kStages;
+    wait_full(it + 1);
+    my_turn();
+    qk_issue<kGather, NKS>(s, qd, nks, Ks + sn * kstage);
+    pv_issue<KIND>(o, ph, pl, Vs + st * vstage, kind);
+    pass_turn();
+    wg_wait<1>();                     // the scores; P·V may run on
     hold(sv);
     softmax_tile(s, m, l, corr, scale_log2, masked(nxt),
                  [&](int r, int kk) { return valid(nxt, r, kk); });
@@ -386,18 +636,20 @@ __device__ __forceinline__ void walk(int first, int end, Next next, Load load, M
     hold(of);
     hold(ph);
     hold(pl);
+    if (leader) mbar_arrive(ring.empty_bar(it));
     rescale_split(o, corr, s, ph, pl);
-    nxt = nxt2;
-    const int t = sj;
-    sj = sn;
-    sn = sf;
-    sf = t;
+    j = nxt;
+    nxt = next(nxt);
+    ++it;
   }
-  pv_issue(o, ph, pl, Vs + sj * vstage, ncv);  // the last tile
+  my_turn();
+  pv_issue<KIND>(o, ph, pl, Vs + it % kStages * vstage, kind);   // the last tile
+  if (wg == 0) pass_turn();
   wg_wait<0>();
   hold(of);
   hold(ph);
   hold(pl);
+  if (leader) mbar_arrive(ring.empty_bar(it));
 }
 
 // Finalize and store this warp's rows: row r of the thread (0: g, 1: g +
@@ -426,13 +678,13 @@ __device__ __forceinline__ void store_rows(bf16* ob, long long ost_s, const int 
   }
 }
 
-// Calls f(row, chunk) for this thread's share of a rows x n grid of
-// 16-byte chunks (element e = row·n + chunk for e = threadIdx.x, +
-// kThreads, ...), stepping the pair without a division per element.
+// Calls f(row, chunk) for thread t's share (of nt threads, n <= nt) of a
+// rows x n grid of 16-byte chunks (element e = row·n + chunk for e = t, t +
+// nt, ...), stepping the pair without a division per element.
 template <class F>
-__device__ __forceinline__ void for_chunks(int rows, int n, F f) {
-  const int dr = kThreads / n, dc = kThreads - dr * n;
-  int r = threadIdx.x / n, c = threadIdx.x - r * n;
+__device__ __forceinline__ void for_chunks(int rows, int n, int t, int nt, F f) {
+  const int dr = nt / n, dc = nt - dr * n;
+  int r = t / n, c = t - r * n;
   while (r < rows) {
     f(r, c);
     r += dr;
@@ -445,7 +697,8 @@ __device__ __forceinline__ void for_chunks(int rows, int n, F f) {
 }
 
 // Zero-fill the 16-byte chunk c of n rows of an interleaved tile nc
-// chunks wide: padding that cp.async never writes.
+// chunks wide: padding that no copy writes. Every thread of the block
+// takes part, before the block's barrier ahead of the split.
 __device__ __forceinline__ void zero_chunk(bf16* base, int nc, int c, int n) {
   for (int r = threadIdx.x; r < n; r += kThreads)
     *reinterpret_cast<uint4*>(base + il(r, c, nc)) = make_uint4(0, 0, 0, 0);
@@ -462,6 +715,75 @@ inline cudaError_t allow_smem(Kernel kernel, int bytes, int (&done)[16]) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && dev < 16) done[dev] = bytes;
   return err;
+}
+
+// A TMA tensor map of a bf16 tensor: rank dims (innermost first), byte
+// strides of dims 1.., boxes of `box`, zeros outside the tensor. The
+// encoder, cuTensorMapEncodeTiled, is fetched through the runtime's
+// entry-point query, so nothing links against libcuda.
+inline cudaError_t encode_map(CUtensorMap* map, const void* base, int rank,
+                              const cuuint64_t* dims, const cuuint64_t* strides,
+                              const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Byte strides of the key, head and batch axes of a (B, KV, S, dim) view
+// with element strides st; the stride of an axis of size 1 is never used
+// and is given the packed value. Needs a 16-byte aligned base and strides
+// that are whole 16-byte units under 2^40 bytes (the wrappers check).
+inline void byte_strides(cuuint64_t (&out)[3], int B, int KV, int S, int dim, Strides st) {
+  out[0] = S == 1 ? (cuuint64_t)dim * 2 : (cuuint64_t)st.s * 2;
+  out[1] = KV == 1 ? out[0] * S : (cuuint64_t)st.h * 2;
+  out[2] = B == 1 ? out[1] * KV : (cuuint64_t)st.b * 2;
+}
+
+// The 4D map of K or V tiles: boxes of 64 dims x 64 keys in the 128-byte
+// swizzle (zeros past S and past dim).
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int KV, int S, int dim,
+                            Strides st) {
+  cuuint64_t bs[3];
+  byte_strides(bs, B, KV, S, dim, st);
+  const cuuint64_t dims[4] = {(cuuint64_t)dim, (cuuint64_t)S, (cuuint64_t)KV, (cuuint64_t)B};
+  const cuuint32_t box[4] = {64, kKeys, 1, 1};
+  return encode_map(map, base, 4, dims, bs, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The 5D map of the K̂ gather: the view as (B, KV, S, dim / 8 chunks, 8),
+// the chunk axis 16 bytes on, boxes of 8 elements x 64 keys x `chunks`
+// chunks, which land chunk-major (zeros past S).
+inline cudaError_t make_chunk_map(CUtensorMap* map, const void* base, int B, int KV, int S,
+                                  int dim, Strides st, int chunks) {
+  cuuint64_t bs[3];
+  byte_strides(bs, B, KV, S, dim, st);
+  const cuuint64_t dims[5] = {8, (cuuint64_t)S, (cuuint64_t)dim / 8, (cuuint64_t)KV,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[4] = {bs[0], 16, bs[1], bs[2]};
+  const cuuint32_t box[5] = {8, kKeys, (cuuint32_t)chunks, 1, 1};
+  return encode_map(map, base, 5, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace attn_tile

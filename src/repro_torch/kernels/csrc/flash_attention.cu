@@ -17,19 +17,28 @@
 // Bound on the H100: operations at prompt lengths (S = 2048: ~S²/2 · H ·
 // 2D multiply-adds against ~S · KV · 2D bytes of K and V).
 //
-// bf16 route (every full-size drive), on the tensor cores: one block of
-// 256 threads (two warpgroups, 8 warps x 16 rows) per 128 query rows: the
-// same 64 rows of two heads of one KV group when the group size is even
-// (a 64-row causal bound), else 128 rows of one head; the machinery of
-// attn_tile.cuh (wgmma for Q·Kᵀ and P·V, P split into two bf16 terms, the
-// online softmax in registers); both warpgroups read each staged key tile.
-// Q is staged once and held in registers; K and V 64-key tiles go through
-// a three-stage ring of 16-byte cp.async copies, and P·V of one tile
-// overlaps the scores and softmax of the next (attn_tile.cuh's walk). The
-// block walks the tiles from its window's first tile to its causal bound;
-// blocks are issued heaviest (last rows) first. D is padded with zeros to
-// a multiple of 16 for Q·Kᵀ and of 64 for P·V. bf16 needs D % 8 == 0,
-// 16-byte aligned bases and outer strides % 8 == 0 (the wrapper checks).
+// bf16 route (every full-size drive), on the tensor cores, with the
+// warp-specialized engine of attn_tile.cuh: one block of 384 threads per
+// 128 query rows, the same 64 rows of two heads of one KV group when the
+// group size is even (a 64-row causal bound), else 128 rows of one head;
+// two consumer warpgroups of 64 rows and a producer warpgroup. K and V
+// 64-key tiles come by TMA from 4D tensor maps over the strided (B, KV, S,
+// D) views (boxes of 64 dims x 64 keys, 128-byte swizzle, zeros past S and
+// past D) into a four-stage mbarrier ring, so no consumer thread spends an
+// instruction on a copy and no block barrier runs per tile. What bounds
+// it on the card is the tensor-core time, ~1.5x the bound's operations
+// (P·V runs twice, for P's hi and lo halves) and the softmax between the
+// products: the consumers take turns on the tensor cores, so one
+// warpgroup's softmax runs beside the other's products, and P·V of one
+// tile beside the scores of the next. Q is staged once (cp.async) and
+// read by the products from shared memory. Head dim 128 (every served
+// model but Danube) takes a kernel with the depth and P·V width fixed at
+// compile time (PERF.md, Findings). The block walks the tiles from its
+// window's first tile to its causal bound; blocks are issued heaviest
+// (last rows) first.
+// D is padded with zeros to a multiple of 16 for Q·Kᵀ. bf16 needs D % 8 ==
+// 0, 16-byte aligned bases and outer strides that are whole 16-byte units
+// under 2^40 bytes (the wrapper checks).
 //
 // float32 route (the reduced configs of the tests, held at 1e-5, which
 // TF32 tensor cores cannot hold): the first design, scalar f32 FMAs on
@@ -47,10 +56,13 @@ using attn_tile::Strides;
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(attn_tile::kThreads) flash_bf16(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, int H, int KV, int S, int D, Strides qst, Strides kst, Strides vst,
-    Strides ost, float scale_log2, int causal, int window, int ncv, int hpb) {
+// NKS > 0 and KIND >= 0: the depth of Q·Kᵀ in k-steps and the P·V width
+// (pv_tile) fixed at compile time; else taken from D at run time.
+template <int NKS, int KIND>
+__global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const bf16* __restrict__ q, bf16* __restrict__ out, int H, int KV, int S, int D,
+    Strides qst, Strides ost, float scale_log2, int causal, int window, int hpb) {
   using namespace attn_tile;
   // A block holds hpb heads of one KV group (2 when the group size is
   // even) x rpb = kRows / hpb rows each: a 64-row causal granularity with
@@ -60,98 +72,107 @@ __global__ void __launch_bounds__(attn_tile::kThreads) flash_bf16(
   const int rpb = kRows / hpb, ng = H / hpb;
   const int h0 = blockIdx.x % ng * hpb, tile = gridDim.x / ng - 1 - blockIdx.x / ng;
   const int b = blockIdx.z, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
   const int kv = h0 / (H / KV);
   const int row0 = tile * rpb;
   const int rlast = min(row0 + rpb, S) - 1;
-  const int nd = D / 8;                       // 8-dim chunks
+  const int nd = D / 8;                         // 8-dim chunks
   const int nks = (nd + 1) / 2, nck = 2 * nks;  // 16-dim steps of Q·Kᵀ
+  const int nkb = (nks + 3) / 4, nvb = (D + 63) / 64;  // 64-dim boxes of K, V
 
-  // three stages of K tiles (kKeys x nck chunks) and V tiles (kKeys x
-  // ncv), Q staged once (kRows x nck)
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int kstage = kKeys * nck * 8, vstage = kKeys * ncv * 8;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + 3 * kstage;
-  bf16* Qs = Vs + 3 * vstage;
-  if (nd & 1) zero_chunk(Qs, nck, nd, kRows);
-  for (int st = 0; st < 3; ++st) {            // padding: zeros
-    if (nd & 1) zero_chunk(Ks + st * kstage, nck, nd, kKeys);
-    for (int c = nd; c < ncv; ++c) zero_chunk(Vs + st * vstage, ncv, c, kKeys);
-  }
-
-  const bf16* kb = k + b * kst.b + kv * kst.h;
-  const bf16* vb = v + b * vst.b + kv * vst.h;
-  auto load_tile = [&](int j, int stage) {
-    const int k0 = j * kKeys;
-    bf16* ks = Ks + stage * kstage;
-    bf16* vs = Vs + stage * vstage;
-    for_chunks(kKeys, nd, [&](int kk, int c) {
-      const int pos = k0 + kk;
-      const bool ok = pos < S;
-      cp_async16(ks + il(kk, c, nck), ok ? kb + pos * kst.s + c * 8 : kb, ok ? 16 : 0);
-      cp_async16(vs + il(kk, c, ncv), ok ? vb + pos * vst.s + c * 8 : vb, ok ? 16 : 0);
-    });
-  };
+  // kStages stages of K tiles (nkb boxes) and V tiles (nvb boxes), Q
+  // staged once (kRows x nck chunks, interleaved)
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Ks = align1k(smem_raw);
+  bf16* Vs = Ks + kStages * nkb * kBox;
+  bf16* Qs = Vs + kStages * nvb * kBox;
+  __shared__ Ring ring;
+  if (tid == 0) ring.init(1);
+  if (nd & 1) zero_chunk(Qs, nck, nd, kRows);   // padding: zeros
+  __syncthreads();
 
   // key tiles this block can see: [jbeg, jend)
   const int kend = causal ? rlast + 1 : S;
   const int jbeg = window > 0 ? max(0, row0 - window + 1) / kKeys : 0;
   const int jend = (kend + kKeys - 1) / kKeys;
+  auto next = [](int j) { return j + 1; };
 
-  // Q (block row r: head h0 + r / rpb, sequence row row0 + r % rpb),
-  // staged with the first key tile, then held in registers
-  const bf16* qb = q + b * qst.b + h0 * qst.h;
-  for_chunks(kRows, nd, [&](int r, int c) {
-    const int row = row0 + r % rpb;
-    const bool ok = row < S;
-    const bf16* src = qb + r / rpb * qst.h + row * qst.s + c * 8;
-    cp_async16(Qs + il(r, c, nck), ok ? src : qb, ok ? 16 : 0);
-  });
+  // the role of the thread's warpgroup, warp-uniform as the compiler sees
+  // it (a shuffle from lane 0): only then does it give each side its own
+  // register budget
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == kConsumers / 128) {
+    producer_regs();
+    if (tid == kConsumers)
+      produce(jbeg, jend, next, ring, [&](int j, int st, uint32_t bar) {
+        mbar_expect(bar, (nkb + nvb) * kBoxBytes);
+        for (int x = 0; x < nkb; ++x)
+          tma_load(Ks + (st * nkb + x) * kBox, &kmap, bar, 64 * x, j * kKeys, kv, b);
+        for (int x = 0; x < nvb; ++x)
+          tma_load(Vs + (st * nvb + x) * kBox, &vmap, bar, 64 * x, j * kKeys, kv, b);
+      });
+  } else {
+    consumer_regs();
+    // Q (block row r: head h0 + r / rpb, sequence row row0 + r % rpb),
+    // staged once by both consumer warpgroups
+    const bf16* qb = q + b * qst.b + h0 * qst.h;
+    for_chunks(kRows, nd, tid, kConsumers, [&](int r, int c) {
+      const int row = row0 + r % rpb;
+      const bool ok = row < S;
+      const bf16* src = qb + r / rpb * qst.h + row * qst.s + c * 8;
+      cp_async16(Qs + il(r, c, nck), ok ? src : qb, ok ? 16 : 0);
+    });
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_async_smem();                  // Q is read by wgmma
+    bar_sync(kConsumerBar, kConsumers);
 
-  const int g = lane >> 2;
-  const int h = h0 + warp * 16 / rpb;          // this warp's head and rows
-  const int warp_first = row0 + warp * 16 % rpb;
-  const int rows[2] = {warp_first + g, warp_first + g + 8};
-  const int warp_last = min(warp_first + 15, rlast);
-  // this warp's rows see keys past S or the diagonal, or before some row's
-  // window (a tile wholly masked for a row adds exactly nothing)
-  auto masked = [&](int j) {
-    const int k0 = j * kKeys;
-    return k0 + kKeys > S || (causal && k0 + kKeys - 1 > warp_first) ||
-           (window > 0 && k0 <= warp_last - window);
-  };
-  auto valid = [&](int j, int r, int kk) {
-    const int kp = j * kKeys + kk;
-    return kp < S && (!causal || rows[r] >= kp) && (window <= 0 || kp > rows[r] - window);
-  };
+    const int warp = tid >> 5, g = (tid & 31) >> 2;
+    const int h = h0 + warp * 16 / rpb;          // this warp's head and rows
+    const int warp_first = row0 + warp * 16 % rpb;
+    const int rows[2] = {warp_first + g, warp_first + g + 8};
+    const int warp_last = min(warp_first + 15, rlast);
+    // this warp's rows see keys past S or the diagonal, or before some
+    // row's window (a tile wholly masked for a row adds exactly nothing)
+    auto masked = [&](int j) {
+      const int k0 = j * kKeys;
+      return k0 + kKeys > S || (causal && k0 + kKeys - 1 > warp_first) ||
+             (window > 0 && k0 <= warp_last - window);
+    };
+    auto valid = [&](int j, int r, int kk) {
+      const int kp = j * kKeys + kk;
+      return kp < S && (!causal || rows[r] >= kp) && (window <= 0 || kp > rows[r] - window);
+    };
 
-  float o[kNT][4];
+    float o[kNT][4];
 #pragma unroll
-  for (int n = 0; n < kNT; ++n)
+    for (int n = 0; n < kNT; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  walk(jbeg, jend, [](int j) { return j + 1; }, load_tile, masked, valid, Qs, nks, Ks, kstage,
-       Vs, vstage, ncv, scale_log2, o, m, l);
-  store_rows(out + b * ost.b + h * ost.h, ost.s, rows, S, nd, o, l);
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    consume<false, true, NKS, KIND>(jbeg, jend, next, masked, valid, ring, Qs, nks, Ks,
+                                    nkb * kBox, Vs, nvb * kBox, pv_kind(D), scale_log2, o, m, l);
+    store_rows(out + b * ost.b + h * ost.h, ost.s, rows, S, nd, o, l);
+  }
 }
 
+template <int NKS, int KIND>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
                 int S, int D, Strides qs, Strides ks, Strides vs, Strides os, float scale,
                 int causal, int window, cudaStream_t st) {
   using namespace attn_tile;
   static int done[16] = {0};
   if (D % 8 != 0 || D > kMaxDepth) return (int)cudaErrorInvalidValue;
-  const int nck = (D / 8 + 1) / 2 * 2, ncv = (D + 63) / 64 * 8;
-  const int bytes = (3 * kKeys * (nck + ncv) + kRows * nck) * 8 * (int)sizeof(bf16);
-  cudaError_t err = allow_smem(flash_bf16, bytes, done);
+  const int nks = (D / 8 + 1) / 2, nkb = (nks + 3) / 4, nvb = (D + 63) / 64;
+  const int bytes = 1024 + (kStages * (nkb + nvb) * kBox + kRows * 2 * nks * 8) * 2;
+  CUtensorMap kmap, vmap;
+  cudaError_t err = make_map(&kmap, k, B, KV, S, D, ks);
+  if (err == cudaSuccess) err = make_map(&vmap, v, B, KV, S, D, vs);
+  if (err == cudaSuccess) err = allow_smem(flash_bf16<NKS, KIND>, bytes, done);
   if (err != cudaSuccess) return (int)err;
   const int hpb = (H / KV) % 2 == 0 ? 2 : 1, rpb = kRows / hpb;
   const dim3 grid((S + rpb - 1) / rpb * (H / hpb), 1, B);
-  flash_bf16<<<grid, kThreads, bytes, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                            (bf16*)out, H, KV, S, D, qs, ks, vs, os,
-                                            scale * kLog2e, causal, window, ncv, hpb);
+  flash_bf16<NKS, KIND><<<grid, kThreads, bytes, st>>>(kmap, vmap, (const bf16*)q, (bf16*)out, H,
+                                                       KV, S, D, qs, os, scale * kLog2e, causal,
+                                                       window, hpb);
   return (int)cudaGetLastError();
 }
 
@@ -350,5 +371,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return f32::launch(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window, st);
-  return launch_bf16(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window, st);
+  // head_dim 128 (every served model but Danube) takes a kernel with its
+  // depth and width fixed at compile time
+  if (D == 128)
+    return launch_bf16<8, 2>(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window,
+                             st);
+  return launch_bf16<0, -1>(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window,
+                            st);
 }

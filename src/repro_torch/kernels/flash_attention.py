@@ -11,8 +11,9 @@ products against S·2D bytes of K/V per KV head). The kernel walks only the
 key tiles inside the causal bound and the window, and reads q/k/v through
 strides so the model's (B, S, KV, G, D) layout needs no transpose. bf16
 runs on the tensor cores, float32 on scalar FMAs; see the source's header
-for the tiling. The bf16 kernel copies 16-byte pieces: it needs D % 8 ==
-0, 16-byte aligned bases and outer strides (``ValueError`` otherwise).
+for the tiling. The bf16 kernel copies K and V by TMA tensor maps and Q
+in 16-byte pieces: it needs D % 8 == 0, 16-byte aligned bases and outer
+strides, under 2**40 bytes (``ValueError`` otherwise).
 
 Dispatch is by device: CPU tensors run :func:`flash_attention_plain`, CUDA
 tensors launch the kernel or raise. Launches count in
@@ -65,6 +66,7 @@ def _launch(q, k, v, causal, window):
             raise ValueError(f"flash_attention bf16 kernel needs D % 8 == 0, "
                              f"got {d}")
         _build.check_cp_async("flash_attention", q, k, v)
+        _build.check_tma("flash_attention", k, v)
     out = torch.empty((b, h, s, d), dtype=v.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])

@@ -1,6 +1,8 @@
 """The port's kernel build and launch guards that need no card: the
-library tag covers the shared headers, and the bf16 kernels' 16-byte copy
-guard accepts aligned views and refuses misaligned ones (ValueError)."""
+library tag covers the shared headers, the bf16 kernels' 16-byte copy
+guard accepts aligned views and refuses misaligned ones (ValueError), and
+their TMA tensor-map guard refuses strides of 2**40 bytes or more and axes
+of 2**32 elements or more (ValueError)."""
 import pytest
 import torch
 
@@ -50,3 +52,39 @@ def test_cp_async_guard_accepts_aligned_views(make):
 def test_cp_async_guard_refuses_misaligned_views(make):
     with pytest.raises(ValueError, match="16-byte aligned"):
         _build.check_cp_async("k", make())
+
+
+class _View:
+    """A tensor's shape, strides and element size, without its storage
+    (the sizes the TMA guard refuses do not fit in memory)."""
+
+    def __init__(self, shape, stride, size=2):
+        self.shape, self._stride, self._size = shape, stride, size
+
+    def stride(self):
+        return self._stride
+
+    def element_size(self):
+        return self._size
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _aligned(2, 4, 16, 64),                              # contiguous
+    lambda: _aligned(2, 16, 4, 64).transpose(1, 2),              # (B,S,H,D) view
+    # a stride of 2**40 bytes on an axis of size 1 is never used
+    lambda: _View((1, 8, 4096, 128), (2 ** 39, 128, 1024, 1)),
+    # the largest stride it takes: 2**40 - 16 bytes
+    lambda: _View((2, 8, 4096, 128), (2 ** 39 - 8, 128, 1024, 1)),
+])
+def test_tma_guard_accepts(make):
+    _build.check_tma("k", make())
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _View((2, 8, 4096, 128), (2 ** 39, 128, 1024, 1)),  # 2**40 bytes
+    lambda: _View((1, 8, 4096, 128), (2 ** 42, 2 ** 38, 1024, 1), size=4),
+    lambda: _View((1, 1, 2 ** 32, 8), (2 ** 35, 2 ** 35, 8, 1)),  # 2**32 keys
+])
+def test_tma_guard_refuses(make):
+    with pytest.raises(ValueError, match="2\\*\\*40 bytes"):
+        _build.check_tma("k", make())

@@ -264,9 +264,11 @@ def test_flash_kernel_matches_plain(cuda, dtype, h, kv, d, s, causal,
 
 
 def test_prefill_chunk_rows_bitwise_equal_monolithic(cuda):
-    """bf16: a chunk at a 64-aligned q_offset (q_blk 128) has the
-    monolithic call's 64-row blocks, selections and key walk, so its rows
-    are bitwise the monolithic rows."""
+    """bf16: a chunk at a q_offset that is a multiple of the kernel's
+    128-row blocks (here 384, with q_blk 128) has the monolithic call's
+    blocks and selections, and each row's sum runs over the same key tiles
+    in the same order whichever block or consumer warpgroup holds it, so
+    its rows are bitwise the monolithic rows."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     b, h, kv, d, s, off, q_blk = 1, 16, 8, 128, 640, 384, 128
     bf = torch.bfloat16
@@ -281,6 +283,124 @@ def test_prefill_chunk_rows_bitwise_equal_monolithic(cuda):
         q[:, :, off:], k, v, full_idx[:, :, off // q_blk:].contiguous(),
         lengths, q_offset=off, **kw)
     assert torch.equal(chunk, mono[:, :, off:])
+
+
+# (S, G): S 4096 wraps the bf16 kernels' four-stage ring many times, 300
+# and 1000 are ragged (a partial last key tile and row block); group sizes
+# 1, 2 and 4 (flash: one head per block at G 1, two otherwise)
+PIPELINE_CASES = [(s, g) for s in (300, 1000, 4096) for g in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("s,g", PIPELINE_CASES)
+def test_flash_pipeline_shapes_match_plain(cuda, s, g):
+    """bf16 flash, B=3, causal, two KV heads of G query heads, against the
+    plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(s + g)
+    b, kv, d, bf = 3, 2, 128, torch.bfloat16
+    q = _rand(gen, b, s, kv * g, d, dtype=bf).transpose(1, 2)
+    k = _rand(gen, b, kv, s, d, dtype=bf)
+    v = _rand(gen, b, s, kv, d, dtype=bf).transpose(1, 2)
+    before = LAUNCHES.copy()
+    out = fk.flash_attention(q, k, v, causal=True)
+    ref = fk.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES - before == {"flash_attention": 1}
+    assert _within_tol(out, ref, bf)
+
+
+@pytest.mark.parametrize("s,g", PIPELINE_CASES)
+def test_prefill_pipeline_shapes_match_plain(cuda, s, g):
+    """bf16 prefill, B=3 with per-lane lengths (the whole row, a ragged
+    cut, a third), two KV heads of G query heads, against the plain
+    version on each lane's valid rows."""
+    gen = torch.Generator(device="cuda").manual_seed(s + 10 * g)
+    b, kv, d, bf = 3, 2, 128, torch.bfloat16
+    q = _rand(gen, b, s, kv * g, d, dtype=bf).transpose(1, 2)
+    k = _rand(gen, b, kv, s, d, dtype=bf)
+    v = _rand(gen, b, kv, s, d, dtype=bf)
+    lengths = torch.tensor([s, s - 37, s // 3], dtype=torch.int32,
+                           device=cuda)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths, 0.75, 8, 128)
+    kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5)
+    before = LAUNCHES.copy()
+    out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+    ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES - before == {"aqua_prefill": 1}
+    valid = (torch.arange(s, device=cuda)[None] < lengths[:, None])[
+        :, None, :, None]
+    assert _within_tol(out, ref, bf, valid)
+
+
+@pytest.mark.parametrize("part", [False, True])
+@pytest.mark.parametrize("window", [64, 1000])
+@pytest.mark.parametrize("d", [80, 128])
+def test_prefill_dv80_window_matches_plain(cuda, part, window, d):
+    """bf16 prefill with Dv 80 (P·V as a 64-wide and a 16-wide product)
+    under a window, K̂ 80 or 128 wide, with and without participating key
+    chunks, at a q_offset."""
+    gen = torch.Generator(device="cuda").manual_seed(window + d + part)
+    b, h, kv, s, dv, off, blk, bf = 2, 8, 2, 640, 80, 128, 64, torch.bfloat16
+    t = s - off
+    q = _rand(gen, b, h, t, d, dtype=bf)
+    k = _rand(gen, b, kv, s, d, dtype=bf)
+    v = _rand(gen, b, kv, s, dv, dtype=bf)
+    lengths = torch.tensor([s, s - 50], dtype=torch.int32, device=cuda)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths - off, 0.75, 8, blk)
+    table = None
+    if part:
+        table = selection.chunk_participating_tiles(
+            torch.rand(b, s // blk, generator=gen, device=cuda),
+            nqc=block_idx.shape[2], q_blk=blk, k_blk=blk, kept_tiles=4,
+            pin_tiles=1, q_offset=off)
+    kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5,
+              q_offset=off, kc_part=table, k_blk=blk, window=window)
+    out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+    ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (b, h, t, dv)
+    valid = ((off + torch.arange(t, device=cuda))[None]
+             < lengths[:, None])[:, None, :, None]
+    assert _within_tol(out, ref, bf, valid)
+
+
+def test_flash_and_prefill_bitwise_repeatable(cuda):
+    """bf16: two calls on the same inputs give the same bits, whatever the
+    timing of the ring and of the consumers' turns: flash (causal and
+    windowed) and the prefill (plain, q_offset, participating chunks,
+    window)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, h, kv, d, s, blk, bf = 2, 16, 8, 128, 1000, 128, torch.bfloat16
+    q = _rand(gen, b, h, s, d, dtype=bf)
+    k = _rand(gen, b, kv, s, d, dtype=bf)
+    v = _rand(gen, b, kv, s, d, dtype=bf)
+    lengths = torch.tensor([s, s - 300], dtype=torch.int32, device=cuda)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths, 0.75, 8, blk)
+    nkc = -(-s // blk)
+    table = selection.chunk_participating_tiles(
+        torch.rand(b, nkc, generator=gen, device=cuda),
+        nqc=block_idx.shape[2], q_blk=blk, k_blk=blk, kept_tiles=3,
+        pin_tiles=1)
+    kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5)
+    off = 512
+    calls = {
+        "flash": lambda: fk.flash_attention(q, k, v, causal=True),
+        "flash_window": lambda: fk.flash_attention(q, k, v, causal=True,
+                                                   window=300),
+        "prefill": lambda: pk.aqua_prefill_attention(
+            q, k, v, block_idx, lengths, **kw),
+        "prefill_q_offset": lambda: pk.aqua_prefill_attention(
+            q[:, :, off:], k, v, block_idx[:, :, off // blk:].contiguous(),
+            lengths, q_offset=off, **kw),
+        "prefill_part": lambda: pk.aqua_prefill_attention(
+            q, k, v, block_idx, lengths, kc_part=table, k_blk=blk, **kw),
+        "prefill_window": lambda: pk.aqua_prefill_attention(
+            q, k, v, block_idx, lengths, window=200, **kw),
+    }
+    for name, call in calls.items():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), name
 
 
 def test_bf16_kernels_reject_misaligned_views(cuda):

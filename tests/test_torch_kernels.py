@@ -191,7 +191,7 @@ def test_port_sources_never_import_jax_or_repro():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
                      r"(?!_torch)|from\s+repro(\.|\s)(?!_torch))", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "kernel_race.py"]
     assert len(files) > 15
     for f in files:
         hits = pat.findall(f.read_text())
