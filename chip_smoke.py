@@ -12,8 +12,9 @@ Phases, each of which raises (non-zero exit) on failure:
    and spill lines (and any wgmma serialization warning), and require
    tensor-core instructions (HMMA or HGMMA) in the SASS of the bf16
    prefill, flash and decode kernels (``cuobjdump -sass``), the decode's
-   group route in its full-precision, int8 and participating-page
-   instantiations, and the warp-specialized design's register
+   group route in its full-precision, int8, participating-page and
+   int8 participating-page instantiations, and the warp-specialized
+   design's register
    reallocation (USETMAXREG) and TMA tensor copies (UTMALDG) in the bf16
    prefill and flash kernels.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
@@ -23,8 +24,8 @@ Phases, each of which raises (non-zero exit) on failure:
    drives' contexts, lengths 128-1056 in a 2048-token table; the paged
    variants with
    int8 pools and per-(page, head) scales, with the participating pages of
-   hierarchical AQUA at page_keep_ratio 0.25, and with both; the int8 and
-   the participating variant also at the drives' contexts); prefill and
+   hierarchical AQUA at page_keep_ratio 0.25, and with both; each of the
+   three also at the drives' contexts); prefill and
    flash attention B=1, S=2048, causal, and at the drives' longest prompt
    (B=1, S=1024, ``"form": "served"``: one wave of blocks, where
    per-block latency decides); flash at head_dim 80 (Danube's geometry)
@@ -867,7 +868,9 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
                             nsel=nsel)
     read = None
     if route == "group" and quant:
-        # what the int8 group route reads: whole K̂ rows, not the union
+        # what the int8 group route reads (over every page or only the
+        # participating ones): whole K̂ rows of the attended positions, not
+        # the union
         read = nbytes + float((rows[:, None] * (d - union * BLOCK_DIMS)).sum())
     times = timings(kernel, plain, library)
     times["device_us"] = device_us(kernel)
@@ -1280,8 +1283,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, text in build_logs.items():
         for line in text.splitlines():
-            if any(w in line for w in ("registers", "spill", "wgmma",
-                                       "setmaxnreg")):
+            if any(w in line for w in ("Function properties", "registers",
+                                       "spill", "wgmma", "setmaxnreg")):
                 log(f"[ptxas {name}] {line.strip()}")
     log(f"build: {build_s:.1f} s")
     log_time("build")
@@ -1299,9 +1302,10 @@ def main() -> int:
         tagged = [c for fn, c in counts.items() if fn_tag in fn]
         assert tagged and all(c["HMMA"] + c["HGMMA"] > 0 and all(
             c[op] > 0 for op in design) for c in tagged), (name, counts)
-    # the decode's group route in its full-precision, int8 (kQuant) and
-    # participating-page (kPart) instantiations, each at both widths:
-    # decode_bf16<kKS, kMT, kQuant, kPart>, mangled ...ILi8ELi8ELb1ELb0E...
+    # the decode's group route in its full-precision, int8 (kQuant),
+    # participating-page (kPart) and int8 participating-page instantiations,
+    # each at both widths: decode_bf16<kKS, kMT, kQuant, kPart>, mangled
+    # ...ILi8ELi8ELb1ELb0E...
     counts = sass_counts(str(_build._lib_path("aqua_decode")))
     variants = {}
     for fn, c in counts.items():
@@ -1309,7 +1313,7 @@ def main() -> int:
         if m:
             variants[tuple(int(x) for x in m.groups())] = c["HMMA"] + c["HGMMA"]
     want = {(ks, ks, qt, pt) for ks in (8, 16)
-            for qt, pt in ((0, 0), (1, 0), (0, 1))}
+            for qt, pt in ((0, 0), (1, 0), (0, 1), (1, 1))}
     assert set(variants) == want and all(variants.values()), variants
     log({"sass_decode_group_variants": {
         f"kKS{k[0]}_quant{k[2]}_part{k[3]}": n for k, n in variants.items()}})
@@ -1326,7 +1330,7 @@ def main() -> int:
         for quant, part in ((True, False), (False, True), (True, True)):
             phases.append(paged_variant_phase(geom, h, kvh, quant, part, gen))
         # the group route's variants at the drives' contexts
-        for quant, part in ((True, False), (False, True)):
+        for quant, part in ((True, False), (False, True), (True, True)):
             phases.append(paged_variant_phase(
                 geom, h, kvh, quant, part, gen, s=2048,
                 len_range=(128, 1056), form="served"))

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Race the bf16 prefill and flash kernels of several checkouts on one GPU.
+"""Race the bf16 prefill, flash and paged decode kernels of several
+checkouts on one GPU.
 
     python3 kernel_race.py OUT.jsonl PARENT_DIR . . PARENT_DIR
 
 Each directory is a checkout of the repo whose ``src/`` is the tree under
 test; ``git archive <commit>`` unpacked into a gitignored directory gives
 one. The measurements are this checkout's ``chip_smoke.py`` phases
-(``prefill_phase``, ``flash_phase``), so every tree runs the same code
-against its own kernels. Each directory runs in a process of its own, in
+(``prefill_phase``, ``flash_phase``, ``paged_variant_phase``), so every
+tree runs the same code against its own kernels. Each directory runs in a process of its own, in
 the order given (parent, change, change, parent puts drift on both sides).
 Per tree:
 
@@ -16,6 +17,11 @@ Per tree:
   version at chip_smoke's limits;
 - the shapes of the generic kernels (``"form": "generic"``): flash at
   head_dim 80 (H2O-Danube-1.8B), the prefill at k_ratio 0.5;
+- the paged decode over int8 pools, over the participating pages of
+  hierarchical AQUA, and over both, at both geometries: B=8, S=4096 and
+  the served form (lengths 128-1056 in a 2048-token table), each against
+  its plain version at chip_smoke's limits, with the route the tree's
+  ``decode_route`` chose;
 - the host microseconds of one wrapper call at a tiny shape (S=128, where
   the device work is a few microseconds, so the host bounds a loop of
   calls; the five repeats of 2000 calls, sorted), and of one
@@ -37,9 +43,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KEEP = ("name", "geometry", "form", "shape", "ms", "loop_ms", "library_ms",
-        "plain_ms", "max_abs_err", "tol_ratio", "ok", "bound_ms",
-        "device_us")
+KEEP = ("name", "geometry", "form", "route", "shape", "ms", "loop_ms",
+        "library_ms", "plain_ms", "max_abs_err", "tol_ratio",
+        "fault_tol_ratios", "ok", "bound_ms", "read_bytes", "device_us")
 
 
 def host_us(gen) -> dict:
@@ -127,6 +133,14 @@ def one_tree(tree: str, out_path: str) -> int:
                        g, h, kv, gen, k_ratio=0.5, form="generic")]
     phases.append(lambda: cs.flash_phase("h2o-danube-1.8b", 32, 8, gen, d=80,
                                          form="generic"))
+    for geom, h, kvh in (("qwen3-0.6b", 16, 8), ("llama3.1-8b", 32, 8)):
+        for quant, part in ((True, False), (False, True), (True, True)):
+            phases += [lambda g=geom, h=h, kv=kvh, qt=quant, pt=part:
+                       cs.paged_variant_phase(g, h, kv, qt, pt, gen),
+                       lambda g=geom, h=h, kv=kvh, qt=quant, pt=part:
+                       cs.paged_variant_phase(g, h, kv, qt, pt, gen, s=2048,
+                                              len_range=(128, 1056),
+                                              form="served")]
     ok = True
     with open(out_path, "a") as out:
         for run in phases:
@@ -161,6 +175,7 @@ def main() -> int:
         key = (r["name"], r["geometry"], r["form"],
                (r["shape"] or {}).get("k_ratio"))
         table[key].append(f"{r['tree']} {r['ms']:.4f}"
+                          f"{' ' + r['route'] if r.get('route') else ''}"
                           f"{'' if r['ok'] else ' FAILED'}")
     for key, cells in table.items():
         print(key, " | ".join(cells))

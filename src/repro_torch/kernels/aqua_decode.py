@@ -18,19 +18,19 @@ sequence so that a small batch still fills the card.
 
 Two routes (see the source's header), chosen by :func:`decode_route` from
 dtype, flags and shapes alone. The group route takes bf16 q̂ over a
-contiguous cache, a page pool, an int8 pool or the participating pages
-(``_kernel``, ``_paged_kernel``, ``_paged_quant_kernel``,
-``_paged_part_kernel``): one block per (split, KV head, lane) for all G
-heads of the group, so each K̂ piece and V row is read once per group; TMA
-bulk copies bring the rows into a ring per warp (bf16: the union of the
-group's selected 8-dim chunks and the V rows; int8: whole rows, converted
-exactly to bf16 in registers), and the scores and P·V run on the tensor
-cores (``mma.sync``). It needs D and Dv multiples of 8 (int8: of 16), D <=
-256, and 16-byte aligned views (``ValueError`` otherwise). float32 q̂
-(the tests), bf16 with int8 and participating pages both
-(``_paged_part_quant_kernel``), and the int8 and participating widths the
-group route does not take run the per-head route of the first port (one
-block per query head, scalar loads). Both split the sequence into
+contiguous cache, a page pool, an int8 pool, the participating pages or
+the participating pages of an int8 pool (``_kernel``, ``_paged_kernel``,
+``_paged_quant_kernel``, ``_paged_part_kernel``,
+``_paged_part_quant_kernel``): one block per (split, KV head, lane) for
+all G heads of the group, so each K̂ piece and V row is read once per
+group; TMA bulk copies bring the rows into a ring per warp (bf16: the
+union of the group's selected 8-dim chunks and the V rows; int8: whole
+rows, converted exactly to bf16 in registers), and the scores and P·V run
+on the tensor cores (``mma.sync``). It needs D and Dv multiples of 8
+(int8: of 16), D <= 256, and 16-byte aligned views (``ValueError``
+otherwise). float32 q̂ (the tests) and the int8 and participating widths
+the group route does not take run the per-head route of the first port
+(one block per query head, scalar loads). Both split the sequence into
 256-position blocks (``aqua_decode_split``), which sizes the float32
 scratch.
 
@@ -78,10 +78,11 @@ def decode_route(dtype: torch.dtype, *, quant: bool, part: bool, d: int,
     if nsel > 256 or dv > 256:
         raise ValueError(f"aqua_decode kernel takes at most 256 selected dims "
                          f"and Dv <= 256, got {nsel} and {dv}")
-    if dtype == torch.float32 or (quant and part):
+    if dtype == torch.float32:
         return "per_head"
     # bulk copies move whole 16-byte units: bf16 rows of a multiple of 8
-    # dims, int8 rows of a multiple of 16
+    # dims, int8 rows of a multiple of 16 (with or without participating
+    # pages)
     unit = 16 if quant else 8
     if d % unit == 0 and dv % unit == 0 and d <= 256:
         return "group"

@@ -30,8 +30,9 @@
 // host sync and allocate nothing, so a CUDA graph can capture them.
 //
 // Group route (namespace gqa; bf16 q̂: _kernel, _paged_kernel, and as
-// compile-time variants _paged_quant_kernel (kQuant) and _paged_part_kernel
-// (kPart)): one block of 4 warps per (split, KV head, lane) holds all G
+// compile-time variants _paged_quant_kernel (kQuant), _paged_part_kernel
+// (kPart) and _paged_part_quant_kernel (both)): one block of 4 warps per
+// (split, KV head, lane) holds all G
 // query heads of the group (up to 8; a larger group takes several blocks),
 // so each K̂ piece and V row leaves device memory once per group, not G
 // times. Each warp walks its own 16-position tiles of the split (tile j of
@@ -93,9 +94,8 @@
 // block's one barrier). kQuant and kPart are independent template flags.
 //
 // Per-head route (float32 q̂, the tests' form, kept off the tensor cores as
-// in the prefill; bf16 q̂ with int8 and participating pages both,
-// _paged_part_quant_kernel; and the int8 and participating widths the
-// group route does not take): one block of 128 threads per (split of 256
+// in the prefill; and the int8 and participating widths the group route
+// does not take): one block of 128 threads per (split of 256
 // positions, h, b); each thread scores one position of a 128-position tile
 // from the selected blocks only (scalar loads), the block reduces the
 // tile's max and sum, and each thread accumulates one or two output dims
@@ -513,8 +513,9 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
   // Reads that depend on nothing go out together: the length, head g's
   // selected blocks (lane t: entries t, t + 4, ...), and the page of this
   // lane's row of the warp's first tiles (lane 16 s + r: row r of tile s),
-  // through its participating page (kPart: also the page of the row 128
-  // positions on, for the split's validity test).
+  // through its participating page (kPart: also the participating page of
+  // the row 128 positions on, for the split's validity test and the
+  // stage's next tile).
   const int raw_len = a.lengths[b];
   const int my_tile = warp + (lane >> 4) * kWarps;
   const int my_pos = begin + my_tile * kRows + (lane & 15);
@@ -671,6 +672,14 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
   }
   if (my_issue)
     issue(lane >> 4, row_of(my_pos, my_page), lane & 15, my_valid, my_bytes);
+  // kPart, lanes < 16: the participating page of this lane's row of the tile
+  // each stage takes next (tiles warp + 8 and warp + 12: my_lp2 of lanes r
+  // and 16 + r)
+  int nlp0 = 0, nlp1 = 0;
+  if constexpr (kPart) {
+    nlp0 = my_lp2;
+    nlp1 = __shfl_sync(0xffffffffu, my_lp2, (lane & 15) + kRows);
+  }
 
   // q̂ of head g as the B operand of S = K̂·q̂ᵀ, zero where head g did not
   // select the dims. k-step ks, bf16: staged dims 16 ks + 2t, 2t + 1 (b0) and
@@ -716,23 +725,27 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
   for (int it = 0, jt = warp; jt < ntile; ++it, jt += kWarps) {
     const int st = it % kStages;
     // the tile that reuses this stage: this lane's row of it (lanes < 16),
-    // its page looked up before the wait (kPart: its participating page,
-    // then the page after the wait)
+    // its page looked up before the wait. kPart: its participating page
+    // came with the stage's previous tile, and the participating page of
+    // the stage's tile after it goes out now, so no lookup of the walk's
+    // chain (part, table, then int8 scales) waits behind the wait.
     const int jn = jt + kStages * kWarps;
     const int npos = begin + jn * kRows + (lane & 15);
     const bool nrow = jn < ntile && lane < kRows;
-    int npage = b, nlp = 0;
+    int npage = b;
     bool nvalid = nrow && npos < end;
     if constexpr (kPart) {
-      if (nvalid) nlp = a.part[(int64_t)b * a.kp + npos / a.ps];
+      const int nlp = st ? nlp1 : nlp0;
+      nvalid = nvalid && part_valid(npos, nlp, end);
+      if (nvalid) npage = max(a.table[(int64_t)b * a.np_lane + nlp], 0);
+      const int fpos = npos + kStages * kWarps * kRows;
+      const int flp = lane < kRows && fpos < end ? a.part[(int64_t)b * a.kp + fpos / a.ps] : 0;
+      nlp0 = st ? nlp0 : flp;
+      nlp1 = st ? flp : nlp1;
     } else if (nvalid && a.table && (in_page ? lane == 0 : true)) {
       npage = max(a.table[(int64_t)b * a.np_lane + npos / a.ps], 0);
     }
     mbar_wait(smem_u32(&bar_s[warp][st]), (it / kStages) & 1);
-    if constexpr (kPart) {
-      nvalid = nvalid && part_valid(npos, nlp, end);
-      if (nvalid) npage = max(a.table[(int64_t)b * a.np_lane + nlp], 0);
-    }
     __syncwarp();
     // this tile's valid rows (kPart), and int8 the scales of rows g and g + 8
     // (held by the lanes that issued them: 16 st + r for the first tiles)
@@ -990,11 +1003,11 @@ extern "C" int aqua_decode_split() { return kSplit; }
 // quantized). page_table may be null (contiguous cache: P = B, ps = S).
 // k_scale / v_scale non-null: k and v are int8 with (P, sh) scales, out is
 // float32. part_idx non-null: (B, kp) participating logical pages.
-// route: 1 = the group route (bf16 q̂, at most one of int8 and
+// route: 1 = the group route (bf16 q̂, with or without int8 and
 // participating pages; D % 8 == 0, D <= 256, Dv % 8 == 0, 16-byte aligned
-// bases, and for int8 D and Dv multiples of 16), 0 = the
-// per-head route (float32 q̂, bf16 with int8 and participating pages both,
-// and the int8 and participating widths the group route does not take).
+// bases, and for int8 D and Dv multiples of 16), 0 = the per-head route
+// (float32 q̂, and the int8 and participating widths the group route does
+// not take).
 // The wrapper chooses (kernels/aqua_decode.py::decode_route); shapes the
 // chosen route does not take return cudaErrorInvalidValue.
 // Returns the cudaError_t of the launches.
@@ -1015,7 +1028,7 @@ extern "C" int aqua_decode_launch(const void* q, const void* k, const void* v,
   const int* ln = (const int*)lengths;
   float* sc = (float*)scratch;
   if (route == 1) {
-    if (dtype != 1 || (k_scale && part_idx)) return (int)cudaErrorInvalidValue;
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
     if (D % 8 != 0 || D > 256 || Dv % 8 != 0) return (int)cudaErrorInvalidValue;
     if (k_scale && (D % 16 != 0 || Dv % 16 != 0)) return (int)cudaErrorInvalidValue;
     const int G = H / KV;
@@ -1024,6 +1037,7 @@ extern "C" int aqua_decode_launch(const void* q, const void* k, const void* v,
                       ln, sc, H, KV, D, Dv, nb_sel, bd, ps, np_lane, kp, sh,
                       sh > 1 ? 1 : 0, (G + gqa::kHeads - 1) / gqa::kHeads, nsplit,
                       (D / 8 + 1) / 2 * 2, scale * attn_tile::kLog2e};
+    if (k_scale && part_idx) return gqa::launch_variant<true, true>(a, B, out, st);
     if (k_scale) return gqa::launch_variant<true, false>(a, B, out, st);
     if (part_idx) return gqa::launch_variant<false, true>(a, B, out, st);
     return gqa::launch_variant<false, false>(a, B, out, st);

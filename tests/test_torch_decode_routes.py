@@ -20,7 +20,7 @@ BF, F32 = torch.bfloat16, torch.float32
     (BF, False, False, 128, 128, "group"),
     (BF, True, False, 128, 128, "group"),
     (BF, False, True, 128, 128, "group"),
-    (BF, True, True, 128, 128, "per_head"),
+    (BF, True, True, 128, 128, "group"),
     (F32, False, False, 128, 128, "per_head"),
     (F32, True, False, 128, 128, "per_head"),
     (F32, False, True, 128, 128, "per_head"),
@@ -30,6 +30,8 @@ BF, F32 = torch.bfloat16, torch.float32
     (BF, True, False, 32, 32, "group"),
     (BF, False, True, 72, 72, "group"),
     (BF, False, False, 72, 72, "group"),
+    (BF, True, True, 80, 80, "group"),
+    (BF, True, True, 256, 256, "group"),
 ])
 def test_route_by_dtype_flags_and_shape(dtype, quant, part, d, dv, route):
     assert decode_route(dtype, quant=quant, part=part, d=d, dv=dv,
@@ -37,8 +39,8 @@ def test_route_by_dtype_flags_and_shape(dtype, quant, part, d, dv, route):
 
 
 # widths the group route does not take: the int8 and participating
-# variants keep the per-head route (every width it took before), the
-# full-precision bf16 walk raises as before
+# variants, and both together, keep the per-head route (every width it took
+# before), the full-precision bf16 walk raises as before
 @pytest.mark.parametrize("quant,part,d,dv", [
     (True, False, 36, 36),     # D not a multiple of 8
     (True, False, 72, 72),     # int8 rows not whole 16-byte units
@@ -46,6 +48,8 @@ def test_route_by_dtype_flags_and_shape(dtype, quant, part, d, dv, route):
     (True, False, 320, 128),   # D past 256
     (False, True, 36, 36),
     (False, True, 128, 100),   # Dv not a multiple of 8
+    (True, True, 72, 72),      # int8 rows not whole 16-byte units
+    (True, True, 128, 72),
 ])
 def test_widths_off_the_group_route_take_the_per_head_route(quant, part, d,
                                                              dv):

@@ -448,8 +448,8 @@ def _pools(gen, p, kv, ps, d, dtype, quant):
 
 
 # (quant, part, per-(page, kv head) scales): int8 pools with one scale per
-# page and per page and KV head, participating pages, and both (which
-# keeps the per-head route in bf16, as float32 does everywhere)
+# page and per page and KV head, participating pages, and both (bf16 takes
+# the group route for all of them, float32 the per-head route)
 VARIANTS = [(True, False, False), (True, False, True), (False, True, False),
             (True, True, False), (True, True, True)]
 
@@ -464,10 +464,10 @@ def test_paged_variant_kernels_match_plain(cuda, dtype, quant, part,
     """int8 pools (per-page scales looked up per position: a split spans
     several pages, pages of 8 split a tile) and participating pages (a
     partial tail page, pages past the tail, and a lane of one token), over
-    the group route's geometries. bf16 with int8 or with participating
-    pages takes the group route, bf16 with both and float32 the per-head
-    route (``decode_route``); each call counts one launch under its body's
-    name."""
+    the group route's geometries. bf16 with int8 pools, participating
+    pages or both takes the group route (int8 widths of a multiple of 16),
+    float32 the per-head route (``decode_route``); each call counts one
+    launch under its body's name."""
     gen = torch.Generator(device="cuda").manual_seed(h + d + bd + ps)
     b, npl = 4, 40
     p = b * npl + 3
@@ -493,8 +493,8 @@ def test_paged_variant_kernels_match_plain(cuda, dtype, quant, part,
         part_idx[2] = torch.sort(part_idx[2])[0]
     assert dk.decode_route(dtype, quant=quant, part=part, d=d, dv=d,
                            nsel=ops.round_k_dims(d, k_ratio, bd)) == (
-        "group" if dtype == torch.bfloat16 and not (quant and part)
-        and not (quant and d % 16) else "per_head")
+        "group" if dtype == torch.bfloat16 and not (quant and d % 16)
+        else "per_head")
     before = LAUNCHES.copy()
     out = ops.aqua_paged_decode(q, k_pool, v_pool, table, lengths, *scales,
                                 part_idx=part_idx, k_ratio=k_ratio,
@@ -511,11 +511,13 @@ def test_paged_variant_kernels_match_plain(cuda, dtype, quant, part,
     assert _within_tol(out, ref, out_dtype)
 
 
-@pytest.mark.parametrize("quant,part", [(True, False), (False, True)])
+@pytest.mark.parametrize("quant,part", [(True, False), (False, True),
+                                        (True, True)])
 def test_paged_variants_off_the_group_route_widths(cuda, quant, part):
-    """int8 and participating pages at widths the group route does not take
-    (D 36: not a multiple of 8; int8 rows of 72 bytes) run the per-head
-    route and match the plain version (pages of 16 and of 7 positions)."""
+    """int8 and participating pages, apart and together, at widths the
+    group route does not take (D 36: not a multiple of 8; int8 rows of 72
+    bytes) run the per-head route and match the plain version (pages of 16
+    and of 7 positions)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     for d, ps, bd in ((36, 16, 4), (72, 7, 8)):
         b, npl, h, kv = 3, 20, 8, 2
