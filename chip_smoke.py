@@ -92,9 +92,23 @@ Phases, each of which raises (non-zero exit) on failure:
    and each lane's first step with other kept positions, are reported. The chunked trace is also served
    monolithically with the kernels: token match and inter-token gaps of
    both are reported. The int8 pool must take < 0.60 of the bf16 pool's
-   bytes. A paged drive of 4 requests runs under ``torch.profiler`` for
-   the device's idle share and its top kernels.
-5. The ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   bytes. Every drive, the reference drives too, decodes through the
+   engine's captured decode step (``serving/step_graph.py``: one CUDA
+   graph per engine, captured at its first serve and replayed every
+   step); each drive reports its decode-step ms, the capture's host ms
+   and the graph pool's bytes. A paged drive of 4 requests runs under
+   ``torch.profiler`` for the device's idle share and its top kernels;
+   the trace must hold every decode launch the drive counted (the
+   replayed graph's kernels are traced one by one).
+5. Step graph: for the paged, int8, hierarchical int8, H2O and window
+   drives, the drive's prompts are admitted at once, the state is cloned,
+   and 16 decode steps with seeded tokens and write masks run through the
+   engine's step graph on one copy and eager ``model.decode_step`` on the
+   other: logits and every state tensor must be equal bit for bit. Two
+   planted faults must break that equality: replays that skip the copy
+   of the tokens (the graph reads the previous step's) and replays that
+   skip the copy of the write mask.
+6. The ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -1018,12 +1032,18 @@ def compare_logits(run: dict, ref: dict, max_new: int) -> dict:
                     for u in ref["tokens"]) / len(ref["tokens"]))
 
 
-def profiled_drive(eng, reqs) -> dict:
+def profiled_drive(eng, reqs, body: str) -> dict:
     """Serve ``reqs`` under ``torch.profiler``: the device's busy share of
-    the wall time and the kernels that take most of the device time."""
+    the wall time and the kernels that take most of the device time. The
+    engine's step graph is already captured, so every decode step is a
+    replay: the trace must hold each launch of the decode kernel ``body``
+    that the drive counted (its partial and its combine pass), or it
+    would not see the graph's kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    assert eng.step_graph is not None
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1032,18 +1052,158 @@ def profiled_drive(eng, reqs) -> dict:
             pass
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launches = launch_counts()[body]
     by_name: dict = {}
+    passes = {"decode_bf16": [0, 0.0], "aqua_decode_combine": [0, 0.0]}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() * 1e-6
+            us = e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0.0) + us * 1e-6
+            for key, acc in passes.items():
+                if key in e.name:
+                    acc[0] += 1
+                    acc[1] += us
     busy = sum(by_name.values())
     assert busy > 0, "the profiled drive ran nothing on the device"
+    assert launches == eng.cfg.num_layers * eng.stats.decode_steps > 0
+    assert all(n == launches for n, _ in passes.values()), (launches, passes)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall,
                 decode_steps=eng.stats.decode_steps,
+                decode_step_ms=1e3 * eng.stats.decode_seconds
+                / eng.stats.decode_steps,
+                decode_launches=launches,
+                traced_decode_passes={k: dict(events=n, device_us=us,
+                                              us_per_call=us / n)
+                                      for k, (n, us) in passes.items()},
                 top_kernels=[dict(name=n[:80], s=t, share=t / busy)
                              for n, t in top])
+
+
+_BITS = {"torch.float32": "int32", "torch.bfloat16": "int16"}
+
+
+def bits(t):
+    """``t``'s bits (floats viewed as integers of their width): equality
+    of these is bitwise equality."""
+    import torch
+    name = _BITS.get(str(t.dtype))
+    return t if name is None else t.view(getattr(torch, name))
+
+
+def replay_skipping(graph, tokens, active, skip: str):
+    """``StepGraph.replay`` with the host copy of ``skip`` ("tokens" or
+    "write_mask") left out, so the graph reads that buffer as the previous
+    step left it: a planted fault."""
+    import torch
+    if skip != "tokens":
+        graph.tokens.copy_(torch.from_numpy(tokens))
+    if skip != "write_mask":
+        graph.write_mask.copy_(torch.from_numpy(active))
+    graph.graph.replay()
+    return graph.logits
+
+
+def step_graph_phase(path: str, eng, reqs, steps: int = 16) -> dict:
+    """Admit the drive's prompts at once (at most one per lane), clone the
+    state, and run ``steps`` decode steps with seeded tokens and write
+    masks (each lane writes with probability 0.75) through the engine's
+    step graph on the engine's state and through eager
+    ``model.decode_step`` on the clone: logits of every step and every
+    state tensor after the last must be equal bit for bit. The same
+    replays skipping the copy of the tokens, or of the write mask, from
+    the second step on must not be. Also the host ms of a step of each
+    (up to the logits on the device, synchronized), the device ms of a
+    replay alone (16 back to back between two CUDA events) and the
+    kernels (and copies) one replay runs, from ``torch.profiler``."""
+    import numpy as np
+    import torch
+    reqs = [dataclasses.replace(r, arrival=0.0)
+            for r in reqs][:eng.scfg.max_lanes]
+    events = eng.serve(reqs)
+    for _ in events:
+        if eng.stats.admissions == len(reqs):
+            break
+    events.close()
+    graph, state = eng.step_graph, eng.last_state
+    layers = state.layers
+    tensors = {f.name: getattr(layers, f.name)
+               for f in dataclasses.fields(layers)
+               if getattr(layers, f.name) is not None}
+    snap = {k: t.clone() for k, t in tensors.items()}
+    twin = dataclasses.replace(state, layers=type(layers)(**{
+        k: t.clone() for k, t in tensors.items()}))
+    rng = np.random.default_rng(0)
+    lanes = eng.scfg.max_lanes
+    inputs = [(rng.integers(0, eng.cfg.vocab_size, lanes).astype(np.int32),
+               rng.random(lanes) < 0.75) for _ in range(steps)]
+    assert any((a != inputs[0][1]).any() for _, a in inputs[1:])
+    want = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for toks, act in inputs:
+        lg, _ = eng.model.decode_step(
+            eng.params, twin, torch.from_numpy(toks).cuda(),
+            aqua_proj=eng.proj, write_mask=torch.from_numpy(act).cuda())
+        want.append(lg.clone())
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / steps
+    want_state = {f.name: getattr(twin.layers, f.name) for f in
+                  dataclasses.fields(layers) if f.name in tensors}
+
+    def run(skip=None):
+        """Replays from the admitted state: (logits equal in every step,
+        state equal after the last, worst |logit difference|, ms a step)."""
+        for k, t in tensors.items():
+            t.copy_(snap[k])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = []
+        for i, (toks, act) in enumerate(inputs):
+            lg = (graph.replay(toks, act) if skip is None or i == 0
+                  else replay_skipping(graph, toks, act, skip))
+            got.append(lg.clone())
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        logits_equal = all(torch.equal(bits(g), bits(w))
+                           for g, w in zip(got, want))
+        worst = max((g - w).abs().max().item() for g, w in zip(got, want))
+        state_equal = all(torch.equal(bits(tensors[k]), bits(want_state[k]))
+                          for k in tensors)
+        return logits_equal, state_equal, worst, ms
+
+    good = run()
+    faults = {skip: run(skip) for skip in ("tokens", "write_mask")}
+    # the device alone: replays back to back (the buffers hold the last
+    # step's inputs), then one replay traced
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        graph.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.graph.replay()
+        torch.cuda.synchronize()
+    nodes = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = dict(path=path, lanes_admitted=len(reqs), steps=steps,
+               logits_bitwise=good[0], state_bitwise=good[1],
+               max_abs_logit_diff=good[2], graph_step_ms=good[3],
+               eager_step_ms=eager_ms,
+               replay_device_ms=start.elapsed_time(end) / steps,
+               device_ops_per_replay=len(nodes),
+               traced_replay_busy_ms=1e-3 * sum(
+                   e.time_range.elapsed_us() for e in nodes),
+               capture_ms=graph.capture_ms, pool_bytes=graph.pool_bytes,
+               faults={k: dict(logits_bitwise=f[0], state_bitwise=f[1],
+                               max_abs_logit_diff=f[2])
+                       for k, f in faults.items()})
+    assert good[0] and good[1], out
+    assert all(not (f[0] and f[1]) for f in faults.values()), out
+    return out
 
 
 def serve_phase(card: str) -> dict:
@@ -1153,6 +1313,9 @@ def serve_phase(card: str) -> dict:
         reset_counts()
         run = serve_drive(eng, reqs, positions=evicting)
         run["launches"], run["engine"] = launch_counts(), eng
+        graph = eng.step_graph
+        run["capture_ms"], run["graph_pool_bytes"] = (graph.capture_ms,
+                                                      graph.pool_bytes)
         run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         run["drive_peak_memory_bytes"] = run["peak_memory_bytes"] - start
         assert len(run["tokens"]) == n, len(run["tokens"])
@@ -1176,6 +1339,8 @@ def serve_phase(card: str) -> dict:
         run = drive(mcfg, serving, n, prompts)
         run["reference_drive_peak_memory_bytes"] = ref[
             "drive_peak_memory_bytes"]
+        run["reference_decode_step_ms"] = ref["decode_step_ms"]
+        run["reference_capture_ms"] = ref["capture_ms"]
         if serving.prefill_budget_tokens is not None:
             assert run["chunked_admissions"] == n, run["chunked_admissions"]
             assert run["prefill_chunks"] > n, run["prefill_chunks"]
@@ -1236,10 +1401,24 @@ def serve_phase(card: str) -> dict:
             f"{runs[key]['drive_peak_memory_bytes']} over the drive's start "
             f"(its plain reference: "
             f"{runs[key]['reference_drive_peak_memory_bytes']}) on {card}")
+    # the captured step against eager decode_step, bit for bit
+    graph_checks = {}
+    for path, n, prompts in (("paged", 8, None), ("int8_paged", 4, None),
+                             ("hier_int8_paged", 4, long_prompts),
+                             ("h2o_paged", 4, h2o_prompts),
+                             ("swa_paged", 4, swa_prompts)):
+        eng = runs[path]["engine"]
+        vocab = eng.cfg.vocab_size
+        reqs = (trace(n, vocab=vocab) if prompts is None
+                else trace(n, prompts, vocab))
+        graph_checks[path] = step_graph_phase(path, eng, reqs)
+        log({"step_graph": graph_checks[path]})
+        log_time(f"step graph {path}")
     # one more paged drive, traced: where the device time goes
-    prof = profiled_drive(runs["paged"]["engine"], trace(4))
-    log(f"[serve paged, traced] device idle share {prof['idle_share']:.3f} "
-        f"on {card}")
+    prof = profiled_drive(runs["paged"]["engine"], trace(4),
+                          "aqua_paged_decode")
+    log(f"[serve paged, traced] device idle share {prof['idle_share']:.3f}, "
+        f"decode step ms {prof['decode_step_ms']:.3f} on {card}")
     log_time("traced drive")
 
     summary = {}
@@ -1248,8 +1427,10 @@ def serve_phase(card: str) -> dict:
                         if k not in ("tokens", "admit_logits", "step_logits",
                                      "engine")}
         log(f"[serve {key}] tokens/s {run['tokens_per_s']:.2f} on {card}")
-        log(f"[serve {key}] decode step ms {run['decode_step_ms']:.3f} "
-            f"on {card}")
+        log(f"[serve {key}] decode step ms {run['decode_step_ms']:.3f}, "
+            f"capture ms {run['capture_ms']:.1f}, graph pool bytes "
+            f"{run['graph_pool_bytes']} (its plain reference: decode step "
+            f"ms {run['reference_decode_step_ms']:.3f}) on {card}")
     result = dict(model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
                   models={m.name: dict(layers=m.num_layers, d_model=m.d_model,
                                        head_dim=m.attention.head_dim,
@@ -1257,6 +1438,7 @@ def serve_phase(card: str) -> dict:
                           for m in (cfg, danube)},
                   setup_s=setup_s, logit_rtol=LOGIT_RTOL,
                   profile_paged=prof, int8_cache_bytes_share=int8_share,
+                  step_graph=graph_checks,
                   **summary)
     log({"serve": result})
     return result

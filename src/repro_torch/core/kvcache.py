@@ -42,8 +42,11 @@ masks as tensors and never read them on the host: no boolean-mask
 indexing, no ``nonzero``. A row that must not write repeats the write of
 a row that does (same address, same value) or rewrites what its address
 holds — the JAX package's out-of-bounds dropped scatter, for an in-place
-scatter that has no drop mode. (The int8 insert, which requantizes whole
-pages, still selects its rows on the host.)
+scatter that has no drop mode. The int8 insert, which requantizes whole
+pages, repeats a writing row's page requantization too. So one decode step
+can be captured in a CUDA graph (``serving/step_graph.py``), and a step
+that no row writes leaves the cache as it was, bit for bit.
+:func:`reset_cache` empties a cache in place, keeping its tensors.
 """
 from __future__ import annotations
 
@@ -359,22 +362,29 @@ def _page_scales(tok: torch.Tensor, ps: int, sh: int) -> torch.Tensor:
 
 def _insert_quant_token(pool: torch.Tensor, scale: torch.Tensor,
                         phys: torch.Tensor, off: torch.Tensor,
-                        x_new: torch.Tensor) -> None:
+                        x_new: torch.Tensor, any_ok: torch.Tensor) -> None:
     """Quantized single-token insert with a per-page *running* scale, in
     place: grow each page's scale to cover the new token's amax,
     requantizing the page's stored ints when it grows, then write the
-    token. ``phys``/``off`` (N,) address the rows that write."""
-    x = x_new.float()                                    # (N, KV, D)
-    amax = x.abs().amax(dim=-1)                          # (N, KV)
+    token. ``phys``/``off`` (B,) and ``x_new`` (B, KV, D) address and
+    carry every row as :func:`_stand_in` redirects them: a row that does
+    not write repeats a writing row's page requantization and token write
+    (same page, same values). With no writing row (``any_ok`` False) the
+    scales stay, the ratio is exactly 1 and every row rewrites its slot,
+    so the pool keeps its ints bit for bit."""
+    x = x_new.float()                                    # (B, KV, D)
+    amax = x.abs().amax(dim=-1)                          # (B, KV)
     if scale.shape[1] == 1:
-        amax = amax.amax(dim=-1, keepdim=True)           # (N, 1)
-    s_old = scale[phys]                                  # (N, SH)
-    s_cand = torch.maximum(s_old, amax / QUANT_MAX)
+        amax = amax.amax(dim=-1, keepdim=True)           # (B, 1)
+    s_old = scale[phys]                                  # (B, SH)
+    s_cand = torch.where(any_ok, torch.maximum(s_old, amax / QUANT_MAX),
+                         s_old)
     ratio = torch.where(s_cand > 0.0, s_old / s_cand, torch.ones_like(s_old))
-    page = pool[phys].float()                            # (N, KV, ps, D)
+    page = pool[phys].float()                            # (B, KV, ps, D)
     pool[phys] = torch.round(page * ratio[:, :, None, None]).clamp(
         -QUANT_MAX, QUANT_MAX).to(pool.dtype)
-    pool[phys, :, off] = quantize_tokens(x, s_cand)
+    pool[phys, :, off] = torch.where(any_ok, quantize_tokens(x, s_cand),
+                                     pool[phys, :, off])
     scale[phys] = s_cand
 
 
@@ -525,23 +535,23 @@ def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
         cache.acc_pool[ev_phys] = _stand_in_values(
             ev_ok, donor, any_ok, torch.zeros_like(cache.acc_pool[ev_phys]),
             cache.acc_pool[ev_phys])
+    (phys, off), donor, any_ok = _stand_in(
+        ok, entry.long().clamp(min=0), (slot % ps).long())
     if cache.quantized:
-        phys, off = entry[ok].long(), (slot % ps)[ok].long()
-        _insert_quant_token(cache.k_pool, cache.k_scale, phys, off, k_new[ok])
-        _insert_quant_token(cache.v_pool, cache.v_scale, phys, off, v_new[ok])
-        cache.pos_pool[phys, off] = cache.count[ok]
-        cache.acc_pool[phys, :, off] = 0.0
+        for pool, scale, new in ((cache.k_pool, cache.k_scale, k_new),
+                                 (cache.v_pool, cache.v_scale, v_new)):
+            donated = torch.where(ok[:, None, None], new,
+                                  new.index_select(0, donor))
+            _insert_quant_token(pool, scale, phys, off, donated, any_ok)
     else:
-        (phys, off), donor, any_ok = _stand_in(
-            ok, entry.long().clamp(min=0), (slot % ps).long())
         for pool, new in ((cache.k_pool, k_new), (cache.v_pool, v_new)):
             pool[phys, :, off] = _stand_in_values(
                 ok, donor, any_ok, new.to(pool.dtype), pool[phys, :, off])
-        cache.pos_pool[phys, off] = _stand_in_values(
-            ok, donor, any_ok, cache.count, cache.pos_pool[phys, off])
-        cache.acc_pool[phys, :, off] = _stand_in_values(
-            ok, donor, any_ok, torch.zeros_like(cache.acc_pool[phys, :, off]),
-            cache.acc_pool[phys, :, off])
+    cache.pos_pool[phys, off] = _stand_in_values(
+        ok, donor, any_ok, cache.count, cache.pos_pool[phys, off])
+    cache.acc_pool[phys, :, off] = _stand_in_values(
+        ok, donor, any_ok, torch.zeros_like(cache.acc_pool[phys, :, off]),
+        cache.acc_pool[phys, :, off])
     cache.count += 1 if write_mask is None else write_mask.to(torch.int32)
     return cache
 
@@ -663,6 +673,22 @@ def paged_reset_lane(cache: PagedAttnCache, lane: int) -> PagedAttnCache:
         cache.v_scale[mapped] = 0.0
     cache.page_table[lane] = -1
     cache.count[lane] = 0
+    return cache
+
+
+#: fields whose empty value is -1 (positions, page tables); the others 0
+_EMPTY_IS_MINUS_ONE = ("positions", "pos_pool", "page_table")
+
+
+def reset_cache(cache):
+    """Return every lane of an :class:`AttnCache` or
+    :class:`PagedAttnCache` to what ``init_attn_cache`` /
+    ``init_paged_cache`` allocate, in place: the tensors keep their
+    storage (a captured decode step holds their addresses)."""
+    for f in dataclasses.fields(cache):
+        t = getattr(cache, f.name)
+        if t is not None:
+            t.fill_(-1 if f.name in _EMPTY_IS_MINUS_ONE else 0)
     return cache
 
 

@@ -30,6 +30,15 @@ lanes ride along under a ``write_mask`` that freezes their cache. The
 per-lane bookkeeping (last token, counters, stop rules) lives on the host:
 the host reads each step's sampled tokens anyway.
 
+On the card the decode step is one CUDA graph (:class:`~repro_torch.
+serving.step_graph.StepGraph`, the counterpart of the JAX engine's jitted
+step), captured once per engine over its decode state at the first
+``serve()``, before any admission, and replayed every step; sampling runs
+on the replayed logits. The state is allocated once and emptied in place
+at each later ``serve()``: the graph holds its addresses, so admissions,
+page tables and chunk writes update it in place too. On the CPU the
+engine calls ``model.decode_step`` directly.
+
 Under AQUA the engine pads the projections once, at construction, to the
 stored K̂ width (``aqua.stored_projection``): AQUA-Memory kept widths that
 are not a multiple of 8 then run the bf16 kernels on zero-padded q̂/K̂.
@@ -68,6 +77,7 @@ from repro_torch.runtime import resolve_device
 from repro_torch.serving.scheduler import (LaneScheduler, PagePool, Request,
                                            RequestOutput, ScheduleStats,
                                            StreamEvent)
+from repro_torch.serving.step_graph import StepGraph
 
 NEG_INF = -1e30
 
@@ -125,7 +135,10 @@ class ContinuousBatchingEngine:
     ``device`` None serves on the CUDA card (raises without one); the
     tests pass ``device="cpu"``. ``params`` must already live on it.
     ``last_admit_logits`` / ``last_step_logits`` hold the logits of the
-    latest admission and decode step.
+    latest admission and decode step; on the card ``last_step_logits`` is
+    the step graph's output tensor, valid until the next decode step
+    (clone it to keep it). ``step_graph`` is the captured decode step
+    (None on the CPU and before the first ``serve()``).
     """
 
     def __init__(self, cfg: ModelConfig, params,
@@ -179,6 +192,8 @@ class ContinuousBatchingEngine:
         self._serve_idx = 0
         self.stats = ScheduleStats()
         self.page_pool: Optional[PagePool] = None
+        self.last_state = None
+        self.step_graph: Optional[StepGraph] = None
         # ragged bucketed prefill needs the full-cache policy (window
         # rings and H2O eviction place slots assuming a rectangular batch)
         self._supports_ragged = self.eviction == "none"
@@ -303,6 +318,21 @@ class ContinuousBatchingEngine:
         return int(ss.generate_state(1)[0])
 
     # -- device work ------------------------------------------------------
+    def _decode_state(self):
+        """The lanes' decode state, empty: allocated at the first
+        ``serve()`` (on the card the decode step is then captured over it,
+        once), emptied in place at every later one."""
+        if self.last_state is None:
+            self.last_state = self.model.init_decode_state(
+                self.scfg.max_lanes, self.scfg.max_seq)
+            if self.device.type == "cuda":
+                self.step_graph = StepGraph(self.model, self.params,
+                                            self.last_state,
+                                            aqua_proj=self.proj)
+        else:
+            kvc.reset_cache(self.last_state.layers)
+        return self.last_state
+
     def _admit(self, req: Request, lane: int, state, lanes: LaneState):
         """Prefill ``req`` into ``lane`` and sample its first token.
         Returns (token, done)."""
@@ -389,13 +419,16 @@ class ContinuousBatchingEngine:
         return logits
 
     def _step(self, state, lanes: LaneState):
-        """One decode step over all lanes; inactive lanes are frozen by the
-        write mask and report ``pad_id``. Returns (tok, emitted, done)."""
-        tokens = torch.from_numpy(lanes.last_token).to(self.device)
-        active = torch.from_numpy(lanes.active).to(self.device)
-        logits, _ = self.model.decode_step(self.params, state, tokens,
-                                           aqua_proj=self.proj,
-                                           write_mask=active)
+        """One decode step over all lanes (on the card: one replay of the
+        step graph); inactive lanes are frozen by the write mask and report
+        ``pad_id``. Returns (tok, emitted, done)."""
+        if self.step_graph is not None:
+            logits = self.step_graph.replay(lanes.last_token, lanes.active)
+        else:
+            logits, _ = self.model.decode_step(
+                self.params, state, torch.from_numpy(lanes.last_token),
+                aqua_proj=self.proj,
+                write_mask=torch.from_numpy(lanes.active))
         self.last_step_logits = logits
         seeds = np.array([self._seed(int(u), int(g)) if t > 0 else 0
                           for u, g, t in zip(lanes.uid, lanes.generated,
@@ -423,10 +456,9 @@ class ContinuousBatchingEngine:
         if self._paged:
             self.page_pool = PagePool(self._num_pages,
                                       self.cache_spec.page_size)
-        state = self.model.init_decode_state(self.scfg.max_lanes,
-                                             self.scfg.max_seq)
+        state = self._decode_state()
         lanes = LaneState.empty(self.scfg.max_lanes)
-        self.last_state, self.last_lanes = state, lanes
+        self.last_lanes = lanes
         stats = ScheduleStats()
         self.stats = stats
         emitted_count: Dict[int, int] = {}

@@ -791,3 +791,47 @@ def test_aqua_memory_engine_on_the_card_matches_plain_reference(cuda):
         for uid, logits in want.items():
             err = (got[uid] - logits).abs().max().item()
             assert err <= 0.05 * logits.abs().max().item(), (cache, uid)
+
+
+# the decode body each reduced drive launches once per layer per step
+# (window and H2O decode on the masked-dense core, AQUA off on dense)
+STEP_BODY = {"paged": "aqua_paged_decode", "contiguous": "aqua_decode",
+             "flash_paged": None, "int8_paged": "aqua_paged_quant_decode",
+             "hier_paged": "aqua_paged_part_decode",
+             "hier_int8_paged": "aqua_paged_part_quant_decode",
+             "chunked_paged": "aqua_paged_decode", "swa_paged": None,
+             "h2o_paged": None, "aqua_memory_paged": "aqua_paged_decode"}
+
+
+@pytest.mark.parametrize("name", list(STEP_BODY))
+def test_step_graph_replays_eager_decode_bitwise(cuda, name):
+    """The engine's captured decode step (bf16, the reduced drives of
+    ``tests/test_torch_step_graph.py``): after three lanes' admissions and
+    two served steps, six replays with seeded tokens and write masks give
+    the logits and state of eager ``decode_step`` on a twin of the state,
+    bit for bit; each replay adds the capture's launches, one decode
+    launch per layer."""
+    import numpy as np
+    from test_torch_step_graph import (assert_bitwise, bits, drive_engine,
+                                       serve_until, state_tensors)
+    eng, reqs = drive_engine(name, device="cuda", dtype="bfloat16")
+    serve_until(eng, reqs(at_once=True), steps=2)
+    graph, body = eng.step_graph, STEP_BODY[name]
+    assert graph.launches == ({} if body is None
+                              else {body: eng.cfg.num_layers})
+    state = eng.last_state
+    twin = dataclasses.replace(state, layers=type(state.layers)(**{
+        k: t.clone() for k, t in state_tensors(state).items()}))
+    rng = np.random.default_rng(0)
+    lanes = eng.scfg.max_lanes
+    for _ in range(6):
+        tokens = rng.integers(0, eng.cfg.vocab_size, lanes).astype(np.int32)
+        active = rng.random(lanes) < 0.75
+        before = LAUNCHES.copy()
+        got = graph.replay(tokens, active).clone()
+        assert LAUNCHES - before == graph.launches
+        want, _ = eng.model.decode_step(
+            eng.params, twin, torch.from_numpy(tokens).cuda(),
+            aqua_proj=eng.proj, write_mask=torch.from_numpy(active).cuda())
+        assert torch.equal(bits(got), bits(want))
+    assert_bitwise(state_tensors(state), state_tensors(twin))
