@@ -108,7 +108,38 @@ Phases, each of which raises (non-zero exit) on failure:
    planted faults must break that equality: replays that skip the copy
    of the tokens (the graph reads the previous step's) and replays that
    skip the copy of the write mask.
-6. The ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+6. HF checkpoint through the port's entry point: a synthetic checkpoint
+   in HF layout at Qwen3-0.6B's full width and depth (random bf16 weights
+   from a seeded generator, tied, two shards plus the index; written to
+   ``build/hf_qwen3_0_6b`` and deleted after the phase; bytes and seconds
+   to write and load printed) is served by ``repro_torch.launch.serve.main``
+   in-process: ``--calibration-corpus corpora/calibration.txt --k-ratio
+   0.75 --block-dims 8 --page-size 64 --no-prefix-share --lanes 8
+   --requests 8 --prompt-lens 128,512,1024 --steps 32 --max-seq 2048
+   --verify`` (greedy tokens identical to the contiguous reference engine,
+   the pool-bytes check; the launcher prints its own lines). Its params and
+   activations are float32 (``config_from_hf``), so the drive runs the
+   float32 routes: the per-head paged decode and the prefill on scalar
+   FMAs. The launcher's own run launches, exactly: the prefill kernel
+   once per layer per admission of its drive and of its reference drive
+   and per calibration batch, the paged decode once per layer per step of
+   its drive, the contiguous decode once per layer per step of the
+   reference drive, nothing else. The launcher's engine then serves the
+   trace again (its second serve through the captured step graph: the
+   same tokens) with the counters zeroed just before and read just after:
+   the prefill kernel once per layer per admission, the paged decode once
+   per layer per step, nothing else. A plain reference drive
+   (``aqua-block-sparse-plain``) on the same loaded params: every
+   admission's and the first 16 decode steps' logits within |got - want|
+   <= HF_LOGIT_SCALE * (F32_RTOL * |want| + F32_ATOL). A control drive,
+   the plain drive with every attention input rounded to bf16, must
+   break that limit.
+   The two float32 routes at the drive's shapes (paged decode B=8 over a
+   2048-token table, lengths 128-1056; prefill B=1, S=1024) against their
+   plain versions with the planted faults of the bf16 phases, timed the
+   same way (float32 bounds at 67 TFLOP/s outside the tensor cores).
+7. The ``{"kernels": [...]}`` line (each float32 route under its kernel's
+   ``float32_route``), then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -125,6 +156,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 K_RATIO, BLOCK_DIMS = 0.75, 8
 # bf16 outputs, per element |out - ref| <= KERNEL_RTOL * |ref| +
 # KERNEL_ATOL: kernel and plain version both compute in float32 from the
@@ -140,6 +172,13 @@ F32_RTOL, F32_ATOL = 1e-5, 1e-5
 # outputs differ by about one bf16 ulp per layer; each row's logits must
 # stay within 5% of that row's largest magnitude
 LOGIT_RTOL = 0.05
+# the float32 model's logits through 28 layers (the hf_serve drive against
+# its plain reference drive), per logit |got - want| <= HF_LOGIT_SCALE *
+# (F32_RTOL * |want| + F32_ATOL): near the geometric middle of the sound
+# drive's largest reading (0.984 of the unscaled limit) and that of a
+# control drive whose attention reads its inputs at bf16 precision (6134),
+# about 80x from each (PERF.md)
+HF_LOGIT_SCALE = 80.0
 DECODE_STEPS_CHECKED = 16
 
 
@@ -293,8 +332,12 @@ def shifted(block_idx, nb: int):
     return bad.contiguous()
 
 
-def bound(nbytes: float, ops: float) -> tuple:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S
+          ) -> tuple:
+    """The least time (ms) for ``nbytes`` of device memory traffic and
+    ``ops`` operations at ``ops_per_s`` (bf16 tensor cores by default; the
+    float32 routes run on scalar FMAs), and which of the two bounds it."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -331,10 +374,12 @@ def swapped_group_heads(block_idx):
 
 def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
                  s: int = 4096, len_range: tuple = (2048, 4096),
-                 form: str = None) -> dict:
-    """The bf16 decode (contiguous or paged, 64-token pages) at B=8 over a
+                 form: str = None, dtype: str = "bfloat16") -> dict:
+    """The decode (contiguous or paged, 64-token pages) at B=8 over a
     table of ``s`` positions, lengths uniform in ``len_range``; the served
-    form (``form="served"``) takes the drives' contexts."""
+    form (``form="served"``) takes the drives' contexts. bf16 takes the
+    group route; float32 (``dtype``, the served checkpoint's) the per-head
+    route."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import aqua
@@ -342,7 +387,7 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
     from repro_torch.kernels.ops import round_k_dims
 
     b, d, ps = 8, 128, 64
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", getattr(torch, dtype)
     q = torch.randn(b, h, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
@@ -404,14 +449,18 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
     g = h // kvh
     union = sel.reshape(b, kvh, g, -1).amax(dim=2).sum(dim=-1)   # (B, KV)
     lens = lengths.double()
-    nbytes = 2 * float((lens[:, None] * (union * BLOCK_DIMS + d)).sum())
-    nbytes += 2 * (q.numel() + b * h * d) + 4 * (block_idx.numel() + b)
+    el = q.element_size()
+    nbytes = el * float((lens[:, None] * (union * BLOCK_DIMS + d)).sum())
+    nbytes += el * (q.numel() + b * h * d) + 4 * (block_idx.numel() + b)
     ops = 2 * float(lens.sum()) * h * (nsel + d)
-    bms, by = bound(nbytes, ops)
+    bms, by = bound(nbytes, ops, BF16_OPS_PER_S if el == 2
+                    else F32_OPS_PER_S)
     name = "aqua_paged_decode" if paged else "aqua_decode"
     times = timings(kernel, plain, library)
     times["device_us"] = device_us(kernel)
-    return dict(name=name, geometry=geom, form=form,
+    return dict(name=name, geometry=geom, form=form, dtype=dtype,
+                route=dk.decode_route(bf, quant=False, part=False, d=d, dv=d,
+                                      nsel=nsel),
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d,
                            page_size=ps if paged else None,
                            lengths=list(len_range)),
@@ -420,9 +469,12 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
 
 
 def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
-                  form: str = None, k_ratio: float = K_RATIO) -> dict:
+                  form: str = None, k_ratio: float = K_RATIO,
+                  dtype: str = "bfloat16") -> dict:
     """The prefill, B=1, causal, over ``s`` rows; the served form
-    (``form="served"``) at the drives' longest prompt."""
+    (``form="served"``) at the drives' longest prompt. bf16 runs on the
+    tensor cores; float32 (``dtype``, the served checkpoint's) on scalar
+    FMAs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import aqua
@@ -430,7 +482,7 @@ def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
     from repro_torch.kernels.ops import round_k_dims
 
     b, d, q_blk = 1, 128, 128
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", getattr(torch, dtype)
     q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
@@ -462,9 +514,12 @@ def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
     ops = 2 * pairs * h * (nsel + d)
     # q's selected dims, all of K̂ (the chunks' selections cover every
     # block across the sequence), V, and the output, each once
-    nbytes = 2 * (b * h * s * nsel + 2 * b * kvh * s * d + b * h * s * d)
-    bms, by = bound(nbytes, ops)
-    return dict(name="aqua_prefill", geometry=geom, form=form,
+    el = q.element_size()
+    nbytes = el * (b * h * s * nsel + 2 * b * kvh * s * d + b * h * s * d)
+    bms, by = bound(nbytes, ops, BF16_OPS_PER_S if el == 2
+                    else F32_OPS_PER_S)
+    return dict(name="aqua_prefill", geometry=geom, form=form, dtype=dtype,
+                route="wgmma" if el == 2 else "scalar_fma",
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, q_blk=q_blk,
                            k_ratio=k_ratio),
                 **check, **timings(kernel, plain, library), bound_ms=bms,
@@ -983,15 +1038,27 @@ def serve_drive(eng, reqs, positions: bool = False) -> dict:
                 mean_occupancy=st.mean_occupancy)
 
 
-def compare_logits(run: dict, ref: dict, max_new: int) -> dict:
+def compare_logits(run: dict, ref: dict, max_new: int,
+                   per_element: bool = False, scale: float = 1.0,
+                   check: bool = True) -> dict:
     """Logits of the kernel drive against the plain drive of the same
     trace: every admission (same prompt), and in each checked decode step
     every lane that was still generating and held the same tokens in both
     drives — and, where the drives recorded them (H2O), the same kept
     positions in every layer: the two drives' hidden states differ by
     bf16 noise, so near-tied scores may evict differently. Each row must
-    stay within LOGIT_RTOL of its largest magnitude; raises otherwise."""
+    stay within LOGIT_RTOL of its largest magnitude (bf16), or with
+    ``per_element`` (float32) every logit within ``scale`` times F32_RTOL
+    of itself plus F32_ATOL; raises otherwise, unless ``check`` is off
+    (a control drive's reading)."""
     def row_check(got, want, what):
+        if per_element:
+            ratio = ((got - want).abs()
+                     / (scale * (F32_RTOL * want.abs() + F32_ATOL))
+                     ).max().item()
+            assert ratio <= 1.0 or not check, \
+                f"{what}: float32 logits off by {ratio} of the limit"
+            return ratio
         err = (got - want).abs().max().item()
         limit = LOGIT_RTOL * want.abs().max().item()
         assert err <= limit, f"{what}: logits error {err} > {limit}"
@@ -1444,6 +1511,201 @@ def serve_phase(card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Serving an HF checkpoint through the launcher (float32 routes)
+# ---------------------------------------------------------------------------
+
+
+HF_DIR = os.path.join(ROOT, "build", "hf_qwen3_0_6b")
+BF16_INPUTS_CONTROL = "aqua-block-sparse-plain-bf16-inputs"
+
+
+def register_bf16_inputs_control() -> str:
+    """Register the control backend: the plain versions of the block-sparse
+    backend with their q, k and v arguments rounded to bf16 and widened
+    back, as a float32 route that read its inputs at bf16 precision would
+    compute; returns its name."""
+    import functools
+    import torch
+    from repro_torch.core import attention as attn_lib
+    from repro_torch.kernels.aqua_decode import aqua_decode_plain
+    from repro_torch.kernels.aqua_prefill import aqua_prefill_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    def bf16_inputs(fn):
+        def rounded(q, k, v, *args, **kw):
+            def r(t):
+                return t.to(torch.bfloat16).to(t.dtype)
+            return fn(r(q), r(k), r(v), *args, **kw)
+        return rounded
+    attn_lib.register_backend(attn_lib._block_sparse_backend(
+        BF16_INPUTS_CONTROL, bf16_inputs(aqua_prefill_plain),
+        bf16_inputs(functools.partial(aqua_decode_plain, page_table=None)),
+        bf16_inputs(aqua_decode_plain),
+        attn_lib._flash_backend("flash-plain-bf16-inputs",
+                                bf16_inputs(flash_attention_plain))))
+    return BF16_INPUTS_CONTROL
+
+
+def hf_serve_phase(card: str, gen) -> dict:
+    """Write Qwen3-0.6B's full width and depth as a synthetic HF checkpoint
+    (bf16 stored, tied, two shards, seeded), serve it through the port's
+    launcher, ``repro_torch.launch.serve.main``, with ``--verify`` (float32
+    params and activations, as ``config_from_hf`` gives them, so the
+    per-head decode route and the float32 prefill), then: re-serve the same
+    trace on the launcher's engine (its second serve through the captured
+    step graph; tokens must equal the first) with the launch counters
+    zeroed just before and read just after, a plain reference drive
+    (``aqua-block-sparse-plain``) on the same loaded params whose logits
+    must match per element within the float32 limits, and the two float32
+    kernel routes at the drive's shapes against their plain versions."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch.checkpoint.fixtures import write_hf_fixture
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg = get_config("qwen3-0.6b")
+    att = cfg.attention
+    overrides = {"_name_or_path": "qwen3-0.6b-synthetic",
+                 "hidden_size": cfg.d_model,
+                 "num_hidden_layers": cfg.num_layers,
+                 "num_attention_heads": att.num_heads,
+                 "num_key_value_heads": att.num_kv_heads,
+                 "head_dim": att.head_dim, "intermediate_size": cfg.d_ff,
+                 "vocab_size": cfg.vocab_size, "rope_theta": att.rope_theta,
+                 "rms_norm_eps": cfg.norm_eps}
+    gc.collect()                   # the earlier drives' engines and graphs
+    torch.cuda.empty_cache()
+    shutil.rmtree(HF_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        write_hf_fixture(HF_DIR, seed=0, variant="sharded", tied=True,
+                         dtype="bfloat16", config_overrides=overrides,
+                         device="cuda")
+        write_s = time.perf_counter() - t0
+        files = sorted(os.listdir(HF_DIR))
+        nbytes = sum(os.path.getsize(os.path.join(HF_DIR, f)) for f in files)
+        log(f"[hf_serve] wrote {nbytes} bytes ({', '.join(files)}) in "
+            f"{write_s:.2f} s")
+        torch.cuda.empty_cache()
+        argv = ["--hf-checkpoint", HF_DIR, "--calibration-corpus",
+                os.path.join(ROOT, "corpora", "calibration.txt"),
+                "--k-ratio", str(K_RATIO), "--block-dims", str(BLOCK_DIMS),
+                "--page-size", "64", "--no-prefix-share", "--lanes", "8",
+                "--requests", "8", "--prompt-lens", "128,512,1024",
+                "--steps", "32", "--max-seq", "2048", "--verify"]
+        log("[hf_serve] python -m repro_torch.launch.serve " + " ".join(argv))
+        reset_counts()
+        run = launcher.main(argv)     # raises SystemExit(1) if --verify fails
+        main_launches = launch_counts()
+        log_time("hf_serve launcher with --verify")
+    finally:
+        shutil.rmtree(HF_DIR, ignore_errors=True)
+    eng = run.engine
+    mcfg, layers = eng.cfg, eng.cfg.num_layers
+    assert mcfg.dtype == mcfg.param_dtype == "float32", mcfg
+    assert eng.paged and eng.step_graph is not None
+    st = run.stats
+    assert len(run.streamed) == 8 and st.tokens_emitted == 8 * 32
+    # the launcher's run also holds its calibration forwards (one prefill
+    # per layer each) and --verify's contiguous reference drive
+    ref_st = run.reference_stats
+    want = dict.fromkeys(KERNELS, 0)
+    want["aqua_prefill"] = layers * (st.admissions + ref_st.admissions
+                                     + launcher.CALIBRATION_BATCHES)
+    want["aqua_paged_decode"] = layers * st.decode_steps
+    want["aqua_decode"] = layers * ref_st.decode_steps
+    assert main_launches == want, (main_launches, want)
+
+    reqs = [dataclasses.replace(r) for r in run.requests]
+    reset_counts()
+    again = serve_drive(eng, reqs)
+    launches = launch_counts()
+    assert again["tokens"] == run.streamed, "second serve changed tokens"
+    want = dict.fromkeys(KERNELS, 0)
+    want["aqua_prefill"] = layers * again["admissions"]
+    want["aqua_paged_decode"] = layers * again["decode_steps"]
+    assert launches == want, (launches, want)
+    log_time("hf_serve second serve")
+    ref_eng = ContinuousBatchingEngine(mcfg, eng.params, run.projections,
+                                       serving=eng.scfg,
+                                       backend="aqua-block-sparse-plain")
+    reset_counts()
+    ref = serve_drive(ref_eng, [dataclasses.replace(r) for r in reqs])
+    assert sum(launch_counts().values()) == 0
+    vs_ref = compare_logits(again, ref, 32, per_element=True,
+                            scale=HF_LOGIT_SCALE)
+    del ref_eng
+    log_time("hf_serve plain reference drive")
+    # the control: attention at bf16 input precision must break the limit
+    ctl_eng = ContinuousBatchingEngine(
+        mcfg, eng.params, run.projections, serving=eng.scfg,
+        backend=register_bf16_inputs_control())
+    ctl = serve_drive(ctl_eng, [dataclasses.replace(r) for r in reqs])
+    vs_ctl = compare_logits(ctl, ref, 32, per_element=True,
+                            scale=HF_LOGIT_SCALE, check=False)
+    del ctl_eng, ctl
+    log(f"[hf_serve] float32 logits over the limit ({HF_LOGIT_SCALE} x "
+        f"(F32_RTOL |want| + F32_ATOL)): kernel drive admissions "
+        f"{vs_ref['admit_worst_err_over_limit']}, decode steps "
+        f"{vs_ref['decode_worst_err_over_limit']}; bf16-input control "
+        f"admissions {vs_ctl['admit_worst_err_over_limit']}, decode steps "
+        f"{vs_ctl['decode_worst_err_over_limit']}")
+    assert vs_ctl["admit_worst_err_over_limit"] > 1.0, vs_ctl
+    log_time("hf_serve bf16-input control drive")
+    torch.cuda.empty_cache()
+    # the float32 routes at the drive's shapes: the paged decode over its
+    # contexts (128-1056 tokens of a 2048-token table) and its longest
+    # prompt's prefill
+    phases = [decode_phase(cfg.name, att.num_heads, att.num_kv_heads, True,
+                           gen, s=2048, len_range=(128, 1056),
+                           form="served", dtype="float32"),
+              prefill_phase(cfg.name, att.num_heads, att.num_kv_heads, gen,
+                            s=1024, form="served", dtype="float32")]
+    for p in phases:
+        log(p)
+    assert all(p["ok"] for p in phases), phases
+    assert phases[0]["route"] == "per_head", phases[0]["route"]
+    log_time("hf_serve float32 kernel phases")
+    log(f"[hf_serve] checkpoint {nbytes} bytes written in {write_s:.2f} s, "
+        f"loaded in {run.load_seconds:.2f} s; tokens/s "
+        f"{again['tokens_per_s']:.2f}, decode step ms "
+        f"{again['decode_step_ms']:.3f}, ITL p50/p99/max "
+        f"{1e3 * st.itl_percentile(50):.1f}/{1e3 * st.itl_percentile(99):.1f}"
+        f"/{1e3 * st.max_itl:.1f} ms (launcher's drive), KV bytes "
+        f"{eng.cache_bytes()} on {card}")
+    result = dict(
+        checkpoint=dict(bytes=nbytes, files=files, write_s=write_s,
+                        load_s=run.load_seconds, dtype_stored="bfloat16",
+                        params_dtype=mcfg.param_dtype),
+        model=dict(name=mcfg.name, layers=layers, d_model=mcfg.d_model,
+                   heads=mcfg.attention.num_heads,
+                   kv_heads=mcfg.attention.num_kv_heads,
+                   head_dim=mcfg.attention.head_dim, d_ff=mcfg.d_ff,
+                   vocab=mcfg.vocab_size, tied=mcfg.tie_embeddings),
+        launcher=dict(wall_s=run.seconds, tokens=st.tokens_emitted,
+                      tokens_per_s=st.tokens_emitted / run.seconds,
+                      decode_steps=st.decode_steps,
+                      itl_p50_ms=1e3 * st.itl_percentile(50),
+                      itl_p99_ms=1e3 * st.itl_percentile(99),
+                      max_itl_ms=1e3 * st.max_itl,
+                      launches_with_verify=main_launches),
+        second_serve={k: v for k, v in again.items()
+                      if k not in ("tokens", "admit_logits", "step_logits")},
+        launches=launches, cache_bytes=eng.cache_bytes(),
+        capture_ms=eng.step_graph.capture_ms,
+        graph_pool_bytes=eng.step_graph.pool_bytes,
+        reference="aqua-block-sparse-plain",
+        reference_decode_step_ms=ref["decode_step_ms"],
+        vs_reference=vs_ref, bf16_inputs_control=vs_ctl,
+        f32_rtol=F32_RTOL, f32_atol=F32_ATOL, logit_scale=HF_LOGIT_SCALE)
+    log({"hf_serve": result})
+    return dict(result, phases=phases)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1541,6 +1803,7 @@ def main() -> int:
     assert not bad, f"kernel disagrees with its plain version: {bad}"
 
     serve = serve_phase(card)
+    hf = hf_serve_phase(card, gen)
     src = "src/repro_torch/kernels/csrc/"
     tpu = "src/repro/kernels/"
     sources = {
@@ -1595,7 +1858,16 @@ def main() -> int:
              plain_ms=wp["plain_ms"], bound_ms=wp["bound_ms"],
              bound_by=wp["bound_by"], library_ms=wp["library_ms"],
              no_window_ms=wp["no_window_ms"])
+    # the float32 routes, launched by the HF checkpoint's drive
+    for p in hf["phases"]:
+        next(k for k in kernels if k["name"] == p["name"])["float32_route"] = \
+            dict(route=p["route"], shape=p["shape"],
+                 launches=hf["launches"][p["name"]],
+                 max_abs_err=p["max_abs_err"], ms=p["ms"],
+                 plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+                 bound_by=p["bound_by"], library_ms=p["library_ms"])
     assert sorted(k["name"] for k in kernels) == sorted(KERNELS)
+    log_time("done")
     log(card)                      # name, power.limit as nvidia-smi prints
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

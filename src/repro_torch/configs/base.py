@@ -61,6 +61,7 @@ class AttentionConfig:
     kind: str = "full"            # full | swa (sliding-window) | local
     window: Optional[int] = None  # for swa / local: keys kpos > qpos - window
     qk_norm: bool = False
+    qkv_bias: bool = False        # Qwen2-style q/k/v projection biases
     rope_theta: float = 10000.0
     # Backend registry key (repro_torch.core.attention): "auto" | "dense" |
     # "aqua-masked-dense" | "aqua-block-sparse" | "aqua-block-sparse-plain".

@@ -115,7 +115,8 @@ def init_attention_params(gen: torch.Generator, d_model: int,
                           cfg: AttentionConfig, dtype=torch.float32,
                           device=None) -> dict:
     """Random attention weights in the JAX layouts: wq (M, KV, G, D),
-    wk/wv (M, KV, D), wo (KV, G, D, M)."""
+    wk/wv (M, KV, D), wo (KV, G, D, M); with ``qkv_bias`` zero biases bq
+    (KV, G, D), bk/bv (KV, D), as the JAX package initializes them."""
     h, g, d = cfg.num_kv_heads, cfg.group_size, cfg.head_dim
     std = d_model ** -0.5
 
@@ -124,6 +125,10 @@ def init_attention_params(gen: torch.Generator, d_model: int,
                            device=device).mul_(std).to(dtype)
     p = {"wq": normal(d_model, h, g, d), "wk": normal(d_model, h, d),
          "wv": normal(d_model, h, d), "wo": normal(h, g, d, d_model)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(h, g, d, dtype=dtype, device=device)
+        p["bk"] = torch.zeros(h, d, dtype=dtype, device=device)
+        p["bv"] = torch.zeros(h, d, dtype=dtype, device=device)
     if cfg.qk_norm:
         p["q_norm"] = torch.ones(d, dtype=dtype, device=device)
         p["k_norm"] = torch.ones(d, dtype=dtype, device=device)
@@ -139,10 +144,16 @@ def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig,
         positions: torch.Tensor
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns q (B,S,KV,G,D), k (B,S,KV,D), v (B,S,KV,D), RoPE'd."""
+    """Returns q (B,S,KV,G,D), k (B,S,KV,D), v (B,S,KV,D), RoPE'd. The
+    biases (``qkv_bias``) add before qk-norm and RoPE, as in JAX; every
+    prefill, chunk and decode path projects through here."""
     q = _proj_in(x, params["wq"])
     k = _proj_in(x, params["wk"])
     v = _proj_in(x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])

@@ -1,14 +1,17 @@
-"""Calibration corpus reader (port of the ``kind="corpus"`` source of the
-JAX package's ``data/pipeline.py``), numpy only.
+"""Calibration sources (port of the ``kind="corpus"`` and ``kind="lcg"``
+sources of the JAX package's ``data/pipeline.py``), numpy only.
 
-Windows are a pure function of (seed, step, row), so both packages draw
-the same token windows from the same file.
+Corpus windows are a pure function of (seed, step, row), so both packages
+draw the same token windows from the same file. The synthetic LCG
+language follows the same affine rule as JAX's, but draws its
+coefficients from a numpy ``Generator`` seeded with (seed, step), not from
+``jax.random``: its tokens differ from the JAX package's.
 """
 from __future__ import annotations
 
 import functools
 import os
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -51,11 +54,34 @@ def corpus_batch(path: str, vocab_size: int, seq_len: int, batch: int,
             "labels": windows[:, 1:].astype(np.int32)}
 
 
-def calibration_batches(vocab_size: int, corpus_path: str, *,
-                        num_batches: int = 4, batch: int = 2, seq: int = 128,
-                        seed: int = 1234) -> Iterator[Dict[str, np.ndarray]]:
-    """Calibration batches ({"tokens": (batch, seq) int32}) from a corpus
-    file — the JAX ``calibration_batches`` with ``corpus_path`` set."""
+def lcg_batch(vocab_size: int, seq_len: int, batch: int, seed: int,
+              step: int) -> Dict[str, np.ndarray]:
+    """The synthetic LCG language: ``tokens[t+1] = (a * tokens[t] + c) mod
+    V`` with per-row a in [1, min(V, 17)), c and tokens[0] in [0, V),
+    drawn from ``default_rng([seed, step])``. Returns {"tokens",
+    "labels"} (B, S) int32."""
+    rng = np.random.default_rng([seed, step])
+    a = rng.integers(1, min(vocab_size, 17), size=batch, dtype=np.int64)
+    c = rng.integers(0, vocab_size, size=batch, dtype=np.int64)
+    seq = np.empty((batch, seq_len + 1), np.int64)
+    seq[:, 0] = rng.integers(0, vocab_size, size=batch, dtype=np.int64)
+    for t in range(seq_len):
+        seq[:, t + 1] = (a * seq[:, t] + c) % vocab_size
+    return {"tokens": seq[:, :-1].astype(np.int32),
+            "labels": seq[:, 1:].astype(np.int32)}
+
+
+def calibration_batches(vocab_size: int, corpus_path: Optional[str] = None,
+                        *, num_batches: int = 4, batch: int = 2,
+                        seq: int = 128, seed: int = 1234
+                        ) -> Iterator[Dict[str, np.ndarray]]:
+    """Calibration batches ({"tokens": (batch, seq) int32}): windows of the
+    corpus file at ``corpus_path``, or, without one, the synthetic LCG
+    language — the JAX ``calibration_batches``."""
     for i in range(num_batches):
-        yield {"tokens": corpus_batch(corpus_path, vocab_size, seq, batch,
-                                      seed, i)["tokens"]}
+        if corpus_path is None:
+            tokens = lcg_batch(vocab_size, seq, batch, seed, i)["tokens"]
+        else:
+            tokens = corpus_batch(corpus_path, vocab_size, seq, batch, seed,
+                                  i)["tokens"]
+        yield {"tokens": tokens}

@@ -1,0 +1,516 @@
+"""Serving entry point of the port: calibrate once, then serve a mixed trace.
+
+The counterpart of the JAX package's ``launch/serve.py``, with the same
+flags and defaults plus ``--device``. Drives the continuous-batching
+engine over a Poisson arrival trace (exponential inter-arrival times in
+decode-step units, mixed prompt lengths) and reports throughput, lane
+occupancy and inter-token gaps; ``--rectangular`` runs the fixed-batch
+``ServeEngine`` instead. ``--hf-checkpoint`` serves real weights
+(``checkpoint/hf.py``: float32 params and activations, as in JAX).
+``--verify`` re-serves the trace on a reference engine and requires
+token-identical outputs, plus the JAX launcher's pool-bytes, int8-pool,
+page-ranking and chunked-gap checks; a failed check prints ``[serve]
+VERIFY FAILED: ...`` and raises ``SystemExit(1)``.
+
+Runs on the CUDA card (``--device cuda``, the default; exits non-zero
+without one) or, when asked, on the CPU (``--device cpu``: the kernels'
+plain versions). What the engine does not serve yet is refused with its
+own message: meshes (``--mesh``, ``--expect-kernel-mesh``), prefix
+sharing (on by default, as in JAX: a paged drive needs
+``--no-prefix-share``, so ``--shared-prefix-len`` has nothing to share
+yet), ``--hot-frac`` > 0, and int8 pools under a window or H2O.
+
+CLI::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --reduced --device cpu --block-dims 8 --requests 8 --lanes 4
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --hf-checkpoint DIR \\
+        --calibration-corpus corpora/calibration.txt --block-dims 8 \\
+        --page-size 64 --no-prefix-share --max-seq 2048 --verify
+
+``main(argv)`` returns a :class:`ServeRun` (the engine, the streamed
+tokens and the stats), so scripts and tests can call it in-process.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ALL_ARCHS, get_config, reduced
+from repro_torch.configs.base import (AquaConfig, CacheSpec, ModelConfig,
+                                      QuantSpec, ServingConfig, SparsitySpec)
+from repro_torch.core.calibration import (AquaProjections, calibrate,
+                                          load_projections, save_projections)
+from repro_torch.data.corpus import calibration_batches, lcg_batch
+from repro_torch.models import build_model
+from repro_torch.models.base import PagingSpec
+from repro_torch.runtime import resolve_device
+from repro_torch.serving import (ContinuousBatchingEngine, ServeEngine,
+                                 poisson_trace)
+from repro_torch.serving.engine import decode_state_bytes
+from repro_torch.serving.scheduler import Request, ScheduleStats
+
+#: calibration forwards (batches of 2 x 32 tokens) when none are loaded
+CALIBRATION_BATCHES = 2
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What one launcher run served. ``streamed`` maps a request uid (for
+    ``--rectangular``: a batch row) to its tokens; ``stats`` is None for
+    ``--rectangular``; ``requests`` is the trace served (empty for
+    ``--rectangular``); ``projections`` the calibrated or loaded AQUA
+    projections (None with AQUA off); ``seconds`` the drive's wall time,
+    ``load_seconds`` the checkpoint's (None without one);
+    ``reference_stats`` the greedy ``--verify`` reference engine's stats
+    after its first drive (None otherwise)."""
+
+    engine: object
+    streamed: Dict[int, List[int]]
+    stats: Optional[ScheduleStats]
+    requests: List[Request]
+    projections: Optional[AquaProjections]
+    seconds: float
+    load_seconds: Optional[float] = None
+    reference_stats: Optional[ScheduleStats] = None
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=ALL_ARCHS,
+                    help="the port's registry config")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="serve on the CUDA card (default; exits non-zero "
+                         "without one) or on the CPU (the kernels' plain "
+                         "versions)")
+    ap.add_argument("--hf-checkpoint", default=None,
+                    help="serve real weights: path to an HF-format "
+                         "safetensors checkpoint dir (config.json + "
+                         "model.safetensors[.index.json]); overrides "
+                         "--arch/--reduced — the architecture is read "
+                         "from config.json (see checkpoint.hf)")
+    ap.add_argument("--calibration-corpus", default=None,
+                    help="tokenized corpus file for the offline SVD "
+                         "calibration (.npy/.npz ids or .txt byte-level); "
+                         "default is the synthetic LCG language")
+    ap.add_argument("--projections", default=None,
+                    help="AquaProjections .npz artifact path: load it if "
+                         "it exists, else calibrate and save there "
+                         "(the JAX package's format)")
+    ap.add_argument("--k-ratio", type=float, default=0.75)
+    ap.add_argument("--s-ratio", type=float, default=0.0)
+    ap.add_argument("--h2o-ratio", type=float, default=1.0)
+    ap.add_argument("--block-dims", type=int, default=1)
+    ap.add_argument("--prefill-q-blk", type=int, default=None,
+                    help="block-sparse prefill kernel q-chunk tile (one "
+                         "dim-block selection per tile); a chunked-prefill "
+                         "budget must be a multiple of it")
+    ap.add_argument("--no-aqua", action="store_true")
+    ap.add_argument("--backend", default=None,
+                    help="attention backend override (see core.attention)")
+    # trace shape
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--lanes", type=int, default=4)
+    ap.add_argument("--mean-interarrival", type=float, default=2.0,
+                    help="Poisson trace: mean inter-arrival (decode steps)")
+    ap.add_argument("--prompt-lens", default="8,16,24",
+                    help="comma-separated mixed prompt lengths")
+    ap.add_argument("--steps", type=int, default=16,
+                    help="max new tokens per request")
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rectangular", action="store_true",
+                    help="fixed-batch ServeEngine drive (comparison)")
+    # block-paged KV cache
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="tokens per KV-cache page: a global page pool + "
+                         "per-lane page tables (None = contiguous); needs "
+                         "--no-prefix-share (prefix sharing is not ported)")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="page-pool size; default = lane-stripe parity "
+                         "(lanes * slots / page_size)")
+    ap.add_argument("--no-prefix-share", action="store_true",
+                    help="disable prompt prefix page sharing (required "
+                         "for a paged drive: sharing is not ported yet)")
+    ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8"),
+                    help="paged K̂/V pool storage dtype: 'int8' stores "
+                         "per-page symmetric-quantized pools with f32 "
+                         "scales (requires --page-size)")
+    ap.add_argument("--scale-granularity", default="page_head",
+                    choices=("page_head", "page"),
+                    help="int8 scale granularity: one scale per "
+                         "(page, kv head) or one per page")
+    ap.add_argument("--hot-frac", type=float, default=0.0,
+                    help="fraction of the pool kept as full-precision hot "
+                         "residents (not ported: > 0 is refused)")
+    # hierarchical (two-stage) token sparsity
+    ap.add_argument("--page-keep-ratio", type=float, default=1.0,
+                    help="hierarchical AQUA: fraction of each lane's pages "
+                         "participating in decode attention (requires "
+                         "--page-size; 1.0 = every page)")
+    ap.add_argument("--pin-recent-pages", type=int, default=2,
+                    help="hierarchical: trailing pages per lane always "
+                         "participating")
+    # chunked-prefill/decode interleaving
+    ap.add_argument("--prefill-budget", type=int, default=None,
+                    help="interleave admissions with decode: at most this "
+                         "many prefill tokens run between consecutive "
+                         "decode steps (None = monolithic admission)")
+    ap.add_argument("--itl-slo-ms", type=float, default=None,
+                    help="report the fraction of inter-token gaps above "
+                         "this wall-clock threshold (SLO miss rate)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="prepend a fixed random prefix of this length to "
+                         "every trace prompt (nothing is shared yet: "
+                         "prefix sharing is not ported)")
+    ap.add_argument("--mesh", default="",
+                    help="serving mesh 'DATAxMODEL' (not ported: anything "
+                         "but ''/1x1 is refused)")
+    ap.add_argument("--verify", action="store_true",
+                    help="re-serve the trace on a reference engine and "
+                         "require token-identical outputs (exits 1 on "
+                         "mismatch)")
+    ap.add_argument("--expect-kernel-mesh", action="store_true",
+                    help="require the mesh kernel path (not ported: "
+                         "refused)")
+    return ap
+
+
+def _mesh_shape(spec: str):
+    """``--mesh`` -> a shape tuple, or None for ''/1x1 (single device)."""
+    if not spec:
+        return None
+    shape = tuple(int(x) for x in spec.lower().split("x"))
+    return None if math.prod(shape) == 1 else shape
+
+
+def _fail(msg: str):
+    print(f"[serve] VERIFY FAILED: {msg}", flush=True)
+    raise SystemExit(1)
+
+
+def _refused(err: NotImplementedError):
+    raise SystemExit(f"[serve] refused: {err}")
+
+
+def main(argv=None) -> ServeRun:
+    args = build_parser().parse_args(argv)
+    if args.expect_kernel_mesh:
+        _refused(NotImplementedError("mesh serving is not ported yet"))
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"[serve] {e} (--device cpu)") from None
+
+    if args.hf_checkpoint is not None:
+        from repro_torch.checkpoint.hf import (config_from_hf,
+                                               load_hf_checkpoint)
+        cfg = config_from_hf(args.hf_checkpoint)
+        print(f"[serve] HF checkpoint {args.hf_checkpoint}: "
+              f"{cfg.name} ({cfg.num_layers}L d{cfg.d_model})")
+    else:
+        cfg = reduced(args.arch) if args.reduced else get_config(args.arch)
+    aqua = None
+    if not args.no_aqua and cfg.attention is not None:
+        aqua = AquaConfig(k_ratio=args.k_ratio, s_ratio=args.s_ratio,
+                          h2o_ratio=args.h2o_ratio,
+                          block_dims=args.block_dims)
+        if args.prefill_q_blk is not None:
+            aqua = dataclasses.replace(aqua,
+                                       prefill_q_blk=args.prefill_q_blk)
+    cfg = dataclasses.replace(cfg, aqua=aqua)
+
+    model = build_model(cfg, dev)
+    load_s = None
+    if args.hf_checkpoint is not None:
+        t0 = time.time()
+        params = load_hf_checkpoint(args.hf_checkpoint, cfg, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        load_s = time.time() - t0
+        print(f"[serve] loaded {cfg.param_dtype} params onto {dev} in "
+              f"{load_s:.2f}s")
+    else:
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+
+    proj = None
+    if aqua is not None and args.projections is not None \
+            and os.path.exists(args.projections):
+        proj = load_projections(args.projections, dev)
+        print(f"[serve] loaded AQUA projections from {args.projections}")
+    elif aqua is not None:
+        src = args.calibration_corpus or "synthetic LCG"
+        print(f"[serve] offline AQUA calibration for {cfg.name} "
+              f"(corpus: {src}) ...")
+
+        def fwd_cap(p, batch):
+            toks = torch.from_numpy(batch["tokens"]).to(dev)
+            return model.forward(p, {"tokens": toks}, capture=True)[1]
+        proj = calibrate(fwd_cap, params, calibration_batches(
+            cfg.vocab_size, args.calibration_corpus,
+            num_batches=CALIBRATION_BATCHES, batch=2, seq=32), cfg,
+            device=dev)
+        if args.projections is not None:
+            save_projections(args.projections, proj)
+            print(f"[serve] saved AQUA projections to {args.projections}")
+
+    if args.rectangular:
+        return dataclasses.replace(
+            _drive_rectangular(cfg, params, proj, args, dev),
+            load_seconds=load_s)
+
+    scfg = ServingConfig(max_lanes=args.lanes, max_seq=args.max_seq,
+                         max_new_tokens=args.steps,
+                         temperature=args.temperature,
+                         prefill_budget_tokens=args.prefill_budget,
+                         cache=CacheSpec(
+                             page_size=args.page_size,
+                             num_pages=args.pool_pages,
+                             prefix_sharing=not args.no_prefix_share),
+                         quant=QuantSpec(
+                             kv_dtype=args.kv_dtype,
+                             scale_granularity=args.scale_granularity,
+                             hot_resident_fraction=args.hot_frac),
+                         sparsity=SparsitySpec(
+                             page_keep_ratio=args.page_keep_ratio,
+                             pin_recent_pages=args.pin_recent_pages),
+                         mesh_shape=_mesh_shape(args.mesh))
+    try:
+        eng = ContinuousBatchingEngine(cfg, params, proj, serving=scfg,
+                                       backend=args.backend, device=dev)
+    except NotImplementedError as e:
+        _refused(e)
+    plan = eng.dispatch_plan()
+    if args.prefill_budget is not None and not plan.chunked_prefill:
+        print("[serve] chunked prefill OFF (monolithic admission): "
+              f"{'; '.join(plan.chunked_reasons)}")
+        if args.verify:
+            _fail("--prefill-budget requested but the engine planned "
+                  "monolithic admission")
+    if args.page_keep_ratio < 1.0 and plan.token_sparsity != "hierarchical":
+        print("[serve] hierarchical token sparsity OFF (all pages "
+              f"participate): {'; '.join(plan.token_reasons)}")
+        if args.verify:
+            _fail("--page-keep-ratio requested but the engine planned full "
+                  "page participation")
+    prompt_lens = tuple(int(x) for x in args.prompt_lens.split(","))
+    reqs = poisson_trace(args.requests,
+                         mean_interarrival=args.mean_interarrival,
+                         prompt_lens=prompt_lens, max_new_tokens=args.steps,
+                         vocab_size=cfg.vocab_size, seed=args.seed,
+                         temperature=args.temperature)
+    if args.shared_prefix_len > 0:
+        pre = np.random.default_rng(args.seed + 1).integers(
+            0, cfg.vocab_size, size=(args.shared_prefix_len,),
+            dtype=np.int32)
+        for r in reqs:
+            r.tokens = np.concatenate([pre, np.asarray(r.tokens, np.int32)])
+
+    t0 = time.time()
+    finished = 0
+    streamed: Dict[int, List[int]] = {}
+    for ev in eng.serve(reqs):
+        streamed.setdefault(ev.uid, []).append(ev.token)
+        if ev.finished:
+            finished += 1
+            print(f"[serve] request {ev.uid} done: {ev.index + 1} tokens "
+                  f"({ev.finish_reason})")
+    dt = time.time() - t0
+    st = eng.stats
+    print(f"[serve] {finished}/{len(reqs)} requests, "
+          f"{st.tokens_emitted} tokens in {dt:.2f}s "
+          f"({st.tokens_emitted / dt:.1f} tok/s), "
+          f"{st.decode_steps} decode steps, "
+          f"mean lane occupancy {st.mean_occupancy:.2f}/{args.lanes}")
+    if st.itl_gaps:
+        line = (f"[serve] inter-token latency: p50 "
+                f"{st.itl_percentile(50) * 1e3:.1f}ms, p99 "
+                f"{st.itl_percentile(99) * 1e3:.1f}ms, max "
+                f"{st.max_itl * 1e3:.1f}ms")
+        if args.itl_slo_ms is not None:
+            line += (f", SLO>{args.itl_slo_ms:g}ms miss rate "
+                     f"{st.slo_miss_rate(args.itl_slo_ms / 1e3):.3f}")
+        print(line)
+    if args.prefill_budget is not None and plan.chunked_prefill:
+        print(f"[serve] chunked prefill: {st.chunked_admissions} admissions "
+              f"interleaved over {st.prefill_chunks} chunk steps "
+              f"(budget {args.prefill_budget} tokens/step)")
+    print(f"[serve] KV cache bytes @ {args.lanes} lanes: "
+          f"{eng.cache_bytes():,}")
+    if eng.paged:
+        _report_pool(eng, cfg, args, dev)
+    ref_stats = None
+    if args.verify:
+        ref_stats = _verify_tokens(eng, cfg, params, proj, scfg, plan, reqs,
+                                   streamed, args, dev)
+    return ServeRun(engine=eng, streamed=streamed, stats=st, requests=reqs,
+                    projections=proj, seconds=dt, load_seconds=load_s,
+                    reference_stats=ref_stats)
+
+
+def _report_pool(eng, cfg: ModelConfig, args, dev) -> None:
+    """The paged pool's lines, and with ``--verify`` the pool-bytes check,
+    the page-ranking oracle (hierarchical) and the int8 pool's < 0.60
+    gate."""
+    pool = eng.page_pool
+    num_pages, per_lane, ps = eng.pool_geometry
+    stripe_bytes = decode_state_bytes(build_model(cfg, dev), args.lanes,
+                                      args.max_seq)
+    ratio = eng.cache_bytes() / stripe_bytes
+    print(f"[serve] page pool: {num_pages} pages x {ps} tokens "
+          f"(lane-stripe parity {per_lane * args.lanes}), "
+          f"peak {pool.peak_in_use} in use, "
+          f"mean utilization {pool.mean_utilization:.2f}")
+    print("[serve] prefix sharing: off (not ported), 0 admissions reused a "
+          "shared prefix, 0 prefill tokens saved")
+    print(f"[serve] pool bytes vs lane-stripe bytes: "
+          f"{eng.cache_bytes():,} / {stripe_bytes:,} = {ratio:.2f}x")
+    if args.verify and num_pages < per_lane * args.lanes \
+            and eng.cache_bytes() >= stripe_bytes:
+        _fail("paged pool is smaller than lane-stripe parity but does not "
+              "report fewer cache bytes")
+    if eng.kept_pages is not None:
+        kp = eng.kept_pages
+        print(f"[serve] hierarchical: {kp}/{per_lane} pages per lane "
+              f"participate in decode (keep ratio "
+              f"{args.page_keep_ratio:g}, {args.pin_recent_pages} "
+              "recent pinned)")
+        # the page-ranking oracle against the stage-1 selection on the
+        # terminal engine state: the table the kernels read is the one the
+        # reference ranking math produces
+        if args.verify:
+            from repro_torch.core import selection
+            layers = eng.last_state.layers
+            n = layers.page_table.shape[0]
+            bad = 0
+            for li in range(n):
+                c = layers.layer(li)
+                got = selection.participating_pages(
+                    c.acc_pool, c.page_table, c.count, page_size=ps,
+                    kept_pages=kp,
+                    pin_recent_pages=args.pin_recent_pages).cpu().numpy()
+                want = selection.reference_participating_pages(
+                    c.acc_pool.cpu(), c.page_table.cpu(), c.count.cpu(),
+                    page_size=ps, kept_pages=kp,
+                    pin_recent_pages=args.pin_recent_pages)
+                bad += int(not np.array_equal(got, want))
+            if bad:
+                _fail(f"page ranking diverges from the numpy oracle on "
+                      f"{bad}/{n} layer caches")
+            print(f"[serve] verify: page-ranking oracle agrees on all {n} "
+                  "layer caches")
+    if eng.scfg.quant_spec.quantized:
+        fp_model = build_model(cfg, dev)
+        fp_model.enable_paging(PagingSpec(ps, num_pages))
+        fp_bytes = decode_state_bytes(fp_model, args.lanes, args.max_seq)
+        qratio = eng.cache_bytes() / fp_bytes
+        print(f"[serve] quantized pool ({eng.scfg.quant_spec.kv_dtype}) "
+              f"bytes vs full-precision paged: {eng.cache_bytes():,} "
+              f"/ {fp_bytes:,} = {qratio:.2f}x")
+        if args.verify and qratio >= 0.60:
+            _fail("quantized pool does not realize the memory win "
+                  "(expected <= 0.60x the full-precision paged pool)")
+
+
+def _verify_tokens(eng, cfg, params, proj, scfg, plan, reqs, streamed, args,
+                   dev) -> Optional[ScheduleStats]:
+    """Token identity with a reference engine, as the JAX launcher routes
+    it (single device here always). Greedy: the contiguous engine, or, for
+    int8 pools and hierarchical drives (whose rounding or page dropping is
+    part of the result), the paged engine with the same specs; always
+    admitting monolithically, so a chunked drive is pinned to the engine
+    it replaces. Temperature > 0: each request re-served alone on a fresh
+    engine of the same specs (placement independence). Then, for a chunked
+    greedy drive, the warm max inter-token gap check. Returns the
+    greedy reference engine's stats after its first drive (None when
+    sampling)."""
+    ref_stats = None
+    if args.temperature > 0:
+        where = "solo"
+        ref = {}
+        for r in reqs:
+            solo = ContinuousBatchingEngine(cfg, params, proj, serving=scfg,
+                                            backend=args.backend, device=dev)
+            ref.update(solo.run([dataclasses.replace(r, arrival=0.0)]))
+    else:
+        if plan.quantization != "none" or plan.token_sparsity != "none":
+            where = ("single-device paged" if plan.quantization == "none"
+                     else f"single-device paged {plan.quantization}")
+            if plan.token_sparsity != "none":
+                where += " hierarchical"
+            ref_scfg = scfg
+        else:
+            where = "single-device contiguous"
+            ref_scfg = dataclasses.replace(scfg, cache=CacheSpec(),
+                                           quant=QuantSpec())
+        ref_scfg = dataclasses.replace(ref_scfg, prefill_budget_tokens=None)
+        if args.prefill_budget is not None:
+            where += " monolithic-admit"
+        ref_eng = ContinuousBatchingEngine(cfg, params, proj,
+                                           serving=ref_scfg,
+                                           backend=args.backend, device=dev)
+        ref = ref_eng.run(reqs)
+        ref_stats = ref_eng.stats    # each serve makes a new one
+    bad = [uid for uid, toks in streamed.items()
+           if list(ref[uid].tokens) != toks]
+    if bad:
+        _fail(f"outputs diverge from the {where} reference for uids {bad}")
+    print(f"[serve] verify: all {len(streamed)} requests token-identical to "
+          f"the {where} reference engine")
+    if (args.prefill_budget is not None and plan.chunked_prefill
+            and args.temperature == 0):
+        # interleaving exists to keep decode lanes from stalling behind a
+        # whole co-tenant prefill: the worst gap must come down against
+        # the monolithic reference on the same trace. Both engines re-serve
+        # warm, once each: the first drives' gaps hold one-off costs
+        # (the chunked engine's extra chunk shapes), not admission stalls
+        eng.run([dataclasses.replace(r) for r in reqs])
+        ref_eng.run([dataclasses.replace(r) for r in reqs])
+        warm_max, ref_max = eng.stats.max_itl, ref_eng.stats.max_itl
+        if warm_max >= ref_max and ref_max > 0:
+            _fail(f"chunked max inter-token gap {warm_max * 1e3:.1f}ms is "
+                  f"not below the monolithic reference's "
+                  f"{ref_max * 1e3:.1f}ms (warm re-drives)")
+        print(f"[serve] verify: max inter-token gap {warm_max * 1e3:.1f}ms "
+              f"< monolithic {ref_max * 1e3:.1f}ms (warm re-drives)")
+    return ref_stats
+
+
+def _drive_rectangular(cfg, params, proj, args, dev) -> ServeRun:
+    """Fixed-batch drive: every request prefills together and decodes in
+    lockstep (no overlap). Prompts: the synthetic LCG language."""
+    eng = ServeEngine(cfg, params, proj, max_seq=args.max_seq,
+                      backend=args.backend, device=dev)
+    batch_size = min(args.requests, args.lanes)
+    prompt_len = int(args.prompt_lens.split(",")[0])
+    batch = {"tokens": lcg_batch(cfg.vocab_size, prompt_len, batch_size,
+                                 seed=0, step=0)["tokens"]}
+    t0 = time.time()
+    res = eng.generate(batch, steps=args.steps,
+                       temperature=args.temperature)
+    dt = time.time() - t0
+    tps = batch_size * args.steps / dt
+    print(f"[serve] rectangular: generated {res.tokens.shape} tokens in "
+          f"{dt:.2f}s ({tps:.1f} tok/s)")
+    print(f"[serve] KV cache bytes @ batch={batch_size}: "
+          f"{eng.cache_bytes(batch_size):,}")
+    print("[serve] sample:", res.tokens[0][:16].tolist())
+    return ServeRun(engine=eng, streamed={i: row.tolist() for i, row in
+                                          enumerate(res.tokens)},
+                    stats=None, requests=[], projections=proj, seconds=dt)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,14 @@
-"""Continuous-batching serving engine (PyTorch port).
+"""Serving engines (PyTorch port): rectangular batch (``ServeEngine``) and
+continuous batching (``ContinuousBatchingEngine``).
 
-Port of the JAX package's ``ContinuousBatchingEngine``, on the contiguous
+``ServeEngine`` is the JAX package's calibrate-once/serve API: one
+rectangular prompt batch prefills together and decodes in lockstep for a
+fixed number of steps. It steps eagerly (``model.decode_step`` per step,
+no step graph): it serves comparisons and scoring-style drives, not
+traffic.
+
+``ContinuousBatchingEngine`` is the port of the JAX package's engine of
+that name, on the contiguous
 or the paged KV cache (paged: optionally with int8 pools, ``QuantSpec``,
 and hierarchical AQUA, ``SparsitySpec``). Requests are admitted into fixed
 decode *lanes* (batch rows of one shared decode state); a monolithic
@@ -82,6 +90,14 @@ from repro_torch.serving.step_graph import StepGraph
 NEG_INF = -1e30
 
 
+def decode_state_bytes(model, batch_size: int, max_seq: int) -> int:
+    """KV-cache footprint of a decode state, shape-only (allocated on the
+    ``meta`` device): the one source of cache-byte accounting for both
+    engines. A paged pool is counted once, not per lane."""
+    state = model.init_decode_state(batch_size, max_seq, device="meta")
+    return kvc.tree_bytes(state.layers)
+
+
 def sample_tokens(logits: torch.Tensor, temperature: np.ndarray,
                   top_k: np.ndarray, seeds: np.ndarray) -> np.ndarray:
     """Per-row sampling. logits (N, V); temperature (N,) (<= 0: greedy);
@@ -99,6 +115,83 @@ def sample_tokens(logits: torch.Tensor, temperature: np.ndarray,
         gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
         tok[i] = int(torch.argmax(lg / float(temperature[i]) + gumbel))
     return tok
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray          # (B, steps)
+    logits_last: np.ndarray     # (B, V) float32: the last step's logits
+
+
+class ServeEngine:
+    """Rectangular-batch engine::
+
+        eng = ServeEngine(cfg, params, proj, max_seq=256)
+        res = eng.generate({"tokens": prompts}, steps=16)   # (B, 16)
+
+    ``device`` None serves on the CUDA card (raises without one); the
+    tests pass ``device="cpu"``. Greedy (temperature 0) tokens are the
+    JAX ``ServeEngine``'s; temperature sampling draws Gumbel noise from
+    ``torch.Generator``s seeded per (call, step, row), not JAX's stream.
+    """
+
+    def __init__(self, cfg: ModelConfig, params,
+                 projections: Optional[AquaProjections] = None,
+                 max_seq: int = 4096, rng_seed: int = 0,
+                 backend: Optional[str] = None, device=None):
+        if backend is not None:
+            resolve_backend(backend, aqua=cfg.aqua)
+            cfg = dataclasses.replace(
+                cfg, attention=dataclasses.replace(cfg.attention,
+                                                   backend=backend))
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = build_model(cfg, self.device)
+        self.params = params
+        self.proj = None
+        if cfg.aqua is not None and cfg.aqua.enabled:
+            assert projections is not None, \
+                "AQUA enabled: calibrated projections required"
+            self.proj = aqua_lib.stored_projection(
+                projections.p.to(self.device), cfg.aqua,
+                cfg.attention.head_dim)
+        self.max_seq = max_seq
+        self._rng_seed = rng_seed
+        self._calls = 0
+
+    def _sample(self, logits: torch.Tensor, temperature: float,
+                step: int) -> np.ndarray:
+        b = logits.shape[0]
+        seeds = np.array([int(np.random.SeedSequence(
+            [self._rng_seed, self._calls, step, row]).generate_state(1)[0])
+            for row in range(b)]) if temperature > 0 else np.zeros(b)
+        return sample_tokens(logits, np.full(b, temperature, np.float32),
+                             np.zeros(b, np.int64), seeds)
+
+    def generate(self, batch: Dict[str, object], steps: int,
+                 temperature: float = 0.0) -> GenerationResult:
+        """batch: prompt inputs ({"tokens": (B, S_prompt)}, optionally
+        ragged ``"lengths"`` (B,)), numpy arrays or tensors. The first
+        token comes from the prefill, the other ``steps - 1`` from decode
+        steps."""
+        self._calls += 1
+        inputs = {k: torch.as_tensor(v).to(self.device, torch.int32)
+                  for k, v in batch.items()}
+        logits, state = self.model.prefill(self.params, inputs, self.max_seq,
+                                           aqua_proj=self.proj)
+        out = [self._sample(logits, temperature, 0)]
+        for i in range(1, steps):
+            tok = torch.from_numpy(out[-1]).to(self.device)
+            logits, state = self.model.decode_step(self.params, state, tok,
+                                                   aqua_proj=self.proj)
+            out.append(self._sample(logits, temperature, i))
+        return GenerationResult(tokens=np.stack(out, axis=1),
+                                logits_last=logits.float().cpu().numpy())
+
+    def cache_bytes(self, batch_size: int) -> int:
+        """KV-cache footprint at ``batch_size`` (AQUA-Memory savings show
+        up here); see :func:`decode_state_bytes`."""
+        return decode_state_bytes(self.model, batch_size, self.max_seq)
 
 
 @dataclasses.dataclass
@@ -259,6 +352,16 @@ class ContinuousBatchingEngine:
     @property
     def pages_per_lane(self) -> Optional[int]:
         return self._pages_per_lane if self._paged else None
+
+    @property
+    def pool_geometry(self):
+        """(num_pages, pages_per_lane, page_size) in paged mode, None
+        otherwise. ``num_pages < max_lanes * pages_per_lane`` means the
+        pool is smaller than the lane-stripe layout it replaces."""
+        if not self._paged:
+            return None
+        return (self._num_pages, self._pages_per_lane,
+                self.cache_spec.page_size)
 
     # -- host-side helpers ------------------------------------------------
     def _normalize(self, req: Request) -> Request:
@@ -629,9 +732,7 @@ class ContinuousBatchingEngine:
         return outs
 
     def cache_bytes(self) -> int:
-        """KV-cache footprint of the lane state (shape-only, allocated on
-        the ``meta`` device): the page pool is counted once when paged."""
-        state = self.model.init_decode_state(self.scfg.max_lanes,
-                                             self.scfg.max_seq,
-                                             device="meta")
-        return kvc.tree_bytes(state.layers)
+        """KV-cache footprint of the lane state (shape-only, see
+        :func:`decode_state_bytes`): the page pool is counted once."""
+        return decode_state_bytes(self.model, self.scfg.max_lanes,
+                                  self.scfg.max_seq)

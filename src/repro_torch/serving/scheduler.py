@@ -88,10 +88,22 @@ class ScheduleStats:
     def mean_occupancy(self) -> float:
         return self.occupancy_sum / max(self.decode_steps, 1)
 
+    @property
+    def max_itl(self) -> float:
+        return max(self.itl_gaps) if self.itl_gaps else 0.0
+
     def itl_percentile(self, pct: float) -> float:
+        """Inter-token latency percentile in seconds (0 if no gaps)."""
         if not self.itl_gaps:
             return 0.0
         return float(np.percentile(np.asarray(self.itl_gaps), pct))
+
+    def slo_miss_rate(self, threshold_s: float) -> float:
+        """Fraction of inter-token gaps exceeding ``threshold_s``."""
+        if not self.itl_gaps:
+            return 0.0
+        return sum(1 for g in self.itl_gaps if g > threshold_s) / len(
+            self.itl_gaps)
 
 
 class LaneScheduler:

@@ -835,3 +835,70 @@ def test_step_graph_replays_eager_decode_bitwise(cuda, name):
             aqua_proj=eng.proj, write_mask=torch.from_numpy(active).cuda())
         assert torch.equal(bits(got), bits(want))
     assert_bitwise(state_tensors(state), state_tensors(twin))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged", "int8"])
+def test_second_serve_through_the_captured_graph_matches_a_fresh_engine(
+        cuda, layout):
+    """One engine serves the same trace twice: its second ``serve()``
+    replays the step graph captured at the first, over the state emptied in
+    place, and must give the tokens of a fresh engine (float32, so the
+    per-head decode route)."""
+    aq = AquaConfig(k_ratio=0.75, block_dims=8, prefill_q_blk=16)
+    cfg = dataclasses.replace(reduced("qwen3-0.6b", d_model=256,
+                                      vocab=512), aqua=aq)
+    params = build_model(cfg).init(torch.Generator(device="cuda")
+                                   .manual_seed(3))
+    proj = identity_projections(cfg.num_layers, cfg.attention.num_kv_heads,
+                                cfg.attention.head_dim)
+    reqs = lambda: poisson_trace(6, mean_interarrival=1.5,
+                                 prompt_lens=(9, 33, 70), max_new_tokens=8,
+                                 vocab_size=512, seed=6)
+    paged = CacheSpec(page_size=16, prefix_sharing=False)
+    kw = {"contiguous": dict(cache=None), "paged": dict(cache=paged),
+          "int8": dict(cache=paged, quant=QuantSpec(kv_dtype="int8"))}[layout]
+    scfg = ServingConfig(max_lanes=3, max_seq=128, max_new_tokens=8, **kw)
+    eng = ContinuousBatchingEngine(cfg, params, proj, serving=scfg)
+    first = eng.run(reqs())
+    graph = eng.step_graph
+    second = eng.run(reqs())
+    assert eng.step_graph is graph
+    fresh = ContinuousBatchingEngine(cfg, params, proj, serving=scfg).run(
+        reqs())
+    want = {u: o.tokens for u, o in fresh.items()}
+    assert {u: o.tokens for u, o in first.items()} == want
+    assert {u: o.tokens for u, o in second.items()} == want
+
+
+def test_safetensors_reader_round_trips_bf16_onto_the_card(cuda, tmp_path):
+    """bf16 written from the card, read back by the port's codec and moved
+    to the card bit for bit; an HF checkpoint stored in bf16 loads onto the
+    card exactly as onto the CPU (the float32 widening is exact)."""
+    from repro_torch.checkpoint import fixtures, hf
+    from repro_torch.checkpoint import safetensors as st
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(3, 257, generator=gen, device="cuda").to(torch.bfloat16)
+    odd = torch.randn(7, generator=gen, device="cuda").to(torch.bfloat16)
+    path = str(tmp_path / "x.safetensors")
+    st.save_file({"odd": odd, "x": x}, path)
+    back = st.load_file(path)
+    assert back["x"].dtype == torch.bfloat16
+    assert torch.equal(back["x"].to("cuda").view(torch.int16),
+                       x.view(torch.int16))
+    assert torch.equal(back["odd"].to("cuda"), odd)
+    out = str(tmp_path / "ckpt")
+    fixtures.write_hf_fixture(out, variant="sharded", dtype="bfloat16",
+                              device="cuda")
+    cfg = hf.config_from_hf(out)
+    on_card = hf.load_hf_checkpoint(out, cfg)
+    on_cpu = hf.load_hf_checkpoint(out, cfg, device="cpu")
+
+    def leaves(t, p=()):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k], p + (k,))
+        else:
+            yield p, t
+    for (pa, a), (pb, b) in zip(leaves(on_card), leaves(on_cpu)):
+        assert pa == pb and a.device.type == "cuda"
+        assert torch.equal(a.cpu(), b), pa

@@ -1,0 +1,248 @@
+"""The port's serving entry point, ``python -m repro_torch.launch.serve``,
+against the JAX package's engine, at the JAX writer's tiny qwen3 geometry
+(``QWEN3_TINY``: 2 layers, width 64) and the width of
+tests/test_torch_chunked_engine.py (max_seq 96, 8-token pages, budget 16).
+
+``main([... --device cpu --verify])`` serves an HF checkpoint (bf16
+stored, written by the JAX writer) calibrated on
+``corpora/calibration.txt`` and saves the projections; a JAX
+``ContinuousBatchingEngine`` on JAX's load of the same files and those
+projections (``aqua-block-sparse``, Pallas in interpret mode) must give the
+same greedy tokens, on the contiguous cache, the paged pool, an int8 pool,
+and hierarchical AQUA with chunked prefill on bf16 and int8 pools. The
+launcher's own ``--verify`` (token identity with its reference engine,
+the pool checks, the page-ranking oracle, the chunked gap check) passes
+on every path. Plus ``--rectangular`` against JAX's ``ServeEngine``, the
+refusals of what the engine does not serve, the refusal without a card,
+and ``ScheduleStats``' gap statistics against JAX's.
+"""
+import dataclasses
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import fixtures as jfix
+from repro.checkpoint import hf as jhf
+from repro.configs.base import AquaConfig as JaxAquaConfig
+from repro.configs.base import CacheSpec as JaxCacheSpec
+from repro.configs.base import QuantSpec as JaxQuantSpec
+from repro.configs.base import ServingConfig as JaxServingConfig
+from repro.configs.base import SparsitySpec as JaxSparsitySpec
+from repro.core.calibration import load_projections as jax_load_projections
+from repro.serving import ContinuousBatchingEngine as JaxEngine
+from repro.serving import ServeEngine as JaxServeEngine
+from repro.serving import poisson_trace as jax_poisson_trace
+from repro.serving.scheduler import ScheduleStats as JaxScheduleStats
+from repro_torch.data.corpus import lcg_batch
+from repro_torch.launch.serve import main
+from repro_torch.serving.scheduler import ScheduleStats
+
+CORPUS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "corpora", "calibration.txt")
+AQUA = dict(k_ratio=0.5, block_dims=8, prefill_q_blk=16)
+TRACE = dict(requests=5, lanes=4, prompt_lens=(20, 40, 60), steps=6,
+             max_seq=96, mean_interarrival=2.0)
+PAGED = ["--page-size", "8", "--no-prefix-share"]
+PATHS = {
+    "contiguous": [],
+    "paged": PAGED,
+    "int8": PAGED + ["--kv-dtype", "int8"],
+    "hier-chunked": PAGED + ["--page-keep-ratio", "0.375",
+                             "--prefill-budget", "16"],
+    "hier-chunked-int8": PAGED + ["--kv-dtype", "int8",
+                                  "--page-keep-ratio", "0.375",
+                                  "--prefill-budget", "16"],
+}
+# the chunked paths: a trace whose first request decodes alone while the
+# other 19 arrive (within 0.65 steps), so the monolithic reference stalls
+# it behind 19 admissions in one gap (~65 ms on an idle host) where the
+# chunked engine runs one chunk (~8 ms): the gap check's margin stays
+# above what a host loaded by other test workers adds to a gap
+BUNCHED = dict(TRACE, requests=20, lanes=20, mean_interarrival=0.03, seed=0)
+
+
+def _argv(ckpt, proj_path, *extra, t=TRACE):
+    return ["--device", "cpu", "--hf-checkpoint", ckpt,
+            "--calibration-corpus", CORPUS, "--projections", proj_path,
+            "--k-ratio", str(AQUA["k_ratio"]),
+            "--block-dims", str(AQUA["block_dims"]),
+            "--prefill-q-blk", str(AQUA["prefill_q_blk"]),
+            "--backend", "aqua-block-sparse",
+            "--requests", str(t["requests"]), "--lanes", str(t["lanes"]),
+            "--prompt-lens", ",".join(map(str, t["prompt_lens"])),
+            "--steps", str(t["steps"]), "--max-seq", str(t["max_seq"]),
+            "--mean-interarrival", str(t["mean_interarrival"]),
+            "--seed", str(t.get("seed", 0)), *extra]
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("hf") / "qwen3_tiny")
+    jfix.write_hf_fixture(out, seed=1, variant="sharded", dtype="bfloat16")
+    jcfg = jhf.config_from_hf(out)
+    return out, jcfg, jhf.load_hf_checkpoint(out, jcfg)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread while a drive runs: the chunked ``--verify``
+    compares wall-clock gaps, which thread oversubscription under several
+    test workers would blur."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _jax_serving(extra, t):
+    page = "--page-size" in extra
+    opt = {a: b for a, b in zip(extra, extra[1:]) if a.startswith("--")}
+    return JaxServingConfig(
+        max_lanes=t["lanes"], max_seq=t["max_seq"], max_new_tokens=t["steps"],
+        prefill_budget_tokens=(int(opt["--prefill-budget"])
+                               if "--prefill-budget" in opt else None),
+        cache=JaxCacheSpec(page_size=8 if page else None,
+                           prefix_sharing=False),
+        quant=JaxQuantSpec(kv_dtype=opt.get("--kv-dtype", "bf16")),
+        sparsity=JaxSparsitySpec(page_keep_ratio=float(
+            opt.get("--page-keep-ratio", 1.0))))
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_cli_greedy_tokens_match_jax_engine(ckpt, tmp_path, capsys,
+                                            one_thread, path):
+    out, jcfg, jparams = ckpt
+    proj_path = str(tmp_path / "proj.npz")
+    extra = PATHS[path]
+    t = BUNCHED if "--prefill-budget" in extra else TRACE
+    run = main(_argv(out, proj_path, "--verify", *extra, t=t))
+    printed = capsys.readouterr().out
+    assert f"[serve] verify: all {t['requests']} requests token-identical" \
+        in printed
+    assert os.path.exists(proj_path)
+    reqs = jax_poisson_trace(t["requests"],
+                             mean_interarrival=t["mean_interarrival"],
+                             prompt_lens=t["prompt_lens"],
+                             max_new_tokens=t["steps"],
+                             vocab_size=jcfg.vocab_size,
+                             seed=t.get("seed", 0))
+    jeng = JaxEngine(dataclasses.replace(jcfg, aqua=JaxAquaConfig(**AQUA)),
+                     jparams, jax_load_projections(proj_path),
+                     serving=_jax_serving(extra, t),
+                     backend="aqua-block-sparse")
+    want = jeng.run(reqs)
+    assert sorted(run.streamed) == sorted(want)
+    # the reference engine's first drive served the whole trace
+    assert run.reference_stats.admissions == t["requests"]
+    assert run.reference_stats.tokens_emitted == t["requests"] * t["steps"]
+    for uid, o in want.items():
+        assert run.streamed[uid] == list(o.tokens), uid
+    plan = run.engine.dispatch_plan()
+    jplan = jeng.dispatch_plan()
+    assert (plan.chunked_prefill, plan.quantization, plan.token_sparsity) \
+        == (jplan.chunked_prefill, jplan.quantization, jplan.token_sparsity)
+    if "--prefill-budget" in extra:
+        assert plan.chunked_prefill and plan.token_sparsity == "hierarchical"
+        assert "page-ranking oracle agrees on all 2 layer caches" in printed
+        assert "max inter-token gap" in printed
+    if "--kv-dtype" in extra:
+        assert "quantized pool (int8)" in printed
+    if extra:
+        assert run.engine.pool_geometry == (12 * t["lanes"], 12, 8)
+        assert "[serve] pool bytes vs lane-stripe bytes" in printed
+
+
+def test_cli_rectangular_matches_jax_serve_engine(ckpt, tmp_path, capsys):
+    out, jcfg, jparams = ckpt
+    proj_path = str(tmp_path / "proj.npz")
+    run = main(_argv(out, proj_path, "--rectangular"))
+    printed = capsys.readouterr().out
+    assert "[serve] rectangular: generated (4, 6) tokens" in printed
+    prompts = lcg_batch(jcfg.vocab_size, 20, 4, seed=0, step=0)["tokens"]
+    jeng = JaxServeEngine(dataclasses.replace(jcfg,
+                                              aqua=JaxAquaConfig(**AQUA)),
+                          jparams, jax_load_projections(proj_path),
+                          max_seq=TRACE["max_seq"],
+                          backend="aqua-block-sparse")
+    want = np.asarray(jeng.generate({"tokens": jnp.asarray(prompts)},
+                                    steps=TRACE["steps"]).tokens)
+    assert run.stats is None
+    assert [run.streamed[i] for i in range(4)] == want.tolist()
+
+
+def test_cli_reuses_saved_projections(ckpt, tmp_path, capsys):
+    out = ckpt[0]
+    proj_path = str(tmp_path / "proj.npz")
+    first = main(_argv(out, proj_path))
+    assert "saved AQUA projections" in capsys.readouterr().out
+    second = main(_argv(out, proj_path, "--itl-slo-ms", "5"))
+    printed = capsys.readouterr().out
+    assert "loaded AQUA projections" in printed
+    assert (f"max {second.stats.max_itl * 1e3:.1f}ms, SLO>5ms miss rate "
+            f"{second.stats.slo_miss_rate(0.005):.3f}") in printed
+    assert second.streamed == first.streamed
+    assert torch.equal(second.projections.p, first.projections.p)
+
+
+def test_cli_registry_model_with_synthetic_calibration(capsys):
+    """No checkpoint and no corpus: the reduced registry config, random
+    params, and the synthetic LCG calibration language, with the
+    launcher's defaults."""
+    run = main(["--device", "cpu", "--reduced", "--block-dims", "8",
+                "--verify"])
+    printed = capsys.readouterr().out
+    assert "(corpus: synthetic LCG)" in printed
+    assert "[serve] verify: all 8 requests token-identical to the " \
+           "single-device contiguous reference engine" in printed
+    assert len(run.streamed) == 8
+    assert all(len(t) == 16 for t in run.streamed.values())
+    assert run.stats.tokens_emitted == 8 * 16
+
+
+@pytest.mark.parametrize("extra,words", [
+    (["--mesh", "2x2"], "mesh serving is not ported yet"),
+    (["--expect-kernel-mesh"], "mesh serving is not ported yet"),
+    (["--page-size", "8"], "prefix sharing is not ported yet"),
+    (PAGED + ["--kv-dtype", "int8", "--hot-frac", "0.5"],
+     "hot_resident_fraction > 0) are not ported yet"),
+    (PAGED + ["--kv-dtype", "int8", "--h2o-ratio", "0.5"],
+     "int8 KV pools under the 'h2o' slot policy"),
+])
+def test_cli_refuses_what_the_engine_does_not_serve(extra, words):
+    with pytest.raises(SystemExit) as ei:
+        main(["--device", "cpu", "--reduced", "--block-dims", "8", *extra])
+    assert words in str(ei.value.code)
+
+
+def test_cli_needs_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as ei:
+        main(["--reduced"])
+    assert ei.value.code not in (None, 0)
+    assert "--device cpu" in str(ei.value.code)
+
+
+def test_cli_rejects_an_arch_outside_the_registry(capsys):
+    with pytest.raises(SystemExit) as ei:
+        main(["--device", "cpu", "--arch", "mamba2-370m"])
+    assert ei.value.code == 2
+    err = capsys.readouterr().err
+    for name in ("qwen3-0.6b", "llama3.1-8b", "h2o-danube-1.8b"):
+        assert name in err
+
+
+@pytest.mark.parametrize("gaps", [[], [0.01], [0.003, 0.02, 0.011, 0.2],
+                                  list(np.random.default_rng(0).exponential(
+                                      0.01, 257))])
+def test_schedule_stats_gap_statistics_match_jax(gaps):
+    mine, theirs = ScheduleStats(itl_gaps=list(gaps)), JaxScheduleStats(
+        itl_gaps=list(gaps))
+    assert mine.max_itl == theirs.max_itl
+    for thr in (0.0, 0.005, 0.011, 1.0):
+        assert mine.slo_miss_rate(thr) == theirs.slo_miss_rate(thr)
+    for pct in (50, 99):
+        assert mine.itl_percentile(pct) == theirs.itl_percentile(pct)
