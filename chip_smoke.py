@@ -11,7 +11,9 @@ Phases, each of which raises (non-zero exit) on failure:
    set-up; one ``nvcc`` per source, in parallel); log ptxas's register
    and spill lines (and any wgmma serialization warning), and require
    tensor-core instructions (HMMA or HGMMA) in the SASS of the bf16
-   prefill, flash and decode kernels (``cuobjdump -sass``), the decode's
+   prefill, flash and decode kernels and of every instantiation of the
+   float32 prefill and flash kernels (HMMA: ``mma.sync`` on TF32)
+   (``cuobjdump -sass``), the decode's
    group route in its full-precision, int8, participating-page and
    int8 participating-page instantiations, and the warp-specialized
    design's register
@@ -48,7 +50,8 @@ Phases, each of which raises (non-zero exit) on failure:
    achieved GB/s over them; one PyTorch sum over 256 MiB gives the card's
    practical read rate beside them; the decode, prefill and flash phases
    also give the device microseconds of each kernel a call launches (the
-   decode: its partial and its combine pass), from ``torch.profiler``).
+   decode: its partial and its combine pass), from ``torch.profiler``: the
+   mean over the launches it recorded, with their number).
    Planted faults must fail the same tolerance, so it is tight enough to
    catch a wrong kernel: a lane's last 256 positions dropped, one head's
    dim-block selection shifted (decode, prefill), the first two heads of a
@@ -119,8 +122,9 @@ Phases, each of which raises (non-zero exit) on failure:
    --verify`` (greedy tokens identical to the contiguous reference engine,
    the pool-bytes check; the launcher prints its own lines). Its params and
    activations are float32 (``config_from_hf``), so the drive runs the
-   float32 routes: the per-head paged decode and the prefill on scalar
-   FMAs. The launcher's own run launches, exactly: the prefill kernel
+   float32 routes: the per-head paged decode and the prefill on TF32
+   tensor cores in three passes. The launcher's own run launches,
+   exactly: the prefill kernel
    once per layer per admission of its drive and of its reference drive
    and per calibration batch, the paged decode once per layer per step of
    its drive, the contiguous decode once per layer per step of the
@@ -133,13 +137,23 @@ Phases, each of which raises (non-zero exit) on failure:
    admission's and the first 16 decode steps' logits within |got - want|
    <= HF_LOGIT_SCALE * (F32_RTOL * |want| + F32_ATOL). A control drive,
    the plain drive with every attention input rounded to bf16, must
-   break that limit.
-   The two float32 routes at the drive's shapes (paged decode B=8 over a
-   2048-token table, lengths 128-1056; prefill B=1, S=1024) against their
-   plain versions with the planted faults of the bf16 phases, timed the
-   same way (float32 bounds at 67 TFLOP/s outside the tensor cores).
+   break that limit. The launcher again on the same checkpoint at its
+   default ``--block-dims 1`` (per-dim selection) with ``--verify``:
+   prefill runs flash on the masked q̂, decode the masked-dense core, so
+   the run launches, exactly, flash once per layer per admission of its
+   drive and of its reference drive and per calibration batch, nothing
+   else; its logits against a plain drive are reported, not held (per-dim
+   selection parts the drives at near-tied dim ranks).
+   The three float32 routes at the drives' shapes (paged decode B=8 over
+   a 2048-token table, lengths 128-1056; prefill and flash B=1, S=1024)
+   against their plain versions with the planted faults of the bf16
+   phases, timed the same way, with SDPA in float32 as the library call;
+   float32 bounds at the faster of 67 TFLOP/s outside the tensor cores
+   and a third of 495 TFLOP/s TF32 (three passes).
 7. The ``{"kernels": [...]}`` line (each float32 route under its kernel's
-   ``float32_route``), then the ``{"ok": true, ...}`` line.
+   ``float32_route``, with its launches on its path: the prefill's in the
+   HF drive's second serve, flash's in the ``--block-dims 1`` run), then
+   the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -157,6 +171,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core peak
+# float32 work held at float32 accuracy: on scalar float32, or on TF32
+# tensor cores as three passes (x = hi + lo: lo·hi + hi·lo + hi·hi),
+# whichever is faster; the float32 bounds use this rate
+F32_ACCURATE_OPS_PER_S = max(F32_OPS_PER_S, TF32_OPS_PER_S / 3)
 K_RATIO, BLOCK_DIMS = 0.75, 8
 # bf16 outputs, per element |out - ref| <= KERNEL_RTOL * |ref| +
 # KERNEL_ATOL: kernel and plain version both compute in float32 from the
@@ -253,9 +272,11 @@ def timings(kernel, plain, library, plain_iters: int = 20) -> dict:
 
 
 def device_us(fn, calls: int = 10) -> dict:
-    """Device microseconds per call of each kernel ``fn`` launches, from
-    ``torch.profiler`` over ``calls`` calls (the decode: its partial pass
-    and its combine pass)."""
+    """Device microseconds of each kernel ``fn`` launches (the decode: its
+    partial pass and its combine pass), from ``torch.profiler`` over
+    ``calls`` calls: per kernel, the mean over the launches the profiler
+    recorded and their number: late in a long run it may record only some
+    of them, and a sum over the calls would then undercount (PERF.md)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -271,8 +292,11 @@ def device_us(fn, calls: int = 10) -> dict:
             name = re.split(r"[<(]", e.name.replace(
                 "(anonymous namespace)::", "").removeprefix("void "))[0]
             name = name.split("::")[-1]
-            by_name[name] = by_name.get(name, 0.0) + \
-                e.time_range.elapsed_us() / calls
+            rec = by_name.setdefault(name, {"us": 0.0, "events": 0})
+            rec["us"] += e.time_range.elapsed_us()
+            rec["events"] += 1
+    for rec in by_name.values():
+        rec["us"] /= rec["events"]
     return by_name
 
 
@@ -335,8 +359,9 @@ def shifted(block_idx, nb: int):
 def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S
           ) -> tuple:
     """The least time (ms) for ``nbytes`` of device memory traffic and
-    ``ops`` operations at ``ops_per_s`` (bf16 tensor cores by default; the
-    float32 routes run on scalar FMAs), and which of the two bounds it."""
+    ``ops`` operations at ``ops_per_s`` (bf16 tensor cores by default;
+    float32 work at ``F32_ACCURATE_OPS_PER_S``), and which of the two
+    bounds it."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
@@ -468,13 +493,19 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
                 **byte_rate(nbytes, times["ms"]))
 
 
+def attention_route(element_size: int) -> str:
+    """The prefill's and flash's route for an element size: bf16 on
+    ``wgmma``, float32 on ``mma.sync`` with three TF32 passes."""
+    return "wgmma" if element_size == 2 else "tf32x3_mma"
+
+
 def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
                   form: str = None, k_ratio: float = K_RATIO,
                   dtype: str = "bfloat16") -> dict:
     """The prefill, B=1, causal, over ``s`` rows; the served form
-    (``form="served"``) at the drives' longest prompt. bf16 runs on the
-    tensor cores; float32 (``dtype``, the served checkpoint's) on scalar
-    FMAs."""
+    (``form="served"``) at the drives' longest prompt. bf16 runs on
+    ``wgmma``; float32 (``dtype``, the served checkpoint's) on ``mma.sync``
+    in three TF32 passes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import aqua
@@ -517,9 +548,9 @@ def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
     el = q.element_size()
     nbytes = el * (b * h * s * nsel + 2 * b * kvh * s * d + b * h * s * d)
     bms, by = bound(nbytes, ops, BF16_OPS_PER_S if el == 2
-                    else F32_OPS_PER_S)
+                    else F32_ACCURATE_OPS_PER_S)
     return dict(name="aqua_prefill", geometry=geom, form=form, dtype=dtype,
-                route="wgmma" if el == 2 else "scalar_fma",
+                route=attention_route(el),
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, q_blk=q_blk,
                            k_ratio=k_ratio),
                 **check, **timings(kernel, plain, library), bound_ms=bms,
@@ -767,15 +798,18 @@ def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
 
 
 def flash_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
-                form: str = None, d: int = 128) -> dict:
+                form: str = None, d: int = 128,
+                dtype: str = "bfloat16") -> dict:
     """Flash attention, B=1, causal, over ``s`` rows of head_dim ``d``;
-    the served form (``form="served"``) at the drives' longest prompt."""
+    the served form (``form="served"``) at the drives' longest prompt.
+    bf16 runs on ``wgmma``; float32 (``dtype``, the served checkpoint's)
+    on ``mma.sync`` in three TF32 passes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
 
     b = 1
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", getattr(torch, dtype)
     q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
@@ -798,9 +832,12 @@ def flash_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
                                               enable_gqa=True)
 
     ops = 2 * s * (s + 1) / 2 * h * (d + d)
-    nbytes = 2 * (2 * b * h * s * d + 2 * b * kvh * s * d)
-    bms, by = bound(nbytes, ops)
+    el = q.element_size()
+    nbytes = el * (2 * b * h * s * d + 2 * b * kvh * s * d)
+    bms, by = bound(nbytes, ops, BF16_OPS_PER_S if el == 2
+                    else F32_ACCURATE_OPS_PER_S)
     return dict(name="flash_attention", geometry=geom, form=form,
+                dtype=dtype, route=attention_route(el),
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, causal=True),
                 **check, **timings(kernel, plain, library), bound_ms=bms,
                 bound_by=by, device_us=device_us(kernel))
@@ -1557,8 +1594,10 @@ def hf_serve_phase(card: str, gen) -> dict:
     step graph; tokens must equal the first) with the launch counters
     zeroed just before and read just after, a plain reference drive
     (``aqua-block-sparse-plain``) on the same loaded params whose logits
-    must match per element within the float32 limits, and the two float32
-    kernel routes at the drive's shapes against their plain versions."""
+    must match per element within the float32 limits, the launcher at
+    ``--block-dims 1`` (flash on the masked q̂) with ``--verify`` and exact
+    launches, and the three float32 kernel routes at the drives' shapes
+    against their plain versions."""
     import gc
     import shutil
     import torch
@@ -1602,10 +1641,53 @@ def hf_serve_phase(card: str, gen) -> dict:
         run = launcher.main(argv)     # raises SystemExit(1) if --verify fails
         main_launches = launch_counts()
         log_time("hf_serve launcher with --verify")
+        # the launcher's default block_dims 1 (per-dim selection): prefill
+        # runs flash on the masked q̂, decode the masked-dense core
+        argv1 = argv[:argv.index("--block-dims")] + ["--block-dims", "1"] \
+            + argv[argv.index("--block-dims") + 2:]
+        log("[hf_serve] python -m repro_torch.launch.serve "
+            + " ".join(argv1))
+        reset_counts()
+        run1 = launcher.main(argv1)
+        per_dim_launches = launch_counts()
+        log_time("hf_serve launcher at block_dims 1 with --verify")
     finally:
         shutil.rmtree(HF_DIR, ignore_errors=True)
     eng = run.engine
     mcfg, layers = eng.cfg, eng.cfg.num_layers
+    assert run1.engine.cfg.aqua.block_dims == 1
+    assert len(run1.streamed) == 8 and run1.stats.tokens_emitted == 8 * 32
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = layers * (
+        run1.stats.admissions + run1.reference_stats.admissions
+        + launcher.CALIBRATION_BATCHES)
+    assert per_dim_launches == want, (per_dim_launches, want)
+    # its logits against a plain drive, reported and not held to a limit:
+    # per-dim selection ranks each query's dims, so the two drives' hidden
+    # states can part where a rank is near a tie
+    reqs1 = [dataclasses.replace(r) for r in run1.requests]
+    ref1_eng = ContinuousBatchingEngine(run1.engine.cfg, run1.engine.params,
+                                        run1.projections,
+                                        serving=run1.engine.scfg,
+                                        backend="aqua-block-sparse-plain")
+    per_dim_vs_ref = compare_logits(
+        serve_drive(run1.engine, reqs1),
+        serve_drive(ref1_eng, [dataclasses.replace(r) for r in reqs1]), 32,
+        per_element=True, check=False)
+    per_dim = dict(wall_s=run1.seconds, tokens=run1.stats.tokens_emitted,
+                   tokens_per_s=run1.stats.tokens_emitted / run1.seconds,
+                   decode_steps=run1.stats.decode_steps,
+                   admissions=run1.stats.admissions,
+                   reference_admissions=run1.reference_stats.admissions,
+                   launches_with_verify=per_dim_launches,
+                   vs_plain_unscaled=per_dim_vs_ref)
+    log(f"[hf_serve] block_dims 1: float32 logits over the unscaled limit "
+        f"(F32_RTOL |want| + F32_ATOL) against a plain drive, not held: "
+        f"admissions {per_dim_vs_ref['admit_worst_err_over_limit']}, decode "
+        f"steps {per_dim_vs_ref['decode_worst_err_over_limit']}")
+    del run1, ref1_eng
+    gc.collect()
+    torch.cuda.empty_cache()
     assert mcfg.dtype == mcfg.param_dtype == "float32", mcfg
     assert eng.paged and eng.step_graph is not None
     st = run.stats
@@ -1657,14 +1739,16 @@ def hf_serve_phase(card: str, gen) -> dict:
     assert vs_ctl["admit_worst_err_over_limit"] > 1.0, vs_ctl
     log_time("hf_serve bf16-input control drive")
     torch.cuda.empty_cache()
-    # the float32 routes at the drive's shapes: the paged decode over its
-    # contexts (128-1056 tokens of a 2048-token table) and its longest
-    # prompt's prefill
+    # the float32 routes at the drives' shapes: the paged decode over its
+    # contexts (128-1056 tokens of a 2048-token table), its longest
+    # prompt's prefill and, for block_dims 1, flash
     phases = [decode_phase(cfg.name, att.num_heads, att.num_kv_heads, True,
                            gen, s=2048, len_range=(128, 1056),
                            form="served", dtype="float32"),
               prefill_phase(cfg.name, att.num_heads, att.num_kv_heads, gen,
-                            s=1024, form="served", dtype="float32")]
+                            s=1024, form="served", dtype="float32"),
+              flash_phase(cfg.name, att.num_heads, att.num_kv_heads, gen,
+                          s=1024, form="served", dtype="float32")]
     for p in phases:
         log(p)
     assert all(p["ok"] for p in phases), phases
@@ -1693,6 +1777,7 @@ def hf_serve_phase(card: str, gen) -> dict:
                       itl_p99_ms=1e3 * st.itl_percentile(99),
                       max_itl_ms=1e3 * st.max_itl,
                       launches_with_verify=main_launches),
+        launcher_block_dims_1=per_dim,
         second_serve={k: v for k, v in again.items()
                       if k not in ("tokens", "admit_logits", "step_logits")},
         launches=launches, cache_bytes=eng.cache_bytes(),
@@ -1703,7 +1788,13 @@ def hf_serve_phase(card: str, gen) -> dict:
         vs_reference=vs_ref, bf16_inputs_control=vs_ctl,
         f32_rtol=F32_RTOL, f32_atol=F32_ATOL, logit_scale=HF_LOGIT_SCALE)
     log({"hf_serve": result})
-    return dict(result, phases=phases)
+    # each float32 route's launches on its path: the prefill's in the
+    # second serve, flash's in the block_dims 1 launcher run
+    f32_launches = {"aqua_decode": launches["aqua_decode"],
+                    "aqua_paged_decode": launches["aqua_paged_decode"],
+                    "aqua_prefill": launches["aqua_prefill"],
+                    "flash_attention": per_dim_launches["flash_attention"]}
+    return dict(result, phases=phases, f32_launches=f32_launches)
 
 
 def main() -> int:
@@ -1734,15 +1825,21 @@ def main() -> int:
     log_time("build")
     # the bf16 routes of the prefill, flash and decode kernels run on
     # tensor cores; the prefill's and flash's are warp-specialized
-    # (USETMAXREG) and copy by TMA tensor maps (UTMALDG)
+    # (USETMAXREG) and copy by TMA tensor maps (UTMALDG); their float32
+    # routes run on the tensor cores too (HMMA: mma.sync on TF32)
+    sass = {}
     for name, fn_tag, design in (
             ("aqua_prefill", "aqua_prefill_bf16", ("USETMAXREG", "UTMALDG")),
             ("flash_attention", "flash_bf16", ("USETMAXREG", "UTMALDG")),
+            ("aqua_prefill", "aqua_prefill_f32", ("HMMA",)),
+            ("flash_attention", "flash_f32", ("HMMA",)),
             ("aqua_decode", "decode_bf16", ())):
-        counts = sass_counts(str(_build._lib_path(name)))
-        for fn, c in counts.items():
-            log(f"[sass {name}] {fn}: " + ", ".join(
-                f"{n} {op}" for op, n in c.items()))
+        if name not in sass:
+            sass[name] = counts = sass_counts(str(_build._lib_path(name)))
+            for fn, c in counts.items():
+                log(f"[sass {name}] {fn}: " + ", ".join(
+                    f"{n} {op}" for op, n in c.items()))
+        counts = sass[name]
         tagged = [c for fn, c in counts.items() if fn_tag in fn]
         assert tagged and all(c["HMMA"] + c["HGMMA"] > 0 and all(
             c[op] > 0 for op in design) for c in tagged), (name, counts)
@@ -1750,7 +1847,7 @@ def main() -> int:
     # participating-page (kPart) and int8 participating-page instantiations,
     # each at both widths: decode_bf16<kKS, kMT, kQuant, kPart>, mangled
     # ...ILi8ELi8ELb1ELb0E...
-    counts = sass_counts(str(_build._lib_path("aqua_decode")))
+    counts = sass["aqua_decode"]
     variants = {}
     for fn, c in counts.items():
         m = re.search(r"decode_bf16ILi(\d+)ELi(\d+)ELb([01])ELb([01])E", fn)
@@ -1858,11 +1955,12 @@ def main() -> int:
              plain_ms=wp["plain_ms"], bound_ms=wp["bound_ms"],
              bound_by=wp["bound_by"], library_ms=wp["library_ms"],
              no_window_ms=wp["no_window_ms"])
-    # the float32 routes, launched by the HF checkpoint's drive
+    # the float32 routes, launched by the HF checkpoint's drives
     for p in hf["phases"]:
+        assert hf["f32_launches"][p["name"]] > 0, (p["name"], hf)
         next(k for k in kernels if k["name"] == p["name"])["float32_route"] = \
             dict(route=p["route"], shape=p["shape"],
-                 launches=hf["launches"][p["name"]],
+                 launches=hf["f32_launches"][p["name"]],
                  max_abs_err=p["max_abs_err"], ms=p["ms"],
                  plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
                  bound_by=p["bound_by"], library_ms=p["library_ms"])

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Race the bf16 prefill, flash and paged decode kernels of several
-checkouts on one GPU.
+"""Race the prefill, flash and paged decode kernels of several checkouts
+on one GPU.
 
     python3 kernel_race.py OUT.jsonl PARENT_DIR . . PARENT_DIR
 
@@ -17,6 +17,8 @@ Per tree:
   version at chip_smoke's limits;
 - the shapes of the generic kernels (``"form": "generic"``): flash at
   head_dim 80 (H2O-Danube-1.8B), the prefill at k_ratio 0.5;
+- the float32 routes of the prefill and flash (a served HF checkpoint's
+  dtype) in the served form at Qwen3-0.6B's geometry;
 - the paged decode over int8 pools, over the participating pages of
   hierarchical AQUA, and over both, at both geometries: B=8, S=4096 and
   the served form (lengths 128-1056 in a 2048-token table), each against
@@ -43,8 +45,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KEEP = ("name", "geometry", "form", "route", "shape", "ms", "loop_ms",
-        "library_ms", "plain_ms", "max_abs_err", "tol_ratio",
+KEEP = ("name", "geometry", "form", "dtype", "route", "shape", "ms",
+        "loop_ms", "library_ms", "plain_ms", "max_abs_err", "tol_ratio",
         "fault_tol_ratios", "ok", "bound_ms", "read_bytes", "device_us")
 
 
@@ -133,6 +135,10 @@ def one_tree(tree: str, out_path: str) -> int:
                        g, h, kv, gen, k_ratio=0.5, form="generic")]
     phases.append(lambda: cs.flash_phase("h2o-danube-1.8b", 32, 8, gen, d=80,
                                          form="generic"))
+    phases += [lambda: cs.prefill_phase("qwen3-0.6b", 16, 8, gen, s=1024,
+                                        form="served", dtype="float32"),
+               lambda: cs.flash_phase("qwen3-0.6b", 16, 8, gen, s=1024,
+                                      form="served", dtype="float32")]
     for geom, h, kvh in (("qwen3-0.6b", 16, 8), ("llama3.1-8b", 32, 8)):
         for quant, part in ((True, False), (False, True), (True, True)):
             phases += [lambda g=geom, h=h, kv=kvh, qt=quant, pt=part:
@@ -172,7 +178,7 @@ def main() -> int:
         if "host_us" in r:
             print(r["tree"], "host us", json.dumps(r["host_us"]))
             continue
-        key = (r["name"], r["geometry"], r["form"],
+        key = (r["name"], r["geometry"], r["form"], r.get("dtype"),
                (r["shape"] or {}).get("k_ratio"))
         table[key].append(f"{r['tree']} {r['ms']:.4f}"
                           f"{' ' + r['route'] if r.get('route') else ''}"

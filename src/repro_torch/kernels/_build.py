@@ -105,16 +105,33 @@ def load(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:
         return lib
 
 
-def check_cp_async(what: str, *tensors) -> None:
-    """Raise ``ValueError`` unless every tensor can be copied in 16-byte
-    ``cp.async`` pieces along its last axis: a 16-byte aligned base and
-    outer strides that are whole 16-byte units (the bf16 kernels' loads;
-    the stride of an axis of size 1 is never used)."""
+def aligned16(*tensors) -> bool:
+    """Whether every tensor can be copied in 16-byte ``cp.async`` pieces
+    along its last axis: a 16-byte aligned base and outer strides that are
+    whole 16-byte units (the stride of an axis of size 1 is never used)."""
     for x in tensors:
         unit = 16 // x.element_size()
         if x.data_ptr() % 16 or any(st % unit for st, n in
                                     zip(x.stride()[:-1], x.shape[:-1])
                                     if n > 1):
+            return False
+    return True
+
+
+def f32_copy_width(*tensors, block_dims: int = 4) -> int:
+    """The float32 attention kernels' copy width in floats: 4 (16-byte
+    ``cp.async`` pieces) where every tensor's last axis and the dim-blocks
+    are whole 4-float units and :func:`aligned16` holds, else 1."""
+    whole = block_dims % 4 == 0 and all(x.shape[-1] % 4 == 0
+                                        for x in tensors)
+    return 4 if whole and aligned16(*tensors) else 1
+
+
+def check_cp_async(what: str, *tensors) -> None:
+    """Raise ``ValueError`` unless :func:`aligned16` holds for every tensor
+    (the bf16 kernels' loads)."""
+    for x in tensors:
+        if not aligned16(x):
             raise ValueError(f"{what} kernel needs 16-byte aligned "
                              f"{x.dtype} views (base and outer strides), "
                              f"got strides {x.stride()} at offset "

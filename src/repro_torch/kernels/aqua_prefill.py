@@ -16,12 +16,17 @@ and value products against S·(D + Dv) bytes of K̂/V per KV head). The
 kernel reads only the selected K̂ dims of each live key tile, skips tiles
 past the causal bound and past ``lengths`` and, under a window, the tiles
 before each block's band (so the work scales with the window), and reads q/k/v through
-strides so the model's (B, S, KV, G, D) layout needs no transpose. bf16
-runs on the tensor cores, float32 on scalar FMAs; see the source's header
+strides so the model's (B, S, KV, G, D) layout needs no transpose. Both
+dtypes run on the tensor cores: bf16 on ``wgmma`` (``csrc/attn_tile.cuh``),
+float32 on ``mma.sync`` with every product split into three TF32 passes,
+which hold the float32 limits (``csrc/f32_tile.cuh``); see the headers
 for the tiling. The bf16 kernel copies K̂ and V by TMA tensor maps and q̂ in
 16-byte pieces: it needs D and Dv multiples of 8, D <= 256, 16-byte
 aligned bases and outer strides, under 2**40 bytes (``ValueError``
-otherwise).
+otherwise). The float32 kernel copies 16-byte pieces where the views,
+``block_dims``, D and Dv allow, else 4-byte ones; it gathers the union of
+the selections of the ``q_blk`` tiles a 64-row block covers, at most 256
+dims (``ValueError`` past that). Both need ``q_blk % 8 == 0``.
 
 Dispatch is by device: CPU tensors run :func:`aqua_prefill_plain`, CUDA
 tensors launch the kernel or raise. Launches count in
@@ -65,11 +70,16 @@ def aqua_prefill_plain(q_hat: torch.Tensor, khat: torch.Tensor,
                             window=window)
 
 
-def _rows_per_block(q_blk: int) -> int:
-    for qr in (32, 16, 8):
-        if q_blk % qr == 0:
-            return qr
-    raise ValueError(f"aqua_prefill kernel needs q_blk % 8 == 0, got {q_blk}")
+#: rows of a float32 block, and the widest union of selected dims it gathers
+F32_ROWS, F32_MAX_DEPTH = 64, 256
+
+
+def _f32_union_width(d: int, nsel: int, q_blk: int, nqc: int) -> int:
+    """Widest union of selected dims a 64-row float32 block can gather
+    (``f32_tile::union_width``)."""
+    tiles = (1 if q_blk % F32_ROWS == 0 else F32_ROWS // q_blk
+             if F32_ROWS % q_blk == 0 else (F32_ROWS - 1) // q_blk + 2)
+    return min(d, min(tiles, nqc) * nsel)
 
 
 def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
@@ -84,7 +94,8 @@ def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
                         f"of one dtype, got {q_hat.dtype}, {khat.dtype}, "
                         f"{v.dtype}")
     if (khat.shape[-1] != d or h % kvh or nb_sel * block_dims > 128
-            or dv > 128 or nqc * q_blk < t or v.shape[2] != s):
+            or dv > 128 or nqc * q_blk < t or v.shape[2] != s
+            or q_blk % 8):
         raise ValueError(f"aqua_prefill kernel: unsupported shapes q "
                          f"{q_hat.shape} k {khat.shape} v {v.shape} "
                          f"block_idx {block_idx.shape}")
@@ -99,6 +110,10 @@ def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
                              f"multiples of 8 and D <= 256, got {d}, {dv}")
         _build.check_cp_async("aqua_prefill", q_hat, khat, v)
         _build.check_tma("aqua_prefill", khat, v)
+    elif _f32_union_width(d, nb_sel * block_dims, q_blk, nqc) > F32_MAX_DEPTH:
+        raise ValueError(f"aqua_prefill float32 kernel gathers at most "
+                         f"{F32_MAX_DEPTH} dims a block: D {d} with "
+                         f"q_blk {q_blk} covers more")
     for x in (block_idx, lengths) + (() if kc_part is None else (kc_part,)):
         if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError("block_idx, lengths and kc_part must be "
@@ -116,7 +131,8 @@ def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
             q_hat.data_ptr(), khat.data_ptr(), v.data_ptr(),
             block_idx.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
             kvh, t, s, q_offset, d, dv, nb_sel, block_dims, q_blk, nqc,
-            _rows_per_block(q_blk), strides, float(scale), int(causal),
+            _build.f32_copy_width(q_hat, khat, v, block_dims=block_dims),
+            strides, float(scale), int(causal),
             0 if window is None else int(window),
             None if kc_part is None else kc_part.data_ptr(),
             0 if kc_part is None else kc_part.shape[2], k_blk,

@@ -65,25 +65,36 @@
 // 16-byte aligned bases and outer strides that are whole 16-byte units
 // under 2^40 bytes (the wrapper checks).
 //
-// float32 route (the reduced configs of the tests, held at 1e-5, which
-// TF32 tensor cores cannot hold): the first design, scalar f32 FMAs on
-// register tiles. One block of 128 threads per (b, h, QR query rows), QR in
-// {8, 16, 32} dividing q_blk so the rows share one selection; the block
-// stages the tile's selected K̂ dims and V rows in shared memory as f32 and
-// runs the online softmax one row per thread.
+// float32 route (what a served HF checkpoint runs: config_from_hf gives
+// float32 params and activations), on the tensor cores with the
+// three-pass TF32 split of f32_tile.cuh, which holds the plain float32
+// version's 1e-5 limits that one TF32 pass misses by ~50x: one block of
+// 256 threads per (b, h, 64 query rows), two warp groups taking one half
+// of each key tile each, mma.sync m16n8k8, the union of the covered q_blk
+// tiles' selected dims gathered by cp.async (16-byte copies when bd, D and
+// Dv are multiples of 4 and the views 16-byte aligned, else 4-byte), two
+// stages of 64-key tiles, the softmax in registers. What bounds it: the
+// operations, each run as three TF32 products at 495 TFLOP/s (165 TFLOP/s
+// of float32 work), against 67 TFLOP/s of scalar float32. It takes unions
+// of at most 256 dims (always when D <= 256, or q_blk >= 64 with NB_sel·bd
+// <= 128), Dv <= 128 and q_blk >= 8. A chunk whose q_offset is a multiple
+// of 64 (and of q_blk) has the same 64-row blocks and unions as the
+// monolithic call: its rows are bitwise the monolithic rows, as on the
+// bf16 route.
 //
 // kPart: kc_part (B, NQC, KT) lists each q-tile's participating k_blk-key
-// chunks, ascending (-1 = none), k_blk % 64 == 0. The bf16 block marks, per
-// key chunk, which of its q-tiles list it, visits the 64-key tiles of the
-// marked chunks in ascending order and masks each row by its own tile's
-// mark; the f32 block walks its q-tile's list. Masks use the logical key
-// positions, so dropped chunks cost no bytes and the identity list walks
-// exactly the tiles of the dense walk (bitwise equal).
+// chunks, ascending (-1 = none), k_blk % 64 == 0. A block (of either
+// route) marks, per key chunk, which of its q-tiles list it, visits the
+// 64-key tiles of the marked chunks in ascending order and masks each row
+// by its own tile's mark. Masks use the logical key positions, so dropped
+// chunks cost no bytes and the identity list walks exactly the tiles of
+// the dense walk (bitwise equal).
 
 #include <algorithm>
 #include <climits>
 
 #include "attn_tile.cuh"
+#include "f32_tile.cuh"
 
 namespace {
 
@@ -372,243 +383,87 @@ int dispatch_bf16(const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
-// float32: scalar FMAs
+// float32: tensor cores, three TF32 passes (f32_tile.cuh)
 // ---------------------------------------------------------------------------
 
-namespace f32 {
-
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kKT = 64;          // keys per tile
-constexpr int kMaxSel = 128;     // NB_sel * bd
-constexpr int kMaxDv = kThreads;
-
-__host__ __device__ constexpr int smem_floats(int qr, int nsel, int dv) {
-  // Qs[qr][nsel+1] + Ks[KT][nsel+1] + Vs[KT][dv] + Ss[qr][KT+1] + M, L, C
-  return qr * (nsel + 1) + kKT * (nsel + 1) + kKT * dv + qr * (kKT + 1) + 3 * qr;
+template <int VEC, bool kPart, int NDV>
+__global__ void __launch_bounds__(f32_tile::kThreads, 1)
+    aqua_prefill_f32(const __grid_constant__ f32_tile::Problem p) {
+  f32_tile::attend<VEC, kPart, NDV>(p);
 }
 
-template <int QR, bool kPart>
-__global__ void __launch_bounds__(kThreads) aqua_prefill_f32(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const int* __restrict__ block_idx, const int* __restrict__ lengths,
-    float* __restrict__ out, int H, int KV, int Tq, int S, int q_offset, int Dv,
-    int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides kst,
-    Strides vst, Strides ost, float scale, int causal, int window, Part part) {
-  // Register tiles: each thread scores RM rows x 4 keys (16 key groups x 8
-  // row groups) and accumulates RP rows x 4 output dims (32 dim groups x 4
-  // row groups), so each shared-memory load feeds several FMAs.
-  constexpr int RM = QR / 8;
-  constexpr int RP = QR / 4;
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
-  const int kv = h / (H / KV);
-  const int row0 = tile * QR;
-  const int nsel = nb_sel * bd;
-  const int str = nsel + 1;        // odd row stride: conflict-free columns
-  constexpr int sstr = kKT + 1;
-
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + QR * str;
-  float* Vs = Ks + kKT * str;
-  float* Ss = Vs + kKT * Dv;
-  float* M = Ss + QR * sstr;
-  float* L = M + QR;
-  float* C = L + QR;
-  __shared__ int dim[kMaxSel];
-
-  const int* idx = block_idx + (((int64_t)b * H + h) * nqc + row0 / q_blk) * nb_sel;
-  for (int e = t; e < nsel; e += kThreads) dim[e] = idx[e / bd] * bd + e % bd;
-  if (t < QR) {
-    M[t] = kNegInf;
-    L[t] = 0.f;
-  }
-  __syncthreads();
-
-  const float* qb = q + b * qst.b + h * qst.h;
-  for (int e = t; e < QR * nsel; e += kThreads) {
-    const int r = e / nsel, c = e % nsel;
-    Qs[r * str + c] = row0 + r < Tq ? qb[(row0 + r) * qst.s + dim[c]] : 0.f;
-  }
-
-  const int len = lengths[b];
-  int kend = min(len, S);
-  if (causal) kend = min(kend, q_offset + row0 + QR);
-  // the band of the block's first row starts at key kbeg (see the bf16
-  // walk): tiles wholly before it are skipped
-  const int kbeg = window > 0 ? max(0, q_offset + row0 - window + 1) : 0;
-  const float* kb = k + b * kst.b + kv * kst.h;
-  const float* vb = v + b * vst.b + kv * vst.h;
-  const int srg = t / 16, skg = t % 16;   // score tile: rows srg*RM.., keys skg+16j
-  const int prg = t / 32, pdg = t % 32;   // value tile: rows prg*RP.., dims pdg+32j
-  float acc[RP][4];
-#pragma unroll
-  for (int i = 0; i < RP; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  // the walk: every 64-key tile in [kbeg, kend), or (kPart) the tiles of
-  // this q-tile's participating chunks there; the loop bounds and skips
-  // are uniform over the block, so the barriers below are safe
-  const int per_chunk = kPart ? part.k_blk / kKT : 1;
-  const int* parts = kPart ? part.kc_part + ((int64_t)b * nqc + row0 / q_blk) * part.kt
-                           : nullptr;
-  const int n_iter = kPart ? part.kt * per_chunk : (kend + kKT - 1) / kKT;
-  for (int it = kPart ? 0 : kbeg / kKT; it < n_iter; ++it) {
-    int k0 = it * kKT;
-    if (kPart) {
-      const int kc = parts[it / per_chunk];
-      if (kc < 0) continue;
-      k0 = kc * part.k_blk + (it % per_chunk) * kKT;
-      if (k0 >= kend || k0 + kKT <= kbeg) continue;
-    }
-    for (int e = t; e < kKT * nsel; e += kThreads) {
-      const int kk = e / nsel, c = e % nsel;
-      const int pos = k0 + kk;
-      Ks[kk * str + c] = pos < S ? kb[pos * kst.s + dim[c]] : 0.f;
-    }
-    for (int e = t; e < kKT * Dv; e += kThreads) {
-      const int kk = e / Dv, d = e % Dv;
-      const int pos = k0 + kk;
-      Vs[e] = pos < S ? vb[pos * vst.s + d] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    for (int c = 0; c < nsel; ++c) {
-      float qv[RM], kv4[4];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = Qs[(srg * RM + i) * str + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv4[j] = Ks[(skg + 16 * j) * str + c];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] += qv[i] * kv4[j];
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = srg * RM + i, kk = skg + 16 * j;
-        const int qpos = q_offset + row0 + r, kpos = k0 + kk;
-        const bool valid = kpos < len && (!causal || qpos >= kpos) &&
-                           (window <= 0 || kpos > qpos - window);
-        Ss[r * sstr + kk] = valid ? sc[i][j] * scale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    if (t < QR) {
-      float* sr = Ss + t * sstr;
-      float mx = kNegInf;
-      for (int kk = 0; kk < kKT; ++kk) mx = fmaxf(mx, sr[kk]);
-      const float m_prev = M[t];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int kk = 0; kk < kKT; ++kk) {
-        const float p = expf(sr[kk] - m_new);
-        sr[kk] = p;
-        sum += p;
-      }
-      const float corr = expf(m_prev - m_new);
-      L[t] = L[t] * corr + sum;
-      M[t] = m_new;
-      C[t] = corr;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < RP; ++i) {
-      const float corr = C[prg * RP + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= corr;
-    }
-    for (int kk = 0; kk < kKT; ++kk) {
-      float vv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = pdg + 32 * j;
-        vv[j] = d < Dv ? Vs[kk * Dv + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RP; ++i) {
-        const float p = Ss[(prg * RP + i) * sstr + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += p * vv[j];
-      }
-    }
-    __syncthreads();  // Ks / Vs / Ss are rewritten by the next tile
-  }
-
-  float* ob = out + b * ost.b + h * ost.h;
-#pragma unroll
-  for (int i = 0; i < RP; ++i) {
-    const int r = prg * RP + i;
-    if (row0 + r >= Tq) continue;
-    const float denom = fmaxf(L[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = pdg + 32 * j;
-      if (d < Dv) ob[(row0 + r) * ost.s + d] = acc[i][j] / denom;
-    }
-  }
-}
-
-
-template <int QR, bool kPart>
-int launch(const Args& a) {
-  const int bytes = smem_floats(QR, a.nb_sel * a.bd, a.Dv) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(aqua_prefill_f32<QR, kPart>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+template <int VEC, bool kPart, int NDV>
+int launch_f32(const f32_tile::Problem& p, int B, cudaStream_t st) {
+  static int done[16] = {0};
+  const int bytes = f32_tile::smem_bytes(p, p.nst);
+  cudaError_t err = attn_tile::allow_smem(aqua_prefill_f32<VEC, kPart, NDV>, bytes, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.Tq + QR - 1) / QR, a.H, a.B);
-  aqua_prefill_f32<QR, kPart><<<grid, kThreads, bytes, a.st>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v, a.block_idx, a.lengths,
-      (float*)a.out, a.H, a.KV, a.Tq, a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc,
-      a.qs, a.ks, a.vs, a.os, a.scale, a.causal, a.window, a.part);
+  const dim3 grid((p.Tq + f32_tile::kRows - 1) / f32_tile::kRows * p.H, 1, B);
+  aqua_prefill_f32<VEC, kPart, NDV><<<grid, f32_tile::kThreads, bytes, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int QR>
-int dispatch_part(const Args& a) {
-  return a.part.kc_part != nullptr ? launch<QR, true>(a) : launch<QR, false>(a);
+// Dv 128 (every served head_dim but Danube's) takes a kernel with its P·V
+// width fixed at compile time; 4-byte copies (unaligned views) only the
+// generic one
+template <bool kPart>
+int launch_f32_part(const f32_tile::Problem& p, int vec, int B, cudaStream_t st) {
+  if (vec == 1) return launch_f32<1, kPart, 0>(p, B, st);
+  return p.Dv == 128 ? launch_f32<4, kPart, 16>(p, B, st) : launch_f32<4, kPart, 0>(p, B, st);
 }
 
-int dispatch(int qr, const Args& a) {
-  if (a.nb_sel * a.bd > kMaxSel || a.Dv > kMaxDv || a.q_blk % qr != 0)
+// vec: floats per copy, 4 (16-byte copies: the wrapper found the bases
+// and outer strides 16-byte aligned) or 1
+int dispatch_f32(const Args& a, int vec) {
+  if (vec == 4 && (a.D % 4 != 0 || a.Dv % 4 != 0 || a.bd % 4 != 0)) vec = 0;
+  f32_tile::Problem p{};
+  p.q = (const float*)a.q;
+  p.k = (const float*)a.k;
+  p.v = (const float*)a.v;
+  p.out = (float*)a.out;
+  p.block_idx = a.block_idx;
+  p.lengths = a.lengths;
+  p.kc_part = a.part.kc_part;
+  p.H = a.H;
+  p.KV = a.KV;
+  p.Tq = a.Tq;
+  p.S = a.S;
+  p.q_offset = a.q_offset;
+  p.D = a.D;
+  p.Dv = a.Dv;
+  p.nb_sel = a.nb_sel;
+  p.bd = a.bd;
+  p.q_blk = a.q_blk;
+  p.nqc = a.nqc;
+  p.kt = a.part.kt;
+  p.k_blk = a.part.k_blk;
+  p.qs = a.qs;
+  p.ks = a.ks;
+  p.vs = a.vs;
+  p.os = a.os;
+  p.scale_log2 = a.scale * f32_tile::kLog2e;
+  p.causal = a.causal;
+  p.window = a.window;
+  if ((vec != 1 && vec != 4) || a.bd <= 0 || !f32_tile::plan(p, vec))
     return (int)cudaErrorInvalidValue;
-  switch (qr) {
-    case 32:
-      return dispatch_part<32>(a);
-    case 16:
-      return dispatch_part<16>(a);
-    case 8:
-      return dispatch_part<8>(a);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return p.kc_part != nullptr ? launch_f32_part<true>(p, vec, a.B, a.st)
+                              : launch_f32_part<false>(p, vec, a.B, a.st);
 }
-
-}  // namespace f32
 
 }  // namespace
 
 // Strides are in elements: {batch, head, seq} of q, k, v and out. Tq query
 // rows at sequence offset q_offset attend S keys; D is q̂'s and K̂'s head
-// dim. qr is the float32 route's number of query rows per block (8, 16 or
-// 32, dividing q_blk). window: keys kpos > qpos - window only (<= 0:
+// dim. vec is the float32 route's copy width in floats: 4 (16-byte
+// copies; the caller found every base and outer stride 16-byte aligned)
+// or 1. window: keys kpos > qpos - window only (<= 0:
 // none). kc_part: null, or (B, nqc, kt) int32 participating key chunks of
 // k_blk keys (k_blk % 64 == 0). dtype: 0 = float32, 1 = bfloat16. Returns
 // the cudaError_t of the launch.
 extern "C" int aqua_prefill_launch(const void* q, const void* k, const void* v,
                                    const void* block_idx, const void* lengths, void* out,
                                    int B, int H, int KV, int Tq, int S, int q_offset, int D,
-                                   int Dv, int nb_sel, int bd, int q_blk, int nqc, int qr,
+                                   int Dv, int nb_sel, int bd, int q_blk, int nqc, int vec,
                                    const long long* strides, float scale, int causal,
                                    int window, const void* kc_part, int kt, int k_blk,
                                    int dtype, void* stream) {
@@ -644,6 +499,6 @@ extern "C" int aqua_prefill_launch(const void* q, const void* k, const void* v,
   a.window = window;
   a.part = Part{(const int*)kc_part, kt, k_blk};
   a.st = (cudaStream_t)stream;
-  if (dtype == 0) return f32::dispatch(qr, a);
+  if (dtype == 0) return dispatch_f32(a, vec);
   return dispatch_bf16(a);
 }

@@ -40,12 +40,21 @@
 // 0, 16-byte aligned bases and outer strides that are whole 16-byte units
 // under 2^40 bytes (the wrapper checks).
 //
-// float32 route (the reduced configs of the tests, held at 1e-5, which
-// TF32 tensor cores cannot hold): the first design, scalar f32 FMAs on
-// register tiles, one block of 128 threads per (b, h, 32 query rows), the
-// online softmax one row per thread.
+// float32 route (what a served HF checkpoint runs with AQUA off or with
+// per-dim selection, the launcher's default block_dims 1: config_from_hf
+// gives float32 params and activations), on the tensor cores with the
+// three-pass TF32 split of f32_tile.cuh, which holds the plain float32
+// version's 1e-5 limits that one TF32 pass misses by ~50x: one block of
+// 256 threads per (b, h, 64 query rows), two warp groups taking one half
+// of each key tile each, mma.sync m16n8k8, K and V tiles of 64 keys by
+// cp.async (16-byte copies when D is a multiple of 4 and the views
+// 16-byte aligned, else 4-byte) in two stages, the softmax in registers.
+// What bounds it: the operations, each run as three TF32 products at 495
+// TFLOP/s (165 TFLOP/s of float32 work), against 67 TFLOP/s of scalar
+// float32. D <= 128.
 
 #include "attn_tile.cuh"
+#include "f32_tile.cuh"
 
 namespace {
 
@@ -177,191 +186,68 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
 }
 
 // ---------------------------------------------------------------------------
-// float32: scalar FMAs
+// float32: tensor cores, three TF32 passes (f32_tile.cuh)
 // ---------------------------------------------------------------------------
 
-namespace f32 {
-
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kKT = 64;        // keys per tile
-constexpr int kQR = 32;        // query rows per block
-constexpr int kMaxD = kThreads;
-
-__host__ __device__ constexpr int smem_floats(int d) {
-  // Qs[QR][D+1] + Ks[KT][D+1] + Vs[KT][D] + Ss[QR][KT+1] + M, L, C
-  return kQR * (d + 1) + kKT * (d + 1) + kKT * d + kQR * (kKT + 1) + 3 * kQR;
+template <int VEC, int NDV>
+__global__ void __launch_bounds__(f32_tile::kThreads, 1)
+    flash_f32(const __grid_constant__ f32_tile::Problem p) {
+  f32_tile::attend<VEC, false, NDV>(p);
 }
 
-__global__ void __launch_bounds__(kThreads) flash_f32(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int H, int KV, int S, int D, Strides qst, Strides kst,
-    Strides vst, Strides ost, float scale, int causal, int window) {
-  // Register tiles: each thread scores RM rows x 4 keys (16 key groups x 8
-  // row groups) and accumulates RP rows x 4 output dims (32 dim groups x 4
-  // row groups).
-  constexpr int RM = kQR / 8;
-  constexpr int RP = kQR / 4;
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
-  const int kv = h / (H / KV);
-  const int row0 = tile * kQR;
-  const int str = D + 1;          // odd row stride: conflict-free columns
-  constexpr int sstr = kKT + 1;
-
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kQR * str;
-  float* Vs = Ks + kKT * str;
-  float* Ss = Vs + kKT * D;
-  float* M = Ss + kQR * sstr;
-  float* L = M + kQR;
-  float* C = L + kQR;
-
-  if (t < kQR) {
-    M[t] = kNegInf;
-    L[t] = 0.f;
-  }
-  const float* qb = q + b * qst.b + h * qst.h;
-  for (int e = t; e < kQR * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    Qs[r * str + c] = row0 + r < S ? qb[(row0 + r) * qst.s + c] : 0.f;
-  }
-  __syncthreads();
-
-  // keys this block can see: [kbeg, kend)
-  int kend = causal ? min(S, row0 + kQR) : S;
-  int kbeg = 0;
-  if (window > 0) kbeg = max(0, row0 - window + 1) / kKT * kKT;
-  const float* kb = k + b * kst.b + kv * kst.h;
-  const float* vb = v + b * vst.b + kv * vst.h;
-  const int srg = t / 16, skg = t % 16;   // score tile: rows srg*RM.., keys skg+16j
-  const int prg = t / 32, pdg = t % 32;   // value tile: rows prg*RP.., dims pdg+32j
-  float acc[RP][4];
-#pragma unroll
-  for (int i = 0; i < RP; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = kbeg; k0 < kend; k0 += kKT) {
-    for (int e = t; e < kKT * D; e += kThreads) {
-      const int kk = e / D, c = e % D;
-      const int pos = k0 + kk;
-      Ks[kk * str + c] = pos < S ? kb[pos * kst.s + c] : 0.f;
-      Vs[e] = pos < S ? vb[pos * vst.s + c] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    for (int c = 0; c < D; ++c) {
-      float qv[RM], kv4[4];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = Qs[(srg * RM + i) * str + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv4[j] = Ks[(skg + 16 * j) * str + c];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] += qv[i] * kv4[j];
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = srg * RM + i, kk = skg + 16 * j;
-        const int qpos = row0 + r, kpos = k0 + kk;
-        const bool valid = kpos < S && (!causal || qpos >= kpos) &&
-                           (window <= 0 || kpos > qpos - window);
-        Ss[r * sstr + kk] = valid ? sc[i][j] * scale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    if (t < kQR) {
-      float* sr = Ss + t * sstr;
-      float mx = kNegInf;
-      for (int kk = 0; kk < kKT; ++kk) mx = fmaxf(mx, sr[kk]);
-      const float m_prev = M[t];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int kk = 0; kk < kKT; ++kk) {
-        const float p = expf(sr[kk] - m_new);
-        sr[kk] = p;
-        sum += p;
-      }
-      const float corr = expf(m_prev - m_new);
-      L[t] = L[t] * corr + sum;
-      M[t] = m_new;
-      C[t] = corr;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < RP; ++i) {
-      const float corr = C[prg * RP + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= corr;
-    }
-    for (int kk = 0; kk < kKT; ++kk) {
-      float vv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = pdg + 32 * j;
-        vv[j] = d < D ? Vs[kk * D + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RP; ++i) {
-        const float p = Ss[(prg * RP + i) * sstr + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += p * vv[j];
-      }
-    }
-    __syncthreads();  // Ks / Vs / Ss are rewritten by the next tile
-  }
-
-  float* ob = out + b * ost.b + h * ost.h;
-#pragma unroll
-  for (int i = 0; i < RP; ++i) {
-    const int r = prg * RP + i;
-    if (row0 + r >= S) continue;
-    const float denom = fmaxf(L[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = pdg + 32 * j;
-      if (d < D) ob[(row0 + r) * ost.s + d] = acc[i][j] / denom;
-    }
-  }
-}
-
-int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV, int S,
-           int D, Strides qs, Strides ks, Strides vs, Strides os, float scale, int causal,
-           int window, cudaStream_t st) {
-  if (D > kMaxD) return (int)cudaErrorInvalidValue;
-  const int bytes = smem_floats(D) * (int)sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+template <int VEC, int NDV>
+int launch_f32(const f32_tile::Problem& p, int B, cudaStream_t st) {
+  static int done[16] = {0};
+  const int bytes = f32_tile::smem_bytes(p, p.nst);
+  cudaError_t err = attn_tile::allow_smem(flash_f32<VEC, NDV>, bytes, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kQR - 1) / kQR, H, B);
-  flash_f32<<<grid, kThreads, bytes, st>>>((const float*)q, (const float*)k, (const float*)v,
-                                           (float*)out, H, KV, S, D, qs, ks, vs, os, scale,
-                                           causal, window);
+  const dim3 grid((p.Tq + f32_tile::kRows - 1) / f32_tile::kRows * p.H, 1, B);
+  flash_f32<VEC, NDV><<<grid, f32_tile::kThreads, bytes, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-}  // namespace f32
+// vec: floats per copy, 4 (16-byte copies: the wrapper found the bases
+// and outer strides 16-byte aligned) or 1
+int dispatch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
+                 int S, int D, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                 int causal, int window, int vec, cudaStream_t st) {
+  if (vec == 4 && D % 4 != 0) vec = 0;
+  f32_tile::Problem p{};
+  p.q = (const float*)q;
+  p.k = (const float*)k;
+  p.v = (const float*)v;
+  p.out = (float*)out;
+  p.H = H;
+  p.KV = KV;
+  p.Tq = p.S = S;
+  p.D = p.Dv = D;
+  p.q_blk = f32_tile::kRows;
+  p.nqc = 1;
+  p.qs = qs;
+  p.ks = ks;
+  p.vs = vs;
+  p.os = os;
+  p.scale_log2 = scale * f32_tile::kLog2e;
+  p.causal = causal;
+  p.window = window;
+  if ((vec != 1 && vec != 4) || !f32_tile::plan(p, vec)) return (int)cudaErrorInvalidValue;
+  // head_dim 128 takes a kernel with its P·V width fixed at compile time;
+  // 4-byte copies (unaligned views) only the generic one
+  if (vec == 1) return launch_f32<1, 0>(p, B, st);
+  return D == 128 ? launch_f32<4, 16>(p, B, st) : launch_f32<4, 0>(p, B, st);
+}
 
 }  // namespace
 
 // Strides are in elements: {batch, head, seq} of q, k, v and out. window
-// <= 0 means no sliding window. dtype: 0 = float32, 1 = bfloat16. Returns
-// the cudaError_t of the launch.
+// <= 0 means no sliding window. dtype: 0 = float32, 1 = bfloat16. vec is
+// the float32 route's copy width in floats: 4 (16-byte copies; the caller
+// found every base and outer stride 16-byte aligned) or 1. Returns the
+// cudaError_t of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int H, int KV, int S, int D,
                                       const long long* strides, float scale, int causal,
-                                      int window, int dtype, void* stream) {
+                                      int window, int dtype, int vec, void* stream) {
   if (H % KV != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaSuccess;
   const Strides qs{strides[0], strides[1], strides[2]};
@@ -370,7 +256,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Strides os{strides[9], strides[10], strides[11]};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return f32::launch(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window, st);
+    return dispatch_f32(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window, vec,
+                        st);
   // head_dim 128 (every served model but Danube) takes a kernel with its
   // depth and width fixed at compile time
   if (D == 128)

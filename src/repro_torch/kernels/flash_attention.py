@@ -9,11 +9,15 @@ per-dim AQUA prefill (``block_dims`` 1, on the masked q̂).
 Bound on the H100: operations at prompt lengths (the S²/2 score and value
 products against S·2D bytes of K/V per KV head). The kernel walks only the
 key tiles inside the causal bound and the window, and reads q/k/v through
-strides so the model's (B, S, KV, G, D) layout needs no transpose. bf16
-runs on the tensor cores, float32 on scalar FMAs; see the source's header
+strides so the model's (B, S, KV, G, D) layout needs no transpose. Both
+dtypes run on the tensor cores: bf16 on ``wgmma`` (``csrc/attn_tile.cuh``),
+float32 on ``mma.sync`` with every product split into three TF32 passes,
+which hold the float32 limits (``csrc/f32_tile.cuh``); see the headers
 for the tiling. The bf16 kernel copies K and V by TMA tensor maps and Q
 in 16-byte pieces: it needs D % 8 == 0, 16-byte aligned bases and outer
-strides, under 2**40 bytes (``ValueError`` otherwise).
+strides, under 2**40 bytes (``ValueError`` otherwise). The float32
+kernel copies 16-byte pieces where D % 4 == 0 and the views allow, else
+4-byte ones.
 
 Dispatch is by device: CPU tensors run :func:`flash_attention_plain`, CUDA
 tensors launch the kernel or raise. Launches count in
@@ -33,7 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    ctypes.POINTER(ctypes.c_longlong),
-                                   ctypes.c_float, _I, _I, _I, _P]}
+                                   ctypes.c_float, _I, _I, _I, _I, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -76,7 +80,8 @@ def _launch(q, k, v, causal, window):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
             kvh, s, d, strides, 1.0 / d ** 0.5, int(causal),
-            0 if window is None else int(window), _DTYPES[q.dtype], stream)
+            0 if window is None else int(window), _DTYPES[q.dtype],
+            _build.f32_copy_width(q, k, v), stream)
     _build.check(err, "flash_attention")
     return out
 

@@ -2,11 +2,15 @@
 library tag covers the shared headers, the bf16 kernels' 16-byte copy
 guard accepts aligned views and refuses misaligned ones (ValueError), and
 their TMA tensor-map guard refuses strides of 2**40 bytes or more and axes
-of 2**32 elements or more (ValueError)."""
+of 2**32 elements or more (ValueError). The float32 kernels' copy width
+(16-byte copies where the views, dim-blocks and widths allow, else 4-byte
+ones) and the widest union of selected dims a 64-row float32 prefill
+block gathers."""
 import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import aqua_prefill as pk
 
 
 def _tag(monkeypatch, tmp_path, cu: str, cuh: str) -> str:
@@ -88,3 +92,33 @@ def test_tma_guard_accepts(make):
 def test_tma_guard_refuses(make):
     with pytest.raises(ValueError, match="2\\*\\*40 bytes"):
         _build.check_tma("k", make())
+
+
+@pytest.mark.parametrize("make,block_dims,width", [
+    (lambda: _aligned(2, 4, 16, 64, dtype=torch.float32), 8, 4),
+    (lambda: _aligned(2, 16, 4, 64, dtype=torch.float32).transpose(1, 2),
+     4, 4),                                                 # (B,S,H,D) view
+    (lambda: _aligned(2, 4, 16, 64, dtype=torch.float32), 2, 1),  # blocks of 2
+    (lambda: _aligned(2, 4, 16, 68, dtype=torch.float32)[..., 2:66], 8, 1),
+    (lambda: _aligned(2, 4, 16, 66, dtype=torch.float32)[..., :64], 8, 1),
+    (lambda: _aligned(2, 4, 16, 72, dtype=torch.float32)[..., :70], 2, 1),
+])
+def test_f32_copy_width(make, block_dims, width):
+    """4 floats (16 bytes) a copy only where the base, every outer stride,
+    the dim-blocks and the last axis are whole 16-byte units."""
+    x = make()
+    assert _build.f32_copy_width(x, x, x, block_dims=block_dims) == width
+
+
+@pytest.mark.parametrize("d,nsel,q_blk,nqc,width", [
+    (128, 96, 128, 8, 96),      # one q-tile a block: its own selection
+    (128, 96, 256, 4, 96),
+    (128, 96, 64, 16, 96),
+    (128, 96, 32, 32, 128),     # two tiles a block, capped at D
+    (64, 24, 24, 9, 64),        # up to four tiles straddle a block
+    (512, 64, 72, 8, 128),      # 72 rows: two tiles
+    (512, 128, 8, 64, 512),     # eight tiles: past the 256 gathered dims
+    (128, 96, 16, 1, 96),       # one tile in all
+])
+def test_f32_union_width(d, nsel, q_blk, nqc, width):
+    assert pk._f32_union_width(d, nsel, q_blk, nqc) == width

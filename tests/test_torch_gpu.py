@@ -263,6 +263,39 @@ def test_flash_kernel_matches_plain(cuda, dtype, h, kv, d, s, causal,
     assert _within_tol(out, ref, dtype)
 
 
+@pytest.mark.parametrize("score_scale", [1.0, 3.0])
+@pytest.mark.parametrize("kernel", ["prefill", "flash"])
+def test_f32_kernels_at_the_served_shape(cuda, kernel, score_scale):
+    """float32 (a served HF checkpoint's dtype) at Qwen3-0.6B's served
+    prefill: B=1, H 16, KV 8, S 1024, head_dim 128, q_blk 128, 96 of 128
+    dims selected. score_scale 3 multiplies q, so the scores, by 3 (a
+    standard deviation near 3): the three-pass TF32 split's error grows
+    with the scores (tests/test_torch_f32_split.py's emulation reads 0.47
+    and 0.54 of the limit there, 0.07 and 0.09 at 1x)."""
+    gen = torch.Generator(device="cuda").manual_seed(1024)
+    f32 = torch.float32
+    b, h, kv, d, s = 1, 16, 8, 128, 1024
+    q = _rand(gen, b, s, h, d, dtype=f32).transpose(1, 2) * score_scale
+    k = _rand(gen, b, kv, s, d, dtype=f32)
+    v = _rand(gen, b, kv, s, d, dtype=f32)
+    before = LAUNCHES.copy()
+    if kernel == "prefill":
+        lengths = torch.full((b,), s, dtype=torch.int32, device=cuda)
+        block_idx, _, chunk = ops.prefill_blocks(q, lengths, 0.75, 8, 128)
+        kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5)
+        out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+        ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
+        name = "aqua_prefill"
+    else:
+        out = fk.flash_attention(q, k, v, causal=True)
+        ref = fk.flash_attention_plain(q, k, v, causal=True)
+        name = "flash_attention"
+    torch.cuda.synchronize()
+    assert LAUNCHES - before == {name: 1}
+    assert out.dtype == f32 and out.shape == (b, h, s, d)
+    assert _within_tol(out, ref, f32)
+
+
 def test_prefill_chunk_rows_bitwise_equal_monolithic(cuda):
     """bf16: a chunk at a q_offset that is a multiple of the kernel's
     128-row blocks (here 384, with q_blk 128) has the monolithic call's
@@ -275,6 +308,28 @@ def test_prefill_chunk_rows_bitwise_equal_monolithic(cuda):
     q = _rand(gen, b, h, s, d, dtype=bf)
     k = _rand(gen, b, kv, s, d, dtype=bf)
     v = _rand(gen, b, kv, s, d, dtype=bf)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=cuda)
+    kw = dict(block_dims=8, q_blk=q_blk, causal=True, scale=d ** -0.5)
+    full_idx, _, _ = ops.prefill_blocks(q, lengths, 0.75, 8, q_blk)
+    mono = pk.aqua_prefill_attention(q, k, v, full_idx, lengths, **kw)
+    chunk = pk.aqua_prefill_attention(
+        q[:, :, off:], k, v, full_idx[:, :, off // q_blk:].contiguous(),
+        lengths, q_offset=off, **kw)
+    assert torch.equal(chunk, mono[:, :, off:])
+
+
+@pytest.mark.parametrize("off,q_blk", [(384, 128), (320, 32)])
+def test_f32_prefill_chunk_rows_bitwise_equal_monolithic(cuda, off, q_blk):
+    """float32: a chunk at a q_offset that is a multiple of the kernel's
+    64-row blocks and of q_blk has the monolithic call's blocks and
+    gathered unions (q_blk 32: two tiles a block), so its rows are bitwise
+    the monolithic rows."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, h, kv, d, s = 1, 16, 8, 128, 640
+    f32 = torch.float32
+    q = _rand(gen, b, h, s, d, dtype=f32)
+    k = _rand(gen, b, kv, s, d, dtype=f32)
+    v = _rand(gen, b, kv, s, d, dtype=f32)
     lengths = torch.full((b,), s, dtype=torch.int32, device=cuda)
     kw = dict(block_dims=8, q_blk=q_blk, causal=True, scale=d ** -0.5)
     full_idx, _, _ = ops.prefill_blocks(q, lengths, 0.75, 8, q_blk)
