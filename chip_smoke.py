@@ -18,7 +18,8 @@ Phases, each of which raises (non-zero exit) on failure:
    int8 participating-page instantiations, and the warp-specialized
    design's register
    reallocation (USETMAXREG) and TMA tensor copies (UTMALDG) in the bf16
-   prefill and flash kernels.
+   prefill and flash kernels; float32 FMAs (FFMA) in every instantiation
+   of the decode's float32 group route and no spills in its ptxas lines.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes (bf16, D=128) of Qwen3-0.6B (H=16, KV=8) and of
    Llama-3.1-8B (H=32, KV=8): decode B=8, S=4096 (contiguous, and paged
@@ -122,8 +123,8 @@ Phases, each of which raises (non-zero exit) on failure:
    --verify`` (greedy tokens identical to the contiguous reference engine,
    the pool-bytes check; the launcher prints its own lines). Its params and
    activations are float32 (``config_from_hf``), so the drive runs the
-   float32 routes: the per-head paged decode and the prefill on TF32
-   tensor cores in three passes. The launcher's own run launches,
+   float32 routes: the decode's float32 group route and the prefill on
+   TF32 tensor cores in three passes. The launcher's own run launches,
    exactly: the prefill kernel
    once per layer per admission of its drive and of its reference drive
    and per calibration batch, the paged decode once per layer per step of
@@ -143,16 +144,21 @@ Phases, each of which raises (non-zero exit) on failure:
    the run launches, exactly, flash once per layer per admission of its
    drive and of its reference drive and per calibration batch, nothing
    else; its logits against a plain drive are reported, not held (per-dim
-   selection parts the drives at near-tied dim ranks).
-   The three float32 routes at the drives' shapes (paged decode B=8 over
-   a 2048-token table, lengths 128-1056; prefill and flash B=1, S=1024)
+   selection parts the drives at near-tied dim ranks). The launcher's
+   engine's step graph against eager ``decode_step``, bit for bit, with
+   its device ms per replay (phase 5's check, in float32).
+   The float32 routes at the drives' shapes (decode B=8 over a
+   2048-token table, lengths 128-1056, paged and contiguous, both on the
+   float32 group route; prefill and flash B=1, S=1024)
    against their plain versions with the planted faults of the bf16
    phases, timed the same way, with SDPA in float32 as the library call;
    float32 bounds at the faster of 67 TFLOP/s outside the tensor cores
    and a third of 495 TFLOP/s TF32 (three passes).
 7. The ``{"kernels": [...]}`` line (each float32 route under its kernel's
-   ``float32_route``, with its launches on its path: the prefill's in the
-   HF drive's second serve, flash's in the ``--block-dims 1`` run), then
+   ``float32_route``, with its launches on its path: the paged decode's
+   and the prefill's in the HF drive's second serve, the contiguous
+   decode's in the launcher's ``--verify`` reference engine, flash's in
+   the ``--block-dims 1`` run), then
    the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -300,14 +306,14 @@ def device_us(fn, calls: int = 10) -> dict:
     return by_name
 
 
-SASS_OPS = ("HMMA", "HGMMA", "USETMAXREG", "UTMALDG")
+SASS_OPS = ("HMMA", "HGMMA", "USETMAXREG", "UTMALDG", "FFMA")
 
 
 def sass_counts(lib: str) -> dict:
     """Instructions of each opcode in ``SASS_OPS`` (tensor cores: HMMA,
-    HGMMA; register reallocation: USETMAXREG; TMA tensor copies: UTMALDG)
-    per kernel function in the SASS of one built library, from
-    ``cuobjdump -sass``."""
+    HGMMA; register reallocation: USETMAXREG; TMA tensor copies: UTMALDG;
+    float32 FMAs outside the tensor cores: FFMA) per kernel function in
+    the SASS of one built library, from ``cuobjdump -sass``."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", lib], check=True,
@@ -323,6 +329,23 @@ def sass_counts(lib: str) -> dict:
                 if pat.search(line):
                     counts[fn][op] += 1
     return counts
+
+
+def ptxas_spills(log: str) -> dict:
+    """Spill stores plus spill loads in bytes per kernel function, from
+    the ptxas lines of one nvcc build (``-Xptxas -v``)."""
+    spills, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            spills[fn] = int(m.group(1)) + int(m.group(2))
+            fn = None
+    return spills
 
 
 def tol_ratio(out, ref) -> float:
@@ -403,8 +426,8 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
     """The decode (contiguous or paged, 64-token pages) at B=8 over a
     table of ``s`` positions, lengths uniform in ``len_range``; the served
     form (``form="served"``) takes the drives' contexts. bf16 takes the
-    group route; float32 (``dtype``, the served checkpoint's) the per-head
-    route."""
+    group route; float32 (``dtype``, the served checkpoint's) the float32
+    group route (``group_f32``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import aqua
@@ -1310,36 +1333,42 @@ def step_graph_phase(path: str, eng, reqs, steps: int = 16) -> dict:
     return out
 
 
-def serve_phase(card: str) -> dict:
+def load_model(name: str, seed: int, dtype: str = "bfloat16") -> tuple:
+    """A model at its published width and depth with AQUA (K_RATIO,
+    BLOCK_DIMS), random weights and activations of ``dtype`` from
+    ``seed``, and projections calibrated on the corpus: (config, params,
+    projections)."""
     import torch
-    from repro_torch.configs import (AquaConfig, CacheSpec, QuantSpec,
-                                     ServingConfig, SparsitySpec, get_config)
+    from repro_torch.configs import AquaConfig, get_config
     from repro_torch.core.calibration import calibrate
     from repro_torch.data.corpus import calibration_batches
     from repro_torch.models import build_model
+    mcfg = dataclasses.replace(
+        get_config(name), aqua=AquaConfig(k_ratio=K_RATIO,
+                                          block_dims=BLOCK_DIMS),
+        dtype=dtype, param_dtype=dtype)
+    model = build_model(mcfg)
+    mparams = model.init(torch.Generator(device="cuda").manual_seed(seed))
+
+    def fwd_cap(p, batch):
+        toks = torch.from_numpy(batch["tokens"]).cuda()
+        return model.forward(p, {"tokens": toks}, capture=True)[1]
+    mproj = calibrate(fwd_cap, mparams, calibration_batches(
+        mcfg.vocab_size, os.path.join(ROOT, "corpora", "calibration.txt"),
+        num_batches=2, batch=2, seq=32), mcfg)
+    return mcfg, mparams, mproj
+
+
+def serve_phase(card: str) -> dict:
+    import torch
+    from repro_torch.configs import (CacheSpec, QuantSpec, ServingConfig,
+                                     SparsitySpec)
     from repro_torch.serving import ContinuousBatchingEngine, poisson_trace
 
-    aqua = AquaConfig(k_ratio=K_RATIO, block_dims=BLOCK_DIMS)
     t0 = time.perf_counter()
-
-    def load(name, seed):
-        """A model at its published width and depth with random bf16
-        weights from ``seed``, and projections calibrated on the corpus."""
-        mcfg = dataclasses.replace(get_config(name), aqua=aqua,
-                                   dtype="bfloat16", param_dtype="bfloat16")
-        model = build_model(mcfg)
-        mparams = model.init(torch.Generator(device="cuda").manual_seed(seed))
-
-        def fwd_cap(p, batch):
-            toks = torch.from_numpy(batch["tokens"]).cuda()
-            return model.forward(p, {"tokens": toks}, capture=True)[1]
-        mproj = calibrate(fwd_cap, mparams, calibration_batches(
-            mcfg.vocab_size, os.path.join(ROOT, "corpora",
-                                          "calibration.txt"),
-            num_batches=2, batch=2, seq=32), mcfg)
-        return mcfg, mparams, mproj
-    cfg, params, proj = load("qwen3-0.6b", 0)
-    danube, danube_params, danube_proj = load("h2o-danube-1.8b", 1)
+    cfg, params, proj = load_model("qwen3-0.6b", 0)
+    aqua = cfg.aqua
+    danube, danube_params, danube_proj = load_model("h2o-danube-1.8b", 1)
     weights = {cfg.name: (params, proj),
                danube.name: (danube_params, danube_proj)}
     setup_s = time.perf_counter() - t0
@@ -1589,15 +1618,17 @@ def hf_serve_phase(card: str, gen) -> dict:
     (bf16 stored, tied, two shards, seeded), serve it through the port's
     launcher, ``repro_torch.launch.serve.main``, with ``--verify`` (float32
     params and activations, as ``config_from_hf`` gives them, so the
-    per-head decode route and the float32 prefill), then: re-serve the same
-    trace on the launcher's engine (its second serve through the captured
-    step graph; tokens must equal the first) with the launch counters
-    zeroed just before and read just after, a plain reference drive
-    (``aqua-block-sparse-plain``) on the same loaded params whose logits
-    must match per element within the float32 limits, the launcher at
-    ``--block-dims 1`` (flash on the masked q̂) with ``--verify`` and exact
-    launches, and the three float32 kernel routes at the drives' shapes
-    against their plain versions."""
+    float32 group decode route and the float32 prefill), then: re-serve
+    the same trace on the launcher's engine (its second serve through the
+    captured step graph; tokens must equal the first) with the launch
+    counters zeroed just before and read just after, a plain reference
+    drive (``aqua-block-sparse-plain``) on the same loaded params whose
+    logits must match per element within the float32 limits, the
+    engine's step graph against eager decode (``step_graph_phase``), the
+    launcher at ``--block-dims 1`` (flash on the masked q̂) with
+    ``--verify`` and exact launches, and the float32 kernel routes at the
+    drives' shapes (the decode paged and contiguous) against their plain
+    versions."""
     import gc
     import shutil
     import torch
@@ -1738,21 +1769,29 @@ def hf_serve_phase(card: str, gen) -> dict:
         f"{vs_ctl['decode_worst_err_over_limit']}")
     assert vs_ctl["admit_worst_err_over_limit"] > 1.0, vs_ctl
     log_time("hf_serve bf16-input control drive")
+    # the launcher's step graph against eager decode_step at full width in
+    # float32, bit for bit, and its device ms per replay
+    graph_check = step_graph_phase("hf_serve", eng, [
+        dataclasses.replace(r) for r in reqs])
+    log({"step_graph": graph_check})
+    log_time("hf_serve step graph")
     torch.cuda.empty_cache()
-    # the float32 routes at the drives' shapes: the paged decode over its
-    # contexts (128-1056 tokens of a 2048-token table), its longest
-    # prompt's prefill and, for block_dims 1, flash
-    phases = [decode_phase(cfg.name, att.num_heads, att.num_kv_heads, True,
+    # the float32 routes at the drives' shapes: the paged decode and the
+    # reference engine's contiguous decode over its contexts (128-1056
+    # tokens of a 2048-token table), its longest prompt's prefill and, for
+    # block_dims 1, flash
+    phases = [decode_phase(cfg.name, att.num_heads, att.num_kv_heads, paged,
                            gen, s=2048, len_range=(128, 1056),
-                           form="served", dtype="float32"),
-              prefill_phase(cfg.name, att.num_heads, att.num_kv_heads, gen,
+                           form="served", dtype="float32")
+              for paged in (True, False)]
+    phases += [prefill_phase(cfg.name, att.num_heads, att.num_kv_heads, gen,
                             s=1024, form="served", dtype="float32"),
-              flash_phase(cfg.name, att.num_heads, att.num_kv_heads, gen,
-                          s=1024, form="served", dtype="float32")]
+               flash_phase(cfg.name, att.num_heads, att.num_kv_heads, gen,
+                           s=1024, form="served", dtype="float32")]
     for p in phases:
         log(p)
     assert all(p["ok"] for p in phases), phases
-    assert phases[0]["route"] == "per_head", phases[0]["route"]
+    assert all(p["route"] == "group_f32" for p in phases[:2]), phases[:2]
     log_time("hf_serve float32 kernel phases")
     log(f"[hf_serve] checkpoint {nbytes} bytes written in {write_s:.2f} s, "
         f"loaded in {run.load_seconds:.2f} s; tokens/s "
@@ -1786,11 +1825,14 @@ def hf_serve_phase(card: str, gen) -> dict:
         reference="aqua-block-sparse-plain",
         reference_decode_step_ms=ref["decode_step_ms"],
         vs_reference=vs_ref, bf16_inputs_control=vs_ctl,
+        step_graph=graph_check,
         f32_rtol=F32_RTOL, f32_atol=F32_ATOL, logit_scale=HF_LOGIT_SCALE)
     log({"hf_serve": result})
-    # each float32 route's launches on its path: the prefill's in the
-    # second serve, flash's in the block_dims 1 launcher run
-    f32_launches = {"aqua_decode": launches["aqua_decode"],
+    # each float32 route's launches on its path: the paged decode's and the
+    # prefill's in the second serve, the contiguous decode's in the
+    # launcher's run (--verify's reference engine), flash's in the
+    # block_dims 1 launcher run
+    f32_launches = {"aqua_decode": main_launches["aqua_decode"],
                     "aqua_paged_decode": launches["aqua_paged_decode"],
                     "aqua_prefill": launches["aqua_prefill"],
                     "flash_attention": per_dim_launches["flash_attention"]}
@@ -1858,6 +1900,21 @@ def main() -> int:
     assert set(variants) == want and all(variants.values()), variants
     log({"sass_decode_group_variants": {
         f"kKS{k[0]}_quant{k[2]}_part{k[3]}": n for k, n in variants.items()}})
+    # the float32 group route, decode_f32<kG, kWide> (...ILi2ELb0E...): its
+    # scores and P·V on FFMA in every instantiation, and no spills
+    f32_ffma = {}
+    for fn, c in counts.items():
+        m = re.search(r"decode_f32ILi(\d+)ELb([01])E", fn)
+        if m:
+            f32_ffma[f"kG{m.group(1)}_wide{m.group(2)}"] = c["FFMA"]
+    assert len(f32_ffma) == 8 and all(f32_ffma.values()), f32_ffma
+    if build_logs["aqua_decode"]:
+        spills = {fn: n for fn, n in ptxas_spills(
+            build_logs["aqua_decode"]).items() if "decode_f32" in fn}
+        assert len(spills) == 8 and not any(spills.values()), spills
+    else:
+        spills = "not checked: the library was built by an earlier run"
+    log({"sass_decode_f32_variants": f32_ffma, "ptxas_spill_bytes": spills})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     phases = []

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Race the prefill, flash and paged decode kernels of several checkouts
-on one GPU.
+"""Race the prefill, flash and decode kernels of several checkouts on one
+GPU.
 
     python3 kernel_race.py OUT.jsonl PARENT_DIR . . PARENT_DIR
 
 Each directory is a checkout of the repo whose ``src/`` is the tree under
 test; ``git archive <commit>`` unpacked into a gitignored directory gives
 one. The measurements are this checkout's ``chip_smoke.py`` phases
-(``prefill_phase``, ``flash_phase``, ``paged_variant_phase``), so every
+(``prefill_phase``, ``flash_phase``, ``decode_phase``,
+``paged_variant_phase``, ``step_graph_phase``), so every
 tree runs the same code against its own kernels. Each directory runs in a process of its own, in
 the order given (parent, change, change, parent puts drift on both sides).
 Per tree:
@@ -19,11 +20,19 @@ Per tree:
   head_dim 80 (H2O-Danube-1.8B), the prefill at k_ratio 0.5;
 - the float32 routes of the prefill and flash (a served HF checkpoint's
   dtype) in the served form at Qwen3-0.6B's geometry;
+- the decode at full precision, contiguous and paged, at both
+  geometries: bf16 at B=8, S=4096 and paged in the served form; float32
+  (a served HF checkpoint's) at B=8, S=4096 and in the served form, with
+  the route the tree's ``decode_route`` chose;
 - the paged decode over int8 pools, over the participating pages of
   hierarchical AQUA, and over both, at both geometries: B=8, S=4096 and
   the served form (lengths 128-1056 in a 2048-token table), each against
   its plain version at chip_smoke's limits, with the route the tree's
   ``decode_route`` chose;
+- the float32 serving decode step (Qwen3-0.6B at full width and depth,
+  float32 params and activations as a served HF checkpoint's, 8 lanes,
+  64-token pages, prompts 128/512/1024): ``step_graph_phase``'s replay =
+  eager (bitwise) and the graph's device ms per replay;
 - the host microseconds of one wrapper call at a tiny shape (S=128, where
   the device work is a few microseconds, so the host bounds a loop of
   calls; the five repeats of 2000 calls, sorted), and of one
@@ -104,6 +113,23 @@ def host_us(gen) -> dict:
     return out
 
 
+def f32_step_graph(cs) -> dict:
+    """The float32 serving decode step through ``cs.step_graph_phase``:
+    Qwen3-0.6B at full width and depth with float32 weights, the engine
+    the HF launcher builds (8 lanes, max_seq 2048, 64-token pages, no
+    prefix sharing), prompts 128/512/1024."""
+    from repro_torch.configs import CacheSpec, ServingConfig
+    from repro_torch.serving import ContinuousBatchingEngine, poisson_trace
+    cfg, params, proj = cs.load_model("qwen3-0.6b", 0, dtype="float32")
+    eng = ContinuousBatchingEngine(cfg, params, proj, serving=ServingConfig(
+        max_lanes=8, max_seq=2048, max_new_tokens=32,
+        cache=CacheSpec(page_size=64, prefix_sharing=False)))
+    reqs = poisson_trace(8, mean_interarrival=4.0,
+                         prompt_lens=(128, 512, 1024), max_new_tokens=32,
+                         vocab_size=cfg.vocab_size, seed=0)
+    return cs.step_graph_phase("f32_paged", eng, reqs)
+
+
 def one_tree(tree: str, out_path: str) -> int:
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
@@ -140,6 +166,18 @@ def one_tree(tree: str, out_path: str) -> int:
                lambda: cs.flash_phase("qwen3-0.6b", 16, 8, gen, s=1024,
                                       form="served", dtype="float32")]
     for geom, h, kvh in (("qwen3-0.6b", 16, 8), ("llama3.1-8b", 32, 8)):
+        for paged in (False, True):
+            phases += [lambda g=geom, h=h, kv=kvh, pg=paged:
+                       cs.decode_phase(g, h, kv, pg, gen),
+                       lambda g=geom, h=h, kv=kvh, pg=paged:
+                       cs.decode_phase(g, h, kv, pg, gen, dtype="float32"),
+                       lambda g=geom, h=h, kv=kvh, pg=paged:
+                       cs.decode_phase(g, h, kv, pg, gen, s=2048,
+                                       len_range=(128, 1056), form="served",
+                                       dtype="float32")]
+        phases.append(lambda g=geom, h=h, kv=kvh: cs.decode_phase(
+            g, h, kv, True, gen, s=2048, len_range=(128, 1056),
+            form="served"))
         for quant, part in ((True, False), (False, True), (True, True)):
             phases += [lambda g=geom, h=h, kv=kvh, qt=quant, pt=part:
                        cs.paged_variant_phase(g, h, kv, qt, pt, gen),
@@ -154,6 +192,8 @@ def one_tree(tree: str, out_path: str) -> int:
             line = dict({k: p.get(k) for k in KEEP}, tree=tree)
             out.write(json.dumps(line) + "\n")
             ok = ok and p["ok"]
+        graph = f32_step_graph(cs)
+        out.write(json.dumps({"tree": tree, "step_graph": graph}) + "\n")
         out.write(json.dumps({"tree": tree, "host_us": host_us(gen)}) + "\n")
     return 0 if ok else 1
 
@@ -177,6 +217,13 @@ def main() -> int:
     for r in rows:
         if "host_us" in r:
             print(r["tree"], "host us", json.dumps(r["host_us"]))
+            continue
+        if "step_graph" in r:
+            g = r["step_graph"]
+            print(r["tree"], "float32 step graph: device ms per replay",
+                  f"{g['replay_device_ms']:.4f}, device ops",
+                  g["device_ops_per_replay"], "bitwise",
+                  g["logits_bitwise"] and g["state_bitwise"])
             continue
         key = (r["name"], r["geometry"], r["form"], r.get("dtype"),
                (r["shape"] or {}).get("k_ratio"))

@@ -16,8 +16,8 @@ the cache per step, which would move the whole K̂ once more than the kernel
 saves), only the selected blocks and only valid positions, split over the
 sequence so that a small batch still fills the card.
 
-Two routes (see the source's header), chosen by :func:`decode_route` from
-dtype, flags and shapes alone. The group route takes bf16 q̂ over a
+Three routes (see the source's header), chosen by :func:`decode_route`
+from dtype, flags and shapes alone. The group route takes bf16 q̂ over a
 contiguous cache, a page pool, an int8 pool, the participating pages or
 the participating pages of an int8 pool (``_kernel``, ``_paged_kernel``,
 ``_paged_quant_kernel``, ``_paged_part_kernel``,
@@ -28,9 +28,16 @@ union of the group's selected 8-dim chunks and the V rows; int8: whole
 rows, converted exactly to bf16 in registers), and the scores and P·V run
 on the tensor cores (``mma.sync``). It needs D and Dv multiples of 8
 (int8: of 16), D <= 256, and 16-byte aligned views (``ValueError``
-otherwise). float32 q̂ (the tests) and the int8 and participating widths
-the group route does not take run the per-head route of the first port
-(one block per query head, scalar loads). Both split the sequence into
+otherwise). The float32 group route (``"group_f32"``) takes float32 q̂
+over a contiguous cache or a page pool at full precision (``_kernel`` and
+``_paged_kernel`` as a served HF checkpoint runs them): the same blocks,
+each 8-position tile's K̂ and V rows copied whole (two bulk copies where
+the tile lies in one page), the scores and P·V exactly in float32 on FFMA.
+It needs D and Dv multiples of 4, D <= 256, and 16-byte aligned views
+(``ValueError`` otherwise). float32 with int8 pools or participating
+pages, float32 widths off its route, and the bf16 int8 and participating
+widths off the group route run the per-head route of the first port (one
+block per query head, scalar loads). Every route splits the sequence into
 256-position blocks (``aqua_decode_split``), which sizes the float32
 scratch.
 
@@ -55,6 +62,7 @@ _SIG = {"aqua_decode_launch": [_P] * 11 + [_I] * 12 + [ctypes.c_float, _I,
                                                         _I, _P],
         "aqua_decode_split": []}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"per_head": 0, "group": 1, "group_f32": 2}
 
 
 def body_name(paged: bool, quant: bool = False, part: bool = False) -> str:
@@ -67,11 +75,12 @@ def body_name(paged: bool, quant: bool = False, part: bool = False) -> str:
 
 def decode_route(dtype: torch.dtype, *, quant: bool, part: bool, d: int,
                  dv: int, nsel: int) -> str:
-    """The route a CUDA call takes: ``"group"`` or ``"per_head"``, from
+    """The route a CUDA call takes: ``"group"`` (bf16), ``"group_f32"``
+    (float32 at full precision over every page) or ``"per_head"``, from
     q̂'s dtype, int8 pools (``quant``), participating pages (``part``), the
     widths D and Dv and the selected dims NB_sel·block_dims. Raises
-    ``TypeError`` for a q̂ dtype neither route takes and ``ValueError`` for
-    shapes neither takes."""
+    ``TypeError`` for a q̂ dtype no route takes and ``ValueError`` for
+    shapes none takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"aqua_decode kernel takes float32 or bfloat16 q, "
                         f"got {dtype}")
@@ -79,10 +88,13 @@ def decode_route(dtype: torch.dtype, *, quant: bool, part: bool, d: int,
         raise ValueError(f"aqua_decode kernel takes at most 256 selected dims "
                          f"and Dv <= 256, got {nsel} and {dv}")
     if dtype == torch.float32:
+        # bulk copies move whole 16-byte units: float32 rows of a multiple
+        # of 4 dims
+        if not (quant or part) and d % 4 == 0 and dv % 4 == 0 and d <= 256:
+            return "group_f32"
         return "per_head"
-    # bulk copies move whole 16-byte units: bf16 rows of a multiple of 8
-    # dims, int8 rows of a multiple of 16 (with or without participating
-    # pages)
+    # bf16 rows of a multiple of 8 dims, int8 rows of a multiple of 16
+    # (with or without participating pages)
     unit = 16 if quant else 8
     if d % unit == 0 and dv % unit == 0 and d <= 256:
         return "group"
@@ -182,7 +194,7 @@ def _launch(q_hat, k, v, block_idx, lengths, page_table, block_dims, scale,
     for t in (k_scale, v_scale):
         if t is not None and t.dtype != torch.float32:
             raise TypeError("k_scale and v_scale must be float32")
-    if route == "group":
+    if route != "per_head":
         _build.check_cp_async("aqua_decode", q_hat, k, v)
     lib = _build.load("aqua_decode", _SIG)
     npl = 0 if page_table is None else page_table.shape[1]
@@ -205,7 +217,7 @@ def _launch(q_hat, k, v, block_idx, lengths, page_table, block_dims, scale,
             *map(ptr, optional), lengths.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), b, h, kvh, d, dv, nb_sel, block_dims, ps, npl,
             kp, 0 if k_scale is None else k_scale.shape[1], nsplit,
-            float(scale), _DTYPES[q_hat.dtype], int(route == "group"),
+            float(scale), _DTYPES[q_hat.dtype], _ROUTES[route],
             stream)
     _build.check(err, body_name(page_table is not None, quant,
                                 part_idx is not None))

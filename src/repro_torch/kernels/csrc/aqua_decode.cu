@@ -22,7 +22,7 @@
 // element for int8 pools). Decode does ~2 operations per byte, far below
 // the ~295 at which the card's arithmetic would bound it.
 //
-// Both routes split the sequence: a partial pass writes, per (b, h, split
+// Every route splits the sequence: a partial pass writes, per (b, h, split
 // of `split` positions), its running (max, sum, acc[Dv]) in float32 to
 // scratch (B, H, nsplit, Dv + 2), and a combine pass merges the splits of
 // each (b, h) with the same online-softmax algebra. Splits at or past
@@ -93,14 +93,44 @@
 // (NEG_INF, 0, 0) (its threads test the split's 256 positions at the
 // block's one barrier). kQuant and kPart are independent template flags.
 //
-// Per-head route (float32 q̂, the tests' form, kept off the tensor cores as
-// in the prefill; and the int8 and participating widths the group route
-// does not take): one block of 128 threads per (split of 256
-// positions, h, b); each thread scores one position of a 128-position tile
-// from the selected blocks only (scalar loads), the block reduces the
-// tile's max and sum, and each thread accumulates one or two output dims
-// over the tile's V rows. The participating walk and int8 are compile-time
-// variants, so the full-precision walk pays nothing for them.
+// float32 group route (namespace gqa32; float32 q̂ at full precision over
+// every page: _kernel and _paged_kernel as every served HF checkpoint runs
+// them; D and Dv multiples of 4, D <= 256): the group route's blocks, one
+// of 4 warps per (split, KV head, lane) for up to 8 heads, each warp walking
+// its own 8-position tiles (tile j of warp j mod 4) through a private ring
+// of two stages, and the same scratch and combine pass. What differs:
+// - Copies: whole rows. A tile lies in one page (pages of a multiple of 8
+//   positions, or the contiguous cache), so its 8 K̂ rows are consecutive in
+//   device memory: one bulk copy for them and one for its V rows, where
+//   staging the union of 4-dim chunks took ~4 copies a row, and one SM's
+//   copies, not device memory, set the served form's time (on the H100 the
+//   union took 0.0293 ms where whole tiles take 0.0233, PERF.md). At G >= 2
+//   and k_ratio 0.75 the union is ~94-100% of the row, so whole rows add
+//   little traffic. Tiles across pages copy row by row.
+// - Scores and P·V exactly in float32 on FFMA: ~2-4 FMAs per 4-byte element
+//   read, so arithmetic does not bind it (the tensor cores would need the
+//   three-TF32-pass split to hold the float32 limit). Lane (r, part) sums
+//   row r over the chunks part, part + 4, ... of the row, each rotated by r
+//   (a quarter warp's 16-byte loads from 8 rows fall on distinct banks),
+//   with q̂ of each head zero in the dims it did not select (so the whole
+//   row scores exactly the head's own blocks); the parts meet by shuffles.
+//   P goes through shared memory ([row][head], read as broadcast vectors);
+//   a lane owns 4 output dims (8 past Dv 128) of every head.
+// - The heads' q̂ rows and selections go out first; the masked q̂ is staged
+//   before the block's one barrier; the online softmax runs in registers
+//   in the log2 domain and the block merges its warps at the end.
+// kG (heads a block holds, rounded up to 1, 2, 4 or 8) and kWide (D or Dv
+// past 128) are compile-time.
+//
+// Per-head route (float32 q̂ with int8 pools or participating pages, or at
+// widths the float32 group route does not take; and the bf16 int8 and
+// participating widths the group route does not take): one block of 128
+// threads per (split of 256 positions, h, b); each thread scores one
+// position of a 128-position tile from the selected blocks only (scalar
+// loads), the block reduces the tile's max and sum, and each thread
+// accumulates one or two output dims over the tile's V rows. The
+// participating walk and int8 are compile-time variants, so the
+// full-precision walk pays nothing for them.
 //
 // int8 pools (both routes): k and v hold int8 and k_scale / v_scale (P, SH)
 // float32, one scale per page (SH = 1) or per page and kv head (SH = KV,
@@ -267,7 +297,7 @@ __global__ void __launch_bounds__(kThreads) aqua_decode_partial(
   if (t + kThreads < Dv) sc[2 + t + kThreads] = acc1;
 }
 
-// Combine pass (both routes): one block per (h, b) merges the splits the
+// Combine pass (every route): one block per (h, b) merges the splits the
 // partial pass wrote: those below lengths[b], or all of them over
 // participating pages.
 template <typename OT>
@@ -476,6 +506,28 @@ __device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t w, uint32_t s0, uint32_
   const float x1 = __uint_as_float(__byte_perm(w, 0x4B000000u, s1)) - 8388736.f;
   return __byte_perm(__float_as_uint(x0), __float_as_uint(x1), 0x7632);
 }
+// The block's merge of its warps' running (m, l, acc[Dv]) per head, warp w's
+// at wb + w·wstride as [head][Dv + 2] floats with m in log2 units, into the
+// split's scratch entries of its ng heads (out: head 0's entry; heads
+// head_stride floats apart), m in natural units. Follows a block barrier.
+__device__ __forceinline__ void merge_warps(const float* wb, int wstride, int ng, int Dv,
+                                            float* out, int64_t head_stride) {
+  const int wst = Dv + 2;
+  for (int e = threadIdx.x; e < ng * wst; e += kThreads) {
+    const int hh = e / wst, i = e - hh * wst;
+    float mb = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mb = fmaxf(mb, wb[w * wstride + hh * wst]);
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* r = wb + w * wstride + hh * wst;
+      sum += fast_exp2(r[0] - mb) * r[i];
+    }
+    out[hh * head_stride + i] = i == 0 ? mb * kLn2 : sum;
+  }
+}
+
 // kKS: most 16-dim k-steps of the union (8: D <= 128); kMT: most 16-wide
 // slices of the output (8: Dv <= 128). kQuant: int8 K̂/V with per-page
 // scales, float32 output; kPart: the walk over the participating pages.
@@ -949,22 +1001,9 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const Args a) {
     }
   }
   __syncthreads();
-  const float* wb = reinterpret_cast<const float*>(smem_raw);
-  const int wstride = warp_b / 4;  // floats per warp's shared memory
-  for (int e = tid; e < ng * wst; e += kThreads) {
-    const int hh = e / wst, i = e - hh * wst;
-    float mb = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mb = fmaxf(mb, wb[w * wstride + hh * wst]);
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float* r = wb + w * wstride + hh * wst;
-      sum += fast_exp2(r[0] - mb) * r[i];
-    }
-    a.scratch[(((int64_t)b * a.H + h0 + hh) * a.nsplit + split) * wst + i] =
-        i == 0 ? mb * kLn2 : sum;
-  }
+  merge_warps(reinterpret_cast<const float*>(smem_raw), warp_b / 4, ng, Dv,
+              a.scratch + (((int64_t)b * a.H + h0) * a.nsplit + split) * wst,
+              (int64_t)a.nsplit * wst);
 }
 
 template <int kKS, int kMT, bool kQuant, bool kPart>
@@ -992,9 +1031,375 @@ int launch_variant(const Args& a, int B, void* out, cudaStream_t st) {
 
 }  // namespace gqa
 
+// ---------------------------------------------------------------------------
+// float32 group route: one block per (split, KV head, lane), exact float32 on
+// FFMA
+// ---------------------------------------------------------------------------
+
+namespace gqa32 {
+
+using attn_tile::fast_exp2;
+using attn_tile::mbar_wait;  // traps after 4 s of the card's clock (a wrong count)
+using attn_tile::smem_u32;
+using gqa::bulk_copy;
+using gqa::evict_first_policy;
+using gqa::mbar_expect;
+using gqa::mbar_init;
+using gqa::range_word;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 8;             // positions per warp tile
+constexpr int kStages = 2;           // warp tiles in flight per warp
+constexpr int kParts = 32 / kRows;   // lanes that share a row's score
+constexpr int kHeads = 8;            // query heads per block
+static_assert(kStages * kRows <= 32, "a warp's first tiles give each lane at most one row");
+static_assert(kWarps == gqa::kWarps, "the block merge is the group route's");
+
+struct Args {
+  const float* q;
+  const float* k;        // (P, KV, ps, D)
+  const float* v;        // (P, KV, ps, Dv)
+  const int* block_idx;
+  const int* table;      // (B, np_lane) or null: contiguous cache (page = b, ps = S)
+  const int* lengths;
+  float* scratch;        // (B, H, nsplit, Dv + 2)
+  int H, KV, D, Dv, nb_sel, bd, ps, np_lane;
+  int nhg;               // blocks per KV head (groups of more than 8 heads)
+  int nsplit;
+  float scale_log2;      // scale · log2 e
+};
+
+// Floats per warp: kStages stages of kRows K̂ rows then kRows V rows, whole
+// rows as they lie in device memory
+__host__ __device__ inline int warp_floats(int D, int Dv) { return kStages * kRows * (D + Dv); }
+// Dynamic shared memory: the warps' rings, the heads' masked q̂ (kG x D) and
+// each warp's tile of P (kRows x kG)
+template <int kG>
+__host__ __device__ inline int smem_bytes(int D, int Dv) {
+  return 4 * (kWarps * warp_floats(D, Dv) + kG * D + kWarps * kRows * kG);
+}
+
+__device__ __forceinline__ float comp(const float4& x, int j) {
+  return j == 0 ? x.x : j == 1 ? x.y : j == 2 ? x.z : x.w;
+}
+
+// kG: heads a block holds, rounded up to a power of two (1, 2, 4, 8; heads
+// past the group's are zero in q̂ and not written). kWide: D or Dv past 128.
+// Scores: lane (r = lane % kRows, part = lane / kRows) sums row r over the
+// 4-dim chunks part, part + kParts, ... of the row, each rotated by r (so
+// the rows of a quarter warp's 16-byte loads fall on distinct banks); P·V:
+// lane owns output dims 4·lane .. 4·lane + 3 (and 128 on, kWide) of every
+// head.
+template <int kG, bool kWide>
+__global__ void __launch_bounds__(kThreads) decode_f32(const Args a) {
+  constexpr int kWords = kWide ? 8 : 4;  // 32-dim words of a head's selected dims
+  constexpr int kCols = kWide ? 2 : 1;   // 4-dim output columns per lane
+  constexpr int kQ = kWide ? 4 : 2;      // q̂ chunks this thread masks per head
+  // partial sums per head's score (independent FMA chains) and the P·V
+  // rows unrolled: at 8 heads fewer, or ptxas spills under the 168
+  // registers that keep three blocks an SM
+  constexpr int kP = kG >= 8 ? 1 : kG >= 4 ? 2 : 4;
+  constexpr int kChunkUnroll = kG >= 8 ? 1 : 2;
+  constexpr int kRowUnroll = kG >= 8 ? 4 : kRows;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kv = blockIdx.y / a.nhg, hg = blockIdx.y - kv * a.nhg;
+  const int G = a.H / a.KV;
+  const int h0 = kv * G + hg * kHeads, ng = min(kHeads, G - hg * kHeads);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int D = a.D, Dv = a.Dv, nc = D / 4;
+  const int begin = split * kSplit;
+  const int cap = a.table ? a.ps * a.np_lane : a.ps;  // positions the view holds
+
+  extern __shared__ __align__(16) float smem_f[];
+  const int warp_f = warp_floats(D, Dv);
+  float* wbase = smem_f + warp * warp_f;
+  float* qm = smem_f + kWarps * warp_f;          // [head][D] masked q̂
+  float* pw = qm + kG * D + warp * kRows * kG;   // this warp's P: [row][head]
+  __shared__ uint64_t bar_s[kWarps][kStages];    // per warp and stage: copies landed
+
+  // Reads that depend on nothing go out together: the length, head g's q̂
+  // (chunks t + 4·warp + 16 j) and selected blocks (lane t: entries t, t +
+  // 4, ...), and the page of this lane's row of the warp's first tiles
+  // (lane kRows s + r: row r of tile s).
+  const int raw_len = a.lengths[b];
+  const int my_tile = warp + (lane / kRows) * kWarps;
+  const int my_pos = begin + my_tile * kRows + lane % kRows;
+  const bool first_row = lane < kStages * kRows;
+  int my_page = b;
+  if (a.table && first_row && my_pos < cap)
+    my_page = max(a.table[(int64_t)b * a.np_lane + my_pos / a.ps], 0);
+  float4 qx[kQ];
+  uint32_t dm[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) dm[w] = 0;
+  if (g < ng) {
+    const float* qrow = a.q + ((int64_t)b * a.H + h0 + g) * D;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const int c = t + 4 * warp + 16 * j;
+      qx[j] = c < nc ? *reinterpret_cast<const float4*>(qrow + 4 * c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    const int* idx = a.block_idx + ((int64_t)b * a.H + h0 + g) * a.nb_sel;
+#pragma unroll 4
+    for (int j = t; j < a.nb_sel; j += 4) {
+      const int d0 = idx[j] * a.bd;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) dm[w] |= range_word(d0, d0 + a.bd, w);
+    }
+  }
+  if (lane < kStages) mbar_init(smem_u32(&bar_s[warp][lane]));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  // head g's selected dims over its four lanes, then its q̂ zero in every dim
+  // it did not select (and heads past the group's zero): the whole rows
+  // then score exactly each head's own blocks
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    dm[w] |= __shfl_xor_sync(0xffffffffu, dm[w], 1);
+    dm[w] |= __shfl_xor_sync(0xffffffffu, dm[w], 2);
+  }
+  if (g < kG) {
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const int c = t + 4 * warp + 16 * j;
+      if (c < nc) {
+        uint32_t bits = 0;
+#pragma unroll
+        for (int w = 0; w < kWords; ++w)
+          if (w == c / 8) bits = dm[w] >> (4 * (c % 8));
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (g < ng) {
+          x.x = (bits & 1) ? qx[j].x : 0.f;
+          x.y = (bits & 2) ? qx[j].y : 0.f;
+          x.z = (bits & 4) ? qx[j].z : 0.f;
+          x.w = (bits & 8) ? qx[j].w : 0.f;
+        }
+        *reinterpret_cast<float4*>(qm + g * D + 4 * c) = x;
+      }
+    }
+  }
+  const int len = min(raw_len, cap);
+  // the only block barrier before the merge: barriers initialized, q̂ staged
+  __syncthreads();
+  if (begin >= len) return;  // the combine pass reads only splits below len
+  const int end = min(len, begin + kSplit);
+  const int ntile = (end - begin + kRows - 1) / kRows;
+  const uint64_t once = evict_first_policy();
+
+  // the element row of position pos, through its page
+  auto row_of = [&](int pos, int page) -> long long {
+    return ((long long)page * a.KV + kv) * a.ps + (pos - pos / a.ps * a.ps);
+  };
+  auto rows_in = [&](int jt) { return min(kRows, end - (begin + jt * kRows)); };
+  const int rbytes = (D + Dv) * 4;  // a row's K̂ and V bytes
+  // n consecutive element rows from ro into stage st at row r: one bulk copy
+  // of their K̂ rows, one of their V rows; row 0 expects the tile's bytes.
+  // Rows without a token are neither copied nor read.
+  auto issue = [&](int st, long long ro, int r, int n, int bytes) {
+    const uint32_t bar = smem_u32(&bar_s[warp][st]);
+    float* ks = wbase + st * kRows * (D + Dv);
+    if (r == 0) mbar_expect(bar, bytes);
+    bulk_copy(ks + r * D, a.k + ro * D, n * D * 4, bar, once);
+    bulk_copy(ks + kRows * D + r * Dv, a.v + ro * Dv, n * Dv * 4, bar, once);
+  };
+  // a tile lies in one page when pages hold whole tiles (or the cache is
+  // contiguous): its rows are consecutive in device memory, two copies in
+  // all; else each row is copied on its own
+  const bool in_page = !a.table || a.ps % kRows == 0;
+  if (first_row && my_tile < ntile) {
+    const int r = lane % kRows, n = rows_in(my_tile);
+    if (in_page ? r == 0 : r < n)
+      issue(lane / kRows, row_of(my_pos, my_page), r, in_page ? n : 1, n * rbytes);
+  }
+
+  const int r = lane % kRows, part = lane / kRows;
+  const int rot = r % nc;
+  float m[kG], l[kG];
+  float4 acc[kCols][kG];
+#pragma unroll
+  for (int h = 0; h < kG; ++h) {
+    m[h] = kNegInf;
+    l[h] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j][h] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll 1
+  for (int it = 0, jt = warp; jt < ntile; ++it, jt += kWarps) {
+    const int st = it % kStages;
+    // the tile that reuses this stage: its first row's page (lane 0), or
+    // this lane's row's (lanes < kRows, tiles across pages), looked up
+    // before the wait
+    const int jn = jt + kStages * kWarps;
+    const int npos = begin + jn * kRows + r;
+    const int nrows = jn < ntile ? rows_in(jn) : 0;
+    const bool nissue = lane < kRows && (in_page ? lane == 0 : r < nrows) && nrows > 0;
+    int npage = b;
+    if (nissue && a.table) npage = max(a.table[(int64_t)b * a.np_lane + npos / a.ps], 0);
+    mbar_wait(smem_u32(&bar_s[warp][st]), (it / kStages) & 1);
+    __syncwarp();
+    const int nval = rows_in(jt);
+    const float* Ks = wbase + st * kRows * (D + Dv);
+    const float* Vs = Ks + kRows * D;
+
+    // S = K̂·q̂ᵀ: kP partial sums per head, then the parts of a row summed
+    // across lanes
+    float sp[kG][kP];
+#pragma unroll
+    for (int h = 0; h < kG; ++h)
+#pragma unroll
+      for (int i = 0; i < kP; ++i) sp[h][i] = 0.f;
+    const float* kr = Ks + r * D;
+#pragma unroll kChunkUnroll
+    for (int u = part; u < nc; u += kParts) {
+      const int cc = u + rot < nc ? u + rot : u + rot - nc;
+      const float4 kk = *reinterpret_cast<const float4*>(kr + 4 * cc);
+#pragma unroll
+      for (int h = 0; h < kG; ++h) {
+        const float4 qq = *reinterpret_cast<const float4*>(qm + h * D + 4 * cc);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          sp[h][j % kP] = fmaf(comp(kk, j), comp(qq, j), sp[h][j % kP]);
+      }
+    }
+    // the online softmax in the log2 domain; rows without a token (r >=
+    // nval: not copied, so any bits) get NEG_INF, and every tile of the walk
+    // holds a token, so the new max is finite
+    float c[kG], p[kG];
+#pragma unroll
+    for (int h = 0; h < kG; ++h) {
+      float s = sp[h][0];
+#pragma unroll
+      for (int i = 1; i < kP; ++i) s += sp[h][i];
+#pragma unroll
+      for (int o = kRows; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      s = r < nval ? s * a.scale_log2 : kNegInf;
+      float mx = s;
+#pragma unroll
+      for (int o = 1; o < kRows; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float mn = fmaxf(m[h], mx);
+      c[h] = fast_exp2(m[h] - mn);
+      m[h] = mn;
+      p[h] = fast_exp2(s - mn);
+      l[h] = l[h] * c[h] + (part == 0 ? p[h] : 0.f);
+    }
+    if (part == 0) {
+#pragma unroll
+      for (int h = 0; h < kG; ++h) pw[r * kG + h] = p[h];
+    }
+    __syncwarp();
+    // O = O·corr + P·V over the tile's rows with a token
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+#pragma unroll
+      for (int h = 0; h < kG; ++h) {
+        acc[j][h].x *= c[h];
+        acc[j][h].y *= c[h];
+        acc[j][h].z *= c[h];
+        acc[j][h].w *= c[h];
+      }
+#pragma unroll kRowUnroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      if (rr < nval) {
+        float pr[kG];
+        if constexpr (kG >= 4) {
+#pragma unroll
+          for (int h = 0; h < kG; h += 4) {
+            const float4 x = *reinterpret_cast<const float4*>(pw + rr * kG + h);
+            pr[h] = x.x;
+            pr[h + 1] = x.y;
+            pr[h + 2] = x.z;
+            pr[h + 3] = x.w;
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < kG; ++h) pr[h] = pw[rr * kG + h];
+        }
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int col = lane + 32 * j;
+          if (4 * col < Dv) {
+            const float4 vv = *reinterpret_cast<const float4*>(Vs + rr * Dv + 4 * col);
+#pragma unroll
+            for (int h = 0; h < kG; ++h) {
+              acc[j][h].x = fmaf(pr[h], vv.x, acc[j][h].x);
+              acc[j][h].y = fmaf(pr[h], vv.y, acc[j][h].y);
+              acc[j][h].z = fmaf(pr[h], vv.z, acc[j][h].z);
+              acc[j][h].w = fmaf(pr[h], vv.w, acc[j][h].w);
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();  // the stage and P are free for a later tile
+    if (nissue)
+      issue(st, row_of(npos, npage), r, in_page ? nrows : 1, nrows * rbytes);
+  }
+
+  // this warp's sums over its lanes, then its (m, l, acc) per head into its
+  // own shared memory ([head][Dv + 2] floats), then the block merges its warps
+#pragma unroll
+  for (int h = 0; h < kG; ++h)
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) l[h] += __shfl_xor_sync(0xffffffffu, l[h], o);
+  const int wst = Dv + 2;
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < kG; ++h) {
+      wbase[h * wst] = m[h];
+      wbase[h * wst + 1] = l[h];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int col = lane + 32 * j;
+    if (4 * col < Dv) {
+#pragma unroll
+      for (int h = 0; h < kG; ++h) {
+        float* w = wbase + h * wst + 2 + 4 * col;
+        w[0] = acc[j][h].x;
+        w[1] = acc[j][h].y;
+        w[2] = acc[j][h].z;
+        w[3] = acc[j][h].w;
+      }
+    }
+  }
+  __syncthreads();
+  gqa::merge_warps(smem_f, warp_f, ng, Dv,
+                   a.scratch + (((int64_t)b * a.H + h0) * a.nsplit + split) * wst,
+                   (int64_t)a.nsplit * wst);
+}
+
+template <int kG, bool kWide>
+int launch(const Args& a, int B, float* out, cudaStream_t st) {
+  static int done[16] = {0};
+  const int bytes = smem_bytes<kG>(a.D, a.Dv);
+  auto kernel = decode_f32<kG, kWide>;
+  cudaError_t err = attn_tile::allow_smem(kernel, bytes, done);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(a.nsplit, a.KV * a.nhg, B), kThreads, bytes, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  aqua_decode_combine<float><<<dim3(a.H, B), ::kThreads, 0, st>>>(a.scratch, a.lengths, out,
+                                                                  a.H, a.Dv, a.nsplit, 0);
+  return (int)cudaGetLastError();
+}
+
+template <bool kWide>
+int launch_heads(const Args& a, int B, float* out, cudaStream_t st) {
+  const int g = a.H / a.KV;
+  if (g == 1) return launch<1, kWide>(a, B, out, st);
+  if (g == 2) return launch<2, kWide>(a, B, out, st);
+  if (g <= 4) return launch<4, kWide>(a, B, out, st);
+  return launch<8, kWide>(a, B, out, st);  // 8 heads a block (nhg blocks a group)
+}
+
+}  // namespace gqa32
+
 }  // namespace
 
-// Positions per partial block (both routes): the wrapper sizes the float32
+// Positions per partial block (every route): the wrapper sizes the float32
 // scratch as B * H * nsplit * (Dv + 2) with nsplit = ceil(positions walked
 // / split).
 extern "C" int aqua_decode_split() { return kSplit; }
@@ -1005,9 +1410,10 @@ extern "C" int aqua_decode_split() { return kSplit; }
 // float32. part_idx non-null: (B, kp) participating logical pages.
 // route: 1 = the group route (bf16 q̂, with or without int8 and
 // participating pages; D % 8 == 0, D <= 256, Dv % 8 == 0, 16-byte aligned
-// bases, and for int8 D and Dv multiples of 16), 0 = the per-head route
-// (float32 q̂, and the int8 and participating widths the group route does
-// not take).
+// bases, and for int8 D and Dv multiples of 16), 2 = the float32 group
+// route (float32 q̂, no int8 pool, no participating pages; D and Dv
+// multiples of 4, D <= 256, 16-byte aligned bases), 0 = the per-head route
+// (float32 and bf16 calls the other two do not take).
 // The wrapper chooses (kernels/aqua_decode.py::decode_route); shapes the
 // chosen route does not take return cudaErrorInvalidValue.
 // Returns the cudaError_t of the launches.
@@ -1041,6 +1447,17 @@ extern "C" int aqua_decode_launch(const void* q, const void* k, const void* v,
     if (k_scale) return gqa::launch_variant<true, false>(a, B, out, st);
     if (part_idx) return gqa::launch_variant<false, true>(a, B, out, st);
     return gqa::launch_variant<false, false>(a, B, out, st);
+  }
+  if (route == 2) {
+    if (dtype != 0 || k_scale || part_idx) return (int)cudaErrorInvalidValue;
+    if (D % 4 != 0 || Dv % 4 != 0 || D > 256) return (int)cudaErrorInvalidValue;
+    const int G = H / KV;
+    const gqa32::Args a{(const float*)q, (const float*)k, (const float*)v, bi,
+                        (const int*)page_table, ln, sc, H, KV, D, Dv, nb_sel, bd, ps,
+                        np_lane, (G + gqa32::kHeads - 1) / gqa32::kHeads, nsplit,
+                        scale * attn_tile::kLog2e};
+    if (D > 128 || Dv > 128) return gqa32::launch_heads<true>(a, B, (float*)out, st);
+    return gqa32::launch_heads<false>(a, B, (float*)out, st);
   }
   // bf16 at full precision over every page runs the group route only
   if (dtype == 1 && !k_scale && !part_idx) return (int)cudaErrorInvalidValue;

@@ -1,9 +1,10 @@
 """The decode kernel's route choice (``kernels.aqua_decode.decode_route``).
 
-A CUDA call takes the group route (one block per KV head group, TMA and
-tensor cores) or the per-head route, chosen from q̂'s dtype, the int8 and
-participating-page flags and the shapes alone; shapes neither route takes
-raise. Pure Python: runs without a card.
+A CUDA call takes the group route (bf16: one block per KV head group, TMA
+and tensor cores), the float32 group route (the same blocks and copies,
+exact float32 on FFMA) or the per-head route, chosen from q̂'s dtype, the
+int8 and participating-page flags and the shapes alone; shapes no route
+takes raise. Pure Python: runs without a card.
 """
 import pytest
 import torch
@@ -15,13 +16,15 @@ BF, F32 = torch.bfloat16, torch.float32
 
 # (dtype, quant, part, D, Dv, route): the served width 128, Danube's 80,
 # the widest 256, and 72, a stored AQUA-Memory width (a multiple of 8, not
-# of 16)
+# of 16); float32 at full precision over every page takes its group route
+# at D and Dv multiples of 4 up to D 256, int8 and participating pages the
+# per-head route
 @pytest.mark.parametrize("dtype,quant,part,d,dv,route", [
     (BF, False, False, 128, 128, "group"),
     (BF, True, False, 128, 128, "group"),
     (BF, False, True, 128, 128, "group"),
     (BF, True, True, 128, 128, "group"),
-    (F32, False, False, 128, 128, "per_head"),
+    (F32, False, False, 128, 128, "group_f32"),
     (F32, True, False, 128, 128, "per_head"),
     (F32, False, True, 128, 128, "per_head"),
     (F32, True, True, 128, 128, "per_head"),
@@ -32,6 +35,16 @@ BF, F32 = torch.bfloat16, torch.float32
     (BF, False, False, 72, 72, "group"),
     (BF, True, True, 80, 80, "group"),
     (BF, True, True, 256, 256, "group"),
+    (F32, False, False, 256, 256, "group_f32"),
+    (F32, False, False, 4, 4, "group_f32"),
+    (F32, False, False, 80, 80, "group_f32"),
+    (F32, False, False, 36, 36, "group_f32"),
+    (F32, False, False, 96, 128, "group_f32"),
+    (F32, False, False, 260, 128, "per_head"),   # D past 256
+    (F32, False, False, 30, 30, "per_head"),     # D not a multiple of 4
+    (F32, False, False, 128, 102, "per_head"),   # Dv not a multiple of 4
+    (F32, True, False, 36, 36, "per_head"),
+    (F32, False, True, 256, 256, "per_head"),
 ])
 def test_route_by_dtype_flags_and_shape(dtype, quant, part, d, dv, route):
     assert decode_route(dtype, quant=quant, part=part, d=d, dv=dv,

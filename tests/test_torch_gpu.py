@@ -53,13 +53,15 @@ def _rand(gen, *shape, dtype):
 
 
 # (h, kv, d, k_ratio, block_dims): groups of G = 1, 2, 3, 4, 8 and 16
-# heads (16: two blocks per KV head on the bf16 route); 8-dim chunks shared
-# by several blocks (block_dims 2, 4) and blocks spanning chunks (16); head
-# dims past 128 (the bf16 route's wider tiles) and one that is not a
-# multiple of 16 (a padded output slice)
+# heads (16: two blocks per KV head on both group routes, also at the
+# served head dim 128); 8-dim chunks shared by several blocks (block_dims
+# 2, 4) and blocks spanning chunks (16); head dims past 128 (the group
+# routes' wide kernels) and one that is not a multiple of 16 (a padded
+# output slice)
 DECODE_CASES = [(16, 8, 128, 0.75, 8), (8, 2, 64, 0.5, 8), (4, 4, 32, 1.0, 8),
                 (32, 8, 128, 0.75, 8), (16, 2, 64, 0.75, 8),
                 (12, 4, 64, 0.75, 8), (32, 2, 64, 0.75, 8),
+                (32, 2, 128, 0.75, 8),
                 (8, 2, 64, 0.5, 2), (8, 4, 64, 0.75, 4), (16, 4, 128, 0.5, 16),
                 (8, 4, 256, 0.75, 8), (8, 2, 72, 0.75, 8)]
 
@@ -74,7 +76,8 @@ def test_decode_kernel_matches_plain(cuda, dtype, paged, ps, h, kv, d,
     """Lengths: the full table, 1, not a multiple of a tile (8 or 128
     positions), and 0 (the kernel writes zeros; the plain version the mean
     of V, which no caller reads). Every head of a group matches the plain
-    version, where the group's heads select different dim-blocks."""
+    version, where the group's heads select different dim-blocks. bf16
+    takes the group route, float32 the float32 group route."""
     gen = torch.Generator(device="cuda").manual_seed(d + h + bd)
     b, s = 6, 320
     q = _rand(gen, b, h, d, dtype=dtype)
@@ -86,6 +89,9 @@ def test_decode_kernel_matches_plain(cuda, dtype, paged, ps, h, kv, d,
     sel = block_idx.reshape(b, kv, h // kv, -1)
     if h > kv and k_ratio < 1:
         assert (sel != sel[:, :, :1]).any()
+    assert dk.decode_route(dtype, quant=False, part=False, d=d, dv=d,
+                           nsel=ops.round_k_dims(d, k_ratio, bd)) == (
+        "group" if dtype == torch.bfloat16 else "group_f32")
     before = LAUNCHES.copy()
     if paged:
         npl = s // ps
@@ -489,6 +495,109 @@ def test_bf16_kernels_reject_misaligned_views(cuda):
     for args in ((off(qd), k, k), (qd, off(k), k), (qd, k, off(k))):
         with pytest.raises(ValueError, match="16-byte aligned"):
             dk.aqua_decode_attention(*args, idx, lens, block_dims=8)
+
+
+@pytest.mark.parametrize("d,dv,bd", [(30, 30, 2), (320, 128, 8),
+                                     (128, 102, 8)])
+def test_f32_decode_off_the_group_route_widths(cuda, d, dv, bd):
+    """float32 widths the group route does not take (D or Dv not a
+    multiple of 4, D past 256) run the per-head route, contiguous and
+    paged, and match the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(d + dv)
+    b, h, kv, s, ps = 3, 8, 2, 160, 16
+    f32 = torch.float32
+    nsel = ops.round_k_dims(d, 0.5, bd)
+    assert dk.decode_route(f32, quant=False, part=False, d=d, dv=dv,
+                           nsel=nsel) == "per_head"
+    q = _rand(gen, b, h, d, dtype=f32)
+    k = _rand(gen, b, kv, s, d, dtype=f32)
+    v = _rand(gen, b, kv, s, dv, dtype=f32)
+    lengths = torch.tensor([s, 1, 99], dtype=torch.int32, device=cuda)
+    block_idx = ops.decode_blocks(q, 0.5, bd)
+    out = ops.aqua_decode(q, k, v, lengths, k_ratio=0.5, block_dims=bd)
+    ref = dk.aqua_decode_plain(q, k, v, block_idx, lengths, None,
+                               block_dims=bd, scale=d ** -0.5)
+    npl = s // ps
+    table = torch.randperm(b * npl, generator=gen, device=cuda).reshape(
+        b, npl).to(torch.int32)
+    k_pool = torch.empty(b * npl, kv, ps, d, dtype=f32, device=cuda)
+    v_pool = torch.empty(b * npl, kv, ps, dv, dtype=f32, device=cuda)
+    k_pool[table.long()] = k.reshape(b, kv, npl, ps, d).transpose(1, 2)
+    v_pool[table.long()] = v.reshape(b, kv, npl, ps, dv).transpose(1, 2)
+    out_p = ops.aqua_paged_decode(q, k_pool, v_pool, table, lengths,
+                                  k_ratio=0.5, block_dims=bd)
+    torch.cuda.synchronize()
+    assert out.shape == out_p.shape == (b, h, dv)
+    assert _within_tol(out, ref, f32) and _within_tol(out_p, ref, f32)
+
+
+def test_f32_decode_rejects_misaligned_views(cuda):
+    """The float32 group route copies 16-byte pieces: q̂, K̂ or V
+    contiguous but one float (4 bytes) off a 16-byte boundary raises
+    ValueError, contiguous and paged."""
+    b, h, kv, s, d, ps = 2, 4, 2, 64, 64, 16
+    f32 = torch.float32
+    q = torch.zeros(b, h, d, device=cuda, dtype=f32)
+    k = torch.zeros(b, kv, s, d, device=cuda, dtype=f32)
+    pool = torch.zeros(b * s // ps, kv, ps, d, device=cuda, dtype=f32)
+    table = torch.arange(b * s // ps, device=cuda, dtype=torch.int32
+                         ).reshape(b, -1)
+    lens = torch.full((b,), s, dtype=torch.int32, device=cuda)
+    idx = ops.decode_blocks(q, 0.75, 8)
+    assert dk.decode_route(f32, quant=False, part=False, d=d, dv=d,
+                           nsel=48) == "group_f32"
+
+    def off(x):
+        return torch.zeros(x.numel() + 1, device=cuda, dtype=f32)[1:].view(
+            x.shape)
+    for args in ((off(q), k, k), (q, off(k), k), (q, k, off(k))):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            dk.aqua_decode_attention(*args, idx, lens, block_dims=8)
+    for args in ((off(q), pool, pool), (q, off(pool), pool),
+                 (q, pool, off(pool))):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            dk.aqua_paged_decode_attention(*args, idx, table, lens,
+                                           block_dims=8)
+
+
+def test_f32_paged_decode_graph_replay_equals_eager(cuda):
+    """The float32 paged decode captured in a CUDA graph (as the engine's
+    step graph holds it): replays after new lengths, selections and cache
+    contents are written in place equal eager calls bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, h, kv, d, ps, npl = 8, 16, 8, 128, 64, 32
+    f32 = torch.float32
+    q = _rand(gen, b, h, d, dtype=f32)
+    k_pool = _rand(gen, b * npl, kv, ps, d, dtype=f32)
+    v_pool = _rand(gen, b * npl, kv, ps, d, dtype=f32)
+    table = torch.randperm(b * npl, generator=gen, device=cuda).reshape(
+        b, npl).to(torch.int32)
+    lengths = torch.randint(128, 1057, (b,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+    block_idx = ops.decode_blocks(q, 0.75, 8).contiguous()
+
+    def call():
+        return dk.aqua_paged_decode_attention(q, k_pool, v_pool, block_idx,
+                                              table, lengths, block_dims=8)
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for step in range(3):
+        q.copy_(_rand(gen, b, h, d, dtype=f32))
+        block_idx.copy_(ops.decode_blocks(q, 0.75, 8))
+        lengths.add_(step * 37)
+        k_pool[table[:, 0].long()] = _rand(gen, b, kv, ps, d, dtype=f32)
+        before = LAUNCHES.copy()
+        graph.replay()
+        assert LAUNCHES == before          # a replay launches from no wrapper
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), step
+        ref = dk.aqua_decode_plain(q, k_pool, v_pool, block_idx, lengths,
+                                   table, block_dims=8, scale=d ** -0.5)
+        assert _within_tol(out, ref, f32), step
 
 
 def _pools(gen, p, kv, ps, d, dtype, quant):
