@@ -94,16 +94,32 @@ Phases, each of which raises (non-zero exit) on failure:
    tokens, and under a window or H2O every layer's kept positions, still
    agree) must match within a stated bf16 limit; the greedy token match,
    and each lane's first step with other kept positions, are reported. The chunked trace is also served
-   monolithically with the kernels: token match and inter-token gaps of
-   both are reported. The int8 pool must take < 0.60 of the bf16 pool's
+   monolithically with the kernels: token match, and the inter-token gaps
+   and admission ms of each engine's second serve, are reported. The int8 pool must take < 0.60 of the bf16 pool's
    bytes. Every drive, the reference drives too, decodes through the
    engine's captured decode step (``serving/step_graph.py``: one CUDA
    graph per engine, captured at its first serve and replayed every
    step); each drive reports its decode-step ms, the capture's host ms
-   and the graph pool's bytes. A paged drive of 4 requests runs under
-   ``torch.profiler`` for the device's idle share and its top kernels;
-   the trace must hold every decode launch the drive counted (the
-   replayed graph's kernels are traced one by one).
+   and the graph pool's bytes. Every bucket-padded monolithic admission
+   of a drive (all but the window, H2O and chunked ones) goes through the
+   engine's admission graph of its prompt bucket
+   (``serving/admit_graph.py``: captured at the bucket's first
+   admission, replayed after); each drive reports its admission ms, its
+   admission graphs, their capture ms by bucket and their shared pool's
+   bytes beside the step graph's. The paged drive's trace is served
+   again on its engine (every bucket captured: every admission replays):
+   its tokens must be the first serve's and its launches the path's; its
+   admission ms and inter-token gaps are reported. A paged drive of 4
+   requests runs under ``torch.profiler`` for the device's idle share and
+   its top kernels, in a child process that runs before the kernel
+   phases (``chip_smoke.py --traced-drive OUT``: the paged drive's
+   engine, its trace served once to capture its graphs, then the traced
+   drive and one traced replay of its step graph and of its largest
+   admission graph, for their device operations; a crash of the child
+   fails the run, see ``traced_drive``); the idle share is reported only
+   from a trace that holds every decode launch the drive counted (the
+   replayed graph's kernels are traced one by one), else as not
+   measured.
 5. Step graph: for the paged, int8, hierarchical int8, H2O and window
    drives, the drive's prompts are admitted at once, the state is cloned,
    and 16 decode steps with seeded tokens and write masks run through the
@@ -111,7 +127,19 @@ Phases, each of which raises (non-zero exit) on failure:
    other: logits and every state tensor must be equal bit for bit. Two
    planted faults must break that equality: replays that skip the copy
    of the tokens (the graph reads the previous step's) and replays that
-   skip the copy of the write mask.
+   skip the copy of the write mask. Device ms of a replay: 16 replays
+   between two CUDA events.
+   Admission graphs: for the paged, contiguous, flash, int8, hierarchical
+   (bf16 and int8) and AQUA-Memory drives, and in phase 6 the HF drive
+   (float32), two admissions per bucket in the reverse of the capture
+   order, into other lanes and pages, replayed on the engine's state and
+   run eagerly (``admit_graph.admission``) on a clone: logits and every
+   state tensor equal bit for bit after each. Two planted faults must
+   break it: the second admission of a bucket replayed with the first's
+   lane, or its length, left in the graph's buffer. Reported: capture ms
+   and pool growth by bucket, the shared pool's bytes, host ms of an
+   admission replayed and eager, device ms of the largest bucket's replay
+   (16 between two CUDA events) and its device operations.
 6. HF checkpoint through the port's entry point: a synthetic checkpoint
    in HF layout at Qwen3-0.6B's full width and depth (random bf16 weights
    from a seeded generator, tied, two shards plus the index; written to
@@ -133,7 +161,8 @@ Phases, each of which raises (non-zero exit) on failure:
    trace again (its second serve through the captured step graph: the
    same tokens) with the counters zeroed just before and read just after:
    the prefill kernel once per layer per admission, the paged decode once
-   per layer per step, nothing else. A plain reference drive
+   per layer per step, nothing else; its admission ms and gaps are
+   printed, and its admission graphs held to eager admissions (phase 5). A plain reference drive
    (``aqua-block-sparse-plain``) on the same loaded params: every
    admission's and the first 16 decode steps' logits within |got - want|
    <= HF_LOGIT_SCALE * (F32_RTOL * |want| + F32_ATOL). A control drive,
@@ -1095,6 +1124,7 @@ def serve_drive(eng, reqs, positions: bool = False) -> dict:
                 admit_ms=1e3 * st.admit_seconds / max(st.admissions, 1),
                 itl_p50_ms=1e3 * st.itl_percentile(50),
                 itl_p99_ms=1e3 * st.itl_percentile(99),
+                max_itl_ms=1e3 * st.max_itl,
                 mean_occupancy=st.mean_occupancy)
 
 
@@ -1163,9 +1193,10 @@ def profiled_drive(eng, reqs, body: str) -> dict:
     """Serve ``reqs`` under ``torch.profiler``: the device's busy share of
     the wall time and the kernels that take most of the device time. The
     engine's step graph is already captured, so every decode step is a
-    replay: the trace must hold each launch of the decode kernel ``body``
-    that the drive counted (its partial and its combine pass), or it
-    would not see the graph's kernels."""
+    replay: the trace is complete (``trace_complete``) only if it holds
+    each launch of the decode kernel ``body`` that the drive counted (its
+    partial and its combine pass); else the profiler missed kernels and
+    ``idle_share`` is None (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1191,11 +1222,13 @@ def profiled_drive(eng, reqs, body: str) -> dict:
                     acc[0] += 1
                     acc[1] += us
     busy = sum(by_name.values())
-    assert busy > 0, "the profiled drive ran nothing on the device"
     assert launches == eng.cfg.num_layers * eng.stats.decode_steps > 0
-    assert all(n == launches for n, _ in passes.values()), (launches, passes)
+    # a trace short of a decode pass would understate the busy time: its
+    # idle share is not measured (None), and the run says so
+    complete = busy > 0 and all(n == launches for n, _ in passes.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall,
+    return dict(trace_complete=complete, wall_s=wall, device_busy_s=busy,
+                idle_share=1 - busy / wall if complete else None,
                 decode_steps=eng.stats.decode_steps,
                 decode_step_ms=1e3 * eng.stats.decode_seconds
                 / eng.stats.decode_steps,
@@ -1231,7 +1264,24 @@ def replay_skipping(graph, tokens, active, skip: str):
     return graph.logits
 
 
-def step_graph_phase(path: str, eng, reqs, steps: int = 16) -> dict:
+def traced_replay(graph) -> dict:
+    """One replay of a captured ``torch.cuda.CUDAGraph`` under
+    ``torch.profiler``: the device operations it ran and their busy ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    nodes = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return dict(device_ops_per_replay=len(nodes),
+                traced_replay_busy_ms=1e-3 * sum(
+                    e.time_range.elapsed_us() for e in nodes))
+
+
+def step_graph_phase(path: str, eng, reqs, steps: int = 16,
+                     trace: bool = False) -> dict:
     """Admit the drive's prompts at once (at most one per lane), clone the
     state, and run ``steps`` decode steps with seeded tokens and write
     masks (each lane writes with probability 0.75) through the engine's
@@ -1241,8 +1291,10 @@ def step_graph_phase(path: str, eng, reqs, steps: int = 16) -> dict:
     replays skipping the copy of the tokens, or of the write mask, from
     the second step on must not be. Also the host ms of a step of each
     (up to the logits on the device, synchronized), the device ms of a
-    replay alone (16 back to back between two CUDA events) and the
-    kernels (and copies) one replay runs, from ``torch.profiler``."""
+    replay alone (16 back to back between two CUDA events) and, with
+    ``trace``, the kernels (and copies) one replay runs, from
+    ``torch.profiler`` (``traced_replay``; the traced drive's child
+    process traces the paged engine's)."""
     import numpy as np
     import torch
     reqs = [dataclasses.replace(r, arrival=0.0)
@@ -1302,9 +1354,7 @@ def step_graph_phase(path: str, eng, reqs, steps: int = 16) -> dict:
     good = run()
     faults = {skip: run(skip) for skip in ("tokens", "write_mask")}
     # the device alone: replays back to back (the buffers hold the last
-    # step's inputs), then one replay traced
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    # step's inputs)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1312,18 +1362,12 @@ def step_graph_phase(path: str, eng, reqs, steps: int = 16) -> dict:
         graph.graph.replay()
     end.record()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        graph.graph.replay()
-        torch.cuda.synchronize()
-    nodes = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     out = dict(path=path, lanes_admitted=len(reqs), steps=steps,
                logits_bitwise=good[0], state_bitwise=good[1],
                max_abs_logit_diff=good[2], graph_step_ms=good[3],
                eager_step_ms=eager_ms,
                replay_device_ms=start.elapsed_time(end) / steps,
-               device_ops_per_replay=len(nodes),
-               traced_replay_busy_ms=1e-3 * sum(
-                   e.time_range.elapsed_us() for e in nodes),
+               **(traced_replay(graph.graph) if trace else {}),
                capture_ms=graph.capture_ms, pool_bytes=graph.pool_bytes,
                faults={k: dict(logits_bitwise=f[0], state_bitwise=f[1],
                                max_abs_logit_diff=f[2])
@@ -1331,6 +1375,211 @@ def step_graph_phase(path: str, eng, reqs, steps: int = 16) -> dict:
     assert good[0] and good[1], out
     assert all(not (f[0] and f[1]) for f in faults.values()), out
     return out
+
+
+def admit_graph_phase(path: str, eng) -> dict:
+    """After the drive's serve has captured one admission graph per prompt
+    bucket: for each bucket, in the reverse of the capture order, two
+    admissions (seeded prompts of two lengths in the bucket, two lanes,
+    and on a paged pool two random page rows) replayed on the engine's
+    state and run eagerly (``admit_graph.admission``, what the graphs
+    capture) on a clone of it: the logits of every admission and every
+    state tensor after it must be equal bit for bit. Two planted faults
+    must break that equality: the second admission of each bucket
+    replayed with the first's lane left in the graph's lane buffer, and
+    with the first's length left in its lengths buffer. Also each bucket's
+    capture ms and pool growth, the shared pool's bytes beside the step
+    graph's, the host ms of an admission replayed and eager (to the
+    logits on the device, synchronized), the device ms of the largest
+    bucket's replay (16 back to back between two CUDA events)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.admit_graph import admission
+    graphs = eng.admit_graphs
+    captured = list(graphs)
+    assert captured, path
+    layers = eng.last_state.layers
+    tensors = {f.name: getattr(layers, f.name)
+               for f in dataclasses.fields(layers)
+               if getattr(layers, f.name) is not None}
+    snap = {k: t.clone() for k, t in tensors.items()}
+    twin = dataclasses.replace(eng.last_state, layers=type(layers)(**{
+        k: t.clone() for k, t in tensors.items()}))
+    rng = np.random.default_rng(1)
+    lanes = eng.scfg.max_lanes
+    plan = []
+    for i, bucket in enumerate(captured[::-1]):
+        for j in range(2):
+            n = bucket - 1 - 37 * j
+            row = None
+            if eng.paged:
+                need = -(-bucket // eng.cache_spec.page_size)
+                row = np.full(eng.pages_per_lane, -1, np.int32)
+                row[:need] = rng.permutation(eng.pool_geometry[0])[:need]
+            plan.append((bucket, rng.integers(0, eng.cfg.vocab_size, n)
+                         .astype(np.int32), (2 * i + j) % lanes, row))
+    want, replay_ms, eager_ms = [], [], []
+    logits_equal = state_equal = True
+    for bucket, prompt, lane, row in plan:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = graphs[bucket].admit(prompt, lane, row).clone()
+        torch.cuda.synchronize()
+        replay_ms.append(1e3 * (time.perf_counter() - t0))
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :len(prompt)] = prompt
+        t0 = time.perf_counter()
+        lg = admission(eng.model, eng.params, twin, eng.proj,
+                       eng.scfg.max_seq, torch.from_numpy(toks).cuda(),
+                       torch.tensor([len(prompt)], dtype=torch.int32,
+                                    device="cuda"),
+                       torch.tensor([lane], device="cuda"),
+                       None if row is None else torch.from_numpy(row).cuda())
+        torch.cuda.synchronize()
+        eager_ms.append(1e3 * (time.perf_counter() - t0))
+        want.append(lg.clone())
+        logits_equal &= torch.equal(bits(got), bits(lg))
+        state_equal &= all(torch.equal(bits(t), bits(getattr(twin.layers,
+                                                              k)))
+                           for k, t in tensors.items())
+
+    def faulty(stale: str):
+        """The plan replayed from the served state with the second
+        admission of each bucket reading ``stale`` ("lane" or "lengths")
+        as the first left it: (logits equal in every admission, state
+        equal after the last)."""
+        for k, t in tensors.items():
+            t.copy_(snap[k])
+        got = []
+        for j, (bucket, prompt, lane, row) in enumerate(plan):
+            graph = graphs[bucket]
+            if j % 2 == 0:
+                got.append(graph.admit(prompt, lane, row).clone())
+                continue
+            buf = getattr(graph, stale)
+            old = buf.clone()
+            graph.fill(prompt, lane, row)
+            buf.copy_(old)
+            graph.graph.replay()
+            got.append(graph.logits.clone())
+        return (all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want)),
+                all(torch.equal(bits(t), bits(getattr(twin.layers, k)))
+                    for k, t in tensors.items()))
+    faults = {stale: faulty(stale) for stale in ("lane", "lengths")}
+    # the device alone: the largest bucket's replays back to back
+    big = graphs[max(captured)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(16):
+        big.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    acc = eng.graph_accounting()
+    out = dict(path=path, buckets_capture_order=captured,
+               replay_order=[p[0] for p in plan], admissions=len(plan),
+               logits_bitwise=logits_equal, state_bitwise=state_equal,
+               admit_graphs=acc["admit_graphs"],
+               capture_ms=acc["admit_capture_ms"],
+               pool_growth_bytes=acc["admit_pool_growth_bytes"],
+               shared_pool_bytes=acc["admit_pool_bytes"],
+               step_graph_pool_bytes=acc["step_pool_bytes"],
+               launches_per_admission=dict(big.launches),
+               replay_host_ms=replay_ms, eager_host_ms=eager_ms,
+               largest_bucket=max(captured),
+               replay_device_ms=start.elapsed_time(end) / 16,
+               faults={k: dict(logits_bitwise=f[0], state_bitwise=f[1])
+                       for k, f in faults.items()})
+    assert logits_equal and state_equal, out
+    assert all(not (f[0] and f[1]) for f in faults.values()), out
+    return out
+
+
+TRACED_DRIVE_FLAG = "--traced-drive"
+
+
+def paged_serving():
+    """The paged drives' serving configuration: 8 lanes, max_seq 2048, 32
+    new tokens, 64-token pages, no prefix sharing."""
+    from repro_torch.configs import CacheSpec, ServingConfig
+    return ServingConfig(max_lanes=8, max_seq=2048, max_new_tokens=32,
+                         cache=CacheSpec(page_size=64, prefix_sharing=False))
+
+
+def drive_trace(n: int, vocab: int, prompts=(128, 512, 1024)):
+    """The drives' Poisson trace: ``n`` requests, 32 new tokens each."""
+    from repro_torch.serving import poisson_trace
+    return poisson_trace(n, mean_interarrival=4.0, prompt_lens=prompts,
+                         max_new_tokens=32, vocab_size=vocab, seed=0)
+
+
+def traced_drive_child(out_path: str) -> int:
+    """``chip_smoke.py --traced-drive OUT``: the traced paged drive in a
+    process of its own. The paged drive's engine (Qwen3-0.6B, the same
+    seeded weights and calibration) serves its 8-request trace once,
+    which captures its step graph and each prompt bucket's admission
+    graph, then a 4-request trace under ``torch.profiler``
+    (``profiled_drive``), then one step-graph replay and one replay of
+    the largest bucket's admission graph, each traced
+    (``traced_replay``). Writes the JSON result to OUT."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    cfg, params, proj = load_model("qwen3-0.6b", 0)
+    eng = ContinuousBatchingEngine(cfg, params, proj,
+                                   serving=paged_serving())
+    serve_drive(eng, drive_trace(8, cfg.vocab_size))
+    out = profiled_drive(eng, drive_trace(4, cfg.vocab_size),
+                         "aqua_paged_decode")
+    out["admit_ms"] = 1e3 * eng.stats.admit_seconds / eng.stats.admissions
+    out["step_graph_replay"] = traced_replay(eng.step_graph.graph)
+    big = max(eng.admit_graphs)
+    out["admit_graph_replay"] = dict(
+        bucket=big, **traced_replay(eng.admit_graphs[big].graph))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def traced_drive(card: str) -> dict:
+    """Run ``traced_drive_child`` in a child process and return its
+    result; a child that fails, by a crash too, fails the run (its last
+    output goes to standard error). A process of its own because in this
+    script's long process ``torch.profiler`` (CUPTI) crashed inside
+    ``cuGraphLaunch`` on traced graph replays, in runs that had traced the
+    kernel phases first (PERF.md §7); a fresh process whose graphs are
+    captured before its first trace has not. It runs before the kernel
+    phases, while this process holds next to nothing on the device."""
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    log(f"[serve paged, traced] device memory free {free} of {total} bytes "
+        f"as the child starts")
+    out = os.path.join(ROOT, "build", "traced_drive.json")
+    if os.path.exists(out):
+        os.remove(out)
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        TRACED_DRIVE_FLAG, out], capture_output=True,
+                       text=True, timeout=600,
+                       env={**os.environ, "PYTHONFAULTHANDLER": "1"})
+    if r.returncode != 0:
+        tail = "\n".join((r.stdout + r.stderr).splitlines()[-40:])
+        log("[serve paged, traced] child process's last output:\n" + tail)
+        print(tail, file=sys.stderr, flush=True)
+        raise RuntimeError(f"traced drive failed: exit {r.returncode}")
+    with open(out) as f:
+        result = json.load(f)
+    os.remove(out)
+    idle = (f"{result['idle_share']:.3f}" if result["trace_complete"] else
+            f"not measured (the profiler recorded "
+            f"{result['traced_decode_passes']} of "
+            f"{result['decode_launches']} decode launches)")
+    log(f"[serve paged, traced] device idle share {idle}, decode step ms "
+        f"{result['decode_step_ms']:.3f}, admission ms "
+        f"{result['admit_ms']:.3f} (child process) on {card}")
+    log_time("traced drive")
+    return result
 
 
 def load_model(name: str, seed: int, dtype: str = "bfloat16") -> tuple:
@@ -1343,12 +1592,17 @@ def load_model(name: str, seed: int, dtype: str = "bfloat16") -> tuple:
     from repro_torch.core.calibration import calibrate
     from repro_torch.data.corpus import calibration_batches
     from repro_torch.models import build_model
+    from repro_torch.models.layers import with_unembedding
     mcfg = dataclasses.replace(
         get_config(name), aqua=AquaConfig(k_ratio=K_RATIO,
                                           block_dims=BLOCK_DIMS),
         dtype=dtype, param_dtype=dtype)
     model = build_model(mcfg)
-    mparams = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    # the float32 unembedding made once, as the engines and the launcher
+    # make it
+    mparams = with_unembedding(
+        model.init(torch.Generator(device="cuda").manual_seed(seed)),
+        mcfg.tie_embeddings)
 
     def fwd_cap(p, batch):
         toks = torch.from_numpy(batch["tokens"]).cuda()
@@ -1359,11 +1613,13 @@ def load_model(name: str, seed: int, dtype: str = "bfloat16") -> tuple:
     return mcfg, mparams, mproj
 
 
-def serve_phase(card: str) -> dict:
+def serve_phase(card: str, prof: dict) -> dict:
+    """The drives (module docstring, section 4); ``prof``: the traced
+    paged drive's result (``traced_drive``), reported with them."""
     import torch
     from repro_torch.configs import (CacheSpec, QuantSpec, ServingConfig,
                                      SparsitySpec)
-    from repro_torch.serving import ContinuousBatchingEngine, poisson_trace
+    from repro_torch.serving import ContinuousBatchingEngine
 
     t0 = time.perf_counter()
     cfg, params, proj = load_model("qwen3-0.6b", 0)
@@ -1375,10 +1631,8 @@ def serve_phase(card: str) -> dict:
     log_time("serve set-up (weights, calibration)")
 
     def trace(n, prompts=(128, 512, 1024), vocab=cfg.vocab_size):
-        return poisson_trace(n, mean_interarrival=4.0, prompt_lens=prompts,
-                             max_new_tokens=32, vocab_size=vocab, seed=0)
-    paged = ServingConfig(max_lanes=8, max_seq=2048, max_new_tokens=32,
-                          cache=CacheSpec(page_size=64, prefix_sharing=False))
+        return drive_trace(n, vocab, prompts)
+    paged = paged_serving()
     int8 = QuantSpec(kv_dtype="int8")
     hier = SparsitySpec(page_keep_ratio=0.25)
     aqua_off = dataclasses.replace(cfg, aqua=None)
@@ -1449,6 +1703,7 @@ def serve_phase(card: str) -> dict:
         graph = eng.step_graph
         run["capture_ms"], run["graph_pool_bytes"] = (graph.capture_ms,
                                                       graph.pool_bytes)
+        run["graphs"] = eng.graph_accounting()
         run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         run["drive_peak_memory_bytes"] = run["peak_memory_bytes"] - start
         assert len(run["tokens"]) == n, len(run["tokens"])
@@ -1499,18 +1754,44 @@ def serve_phase(card: str) -> dict:
         runs[path] = run
         log_time(f"drive {path} and its reference")
     # the chunked trace served monolithically with the kernels: tokens and
-    # inter-token gaps beside the chunked drive's (reported, not limited)
+    # inter-token gaps beside the chunked drive's (reported, not limited),
+    # the gaps from each engine's second serve of the trace (its graphs
+    # captured, as a running server's are)
     chunk_run = runs["chunked_paged"]
     mono = drive(cfg, paged, 4, long_prompts)
     pairs = [(a, b) for u in mono["tokens"]
              for a, b in zip(chunk_run["tokens"][u], mono["tokens"][u])]
+    again = {k: serve_drive(r["engine"], trace(4, long_prompts))
+             for k, r in (("chunked", chunk_run), ("monolithic", mono))}
     chunk_run["vs_monolithic"] = dict(
         greedy_token_match=sum(a == b for a, b in pairs) / len(pairs),
-        itl_p50_ms=(chunk_run["itl_p50_ms"], mono["itl_p50_ms"]),
-        itl_p99_ms=(chunk_run["itl_p99_ms"], mono["itl_p99_ms"]),
-        max_itl_ms=(1e3 * max(chunk_run["engine"].stats.itl_gaps),
-                    1e3 * max(mono["engine"].stats.itl_gaps)))
+        **{k: (again["chunked"][k], again["monolithic"][k])
+           for k in ("itl_p50_ms", "itl_p99_ms", "max_itl_ms", "admit_ms")})
+    log(f"[serve chunked_paged] second serves, chunked vs monolithic: "
+        f"{chunk_run['vs_monolithic']} on {card}")
     log_time("drive chunked_paged served monolithically")
+    # the paged drive's trace served again on its engine: every bucket's
+    # admission graph is captured, so every admission replays
+    eng = runs["paged"]["engine"]
+    reset_counts()
+    again = serve_drive(eng, trace(8))
+    assert again["tokens"] == runs["paged"]["tokens"], \
+        "second serve changed tokens"
+    want = dict.fromkeys(KERNELS, 0)
+    want["aqua_prefill"] = cfg.num_layers * again["admissions"]
+    want["aqua_paged_decode"] = cfg.num_layers * again["decode_steps"]
+    assert launch_counts() == want, (launch_counts(), want)
+    runs["paged"]["second_serve"] = {
+        k: v for k, v in again.items()
+        if k not in ("tokens", "admit_logits", "step_logits")}
+    log(f"[serve paged, second serve] admission ms {again['admit_ms']:.3f} "
+        f"(first serve, captures included: "
+        f"{runs['paged']['admit_ms']:.3f}), gap p50/p99/max "
+        f"{again['itl_p50_ms']:.1f}/{again['itl_p99_ms']:.1f}/"
+        f"{again['max_itl_ms']:.1f} ms, decode step ms "
+        f"{again['decode_step_ms']:.3f}, tokens/s "
+        f"{again['tokens_per_s']:.2f} on {card}")
+    log_time("drive paged served again")
     int8_share = runs["int8_paged"]["cache_bytes"] / runs["paged"][
         "cache_bytes"]
     assert int8_share < 0.60, int8_share
@@ -1547,12 +1828,13 @@ def serve_phase(card: str) -> dict:
         graph_checks[path] = step_graph_phase(path, eng, reqs)
         log({"step_graph": graph_checks[path]})
         log_time(f"step graph {path}")
-    # one more paged drive, traced: where the device time goes
-    prof = profiled_drive(runs["paged"]["engine"], trace(4),
-                          "aqua_paged_decode")
-    log(f"[serve paged, traced] device idle share {prof['idle_share']:.3f}, "
-        f"decode step ms {prof['decode_step_ms']:.3f} on {card}")
-    log_time("traced drive")
+    # the captured admissions against eager ones, bit for bit
+    admit_checks = {}
+    for path in ("paged", "contiguous", "flash_paged", "int8_paged",
+                 "hier_paged", "hier_int8_paged", "aqua_memory_paged"):
+        admit_checks[path] = admit_graph_phase(path, runs[path]["engine"])
+        log({"admit_graph": admit_checks[path]})
+        log_time(f"admit graph {path}")
 
     summary = {}
     for key, run in runs.items():
@@ -1564,6 +1846,12 @@ def serve_phase(card: str) -> dict:
             f"capture ms {run['capture_ms']:.1f}, graph pool bytes "
             f"{run['graph_pool_bytes']} (its plain reference: decode step "
             f"ms {run['reference_decode_step_ms']:.3f}) on {card}")
+        acc = run["graphs"]
+        log(f"[serve {key}] admission ms {run['admit_ms']:.3f}, admission "
+            f"graphs {acc['admit_graphs']} (capture ms by bucket "
+            f"{acc['admit_capture_ms']}), shared pool bytes "
+            f"{acc['admit_pool_bytes']}, step graph pool bytes "
+            f"{acc['step_pool_bytes']} on {card}")
     result = dict(model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
                   models={m.name: dict(layers=m.num_layers, d_model=m.d_model,
                                        head_dim=m.attention.head_dim,
@@ -1571,7 +1859,7 @@ def serve_phase(card: str) -> dict:
                           for m in (cfg, danube)},
                   setup_s=setup_s, logit_rtol=LOGIT_RTOL,
                   profile_paged=prof, int8_cache_bytes_share=int8_share,
-                  step_graph=graph_checks,
+                  step_graph=graph_checks, admit_graph=admit_checks,
                   **summary)
     log({"serve": result})
     return result
@@ -1742,7 +2030,16 @@ def hf_serve_phase(card: str, gen) -> dict:
     want["aqua_prefill"] = layers * again["admissions"]
     want["aqua_paged_decode"] = layers * again["decode_steps"]
     assert launches == want, (launches, want)
+    log(f"[hf_serve] second serve: admission ms {again['admit_ms']:.3f} "
+        f"(launcher's first serve: "
+        f"{1e3 * st.admit_seconds / st.admissions:.3f}), gap p50/p99/max "
+        f"{again['itl_p50_ms']:.1f}/{again['itl_p99_ms']:.1f}/"
+        f"{again['max_itl_ms']:.1f} ms")
     log_time("hf_serve second serve")
+    # its admission graphs against eager admissions, bit for bit, in float32
+    admit_check = admit_graph_phase("hf_serve", eng)
+    log({"admit_graph": admit_check})
+    log_time("hf_serve admit graph")
     ref_eng = ContinuousBatchingEngine(mcfg, eng.params, run.projections,
                                        serving=eng.scfg,
                                        backend="aqua-block-sparse-plain")
@@ -1825,7 +2122,8 @@ def hf_serve_phase(card: str, gen) -> dict:
         reference="aqua-block-sparse-plain",
         reference_decode_step_ms=ref["decode_step_ms"],
         vs_reference=vs_ref, bf16_inputs_control=vs_ctl,
-        step_graph=graph_check,
+        step_graph=graph_check, admit_graph=admit_check,
+        graphs=eng.graph_accounting(),
         f32_rtol=F32_RTOL, f32_atol=F32_ATOL, logit_scale=HF_LOGIT_SCALE)
     log({"hf_serve": result})
     # each float32 route's launches on its path: the paged decode's and the
@@ -1844,6 +2142,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == TRACED_DRIVE_FLAG:
+        return traced_drive_child(sys.argv[2])
     from repro_torch.kernels import _build
 
     card = card_line()
@@ -1916,6 +2216,9 @@ def main() -> int:
         spills = "not checked: the library was built by an earlier run"
     log({"sass_decode_f32_variants": f32_ffma, "ptxas_spill_bytes": spills})
 
+    # the traced paged drive, in a child process: where the device time goes
+    prof = traced_drive(card)
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     phases = []
 
@@ -1956,7 +2259,7 @@ def main() -> int:
     bad = [p for p in phases if not p["ok"]]
     assert not bad, f"kernel disagrees with its plain version: {bad}"
 
-    serve = serve_phase(card)
+    serve = serve_phase(card, prof)
     hf = hf_serve_phase(card, gen)
     src = "src/repro_torch/kernels/csrc/"
     tpu = "src/repro/kernels/"

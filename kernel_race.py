@@ -127,7 +127,7 @@ def f32_step_graph(cs) -> dict:
     reqs = poisson_trace(8, mean_interarrival=4.0,
                          prompt_lens=(128, 512, 1024), max_new_tokens=32,
                          vocab_size=cfg.vocab_size, seed=0)
-    return cs.step_graph_phase("f32_paged", eng, reqs)
+    return cs.step_graph_phase("f32_paged", eng, reqs, trace=True)
 
 
 def one_tree(tree: str, out_path: str) -> int:

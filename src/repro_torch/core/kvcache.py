@@ -45,7 +45,11 @@ holds — the JAX package's out-of-bounds dropped scatter, for an in-place
 scatter that has no drop mode. The int8 insert, which requantizes whole
 pages, repeats a writing row's page requantization too. So one decode step
 can be captured in a CUDA graph (``serving/step_graph.py``), and a step
-that no row writes leaves the cache as it was, bit for bit.
+that no row writes leaves the cache as it was, bit for bit. The lane
+surgery (``paged_graft``, ``paged_write_tail``, ``paged_reset_lane``,
+``install_table_row``) takes ``lane`` as a Python int or a device tensor
+and reads nothing on the host either, by the same stand-in addressing:
+an admission is captured too (``serving/admit_graph.py``).
 :func:`reset_cache` empties a cache in place, keeping its tensors.
 """
 from __future__ import annotations
@@ -581,7 +585,102 @@ def paged_accumulate_h2o(cache: PagedAttnCache, attn_weights: torch.Tensor,
     return cache
 
 
-def paged_graft(cache: PagedAttnCache, req: AttnCache, lane: int,
+def lane_index(lane, device) -> torch.Tensor:
+    """``lane`` as a (1,) int64 tensor on ``device``: a Python int is
+    filled in on the device (no host-to-device copy), a 0-d or 1-element
+    int tensor (an admission graph's lane buffer) is reshaped, never
+    read on the host."""
+    if isinstance(lane, torch.Tensor):
+        return lane.reshape(1).long()
+    return torch.full((1,), int(lane), dtype=torch.int64, device=device)
+
+
+def _set_lane(t: torch.Tensor, lane: torch.Tensor, value) -> None:
+    """``t[lane] = value`` in place for a (1,) lane tensor; ``value`` a
+    Python number or a 0-d / 1-element tensor, never read on the host."""
+    if isinstance(value, torch.Tensor):
+        t.index_copy_(0, lane, value.reshape(1).to(t.dtype))
+    else:
+        t.index_fill_(0, lane, value)
+
+
+def install_table_row(cache: PagedAttnCache, lane, row: torch.Tensor
+                      ) -> PagedAttnCache:
+    """Install ``row`` (NP,) int32 as ``lane``'s page-table row, in
+    place: in every layer of a stacked cache (page_table (L, B, NP))."""
+    lane = lane_index(lane, row.device)
+    table = cache.page_table
+    table.index_copy_(table.ndim - 2, lane, row.to(table.dtype).expand(
+        *table.shape[:-2], 1, table.shape[-1]))
+    return cache
+
+
+def _lane_table(cache: PagedAttnCache, lane: torch.Tensor) -> torch.Tensor:
+    """(NP,) int64: ``lane``'s page-table row, gathered on the device."""
+    return cache.page_table.index_select(0, lane)[0].long()
+
+
+def _clear_pages(cache: PagedAttnCache, tbl: torch.Tensor) -> None:
+    """Clear the pages that ``tbl`` (NP,) maps (entries >= 0): positions
+    -1, scores 0, and scales 0 for int8 pools, in place. Unmapped
+    entries repeat a mapped entry's clear (:func:`_stand_in`); with none
+    mapped every entry rewrites what its address holds."""
+    ok = tbl >= 0
+    (phys,), donor, any_ok = _stand_in(ok, tbl.clamp(min=0))
+    pools = [(cache.pos_pool, -1), (cache.acc_pool, 0.0)]
+    if cache.quantized:
+        pools += [(cache.k_scale, 0.0), (cache.v_scale, 0.0)]
+    for t, empty in pools:
+        old = t[phys]
+        t[phys] = _stand_in_values(ok, donor, any_ok,
+                                   torch.full_like(old, empty), old)
+
+
+def _write_tokens(cache: PagedAttnCache, tbl: torch.Tensor, start_page: int,
+                  k_tok: torch.Tensor, v_tok: torch.Tensor,
+                  positions: torch.Tensor,
+                  acc: Optional[torch.Tensor] = None) -> None:
+    """Write T tokens (k (T, KV, Dk), v (T, KV, Dv), positions (T,), and
+    an H2O prefill's scores ``acc`` (T, KV)) to logical slots
+    ``start_page * page_size + arange(T)`` of the lane whose table row is
+    ``tbl``, in place. int8 pools: each page the tokens start gets its
+    scale from them (the partial last page padded with zeros). Rows whose
+    page is unmapped repeat a mapped row's write (same address, same
+    value), the scale writes of unmapped pages too; with no row mapped
+    every write rewrites what its address holds."""
+    ps = cache.page_size
+    t = k_tok.shape[0]
+    rel = torch.arange(t, device=tbl.device)
+    idx = start_page * ps + rel
+    entry = tbl[idx // ps]
+    ok = entry >= 0
+    (phys, off), donor, any_ok = _stand_in(ok, entry.clamp(min=0), idx % ps)
+
+    def write(t_, index, new):
+        old = t_[index]
+        t_[index] = _stand_in_values(ok, donor, any_ok, new.to(t_.dtype), old)
+    if cache.quantized:
+        for pool, scale, tok in ((cache.k_pool, cache.k_scale, k_tok),
+                                 (cache.v_pool, cache.v_scale, v_tok)):
+            pg = _page_scales(tok, ps, scale.shape[1])      # (NPG, SH)
+            pg_tbl = tbl[start_page:start_page + pg.shape[0]]
+            pg_ok = pg_tbl >= 0
+            (pg_phys,), pg_donor, pg_any = _stand_in(pg_ok,
+                                                     pg_tbl.clamp(min=0))
+            old = scale[pg_phys]
+            scale[pg_phys] = _stand_in_values(pg_ok, pg_donor, pg_any, pg,
+                                              old)
+            write(pool, (phys, slice(None), off),
+                  quantize_tokens(tok, pg[rel // ps]))
+    else:
+        write(cache.k_pool, (phys, slice(None), off), k_tok)
+        write(cache.v_pool, (phys, slice(None), off), v_tok)
+    write(cache.pos_pool, (phys, off), positions)
+    if acc is not None:
+        write(cache.acc_pool, (phys, slice(None), off), acc)
+
+
+def paged_graft(cache: PagedAttnCache, req: AttnCache, lane,
                 num_slots: int) -> PagedAttnCache:
     """Copy logical slots [0, num_slots) of a B=1 contiguous cache (an
     admission prefill) into ``lane``'s pages, in place. Every page the
@@ -589,40 +688,27 @@ def paged_graft(cache: PagedAttnCache, req: AttnCache, lane: int,
     int8 pools): pool pages are recycled, so a previous tenant's state
     must never read as valid. int8 pools get per-page scales over the
     grafted tokens; an H2O prefill's ``acc_score`` lands in ``acc_pool``.
-    The lane's page-table row is installed before this runs."""
-    ps = cache.page_size
-    tbl = cache.page_table[lane].long()
-    mapped = tbl[tbl >= 0]
-    cache.pos_pool[mapped] = -1
-    cache.acc_pool[mapped] = 0.0
-    idx = torch.arange(num_slots, device=tbl.device)
-    entry = tbl[idx // ps]
-    ok = entry >= 0
-    phys, off, src = entry[ok], (idx % ps)[ok], idx[ok]
-    k_tok = req.k[0][:, :num_slots].transpose(0, 1)      # (T, KV, Dk)
-    v_tok = req.v[0][:, :num_slots].transpose(0, 1)
-    if cache.quantized:
-        for pool, scale, tok in ((cache.k_pool, cache.k_scale, k_tok),
-                                 (cache.v_pool, cache.v_scale, v_tok)):
-            scale[mapped] = 0.0
-            pg = _page_scales(tok, ps, scale.shape[1])    # (NPG, SH)
-            pg_tbl = tbl[:pg.shape[0]]
-            scale[pg_tbl[pg_tbl >= 0]] = pg[pg_tbl >= 0]
-            pool[phys, :, off] = quantize_tokens(tok[src], pg[src // ps])
-    else:
-        cache.k_pool[phys, :, off] = k_tok[src].to(cache.k_pool.dtype)
-        cache.v_pool[phys, :, off] = v_tok[src].to(cache.v_pool.dtype)
-    cache.pos_pool[phys, off] = req.positions[0, src]
-    if req.acc_score is not None:        # an H2O prefill's statistic
-        cache.acc_pool[phys, :, off] = req.acc_score[0][:, src].transpose(
-            0, 1)
-    cache.count[lane] = req.count[0]
+    The lane's page-table row is installed before this runs.
+
+    ``lane`` is a Python int or a 0-d / 1-element int tensor on the
+    cache's device; nothing is read on the host (an admission graph
+    captures this), and when no page is mapped the pool stays as it was,
+    bit for bit."""
+    lane = lane_index(lane, cache.count.device)
+    tbl = _lane_table(cache, lane)
+    _clear_pages(cache, tbl)
+    _write_tokens(cache, tbl, 0, req.k[0][:, :num_slots].transpose(0, 1),
+                  req.v[0][:, :num_slots].transpose(0, 1),
+                  req.positions[0, :num_slots],
+                  None if req.acc_score is None
+                  else req.acc_score[0][:, :num_slots].transpose(0, 1))
+    _set_lane(cache.count, lane, req.count[:1])
     return cache
 
 
-def paged_write_tail(cache: PagedAttnCache, lane: int, k_tail: torch.Tensor,
+def paged_write_tail(cache: PagedAttnCache, lane, k_tail: torch.Tensor,
                      v_tail: torch.Tensor, positions: torch.Tensor,
-                     start_page: int, new_count: int) -> PagedAttnCache:
+                     start_page: int, new_count) -> PagedAttnCache:
     """Write a prefill chunk's k (T, KV, Dk) / v (T, KV, Dv) / positions
     (T,) into ``lane``'s pages from the page-aligned logical page
     ``start_page``, in place. The lane's pages from ``start_page`` on are
@@ -630,49 +716,29 @@ def paged_write_tail(cache: PagedAttnCache, lane: int, k_tail: torch.Tensor,
     pool pages are recycled. On int8 pools each written page gets its
     scale from the chunk's tokens (padding rows included, as in JAX);
     pages below ``start_page`` keep theirs. Rows whose page is unmapped
-    are dropped."""
-    ps = cache.page_size
-    tbl = cache.page_table[lane].long()                     # (NP,)
-    npl = tbl.shape[0]
-    private = (torch.arange(npl, device=tbl.device) >= start_page) & (tbl >= 0)
-    clear = tbl[private]
-    cache.pos_pool[clear] = -1
-    cache.acc_pool[clear] = 0.0
-    t = min(k_tail.shape[0], cache.num_slots - start_page * ps)
-    idx = start_page * ps + torch.arange(t, device=tbl.device)
-    entry = tbl[idx // ps]
-    ok = entry >= 0
-    phys, off, src = entry[ok], (idx % ps)[ok], torch.nonzero(ok)[:, 0]
-    if cache.quantized:
-        for pool, scale, tok in ((cache.k_pool, cache.k_scale, k_tail),
-                                 (cache.v_pool, cache.v_scale, v_tail)):
-            scale[clear] = 0.0
-            pg = _page_scales(tok[:t], ps, scale.shape[1])   # (NPG, SH)
-            pg_tbl = tbl[start_page:start_page + pg.shape[0]]
-            scale[pg_tbl[pg_tbl >= 0]] = pg[pg_tbl >= 0]
-            pool[phys, :, off] = quantize_tokens(tok[src], pg[src // ps])
-    else:
-        cache.k_pool[phys, :, off] = k_tail[src].to(cache.k_pool.dtype)
-        cache.v_pool[phys, :, off] = v_tail[src].to(cache.v_pool.dtype)
-    cache.pos_pool[phys, off] = positions[src].to(torch.int32)
-    cache.count[lane] = new_count
+    are dropped. ``lane`` and ``new_count`` are Python ints or device
+    tensors; nothing is read on the host."""
+    lane = lane_index(lane, cache.count.device)
+    tbl = _lane_table(cache, lane)                           # (NP,)
+    from_start = torch.arange(tbl.shape[0], device=tbl.device) >= start_page
+    _clear_pages(cache, torch.where(from_start, tbl,
+                                    torch.full_like(tbl, -1)))
+    t = min(k_tail.shape[0], cache.num_slots - start_page * cache.page_size)
+    _write_tokens(cache, tbl, start_page, k_tail[:t], v_tail[:t],
+                  positions[:t])
+    _set_lane(cache.count, lane, new_count)
     return cache
 
 
-def paged_reset_lane(cache: PagedAttnCache, lane: int) -> PagedAttnCache:
+def paged_reset_lane(cache: PagedAttnCache, lane) -> PagedAttnCache:
     """Return ``lane`` to the empty condition, in place: clear its mapped
     pages' positions, scores (and scales), unmap its table row, zero its
     count. (Returning the pages to the free list is the host allocator's
-    job.)"""
-    tbl = cache.page_table[lane].long()
-    mapped = tbl[tbl >= 0]
-    cache.pos_pool[mapped] = -1
-    cache.acc_pool[mapped] = 0.0
-    if cache.quantized:
-        cache.k_scale[mapped] = 0.0
-        cache.v_scale[mapped] = 0.0
-    cache.page_table[lane] = -1
-    cache.count[lane] = 0
+    job.) Nothing is read on the host."""
+    lane = lane_index(lane, cache.count.device)
+    _clear_pages(cache, _lane_table(cache, lane))
+    cache.page_table.index_fill_(0, lane, -1)
+    cache.count.index_fill_(0, lane, 0)
     return cache
 
 

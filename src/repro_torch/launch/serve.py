@@ -52,6 +52,7 @@ from repro_torch.core.calibration import (AquaProjections, calibrate,
 from repro_torch.data.corpus import calibration_batches, lcg_batch
 from repro_torch.models import build_model
 from repro_torch.models.base import PagingSpec
+from repro_torch.models.layers import with_unembedding
 from repro_torch.runtime import resolve_device
 from repro_torch.serving import (ContinuousBatchingEngine, ServeEngine,
                                  poisson_trace)
@@ -244,6 +245,8 @@ def main(argv=None) -> ServeRun:
               f"{load_s:.2f}s")
     else:
         params = model.init(torch.Generator(device=dev).manual_seed(0))
+    # the float32 unembedding, made once for every engine below
+    params = with_unembedding(params, cfg.tie_embeddings)
 
     proj = None
     if aqua is not None and args.projections is not None \

@@ -8,6 +8,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.kvcache import lane_index
 from repro_torch.runtime import resolve_device, torch_dtype
 
 
@@ -102,23 +103,28 @@ class LM:
 
     # -- lane surgery -------------------------------------------------
     def insert_lane(self, state: DecodeState, req_state: DecodeState,
-                    lane: int) -> DecodeState:
+                    lane) -> DecodeState:
         """Overwrite lane ``lane`` of ``state`` with the single-lane
-        ``req_state`` (K/V slots, positions, count), in place."""
+        ``req_state`` (K/V slots, positions, count), in place. ``lane`` is
+        a Python int or a 0-d / 1-element int tensor on the state's
+        device, never read on the host (an admission graph captures
+        this)."""
+        index = lane_index(lane, state.layers.count.device)
         for f in dataclasses.fields(state.layers):
             dst = getattr(state.layers, f.name)
             if dst is not None:
-                dst[:, lane] = getattr(req_state.layers, f.name)[:, 0]
+                dst.index_copy_(1, index,
+                                getattr(req_state.layers, f.name)[:, :1])
         return state
 
-    def reset_lane(self, state: DecodeState, lane: int,
+    def reset_lane(self, state: DecodeState, lane,
                    max_seq: int) -> DecodeState:
         """Return lane ``lane`` to the freshly-initialized condition."""
         return self.insert_lane(state, self.init_decode_state(1, max_seq),
                                 lane)
 
     def prefill_into(self, params, batch, max_seq: int, state: DecodeState,
-                     lane: int, aqua_proj=None
+                     lane, aqua_proj=None
                      ) -> Tuple[torch.Tensor, DecodeState]:
         """Prefill one request (batch size 1, optionally ragged via
         ``batch["lengths"]``) and graft its cache into ``lane``. Returns

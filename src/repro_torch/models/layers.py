@@ -34,6 +34,30 @@ def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return p["table"][tokens.long()].to(dtype)
 
 
-def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Logits in float32."""
-    return x.float() @ p["table"].float().T
+def unembed(params: dict, table_key: str, x: torch.Tensor) -> torch.Tensor:
+    """Logits in float32 from the float32 (V, d) matrix that
+    ``with_unembedding`` made once where ``params`` carry it, else from
+    ``params[table_key]["table"]`` cast here (the same GEMM on the same
+    values)."""
+    w = params.get(UNEMBED_F32)
+    if w is None:
+        w = params[table_key]["table"].float()
+    return x.float() @ w.T
+
+
+#: the params key of the float32 unembedding matrix (``with_unembedding``)
+UNEMBED_F32 = "unembed_f32"
+
+
+def with_unembedding(params: dict, tied: bool) -> dict:
+    """``params`` plus the float32 (V, d) unembedding matrix under
+    ``UNEMBED_F32``, made once where an engine takes its params instead of
+    cast in every step and admission: a new dict (the caller's tree is
+    left as it was) whose other entries are the caller's tensors. A
+    float32 table is reused, not copied; params that already hold the
+    matrix come back as they are. ``tied``: the table is the embedding's
+    (else ``params["unembed"]``)."""
+    if UNEMBED_F32 in params:
+        return params
+    table = params["embed" if tied else "unembed"]["table"]
+    return {**params, UNEMBED_F32: table.float()}

@@ -91,9 +91,9 @@ class DenseLM(LM):
         return params
 
     def _unembed(self, params, x):
-        table = params["embed" if self.cfg.tie_embeddings else "unembed"]
-        return L.unembed(table, L.rms_norm(x, params["ln_f"],
-                                           self.cfg.norm_eps))
+        return L.unembed(params, "embed" if self.cfg.tie_embeddings
+                         else "unembed",
+                         L.rms_norm(x, params["ln_f"], self.cfg.norm_eps))
 
     def _proj(self, aqua_proj, i):
         return None if aqua_proj is None else aqua_proj[i]

@@ -42,10 +42,16 @@ On the card the decode step is one CUDA graph (:class:`~repro_torch.
 serving.step_graph.StepGraph`, the counterpart of the JAX engine's jitted
 step), captured once per engine over its decode state at the first
 ``serve()``, before any admission, and replayed every step; sampling runs
-on the replayed logits. The state is allocated once and emptied in place
-at each later ``serve()``: the graph holds its addresses, so admissions,
-page tables and chunk writes update it in place too. On the CPU the
-engine calls ``model.decode_step`` directly.
+on the replayed logits. A bucket-padded monolithic admission is one CUDA
+graph per prompt bucket (:class:`~repro_torch.serving.admit_graph.
+AdmitGraph`, the counterpart of the JAX engine's jitted ``_admit`` /
+``_admit_paged``): captured at the bucket's first admission, replayed for
+every later one into any lane, all of an engine's admission graphs in one
+shared memory pool. Exact-length window and H2O admissions and chunk
+steps run eagerly. The state is allocated once and emptied in place at
+each later ``serve()``: the graphs hold its addresses, so admissions, page
+tables and chunk writes update it in place too. On the CPU the engine
+runs the same admission and ``model.decode_step`` directly.
 
 Under AQUA the engine pads the projections once, at construction, to the
 stored K̂ width (``aqua.stored_projection``): AQUA-Memory kept widths that
@@ -81,7 +87,9 @@ from repro_torch.core.dispatch import (TILE_SELECTING_BACKENDS, DispatchPlan,
                                        resolve_dispatch_plan)
 from repro_torch.models import build_model
 from repro_torch.models.base import PagingSpec
+from repro_torch.models.layers import with_unembedding
 from repro_torch.runtime import resolve_device
+from repro_torch.serving.admit_graph import AdmitGraph, admission
 from repro_torch.serving.scheduler import (LaneScheduler, PagePool, Request,
                                            RequestOutput, ScheduleStats,
                                            StreamEvent)
@@ -147,7 +155,7 @@ class ServeEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)
-        self.params = params
+        self.params = with_unembedding(params, cfg.tie_embeddings)
         self.proj = None
         if cfg.aqua is not None and cfg.aqua.enabled:
             assert projections is not None, \
@@ -229,9 +237,13 @@ class ContinuousBatchingEngine:
     tests pass ``device="cpu"``. ``params`` must already live on it.
     ``last_admit_logits`` / ``last_step_logits`` hold the logits of the
     latest admission and decode step; on the card ``last_step_logits`` is
-    the step graph's output tensor, valid until the next decode step
-    (clone it to keep it). ``step_graph`` is the captured decode step
-    (None on the CPU and before the first ``serve()``).
+    the step graph's output tensor, valid until the next decode step, and
+    ``last_admit_logits`` of a graphed admission the admission graph's,
+    valid until the next admission (clone them to keep them).
+    ``step_graph`` is the captured decode step (None on the CPU and before
+    the first ``serve()``); ``admit_graphs`` the captured admissions by
+    prompt bucket (empty on the CPU); ``graph_accounting()`` their
+    capture ms and pool bytes.
     """
 
     def __init__(self, cfg: ModelConfig, params,
@@ -270,7 +282,9 @@ class ContinuousBatchingEngine:
                                            mesh=None)
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)
-        self.params = params
+        # once, at load: the float32 unembedding (the step graph holds its
+        # address)
+        self.params = with_unembedding(params, cfg.tie_embeddings)
         self.proj = None
         if cfg.aqua is not None and cfg.aqua.enabled:
             assert projections is not None, \
@@ -290,6 +304,13 @@ class ContinuousBatchingEngine:
         # ragged bucketed prefill needs the full-cache policy (window
         # rings and H2O eviction place slots assuming a rectangular batch)
         self._supports_ragged = self.eviction == "none"
+        # on the card a bucket-padded monolithic admission replays its
+        # bucket's graph (one shared pool); exact-length window and H2O
+        # admissions and chunk steps run eagerly
+        self.admit_graphs: Dict[int, AdmitGraph] = {}
+        self._admit_pool = None
+        self._graphed_admissions = (self.device.type == "cuda"
+                                    and self._supports_ragged)
         self._num_slots = self.model.cache_slots(serving.max_seq)
         self._paged = cache.paged
         self._kept_pages = None
@@ -437,31 +458,70 @@ class ContinuousBatchingEngine:
         return self.last_state
 
     def _admit(self, req: Request, lane: int, state, lanes: LaneState):
-        """Prefill ``req`` into ``lane`` and sample its first token.
-        Returns (token, done)."""
-        batch = self._prefill_batch(req)
-        if self._paged:
-            self._install_pages(req, lane, state)
-            logits, req_state = self.model.prefill(
-                self.params, batch, self.scfg.max_seq, aqua_proj=self.proj)
-            self.model.graft_paged(state, req_state, lane,
-                                   batch["tokens"].shape[1]
-                                   if self._supports_ragged
-                                   else self._num_slots)
+        """Prefill ``req`` into ``lane`` and sample its first token (on the
+        card a bucket-padded admission replays its bucket's admission
+        graph). Returns (token, done)."""
+        if self._graphed_admissions:
+            logits = self._admit_graphed(req, lane)
         else:
-            logits, _ = self.model.prefill_into(
-                self.params, batch, self.scfg.max_seq, state, lane,
-                aqua_proj=self.proj)
+            # what an admission graph captures, run eagerly (the CPU, and
+            # window / H2O admissions: the exact prompt grafted into every
+            # slot of the lane's stripe)
+            batch = self._prefill_batch(req)
+            row = (torch.from_numpy(self._reserve_pages(req, lane)).to(
+                self.device) if self._paged else None)
+            logits = admission(
+                self.model, self.params, state, self.proj, self.scfg.max_seq,
+                batch["tokens"], batch.get("lengths"), lane, row,
+                num_slots=None if self._supports_ragged else self._num_slots)
         return self._finish_admit(req, lane, logits, lanes)
 
-    def _install_pages(self, req: Request, lane: int, state) -> None:
-        """Reserve ``req``'s pages for its whole lifetime and install the
-        lane's page-table row (every layer)."""
+    def _admit_graphed(self, req: Request, lane: int) -> torch.Tensor:
+        """A monolithic admission through its bucket's
+        :class:`AdmitGraph` (captured at the bucket's first admission):
+        the page-table row goes in with the prompt and the lane. Returns
+        the graph's logits (1, V)."""
+        bucket = self._padded_prompt_len(req.prompt_len)
+        graph = self.admit_graphs.get(bucket)
+        if graph is None:
+            if self._admit_pool is None:
+                self._admit_pool = torch.cuda.graph_pool_handle()
+            graph = self.admit_graphs[bucket] = AdmitGraph(
+                self.model, self.params, self.last_state, self.proj, bucket,
+                self.scfg.max_seq, pool=self._admit_pool)
+        row = self._reserve_pages(req, lane) if self._paged else None
+        return graph.admit(np.asarray(req.tokens, np.int32), lane, row)
+
+    def _reserve_pages(self, req: Request, lane: int) -> np.ndarray:
+        """Reserve ``req``'s pages for its whole lifetime; returns the
+        lane's page-table row (pages_per_lane,) int32, -1 unmapped."""
         pages = self.page_pool.reserve(lane, self._pages_needed(req))
         assert pages is not None       # serve() checked can_reserve
-        row = torch.full((self._pages_per_lane,), -1, dtype=torch.int32)
-        row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
-        state.layers.page_table[:, lane] = row.to(self.device)
+        row = np.full(self._pages_per_lane, -1, np.int32)
+        row[:len(pages)] = pages
+        return row
+
+    def _install_pages(self, req: Request, lane: int, state) -> None:
+        """Reserve ``req``'s pages and install the lane's page-table row
+        (every layer)."""
+        kvc.install_table_row(state.layers, lane, torch.from_numpy(
+            self._reserve_pages(req, lane)).to(self.device))
+
+    def graph_accounting(self) -> dict:
+        """The captured graphs of this engine: ``admit_graphs`` (one per
+        prompt bucket admitted so far), each bucket's capture ms and pool
+        growth, the admission graphs' shared pool bytes, and the step
+        graph's capture ms and pool bytes (None before the first serve
+        and on the CPU)."""
+        graphs = sorted(self.admit_graphs.items())
+        step = self.step_graph
+        return dict(
+            admit_graphs=len(graphs),
+            admit_capture_ms={b: g.capture_ms for b, g in graphs},
+            admit_pool_growth_bytes={b: g.pool_bytes for b, g in graphs},
+            admit_pool_bytes=sum(g.pool_bytes for _, g in graphs),
+            step_capture_ms=None if step is None else step.capture_ms,
+            step_pool_bytes=None if step is None else step.pool_bytes)
 
     def _finish_admit(self, req: Request, lane: int, logits, lanes: LaneState):
         """The admission tail: sample the first token from the prefill

@@ -26,13 +26,72 @@ eager fallback).
 """
 from __future__ import annotations
 
+import gc
 import time
-from collections import Counter
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+
+
+def capture(fn, device, pool=None) -> tuple:
+    """PyTorch's recipe for capturing ``fn`` (no arguments, returns a
+    tensor) into a CUDA graph: one eager call on a side stream, then the
+    capture, which executes nothing. Returns (the eager call's output, the
+    graph, the graph's output tensor, the launches the capture recorded by
+    body, the device memory the capture reserved, the host ms of it all).
+    The capture's launches are taken back out of ``_build.LAUNCHES``; the
+    eager call's stay. ``pool``: a ``torch.cuda.graph_pool_handle()`` to
+    share (None: the graph's own)."""
+    t0 = time.perf_counter()
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        eager = fn()
+    current.wait_stream(side)
+    torch.cuda.synchronize(device)
+    # garbage freed inside a capture (pinned buffers, events, graphs of
+    # objects in reference cycles) invalidates it: collect it first
+    gc.collect()
+    # torch.cuda.graph empties the allocator's cache as it enters: do so
+    # first, so what the capture reserves is its own pool's growth
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    before = _build.LAUNCHES.copy()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+        torch.cuda.synchronize(device)
+        launches = _build.LAUNCHES - before
+    finally:
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(before)
+    return (eager, graph, out, launches,
+            torch.cuda.memory_reserved(device) - reserved,
+            1e3 * (time.perf_counter() - t0))
+
+
+class Staging:
+    """A graph's static input buffers on the device, each filled from a
+    pinned host twin: ``fill(name=value, ...)`` writes the values on the
+    host and copies them without blocking, after the previous fill's
+    copies have left the pinned buffers."""
+
+    def __init__(self, **buffers: torch.Tensor):
+        self.buffers = buffers
+        self._host = {k: torch.empty_like(b, device="cpu").pin_memory()
+                      for k, b in buffers.items()}
+        self._copied = torch.cuda.Event()
+
+    def fill(self, **values) -> None:
+        self._copied.synchronize()
+        for k, v in values.items():
+            self._host[k].numpy()[...] = v
+            self.buffers[k].copy_(self._host[k], non_blocking=True)
+        self._copied.record()
 
 
 class StepGraph:
@@ -55,54 +114,29 @@ class StepGraph:
         lanes = state.layers.count.shape[-1]
         self.tokens = torch.zeros(lanes, dtype=torch.int32, device=device)
         self.write_mask = torch.zeros(lanes, dtype=torch.bool, device=device)
-        self._host_tokens = torch.zeros(lanes, dtype=torch.int32,
-                                        pin_memory=True)
-        self._host_mask = torch.zeros(lanes, dtype=torch.bool,
-                                      pin_memory=True)
-        self._copied = torch.cuda.Event()
+        self._staging = Staging(tokens=self.tokens,
+                                write_mask=self.write_mask)
 
         def step():
             return model.decode_step(params, state, self.tokens,
                                      aqua_proj=aqua_proj,
                                      write_mask=self.write_mask)[0]
 
-        t0 = time.perf_counter()
+        # the warm-up's launches are not the path's: take them out too
         before = _build.LAUNCHES.copy()
         try:
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                step()
-            torch.cuda.current_stream(device).wait_stream(side)
-            torch.cuda.synchronize(device)
-            # torch.cuda.graph empties the allocator's cache as it enters:
-            # do so first, so what the capture reserves is its own pool
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(device)
-            warm = _build.LAUNCHES.copy()
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.logits = step()
-            torch.cuda.synchronize(device)
-            self.launches: Counter = _build.LAUNCHES - warm
+            (_, self.graph, self.logits, self.launches, self.pool_bytes,
+             self.capture_ms) = capture(step, device)
         finally:
             _build.LAUNCHES.clear()
             _build.LAUNCHES.update(before)
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        self.capture_ms = 1e3 * (time.perf_counter() - t0)
 
     def replay(self, tokens: np.ndarray, active: np.ndarray) -> torch.Tensor:
         """One decode step: ``tokens`` (B,) int32 and ``active`` (B,) bool
         (the write mask) from the host into the static buffers, then the
         graph. Returns the logits (B, V) float32, valid until the next
         replay."""
-        # the previous step's copies must have left the pinned buffers
-        self._copied.synchronize()
-        self._host_tokens.numpy()[:] = tokens
-        self._host_mask.numpy()[:] = active
-        self.tokens.copy_(self._host_tokens, non_blocking=True)
-        self.write_mask.copy_(self._host_mask, non_blocking=True)
-        self._copied.record()
+        self._staging.fill(tokens=tokens, write_mask=active)
         self.graph.replay()
         _build.LAUNCHES.update(self.launches)
         return self.logits

@@ -1066,3 +1066,67 @@ def test_safetensors_reader_round_trips_bf16_onto_the_card(cuda, tmp_path):
     for (pa, a), (pb, b) in zip(leaves(on_card), leaves(on_cpu)):
         assert pa == pb and a.device.type == "cuda"
         assert torch.equal(a.cpu(), b), pa
+
+
+# the prefill body each reduced drive's admission launches once per layer
+# (AQUA off: flash); the drives whose monolithic admissions replay graphs
+ADMIT_BODY = {"paged": "aqua_prefill", "contiguous": "aqua_prefill",
+              "flash_paged": "flash_attention", "int8_paged": "aqua_prefill",
+              "hier_paged": "aqua_prefill",
+              "hier_int8_paged": "aqua_prefill",
+              "aqua_memory_paged": "aqua_prefill"}
+
+
+@pytest.mark.parametrize("name", list(ADMIT_BODY))
+def test_admit_graph_replays_eager_admission_bitwise(cuda, name):
+    """The engine's captured admissions (bf16, the reduced drives of
+    ``tests/test_torch_step_graph.py``): after a serve has captured one
+    graph per bucket (four buckets of 8 tokens), eight admissions replayed
+    in orders other than the capture order, into other lanes and pages, give
+    the logits and state of the eager admission (``admission`` on a twin
+    of the state), bit for bit; each replay adds the capture's launches,
+    one prefill launch per layer. A second serve captures nothing new and
+    gives the first serve's tokens."""
+    import numpy as np
+    from repro_torch.serving.admit_graph import admission
+    from test_torch_step_graph import (assert_bitwise, bits, drive_engine,
+                                       state_tensors)
+    eng, reqs = drive_engine(name, device="cuda", dtype="bfloat16")
+    first = eng.run(reqs())
+    graphs = eng.admit_graphs
+    captured = list(graphs)                  # buckets in capture order
+    assert len(captured) == 4
+    body = ADMIT_BODY[name]
+    state = eng.last_state
+    twin = dataclasses.replace(state, layers=type(state.layers)(**{
+        k: t.clone() for k, t in state_tensors(state).items()}))
+    rng = np.random.default_rng(0)
+    npl = eng.pages_per_lane
+    for i, bucket in enumerate(captured[::-1] + captured[1:] + captured[:1]):
+        n = int(rng.integers(bucket - 7, bucket + 1))
+        prompt = rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32)
+        lane = i % eng.scfg.max_lanes
+        row = None
+        if eng.paged:
+            need = -(-bucket // eng.cache_spec.page_size)
+            row = np.full(npl, -1, np.int32)
+            row[:need] = rng.permutation(eng.pool_geometry[0])[:need]
+        graph = graphs[bucket]
+        before = LAUNCHES.copy()
+        got = graph.admit(prompt, lane, row).clone()
+        assert LAUNCHES - before == graph.launches \
+            == {body: eng.cfg.num_layers}
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :n] = prompt
+        want = admission(
+            eng.model, eng.params, twin, eng.proj, eng.scfg.max_seq,
+            torch.from_numpy(toks).cuda(),
+            torch.tensor([n], dtype=torch.int32, device="cuda"),
+            torch.tensor([lane], device="cuda"),
+            None if row is None else torch.from_numpy(row).cuda())
+        assert torch.equal(bits(got), bits(want)), (i, bucket)
+        assert_bitwise(state_tensors(state), state_tensors(twin))
+    second = eng.run(reqs())
+    assert eng.admit_graphs is graphs and len(graphs) == 4
+    assert {u: o.tokens for u, o in second.items()} == \
+        {u: o.tokens for u, o in first.items()}
