@@ -28,7 +28,9 @@ Phases, each of which raises (non-zero exit) on failure:
    variants with
    int8 pools and per-(page, head) scales, with the participating pages of
    hierarchical AQUA at page_keep_ratio 0.25, and with both; each of the
-   three also at the drives' contexts); prefill and
+   three also at the drives' contexts; the full-precision one also with
+   every lane's table mapping the same first 8 pages, prefix sharing's
+   tables, ``"form": "shared"``); prefill and
    flash attention B=1, S=2048, causal, and at the drives' longest prompt
    (B=1, S=1024, ``"form": "served"``: one wave of blocks, where
    per-block latency decides); flash at head_dim 80 (Danube's geometry)
@@ -64,7 +66,7 @@ Phases, each of which raises (non-zero exit) on failure:
    participating page swapped for a dropped one (participating pages); the
    prefill's window one key wider, and its band starting one 64-key tile
    late (the participating walk over each q-tile's band without its first
-   tile).
+   tile); lane 1's first page mapped back to its own page (shared form).
 4. Serve Qwen3-0.6B at its full published width and depth (random bf16
    weights from a seeded generator, projections calibrated on
    ``corpora/calibration.txt``) through the continuous-batching engine, in
@@ -82,12 +84,22 @@ Phases, each of which raises (non-zero exit) on failure:
    1024-slot budget, 512 recents; prompts 512/1000/1024/1536); and
    AQUA-Memory (s_ratio 0.3, block_dims 2: 90 of 128 dims kept, stored
    as 96; prompts 128/512/1024), whose KV bytes are reported against the
-   full-width pool. Window and H2O decode run the masked-dense core, as
+   full-width pool. And ``prefix_paged``: prefix sharing on (the other
+   paged drives turn it off), 8 requests whose prompts are one 512-token
+   prefix and a tail of 128/512/1024 tokens (640/1024/1536): 7
+   admissions must map the first prompt's 8 prefix pages and prefill
+   only their tails (3584 prefill tokens saved), its pool's peak pages
+   must stay below the same trace's served unshared (both reported), and
+   its trace served again (the fresh admission replays its graph) must
+   give the same tokens; the host ms of a shared (eager) and a fresh
+   admission are reported. Window and H2O decode run the masked-dense core, as
    in JAX. The peak device memory of these three drives is reported. The
    launch counters are zeroed just before each drive and read just after
    it: each drive must have launched its prefill kernel once per layer
-   per monolithic admission and per prefill chunk, its decode kernel once
-   per layer per decode step, and no other kernel. Each trace is also
+   per fresh monolithic admission and per prefill chunk (none for a
+   prefix-shared admission, whose tail runs the reference chunk step as
+   in JAX), its decode kernel once per layer per decode step, and no
+   other kernel. Each trace is also
    served by its reference (the kernels' plain versions, backend
    ``aqua-block-sparse-plain``; for AQUA off the ``dense`` backend): every
    admission's logits and those of the first decode steps (on lanes whose
@@ -120,11 +132,12 @@ Phases, each of which raises (non-zero exit) on failure:
    from a trace that holds every decode launch the drive counted (the
    replayed graph's kernels are traced one by one), else as not
    measured.
-5. Step graph: for the paged, int8, hierarchical int8, H2O and window
-   drives, the drive's prompts are admitted at once, the state is cloned,
-   and 16 decode steps with seeded tokens and write masks run through the
-   engine's step graph on one copy and eager ``model.decode_step`` on the
-   other: logits and every state tensor must be equal bit for bit. Two
+5. Step graph: for the paged, int8, hierarchical int8, H2O, window and
+   prefix-sharing drives, the drive's prompts are admitted at once, the
+   state is cloned, and 16 decode steps with seeded tokens and write
+   masks run through the engine's step graph on one copy and eager
+   ``model.decode_step`` on the other: logits and every state tensor must
+   be equal bit for bit. Two
    planted faults must break that equality: replays that skip the copy
    of the tokens (the graph reads the previous step's) and replays that
    skip the copy of the write mask. Device ms of a replay: 16 replays
@@ -146,7 +159,7 @@ Phases, each of which raises (non-zero exit) on failure:
    ``build/hf_qwen3_0_6b`` and deleted after the phase; bytes and seconds
    to write and load printed) is served by ``repro_torch.launch.serve.main``
    in-process: ``--calibration-corpus corpora/calibration.txt --k-ratio
-   0.75 --block-dims 8 --page-size 64 --no-prefix-share --lanes 8
+   0.75 --block-dims 8 --page-size 64 --lanes 8
    --requests 8 --prompt-lens 128,512,1024 --steps 32 --max-seq 2048
    --verify`` (greedy tokens identical to the contiguous reference engine,
    the pool-bytes check; the launcher prints its own lines). Its params and
@@ -173,9 +186,17 @@ Phases, each of which raises (non-zero exit) on failure:
    the run launches, exactly, flash once per layer per admission of its
    drive and of its reference drive and per calibration batch, nothing
    else; its logits against a plain drive are reported, not held (per-dim
-   selection parts the drives at near-tied dim ranks). The launcher's
-   engine's step graph against eager ``decode_step``, bit for bit, with
-   its device ms per replay (phase 5's check, in float32).
+   selection parts the drives at near-tied dim ranks). The launcher a
+   third time, the first call's flags without ``--block-dims 8`` (so at
+   its default 1) and with ``--shared-prefix-len 512`` (prompts of
+   640/1024/1536 tokens): ``--verify`` (tokens identical to the
+   contiguous reference, and its prefix gate), 7 admissions reusing the
+   shared prefix, and exactly flash once per layer per fresh admission of
+   its drive (one) and per admission of its reference drive and per
+   calibration batch. (The first two calls' random prompts share no
+   page: prefix sharing, on by default, changes nothing there.) The
+   launcher's engine's step graph against eager ``decode_step``, bit for
+   bit, with its device ms per replay (phase 5's check, in float32).
    The float32 routes at the drives' shapes (decode B=8 over a
    2048-token table, lengths 128-1056, paged and contiguous, both on the
    float32 group route; prefill and flash B=1, S=1024)
@@ -451,12 +472,17 @@ def swapped_group_heads(block_idx):
 
 def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
                  s: int = 4096, len_range: tuple = (2048, 4096),
-                 form: str = None, dtype: str = "bfloat16") -> dict:
+                 form: str = None, dtype: str = "bfloat16",
+                 shared_pages: int = 0) -> dict:
     """The decode (contiguous or paged, 64-token pages) at B=8 over a
     table of ``s`` positions, lengths uniform in ``len_range``; the served
     form (``form="served"``) takes the drives' contexts. bf16 takes the
     group route; float32 (``dtype``, the served checkpoint's) the float32
-    group route (``group_f32``)."""
+    group route (``group_f32``). ``shared_pages`` > 0 (paged): every
+    lane's table maps lane 0's first ``shared_pages`` physical pages, as
+    prefix sharing maps a shared prompt prefix, with one more planted
+    fault, lane 1's first page mapped back to its own (unshared) page; the
+    bound then counts the shared rows once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import aqua
@@ -485,8 +511,10 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
         v_pool = torch.empty_like(k_pool)
         k_pool[table.long()] = k.reshape(b, kvh, npl, ps, d).transpose(1, 2)
         v_pool[table.long()] = v.reshape(b, kvh, npl, ps, d).transpose(1, 2)
+        own = table.clone()
+        table[:, :shared_pages] = table[0, :shared_pages]
 
-        def kernel(block_idx=block_idx, lengths=lengths):
+        def kernel(block_idx=block_idx, lengths=lengths, table=table):
             return dk.aqua_paged_decode_attention(
                 q, k_pool, v_pool, block_idx, table, lengths,
                 block_dims=BLOCK_DIMS, scale=scale)
@@ -505,11 +533,15 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
             return dk.aqua_decode_plain(q, k, v, block_idx, lengths, None,
                                         block_dims=BLOCK_DIMS, scale=scale)
 
-    check = check_kernel(kernel(), plain(), {
-        "dropped_split": kernel(lengths=cut),
-        "shifted_block": kernel(block_idx=shifted(block_idx, nb)),
-        "swapped_group_heads": kernel(
-            block_idx=swapped_group_heads(block_idx))})
+    faults = {"dropped_split": kernel(lengths=cut),
+              "shifted_block": kernel(block_idx=shifted(block_idx, nb)),
+              "swapped_group_heads": kernel(
+                  block_idx=swapped_group_heads(block_idx))}
+    if shared_pages:
+        unshared = table.clone()
+        unshared[1, 0] = own[1, 0]
+        faults["lane_1_first_page_unshared"] = kernel(table=unshared)
+    check = check_kernel(kernel(), plain(), faults)
     # yardstick: one library call on the equivalent masked-q̂ dense problem
     sel = torch.zeros(b, h, d // BLOCK_DIMS, device=dev)
     sel.scatter_(-1, block_idx.long(), 1.0)
@@ -524,10 +556,17 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
     # bytes this run needs: per (lane, kv head) the union of the dim-blocks
     # its G heads selected, over the valid rows, plus the valid V rows
     g = h // kvh
-    union = sel.reshape(b, kvh, g, -1).amax(dim=2).sum(dim=-1)   # (B, KV)
+    per_lane = sel.reshape(b, kvh, g, -1).amax(dim=2)        # (B, KV, NB)
+    union = per_lane.sum(dim=-1)                              # (B, KV)
     lens = lengths.double()
+    # shared pages' rows are one set of rows, read once for the union of
+    # every lane's selections; each lane reads its private rows
+    shared_rows = lens.clamp(max=shared_pages * ps)
     el = q.element_size()
-    nbytes = el * float((lens[:, None] * (union * BLOCK_DIMS + d)).sum())
+    nbytes = el * float(((lens - shared_rows)[:, None]
+                         * (union * BLOCK_DIMS + d)).sum())
+    nbytes += el * float(shared_rows.max()) * float(
+        (per_lane.amax(dim=0).sum(dim=-1) * BLOCK_DIMS + d).sum())
     nbytes += el * (q.numel() + b * h * d) + 4 * (block_idx.numel() + b)
     ops = 2 * float(lens.sum()) * h * (nsel + d)
     bms, by = bound(nbytes, ops, BF16_OPS_PER_S if el == 2
@@ -540,7 +579,8 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
                                       nsel=nsel),
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d,
                            page_size=ps if paged else None,
-                           lengths=list(len_range)),
+                           lengths=list(len_range),
+                           shared_pages=shared_pages),
                 **check, **times, bound_ms=bms, bound_by=by,
                 **byte_rate(nbytes, times["ms"]))
 
@@ -1496,6 +1536,8 @@ def admit_graph_phase(path: str, eng) -> dict:
 
 
 TRACED_DRIVE_FLAG = "--traced-drive"
+#: the common prompt prefix (tokens) of the drives that share one
+SHARED_PREFIX = {"prefix_paged": 512}
 
 
 def paged_serving():
@@ -1506,11 +1548,20 @@ def paged_serving():
                          cache=CacheSpec(page_size=64, prefix_sharing=False))
 
 
-def drive_trace(n: int, vocab: int, prompts=(128, 512, 1024)):
-    """The drives' Poisson trace: ``n`` requests, 32 new tokens each."""
+def drive_trace(n: int, vocab: int, prompts=(128, 512, 1024),
+                shared_prefix: int = 0):
+    """The drives' Poisson trace: ``n`` requests, 32 new tokens each; with
+    ``shared_prefix``, every prompt behind one random prefix of that many
+    tokens (drawn as the launcher's ``--shared-prefix-len`` draws it)."""
+    import numpy as np
     from repro_torch.serving import poisson_trace
-    return poisson_trace(n, mean_interarrival=4.0, prompt_lens=prompts,
+    reqs = poisson_trace(n, mean_interarrival=4.0, prompt_lens=prompts,
                          max_new_tokens=32, vocab_size=vocab, seed=0)
+    pre = np.random.default_rng(1).integers(0, vocab, size=(shared_prefix,),
+                                            dtype=np.int32)
+    for r in reqs:
+        r.tokens = np.concatenate([pre, np.asarray(r.tokens, np.int32)])
+    return reqs
 
 
 def traced_drive_child(out_path: str) -> int:
@@ -1630,9 +1681,12 @@ def serve_phase(card: str, prof: dict) -> dict:
     setup_s = time.perf_counter() - t0
     log_time("serve set-up (weights, calibration)")
 
-    def trace(n, prompts=(128, 512, 1024), vocab=cfg.vocab_size):
-        return drive_trace(n, vocab, prompts)
+    def trace(n, prompts=(128, 512, 1024), vocab=cfg.vocab_size,
+              shared_prefix=0):
+        return drive_trace(n, vocab, prompts, shared_prefix)
     paged = paged_serving()
+    # prefix sharing on (CacheSpec's default, as in JAX)
+    prefix = dataclasses.replace(paged, cache=CacheSpec(page_size=64))
     int8 = QuantSpec(kv_dtype="int8")
     hier = SparsitySpec(page_keep_ratio=0.25)
     aqua_off = dataclasses.replace(cfg, aqua=None)
@@ -1681,9 +1735,12 @@ def serve_phase(card: str, prof: dict) -> dict:
         ("h2o_paged", h2o_cfg, dataclasses.replace(paged, max_lanes=4), 4,
          h2o_prompts, "aqua-block-sparse-plain", "aqua_prefill", None),
         ("aqua_memory_paged", memory_cfg, paged, 4, None,
-         "aqua-block-sparse-plain", "aqua_prefill", "aqua_paged_decode"))
+         "aqua-block-sparse-plain", "aqua_prefill", "aqua_paged_decode"),
+        ("prefix_paged", cfg, prefix, 8, None, "aqua-block-sparse-plain",
+         "aqua_prefill", "aqua_paged_decode"))
 
-    def drive(mcfg, serving, n, prompts, backend=None) -> dict:
+    def drive(mcfg, serving, n, prompts, backend=None,
+              shared_prefix=0) -> dict:
         """One drive with the counters zeroed just before it and read just
         after it, and the peak device memory over it: the card's, and
         above what was allocated when it started (the weights)."""
@@ -1691,8 +1748,8 @@ def serve_phase(card: str, prof: dict) -> dict:
         eng = ContinuousBatchingEngine(
             mcfg, mparams, None if mcfg.aqua is None else mproj,
             serving=serving, backend=backend)
-        reqs = (trace(n, vocab=mcfg.vocab_size) if prompts is None
-                else trace(n, prompts, mcfg.vocab_size))
+        reqs = trace(n, (128, 512, 1024) if prompts is None else prompts,
+                     mcfg.vocab_size, shared_prefix)
         evicting = eng.eviction != "none"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1706,6 +1763,10 @@ def serve_phase(card: str, prof: dict) -> dict:
         run["graphs"] = eng.graph_accounting()
         run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         run["drive_peak_memory_bytes"] = run["peak_memory_bytes"] - start
+        pool = eng.page_pool
+        run["prefix_hits"] = 0 if pool is None else pool.prefix_hits
+        run["tokens_saved"] = 0 if pool is None else pool.tokens_saved
+        run["peak_pages_in_use"] = None if pool is None else pool.peak_in_use
         assert len(run["tokens"]) == n, len(run["tokens"])
         for toks in run["tokens"].values():
             assert len(toks) == 32, len(toks)
@@ -1721,10 +1782,13 @@ def serve_phase(card: str, prof: dict) -> dict:
     runs = {}
     for (path, mcfg, serving, n, prompts, ref_backend, admit_kernel,
          step_kernel) in drives:
-        ref = drive(mcfg, serving, n, prompts, backend=ref_backend)
+        shared = SHARED_PREFIX.get(path, 0)
+        ref = drive(mcfg, serving, n, prompts, backend=ref_backend,
+                    shared_prefix=shared)
         assert sum(ref["launches"].values()) == 0, (path, ref["launches"])
         del ref["engine"]             # its cache is freed before the next
-        run = drive(mcfg, serving, n, prompts)
+        run = drive(mcfg, serving, n, prompts, shared_prefix=shared)
+        assert run["prefix_hits"] == ref["prefix_hits"], path
         run["reference_drive_peak_memory_bytes"] = ref[
             "drive_peak_memory_bytes"]
         run["reference_decode_step_ms"] = ref["decode_step_ms"]
@@ -1734,10 +1798,13 @@ def serve_phase(card: str, prof: dict) -> dict:
             assert run["prefill_chunks"] > n, run["prefill_chunks"]
         want = dict.fromkeys(KERNELS, 0)
         layers = mcfg.num_layers
-        # once per layer per monolithic admission and per prefill chunk
+        # once per layer per fresh monolithic admission and per prefill
+        # chunk (a prefix-shared admission's tail runs the reference chunk
+        # step, as in JAX)
         want[admit_kernel] = layers * (run["admissions"]
                                        - run["chunked_admissions"]
-                                       + run["prefill_chunks"])
+                                       + run["prefill_chunks"]
+                                       - run["prefix_hits"])
         if step_kernel is not None:
             want[step_kernel] = layers * run["decode_steps"]
         assert run["launches"] == want, (path, run["launches"], want)
@@ -1753,6 +1820,44 @@ def serve_phase(card: str, prof: dict) -> dict:
         run["cache_bytes"] = eng.cache_bytes()
         runs[path] = run
         log_time(f"drive {path} and its reference")
+    # prefix sharing: every admission after the first maps the first
+    # prompt's 8 prefix pages (it holds them while it decodes) and
+    # prefills only its tail; against the same trace unshared, the pool's
+    # peak; a second serve, where the fresh admission replays its graph
+    pre = runs["prefix_paged"]
+    plen = SHARED_PREFIX["prefix_paged"]
+    assert (pre["prefix_hits"], pre["tokens_saved"]) == (7, 7 * plen), pre
+    unshared = drive(cfg, paged, 8, None, shared_prefix=plen)
+    pre["unshared_peak_pages_in_use"] = unshared["peak_pages_in_use"]
+    del unshared
+    assert pre["peak_pages_in_use"] < pre["unshared_peak_pages_in_use"], pre
+    eng = pre["engine"]
+
+    def admit_ms(st) -> dict:
+        hits = eng.page_pool.prefix_hits
+        return dict(shared=1e3 * st.shared_admit_seconds / hits,
+                    fresh=1e3 * (st.admit_seconds - st.shared_admit_seconds)
+                    / (st.admissions - hits))
+    pre["admit_ms_by_kind"] = admit_ms(eng.stats)
+    reset_counts()
+    again = serve_drive(eng, trace(8, shared_prefix=plen))
+    assert again["tokens"] == pre["tokens"], "second serve changed tokens"
+    assert eng.page_pool.prefix_hits == 7
+    want = dict.fromkeys(KERNELS, 0)
+    want["aqua_prefill"] = cfg.num_layers * (again["admissions"] - 7)
+    want["aqua_paged_decode"] = cfg.num_layers * again["decode_steps"]
+    assert launch_counts() == want, (launch_counts(), want)
+    pre["second_serve"] = dict(
+        admit_ms_by_kind=admit_ms(eng.stats), **{
+            k: v for k, v in again.items()
+            if k not in ("tokens", "admit_logits", "step_logits")})
+    log(f"[serve prefix_paged] prefix hits {pre['prefix_hits']}, prefill "
+        f"tokens saved {pre['tokens_saved']}, peak pages in use "
+        f"{pre['peak_pages_in_use']} (unshared: "
+        f"{pre['unshared_peak_pages_in_use']}); admission host ms, shared "
+        f"(eager) / fresh: first serve {pre['admit_ms_by_kind']}, second "
+        f"serve {pre['second_serve']['admit_ms_by_kind']} on {card}")
+    log_time("drive prefix_paged unshared and served again")
     # the chunked trace served monolithically with the kernels: tokens and
     # inter-token gaps beside the chunked drive's (reported, not limited),
     # the gaps from each engine's second serve of the trace (its graphs
@@ -1820,11 +1925,11 @@ def serve_phase(card: str, prof: dict) -> dict:
     for path, n, prompts in (("paged", 8, None), ("int8_paged", 4, None),
                              ("hier_int8_paged", 4, long_prompts),
                              ("h2o_paged", 4, h2o_prompts),
-                             ("swa_paged", 4, swa_prompts)):
+                             ("swa_paged", 4, swa_prompts),
+                             ("prefix_paged", 8, None)):
         eng = runs[path]["engine"]
-        vocab = eng.cfg.vocab_size
-        reqs = (trace(n, vocab=vocab) if prompts is None
-                else trace(n, prompts, vocab))
+        reqs = trace(n, (128, 512, 1024) if prompts is None else prompts,
+                     eng.cfg.vocab_size, SHARED_PREFIX.get(path, 0))
         graph_checks[path] = step_graph_phase(path, eng, reqs)
         log({"step_graph": graph_checks[path]})
         log_time(f"step graph {path}")
@@ -1952,7 +2057,7 @@ def hf_serve_phase(card: str, gen) -> dict:
         argv = ["--hf-checkpoint", HF_DIR, "--calibration-corpus",
                 os.path.join(ROOT, "corpora", "calibration.txt"),
                 "--k-ratio", str(K_RATIO), "--block-dims", str(BLOCK_DIMS),
-                "--page-size", "64", "--no-prefix-share", "--lanes", "8",
+                "--page-size", "64", "--lanes", "8",
                 "--requests", "8", "--prompt-lens", "128,512,1024",
                 "--steps", "32", "--max-seq", "2048", "--verify"]
         log("[hf_serve] python -m repro_torch.launch.serve " + " ".join(argv))
@@ -1970,6 +2075,19 @@ def hf_serve_phase(card: str, gen) -> dict:
         run1 = launcher.main(argv1)
         per_dim_launches = launch_counts()
         log_time("hf_serve launcher at block_dims 1 with --verify")
+        # prefix sharing through the launcher: every prompt behind one
+        # 512-token prefix, at the default block_dims 1; --verify holds the
+        # tokens to the contiguous reference and fails if nothing was
+        # shared
+        cut = argv.index("--block-dims")
+        argv_pre = argv[:cut] + argv[cut + 2:] + [
+            "--shared-prefix-len", str(SHARED_PREFIX["prefix_paged"])]
+        log("[hf_serve] python -m repro_torch.launch.serve "
+            + " ".join(argv_pre))
+        reset_counts()
+        run_pre = launcher.main(argv_pre)
+        prefix_launches = launch_counts()
+        log_time("hf_serve launcher with a shared prefix and --verify")
     finally:
         shutil.rmtree(HF_DIR, ignore_errors=True)
     eng = run.engine
@@ -2005,6 +2123,34 @@ def hf_serve_phase(card: str, gen) -> dict:
         f"admissions {per_dim_vs_ref['admit_worst_err_over_limit']}, decode "
         f"steps {per_dim_vs_ref['decode_worst_err_over_limit']}")
     del run1, ref1_eng
+    pool = run_pre.engine.page_pool
+    assert run_pre.engine.cfg.aqua.block_dims == 1
+    assert (pool.prefix_hits, pool.tokens_saved) == (
+        7, 7 * SHARED_PREFIX["prefix_paged"]), (pool.prefix_hits,
+                                                pool.tokens_saved)
+    assert len(run_pre.streamed) == 8 \
+        and run_pre.stats.tokens_emitted == 8 * 32
+    # flash once per layer per fresh admission (one), per admission of the
+    # contiguous reference and per calibration batch; shared tails run
+    # the reference chunk step and decode the masked-dense core
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = layers * (
+        run_pre.stats.admissions - pool.prefix_hits
+        + run_pre.reference_stats.admissions + launcher.CALIBRATION_BATCHES)
+    assert prefix_launches == want, (prefix_launches, want)
+    st_pre = run_pre.stats
+    shared_prefix = dict(
+        prefix_hits=pool.prefix_hits, tokens_saved=pool.tokens_saved,
+        peak_pages_in_use=pool.peak_in_use, wall_s=run_pre.seconds,
+        tokens_per_s=st_pre.tokens_emitted / run_pre.seconds,
+        admit_ms_shared=1e3 * st_pre.shared_admit_seconds / pool.prefix_hits,
+        admit_ms_fresh=1e3 * (st_pre.admit_seconds
+                              - st_pre.shared_admit_seconds)
+        / (st_pre.admissions - pool.prefix_hits),
+        itl_p99_ms=1e3 * st_pre.itl_percentile(99),
+        launches_with_verify=prefix_launches)
+    log(f"[hf_serve] shared prefix: {shared_prefix} on {card}")
+    del run_pre
     gc.collect()
     torch.cuda.empty_cache()
     assert mcfg.dtype == mcfg.param_dtype == "float32", mcfg
@@ -2114,6 +2260,7 @@ def hf_serve_phase(card: str, gen) -> dict:
                       max_itl_ms=1e3 * st.max_itl,
                       launches_with_verify=main_launches),
         launcher_block_dims_1=per_dim,
+        launcher_shared_prefix=shared_prefix,
         second_serve={k: v for k, v in again.items()
                       if k not in ("tokens", "admit_logits", "step_logits")},
         launches=launches, cache_bytes=eng.cache_bytes(),
@@ -2228,6 +2375,13 @@ def main() -> int:
         # the drives' contexts: 128-1056 tokens in a 2048-token table
         phases.append(decode_phase(geom, h, kvh, True, gen, s=2048,
                                    len_range=(128, 1056), form="served"))
+        if geom == "qwen3-0.6b":
+            # prefix sharing's tables: every lane maps the same first 8
+            # pages (the prefix_paged drive's 512-token prefix)
+            phases.append(decode_phase(
+                geom, h, kvh, True, gen, s=2048, len_range=(640, 1056),
+                form="shared", shared_pages=SHARED_PREFIX["prefix_paged"]
+                // 64))
         for quant, part in ((True, False), (False, True), (True, True)):
             phases.append(paged_variant_phase(geom, h, kvh, quant, part, gen))
         # the group route's variants at the drives' contexts

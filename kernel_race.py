@@ -116,8 +116,8 @@ def host_us(gen) -> dict:
 def f32_step_graph(cs) -> dict:
     """The float32 serving decode step through ``cs.step_graph_phase``:
     Qwen3-0.6B at full width and depth with float32 weights, the engine
-    the HF launcher builds (8 lanes, max_seq 2048, 64-token pages, no
-    prefix sharing), prompts 128/512/1024."""
+    the HF launcher builds (8 lanes, max_seq 2048, 64-token pages; prefix
+    sharing off, as these prompts share no page), prompts 128/512/1024."""
     from repro_torch.configs import CacheSpec, ServingConfig
     from repro_torch.serving import ContinuousBatchingEngine, poisson_trace
     cfg, params, proj = cs.load_model("qwen3-0.6b", 0, dtype="float32")

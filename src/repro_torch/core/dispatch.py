@@ -92,12 +92,14 @@ class DispatchPlan:
         return self.cache_layout == CACHE_PAGED
 
 
-def resolve_dispatch_plan(*, attention, aqua, serving,
-                          mesh) -> DispatchPlan:
+def resolve_dispatch_plan(*, attention, aqua, serving, mesh,
+                          prefix_sharing: bool = False) -> DispatchPlan:
     """Resolve the plan for a model's ``attention``/``aqua`` configs and a
     ``ServingConfig``, with the JAX package's rules for ``mesh=None``.
-    The port serves the dense family, without a frontend or prefix
-    sharing, so the plan is the JAX package's for those defaults."""
+    ``prefix_sharing`` is the engine's effective decision (the config's,
+    folded with the slot policy), recorded as it is, as in JAX. The port
+    serves the dense family without a frontend, so the plan is the JAX
+    package's for those defaults."""
     from repro_torch.configs.base import (resolve_cache_specs,
                                           resolve_sparsity_spec)
     from repro_torch.core.attention import resolve_backend
@@ -166,7 +168,7 @@ def resolve_dispatch_plan(*, attention, aqua, serving,
     return DispatchPlan(
         backend=backend_name,
         cache_layout=CACHE_PAGED if paged else CACHE_CONTIGUOUS,
-        mesh_native=False, prefix_sharing=False,
+        mesh_native=False, prefix_sharing=prefix_sharing,
         reasons=tuple(reasons), chunked_prefill=not chunked_reasons,
         chunked_reasons=tuple(chunked_reasons),
         quantization=quant_spec.mode,

@@ -47,7 +47,8 @@ pages, repeats a writing row's page requantization too. So one decode step
 can be captured in a CUDA graph (``serving/step_graph.py``), and a step
 that no row writes leaves the cache as it was, bit for bit. The lane
 surgery (``paged_graft``, ``paged_write_tail``, ``paged_reset_lane``,
-``install_table_row``) takes ``lane`` as a Python int or a device tensor
+``install_table_row``, and ``paged_copy_page``, prefix sharing's
+copy-on-write) takes its lane or page as a Python int or a device tensor
 and reads nothing on the host either, by the same stand-in addressing:
 an admission is captured too (``serving/admit_graph.py``).
 :func:`reset_cache` empties a cache in place, keeping its tensors.
@@ -586,10 +587,10 @@ def paged_accumulate_h2o(cache: PagedAttnCache, attn_weights: torch.Tensor,
 
 
 def lane_index(lane, device) -> torch.Tensor:
-    """``lane`` as a (1,) int64 tensor on ``device``: a Python int is
-    filled in on the device (no host-to-device copy), a 0-d or 1-element
-    int tensor (an admission graph's lane buffer) is reshaped, never
-    read on the host."""
+    """``lane`` (or a page id) as a (1,) int64 tensor on ``device``: a
+    Python int is filled in on the device (no host-to-device copy), a 0-d
+    or 1-element int tensor (an admission graph's lane buffer) is
+    reshaped, never read on the host."""
     if isinstance(lane, torch.Tensor):
         return lane.reshape(1).long()
     return torch.full((1,), int(lane), dtype=torch.int64, device=device)
@@ -739,6 +740,27 @@ def paged_reset_lane(cache: PagedAttnCache, lane) -> PagedAttnCache:
     _clear_pages(cache, _lane_table(cache, lane))
     cache.page_table.index_fill_(0, lane, -1)
     cache.count.index_fill_(0, lane, 0)
+    return cache
+
+
+def paged_copy_page(cache: PagedAttnCache, src, dst) -> PagedAttnCache:
+    """The device half of the host allocator's copy-on-write
+    (``PagePool.make_private``): copy physical page ``src`` into the newly
+    reserved ``dst``, in place, in every layer of a stacked cache. K/V,
+    positions, H2O scores and, for int8 pools, the page scales go
+    together, so the copy dequantizes bit for bit as the original does.
+    ``src`` and ``dst`` are Python ints or device tensors; nothing is read
+    on the host."""
+    dev = cache.count.device
+    src, dst = lane_index(src, dev), lane_index(dst, dev)
+    # each pool's page axis, counted from its end
+    pools = [(cache.k_pool, 4), (cache.v_pool, 4), (cache.pos_pool, 2),
+             (cache.acc_pool, 3)]
+    if cache.quantized:
+        pools += [(cache.k_scale, 2), (cache.v_scale, 2)]
+    for t, tail in pools:
+        axis = t.ndim - tail
+        t.index_copy_(axis, dst, t.index_select(axis, src))
     return cache
 
 

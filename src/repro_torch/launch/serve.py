@@ -9,16 +9,16 @@ occupancy and inter-token gaps; ``--rectangular`` runs the fixed-batch
 (``checkpoint/hf.py``: float32 params and activations, as in JAX).
 ``--verify`` re-serves the trace on a reference engine and requires
 token-identical outputs, plus the JAX launcher's pool-bytes, int8-pool,
-page-ranking and chunked-gap checks; a failed check prints ``[serve]
-VERIFY FAILED: ...`` and raises ``SystemExit(1)``.
+page-ranking, prefix-sharing and chunked-gap checks; a failed check
+prints ``[serve] VERIFY FAILED: ...`` and raises ``SystemExit(1)``.
+Paged drives share page-aligned prompt prefixes unless
+``--no-prefix-share`` (``--shared-prefix-len`` gives every prompt one).
 
 Runs on the CUDA card (``--device cuda``, the default; exits non-zero
 without one) or, when asked, on the CPU (``--device cpu``: the kernels'
 plain versions). What the engine does not serve yet is refused with its
-own message: meshes (``--mesh``, ``--expect-kernel-mesh``), prefix
-sharing (on by default, as in JAX: a paged drive needs
-``--no-prefix-share``, so ``--shared-prefix-len`` has nothing to share
-yet), ``--hot-frac`` > 0, and int8 pools under a window or H2O.
+own message: meshes (``--mesh``, ``--expect-kernel-mesh``), ``--hot-frac``
+> 0, and int8 pools under a window or H2O.
 
 CLI::
 
@@ -27,7 +27,7 @@ CLI::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --hf-checkpoint DIR \\
         --calibration-corpus corpora/calibration.txt --block-dims 8 \\
-        --page-size 64 --no-prefix-share --max-seq 2048 --verify
+        --page-size 64 --max-seq 2048 --verify
 
 ``main(argv)`` returns a :class:`ServeRun` (the engine, the streamed
 tokens and the stats), so scripts and tests can call it in-process.
@@ -137,14 +137,12 @@ def build_parser() -> argparse.ArgumentParser:
     # block-paged KV cache
     ap.add_argument("--page-size", type=int, default=None,
                     help="tokens per KV-cache page: a global page pool + "
-                         "per-lane page tables (None = contiguous); needs "
-                         "--no-prefix-share (prefix sharing is not ported)")
+                         "per-lane page tables (None = contiguous)")
     ap.add_argument("--pool-pages", type=int, default=None,
                     help="page-pool size; default = lane-stripe parity "
                          "(lanes * slots / page_size)")
     ap.add_argument("--no-prefix-share", action="store_true",
-                    help="disable prompt prefix page sharing (required "
-                         "for a paged drive: sharing is not ported yet)")
+                    help="disable prompt prefix page sharing")
     ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8"),
                     help="paged K̂/V pool storage dtype: 'int8' stores "
                          "per-page symmetric-quantized pools with f32 "
@@ -174,8 +172,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "this wall-clock threshold (SLO miss rate)")
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="prepend a fixed random prefix of this length to "
-                         "every trace prompt (nothing is shared yet: "
-                         "prefix sharing is not ported)")
+                         "every trace prompt (what prefix sharing shares)")
     ap.add_argument("--mesh", default="",
                     help="serving mesh 'DATAxMODEL' (not ported: anything "
                          "but ''/1x1 is refused)")
@@ -376,14 +373,19 @@ def _report_pool(eng, cfg: ModelConfig, args, dev) -> None:
           f"(lane-stripe parity {per_lane * args.lanes}), "
           f"peak {pool.peak_in_use} in use, "
           f"mean utilization {pool.mean_utilization:.2f}")
-    print("[serve] prefix sharing: off (not ported), 0 admissions reused a "
-          "shared prefix, 0 prefill tokens saved")
+    print(f"[serve] prefix sharing: {pool.prefix_hits} admissions reused a "
+          f"shared prefix, {pool.tokens_saved} prefill tokens saved")
     print(f"[serve] pool bytes vs lane-stripe bytes: "
           f"{eng.cache_bytes():,} / {stripe_bytes:,} = {ratio:.2f}x")
     if args.verify and num_pages < per_lane * args.lanes \
             and eng.cache_bytes() >= stripe_bytes:
         _fail("paged pool is smaller than lane-stripe parity but does not "
               "report fewer cache bytes")
+    if (args.verify and args.shared_prefix_len > 0
+            and not args.no_prefix_share and args.requests >= 2
+            and pool.prefix_hits < 1):
+        _fail(f"every prompt carries the same {args.shared_prefix_len}-token "
+              "prefix but no admission reused shared prefix pages")
     if eng.kept_pages is not None:
         kp = eng.kept_pages
         print(f"[serve] hierarchical: {kp}/{per_lane} pages per lane "
@@ -434,8 +436,11 @@ def _verify_tokens(eng, cfg, params, proj, scfg, plan, reqs, streamed, args,
     int8 pools and hierarchical drives (whose rounding or page dropping is
     part of the result), the paged engine with the same specs; always
     admitting monolithically, so a chunked drive is pinned to the engine
-    it replaces. Temperature > 0: each request re-served alone on a fresh
-    engine of the same specs (placement independence). Then, for a chunked
+    it replaces. A prefix-shared drive goes to the paged engine only
+    where the plan is mesh-native, as in JAX: never here, so its
+    reference is the contiguous engine, which prefills whole prompts.
+    Temperature > 0: each request re-served alone on a fresh engine of
+    the same specs (placement independence). Then, for a chunked
     greedy drive, the warm max inter-token gap check. Returns the
     greedy reference engine's stats after its first drive (None when
     sampling)."""

@@ -209,7 +209,7 @@ class DenseLM(LM):
                            lane, num_slots)
         return state
 
-    # -- chunked prefill --------------------------------------------------
+    # -- chunked prefill and prefix-shared admission ---------------------
     def prefill_chunk(self, params, batch, state: DecodeState, lane: int,
                       prefix_len: int, aqua_proj=None,
                       select_q_blk: Optional[int] = None,
@@ -225,7 +225,14 @@ class DenseLM(LM):
         reads its prefix before it writes. ``select_q_blk`` selects AQUA
         dim-blocks per kernel q-tile (``attention.chunk_attention``).
         Returns (next-token logits (1, V) from the chunk's last valid row
-        — None with ``logits=False``, for a non-final chunk —, state)."""
+        — None with ``logits=False``, for a non-final chunk —, state).
+
+        The same step is a prefix-shared admission
+        (``prefill_with_prefix``, as the JAX package names it): there
+        ``prefix_len`` pages' worth of slots are another prompt's
+        read-only pages that the lane's row maps, the batch is the
+        prompt's tail, and the engine passes ``select_q_blk=None``
+        (per-query selection)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         lengths = batch.get("lengths")
@@ -264,9 +271,17 @@ class DenseLM(LM):
                                    prefix_len, tail_count)
         if not logits:
             return None, state
-        last = t - 1 if lengths is None else torch.clamp(
-            lengths.long() - 1, 0, t - 1)[0]
-        return self._unembed(params, x[:, last]), state
+        if lengths is None:
+            return self._unembed(params, x[:, t - 1]), state
+        # the last valid row, gathered on the device (indexing by a 0-d
+        # tensor would read it on the host)
+        last = torch.clamp(lengths.long() - 1, 0, t - 1)
+        return self._unembed(params, x.index_select(1, last)[:, 0]), state
+
+    # a prefix-shared admission extends the lane's cache from its shared
+    # prefix exactly as a chunk extends it from earlier chunks (JAX aliases
+    # the two the other way round)
+    prefill_with_prefix = prefill_chunk
 
     def reset_lane(self, state: DecodeState, lane: int,
                    max_seq: int) -> DecodeState:

@@ -62,9 +62,20 @@ package). Temperature sampling draws Gumbel noise from a
 ``torch.Generator`` seeded per (serve, request uid, token index), so it is
 independent of lane placement but not the JAX package's random stream.
 
-Not ported yet (the engine raises ``NotImplementedError``): prefix
-sharing, meshes, int8 pools under a window or H2O, and mixed-precision
-hot residents (``QuantSpec.hot_resident_fraction`` > 0).
+Prefix sharing (``CacheSpec.prefix_sharing``, on by default as in JAX;
+paged, full-cache policy): prompts that share page-aligned leading pages
+map the same physical pages (``PagePool``: refcounts and a chain-hash
+index). An admission whose prompt's leading full pages are indexed maps
+them read-only, keeping at least one tail token, and prefills only the
+tail against them (``DenseLM.prefill_with_prefix``, per-query dim
+selection as in JAX's ``_admit_prefix``), eagerly on the card too;
+a fresh admission replays its bucket's graph. Both then index the
+prompt's full pages (a chunked admission after its final chunk). Decode
+writes only private pages: a shared page is always a full prompt page.
+
+Not ported yet (the engine raises ``NotImplementedError``): meshes, int8
+pools under a window or H2O, and mixed-precision hot residents
+(``QuantSpec.hot_resident_fraction`` > 0).
 """
 from __future__ import annotations
 
@@ -270,16 +281,20 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "mixed-precision hot residents (QuantSpec."
                 "hot_resident_fraction > 0) are not ported yet")
-        if cache.paged and cache.prefix_sharing:
-            raise NotImplementedError(
-                "prefix sharing is not ported yet: pass "
-                "CacheSpec(page_size=..., prefix_sharing=False)")
         self.cfg = cfg
         self.scfg = serving
         self.cache_spec = cache
+        # ragged bucketed prefill needs the full-cache policy (window
+        # rings and H2O eviction place slots assuming a rectangular batch)
+        self._supports_ragged = self.eviction == "none"
+        # prefix sharing: shared pages are read-only, so the full-cache
+        # policy only (H2O statistics and ring overwrites would write them)
+        self._prefix_ok = (cache.paged and cache.prefix_sharing
+                           and self._supports_ragged)
         self._plan = resolve_dispatch_plan(attention=cfg.attention,
                                            aqua=cfg.aqua, serving=serving,
-                                           mesh=None)
+                                           mesh=None,
+                                           prefix_sharing=self._prefix_ok)
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)
         # once, at load: the float32 unembedding (the step graph holds its
@@ -301,9 +316,6 @@ class ContinuousBatchingEngine:
         self.page_pool: Optional[PagePool] = None
         self.last_state = None
         self.step_graph: Optional[StepGraph] = None
-        # ragged bucketed prefill needs the full-cache policy (window
-        # rings and H2O eviction place slots assuming a rectangular batch)
-        self._supports_ragged = self.eviction == "none"
         # on the card a bucket-padded monolithic admission replays its
         # bucket's graph (one shared pool); exact-length window and H2O
         # admissions and chunk steps run eagerly
@@ -404,37 +416,60 @@ class ContinuousBatchingEngine:
                 f"max_seq={s.max_seq}")
         return out
 
-    def _padded_prompt_len(self, prompt_len: int) -> int:
+    def _padded_prompt_len(self, prompt_len: int,
+                           budget: Optional[int] = None) -> int:
+        """Prefill length after bucket padding, never past ``budget``
+        slots (default ``max_seq``; a prefix-shared tail's is what the
+        prefix leaves)."""
         if not self._supports_ragged:
             return prompt_len
         bucket = self.scfg.prompt_bucket
         padded = max(bucket, -(-prompt_len // bucket) * bucket)
-        return min(padded, self.scfg.max_seq)
+        return min(padded, self.scfg.max_seq if budget is None else budget)
 
-    def _prefill_batch(self, req: Request) -> Dict[str, torch.Tensor]:
-        """Bucket-padded prompt with its ragged length (one prefill shape
-        per bucket, as in the JAX engine); the exact prompt, without
-        ``lengths``, under a window or H2O."""
-        s = req.prompt_len
+    def _prefill_batch(self, tokens: np.ndarray,
+                       budget: Optional[int] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """Bucket-padded prompt (or prefix-shared tail) with its ragged
+        length (one prefill shape per bucket, as in the JAX engine); the
+        exact prompt, without ``lengths``, under a window or H2O."""
+        tokens = np.asarray(tokens, np.int32)
+        s = tokens.shape[-1]
         if not self._supports_ragged:
-            tokens = np.asarray(req.tokens, np.int32).reshape(1, s)
-            return {"tokens": torch.from_numpy(tokens).to(self.device)}
-        padded = np.zeros((1, self._padded_prompt_len(s)), np.int32)
-        padded[0, :s] = np.asarray(req.tokens, np.int32)
+            return {"tokens": torch.from_numpy(tokens.reshape(1, s)).to(
+                self.device)}
+        padded = np.zeros((1, self._padded_prompt_len(s, budget)), np.int32)
+        padded[0, :s] = tokens
         return {"tokens": torch.from_numpy(padded).to(self.device),
                 "lengths": torch.tensor([s], dtype=torch.int32,
                                         device=self.device)}
 
-    def _pages_needed(self, req: Request) -> int:
-        """Pages for the request's whole lifetime (prefill + decode); the
-        whole stripe under a window or H2O, whose slots wrap and evict
-        across all of it."""
+    def _plan_pages(self, req: Request):
+        """The page reservation of an admission, for the request's whole
+        lifetime (prefill and decode): (shared prefix pages already in the
+        pool, fresh pages), or None while the pool cannot cover it. Only
+        full prompt pages are shared, and at least one tail token is left
+        to give the prefill's logits. A window or H2O lane reserves its
+        whole stripe: its slots wrap and evict across all of it."""
+        ps = self.cache_spec.page_size
+        shared = []
         if not self._supports_ragged:
-            return self._pages_per_lane
-        total = min(max(self._padded_prompt_len(req.prompt_len),
-                        req.prompt_len + req.max_new_tokens),
-                    self._num_slots)
-        return -(-total // self.cache_spec.page_size)
+            total_pages = self._pages_per_lane
+        else:
+            if self._prefix_ok:
+                shared = self.page_pool.lookup_prefix(
+                    req.tokens)[:(req.prompt_len - 1) // ps]
+            prefix_len = len(shared) * ps
+            tail_padded = self._padded_prompt_len(
+                req.prompt_len - prefix_len, self.scfg.max_seq - prefix_len)
+            total_slots = min(max(prefix_len + tail_padded,
+                                  req.prompt_len + req.max_new_tokens),
+                              self._num_slots)
+            total_pages = -(-total_slots // ps)
+        num_new = total_pages - len(shared)
+        if not self.page_pool.can_reserve(num_new):
+            return None
+        return shared, num_new
 
     def _seed(self, uid: int, index: int) -> int:
         ss = np.random.SeedSequence([self._rng_seed, self._serve_idx, uid,
@@ -457,26 +492,40 @@ class ContinuousBatchingEngine:
             kvc.reset_cache(self.last_state.layers)
         return self.last_state
 
-    def _admit(self, req: Request, lane: int, state, lanes: LaneState):
+    def _admit(self, req: Request, lane: int, state, lanes: LaneState,
+               page_plan=None):
         """Prefill ``req`` into ``lane`` and sample its first token (on the
         card a bucket-padded admission replays its bucket's admission
-        graph). Returns (token, done)."""
-        if self._graphed_admissions:
-            logits = self._admit_graphed(req, lane)
+        graph; a prefix-shared one prefills its tail eagerly).
+        ``page_plan`` is :meth:`_plan_pages`' reservation (paged).
+        Returns (token, done)."""
+        row = pages = None
+        if self._paged:
+            pages, row = self._reserve_pages(lane, page_plan)
+        shared = 0 if page_plan is None else len(page_plan[0])
+        if shared:
+            logits = self._admit_prefix(req, lane, state, row, shared)
+        elif self._graphed_admissions:
+            logits = self._admit_graphed(req, lane, row)
         else:
             # what an admission graph captures, run eagerly (the CPU, and
             # window / H2O admissions: the exact prompt grafted into every
             # slot of the lane's stripe)
-            batch = self._prefill_batch(req)
-            row = (torch.from_numpy(self._reserve_pages(req, lane)).to(
-                self.device) if self._paged else None)
+            batch = self._prefill_batch(req.tokens)
             logits = admission(
                 self.model, self.params, state, self.proj, self.scfg.max_seq,
-                batch["tokens"], batch.get("lengths"), lane, row,
+                batch["tokens"], batch.get("lengths"), lane,
+                None if row is None else torch.from_numpy(row).to(
+                    self.device),
                 num_slots=None if self._supports_ragged else self._num_slots)
+        if self._prefix_ok:
+            # both kinds index the prompt's full pages: a prompt that
+            # extends a shared prefix by more full pages indexes those too
+            self.page_pool.register_prefix(req.tokens, pages, req.prompt_len)
         return self._finish_admit(req, lane, logits, lanes)
 
-    def _admit_graphed(self, req: Request, lane: int) -> torch.Tensor:
+    def _admit_graphed(self, req: Request, lane: int,
+                       row: Optional[np.ndarray]) -> torch.Tensor:
         """A monolithic admission through its bucket's
         :class:`AdmitGraph` (captured at the bucket's first admission):
         the page-table row goes in with the prompt and the lane. Returns
@@ -489,23 +538,39 @@ class ContinuousBatchingEngine:
             graph = self.admit_graphs[bucket] = AdmitGraph(
                 self.model, self.params, self.last_state, self.proj, bucket,
                 self.scfg.max_seq, pool=self._admit_pool)
-        row = self._reserve_pages(req, lane) if self._paged else None
         return graph.admit(np.asarray(req.tokens, np.int32), lane, row)
 
-    def _reserve_pages(self, req: Request, lane: int) -> np.ndarray:
-        """Reserve ``req``'s pages for its whole lifetime; returns the
-        lane's page-table row (pages_per_lane,) int32, -1 unmapped."""
-        pages = self.page_pool.reserve(lane, self._pages_needed(req))
-        assert pages is not None       # serve() checked can_reserve
+    def _admit_prefix(self, req: Request, lane: int, state, row: np.ndarray,
+                      shared: int) -> torch.Tensor:
+        """A prefix-shared admission (JAX's ``_admit_prefix``): the lane's
+        row maps ``shared`` indexed prefix pages read-only, and only the
+        prompt's tail prefills, bucket-padded within the slots the prefix
+        leaves, against them, per-query dim selection; its K/V land from
+        the first private page. Eager on the card too (the prefix length
+        is a host int in ``prefill_with_prefix``). Returns logits (1, V)."""
+        pool = self.page_pool
+        prefix_len = shared * self.cache_spec.page_size
+        pool.prefix_hits += 1
+        pool.tokens_saved += prefix_len
+        kvc.install_table_row(state.layers, lane,
+                              torch.from_numpy(row).to(self.device))
+        batch = self._prefill_batch(np.asarray(req.tokens)[prefix_len:],
+                                    budget=self.scfg.max_seq - prefix_len)
+        logits, _ = self.model.prefill_with_prefix(
+            self.params, batch, state, lane, prefix_len, aqua_proj=self.proj,
+            select_q_blk=None)
+        return logits
+
+    def _reserve_pages(self, lane: int, page_plan) -> tuple:
+        """Reserve ``page_plan``'s pages (:meth:`_plan_pages`) for
+        ``lane``; returns (the lane's pages, its page-table row
+        (pages_per_lane,) int32, -1 unmapped)."""
+        shared, num_new = page_plan
+        pages = self.page_pool.reserve(lane, shared, num_new)
+        assert pages is not None       # _plan_pages checked can_reserve
         row = np.full(self._pages_per_lane, -1, np.int32)
         row[:len(pages)] = pages
-        return row
-
-    def _install_pages(self, req: Request, lane: int, state) -> None:
-        """Reserve ``req``'s pages and install the lane's page-table row
-        (every layer)."""
-        kvc.install_table_row(state.layers, lane, torch.from_numpy(
-            self._reserve_pages(req, lane)).to(self.device))
+        return pages, row
 
     def graph_accounting(self) -> dict:
         """The captured graphs of this engine: ``admit_graphs`` (one per
@@ -544,12 +609,44 @@ class ContinuousBatchingEngine:
         return tok, done
 
     # -- chunked prefill (host side) ------------------------------------
-    def _should_chunk(self, req: Request) -> bool:
+    def _should_chunk(self, req: Request, page_plan) -> bool:
         """Chunk this admission: the engine interleaves and the padded
-        prefill exceeds the budget (shorter prompts admit monolithically,
-        exactly as without a budget)."""
-        return (self._chunked and self._padded_prompt_len(req.prompt_len)
+        prefill (of the tail, past a shared prefix) exceeds the budget
+        (shorter prompts admit monolithically, exactly as without a
+        budget)."""
+        if not self._chunked:
+            return False
+        prefix_len = 0
+        if page_plan is not None:
+            prefix_len = len(page_plan[0]) * self.cache_spec.page_size
+        return (self._padded_prompt_len(req.prompt_len - prefix_len,
+                                        self.scfg.max_seq - prefix_len)
                 > self.scfg.prefill_budget_tokens)
+
+    def _admit_chunked(self, sched: LaneScheduler, req: Request, state,
+                       page_plan) -> tuple:
+        """Admit ``req`` into a PREFILLING lane: reserve its pages for the
+        whole lifetime and install its page-table row (paged), and set the
+        chunk cursor, past a shared prefix at its end. The budget loop
+        writes the prompt. Returns (lane, job): the job holds the request,
+        its pages to index after the final chunk and the chunks' dim
+        selection (per tile for a fresh prompt on the block-sparse
+        backends, per query past a shared prefix, as the prefix-shared
+        admission selects)."""
+        lane = sched.assign(req, prefilling=True)
+        job = dict(req=req, pages=None, select=self._tile_q_blk)
+        if self._paged:
+            job["pages"], row = self._reserve_pages(lane, page_plan)
+            kvc.install_table_row(state.layers, lane,
+                                  torch.from_numpy(row).to(self.device))
+            if page_plan[0]:
+                pool = self.page_pool
+                prefix_len = len(page_plan[0]) * self.cache_spec.page_size
+                pool.prefix_hits += 1
+                pool.tokens_saved += prefix_len
+                sched.begin_prefill(lane, prefix_len, req.prompt_len)
+                job["select"] = None
+        return lane, job
 
     def _chunk_padded_len(self, cursor: int, count: int) -> int:
         """Tokens of a chunk's batch after bucket padding (its cost against
@@ -571,13 +668,13 @@ class ContinuousBatchingEngine:
                 "lengths": torch.tensor([count], dtype=torch.int32,
                                         device=self.device)}
 
-    def _chunk(self, req: Request, lane: int, cursor: int, count: int,
+    def _chunk(self, job: dict, lane: int, cursor: int, count: int,
                state, final: bool):
-        """Run one chunk of ``req``'s prefill into ``lane``; returns the
+        """Run one chunk of ``job``'s prefill into ``lane``; returns the
         logits of its last valid row for the ``final`` chunk, else None."""
         logits, _ = self.model.prefill_chunk(
-            self.params, self._chunk_batch(req, cursor, count), state, lane,
-            cursor, aqua_proj=self.proj, select_q_blk=self._tile_q_blk,
+            self.params, self._chunk_batch(job["req"], cursor, count), state,
+            lane, cursor, aqua_proj=self.proj, select_q_blk=job["select"],
             logits=final)
         return logits
 
@@ -618,7 +715,8 @@ class ContinuousBatchingEngine:
             sched.submit(self._normalize(r))
         if self._paged:
             self.page_pool = PagePool(self._num_pages,
-                                      self.cache_spec.page_size)
+                                      self.cache_spec.page_size,
+                                      prefix_sharing=self._prefix_ok)
         state = self._decode_state()
         lanes = LaneState.empty(self.scfg.max_lanes)
         self.last_lanes = lanes
@@ -626,7 +724,7 @@ class ContinuousBatchingEngine:
         self.stats = stats
         emitted_count: Dict[int, int] = {}
         last_emit: Dict[int, float] = {}
-        jobs: Dict[int, Request] = {}      # PREFILLING lanes' requests
+        jobs: Dict[int, dict] = {}         # PREFILLING lanes' bookkeeping
         now = 0.0
 
         def finish_reason(tok: int, req: Request) -> str:
@@ -662,21 +760,23 @@ class ContinuousBatchingEngine:
             # paged admission waits until the pool covers its lifetime,
             # with a bounded lookahead past a head that does not fit
             while True:
-                req, skip = None, 0
+                req, page_plan, skip = None, None, 0
                 unbounded = sched.num_active == 0
                 while True:
                     cand = sched.pop_admissible(now, skip=skip)
                     if cand is None:
                         break
-                    if self._paged and not self.page_pool.can_reserve(
-                            self._pages_needed(cand)):
-                        sched.unpop(cand)
-                        skip += 1
-                        if (not unbounded
-                                and skip >= self.scfg.admission_lookahead):
-                            break
-                        continue
-                    req = cand
+                    plan = None
+                    if self._paged:
+                        plan = self._plan_pages(cand)
+                        if plan is None:
+                            sched.unpop(cand)
+                            skip += 1
+                            if (not unbounded and skip
+                                    >= self.scfg.admission_lookahead):
+                                break
+                            continue
+                    req, page_plan = cand, plan
                     break
                 if req is None:
                     if skip > 0 and sched.num_active == 0:
@@ -686,19 +786,21 @@ class ContinuousBatchingEngine:
                             f"the {skip} arrived request(s) with every lane "
                             "free — raise CacheSpec.num_pages")
                     break
-                if self._should_chunk(req):
+                if self._should_chunk(req, page_plan):
                     # PREFILLING lane: pages reserved for the whole
                     # lifetime now, prompt written by the budget loop below
-                    lane = sched.assign(req, prefilling=True)
-                    if self._paged:
-                        self._install_pages(req, lane, state)
-                    jobs[lane] = req
+                    lane, job = self._admit_chunked(sched, req, state,
+                                                    page_plan)
+                    jobs[lane] = job
                     stats.chunked_admissions += 1
                     continue
                 lane = sched.assign(req)
                 t0 = time.perf_counter()
-                tok, done = self._admit(req, lane, state, lanes)
-                stats.admit_seconds += time.perf_counter() - t0
+                tok, done = self._admit(req, lane, state, lanes, page_plan)
+                dt = time.perf_counter() - t0
+                stats.admit_seconds += dt
+                if page_plan is not None and page_plan[0]:
+                    stats.shared_admit_seconds += dt
                 yield first_token(req, lane, tok, done)
             if sched.num_active == 0:
                 if sched.has_pending:
@@ -713,7 +815,8 @@ class ContinuousBatchingEngine:
             if self._chunked and sched.num_prefilling > 0:
                 left = self.scfg.prefill_budget_tokens
                 for lane in sched.prefilling_lanes():
-                    req = jobs[lane]
+                    job = jobs[lane]
+                    req = job["req"]
                     cursor = sched.prefill_cursor(lane)
                     rem = sched.prefill_remaining(lane)
                     if rem > left:
@@ -723,7 +826,7 @@ class ContinuousBatchingEngine:
                         if n <= 0:
                             break
                         t0 = time.perf_counter()
-                        self._chunk(req, lane, cursor, n, state, final=False)
+                        self._chunk(job, lane, cursor, n, state, final=False)
                         stats.admit_seconds += time.perf_counter() - t0
                         sched.advance_prefill(lane, n)
                         stats.prefill_chunks += 1
@@ -735,11 +838,16 @@ class ContinuousBatchingEngine:
                     if padded > left:
                         break
                     t0 = time.perf_counter()
-                    logits = self._chunk(req, lane, cursor, rem, state,
+                    logits = self._chunk(job, lane, cursor, rem, state,
                                          final=True)
                     tok, done = self._finish_admit(req, lane, logits, lanes)
                     stats.admit_seconds += time.perf_counter() - t0
                     jobs.pop(lane)
+                    if self._prefix_ok:
+                        # indexed only now that the whole prompt is
+                        # written: a sharer reads the pages at admission
+                        self.page_pool.register_prefix(
+                            req.tokens, job["pages"], req.prompt_len)
                     sched.advance_prefill(lane, rem)
                     sched.mark_decoding(lane)
                     stats.prefill_chunks += 1

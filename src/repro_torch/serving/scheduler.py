@@ -1,7 +1,7 @@
 """Request scheduler for the continuous-batching engine (numpy only).
 
 The port's own copy of the JAX package's ``serving/scheduler.py``, cut to
-what the single-device engine uses (no prefix index, no lane order).
+what the single-device engine uses (no lane order).
 Host-side bookkeeping only; all device work is in
 ``repro_torch.serving.engine``.
 
@@ -15,8 +15,9 @@ Request lifecycle::
 from __future__ import annotations
 
 import bisect
+import hashlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -79,6 +80,7 @@ class ScheduleStats:
     occupancy_sum: int = 0       # sum over steps of active lanes
     admissions: int = 0          # requests admitted, chunked ones included
     admit_seconds: float = 0.0   # prefill (+ chunks) + graft + first token
+    shared_admit_seconds: float = 0.0  # of which monolithic prefix-shared
     decode_seconds: float = 0.0  # decode steps incl. sampling
     prefill_chunks: int = 0      # chunk steps run between decode steps
     chunked_admissions: int = 0  # requests admitted in PREFILLING state
@@ -251,17 +253,39 @@ class LaneScheduler:
 
 class PagePool:
     """Host-side free-list allocator for the paged KV cache: which physical
-    pages back each lane's page-table row. The device only ever receives
-    finished table rows. (No prefix sharing in the port yet, so every page
-    is mapped by at most one lane.)"""
+    pages back each lane's page-table row, page refcounts, and the prefix
+    index that finds page-aligned common prompt prefixes (the JAX
+    package's ``PagePool``). The device only ever receives finished table
+    rows.
 
-    def __init__(self, num_pages: int, page_size: int):
+    Sharing: only *full* prompt pages are shareable, so a prompt parts
+    from a shared prefix at a page boundary and decode never writes a
+    shared page (a lane's private tail and decode pages start at the
+    parting page). ``make_private`` is the copy-on-write escape for a
+    policy that would write inside a shared region.
+
+    Invariants (``tests/test_torch_prefix.py`` holds them against the JAX
+    package's pool): a physical page is mapped by several lanes only as a
+    registered prefix page; refcount is the number of lanes mapping a
+    page; free pages are mapped by no lane; the free list and the mapped
+    pages partition the pool.
+    """
+
+    def __init__(self, num_pages: int, page_size: int, *,
+                 prefix_sharing: bool = True):
         assert num_pages >= 1 and page_size >= 1
         self.num_pages = num_pages
         self.page_size = page_size
+        self.prefix_sharing = prefix_sharing
         self._free: List[int] = list(range(num_pages - 1, -1, -1))
+        self.refcount = np.zeros((num_pages,), np.int64)
         self._lane_pages: Dict[int, List[int]] = {}
+        # chain digest of the whole token prefix ending at each indexed page
+        self._prefix_index: Dict[bytes, int] = {}
+        self._page_key: Dict[int, bytes] = {}
         self.peak_in_use = 0
+        self.prefix_hits = 0
+        self.tokens_saved = 0
         self.util_sum = 0.0
         self.util_samples = 0
 
@@ -281,23 +305,111 @@ class PagePool:
         self.util_sum += self.utilization
         self.util_samples += 1
 
+    def lane_pages(self, lane: int) -> List[int]:
+        return list(self._lane_pages.get(lane, []))
+
     def can_reserve(self, num_new: int) -> bool:
         return num_new <= len(self._free)
 
-    def reserve(self, lane: int, num_new: int) -> Optional[List[int]]:
-        """Map ``num_new`` fresh pages into ``lane``; returns them in
-        logical order, or None (nothing changed) when the pool is short."""
+    # -- prefix sharing ------------------------------------------------
+    @staticmethod
+    def _chain_digests(tokens, num_pages: int, page_size: int
+                       ) -> List[bytes]:
+        """One rolling digest per full page, ``digest_i = sha1(digest_{i-1}
+        || page_i's tokens)``: two prompts share page i only when every
+        earlier token matches too, and the prompt is hashed once, not once
+        per page."""
+        toks = np.asarray(tokens, np.int32)
+        out: List[bytes] = []
+        d = b"aqua-page-chain"
+        for i in range(num_pages):
+            page = np.ascontiguousarray(
+                toks[i * page_size:(i + 1) * page_size])
+            d = hashlib.sha1(d + page.tobytes()).digest()
+            out.append(d)
+        return out
+
+    def lookup_prefix(self, tokens) -> List[int]:
+        """The longest run of indexed full pages matching the prompt's
+        page-aligned prefix: their physical ids in logical order (maybe
+        empty)."""
+        if not self.prefix_sharing:
+            return []
+        toks = np.asarray(tokens, np.int32)
+        shared: List[int] = []
+        for key in self._chain_digests(toks, len(toks) // self.page_size,
+                                       self.page_size):
+            pid = self._prefix_index.get(key)
+            if pid is None:
+                break
+            shared.append(pid)
+        return shared
+
+    def register_prefix(self, tokens, pages: Sequence[int],
+                        prompt_len: int) -> None:
+        """Index the full pages that ``prompt_len`` tokens of a prefilled
+        prompt cover. The first writer wins: a chain already indexed keeps
+        its physical page."""
+        if not self.prefix_sharing:
+            return
+        digests = self._chain_digests(np.asarray(tokens, np.int32),
+                                      prompt_len // self.page_size,
+                                      self.page_size)
+        for i, key in enumerate(digests):
+            if key in self._prefix_index:
+                continue
+            self._prefix_index[key] = pages[i]
+            self._page_key[pages[i]] = key
+
+    # -- reserve / release ----------------------------------------------
+    def reserve(self, lane: int, shared_pages: Sequence[int],
+                num_new: int) -> Optional[List[int]]:
+        """Map ``shared_pages`` (their refcounts raised) and ``num_new``
+        fresh pages into ``lane``; returns a snapshot of the lane's pages
+        in logical order (``make_private`` may remap the lane later), or
+        None (nothing changed) when the free list is short."""
         assert lane not in self._lane_pages, f"lane {lane} already mapped"
         if num_new > len(self._free):
             return None
-        pages = [self._free.pop() for _ in range(num_new)]
+        pages = list(shared_pages) + [self._free.pop()
+                                      for _ in range(num_new)]
+        for p in pages:
+            self.refcount[p] += 1
         self._lane_pages[lane] = pages
         self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
         return list(pages)
 
     def release(self, lane: int) -> None:
-        """Return a retired lane's pages to the free list."""
-        self._free.extend(self._lane_pages.pop(lane, []))
+        """Unmap a retired lane: lower its pages' refcounts; a page that
+        reaches 0 returns to the free list and leaves the prefix index."""
+        for p in self._lane_pages.pop(lane, []):
+            self.refcount[p] -= 1
+            assert self.refcount[p] >= 0, f"page {p} refcount underflow"
+            if self.refcount[p] == 0:
+                key = self._page_key.pop(p, None)
+                if key is not None:
+                    self._prefix_index.pop(key, None)
+                self._free.append(p)
+
+    def make_private(self, lane: int, logical_page: int
+                     ) -> Optional[Tuple[int, int]]:
+        """Copy-on-write: give ``lane`` a private copy of its
+        ``logical_page`` if that page is shared (refcount > 1). Returns
+        (old, new) physical ids for the device copy
+        (``kvcache.paged_copy_page``), or None when the page was private.
+        The new page is not indexed (its content will part)."""
+        pages = self._lane_pages[lane]
+        old = pages[logical_page]
+        if self.refcount[old] <= 1:
+            return None
+        if not self._free:
+            raise RuntimeError("page pool exhausted during copy-on-write")
+        new = self._free.pop()
+        self.refcount[old] -= 1
+        self.refcount[new] += 1
+        pages[logical_page] = new
+        self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
+        return old, new
 
 
 def poisson_trace(num_requests: int, *, mean_interarrival: float,

@@ -2,7 +2,8 @@
 same Poisson trace at temperature 0 through ``aqua-block-sparse`` must
 give identical greedy tokens per request, on the contiguous cache and on
 the paged pool (page_size 8, no prefix sharing). Plus the port's own
-engine rules (what it refuses, pool queueing, byte accounting), and the
+engine rules (what it refuses and what it serves since it was ported,
+pool queueing, byte accounting), and the
 same for AQUA-Memory kept widths that are not a multiple of 8, ``eos_id``
 and ``admission_lookahead``."""
 import dataclasses
@@ -124,8 +125,16 @@ def test_cache_bytes_paged_pool_counted_once(models):
 
 
 def test_engine_refuses_what_is_not_ported(models):
-    with pytest.raises(NotImplementedError, match="prefix sharing"):
-        _port_engine(models, CacheSpec(page_size=8))
+    # prefix sharing, CacheSpec's default, is served (it was refused before
+    # it was ported): a trace of one repeated prompt shares its full pages
+    eng = _port_engine(models, CacheSpec(page_size=8))
+    assert eng.dispatch_plan().prefix_sharing
+    req = poisson_trace(1, **dict(TRACE, prompt_lens=(20,)))[0]
+    outs = eng.run([dataclasses.replace(req, uid=u, arrival=float(u))
+                    for u in range(3)])
+    assert all(len(o.tokens) == 8 for o in outs.values())
+    assert eng.page_pool.prefix_hits == 2
+    assert eng.page_pool.tokens_saved == 2 * 16
     _, _, _, tcfg, tparams, tproj = models
     with pytest.raises(NotImplementedError):
         ContinuousBatchingEngine(tcfg, tparams, tproj, device="cpu",

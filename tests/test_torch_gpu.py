@@ -675,6 +675,50 @@ def test_paged_variant_kernels_match_plain(cuda, dtype, quant, part,
     assert _within_tol(out, ref, out_dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant,part", [(False, False), (True, False),
+                                        (False, True), (True, True)])
+@pytest.mark.parametrize("ps", [8, 64])
+def test_paged_decode_through_aliased_page_tables_matches_plain(
+        cuda, dtype, quant, part, ps):
+    """Prefix sharing's tables: every lane maps the same first physical
+    pages (a shared prompt prefix) and its own after them, with lengths
+    inside and past the shared pages; the paged decode (full precision,
+    int8, participating pages, both) against its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(ps + 2 * quant + part)
+    b, npl, shared, h, kv, d = 4, 12, 5, 16, 8, 128
+    p = shared + b * (npl - shared) + 2
+    q = _rand(gen, b, h, d, dtype=dtype)
+    k_pool, v_pool = _pools(gen, p, kv, ps, d, dtype, quant)
+    scales = [None, None]
+    if quant:
+        scales = [torch.rand(p, kv, generator=gen, device="cuda") * 0.02
+                  + 0.001 for _ in range(2)]
+    own = torch.randperm(p - shared, generator=gen, device=cuda)[
+        :b * (npl - shared)].reshape(b, npl - shared) + shared
+    table = torch.cat([torch.arange(shared, device=cuda).expand(b, -1), own],
+                      dim=1).to(torch.int32)
+    lengths = torch.tensor([npl * ps, shared * ps + 1, 3 * ps - 2,
+                            9 * ps + 5], dtype=torch.int32, device=cuda)
+    part_idx = None
+    if part:
+        part_idx = torch.stack([torch.sort(torch.randperm(
+            npl, generator=gen, device=cuda)[:6])[0] for _ in range(b)]
+        ).to(torch.int32)
+    before = LAUNCHES.copy()
+    out = ops.aqua_paged_decode(q, k_pool, v_pool, table, lengths, *scales,
+                                part_idx=part_idx, k_ratio=0.75,
+                                block_dims=8)
+    ref = dk.aqua_decode_plain(q, k_pool, v_pool,
+                               ops.decode_blocks(q, 0.75, 8), lengths, table,
+                               block_dims=8, scale=d ** -0.5,
+                               k_scale=scales[0], v_scale=scales[1],
+                               part_idx=part_idx)
+    torch.cuda.synchronize()
+    assert LAUNCHES - before == {dk.body_name(True, quant, part): 1}
+    assert _within_tol(out, ref, torch.float32 if quant else dtype)
+
+
 @pytest.mark.parametrize("quant,part", [(True, False), (False, True),
                                         (True, True)])
 def test_paged_variants_off_the_group_route_widths(cuda, quant, part):
@@ -964,7 +1008,8 @@ STEP_BODY = {"paged": "aqua_paged_decode", "contiguous": "aqua_decode",
              "hier_paged": "aqua_paged_part_decode",
              "hier_int8_paged": "aqua_paged_part_quant_decode",
              "chunked_paged": "aqua_paged_decode", "swa_paged": None,
-             "h2o_paged": None, "aqua_memory_paged": "aqua_paged_decode"}
+             "h2o_paged": None, "aqua_memory_paged": "aqua_paged_decode",
+             "prefix_paged": "aqua_paged_decode"}
 
 
 @pytest.mark.parametrize("name", list(STEP_BODY))

@@ -12,9 +12,12 @@ same greedy tokens, on the contiguous cache, the paged pool, an int8 pool,
 and hierarchical AQUA with chunked prefill on bf16 and int8 pools. The
 launcher's own ``--verify`` (token identity with its reference engine,
 the pool checks, the page-ranking oracle, the chunked gap check) passes
-on every path. Plus ``--rectangular`` against JAX's ``ServeEngine``, the
-refusals of what the engine does not serve, the refusal without a card,
-and ``ScheduleStats``' gap statistics against JAX's.
+on every path. A paged drive sharing a prompt prefix (``--shared-prefix-len``,
+prefix sharing on as in JAX) against the JAX launcher's prefix line and
+the JAX engine's tokens. Plus ``--rectangular`` against JAX's
+``ServeEngine``, the refusals of what the engine does not serve, the
+refusal without a card, and ``ScheduleStats``' gap statistics against
+JAX's.
 """
 import dataclasses
 import os
@@ -205,7 +208,8 @@ def test_cli_registry_model_with_synthetic_calibration(capsys):
 @pytest.mark.parametrize("extra,words", [
     (["--mesh", "2x2"], "mesh serving is not ported yet"),
     (["--expect-kernel-mesh"], "mesh serving is not ported yet"),
-    (["--page-size", "8"], "prefix sharing is not ported yet"),
+    (["--arch", "h2o-danube-1.8b", "--page-size", "8", "--kv-dtype",
+      "int8"], "int8 KV pools under the 'ring' slot policy"),
     (PAGED + ["--kv-dtype", "int8", "--hot-frac", "0.5"],
      "hot_resident_fraction > 0) are not ported yet"),
     (PAGED + ["--kv-dtype", "int8", "--h2o-ratio", "0.5"],
@@ -215,6 +219,61 @@ def test_cli_refuses_what_the_engine_does_not_serve(extra, words):
     with pytest.raises(SystemExit) as ei:
         main(["--device", "cpu", "--reduced", "--block-dims", "8", *extra])
     assert words in str(ei.value.code)
+
+
+def test_cli_shares_prompt_prefixes_like_the_jax_launcher(
+        ckpt, tmp_path, capsys, monkeypatch):
+    """A paged drive without ``--no-prefix-share`` (prefix sharing on, as
+    in JAX) at the launcher's default ``--block-dims`` 1, every prompt
+    behind one 16-token prefix: ``--verify`` passes (tokens equal to the
+    contiguous reference, and the prefix gate: a shared prefix was
+    offered and admissions reused it); the launcher's prefix line equals
+    the JAX launcher's on the same checkpoint and projections, and its
+    greedy tokens equal the JAX engine's."""
+    import sys
+    from repro.launch import serve as jax_launcher
+    out, jcfg, jparams = ckpt
+    proj_path = str(tmp_path / "proj.npz")
+    flags = ["--hf-checkpoint", out, "--calibration-corpus", CORPUS,
+             "--projections", proj_path, "--k-ratio", "0.5",
+             "--page-size", "8", "--shared-prefix-len", "16",
+             "--requests", str(TRACE["requests"]),
+             "--lanes", str(TRACE["lanes"]),
+             "--prompt-lens", ",".join(map(str, TRACE["prompt_lens"])),
+             "--steps", str(TRACE["steps"]),
+             "--max-seq", str(TRACE["max_seq"])]
+    run = main(["--device", "cpu", "--verify", *flags])
+    printed = capsys.readouterr().out
+    assert "[serve] verify: all 5 requests token-identical to the " \
+           "single-device contiguous reference engine" in printed
+    line = next(ln for ln in printed.splitlines()
+                if ln.startswith("[serve] prefix sharing:"))
+    pool = run.engine.page_pool
+    assert pool.prefix_hits == 4 and pool.tokens_saved == 4 * 16
+    assert run.engine.dispatch_plan().prefix_sharing
+    monkeypatch.setattr(sys, "argv", ["serve", *flags])
+    jax_launcher.main()                       # loads the saved projections
+    jprinted = capsys.readouterr().out
+    assert "loaded AQUA projections" in jprinted
+    assert line in jprinted.splitlines()
+    reqs = jax_poisson_trace(TRACE["requests"],
+                             mean_interarrival=TRACE["mean_interarrival"],
+                             prompt_lens=TRACE["prompt_lens"],
+                             max_new_tokens=TRACE["steps"],
+                             vocab_size=jcfg.vocab_size, seed=0)
+    pre = np.random.default_rng(1).integers(0, jcfg.vocab_size, size=(16,),
+                                            dtype=np.int32)
+    for r in reqs:
+        r.tokens = np.concatenate([pre, np.asarray(r.tokens, np.int32)])
+    jeng = JaxEngine(dataclasses.replace(jcfg, aqua=JaxAquaConfig(
+        k_ratio=0.5)), jparams, jax_load_projections(proj_path),
+        serving=JaxServingConfig(max_lanes=TRACE["lanes"],
+                                 max_seq=TRACE["max_seq"],
+                                 max_new_tokens=TRACE["steps"],
+                                 cache=JaxCacheSpec(page_size=8)))
+    want = jeng.run(reqs)
+    assert {u: list(o.tokens) for u, o in want.items()} == run.streamed
+    assert jeng.page_pool.prefix_hits == pool.prefix_hits
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu():

@@ -19,6 +19,8 @@ at a reduced width (2 layers, d_model 128; Danube's window 16):
 
 ``tests/test_torch_gpu.py`` holds the replayed graph to eager
 ``decode_step`` on the card, bit for bit, with these configurations.
+``prefix_paged`` adds prefix sharing to them: its prompts share a
+16-token prefix, so lanes' page tables map the same physical pages.
 """
 import dataclasses
 
@@ -64,7 +66,14 @@ DRIVES = {
                   EVICTING),
     "aqua_memory_paged": ("qwen3-0.6b", dict(s_ratio=0.3, block_dims=2),
                           dict(cache=PAGED), SHORT),
+    # prefix sharing on (CacheSpec's default): every prompt starts with
+    # one 16-token prefix (SHARED_PREFIX), so later admissions map its
+    # two pages and prefill only their tails
+    "prefix_paged": ("qwen3-0.6b", {}, dict(cache=CacheSpec(page_size=8)),
+                     SHORT),
 }
+#: a common prompt prefix by drive (tokens)
+SHARED_PREFIX = {"prefix_paged": 16}
 
 
 def drive_engine(name, device="cpu", dtype=None, backend=None):
@@ -94,8 +103,11 @@ def drive_engine(name, device="cpu", dtype=None, backend=None):
 
     def requests(at_once=False):
         rng = np.random.default_rng(5)
-        reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size,
-                                                   size=(n,), dtype=np.int32),
+        pre = np.random.default_rng(6).integers(
+            0, cfg.vocab_size, size=(SHARED_PREFIX.get(name, 0),),
+            dtype=np.int32)
+        reqs = [Request(uid=i, tokens=np.concatenate([pre, rng.integers(
+            0, cfg.vocab_size, size=(n,), dtype=np.int32)]),
                         max_new_tokens=8, arrival=0.0 if at_once else float(i))
                 for i, n in enumerate(prompts)]
         return reqs[:SERVE["max_lanes"]] if at_once else reqs
@@ -197,6 +209,8 @@ def test_serve_writes_the_state_in_place(name):
         assert st.chunked_admissions > 0
     if name in ("swa_paged", "h2o_paged"):
         assert eng.eviction == ("ring" if name == "swa_paged" else "h2o")
+    if name in SHARED_PREFIX:
+        assert eng.page_pool.prefix_hits == 4
     assert eng.last_state is state
     assert {k: t.data_ptr()
             for k, t in state_tensors(state).items()} == ptrs
