@@ -44,7 +44,13 @@ Phases, each of which raises (non-zero exit) on failure:
    held against the dense walk; also under a 1024-key window); and the
    prefill's window form at H2O-Danube-1.8B's geometry (H=32, KV=8,
    D=Dv=80, B=1, S=8192, window 4096, causal; the no-window form timed on
-   the same inputs). One JSON line per kernel and geometry:
+   the same inputs). At the geometries of Qwen1.5-4B (H=20, KV=20: MHA,
+   GQA group 1) and Minitron-4B (H=24, KV=8: group 3), the groups no other
+   phase runs: the paged decode at S=4096 and at the drives' contexts in
+   bf16 (the group route's 8-head blocks with 7 and 5 heads past the
+   group) and in float32 (the float32 group route, which rounds a group
+   up to 1, 2, 4 or 8 heads), and the prefill at S=2048 and 1024.
+   One JSON line per kernel and geometry:
    max abs error and the worst ratio of error to the per-element
    tolerance, kernel and library ms (a CUDA graph of 20 calls replayed
    between two CUDA events; a failed capture fails the phase), the
@@ -66,7 +72,11 @@ Phases, each of which raises (non-zero exit) on failure:
    participating page swapped for a dropped one (participating pages); the
    prefill's window one key wider, and its band starting one 64-key tile
    late (the participating walk over each q-tile's band without its first
-   tile); lane 1's first page mapped back to its own page (shared form).
+   tile); lane 1's first page mapped back to its own page (shared form);
+   and in every decode and prefill phase each KV group's last head
+   attended against the next group's K̂ and V (q̂ and its selection rolled
+   one head on, the output rolled back: a block that wrote one head past
+   its group; at group 1 every head).
 4. Serve Qwen3-0.6B at its full published width and depth (random bf16
    weights from a seeded generator, projections calibrated on
    ``corpora/calibration.txt``) through the continuous-batching engine, in
@@ -84,7 +94,19 @@ Phases, each of which raises (non-zero exit) on failure:
    1024-slot budget, 512 recents; prompts 512/1000/1024/1536); and
    AQUA-Memory (s_ratio 0.3, block_dims 2: 90 of 128 dims kept, stored
    as 96; prompts 128/512/1024), whose KV bytes are reported against the
-   full-width pool. And ``prefix_paged``: prefix sharing on (the other
+   full-width pool. Three int8 drives: ``int8_swa_paged`` (``swa_paged``
+   on int8 pools: decode on a wrapped ring, a re-entered page's running
+   scale only growing, as in JAX), ``int8_h2o_paged`` (``h2o_paged`` on
+   int8 pools: an evicted page's scales cleared) and ``hot_int8_paged``
+   (Qwen3-0.6B, int8 pools with ``hot_resident_fraction`` 0.25: 64 of the
+   256 pages also kept in bf16, each admission promoting its lane's
+   freshest page; 4 requests of 128/512/1024 tokens; its resident count
+   and the promotions seen are printed); resident decode runs the
+   masked-dense core over the dequantized, overlaid lane view, as in JAX.
+   Their pool bytes are printed against the bf16 drive of the same
+   geometry (the ring's and H2O's must stay below 0.60 of it, the
+   resident pool between the int8 pool's share and 1). And
+   ``prefix_paged``: prefix sharing on (the other
    paged drives turn it off), 8 requests whose prompts are one 512-token
    prefix and a tail of 128/512/1024 tokens (640/1024/1536): 7
    admissions must map the first prompt's 8 prefix pages and prefill
@@ -93,7 +115,8 @@ Phases, each of which raises (non-zero exit) on failure:
    its trace served again (the fresh admission replays its graph) must
    give the same tokens; the host ms of a shared (eager) and a fresh
    admission are reported. Window and H2O decode run the masked-dense core, as
-   in JAX. The peak device memory of these three drives is reported. The
+   in JAX. The peak device memory of the window, H2O, AQUA-Memory and
+   three int8 drives is reported. The
    launch counters are zeroed just before each drive and read just after
    it: each drive must have launched its prefill kernel once per layer
    per fresh monolithic admission and per prefill chunk (none for a
@@ -132,8 +155,9 @@ Phases, each of which raises (non-zero exit) on failure:
    from a trace that holds every decode launch the drive counted (the
    replayed graph's kernels are traced one by one), else as not
    measured.
-5. Step graph: for the paged, int8, hierarchical int8, H2O, window and
-   prefix-sharing drives, the drive's prompts are admitted at once, the
+5. Step graph: for the paged, int8, hierarchical int8, H2O, window,
+   prefix-sharing and the three int8 drives above, and the two configs'
+   drives of 5b, the drive's prompts are admitted at once, the
    state is cloned, and 16 decode steps with seeded tokens and write
    masks run through the engine's step graph on one copy and eager
    ``model.decode_step`` on the other: logits and every state tensor must
@@ -143,7 +167,8 @@ Phases, each of which raises (non-zero exit) on failure:
    skip the copy of the write mask. Device ms of a replay: 16 replays
    between two CUDA events.
    Admission graphs: for the paged, contiguous, flash, int8, hierarchical
-   (bf16 and int8) and AQUA-Memory drives, and in phase 6 the HF drive
+   (bf16 and int8), AQUA-Memory and hot-resident drives (the last
+   promotes a resident inside the graph), and in phase 6 the HF drive
    (float32), two admissions per bucket in the reverse of the capture
    order, into other lanes and pages, replayed on the engine's state and
    run eagerly (``admit_graph.admission``) on a clone: logits and every
@@ -153,6 +178,13 @@ Phases, each of which raises (non-zero exit) on failure:
    and pool growth by bucket, the shared pool's bytes, host ms of an
    admission replayed and eager, device ms of the largest bucket's replay
    (16 between two CUDA events) and its device operations.
+5b. Qwen1.5-4B and Minitron-4B at their published widths and depths
+   (random bf16 weights, calibrated projections), each loaded, driven and
+   freed before the next: 4 requests of 128/512/1024 tokens, 4 lanes,
+   64-token pages, AQUA; logits within LOGIT_RTOL of the plain drive,
+   exactly the prefill once per layer per admission and the paged decode
+   once per layer per step, the step graph bit for bit (phase 5); their
+   launches, KV bytes and peak memory are printed.
 6. HF checkpoint through the port's entry point: a synthetic checkpoint
    in HF layout at Qwen3-0.6B's full width and depth (random bf16 weights
    from a seeded generator, tied, two shards plus the index; written to
@@ -204,7 +236,9 @@ Phases, each of which raises (non-zero exit) on failure:
    phases, timed the same way, with SDPA in float32 as the library call;
    float32 bounds at the faster of 67 TFLOP/s outside the tensor cores
    and a third of 495 TFLOP/s TF32 (three passes).
-7. The ``{"kernels": [...]}`` line (each float32 route under its kernel's
+7. The ``{"kernels": [...]}`` line (the paged decode's and the prefill's
+   phases at groups 1 and 3 under ``group_geometries``, with the launches
+   of those configs' drives; each float32 route under its kernel's
    ``float32_route``, with its launches on its path: the paged decode's
    and the prefill's in the HF drive's second serve, the contiguous
    decode's in the launcher's ``--verify`` reference engine, flash's in
@@ -455,6 +489,18 @@ def read_rate() -> dict:
     return dict(bytes=2 * x.numel(), ms=ms, gbs=2 * x.numel() / ms * 1e-6)
 
 
+def heads_past_group(kernel, q, block_idx, **kw):
+    """A planted fault: the kernel's output with q̂ and its selection rolled
+    one head on and the output rolled back, so that each KV group's last
+    head is attended against the next group's K̂ and V, as a block that
+    wrote one head past its group would leave it (at group 1 every head
+    takes its neighbour's KV head). Head axis 1 of q̂, selection and
+    output."""
+    out = kernel(q=q.roll(1, 1).contiguous(),
+                 block_idx=block_idx.roll(1, 1).contiguous(), **kw)
+    return out.roll(-1, 1)
+
+
 def swapped_group_heads(block_idx):
     """``block_idx`` with lane 0's first two heads (of KV group 0) trading
     their selections: a planted fault that a kernel applying the group's
@@ -514,7 +560,7 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
         own = table.clone()
         table[:, :shared_pages] = table[0, :shared_pages]
 
-        def kernel(block_idx=block_idx, lengths=lengths, table=table):
+        def kernel(block_idx=block_idx, lengths=lengths, table=table, q=q):
             return dk.aqua_paged_decode_attention(
                 q, k_pool, v_pool, block_idx, table, lengths,
                 block_dims=BLOCK_DIMS, scale=scale)
@@ -524,7 +570,7 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
                                         lengths, table,
                                         block_dims=BLOCK_DIMS, scale=scale)
     else:
-        def kernel(block_idx=block_idx, lengths=lengths):
+        def kernel(block_idx=block_idx, lengths=lengths, q=q):
             return dk.aqua_decode_attention(q, k, v, block_idx, lengths,
                                             block_dims=BLOCK_DIMS,
                                             scale=scale)
@@ -536,7 +582,8 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
     faults = {"dropped_split": kernel(lengths=cut),
               "shifted_block": kernel(block_idx=shifted(block_idx, nb)),
               "swapped_group_heads": kernel(
-                  block_idx=swapped_group_heads(block_idx))}
+                  block_idx=swapped_group_heads(block_idx)),
+              "heads_past_group": heads_past_group(kernel, q, block_idx)}
     if shared_pages:
         unshared = table.clone()
         unshared[1, 0] = own[1, 0]
@@ -616,14 +663,15 @@ def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
                                               lengths).contiguous()
     kw = dict(block_dims=BLOCK_DIMS, q_blk=q_blk, causal=True, scale=scale)
 
-    def kernel(block_idx=block_idx):
+    def kernel(block_idx=block_idx, q=q):
         return pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
 
     def plain():
         return pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
 
     check = check_kernel(kernel(), plain(), {
-        "shifted_block": kernel(shifted(block_idx, d // BLOCK_DIMS))})
+        "shifted_block": kernel(shifted(block_idx, d // BLOCK_DIMS)),
+        "heads_past_group": heads_past_group(kernel, q, block_idx)})
     sel = torch.zeros(b, h, s // q_blk, d // BLOCK_DIMS, device=dev)
     sel.scatter_(-1, block_idx.long(), 1.0)
     qmask = sel.repeat_interleave(BLOCK_DIMS, -1).repeat_interleave(q_blk, 2)
@@ -992,7 +1040,7 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
             torch.zeros(b * npl, kvh, ps, device=dev), table, lengths,
             page_size=ps, kept_pages=kp, pin_recent_pages=2).contiguous()
 
-    def kernel(part_idx=part_idx, **kw):
+    def kernel(part_idx=part_idx, q=q, block_idx=block_idx, **kw):
         return dk.aqua_paged_decode_attention(
             q, k_pool, v_pool, block_idx, table, lengths,
             block_dims=BLOCK_DIMS, scale=scale, part_idx=part_idx,
@@ -1003,7 +1051,7 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
                                     table, block_dims=BLOCK_DIMS, scale=scale,
                                     part_idx=part_idx, **scales)
 
-    faults = {}
+    faults = {"heads_past_group": heads_past_group(kernel, q, block_idx)}
     if quant:                  # lane 0's tail page (always attended)
         tail = table[0, (int(lengths[0]) - 1) // ps].long()
         for name in ("k_scale", "v_scale"):
@@ -1122,9 +1170,14 @@ def serve_drive(eng, reqs, positions: bool = False) -> dict:
     layer's cache held: H2O evicts by score), and wall-clock figures (the
     host reads every sampled token, so each step's time includes its
     device work). Every admission's and every decode step's logits must
-    be finite."""
+    be finite. An engine with hot residents also reports the resident
+    slots whose page changed, read at each admission's first token
+    (``resident_promotions_seen``; admissions between two reads count
+    once per slot), and the residents held at the end, per layer."""
     import torch
     tokens, admit_logits, steps = {}, {}, []
+    hot = eng.hot_pages > 0
+    promotions, seen = 0, None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for ev in eng.serve(reqs):
@@ -1132,6 +1185,13 @@ def serve_drive(eng, reqs, positions: bool = False) -> dict:
             logits = eng.last_admit_logits
             assert torch.isfinite(logits).all(), f"request {ev.uid}"
             admit_logits[ev.uid] = logits.float().clone()
+            if hot:
+                ids = eng.last_state.layers.hot_ids.cpu()
+                if seen is not None:
+                    promotions += int(((ids != seen) & (ids >= 0))[0].sum())
+                else:
+                    promotions += int((ids >= 0)[0].sum())
+                seen = ids
         elif eng.stats.decode_steps > len(steps):
             # the first event of a new decode step: ``tokens`` still holds
             # what each lane had fed in
@@ -1165,7 +1225,11 @@ def serve_drive(eng, reqs, positions: bool = False) -> dict:
                 itl_p50_ms=1e3 * st.itl_percentile(50),
                 itl_p99_ms=1e3 * st.itl_percentile(99),
                 max_itl_ms=1e3 * st.max_itl,
-                mean_occupancy=st.mean_occupancy)
+                mean_occupancy=st.mean_occupancy,
+                **(dict(hot_pages=eng.hot_pages,
+                        resident_promotions_seen=promotions,
+                        residents_at_end=(eng.last_state.layers.hot_ids >= 0)
+                        .sum(dim=-1).tolist()) if hot else {}))
 
 
 def compare_logits(run: dict, ref: dict, max_new: int,
@@ -1564,6 +1628,51 @@ def drive_trace(n: int, vocab: int, prompts=(128, 512, 1024),
     return reqs
 
 
+def run_drive(mcfg, mparams, mproj, serving, n, prompts=None,
+              backend=None, shared_prefix=0) -> dict:
+    """One drive of the Poisson trace (``drive_trace``) on a new engine,
+    with the counters zeroed just before it and read just after it, and
+    the peak device memory over it: the card's, and above what was
+    allocated when it started (the weights). Every request must emit its
+    32 tokens; an evicting engine's positions must pass its slots."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(
+        mcfg, mparams, None if mcfg.aqua is None else mproj,
+        serving=serving, backend=backend)
+    reqs = drive_trace(n, mcfg.vocab_size,
+                       (128, 512, 1024) if prompts is None else prompts,
+                       shared_prefix)
+    evicting = eng.eviction != "none"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    reset_counts()
+    run = serve_drive(eng, reqs, positions=evicting)
+    run["launches"], run["engine"] = launch_counts(), eng
+    graph = eng.step_graph
+    run["capture_ms"], run["graph_pool_bytes"] = (graph.capture_ms,
+                                                  graph.pool_bytes)
+    run["graphs"] = eng.graph_accounting()
+    run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    run["drive_peak_memory_bytes"] = run["peak_memory_bytes"] - start
+    pool = eng.page_pool
+    run["prefix_hits"] = 0 if pool is None else pool.prefix_hits
+    run["tokens_saved"] = 0 if pool is None else pool.tokens_saved
+    run["peak_pages_in_use"] = None if pool is None else pool.peak_in_use
+    assert len(run["tokens"]) == n, len(run["tokens"])
+    for toks in run["tokens"].values():
+        assert len(toks) == 32, len(toks)
+        assert all(0 <= t < mcfg.vocab_size for t in toks)
+    if evicting:
+        # a ring wrapped / H2O evicted: positions past the slots held
+        run["eviction"], run["slots"] = eng.eviction, eng._num_slots
+        run["max_position_held"] = int(
+            run["step_logits"][-1]["positions"].max())
+        assert run["max_position_held"] >= eng._num_slots, run["slots"]
+    return run
+
+
 def traced_drive_child(out_path: str) -> int:
     """``chip_smoke.py --traced-drive OUT``: the traced paged drive in a
     process of its own. The paged drive's engine (Qwen3-0.6B, the same
@@ -1667,10 +1776,8 @@ def load_model(name: str, seed: int, dtype: str = "bfloat16") -> tuple:
 def serve_phase(card: str, prof: dict) -> dict:
     """The drives (module docstring, section 4); ``prof``: the traced
     paged drive's result (``traced_drive``), reported with them."""
-    import torch
     from repro_torch.configs import (CacheSpec, QuantSpec, ServingConfig,
                                      SparsitySpec)
-    from repro_torch.serving import ContinuousBatchingEngine
 
     t0 = time.perf_counter()
     cfg, params, proj = load_model("qwen3-0.6b", 0)
@@ -1688,6 +1795,8 @@ def serve_phase(card: str, prof: dict) -> dict:
     # prefix sharing on (CacheSpec's default, as in JAX)
     prefix = dataclasses.replace(paged, cache=CacheSpec(page_size=64))
     int8 = QuantSpec(kv_dtype="int8")
+    # mixed precision: a quarter of the int8 pool's pages also kept in bf16
+    hot = QuantSpec(kv_dtype="int8", hot_resident_fraction=0.25)
     hier = SparsitySpec(page_keep_ratio=0.25)
     aqua_off = dataclasses.replace(cfg, aqua=None)
     long_prompts = (512, 1024)        # 9+ of 32 pages: 8 participate
@@ -1737,47 +1846,22 @@ def serve_phase(card: str, prof: dict) -> dict:
         ("aqua_memory_paged", memory_cfg, paged, 4, None,
          "aqua-block-sparse-plain", "aqua_prefill", "aqua_paged_decode"),
         ("prefix_paged", cfg, prefix, 8, None, "aqua-block-sparse-plain",
-         "aqua_prefill", "aqua_paged_decode"))
+         "aqua_prefill", "aqua_paged_decode"),
+        # int8 pools under the window ring (decode on a wrapped ring) and
+        # under H2O, and hot residents: decode on the masked-dense core
+        # over the dequantized (resident-overlaid) view, as in JAX
+        ("int8_swa_paged", danube, dataclasses.replace(swa, quant=int8), 4,
+         swa_prompts, "aqua-block-sparse-plain", "aqua_prefill", None),
+        ("int8_h2o_paged", h2o_cfg,
+         dataclasses.replace(paged, max_lanes=4, quant=int8), 4,
+         h2o_prompts, "aqua-block-sparse-plain", "aqua_prefill", None),
+        ("hot_int8_paged", cfg, dataclasses.replace(paged, quant=hot), 4,
+         None, "aqua-block-sparse-plain", "aqua_prefill", None))
 
     def drive(mcfg, serving, n, prompts, backend=None,
               shared_prefix=0) -> dict:
-        """One drive with the counters zeroed just before it and read just
-        after it, and the peak device memory over it: the card's, and
-        above what was allocated when it started (the weights)."""
-        mparams, mproj = weights[mcfg.name]
-        eng = ContinuousBatchingEngine(
-            mcfg, mparams, None if mcfg.aqua is None else mproj,
-            serving=serving, backend=backend)
-        reqs = trace(n, (128, 512, 1024) if prompts is None else prompts,
-                     mcfg.vocab_size, shared_prefix)
-        evicting = eng.eviction != "none"
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start = torch.cuda.memory_allocated()
-        reset_counts()
-        run = serve_drive(eng, reqs, positions=evicting)
-        run["launches"], run["engine"] = launch_counts(), eng
-        graph = eng.step_graph
-        run["capture_ms"], run["graph_pool_bytes"] = (graph.capture_ms,
-                                                      graph.pool_bytes)
-        run["graphs"] = eng.graph_accounting()
-        run["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        run["drive_peak_memory_bytes"] = run["peak_memory_bytes"] - start
-        pool = eng.page_pool
-        run["prefix_hits"] = 0 if pool is None else pool.prefix_hits
-        run["tokens_saved"] = 0 if pool is None else pool.tokens_saved
-        run["peak_pages_in_use"] = None if pool is None else pool.peak_in_use
-        assert len(run["tokens"]) == n, len(run["tokens"])
-        for toks in run["tokens"].values():
-            assert len(toks) == 32, len(toks)
-            assert all(0 <= t < mcfg.vocab_size for t in toks)
-        if evicting:
-            # a ring wrapped / H2O evicted: positions past the slots held
-            run["eviction"], run["slots"] = eng.eviction, eng._num_slots
-            run["max_position_held"] = int(
-                run["step_logits"][-1]["positions"].max())
-            assert run["max_position_held"] >= eng._num_slots, run["slots"]
-        return run
+        return run_drive(mcfg, *weights[mcfg.name], serving, n, prompts,
+                         backend, shared_prefix)
 
     runs = {}
     for (path, mcfg, serving, n, prompts, ref_backend, admit_kernel,
@@ -1900,6 +1984,29 @@ def serve_phase(card: str, prof: dict) -> dict:
     int8_share = runs["int8_paged"]["cache_bytes"] / runs["paged"][
         "cache_bytes"]
     assert int8_share < 0.60, int8_share
+    # this slice's int8 pools against the bf16 pools of the same geometry:
+    # the ring's and H2O's below the int8 gate; hot residents between the
+    # int8 pool and the bf16 one
+    for key, base in (("int8_swa_paged", "swa_paged"),
+                      ("int8_h2o_paged", "h2o_paged"),
+                      ("hot_int8_paged", "paged")):
+        share = runs[key]["cache_bytes"] / runs[base]["cache_bytes"]
+        runs[key]["kv_bytes_vs_bf16"] = dict(
+            bytes=runs[key]["cache_bytes"], bf16_drive=base,
+            bf16_bytes=runs[base]["cache_bytes"], share=share)
+        log(f"[serve {key}] KV pool bytes {runs[key]['cache_bytes']} of the "
+            f"bf16 drive {base}'s {runs[base]['cache_bytes']} ({share:.4f}), "
+            f"launches {runs[key]['launches']} on {card}")
+        if key == "hot_int8_paged":
+            assert int8_share < share < 1.0, (int8_share, share)
+        else:
+            assert share < 0.60, (key, share)
+    hot_run = runs["hot_int8_paged"]
+    assert hot_run["resident_promotions_seen"] > 0, hot_run
+    log(f"[serve hot_int8_paged] {hot_run['hot_pages']} resident pages of "
+        f"{runs['hot_int8_paged']['engine'].pool_geometry[0]}; promotions "
+        f"seen {hot_run['resident_promotions_seen']}, residents at the end "
+        f"by layer {hot_run['residents_at_end']} on {card}")
     # AQUA-Memory: the padded K̂ pool against the full-width one
     mem = runs["aqua_memory_paged"]
     att, maq = memory_cfg.attention, memory_cfg.aqua
@@ -1914,7 +2021,8 @@ def serve_phase(card: str, prof: dict) -> dict:
         f"({mem['kv_bytes']['share']:.4f}); K̂ {mem['kv_bytes']['kept_dims']}"
         f" dims stored as {mem['kv_bytes']['stored_dims']} of "
         f"{att.head_dim} on {card}")
-    for key in ("swa_paged", "h2o_paged", "aqua_memory_paged"):
+    for key in ("swa_paged", "h2o_paged", "aqua_memory_paged",
+                "int8_swa_paged", "int8_h2o_paged", "hot_int8_paged"):
         log(f"[serve {key}] peak device memory "
             f"{runs[key]['peak_memory_bytes']} bytes, "
             f"{runs[key]['drive_peak_memory_bytes']} over the drive's start "
@@ -1926,7 +2034,10 @@ def serve_phase(card: str, prof: dict) -> dict:
                              ("hier_int8_paged", 4, long_prompts),
                              ("h2o_paged", 4, h2o_prompts),
                              ("swa_paged", 4, swa_prompts),
-                             ("prefix_paged", 8, None)):
+                             ("prefix_paged", 8, None),
+                             ("int8_swa_paged", 4, swa_prompts),
+                             ("int8_h2o_paged", 4, h2o_prompts),
+                             ("hot_int8_paged", 4, None)):
         eng = runs[path]["engine"]
         reqs = trace(n, (128, 512, 1024) if prompts is None else prompts,
                      eng.cfg.vocab_size, SHARED_PREFIX.get(path, 0))
@@ -1936,7 +2047,8 @@ def serve_phase(card: str, prof: dict) -> dict:
     # the captured admissions against eager ones, bit for bit
     admit_checks = {}
     for path in ("paged", "contiguous", "flash_paged", "int8_paged",
-                 "hier_paged", "hier_int8_paged", "aqua_memory_paged"):
+                 "hier_paged", "hier_int8_paged", "aqua_memory_paged",
+                 "hot_int8_paged"):
         admit_checks[path] = admit_graph_phase(path, runs[path]["engine"])
         log({"admit_graph": admit_checks[path]})
         log_time(f"admit graph {path}")
@@ -1968,6 +2080,68 @@ def serve_phase(card: str, prof: dict) -> dict:
                   **summary)
     log({"serve": result})
     return result
+
+
+#: the dense configs whose GQA groups no other drive runs: Qwen1.5-4B
+#: (MHA, group 1, q/k/v biases) and Minitron-4B (group 3), with their seeds
+GROUP_CONFIGS = (("qwen1.5-4b", 2), ("minitron-4b", 3))
+
+
+def config_drive_phase(card: str) -> dict:
+    """One engine drive per config of ``GROUP_CONFIGS`` at its published
+    width and depth (random bf16 weights, calibrated projections): 4
+    requests of 128/512/1024 tokens, 4 lanes, 64-token pages, AQUA
+    (K_RATIO, BLOCK_DIMS), against its plain reference drive (logits
+    within LOGIT_RTOL), launches exactly the path's, and the step graph
+    against eager ``decode_step`` (``step_graph_phase``). Each config is
+    loaded, driven and freed before the next, so that the peak memory is
+    one model's."""
+    import gc
+    import torch
+    serving = dataclasses.replace(paged_serving(), max_lanes=4)
+    out = {}
+    for name, seed in GROUP_CONFIGS:
+        t0 = time.perf_counter()
+        mcfg, mparams, mproj = load_model(name, seed)
+        setup_s = time.perf_counter() - t0
+        ref = run_drive(mcfg, mparams, mproj, serving, 4,
+                        backend="aqua-block-sparse-plain")
+        assert sum(ref["launches"].values()) == 0, (name, ref["launches"])
+        del ref["engine"]
+        run = run_drive(mcfg, mparams, mproj, serving, 4)
+        want = dict.fromkeys(KERNELS, 0)
+        want["aqua_prefill"] = mcfg.num_layers * run["admissions"]
+        want["aqua_paged_decode"] = mcfg.num_layers * run["decode_steps"]
+        assert run["launches"] == want, (name, run["launches"], want)
+        eng = run["engine"]
+        att = mcfg.attention
+        res = {k: v for k, v in run.items()
+               if k not in ("tokens", "admit_logits", "step_logits",
+                            "engine")}
+        res.update(setup_s=setup_s, layers=mcfg.num_layers,
+                   d_model=mcfg.d_model, heads=att.num_heads,
+                   kv_heads=att.num_kv_heads, group=att.group_size,
+                   qkv_bias=att.qkv_bias, cache_bytes=eng.cache_bytes(),
+                   reference_drive_peak_memory_bytes=ref[
+                       "drive_peak_memory_bytes"],
+                   vs_reference=compare_logits(run, ref, 32))
+        res["step_graph"] = step_graph_phase(
+            name, eng, drive_trace(4, mcfg.vocab_size))
+        log({"step_graph": res["step_graph"]})
+        log(f"[serve {name}] group {att.group_size} ({att.num_heads} heads, "
+            f"{att.num_kv_heads} KV heads), launches {run['launches']}, KV "
+            f"bytes {res['cache_bytes']}, peak device memory "
+            f"{run['peak_memory_bytes']} bytes ({run['drive_peak_memory_bytes']}"
+            f" over the drive's start), tokens/s {run['tokens_per_s']:.2f}, "
+            f"decode step ms {run['decode_step_ms']:.3f}, admission ms "
+            f"{run['admit_ms']:.3f} on {card}")
+        out[name] = res
+        del run, ref, eng, mparams, mproj
+        gc.collect()
+        torch.cuda.empty_cache()
+        log_time(f"drive {name} and its reference")
+    log({"serve_configs": out})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2396,6 +2570,24 @@ def main() -> int:
         phases.append(prefill_part_phase(geom, h, kvh, gen))
         phases.append(flash_phase(geom, h, kvh, gen))
         phases.append(flash_phase(geom, h, kvh, gen, s=1024, form="served"))
+    # this slice's configs: Qwen1.5-4B (MHA: the bf16 group route with 7 of
+    # its block's 8 heads past the group, the float32 group route at one
+    # head) and Minitron-4B (group 3: 5 of 8 past it; the float32 route
+    # rounds 3 up to 4 heads), paged decode in bf16 and float32 and the
+    # prefill
+    from repro_torch.configs import get_config
+    for geom, _ in GROUP_CONFIGS:
+        att = get_config(geom).attention
+        h, kvh = att.num_heads, att.num_kv_heads
+        phases.append(decode_phase(geom, h, kvh, True, gen))
+        phases.append(decode_phase(geom, h, kvh, True, gen, s=2048,
+                                   len_range=(128, 1056), form="served"))
+        phases.append(decode_phase(geom, h, kvh, True, gen, s=2048,
+                                   len_range=(128, 1056), form="served",
+                                   dtype="float32"))
+        phases.append(prefill_phase(geom, h, kvh, gen))
+        phases.append(prefill_phase(geom, h, kvh, gen, s=1024,
+                                    form="served"))
     # the generic kernels: shapes outside the served ones' compile-time
     # depth and width (flash at head_dim 80, a prefill union of 8 chunks
     # with Dv 128)
@@ -2414,6 +2606,7 @@ def main() -> int:
     assert not bad, f"kernel disagrees with its plain version: {bad}"
 
     serve = serve_phase(card, prof)
+    configs = config_drive_phase(card)
     hf = hf_serve_phase(card, gen)
     src = "src/repro_torch/kernels/csrc/"
     tpu = "src/repro/kernels/"
@@ -2478,6 +2671,20 @@ def main() -> int:
                  max_abs_err=p["max_abs_err"], ms=p["ms"],
                  plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
                  bound_by=p["bound_by"], library_ms=p["library_ms"])
+    # the kernels at this slice's GQA groups, launched by those configs'
+    # drives
+    for k in kernels:
+        rows = [dict(geometry=p["geometry"], form=p["form"],
+                     dtype=p["dtype"], shape=p["shape"],
+                     launches=configs[p["geometry"]]["launches"][k["name"]],
+                     max_abs_err=p["max_abs_err"], ms=p["ms"],
+                     plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+                     bound_by=p["bound_by"], library_ms=p["library_ms"])
+                for p in phases if p["name"] == k["name"]
+                and p["geometry"] in configs]
+        if rows:
+            assert all(r["launches"] > 0 for r in rows), rows
+            k["group_geometries"] = rows
     assert sorted(k["name"] for k in kernels) == sorted(KERNELS)
     log_time("done")
     log(card)                      # name, power.limit as nvidia-smi prints

@@ -28,6 +28,24 @@ rows' largest distance there. Then one line per block_dims with the
 verdict: a near tie when every engine stays within ``LOGIT_RTOL`` of the
 reference and the reference's top-2 margin at the parting token is below
 the two engines' distance. Needs one card.
+
+At whole dim-blocks (block_dims > 1) each request's line also holds the
+selection check: the engines' own selections, the block indices their
+kernels receive in an eager run of the same model code over the same
+tokens (``engine_masks``), against the float64 reference's. At each row past ``LOGIT_RTOL`` it counts the
+dim-blocks (over layers, KV heads and query heads) whose selection
+differs, and over the prompt's rows the share that differs; a second
+float64 reference that takes the engines' selections instead of its own
+gives each engine's worst error again. The verdict line then says whether
+every row past the limit selects other blocks and whether, with the
+engines' selections, every engine stays within the limit: a selection
+difference (the float64 and the model-dtype q̂ rank near-equal block
+magnitudes differently), not a fault of the kernels.
+
+``--float32`` serves a synthetic checkpoint in HF layout at Qwen3-0.6B's
+published geometry instead (random bf16 weights from seed 0, written to
+``build/hf_divergence`` and deleted after), so params and activations are
+float32, as the launcher serves every HF checkpoint: the float32 routes.
 """
 from __future__ import annotations
 
@@ -118,10 +136,68 @@ def selection_mask(qh, aqua, prompt_len: int):
     return sel.repeat_interleave(bd, dim=-1)
 
 
-def reference_logits(eng, tokens, prompt_len: int):
+def engine_masks(eng, tokens, prompt_len: int) -> list:
+    """Per layer, the 0/1 mask (1, T, KV, G, D) of the dim-blocks the
+    engines' kernels select for ``tokens`` (T,): the block indices that
+    the kernel wrappers receive in an eager run of the engine's model
+    (the prompt's prefill into a contiguous cache, then one decode step
+    per later token: the code the engines' graphs captured), recorded at
+    ``ops.prefill_blocks`` (per ``prefill_q_blk`` tile) and
+    ``ops.decode_blocks`` (per query)."""
+    import torch
+    from repro_torch.kernels import ops
+    cfg, aqua = eng.cfg, eng.cfg.aqua
+    att = cfg.attention
+    kvh, g, d, bd = (att.num_kv_heads, att.group_size, att.head_dim,
+                     aqua.block_dims)
+    calls = []
+    pre, dec = ops.prefill_blocks, ops.decode_blocks
+
+    def prefill_blocks(*a, **kw):
+        out = pre(*a, **kw)
+        calls.append(("prefill", out[0], out[2]))
+        return out
+
+    def decode_blocks(*a, **kw):
+        out = dec(*a, **kw)
+        calls.append(("decode", out, None))
+        return out
+    dev = eng.device
+    tok = torch.as_tensor(tokens, device=dev).to(torch.int32)
+    ops.prefill_blocks, ops.decode_blocks = prefill_blocks, decode_blocks
+    try:
+        _, state = eng.model.prefill(eng.params, {"tokens": tok[None,
+                                                                :prompt_len]},
+                                     eng.scfg.max_seq, aqua_proj=eng.proj)
+        for t in range(prompt_len, tok.shape[0]):
+            eng.model.decode_step(eng.params, state, tok[t:t + 1],
+                                  aqua_proj=eng.proj)
+    finally:
+        ops.prefill_blocks, ops.decode_blocks = pre, dec
+    layers = cfg.num_layers
+    assert len(calls) == layers * (1 + tok.shape[0] - prompt_len), len(calls)
+    masks = []
+    for i in range(layers):
+        m = torch.zeros(1, tok.shape[0], kvh * g, d // bd,
+                        dtype=torch.float64, device=dev)
+        _, idx, q_blk = calls[i]                  # (1, H, NQC, NB_sel)
+        rows = torch.arange(prompt_len, device=dev) // q_blk
+        m[0, :prompt_len].scatter_(
+            -1, idx[0].permute(1, 0, 2)[rows].long(), 1.0)
+        for t in range(prompt_len, tok.shape[0]):
+            _, idx, _ = calls[layers * (1 + t - prompt_len) + i]
+            m[0, t].scatter_(-1, idx[0].long(), 1.0)   # (H, NB_sel)
+        masks.append(m.reshape(1, -1, kvh, g, d // bd)
+                     .repeat_interleave(bd, dim=-1))
+    return masks
+
+
+def reference_logits(eng, tokens, prompt_len: int, masks=None,
+                     own_masks=None):
     """float64 logits (T - prompt_len + 1, V) of rows prompt_len - 1 ..
     T - 1 of ``tokens`` (T,), from ``eng``'s params and stored
-    projections."""
+    projections; ``masks`` (per layer) replaces its own selection, and
+    ``own_masks`` (a list) collects its own."""
     import torch
     from repro_torch.models.transformer import layer_params
     cfg, p = eng.cfg, eng.params
@@ -148,7 +224,10 @@ def reference_logits(eng, tokens, prompt_len: int):
         proj = eng.proj[i].double()
         qh = torch.einsum("btkgd,kde->btkge", q, proj)
         kh = torch.einsum("btkd,kde->btke", k, proj)
-        qq = qh * selection_mask(qh, aqua, prompt_len)
+        sel = selection_mask(qh, aqua, prompt_len)
+        if own_masks is not None:
+            own_masks.append(sel)
+        qq = qh * (sel if masks is None else masks[i])
         s = torch.einsum("btkgd,bskd->bkgts", qq, kh) / acfg.head_dim ** 0.5
         s = torch.where(causal, s, torch.full_like(s, -torch.inf))
         o = torch.einsum("bkgts,bskd->btkgd", s.softmax(-1), v)
@@ -168,6 +247,16 @@ def margin(row) -> float:
     return float(top[0] - top[1])
 
 
+def blocks_differing(a, b, block_dims: int):
+    """Per row (T,): the dim-blocks, over layers, KV heads and query heads,
+    that one list of per-layer masks selects and the other does not."""
+    import torch
+    d = a[0].shape[-1]
+    return sum((x != y).reshape(*x.shape[:-1], d // block_dims,
+                                block_dims).any(-1).sum(dim=(0, 2, 3, 4))
+               for x, y in zip(a, b)).to(torch.int64)
+
+
 def probe(block_dims: int, card: str, extra=()) -> list:
     import torch
     from repro_torch.configs import CacheSpec, QuantSpec
@@ -176,6 +265,7 @@ def probe(block_dims: int, card: str, extra=()) -> list:
     run = launcher.main(LAUNCHER_ARGS + ["--block-dims", str(block_dims),
                                          *extra])
     eng = run.engine
+    dtype = eng.cfg.dtype
     reqs = lambda: [dataclasses.replace(r) for r in run.requests]
     chunked = collect(eng, reqs())
     assert chunked[0] == run.streamed, "second serve changed tokens"
@@ -198,13 +288,14 @@ def probe(block_dims: int, card: str, extra=()) -> list:
                     None)
         n = STEPS_WITHOUT_PARTING if part is None else part
         seq = list(map(int, r.tokens)) + tc[:n]
-        ref = reference_logits(eng, seq, plen)           # (n + 1, V)
+        own = []
+        ref = reference_logits(eng, seq, plen, own_masks=own)  # (n + 1, V)
         line = dict(block_dims=block_dims, uid=u, prompt_len=plen,
                     first_parting_token=part, rows_compared=n + 1)
         for name, (toks, logits) in drives.items():
             errs = [float((logits[u][j].double() - ref[j]).abs().max()
                           / ref[j].abs().max()) for j in range(n + 1)]
-            line[name] = dict(worst_err_over_row_max=max(errs),
+            line[name] = dict(worst_err_over_row_max=max(errs), errs=errs,
                               admission_err_over_row_max=errs[0],
                               token_match_with_chunked=sum(
                                   a == b for a, b in zip(toks[u], tc))
@@ -219,9 +310,34 @@ def probe(block_dims: int, card: str, extra=()) -> list:
                                  reference=margin(ref[part])),
                 chunked_vs_contiguous_max_abs=float((c - m).abs().max()),
                 reference_row_max_abs=float(ref[part].abs().max()))
+        if block_dims > 1:
+            mine = engine_masks(eng, seq, plen)
+            diff = blocks_differing(own, mine, block_dims)
+            aq, att = eng.cfg.aqua, eng.cfg.attention
+            per_row = (eng.cfg.num_layers * att.num_heads
+                       * aq.topk_dims(att.head_dim) // block_dims)
+            same_sel = reference_logits(eng, seq, plen, masks=mine)
+            past = sorted({j for name in drives for j in range(n + 1)
+                           if line[name]["errs"][j] > LOGIT_RTOL})
+            line["selection"] = dict(
+                selected_blocks_per_row=per_row,
+                prompt_rows_share_differing=float(
+                    diff[:plen].double().mean() / per_row),
+                rows_past_limit=[dict(
+                    row=j, position=plen - 1 + j,
+                    blocks_differing=int(diff[plen - 1 + j]))
+                    for j in past],
+                with_engine_selection={
+                    name: max(float((logits[u][j].double() - same_sel[j])
+                                    .abs().max() / same_sel[j].abs().max())
+                              for j in range(n + 1))
+                    for name, (_, logits) in drives.items()})
+            del same_sel, mine
+        for name in drives:
+            del line[name]["errs"]
         lines.append(line)
         print(json.dumps(line), flush=True)
-        del ref
+        del ref, own
         if eng.device.type == "cuda":
             torch.cuda.empty_cache()
     parted = [ln for ln in lines if ln["first_parting_token"] is not None]
@@ -235,7 +351,16 @@ def probe(block_dims: int, card: str, extra=()) -> list:
                    all_within_logit_rtol=within,
                    reference_margins_below_engine_distance=ties,
                    near_tie=within and ties, logit_rtol=LOGIT_RTOL,
-                   card=card)
+                   dtype=dtype, card=card)
+    if block_dims > 1:
+        past = [r for ln in lines for r in ln["selection"]["rows_past_limit"]]
+        verdict.update(
+            rows_past_limit=len(past),
+            every_row_past_limit_selects_other_blocks=all(
+                r["blocks_differing"] > 0 for r in past),
+            within_limit_with_engine_selection=all(
+                err <= LOGIT_RTOL for ln in lines
+                for err in ln["selection"]["with_engine_selection"].values()))
     print(json.dumps({"verdict": verdict}), flush=True)
     return lines
 
@@ -245,6 +370,9 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--block-dims", type=int, nargs="+", default=[1, 8])
+    ap.add_argument("--float32", action="store_true",
+                    help="serve a synthetic full-width HF checkpoint "
+                         "(float32 params and activations)")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="the reduced config on the CPU (checks the script, "
                          "measures nothing)")
@@ -253,6 +381,7 @@ def main() -> int:
         for bd in args.block_dims:
             probe(bd, "cpu rehearsal", ("--device", "cpu", "--reduced"))
         return 0
+    extra = ()
     if not torch.cuda.is_available():
         print("chunked_divergence: no CUDA device", file=sys.stderr)
         return 1
@@ -263,9 +392,41 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    for bd in args.block_dims:
-        probe(bd, card)
+    if args.float32:
+        extra = ("--hf-checkpoint", write_checkpoint())
+    try:
+        for bd in args.block_dims:
+            probe(bd, card, extra)
+    finally:
+        if args.float32:
+            import shutil
+            shutil.rmtree(HF_DIR, ignore_errors=True)
     return 0
+
+
+HF_DIR = os.path.join(ROOT, "build", "hf_divergence")
+
+
+def write_checkpoint() -> str:
+    """The synthetic HF checkpoint of ``--float32`` (Qwen3-0.6B's published
+    geometry, tied, random bf16 weights from seed 0) in ``HF_DIR``."""
+    from repro_torch.checkpoint.fixtures import write_hf_fixture
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-0.6b")
+    att = cfg.attention
+    write_hf_fixture(HF_DIR, seed=0, variant="sharded", tied=True,
+                     dtype="bfloat16", device="cuda", config_overrides={
+                         "_name_or_path": "qwen3-0.6b-synthetic",
+                         "hidden_size": cfg.d_model,
+                         "num_hidden_layers": cfg.num_layers,
+                         "num_attention_heads": att.num_heads,
+                         "num_key_value_heads": att.num_kv_heads,
+                         "head_dim": att.head_dim,
+                         "intermediate_size": cfg.d_ff,
+                         "vocab_size": cfg.vocab_size,
+                         "rope_theta": att.rope_theta,
+                         "rms_norm_eps": cfg.norm_eps})
+    return HF_DIR
 
 
 if __name__ == "__main__":

@@ -18,6 +18,8 @@ _MODULES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
     "llama3.1-8b": "llama31_8b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "qwen1.5-4b": "qwen15_4b",
+    "minitron-4b": "minitron_4b",
 }
 ALL_ARCHS = tuple(_MODULES)
 

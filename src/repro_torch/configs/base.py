@@ -85,8 +85,11 @@ class ModelConfig:
     aqua: Optional[AquaConfig] = None
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    act: str = "silu"             # silu (gated MLP) | gelu | relu
     dtype: str = "bfloat16"       # activation/compute dtype
     param_dtype: str = "float32"
+    # long-context capability flag of the JAX package's shape table
+    skip_long_context: bool = False
 
     def with_aqua(self, aqua: AquaConfig) -> "ModelConfig":
         return replace(self, aqua=aqua)
@@ -96,6 +99,7 @@ class ModelConfig:
             raise NotImplementedError(
                 f"family {self.family!r}: the port serves dense decoders only")
         assert self.attention is not None
+        assert self.act in ("silu", "gelu", "relu"), self.act
 
 
 def reduce_config(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,
@@ -118,8 +122,10 @@ class CacheSpec:
     """KV-cache layout. ``page_size`` tokens per page turns the per-lane
     slot stripes into a global page pool with per-lane page tables; None
     keeps the contiguous layout. ``num_pages`` sizes the pool (None =
-    lane-stripe parity). The port does not share prefixes yet: the engine
-    raises for ``prefix_sharing=True`` with a paged cache. ``eviction``
+    lane-stripe parity). ``prefix_sharing`` (on by default, as in JAX)
+    maps page-aligned prompt prefixes that admissions share onto the same
+    physical pages; the engine engages it on a paged full cache (no
+    window, no H2O). ``eviction``
     names the slot policy; "auto" derives it from the model config
     (:func:`resolve_eviction`), and an explicit name that contradicts the
     model is refused, as in the JAX package."""
@@ -150,8 +156,9 @@ class QuantSpec:
     symmetric-quantized K̂/V with float32 scales beside the page table
     (zero-point 0). ``scale_granularity`` "page_head" keeps one scale per
     (page, kv head), "page" one per page. ``hot_resident_fraction`` > 0
-    (mixed precision, a full-precision overlay of the hottest pages) is
-    not ported: the engine raises for it."""
+    (int8 only; mixed precision) also keeps that fraction of the pool's
+    pages, the lanes' freshest, in the model dtype, overlaid on the
+    dequantized pages."""
 
     kv_dtype: str = "bf16"                # bf16 | int8
     scale_granularity: str = "page_head"  # page_head | page

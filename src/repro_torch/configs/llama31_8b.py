@@ -13,4 +13,5 @@ CONFIG = ModelConfig(
     vocab_size=128256,
     attention=AttentionConfig(num_heads=32, num_kv_heads=8, head_dim=128,
                               rope_theta=500000.0),
+    skip_long_context=True,
 )

@@ -14,4 +14,5 @@ CONFIG = ModelConfig(
     attention=AttentionConfig(num_heads=16, num_kv_heads=8, head_dim=128,
                               qk_norm=True, rope_theta=1000000.0),
     tie_embeddings=True,
+    skip_long_context=True,
 )

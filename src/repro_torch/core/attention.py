@@ -713,9 +713,10 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
     The slot comes from the cache policy (ring under ``cfg.window``, H2O
     eviction under ``aqua.h2o_ratio`` < 1, both, or the full cache); the
     block-sparse kernels serve the full-cache policy only, exactly as
-    JAX's ``kernel_ok`` decides. Window and H2O decode the masked-dense
-    core on the (gathered) lane view, and H2O then adds the step's
-    weights to the accumulated scores. ``token_sparsity`` (kept_pages,
+    JAX's ``kernel_ok`` decides. Window and H2O, and int8 pools with hot
+    residents, decode the masked-dense core on the (gathered, dequantized,
+    resident-overlaid) lane view, and H2O then adds the step's weights to
+    the accumulated scores. ``token_sparsity`` (kept_pages,
     pin_recent_pages) engages hierarchical AQUA on a paged full cache:
     only each lane's participating pages (``core.selection``, ranked by
     this layer's ``acc_pool``) are attended, by the kernel and by the
@@ -749,7 +750,10 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
     if (token_sparsity is not None and
             (not full_cache or token_sparsity[0] >= cache.pages_per_lane)):
         token_sparsity = None                  # every page participates
-    if (backend.aqua_native and full_cache
+    # hot residents live only in the dequantized lane view: the int8
+    # kernel reads the raw pages (JAX's REASON_QUANT_RESIDENCY)
+    residents = paged and cache.has_residents
+    if (backend.aqua_native and full_cache and not residents
             and _whole_blocks(aqua, cfg.head_dim)):
         if paged:
             out = backend.paged_decode(q, cache, cfg=cfg, aqua=aqua,

@@ -23,9 +23,11 @@ Two layouts with the same logical slot space:
 * :class:`PagedAttnCache` — a global page pool plus per-lane page tables
   (logical slot ``s`` of lane ``b`` lives at
   ``(page_table[b, s // page_size], s % page_size)``), optionally with
-  int8 pools and float32 per-page scales (``QuantSpec``). Full-cache and
-  ring policies are slot-for-slot those of the contiguous cache; H2O
-  evicts whole pages.
+  int8 pools and float32 per-page scales (``QuantSpec``), and over int8
+  pools optionally with mixed-precision hot residents: a few pages kept
+  in full precision beside their ints, which the reference lane views
+  read instead. Full-cache and ring policies are slot-for-slot those of
+  the contiguous cache; H2O evicts whole pages.
 
 Unlike the JAX package, which returns new pytrees, the write functions
 here update the cache tensors **in place** (an insert touches one slot per
@@ -254,7 +256,15 @@ class PagedAttnCache:
     Quantized pools (``QuantSpec(kv_dtype="int8")``): ``k_pool``/``v_pool``
     hold int8 and ``k_scale``/``v_scale`` (…, P, SH) float32 hold each
     page's scale (``real = int * scale``, 0 = unwritten page); SH is KV
-    for per-(page, kv head) scales and 1 for one scale per page."""
+    for per-(page, kv head) scales and 1 for one scale per page.
+
+    Hot residents (``QuantSpec.hot_resident_fraction`` > 0, int8 pools
+    only): ``k_hot`` (…, H, KV, ps, Dk) / ``v_hot`` (…, H, KV, ps, Dv) in
+    the model dtype hold H pages in full precision and ``hot_ids`` (…, H)
+    int32 the physical page each holds (-1 free). Inserts write through
+    to a resident page; a graft promotes the lane's freshest page in
+    place of the resident with the least ``acc_pool`` mass; a page that
+    is evicted, cleared or reset is demoted."""
 
     k_pool: torch.Tensor
     v_pool: torch.Tensor
@@ -264,10 +274,18 @@ class PagedAttnCache:
     count: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    k_hot: Optional[torch.Tensor] = None
+    v_hot: Optional[torch.Tensor] = None
+    hot_ids: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    @property
+    def has_residents(self) -> bool:
+        """True where the pool carries the full-precision hot overlay."""
+        return self.hot_ids is not None
 
     @property
     def num_pages(self) -> int:
@@ -305,11 +323,13 @@ def init_paged_cache(batch: int, num_kv: int, num_pages: int,
                      dtype=torch.bfloat16, device=None,
                      num_layers: Optional[int] = None,
                      kv_dtype: str = "bf16",
-                     scale_granularity: str = "page_head") -> PagedAttnCache:
+                     scale_granularity: str = "page_head",
+                     hot_pages: int = 0) -> PagedAttnCache:
     """``kv_dtype`` "bf16" keeps full-precision pools (in ``dtype``);
     "int8" stores quantized pools with float32 per-page scales of
     ``scale_granularity`` "page_head" (one per page and kv head) or
-    "page" (one per page)."""
+    "page" (one per page), and with ``hot_pages`` > 0 the hot-resident
+    overlay of that many pages (in ``dtype``), as in JAX."""
     if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
     quant = kv_dtype == "int8"
@@ -321,6 +341,14 @@ def init_paged_cache(batch: int, num_kv: int, num_pages: int,
         scales = {name: torch.zeros(*lead, num_pages, sh, dtype=torch.float32,
                                     device=device)
                   for name in ("k_scale", "v_scale")}
+        if hot_pages > 0:
+            scales.update(
+                k_hot=torch.zeros(*lead, hot_pages, num_kv, page_size, dk,
+                                  dtype=dtype, device=device),
+                v_hot=torch.zeros(*lead, hot_pages, num_kv, page_size, dv,
+                                  dtype=dtype, device=device),
+                hot_ids=torch.full((*lead, hot_pages), -1, dtype=torch.int32,
+                                   device=device))
     return PagedAttnCache(
         k_pool=torch.zeros(*lead, num_pages, num_kv, page_size, dk,
                            dtype=pool_dtype, device=device),
@@ -393,6 +421,28 @@ def _insert_quant_token(pool: torch.Tensor, scale: torch.Tensor,
     scale[phys] = s_cand
 
 
+def _demote_residents(hot_ids: torch.Tensor, freed: torch.Tensor,
+                      ok: torch.Tensor) -> None:
+    """Drop, in place, the hot residents whose physical page is one of
+    ``freed`` (1-D) where ``ok``: a recycled page must not serve a stale
+    full-precision overlay."""
+    stale = ((hot_ids[:, None] == freed[None, :]) & ok[None, :]).any(dim=1)
+    hot_ids.masked_fill_(stale, -1)
+
+
+def _hot_overlay(vals: torch.Tensor, hot_pool: torch.Tensor,
+                 table: torch.Tensor, hot_ids: torch.Tensor) -> torch.Tensor:
+    """Resident pages read their full-precision copy: ``vals`` (B, NP, KV,
+    ps, D) gathered through ``table`` (B, NP); an entry that matches a
+    live ``hot_ids`` slot takes ``hot_pool``'s page (the first matching
+    slot, as ``jnp.argmax``) cast to ``vals``' dtype."""
+    m = (table[..., None] == hot_ids) & (hot_ids >= 0)    # (B, NP, H)
+    hit = m.any(dim=-1)
+    hidx = torch.argmax(m.to(torch.int32), dim=-1)
+    hot = hot_pool.to(vals.dtype)[hidx]                   # (B, NP, KV, ps, D)
+    return torch.where(hit[..., None, None, None], hot, vals)
+
+
 def paged_lane_view(cache: PagedAttnCache) -> AttnCache:
     """Gather the per-lane contiguous view of a (single-layer) paged cache
     — slot-for-slot what the contiguous cache would hold, dequantized to
@@ -407,6 +457,9 @@ def paged_lane_view(cache: PagedAttnCache) -> AttnCache:
     if cache.quantized:
         k = dequant_pages(k, cache.k_scale[pages])
         v = dequant_pages(v, cache.v_scale[pages])
+        if cache.has_residents:
+            k = _hot_overlay(k, cache.k_hot, table, cache.hot_ids)
+            v = _hot_overlay(v, cache.v_hot, table, cache.hot_ids)
     k = k.transpose(1, 2).reshape(b, kvh, cache.num_slots, -1)
     v = v.transpose(1, 2).reshape(b, kvh, cache.num_slots, -1)
     pos = torch.where(table[..., None] >= 0, cache.pos_pool[pages],
@@ -419,9 +472,10 @@ def paged_lane_pages(cache: PagedAttnCache, lane: int, dtype=None):
     """One lane's mapped pages as a contiguous view: (k (1, KV, S_log,
     Dk), v (1, KV, S_log, Dv), positions (1, S_log)). int8 pools come back
     dequantized (to ``dtype``, float32 by default), so quantization stays
-    a storage detail of the pool; full-precision pools are cast to
-    ``dtype`` when given. Unmapped pages read position -1. The chunked
-    prefill reads the prefix it already wrote through this."""
+    a storage detail of the pool (resident pages read their
+    full-precision copy); full-precision pools are cast to ``dtype`` when
+    given. Unmapped pages read position -1. The chunked prefill reads the
+    prefix it already wrote through this."""
     tbl = cache.page_table[lane].long()                     # (NP,)
     phys = tbl.clamp(min=0)
     pk, pv = cache.k_pool[phys], cache.v_pool[phys]         # (NP, KV, ps, D)
@@ -430,6 +484,9 @@ def paged_lane_pages(cache: PagedAttnCache, lane: int, dtype=None):
         pv = dequant_pages(pv, cache.v_scale[phys])
     if dtype is not None:
         pk, pv = pk.to(dtype), pv.to(dtype)
+    if cache.has_residents:
+        pk = _hot_overlay(pk[None], cache.k_hot, tbl[None], cache.hot_ids)[0]
+        pv = _hot_overlay(pv[None], cache.v_hot, tbl[None], cache.hot_ids)[0]
     ppos = torch.where(tbl[:, None] >= 0, cache.pos_pool[phys],
                        torch.full_like(cache.pos_pool[phys], -1))
     kvh, s_log = pk.shape[1], cache.num_slots
@@ -515,12 +572,14 @@ def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
                  evict_page: Optional[torch.Tensor] = None
                  ) -> PagedAttnCache:
     """Write one token's k/v at logical ``slot`` through the page table, in
-    place (quantized with the page's running scale for int8 pools; the
-    slot's accumulated score is cleared). Rows masked off, or whose slot's
-    page is unmapped, write nothing; masked-off rows keep their count.
-    ``evict_page`` (B,) (page-granular H2O, -1 = none): the victim
-    logical page's positions and scores are cleared first, so its other
-    slots read as empty from the next step on."""
+    place (quantized with the page's running scale for int8 pools, and
+    written through to the page's full-precision copy where it is a hot
+    resident; the slot's accumulated score is cleared). Rows masked off,
+    or whose slot's page is unmapped, write nothing; masked-off rows keep
+    their count. ``evict_page`` (B,) (page-granular H2O, -1 = none): the
+    victim logical page's positions, scores and, for int8 pools, scales
+    are cleared first (and the page is demoted from residency), so its
+    other slots read as empty from the next step on."""
     b = cache.page_table.shape[0]
     ps = cache.page_size
     rows = torch.arange(b, device=slot.device)
@@ -533,13 +592,8 @@ def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
         ev_ok = (evict_page >= 0) & (ev >= 0)
         if write_mask is not None:
             ev_ok &= write_mask
-        (ev_phys,), donor, any_ok = _stand_in(ev_ok, ev.long().clamp(min=0))
-        cache.pos_pool[ev_phys] = _stand_in_values(
-            ev_ok, donor, any_ok, torch.full_like(cache.pos_pool[ev_phys], -1),
-            cache.pos_pool[ev_phys])
-        cache.acc_pool[ev_phys] = _stand_in_values(
-            ev_ok, donor, any_ok, torch.zeros_like(cache.acc_pool[ev_phys]),
-            cache.acc_pool[ev_phys])
+        _clear_pages(cache, torch.where(ev_ok, ev.long(),
+                                        torch.full_like(ev.long(), -1)))
     (phys, off), donor, any_ok = _stand_in(
         ok, entry.long().clamp(min=0), (slot % ps).long())
     if cache.quantized:
@@ -548,6 +602,8 @@ def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
             donated = torch.where(ok[:, None, None], new,
                                   new.index_select(0, donor))
             _insert_quant_token(pool, scale, phys, off, donated, any_ok)
+        if cache.has_residents:
+            _write_through(cache, phys, off, ok, k_new, v_new)
     else:
         for pool, new in ((cache.k_pool, k_new), (cache.v_pool, v_new)):
             pool[phys, :, off] = _stand_in_values(
@@ -559,6 +615,24 @@ def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
         cache.acc_pool[phys, :, off])
     cache.count += 1 if write_mask is None else write_mask.to(torch.int32)
     return cache
+
+
+def _write_through(cache: PagedAttnCache, phys: torch.Tensor,
+                   off: torch.Tensor, ok: torch.Tensor, k_new: torch.Tensor,
+                   v_new: torch.Tensor) -> None:
+    """The write-through of an int8 insert: a writing row whose page is a
+    hot resident also writes its exact token into the page's copy (the
+    first matching slot, as ``jnp.argmax``), so the overlay never lags the
+    pool. ``phys``/``off`` as :func:`_stand_in` redirected them; rows that
+    write no resident repeat the write of one that does, and with none
+    every row rewrites what its address holds."""
+    hm = cache.hot_ids[None, :] == phys[:, None]           # (B, H)
+    hit = hm.any(dim=1) & ok
+    hslot = torch.argmax(hm.to(torch.int32), dim=1)
+    (hslot, hoff), donor, any_hit = _stand_in(hit, hslot, off)
+    for hot, new in ((cache.k_hot, k_new), (cache.v_hot, v_new)):
+        hot[hslot, :, hoff] = _stand_in_values(
+            hit, donor, any_hit, new.to(hot.dtype), hot[hslot, :, hoff])
 
 
 def paged_accumulate_h2o(cache: PagedAttnCache, attn_weights: torch.Tensor,
@@ -622,10 +696,11 @@ def _lane_table(cache: PagedAttnCache, lane: torch.Tensor) -> torch.Tensor:
 
 
 def _clear_pages(cache: PagedAttnCache, tbl: torch.Tensor) -> None:
-    """Clear the pages that ``tbl`` (NP,) maps (entries >= 0): positions
-    -1, scores 0, and scales 0 for int8 pools, in place. Unmapped
-    entries repeat a mapped entry's clear (:func:`_stand_in`); with none
-    mapped every entry rewrites what its address holds."""
+    """Clear the pages that ``tbl`` (a lane's table row (NP,), or H2O's
+    victims (B,)) maps (entries >= 0): positions -1, scores 0, and scales
+    0 for int8 pools, in place; hot residents on them are demoted. Unmapped entries repeat a mapped entry's clear
+    (:func:`_stand_in`); with none mapped every entry rewrites what its
+    address holds."""
     ok = tbl >= 0
     (phys,), donor, any_ok = _stand_in(ok, tbl.clamp(min=0))
     pools = [(cache.pos_pool, -1), (cache.acc_pool, 0.0)]
@@ -635,6 +710,8 @@ def _clear_pages(cache: PagedAttnCache, tbl: torch.Tensor) -> None:
         old = t[phys]
         t[phys] = _stand_in_values(ok, donor, any_ok,
                                    torch.full_like(old, empty), old)
+    if cache.has_residents:
+        _demote_residents(cache.hot_ids, phys, ok)
 
 
 def _write_tokens(cache: PagedAttnCache, tbl: torch.Tensor, start_page: int,
@@ -681,15 +758,45 @@ def _write_tokens(cache: PagedAttnCache, tbl: torch.Tensor, start_page: int,
         write(cache.acc_pool, (phys, slice(None), off), acc)
 
 
+def _promote(cache: PagedAttnCache, req: AttnCache, tbl: torch.Tensor,
+             num_slots: int) -> None:
+    """The graft's precision policy, in place: the lane's freshest page
+    (logical page ``(num_slots - 1) // page_size``, which eviction
+    protects as recent) becomes a hot resident in place of the resident
+    with the least summed ``acc_pool`` mass (a free slot first; the first
+    index among ties, as ``jnp.argmin``), with the grafted tokens of that
+    page, zero-padded, as its full-precision copy. An unmapped page
+    promotes nothing (every write rewrites what its address holds)."""
+    ps = cache.page_size
+    lp = (num_slots - 1) // ps
+    new_page = tbl[lp:lp + 1]                                # (1,)
+    hot_ids = cache.hot_ids
+    mass = cache.acc_pool[hot_ids.long().clamp(min=0)].sum(dim=(1, 2))
+    mass = torch.where(hot_ids >= 0, mass, torch.full_like(mass,
+                                                           -float("inf")))
+    vslot = torch.argmin(mass).reshape(1)
+    ok = new_page >= 0
+    pad = (lp + 1) * ps - num_slots
+    for hot, seg in ((cache.k_hot, req.k[0][:, lp * ps:num_slots]),
+                     (cache.v_hot, req.v[0][:, lp * ps:num_slots])):
+        seg = torch.nn.functional.pad(seg, (0, 0, 0, pad)).to(hot.dtype)
+        hot[vslot] = torch.where(ok[:, None, None, None], seg[None],
+                                 hot[vslot])
+    hot_ids[vslot] = torch.where(ok, new_page.to(hot_ids.dtype),
+                                 hot_ids[vslot])
+
+
 def paged_graft(cache: PagedAttnCache, req: AttnCache, lane,
                 num_slots: int) -> PagedAttnCache:
     """Copy logical slots [0, num_slots) of a B=1 contiguous cache (an
     admission prefill) into ``lane``'s pages, in place. Every page the
     lane maps is cleared first (positions -1, scores 0, and scales 0 for
-    int8 pools): pool pages are recycled, so a previous tenant's state
-    must never read as valid. int8 pools get per-page scales over the
-    grafted tokens; an H2O prefill's ``acc_score`` lands in ``acc_pool``.
-    The lane's page-table row is installed before this runs.
+    int8 pools; residents on them demoted): pool pages are recycled, so a
+    previous tenant's state must never read as valid. int8 pools get
+    per-page scales over the grafted tokens, and with hot residents the
+    lane's freshest page is promoted (:func:`_promote`); an H2O prefill's
+    ``acc_score`` lands in ``acc_pool``. The lane's page-table row is
+    installed before this runs.
 
     ``lane`` is a Python int or a 0-d / 1-element int tensor on the
     cache's device; nothing is read on the host (an admission graph
@@ -698,6 +805,8 @@ def paged_graft(cache: PagedAttnCache, req: AttnCache, lane,
     lane = lane_index(lane, cache.count.device)
     tbl = _lane_table(cache, lane)
     _clear_pages(cache, tbl)
+    if cache.has_residents:
+        _promote(cache, req, tbl, num_slots)
     _write_tokens(cache, tbl, 0, req.k[0][:, :num_slots].transpose(0, 1),
                   req.v[0][:, :num_slots].transpose(0, 1),
                   req.positions[0, :num_slots],
@@ -765,7 +874,7 @@ def paged_copy_page(cache: PagedAttnCache, src, dst) -> PagedAttnCache:
 
 
 #: fields whose empty value is -1 (positions, page tables); the others 0
-_EMPTY_IS_MINUS_ONE = ("positions", "pos_pool", "page_table")
+_EMPTY_IS_MINUS_ONE = ("positions", "pos_pool", "page_table", "hot_ids")
 
 
 def reset_cache(cache):

@@ -17,8 +17,7 @@ Paged drives share page-aligned prompt prefixes unless
 Runs on the CUDA card (``--device cuda``, the default; exits non-zero
 without one) or, when asked, on the CPU (``--device cpu``: the kernels'
 plain versions). What the engine does not serve yet is refused with its
-own message: meshes (``--mesh``, ``--expect-kernel-mesh``), ``--hot-frac``
-> 0, and int8 pools under a window or H2O.
+own message: meshes (``--mesh``, ``--expect-kernel-mesh``).
 
 CLI::
 
@@ -153,7 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "(page, kv head) or one per page")
     ap.add_argument("--hot-frac", type=float, default=0.0,
                     help="fraction of the pool kept as full-precision hot "
-                         "residents (not ported: > 0 is refused)")
+                         "residents (H2O score policy; mixed precision "
+                         "serves on the reference path, not the kernel)")
     # hierarchical (two-stage) token sparsity
     ap.add_argument("--page-keep-ratio", type=float, default=1.0,
                     help="hierarchical AQUA: fraction of each lane's pages "

@@ -27,8 +27,9 @@ class PagingSpec:
     """Page-pool geometry installed on a model by the serving engine
     (``LM.enable_paging``): ``init_decode_state`` then allocates a global
     page pool + per-lane page tables instead of per-lane slot stripes.
-    ``kv_dtype`` / ``scale_granularity`` carry the engine's ``QuantSpec``
-    (int8 pools with per-page scales); ``kept_pages`` (None = every page)
+    ``kv_dtype`` / ``scale_granularity`` / ``hot_pages`` carry the
+    engine's ``QuantSpec`` (int8 pools with per-page scales, and that many
+    full-precision hot residents); ``kept_pages`` (None = every page)
     and ``pin_recent_pages`` its ``SparsitySpec`` (hierarchical AQUA:
     decode attends each lane's ``kept_pages`` participating pages)."""
 
@@ -38,6 +39,7 @@ class PagingSpec:
     scale_granularity: str = "page_head"  # page_head | page
     kept_pages: Optional[int] = None
     pin_recent_pages: int = 2
+    hot_pages: int = 0
 
 
 class LM:

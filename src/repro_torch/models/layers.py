@@ -11,16 +11,30 @@ def _normal(gen, shape, std, dtype, device):
                        device=device).mul_(std).to(dtype)
 
 
+def act_fn(name: str):
+    """The MLP activation by ``ModelConfig.act`` name (JAX's ``gelu`` is
+    the tanh approximation)."""
+    return {"silu": F.silu, "relu": F.relu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
-             dtype=torch.float32, device=None) -> dict:
-    """Gated SiLU MLP weights (w1 gate, w3 up, w2 down)."""
-    return {"w1": _normal(gen, (d_model, d_ff), d_model ** -0.5, dtype, device),
-            "w2": _normal(gen, (d_ff, d_model), d_ff ** -0.5, dtype, device),
-            "w3": _normal(gen, (d_model, d_ff), d_model ** -0.5, dtype, device)}
+             dtype=torch.float32, device=None, gated: bool = True) -> dict:
+    """MLP weights (w1 in, w2 down; a gated MLP adds w3 up)."""
+    p = {"w1": _normal(gen, (d_model, d_ff), d_model ** -0.5, dtype, device),
+         "w2": _normal(gen, (d_ff, d_model), d_ff ** -0.5, dtype, device)}
+    if gated:
+        p["w3"] = _normal(gen, (d_model, d_ff), d_model ** -0.5, dtype,
+                          device)
+    return p
 
 
-def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p["w1"].to(x.dtype)) * (x @ p["w3"].to(x.dtype))
+def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """``act(x w1) [* x w3] w2``: gated where the params hold ``w3`` (the
+    model makes them iff ``act == "silu"``, as in JAX)."""
+    h = act_fn(act)(x @ p["w1"].to(x.dtype))
+    if "w3" in p:
+        h = h * (x @ p["w3"].to(x.dtype))
     return h @ p["w2"].to(x.dtype)
 
 

@@ -31,7 +31,8 @@ def init_block(gen: torch.Generator, cfg, dtype, device) -> dict:
         "ln2": torch.ones(cfg.d_model, dtype=dtype, device=device),
         "attn": attn.init_attention_params(gen, cfg.d_model, cfg.attention,
                                            dtype, device),
-        "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
+        "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                          gated=cfg.act == "silu"),
     }
 
 
@@ -51,7 +52,8 @@ def block_forward(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                                     proj, positions, return_aux=True,
                                     lengths=lengths)
     x = x + h
-    return x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps)), aux
+    return x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                     cfg.act), aux
 
 
 def block_step(cfg, p: dict, x_t: torch.Tensor, cache,
@@ -64,7 +66,8 @@ def block_step(cfg, p: dict, x_t: torch.Tensor, cache,
                               write_mask=write_mask,
                               token_sparsity=token_sparsity)
     x = x_t + h
-    return x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                     cfg.act)
 
 
 class DenseLM(LM):
@@ -152,7 +155,8 @@ class DenseLM(LM):
                 kv.paged_pages(slots, pg.page_size), pg.page_size, dk, dv,
                 self.dtype, device, num_layers=cfg.num_layers,
                 kv_dtype=pg.kv_dtype,
-                scale_granularity=pg.scale_granularity)
+                scale_granularity=pg.scale_granularity,
+                hot_pages=pg.hot_pages)
         else:
             layers = kv.init_attn_cache(
                 batch_size, acfg.num_kv_heads, slots, dk, dv, self.dtype,
@@ -262,7 +266,8 @@ class DenseLM(LM):
                 prefix_len=prefix_len, positions=positions, lengths=lengths,
                 select_q_blk=select_q_blk)
             x = x + h
-            x = x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+            x = x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                          cfg.act)
             if paged:
                 kv.paged_write_tail(cache, lane, k_t[0], v_t[0], positions[0],
                                     prefix_len // cache.page_size, tail_count)

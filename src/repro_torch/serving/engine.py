@@ -73,9 +73,16 @@ a fresh admission replays its bucket's graph. Both then index the
 prompt's full pages (a chunked admission after its final chunk). Decode
 writes only private pages: a shared page is always a full prompt page.
 
-Not ported yet (the engine raises ``NotImplementedError``): meshes, int8
-pools under a window or H2O, and mixed-precision hot residents
-(``QuantSpec.hot_resident_fraction`` > 0).
+int8 pools serve every slot policy: a window's wrapped ring keeps growing
+a re-entered page's running scale, as in JAX, and an evicted page's
+scales are cleared. Mixed-precision hot residents
+(``QuantSpec.hot_resident_fraction`` > 0, int8 pools): ``max(1,
+round(fraction · num_pages))`` pages are also kept in the model dtype; each
+admission promotes its lane's freshest page, inserts write through, and
+decode reads the dequantized lane view with the residents overlaid (the
+masked-dense core, as in JAX: the int8 kernel reads raw pages).
+
+Not ported yet (the engine raises ``NotImplementedError``): meshes.
 """
 from __future__ import annotations
 
@@ -273,14 +280,6 @@ class ContinuousBatchingEngine:
         cache, quant = resolve_cache_specs(serving)
         self.sparsity_spec = resolve_sparsity_spec(serving)
         self.eviction = resolve_eviction(cache, cfg.attention, cfg.aqua)
-        if quant.quantized and self.eviction != "none":
-            raise NotImplementedError(
-                f"int8 KV pools under the {self.eviction!r} slot policy "
-                "(sliding window / H2O) are not ported yet")
-        if quant.hot_resident_fraction > 0:
-            raise NotImplementedError(
-                "mixed-precision hot residents (QuantSpec."
-                "hot_resident_fraction > 0) are not ported yet")
         self.cfg = cfg
         self.scfg = serving
         self.cache_spec = cache
@@ -326,6 +325,7 @@ class ContinuousBatchingEngine:
         self._num_slots = self.model.cache_slots(serving.max_seq)
         self._paged = cache.paged
         self._kept_pages = None
+        self._hot_pages = 0
         if self._paged:
             if self._num_slots % cache.page_size != 0:
                 raise ValueError(
@@ -337,6 +337,11 @@ class ContinuousBatchingEngine:
                                                    cache.page_size)
             self._num_pages = cache.num_pages or (serving.max_lanes
                                                   * self._pages_per_lane)
+            # hot residents: a fraction of the int8 pool also kept in full
+            # precision (mixed precision), sized as in JAX
+            if quant.quantized and quant.hot_resident_fraction > 0:
+                self._hot_pages = max(1, int(round(
+                    quant.hot_resident_fraction * self._num_pages)))
             # hierarchical AQUA: the participating page count, resolved
             # once (the table itself is per step and layer) where the plan
             # engages it and it drops a page
@@ -348,7 +353,8 @@ class ContinuousBatchingEngine:
                 cache.page_size, self._num_pages, kv_dtype=quant.kv_dtype,
                 scale_granularity=quant.scale_granularity,
                 kept_pages=self._kept_pages,
-                pin_recent_pages=self.sparsity_spec.pin_recent_pages))
+                pin_recent_pages=self.sparsity_spec.pin_recent_pages,
+                hot_pages=self._hot_pages))
         # chunked prefill, gated by the plan. Non-final chunks keep the
         # cursor bucket-aligned (ragged chunk batches) and page-aligned
         # (paged tail writes start at a page); on the block-sparse
@@ -381,6 +387,11 @@ class ContinuousBatchingEngine:
         """Participating pages per lane under hierarchical AQUA, or None
         when every page participates."""
         return self._kept_pages
+
+    @property
+    def hot_pages(self) -> int:
+        """Full-precision hot-resident pages of an int8 pool (0: none)."""
+        return self._hot_pages
 
     @property
     def pages_per_lane(self) -> Optional[int]:

@@ -18,6 +18,7 @@ import torch
 from repro.configs import reduced as jax_reduced
 from repro.configs.base import AquaConfig as JaxAquaConfig
 from repro.configs.base import CacheSpec as JaxCacheSpec
+from repro.configs.base import QuantSpec as JaxQuantSpec
 from repro.configs.base import ServingConfig as JaxServingConfig
 from repro.core.calibration import AquaProjections as JaxProjections
 from repro.models import build_model as jax_build_model
@@ -140,14 +141,28 @@ def test_engine_refuses_what_is_not_ported(models):
         ContinuousBatchingEngine(tcfg, tparams, tproj, device="cpu",
                                  serving=ServingConfig(mesh_shape=(2, 2),
                                                        **SERVE))
-    # H2O is served; int8 pools under it are not
-    with pytest.raises(NotImplementedError, match="int8"):
-        ContinuousBatchingEngine(
-            dataclasses.replace(tcfg, aqua=AquaConfig(h2o_ratio=0.5,
-                                                      **AQUA_KW)),
-            tparams, tproj, device="cpu", serving=ServingConfig(
-                cache=CacheSpec(page_size=8, prefix_sharing=False),
-                quant=QuantSpec(kv_dtype="int8"), **SERVE))
+    # int8 pools under H2O are served (they were refused before they were
+    # ported): greedy tokens equal the JAX engine's on an evicting trace
+    jcfg, params, jproj = models[:3]
+    h2o_trace = dict(TRACE, prompt_lens=(36, 44))
+    want = JaxEngine(
+        dataclasses.replace(jcfg, aqua=dataclasses.replace(
+            jcfg.aqua, h2o_ratio=0.5)), params, jproj,
+        serving=JaxServingConfig(
+            cache=JaxCacheSpec(page_size=8, prefix_sharing=False),
+            quant=JaxQuantSpec(kv_dtype="int8"), **SERVE),
+        backend="aqua-block-sparse").run(jax_poisson_trace(4, **h2o_trace))
+    eng = ContinuousBatchingEngine(
+        dataclasses.replace(tcfg, aqua=AquaConfig(h2o_ratio=0.5, **AQUA_KW)),
+        tparams, tproj, device="cpu", backend="aqua-block-sparse",
+        serving=ServingConfig(
+            cache=CacheSpec(page_size=8, prefix_sharing=False),
+            quant=QuantSpec(kv_dtype="int8"), **SERVE))
+    got = eng.run(poisson_trace(4, **h2o_trace))
+    assert eng.eviction == "h2o" and eng.last_state.layers.quantized
+    assert int(eng.last_state.layers.count.max()) > 32   # past the budget
+    for uid, out in want.items():
+        assert got[uid].tokens == list(out.tokens), uid
     with pytest.raises(ValueError, match="max_seq"):
         _port_engine(models).run([poisson_trace(1, **dict(
             TRACE, prompt_lens=(60,)))[0]])

@@ -63,7 +63,9 @@ DECODE_CASES = [(16, 8, 128, 0.75, 8), (8, 2, 64, 0.5, 8), (4, 4, 32, 1.0, 8),
                 (12, 4, 64, 0.75, 8), (32, 2, 64, 0.75, 8),
                 (32, 2, 128, 0.75, 8),
                 (8, 2, 64, 0.5, 2), (8, 4, 64, 0.75, 4), (16, 4, 128, 0.5, 16),
-                (8, 4, 256, 0.75, 8), (8, 2, 72, 0.75, 8)]
+                (8, 4, 256, 0.75, 8), (8, 2, 72, 0.75, 8),
+                # Qwen1.5-4B (MHA, group 1) and Minitron-4B (group 3)
+                (20, 20, 128, 0.75, 8), (24, 8, 128, 0.75, 8)]
 
 
 # page sizes 16 and 64 hold whole 16-position tiles; 8 splits a tile
@@ -129,7 +131,10 @@ def test_decode_kernel_matches_plain(cuda, dtype, paged, ps, h, kv, d,
                                             # bf16 kernel's 64-row blocks
                                             (32, 8, 128, 300, 72),
                                             # 24 gathered dims, padded to 32
-                                            (4, 4, 32, 200, 64)])
+                                            (4, 4, 32, 200, 64),
+                                            # groups 1 and 3
+                                            (20, 20, 128, 300, 128),
+                                            (24, 8, 128, 300, 128)])
 def test_prefill_kernel_matches_plain(cuda, dtype, h, kv, d, s, q_blk):
     gen = torch.Generator(device="cuda").manual_seed(s + q_blk)
     b = 2
@@ -1002,14 +1007,16 @@ def test_aqua_memory_engine_on_the_card_matches_plain_reference(cuda):
 
 
 # the decode body each reduced drive launches once per layer per step
-# (window and H2O decode on the masked-dense core, AQUA off on dense)
+# (window and H2O decode on the masked-dense core, as do hot residents;
+# AQUA off on dense)
 STEP_BODY = {"paged": "aqua_paged_decode", "contiguous": "aqua_decode",
              "flash_paged": None, "int8_paged": "aqua_paged_quant_decode",
              "hier_paged": "aqua_paged_part_decode",
              "hier_int8_paged": "aqua_paged_part_quant_decode",
              "chunked_paged": "aqua_paged_decode", "swa_paged": None,
              "h2o_paged": None, "aqua_memory_paged": "aqua_paged_decode",
-             "prefix_paged": "aqua_paged_decode"}
+             "prefix_paged": "aqua_paged_decode", "int8_swa_paged": None,
+             "int8_h2o_paged": None, "hot_int8_paged": None}
 
 
 @pytest.mark.parametrize("name", list(STEP_BODY))
@@ -1119,7 +1126,8 @@ ADMIT_BODY = {"paged": "aqua_prefill", "contiguous": "aqua_prefill",
               "flash_paged": "flash_attention", "int8_paged": "aqua_prefill",
               "hier_paged": "aqua_prefill",
               "hier_int8_paged": "aqua_prefill",
-              "aqua_memory_paged": "aqua_prefill"}
+              "aqua_memory_paged": "aqua_prefill",
+              "hot_int8_paged": "aqua_prefill"}
 
 
 @pytest.mark.parametrize("name", list(ADMIT_BODY))

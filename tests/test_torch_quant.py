@@ -243,8 +243,20 @@ def test_engine_refuses_int8_and_hierarchy_without_pages_and_hot_residents(
         _port_engine(models, quant=QuantSpec(kv_dtype="int8"))
     with pytest.raises(ValueError, match="paged"):
         _port_engine(models, sparsity=SparsitySpec(page_keep_ratio=0.5))
-    with pytest.raises(NotImplementedError, match="hot residents"):
-        _port_engine(models,
-                     cache=CacheSpec(page_size=8, prefix_sharing=False),
-                     quant=QuantSpec(kv_dtype="int8",
-                                     hot_resident_fraction=0.25))
+    # hot residents are served (they were refused before they were
+    # ported): greedy tokens equal the JAX engine's
+    jcfg, params, jproj = models[:3]
+    want = JaxEngine(jcfg, params, jproj, serving=JaxServingConfig(
+        cache=JaxCacheSpec(page_size=8, prefix_sharing=False),
+        quant=JaxQuantSpec(kv_dtype="int8", hot_resident_fraction=0.25),
+        **SERVE), backend="aqua-block-sparse").run(
+            jax_poisson_trace(6, **TRACE))
+    eng = _port_engine(models,
+                       cache=CacheSpec(page_size=8, prefix_sharing=False),
+                       quant=QuantSpec(kv_dtype="int8",
+                                       hot_resident_fraction=0.25))
+    got = eng.run(poisson_trace(6, **TRACE))
+    assert eng.hot_pages == 6 and eng.last_state.layers.has_residents
+    assert eng.dispatch_plan().quantization == "int8-mixed"
+    for uid, out in want.items():
+        assert got[uid].tokens == list(out.tokens), uid

@@ -15,13 +15,16 @@ the pool checks, the page-ranking oracle, the chunked gap check) passes
 on every path. A paged drive sharing a prompt prefix (``--shared-prefix-len``,
 prefix sharing on as in JAX) against the JAX launcher's prefix line and
 the JAX engine's tokens. Plus ``--rectangular`` against JAX's
-``ServeEngine``, the refusals of what the engine does not serve, the
+``ServeEngine``, the refusals of what the engine does not serve (meshes),
+int8 pools under a window ring, under H2O and with hot residents (refused
+until the engine served them) against the JAX engine's tokens, the
 refusal without a card, and ``ScheduleStats``' gap statistics against
 JAX's.
 """
 import dataclasses
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,11 +32,13 @@ import torch
 
 from repro.checkpoint import fixtures as jfix
 from repro.checkpoint import hf as jhf
+from repro.configs import reduced as jax_reduced
 from repro.configs.base import AquaConfig as JaxAquaConfig
 from repro.configs.base import CacheSpec as JaxCacheSpec
 from repro.configs.base import QuantSpec as JaxQuantSpec
 from repro.configs.base import ServingConfig as JaxServingConfig
 from repro.configs.base import SparsitySpec as JaxSparsitySpec
+from repro.core.calibration import AquaProjections as JaxProjections
 from repro.core.calibration import load_projections as jax_load_projections
 from repro.serving import ContinuousBatchingEngine as JaxEngine
 from repro.serving import ServeEngine as JaxServeEngine
@@ -208,17 +213,76 @@ def test_cli_registry_model_with_synthetic_calibration(capsys):
 @pytest.mark.parametrize("extra,words", [
     (["--mesh", "2x2"], "mesh serving is not ported yet"),
     (["--expect-kernel-mesh"], "mesh serving is not ported yet"),
-    (["--arch", "h2o-danube-1.8b", "--page-size", "8", "--kv-dtype",
-      "int8"], "int8 KV pools under the 'ring' slot policy"),
-    (PAGED + ["--kv-dtype", "int8", "--hot-frac", "0.5"],
-     "hot_resident_fraction > 0) are not ported yet"),
-    (PAGED + ["--kv-dtype", "int8", "--h2o-ratio", "0.5"],
-     "int8 KV pools under the 'h2o' slot policy"),
 ])
 def test_cli_refuses_what_the_engine_does_not_serve(extra, words):
     with pytest.raises(SystemExit) as ei:
         main(["--device", "cpu", "--reduced", "--block-dims", "8", *extra])
     assert words in str(ei.value.code)
+
+
+# what the launcher refused until the engine served it: int8 pools under
+# Danube's window ring and under H2O, and hot residents
+SERVED_SINCE = {
+    "int8-ring": ["--arch", "h2o-danube-1.8b", "--page-size", "8",
+                  "--kv-dtype", "int8"],
+    "int8-hot": PAGED + ["--kv-dtype", "int8", "--hot-frac", "0.5"],
+    "int8-h2o": PAGED + ["--kv-dtype", "int8", "--h2o-ratio", "0.5"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVED_SINCE))
+def test_cli_serves_int8_pools_under_every_policy_like_jax(case, capsys):
+    """The registry's reduced config with the launcher's random params and
+    synthetic calibration; the JAX engine on the same params and
+    projections (``aqua-block-sparse``, Pallas interpret) gives the same
+    greedy tokens. ``--verify`` (token identity with the paged int8
+    reference engine) where JAX's launcher passes it: with ``--hot-frac``
+    0.5 the pool holds half its pages twice, so the 0.60 pool-bytes gate
+    fails in both launchers."""
+    extra = SERVED_SINCE[case]
+    t = dict(TRACE, requests=5, lanes=3)
+    argv = ["--device", "cpu", "--reduced", "--block-dims", "8",
+            "--prefill-q-blk", "16", "--backend", "aqua-block-sparse",
+            "--requests", str(t["requests"]), "--lanes", str(t["lanes"]),
+            "--prompt-lens", ",".join(map(str, t["prompt_lens"])),
+            "--steps", str(t["steps"]), "--max-seq", str(t["max_seq"]),
+            *extra]
+    run = main(argv + ([] if case == "int8-hot" else ["--verify"]))
+    printed = capsys.readouterr().out
+    assert "quantized pool (int8)" in printed
+    if case != "int8-hot":
+        assert f"[serve] verify: all {t['requests']} requests " \
+               "token-identical to the single-device paged int8 " \
+               "reference engine" in printed
+    eng = run.engine
+    assert eng.eviction == {"int8-ring": "ring", "int8-h2o": "h2o",
+                            "int8-hot": "none"}[case]
+    assert eng.hot_pages == (round(0.5 * eng.pool_geometry[0])
+                             if case == "int8-hot" else 0)
+    opt = {a: b for a, b in zip(extra, extra[1:]) if a.startswith("--")}
+    arch = opt.get("--arch", "qwen3-0.6b")
+    jcfg = dataclasses.replace(
+        jax_reduced(arch), aqua=JaxAquaConfig(
+            k_ratio=0.75, block_dims=8, prefill_q_blk=16,
+            h2o_ratio=float(opt.get("--h2o-ratio", 1.0))))
+    jparams = jax.tree.map(jnp.asarray, {
+        k: jax.tree.map(lambda x: x.numpy(), v)
+        for k, v in eng.params.items() if k != "unembed_f32"})
+    jeng = JaxEngine(jcfg, jparams, JaxProjections(
+        p=jnp.asarray(run.projections.p.numpy())),
+        serving=JaxServingConfig(
+            max_lanes=t["lanes"], max_seq=t["max_seq"],
+            max_new_tokens=t["steps"],
+            cache=JaxCacheSpec(page_size=8, prefix_sharing=(
+                "--no-prefix-share" not in extra)),
+            quant=JaxQuantSpec(kv_dtype="int8", hot_resident_fraction=float(
+                opt.get("--hot-frac", 0.0)))),
+        backend="aqua-block-sparse")
+    want = jeng.run(jax_poisson_trace(
+        t["requests"], mean_interarrival=t["mean_interarrival"],
+        prompt_lens=t["prompt_lens"], max_new_tokens=t["steps"],
+        vocab_size=jcfg.vocab_size, seed=0))
+    assert {u: list(o.tokens) for u, o in want.items()} == run.streamed
 
 
 def test_cli_shares_prompt_prefixes_like_the_jax_launcher(

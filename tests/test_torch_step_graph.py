@@ -1,5 +1,5 @@
 """What the captured decode step (``serving/step_graph.py``) relies on, on
-the CPU, over the ten serving configurations of ``chip_smoke.py``'s drives
+the CPU, over the serving configurations of ``chip_smoke.py``'s drives
 at a reduced width (2 layers, d_model 128; Danube's window 16):
 
 (a) ``decode_step`` runs on a meta-device state: no op reads a tensor's
@@ -71,6 +71,18 @@ DRIVES = {
     # two pages and prefill only their tails
     "prefix_paged": ("qwen3-0.6b", {}, dict(cache=CacheSpec(page_size=8)),
                      SHORT),
+    # int8 pools under the window ring and under H2O, and hot residents
+    # (a quarter of the pool also in full precision)
+    "int8_swa_paged": ("h2o-danube-1.8b", {},
+                       dict(cache=PAGED, quant=QuantSpec(kv_dtype="int8")),
+                       EVICTING),
+    "int8_h2o_paged": ("qwen3-0.6b", dict(h2o_ratio=0.5),
+                       dict(cache=PAGED, quant=QuantSpec(kv_dtype="int8")),
+                       EVICTING),
+    "hot_int8_paged": ("qwen3-0.6b", {},
+                       dict(cache=PAGED, quant=QuantSpec(
+                           kv_dtype="int8", hot_resident_fraction=0.25)),
+                       SHORT),
 }
 #: a common prompt prefix by drive (tokens)
 SHARED_PREFIX = {"prefix_paged": 16}
@@ -207,8 +219,9 @@ def test_serve_writes_the_state_in_place(name):
     assert st.requests_finished == 5 and st.decode_steps > 0
     if name == "chunked_paged":
         assert st.chunked_admissions > 0
-    if name in ("swa_paged", "h2o_paged"):
-        assert eng.eviction == ("ring" if name == "swa_paged" else "h2o")
+    if name in ("swa_paged", "h2o_paged", "int8_swa_paged",
+                "int8_h2o_paged"):
+        assert eng.eviction == ("ring" if "swa" in name else "h2o")
     if name in SHARED_PREFIX:
         assert eng.page_pool.prefix_hits == 4
     assert eng.last_state is state

@@ -33,6 +33,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
 from repro.configs.base import AquaConfig as JaxAquaConfig
 from repro.configs.base import CacheSpec as JaxCacheSpec
+from repro.configs.base import QuantSpec as JaxQuantSpec
 from repro.configs.base import ServingConfig as JaxServingConfig
 from repro.core import attention as jax_attn
 from repro.core import dispatch as jax_dispatch
@@ -474,13 +475,26 @@ def test_dispatch_plan_matches_jax(monkeypatch, arch, h2o_ratio, layout):
 
 
 def test_engine_refuses_what_window_and_h2o_do_not_serve():
-    _, _, _, tcfg, tparams, tproj = _models("h2o-danube-1.8b", 1.0)
+    jcfg, params, jproj, tcfg, tparams, tproj = _models("h2o-danube-1.8b",
+                                                        0.5)
     paged = dict(SERVE, cache=CacheSpec(page_size=8, prefix_sharing=False))
-    with pytest.raises(NotImplementedError, match="int8"):
-        ContinuousBatchingEngine(tcfg, tparams, tproj, device="cpu",
-                                 serving=ServingConfig(
-                                     quant=QuantSpec(kv_dtype="int8"),
-                                     **paged))
+    # int8 pools are served under a window ring and H2O at once (they were
+    # refused before they were ported): greedy tokens equal the JAX
+    # engine's
+    want = JaxEngine(jcfg, params, jproj, serving=JaxServingConfig(
+        cache=JaxCacheSpec(page_size=8, prefix_sharing=False),
+        quant=JaxQuantSpec(kv_dtype="int8"), **SERVE),
+        backend="aqua-block-sparse").run(_requests(JaxRequest)[:3])
+    eng = ContinuousBatchingEngine(tcfg, tparams, tproj, device="cpu",
+                                   backend="aqua-block-sparse",
+                                   serving=ServingConfig(
+                                       quant=QuantSpec(kv_dtype="int8"),
+                                       **paged))
+    got = eng.run(_requests(Request)[:3])
+    assert eng.eviction == "h2o" and eng.last_state.layers.quantized
+    for uid, out in want.items():
+        assert got[uid].tokens == out.tokens, uid
+    _, _, _, tcfg, tparams, tproj = _models("h2o-danube-1.8b", 1.0)
     with pytest.raises(ValueError, match="contradicts"):
         ContinuousBatchingEngine(tcfg, tparams, tproj, device="cpu",
                                  serving=ServingConfig(**dict(
