@@ -49,7 +49,16 @@ Phases, each of which raises (non-zero exit) on failure:
    phase runs: the paged decode at S=4096 and at the drives' contexts in
    bf16 (the group route's 8-head blocks with 7 and 5 heads past the
    group) and in float32 (the float32 group route, which rounds a group
-   up to 1, 2, 4 or 8 heads), and the prefill at S=2048 and 1024.
+   up to 1, 2, 4 or 8 heads), and the prefill at S=2048 and 1024. At the
+   MoE configs' geometry (OLMoE-1B-7B and Qwen2-MoE-A2.7B: H=16, KV=16,
+   MHA): the bf16 paged decode at S=4096, at the drives' contexts, and
+   there with 3 of its 8 lanes idle (length 0, no page mapped: they get
+   the mean of the V slots the Pallas kernel visits, page 0's, which the
+   router reads; ``"form": "idle"``), and the prefill at S=2048 and at
+   S=1024 with its last 21 rows past the length (a padded admission's pad
+   rows, held too: the router reads them). Flash at Qwen3's geometry also
+   in a padded admission's form (``"form": "lengths"``: keys past the
+   length masked, every row held; a planted fault drops the lengths).
    One JSON line per kernel and geometry:
    max abs error and the worst ratio of error to the per-element
    tolerance, kernel and library ms (a CUDA graph of 20 calls replayed
@@ -184,7 +193,29 @@ Phases, each of which raises (non-zero exit) on failure:
    64-token pages, AQUA; logits within LOGIT_RTOL of the plain drive,
    exactly the prefill once per layer per admission and the paged decode
    once per layer per step, the step graph bit for bit (phase 5); their
-   launches, KV bytes and peak memory are printed.
+   launches, KV bytes and peak memory are printed. Then the MoE family,
+   the same way: OLMoE-1B-7B (16 layers, 64 experts, top-8) at 4 lanes
+   and Qwen2-MoE-A2.7B (24 layers, 60 experts, top-4, shared experts) at
+   8 lanes and 8 requests, at capacity factor 1.25, with prompts of
+   121/509/1003 tokens (off the 16-token bucket: admissions route pad
+   rows). Each drive records every layer's routing on a
+   ``models.moe.RoutingTape`` (which the graphs capture). Against the
+   plain drive that routes by itself, logits are compared on the
+   admissions whose every token, and the decode rows whose admission and
+   every checked step, both drives routed alike; the rows this excluded
+   are printed (a bf16 rounding flips near-tied experts and capacity
+   drops: at full width every row has such a flip, PERF.md). A second
+   plain drive replays the kernel drive's routing (the tape, call for
+   call: the same experts and drops, its own gate weights): every
+   admission's and checked decode row's logits within LOGIT_RTOL. The
+   routing choices dropped per admission and per decode step in both
+   drives, pad rows and idle lanes included, and the real tokens' per
+   admission are printed. Their admission graphs
+   are held to eager admissions (phase 5), their step graph (on an
+   engine without a tape) too, and the decode step's ms
+   beside its byte bound (every layer's weights, all experts since
+   JAX's dense capacity buffers run every expert, the float32
+   unembedding and the lanes' K̂ and V, at 3.35 TB/s) is printed.
 6. HF checkpoint through the port's entry point: a synthetic checkpoint
    in HF layout at Qwen3-0.6B's full width and depth (random bf16 weights
    from a seeded generator, tied, two shards plus the index; written to
@@ -237,8 +268,10 @@ Phases, each of which raises (non-zero exit) on failure:
    float32 bounds at the faster of 67 TFLOP/s outside the tensor cores
    and a third of 495 TFLOP/s TF32 (three passes).
 7. The ``{"kernels": [...]}`` line (the paged decode's and the prefill's
-   phases at groups 1 and 3 under ``group_geometries``, with the launches
-   of those configs' drives; each float32 route under its kernel's
+   phases at groups 1 and 3 and at the MoE geometry under
+   ``group_geometries``, with the launches of those configs' drives;
+   flash's padded-admission form under ``lengths_form``, with the flash
+   drive's launches; each float32 route under its kernel's
    ``float32_route``, with its launches on its path: the paged decode's
    and the prefill's in the HF drive's second serve, the contiguous
    decode's in the launcher's ``--verify`` reference engine, flash's in
@@ -519,7 +552,7 @@ def swapped_group_heads(block_idx):
 def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
                  s: int = 4096, len_range: tuple = (2048, 4096),
                  form: str = None, dtype: str = "bfloat16",
-                 shared_pages: int = 0) -> dict:
+                 shared_pages: int = 0, idle: int = 0) -> dict:
     """The decode (contiguous or paged, 64-token pages) at B=8 over a
     table of ``s`` positions, lengths uniform in ``len_range``; the served
     form (``form="served"``) takes the drives' contexts. bf16 takes the
@@ -528,7 +561,11 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
     lane's table maps lane 0's first ``shared_pages`` physical pages, as
     prefix sharing maps a shared prompt prefix, with one more planted
     fault, lane 1's first page mapped back to its own (unshared) page; the
-    bound then counts the shared rows once."""
+    bound then counts the shared rows once. ``idle`` > 0: the last
+    ``idle`` lanes are idle lanes of a decode step (length 0, paged: no
+    page mapped), which get the mean of the V slots the Pallas kernel
+    visits (page 0's, or their own stripe's): an MoE routes them with the
+    live lanes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import aqua
@@ -542,6 +579,8 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
     v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     lengths = torch.randint(len_range[0], len_range[1] + 1, (b,),
                             device=dev, generator=gen, dtype=torch.int32)
+    if idle:
+        lengths[b - idle:] = 0
     scale = d ** -0.5
     nsel = round_k_dims(d, K_RATIO, BLOCK_DIMS)
     block_idx = aqua.topk_block_indices(q, nsel, BLOCK_DIMS).contiguous()
@@ -559,6 +598,8 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
         v_pool[table.long()] = v.reshape(b, kvh, npl, ps, d).transpose(1, 2)
         own = table.clone()
         table[:, :shared_pages] = table[0, :shared_pages]
+        if idle:
+            table[b - idle:] = -1
 
         def kernel(block_idx=block_idx, lengths=lengths, table=table, q=q):
             return dk.aqua_paged_decode_attention(
@@ -615,6 +656,8 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
     nbytes += el * float(shared_rows.max()) * float(
         (per_lane.amax(dim=0).sum(dim=-1) * BLOCK_DIMS + d).sum())
     nbytes += el * (q.numel() + b * h * d) + 4 * (block_idx.numel() + b)
+    # an idle lane's mean reads page 0's V rows (or its own stripe's) once
+    nbytes += el * idle * kvh * d * (ps if paged else s)
     ops = 2 * float(lens.sum()) * h * (nsel + d)
     bms, by = bound(nbytes, ops, BF16_OPS_PER_S if el == 2
                     else F32_OPS_PER_S)
@@ -627,7 +670,7 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d,
                            page_size=ps if paged else None,
                            lengths=list(len_range),
-                           shared_pages=shared_pages),
+                           shared_pages=shared_pages, idle_lanes=idle),
                 **check, **times, bound_ms=bms, bound_by=by,
                 **byte_rate(nbytes, times["ms"]))
 
@@ -640,11 +683,13 @@ def attention_route(element_size: int) -> str:
 
 def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
                   form: str = None, k_ratio: float = K_RATIO,
-                  dtype: str = "bfloat16") -> dict:
+                  dtype: str = "bfloat16", pad: int = 0) -> dict:
     """The prefill, B=1, causal, over ``s`` rows; the served form
     (``form="served"``) at the drives' longest prompt. bf16 runs on
     ``wgmma``; float32 (``dtype``, the served checkpoint's) on ``mma.sync``
-    in three TF32 passes."""
+    in three TF32 passes. ``pad`` > 0: a bucket-padded admission, the last
+    ``pad`` rows past the length, held too (they see every valid key; an
+    MoE routes them with the real rows)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import aqua
@@ -656,7 +701,7 @@ def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
     q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
-    lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    lengths = torch.full((b,), s - pad, dtype=torch.int32, device=dev)
     scale = d ** -0.5
     nsel = round_k_dims(d, k_ratio, BLOCK_DIMS)
     block_idx = aqua.chunk_topk_block_indices(q, nsel, BLOCK_DIMS, q_blk,
@@ -692,7 +737,7 @@ def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
     return dict(name="aqua_prefill", geometry=geom, form=form, dtype=dtype,
                 route=attention_route(el),
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, q_blk=q_blk,
-                           k_ratio=k_ratio),
+                           k_ratio=k_ratio, pad_rows=pad),
                 **check, **timings(kernel, plain, library), bound_ms=bms,
                 bound_by=by, device_us=device_us(kernel))
 
@@ -939,11 +984,13 @@ def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
 
 def flash_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
                 form: str = None, d: int = 128,
-                dtype: str = "bfloat16") -> dict:
+                dtype: str = "bfloat16", pad: int = 0) -> dict:
     """Flash attention, B=1, causal, over ``s`` rows of head_dim ``d``;
     the served form (``form="served"``) at the drives' longest prompt.
     bf16 runs on ``wgmma``; float32 (``dtype``, the served checkpoint's)
-    on ``mma.sync`` in three TF32 passes."""
+    on ``mma.sync`` in three TF32 passes. ``pad`` > 0: a bucket-padded
+    admission's call, keys past ``s - pad`` masked by ``lengths``, every
+    row held (pad rows see every valid key, as JAX's dense reference)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
@@ -954,18 +1001,26 @@ def flash_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
 
-    def kernel(k=k, v=v, window=None):
-        return fk.flash_attention(q, k, v, causal=True, window=window)
+    lengths = (torch.full((b,), s - pad, dtype=torch.int32, device=dev)
+               if pad else None)
+
+    def kernel(k=k, v=v, window=None, lengths=lengths):
+        return fk.flash_attention(q, k, v, causal=True, window=window,
+                                  lengths=lengths)
 
     def plain():
-        return fk.flash_attention_plain(q, k, v, causal=True)
+        return fk.flash_attention_plain(q, k, v, causal=True,
+                                        lengths=lengths)
 
     # faults: rows past s/2 lose their far keys; every row sees one key
     # further (the diagonal shifted by one, key 0 lost)
-    check = check_kernel(kernel(), plain(), {
-        "window_cut": kernel(window=s // 2),
-        "shifted_diagonal": kernel(k=torch.roll(k, -1, 2),
-                                   v=torch.roll(v, -1, 2))})
+    faults = {"window_cut": kernel(window=s // 2),
+              "shifted_diagonal": kernel(k=torch.roll(k, -1, 2),
+                                         v=torch.roll(v, -1, 2))}
+    if pad:
+        # the pad rows see the pad keys
+        faults["lengths_ignored"] = kernel(lengths=None)
+    check = check_kernel(kernel(), plain(), faults)
 
     def library():
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -978,7 +1033,8 @@ def flash_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
                     else F32_ACCURATE_OPS_PER_S)
     return dict(name="flash_attention", geometry=geom, form=form,
                 dtype=dtype, route=attention_route(el),
-                shape=dict(B=b, H=h, KV=kvh, S=s, D=d, causal=True),
+                shape=dict(B=b, H=h, KV=kvh, S=s, D=d, causal=True,
+                           pad_rows=pad),
                 **check, **timings(kernel, plain, library), bound_ms=bms,
                 bound_by=by, device_us=device_us(kernel))
 
@@ -1163,7 +1219,7 @@ def kept_positions(eng):
                         for i in range(layers.page_table.shape[0])])
 
 
-def serve_drive(eng, reqs, positions: bool = False) -> dict:
+def serve_drive(eng, reqs, positions: bool = False, tape=None) -> dict:
     """Serve ``reqs``; returns tokens per uid, each admission's logits, the
     logits of the first decode steps with each lane's uid and the tokens
     it held at that step (with ``positions``, also the positions every
@@ -1173,9 +1229,15 @@ def serve_drive(eng, reqs, positions: bool = False) -> dict:
     be finite. An engine with hot residents also reports the resident
     slots whose page changed, read at each admission's first token
     (``resident_promotions_seen``; admissions between two reads count
-    once per slot), and the residents held at the end, per layer."""
+    once per slot), and the residents held at the end, per layer. With an
+    MoE routing ``tape`` (``models.moe.RoutingTape``, installed), each
+    admission's and each checked step's routing, every layer's, and the
+    routing choices every admission and every step kept and dropped."""
     import torch
-    tokens, admit_logits, steps = {}, {}, []
+    from repro_torch.models import moe
+    tokens, admit_logits, steps, admit_routes = {}, {}, [], {}
+    totals = dict(admission_kept=0, admission_dropped=0, decode_kept=0,
+                  decode_dropped=0)
     hot = eng.hot_pages > 0
     promotions, seen = 0, None
     torch.cuda.synchronize()
@@ -1185,6 +1247,11 @@ def serve_drive(eng, reqs, positions: bool = False) -> dict:
             logits = eng.last_admit_logits
             assert torch.isfinite(logits).all(), f"request {ev.uid}"
             admit_logits[ev.uid] = logits.float().clone()
+            if tape is not None:
+                admit_routes[ev.uid] = tape.latest(decode=False)
+                kept, dropped = moe.kept_counts(admit_routes[ev.uid][1])
+                totals["admission_kept"] += kept
+                totals["admission_dropped"] += dropped
             if hot:
                 ids = eng.last_state.layers.hot_ids.cpu()
                 if seen is not None:
@@ -1198,13 +1265,18 @@ def serve_drive(eng, reqs, positions: bool = False) -> dict:
             logits = eng.last_step_logits
             assert torch.isfinite(logits).all(), \
                 f"decode step {eng.stats.decode_steps}"
+            routes = None if tape is None else tape.latest(decode=True)
+            if routes is not None:
+                kept, dropped = moe.kept_counts(routes[1])
+                totals["decode_kept"] += kept
+                totals["decode_dropped"] += dropped
             if len(steps) < DECODE_STEPS_CHECKED:
                 uids = [int(u) for u in eng.last_lanes.uid]
                 steps.append(dict(logits=logits.float().clone(), uids=uids,
                                   held={u: tuple(tokens[u]) for u in uids
                                         if u in tokens},
                                   positions=kept_positions(eng)
-                                  if positions else None))
+                                  if positions else None, routes=routes))
             else:
                 steps.append(None)
         tokens.setdefault(ev.uid, []).append(ev.token)
@@ -1212,6 +1284,8 @@ def serve_drive(eng, reqs, positions: bool = False) -> dict:
     wall = time.perf_counter() - t0
     st = eng.stats
     return dict(tokens=tokens, admit_logits=admit_logits,
+                admit_routes=admit_routes,
+                route_totals=totals if tape is not None else None,
                 step_logits=[x for x in steps if x is not None], wall_s=wall,
                 tokens_emitted=st.tokens_emitted,
                 tokens_per_s=st.tokens_emitted / wall,
@@ -1234,7 +1308,7 @@ def serve_drive(eng, reqs, positions: bool = False) -> dict:
 
 def compare_logits(run: dict, ref: dict, max_new: int,
                    per_element: bool = False, scale: float = 1.0,
-                   check: bool = True) -> dict:
+                   check: bool = True, routed: bool = None) -> dict:
     """Logits of the kernel drive against the plain drive of the same
     trace: every admission (same prompt), and in each checked decode step
     every lane that was still generating and held the same tokens in both
@@ -1244,7 +1318,16 @@ def compare_logits(run: dict, ref: dict, max_new: int,
     stay within LOGIT_RTOL of its largest magnitude (bf16), or with
     ``per_element`` (float32) every logit within ``scale`` times F32_RTOL
     of itself plus F32_ATOL; raises otherwise, unless ``check`` is off
-    (a control drive's reading)."""
+    (a control drive's reading). Where the drives recorded MoE routing
+    codes, only admissions whose every token (pad rows too) was routed
+    alike in every layer are compared, and in decode only lanes whose
+    admission and every checked step since were routed alike: a rounding
+    difference can flip an expert at a near tie or a capacity drop; the
+    rows this excluded are counted (``routed`` False compares every row,
+    as against a drive that replayed the run's routing; with ``routed``
+    True or False an empty comparison is reported, not refused)."""
+    import torch
+
     def row_check(got, want, what):
         if per_element:
             ratio = ((got - want).abs()
@@ -1257,9 +1340,19 @@ def compare_logits(run: dict, ref: dict, max_new: int,
         limit = LOGIT_RTOL * want.abs().max().item()
         assert err <= limit, f"{what}: logits error {err} > {limit}"
         return err / limit
-    worst_admit = max(row_check(run["admit_logits"][u], want, f"admit {u}")
-                      for u, want in ref["admit_logits"].items())
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    need_rows = routed is None
+    if routed is None:
+        routed = bool(ref.get("admit_routes"))
+    alike = {u: not routed or same(run["admit_routes"][u],
+                                   ref["admit_routes"][u])
+             for u in ref["admit_logits"]}
+    worst_admit = max((row_check(run["admit_logits"][u], want, f"admit {u}")
+                       for u, want in ref["admit_logits"].items()
+                       if alike[u]), default=0.0)
     worst_step, rows, first_divergent = 0.0, 0, {}
+    routed_apart = 0
     assert len(run["step_logits"]) == len(ref["step_logits"]) \
         == DECODE_STEPS_CHECKED
     for i, (got, want) in enumerate(zip(run["step_logits"],
@@ -1270,6 +1363,13 @@ def compare_logits(run: dict, ref: dict, max_new: int,
             if held is None or len(held) >= max_new \
                     or got["held"].get(u) != held:
                 continue
+            if routed and alike.get(u, False) and not same(
+                    [r[:, lane] for r in got["routes"]],
+                    [r[:, lane] for r in want["routes"]]):
+                alike[u] = False          # from this step on
+            if not alike.get(u, True):
+                routed_apart += 1
+                continue
             if want["positions"] is not None and not bool(
                     (got["positions"][:, lane]
                      == want["positions"][:, lane]).all()):
@@ -1279,10 +1379,17 @@ def compare_logits(run: dict, ref: dict, max_new: int,
                 got["logits"][lane], want["logits"][lane],
                 f"decode step {i + 1} lane {lane}"))
             rows += 1
-    assert rows > 0, "no decode-step logits were compared"
+    assert rows > 0 or not need_rows, "no decode-step logits were compared"
     pairs = [(a, b) for uid in ref["tokens"]
              for a, b in zip(run["tokens"][uid], ref["tokens"][uid])]
-    return dict(admissions_compared=len(ref["admit_logits"]),
+    out = {}
+    if routed:
+        out = dict(admissions_routed_apart=sum(
+            not same(run["admit_routes"][u], ref["admit_routes"][u])
+            for u in ref["admit_logits"]),
+            decode_rows_routed_apart=routed_apart)
+    return dict(**out, admissions_compared=len(ref["admit_logits"])
+                - out.get("admissions_routed_apart", 0),
                 admit_worst_err_over_limit=worst_admit,
                 decode_rows_compared=rows,
                 decode_worst_err_over_limit=worst_step,
@@ -1629,13 +1736,17 @@ def drive_trace(n: int, vocab: int, prompts=(128, 512, 1024),
 
 
 def run_drive(mcfg, mparams, mproj, serving, n, prompts=None,
-              backend=None, shared_prefix=0) -> dict:
+              backend=None, shared_prefix=0, tape=None) -> dict:
     """One drive of the Poisson trace (``drive_trace``) on a new engine,
     with the counters zeroed just before it and read just after it, and
     the peak device memory over it: the card's, and above what was
     allocated when it started (the weights). Every request must emit its
-    32 tokens; an evicting engine's positions must pass its slots."""
+    32 tokens; an evicting engine's positions must pass its slots. An MoE
+    drive records its routing on a ``models.moe.RoutingTape`` (its own, or
+    ``tape`` = (tape, "record" or "replay"): a replay routes by another
+    drive's recording) and counts its dropped routing choices."""
     import torch
+    from repro_torch.models import moe
     from repro_torch.serving import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(
         mcfg, mparams, None if mcfg.aqua is None else mproj,
@@ -1644,12 +1755,28 @@ def run_drive(mcfg, mparams, mproj, serving, n, prompts=None,
                        (128, 512, 1024) if prompts is None else prompts,
                        shared_prefix)
     evicting = eng.eviction != "none"
+    routed = mcfg.family == "moe"
+    if routed:
+        # the engine's graphs capture the tape's writes: it stays alive
+        # with the engine (``run["tape"]``)
+        tape, mode = tape or (moe.RoutingTape(
+            mcfg, mparams["layers"]["ffn"]["router"], serving.max_lanes,
+            serving.max_seq), "record")
+        tape.install(mode)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
     reset_counts()
-    run = serve_drive(eng, reqs, positions=evicting)
+    try:
+        run = serve_drive(eng, reqs, positions=evicting,
+                          tape=tape if routed else None)
+    finally:
+        if routed:
+            tape.remove()
     run["launches"], run["engine"] = launch_counts(), eng
+    if routed:
+        run["tape"] = tape
+        run["drops"] = routing_drops(run, reqs, mcfg)
     graph = eng.step_graph
     run["capture_ms"], run["graph_pool_bytes"] = (graph.capture_ms,
                                                   graph.pool_bytes)
@@ -1671,6 +1798,31 @@ def run_drive(mcfg, mparams, mproj, serving, n, prompts=None,
             run["step_logits"][-1]["positions"].max())
         assert run["max_position_held"] >= eng._num_slots, run["slots"]
     return run
+
+
+def routing_drops(run: dict, reqs, mcfg) -> dict:
+    """An MoE drive's dropped routing choices (a token's choice whose
+    expert was full in its block), summed over the layers: of the real
+    tokens of each admission (its prompt's rows) and of the live lanes of
+    each checked decode step; and over every admission and decode step,
+    pad rows and idle lanes included (they take capacity as real tokens
+    do)."""
+    from repro_torch.models import moe
+    plen = {r.uid: r.prompt_len for r in reqs}
+    admit = {u: moe.kept_counts(kept[:, :plen[u]])[1]
+             for u, (_, kept) in run["admit_routes"].items()}
+    steps = []
+    for st in run["step_logits"]:
+        lanes = [i for i, u in enumerate(st["uids"])
+                 if u in st["held"] and len(st["held"][u]) < 32]
+        steps.append(moe.kept_counts(st["routes"][1][:, lanes])[1])
+    t = run["route_totals"]
+    return dict(real_tokens_per_admission=admit,
+                real_lanes_per_checked_step=steps, all_rows=t,
+                dropped_per_admission=t["admission_dropped"]
+                / max(run["admissions"], 1),
+                dropped_per_decode_step=t["decode_dropped"]
+                / max(run["decode_steps"], 1))
 
 
 def traced_drive_child(out_path: str) -> int:
@@ -2084,31 +2236,90 @@ def serve_phase(card: str, prof: dict) -> dict:
 
 #: the dense configs whose GQA groups no other drive runs: Qwen1.5-4B
 #: (MHA, group 1, q/k/v biases) and Minitron-4B (group 3), with their seeds
-GROUP_CONFIGS = (("qwen1.5-4b", 2), ("minitron-4b", 3))
+# (config, weight seed, lanes, requests, prompt lengths): the dense configs
+# of GQA groups 1 and 3, and the MoE family (prompts off the 16-token
+# bucket, so that admissions route pad rows with the real ones)
+GROUP_CONFIGS = (("qwen1.5-4b", 2, 4, 4, (128, 512, 1024)),
+                 ("minitron-4b", 3, 4, 4, (128, 512, 1024)),
+                 ("olmoe-1b-7b", 4, 4, 4, (121, 509, 1003)),
+                 ("qwen2-moe-a2.7b", 5, 8, 8, (121, 509, 1003)))
+
+
+def decode_step_bound(mcfg, mparams, ctx: float, lanes: int) -> dict:
+    """The bytes one decode step must read and its least time at
+    HBM_BYTES_PER_S: every layer's weights (an MoE's dense capacity
+    buffers run every expert, so all expert weights), the float32
+    unembedding, and the lanes' K̂ (its selected share) and V rows at
+    ``ctx`` positions each."""
+    import torch
+    from repro_torch.models.layers import UNEMBED_F32
+
+    def nbytes(t):
+        if isinstance(t, dict):
+            return sum(nbytes(v) for v in t.values())
+        return t.numel() * t.element_size()
+    att = mcfg.attention
+    weights = nbytes(mparams["layers"]) + nbytes(mparams[UNEMBED_F32])
+    experts = 0
+    if mcfg.family == "moe":
+        experts = sum(nbytes(mparams["layers"]["ffn"][k])
+                      for k in ("w1", "w2", "w3"))
+    kv = (mcfg.num_layers * lanes * ctx * att.num_kv_heads * att.head_dim
+          * (K_RATIO + 1.0) * torch.finfo(torch.bfloat16).bits / 8)
+    total = weights + kv
+    return dict(bytes=total, expert_bytes=experts,
+                unembedding_bytes=nbytes(mparams[UNEMBED_F32]),
+                kv_bytes=kv, ms=total / HBM_BYTES_PER_S * 1e3)
 
 
 def config_drive_phase(card: str) -> dict:
     """One engine drive per config of ``GROUP_CONFIGS`` at its published
-    width and depth (random bf16 weights, calibrated projections): 4
-    requests of 128/512/1024 tokens, 4 lanes, 64-token pages, AQUA
+    width and depth (random bf16 weights, calibrated projections): its
+    requests of its prompt lengths, its lanes, 64-token pages, AQUA
     (K_RATIO, BLOCK_DIMS), against its plain reference drive (logits
-    within LOGIT_RTOL), launches exactly the path's, and the step graph
-    against eager ``decode_step`` (``step_graph_phase``). Each config is
+    within LOGIT_RTOL; for an MoE on the rows both drives routed alike,
+    the rest counted), launches exactly the path's, and the step graph
+    against eager ``decode_step`` (``step_graph_phase``). An MoE drive
+    also holds its admission graphs against eager admissions
+    (``admit_graph_phase``) and reports the routing choices dropped at
+    admissions and decode steps in both drives, and its decode-step ms
+    beside the step's byte bound (``decode_step_bound``). Each config is
     loaded, driven and freed before the next, so that the peak memory is
     one model's."""
     import gc
     import torch
-    serving = dataclasses.replace(paged_serving(), max_lanes=4)
+    from repro_torch.serving import ContinuousBatchingEngine
     out = {}
-    for name, seed in GROUP_CONFIGS:
+    for name, seed, lanes, n, prompts in GROUP_CONFIGS:
+        serving = dataclasses.replace(paged_serving(), max_lanes=lanes)
         t0 = time.perf_counter()
         mcfg, mparams, mproj = load_model(name, seed)
         setup_s = time.perf_counter() - t0
-        ref = run_drive(mcfg, mparams, mproj, serving, 4,
-                        backend="aqua-block-sparse-plain")
+        log_time(f"load {name}")
+        moe = mcfg.family == "moe"
+        if moe:
+            # the kernel drive records its routing; a plain drive routes
+            # by itself (the rows it routed alike are few: a bf16 rounding
+            # flips near-tied experts and capacity drops), and a plain
+            # drive that replays the recording holds every row
+            run = run_drive(mcfg, mparams, mproj, serving, n, prompts)
+            recorded = run["tape"].calls.tolist()
+            free = run_drive(mcfg, mparams, mproj, serving, n, prompts,
+                             backend="aqua-block-sparse-plain")
+            del free["engine"], free["tape"]
+            ref = run_drive(mcfg, mparams, mproj, serving, n, prompts,
+                            backend="aqua-block-sparse-plain",
+                            tape=(run["tape"], "replay"))
+            # the replay made the recording's calls, one for one
+            assert run["tape"].calls.tolist() == recorded, \
+                (name, recorded, run["tape"].calls.tolist())
+        else:
+            ref = run_drive(mcfg, mparams, mproj, serving, n, prompts,
+                            backend="aqua-block-sparse-plain")
+            run = run_drive(mcfg, mparams, mproj, serving, n, prompts)
         assert sum(ref["launches"].values()) == 0, (name, ref["launches"])
         del ref["engine"]
-        run = run_drive(mcfg, mparams, mproj, serving, 4)
+        ref.pop("tape", None)
         want = dict.fromkeys(KERNELS, 0)
         want["aqua_prefill"] = mcfg.num_layers * run["admissions"]
         want["aqua_paged_decode"] = mcfg.num_layers * run["decode_steps"]
@@ -2117,16 +2328,36 @@ def config_drive_phase(card: str) -> dict:
         att = mcfg.attention
         res = {k: v for k, v in run.items()
                if k not in ("tokens", "admit_logits", "step_logits",
-                            "engine")}
+                            "engine", "admit_routes", "tape")}
         res.update(setup_s=setup_s, layers=mcfg.num_layers,
                    d_model=mcfg.d_model, heads=att.num_heads,
                    kv_heads=att.num_kv_heads, group=att.group_size,
                    qkv_bias=att.qkv_bias, cache_bytes=eng.cache_bytes(),
                    reference_drive_peak_memory_bytes=ref[
                        "drive_peak_memory_bytes"],
-                   vs_reference=compare_logits(run, ref, 32))
+                   vs_reference=compare_logits(run, ref, 32,
+                                               routed=False if moe
+                                               else None))
+        if moe:
+            m = mcfg.moe
+            res.update(experts=m.num_experts, top_k=m.top_k,
+                       expert_ff=m.expert_ff, shared_experts=m.num_shared,
+                       capacity_factor=m.capacity_factor,
+                       vs_free_reference=compare_logits(run, free, 32,
+                                                        routed=True),
+                       free_reference_drops=free["drops"],
+                       reference_drops=ref["drops"],
+                       decode_step_bound=decode_step_bound(
+                           mcfg, mparams, float(sum(prompts)) / len(prompts)
+                           + 16, lanes))
+            res["admit_graph"] = admit_graph_phase(name, eng)
+            log({"admit_graph": res["admit_graph"]})
+        # an MoE drive's graphs also write its routing tape: the step
+        # graph is held and timed on an engine without one
         res["step_graph"] = step_graph_phase(
-            name, eng, drive_trace(4, mcfg.vocab_size))
+            name, ContinuousBatchingEngine(mcfg, mparams, mproj,
+                                           serving=serving) if moe else eng,
+            drive_trace(lanes, mcfg.vocab_size, prompts))
         log({"step_graph": res["step_graph"]})
         log(f"[serve {name}] group {att.group_size} ({att.num_heads} heads, "
             f"{att.num_kv_heads} KV heads), launches {run['launches']}, KV "
@@ -2135,8 +2366,39 @@ def config_drive_phase(card: str) -> dict:
             f" over the drive's start), tokens/s {run['tokens_per_s']:.2f}, "
             f"decode step ms {run['decode_step_ms']:.3f}, admission ms "
             f"{run['admit_ms']:.3f} on {card}")
+        if moe:
+            vs, fv = res["vs_reference"], res["vs_free_reference"]
+            b, d = res["decode_step_bound"], run["drops"]
+            t = d["all_rows"]
+            log(f"[serve {name}] MoE: dropped routing choices per admission "
+                f"{d['dropped_per_admission']:.1f} of "
+                f"{(t['admission_kept'] + t['admission_dropped']) / run['admissions']:.1f}"
+                f" (self-routed plain drive "
+                f"{free['drops']['dropped_per_admission']:.1f}), per decode "
+                f"step {d['dropped_per_decode_step']:.2f} of "
+                f"{(t['decode_kept'] + t['decode_dropped']) / run['decode_steps']:.1f}"
+                f" (plain {free['drops']['dropped_per_decode_step']:.2f}), "
+                f"real tokens' per admission "
+                f"{d['real_tokens_per_admission']}; against the self-routed "
+                f"plain drive, rows routed apart (excluded): "
+                f"{fv['admissions_routed_apart']} admissions, "
+                f"{fv['decode_rows_routed_apart']} decode rows (compared "
+                f"{fv['admissions_compared']} and "
+                f"{fv['decode_rows_compared']}); against the plain drive "
+                f"replaying its routing, every row: "
+                f"{vs['admissions_compared']} admissions (worst "
+                f"{vs['admit_worst_err_over_limit']:.3f} of the limit), "
+                f"{vs['decode_rows_compared']} decode rows (worst "
+                f"{vs['decode_worst_err_over_limit']:.3f}); decode step "
+                f"{run['decode_step_ms']:.3f} ms host (the tape's "
+                f"writes included), graph replay without a tape "
+                f"{res['step_graph']['replay_device_ms']:.3f} ms device, "
+                f"beside its byte bound {b['ms']:.3f} ms ({b['bytes']:.4g} "
+                f"bytes) on {card}")
         out[name] = res
-        del run, ref, eng, mparams, mproj
+        del run, ref, eng, mparams, mproj, res
+        if moe:
+            del free
         gc.collect()
         torch.cuda.empty_cache()
         log_time(f"drive {name} and its reference")
@@ -2570,18 +2832,35 @@ def main() -> int:
         phases.append(prefill_part_phase(geom, h, kvh, gen))
         phases.append(flash_phase(geom, h, kvh, gen))
         phases.append(flash_phase(geom, h, kvh, gen, s=1024, form="served"))
+        if geom == "qwen3-0.6b":
+            # a bucket-padded admission's call: keys past the length
+            # masked, the pad rows held too
+            phases.append(flash_phase(geom, h, kvh, gen, s=1024,
+                                      form="lengths", pad=21))
     # this slice's configs: Qwen1.5-4B (MHA: the bf16 group route with 7 of
     # its block's 8 heads past the group, the float32 group route at one
     # head) and Minitron-4B (group 3: 5 of 8 past it; the float32 route
     # rounds 3 up to 4 heads), paged decode in bf16 and float32 and the
     # prefill
     from repro_torch.configs import get_config
-    for geom, _ in GROUP_CONFIGS:
+    for geom, *_ in GROUP_CONFIGS:
         att = get_config(geom).attention
         h, kvh = att.num_heads, att.num_kv_heads
+        if geom == "qwen2-moe-a2.7b":
+            continue                 # OLMoE's geometry (16 / 16 heads)
         phases.append(decode_phase(geom, h, kvh, True, gen))
         phases.append(decode_phase(geom, h, kvh, True, gen, s=2048,
                                    len_range=(128, 1056), form="served"))
+        if geom == "olmoe-1b-7b":
+            # the MoE family (MHA, 16 heads): a step's idle lanes, whose
+            # values the router reads, and a padded admission's pad rows
+            phases.append(decode_phase(geom, h, kvh, True, gen, s=2048,
+                                       len_range=(128, 1056), form="idle",
+                                       idle=3))
+            phases.append(prefill_phase(geom, h, kvh, gen))
+            phases.append(prefill_phase(geom, h, kvh, gen, s=1024,
+                                        form="served", pad=21))
+            continue
         phases.append(decode_phase(geom, h, kvh, True, gen, s=2048,
                                    len_range=(128, 1056), form="served",
                                    dtype="float32"))
@@ -2662,6 +2941,17 @@ def main() -> int:
              plain_ms=wp["plain_ms"], bound_ms=wp["bound_ms"],
              bound_by=wp["bound_by"], library_ms=wp["library_ms"],
              no_window_ms=wp["no_window_ms"])
+    # flash on a bucket-padded admission (keys past the length masked),
+    # as the flash drive's admissions call it
+    lp = next(p for p in phases if p["name"] == "flash_attention"
+              and p["form"] == "lengths")
+    next(k for k in kernels if k["name"] == "flash_attention")[
+        "lengths_form"] = dict(
+            geometry=lp["geometry"], shape=lp["shape"],
+            launches=serve["flash_paged"]["launches"]["flash_attention"],
+            max_abs_err=lp["max_abs_err"], ms=lp["ms"],
+            plain_ms=lp["plain_ms"], bound_ms=lp["bound_ms"],
+            bound_by=lp["bound_by"], library_ms=lp["library_ms"])
     # the float32 routes, launched by the HF checkpoint's drives
     for p in hf["phases"]:
         assert hf["f32_launches"][p["name"]] > 0, (p["name"], hf)

@@ -1,4 +1,5 @@
-"""Architecture config registry of the port (the dense decoders it serves).
+"""Architecture config registry of the port (the dense and MoE decoders it
+serves).
 
 ``get_config(name)`` returns the full published config; ``reduced(name)``
 the CPU-test variant of the same structure.
@@ -9,9 +10,9 @@ import importlib
 from typing import Dict
 
 from repro_torch.configs.base import (  # noqa: F401
-    AquaConfig, AttentionConfig, CacheSpec, ModelConfig, QuantSpec,
-    ServingConfig, SparsitySpec, reduce_config, resolve_cache_specs,
-    resolve_eviction, resolve_sparsity_spec,
+    AquaConfig, AttentionConfig, CacheSpec, ModelConfig, MoEConfig,
+    QuantSpec, ServingConfig, SparsitySpec, reduce_config,
+    resolve_cache_specs, resolve_eviction, resolve_sparsity_spec,
 )
 
 _MODULES: Dict[str, str] = {
@@ -20,6 +21,8 @@ _MODULES: Dict[str, str] = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "qwen1.5-4b": "qwen15_4b",
     "minitron-4b": "minitron_4b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a27b",
 }
 ALL_ARCHS = tuple(_MODULES)
 

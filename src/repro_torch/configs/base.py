@@ -1,9 +1,10 @@
 """Configuration dataclasses of the PyTorch port (stdlib only).
 
 The port's own copy of the JAX package's ``configs/base.py``, cut to what
-the dense decoder serving path uses: ``AquaConfig``, ``AttentionConfig``,
-``ModelConfig``, ``reduce_config``, ``CacheSpec``, ``QuantSpec``,
-``SparsitySpec`` (with their resolvers) and ``ServingConfig``.
+the decoder serving path uses: ``AquaConfig``, ``AttentionConfig``,
+``MoEConfig``, ``ModelConfig``, ``reduce_config``, ``CacheSpec``,
+``QuantSpec``, ``SparsitySpec`` (with their resolvers) and
+``ServingConfig``.
 Field names and defaults match the JAX package so a config built from the
 same arguments means the same thing in both.
 """
@@ -74,14 +75,37 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Routed experts of a ``moe`` family FFN (``models/moe.py``):
+    ``num_experts`` gated-SiLU experts of width ``expert_ff``, each token
+    routed to its ``top_k``; ``num_shared`` shared experts run as one
+    gated MLP of width ``expert_ff * num_shared`` for every token. Each
+    expert takes ``capacity_factor * top_k * block / num_experts`` (+1)
+    tokens of a routing block; the rest drop."""
+
+    num_experts: int
+    top_k: int
+    expert_ff: int
+    num_shared: int = 0
+    router_aux_weight: float = 0.01
+    router_jitter: float = 0.0
+    capacity_factor: float = 1.25
+
+
+#: families the JAX package builds that the port does not serve yet
+UNPORTED_FAMILIES = ("ssm", "hybrid", "encdec", "vlm")
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # the port serves "dense" only
+    family: str                   # the port serves "dense" and "moe"
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
+    moe: Optional[MoEConfig] = None
     aqua: Optional[AquaConfig] = None
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -95,26 +119,35 @@ class ModelConfig:
         return replace(self, aqua=aqua)
 
     def validate(self) -> None:
-        if self.family != "dense":
+        if self.family in UNPORTED_FAMILIES:
             raise NotImplementedError(
-                f"family {self.family!r}: the port serves dense decoders only")
+                f"family {self.family!r}: the port serves the dense and moe "
+                "decoders only")
+        assert self.family in ("dense", "moe"), self.family
         assert self.attention is not None
+        if self.family == "moe":
+            assert self.moe is not None, "family 'moe' needs ModelConfig.moe"
         assert self.act in ("silu", "gelu", "relu"), self.act
 
 
 def reduce_config(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,
                   vocab: int = 128, ff: int = 128) -> ModelConfig:
     """Shrink a production config to a CPU-test size, keeping its
-    structure (GQA ratio, qk-norm, tied embeddings) — the same rule as
-    the JAX package's ``reduce_config``."""
+    structure (GQA ratio, qk-norm, tied embeddings, MoE routing) — the
+    same rule as the JAX package's ``reduce_config``."""
     att = cfg.attention
     heads = max(2, min(4, att.num_heads))
     kv = heads if att.num_kv_heads == att.num_heads else max(1, heads // 2)
     att = replace(att, num_heads=heads, num_kv_heads=kv,
                   head_dim=max(8, d_model // heads),
                   window=None if att.window is None else 16)
+    moe = cfg.moe
+    if moe is not None:
+        moe = replace(moe, num_experts=8, top_k=min(2, moe.top_k),
+                      expert_ff=ff // 2, num_shared=min(1, moe.num_shared),
+                      capacity_factor=8.0)  # effectively dropless
     return replace(cfg, num_layers=layers, d_model=d_model, vocab_size=vocab,
-                   d_ff=ff, attention=att, dtype="float32")
+                   d_ff=ff, attention=att, moe=moe, dtype="float32")
 
 
 @dataclass(frozen=True)

@@ -349,11 +349,11 @@ def _flash_backend(name: str, flash_fn) -> AttentionBackend:
 
     One deliberate difference from JAX, which sends every call with
     ``lengths`` to its dense reference: the engine's bucket-padded
-    admissions (``lengths`` set, causal, 1-D positions) run the kernel.
-    Under the causal mask a row below its length never sees a padded key,
-    so every valid row is the dense-with-lengths result; rows at or past
-    the length are don't-care, as for the block-sparse prefill kernel.
-    Without this the engine's baseline would never launch the kernel."""
+    admissions (``lengths`` set, causal, 1-D positions) run the kernel,
+    with the lengths masking the keys, so every row, pad rows too, is the
+    dense-with-lengths result (an MoE routes the pad rows with the real
+    ones, so their values decide which real tokens drop). Without this
+    the engine's baseline would never launch the kernel."""
 
     def prefill(qq, kk, v, *, cfg, aqua, positions, lengths, causal):
         if not causal or positions.ndim == 2 or qq.shape[-1] != v.shape[-1]:
@@ -363,7 +363,9 @@ def _flash_backend(name: str, flash_fn) -> AttentionBackend:
         b, s, kvh, g, d = qq.shape
         of = flash_fn(qq.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, d),
                       kk.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                      causal=True, window=cfg.window)
+                      causal=True, window=cfg.window,
+                      lengths=None if lengths is None
+                      else lengths.to(torch.int32).contiguous())
         return of.reshape(b, kvh, g, s, -1).permute(0, 3, 1, 2, 4), None
 
     return AttentionBackend(name, prefill, kernel=flash_fn is flash_attention)

@@ -39,8 +39,7 @@ REASON_QUANT_GEOMETRY = (
     "quantized pages only decode through the paged kernel's scale-folded "
     "path; this layout/backend combination dequantizes via the reference "
     "lane view")
-# Chunked-prefill attribution (``DispatchPlan.chunked_prefill``). The
-# frontend and MoE reasons belong to families the port does not serve yet.
+# Chunked-prefill attribution (``DispatchPlan.chunked_prefill``).
 REASON_NO_PREFILL_BUDGET = "no prefill_budget_tokens configured"
 REASON_FRONTEND = (
     "modality frontend splices non-token embeddings at prefill time")
@@ -93,13 +92,16 @@ class DispatchPlan:
 
 
 def resolve_dispatch_plan(*, attention, aqua, serving, mesh,
-                          prefix_sharing: bool = False) -> DispatchPlan:
+                          prefix_sharing: bool = False,
+                          family: str = "dense",
+                          frontend: str = "none") -> DispatchPlan:
     """Resolve the plan for a model's ``attention``/``aqua`` configs and a
     ``ServingConfig``, with the JAX package's rules for ``mesh=None``.
     ``prefix_sharing`` is the engine's effective decision (the config's,
-    folded with the slot policy), recorded as it is, as in JAX. The port
-    serves the dense family without a frontend, so the plan is the JAX
-    package's for those defaults."""
+    folded with the slot policy), recorded as it is, as in JAX.
+    ``family`` and ``frontend`` (the model's family and frontend kind)
+    decide, with the rest, whether admissions may chunk: capacity-routed
+    MoE and embedding-splicing frontends may not, as in JAX."""
     from repro_torch.configs.base import (resolve_cache_specs,
                                           resolve_sparsity_spec)
     from repro_torch.core.attention import resolve_backend
@@ -140,9 +142,13 @@ def resolve_dispatch_plan(*, attention, aqua, serving, mesh,
     chunked_reasons = []
     if serving.prefill_budget_tokens is None:
         chunked_reasons.append(REASON_NO_PREFILL_BUDGET)
-    if attention is None:
+    if attention is None or family not in ("dense", "vlm", "moe"):
         chunked_reasons.append(REASON_FAMILY_SURGERY)
-    else:
+    elif family == "moe":
+        chunked_reasons.append(REASON_MOE_CAPACITY)
+    if frontend != "none":
+        chunked_reasons.append(REASON_FRONTEND)
+    if attention is not None:
         if attention.window is not None:
             chunked_reasons.append(REASON_WINDOW)
         if h2o:

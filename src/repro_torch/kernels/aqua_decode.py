@@ -120,7 +120,8 @@ def aqua_decode_plain(q_hat: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the score, the value scale each V row. part_idx (B, KP) int32: only
     those logical pages are attended. Returns (B, H, Dv) in v's dtype, or
     float32 for int8 pools. A lane with no valid position gets the mean of
-    the V slots of its view, as the Pallas kernel does.
+    the V slots the Pallas kernel visits (every slot of its view, or of
+    its participating pages), as that kernel writes there.
     """
     b, h, d = q_hat.shape
     kvh, ps = k.shape[1], k.shape[2]
@@ -143,12 +144,20 @@ def aqua_decode_plain(q_hat: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bkgd,bksd->bkgs", qm, kf) * factor
     pos = torch.arange(s, device=k.device)
     valid = pos[None, :] < lengths.to(k.device)[:, None]     # (B, S)
+    visited = None
     if part_idx is not None:
         hit = (torch.arange(s // ps, device=k.device)[None, :, None]
                == part_idx.to(k.device)[:, None, :]).any(-1)
-        valid &= hit.repeat_interleave(ps, dim=1)
+        visited = hit.repeat_interleave(ps, dim=1)
+        valid &= visited
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
+    if visited is not None:
+        # a lane with no valid position weighs its visited slots alike
+        # (every score NEG_INF) and the others not at all
+        off = ~valid.any(-1, keepdim=True) & ~visited
+        scores = torch.where(off[:, None, None, :],
+                             torch.full_like(scores, 2 * NEG_INF), scores)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bksd->bkgd", w, vf).reshape(b, h, -1)
     return out if k_scale is not None else out.to(v.dtype)

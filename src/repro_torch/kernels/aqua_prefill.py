@@ -163,7 +163,8 @@ def aqua_prefill_attention(q_hat: torch.Tensor, khat: torch.Tensor,
     ``k_blk`` must be a multiple of 64. ``window`` (>= 1, or None for
     none) keeps only keys ``kpos > qpos - window``, causal or not, as the
     Pallas kernels do. ``scale`` defaults to 1/sqrt(D). Returns (B, H, T,
-    Dv); rows at or past a row's length are don't-care."""
+    Dv); rows at or past a row's length attend every valid key, as the
+    Pallas kernel's (an MoE routes a padded admission's pad rows)."""
     if scale is None:
         scale = 1.0 / q_hat.shape[-1] ** 0.5
     if not 0 <= q_offset <= khat.shape[2] - q_hat.shape[2]:

@@ -7,8 +7,13 @@
 // int8). For each (lane b, query head h): the partial score q̂·K̂ over only
 // the NB_sel dim-blocks that |q̂| selected, times scale, masked at positions
 // >= lengths[b], then an online softmax in float32 and the product with V.
-// A lane with no valid position writes zeros (the Pallas kernel writes the
-// mean of the V slots it visited; callers never read such lanes).
+// A lane with no valid position (lengths[b] = 0: an idle lane of the decode
+// step) writes what the Pallas kernel writes there, the mean of the V slots
+// it visits: every slot of each page its table row maps, an unmapped entry
+// read as page 0 (of the participating pages only; dequantized for int8
+// pools). An MoE model routes idle lanes with the live ones, so their
+// values decide which live tokens' experts are full; the combine pass
+// computes this mean for such lanes alone.
 //
 // Layout: K̂ and V are read in the cache's own seq-major layout,
 // k (P, KV, ps, D) and v (P, KV, ps, Dv). A contiguous cache (B, KV, S, D)
@@ -297,14 +302,140 @@ __global__ void __launch_bounds__(kThreads) aqua_decode_partial(
   if (t + kThreads < Dv) sc[2 + t + kThreads] = acc1;
 }
 
+// The slots a lane with no valid position averages (the Pallas kernel's
+// walk): v (P, KV, ps, Dv) of vtype 0 float32, 1 bf16 or 2 int8 (with its
+// value scales vs (P, sh)); every page of the table row (page = b for a
+// contiguous cache), or the participating ones.
+struct Visited {
+  const void* v;
+  const int* table;    // (B, np) or null
+  const int* part;     // (B, kp) or null
+  const float* vs;     // (P, sh) or null
+  int vtype, KV, ps, np, kp, sh, s_stride;
+};
+
+// A page's sums over its ps V rows of dims t and t + kThreads, eight rows
+// in flight (independent sums, added pairwise at the end)
+template <typename T>
+__device__ __forceinline__ void page_sums(const T* __restrict__ v, int ps, int Dv, int t,
+                                          float& p0, float& p1) {
+  constexpr int kU = 8;
+  float a[kU], c[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) a[u] = c[u] = 0.f;
+  const bool on0 = t < Dv, on1 = t + kThreads < Dv;
+  int r = 0;
+  for (; r + kU <= ps; r += kU) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (on0) a[u] += to_f(v[(int64_t)(r + u) * Dv + t]);
+      if (on1) c[u] += to_f(v[(int64_t)(r + u) * Dv + t + kThreads]);
+    }
+  }
+  for (; r < ps; ++r) {
+    if (on0) a[0] += to_f(v[(int64_t)r * Dv + t]);
+    if (on1) c[0] += to_f(v[(int64_t)r * Dv + t + kThreads]);
+  }
+#pragma unroll
+  for (int w = kU / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int u = 0; u < w; ++u) {
+      a[u] += a[u + w];
+      c[u] += c[u + w];
+    }
+  p0 = a[0];
+  p1 = c[0];
+}
+
 // Combine pass (every route): one block per (h, b) merges the splits the
 // partial pass wrote: those below lengths[b], or all of them over
-// participating pages.
+// participating pages. A lane with lengths[b] = 0 takes the mean of its
+// visited V slots instead (see the header).
 template <typename OT>
 __global__ void __launch_bounds__(kThreads) aqua_decode_combine(
     const float* __restrict__ scratch, const int* __restrict__ lengths,
-    OT* __restrict__ out, int H, int Dv, int nsplit, int walk_all) {
+    OT* __restrict__ out, int H, int Dv, int nsplit, int walk_all, const Visited e) {
   const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  if (lengths[b] <= 0) {
+    // Rows of whole 16-byte units (bf16: Dv % 8 == 0, float32: Dv % 4 ==
+    // 0; an aligned base): 16-byte loads, tpr threads a row and rpi rows
+    // at a time; else (int8, other widths) two dims a thread. A page repeated in the walk
+    // (every unmapped entry is page 0) is read once.
+    __shared__ float red[8 * kThreads];
+    const int kv = h / (H / e.KV);
+    const int npg = e.part ? e.kp : e.table ? e.np : 1;
+    const int epv = e.vtype == 1 ? 8 : 4;   // elements a 16-byte load
+    const bool vec = e.vtype != 2 && Dv % epv == 0 &&
+                     (reinterpret_cast<uintptr_t>(e.v) & 15) == 0;
+    const int tpr = vec ? Dv / epv : 1, rpi = vec ? kThreads / tpr : 1;
+    const int row = t / tpr, c = t % tpr;
+    float sum[8], pg[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sum[k] = pg[k] = 0.f;
+    int prev = -1;
+    for (int i = 0; i < npg; ++i) {
+      const int lp = e.part ? min(max(e.part[(int64_t)b * e.kp + i], 0), e.np - 1) : i;
+      const int page = e.table ? max(e.table[(int64_t)b * e.np + lp], 0) : b;
+      const float f = e.vs ? e.vs[(int64_t)page * e.sh + (e.s_stride ? kv : 0)] : 1.f;
+      const int64_t base = ((int64_t)page * e.KV + kv) * e.ps * Dv;
+      if (page != prev) {
+        prev = page;
+        if (vec) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) pg[k] = 0.f;
+          if (row < rpi && e.vtype == 1) {
+            const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(e.v) + base + c * 8;
+#pragma unroll 4
+            for (int r = row; r < e.ps; r += rpi) {
+              const uint4 w = *reinterpret_cast<const uint4*>(vb + (int64_t)r * Dv);
+              const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const float2 y = __bfloat1622float2(x[k]);
+                pg[2 * k] += y.x;
+                pg[2 * k + 1] += y.y;
+              }
+            }
+          } else if (row < rpi) {
+            const float* vf = static_cast<const float*>(e.v) + base + c * 4;
+#pragma unroll 4
+            for (int r = row; r < e.ps; r += rpi) {
+              const float4 w = *reinterpret_cast<const float4*>(vf + (int64_t)r * Dv);
+              pg[0] += w.x;
+              pg[1] += w.y;
+              pg[2] += w.z;
+              pg[3] += w.w;
+            }
+          }
+        } else if (e.vtype == 0) {
+          page_sums(static_cast<const float*>(e.v) + base, e.ps, Dv, t, pg[0], pg[1]);
+        } else if (e.vtype == 1) {
+          page_sums(static_cast<const __nv_bfloat16*>(e.v) + base, e.ps, Dv, t, pg[0], pg[1]);
+        } else {
+          page_sums(static_cast<const int8_t*>(e.v) + base, e.ps, Dv, t, pg[0], pg[1]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sum[k] += pg[k] * f;
+    }
+    const float n = (float)npg * e.ps;
+    OT* o = out + ((int64_t)b * H + h) * Dv;
+    if (vec) {
+      if (row < rpi) {
+        for (int k = 0; k < epv; ++k) red[row * Dv + c * epv + k] = sum[k];
+      }
+      __syncthreads();
+      for (int d = t; d < Dv; d += kThreads) {
+        float acc = 0.f;
+        for (int r = 0; r < rpi; ++r) acc += red[r * Dv + d];
+        o[d] = from_f<OT>(acc / n);
+      }
+    } else {
+      if (t < Dv) o[t] = from_f<OT>(sum[0] / n);
+      if (t + kThreads < Dv) o[t + kThreads] = from_f<OT>(sum[1] / n);
+    }
+    return;
+  }
   const int n = walk_all ? nsplit : min((lengths[b] + kSplit - 1) / kSplit, nsplit);
   const int st = Dv + 2;
   const float* sc = scratch + ((int64_t)b * H + h) * nsplit * st;
@@ -369,8 +500,11 @@ int launch(const void* q, const void* k, const void* v, const int* bi, const Pag
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  const Visited e{v, pg.table, pg.part, pg.vs,
+                  std::is_same<KT, float>::value ? 0 : std::is_same<KT, int8_t>::value ? 2 : 1,
+                  KV, pg.ps, pg.np_lane, pg.kp, pg.sh, pg.s_stride};
   aqua_decode_combine<OT><<<dim3(H, B), kThreads, 0, st>>>(
-      scratch, ln, (OT*)out, H, Dv, nsplit, pg.part != nullptr);
+      scratch, ln, (OT*)out, H, Dv, nsplit, pg.part != nullptr, e);
   return (int)cudaGetLastError();
 }
 
@@ -1018,8 +1152,10 @@ int launch(const Args& a, int B, void* out, cudaStream_t st) {
   if (err != cudaSuccess) return (int)err;
   // int8 pools give float32 outputs; the participating walk writes every split
   using OT = typename std::conditional<kQuant, float, bf16>::type;
+  const Visited e{a.v, a.table, a.part, a.vs, kQuant ? 2 : 1, a.KV, a.ps, a.np_lane, a.kp,
+                  a.sh, a.s_stride};
   aqua_decode_combine<OT><<<dim3(a.H, B), ::kThreads, 0, st>>>(
-      a.scratch, a.lengths, (OT*)out, a.H, a.Dv, a.nsplit, kPart ? 1 : 0);
+      a.scratch, a.lengths, (OT*)out, a.H, a.Dv, a.nsplit, kPart ? 1 : 0, e);
   return (int)cudaGetLastError();
 }
 
@@ -1381,8 +1517,9 @@ int launch(const Args& a, int B, float* out, cudaStream_t st) {
   kernel<<<dim3(a.nsplit, a.KV * a.nhg, B), kThreads, bytes, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  const Visited e{a.v, a.table, nullptr, nullptr, 0, a.KV, a.ps, a.np_lane, 0, 1, 0};
   aqua_decode_combine<float><<<dim3(a.H, B), ::kThreads, 0, st>>>(a.scratch, a.lengths, out,
-                                                                  a.H, a.Dv, a.nsplit, 0);
+                                                                  a.H, a.Dv, a.nsplit, 0, e);
   return (int)cudaGetLastError();
 }
 

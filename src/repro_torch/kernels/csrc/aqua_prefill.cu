@@ -5,8 +5,9 @@
 // _part_kernel (only each q-tile's participating key chunks, hierarchical
 // AQUA's prefill stage). Causal block attention in which every query of a
 // q_blk chunk shares the chunk's NB_sel dim-blocks selected from its summed
-// |q̂|. Keys at or past lengths[b] are masked. A lane with lengths[b] = 0
-// writes zeros (don't-care rows).
+// |q̂|. Keys at or past lengths[b] are masked; rows at or past it (a
+// padded admission's pad rows, which an MoE routes) see every valid key,
+// as in the Pallas kernel. A lane with lengths[b] = 0 writes zeros.
 //
 // Sliding window (window > 0; <= 0 means none, as in flash_attention.cu):
 // a query at position qpos sees only keys kpos > qpos - window, on top of

@@ -3,8 +3,11 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:_kernel:
 // out[b, h, i] = softmax_j(q[b, h, i] . k[b, kv, j] / sqrt(D)) v[b, kv, j]
-// with kv = h / G, the causal mask j <= i and, when window > 0, the
-// sliding-window mask j > i - window. Online softmax in float32 with
+// with kv = h / G, the causal mask j <= i, when window > 0 the
+// sliding-window mask j > i - window, and when lengths is non-null the
+// key mask j < lengths[b] (a bucket-padded admission: its pad rows i >=
+// lengths[b] see every valid key, as JAX's dense reference with lengths
+// computes them; an MoE routes those rows with the real ones). Online softmax in float32 with
 // NEG_INF = -1e30 and the finalize acc / max(l, 1e-30), as the Pallas
 // kernel. The same kernel serves the dense baseline (AQUA off) and
 // per-dim AQUA prefill (block_dims = 1) on the masked q̂.
@@ -66,12 +69,17 @@ using attn_tile::Strides;
 // ---------------------------------------------------------------------------
 
 // NKS > 0 and KIND >= 0: the depth of Q·Kᵀ in k-steps and the P·V width
-// (pv_tile) fixed at compile time; else taken from D at run time.
-template <int NKS, int KIND>
+// (pv_tile) fixed at compile time; else taken from D at run time. kLen:
+// lengths masks the keys, in instantiations of their own: with the key
+// limit read at run time in every instantiation, the generic kernel took
+// 0.171 ms at Danube's D 80 where it took 0.110 (chip_smoke.py's generic
+// flash phase, PERF.md).
+template <int NKS, int KIND, bool kLen>
 __global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-    const bf16* __restrict__ q, bf16* __restrict__ out, int H, int KV, int S, int D,
-    Strides qst, Strides ost, float scale_log2, int causal, int window, int hpb) {
+    const bf16* __restrict__ q, bf16* __restrict__ out, const int* __restrict__ lengths, int H,
+    int KV, int S, int D, Strides qst, Strides ost, float scale_log2, int causal, int window,
+    int hpb) {
   using namespace attn_tile;
   // A block holds hpb heads of one KV group (2 when the group size is
   // even) x rpb = kRows / hpb rows each: a 64-row causal granularity with
@@ -99,10 +107,11 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
   if (nd & 1) zero_chunk(Qs, nck, nd, kRows);   // padding: zeros
   __syncthreads();
 
-  // key tiles this block can see: [jbeg, jend)
-  const int kend = causal ? rlast + 1 : S;
+  // key tiles this block can see: [jbeg, jend), keys below klim
+  const int klim = kLen ? max(0, min(lengths[b], S)) : S;
+  const int kend = kLen ? (causal ? min(klim, rlast + 1) : klim) : (causal ? rlast + 1 : S);
   const int jbeg = window > 0 ? max(0, row0 - window + 1) / kKeys : 0;
-  const int jend = (kend + kKeys - 1) / kKeys;
+  const int jend = kLen ? max(jbeg, (kend + kKeys - 1) / kKeys) : (kend + kKeys - 1) / kKeys;
   auto next = [](int j) { return j + 1; };
 
   // the role of the thread's warpgroup, warp-uniform as the compiler sees
@@ -139,16 +148,16 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
     const int warp_first = row0 + warp * 16 % rpb;
     const int rows[2] = {warp_first + g, warp_first + g + 8};
     const int warp_last = min(warp_first + 15, rlast);
-    // this warp's rows see keys past S or the diagonal, or before some
+    // this warp's rows see keys past klim or the diagonal, or before some
     // row's window (a tile wholly masked for a row adds exactly nothing)
     auto masked = [&](int j) {
       const int k0 = j * kKeys;
-      return k0 + kKeys > S || (causal && k0 + kKeys - 1 > warp_first) ||
+      return k0 + kKeys > klim || (causal && k0 + kKeys - 1 > warp_first) ||
              (window > 0 && k0 <= warp_last - window);
     };
     auto valid = [&](int j, int r, int kk) {
       const int kp = j * kKeys + kk;
-      return kp < S && (!causal || rows[r] >= kp) && (window <= 0 || kp > rows[r] - window);
+      return kp < klim && (!causal || rows[r] >= kp) && (window <= 0 || kp > rows[r] - window);
     };
 
     float o[kNT][4];
@@ -163,10 +172,10 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
   }
 }
 
-template <int NKS, int KIND>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-                int S, int D, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                int causal, int window, cudaStream_t st) {
+template <int NKS, int KIND, bool kLen>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, const int* lengths, int B,
+                int H, int KV, int S, int D, Strides qs, Strides ks, Strides vs, Strides os,
+                float scale, int causal, int window, cudaStream_t st) {
   using namespace attn_tile;
   static int done[16] = {0};
   if (D % 8 != 0 || D > kMaxDepth) return (int)cudaErrorInvalidValue;
@@ -175,13 +184,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   CUtensorMap kmap, vmap;
   cudaError_t err = make_map(&kmap, k, B, KV, S, D, ks);
   if (err == cudaSuccess) err = make_map(&vmap, v, B, KV, S, D, vs);
-  if (err == cudaSuccess) err = allow_smem(flash_bf16<NKS, KIND>, bytes, done);
+  if (err == cudaSuccess) err = allow_smem(flash_bf16<NKS, KIND, kLen>, bytes, done);
   if (err != cudaSuccess) return (int)err;
   const int hpb = (H / KV) % 2 == 0 ? 2 : 1, rpb = kRows / hpb;
   const dim3 grid((S + rpb - 1) / rpb * (H / hpb), 1, B);
-  flash_bf16<NKS, KIND><<<grid, kThreads, bytes, st>>>(kmap, vmap, (const bf16*)q, (bf16*)out, H,
-                                                       KV, S, D, qs, os, scale * kLog2e, causal,
-                                                       window, hpb);
+  flash_bf16<NKS, KIND, kLen><<<grid, kThreads, bytes, st>>>(
+      kmap, vmap, (const bf16*)q, (bf16*)out, lengths, H, KV, S, D, qs, os, scale * kLog2e,
+      causal, window, hpb);
   return (int)cudaGetLastError();
 }
 
@@ -208,15 +217,16 @@ int launch_f32(const f32_tile::Problem& p, int B, cudaStream_t st) {
 
 // vec: floats per copy, 4 (16-byte copies: the wrapper found the bases
 // and outer strides 16-byte aligned) or 1
-int dispatch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-                 int S, int D, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                 int causal, int window, int vec, cudaStream_t st) {
+int dispatch_f32(const void* q, const void* k, const void* v, void* out, const int* lengths,
+                 int B, int H, int KV, int S, int D, Strides qs, Strides ks, Strides vs,
+                 Strides os, float scale, int causal, int window, int vec, cudaStream_t st) {
   if (vec == 4 && D % 4 != 0) vec = 0;
   f32_tile::Problem p{};
   p.q = (const float*)q;
   p.k = (const float*)k;
   p.v = (const float*)v;
   p.out = (float*)out;
+  p.lengths = lengths;
   p.H = H;
   p.KV = KV;
   p.Tq = p.S = S;
@@ -240,12 +250,14 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* out, int B, 
 }  // namespace
 
 // Strides are in elements: {batch, head, seq} of q, k, v and out. window
-// <= 0 means no sliding window. dtype: 0 = float32, 1 = bfloat16. vec is
+// <= 0 means no sliding window; lengths (B,) valid keys per row, or null
+// (every key below S). dtype: 0 = float32, 1 = bfloat16. vec is
 // the float32 route's copy width in floats: 4 (16-byte copies; the caller
 // found every base and outer stride 16-byte aligned) or 1. Returns the
 // cudaError_t of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* out, int B, int H, int KV, int S, int D,
+                                      void* out, const void* lengths, int B, int H, int KV,
+                                      int S, int D,
                                       const long long* strides, float scale, int causal,
                                       int window, int dtype, int vec, void* stream) {
   if (H % KV != 0) return (int)cudaErrorInvalidValue;
@@ -255,14 +267,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Strides vs{strides[6], strides[7], strides[8]};
   const Strides os{strides[9], strides[10], strides[11]};
   cudaStream_t st = (cudaStream_t)stream;
+  const int* ln = (const int*)lengths;
   if (dtype == 0)
-    return dispatch_f32(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window, vec,
-                        st);
+    return dispatch_f32(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window,
+                        vec, st);
   // head_dim 128 (every served model but Danube) takes a kernel with its
   // depth and width fixed at compile time
+  if (D == 128 && ln)
+    return launch_bf16<8, 2, true>(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale,
+                                   causal, window, st);
   if (D == 128)
-    return launch_bf16<8, 2>(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window,
-                             st);
-  return launch_bf16<0, -1>(q, k, v, out, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window,
-                            st);
+    return launch_bf16<8, 2, false>(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale,
+                                    causal, window, st);
+  if (ln)
+    return launch_bf16<0, -1, true>(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale,
+                                    causal, window, st);
+  return launch_bf16<0, -1, false>(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale,
+                                   causal, window, st);
 }

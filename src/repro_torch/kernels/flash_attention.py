@@ -1,8 +1,9 @@
 """Dense flash attention: CUDA kernel, plain version, wrapper.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
-``_kernel``: causal (or not) GQA attention with an optional sliding window,
-scale 1/sqrt(D), float32 online softmax. The CUDA source is
+``_kernel``: causal (or not) GQA attention with an optional sliding window
+and optional valid key counts per row (``lengths``), scale 1/sqrt(D),
+float32 online softmax. The CUDA source is
 ``csrc/flash_attention.cu``. It serves the dense baseline (AQUA off) and
 per-dim AQUA prefill (``block_dims`` 1, on the masked q̂).
 
@@ -35,7 +36,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+_SIG = {"flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    ctypes.POINTER(ctypes.c_longlong),
                                    ctypes.c_float, _I, _I, _I, _I, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,13 +44,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          lengths: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the dense oracle
     (:func:`repro_torch.kernels.ref.flash_attention_ref`) in float32."""
-    return flash_attention_ref(q, k, v, causal=causal, window=window)
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               lengths=lengths)
 
 
-def _launch(q, k, v, causal, window):
+def _launch(q, k, v, causal, window, lengths):
     b, h, s, d = q.shape
     kvh = k.shape[1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -65,6 +69,11 @@ def _launch(q, k, v, causal, window):
         if t.device != dev or t.stride(-1) != 1:
             raise ValueError("flash_attention kernel needs q/k/v on one CUDA "
                              "device with a contiguous last axis")
+    if lengths is not None and (lengths.shape != (b,) or lengths.device != dev
+                                or lengths.dtype != torch.int32
+                                or not lengths.is_contiguous()):
+        raise ValueError("flash_attention kernel: lengths must be a "
+                         "contiguous (B,) int32 tensor on q's device")
     if q.dtype == torch.bfloat16:
         if d % 8:
             raise ValueError(f"flash_attention bf16 kernel needs D % 8 == 0, "
@@ -78,7 +87,8 @@ def _launch(q, k, v, causal, window):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lengths is None else lengths.data_ptr(), b, h,
             kvh, s, d, strides, 1.0 / d ** 0.5, int(causal),
             0 if window is None else int(window), _DTYPES[q.dtype],
             _build.f32_copy_width(q, k, v), stream)
@@ -88,16 +98,20 @@ def _launch(q, k, v, causal, window):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flash attention. q (B, H, S, D); k, v (B, KV, S, D) — any strides
     with a contiguous last axis; kv head = h // (H / KV). ``window``
-    keeps keys with ``kpos > qpos - window``. Returns (B, H, S, D) in v's
-    dtype."""
+    keeps keys with ``kpos > qpos - window``; ``lengths`` (B,) int32 keys
+    with ``kpos < lengths[b]`` (a bucket-padded admission's pad rows then
+    see every valid key, as JAX's dense reference computes them). Returns
+    (B, H, S, D) in v's dtype."""
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     dev = q.device.type
     if dev == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     lengths=lengths)
     if dev != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window, lengths)

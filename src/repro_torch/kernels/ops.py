@@ -158,7 +158,8 @@ def aqua_prefill(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
     q_hat (B, H, S, D); khat (B, KV, S, D); v (B, KV, S, Dv) — views of any
     strides with a contiguous last axis; lengths (B,) (None = all full);
     ``window``: keys ``kpos > qpos - window`` only (sliding-window models).
-    Returns (B, H, S, Dv); rows at or past a row's length are don't-care.
+    Returns (B, H, S, Dv); rows at or past a row's length attend every
+    valid key, as the Pallas kernel's (an MoE routes them).
     """
     block_idx, lengths, q_blk = prefill_blocks(q_hat, lengths, k_ratio,
                                                block_dims, q_blk, kept)

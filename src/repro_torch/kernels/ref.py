@@ -77,10 +77,14 @@ def aqua_prefill_ref(q_hat: torch.Tensor, khat: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
+                        window: Optional[int] = None,
+                        lengths: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """q: (B, H, S, D); k, v: (B, KV, S, D). Returns (B, H, S, D) in v's
     dtype: dense GQA attention in float32, scale 1/sqrt(D), the causal
-    mask and optionally a sliding window ``kpos > qpos - window``."""
+    mask, optionally a sliding window ``kpos > qpos - window`` and keys
+    ``kpos < lengths[b]`` only (rows at or past a length see every valid
+    key, as JAX's dense reference with lengths)."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
     g = h // kvh
@@ -88,12 +92,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.einsum("bkgsd,bktd->bkgst", qr, k.float()) / d ** 0.5
     pos = torch.arange(s, device=q.device)
     qpos, kpos = pos[:, None], pos[None, :]
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    mask = torch.ones(1, s, s, dtype=torch.bool, device=q.device)
     if causal:
-        mask &= qpos >= kpos
+        mask = mask & (qpos >= kpos)
     if window is not None:
-        mask &= kpos > qpos - window
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        mask = mask & (kpos > qpos - window)
+    if lengths is not None:
+        mask = mask & (kpos < lengths.to(q.device)[:, None, None])
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", w, v.float())
     return out.reshape(b, h, s, d).to(v.dtype)

@@ -1,4 +1,4 @@
-"""Model factory (the port serves the dense decoder family)."""
+"""Model factory (the port serves the dense and MoE decoder families)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -8,7 +8,7 @@ from repro_torch.models.base import LM, DecodeState  # noqa: F401
 def build_model(cfg: ModelConfig, device=None) -> LM:
     """``device`` None means the CUDA card (raises without one); pass
     ``device="cpu"`` for the plain CPU path."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import DenseLM
         return DenseLM(cfg, device)
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")

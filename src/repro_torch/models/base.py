@@ -76,6 +76,11 @@ class LM:
         raise NotImplementedError
 
     def forward(self, params, batch, aqua_proj=None, capture: bool = False):
+        """Logits (B, S, V) float32; ``capture`` adds calibration
+        activations: (logits, {"qk": ...}). A ``moe`` model returns
+        (logits, {"aux_loss": ...}) without ``capture`` (its router's
+        weighted load-balance loss, what a trainer adds to its loss) and
+        "aux_loss" beside "qk" with it (``DenseLM.forward``)."""
         raise NotImplementedError
 
     def init_decode_state(self, batch_size: int, max_seq: int) -> DecodeState:

@@ -1,4 +1,6 @@
-"""Dense decoder LM (PyTorch port of ``models/transformer.py::DenseLM``).
+"""Decoder LM (PyTorch port of ``models/transformer.py::DenseLM``), for the
+``dense`` and ``moe`` families: the two differ only in the block's FFN (a
+dense MLP, or the routed experts of ``models/moe.py``).
 
 Params keep the JAX package's tree and layouts — layers stacked on a
 leading axis — so ``repro_torch.bridge.params_from_numpy`` can load a JAX
@@ -15,6 +17,7 @@ from repro_torch.core import aqua as aqua_lib
 from repro_torch.core import kvcache as kv
 from repro_torch.core.h2o import h2o_budget
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.base import LM, DecodeState
 
 
@@ -26,34 +29,69 @@ def layer_params(tree, i: int):
 
 
 def init_block(gen: torch.Generator, cfg, dtype, device) -> dict:
+    if cfg.family == "moe":
+        ffn = moe_lib.init_moe_ffn(gen, cfg, dtype, device)
+    else:
+        ffn = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                         gated=cfg.act == "silu")
     return {
         "ln1": torch.ones(cfg.d_model, dtype=dtype, device=device),
         "ln2": torch.ones(cfg.d_model, dtype=dtype, device=device),
         "attn": attn.init_attention_params(gen, cfg.d_model, cfg.attention,
                                            dtype, device),
-        "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
-                          gated=cfg.act == "silu"),
+        "ffn": ffn,
     }
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stack_layers(make, n: int):
+    """The trees ``make()`` returns for ``n`` layers, stacked on a leading
+    axis: each layer is written into the stack as it is made, so the
+    peak is the stack plus one layer (a Qwen2-MoE's experts are 25 GB in
+    bf16)."""
+    first = make()
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((n,) + t.shape)
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k in src:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    out = alloc(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, make(), i)
+    return out
+
+
+def ffn_apply(cfg, p: dict, x: torch.Tensor):
+    """The block's FFN: (y, the MoE layer's load-balance aux loss), the
+    loss None for a dense MLP."""
+    if cfg.family == "moe":
+        return moe_lib.moe_ffn(cfg, p, x)
+    return L.mlp(p, x, cfg.act), None
 
 
 def block_forward(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                   proj: Optional[torch.Tensor],
                   lengths: Optional[torch.Tensor] = None):
     """One block over a sequence. Returns (x, aux) where aux holds the
-    attention's q/k (capture) and the layer's cache-form k̂ and v."""
+    attention's q/k (capture), the layer's cache-form k̂ and v, and the
+    FFN's ``aux_loss`` (None for a dense MLP)."""
     h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     h, aux = attn.prefill_attention(p["attn"], h_in, cfg.attention, cfg.aqua,
                                     proj, positions, return_aux=True,
                                     lengths=lengths)
     x = x + h
-    return x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
-                     cfg.act), aux
+    f, aux["aux_loss"] = ffn_apply(cfg, p["ffn"],
+                                   L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + f, aux
 
 
 def block_step(cfg, p: dict, x_t: torch.Tensor, cache,
@@ -66,13 +104,17 @@ def block_step(cfg, p: dict, x_t: torch.Tensor, cache,
                               write_mask=write_mask,
                               token_sparsity=token_sparsity)
     x = x_t + h
-    return x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
-                     cfg.act)
+    # the lanes, idle ones too, are one (B, 1) sequence batch: an MoE
+    # routes them as one block
+    f, _ = ffn_apply(cfg, p["ffn"],
+                     L.rms_norm(x, p["ln2"], cfg.norm_eps)[:, None])
+    return x + f[:, 0]
 
 
 class DenseLM(LM):
-    """Decoder-only GQA transformer (qk-norm/bias variants) with AQUA.
-    Serves a contiguous or (``enable_paging``) paged decode state."""
+    """Decoder-only GQA transformer (qk-norm/bias variants) with AQUA, with
+    a dense MLP or (family ``moe``) routed experts as its FFN. Serves a
+    contiguous or (``enable_paging``) paged decode state."""
 
     supports_paging = True
 
@@ -84,8 +126,8 @@ class DenseLM(LM):
         params = {
             "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt,
                                       dev),
-            "layers": _stack([init_block(gen, cfg, dt, dev)
-                              for _ in range(cfg.num_layers)]),
+            "layers": _stack_layers(lambda: init_block(gen, cfg, dt, dev),
+                                    cfg.num_layers),
             "ln_f": torch.ones(cfg.d_model, dtype=dt, device=dev),
         }
         if not cfg.tie_embeddings:
@@ -114,13 +156,24 @@ class DenseLM(LM):
 
     # -- full-sequence forward ----------------------------------------
     def forward(self, params, batch, aqua_proj=None, capture: bool = False):
-        """Logits (B, S, V) float32 [, {"qk": [(q, k) per layer]} when
-        ``capture``: post-RoPE activations for calibration]."""
+        """Logits (B, S, V) float32. With ``capture``: (logits, {"qk": [(q,
+        k) per layer]}), the post-RoPE activations for calibration, plus
+        for ``moe`` "aux_loss", the layers' summed load-balance losses.
+        Without: logits, or for ``moe`` (logits, {"aux_loss": the summed
+        losses times ``MoEConfig.router_aux_weight``}), as in JAX."""
         x = L.embed(params["embed"], batch["tokens"], self.dtype)
         x, auxes = self._run_layers(params, x, aqua_proj)
         logits = self._unembed(params, x)
+        moe = self.cfg.family == "moe"
+        aux_loss = sum(a["aux_loss"] for a in auxes) if moe else None
         if capture:
-            return logits, {"qk": [(a["q"], a["k"]) for a in auxes]}
+            out = {"qk": [(a["q"], a["k"]) for a in auxes]}
+            if moe:
+                out["aux_loss"] = aux_loss
+            return logits, out
+        if moe:
+            return logits, {"aux_loss": aux_loss
+                            * self.cfg.moe.router_aux_weight}
         return logits
 
     # -- serving --------------------------------------------------------
@@ -266,8 +319,8 @@ class DenseLM(LM):
                 prefix_len=prefix_len, positions=positions, lengths=lengths,
                 select_q_blk=select_q_blk)
             x = x + h
-            x = x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
-                          cfg.act)
+            x = x + ffn_apply(cfg, p["ffn"],
+                              L.rms_norm(x, p["ln2"], cfg.norm_eps))[0]
             if paged:
                 kv.paged_write_tail(cache, lane, k_t[0], v_t[0], positions[0],
                                     prefix_len // cache.page_size, tail_count)

@@ -284,16 +284,21 @@ class ContinuousBatchingEngine:
         self.scfg = serving
         self.cache_spec = cache
         # ragged bucketed prefill needs the full-cache policy (window
-        # rings and H2O eviction place slots assuming a rectangular batch)
+        # rings and H2O eviction place slots assuming a rectangular batch);
+        # the dense and moe families both take it, as in JAX (an MoE's pad
+        # rows are routed with its real ones, as JAX routes them)
         self._supports_ragged = self.eviction == "none"
         # prefix sharing: shared pages are read-only, so the full-cache
         # policy only (H2O statistics and ring overwrites would write them)
         self._prefix_ok = (cache.paged and cache.prefix_sharing
                            and self._supports_ragged)
+        # chunked prefill is the plan's to refuse (an MoE's capacity
+        # routing depends on the chunk boundaries)
         self._plan = resolve_dispatch_plan(attention=cfg.attention,
                                            aqua=cfg.aqua, serving=serving,
                                            mesh=None,
-                                           prefix_sharing=self._prefix_ok)
+                                           prefix_sharing=self._prefix_ok,
+                                           family=cfg.family)
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)
         # once, at load: the float32 unembedding (the step graph holds its

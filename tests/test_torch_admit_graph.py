@@ -83,7 +83,8 @@ def flash_plain():
 @pytest.mark.parametrize("name", ["paged", "contiguous", "flash_paged",
                                   "int8_paged", "hier_paged",
                                   "hier_int8_paged", "aqua_memory_paged",
-                                  "hot_int8_paged"])
+                                  "hot_int8_paged", "olmoe-1b-7b",
+                                  "qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("bucket", [8, 24])
 def test_admission_reads_no_value_on_the_host(name, bucket, flash_plain):
     """(a) The captured admission, on the meta device, where any host read

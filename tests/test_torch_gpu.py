@@ -65,7 +65,9 @@ DECODE_CASES = [(16, 8, 128, 0.75, 8), (8, 2, 64, 0.5, 8), (4, 4, 32, 1.0, 8),
                 (8, 2, 64, 0.5, 2), (8, 4, 64, 0.75, 4), (16, 4, 128, 0.5, 16),
                 (8, 4, 256, 0.75, 8), (8, 2, 72, 0.75, 8),
                 # Qwen1.5-4B (MHA, group 1) and Minitron-4B (group 3)
-                (20, 20, 128, 0.75, 8), (24, 8, 128, 0.75, 8)]
+                (20, 20, 128, 0.75, 8), (24, 8, 128, 0.75, 8),
+                # OLMoE-1B-7B and Qwen2-MoE-A2.7B (MHA, 16 heads)
+                (16, 16, 128, 0.75, 8)]
 
 
 # page sizes 16 and 64 hold whole 16-position tiles; 8 splits a tile
@@ -76,8 +78,9 @@ DECODE_CASES = [(16, 8, 128, 0.75, 8), (8, 2, 64, 0.5, 8), (4, 4, 32, 1.0, 8),
 def test_decode_kernel_matches_plain(cuda, dtype, paged, ps, h, kv, d,
                                      k_ratio, bd):
     """Lengths: the full table, 1, not a multiple of a tile (8 or 128
-    positions), and 0 (the kernel writes zeros; the plain version the mean
-    of V, which no caller reads). Every head of a group matches the plain
+    positions), and 0 (an idle lane: the mean of the V slots the Pallas
+    kernel visits, its own stripe or, unmapped, page 0, which an MoE
+    routes with the live lanes). Every head of a group matches the plain
     version, where the group's heads select different dim-blocks. bf16
     takes the group route, float32 the float32 group route."""
     gen = torch.Generator(device="cuda").manual_seed(d + h + bd)
@@ -115,9 +118,8 @@ def test_decode_kernel_matches_plain(cuda, dtype, paged, ps, h, kv, d,
                                block_dims=bd, scale=d ** -0.5)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (b, h, d)
-    attended = (lengths > 0)[:, None, None]
-    assert _within_tol(out, ref, dtype, valid=attended)
-    assert (out[lengths == 0] == 0).all()
+    assert _within_tol(out, ref, dtype)
+    assert out[lengths == 0].abs().max() > 0
     name = dk.body_name(paged)
     assert LAUNCHES - before == {name: 1}
 
@@ -134,8 +136,13 @@ def test_decode_kernel_matches_plain(cuda, dtype, paged, ps, h, kv, d,
                                             (4, 4, 32, 200, 64),
                                             # groups 1 and 3
                                             (20, 20, 128, 300, 128),
-                                            (24, 8, 128, 300, 128)])
+                                            (24, 8, 128, 300, 128),
+                                            # the MoE configs' 16 / 16
+                                            (16, 16, 128, 300, 128)])
 def test_prefill_kernel_matches_plain(cuda, dtype, h, kv, d, s, q_blk):
+    """Every row, those at or past a lane's length too: a bucket-padded
+    admission's pad rows see every valid key, and an MoE routes them with
+    the real rows."""
     gen = torch.Generator(device="cuda").manual_seed(s + q_blk)
     b = 2
     q = _rand(gen, b, s, h, d, dtype=dtype).transpose(1, 2)   # strided view
@@ -149,9 +156,7 @@ def test_prefill_kernel_matches_plain(cuda, dtype, h, kv, d, s, q_blk):
                                 q_blk=chunk, causal=True, scale=d ** -0.5)
     torch.cuda.synchronize()
     assert LAUNCHES["aqua_prefill"] == before + 1
-    valid = (torch.arange(s, device=cuda)[None] < lengths[:, None])[
-        :, None, :, None]
-    assert _within_tol(out, ref, dtype, valid)
+    assert _within_tol(out, ref, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -272,6 +277,32 @@ def test_flash_kernel_matches_plain(cuda, dtype, h, kv, d, s, causal,
     assert LAUNCHES - before == {"flash_attention": 1}
     assert out.dtype == dtype and out.shape == (b, h, s, d)
     assert _within_tol(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,d,s", [(16, 16, 128, 300), (8, 2, 64, 200),
+                                      (4, 1, 80, 77)])
+def test_flash_kernel_with_lengths_matches_plain(cuda, dtype, h, kv, d, s):
+    """A bucket-padded admission's flash call: keys at or past each row's
+    length masked, every row held (pad rows see every valid key, as JAX's
+    dense reference with lengths computes them), a length in the first
+    key tile, one across tiles and the full one."""
+    gen = torch.Generator(device="cuda").manual_seed(s + d + h)
+    b = 3
+    q = _rand(gen, b, s, h, d, dtype=dtype).transpose(1, 2)
+    k = _rand(gen, b, kv, s, d, dtype=dtype)
+    v = _rand(gen, b, kv, s, d, dtype=dtype)
+    lengths = torch.tensor([s, 5, s // 2 + 3], dtype=torch.int32,
+                           device=cuda)
+    before = LAUNCHES.copy()
+    out = fk.flash_attention(q, k, v, causal=True, lengths=lengths)
+    ref = fk.flash_attention_plain(q, k, v, causal=True, lengths=lengths)
+    torch.cuda.synchronize()
+    assert LAUNCHES - before == {"flash_attention": 1}
+    assert _within_tol(out, ref, dtype)
+    # without lengths the pad rows see the pad keys
+    assert not _within_tol(fk.flash_attention(q, k, v, causal=True), ref,
+                           dtype)
 
 
 @pytest.mark.parametrize("score_scale", [1.0, 3.0])
@@ -632,13 +663,15 @@ def test_paged_variant_kernels_match_plain(cuda, dtype, quant, part,
                                            k_ratio, bd):
     """int8 pools (per-page scales looked up per position: a split spans
     several pages, pages of 8 split a tile) and participating pages (a
-    partial tail page, pages past the tail, and a lane of one token), over
-    the group route's geometries. bf16 with int8 pools, participating
+    partial tail page, pages past the tail, and a lane of one token), and
+    an idle lane (length 0: the mean of the V slots the Pallas kernel
+    visits, dequantized, over its participating pages), over the group
+    route's geometries. bf16 with int8 pools, participating
     pages or both takes the group route (int8 widths of a multiple of 16),
     float32 the per-head route (``decode_route``); each call counts one
     launch under its body's name."""
     gen = torch.Generator(device="cuda").manual_seed(h + d + bd + ps)
-    b, npl = 4, 40
+    b, npl = 5, 40
     p = b * npl + 3
     q = _rand(gen, b, h, d, dtype=dtype)
     k_pool, v_pool = _pools(gen, p, kv, ps, d, dtype, quant)
@@ -649,7 +682,8 @@ def test_paged_variant_kernels_match_plain(cuda, dtype, quant, part,
     table = torch.randperm(p, generator=gen, device=cuda)[:b * npl].reshape(
         b, npl).to(torch.int32)
     table[1, 5:] = -1
-    lengths = torch.tensor([npl * ps, 5 * ps - 3, 1, 21 * ps - 5],
+    table[4, 3:] = -1                      # lane 4 (idle) maps three pages
+    lengths = torch.tensor([npl * ps, 5 * ps - 3, 1, 21 * ps - 5, 0],
                            dtype=torch.int32, device=cuda)
     part_idx = None
     if part:
@@ -1016,7 +1050,9 @@ STEP_BODY = {"paged": "aqua_paged_decode", "contiguous": "aqua_decode",
              "chunked_paged": "aqua_paged_decode", "swa_paged": None,
              "h2o_paged": None, "aqua_memory_paged": "aqua_paged_decode",
              "prefix_paged": "aqua_paged_decode", "int8_swa_paged": None,
-             "int8_h2o_paged": None, "hot_int8_paged": None}
+             "int8_h2o_paged": None, "hot_int8_paged": None,
+             "olmoe-1b-7b": "aqua_paged_decode",
+             "qwen2-moe-a2.7b": "aqua_paged_decode"}
 
 
 @pytest.mark.parametrize("name", list(STEP_BODY))
@@ -1127,7 +1163,8 @@ ADMIT_BODY = {"paged": "aqua_prefill", "contiguous": "aqua_prefill",
               "hier_paged": "aqua_prefill",
               "hier_int8_paged": "aqua_prefill",
               "aqua_memory_paged": "aqua_prefill",
-              "hot_int8_paged": "aqua_prefill"}
+              "hot_int8_paged": "aqua_prefill",
+              "olmoe-1b-7b": "aqua_prefill", "qwen2-moe-a2.7b": "aqua_prefill"}
 
 
 @pytest.mark.parametrize("name", list(ADMIT_BODY))

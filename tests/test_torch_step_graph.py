@@ -21,6 +21,9 @@ at a reduced width (2 layers, d_model 128; Danube's window 16):
 ``decode_step`` on the card, bit for bit, with these configurations.
 ``prefix_paged`` adds prefix sharing to them: its prompts share a
 16-token prefix, so lanes' page tables map the same physical pages.
+``olmoe-1b-7b`` and ``qwen2-moe-a2.7b`` add the MoE family's routed
+experts (top-k, one-hot capacity slots by cumulative sum, static
+capacities) to the step.
 """
 import dataclasses
 
@@ -83,6 +86,9 @@ DRIVES = {
                        dict(cache=PAGED, quant=QuantSpec(
                            kv_dtype="int8", hot_resident_fraction=0.25)),
                        SHORT),
+    # the MoE family: routed experts (Qwen2-MoE also a shared expert)
+    "olmoe-1b-7b": ("olmoe-1b-7b", {}, dict(cache=PAGED), SHORT),
+    "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}, dict(cache=PAGED), SHORT),
 }
 #: a common prompt prefix by drive (tokens)
 SHARED_PREFIX = {"prefix_paged": 16}
