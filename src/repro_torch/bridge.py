@@ -8,6 +8,10 @@ same nested dicts and layouts (``wq (M, KV, G, D)``, ``wk/wv (M, KV, D)``,
 both packages write. An MoE layer's ``ffn`` carries ``router`` (d, E),
 ``w1``/``w3`` (E, d, f), ``w2`` (E, f, d) and, with shared experts,
 ``shared`` (a gated MLP) and ``shared_gate`` (d, 1); stacked (L, ...).
+A VLM's tree adds ``patch_proj`` (``w`` (embed_dim, d)); an
+encoder-decoder's is ``embed``, ``pos`` (max_positions, d), ``enc_layers``
+(dense blocks), ``enc_ln``, ``dec_layers`` (blocks with ``xattn`` and its
+norm ``ln_x``, an ungated MLP) and ``ln_f``, as JAX's ``EncDecLM`` makes it.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Architecture config registry of the port (the dense and MoE decoders it
-serves).
+"""Architecture config registry of the port (the dense and MoE decoders,
+the VLM and the encoder-decoder it serves).
 
 ``get_config(name)`` returns the full published config; ``reduced(name)``
 the CPU-test variant of the same structure.
@@ -10,8 +10,8 @@ import importlib
 from typing import Dict
 
 from repro_torch.configs.base import (  # noqa: F401
-    AquaConfig, AttentionConfig, CacheSpec, ModelConfig, MoEConfig,
-    QuantSpec, ServingConfig, SparsitySpec, reduce_config,
+    AquaConfig, AttentionConfig, CacheSpec, FrontendConfig, ModelConfig,
+    MoEConfig, QuantSpec, ServingConfig, SparsitySpec, reduce_config,
     resolve_cache_specs, resolve_eviction, resolve_sparsity_spec,
 )
 
@@ -23,6 +23,8 @@ _MODULES: Dict[str, str] = {
     "minitron-4b": "minitron_4b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "qwen2-moe-a2.7b": "qwen2_moe_a27b",
+    "pixtral-12b": "pixtral_12b",
+    "whisper-tiny": "whisper_tiny",
 }
 ALL_ARCHS = tuple(_MODULES)
 

@@ -1,8 +1,9 @@
 """Configuration dataclasses of the PyTorch port (stdlib only).
 
 The port's own copy of the JAX package's ``configs/base.py``, cut to what
-the decoder serving path uses: ``AquaConfig``, ``AttentionConfig``,
-``MoEConfig``, ``ModelConfig``, ``reduce_config``, ``CacheSpec``,
+the serving path uses: ``AquaConfig``, ``AttentionConfig``,
+``MoEConfig``, ``FrontendConfig``, ``ModelConfig``, ``reduce_config``,
+``CacheSpec``,
 ``QuantSpec``, ``SparsitySpec`` (with their resolvers) and
 ``ServingConfig``.
 Field names and defaults match the JAX package so a config built from the
@@ -11,7 +12,7 @@ same arguments means the same thing in both.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 
@@ -64,6 +65,8 @@ class AttentionConfig:
     qk_norm: bool = False
     qkv_bias: bool = False        # Qwen2-style q/k/v projection biases
     rope_theta: float = 10000.0
+    use_rope: bool = True         # False: absolute learned positions (whisper)
+    causal: bool = True           # False for encoder self-attention
     # Backend registry key (repro_torch.core.attention): "auto" | "dense" |
     # "aqua-masked-dense" | "aqua-block-sparse" | "aqua-block-sparse-plain".
     backend: str = "auto"
@@ -92,24 +95,41 @@ class MoEConfig:
     capacity_factor: float = 1.25
 
 
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Stub modality frontends: a request carries precomputed embeddings
+    (batch, num_embeds, embed_dim) in its prefill batch, vision patches
+    under "patches" (projected by ``patch_proj`` and spliced over the
+    first prompt positions) or audio frames under "frames" (of width
+    d_model, the encoder's input)."""
+
+    kind: str = "none"            # none | audio_frames | vision_patches
+    num_embeds: int = 0
+    embed_dim: int = 0
+
+
 #: families the JAX package builds that the port does not serve yet
-UNPORTED_FAMILIES = ("ssm", "hybrid", "encdec", "vlm")
+UNPORTED_FAMILIES = ("ssm", "hybrid")
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # the port serves "dense" and "moe"
+    family: str                   # dense | moe | encdec | vlm
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
     moe: Optional[MoEConfig] = None
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
     aqua: Optional[AquaConfig] = None
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # encoder-decoder (whisper): encoder depth; the decoder has num_layers
+    num_encoder_layers: int = 0
     act: str = "silu"             # silu (gated MLP) | gelu | relu
+    max_positions: int = 32768    # learned-position table (use_rope=False)
     dtype: str = "bfloat16"       # activation/compute dtype
     param_dtype: str = "float32"
     # long-context capability flag of the JAX package's shape table
@@ -121,20 +141,24 @@ class ModelConfig:
     def validate(self) -> None:
         if self.family in UNPORTED_FAMILIES:
             raise NotImplementedError(
-                f"family {self.family!r}: the port serves the dense and moe "
-                "decoders only")
-        assert self.family in ("dense", "moe"), self.family
+                f"family {self.family!r}: the port serves the dense, moe, "
+                "vlm and encdec families only")
+        assert self.family in ("dense", "moe", "encdec", "vlm"), self.family
         assert self.attention is not None
         if self.family == "moe":
             assert self.moe is not None, "family 'moe' needs ModelConfig.moe"
+        if self.family == "encdec":
+            assert self.num_encoder_layers > 0, \
+                "family 'encdec' needs num_encoder_layers > 0"
         assert self.act in ("silu", "gelu", "relu"), self.act
 
 
 def reduce_config(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,
                   vocab: int = 128, ff: int = 128) -> ModelConfig:
     """Shrink a production config to a CPU-test size, keeping its
-    structure (GQA ratio, qk-norm, tied embeddings, MoE routing) — the
-    same rule as the JAX package's ``reduce_config``."""
+    structure (GQA ratio, qk-norm, tied embeddings, MoE routing, the
+    frontend's kind at 4 embeddings of width 32, an encoder of 2 layers) —
+    the same rule as the JAX package's ``reduce_config``."""
     att = cfg.attention
     heads = max(2, min(4, att.num_heads))
     kv = heads if att.num_kv_heads == att.num_heads else max(1, heads // 2)
@@ -146,8 +170,13 @@ def reduce_config(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,
         moe = replace(moe, num_experts=8, top_k=min(2, moe.top_k),
                       expert_ff=ff // 2, num_shared=min(1, moe.num_shared),
                       capacity_factor=8.0)  # effectively dropless
+    kw = {}
+    if cfg.frontend.kind != "none":
+        kw["frontend"] = replace(cfg.frontend, num_embeds=4, embed_dim=32)
+    if cfg.num_encoder_layers:
+        kw["num_encoder_layers"] = 2
     return replace(cfg, num_layers=layers, d_model=d_model, vocab_size=vocab,
-                   d_ff=ff, attention=att, moe=moe, dtype="float32")
+                   d_ff=ff, attention=att, moe=moe, dtype="float32", **kw)
 
 
 @dataclass(frozen=True)

@@ -2,7 +2,8 @@
 
 * offline SVD projection (per GQA group), via eigh of the Gram matrix;
 * dynamic magnitude-based dim-block selection (per query, or per query
-  chunk for the prefill kernel).
+  chunk for the prefill kernel), which a :class:`SelectionTape` can
+  record and replay.
 
 Tie-break: ``jax.lax.top_k`` keeps the lower index among equal values and
 ``torch.topk`` promises no order, so selection here is a *stable*
@@ -11,9 +12,10 @@ index exactly as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def compute_projection(d_calib: torch.Tensor) -> torch.Tensor:
@@ -69,7 +71,8 @@ def topk_block_indices(q_hat: torch.Tensor, k_dims: int,
     nb, kb = d // block_dims, k_dims // block_dims
     mag = q_hat.float().abs()
     bmag = mag.reshape(*mag.shape[:-1], nb, block_dims).sum(-1)
-    return torch.sort(topk_indices(bmag, kb), dim=-1)[0].to(torch.int32)
+    return _taped("decode", torch.sort(topk_indices(bmag, kb),
+                                       dim=-1)[0].to(torch.int32))
 
 
 def chunk_topk_block_indices(q_hat: torch.Tensor, k_dims: int,
@@ -95,7 +98,89 @@ def chunk_topk_block_indices(q_hat: torch.Tensor, k_dims: int,
         mag = mag * valid[:, None, :, None]
     bmag = mag.reshape(b, h, s // q_chunk, q_chunk, nb, block_dims
                        ).sum(dim=(3, 5))
-    return torch.sort(topk_indices(bmag, kb), dim=-1)[0].to(torch.int32)
+    return _taped("prefill", torch.sort(topk_indices(bmag, kb),
+                                        dim=-1)[0].to(torch.int32))
+
+
+#: the installed :class:`SelectionTape` by device
+_TAPES: Dict[Tuple[str, int], "SelectionTape"] = {}
+
+
+def _key(device) -> Tuple[str, int]:
+    device = torch.device(device)
+    return device.type, 0 if device.index is None else device.index
+
+
+def _taped(stream: str, block_idx: torch.Tensor) -> torch.Tensor:
+    tape = _TAPES.get(_key(block_idx.device))
+    return block_idx if tape is None else tape.pass_through(stream,
+                                                           block_idx)
+
+
+class SelectionTape:
+    """Every dim-block selection of a drive on ``device``, in call order:
+    the per-row selections (:func:`topk_block_indices`: decode steps)
+    and the per-chunk ones (:func:`chunk_topk_block_indices`: prefill)
+    apart, each call in a slot of ``slots[stream]`` of up to
+    ``numel[stream]`` indices. ``install("record")`` records while
+    selecting as usual; ``install("replay")`` gives each call the
+    recording of the same call instead: a second drive of one trace
+    makes the same calls in the same order, so a drive whose bf16
+    rounding ranks near-tied dim-blocks otherwise (the plain reference
+    of a kernel drive) can be held to the first's selections (as
+    ``models.moe.RoutingTape`` holds a drive to another's routing). The
+    call counters live on the device and every write is in place, so CUDA
+    graphs captured while a tape is installed record and replay too
+    (calls past the last slot share it: ``overflowed``); the tape must
+    outlive such graphs."""
+
+    STREAMS = ("decode", "prefill")
+
+    def __init__(self, device, slots=(4096, 1024), numel=(2048, 4096)):
+        dev = torch.device(device)
+        self.buf = {s: torch.zeros(n, m, dtype=torch.int16, device=dev)
+                    for s, n, m in zip(self.STREAMS, slots, numel)}
+        self.calls = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.mode = "record"
+        self._device = dev
+
+    def install(self, mode: str) -> None:
+        """Select the device's block indices through this tape
+        (``"record"`` or ``"replay"``) from call 0 on."""
+        assert mode in ("record", "replay"), mode
+        self.mode = mode
+        self.calls.zero_()
+        _TAPES[_key(self._device)] = self
+
+    def remove(self) -> None:
+        _TAPES.pop(_key(self._device), None)
+
+    @property
+    def overflowed(self) -> bool:
+        """Whether some stream made more calls than it has slots (read
+        on the host)."""
+        return any(int(self.calls[i]) > self.buf[s].shape[0]
+                   for i, s in enumerate(self.STREAMS))
+
+    def pass_through(self, stream: str, block_idx: torch.Tensor
+                     ) -> torch.Tensor:
+        """One call's selection: ``block_idx`` recorded (and returned), or
+        replaced by the recording of the same call (its shape)."""
+        tape, c = self.buf[stream], self.STREAMS.index(stream)
+        n = block_idx.numel()
+        if n > tape.shape[1]:
+            raise ValueError(f"a {stream} selection of {n} indices in a "
+                             f"tape of {tape.shape[1]} a call")
+        slot = self.calls[c:c + 1].clamp(max=tape.shape[0] - 1)
+        if self.mode == "record":
+            tape.index_copy_(0, slot, F.pad(
+                block_idx.reshape(1, n).to(torch.int16),
+                (0, tape.shape[1] - n)))
+        else:
+            block_idx = tape.index_select(0, slot)[0, :n].reshape(
+                block_idx.shape).to(block_idx.dtype)
+        self.calls[c:c + 1].add_(1)
+        return block_idx
 
 
 def stored_dims(aqua, head_dim: int) -> int:

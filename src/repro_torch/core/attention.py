@@ -49,6 +49,13 @@ Cache policies (``kvcache``): full, sliding-window ring, H2O, and both.
 does; :func:`decode_attention` picks the slot, writes, attends and, under
 H2O, accumulates the step's attention mass.
 
+Encoder-decoder (whisper): ``AttentionConfig.use_rope`` off leaves q and k
+unrotated, ``causal`` off drops the causal mask (the encoder's
+self-attention); ``prefill_attention(..., kv_x=)`` and
+``decode_attention(..., cross=)`` are cross-attention over the encoder's
+output. As in JAX, these run on the ``dense`` reference (materialized
+scores, plain tensor operations), never on a kernel.
+
 Conventions: x (B, S, d_model); q (B, S, KV, G, D); k, v (B, S, KV, D);
 proj P (KV, D, D) per layer.
 """
@@ -142,14 +149,17 @@ def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig,
-        positions: torch.Tensor
+        positions: torch.Tensor, src: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns q (B,S,KV,G,D), k (B,S,KV,D), v (B,S,KV,D), RoPE'd. The
-    biases (``qkv_bias``) add before qk-norm and RoPE, as in JAX; every
-    prefill, chunk and decode path projects through here."""
+    """Returns q (B,S,KV,G,D), k (B,S,KV,D), v (B,S,KV,D), RoPE'd unless
+    ``cfg.use_rope`` is off (learned or sinusoidal positions). ``src``
+    (B, T, d_model): keys and values from it instead (cross-attention: no
+    RoPE). The biases (``qkv_bias``) add before qk-norm and RoPE, as in
+    JAX; every prefill, chunk and decode path projects through here."""
+    kv_src = x if src is None else src
     q = _proj_in(x, params["wq"])
-    k = _proj_in(x, params["wk"])
-    v = _proj_in(x, params["wv"])
+    k = _proj_in(kv_src, params["wk"])
+    v = _proj_in(kv_src, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -157,6 +167,8 @@ def qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
+    if not cfg.use_rope or src is not None:
+        return q, k, v
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 
@@ -322,20 +334,24 @@ def _whole_blocks(aqua: AquaConfig, head_dim: int) -> bool:
 
 def _dense_prefill(qq, kk, v, *, cfg, aqua, positions, lengths, causal):
     """Materialized-score reference (positions are 1-D here), with the
-    sliding window of ``cfg`` on causal calls, as JAX's ``dense-jnp``."""
+    sliding window of ``cfg`` on causal calls, as JAX's ``dense-jnp``. A
+    non-causal call without ``lengths`` masks nothing: the encoder's
+    self-attention, and cross-attention, whose T keys (the encoder's
+    frames) need not be the S queries."""
     scores = torch.einsum("bskgd,btkd->bkgst", qq, kk)
     scores = scores.float() / float(cfg.head_dim) ** 0.5
     s = qq.shape[1]
     pos = positions
-    mask = torch.ones(1, s, s, dtype=torch.bool, device=qq.device)
-    if causal:
-        mask = mask & (pos[:, None] >= pos[None, :])[None]
-        if cfg.window is not None:
-            mask = mask & (pos[None, :] > pos[:, None] - cfg.window)[None]
-    if lengths is not None:
-        mask = mask & (pos[None, None, :] < lengths[:, None, None])
-    scores = torch.where(mask[:, None, None], scores,
-                         torch.full_like(scores, NEG_INF))
+    if causal or lengths is not None:
+        mask = torch.ones(1, s, s, dtype=torch.bool, device=qq.device)
+        if causal:
+            mask = mask & (pos[:, None] >= pos[None, :])[None]
+            if cfg.window is not None:
+                mask = mask & (pos[None, :] > pos[:, None] - cfg.window)[None]
+        if lengths is not None:
+            mask = mask & (pos[None, None, :] < lengths[:, None, None])
+        scores = torch.where(mask[:, None, None], scores,
+                             torch.full_like(scores, NEG_INF))
     weights = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", weights.to(v.dtype), v)
     return out, weights
@@ -471,21 +487,32 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
                       proj: Optional[torch.Tensor] = None,
                       positions: Optional[torch.Tensor] = None,
                       return_aux: bool = False,
-                      lengths: Optional[torch.Tensor] = None):
-    """Causal self-attention over a sequence (windowed where ``cfg.window``
-    is set), dispatched through the backend registry (``cfg.backend``).
-    ``lengths`` (B,) masks ragged rows' keys. Returns out (B, S, d_model)
-    [, aux with the post-RoPE ``q``/``k`` (calibration capture),
-    ``q_hat`` (the projected query in stored form under AQUA, else None),
-    ``k_cache`` (k in the cache's stored form: projected and sliced under
-    AQUA) and ``v``]."""
+                      lengths: Optional[torch.Tensor] = None,
+                      kv_x: Optional[torch.Tensor] = None):
+    """Self-attention over a sequence, causal unless ``cfg.causal`` is off
+    (windowed where ``cfg.window`` is set), dispatched through the backend
+    registry (``cfg.backend``). ``lengths`` (B,) masks ragged rows' keys.
+    ``kv_x`` (B, T, d_model) makes it cross-attention: keys and values
+    from the encoder's output, no RoPE, no causal mask, on the ``dense``
+    reference (as JAX sends it to ``dense-jnp``; pass ``aqua`` None).
+    Returns out (B, S, d_model) [, aux with the post-RoPE ``q``/``k``
+    (calibration capture), ``q_hat`` (the projected query in stored form
+    under AQUA, else None), ``k_cache`` (k in the cache's stored form:
+    projected and sliced under AQUA) and ``v``]."""
     s = x.shape[1]
+    if kv_x is not None and lengths is not None:
+        raise ValueError(
+            "`lengths` masks self-attention keys; ragged cross-attention "
+            "would need encoder-side lengths (unsupported)")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    q, k, v = qkv(params, x, cfg, positions)
+    q, k, v = qkv(params, x, cfg, positions, src=kv_x)
+    causal = cfg.causal and kv_x is None
     aqua_on = _aqua_on(aqua)
     qh, kh = _aqua_project(q, k, aqua, proj, cfg.head_dim)
     backend = resolve_backend(cfg.backend, aqua=aqua)
+    if kv_x is not None:
+        backend = get_backend("dense")
     if backend.aqua_native and not _whole_blocks(aqua, cfg.head_dim):
         backend = backend.per_dim
     if backend.aqua_native:
@@ -496,7 +523,7 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
         qq, kk = q, k
     out, weights = backend.prefill(qq, kk, v, cfg=cfg, aqua=aqua,
                                    positions=positions, lengths=lengths,
-                                   causal=True)
+                                   causal=causal)
     out = _proj_out(out.to(v.dtype), params["wo"])
     if return_aux:
         return out, {"q": q, "k": k, "weights": weights,
@@ -705,12 +732,16 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
                      cfg: AttentionConfig, aqua: Optional[AquaConfig] = None,
                      proj: Optional[torch.Tensor] = None,
                      write_mask: Optional[torch.Tensor] = None,
-                     token_sparsity: Optional[Tuple[int, int]] = None
+                     token_sparsity: Optional[Tuple[int, int]] = None,
+                     cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                      ) -> torch.Tensor:
     """One decode step. x_t (B, d_model); ``cache`` an :class:`AttnCache`
     or :class:`PagedAttnCache` (one layer), updated in place. Returns out
     (B, d_model) in x_t's dtype. ``write_mask`` (B,) bool freezes
     masked-off lanes' cache (no write, no count advance, no H2O mass).
+    ``cross`` = (k_enc, v_enc), each (B, S_enc, KV, D): cross-attention
+    over the encoder's keys and values (the whisper decoder's), which
+    leaves ``cache`` alone; plain tensor operations, as in JAX.
 
     The slot comes from the cache policy (ring under ``cfg.window``, H2O
     eviction under ``aqua.h2o_ratio`` < 1, both, or the full cache); the
@@ -724,6 +755,14 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
     this layer's ``acc_pool``) are attended, by the kernel and by the
     reference path alike.
     """
+    if cross is not None:
+        k_enc, v_enc = cross
+        # the query alone (k and v come from the encoder), RoPE-free
+        q = qkv(params, x_t[:, None, :], cfg, None, src=x_t[:, None, :])[0]
+        sc = torch.einsum("bkgd,bskd->bkgs", q[:, 0], k_enc).float()
+        w = torch.softmax(sc / float(cfg.head_dim) ** 0.5, dim=-1)
+        out = torch.einsum("bkgs,bskd->bkgd", w.to(v_enc.dtype), v_enc)
+        return _proj_out(out, params["wo"]).to(x_t.dtype)
     pos = cache.count
     q, k, v = qkv(params, x_t[:, None, :], cfg, pos[:, None])
     q, k_t, v_t = q[:, 0], k[:, 0], v[:, 0]        # (B,KV,G,D), (B,KV,D)

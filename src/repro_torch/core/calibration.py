@@ -39,6 +39,18 @@ def _f64(x) -> np.ndarray:
     return np.asarray(x, np.float64)
 
 
+def capture_forward(model) -> Callable:
+    """The ``forward_with_capture`` of a port model for numpy batches:
+    every array of the batch (the tokens and a frontend's inputs) onto the
+    model's device, then ``model.forward(..., capture=True)``'s aux (an
+    encoder-decoder's: its decoder's self-attention q/k)."""
+    def fwd(params, batch):
+        inputs = {k: torch.from_numpy(np.asarray(v)).to(model.device)
+                  for k, v in batch.items()}
+        return model.forward(params, inputs, capture=True)[1]
+    return fwd
+
+
 def calibrate(forward_with_capture: Callable, params, batches: Iterable,
               cfg: ModelConfig, max_vectors: int = 16384,
               device=None) -> AquaProjections:

@@ -1,11 +1,15 @@
 """Calibration sources (port of the ``kind="corpus"`` and ``kind="lcg"``
-sources of the JAX package's ``data/pipeline.py``), numpy only.
+sources of the JAX package's ``data/pipeline.py``) and the stub modality
+frontends' inputs (``add_frontend_inputs``), numpy only.
 
 Corpus windows are a pure function of (seed, step, row), so both packages
 draw the same token windows from the same file. The synthetic LCG
 language follows the same affine rule as JAX's, but draws its
 coefficients from a numpy ``Generator`` seeded with (seed, step), not from
-``jax.random``: its tokens differ from the JAX package's.
+``jax.random``: its tokens differ from the JAX package's. Likewise the
+frontend inputs are standard normals from a numpy ``Generator`` seeded
+with ``step + 7`` (JAX: ``jax.random.PRNGKey(step + 7)``), of the same
+shapes, not the same values.
 """
 from __future__ import annotations
 
@@ -71,17 +75,52 @@ def lcg_batch(vocab_size: int, seq_len: int, batch: int, seed: int,
             "labels": seq[:, 1:].astype(np.int32)}
 
 
+def add_frontend_inputs(batch: Dict[str, np.ndarray], cfg,
+                        step: int = 0) -> Dict[str, np.ndarray]:
+    """``batch`` plus the stub frontend inputs of model config ``cfg``
+    (float32, batch size that of ``batch["tokens"]``): "patches" (B,
+    num_embeds, embed_dim) for ``vision_patches``, "frames" (B,
+    num_embeds, d_model) for ``audio_frames``, nothing otherwise."""
+    fe = cfg.frontend
+    width = {"vision_patches": fe.embed_dim,
+             "audio_frames": cfg.d_model}.get(fe.kind)
+    if width is not None:
+        key = "patches" if fe.kind == "vision_patches" else "frames"
+        batch[key] = np.random.default_rng(step + 7).standard_normal(
+            (batch["tokens"].shape[0], fe.num_embeds, width),
+            dtype=np.float32)
+    return batch
+
+
+def request_frontend_inputs(cfg, step: int = 0
+                            ) -> Optional[Dict[str, np.ndarray]]:
+    """One request's stub frontend inputs (batch 1, as
+    ``Request.extra_inputs`` takes them) for ``cfg``, or None without a
+    frontend."""
+    if cfg.frontend.kind == "none":
+        return None
+    out = add_frontend_inputs({"tokens": np.zeros((1, 1), np.int32)}, cfg,
+                              step)
+    del out["tokens"]
+    return out
+
+
 def calibration_batches(vocab_size: int, corpus_path: Optional[str] = None,
                         *, num_batches: int = 4, batch: int = 2,
-                        seq: int = 128, seed: int = 1234
+                        seq: int = 128, seed: int = 1234, model_cfg=None
                         ) -> Iterator[Dict[str, np.ndarray]]:
     """Calibration batches ({"tokens": (batch, seq) int32}): windows of the
     corpus file at ``corpus_path``, or, without one, the synthetic LCG
-    language — the JAX ``calibration_batches``."""
+    language — the JAX ``calibration_batches``. With ``model_cfg`` each
+    batch carries its frontend inputs too (``add_frontend_inputs``, step
+    = the batch's index)."""
     for i in range(num_batches):
         if corpus_path is None:
             tokens = lcg_batch(vocab_size, seq, batch, seed, i)["tokens"]
         else:
             tokens = corpus_batch(corpus_path, vocab_size, seq, batch, seed,
                                   i)["tokens"]
-        yield {"tokens": tokens}
+        out = {"tokens": tokens}
+        if model_cfg is not None:
+            add_frontend_inputs(out, model_cfg, i)
+        yield out

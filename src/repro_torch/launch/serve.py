@@ -7,7 +7,13 @@ decode-step units, mixed prompt lengths) and reports throughput, lane
 occupancy and inter-token gaps; ``--rectangular`` runs the fixed-batch
 ``ServeEngine`` instead. ``--hf-checkpoint`` serves real weights
 (``checkpoint/hf.py``: float32 params and activations, as in JAX).
-``--verify`` re-serves the trace on a reference engine and requires
+A config with a modality frontend (``pixtral-12b``, ``whisper-tiny``)
+gives every request, the ``--rectangular`` batch and each calibration
+batch the stub frontend inputs (``data.corpus.add_frontend_inputs``), as
+JAX's launcher does; a VLM's calibration windows (32 tokens) must hold its
+patches, so the full ``pixtral-12b`` raises ``ValueError`` there, as in
+JAX (before its weights are made). ``--verify`` re-serves the trace on a
+reference engine and requires
 token-identical outputs, plus the JAX launcher's pool-bytes, int8-pool,
 page-ranking, prefix-sharing and chunked-gap checks; a failed check
 prints ``[serve] VERIFY FAILED: ...`` and raises ``SystemExit(1)``.
@@ -47,10 +53,13 @@ from repro_torch.configs import ALL_ARCHS, get_config, reduced
 from repro_torch.configs.base import (AquaConfig, CacheSpec, ModelConfig,
                                       QuantSpec, ServingConfig, SparsitySpec)
 from repro_torch.core.calibration import (AquaProjections, calibrate,
-                                          load_projections, save_projections)
-from repro_torch.data.corpus import calibration_batches, lcg_batch
+                                          capture_forward, load_projections,
+                                          save_projections)
+from repro_torch.data.corpus import (add_frontend_inputs, calibration_batches,
+                                     lcg_batch, request_frontend_inputs)
 from repro_torch.models import build_model
 from repro_torch.models.base import PagingSpec
+from repro_torch.models.transformer import check_splice
 from repro_torch.models.layers import with_unembedding
 from repro_torch.runtime import resolve_device
 from repro_torch.serving import (ContinuousBatchingEngine, ServeEngine,
@@ -60,6 +69,7 @@ from repro_torch.serving.scheduler import Request, ScheduleStats
 
 #: calibration forwards (batches of 2 x 32 tokens) when none are loaded
 CALIBRATION_BATCHES = 2
+CALIBRATION_SEQ = 32
 
 
 @dataclasses.dataclass
@@ -229,6 +239,12 @@ def main(argv=None) -> ServeRun:
             aqua = dataclasses.replace(aqua,
                                        prefill_q_blk=args.prefill_q_blk)
     cfg = dataclasses.replace(cfg, aqua=aqua)
+    if (aqua is not None and cfg.frontend.kind == "vision_patches"
+            and not (args.projections is not None
+                     and os.path.exists(args.projections))):
+        # the calibration windows splice the patches as JAX's do, and raise
+        # where JAX's raise: checked before the weights are made
+        check_splice(CALIBRATION_SEQ, cfg.frontend.num_embeds)
 
     model = build_model(cfg, dev)
     load_s = None
@@ -243,7 +259,7 @@ def main(argv=None) -> ServeRun:
     else:
         params = model.init(torch.Generator(device=dev).manual_seed(0))
     # the float32 unembedding, made once for every engine below
-    params = with_unembedding(params, cfg.tie_embeddings)
+    params = with_unembedding(params, model.tied_unembedding)
 
     proj = None
     if aqua is not None and args.projections is not None \
@@ -255,13 +271,10 @@ def main(argv=None) -> ServeRun:
         print(f"[serve] offline AQUA calibration for {cfg.name} "
               f"(corpus: {src}) ...")
 
-        def fwd_cap(p, batch):
-            toks = torch.from_numpy(batch["tokens"]).to(dev)
-            return model.forward(p, {"tokens": toks}, capture=True)[1]
-        proj = calibrate(fwd_cap, params, calibration_batches(
+        proj = calibrate(capture_forward(model), params, calibration_batches(
             cfg.vocab_size, args.calibration_corpus,
-            num_batches=CALIBRATION_BATCHES, batch=2, seq=32), cfg,
-            device=dev)
+            num_batches=CALIBRATION_BATCHES, batch=2, seq=CALIBRATION_SEQ,
+            model_cfg=cfg), cfg, device=dev)
         if args.projections is not None:
             save_projections(args.projections, proj)
             print(f"[serve] saved AQUA projections to {args.projections}")
@@ -317,6 +330,10 @@ def main(argv=None) -> ServeRun:
             dtype=np.int32)
         for r in reqs:
             r.tokens = np.concatenate([pre, np.asarray(r.tokens, np.int32)])
+    # every request carries the same stub frontend inputs, as in JAX
+    extra = request_frontend_inputs(cfg)
+    for r in reqs:
+        r.extra_inputs = extra
 
     t0 = time.time()
     finished = 0
@@ -503,8 +520,9 @@ def _drive_rectangular(cfg, params, proj, args, dev) -> ServeRun:
                       backend=args.backend, device=dev)
     batch_size = min(args.requests, args.lanes)
     prompt_len = int(args.prompt_lens.split(",")[0])
-    batch = {"tokens": lcg_batch(cfg.vocab_size, prompt_len, batch_size,
-                                 seed=0, step=0)["tokens"]}
+    batch = add_frontend_inputs(
+        {"tokens": lcg_batch(cfg.vocab_size, prompt_len, batch_size, seed=0,
+                             step=0)["tokens"]}, cfg)
     t0 = time.time()
     res = eng.generate(batch, steps=args.steps,
                        temperature=args.temperature)

@@ -16,7 +16,8 @@ from repro_torch.runtime import resolve_device, torch_dtype
 class DecodeState:
     """Serving state: the per-layer caches stacked on a leading layer axis
     (an ``AttnCache`` or ``PagedAttnCache`` whose tensors are (L, ...))
-    plus model-level extras."""
+    plus model-level extras (whisper's cross K/V), tensors or tuples of
+    them with lanes at axis 1 too."""
 
     layers: Any
     extra: Dict[str, Any] = field(default_factory=dict)
@@ -42,14 +43,23 @@ class PagingSpec:
     hot_pages: int = 0
 
 
+def extra_tensors(extra) -> list:
+    """The tensors of a ``DecodeState.extra`` (nested dicts, tuples and
+    lists of tensors), in a fixed order."""
+    if isinstance(extra, torch.Tensor):
+        return [extra]
+    items = extra.values() if isinstance(extra, dict) else extra
+    return [t for item in items for t in extra_tensors(item)]
+
+
 class LM:
     """Base class: subclasses implement the per-family wiring. ``self``
     carries the static config and the device; params are passed in.
 
     Lane surgery (continuous batching): a *lane* is one batch row of a
-    DecodeState. Every cache tensor carries layers at axis 0 and lanes at
-    axis 1, so lane surgery is uniform indexing. The state is updated in
-    place."""
+    DecodeState. Every cache tensor, and every tensor of its extras,
+    carries layers at axis 0 and lanes at axis 1, so lane surgery is
+    uniform indexing. The state is updated in place."""
 
     supports_paging = False
 
@@ -112,16 +122,19 @@ class LM:
     def insert_lane(self, state: DecodeState, req_state: DecodeState,
                     lane) -> DecodeState:
         """Overwrite lane ``lane`` of ``state`` with the single-lane
-        ``req_state`` (K/V slots, positions, count), in place. ``lane`` is
-        a Python int or a 0-d / 1-element int tensor on the state's
-        device, never read on the host (an admission graph captures
-        this)."""
+        ``req_state`` (K/V slots, positions, count, and the extras), in
+        place. ``lane`` is a Python int or a 0-d / 1-element int tensor on
+        the state's device, never read on the host (an admission graph
+        captures this)."""
         index = lane_index(lane, state.layers.count.device)
         for f in dataclasses.fields(state.layers):
             dst = getattr(state.layers, f.name)
             if dst is not None:
                 dst.index_copy_(1, index,
                                 getattr(req_state.layers, f.name)[:, :1])
+        for dst, src in zip(extra_tensors(state.extra),
+                            extra_tensors(req_state.extra)):
+            dst.index_copy_(1, index, src[:, :1])
         return state
 
     def reset_lane(self, state: DecodeState, lane,

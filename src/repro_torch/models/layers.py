@@ -38,6 +38,37 @@ def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return h @ p["w2"].to(x.dtype)
 
 
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                dtype=torch.float32, device=None, bias: bool = False) -> dict:
+    """A linear map ``w`` (d_in, d_out) [+ zero bias ``b``]."""
+    p = {"w": _normal(gen, (d_in, d_out), d_in ** -0.5, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=device)
+    return p
+
+
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def sinusoidal_positions(seq: int, d_model: int, device=None
+                         ) -> torch.Tensor:
+    """(seq, d_model) float32 sinusoidal position table: sin at the even
+    columns, cos at the odd ones, frequencies 10000^(-2i/d_model)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device),
+                            dim / d_model)
+    pe = torch.zeros(seq, d_model, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle[:, :d_model - d_model // 2])
+    return pe
+
+
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
                    dtype=torch.float32, device=None) -> dict:
     return {"table": _normal(gen, (vocab, d_model), d_model ** -0.5, dtype,

@@ -1,6 +1,9 @@
-"""Decoder LM (PyTorch port of ``models/transformer.py::DenseLM``), for the
-``dense`` and ``moe`` families: the two differ only in the block's FFN (a
-dense MLP, or the routed experts of ``models/moe.py``).
+"""Transformer LMs (PyTorch port of ``models/transformer.py``):
+``DenseLM`` for the ``dense``, ``moe`` and ``vlm`` families — the first two
+differ only in the block's FFN (a dense MLP, or the routed experts of
+``models/moe.py``), the VLM splices projected patch embeddings over the
+first prompt positions — and ``EncDecLM``, the whisper-style
+encoder-decoder.
 
 Params keep the JAX package's tree and layouts — layers stacked on a
 leading axis — so ``repro_torch.bridge.params_from_numpy`` can load a JAX
@@ -8,6 +11,7 @@ param tree unchanged. A Python loop over layers replaces ``lax.scan``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -94,6 +98,24 @@ def block_forward(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     return x + f, aux
 
 
+def check_splice(seq_len: int, num_embeds: int) -> None:
+    """A (bucket-padded) prompt of ``seq_len`` tokens takes ``num_embeds``
+    patch embeddings over its first positions only if it is at least that
+    long: JAX's ``x.at[:, :n].set(pe)`` raises otherwise, and so does the
+    port."""
+    if seq_len < num_embeds:
+        raise ValueError(
+            f"a {seq_len}-token prompt cannot take the {num_embeds} patch "
+            "embeddings spliced over its first positions: it must be at "
+            "least as long (after bucket padding)")
+
+
+def _stack_caches(caches) -> kv.AttnCache:
+    """Per-layer B-lane contiguous caches stacked on a leading layer axis."""
+    return kv.AttnCache(*(None if ts[0] is None else torch.stack(ts)
+                          for ts in zip(*(kv._tensors(c) for c in caches))))
+
+
 def block_step(cfg, p: dict, x_t: torch.Tensor, cache,
                proj: Optional[torch.Tensor],
                write_mask: Optional[torch.Tensor] = None,
@@ -114,7 +136,12 @@ def block_step(cfg, p: dict, x_t: torch.Tensor, cache,
 class DenseLM(LM):
     """Decoder-only GQA transformer (qk-norm/bias variants) with AQUA, with
     a dense MLP or (family ``moe``) routed experts as its FFN. Serves a
-    contiguous or (``enable_paging``) paged decode state."""
+    contiguous or (``enable_paging``) paged decode state. Family ``vlm``
+    (a ``vision_patches`` frontend): a batch's "patches" (B, n, embed_dim)
+    go through ``patch_proj`` (no bias) and replace the embeddings of the
+    first n positions at ``forward`` and ``prefill`` (so the engine's
+    ``prefill_into`` and admissions); the prompt must be at least n long
+    (:func:`check_splice`)."""
 
     supports_paging = True
 
@@ -133,12 +160,33 @@ class DenseLM(LM):
         if not cfg.tie_embeddings:
             params["unembed"] = L.init_embedding(gen, cfg.vocab_size,
                                                  cfg.d_model, dt, dev)
+        if cfg.frontend.kind == "vision_patches":
+            params["patch_proj"] = L.init_linear(
+                gen, cfg.frontend.embed_dim, cfg.d_model, dt, dev)
         return params
 
+    @property
+    def tied_unembedding(self) -> bool:
+        """Whether the logits come from the embedding table (else from
+        ``params["unembed"]``): the ``tied`` of ``with_unembedding``."""
+        return self.cfg.tie_embeddings
+
     def _unembed(self, params, x):
-        return L.unembed(params, "embed" if self.cfg.tie_embeddings
+        return L.unembed(params, "embed" if self.tied_unembedding
                          else "unembed",
                          L.rms_norm(x, params["ln_f"], self.cfg.norm_eps))
+
+    def _embed(self, params, batch) -> torch.Tensor:
+        """Token embeddings, with a VLM batch's projected "patches" over
+        the first positions."""
+        x = L.embed(params["embed"], batch["tokens"], self.dtype)
+        if (self.cfg.frontend.kind == "vision_patches"
+                and "patches" in batch):
+            pe = L.linear(params["patch_proj"],
+                          batch["patches"].to(self.dtype))
+            check_splice(x.shape[1], pe.shape[1])
+            x[:, :pe.shape[1]] = pe
+        return x
 
     def _proj(self, aqua_proj, i):
         return None if aqua_proj is None else aqua_proj[i]
@@ -161,8 +209,8 @@ class DenseLM(LM):
         for ``moe`` "aux_loss", the layers' summed load-balance losses.
         Without: logits, or for ``moe`` (logits, {"aux_loss": the summed
         losses times ``MoEConfig.router_aux_weight``}), as in JAX."""
-        x = L.embed(params["embed"], batch["tokens"], self.dtype)
-        x, auxes = self._run_layers(params, x, aqua_proj)
+        x, auxes = self._run_layers(params, self._embed(params, batch),
+                                    aqua_proj)
         logits = self._unembed(params, x)
         moe = self.cfg.family == "moe"
         aux_loss = sum(a["aux_loss"] for a in auxes) if moe else None
@@ -223,16 +271,13 @@ class DenseLM(LM):
         config's slot policy. Returns (next-token logits (B, V) from each
         row's last valid token, DecodeState)."""
         cfg = self.cfg
-        x = L.embed(params["embed"], batch["tokens"], self.dtype)
         lengths = batch.get("lengths")
-        x, auxes = self._run_layers(params, x, aqua_proj, lengths)
-        caches = [attn.build_cache_from_prefill(
+        x, auxes = self._run_layers(params, self._embed(params, batch),
+                                    aqua_proj, lengths)
+        layers = _stack_caches([attn.build_cache_from_prefill(
             a["k_cache"], a["v"], max_seq, lengths,
             window=cfg.attention.window, aqua=cfg.aqua, q_hat=a["q_hat"],
-            head_dim=cfg.attention.head_dim) for a in auxes]
-        layers = kv.AttnCache(*(
-            None if ts[0] is None else torch.stack(ts)
-            for ts in zip(*(kv._tensors(c) for c in caches))))
+            head_dim=cfg.attention.head_dim) for a in auxes])
         if lengths is None:
             x_last = x[:, -1]
         else:
@@ -348,3 +393,202 @@ class DenseLM(LM):
         for i in range(self.cfg.num_layers):
             kv.paged_reset_lane(state.layers.layer(i), lane)
         return state
+
+
+# ---------------------------------------------------------------------------
+# Whisper-style encoder-decoder
+# ---------------------------------------------------------------------------
+
+
+def init_decoder_block(gen: torch.Generator, cfg, dtype, device) -> dict:
+    """A decoder block: self-attention, cross-attention (``xattn``, its
+    norm ``ln_x``) and an ungated MLP."""
+    return {
+        "ln1": torch.ones(cfg.d_model, dtype=dtype, device=device),
+        "ln_x": torch.ones(cfg.d_model, dtype=dtype, device=device),
+        "ln2": torch.ones(cfg.d_model, dtype=dtype, device=device),
+        "attn": attn.init_attention_params(gen, cfg.d_model, cfg.attention,
+                                           dtype, device),
+        "xattn": attn.init_attention_params(gen, cfg.d_model, cfg.attention,
+                                            dtype, device),
+        "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                          gated=False),
+    }
+
+
+class EncDecLM(DenseLM):
+    """Whisper-tiny family: a bidirectional, RoPE-free encoder over a
+    batch's stub "frames" (B, n_frames, d_model) plus sinusoidal positions,
+    and a causal decoder (a learned position table ``pos`` read at each
+    token's position, clipped to ``max_positions``) whose blocks add
+    cross-attention over the encoder's output. AQUA acts on the decoder's
+    self-attention; the encoder's and the cross-attention run on the plain
+    ``dense`` reference, as JAX runs them outside its kernels. Logits come
+    from the embedding table.
+
+    Serving: a contiguous decode state only (no paged form, as in JAX),
+    whose ``extra["cross"]`` holds each lane's per-layer cross K/V (L, B,
+    n_frames, KV, D), computed once at the lane's prefill and grafted with
+    the lane. Admissions are monolithic at the prompt's exact length
+    (``prefill`` takes no ``lengths``)."""
+
+    supports_paging = False
+
+    def __init__(self, cfg, device=None):
+        super().__init__(cfg, device)
+        self.enc_cfg = dataclasses.replace(
+            cfg, attention=dataclasses.replace(cfg.attention, causal=False,
+                                               use_rope=False),
+            family="dense", act="gelu", aqua=None)
+
+    @property
+    def tied_unembedding(self) -> bool:
+        return True
+
+    def init(self, gen: torch.Generator) -> dict:
+        cfg, dt, dev = self.cfg, self.param_dtype, self.device
+        return {
+            "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt,
+                                      dev),
+            "pos": torch.randn(cfg.max_positions, cfg.d_model, generator=gen,
+                               device=dev).mul_(0.01).to(dt),
+            "enc_layers": _stack_layers(
+                lambda: init_block(gen, self.enc_cfg, dt, dev),
+                cfg.num_encoder_layers),
+            "enc_ln": torch.ones(cfg.d_model, dtype=dt, device=dev),
+            "dec_layers": _stack_layers(
+                lambda: init_decoder_block(gen, cfg, dt, dev),
+                cfg.num_layers),
+            "ln_f": torch.ones(cfg.d_model, dtype=dt, device=dev),
+        }
+
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder's output (B, n_frames, d_model) over ``frames``."""
+        cfg = self.cfg
+        x = frames.to(self.dtype)
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                       x.device).to(self.dtype)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        for i in range(cfg.num_encoder_layers):
+            x, _ = block_forward(self.enc_cfg,
+                                 layer_params(params["enc_layers"], i), x,
+                                 positions, None)
+        return L.rms_norm(x, params["enc_ln"], cfg.norm_eps)
+
+    def _dec_block_fwd(self, p, x, enc_out, positions, proj):
+        cfg = self.cfg
+        h, aux = attn.prefill_attention(
+            p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg.attention,
+            cfg.aqua, proj, positions, return_aux=True)
+        x = x + h
+        x = x + attn.prefill_attention(
+            p["xattn"], L.rms_norm(x, p["ln_x"], cfg.norm_eps),
+            cfg.attention, None, None, positions, kv_x=enc_out)
+        return x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                         cfg.act), aux
+
+    def _run_decoder(self, params, batch, enc_out, aqua_proj):
+        tokens = batch["tokens"]
+        s = tokens.shape[1]
+        x = L.embed(params["embed"], tokens, self.dtype)
+        x = x + params["pos"][:s].to(self.dtype)
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        auxes = []
+        for i in range(self.cfg.num_layers):
+            x, aux = self._dec_block_fwd(
+                layer_params(params["dec_layers"], i), x, enc_out, positions,
+                self._proj(aqua_proj, i))
+            auxes.append(aux)
+        return x, auxes
+
+    def forward(self, params, batch, aqua_proj=None, capture: bool = False):
+        """Logits (B, S, V) float32 of ``batch["tokens"]`` given
+        ``batch["frames"]``; with ``capture`` also {"qk": the decoder
+        self-attention's (q, k) per layer}."""
+        enc_out = self.encode(params, batch["frames"])
+        x, auxes = self._run_decoder(params, batch, enc_out, aqua_proj)
+        logits = self._unembed(params, x)
+        if capture:
+            return logits, {"qk": [(a["q"], a["k"]) for a in auxes]}
+        return logits
+
+    def precompute_cross(self, params, enc_out: torch.Tensor):
+        """Every decoder layer's cross K and V over the encoder's output:
+        two (L, B, n_frames, KV, D) tensors."""
+        xa = params["dec_layers"]["xattn"]
+        ks, vs = [], []
+        for i in range(self.cfg.num_layers):
+            p = layer_params(xa, i)
+            k = torch.einsum("bsm,mkd->bskd", enc_out,
+                             p["wk"].to(enc_out.dtype))
+            v = torch.einsum("bsm,mkd->bskd", enc_out,
+                             p["wv"].to(enc_out.dtype))
+            if self.cfg.attention.qkv_bias:
+                k = k + p["bk"].to(k.dtype)
+                v = v + p["bv"].to(v.dtype)
+            ks.append(k)
+            vs.append(v)
+        return torch.stack(ks), torch.stack(vs)
+
+    def init_decode_state(self, batch_size: int, max_seq: int,
+                          device=None) -> DecodeState:
+        """Empty contiguous lanes and zero cross K/V."""
+        state = super().init_decode_state(batch_size, max_seq, device)
+        cfg, acfg = self.cfg, self.cfg.attention
+        shape = (cfg.num_layers, batch_size, cfg.frontend.num_embeds,
+                 acfg.num_kv_heads, acfg.head_dim)
+        dev = self.device if device is None else device
+        state.extra["cross"] = (
+            torch.zeros(shape, dtype=self.dtype, device=dev),
+            torch.zeros(shape, dtype=self.dtype, device=dev))
+        return state
+
+    def prefill(self, params, batch, max_seq: int, aqua_proj=None):
+        """Encode ``batch["frames"]``, prefill ``batch["tokens"]`` (B, S)
+        at their exact length into a fresh contiguous cache, with the
+        lanes' cross K/V. Returns (next-token logits (B, V) of the last
+        token, DecodeState)."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch["frames"])
+        cross = self.precompute_cross(params, enc_out)
+        x, auxes = self._run_decoder(params, batch, enc_out, aqua_proj)
+        layers = _stack_caches([attn.build_cache_from_prefill(
+            a["k_cache"], a["v"], max_seq, None,
+            window=cfg.attention.window, aqua=cfg.aqua, q_hat=a["q_hat"],
+            head_dim=cfg.attention.head_dim) for a in auxes])
+        return (self._unembed(params, x[:, -1]),
+                DecodeState(layers=layers, extra={"cross": cross}))
+
+    def decode_step(self, params, state: DecodeState, tokens: torch.Tensor,
+                    aqua_proj=None, write_mask=None):
+        """tokens (B,) -> (logits (B, V) float32, state updated in place):
+        the learned position of each lane's count, the decoder's
+        self-attention over its cache, cross-attention over its
+        ``extra["cross"]``."""
+        cfg = self.cfg
+        pos = torch.clamp(state.layers.count[0], 0,
+                          cfg.max_positions - 1).long()
+        x = (L.embed(params["embed"], tokens, self.dtype)
+             + params["pos"][pos].to(self.dtype))
+        cross_k, cross_v = state.extra["cross"]
+        for i in range(cfg.num_layers):
+            p = layer_params(params["dec_layers"], i)
+            cache = state.layers.layer(i)
+            y = x + attn.decode_attention(
+                p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cache,
+                cfg.attention, cfg.aqua, self._proj(aqua_proj, i),
+                write_mask=write_mask)
+            y = y + attn.decode_attention(
+                p["xattn"], L.rms_norm(y, p["ln_x"], cfg.norm_eps), cache,
+                cfg.attention, cross=(cross_k[i], cross_v[i]))
+            x = y + L.mlp(p["ffn"], L.rms_norm(y, p["ln2"], cfg.norm_eps),
+                          cfg.act)
+        return self._unembed(params, x), state
+
+    def prefill_chunk(self, *args, **kwargs):
+        raise NotImplementedError(
+            "encdec admissions are monolithic: the frames splice at prefill "
+            "and the decoder's cache has no chunk-resumable form")
+
+    prefill_with_prefix = prefill_chunk

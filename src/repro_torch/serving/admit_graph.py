@@ -14,9 +14,13 @@ the model's own entry points over the engine's one decode state:
 
 Its inputs live in static device buffers, filled from pinned host buffers
 at each admission: the bucket-padded prompt (1, bucket) int32, its valid
-length (1,) int32, the lane (1,) int64 and, paged, the page-table row
-(pages_per_lane,) int32. Lane and row are buffer contents, not
-capture-time constants. Its output is the next-token logits (1, V)
+length (1,) int32, the lane (1,) int64, paged, the page-table row
+(pages_per_lane,) int32 and, for an admission that carries frontend
+inputs (a VLM's patch embeddings), each of them as a float32 buffer of
+its shape. Lane, row and frontend inputs are buffer contents, not
+capture-time constants. An admission with frontend inputs and one without
+are two programs (one splices, one does not), as under JAX's ``jit``: the
+engine keeps a graph per bucket for each. Its output is the next-token logits (1, V)
 float32; the lane is written in place. Sampling and the lane bookkeeping
 stay on the host, as for the step graph (``serving/step_graph.py``).
 
@@ -42,7 +46,7 @@ fallback).
 from __future__ import annotations
 
 from collections import Counter
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -55,15 +59,18 @@ from repro_torch.serving.step_graph import Staging, capture
 def admission(model, params, state, aqua_proj, max_seq: int,
               tokens: torch.Tensor, lengths: Optional[torch.Tensor], lane,
               row: Optional[torch.Tensor] = None,
-              num_slots: Optional[int] = None) -> torch.Tensor:
+              num_slots: Optional[int] = None,
+              extra: Optional[Dict[str, torch.Tensor]] = None
+              ) -> torch.Tensor:
     """A monolithic admission, the one an :class:`AdmitGraph` captures:
     prefill ``tokens`` (1, T) of valid length ``lengths`` (1,) (None: all
-    T, as window and H2O admissions run) and graft the result into lane
+    T, as window, H2O and encoder-decoder admissions run), with the
+    frontend inputs ``extra`` in the batch, and graft the result into lane
     ``lane`` (a Python int or a (1,) device tensor) of ``state``, in place
     (paged: after installing the page-table ``row`` (NP,), grafting
     logical slots [0, ``num_slots``), T by default). Returns the logits
     (1, V) float32. Reads no tensor value on the host."""
-    batch = {"tokens": tokens}
+    batch = dict(extra or {}, tokens=tokens)
     if lengths is not None:
         batch["lengths"] = lengths
     if row is None:
@@ -85,6 +92,10 @@ class AdmitGraph:
                            max_seq=2048, pool=pool)
         logits = graph.admit(prompt_np, lane, row_np)   # (1, V) float32
 
+    ``frontend`` {name: shape}: the admission also takes those frontend
+    inputs (``admit(..., extra={name: array})``; ``extra`` holds their
+    buffers).
+
     The first ``admit`` runs eagerly and captures; later ones replay.
     ``logits`` is valid until the next admission of any graph sharing
     ``pool``. ``launches`` counts the kernel launches of one admission by
@@ -93,7 +104,8 @@ class AdmitGraph:
     added to the shared pool."""
 
     def __init__(self, model, params, state, aqua_proj, bucket: int,
-                 max_seq: int, pool=None):
+                 max_seq: int, pool=None,
+                 frontend: Optional[Dict[str, tuple]] = None):
         device = state.layers.count.device
         if device.type != "cuda":
             raise ValueError(f"AdmitGraph captures a CUDA graph; the decode "
@@ -111,6 +123,10 @@ class AdmitGraph:
             self.row = torch.full((state.layers.pages_per_lane,), -1,
                                   dtype=torch.int32, device=device)
             buffers["row"] = self.row
+        self.extra = {k: torch.zeros(shape, dtype=torch.float32,
+                                     device=device)
+                      for k, shape in (frontend or {}).items()}
+        buffers.update(self.extra)
         self._staging = Staging(**buffers)
         self._device = device
         # what the admission runs on (no closure over self: a graph held
@@ -125,10 +141,12 @@ class AdmitGraph:
         self.pool_bytes: Optional[int] = None
 
     def fill(self, prompt: np.ndarray, lane: int,
-             row: Optional[np.ndarray] = None) -> None:
+             row: Optional[np.ndarray] = None,
+             extra: Optional[Dict[str, np.ndarray]] = None) -> None:
         """The admission's inputs into the static buffers: ``prompt`` (its
         ``len`` is the valid length; padded with zeros to the bucket),
-        ``lane``, and the page-table ``row`` (paged)."""
+        ``lane``, the page-table ``row`` (paged) and the frontend inputs
+        ``extra`` (exactly the graph's)."""
         n = len(prompt)
         if not 1 <= n <= self.bucket:
             raise ValueError(f"prompt of {n} tokens in the {self.bucket}-"
@@ -136,18 +154,23 @@ class AdmitGraph:
         if (row is None) == self.paged:
             raise ValueError("a paged admission takes its page-table row, "
                              "a contiguous one none")
+        if set(extra or {}) != set(self.extra):
+            raise ValueError(f"frontend inputs {sorted(extra or {})} in a "
+                             f"graph of {sorted(self.extra)}")
         toks = np.zeros((1, self.bucket), np.int32)
         toks[0, :n] = prompt
         values = dict(tokens=toks, lengths=n, lane=lane)
         if self.paged:
             values["row"] = row
+        values.update(extra or {})
         self._staging.fill(**values)
 
     def admit(self, prompt: np.ndarray, lane: int,
-              row: Optional[np.ndarray] = None) -> torch.Tensor:
+              row: Optional[np.ndarray] = None,
+              extra: Optional[Dict[str, np.ndarray]] = None) -> torch.Tensor:
         """One admission: fill the buffers, then replay (the first call:
         run eagerly and capture). Returns the logits (1, V) float32."""
-        self.fill(prompt, lane, row)
+        self.fill(prompt, lane, row, extra)
         if self.graph is None:
             return self._capture()
         self.graph.replay()
@@ -157,7 +180,7 @@ class AdmitGraph:
     def _call(self) -> torch.Tensor:
         return admission(self._model, self._params, self._state, self._proj,
                          self._max_seq, self.tokens, self.lengths, self.lane,
-                         self.row)
+                         self.row, extra=self.extra)
 
     def _capture(self) -> torch.Tensor:
         (logits, self.graph, self.logits, self.launches, self.pool_bytes,

@@ -73,6 +73,20 @@ a fresh admission replays its bucket's graph. Both then index the
 prompt's full pages (a chunked admission after its final chunk). Decode
 writes only private pages: a shared page is always a full prompt page.
 
+Modality frontends (``Request.extra_inputs``, merged into the request's
+prefill batch, as in JAX): a VLM (``vlm``) splices a request's projected
+patch embeddings over its first prompt positions, bucket-padded like any
+prompt, paged or contiguous; on the card such an admission replays its
+bucket's graph for admissions with patches (``frontend_admit_graphs``),
+one without patches the bucket's plain graph. The encoder-decoder
+(``encdec``, whisper) encodes a request's frames at its admission, which
+runs at the prompt's exact length (no bucket, as JAX's ``_supports_ragged``
+decides) and eagerly, like window and H2O admissions, and grafts the
+lane's cross K/V with its cache; its decode state is contiguous only (a
+paged cache raises ``ValueError``, as in JAX). Admissions with frontend
+inputs never chunk (``REASON_FRONTEND``) and never share or index a
+prefix: their embeddings are not the tokens'.
+
 int8 pools serve every slot policy: a window's wrapped ring keeps growing
 a re-entered page's running scale, as in JAX, and an evicted page's
 scales are cleared. Mixed-precision hot residents
@@ -173,7 +187,7 @@ class ServeEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)
-        self.params = with_unembedding(params, cfg.tie_embeddings)
+        self.params = with_unembedding(params, self.model.tied_unembedding)
         self.proj = None
         if cfg.aqua is not None and cfg.aqua.enabled:
             assert projections is not None, \
@@ -197,12 +211,20 @@ class ServeEngine:
     def generate(self, batch: Dict[str, object], steps: int,
                  temperature: float = 0.0) -> GenerationResult:
         """batch: prompt inputs ({"tokens": (B, S_prompt)}, optionally
-        ragged ``"lengths"`` (B,)), numpy arrays or tensors. The first
-        token comes from the prefill, the other ``steps - 1`` from decode
-        steps."""
+        ragged ``"lengths"`` (B,) — the dense, vlm and moe families only,
+        as in JAX — and a frontend's "patches" or "frames"), numpy arrays
+        or tensors. The first token comes from the prefill, the other
+        ``steps - 1`` from decode steps."""
+        if "lengths" in batch and self.cfg.family not in ("dense", "vlm",
+                                                          "moe"):
+            raise ValueError(
+                "ragged `lengths` prefill is only supported by the "
+                "dense-transformer families (dense/vlm/moe); "
+                f"{self.cfg.family!r} prefill is rectangular")
         self._calls += 1
-        inputs = {k: torch.as_tensor(v).to(self.device, torch.int32)
-                  for k, v in batch.items()}
+        inputs = {k: torch.as_tensor(v).to(
+            self.device, torch.int32 if k in ("tokens", "lengths") else None)
+            for k, v in batch.items()}
         logits, state = self.model.prefill(self.params, inputs, self.max_seq,
                                            aqua_proj=self.proj)
         out = [self._sample(logits, temperature, 0)]
@@ -285,25 +307,33 @@ class ContinuousBatchingEngine:
         self.cache_spec = cache
         # ragged bucketed prefill needs the full-cache policy (window
         # rings and H2O eviction place slots assuming a rectangular batch);
-        # the dense and moe families both take it, as in JAX (an MoE's pad
-        # rows are routed with its real ones, as JAX routes them)
-        self._supports_ragged = self.eviction == "none"
+        # the dense, vlm and moe families take it, as in JAX (an MoE's pad
+        # rows are routed with its real ones, as JAX routes them); the
+        # encoder-decoder prefills at the exact prompt length
+        self._supports_ragged = (self.eviction == "none"
+                                 and cfg.family in ("dense", "vlm", "moe"))
         # prefix sharing: shared pages are read-only, so the full-cache
-        # policy only (H2O statistics and ring overwrites would write them)
+        # policy only (H2O statistics and ring overwrites would write
+        # them), and position-pure token K/V: no frontend splice
         self._prefix_ok = (cache.paged and cache.prefix_sharing
-                           and self._supports_ragged)
+                           and self._supports_ragged
+                           and cfg.frontend.kind == "none")
         # chunked prefill is the plan's to refuse (an MoE's capacity
         # routing depends on the chunk boundaries)
         self._plan = resolve_dispatch_plan(attention=cfg.attention,
                                            aqua=cfg.aqua, serving=serving,
                                            mesh=None,
                                            prefix_sharing=self._prefix_ok,
-                                           family=cfg.family)
+                                           family=cfg.family,
+                                           frontend=cfg.frontend.kind)
         self.device = resolve_device(device)
         self.model = build_model(cfg, self.device)
+        if cache.paged and not self.model.supports_paging:
+            raise ValueError(f"family {cfg.family!r} does not support the "
+                             "paged KV cache")
         # once, at load: the float32 unembedding (the step graph holds its
         # address)
-        self.params = with_unembedding(params, cfg.tie_embeddings)
+        self.params = with_unembedding(params, self.model.tied_unembedding)
         self.proj = None
         if cfg.aqua is not None and cfg.aqua.enabled:
             assert projections is not None, \
@@ -321,9 +351,11 @@ class ContinuousBatchingEngine:
         self.last_state = None
         self.step_graph: Optional[StepGraph] = None
         # on the card a bucket-padded monolithic admission replays its
-        # bucket's graph (one shared pool); exact-length window and H2O
-        # admissions and chunk steps run eagerly
+        # bucket's graph (one shared pool), a VLM's with patches that of
+        # its bucket among the frontend graphs; exact-length window, H2O
+        # and encoder-decoder admissions and chunk steps run eagerly
         self.admit_graphs: Dict[int, AdmitGraph] = {}
+        self.frontend_admit_graphs: Dict[int, AdmitGraph] = {}
         self._admit_pool = None
         self._graphed_admissions = (self.device.type == "cuda"
                                     and self._supports_ragged)
@@ -472,7 +504,7 @@ class ContinuousBatchingEngine:
         if not self._supports_ragged:
             total_pages = self._pages_per_lane
         else:
-            if self._prefix_ok:
+            if self._prefix_ok and not req.extra_inputs:
                 shared = self.page_pool.lookup_prefix(
                     req.tokens)[:(req.prompt_len - 1) // ps]
             prefix_len = len(shared) * ps
@@ -505,8 +537,16 @@ class ContinuousBatchingEngine:
                                             self.last_state,
                                             aqua_proj=self.proj)
         else:
+            # the extras (an encoder-decoder's cross K/V) stay: each
+            # admission grafts its lane's whole share
             kvc.reset_cache(self.last_state.layers)
         return self.last_state
+
+    def _frontend_inputs(self, req: Request) -> Dict[str, torch.Tensor]:
+        """The request's frontend inputs as tensors on the device (the
+        model casts them to its dtype)."""
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in (req.extra_inputs or {}).items()}
 
     def _admit(self, req: Request, lane: int, state, lanes: LaneState,
                page_plan=None):
@@ -526,15 +566,17 @@ class ContinuousBatchingEngine:
         else:
             # what an admission graph captures, run eagerly (the CPU, and
             # window / H2O admissions: the exact prompt grafted into every
-            # slot of the lane's stripe)
+            # slot of the lane's stripe; encoder-decoder ones: the exact
+            # prompt and the lane's cross K/V)
             batch = self._prefill_batch(req.tokens)
             logits = admission(
                 self.model, self.params, state, self.proj, self.scfg.max_seq,
                 batch["tokens"], batch.get("lengths"), lane,
                 None if row is None else torch.from_numpy(row).to(
                     self.device),
-                num_slots=None if self._supports_ragged else self._num_slots)
-        if self._prefix_ok:
+                num_slots=None if self._supports_ragged else self._num_slots,
+                extra=self._frontend_inputs(req))
+        if self._prefix_ok and not req.extra_inputs:
             # both kinds index the prompt's full pages: a prompt that
             # extends a shared prefix by more full pages indexes those too
             self.page_pool.register_prefix(req.tokens, pages, req.prompt_len)
@@ -543,18 +585,25 @@ class ContinuousBatchingEngine:
     def _admit_graphed(self, req: Request, lane: int,
                        row: Optional[np.ndarray]) -> torch.Tensor:
         """A monolithic admission through its bucket's
-        :class:`AdmitGraph` (captured at the bucket's first admission):
-        the page-table row goes in with the prompt and the lane. Returns
-        the graph's logits (1, V)."""
+        :class:`AdmitGraph` (captured at the bucket's first admission; an
+        admission with frontend inputs through the bucket's graph among
+        ``frontend_admit_graphs``): the page-table row and the frontend
+        inputs go in with the prompt and the lane. Returns the graph's
+        logits (1, V)."""
         bucket = self._padded_prompt_len(req.prompt_len)
-        graph = self.admit_graphs.get(bucket)
+        extra = {k: np.asarray(torch.as_tensor(v).float().cpu())
+                 for k, v in (req.extra_inputs or {}).items()}
+        graphs = self.frontend_admit_graphs if extra else self.admit_graphs
+        graph = graphs.get(bucket)
         if graph is None:
             if self._admit_pool is None:
                 self._admit_pool = torch.cuda.graph_pool_handle()
-            graph = self.admit_graphs[bucket] = AdmitGraph(
+            graph = graphs[bucket] = AdmitGraph(
                 self.model, self.params, self.last_state, self.proj, bucket,
-                self.scfg.max_seq, pool=self._admit_pool)
-        return graph.admit(np.asarray(req.tokens, np.int32), lane, row)
+                self.scfg.max_seq, pool=self._admit_pool,
+                frontend={k: v.shape for k, v in extra.items()})
+        return graph.admit(np.asarray(req.tokens, np.int32), lane, row,
+                           extra)
 
     def _admit_prefix(self, req: Request, lane: int, state, row: np.ndarray,
                       shared: int) -> torch.Tensor:
@@ -590,17 +639,23 @@ class ContinuousBatchingEngine:
 
     def graph_accounting(self) -> dict:
         """The captured graphs of this engine: ``admit_graphs`` (one per
-        prompt bucket admitted so far), each bucket's capture ms and pool
-        growth, the admission graphs' shared pool bytes, and the step
-        graph's capture ms and pool bytes (None before the first serve
-        and on the CPU)."""
+        prompt bucket admitted so far, and per bucket admitted with
+        frontend inputs: ``frontend_admit_graphs``), each bucket's capture
+        ms and pool growth (those with frontend inputs under
+        ``frontend_admit_*``), the admission graphs' shared pool bytes,
+        and the step graph's capture ms and pool bytes (None before the
+        first serve and on the CPU)."""
         graphs = sorted(self.admit_graphs.items())
+        fgraphs = sorted(self.frontend_admit_graphs.items())
         step = self.step_graph
         return dict(
-            admit_graphs=len(graphs),
+            admit_graphs=len(graphs) + len(fgraphs),
             admit_capture_ms={b: g.capture_ms for b, g in graphs},
             admit_pool_growth_bytes={b: g.pool_bytes for b, g in graphs},
-            admit_pool_bytes=sum(g.pool_bytes for _, g in graphs),
+            frontend_admit_capture_ms={b: g.capture_ms for b, g in fgraphs},
+            frontend_admit_pool_growth_bytes={b: g.pool_bytes
+                                              for b, g in fgraphs},
+            admit_pool_bytes=sum(g.pool_bytes for _, g in graphs + fgraphs),
             step_capture_ms=None if step is None else step.capture_ms,
             step_pool_bytes=None if step is None else step.pool_bytes)
 
@@ -629,8 +684,8 @@ class ContinuousBatchingEngine:
         """Chunk this admission: the engine interleaves and the padded
         prefill (of the tail, past a shared prefix) exceeds the budget
         (shorter prompts admit monolithically, exactly as without a
-        budget)."""
-        if not self._chunked:
+        budget; a request with frontend inputs never chunks, as in JAX)."""
+        if not self._chunked or req.extra_inputs:
             return False
         prefix_len = 0
         if page_plan is not None:
@@ -859,7 +914,7 @@ class ContinuousBatchingEngine:
                     tok, done = self._finish_admit(req, lane, logits, lanes)
                     stats.admit_seconds += time.perf_counter() - t0
                     jobs.pop(lane)
-                    if self._prefix_ok:
+                    if self._prefix_ok and not req.extra_inputs:
                         # indexed only now that the whole prompt is
                         # written: a sharer reads the pages at admission
                         self.page_pool.register_prefix(

@@ -39,6 +39,10 @@ class Request:
     top_k: Optional[int] = None
     eos_id: Optional[int] = None
     arrival: float = 0.0
+    # modality frontend inputs merged into the prefill batch (numpy
+    # arrays or tensors with a leading batch axis of 1): {"frames": ...}
+    # for whisper, {"patches": ...} for a VLM
+    extra_inputs: Optional[dict] = None
 
     @property
     def prompt_len(self) -> int:

@@ -54,6 +54,7 @@ from repro_torch.models.base import DecodeState
 from repro_torch.serving import ContinuousBatchingEngine, Request
 from repro_torch.serving.admit_graph import AdmitGraph, admission
 
+from repro_torch.data.corpus import request_frontend_inputs
 from test_torch_step_graph import assert_bitwise, drive_engine
 
 META = torch.device("meta")
@@ -84,13 +85,13 @@ def flash_plain():
                                   "int8_paged", "hier_paged",
                                   "hier_int8_paged", "aqua_memory_paged",
                                   "hot_int8_paged", "olmoe-1b-7b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "pixtral-12b"])
 @pytest.mark.parametrize("bucket", [8, 24])
 def test_admission_reads_no_value_on_the_host(name, bucket, flash_plain):
     """(a) The captured admission, on the meta device, where any host read
     of a tensor's value raises (boolean-mask indexing, ``nonzero``,
     ``.item()``). The plain backends: the kernel wrappers take CPU or
-    CUDA tensors only."""
+    CUDA tensors only. A VLM's admission splices its patches."""
     backend = flash_plain if name == "flash_paged" else \
         "aqua-block-sparse-plain"
     eng, _ = drive_engine(name, backend=backend)
@@ -105,7 +106,9 @@ def test_admission_reads_no_value_on_the_host(name, bucket, flash_plain):
         None if eng.proj is None else eng.proj.to(META), max_seq,
         torch.zeros(1, bucket, dtype=torch.int32, device=META),
         torch.ones(1, dtype=torch.int32, device=META),
-        torch.ones(1, dtype=torch.int64, device=META), row)
+        torch.ones(1, dtype=torch.int64, device=META), row,
+        extra={k: torch.from_numpy(v).to(META) for k, v in (
+            request_frontend_inputs(eng.cfg) or {}).items()})
     assert logits.device == META
     assert logits.shape == (1, eng.cfg.vocab_size)
     assert isinstance(state.layers, kv.PagedAttnCache) == eng.paged

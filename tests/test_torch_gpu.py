@@ -67,7 +67,10 @@ DECODE_CASES = [(16, 8, 128, 0.75, 8), (8, 2, 64, 0.5, 8), (4, 4, 32, 1.0, 8),
                 # Qwen1.5-4B (MHA, group 1) and Minitron-4B (group 3)
                 (20, 20, 128, 0.75, 8), (24, 8, 128, 0.75, 8),
                 # OLMoE-1B-7B and Qwen2-MoE-A2.7B (MHA, 16 heads)
-                (16, 16, 128, 0.75, 8)]
+                (16, 16, 128, 0.75, 8),
+                # Whisper-tiny's decoder (MHA, 6 heads of 64 dims: 6 of 8
+                # blocks)
+                (6, 6, 64, 0.75, 8)]
 
 
 # page sizes 16 and 64 hold whole 16-position tiles; 8 splits a tile
@@ -138,7 +141,12 @@ def test_decode_kernel_matches_plain(cuda, dtype, paged, ps, h, kv, d,
                                             (20, 20, 128, 300, 128),
                                             (24, 8, 128, 300, 128),
                                             # the MoE configs' 16 / 16
-                                            (16, 16, 128, 300, 128)])
+                                            (16, 16, 128, 300, 128),
+                                            # Whisper-tiny's decoder: a
+                                            # prompt off the tile, and its
+                                            # 448 decoder positions
+                                            (6, 6, 64, 229, 128),
+                                            (6, 6, 64, 448, 128)])
 def test_prefill_kernel_matches_plain(cuda, dtype, h, kv, d, s, q_blk):
     """Every row, those at or past a lane's length too: a bucket-padded
     admission's pad rows see every valid key, and an MoE routes them with
@@ -1052,7 +1060,8 @@ STEP_BODY = {"paged": "aqua_paged_decode", "contiguous": "aqua_decode",
              "prefix_paged": "aqua_paged_decode", "int8_swa_paged": None,
              "int8_h2o_paged": None, "hot_int8_paged": None,
              "olmoe-1b-7b": "aqua_paged_decode",
-             "qwen2-moe-a2.7b": "aqua_paged_decode"}
+             "qwen2-moe-a2.7b": "aqua_paged_decode",
+             "pixtral-12b": "aqua_paged_decode", "whisper-tiny": "aqua_decode"}
 
 
 @pytest.mark.parametrize("name", list(STEP_BODY))
@@ -1164,7 +1173,8 @@ ADMIT_BODY = {"paged": "aqua_prefill", "contiguous": "aqua_prefill",
               "hier_int8_paged": "aqua_prefill",
               "aqua_memory_paged": "aqua_prefill",
               "hot_int8_paged": "aqua_prefill",
-              "olmoe-1b-7b": "aqua_prefill", "qwen2-moe-a2.7b": "aqua_prefill"}
+              "olmoe-1b-7b": "aqua_prefill", "qwen2-moe-a2.7b": "aqua_prefill",
+              "pixtral-12b": "aqua_prefill"}
 
 
 @pytest.mark.parametrize("name", list(ADMIT_BODY))
@@ -1176,14 +1186,17 @@ def test_admit_graph_replays_eager_admission_bitwise(cuda, name):
     the logits and state of the eager admission (``admission`` on a twin
     of the state), bit for bit; each replay adds the capture's launches,
     one prefill launch per layer. A second serve captures nothing new and
-    gives the first serve's tokens."""
+    gives the first serve's tokens. A VLM's requests carry patches: its
+    graphs are the frontend ones, each admission with other patches."""
     import numpy as np
     from repro_torch.serving.admit_graph import admission
+    from repro_torch.data.corpus import request_frontend_inputs
     from test_torch_step_graph import (assert_bitwise, bits, drive_engine,
                                        state_tensors)
     eng, reqs = drive_engine(name, device="cuda", dtype="bfloat16")
     first = eng.run(reqs())
-    graphs = eng.admit_graphs
+    graphs = eng.frontend_admit_graphs or eng.admit_graphs
+    assert not (eng.frontend_admit_graphs and eng.admit_graphs)
     captured = list(graphs)                  # buckets in capture order
     assert len(captured) == 4
     body = ADMIT_BODY[name]
@@ -1202,8 +1215,9 @@ def test_admit_graph_replays_eager_admission_bitwise(cuda, name):
             row = np.full(npl, -1, np.int32)
             row[:need] = rng.permutation(eng.pool_geometry[0])[:need]
         graph = graphs[bucket]
+        extra = request_frontend_inputs(eng.cfg, 100 + i)
         before = LAUNCHES.copy()
-        got = graph.admit(prompt, lane, row).clone()
+        got = graph.admit(prompt, lane, row, extra).clone()
         assert LAUNCHES - before == graph.launches \
             == {body: eng.cfg.num_layers}
         toks = np.zeros((1, bucket), np.int32)
@@ -1213,10 +1227,13 @@ def test_admit_graph_replays_eager_admission_bitwise(cuda, name):
             torch.from_numpy(toks).cuda(),
             torch.tensor([n], dtype=torch.int32, device="cuda"),
             torch.tensor([lane], device="cuda"),
-            None if row is None else torch.from_numpy(row).cuda())
+            None if row is None else torch.from_numpy(row).cuda(),
+            extra={k: torch.from_numpy(v).cuda()
+                   for k, v in (extra or {}).items()})
         assert torch.equal(bits(got), bits(want)), (i, bucket)
         assert_bitwise(state_tensors(state), state_tensors(twin))
     second = eng.run(reqs())
-    assert eng.admit_graphs is graphs and len(graphs) == 4
+    assert len(graphs) == 4 and any(graphs is g for g in (
+        eng.admit_graphs, eng.frontend_admit_graphs))
     assert {u: o.tokens for u, o in second.items()} == \
         {u: o.tokens for u, o in first.items()}

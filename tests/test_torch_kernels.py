@@ -194,12 +194,15 @@ def test_port_sources_never_import_jax_or_repro():
                      r"(?!_torch)|from\s+repro(\.|\s)(?!_torch)"
                      r"|(import|from)\s+(safetensors|ml_dtypes)\b)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "kernel_race.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "kernel_race.py",
+              ROOT / "pixtral_divergence.py"]
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/checkpoint/safetensors.py",
             "src/repro_torch/checkpoint/hf.py",
             "src/repro_torch/checkpoint/fixtures.py",
-            "src/repro_torch/launch/serve.py"} <= names
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/configs/pixtral_12b.py",
+            "src/repro_torch/configs/whisper_tiny.py"} <= names
     assert len(files) > 40
     for f in files:
         hits = pat.findall(f.read_text())

@@ -285,6 +285,69 @@ def test_cli_serves_int8_pools_under_every_policy_like_jax(case, capsys):
     assert {u: list(o.tokens) for u, o in want.items()} == run.streamed
 
 
+# the frontend families: a reduced VLM on the paged pool (prefix sharing
+# on by default, off for a frontend model, as in JAX) and the reduced
+# encoder-decoder on the contiguous cache
+FRONTENDS = {"pixtral-12b": ["--page-size", "8"], "whisper-tiny": []}
+
+
+@pytest.mark.parametrize("arch", sorted(FRONTENDS))
+def test_cli_serves_the_frontend_archs_like_jax(arch, capsys):
+    """The launcher gives every request the stub frontend inputs (the same
+    for all, as JAX's launcher does) and calibrates on batches that carry
+    them; ``--verify`` (token identity with the contiguous reference
+    engine) passes, and the JAX engine on the same params, projections
+    and frontend inputs (``aqua-block-sparse``, Pallas interpret) gives
+    the same greedy tokens. ``--rectangular`` serves a frontend batch."""
+    extra = FRONTENDS[arch]
+    t = dict(TRACE, requests=4, lanes=3)
+    argv = ["--device", "cpu", "--arch", arch, "--reduced", "--block-dims",
+            "8", "--prefill-q-blk", "16", "--backend", "aqua-block-sparse",
+            "--requests", str(t["requests"]), "--lanes", str(t["lanes"]),
+            "--prompt-lens", ",".join(map(str, t["prompt_lens"])),
+            "--steps", str(t["steps"]), "--max-seq", str(t["max_seq"]),
+            *extra]
+    run = main(argv + ["--verify"])
+    printed = capsys.readouterr().out
+    assert f"[serve] verify: all {t['requests']} requests token-identical " \
+           "to the single-device contiguous reference engine" in printed
+    key = "patches" if arch == "pixtral-12b" else "frames"
+    assert all(set(r.extra_inputs) == {key} for r in run.requests)
+    eng = run.engine
+    assert eng.paged == bool(extra) and not eng.dispatch_plan().prefix_sharing
+    jcfg = dataclasses.replace(jax_reduced(arch), aqua=JaxAquaConfig(
+        k_ratio=0.75, block_dims=8, prefill_q_blk=16))
+    jparams = jax.tree.map(jnp.asarray, {
+        k: jax.tree.map(lambda x: x.numpy(), v)
+        for k, v in eng.params.items() if k != "unembed_f32"})
+    jeng = JaxEngine(jcfg, jparams, JaxProjections(
+        p=jnp.asarray(run.projections.p.numpy())),
+        serving=JaxServingConfig(
+            max_lanes=t["lanes"], max_seq=t["max_seq"],
+            max_new_tokens=t["steps"],
+            cache=JaxCacheSpec(page_size=8 if extra else None)),
+        backend="aqua-block-sparse")
+    reqs = jax_poisson_trace(
+        t["requests"], mean_interarrival=t["mean_interarrival"],
+        prompt_lens=t["prompt_lens"], max_new_tokens=t["steps"],
+        vocab_size=jcfg.vocab_size, seed=0)
+    for r, mine in zip(reqs, run.requests):
+        r.extra_inputs = mine.extra_inputs
+    want = jeng.run(reqs)
+    assert {u: list(o.tokens) for u, o in want.items()} == run.streamed
+    rect = main(argv + ["--rectangular"])
+    assert len(rect.streamed) == t["lanes"]
+
+
+def test_cli_full_pixtral_calibration_window_raises_as_jax():
+    """JAX's launcher calibrates on 32-token windows, which cannot take
+    the full Pixtral's 256 patch embeddings: its splice raises
+    ``ValueError``. The port's launcher raises there too, before it
+    makes the 12B weights (a reference limitation, ROADMAP queue 3)."""
+    with pytest.raises(ValueError, match="256 patch embeddings"):
+        main(["--device", "cpu", "--arch", "pixtral-12b"])
+
+
 def test_cli_shares_prompt_prefixes_like_the_jax_launcher(
         ckpt, tmp_path, capsys, monkeypatch):
     """A paged drive without ``--no-prefix-share`` (prefix sharing on, as

@@ -23,7 +23,10 @@ at a reduced width (2 layers, d_model 128; Danube's window 16):
 16-token prefix, so lanes' page tables map the same physical pages.
 ``olmoe-1b-7b`` and ``qwen2-moe-a2.7b`` add the MoE family's routed
 experts (top-k, one-hot capacity slots by cumulative sum, static
-capacities) to the step.
+capacities) to the step. ``pixtral-12b`` (paged) and ``whisper-tiny``
+(contiguous: the decoder's learned positions and cross-attention over the
+lanes' cross K/V in ``DecodeState.extra``) add the frontend families:
+every request carries its stub frontend inputs.
 """
 import dataclasses
 
@@ -35,6 +38,7 @@ from repro_torch.configs import (AquaConfig, CacheSpec, QuantSpec,
                                  ServingConfig, SparsitySpec, reduced)
 from repro_torch.core import kvcache as kv
 from repro_torch.core.calibration import AquaProjections
+from repro_torch.data.corpus import request_frontend_inputs
 from repro_torch.models import build_model
 from repro_torch.serving import ContinuousBatchingEngine, Request
 from repro_torch.serving.step_graph import StepGraph
@@ -89,6 +93,10 @@ DRIVES = {
     # the MoE family: routed experts (Qwen2-MoE also a shared expert)
     "olmoe-1b-7b": ("olmoe-1b-7b", {}, dict(cache=PAGED), SHORT),
     "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}, dict(cache=PAGED), SHORT),
+    # the frontend families: a VLM's patches spliced at prefill (paged),
+    # the encoder-decoder's frames (contiguous, exact-length admissions)
+    "pixtral-12b": ("pixtral-12b", {}, dict(cache=PAGED), SHORT),
+    "whisper-tiny": ("whisper-tiny", {}, {}, SHORT),
 }
 #: a common prompt prefix by drive (tokens)
 SHARED_PREFIX = {"prefix_paged": 16}
@@ -98,7 +106,8 @@ def drive_engine(name, device="cpu", dtype=None, backend=None):
     """The reduced engine of drive ``name`` (random weights and orthogonal
     projections from seeds; ``dtype`` e.g. "bfloat16" for model and
     params) and a function giving its requests: arriving one a step, or
-    with ``at_once`` the first ``max_lanes`` of them at step 0."""
+    with ``at_once`` the first ``max_lanes`` of them at step 0; each with
+    its stub frontend inputs where the config has a frontend."""
     arch, aqua_kw, serve_kw, prompts = DRIVES[name]
     cfg = reduced(arch, d_model=128)
     cfg = dataclasses.replace(
@@ -126,7 +135,8 @@ def drive_engine(name, device="cpu", dtype=None, backend=None):
             dtype=np.int32)
         reqs = [Request(uid=i, tokens=np.concatenate([pre, rng.integers(
             0, cfg.vocab_size, size=(n,), dtype=np.int32)]),
-                        max_new_tokens=8, arrival=0.0 if at_once else float(i))
+                        max_new_tokens=8, arrival=0.0 if at_once else float(i),
+                        extra_inputs=request_frontend_inputs(cfg, i))
                 for i, n in enumerate(prompts)]
         return reqs[:SERVE["max_lanes"]] if at_once else reqs
     return eng, requests
