@@ -60,7 +60,12 @@ Phases, each of which raises (non-zero exit) on failure:
    geometry (H=6, KV=6: MHA, D=Dv=64, 6 of 8 dim-blocks selected): the
    contiguous decode at B=8 over 448 positions, lengths 37-261 (the
    drive's contexts), and the prefill at S=229 (its longest prompt, off
-   the 128-row tile) and S=448. Flash at Qwen3's geometry also
+   the 128-row tile) and S=448. At RecurrentGemma-9B's attention geometry
+   (H=16, KV=1, D=Dv=256: the wide engine, ``csrc/wide_tile.cuh``) the
+   prefill's window form (S=4096, window 2048; the no-window form timed
+   on the same inputs) and flash's (the same, AQUA off), each also with
+   the head fault (at one KV head no block can read past its group: each
+   head's output written one head on). Flash at Qwen3's geometry also
    in a padded admission's form (``"form": "lengths"``: keys past the
    length masked, every row held; a planted fault drops the lengths).
    One JSON line per kernel and geometry:
@@ -236,6 +241,32 @@ Phases, each of which raises (non-zero exit) on failure:
    K/V), Pixtral's admission graphs with patches bit for bit (a third
    fault: a replay keeping the previous admission's patches), the decode
    step's graph replay beside its byte bound and the peak memory printed.
+5d. The recurrent families at their published widths and depths (random
+   bf16 weights, each loaded, driven and freed in turn; contiguous cache,
+   exact-length eager admissions): RecurrentGemma-9B (38 layers: 26
+   RG-LRU blocks and 12 local attention blocks of 16 heads over one KV
+   head of 256 dims, window 2048; d 4096; 4 lanes, max_seq 4096, 4
+   requests of 1024/2100/3000 prompt tokens, two past the window; AQUA
+   k_ratio 0.75, block_dims 8, projections calibrated through
+   ``forward(capture=True)``): launches exactly the prefill's wide engine
+   once per attention layer per admission and no decode kernel (a
+   windowed attention decodes on the masked-dense core, as in JAX); it
+   records its dim-block selections and is held to a plain drive
+   replaying them (every row within LOGIT_RTOL), a self-selecting plain
+   drive reported beside; its step graph bit for bit with a third fault
+   (the RG-LRU state put back after each replay: a stale recurrent
+   state); then with AQUA off, flash's wide engine once per attention
+   layer per admission, against the ``dense`` drive. Mamba-2-370M (48
+   SSD layers, d 1024; 8 lanes, 8 requests of 128/512/1024 tokens; no
+   AQUA, as in JAX): no kernel launched; each admission's and checked
+   decode row's logits against the request alone on a ``ServeEngine``
+   fed the same tokens with its decode steps at the engine's 8 rows
+   (held within LOGIT_RTOL), and at one row (reported: cuBLAS rounds a
+   bf16 product of one row otherwise than one of eight, and 48 random
+   recurrent layers amplify it); its step graph bit for bit with a stale
+   SSD-state fault. Both print the decode step's graph replay beside its
+   byte bound (the weights, the float32 unembedding, the rings' K̂ and V,
+   the recurrent states read and written) and the peak memory.
 6. HF checkpoint through the port's entry point: a synthetic checkpoint
    in HF layout at Qwen3-0.6B's full width and depth (random bf16 weights
    from a seeded generator, tied, two shards plus the index; written to
@@ -299,7 +330,9 @@ Phases, each of which raises (non-zero exit) on failure:
    the ``{"ok": true, ...}`` line. Every kernel also lists its launches
    in each config drive of 5b and 5c (``launches_by_config``); the
    Whisper-geometry phases stand under ``group_geometries`` with the
-   Whisper drive's launches.
+   Whisper drive's launches; the prefill's and flash's wide engine at
+   RecurrentGemma-9B's geometry under ``wide_form``, with the launches of
+   the hybrid's AQUA drive and of its AQUA-off drive.
 """
 from __future__ import annotations
 
@@ -555,6 +588,21 @@ def heads_past_group(kernel, q, block_idx, **kw):
     out = kernel(q=q.roll(1, 1).contiguous(),
                  block_idx=block_idx.roll(1, 1).contiguous(), **kw)
     return out.roll(-1, 1)
+
+
+def head_fault(kernel, q, block_idx, kvh: int, **kw) -> dict:
+    """The planted head fault of a phase: ``heads_past_group`` where there
+    is a next KV group; at one KV head (RecurrentGemma's MQA) no block can
+    read past its group, and the nearest fault is each head's output
+    written one head on (``heads_one_on``: q̂ and its selection rolled one
+    head, the output left there)."""
+    if kvh > 1:
+        return {"heads_past_group": heads_past_group(kernel, q, block_idx,
+                                                     **kw)}
+    extra = {} if block_idx is None else {
+        "block_idx": block_idx.roll(1, 1).contiguous()}
+    return {"heads_one_on": kernel(q=q.roll(1, 1).contiguous(), **extra,
+                                   **kw)}
 
 
 def swapped_group_heads(block_idx):
@@ -932,14 +980,17 @@ def prefill_part_phase(geom: str, h: int, kvh: int, gen) -> dict:
 
 
 def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
-                         s: int = 8192, window: int = 4096) -> dict:
-    """The window form of the prefill kernel at the sliding-window model's
-    geometry (H2O-Danube-1.8B: head_dim 80, window 4096), B=1, S=8192,
-    causal, beside the no-window form on the same inputs (the tiles the
-    band skips). Planted faults: the window one key wider, and the band
-    starting one key tile late (the participating walk over each q-tile's
-    band minus its first 64-key tile: the same kernel with that tile
-    skipped)."""
+                         s: int = 8192, window: int = 4096,
+                         heads: bool = False) -> dict:
+    """The window form of the prefill kernel at a sliding-window model's
+    geometry (H2O-Danube-1.8B: head_dim 80, window 4096, S=8192;
+    RecurrentGemma-9B: 16 heads over one KV head of 256 dims, window 2048,
+    S=4096, the wide engine), B=1, causal, beside the no-window form on
+    the same inputs (the tiles the band skips). Planted faults: the window
+    one key wider, and the band starting one key tile late (the
+    participating walk over each q-tile's band minus its first 64-key
+    tile: the same kernel with that tile skipped); with ``heads`` also the
+    phase's head fault (:func:`head_fault`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import aqua
@@ -958,7 +1009,7 @@ def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
                                               lengths).contiguous()
     kw = dict(block_dims=BLOCK_DIMS, q_blk=q_blk, causal=True, scale=scale)
 
-    def kernel(window=window, **extra):
+    def kernel(window=window, q=q, block_idx=block_idx, **extra):
         return pk.aqua_prefill_attention(q, k, v, block_idx, lengths,
                                          window=window, **kw, **extra)
 
@@ -979,9 +1030,11 @@ def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
     late = torch.sort(late, dim=-1)[0]
     late = torch.where(late == nkc, torch.full_like(late, -1), late)[
         None, :, :int(keep.sum(-1).max())].to(torch.int32).contiguous()
-    check = check_kernel(kernel(), plain(), {
-        "window_off_by_one": kernel(window=window + 1),
-        "band_starts_one_tile_late": kernel(kc_part=late, k_blk=tile)})
+    faults = {"window_off_by_one": kernel(window=window + 1),
+              "band_starts_one_tile_late": kernel(kc_part=late, k_blk=tile)}
+    if heads:
+        faults.update(head_fault(kernel, q, block_idx, kvh))
+    check = check_kernel(kernel(), plain(), faults)
     sel = torch.zeros(b, h, nqc, d // BLOCK_DIMS, device=dev)
     sel.scatter_(-1, block_idx.long(), 1.0)
     qm = q * sel.repeat_interleave(BLOCK_DIMS, -1).repeat_interleave(
@@ -1065,6 +1118,58 @@ def flash_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
                            pad_rows=pad),
                 **check, **timings(kernel, plain, library), bound_ms=bms,
                 bound_by=by, device_us=device_us(kernel))
+
+
+def flash_window_phase(geom: str, h: int, kvh: int, d: int, gen,
+                       s: int = 4096, window: int = 2048) -> dict:
+    """Flash attention's window form at a sliding-window model's geometry
+    (RecurrentGemma-9B with AQUA off: 16 heads over one KV head of 256
+    dims, window 2048: the wide engine), B=1, S=4096, causal, beside the
+    no-window form on the same inputs. Planted faults: the window one key
+    wider, the band starting one 64-key tile late (a window 64 keys
+    shorter) and the phase's head fault (:func:`head_fault`)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+
+    b = 1
+    dev, bf = "cuda", torch.bfloat16
+    q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
+    k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+    v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
+
+    def kernel(q=q, window=window):
+        return fk.flash_attention(q, k, v, causal=True, window=window)
+
+    def plain():
+        return fk.flash_attention_plain(q, k, v, causal=True, window=window)
+
+    faults = {"window_off_by_one": kernel(window=window + 1),
+              "band_starts_one_tile_late": kernel(window=window - 64)}
+    faults.update(head_fault(kernel, q, None, kvh))
+    check = check_kernel(kernel(), plain(), faults)
+    pos = torch.arange(s, device=dev)
+    band = (pos[:, None] >= pos[None, :]) & \
+        (pos[None, :] > pos[:, None] - window)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                              enable_gqa=True)
+
+    pairs = float(sum(min(i + 1, window) for i in range(s)))
+    ops = 2 * pairs * h * (d + d)
+    nbytes = 2 * (2 * b * h * s * d + 2 * b * kvh * s * d)
+    bms, by = bound(nbytes, ops)
+    times = timings(kernel, plain, library, plain_iters=3)
+    no_window_ms = graph_ms(lambda: kernel(window=None))
+    return dict(name="flash_attention", geometry=geom, form="window",
+                dtype="bfloat16", route="mma_sync_wide",
+                shape=dict(B=b, H=h, KV=kvh, S=s, D=d, causal=True,
+                           window=window),
+                **check, **times, no_window_ms=no_window_ms,
+                device_us=device_us(kernel),
+                live_pair_share=pairs / (s * (s + 1) / 2), bound_ms=bms,
+                bound_by=by)
 
 
 def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
@@ -1238,13 +1343,41 @@ def reset_counts() -> None:
 
 def kept_positions(eng):
     """(L, B, S) the positions each layer's cache holds per lane after the
-    latest step, sorted (a paged state's logical slots)."""
+    latest step, sorted (a paged state's logical slots; a hybrid's
+    attention layers' rings)."""
     import torch
     from repro_torch.core import kvcache as kv
     layers = eng.last_state.layers
+    if isinstance(layers, kv.HybridCache):
+        layers = layers.attn
+    if not isinstance(layers, kv.PagedAttnCache):
+        return torch.sort(layers.positions, dim=-1)[0]
     return torch.stack([torch.sort(kv.gather_positions(layers.layer(i)),
                                    dim=-1)[0]
                         for i in range(layers.page_table.shape[0])])
+
+
+def state_tensors(layers) -> dict:
+    """A decode state's cache tensors by field name (a hybrid's nested
+    stacks as "attn.k", "rec.state", ...)."""
+    out = {}
+    for f in dataclasses.fields(layers):
+        t = getattr(layers, f.name)
+        if dataclasses.is_dataclass(t):
+            out.update({f"{f.name}.{k}": v
+                        for k, v in state_tensors(t).items()})
+        elif t is not None:
+            out[f.name] = t
+    return out
+
+
+def clone_layers(layers):
+    """A cache dataclass with every tensor cloned (nested stacks too)."""
+    return type(layers)(**{
+        f.name: (clone_layers(t) if dataclasses.is_dataclass(t)
+                 else None if t is None else t.clone())
+        for f in dataclasses.fields(layers)
+        for t in (getattr(layers, f.name),)})
 
 
 def serve_drive(eng, reqs, positions: bool = False, tape=None) -> dict:
@@ -1531,7 +1664,7 @@ def clone_extra(extra):
 
 
 def step_graph_phase(path: str, eng, reqs, steps: int = 16,
-                     trace: bool = False) -> dict:
+                     trace: bool = False, stale: tuple = ()) -> dict:
     """Admit the drive's prompts at once (at most one per lane), clone the
     state, and run ``steps`` decode steps with seeded tokens and write
     masks (each lane writes with probability 0.75) through the engine's
@@ -1548,7 +1681,11 @@ def step_graph_phase(path: str, eng, reqs, steps: int = 16,
     the lanes' cross K/V (``extra["cross"]``), which the eager twin gets
     a copy of: a third planted fault, the replays reading each lane's
     neighbour's cross K/V (rolled one lane on), must break the equality
-    too."""
+    too. Each name in ``stale`` (a recurrent state tensor of
+    :func:`state_tensors`: Mamba-2's "state", the hybrid's "rec.state")
+    plants one more: that tensor put back after every replay to what it
+    held before it, so each step reads the state the admission left (a
+    step that did not write it in place)."""
     import numpy as np
     import torch
     reqs = [dataclasses.replace(r, arrival=0.0)
@@ -1560,13 +1697,10 @@ def step_graph_phase(path: str, eng, reqs, steps: int = 16,
     events.close()
     graph, state = eng.step_graph, eng.last_state
     layers = state.layers
-    tensors = {f.name: getattr(layers, f.name)
-               for f in dataclasses.fields(layers)
-               if getattr(layers, f.name) is not None}
+    tensors = state_tensors(layers)
     snap = {k: t.clone() for k, t in tensors.items()}
-    twin = dataclasses.replace(state, layers=type(layers)(**{
-        k: t.clone() for k, t in tensors.items()}),
-        extra=clone_extra(state.extra))
+    twin = dataclasses.replace(state, layers=clone_layers(layers),
+                               extra=clone_extra(state.extra))
     rng = np.random.default_rng(0)
     lanes = eng.scfg.max_lanes
     inputs = [(rng.integers(0, eng.cfg.vocab_size, lanes).astype(np.int32),
@@ -1582,8 +1716,7 @@ def step_graph_phase(path: str, eng, reqs, steps: int = 16,
         want.append(lg.clone())
     torch.cuda.synchronize()
     eager_ms = 1e3 * (time.perf_counter() - t0) / steps
-    want_state = {f.name: getattr(twin.layers, f.name) for f in
-                  dataclasses.fields(layers) if f.name in tensors}
+    want_state = state_tensors(twin.layers)
 
     def run(skip=None):
         """Replays from the admitted state: (logits equal in every step,
@@ -1594,8 +1727,13 @@ def step_graph_phase(path: str, eng, reqs, steps: int = 16,
         t0 = time.perf_counter()
         got = []
         for i, (toks, act) in enumerate(inputs):
-            lg = (graph.replay(toks, act) if skip is None or i == 0
-                  else replay_skipping(graph, toks, act, skip))
+            if skip in tensors:
+                held = tensors[skip].clone()
+                lg = graph.replay(toks, act)
+                tensors[skip].copy_(held)     # the step's write lost
+            else:
+                lg = (graph.replay(toks, act) if skip is None or i == 0
+                      else replay_skipping(graph, toks, act, skip))
             got.append(lg.clone())
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0) / steps
@@ -1608,6 +1746,8 @@ def step_graph_phase(path: str, eng, reqs, steps: int = 16,
 
     good = run()
     faults = {skip: run(skip) for skip in ("tokens", "write_mask")}
+    for name in stale:
+        faults[f"stale_{name}"] = run(name)
     if "cross" in state.extra:
         cross = state.extra["cross"]
         saved = [t.clone() for t in cross]
@@ -1990,16 +2130,19 @@ def load_model(name: str, seed: int, dtype: str = "bfloat16",
     from repro_torch.data.corpus import calibration_batches
     from repro_torch.models import build_model
     from repro_torch.models.layers import with_unembedding
-    mcfg = dataclasses.replace(
-        get_config(name), aqua=AquaConfig(k_ratio=K_RATIO,
-                                          block_dims=BLOCK_DIMS),
-        dtype=dtype, param_dtype=dtype)
+    mcfg = dataclasses.replace(get_config(name), dtype=dtype,
+                               param_dtype=dtype)
+    if mcfg.attention is not None:
+        mcfg = mcfg.with_aqua(AquaConfig(k_ratio=K_RATIO,
+                                         block_dims=BLOCK_DIMS))
     model = build_model(mcfg)
     # the float32 unembedding made once, as the engines and the launcher
     # make it
     mparams = with_unembedding(
         model.init(torch.Generator(device="cuda").manual_seed(seed)),
         model.tied_unembedding)
+    if mcfg.aqua is None:
+        return mcfg, mparams, None   # attention-free: nothing to calibrate
     mproj = calibrate(capture_forward(model), mparams, calibration_batches(
         mcfg.vocab_size, os.path.join(ROOT, "corpora", "calibration.txt"),
         num_batches=2, batch=2, seq=calib_seq, model_cfg=mcfg), mcfg)
@@ -2327,20 +2470,25 @@ GROUP_CONFIGS = (("qwen1.5-4b", 2, 4, 4, (128, 512, 1024)),
 
 
 def decode_step_bound(mcfg, mparams, ctx: float, lanes: int,
-                      extra_bytes: float = 0.0) -> dict:
+                      extra_bytes: float = 0.0,
+                      attn_layers: int = None) -> dict:
     """The bytes one decode step must read and its least time at
     HBM_BYTES_PER_S: every layer's weights (an MoE's dense capacity
     buffers run every expert, so all expert weights; an encoder-decoder's
-    decoder layers, not its encoder's), the float32 unembedding, the
-    lanes' K̂ (its selected share) and V rows at ``ctx`` positions each,
-    and ``extra_bytes`` (an encoder-decoder's cross K/V, all of it read
-    each step)."""
+    decoder layers, not its encoder's; a hybrid's list of layers), the
+    float32 unembedding, the lanes' K̂ (its selected share; all of it
+    with AQUA off) and V rows at ``ctx`` positions each in
+    ``attn_layers`` attention layers (default every layer; none without
+    attention), and ``extra_bytes`` (an encoder-decoder's cross K/V, all
+    of it read each step; a recurrent state, read and written)."""
     import torch
     from repro_torch.models.layers import UNEMBED_F32
 
     def nbytes(t):
         if isinstance(t, dict):
             return sum(nbytes(v) for v in t.values())
+        if isinstance(t, list):
+            return sum(nbytes(v) for v in t)
         return t.numel() * t.element_size()
     att = mcfg.attention
     layers = mparams["dec_layers" if mcfg.family == "encdec" else "layers"]
@@ -2349,8 +2497,12 @@ def decode_step_bound(mcfg, mparams, ctx: float, lanes: int,
     if mcfg.family == "moe":
         experts = sum(nbytes(mparams["layers"]["ffn"][k])
                       for k in ("w1", "w2", "w3"))
-    kv = (mcfg.num_layers * lanes * ctx * att.num_kv_heads * att.head_dim
-          * (K_RATIO + 1.0) * torch.finfo(torch.bfloat16).bits / 8)
+    if attn_layers is None:
+        attn_layers = 0 if att is None else mcfg.num_layers
+    share = K_RATIO if mcfg.aqua is not None else 1.0
+    kv = 0.0 if att is None else (
+        attn_layers * lanes * ctx * att.num_kv_heads * att.head_dim
+        * (share + 1.0) * torch.finfo(torch.bfloat16).bits / 8)
     total = weights + kv + extra_bytes
     return dict(bytes=total, expert_bytes=experts,
                 unembedding_bytes=nbytes(mparams[UNEMBED_F32]),
@@ -2634,6 +2786,282 @@ def frontend_drive_phase(card: str) -> dict:
         torch.cuda.empty_cache()
         log_time(f"drive {name} and its reference")
     log({"serve_frontends": out})
+    return out
+
+
+#: the recurrent configs: (config, weight seed, lanes, requests, prompt
+#: lengths, max_seq). RecurrentGemma-9B's prompts run past its 2048-token
+#: window (two of three), so its rings wrap at admission; Mamba-2's are the
+#: dense drives'.
+RECURRENT_CONFIGS = (("recurrentgemma-9b", 8, 4, 4, (1024, 2100, 3000),
+                      4096),
+                     ("mamba2-370m", 9, 8, 8, (128, 512, 1024), 2048))
+
+
+def solo_logits(eng, prompt, tokens, n: int, lanes: int = 1) -> list:
+    """A request alone on the rectangular ``ServeEngine`` ``eng``: its
+    prefill's logits, then those of ``n`` decode steps fed ``tokens``
+    (the drive's own, so that both see the same sequence): n + 1 rows
+    (1, V), row k the logits after k fed tokens. ``lanes`` > 1: the
+    decode steps run on the prefilled state copied into that many rows,
+    each fed the same token (the request alone at an engine's lane count:
+    the same matrix shapes), row 0 kept."""
+    import torch
+    logits, state = eng.model.prefill(
+        eng.params, {"tokens": torch.as_tensor(
+            prompt, dtype=torch.int32, device="cuda")[None]}, eng.max_seq)
+    if lanes > 1:
+        state.layers = type(state.layers)(**{
+            k: t.repeat_interleave(lanes, dim=1)
+            for k, t in state_tensors(state.layers).items()})
+    rows = [logits.float().clone()]
+    for tok in tokens[:n]:
+        logits, state = eng.model.decode_step(
+            eng.params, state, torch.full((lanes,), int(tok),
+                                          dtype=torch.int32, device="cuda"))
+        rows.append(logits[:1].float().clone())
+    return rows
+
+
+def compare_solo(run: dict, eng, reqs, lanes: int, check: bool = True,
+                 greedy: bool = True) -> dict:
+    """Every admission's logits and every checked decode row (a lane still
+    generating) of a drive against the request alone on ``eng`` (a
+    ``ServeEngine``) fed the same tokens, its decode steps at ``lanes``
+    rows (``solo_logits``): each row within LOGIT_RTOL of its largest
+    magnitude (raises otherwise, unless ``check`` is off); with
+    ``greedy``, also the tokens of ``ServeEngine.generate`` (one row)
+    against the drive's (reported)."""
+    import numpy as np
+    prompts = {r.uid: np.asarray(r.tokens) for r in reqs}
+    need = {}
+    for st in run["step_logits"]:
+        for u, held in st["held"].items():
+            if len(held) < 32:
+                need[u] = max(need.get(u, 0), len(held))
+    solo = {u: solo_logits(eng, prompts[u], run["tokens"][u], need.get(u, 0),
+                           lanes) for u in prompts}
+
+    def ratio(got, want, what):
+        err = (got - want).abs().max().item()
+        limit = LOGIT_RTOL * want.abs().max().item()
+        assert err <= limit or not check, f"{what}: error {err} > {limit}"
+        return err / limit
+    worst_admit = max(ratio(run["admit_logits"][u], rows[0], f"admit {u}")
+                      for u, rows in solo.items())
+    worst_step, rows, by_step = 0.0, 0, []
+    for i, st in enumerate(run["step_logits"]):
+        worst_here = 0.0
+        for lane, u in enumerate(st["uids"]):
+            held = st["held"].get(u)
+            if held is None or len(held) >= 32:
+                continue
+            worst_here = max(worst_here, ratio(
+                st["logits"][lane], solo[u][len(held)][0],
+                f"step {i} lane {lane} (uid {u})"))
+            rows += 1
+        by_step.append(worst_here)
+        worst_step = max(worst_step, worst_here)
+    match = [float(np.mean(np.asarray(eng.generate(
+        {"tokens": prompts[u][None]}, steps=32).tokens[0])
+        == np.asarray(run["tokens"][u]))) for u in prompts] if greedy else []
+    return dict(solo_lanes=lanes, admissions_compared=len(solo),
+                decode_rows_compared=rows,
+                admit_worst_err_over_limit=worst_admit,
+                decode_worst_err_over_limit=worst_step,
+                decode_worst_by_step=by_step,
+                solo_greedy_token_match=float(np.mean(match)) if greedy
+                else None)
+
+
+def recurrent_drive_phase(card: str) -> dict:
+    """The recurrent families at their published width and depth (random
+    bf16 weights from seeds; ``RECURRENT_CONFIGS``), contiguous caches,
+    each loaded, driven and freed before the next:
+
+    * RecurrentGemma-9B (``hybrid``: 26 RG-LRU blocks, 12 local attention
+      blocks of 16 heads over one KV head of 256 dims, window 2048), AQUA
+      (K_RATIO, BLOCK_DIMS) with projections calibrated through
+      ``forward(capture=True)``: launches exactly the prefill's wide
+      kernel once per attention layer per admission and no decode kernel
+      (a windowed attention decodes on the masked-dense core, as in JAX);
+      the kernel drive records its dim-block selections
+      (``core.aqua.SelectionTape``) and is held to a plain drive that
+      replays them (every row within LOGIT_RTOL); a self-selecting plain
+      drive's rows are reported beside, not held; the step graph against
+      eager ``decode_step`` with the stale-token, stale-mask and
+      stale-RG-LRU-state faults; the decode step beside its byte bound;
+      then AQUA off (the flash kernel's wide engine, once per attention
+      layer per admission) against the ``dense`` reference drive;
+    * Mamba-2-370M (``ssm``, no AQUA): no kernel launched, asserted; each
+      admission's and checked decode row's logits against the request
+      alone on a ``ServeEngine`` fed the same tokens (``compare_solo``);
+      the step graph with a stale-SSD-state fault; the decode step beside
+      its byte bound (the weights, the unembedding, the SSD states read
+      and written)."""
+    import gc
+    import torch
+    from repro_torch.configs import ServingConfig
+    from repro_torch.core import kvcache as kv
+    from repro_torch.core.aqua import SelectionTape
+    from repro_torch.serving import ServeEngine
+    out = {}
+    for name, seed, lanes, n, prompts, max_seq in RECURRENT_CONFIGS:
+        serving = ServingConfig(max_lanes=lanes, max_seq=max_seq,
+                                max_new_tokens=32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mcfg, mparams, mproj = load_model(name, seed)
+        setup_s = time.perf_counter() - t0
+        log_time(f"load {name}")
+        hybrid = mcfg.family == "hybrid"
+        want = dict.fromkeys(KERNELS, 0)
+        if hybrid:
+            att = mcfg.attention
+            tape = SelectionTape("cuda", slots=(8192, 1024),
+                                 numel=(lanes * att.num_heads * 32,
+                                        att.num_heads * 32 * 32))
+            run = run_drive(mcfg, mparams, mproj, serving, n, prompts,
+                            selection=(tape, "record"))
+            recorded = tape.calls.tolist()
+            free = run_drive(mcfg, mparams, mproj, serving, n, prompts,
+                             backend="aqua-block-sparse-plain")
+            del free["engine"]
+            ref = run_drive(mcfg, mparams, mproj, serving, n, prompts,
+                            backend="aqua-block-sparse-plain",
+                            selection=(tape, "replay"))
+            assert tape.calls.tolist() == recorded and not tape.overflowed, \
+                (name, recorded, tape.calls.tolist())
+            assert sum(ref["launches"].values()) == 0, ref["launches"]
+            del ref["engine"]
+            n_attn = run["engine"].model.num_attn_layers
+            want["aqua_prefill"] = n_attn * run["admissions"]
+        else:
+            run = run_drive(mcfg, mparams, None, serving, n, prompts)
+        assert run["launches"] == want, (name, run["launches"], want)
+        eng = run["engine"]
+        layers = eng.last_state.layers
+        rec = layers.rec if hybrid else layers
+        state_bytes = kv.tree_bytes(rec)
+        ctx = float(sum(prompts)) / len(prompts) + 16
+        res = {k: v for k, v in run.items()
+               if k not in ("tokens", "admit_logits", "step_logits",
+                            "engine", "admit_routes", "tape",
+                            "selection_tape")}
+        res.update(setup_s=setup_s, family=mcfg.family,
+                   layers=mcfg.num_layers, d_model=mcfg.d_model,
+                   cache_bytes=eng.cache_bytes(),
+                   recurrent_state_bytes=state_bytes,
+                   decode_step_bound=decode_step_bound(
+                       mcfg, mparams, min(ctx, att.window) if hybrid else 0,
+                       lanes, extra_bytes=2 * state_bytes,
+                       attn_layers=n_attn if hybrid else 0))
+        if hybrid:
+            res.update(attn_layers=n_attn, heads=att.num_heads,
+                       kv_heads=att.num_kv_heads, head_dim=att.head_dim,
+                       window=att.window,
+                       reference_drive_peak_memory_bytes=ref[
+                           "drive_peak_memory_bytes"],
+                       vs_reference=compare_logits(run, ref, 32),
+                       reference_replays_selections=True,
+                       vs_free_reference=compare_logits(run, free, 32,
+                                                        check=False))
+            stale = ("rec.state",)
+        else:
+            # each request alone, its decode steps at the engine's lane
+            # count (held: the same matrix shapes, so what differs is the
+            # engine's lane surgery, masks and graph) and at one row
+            # (reported: cuBLAS rounds a bf16 product of 1 row otherwise
+            # than one of 8, through 48 recurrent layers)
+            solo = ServeEngine(mcfg, mparams, None, max_seq=max_seq)
+            reqs = drive_trace(n, mcfg.vocab_size, prompts)
+            res["vs_solo"] = compare_solo(run, solo, reqs, lanes,
+                                          greedy=False)
+            res["vs_solo_one_row"] = compare_solo(run, solo, reqs, 1,
+                                                  check=False)
+            del solo
+            # the control: the same weights in float32 (activations too),
+            # where a product of one row and one of eight round alike to
+            # within float32: the drive against each request alone at one
+            # row, held
+            f32cfg = dataclasses.replace(mcfg, dtype="float32",
+                                         param_dtype="float32")
+            f32params = {k: (v.float() if isinstance(v, torch.Tensor)
+                             else {kk: vv.float() for kk, vv in v.items()})
+                         for k, v in mparams.items()}
+            frun = run_drive(f32cfg, f32params, None, serving, n, prompts)
+            res["float32_vs_solo_one_row"] = compare_solo(
+                frun, ServeEngine(f32cfg, f32params, None, max_seq=max_seq),
+                reqs, 1, greedy=False)
+            del frun, f32params
+            stale = ("state",)
+        res["step_graph"] = step_graph_phase(
+            name, eng, drive_trace(lanes, mcfg.vocab_size, prompts),
+            stale=stale)
+        log({"step_graph": res["step_graph"]})
+        b = res["decode_step_bound"]
+        vs = res.get("vs_reference") or res["vs_solo"]
+        log(f"[serve {name}] {mcfg.family}: launches {run['launches']}, "
+            f"{vs['admissions_compared']} admissions (worst "
+            f"{vs['admit_worst_err_over_limit']:.3f} of the limit) and "
+            f"{vs['decode_rows_compared']} decode rows (worst "
+            f"{vs['decode_worst_err_over_limit']:.3f}) against "
+            + ("the plain drive replaying its selections (a self-selecting "
+               f"plain drive: worst "
+               f"{res['vs_free_reference']['admit_worst_err_over_limit']:.3f}"
+               f" / {res['vs_free_reference']['decode_worst_err_over_limit']:.3f}"
+               " of the limit, not held)" if hybrid else
+               f"each request alone on a ServeEngine at {lanes} rows "
+               f"(at one row: worst "
+               f"{res['vs_solo_one_row']['admit_worst_err_over_limit']:.3f}"
+               f" / {res['vs_solo_one_row']['decode_worst_err_over_limit']:.3f}"
+               " of the limit, not held; its greedy token match "
+               f"{res['vs_solo_one_row']['solo_greedy_token_match']:.3f}; "
+               "in float32 at one row: worst "
+               f"{res['float32_vs_solo_one_row']['admit_worst_err_over_limit']:.3f}"
+               f" / {res['float32_vs_solo_one_row']['decode_worst_err_over_limit']:.3f})")
+            + f"; cache bytes {res['cache_bytes']} (recurrent state "
+            f"{state_bytes}), peak device memory {run['peak_memory_bytes']} "
+            f"bytes; tokens/s {run['tokens_per_s']:.2f}, admission ms "
+            f"{run['admit_ms']:.3f}, decode step {run['decode_step_ms']:.3f}"
+            f" ms host, graph replay "
+            f"{res['step_graph']['replay_device_ms']:.3f} ms device beside "
+            f"its byte bound {b['ms']:.3f} ms ({b['bytes']:.4g} bytes) on "
+            f"{card}")
+        out[name] = res
+        del run, eng, layers, rec
+        if hybrid:
+            del ref, free, tape
+            gc.collect()
+            torch.cuda.empty_cache()
+            # AQUA off: the flash kernel's wide engine at every admission
+            off = dataclasses.replace(mcfg, aqua=None)
+            fref = run_drive(off, mparams, None, serving, n, prompts,
+                             backend="dense")
+            assert sum(fref["launches"].values()) == 0, fref["launches"]
+            del fref["engine"]
+            frun = run_drive(off, mparams, None, serving, n, prompts)
+            fwant = dict.fromkeys(KERNELS, 0)
+            fwant["flash_attention"] = n_attn * frun["admissions"]
+            assert frun["launches"] == fwant, (frun["launches"], fwant)
+            fres = {k: v for k, v in frun.items()
+                    if k not in ("tokens", "admit_logits", "step_logits",
+                                 "engine", "admit_routes", "tape",
+                                 "selection_tape")}
+            fres["vs_reference"] = fvs = compare_logits(frun, fref, 32)
+            log(f"[serve {name}, AQUA off] launches {frun['launches']}, "
+                f"{fvs['admissions_compared']} admissions (worst "
+                f"{fvs['admit_worst_err_over_limit']:.3f} of the limit) and "
+                f"{fvs['decode_rows_compared']} decode rows (worst "
+                f"{fvs['decode_worst_err_over_limit']:.3f}) against the "
+                f"dense drive; admission ms {frun['admit_ms']:.3f} on {card}")
+            out[name + "_flash"] = fres
+            del frun, fref
+        del mparams, mproj
+        gc.collect()
+        torch.cuda.empty_cache()
+        log_time(f"drive {name} and its reference")
+    log({"serve_recurrent": out})
     return out
 
 
@@ -2989,6 +3417,9 @@ def main() -> int:
             ("flash_attention", "flash_bf16", ("USETMAXREG", "UTMALDG")),
             ("aqua_prefill", "aqua_prefill_f32", ("HMMA",)),
             ("flash_attention", "flash_f32", ("HMMA",)),
+            # the wide engine (head dims past 128): mma.sync
+            ("aqua_prefill", "aqua_prefill_wide", ("HMMA",)),
+            ("flash_attention", "flash_wide", ("HMMA",)),
             ("aqua_decode", "decode_bf16", ())):
         if name not in sass:
             sass[name] = counts = sass_counts(str(_build._lib_path(name)))
@@ -3029,6 +3460,16 @@ def main() -> int:
     else:
         spills = "not checked: the library was built by an earlier run"
     log({"sass_decode_f32_variants": f32_ffma, "ptxas_spill_bytes": spills})
+    # the wide engine holds its 16 x 256 float32 output in registers: no
+    # spills
+    wide_spills = {}
+    for name in ("aqua_prefill", "flash_attention"):
+        if build_logs[name]:
+            wide_spills.update({fn: n for fn, n in ptxas_spills(
+                build_logs[name]).items() if "_wide" in fn})
+    assert not any(wide_spills.values()), wide_spills
+    log({"ptxas_spill_bytes_wide": wide_spills or
+         "not checked: the libraries were built by an earlier run"})
 
     # the traced paged drive, in a child process: where the device time goes
     prof = traced_drive(card)
@@ -3116,6 +3557,13 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     window_phase = prefill_window_phase("h2o-danube-1.8b", 32, 8, 80, gen)
     phases.append(window_phase)
+    # RecurrentGemma-9B's attention (16 heads over one KV head of 256
+    # dims, window 2048): the wide engine of the prefill (window and
+    # no-window forms) and of flash (AQUA off)
+    wide_prefill = prefill_window_phase("recurrentgemma-9b", 16, 1, 256, gen,
+                                        s=4096, window=2048, heads=True)
+    wide_flash = flash_window_phase("recurrentgemma-9b", 16, 1, 256, gen)
+    phases += [wide_prefill, wide_flash]
     for p in phases:
         log(p)
     log({"read_rate": read_rate()})
@@ -3126,6 +3574,7 @@ def main() -> int:
     serve = serve_phase(card, prof)
     configs = config_drive_phase(card)
     configs.update(frontend_drive_phase(card))
+    recurrent = recurrent_drive_phase(card)
     hf = hf_serve_phase(card, gen)
     src = "src/repro_torch/kernels/csrc/"
     tpu = "src/repro/kernels/"
@@ -3181,6 +3630,19 @@ def main() -> int:
              plain_ms=wp["plain_ms"], bound_ms=wp["bound_ms"],
              bound_by=wp["bound_by"], library_ms=wp["library_ms"],
              no_window_ms=wp["no_window_ms"])
+    # the wide engine at RecurrentGemma-9B's geometry (head_dim 256),
+    # launched by the hybrid's drives: the prefill with AQUA, flash without
+    for k, p, path in (("aqua_prefill", wide_prefill, "recurrentgemma-9b"),
+                       ("flash_attention", wide_flash,
+                        "recurrentgemma-9b_flash")):
+        launches = recurrent[path]["launches"][k]
+        assert launches > 0, (k, path)
+        next(x for x in kernels if x["name"] == k)["wide_form"] = dict(
+            geometry=p["geometry"], shape=p["shape"], launches=launches,
+            max_abs_err=p["max_abs_err"], ms=p["ms"],
+            plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+            bound_by=p["bound_by"], library_ms=p["library_ms"],
+            no_window_ms=p["no_window_ms"])
     # flash on a bucket-padded admission (keys past the length masked),
     # as the flash drive's admissions call it
     lp = next(p for p in phases if p["name"] == "flash_attention"

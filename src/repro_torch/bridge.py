@@ -12,6 +12,8 @@ A VLM's tree adds ``patch_proj`` (``w`` (embed_dim, d)); an
 encoder-decoder's is ``embed``, ``pos`` (max_positions, d), ``enc_layers``
 (dense blocks), ``enc_ln``, ``dec_layers`` (blocks with ``xattn`` and its
 norm ``ln_x``, an ungated MLP) and ``ln_f``, as JAX's ``EncDecLM`` makes it.
+A Mamba-2's ``layers`` are stacked SSD blocks; a hybrid's are a list of
+per-layer dicts (recurrent and attention blocks), as in JAX.
 """
 from __future__ import annotations
 
@@ -22,20 +24,24 @@ from repro_torch.core.calibration import load_projections  # noqa: F401
 from repro_torch.runtime import resolve_device
 
 
-#: params that stay float32 whatever the param dtype (JAX draws the MoE
-#: router in float32 and routes in float32)
-FLOAT32_PARAMS = ("router",)
+#: params that stay float32 whatever the param dtype, as JAX draws them:
+#: the MoE router (it routes in float32), the RG-LRU's gates ``wr``, ``wi``
+#: and ``lam``, and Mamba-2's ``a_log``, ``dt_bias`` and ``d_skip``
+FLOAT32_PARAMS = ("router", "wr", "wi", "lam", "a_log", "dt_bias", "d_skip")
 
 
 def params_from_numpy(tree, device=None, dtype=None):
-    """Nested dicts of numpy arrays -> the same dicts of tensors on
-    ``device`` (None = the CUDA card), cast to ``dtype`` if given (the
-    ``FLOAT32_PARAMS`` to float32)."""
+    """Nested dicts (and lists: a hybrid's per-layer params) of numpy
+    arrays -> the same dicts and lists of tensors on ``device`` (None =
+    the CUDA card), cast to ``dtype`` if given (the ``FLOAT32_PARAMS`` to
+    float32)."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(
                     v, dev, torch.float32 if dtype is not None
                     and k in FLOAT32_PARAMS else dtype)
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, dev, dtype) for v in tree]
     t = torch.from_numpy(np.array(tree, copy=True)).to(dev)
     return t if dtype is None else t.to(dtype)

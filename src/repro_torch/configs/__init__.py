@@ -1,5 +1,6 @@
 """Architecture config registry of the port (the dense and MoE decoders,
-the VLM and the encoder-decoder it serves).
+the VLM, the encoder-decoder, the SSM and the hybrid it serves: every
+family of the JAX package's registry).
 
 ``get_config(name)`` returns the full published config; ``reduced(name)``
 the CPU-test variant of the same structure.
@@ -11,7 +12,8 @@ from typing import Dict
 
 from repro_torch.configs.base import (  # noqa: F401
     AquaConfig, AttentionConfig, CacheSpec, FrontendConfig, ModelConfig,
-    MoEConfig, QuantSpec, ServingConfig, SparsitySpec, reduce_config,
+    MoEConfig, QuantSpec, RGLRUConfig, ServingConfig, SparsitySpec,
+    SSMConfig, reduce_config,
     resolve_cache_specs, resolve_eviction, resolve_sparsity_spec,
 )
 
@@ -25,6 +27,8 @@ _MODULES: Dict[str, str] = {
     "qwen2-moe-a2.7b": "qwen2_moe_a27b",
     "pixtral-12b": "pixtral_12b",
     "whisper-tiny": "whisper_tiny",
+    "mamba2-370m": "mamba2_370m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 ALL_ARCHS = tuple(_MODULES)
 

@@ -2,7 +2,8 @@
 
 The port's own copy of the JAX package's ``configs/base.py``, cut to what
 the serving path uses: ``AquaConfig``, ``AttentionConfig``,
-``MoEConfig``, ``FrontendConfig``, ``ModelConfig``, ``reduce_config``,
+``MoEConfig``, ``SSMConfig``, ``RGLRUConfig``, ``FrontendConfig``,
+``ModelConfig``, ``reduce_config``,
 ``CacheSpec``,
 ``QuantSpec``, ``SparsitySpec`` (with their resolvers) and
 ``ServingConfig``.
@@ -96,6 +97,28 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD block parameters (``models/mamba2.py``)."""
+
+    state_dim: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk_size: int = 64
+    ngroups: int = 1
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU block parameters (``models/rglru.py``): the
+    layers follow ``block_pattern`` cyclically."""
+
+    lru_width: int = 0            # 0 -> d_model
+    conv_width: int = 4
+    block_pattern: Tuple[str, ...] = ("recurrent", "recurrent", "attention")
+
+
+@dataclass(frozen=True)
 class FrontendConfig:
     """Stub modality frontends: a request carries precomputed embeddings
     (batch, num_embeds, embed_dim) in its prefill batch, vision patches
@@ -108,20 +131,18 @@ class FrontendConfig:
     embed_dim: int = 0
 
 
-#: families the JAX package builds that the port does not serve yet
-UNPORTED_FAMILIES = ("ssm", "hybrid")
-
-
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | encdec | vlm
+    family: str                   # dense | moe | ssm | hybrid | encdec | vlm
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
     aqua: Optional[AquaConfig] = None
     norm_eps: float = 1e-6
@@ -135,16 +156,26 @@ class ModelConfig:
     # long-context capability flag of the JAX package's shape table
     skip_long_context: bool = False
 
+    @property
+    def subquadratic(self) -> bool:
+        """Sub-quadratic in context: an SSM or hybrid, or a windowed
+        attention (the JAX package's long-context capability flag)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return (self.attention is not None
+                and self.attention.kind in ("swa", "local"))
+
     def with_aqua(self, aqua: AquaConfig) -> "ModelConfig":
         return replace(self, aqua=aqua)
 
     def validate(self) -> None:
-        if self.family in UNPORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {self.family!r}: the port serves the dense, moe, "
-                "vlm and encdec families only")
-        assert self.family in ("dense", "moe", "encdec", "vlm"), self.family
-        assert self.attention is not None
+        assert self.family in ("dense", "moe", "ssm", "hybrid", "encdec",
+                               "vlm"), self.family
+        if self.family != "ssm":
+            assert self.attention is not None
+        if self.family == "hybrid":
+            assert self.rglru is not None, \
+                "family 'hybrid' needs ModelConfig.rglru"
         if self.family == "moe":
             assert self.moe is not None, "family 'moe' needs ModelConfig.moe"
         if self.family == "encdec":
@@ -157,20 +188,27 @@ def reduce_config(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,
                   vocab: int = 128, ff: int = 128) -> ModelConfig:
     """Shrink a production config to a CPU-test size, keeping its
     structure (GQA ratio, qk-norm, tied embeddings, MoE routing, the
+    SSD's state of 16 in chunks of 8, the RG-LRU at d_model, the
     frontend's kind at 4 embeddings of width 32, an encoder of 2 layers) —
     the same rule as the JAX package's ``reduce_config``."""
     att = cfg.attention
-    heads = max(2, min(4, att.num_heads))
-    kv = heads if att.num_kv_heads == att.num_heads else max(1, heads // 2)
-    att = replace(att, num_heads=heads, num_kv_heads=kv,
-                  head_dim=max(8, d_model // heads),
-                  window=None if att.window is None else 16)
+    if att is not None:
+        heads = max(2, min(4, att.num_heads))
+        kv = (heads if att.num_kv_heads == att.num_heads
+              else max(1, heads // 2))
+        att = replace(att, num_heads=heads, num_kv_heads=kv,
+                      head_dim=max(8, d_model // heads),
+                      window=None if att.window is None else 16)
     moe = cfg.moe
     if moe is not None:
         moe = replace(moe, num_experts=8, top_k=min(2, moe.top_k),
                       expert_ff=ff // 2, num_shared=min(1, moe.num_shared),
                       capacity_factor=8.0)  # effectively dropless
     kw = {}
+    if cfg.ssm is not None:
+        kw["ssm"] = replace(cfg.ssm, state_dim=16, head_dim=16, chunk_size=8)
+    if cfg.rglru is not None:
+        kw["rglru"] = replace(cfg.rglru, lru_width=0)
     if cfg.frontend.kind != "none":
         kw["frontend"] = replace(cfg.frontend, num_embeds=4, embed_dim=32)
     if cfg.num_encoder_layers:

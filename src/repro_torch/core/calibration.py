@@ -57,10 +57,14 @@ def calibrate(forward_with_capture: Callable, params, batches: Iterable,
     """Compute projections from captured activations.
 
     ``forward_with_capture(params, batch) -> aux`` returns ``aux["qk"]``: a
-    list over layers of (q (B, S, KV, G, D), k (B, S, KV, D)) — tensors or
-    arrays. Returns the projections on ``device`` (None = the CUDA card).
+    list over the attention layers of (q (B, S, KV, G, D), k (B, S, KV,
+    D)) — tensors or arrays; a hybrid captures only its
+    ``num_attn_layers`` attention layers, so its projections are per
+    attention layer, as in JAX. Returns the projections on ``device``
+    (None = the CUDA card).
     """
     acfg = cfg.attention
+    assert acfg is not None, "calibration needs an attention model"
     d, kvh = acfg.head_dim, acfg.num_kv_heads
     grams = None
     seen = 0

@@ -878,15 +878,70 @@ _EMPTY_IS_MINUS_ONE = ("positions", "pos_pool", "page_table", "hot_ids")
 
 
 def reset_cache(cache):
-    """Return every lane of an :class:`AttnCache` or
-    :class:`PagedAttnCache` to what ``init_attn_cache`` /
-    ``init_paged_cache`` allocate, in place: the tensors keep their
-    storage (a captured decode step holds their addresses)."""
+    """Return every lane of an :class:`AttnCache`, :class:`PagedAttnCache`,
+    :class:`SSMCache`, :class:`RGLRUCache` or :class:`HybridCache` to what
+    its initializer allocates, in place: the tensors keep their storage
+    (a captured decode step holds their addresses)."""
     for f in dataclasses.fields(cache):
         t = getattr(cache, f.name)
-        if t is not None:
+        if dataclasses.is_dataclass(t):
+            reset_cache(t)
+        elif t is not None:
             t.fill_(-1 if f.name in _EMPTY_IS_MINUS_ONE else 0)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# SSM / recurrent states
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SSMCache:
+    """Mamba-2 per-layer state: the rolling window of the last
+    ``conv_width - 1`` raw (pre-conv) inputs and the SSD state. conv (…,
+    B, conv_width - 1, conv_channels) in the model dtype; state (…, B,
+    nheads, head_dim, state_dim) float32; count (…, B) int32 tokens
+    processed. The optional leading axis is the layer."""
+
+    conv: torch.Tensor
+    state: torch.Tensor
+    count: torch.Tensor
+
+    def layer(self, i: int) -> "SSMCache":
+        return _layer(self, i)
+
+
+@dataclass
+class RGLRUCache:
+    """RecurrentGemma recurrent-block state: conv (…, B, conv_width - 1,
+    lru_width) raw (pre-conv) inputs in the model dtype; state (…, B,
+    lru_width) float32 RG-LRU hidden state; count (…, B) int32. The
+    optional leading axis is the layer."""
+
+    conv: torch.Tensor
+    state: torch.Tensor
+    count: torch.Tensor
+
+    def layer(self, i: int) -> "RGLRUCache":
+        return _layer(self, i)
+
+
+@dataclass
+class HybridCache:
+    """A hybrid model's decode state: its attention layers' caches stacked
+    in one :class:`AttnCache` (``attn``, layers at axis 0 in model order)
+    and its recurrent layers' states in one :class:`RGLRUCache` (``rec``),
+    lanes at axis 1 in both. ``count`` is the attention cache's (L_attn,
+    B), which every lane advances with the recurrent ones' (the
+    recurrent stack's where the model has no attention layer)."""
+
+    attn: AttnCache
+    rec: RGLRUCache
+
+    @property
+    def count(self) -> torch.Tensor:
+        return self.attn.count if self.attn.count.shape[0] else self.rec.count
 
 
 def tree_bytes(obj) -> int:

@@ -23,10 +23,13 @@ which hold the float32 limits (``csrc/f32_tile.cuh``); see the headers
 for the tiling. The bf16 kernel copies K̂ and V by TMA tensor maps and q̂ in
 16-byte pieces: it needs D and Dv multiples of 8, D <= 256, 16-byte
 aligned bases and outer strides, under 2**40 bytes (``ValueError``
-otherwise). The float32 kernel copies 16-byte pieces where the views,
+otherwise); a selected union or a Dv above 128, up to 256 (RecurrentGemma's
+head_dim 256), takes the ``mma.sync`` engine of ``csrc/wide_tile.cuh``
+instead of the warp-specialized one. The float32 kernel copies 16-byte pieces where the views,
 ``block_dims``, D and Dv allow, else 4-byte ones; it gathers the union of
 the selections of the ``q_blk`` tiles a 64-row block covers, at most 256
-dims (``ValueError`` past that). Both need ``q_blk % 8 == 0``.
+dims, and takes a selection and Dv of at most 128 (``ValueError`` past
+those). Both need ``q_blk % 8 == 0``.
 
 Dispatch is by device: CPU tensors run :func:`aqua_prefill_plain`, CUDA
 tensors launch the kernel or raise. Launches count in
@@ -93,12 +96,16 @@ def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
         raise TypeError("aqua_prefill kernel takes float32 or bfloat16 q/k/v "
                         f"of one dtype, got {q_hat.dtype}, {khat.dtype}, "
                         f"{v.dtype}")
-    if (khat.shape[-1] != d or h % kvh or nb_sel * block_dims > 128
-            or dv > 128 or nqc * q_blk < t or v.shape[2] != s
+    # the bf16 route takes a union of selected dims and a Dv up to 256 (the
+    # wide engine past 128), the float32 route both up to 128
+    wide = 256 if q_hat.dtype == torch.bfloat16 else 128
+    if (khat.shape[-1] != d or h % kvh or nb_sel * block_dims > wide
+            or dv > wide or nqc * q_blk < t or v.shape[2] != s
             or q_blk % 8):
         raise ValueError(f"aqua_prefill kernel: unsupported shapes q "
                          f"{q_hat.shape} k {khat.shape} v {v.shape} "
-                         f"block_idx {block_idx.shape}")
+                         f"block_idx {block_idx.shape} ({q_hat.dtype} takes "
+                         f"a selection and Dv up to {wide})")
     dev = q_hat.device
     for x in (q_hat, khat, v):
         if x.device != dev or x.stride(-1) != 1:

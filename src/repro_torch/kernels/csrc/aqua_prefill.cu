@@ -66,6 +66,17 @@
 // 16-byte aligned bases and outer strides that are whole 16-byte units
 // under 2^40 bytes (the wrapper checks).
 //
+// Wide heads (a Dv or a union of selected dims above 128, up to 256:
+// RecurrentGemma-9B's head_dim 256 at k_ratio 0.75 keeps 192 dims a
+// q-tile, up to 256 across a block's tiles) take the bf16 route's second
+// engine, wide_tile.cuh: 256 threads per (b, h, 128 query rows), mma.sync
+// m16n8k16 from ldmatrix, two cp.async stages of 64-key tiles, the same
+// masks, selection staging, participating walk and online softmax (P split
+// hi + lo) as above, and a 16 x 256 float32 output a warp in registers.
+// The warp-specialized kernels above serve D <= 128 from unchanged
+// template arguments. What bounds the wide engine is the same work on
+// mma.sync at one block a SM (192 KB of shared memory).
+//
 // float32 route (what a served HF checkpoint runs: config_from_hf gives
 // float32 params and activations), on the tensor cores with the
 // three-pass TF32 split of f32_tile.cuh, which holds the plain float32
@@ -81,7 +92,8 @@
 // <= 128), Dv <= 128 and q_blk >= 8. A chunk whose q_offset is a multiple
 // of 64 (and of q_blk) has the same 64-row blocks and unions as the
 // monolithic call: its rows are bitwise the monolithic rows, as on the
-// bf16 route.
+// bf16 route. Dv above 128 is refused (cudaErrorInvalidValue; the wrapper
+// raises first).
 //
 // kPart: kc_part (B, NQC, KT) lists each q-tile's participating k_blk-key
 // chunks, ascending (-1 = none), k_blk % 64 == 0. A block (of either
@@ -96,6 +108,7 @@
 
 #include "attn_tile.cuh"
 #include "f32_tile.cuh"
+#include "wide_tile.cuh"
 
 namespace {
 
@@ -375,11 +388,52 @@ int launch_shape(const Args& a) {
   return launch_bf16<kPart, 0, -1>(a);
 }
 
+// Wide heads (a union of selected dims or a Dv above 128, up to 256:
+// RecurrentGemma's head_dim 256) take the mma.sync engine of wide_tile.cuh.
+__global__ void __launch_bounds__(wide_tile::kThreads, 1)
+    aqua_prefill_wide(const __grid_constant__ wide_tile::Problem p) {
+  wide_tile::attend(p);
+}
+
+int launch_wide(const Args& a) {
+  wide_tile::Problem p{};
+  p.q = (const bf16*)a.q;
+  p.k = (const bf16*)a.k;
+  p.v = (const bf16*)a.v;
+  p.out = (bf16*)a.out;
+  p.block_idx = a.block_idx;
+  p.lengths = a.lengths;
+  p.kc_part = a.part.kc_part;
+  p.kt = a.part.kt;
+  p.k_blk = a.part.k_blk;
+  p.H = a.H;
+  p.KV = a.KV;
+  p.Tq = a.Tq;
+  p.S = a.S;
+  p.q_offset = a.q_offset;
+  p.D = a.D;
+  p.Dv = a.Dv;
+  p.nb_sel = a.nb_sel;
+  p.bd = a.bd;
+  p.q_blk = a.q_blk;
+  p.nqc = a.nqc;
+  p.qs = a.qs;
+  p.ks = a.ks;
+  p.vs = a.vs;
+  p.os = a.os;
+  p.scale_log2 = a.scale * attn_tile::kLog2e;
+  p.causal = a.causal;
+  p.window = a.window;
+  static int done[16] = {0};
+  return wide_tile::launch(aqua_prefill_wide, p, a.B, a.st, done);
+}
+
 int dispatch_bf16(const Args& a) {
-  if (a.bd <= 0 || a.D % 8 != 0 || a.D > 256 || a.Dv % 8 != 0 ||
-      a.Dv > attn_tile::kMaxDv || a.q_blk % 8 != 0 ||
-      union_chunks(a) * 8 > attn_tile::kMaxDepth)
+  if (a.bd <= 0 || a.D % 8 != 0 || a.D > 256 || a.Dv % 8 != 0 || a.Dv > 256 ||
+      a.q_blk % 8 != 0)
     return (int)cudaErrorInvalidValue;
+  if (a.Dv > attn_tile::kMaxDv || union_chunks(a) * 8 > attn_tile::kMaxDepth)
+    return launch_wide(a);
   return a.part.kc_part != nullptr ? launch_shape<true>(a) : launch_shape<false>(a);
 }
 

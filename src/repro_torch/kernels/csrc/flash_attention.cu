@@ -41,7 +41,11 @@
 // (last rows) first.
 // D is padded with zeros to a multiple of 16 for Q·Kᵀ. bf16 needs D % 8 ==
 // 0, 16-byte aligned bases and outer strides that are whole 16-byte units
-// under 2^40 bytes (the wrapper checks).
+// under 2^40 bytes (the wrapper checks). D above 128, up to 256
+// (RecurrentGemma-9B's 256 with AQUA off), takes the mma.sync engine of
+// wide_tile.cuh (256 threads per 128 rows of one head, two cp.async
+// stages, a 16 x 256 float32 output a warp in registers); D <= 128 keeps
+// the kernels above, from unchanged template arguments.
 //
 // float32 route (what a served HF checkpoint runs with AQUA off or with
 // per-dim selection, the launcher's default block_dims 1: config_from_hf
@@ -58,6 +62,7 @@
 
 #include "attn_tile.cuh"
 #include "f32_tile.cuh"
+#include "wide_tile.cuh"
 
 namespace {
 
@@ -194,6 +199,39 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, const in
   return (int)cudaGetLastError();
 }
 
+// Head dims above 128, up to 256 (RecurrentGemma's 256), take the mma.sync
+// engine of wide_tile.cuh: every dim of D, no selection.
+__global__ void __launch_bounds__(wide_tile::kThreads, 1)
+    flash_wide(const __grid_constant__ wide_tile::Problem p) {
+  wide_tile::attend(p);
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* out, const int* lengths,
+                int B, int H, int KV, int S, int D, Strides qs, Strides ks, Strides vs,
+                Strides os, float scale, int causal, int window, cudaStream_t st) {
+  if (D % 8 != 0 || D > 256) return (int)cudaErrorInvalidValue;
+  wide_tile::Problem p{};
+  p.q = (const bf16*)q;
+  p.k = (const bf16*)k;
+  p.v = (const bf16*)v;
+  p.out = (bf16*)out;
+  p.lengths = lengths;
+  p.H = H;
+  p.KV = KV;
+  p.Tq = p.S = S;
+  p.D = p.Dv = D;
+  p.nqc = 1;
+  p.qs = qs;
+  p.ks = ks;
+  p.vs = vs;
+  p.os = os;
+  p.scale_log2 = scale * attn_tile::kLog2e;
+  p.causal = causal;
+  p.window = window;
+  static int done[16] = {0};
+  return wide_tile::launch(flash_wide, p, B, st, done);
+}
+
 // ---------------------------------------------------------------------------
 // float32: tensor cores, three TF32 passes (f32_tile.cuh)
 // ---------------------------------------------------------------------------
@@ -271,6 +309,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (dtype == 0)
     return dispatch_f32(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window,
                         vec, st);
+  if (D > attn_tile::kMaxDepth)
+    return launch_wide(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window,
+                       st);
   // head_dim 128 (every served model but Danube) takes a kernel with its
   // depth and width fixed at compile time
   if (D == 128 && ln)

@@ -15,10 +15,12 @@ dtypes run on the tensor cores: bf16 on ``wgmma`` (``csrc/attn_tile.cuh``),
 float32 on ``mma.sync`` with every product split into three TF32 passes,
 which hold the float32 limits (``csrc/f32_tile.cuh``); see the headers
 for the tiling. The bf16 kernel copies K and V by TMA tensor maps and Q
-in 16-byte pieces: it needs D % 8 == 0, 16-byte aligned bases and outer
-strides, under 2**40 bytes (``ValueError`` otherwise). The float32
+in 16-byte pieces: it needs D % 8 == 0 and D <= 256, 16-byte aligned
+bases and outer strides, under 2**40 bytes (``ValueError`` otherwise); D
+above 128 (RecurrentGemma's 256) takes the ``mma.sync`` engine of
+``csrc/wide_tile.cuh`` instead of the warp-specialized one. The float32
 kernel copies 16-byte pieces where D % 4 == 0 and the views allow, else
-4-byte ones.
+4-byte ones, and takes D <= 128.
 
 Dispatch is by device: CPU tensors run :func:`flash_attention_plain`, CUDA
 tensors launch the kernel or raise. Launches count in
@@ -60,8 +62,9 @@ def _launch(q, k, v, causal, window, lengths):
         raise TypeError("flash_attention kernel takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
+    # bf16 takes D up to 256 (the wide engine past 128), float32 up to 128
     if (k.shape != (b, kvh, s, d) or v.shape != k.shape or h % kvh
-            or d > 128):
+            or d > (256 if q.dtype == torch.bfloat16 else 128)):
         raise ValueError(f"flash_attention kernel: unsupported shapes q "
                          f"{q.shape} k {k.shape} v {v.shape}")
     dev = q.device

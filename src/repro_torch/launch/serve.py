@@ -12,7 +12,10 @@ gives every request, the ``--rectangular`` batch and each calibration
 batch the stub frontend inputs (``data.corpus.add_frontend_inputs``), as
 JAX's launcher does; a VLM's calibration windows (32 tokens) must hold its
 patches, so the full ``pixtral-12b`` raises ``ValueError`` there, as in
-JAX (before its weights are made). ``--verify`` re-serves the trace on a
+JAX (before its weights are made). ``mamba2-370m`` (no attention) serves
+without AQUA, and ``recurrentgemma-9b`` with identity projections over its
+attention layers and no calibration, as JAX's launcher does; both admit at
+the prompt's exact length on the contiguous cache. ``--verify`` re-serves the trace on a
 reference engine and requires
 token-identical outputs, plus the JAX launcher's pool-bytes, int8-pool,
 page-ranking, prefix-sharing and chunked-gap checks; a failed check
@@ -53,8 +56,9 @@ from repro_torch.configs import ALL_ARCHS, get_config, reduced
 from repro_torch.configs.base import (AquaConfig, CacheSpec, ModelConfig,
                                       QuantSpec, ServingConfig, SparsitySpec)
 from repro_torch.core.calibration import (AquaProjections, calibrate,
-                                          capture_forward, load_projections,
-                                          save_projections)
+                                          capture_forward,
+                                          identity_projections,
+                                          load_projections, save_projections)
 from repro_torch.data.corpus import (add_frontend_inputs, calibration_batches,
                                      lcg_batch, request_frontend_inputs)
 from repro_torch.models import build_model
@@ -271,10 +275,19 @@ def main(argv=None) -> ServeRun:
         print(f"[serve] offline AQUA calibration for {cfg.name} "
               f"(corpus: {src}) ...")
 
-        proj = calibrate(capture_forward(model), params, calibration_batches(
-            cfg.vocab_size, args.calibration_corpus,
-            num_batches=CALIBRATION_BATCHES, batch=2, seq=CALIBRATION_SEQ,
-            model_cfg=cfg), cfg, device=dev)
+        if cfg.family == "hybrid":
+            # as JAX's launcher: identity projections over the attention
+            # layers, no calibration forwards
+            proj = identity_projections(model.num_attn_layers,
+                                        cfg.attention.num_kv_heads,
+                                        cfg.attention.head_dim, device=dev)
+        else:
+            proj = calibrate(capture_forward(model), params,
+                             calibration_batches(
+                                 cfg.vocab_size, args.calibration_corpus,
+                                 num_batches=CALIBRATION_BATCHES, batch=2,
+                                 seq=CALIBRATION_SEQ, model_cfg=cfg),
+                             cfg, device=dev)
         if args.projections is not None:
             save_projections(args.projections, proj)
             print(f"[serve] saved AQUA projections to {args.projections}")

@@ -1,5 +1,5 @@
-"""Model factory (the port serves the dense, MoE, VLM and encoder-decoder
-families)."""
+"""Model factory (the port serves every family of the JAX package: dense,
+MoE, VLM, encoder-decoder, SSM and hybrid)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -15,4 +15,10 @@ def build_model(cfg: ModelConfig, device=None) -> LM:
     if cfg.family == "encdec":
         from repro_torch.models.transformer import EncDecLM
         return EncDecLM(cfg, device)
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family == "ssm":
+        from repro_torch.models.mamba2 import Mamba2LM
+        return Mamba2LM(cfg, device)
+    if cfg.family == "hybrid":
+        from repro_torch.models.rglru import HybridLM
+        return HybridLM(cfg, device)
+    raise ValueError(f"unknown family {cfg.family!r}")

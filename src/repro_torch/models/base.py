@@ -15,9 +15,10 @@ from repro_torch.runtime import resolve_device, torch_dtype
 @dataclass
 class DecodeState:
     """Serving state: the per-layer caches stacked on a leading layer axis
-    (an ``AttnCache`` or ``PagedAttnCache`` whose tensors are (L, ...))
-    plus model-level extras (whisper's cross K/V), tensors or tuples of
-    them with lanes at axis 1 too."""
+    (an ``AttnCache`` or ``PagedAttnCache`` whose tensors are (L, ...), a
+    Mamba-2's ``SSMCache``, or a hybrid's ``HybridCache`` of both its
+    stacks) plus model-level extras (whisper's cross K/V), tensors or
+    tuples of them with lanes at axis 1 too."""
 
     layers: Any
     extra: Dict[str, Any] = field(default_factory=dict)
@@ -43,6 +44,20 @@ class PagingSpec:
     hot_pages: int = 0
 
 
+def cache_tensors(cache) -> list:
+    """The tensors of a cache dataclass, nested dataclasses (a hybrid's
+    attention and recurrent stacks) flattened in field order; None fields
+    left out."""
+    out = []
+    for f in dataclasses.fields(cache):
+        t = getattr(cache, f.name)
+        if dataclasses.is_dataclass(t):
+            out.extend(cache_tensors(t))
+        elif t is not None:
+            out.append(t)
+    return out
+
+
 def extra_tensors(extra) -> list:
     """The tensors of a ``DecodeState.extra`` (nested dicts, tuples and
     lists of tensors), in a fixed order."""
@@ -57,9 +72,10 @@ class LM:
     carries the static config and the device; params are passed in.
 
     Lane surgery (continuous batching): a *lane* is one batch row of a
-    DecodeState. Every cache tensor, and every tensor of its extras,
-    carries layers at axis 0 and lanes at axis 1, so lane surgery is
-    uniform indexing. The state is updated in place."""
+    DecodeState. Every cache tensor (nested stacks too, :func:`cache_tensors`),
+    and every tensor of its extras, carries layers at axis 0 and lanes at
+    axis 1, so lane surgery is uniform indexing. The state is updated in
+    place."""
 
     supports_paging = False
 
@@ -127,15 +143,37 @@ class LM:
         the state's device, never read on the host (an admission graph
         captures this)."""
         index = lane_index(lane, state.layers.count.device)
-        for f in dataclasses.fields(state.layers):
-            dst = getattr(state.layers, f.name)
-            if dst is not None:
-                dst.index_copy_(1, index,
-                                getattr(req_state.layers, f.name)[:, :1])
+        for dst, src in zip(cache_tensors(state.layers),
+                            cache_tensors(req_state.layers)):
+            dst.index_copy_(1, index, src[:, :1])
         for dst, src in zip(extra_tensors(state.extra),
                             extra_tensors(req_state.extra)):
             dst.index_copy_(1, index, src[:, :1])
         return state
+
+    @staticmethod
+    def freeze_rows(new_state: DecodeState, old_state: DecodeState,
+                    write_mask: Optional[torch.Tensor],
+                    batch_axis: int = 1) -> DecodeState:
+        """Write ``new_state`` into ``old_state`` in place, keeping
+        ``old_state``'s rows where ``write_mask`` (B,) is False (bit for
+        bit); every row when it is None. The state-level masked write of
+        families whose decode step rewrites the whole (small) recurrent
+        state anyway (attention caches mask per slot in
+        ``kvcache.insert``). Lanes at ``batch_axis`` of every tensor.
+        Returns ``old_state``."""
+        pairs = list(zip(cache_tensors(new_state.layers),
+                         cache_tensors(old_state.layers)))
+        pairs += list(zip(extra_tensors(new_state.extra),
+                          extra_tensors(old_state.extra)))
+        for new, old in pairs:
+            if write_mask is None:
+                old.copy_(new)
+                continue
+            shape = [1] * new.ndim
+            shape[batch_axis] = write_mask.shape[0]
+            old.copy_(torch.where(write_mask.reshape(shape), new, old))
+        return old_state
 
     def reset_lane(self, state: DecodeState, lane,
                    max_seq: int) -> DecodeState:

@@ -73,6 +73,15 @@ a fresh admission replays its bucket's graph. Both then index the
 prompt's full pages (a chunked admission after its final chunk). Decode
 writes only private pages: a shared page is always a full prompt page.
 
+Recurrent families (``ssm``: Mamba-2, no attention, served without
+AQUA; ``hybrid``: RecurrentGemma, RG-LRU blocks beside local attention
+with AQUA): admissions run at the prompt's exact length and eagerly (no
+bucket: JAX's ``_supports_ragged`` holds for dense, vlm and moe only),
+never chunk (the plan's ``REASON_FAMILY_SURGERY``) and never share a
+prefix; the decode state is contiguous only (a paged cache raises
+``ValueError``, as in JAX) and, on the card, the step graph captures their
+decode step as any other's.
+
 Modality frontends (``Request.extra_inputs``, merged into the request's
 prefill batch, as in JAX): a VLM (``vlm``) splices a request's projected
 patch embeddings over its first prompt positions, bucket-padded like any
@@ -179,7 +188,7 @@ class ServeEngine:
                  projections: Optional[AquaProjections] = None,
                  max_seq: int = 4096, rng_seed: int = 0,
                  backend: Optional[str] = None, device=None):
-        if backend is not None:
+        if backend is not None and cfg.attention is not None:
             resolve_backend(backend, aqua=cfg.aqua)
             cfg = dataclasses.replace(
                 cfg, attention=dataclasses.replace(cfg.attention,
@@ -291,7 +300,7 @@ class ContinuousBatchingEngine:
                  serving: ServingConfig = ServingConfig(),
                  rng_seed: int = 0, backend: Optional[str] = None,
                  device=None):
-        if backend is not None:
+        if backend is not None and cfg.attention is not None:
             resolve_backend(backend, aqua=cfg.aqua)
             cfg = dataclasses.replace(
                 cfg, attention=dataclasses.replace(cfg.attention,
@@ -301,7 +310,9 @@ class ContinuousBatchingEngine:
             raise NotImplementedError("mesh serving is not ported yet")
         cache, quant = resolve_cache_specs(serving)
         self.sparsity_spec = resolve_sparsity_spec(serving)
-        self.eviction = resolve_eviction(cache, cfg.attention, cfg.aqua)
+        # an attention-free model (ssm) holds no slots to evict
+        self.eviction = ("none" if cfg.attention is None
+                         else resolve_eviction(cache, cfg.attention, cfg.aqua))
         self.cfg = cfg
         self.scfg = serving
         self.cache_spec = cache
@@ -309,7 +320,8 @@ class ContinuousBatchingEngine:
         # rings and H2O eviction place slots assuming a rectangular batch);
         # the dense, vlm and moe families take it, as in JAX (an MoE's pad
         # rows are routed with its real ones, as JAX routes them); the
-        # encoder-decoder prefills at the exact prompt length
+        # encoder-decoder, the ssm and the hybrid prefill at the exact
+        # prompt length (a recurrent state would scan the pad rows)
         self._supports_ragged = (self.eviction == "none"
                                  and cfg.family in ("dense", "vlm", "moe"))
         # prefix sharing: shared pages are read-only, so the full-cache

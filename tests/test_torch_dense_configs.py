@@ -51,7 +51,7 @@ PROMPTS = (5, 12, 20, 30, 9)
 def test_config_fields_equal_jax(name):
     got, want = get_config(name), jax_get_config(name)
     for f in dataclasses.fields(got):
-        if (f.name in ("attention", "moe", "frontend")
+        if (f.name in ("attention", "moe", "frontend", "ssm", "rglru")
                 and getattr(got, f.name) is not None):
             sub, jsub = getattr(got, f.name), getattr(want, f.name)
             for g in dataclasses.fields(sub):

@@ -50,6 +50,10 @@ def _randn(rng, *shape):
     (1, 4, 4, 32, 32, False, None),    # MHA, non-causal
     (2, 8, 2, 48, 16, True, 10),       # GQA group 4, causal window
     (1, 2, 1, 32, 16, False, 7),       # MQA, window without causal
+    # RecurrentGemma's head dim 256 (the CUDA kernel's wide engine) and
+    # one KV head, with and without its window
+    (2, 4, 1, 32, 256, True, 12),
+    (1, 4, 1, 32, 256, True, None),
 ])
 def test_flash_plain_matches_jax(b, h, kv, s, d, causal, window):
     rng = np.random.default_rng(s + d + h)

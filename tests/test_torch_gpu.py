@@ -469,6 +469,88 @@ def test_prefill_dv80_window_matches_plain(cuda, part, window, d):
     assert _within_tol(out, ref, bf, valid)
 
 
+# the wide engine (csrc/wide_tile.cuh): RecurrentGemma's geometry (16
+# heads over one KV head, D = Dv = 256) cut to 4 heads, under its window,
+# bucket-padded lengths, a q_offset and participating key chunks
+WIDE_CASES = [dict(window=None), dict(window=64), dict(window=200, pad=37),
+              dict(window=None, pad=21), dict(window=96, off=128),
+              dict(window=None, off=256, part=True),
+              dict(window=300, part=True)]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES)
+def test_wide_prefill_matches_plain(cuda, case):
+    """bf16 prefill at D = Dv = 256 (a selected union of 192 dims per
+    128-row q-tile, up to 256 across the q-tiles of 16 rows) against the
+    plain version: the window form, lengths, a q_offset, participating
+    key chunks."""
+    gen = torch.Generator(device="cuda").manual_seed(len(str(case)))
+    b, h, kv, s, d, bf = 2, 4, 1, 600, 256, torch.bfloat16
+    off, pad, blk = case.get("off", 0), case.get("pad", 0), 64
+    t = s - off
+    q = _rand(gen, b, h, t, d, dtype=bf)
+    k = _rand(gen, b, kv, s, d, dtype=bf)
+    v = _rand(gen, b, kv, s, d, dtype=bf)
+    lengths = torch.tensor([s, s - pad - 50], dtype=torch.int32,
+                           device=cuda)
+    for q_blk in (128, 16):
+        block_idx, _, chunk = ops.prefill_blocks(q, lengths - off, 0.75, 8,
+                                                 q_blk)
+        table = None
+        if case.get("part"):
+            table = selection.chunk_participating_tiles(
+                torch.rand(b, -(-s // blk), generator=gen, device=cuda),
+                nqc=block_idx.shape[2], q_blk=chunk, k_blk=blk,
+                kept_tiles=4, pin_tiles=1, q_offset=off)
+        kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5,
+                  q_offset=off, kc_part=table, k_blk=blk,
+                  window=case["window"])
+        before = LAUNCHES.copy()
+        out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+        ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
+        torch.cuda.synchronize()
+        assert sum((LAUNCHES - before).values()) == 1
+        assert out.shape == (b, h, t, d)
+        assert _within_tol(out, ref, bf), (case, q_blk)
+
+
+@pytest.mark.parametrize("window,pad", [(None, 0), (64, 0), (200, 0),
+                                        (None, 33), (100, 21)])
+def test_wide_flash_matches_plain(cuda, window, pad):
+    """bf16 flash at D 256 (RecurrentGemma with AQUA off, its 16 heads cut
+    to 4 over one KV head) against the plain version: the window form and
+    a padded admission's lengths."""
+    gen = torch.Generator(device="cuda").manual_seed(window or 1)
+    b, h, kv, s, d, bf = 2, 4, 1, 500, 256, torch.bfloat16
+    q = _rand(gen, b, h, s, d, dtype=bf)
+    k = _rand(gen, b, kv, s, d, dtype=bf)
+    v = _rand(gen, b, kv, s, d, dtype=bf)
+    lengths = (torch.tensor([s - pad, s - pad - 40], dtype=torch.int32,
+                            device=cuda) if pad else None)
+    out = fk.flash_attention(q, k, v, causal=True, window=window,
+                             lengths=lengths)
+    ref = fk.flash_attention_plain(q, k, v, causal=True, window=window,
+                                   lengths=lengths)
+    torch.cuda.synchronize()
+    assert _within_tol(out, ref, bf)
+
+
+def test_float32_routes_refuse_dv_above_128(cuda):
+    """The float32 prefill and flash take a value width up to 128: wider
+    raises ``ValueError`` (a known gap against JAX, ROADMAP queue 3),
+    never a silent path."""
+    b, h, kv, s, d = 1, 4, 1, 64, 256
+    q = torch.zeros(b, h, s, d, device=cuda)
+    k = torch.zeros(b, kv, s, d, device=cuda)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=cuda)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths, 0.5, 8, 64)
+    with pytest.raises(ValueError):
+        pk.aqua_prefill_attention(q, k, k, block_idx, lengths, block_dims=8,
+                                  q_blk=chunk)
+    with pytest.raises(ValueError):
+        fk.flash_attention(q, k, k)
+
+
 def test_flash_and_prefill_bitwise_repeatable(cuda):
     """bf16: two calls on the same inputs give the same bits, whatever the
     timing of the ring and of the consumers' turns: flash (causal and
@@ -1061,7 +1143,8 @@ STEP_BODY = {"paged": "aqua_paged_decode", "contiguous": "aqua_decode",
              "int8_h2o_paged": None, "hot_int8_paged": None,
              "olmoe-1b-7b": "aqua_paged_decode",
              "qwen2-moe-a2.7b": "aqua_paged_decode",
-             "pixtral-12b": "aqua_paged_decode", "whisper-tiny": "aqua_decode"}
+             "pixtral-12b": "aqua_paged_decode", "whisper-tiny": "aqua_decode",
+             "mamba2-370m": None, "recurrentgemma-9b": None}
 
 
 @pytest.mark.parametrize("name", list(STEP_BODY))
@@ -1073,16 +1156,16 @@ def test_step_graph_replays_eager_decode_bitwise(cuda, name):
     bit for bit; each replay adds the capture's launches, one decode
     launch per layer."""
     import numpy as np
-    from test_torch_step_graph import (assert_bitwise, bits, drive_engine,
-                                       serve_until, state_tensors)
+    from test_torch_step_graph import (assert_bitwise, bits, clone_state,
+                                       drive_engine, serve_until,
+                                       state_tensors)
     eng, reqs = drive_engine(name, device="cuda", dtype="bfloat16")
     serve_until(eng, reqs(at_once=True), steps=2)
     graph, body = eng.step_graph, STEP_BODY[name]
     assert graph.launches == ({} if body is None
                               else {body: eng.cfg.num_layers})
     state = eng.last_state
-    twin = dataclasses.replace(state, layers=type(state.layers)(**{
-        k: t.clone() for k, t in state_tensors(state).items()}))
+    twin = clone_state(state)
     rng = np.random.default_rng(0)
     lanes = eng.scfg.max_lanes
     for _ in range(6):

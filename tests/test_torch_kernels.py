@@ -106,6 +106,26 @@ def test_aqua_prefill_matches_jax(b, h, kv, s, d, q_blk, k_ratio):
     np.testing.assert_allclose(got * valid, want * valid, **TOL)
 
 
+@pytest.mark.parametrize("window", [None, 24])
+def test_aqua_prefill_at_head_dim_256_matches_jax(window):
+    """RecurrentGemma's head dim (256: the CUDA kernel's wide engine) and
+    its one KV head (4 query heads here), the window form and the full
+    causal form, against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(256 + (window or 0))
+    b, h, kv, s, d = 2, 4, 1, 40, 256
+    q, k, v = _randn(rng, b, h, s, d), _randn(rng, b, kv, s, d), \
+        _randn(rng, b, kv, s, d)
+    lengths = np.array([s, s - 9], np.int32)
+    want = np.asarray(jax_ops.aqua_prefill(
+        q, k, v, lengths, k_ratio=0.75, block_dims=8, q_blk=16, k_blk=16,
+        window=window, scale=d ** -0.5))
+    got = ops.aqua_prefill(*map(torch.from_numpy, (q, k, v, lengths)),
+                           k_ratio=0.75, block_dims=8, q_blk=16,
+                           window=window, scale=d ** -0.5).numpy()
+    valid = (np.arange(s)[None, :] < lengths[:, None])[:, None, :, None]
+    np.testing.assert_allclose(got * valid, want * valid, **TOL)
+
+
 def test_prefill_reads_strided_views():
     """The model passes permuted views; results equal contiguous inputs."""
     rng = np.random.default_rng(2)
@@ -202,7 +222,11 @@ def test_port_sources_never_import_jax_or_repro():
             "src/repro_torch/checkpoint/fixtures.py",
             "src/repro_torch/launch/serve.py",
             "src/repro_torch/configs/pixtral_12b.py",
-            "src/repro_torch/configs/whisper_tiny.py"} <= names
+            "src/repro_torch/configs/whisper_tiny.py",
+            "src/repro_torch/configs/mamba2_370m.py",
+            "src/repro_torch/configs/recurrentgemma_9b.py",
+            "src/repro_torch/models/mamba2.py",
+            "src/repro_torch/models/rglru.py"} <= names
     assert len(files) > 40
     for f in files:
         hits = pat.findall(f.read_text())

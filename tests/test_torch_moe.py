@@ -102,10 +102,10 @@ def test_published_geometries_and_refusals():
     assert (r.num_experts, r.top_k, r.expert_ff, r.num_shared,
             r.capacity_factor) == (8, 2, 64, 0, 8.0)
     assert reduced("qwen2-moe-a2.7b").moe.num_shared == 1
-    for family in ("ssm", "hybrid"):
-        cfg = dataclasses.replace(o, family=family)
-        with pytest.raises(NotImplementedError):
-            build_model(cfg, "cpu")
+    # the recurrent families, refused until the port served them
+    for name, cls in (("mamba2-370m", "Mamba2LM"),
+                      ("recurrentgemma-9b", "HybridLM")):
+        assert type(build_model(get_config(name), "cpu")).__name__ == cls
     # the frontend families, refused until the port served them
     for name, cls in (("pixtral-12b", "DenseLM"), ("whisper-tiny",
                                                    "EncDecLM")):

@@ -18,7 +18,9 @@ the JAX engine's tokens. Plus ``--rectangular`` against JAX's
 ``ServeEngine``, the refusals of what the engine does not serve (meshes),
 int8 pools under a window ring, under H2O and with hot residents (refused
 until the engine served them) against the JAX engine's tokens, the
-refusal without a card, and ``ScheduleStats``' gap statistics against
+recurrent archs (``mamba2-370m``, ``recurrentgemma-9b``) with ``--verify``
+against the JAX engine's tokens, the refusal without a card and of an arch
+outside both registries, and ``ScheduleStats``' gap statistics against
 JAX's.
 """
 import dataclasses
@@ -413,12 +415,73 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu():
 
 
 def test_cli_rejects_an_arch_outside_the_registry(capsys):
+    """A name in neither package's registry is refused by argparse, which
+    lists the port's archs (every family of JAX's registry since the
+    recurrent ones were ported)."""
+    from repro.configs import ALL_ARCHS as JAX_ARCHS
+    from repro_torch.configs import ALL_ARCHS
+    outsider = "mamba-7b"
+    assert outsider not in ALL_ARCHS and outsider not in JAX_ARCHS
+    assert sorted(ALL_ARCHS) == sorted(JAX_ARCHS)
     with pytest.raises(SystemExit) as ei:
-        main(["--device", "cpu", "--arch", "mamba2-370m"])
+        main(["--device", "cpu", "--arch", outsider])
     assert ei.value.code == 2
     err = capsys.readouterr().err
-    for name in ("qwen3-0.6b", "llama3.1-8b", "h2o-danube-1.8b"):
+    for name in ("qwen3-0.6b", "llama3.1-8b", "h2o-danube-1.8b",
+                 "mamba2-370m", "recurrentgemma-9b"):
         assert name in err
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_cli_serves_the_recurrent_archs_like_jax(arch, capsys):
+    """``--arch mamba2-370m`` (no AQUA: nothing to calibrate) and
+    ``--arch recurrentgemma-9b`` (identity projections over its attention
+    layers, none at the reduced depth of 2, no calibration), reduced, on
+    the CPU with ``--verify``; the JAX engine on the same params and
+    projections gives the same greedy tokens over prompts past the
+    hybrid's reduced window of 16."""
+    t = dict(TRACE, requests=4, lanes=3)
+    argv = ["--device", "cpu", "--arch", arch, "--reduced",
+            "--requests", str(t["requests"]), "--lanes", str(t["lanes"]),
+            "--prompt-lens", ",".join(map(str, t["prompt_lens"])),
+            "--steps", str(t["steps"]), "--max-seq", str(t["max_seq"])]
+    run = main(argv + ["--verify"])
+    printed = capsys.readouterr().out
+    assert f"[serve] verify: all {t['requests']} requests token-identical " \
+           "to the single-device contiguous reference engine" in printed
+    # JAX's launcher announces the calibration for the hybrid, then takes
+    # identity projections; it has nothing to calibrate for Mamba-2
+    assert ("AQUA calibration" in printed) == (arch != "mamba2-370m")
+    eng = run.engine
+    assert not eng.paged and not eng._supports_ragged
+    jcfg = jax_reduced(arch)
+    if arch == "mamba2-370m":
+        assert run.projections is None and eng.cfg.aqua is None
+        jproj = None
+    else:
+        p = run.projections.p
+        assert p.shape[0] == eng.model.num_attn_layers == 0
+        jcfg = dataclasses.replace(jcfg, aqua=JaxAquaConfig(
+            k_ratio=0.75, block_dims=1))
+        jproj = JaxProjections(p=jnp.asarray(p.numpy()))
+
+    def leaves(v):
+        if isinstance(v, dict):
+            return {k: leaves(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [leaves(x) for x in v]
+        return jnp.asarray(v.numpy())
+    jparams = {k: leaves(v) for k, v in eng.params.items()
+               if k != "unembed_f32"}
+    jeng = JaxEngine(jcfg, jparams, jproj, serving=JaxServingConfig(
+        max_lanes=t["lanes"], max_seq=t["max_seq"],
+        max_new_tokens=t["steps"]))
+    reqs = jax_poisson_trace(
+        t["requests"], mean_interarrival=t["mean_interarrival"],
+        prompt_lens=t["prompt_lens"], max_new_tokens=t["steps"],
+        vocab_size=jcfg.vocab_size, seed=0)
+    want = jeng.run(reqs)
+    assert {u: list(o.tokens) for u, o in want.items()} == run.streamed
 
 
 @pytest.mark.parametrize("gaps", [[], [0.01], [0.003, 0.02, 0.011, 0.2],

@@ -26,7 +26,10 @@ experts (top-k, one-hot capacity slots by cumulative sum, static
 capacities) to the step. ``pixtral-12b`` (paged) and ``whisper-tiny``
 (contiguous: the decoder's learned positions and cross-attention over the
 lanes' cross K/V in ``DecodeState.extra``) add the frontend families:
-every request carries its stub frontend inputs.
+every request carries its stub frontend inputs. ``mamba2-370m`` (no
+attention: the SSD state and conv windows, frozen per lane by
+``LM.freeze_rows``) and ``recurrentgemma-9b`` (4 layers: RG-LRU states
+beside a window ring) add the recurrent families, contiguous.
 """
 import dataclasses
 
@@ -97,9 +100,18 @@ DRIVES = {
     # the encoder-decoder's frames (contiguous, exact-length admissions)
     "pixtral-12b": ("pixtral-12b", {}, dict(cache=PAGED), SHORT),
     "whisper-tiny": ("whisper-tiny", {}, {}, SHORT),
+    # the recurrent families (contiguous, exact-length admissions): Mamba-2
+    # without AQUA (its SSD state and conv windows), and the hybrid at 4
+    # layers (recurrent, recurrent, attention, recurrent: its RG-LRU
+    # states beside a window ring of 16, past which EVICTING's prompts run)
+    "mamba2-370m": ("mamba2-370m", None, {}, SHORT),
+    "recurrentgemma-9b": ("recurrentgemma-9b", {}, {}, EVICTING),
 }
 #: a common prompt prefix by drive (tokens)
 SHARED_PREFIX = {"prefix_paged": 16}
+#: depth by drive where the reduced default (2 layers) would leave out a
+#: layer kind
+LAYERS = {"recurrentgemma-9b": 4}
 
 
 def drive_engine(name, device="cpu", dtype=None, backend=None):
@@ -109,19 +121,21 @@ def drive_engine(name, device="cpu", dtype=None, backend=None):
     with ``at_once`` the first ``max_lanes`` of them at step 0; each with
     its stub frontend inputs where the config has a frontend."""
     arch, aqua_kw, serve_kw, prompts = DRIVES[name]
-    cfg = reduced(arch, d_model=128)
+    cfg = reduced(arch, d_model=128, layers=LAYERS.get(name, 2))
     cfg = dataclasses.replace(
         cfg, aqua=None if aqua_kw is None else AquaConfig(**{**AQUA,
                                                              **aqua_kw}))
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
-    params = build_model(cfg, device).init(
-        torch.Generator(device=device).manual_seed(0))
+    model = build_model(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
     proj = None
     if aqua_kw is not None:
         att = cfg.attention
+        # one projection per attention layer (a hybrid's are fewer)
+        n = getattr(model, "num_attn_layers", cfg.num_layers)
         p = np.linalg.qr(np.random.default_rng(1).standard_normal(
-            (cfg.num_layers, att.num_kv_heads, att.head_dim, att.head_dim))
+            (n, att.num_kv_heads, att.head_dim, att.head_dim))
         )[0].astype(np.float32)
         proj = AquaProjections(p=torch.from_numpy(p).to(device))
     eng = ContinuousBatchingEngine(
@@ -152,10 +166,30 @@ def serve_until(eng, reqs, steps: int) -> None:
 
 
 def state_tensors(state) -> dict:
-    """The decode state's tensors by field name."""
-    return {f.name: getattr(state.layers, f.name)
-            for f in dataclasses.fields(state.layers)
-            if getattr(state.layers, f.name) is not None}
+    """The decode state's tensors by field name (a hybrid's nested stacks
+    as "attn.k", "rec.state", ...)."""
+    def walk(cache, prefix):
+        out = {}
+        for f in dataclasses.fields(cache):
+            t = getattr(cache, f.name)
+            if dataclasses.is_dataclass(t):
+                out.update(walk(t, f"{prefix}{f.name}."))
+            elif t is not None:
+                out[prefix + f.name] = t
+        return out
+    return walk(state.layers, "")
+
+
+def clone_state(state):
+    """A twin of a decode state: every cache tensor cloned (nested stacks
+    too), the extras shared."""
+    def clone(cache):
+        return type(cache)(**{
+            f.name: (clone(t) if dataclasses.is_dataclass(t)
+                     else None if t is None else t.clone())
+            for f in dataclasses.fields(cache)
+            for t in (getattr(cache, f.name),)})
+    return dataclasses.replace(state, layers=clone(state.layers))
 
 
 _BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
@@ -186,6 +220,8 @@ def test_decode_step_reads_no_value_on_the_host(name):
     def to_meta(tree):
         if isinstance(tree, dict):
             return {k: to_meta(v) for k, v in tree.items()}
+        if isinstance(tree, list):            # a hybrid's per-layer params
+            return [to_meta(v) for v in tree]
         return tree.to(meta)
     state = eng.model.init_decode_state(lanes, eng.scfg.max_seq,
                                         device=meta)
@@ -236,8 +272,8 @@ def test_serve_writes_the_state_in_place(name):
     if name == "chunked_paged":
         assert st.chunked_admissions > 0
     if name in ("swa_paged", "h2o_paged", "int8_swa_paged",
-                "int8_h2o_paged"):
-        assert eng.eviction == ("ring" if "swa" in name else "h2o")
+                "int8_h2o_paged", "recurrentgemma-9b"):
+        assert eng.eviction == ("h2o" if "h2o" in name else "ring")
     if name in SHARED_PREFIX:
         assert eng.page_pool.prefix_hits == 4
     assert eng.last_state is state
