@@ -18,8 +18,12 @@ Phases, each of which raises (non-zero exit) on failure:
    int8 participating-page instantiations, and the warp-specialized
    design's register
    reallocation (USETMAXREG) and TMA tensor copies (UTMALDG) in the bf16
-   prefill and flash kernels; float32 FMAs (FFMA) in every instantiation
-   of the decode's float32 group route and no spills in its ptxas lines.
+   prefill and flash kernels, their wide kernels (head dims past 128,
+   ``aqua_prefill_bf16_wide`` / ``flash_bf16_wide``) on HGMMA too; no
+   spills and no serialized wgmma (ptxas C7511) in those wide kernels or
+   in any float32 prefill and flash instantiation; float32 FMAs (FFMA) in
+   every instantiation of the decode's float32 group route and no spills
+   in its ptxas lines.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the serving shapes (bf16, D=128) of Qwen3-0.6B (H=16, KV=8) and of
    Llama-3.1-8B (H=32, KV=8): decode B=8, S=4096 (contiguous, and paged
@@ -61,13 +65,16 @@ Phases, each of which raises (non-zero exit) on failure:
    contiguous decode at B=8 over 448 positions, lengths 37-261 (the
    drive's contexts), and the prefill at S=229 (its longest prompt, off
    the 128-row tile) and S=448. At RecurrentGemma-9B's attention geometry
-   (H=16, KV=1, D=Dv=256: the wide engine, ``csrc/wide_tile.cuh``) the
-   prefill's window form (S=4096, window 2048; the no-window form timed
-   on the same inputs) and flash's (the same, AQUA off), each also with
-   the head fault (at one KV head no block can read past its group: each
-   head's output written one head on). Flash at Qwen3's geometry also
-   in a padded admission's form (``"form": "lengths"``: keys past the
-   length masked, every row held; a planted fault drops the lengths).
+   (H=16, KV=1, D=Dv=256: the engine's wide kernels, 128-column value
+   slices) the prefill's window form (S=4096, window 2048; the no-window
+   form timed on the same inputs, and beside it one causal SDPA call
+   without a mask, PyTorch's flash backend) and flash's (the same, AQUA
+   off), each also with the head fault (at one KV head no block can read
+   past its group: each head's output written one head on), in bf16 and
+   in float32 (the float32 routes' value slices; SDPA in float32). Flash
+   at Qwen3's geometry also in a padded admission's form (``"form":
+   "lengths"``: keys past the length masked, every row held; a planted
+   fault drops the lengths).
    One JSON line per kernel and geometry:
    max abs error and the worst ratio of error to the per-element
    tolerance, kernel and library ms (a CUDA graph of 20 calls replayed
@@ -248,15 +255,22 @@ Phases, each of which raises (non-zero exit) on failure:
    head of 256 dims, window 2048; d 4096; 4 lanes, max_seq 4096, 4
    requests of 1024/2100/3000 prompt tokens, two past the window; AQUA
    k_ratio 0.75, block_dims 8, projections calibrated through
-   ``forward(capture=True)``): launches exactly the prefill's wide engine
+   ``forward(capture=True)``): launches exactly the prefill's wide kernel
    once per attention layer per admission and no decode kernel (a
    windowed attention decodes on the masked-dense core, as in JAX); it
    records its dim-block selections and is held to a plain drive
    replaying them (every row within LOGIT_RTOL), a self-selecting plain
    drive reported beside; its step graph bit for bit with a third fault
    (the RG-LRU state put back after each replay: a stale recurrent
-   state); then with AQUA off, flash's wide engine once per attention
-   layer per admission, against the ``dense`` drive. Mamba-2-370M (48
+   state); then with AQUA off, flash's wide kernel once per attention
+   layer per admission, against the ``dense`` drive. Then
+   ``recurrentgemma-9b_f32``: the same trace on RecurrentGemma-9B at full
+   width, depth cut to 6 layers (two recurrent, recurrent, attention
+   groups), float32 params and activations: the float32 prefill exactly
+   once per attention layer per admission, held to a plain drive
+   replaying its selections at the float32 drives' limit (phase 6's
+   HF_LOGIT_SCALE), and AQUA off (float32 flash, exactly, against
+   ``dense`` at that limit). Mamba-2-370M (48
    SSD layers, d 1024; 8 lanes, 8 requests of 128/512/1024 tokens; no
    AQUA, as in JAX): no kernel launched; each admission's and checked
    decode row's logits against the request alone on a ``ServeEngine``
@@ -330,9 +344,10 @@ Phases, each of which raises (non-zero exit) on failure:
    the ``{"ok": true, ...}`` line. Every kernel also lists its launches
    in each config drive of 5b and 5c (``launches_by_config``); the
    Whisper-geometry phases stand under ``group_geometries`` with the
-   Whisper drive's launches; the prefill's and flash's wide engine at
-   RecurrentGemma-9B's geometry under ``wide_form``, with the launches of
-   the hybrid's AQUA drive and of its AQUA-off drive.
+   Whisper drive's launches; the prefill's and flash's wide kernels at
+   RecurrentGemma-9B's geometry under ``wide_form`` (bf16) and
+   ``wide_form_float32``, with the launches of the hybrid's AQUA and
+   AQUA-off drives in that dtype.
 """
 from __future__ import annotations
 
@@ -519,6 +534,12 @@ def ptxas_spills(log: str) -> dict:
             spills[fn] = int(m.group(1)) + int(m.group(2))
             fn = None
     return spills
+
+
+def ptxas_serialized(log: str) -> list:
+    """Kernel functions whose wgmmas ptxas serialized for want of registers
+    (warning C7511), from the ptxas lines of one nvcc build."""
+    return re.findall(r"C7511\).*in the function '(\S+?)'", log)
 
 
 def tol_ratio(out, ref) -> float:
@@ -979,18 +1000,44 @@ def prefill_part_phase(geom: str, h: int, kvh: int, gen) -> dict:
                 bound_ms=bms, bound_by=by)
 
 
+def sdpa_causal_ms(q, k, v, scale: float) -> dict:
+    """A second yardstick for a no-window form: one causal SDPA call
+    without a mask on the same q, k and v, K and V copied out to every
+    query head beforehand. bf16 is held to PyTorch's flash backend (which
+    takes head dims up to 256), float32 to the backend SDPA picks."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = q.shape[1] // k.shape[1]
+    k, v = (x.repeat_interleave(g, 1).contiguous() for x in (k, v))
+    flash = q.dtype == torch.bfloat16
+
+    def call():
+        if not flash:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  scale=scale)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  scale=scale)
+    return dict(sdpa_causal_ms=graph_ms(call),
+                sdpa_causal_backend="flash" if flash else "default")
+
+
 def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
                          s: int = 8192, window: int = 4096,
-                         heads: bool = False) -> dict:
+                         heads: bool = False,
+                         dtype: str = "bfloat16") -> dict:
     """The window form of the prefill kernel at a sliding-window model's
     geometry (H2O-Danube-1.8B: head_dim 80, window 4096, S=8192;
     RecurrentGemma-9B: 16 heads over one KV head of 256 dims, window 2048,
-    S=4096, the wide engine), B=1, causal, beside the no-window form on
-    the same inputs (the tiles the band skips). Planted faults: the window
-    one key wider, and the band starting one key tile late (the
-    participating walk over each q-tile's band minus its first 64-key
-    tile: the same kernel with that tile skipped); with ``heads`` also the
-    phase's head fault (:func:`head_fault`)."""
+    S=4096, the engine's wide kernels, in bf16 or float32), B=1, causal,
+    beside the no-window form on the same inputs (the tiles the band
+    skips) and, at head_dim 256, beside one causal SDPA call without a
+    mask (:func:`sdpa_causal_ms`). Planted faults: the window one key
+    wider, and the band starting one key tile late (the participating
+    walk over each q-tile's band minus its first 64-key tile: the same
+    kernel with that tile skipped); with ``heads`` also the phase's head
+    fault (:func:`head_fault`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import aqua
@@ -998,7 +1045,7 @@ def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
     from repro_torch.kernels.ops import round_k_dims
 
     b, q_blk, tile = 1, 128, pk.KEY_TILE
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", getattr(torch, dtype)
     q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
@@ -1050,14 +1097,19 @@ def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
     # the live (query, key) pairs of the band
     pairs = float(sum(min(i + 1, window) for i in range(s)))
     ops = 2 * pairs * h * (nsel + d)
-    nbytes = 2 * (b * h * s * nsel + 2 * b * kvh * s * d + b * h * s * d)
-    bms, by = bound(nbytes, ops)
+    el = q.element_size()
+    nbytes = el * (b * h * s * nsel + 2 * b * kvh * s * d + b * h * s * d)
+    bms, by = bound(nbytes, ops, BF16_OPS_PER_S if el == 2
+                    else F32_ACCURATE_OPS_PER_S)
     times = timings(kernel, plain, library, plain_iters=3)
     no_window_ms = graph_ms(lambda: kernel(window=None))
+    extra = sdpa_causal_ms(qm, k, v, scale) if d > 128 else {}
     return dict(name="aqua_prefill", geometry=geom, form="window",
+                dtype=dtype, route=attention_route(el),
+                value_slices=-(-d // 128),
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, Dv=d, q_blk=q_blk,
                            window=window),
-                **check, **times, no_window_ms=no_window_ms,
+                **check, **times, no_window_ms=no_window_ms, **extra,
                 device_us=device_us(kernel),
                 live_pair_share=pairs / (s * (s + 1) / 2), bound_ms=bms,
                 bound_by=by, peak_bytes=torch.cuda.max_memory_allocated())
@@ -1121,19 +1173,22 @@ def flash_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
 
 
 def flash_window_phase(geom: str, h: int, kvh: int, d: int, gen,
-                       s: int = 4096, window: int = 2048) -> dict:
+                       s: int = 4096, window: int = 2048,
+                       dtype: str = "bfloat16") -> dict:
     """Flash attention's window form at a sliding-window model's geometry
     (RecurrentGemma-9B with AQUA off: 16 heads over one KV head of 256
-    dims, window 2048: the wide engine), B=1, S=4096, causal, beside the
-    no-window form on the same inputs. Planted faults: the window one key
-    wider, the band starting one 64-key tile late (a window 64 keys
-    shorter) and the phase's head fault (:func:`head_fault`)."""
+    dims, window 2048: the engine's wide kernels, in bf16 or float32),
+    B=1, S=4096, causal, beside the no-window form on the same inputs and
+    one causal SDPA call without a mask (:func:`sdpa_causal_ms`). Planted
+    faults: the window one key wider, the band starting one 64-key tile
+    late (a window 64 keys shorter) and the phase's head fault
+    (:func:`head_fault`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
 
     b = 1
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", getattr(torch, dtype)
     q = torch.randn(b, h, s, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
     v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
@@ -1158,15 +1213,19 @@ def flash_window_phase(geom: str, h: int, kvh: int, d: int, gen,
 
     pairs = float(sum(min(i + 1, window) for i in range(s)))
     ops = 2 * pairs * h * (d + d)
-    nbytes = 2 * (2 * b * h * s * d + 2 * b * kvh * s * d)
-    bms, by = bound(nbytes, ops)
+    el = q.element_size()
+    nbytes = el * (2 * b * h * s * d + 2 * b * kvh * s * d)
+    bms, by = bound(nbytes, ops, BF16_OPS_PER_S if el == 2
+                    else F32_ACCURATE_OPS_PER_S)
     times = timings(kernel, plain, library, plain_iters=3)
     no_window_ms = graph_ms(lambda: kernel(window=None))
     return dict(name="flash_attention", geometry=geom, form="window",
-                dtype="bfloat16", route="mma_sync_wide",
+                dtype=dtype, route=attention_route(el),
+                value_slices=-(-d // 128),
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, causal=True,
                            window=window),
                 **check, **times, no_window_ms=no_window_ms,
+                **sdpa_causal_ms(q, k, v, d ** -0.5),
                 device_us=device_us(kernel),
                 live_pair_share=pairs / (s * (s + 1) / 2), bound_ms=bms,
                 bound_by=by)
@@ -2118,12 +2177,12 @@ def traced_drive(card: str) -> dict:
 
 
 def load_model(name: str, seed: int, dtype: str = "bfloat16",
-               calib_seq: int = 32) -> tuple:
-    """A model at its published width and depth with AQUA (K_RATIO,
-    BLOCK_DIMS), random weights and activations of ``dtype`` from
-    ``seed``, and projections calibrated on ``calib_seq``-token windows
-    of the corpus (with a frontend's stub inputs): (config, params,
-    projections)."""
+               calib_seq: int = 32, layers: int = None) -> tuple:
+    """A model at its published width and depth (``layers``: its depth
+    cut to that many layers) with AQUA (K_RATIO, BLOCK_DIMS), random
+    weights and activations of ``dtype`` from ``seed``, and projections
+    calibrated on ``calib_seq``-token windows of the corpus (with a
+    frontend's stub inputs): (config, params, projections)."""
     import torch
     from repro_torch.configs import AquaConfig, get_config
     from repro_torch.core.calibration import calibrate, capture_forward
@@ -2132,6 +2191,8 @@ def load_model(name: str, seed: int, dtype: str = "bfloat16",
     from repro_torch.models.layers import with_unembedding
     mcfg = dataclasses.replace(get_config(name), dtype=dtype,
                                param_dtype=dtype)
+    if layers is not None:
+        mcfg = dataclasses.replace(mcfg, num_layers=layers)
     if mcfg.attention is not None:
         mcfg = mcfg.with_aqua(AquaConfig(k_ratio=K_RATIO,
                                          block_dims=BLOCK_DIMS))
@@ -2891,14 +2952,16 @@ def recurrent_drive_phase(card: str) -> dict:
       drive's rows are reported beside, not held; the step graph against
       eager ``decode_step`` with the stale-token, stale-mask and
       stale-RG-LRU-state faults; the decode step beside its byte bound;
-      then AQUA off (the flash kernel's wide engine, once per attention
+      then AQUA off (the flash kernel's wide kernel, once per attention
       layer per admission) against the ``dense`` reference drive;
     * Mamba-2-370M (``ssm``, no AQUA): no kernel launched, asserted; each
       admission's and checked decode row's logits against the request
       alone on a ``ServeEngine`` fed the same tokens (``compare_solo``);
       the step graph with a stale-SSD-state fault; the decode step beside
       its byte bound (the weights, the unembedding, the SSD states read
-      and written)."""
+      and written);
+    * RecurrentGemma-9B cut to 6 layers in float32
+      (:func:`recurrent_f32_drives`)."""
     import gc
     import torch
     from repro_torch.configs import ServingConfig
@@ -3034,7 +3097,7 @@ def recurrent_drive_phase(card: str) -> dict:
             del ref, free, tape
             gc.collect()
             torch.cuda.empty_cache()
-            # AQUA off: the flash kernel's wide engine at every admission
+            # AQUA off: the flash kernel's wide kernel at every admission
             off = dataclasses.replace(mcfg, aqua=None)
             fref = run_drive(off, mparams, None, serving, n, prompts,
                              backend="dense")
@@ -3061,7 +3124,92 @@ def recurrent_drive_phase(card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         log_time(f"drive {name} and its reference")
+    out.update(recurrent_f32_drives(card))
     log({"serve_recurrent": out})
+    return out
+
+
+#: the float32 hybrid drive: RecurrentGemma-9B at full width, its depth cut
+#: to two (recurrent, recurrent, attention) groups, float32 params and
+#: activations (as a float32 run computes it), the bf16 drive's trace
+RECURRENT_F32 = ("recurrentgemma-9b", 10, 6)
+
+
+def recurrent_f32_drives(card: str) -> dict:
+    """``recurrentgemma-9b_f32``: RecurrentGemma-9B at full width, 6 layers
+    (2 attention layers of 16 heads over one KV head of 256 dims, window
+    2048), float32 params and activations, 4 lanes, prompts 1024/2100/3000
+    (two past the window), AQUA (K_RATIO, BLOCK_DIMS, projections
+    calibrated through ``forward(capture=True)``): the float32 prefill
+    exactly once per attention layer per admission and no other kernel;
+    every admission's and checked decode row's logits within the float32
+    drives' limit, |got - want| <= HF_LOGIT_SCALE * (F32_RTOL * |want| +
+    F32_ATOL), of a plain drive replaying its dim-block selections. Then
+    ``recurrentgemma-9b_f32_flash``, AQUA off: the float32 flash exactly
+    once per attention layer per admission, against the ``dense`` drive
+    at the same limit."""
+    import gc
+    import torch
+    from repro_torch.configs import ServingConfig
+    from repro_torch.core.aqua import SelectionTape
+    name, seed, layers = RECURRENT_F32
+    _, _, lanes, n, prompts, max_seq = next(
+        c for c in RECURRENT_CONFIGS if c[0] == name)
+    serving = ServingConfig(max_lanes=lanes, max_seq=max_seq,
+                            max_new_tokens=32)
+    t0 = time.perf_counter()
+    mcfg, mparams, mproj = load_model(name, seed, dtype="float32",
+                                      layers=layers)
+    setup_s = time.perf_counter() - t0
+    att = mcfg.attention
+    out = {}
+    for aqua in (True, False):
+        cfg = mcfg if aqua else dataclasses.replace(mcfg, aqua=None)
+        key = f"{name}_f32" + ("" if aqua else "_flash")
+        tape = SelectionTape("cuda", slots=(8192, 1024),
+                             numel=(lanes * att.num_heads * 32,
+                                    att.num_heads * 32 * 32))
+        run = run_drive(cfg, mparams, mproj, serving, n, prompts,
+                        selection=(tape, "record") if aqua else None)
+        ref = run_drive(cfg, mparams, mproj, serving, n, prompts,
+                        backend="aqua-block-sparse-plain" if aqua
+                        else "dense",
+                        selection=(tape, "replay") if aqua else None)
+        assert sum(ref["launches"].values()) == 0, ref["launches"]
+        n_attn = run["engine"].model.num_attn_layers
+        want = dict.fromkeys(KERNELS, 0)
+        want["aqua_prefill" if aqua else "flash_attention"] = \
+            n_attn * run["admissions"]
+        assert run["launches"] == want, (key, run["launches"], want)
+        vs = compare_logits(run, ref, 32, per_element=True,
+                            scale=HF_LOGIT_SCALE)
+        res = {k: v for k, v in run.items()
+               if k not in ("tokens", "admit_logits", "step_logits",
+                            "engine", "admit_routes", "tape",
+                            "selection_tape")}
+        res.update(setup_s=setup_s, layers=mcfg.num_layers,
+                   attn_layers=n_attn, dtype="float32", vs_reference=vs,
+                   reference_replays_selections=aqua,
+                   logit_limit=dict(f32_rtol=F32_RTOL, f32_atol=F32_ATOL,
+                                    scale=HF_LOGIT_SCALE))
+        log(f"[serve {key}] launches {run['launches']}, "
+            f"{vs['admissions_compared']} admissions (worst "
+            f"{vs['admit_worst_err_over_limit']:.4f} of the float32 limit) "
+            f"and {vs['decode_rows_compared']} decode rows (worst "
+            f"{vs['decode_worst_err_over_limit']:.4f}) against the "
+            + ("plain drive replaying its selections" if aqua
+               else "dense drive")
+            + f"; tokens/s {run['tokens_per_s']:.2f}, admission ms "
+            f"{run['admit_ms']:.3f}, peak device memory "
+            f"{run['peak_memory_bytes']} bytes on {card}")
+        out[key] = res
+        del run, ref, tape
+        gc.collect()
+        torch.cuda.empty_cache()
+    del mparams, mproj
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_time(f"drive {name}_f32 and its references")
     return out
 
 
@@ -3417,9 +3565,12 @@ def main() -> int:
             ("flash_attention", "flash_bf16", ("USETMAXREG", "UTMALDG")),
             ("aqua_prefill", "aqua_prefill_f32", ("HMMA",)),
             ("flash_attention", "flash_f32", ("HMMA",)),
-            # the wide engine (head dims past 128): mma.sync
-            ("aqua_prefill", "aqua_prefill_wide", ("HMMA",)),
-            ("flash_attention", "flash_wide", ("HMMA",)),
+            # head dims past 128 (RecurrentGemma's 256): the same engine's
+            # wide kernels, on wgmma
+            ("aqua_prefill", "aqua_prefill_bf16_wide",
+             ("HGMMA", "USETMAXREG", "UTMALDG")),
+            ("flash_attention", "flash_bf16_wide",
+             ("HGMMA", "USETMAXREG", "UTMALDG")),
             ("aqua_decode", "decode_bf16", ())):
         if name not in sass:
             sass[name] = counts = sass_counts(str(_build._lib_path(name)))
@@ -3460,16 +3611,24 @@ def main() -> int:
     else:
         spills = "not checked: the library was built by an earlier run"
     log({"sass_decode_f32_variants": f32_ffma, "ptxas_spill_bytes": spills})
-    # the wide engine holds its 16 x 256 float32 output in registers: no
-    # spills
-    wide_spills = {}
-    for name in ("aqua_prefill", "flash_attention"):
+    # the wide kernels (head dims past 128: the prefill's three depths and
+    # flash's two, each with and without kPart / kLen) and every float32
+    # instantiation of the prefill and flash (value slices): no spills,
+    # and their products kept asynchronous (no ptxas C7511)
+    wide_spills, serialized = {}, []
+    for name, n_wide in (("aqua_prefill", 6), ("flash_attention", 4)):
         if build_logs[name]:
-            wide_spills.update({fn: n for fn, n in ptxas_spills(
-                build_logs[name]).items() if "_wide" in fn})
-    assert not any(wide_spills.values()), wide_spills
-    log({"ptxas_spill_bytes_wide": wide_spills or
-         "not checked: the libraries were built by an earlier run"})
+            spills = ptxas_spills(build_logs[name])
+            assert sum("_wide" in fn for fn in spills) == n_wide, spills
+            wide_spills.update({fn: n for fn, n in spills.items()
+                                if "_wide" in fn or "_f32" in fn})
+            serialized += [fn for fn in ptxas_serialized(build_logs[name])
+                           if "_wide" in fn or "_f32" in fn]
+    assert not any(wide_spills.values()) and not serialized, \
+        (wide_spills, serialized)
+    log({"ptxas_spill_bytes_wide_and_f32": wide_spills or
+         "not checked: the libraries were built by an earlier run",
+         "ptxas_serialized_wide_and_f32": serialized})
 
     # the traced paged drive, in a child process: where the device time goes
     prof = traced_drive(card)
@@ -3558,12 +3717,17 @@ def main() -> int:
     window_phase = prefill_window_phase("h2o-danube-1.8b", 32, 8, 80, gen)
     phases.append(window_phase)
     # RecurrentGemma-9B's attention (16 heads over one KV head of 256
-    # dims, window 2048): the wide engine of the prefill (window and
-    # no-window forms) and of flash (AQUA off)
-    wide_prefill = prefill_window_phase("recurrentgemma-9b", 16, 1, 256, gen,
-                                        s=4096, window=2048, heads=True)
-    wide_flash = flash_window_phase("recurrentgemma-9b", 16, 1, 256, gen)
-    phases += [wide_prefill, wide_flash]
+    # dims, window 2048): the engine's wide kernels of the prefill (window
+    # and no-window forms) and of flash (AQUA off), and the float32 routes'
+    # value slices at the same shapes
+    wide = {dtype: (prefill_window_phase("recurrentgemma-9b", 16, 1, 256,
+                                         gen, s=4096, window=2048,
+                                         heads=True, dtype=dtype),
+                    flash_window_phase("recurrentgemma-9b", 16, 1, 256, gen,
+                                       dtype=dtype))
+            for dtype in ("bfloat16", "float32")}
+    for pair in wide.values():
+        phases += pair
     for p in phases:
         log(p)
     log({"read_rate": read_rate()})
@@ -3630,19 +3794,25 @@ def main() -> int:
              plain_ms=wp["plain_ms"], bound_ms=wp["bound_ms"],
              bound_by=wp["bound_by"], library_ms=wp["library_ms"],
              no_window_ms=wp["no_window_ms"])
-    # the wide engine at RecurrentGemma-9B's geometry (head_dim 256),
-    # launched by the hybrid's drives: the prefill with AQUA, flash without
-    for k, p, path in (("aqua_prefill", wide_prefill, "recurrentgemma-9b"),
-                       ("flash_attention", wide_flash,
-                        "recurrentgemma-9b_flash")):
-        launches = recurrent[path]["launches"][k]
-        assert launches > 0, (k, path)
-        next(x for x in kernels if x["name"] == k)["wide_form"] = dict(
-            geometry=p["geometry"], shape=p["shape"], launches=launches,
-            max_abs_err=p["max_abs_err"], ms=p["ms"],
-            plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
-            bound_by=p["bound_by"], library_ms=p["library_ms"],
-            no_window_ms=p["no_window_ms"])
+    # the wide kernels at RecurrentGemma-9B's geometry (head_dim 256),
+    # launched by the hybrid's drives: the prefill with AQUA, flash
+    # without; bf16 (``wide_form``) and float32 (``wide_form_float32``)
+    for dtype, form, suffix in (("bfloat16", "wide_form", ""),
+                                ("float32", "wide_form_float32", "_f32")):
+        for k, p, path in zip(("aqua_prefill", "flash_attention"),
+                              wide[dtype],
+                              (f"recurrentgemma-9b{suffix}",
+                               f"recurrentgemma-9b{suffix}_flash")):
+            launches = recurrent[path]["launches"][k]
+            assert launches > 0, (k, path)
+            next(x for x in kernels if x["name"] == k)[form] = dict(
+                geometry=p["geometry"], dtype=dtype, route=p["route"],
+                value_slices=p["value_slices"], shape=p["shape"],
+                launches=launches, max_abs_err=p["max_abs_err"],
+                ms=p["ms"], plain_ms=p["plain_ms"],
+                bound_ms=p["bound_ms"], bound_by=p["bound_by"],
+                library_ms=p["library_ms"], no_window_ms=p["no_window_ms"],
+                sdpa_causal_ms=p["sdpa_causal_ms"])
     # flash on a bucket-padded admission (keys past the length masked),
     # as the flash drive's admissions call it
     lp = next(p for p in phases if p["name"] == "flash_attention"

@@ -20,6 +20,11 @@ Per tree:
   head_dim 80 (H2O-Danube-1.8B), the prefill at k_ratio 0.5;
 - the float32 routes of the prefill and flash (a served HF checkpoint's
   dtype) in the served form at Qwen3-0.6B's geometry;
+- the window forms of the prefill and flash at RecurrentGemma-9B's
+  geometry (16 heads over one KV head of 256 dims, S 4096, window 2048),
+  in bf16 and in float32, each with its no-window form and one causal
+  SDPA call beside it (a tree whose wrapper refuses the shape, as one
+  whose float32 routes stop at a Dv of 128 does, records the refusal);
 - the decode at full precision, contiguous and paged, at both
   geometries: bf16 at B=8, S=4096 and paged in the served form; float32
   (a served HF checkpoint's) at B=8, S=4096 and in the served form, with
@@ -40,7 +45,8 @@ Per tree:
   call (the bf16 flash encodes two maps a launch, the prefill five).
 
 Each phase appends one JSON line to OUT with ``"tree"`` set to its
-directory; a table by phase follows on stdout. Exits non-zero if a tree
+directory; the card's name and power limit (``nvidia-smi``) head the
+output, a table by phase follows on stdout. Exits non-zero if a tree
 fails or a kernel disagrees with its plain version.
 """
 
@@ -56,7 +62,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KEEP = ("name", "geometry", "form", "dtype", "route", "shape", "ms",
         "loop_ms", "library_ms", "plain_ms", "max_abs_err", "tol_ratio",
-        "fault_tol_ratios", "ok", "bound_ms", "read_bytes", "device_us")
+        "fault_tol_ratios", "ok", "bound_ms", "read_bytes", "device_us",
+        "no_window_ms", "sdpa_causal_ms")
 
 
 def host_us(gen) -> dict:
@@ -165,6 +172,12 @@ def one_tree(tree: str, out_path: str) -> int:
                                         form="served", dtype="float32"),
                lambda: cs.flash_phase("qwen3-0.6b", 16, 8, gen, s=1024,
                                       form="served", dtype="float32")]
+    for dtype in ("bfloat16", "float32"):
+        phases += [lambda dt=dtype: cs.prefill_window_phase(
+                       "recurrentgemma-9b", 16, 1, 256, gen, s=4096,
+                       window=2048, heads=True, dtype=dt),
+                   lambda dt=dtype: cs.flash_window_phase(
+                       "recurrentgemma-9b", 16, 1, 256, gen, dtype=dt)]
     for geom, h, kvh in (("qwen3-0.6b", 16, 8), ("llama3.1-8b", 32, 8)):
         for paged in (False, True):
             phases += [lambda g=geom, h=h, kv=kvh, pg=paged:
@@ -188,7 +201,12 @@ def one_tree(tree: str, out_path: str) -> int:
     ok = True
     with open(out_path, "a") as out:
         for run in phases:
-            p = run()
+            try:
+                p = run()
+            except ValueError as err:          # the tree's wrapper refuses
+                out.write(json.dumps({"tree": tree, "refused": str(err)})
+                          + "\n")
+                continue
             line = dict({k: p.get(k) for k in KEEP}, tree=tree)
             out.write(json.dumps(line) + "\n")
             ok = ok and p["ok"]
@@ -206,6 +224,11 @@ def main() -> int:
         print("kernel_race: no CUDA device", file=sys.stderr)
         return 1
     out_path, trees = sys.argv[1], sys.argv[2:]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    print("card:", cs.card_line(), flush=True)
     rc = 0
     for tree in trees:
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -218,6 +241,9 @@ def main() -> int:
         if "host_us" in r:
             print(r["tree"], "host us", json.dumps(r["host_us"]))
             continue
+        if "refused" in r:
+            print(r["tree"], "refused:", r["refused"])
+            continue
         if "step_graph" in r:
             g = r["step_graph"]
             print(r["tree"], "float32 step graph: device ms per replay",
@@ -227,7 +253,10 @@ def main() -> int:
             continue
         key = (r["name"], r["geometry"], r["form"], r.get("dtype"),
                (r["shape"] or {}).get("k_ratio"))
-        table[key].append(f"{r['tree']} {r['ms']:.4f}"
+        extra = "".join(f" {k} {r[k]:.4f}" for k in ("no_window_ms",
+                                                      "sdpa_causal_ms")
+                        if r.get(k) is not None)
+        table[key].append(f"{r['tree']} {r['ms']:.4f}{extra}"
                           f"{' ' + r['route'] if r.get('route') else ''}"
                           f"{'' if r['ok'] else ' FAILED'}")
     for key, cells in table.items():

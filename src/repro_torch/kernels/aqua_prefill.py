@@ -23,13 +23,13 @@ which hold the float32 limits (``csrc/f32_tile.cuh``); see the headers
 for the tiling. The bf16 kernel copies K̂ and V by TMA tensor maps and q̂ in
 16-byte pieces: it needs D and Dv multiples of 8, D <= 256, 16-byte
 aligned bases and outer strides, under 2**40 bytes (``ValueError``
-otherwise); a selected union or a Dv above 128, up to 256 (RecurrentGemma's
-head_dim 256), takes the ``mma.sync`` engine of ``csrc/wide_tile.cuh``
-instead of the warp-specialized one. The float32 kernel copies 16-byte pieces where the views,
+otherwise). The float32 kernel copies 16-byte pieces where the views,
 ``block_dims``, D and Dv allow, else 4-byte ones; it gathers the union of
 the selections of the ``q_blk`` tiles a 64-row block covers, at most 256
-dims, and takes a selection and Dv of at most 128 (``ValueError`` past
-those). Both need ``q_blk % 8 == 0``.
+dims. Both take a selection and a Dv of at most 256 (``ValueError`` past
+those; JAX's Pallas kernel takes any), a Dv above 128 (RecurrentGemma's
+head_dim 256) in 128-column slices, one per block, and need
+``q_blk % 8 == 0``.
 
 Dispatch is by device: CPU tensors run :func:`aqua_prefill_plain`, CUDA
 tensors launch the kernel or raise. Launches count in
@@ -75,6 +75,8 @@ def aqua_prefill_plain(q_hat: torch.Tensor, khat: torch.Tensor,
 
 #: rows of a float32 block, and the widest union of selected dims it gathers
 F32_ROWS, F32_MAX_DEPTH = 64, 256
+#: the widest selection and value width either route takes (head_dim 256)
+MAX_WIDTH = 256
 
 
 def _f32_union_width(d: int, nsel: int, q_blk: int, nqc: int) -> int:
@@ -96,25 +98,23 @@ def _launch(q_hat, khat, v, block_idx, lengths, block_dims, q_blk, causal,
         raise TypeError("aqua_prefill kernel takes float32 or bfloat16 q/k/v "
                         f"of one dtype, got {q_hat.dtype}, {khat.dtype}, "
                         f"{v.dtype}")
-    # the bf16 route takes a union of selected dims and a Dv up to 256 (the
-    # wide engine past 128), the float32 route both up to 128
-    wide = 256 if q_hat.dtype == torch.bfloat16 else 128
-    if (khat.shape[-1] != d or h % kvh or nb_sel * block_dims > wide
-            or dv > wide or nqc * q_blk < t or v.shape[2] != s
+    if (khat.shape[-1] != d or h % kvh or nb_sel * block_dims > MAX_WIDTH
+            or dv > MAX_WIDTH or nqc * q_blk < t or v.shape[2] != s
             or q_blk % 8):
         raise ValueError(f"aqua_prefill kernel: unsupported shapes q "
                          f"{q_hat.shape} k {khat.shape} v {v.shape} "
-                         f"block_idx {block_idx.shape} ({q_hat.dtype} takes "
-                         f"a selection and Dv up to {wide})")
+                         f"block_idx {block_idx.shape} (it takes a "
+                         f"selection and Dv up to {MAX_WIDTH})")
     dev = q_hat.device
     for x in (q_hat, khat, v):
         if x.device != dev or x.stride(-1) != 1:
             raise ValueError("aqua_prefill kernel needs q/k/v on one CUDA "
                              "device with a contiguous last axis")
     if q_hat.dtype == torch.bfloat16:
-        if d % 8 or d > 256 or dv % 8:
+        if d % 8 or d > MAX_WIDTH or dv % 8:
             raise ValueError(f"aqua_prefill bf16 kernel needs D and Dv "
-                             f"multiples of 8 and D <= 256, got {d}, {dv}")
+                             f"multiples of 8 and D <= {MAX_WIDTH}, got "
+                             f"{d}, {dv}")
         _build.check_cp_async("aqua_prefill", q_hat, khat, v)
         _build.check_tma("aqua_prefill", khat, v)
     elif _f32_union_width(d, nb_sel * block_dims, q_blk, nqc) > F32_MAX_DEPTH:

@@ -35,8 +35,9 @@
 //
 // bf16 route (every full-size drive), on the tensor cores, with the
 // warp-specialized engine of attn_tile.cuh: one block of 384 threads per
-// (b, h, 128 query rows), two consumer warpgroups of 64 rows and a
-// producer warpgroup, over a four-stage mbarrier ring. A block gathers the
+// (b, h, 128 query rows, 128-column value slice), two consumer warpgroups
+// of 64 rows and a producer warpgroup, over an mbarrier ring of four
+// stages (three at a 256-dim union). A block gathers the
 // sorted union of the 8-dim chunks holding a dim selected by the q_blk
 // tiles it covers (one tile's selection when q_blk % 128 == 0 and bd % 8
 // == 0, as on every served full-size path); each Q̂ row is staged once
@@ -48,7 +49,7 @@
 // the strided (B, KV, S, D / 8, 8) view, packed chunk-major into a dense
 // 64 x depth tile (only the selected chunks are read; 16-byte cp.async
 // copies by the producer warp took 1.6x as long: PERF.md, Findings), and the V
-// tile from a 4D map over the strided (B, KV, S, Dv) view (boxes of 64
+// tile's slice from a 4D map over the strided (B, KV, S, Dv) view (boxes of 64
 // dims x 64 keys, 128-byte swizzle); zeros past S and past Dv. What bounds
 // it on the card is the tensor-core time (~1.5x the bound's operations:
 // P·V runs for P's hi and lo halves) and the softmax between the products:
@@ -68,32 +69,40 @@
 //
 // Wide heads (a Dv or a union of selected dims above 128, up to 256:
 // RecurrentGemma-9B's head_dim 256 at k_ratio 0.75 keeps 192 dims a
-// q-tile, up to 256 across a block's tiles) take the bf16 route's second
-// engine, wide_tile.cuh: 256 threads per (b, h, 128 query rows), mma.sync
-// m16n8k16 from ldmatrix, two cp.async stages of 64-key tiles, the same
-// masks, selection staging, participating walk and online softmax (P split
-// hi + lo) as above, and a 16 x 256 float32 output a warp in registers.
-// The warp-specialized kernels above serve D <= 128 from unchanged
-// template arguments. What bounds the wide engine is the same work on
-// mma.sync at one block a SM (192 KB of shared memory).
+// q-tile, up to 256 across a block's tiles) run on the same engine
+// (aqua_prefill_bf16_wide): the union padded with zero chunks to a depth
+// fixed at compile time (16, 24 or 32 chunks: the generic kernel's
+// run-time depth costs it its asynchronous products), Dv cut into
+// 128-column slices, one a block, each block recomputing the scores of its
+// rows (every slice computes the same P bit for bit), P·V on m64n128. What
+// bounds it: the tensor-core work, per (query, key) pair and head
+// slices·union + 2·Dv multiply-adds (the scores once per slice, P·V for
+// P's hi and lo halves: 896 at RecurrentGemma's shape, 2.0x the bound's
+// 192 + 256), at one block a SM (~209 KB of shared memory: Q̂ 48 KB and
+// four stages of a 24-chunk K̂ and two V boxes); the design keeps what the
+// narrow kernels overlap (copies by TMA, one warpgroup's softmax beside
+// the other's products). The kernels of union and value widths up to 128
+// keep their template arguments.
 //
 // float32 route (what a served HF checkpoint runs: config_from_hf gives
 // float32 params and activations), on the tensor cores with the
 // three-pass TF32 split of f32_tile.cuh, which holds the plain float32
 // version's 1e-5 limits that one TF32 pass misses by ~50x: one block of
-// 256 threads per (b, h, 64 query rows), two warp groups taking one half
+// 256 threads per (b, h, 64 query rows, 128-column value slice), two warp
+// groups taking one half
 // of each key tile each, mma.sync m16n8k8, the union of the covered q_blk
 // tiles' selected dims gathered by cp.async (16-byte copies when bd, D and
 // Dv are multiples of 4 and the views 16-byte aligned, else 4-byte), two
-// stages of 64-key tiles, the softmax in registers. What bounds it: the
+// stages of 64-key tiles (one where two do not fit: a union past ~200
+// dims), the softmax in registers. What bounds it: the
 // operations, each run as three TF32 products at 495 TFLOP/s (165 TFLOP/s
 // of float32 work), against 67 TFLOP/s of scalar float32. It takes unions
 // of at most 256 dims (always when D <= 256, or q_blk >= 64 with NB_sel·bd
-// <= 128), Dv <= 128 and q_blk >= 8. A chunk whose q_offset is a multiple
+// <= 128), Dv <= 256 (slices past 128 recompute the scores, as on the bf16
+// route) and q_blk >= 8. A chunk whose q_offset is a multiple
 // of 64 (and of q_blk) has the same 64-row blocks and unions as the
 // monolithic call: its rows are bitwise the monolithic rows, as on the
-// bf16 route. Dv above 128 is refused (cudaErrorInvalidValue; the wrapper
-// raises first).
+// bf16 route.
 //
 // kPart: kc_part (B, NQC, KT) lists each q-tile's participating k_blk-key
 // chunks, ascending (-1 = none), k_blk % 64 == 0. A block (of either
@@ -108,7 +117,6 @@
 
 #include "attn_tile.cuh"
 #include "f32_tile.cuh"
-#include "wide_tile.cuh"
 
 namespace {
 
@@ -141,16 +149,21 @@ struct Args {
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-// NKS > 0 and KIND >= 0: every block walks NKS k-steps of Q̂·K̂ᵀ (its union
-// padded with zero chunks) and P·V of width KIND (pv_tile), fixed at compile
-// time; else each block's own union and the launch's width at run time.
-template <bool kPart, int NKS, int KIND>
-__global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16(
-    const __grid_constant__ KMaps kmaps, const __grid_constant__ CUtensorMap vmap,
-    const bf16* __restrict__ q, const int* __restrict__ block_idx,
-    const int* __restrict__ lengths, bf16* __restrict__ out, int H, int KV, int Tq, int S,
-    int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides ost,
-    float scale_log2, int causal, int window, Part part, int kstage) {
+// One block of the bf16 route: 128 query rows of head blockIdx.x % H
+// (row blocks heaviest first), value slice blockIdx.y (columns [128·y,
+// 128·y + 128) of Dv), batch row blockIdx.z, over a ring of STAGES
+// stages. NKS > 0 and KIND >= 0: every block walks NKS k-steps of Q̂·K̂ᵀ
+// (its union padded with zero chunks) and P·V of width KIND (pv_tile),
+// fixed at compile time; else each block's own union and Dv at run time.
+// kSlices: Dv may pass 128 (the wide kernels); else the one slice is all
+// of Dv and the code is the narrow kernels' own (flash_attention.cu's
+// flash_block says why).
+template <bool kPart, int NKS, int KIND, int STAGES, bool kSlices>
+__device__ __forceinline__ void prefill_block(
+    const KMaps& kmaps, const CUtensorMap& vmap, const bf16* __restrict__ q,
+    const int* __restrict__ block_idx, const int* __restrict__ lengths, bf16* __restrict__ out,
+    int H, int KV, int Tq, int S, int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc,
+    Strides qst, Strides ost, float scale_log2, int causal, int window, Part part, int kstage) {
   using namespace attn_tile;
   // heaviest blocks first (the last rows walk the most key tiles), heads
   // fastest: a causal grid's long blocks do not start last
@@ -162,14 +175,19 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16(
   const int t_first = row0 / q_blk;                 // the q_blk tiles this block covers
   const int ntile = rlast / q_blk - t_first + 1;    // <= 16: q_blk >= 8
   const int nkc = kPart ? (S + part.k_blk - 1) / part.k_blk : 0;
-  const int nvb = (Dv + 63) / 64;                   // 64-dim boxes of a V tile
+  // the value slice: columns [c0, c0 + dv) of V and out, in nvb 64-dim
+  // boxes; a V stage holds vboxes (m64n128 reads two: a slice of one box
+  // reads zeros in the second)
+  const int c0 = kSlices ? kMaxDv * blockIdx.y : 0;
+  const int dv = kSlices ? min(kMaxDv, Dv - c0) : Dv;
+  const int nvb = (dv + 63) / 64, vboxes = kSlices ? 2 : nvb;
 
-  // kStages stages of V tiles (nvb boxes) and K̂ tiles (kstage elements,
+  // STAGES stages of V tiles (vboxes boxes) and K̂ tiles (kstage elements,
   // chunk-major), Q̂ staged once (kRows rows, as wide as a K̂ stage)
   extern __shared__ unsigned char smem_raw[];
   bf16* Vs = align1k(smem_raw);
-  bf16* Ks = Vs + kStages * nvb * kBox;
-  bf16* Qs = Ks + kStages * kstage;
+  bf16* Ks = Vs + STAGES * vboxes * kBox;
+  bf16* Qs = Ks + STAGES * kstage;
   // kPart: half-word c of the array (2 per word) marks which of the
   // block's q-tiles list key chunk c
   uint32_t* marks = reinterpret_cast<uint32_t*>(Qs + kstage * kRows / kKeys);
@@ -179,7 +197,7 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16(
   // the gather's boxes: union position | chunk << 8 | log2 of the width << 16
   __shared__ uint32_t pieces[16];
   __shared__ int npieces;
-  __shared__ Ring ring;
+  __shared__ Ring<STAGES> ring;
 
   if (tid < 16 * 8) tile_dims[tid / 8][tid % 8] = 0;
   if (tid == 0) union_chunks = 0;
@@ -227,11 +245,15 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16(
   if (nu < nck) {                             // padding: zero chunks
     for (int c = nu; c < nck; ++c) zero_chunk(Qs, nck, c, kRows);
     const int pad = (nck - nu) * kKeys;       // rows of K̂ padding per stage
-    for (int e = tid; e < kStages * pad; e += kThreads)
+    for (int e = tid; e < STAGES * pad; e += kThreads)
       *reinterpret_cast<uint4*>(Ks + e / pad * kstage + (nu * kKeys + e % pad) * 8) =
           make_uint4(0, 0, 0, 0);
-    fence_async_smem();
   }
+  if (kSlices && nvb < vboxes)                // the second V box of every stage: zeros
+    for (int e = tid; e < STAGES * kBox / 8; e += kThreads)
+      *reinterpret_cast<uint4*>(Vs + (e / (kBox / 8) * vboxes + 1) * kBox + e % (kBox / 8) * 8) =
+          make_uint4(0, 0, 0, 0);
+  if (nu < nck || (kSlices && nvb < vboxes)) fence_async_smem();
   __syncthreads();
 
   const int klim = min(lengths[b], S);
@@ -268,7 +290,7 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16(
                     (pc >> 8) & 0xff, kv, b);
         }
         for (int x = 0; x < nvb; ++x)
-          tma_load(Vs + (st * nvb + x) * kBox, &vmap, bar, 64 * x, k0, kv, b);
+          tma_load(Vs + (st * vboxes + x) * kBox, &vmap, bar, c0 + 64 * x, k0, kv, b);
       });
   } else {
     consumer_regs();
@@ -330,14 +352,44 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16(
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-    // the consumers take turns in the per-shape kernels; in the generic one
-    // the compiler serializes their products, and turns were slower there
-    // (PERF.md, Findings)
+    // the consumers take turns in the fixed-shape kernels; in the generic
+    // one the compiler serializes their products, and turns were slower
+    // there (PERF.md, Findings)
     consume<true, (NKS > 0), NKS, KIND>(first, ntk, next, masked, valid, ring, Qs, nks, Ks,
-                                        kstage, Vs, nvb * kBox, pv_kind(Dv), scale_log2, o, m,
+                                        kstage, Vs, vboxes * kBox, pv_kind(dv), scale_log2, o, m,
                                         l);
-    store_rows(out + b * ost.b + h * ost.h, ost.s, rows, Tq, Dv / 8, o, l);
+    store_rows(out + b * ost.b + h * ost.h + c0, ost.s, rows, Tq, dv / 8, o, l);
   }
+}
+
+// Union widths and value widths up to 128 (every served head_dim but
+// RecurrentGemma's): the four-stage ring.
+template <bool kPart, int NKS, int KIND>
+__global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16(
+    const __grid_constant__ KMaps kmaps, const __grid_constant__ CUtensorMap vmap,
+    const bf16* __restrict__ q, const int* __restrict__ block_idx,
+    const int* __restrict__ lengths, bf16* __restrict__ out, int H, int KV, int Tq, int S,
+    int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides ost,
+    float scale_log2, int causal, int window, Part part, int kstage) {
+  prefill_block<kPart, NKS, KIND, attn_tile::kStages, false>(
+      kmaps, vmap, q, block_idx, lengths, out, H, KV, Tq, S, q_offset, Dv, nb_sel, bd, q_blk,
+      nqc, qst, ost, scale_log2, causal, window, part, kstage);
+}
+
+// A union or a value width past 128, up to 256 (RecurrentGemma-9B's
+// head_dim 256 keeps 192 dims a q-tile at k_ratio 0.75): a fixed depth of
+// NKS k-steps, P·V on m64n128 per 128-column value slice, a ring of STAGES
+// stages (four fit at NKS <= 12, three at 16).
+template <bool kPart, int NKS, int STAGES>
+__global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16_wide(
+    const __grid_constant__ KMaps kmaps, const __grid_constant__ CUtensorMap vmap,
+    const bf16* __restrict__ q, const int* __restrict__ block_idx,
+    const int* __restrict__ lengths, bf16* __restrict__ out, int H, int KV, int Tq, int S,
+    int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides ost,
+    float scale_log2, int causal, int window, Part part, int kstage) {
+  prefill_block<kPart, NKS, 2, STAGES, true>(
+      kmaps, vmap, q, block_idx, lengths, out, H, KV, Tq, S, q_offset, Dv, nb_sel, bd, q_blk,
+      nqc, qst, ost, scale_log2, causal, window, part, kstage);
 }
 
 // Widest union of 8-dim chunks holding a selected dim that a block of
@@ -351,89 +403,74 @@ int union_chunks(const Args& a) {
   return (chunks + 1) / 2 * 2;
 }
 
-template <bool kPart, int NKS, int KIND>
-int launch_bf16(const Args& a) {
+// Launch `kernel` (an instantiation of prefill_block with this NKS, KIND
+// and STAGES): a grid of row blocks x heads, value slices on y, batch rows
+// on z. `done` is the kernel's record of its shared-memory limit.
+template <int NKS, int KIND, int STAGES, class Kernel>
+int launch_bf16(Kernel kernel, const Args& a, int (&done)[16]) {
   using namespace attn_tile;
-  static int done[16] = {0};
-  // K̂ stages as wide as the widest union, V stages in 64-dim boxes
-  const int kstage = kKeys * union_chunks(a) * 8, nvb = (a.Dv + 63) / 64;
-  const int nkc = kPart ? (a.S + a.part.k_blk - 1) / a.part.k_blk : 0;
-  const int bytes = 1024 +
-                    (kStages * (nvb * kBox + kstage) + kstage * kRows / kKeys) * (int)sizeof(bf16) +
-                    (nkc + 1) / 2 * 4;
+  // K̂ stages as wide as the widest union (or the fixed depth), V stages
+  // in 64-dim boxes of a slice
+  const int chunks = NKS > 0 ? 2 * NKS : union_chunks(a);
+  const int kstage = kKeys * chunks * 8;
+  const int vboxes = KIND == 2 ? 2 : (std::min(a.Dv, kMaxDv) + 63) / 64;
+  const int nkc = a.part.kc_part != nullptr ? (a.S + a.part.k_blk - 1) / a.part.k_blk : 0;
+  const int bytes =
+      1024 + (STAGES * (vboxes * kBox + kstage) + kstage * kRows / kKeys) * (int)sizeof(bf16) +
+      (nkc + 1) / 2 * 4;
   KMaps kmaps;
   CUtensorMap vmap;
   cudaError_t err = make_map(&vmap, a.v, a.B, a.KV, a.S, a.Dv, a.vs);
   for (int w = 0; w < 4 && err == cudaSuccess; ++w)
     err = make_chunk_map(&kmaps.m[w], a.k, a.B, a.KV, a.S, a.D, a.ks, 1 << w);
-  if (err == cudaSuccess) err = allow_smem(aqua_prefill_bf16<kPart, NKS, KIND>, bytes, done);
+  if (err == cudaSuccess) err = allow_smem(kernel, bytes, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.Tq + kRows - 1) / kRows * a.H, 1, a.B);
-  aqua_prefill_bf16<kPart, NKS, KIND><<<grid, kThreads, bytes, a.st>>>(
+  const dim3 grid((a.Tq + kRows - 1) / kRows * a.H, (a.Dv + kMaxDv - 1) / kMaxDv, a.B);
+  kernel<<<grid, kThreads, bytes, a.st>>>(
       kmaps, vmap, (const bf16*)a.q, a.block_idx, a.lengths, (bf16*)a.out, a.H, a.KV, a.Tq,
       a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc, a.qs, a.os, a.scale * kLog2e,
       a.causal, a.window, a.part, kstage);
   return (int)cudaGetLastError();
 }
 
+template <bool kPart, int NKS, int KIND>
+int launch_narrow(const Args& a) {
+  static int done[16] = {0};
+  return launch_bf16<NKS, KIND, attn_tile::kStages>(aqua_prefill_bf16<kPart, NKS, KIND>, a,
+                                                     done);
+}
+
+template <bool kPart, int NKS, int STAGES>
+int launch_wide(const Args& a) {
+  static int done[16] = {0};
+  return launch_bf16<NKS, 2, STAGES>(aqua_prefill_bf16_wide<kPart, NKS, STAGES>, a, done);
+}
+
 // The served shapes take kernels with depth and width fixed at compile
 // time (one walk per kernel: a kernel holding several walks was slower): a
 // 12-chunk union with Dv 128 (k_ratio 0.75 of head_dim 128) and an 8-chunk
-// union with Dv 80 (Danube's head_dim 80); the others the generic kernel.
+// union with Dv 80 (Danube's head_dim 80); the other narrow ones the
+// generic kernel. Past 128 every shape takes a fixed depth, its union
+// padded with zero chunks to 16, 24 (RecurrentGemma's 192 selected dims)
+// or 32 chunks, and P·V on m64n128: the generic kernel's run-time depth
+// and width cost it its asynchronous products (ptxas C7511).
 template <bool kPart>
 int launch_shape(const Args& a) {
   const int uc = union_chunks(a), kind = attn_tile::pv_kind(a.Dv);
-  if (uc == 12 && kind == 2) return launch_bf16<kPart, 6, 2>(a);
-  if (uc == 8 && kind == 1) return launch_bf16<kPart, 4, 1>(a);
-  return launch_bf16<kPart, 0, -1>(a);
-}
-
-// Wide heads (a union of selected dims or a Dv above 128, up to 256:
-// RecurrentGemma's head_dim 256) take the mma.sync engine of wide_tile.cuh.
-__global__ void __launch_bounds__(wide_tile::kThreads, 1)
-    aqua_prefill_wide(const __grid_constant__ wide_tile::Problem p) {
-  wide_tile::attend(p);
-}
-
-int launch_wide(const Args& a) {
-  wide_tile::Problem p{};
-  p.q = (const bf16*)a.q;
-  p.k = (const bf16*)a.k;
-  p.v = (const bf16*)a.v;
-  p.out = (bf16*)a.out;
-  p.block_idx = a.block_idx;
-  p.lengths = a.lengths;
-  p.kc_part = a.part.kc_part;
-  p.kt = a.part.kt;
-  p.k_blk = a.part.k_blk;
-  p.H = a.H;
-  p.KV = a.KV;
-  p.Tq = a.Tq;
-  p.S = a.S;
-  p.q_offset = a.q_offset;
-  p.D = a.D;
-  p.Dv = a.Dv;
-  p.nb_sel = a.nb_sel;
-  p.bd = a.bd;
-  p.q_blk = a.q_blk;
-  p.nqc = a.nqc;
-  p.qs = a.qs;
-  p.ks = a.ks;
-  p.vs = a.vs;
-  p.os = a.os;
-  p.scale_log2 = a.scale * attn_tile::kLog2e;
-  p.causal = a.causal;
-  p.window = a.window;
-  static int done[16] = {0};
-  return wide_tile::launch(aqua_prefill_wide, p, a.B, a.st, done);
+  if (uc * 8 > attn_tile::kNarrowDepth || a.Dv > attn_tile::kMaxDv) {
+    if (uc <= 16) return launch_wide<kPart, 8, attn_tile::kStages>(a);
+    if (uc <= 24) return launch_wide<kPart, 12, attn_tile::kStages>(a);
+    return launch_wide<kPart, 16, 3>(a);
+  }
+  if (uc == 12 && kind == 2) return launch_narrow<kPart, 6, 2>(a);
+  if (uc == 8 && kind == 1) return launch_narrow<kPart, 4, 1>(a);
+  return launch_narrow<kPart, 0, -1>(a);
 }
 
 int dispatch_bf16(const Args& a) {
-  if (a.bd <= 0 || a.D % 8 != 0 || a.D > 256 || a.Dv % 8 != 0 || a.Dv > 256 ||
-      a.q_blk % 8 != 0)
+  if (a.bd <= 0 || a.D % 8 != 0 || a.D > attn_tile::kMaxDepth || a.Dv % 8 != 0 ||
+      a.Dv > attn_tile::kMaxValue || a.q_blk % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  if (a.Dv > attn_tile::kMaxDv || union_chunks(a) * 8 > attn_tile::kMaxDepth)
-    return launch_wide(a);
   return a.part.kc_part != nullptr ? launch_shape<true>(a) : launch_shape<false>(a);
 }
 
@@ -453,18 +490,19 @@ int launch_f32(const f32_tile::Problem& p, int B, cudaStream_t st) {
   const int bytes = f32_tile::smem_bytes(p, p.nst);
   cudaError_t err = attn_tile::allow_smem(aqua_prefill_f32<VEC, kPart, NDV>, bytes, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.Tq + f32_tile::kRows - 1) / f32_tile::kRows * p.H, 1, B);
+  const dim3 grid((p.Tq + f32_tile::kRows - 1) / f32_tile::kRows * p.H, f32_tile::slices(p), B);
   aqua_prefill_f32<VEC, kPart, NDV><<<grid, f32_tile::kThreads, bytes, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Dv 128 (every served head_dim but Danube's) takes a kernel with its P·V
-// width fixed at compile time; 4-byte copies (unaligned views) only the
-// generic one
+// Dv 128 and 256 (every served head_dim but Danube's; slices of 128) take
+// a kernel with its P·V width fixed at compile time; 4-byte copies
+// (unaligned views) only the generic one
 template <bool kPart>
 int launch_f32_part(const f32_tile::Problem& p, int vec, int B, cudaStream_t st) {
   if (vec == 1) return launch_f32<1, kPart, 0>(p, B, st);
-  return p.Dv == 128 ? launch_f32<4, kPart, 16>(p, B, st) : launch_f32<4, kPart, 0>(p, B, st);
+  return p.Dv % f32_tile::kSlice == 0 ? launch_f32<4, kPart, 16>(p, B, st)
+                                      : launch_f32<4, kPart, 0>(p, B, st);
 }
 
 // vec: floats per copy, 4 (16-byte copies: the wrapper found the bases

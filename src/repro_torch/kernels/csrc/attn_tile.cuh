@@ -2,7 +2,9 @@
 // flash_attention.cu (their bf16 routes; sm_90a).
 //
 // A block of kThreads = 384 threads owns kRows = 128 query rows and walks
-// kKeys = 64-key tiles through a ring of kStages shared-memory stages:
+// kKeys = 64-key tiles through a ring of shared-memory stages (kStages = 4
+// for q·k depths up to 128; a kernel's template argument, 3 or 4, for
+// depths up to kMaxDepth = 256):
 //
 // - Warpgroup 2 is the producer. Its registers are lowered with setmaxnreg
 //   and one thread of it owns every copy of a stage: it waits until the
@@ -23,6 +25,14 @@
 //   kernel runs its consumers free, see consume). Inside a warpgroup, P·V
 //   of tile j is issued with the scores of tile j + 1 and runs beside their
 //   softmax.
+// - Value slices: a block computes kMaxDv = 128 columns of the output, the
+//   slice blockIdx.y of a wider Dv (up to 256: head_dim 256), with V read
+//   from the slice's first column. Every slice walks the same key tiles
+//   with the same Q̂ and K̂, so computes the same P bit for bit: the output
+//   is one full-width computation's, at the cost of the scores once per
+//   slice. The P·V accumulator stays 64 rows x 128 columns, which with the
+//   scores and P fits the consumers' registers (a 256-column one would
+//   take 128 registers a thread alone).
 //
 // Per tile and consumer warpgroup (qk_issue, softmax_tile, pv_issue):
 //
@@ -47,7 +57,8 @@
 //
 // Each row's arithmetic is the plain sequence O = O·corr_j + P_j·V_j over
 // the block's tiles in ascending order: it does not depend on the overlap,
-// on which consumer holds the row, or on the timing of the ring.
+// on which consumer holds the row, on the slice, or on the timing of the
+// ring.
 //
 // Layouts in shared memory: TMA boxes are 64 rows (keys) of 128 bytes,
 // 16-byte chunk c of row r at chunk c ^ (r % 8) of its 1024-byte group
@@ -72,7 +83,7 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kConsumers = 256;       // two consumer warpgroups
 constexpr int kThreads = 384;         // and the producer warpgroup
-constexpr int kStages = 4;            // ring depth
+constexpr int kStages = 4;            // ring depth of the narrow kernels
 // setmaxnreg: the launch gives each thread 168 registers; the producer
 // warpgroup drops to 40 and the consumers rise to 232 (128 x 40 + 256 x
 // 232 = 384 x 168). The compiler fits all of the kernel in 168.
@@ -80,8 +91,10 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kRows = 128;            // query rows per block, 16 per consumer warp
 constexpr int kKeys = 64;             // keys per tile
-constexpr int kMaxDepth = 128;        // q·k depth (padded to 16)
-constexpr int kMaxDv = 128;           // value / output width
+constexpr int kNarrowDepth = 128;     // q·k depth of the narrow kernels (padded to 16)
+constexpr int kMaxDepth = 256;        // q·k depth of any kernel (padded to 16)
+constexpr int kMaxDv = 128;           // value / output columns of a block: a slice
+constexpr int kMaxValue = 256;        // value / output width, in slices of kMaxDv
 constexpr int kNT = kMaxDv / 8;       // 8-wide n-tiles of O
 constexpr int kBox = 64 * kKeys;      // elements of a TMA box: 64 keys x 64 dims
 constexpr int kBoxBytes = 2 * kBox;   // 8 KB, a multiple of the swizzle's 1 KB
@@ -201,34 +214,36 @@ __device__ __forceinline__ void consumer_regs() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
 }
 
-// The ring's barriers: full[s] completes when stage s holds its tile (the
-// producer's arrivals and the copies' bytes), empty[s] when both consumer
-// warpgroups are done with it.
+// The ring of N stages' barriers: full[s] completes when stage s holds its
+// tile (the producer's arrivals and the copies' bytes), empty[s] when both
+// consumer warpgroups are done with it.
+template <int N>
 struct Ring {
-  uint64_t full[kStages], empty[kStages];
+  uint64_t full[N], empty[N];
 
   // one thread, before the block's last barrier ahead of the split
   __device__ __forceinline__ void init(int full_arrivals) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < N; ++s) {
       mbar_init(&full[s], full_arrivals);
       mbar_init(&empty[s], 2);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __device__ __forceinline__ uint32_t full_bar(int it) { return smem_u32(&full[it % kStages]); }
-  __device__ __forceinline__ uint32_t empty_bar(int it) { return smem_u32(&empty[it % kStages]); }
+  __device__ __forceinline__ uint32_t full_bar(int it) { return smem_u32(&full[it % N]); }
+  __device__ __forceinline__ uint32_t empty_bar(int it) { return smem_u32(&empty[it % N]); }
 };
 
 // The producer's side of the walk over a block's live key tiles j = first,
 // next(first), ... (next returns a value >= end past the last): for the
-// it-th tile, wait until its stage is empty (the release of tile it -
-// kStages), then issue(j, stage, full barrier) fills it.
-template <class Next, class Issue>
-__device__ __forceinline__ void produce(int first, int end, Next next, Ring& ring, Issue issue) {
+// it-th tile, wait until its stage is empty (the release of tile it - N),
+// then issue(j, stage, full barrier) fills it.
+template <int N, class Next, class Issue>
+__device__ __forceinline__ void produce(int first, int end, Next next, Ring<N>& ring,
+                                        Issue issue) {
   int it = 0;
   for (int j = first; j < end; j = next(j), ++it) {
-    if (it >= kStages) mbar_wait(ring.empty_bar(it), (it / kStages - 1) & 1);
-    issue(j, it % kStages, ring.full_bar(it));
+    if (it >= N) mbar_wait(ring.empty_bar(it), (it / N - 1) & 1);
+    issue(j, it % N, ring.full_bar(it));
   }
 }
 
@@ -430,7 +445,8 @@ __host__ __device__ inline int pv_kind(int dv) { return dv <= 64 ? 0 : dv <= 80 
 
 // S = Q·Kᵀ for one key tile (Ks: the chunk-major gather of 2·nks chunks
 // when kGather, else swizzled boxes), issued asynchronously as one wgmma
-// group; NKS > 0 fixes nks at compile time.
+// group; NKS > 0 fixes nks at compile time, else nks <= 8 (a depth up to
+// kNarrowDepth: the generic kernels, which walk depths of 16 to 128 dims).
 template <bool kGather, int NKS>
 __device__ __forceinline__ void qk_issue(float (&s)[8][4], uint64_t qd, int nks, const bf16* Ks) {
 #pragma unroll
@@ -562,7 +578,7 @@ __device__ __forceinline__ void rescale_split(float (&o)[kNT][4], const float (&
 // j = first, next(first), ... (as produce walks them): Q is staged in Qs
 // (kRows x 2·nks chunks, interleaved); the it-th tile's K (kGather: the
 // chunk-major gather, 2·nks chunks; else swizzled boxes) and V (swizzled
-// boxes) sit in stage it % kStages at Ks + stage·kstage and Vs +
+// boxes) sit in stage it % N of the ring at Ks + stage·kstage and Vs +
 // stage·vstage. masked(j) and valid(j, r, kk) give tile j's masks
 // (softmax_tile); each warpgroup accumulates its 64 rows into o, m and l.
 //
@@ -581,11 +597,12 @@ __device__ __forceinline__ void rescale_split(float (&o)[kNT][4], const float (&
 // compile time. A walk that picks its products at run time between issue
 // points costs the consumers registers, and the compiler may then
 // serialize their products (ptxas C7511); flash and the prefill have a
-// kernel per served shape (a kernel holding several walks was slower).
-template <bool kGather, bool kTurns, int NKS = 0, int KIND = -1, class Next, class Masked,
+// kernel per served shape (a kernel holding several walks was slower), and
+// every depth past kNarrowDepth takes a kernel of fixed depth.
+template <bool kGather, bool kTurns, int NKS = 0, int KIND = -1, int N, class Next, class Masked,
           class Valid>
 __device__ __forceinline__ void consume(int first, int end, Next next, Masked masked, Valid valid,
-                                        Ring& ring, const bf16* Qs, int nks, const bf16* Ks,
+                                        Ring<N>& ring, const bf16* Qs, int nks, const bf16* Ks,
                                         int kstage, const bf16* Vs, int vstage,
                                         int kind, float scale_log2, float (&o)[kNT][4],
                                         float (&m)[2], float (&l)[2]) {
@@ -598,7 +615,7 @@ __device__ __forceinline__ void consume(int first, int end, Next next, Masked ma
   auto pass_turn = [&] {
     if (kTurns) bar_arrive(kSchedBar + (wg ^ 1), kConsumers);
   };
-  auto wait_full = [&](int it) { mbar_wait(ring.full_bar(it), (it / kStages) & 1); };
+  auto wait_full = [&](int it) { mbar_wait(ring.full_bar(it), (it / N) & 1); };
   // this warpgroup's 64 rows of Q: a core matrix (8 rows x 16 bytes) 128
   // bytes on along K, 2·nks of them along M
   const uint64_t qd = wg_desc(Qs + il(64 * wg, 0, 2 * nks), 128, nks * 256);
@@ -622,7 +639,7 @@ __device__ __forceinline__ void consume(int first, int end, Next next, Masked ma
   // Every tile but the last: P·V of tile it runs while tile it + 1's
   // scores go through the softmax.
   while (nxt < end) {
-    const int st = it % kStages, sn = (it + 1) % kStages;
+    const int st = it % N, sn = (it + 1) % N;
     wait_full(it + 1);
     my_turn();
     qk_issue<kGather, NKS>(s, qd, nks, Ks + sn * kstage);
@@ -643,7 +660,7 @@ __device__ __forceinline__ void consume(int first, int end, Next next, Masked ma
     ++it;
   }
   my_turn();
-  pv_issue<KIND>(o, ph, pl, Vs + it % kStages * vstage, kind);   // the last tile
+  pv_issue<KIND>(o, ph, pl, Vs + it % N * vstage, kind);   // the last tile
   if (wg == 0) pass_turn();
   wg_wait<0>();
   hold(of);

@@ -21,7 +21,9 @@
 // deviation near 5, it reaches the limit).
 //
 // A block of kThreads = 256 threads owns kRows = 64 query rows of one (b,
-// h): kRowWarps = 4 warps of 16 rows (the m16 of mma.sync m16n8k8 tf32)
+// h) and one kSlice = 128-column slice of the output (blockIdx.y; Dv up to
+// kMaxDv = 256 takes two, each recomputing the scores, so each computes
+// the same P bit for bit): kRowWarps = 4 warps of 16 rows (the m16 of mma.sync m16n8k8 tf32)
 // in each of kGroups = 2 warp groups, and each group takes one 32-key half
 // of every key tile, with its own running max, sum and output; the two
 // merge at the end. Two groups halve a block's walk, whose longest (the
@@ -85,8 +87,9 @@ constexpr int kKeys = 64;              // keys per tile
 constexpr int kHalf = kKeys / kGroups; // keys of a tile per group
 constexpr int kKN = kHalf / 8;         // 8-key n-tiles of a warp's scores
 constexpr int kMaxDepth = 256;         // gathered q·k depth
-constexpr int kMaxDv = 128;            // value / output width
-constexpr int kNT = kMaxDv / 8;        // 8-wide n-tiles of O
+constexpr int kSlice = 128;            // value / output columns of a block
+constexpr int kMaxDv = 256;            // value / output width, in slices
+constexpr int kNT = kSlice / 8;        // 8-wide n-tiles of O
 constexpr int kMaxTiles = 16;          // q_blk tiles a block may cover (q_blk >= 8)
 constexpr int kMaxStages = 2;
 // dynamic shared memory a block may use: 227 KB less the static arrays
@@ -124,6 +127,9 @@ inline int union_width(const Problem& p) {
   return w < p.D ? w : p.D;
 }
 
+// value slices of a launch: its grid's y
+inline int slices(const Problem& p) { return (p.Dv + kSlice - 1) / kSlice; }
+
 inline int smem_bytes(const Problem& p, int nst) {
   return 4 * (kRows * p.qstr + nst * kKeys * (p.kstr + p.vstr) + (kMaxTiles + 1) * p.nuw +
               p.nkc);
@@ -135,7 +141,7 @@ inline bool plan(Problem& p, int vec) {
   const int w = union_width(p);
   if (w > kMaxDepth || p.Dv > kMaxDv || p.q_blk < 8) return false;
   p.qstr = p.kstr = row_stride(w);
-  p.vstr = row_stride(p.Dv);
+  p.vstr = row_stride(std::min(p.Dv, kSlice));
   p.nuw = (p.D / vec + 31) / 32;
   p.nkc = p.kc_part != nullptr ? (p.S + p.k_blk - 1) / p.k_blk : 0;
   for (p.nst = kMaxStages; p.nst >= 1; --p.nst)
@@ -179,9 +185,9 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const
 // bases, strides and dims that are multiples of 4, and dim-blocks of a
 // multiple of 4 dims; the wrapper checks). kPart: the walk visits only the
 // key chunks that some covered q-tile lists, and masks each row by its own
-// tile's list. NDV > 0: the output has NDV 8-wide n-tiles, fixed at
-// compile time (16: Dv 128, the served width); 0: ceil(Dv / 8), at run
-// time.
+// tile's list. NDV > 0: the slice has NDV 8-wide n-tiles, fixed at
+// compile time (16: 128 columns, every slice of Dv 128 and 256, the served
+// widths); 0: ceil(its width / 8), at run time.
 template <int VEC, bool kPart, int NDV>
 __device__ __forceinline__ void attend(const Problem& p) {
   const int H = p.H;
@@ -195,6 +201,7 @@ __device__ __forceinline__ void attend(const Problem& p) {
   const int t_first = dense ? 0 : row0 / p.q_blk;
   const int ntile = dense ? 1 : rlast / p.q_blk - t_first + 1;   // <= kMaxTiles
   const int nunits = p.D / VEC;                                 // VEC-dim units of a row
+  const int col0 = kSlice * blockIdx.y, dv = min(kSlice, p.Dv - col0);  // the value slice
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -262,7 +269,7 @@ __device__ __forceinline__ void attend(const Problem& p) {
     for (int c = width + lane; c < depth; c += 32) Qs[r * p.qstr + c] = 0.f;
   for (int r = warp; r < p.nst * kKeys; r += kWarps) {
     for (int c = width + lane; c < depth; c += 32) Ks[r * p.kstr + c] = 0.f;
-    for (int c = p.Dv + lane; c < pad8(p.Dv); c += 32) Vs[r * p.vstr + c] = 0.f;
+    for (int c = dv + lane; c < pad8(dv); c += 32) Vs[r * p.vstr + c] = 0.f;
   }
   // Q̂ rows: the row's own tile's units, zeros in the rest of the union
   const float* qb = p.q + b * p.qs.b + h * p.qs.h;
@@ -278,7 +285,7 @@ __device__ __forceinline__ void attend(const Problem& p) {
   }
 
   const float* kb = p.k + b * p.ks.b + kv * p.ks.h;
-  const float* vb = p.v + b * p.vs.b + kv * p.vs.h;
+  const float* vb = p.v + b * p.vs.b + kv * p.vs.h + col0;
   auto load = [&](int j, int st) {  // tile j into stage st
     float* K = Ks + st * kKeys * p.kstr;
     float* V = Vs + st * kKeys * p.vstr;
@@ -288,7 +295,7 @@ __device__ __forceinline__ void attend(const Problem& p) {
       for (int u = lane; u < nu; u += 32)
         cp_async<4 * VEC>(K + kk * p.kstr + u * VEC, ok ? kb + pos * p.ks.s + ucol[u] : kb,
                           ok ? 4 * VEC : 0);
-      for (int c = lane * VEC; c < p.Dv; c += 32 * VEC)
+      for (int c = lane * VEC; c < dv; c += 32 * VEC)
         cp_async<4 * VEC>(V + kk * p.vstr + c, ok ? vb + pos * p.vs.s + c : vb, ok ? 4 * VEC : 0);
     }
   };
@@ -343,7 +350,7 @@ __device__ __forceinline__ void attend(const Problem& p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int nks = depth / 8, ndv = pad8(p.Dv) / 8;
+  const int nks = depth / 8, ndv = pad8(dv) / 8;
   const float* qa = Qs + (rw * 16 + g) * p.qstr + t;
 
   // The products issue in batches of independent MMAs per pass (lo·hi of
@@ -522,7 +529,7 @@ __device__ __forceinline__ void attend(const Problem& p) {
     l[r] = l[r] * c0[r] + xfer[(2 + r) * gn + gt] * c1[r];
   }
   // out = O / max(l, 1e-30); zeros for a row that saw no key
-  float* ob = p.out + b * p.os.b + h * p.os.h;
+  float* ob = p.out + b * p.os.b + h * p.os.h + col0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= p.Tq) continue;
@@ -535,7 +542,7 @@ __device__ __forceinline__ void attend(const Problem& p) {
         for (int e = 0; e < 2; ++e) {
           const int c = dn * 8 + 2 * t + e;
           const float x = o[dn][2 * r + e] * c0[r] + xfer[(4 + dn * 4 + 2 * r + e) * gn + gt] * c1[r];
-          if (c < p.Dv) orow[c] = x / denom;
+          if (c < dv) orow[c] = x / denom;
         }
   }
 }

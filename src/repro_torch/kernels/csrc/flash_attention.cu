@@ -41,28 +41,39 @@
 // (last rows) first.
 // D is padded with zeros to a multiple of 16 for Q·Kᵀ. bf16 needs D % 8 ==
 // 0, 16-byte aligned bases and outer strides that are whole 16-byte units
-// under 2^40 bytes (the wrapper checks). D above 128, up to 256
-// (RecurrentGemma-9B's 256 with AQUA off), takes the mma.sync engine of
-// wide_tile.cuh (256 threads per 128 rows of one head, two cp.async
-// stages, a 16 x 256 float32 output a warp in registers); D <= 128 keeps
-// the kernels above, from unchanged template arguments.
+// under 2^40 bytes (the wrapper checks).
+//
+// D above 128, up to 256 (RecurrentGemma-9B's 256 with AQUA off; 16 heads
+// over one KV head, so two heads a block), runs on the same engine
+// (flash_bf16_wide): a depth fixed at compile time (D padded with zeros to
+// 192 or 256 dims), the output cut into 128-column slices, one a block,
+// each block recomputing the scores of its rows (every slice computes the
+// same P bit for bit), P·V on m64n128, three ring stages at depth 256
+// (Q 64 KB and three of 32 KB of K and 16 KB of V fit in 227 KB; four do
+// not). What bounds it: the tensor-core work, per (query, key) pair and
+// head slices·D + 2·D multiply-adds (1,024 at D 256, 2.0x the bound's
+// 512: the scores once per slice, P·V for P's hi and lo halves), with the
+// copies and the softmax overlapped as at D <= 128. D <= 128 keeps the
+// kernels above, from unchanged template arguments.
 //
 // float32 route (what a served HF checkpoint runs with AQUA off or with
 // per-dim selection, the launcher's default block_dims 1: config_from_hf
 // gives float32 params and activations), on the tensor cores with the
 // three-pass TF32 split of f32_tile.cuh, which holds the plain float32
 // version's 1e-5 limits that one TF32 pass misses by ~50x: one block of
-// 256 threads per (b, h, 64 query rows), two warp groups taking one half
-// of each key tile each, mma.sync m16n8k8, K and V tiles of 64 keys by
-// cp.async (16-byte copies when D is a multiple of 4 and the views
-// 16-byte aligned, else 4-byte) in two stages, the softmax in registers.
-// What bounds it: the operations, each run as three TF32 products at 495
-// TFLOP/s (165 TFLOP/s of float32 work), against 67 TFLOP/s of scalar
-// float32. D <= 128.
+// 256 threads per (b, h, 64 query rows, 128-column value slice), two warp
+// groups taking one half of each key tile each, mma.sync m16n8k8, K and V
+// tiles of 64 keys by cp.async (16-byte copies when D is a multiple of 4
+// and the views 16-byte aligned, else 4-byte) in two stages (one at D
+// past ~200), the softmax in registers. What bounds it: the operations,
+// each run as three TF32 products at 495 TFLOP/s (165 TFLOP/s of float32
+// work), against 67 TFLOP/s of scalar float32. D <= 256 (slices past 128
+// recompute the scores, as on the bf16 route).
+
+#include <algorithm>
 
 #include "attn_tile.cuh"
 #include "f32_tile.cuh"
-#include "wide_tile.cuh"
 
 namespace {
 
@@ -73,18 +84,25 @@ using attn_tile::Strides;
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-// NKS > 0 and KIND >= 0: the depth of Q·Kᵀ in k-steps and the P·V width
-// (pv_tile) fixed at compile time; else taken from D at run time. kLen:
-// lengths masks the keys, in instantiations of their own: with the key
-// limit read at run time in every instantiation, the generic kernel took
-// 0.171 ms at Danube's D 80 where it took 0.110 (chip_smoke.py's generic
-// flash phase, PERF.md).
-template <int NKS, int KIND, bool kLen>
-__global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
-    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-    const bf16* __restrict__ q, bf16* __restrict__ out, const int* __restrict__ lengths, int H,
-    int KV, int S, int D, Strides qst, Strides ost, float scale_log2, int causal, int window,
-    int hpb) {
+// One block of the bf16 route over a ring of STAGES stages: 128 query
+// rows (of one or two heads, see below), value slice blockIdx.y (columns
+// [128·y, 128·y + 128) of D), batch row blockIdx.z. NKS > 0 and KIND >= 0:
+// the depth of Q·Kᵀ in k-steps and the P·V width (pv_tile) fixed at
+// compile time; else taken from D at run time. kSlices: D may pass 128
+// (the wide kernels); else the one slice is all of D and the code is the
+// narrow kernels' own (a depth or box count folded to a constant, or a
+// padding loop, moved their times by a few percent or cost the generic
+// kernel its asynchronous products, ptxas C7511). kLen: lengths masks the
+// keys, in instantiations of their own: with the key limit read at run
+// time in every instantiation, the generic kernel took 0.171 ms at
+// Danube's D 80 where it took 0.110 (chip_smoke.py's generic flash phase,
+// PERF.md).
+template <int NKS, int KIND, bool kLen, int STAGES, bool kSlices>
+__device__ __forceinline__ void flash_block(const CUtensorMap& kmap, const CUtensorMap& vmap,
+                                            const bf16* __restrict__ q, bf16* __restrict__ out,
+                                            const int* __restrict__ lengths, int H, int KV, int S,
+                                            int D, Strides qst, Strides ost, float scale_log2,
+                                            int causal, int window, int hpb) {
   using namespace attn_tile;
   // A block holds hpb heads of one KV group (2 when the group size is
   // even) x rpb = kRows / hpb rows each: a 64-row causal granularity with
@@ -98,18 +116,37 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
   const int row0 = tile * rpb;
   const int rlast = min(row0 + rpb, S) - 1;
   const int nd = D / 8;                         // 8-dim chunks
-  const int nks = (nd + 1) / 2, nck = 2 * nks;  // 16-dim steps of Q·Kᵀ
-  const int nkb = (nks + 3) / 4, nvb = (D + 63) / 64;  // 64-dim boxes of K, V
+  // 16-dim steps of Q·Kᵀ (the wide kernels': their fixed depth)
+  const int nks = kSlices ? NKS : (nd + 1) / 2, nck = 2 * nks;
+  const int nkb = (nks + 3) / 4;                // 64-dim boxes of K
+  // the value slice: columns [c0, c0 + dv) of V and out, in nvb 64-dim
+  // boxes; a V stage holds vboxes (m64n128 reads two: a slice of one box
+  // reads zeros in the second)
+  const int c0 = kSlices ? kMaxDv * blockIdx.y : 0;
+  const int dv = kSlices ? min(kMaxDv, D - c0) : D;
+  const int nvb = (dv + 63) / 64, vboxes = kSlices ? 2 : nvb;
 
-  // kStages stages of K tiles (nkb boxes) and V tiles (nvb boxes), Q
+  // STAGES stages of K tiles (nkb boxes) and V tiles (vboxes boxes), Q
   // staged once (kRows x nck chunks, interleaved)
   extern __shared__ unsigned char smem_raw[];
   bf16* Ks = align1k(smem_raw);
-  bf16* Vs = Ks + kStages * nkb * kBox;
-  bf16* Qs = Vs + kStages * nvb * kBox;
-  __shared__ Ring ring;
+  bf16* Vs = Ks + STAGES * nkb * kBox;
+  bf16* Qs = Vs + STAGES * vboxes * kBox;
+  __shared__ Ring<STAGES> ring;
   if (tid == 0) ring.init(1);
-  if (nd & 1) zero_chunk(Qs, nck, nd, kRows);   // padding: zeros
+  // padding: zeros (the wide kernels pad D to their fixed depth, the
+  // narrow ones one chunk at most)
+  if (kSlices) {
+    for (int c = nd; c < nck; ++c) zero_chunk(Qs, nck, c, kRows);
+  } else if (nd & 1) {
+    zero_chunk(Qs, nck, nd, kRows);
+  }
+  if (kSlices && nvb < vboxes) {                // the second V box of every stage: zeros
+    for (int e = tid; e < STAGES * kBox / 8; e += kThreads)
+      *reinterpret_cast<uint4*>(Vs + (e / (kBox / 8) * vboxes + 1) * kBox + e % (kBox / 8) * 8) =
+          make_uint4(0, 0, 0, 0);
+    fence_async_smem();
+  }
   __syncthreads();
 
   // key tiles this block can see: [jbeg, jend), keys below klim
@@ -130,7 +167,7 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
         for (int x = 0; x < nkb; ++x)
           tma_load(Ks + (st * nkb + x) * kBox, &kmap, bar, 64 * x, j * kKeys, kv, b);
         for (int x = 0; x < nvb; ++x)
-          tma_load(Vs + (st * nvb + x) * kBox, &vmap, bar, 64 * x, j * kKeys, kv, b);
+          tma_load(Vs + (st * vboxes + x) * kBox, &vmap, bar, c0 + 64 * x, j * kKeys, kv, b);
       });
   } else {
     consumer_regs();
@@ -172,64 +209,84 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
       for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     consume<false, true, NKS, KIND>(jbeg, jend, next, masked, valid, ring, Qs, nks, Ks,
-                                    nkb * kBox, Vs, nvb * kBox, pv_kind(D), scale_log2, o, m, l);
-    store_rows(out + b * ost.b + h * ost.h, ost.s, rows, S, nd, o, l);
+                                    nkb * kBox, Vs, vboxes * kBox, pv_kind(dv), scale_log2, o, m,
+                                    l);
+    store_rows(out + b * ost.b + h * ost.h + c0, ost.s, rows, S, dv / 8, o, l);
   }
 }
 
+// Head dims up to 128: the four-stage ring.
 template <int NKS, int KIND, bool kLen>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, const int* lengths, int B,
-                int H, int KV, int S, int D, Strides qs, Strides ks, Strides vs, Strides os,
-                float scale, int causal, int window, cudaStream_t st) {
+__global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const bf16* __restrict__ q, bf16* __restrict__ out, const int* __restrict__ lengths, int H,
+    int KV, int S, int D, Strides qst, Strides ost, float scale_log2, int causal, int window,
+    int hpb) {
+  flash_block<NKS, KIND, kLen, attn_tile::kStages, false>(
+      kmap, vmap, q, out, lengths, H, KV, S, D, qst, ost, scale_log2, causal, window, hpb);
+}
+
+// Head dims past 128, up to 256 (RecurrentGemma-9B's 256 with AQUA off): a
+// fixed depth of NKS k-steps (D padded with zeros to 192 or 256 dims), P·V
+// on m64n128 per 128-column value slice, a ring of STAGES stages (four fit
+// at NKS 12, three at 16).
+template <int NKS, bool kLen, int STAGES>
+__global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16_wide(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const bf16* __restrict__ q, bf16* __restrict__ out, const int* __restrict__ lengths, int H,
+    int KV, int S, int D, Strides qst, Strides ost, float scale_log2, int causal, int window,
+    int hpb) {
+  flash_block<NKS, 2, kLen, STAGES, true>(kmap, vmap, q, out, lengths, H, KV, S, D, qst, ost,
+                                          scale_log2, causal, window, hpb);
+}
+
+// Launch `kernel` (an instantiation of flash_block with this NKS, KIND and
+// STAGES): a grid of row blocks x head groups, value slices on y, batch
+// rows on z. `done` is the kernel's record of its shared-memory limit.
+template <int NKS, int KIND, int STAGES, class Kernel>
+int launch_bf16(Kernel kernel, int (&done)[16], const void* q, const void* k, const void* v,
+                void* out, const int* lengths, int B, int H, int KV, int S, int D, Strides qs,
+                Strides ks, Strides vs, Strides os, float scale, int causal, int window,
+                cudaStream_t st) {
   using namespace attn_tile;
-  static int done[16] = {0};
   if (D % 8 != 0 || D > kMaxDepth) return (int)cudaErrorInvalidValue;
-  const int nks = (D / 8 + 1) / 2, nkb = (nks + 3) / 4, nvb = (D + 63) / 64;
-  const int bytes = 1024 + (kStages * (nkb + nvb) * kBox + kRows * 2 * nks * 8) * 2;
+  const int nks = NKS > 0 ? NKS : (D / 8 + 1) / 2, nkb = (nks + 3) / 4;
+  const int vboxes = KIND == 2 ? 2 : (std::min(D, kMaxDv) + 63) / 64;
+  const int bytes = 1024 + (STAGES * (nkb + vboxes) * kBox + kRows * 2 * nks * 8) * 2;
   CUtensorMap kmap, vmap;
   cudaError_t err = make_map(&kmap, k, B, KV, S, D, ks);
   if (err == cudaSuccess) err = make_map(&vmap, v, B, KV, S, D, vs);
-  if (err == cudaSuccess) err = allow_smem(flash_bf16<NKS, KIND, kLen>, bytes, done);
+  if (err == cudaSuccess) err = allow_smem(kernel, bytes, done);
   if (err != cudaSuccess) return (int)err;
   const int hpb = (H / KV) % 2 == 0 ? 2 : 1, rpb = kRows / hpb;
-  const dim3 grid((S + rpb - 1) / rpb * (H / hpb), 1, B);
-  flash_bf16<NKS, KIND, kLen><<<grid, kThreads, bytes, st>>>(
-      kmap, vmap, (const bf16*)q, (bf16*)out, lengths, H, KV, S, D, qs, os, scale * kLog2e,
-      causal, window, hpb);
+  const dim3 grid((S + rpb - 1) / rpb * (H / hpb), (D + kMaxDv - 1) / kMaxDv, B);
+  kernel<<<grid, kThreads, bytes, st>>>(kmap, vmap, (const bf16*)q, (bf16*)out, lengths, H, KV,
+                                        S, D, qs, os, scale * kLog2e, causal, window, hpb);
   return (int)cudaGetLastError();
 }
 
-// Head dims above 128, up to 256 (RecurrentGemma's 256), take the mma.sync
-// engine of wide_tile.cuh: every dim of D, no selection.
-__global__ void __launch_bounds__(wide_tile::kThreads, 1)
-    flash_wide(const __grid_constant__ wide_tile::Problem p) {
-  wide_tile::attend(p);
+template <int NKS, int KIND, bool kLen, class... Args>
+int launch_narrow(Args... args) {
+  static int done[16] = {0};
+  return launch_bf16<NKS, KIND, attn_tile::kStages>(flash_bf16<NKS, KIND, kLen>, done, args...);
 }
 
-int launch_wide(const void* q, const void* k, const void* v, void* out, const int* lengths,
-                int B, int H, int KV, int S, int D, Strides qs, Strides ks, Strides vs,
-                Strides os, float scale, int causal, int window, cudaStream_t st) {
-  if (D % 8 != 0 || D > 256) return (int)cudaErrorInvalidValue;
-  wide_tile::Problem p{};
-  p.q = (const bf16*)q;
-  p.k = (const bf16*)k;
-  p.v = (const bf16*)v;
-  p.out = (bf16*)out;
-  p.lengths = lengths;
-  p.H = H;
-  p.KV = KV;
-  p.Tq = p.S = S;
-  p.D = p.Dv = D;
-  p.nqc = 1;
-  p.qs = qs;
-  p.ks = ks;
-  p.vs = vs;
-  p.os = os;
-  p.scale_log2 = scale * attn_tile::kLog2e;
-  p.causal = causal;
-  p.window = window;
+template <int NKS, bool kLen, int STAGES, class... Args>
+int launch_wide(Args... args) {
   static int done[16] = {0};
-  return wide_tile::launch(flash_wide, p, B, st, done);
+  return launch_bf16<NKS, 2, STAGES>(flash_bf16_wide<NKS, kLen, STAGES>, done, args...);
+}
+
+// head_dim 128 (every served model but Danube and RecurrentGemma) takes a
+// kernel with its depth and width fixed at compile time, other head dims
+// up to 128 the generic one; past 128 every head dim takes a fixed depth
+// (192 or 256 dims, zeros past D), as the prefill's wide kernels do.
+template <bool kLen, class... Args>
+int launch_shape(int D, Args... args) {
+  if (D > attn_tile::kNarrowDepth)
+    return D <= 192 ? launch_wide<12, kLen, attn_tile::kStages>(args...)
+                    : launch_wide<16, kLen, 3>(args...);
+  return D == 128 ? launch_narrow<8, 2, kLen>(args...) : launch_narrow<0, -1, kLen>(args...);
 }
 
 // ---------------------------------------------------------------------------
@@ -248,7 +305,7 @@ int launch_f32(const f32_tile::Problem& p, int B, cudaStream_t st) {
   const int bytes = f32_tile::smem_bytes(p, p.nst);
   cudaError_t err = attn_tile::allow_smem(flash_f32<VEC, NDV>, bytes, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.Tq + f32_tile::kRows - 1) / f32_tile::kRows * p.H, 1, B);
+  const dim3 grid((p.Tq + f32_tile::kRows - 1) / f32_tile::kRows * p.H, f32_tile::slices(p), B);
   flash_f32<VEC, NDV><<<grid, f32_tile::kThreads, bytes, st>>>(p);
   return (int)cudaGetLastError();
 }
@@ -279,10 +336,11 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* out, const i
   p.causal = causal;
   p.window = window;
   if ((vec != 1 && vec != 4) || !f32_tile::plan(p, vec)) return (int)cudaErrorInvalidValue;
-  // head_dim 128 takes a kernel with its P·V width fixed at compile time;
-  // 4-byte copies (unaligned views) only the generic one
+  // head dims 128 and 256 (slices of 128) take a kernel with its P·V width
+  // fixed at compile time; 4-byte copies (unaligned views) only the
+  // generic one
   if (vec == 1) return launch_f32<1, 0>(p, B, st);
-  return D == 128 ? launch_f32<4, 16>(p, B, st) : launch_f32<4, 0>(p, B, st);
+  return D % f32_tile::kSlice == 0 ? launch_f32<4, 16>(p, B, st) : launch_f32<4, 0>(p, B, st);
 }
 
 }  // namespace
@@ -309,20 +367,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (dtype == 0)
     return dispatch_f32(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window,
                         vec, st);
-  if (D > attn_tile::kMaxDepth)
-    return launch_wide(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale, causal, window,
-                       st);
-  // head_dim 128 (every served model but Danube) takes a kernel with its
-  // depth and width fixed at compile time
-  if (D == 128 && ln)
-    return launch_bf16<8, 2, true>(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale,
-                                   causal, window, st);
-  if (D == 128)
-    return launch_bf16<8, 2, false>(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale,
-                                    causal, window, st);
   if (ln)
-    return launch_bf16<0, -1, true>(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale,
-                                    causal, window, st);
-  return launch_bf16<0, -1, false>(q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale,
-                                   causal, window, st);
+    return launch_shape<true>(D, q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale, causal,
+                              window, st);
+  return launch_shape<false>(D, q, k, v, out, ln, B, H, KV, S, D, qs, ks, vs, os, scale, causal,
+                             window, st);
 }

@@ -15,12 +15,12 @@ dtypes run on the tensor cores: bf16 on ``wgmma`` (``csrc/attn_tile.cuh``),
 float32 on ``mma.sync`` with every product split into three TF32 passes,
 which hold the float32 limits (``csrc/f32_tile.cuh``); see the headers
 for the tiling. The bf16 kernel copies K and V by TMA tensor maps and Q
-in 16-byte pieces: it needs D % 8 == 0 and D <= 256, 16-byte aligned
-bases and outer strides, under 2**40 bytes (``ValueError`` otherwise); D
-above 128 (RecurrentGemma's 256) takes the ``mma.sync`` engine of
-``csrc/wide_tile.cuh`` instead of the warp-specialized one. The float32
-kernel copies 16-byte pieces where D % 4 == 0 and the views allow, else
-4-byte ones, and takes D <= 128.
+in 16-byte pieces: it needs D % 8 == 0, 16-byte aligned bases and outer
+strides, under 2**40 bytes (``ValueError`` otherwise). The float32 kernel
+copies 16-byte pieces where D % 4 == 0 and the views allow, else 4-byte
+ones. Both take D <= 256 (``ValueError`` past it; JAX's Pallas kernel
+takes any), a D above 128 (RecurrentGemma's 256) with its output in
+128-column slices, one per block.
 
 Dispatch is by device: CPU tensors run :func:`flash_attention_plain`, CUDA
 tensors launch the kernel or raise. Launches count in
@@ -42,6 +42,8 @@ _SIG = {"flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    ctypes.POINTER(ctypes.c_longlong),
                                    ctypes.c_float, _I, _I, _I, _I, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the widest head dim either route takes (RecurrentGemma's 256)
+MAX_WIDTH = 256
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,9 +64,8 @@ def _launch(q, k, v, causal, window, lengths):
         raise TypeError("flash_attention kernel takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    # bf16 takes D up to 256 (the wide engine past 128), float32 up to 128
     if (k.shape != (b, kvh, s, d) or v.shape != k.shape or h % kvh
-            or d > (256 if q.dtype == torch.bfloat16 else 128)):
+            or d > MAX_WIDTH):
         raise ValueError(f"flash_attention kernel: unsupported shapes q "
                          f"{q.shape} k {k.shape} v {v.shape}")
     dev = q.device

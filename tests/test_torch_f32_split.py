@@ -15,9 +15,10 @@ masking the low 13 bits of the float32's int32 view) and holds it to the
 kernels' plain versions at their float32 limit, per element |out - ref|
 <= 1e-5·|ref| + 1e-5 (``tests/test_torch_gpu.py``'s ``TOL``): the split
 must stay within it, one TF32 pass (the control) must break it, and the
-reading grows with the scores' scale. Shapes: a reduced width, and one
+reading grows with the scores' scale. Shapes: a reduced width, one
 (KV head, query head) pair of Qwen3-0.6B's served prefill (S 1024, head
-dim 128, 96 selected dims). Inputs are standard normal draws from seeded
+dim 128, 96 selected dims), and one of head dim 256 (S 1024; the prefill
+at 192 selected dims, flash at all 256: the depth the kernels reach). Inputs are standard normal draws from seeded
 numpy generators, as in every GPU test and ``chip_smoke.py`` phase
 (scores with a standard deviation near 1); q scaled by c scales the
 scores by c. The split's reading grows with c and reaches the limit near
@@ -126,6 +127,10 @@ CASES = {
     "prefill-served": ("prefill", 2, 1, 1024, 128, 128),
     "flash-reduced": ("flash", 4, 2, 200, 32, None),
     "flash-served": ("flash", 2, 1, 1024, 128, None),
+    # head_dim 256 (RecurrentGemma-9B's, as a float32 run computes it):
+    # 192 of 256 dims selected, and flash at the full depth
+    "prefill-wide": ("prefill", 2, 1, 1024, 256, 128),
+    "flash-wide": ("flash", 2, 1, 1024, 256, None),
 }
 
 

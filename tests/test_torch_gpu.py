@@ -469,13 +469,24 @@ def test_prefill_dv80_window_matches_plain(cuda, part, window, d):
     assert _within_tol(out, ref, bf, valid)
 
 
-# the wide engine (csrc/wide_tile.cuh): RecurrentGemma's geometry (16
-# heads over one KV head, D = Dv = 256) cut to 4 heads, under its window,
-# bucket-padded lengths, a q_offset and participating key chunks
+# head dims past 128 (the engine's wide kernels, 128-column value slices):
+# RecurrentGemma's geometry (16 heads over one KV head, D = Dv = 256) cut
+# to 4 heads, under its window, bucket-padded lengths, a q_offset,
+# participating key chunks, a non-causal call and a lane of length 0
 WIDE_CASES = [dict(window=None), dict(window=64), dict(window=200, pad=37),
               dict(window=None, pad=21), dict(window=96, off=128),
               dict(window=None, off=256, part=True),
-              dict(window=300, part=True)]
+              dict(window=300, part=True), dict(window=None, causal=False),
+              dict(window=150, causal=False), dict(window=None, empty=True)]
+
+
+def _empty_lane_held(out, ref, dtype, empty):
+    """Lane 0 against the plain version; lane 1, of length 0 when
+    ``empty``, zeros (the kernels write zeros for a lane that sees no key,
+    the plain versions the mean of V), else against the plain version."""
+    if not empty:
+        return _within_tol(out, ref, dtype)
+    return _within_tol(out[:1], ref[:1], dtype) and not out[1].any()
 
 
 @pytest.mark.parametrize("case", WIDE_CASES)
@@ -483,16 +494,17 @@ def test_wide_prefill_matches_plain(cuda, case):
     """bf16 prefill at D = Dv = 256 (a selected union of 192 dims per
     128-row q-tile, up to 256 across the q-tiles of 16 rows) against the
     plain version: the window form, lengths, a q_offset, participating
-    key chunks."""
+    key chunks, non-causal calls, a lane of length 0."""
     gen = torch.Generator(device="cuda").manual_seed(len(str(case)))
     b, h, kv, s, d, bf = 2, 4, 1, 600, 256, torch.bfloat16
     off, pad, blk = case.get("off", 0), case.get("pad", 0), 64
+    causal, empty = case.get("causal", True), case.get("empty", False)
     t = s - off
     q = _rand(gen, b, h, t, d, dtype=bf)
     k = _rand(gen, b, kv, s, d, dtype=bf)
     v = _rand(gen, b, kv, s, d, dtype=bf)
-    lengths = torch.tensor([s, s - pad - 50], dtype=torch.int32,
-                           device=cuda)
+    lengths = torch.tensor([s, 0 if empty else s - pad - 50],
+                           dtype=torch.int32, device=cuda)
     for q_blk in (128, 16):
         block_idx, _, chunk = ops.prefill_blocks(q, lengths - off, 0.75, 8,
                                                  q_blk)
@@ -502,8 +514,8 @@ def test_wide_prefill_matches_plain(cuda, case):
                 torch.rand(b, -(-s // blk), generator=gen, device=cuda),
                 nqc=block_idx.shape[2], q_blk=chunk, k_blk=blk,
                 kept_tiles=4, pin_tiles=1, q_offset=off)
-        kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5,
-                  q_offset=off, kc_part=table, k_blk=blk,
+        kw = dict(block_dims=8, q_blk=chunk, causal=causal,
+                  scale=d ** -0.5, q_offset=off, kc_part=table, k_blk=blk,
                   window=case["window"])
         before = LAUNCHES.copy()
         out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
@@ -511,53 +523,156 @@ def test_wide_prefill_matches_plain(cuda, case):
         torch.cuda.synchronize()
         assert sum((LAUNCHES - before).values()) == 1
         assert out.shape == (b, h, t, d)
-        assert _within_tol(out, ref, bf), (case, q_blk)
+        assert _empty_lane_held(out, ref, bf, empty), (case, q_blk)
 
 
-@pytest.mark.parametrize("window,pad", [(None, 0), (64, 0), (200, 0),
-                                        (None, 33), (100, 21)])
-def test_wide_flash_matches_plain(cuda, window, pad):
+@pytest.mark.parametrize("window,pad,causal", [
+    (None, 0, True), (64, 0, True), (200, 0, True), (None, 33, True),
+    (100, 21, True), (None, 0, False), (120, 0, False), (None, -1, True)])
+def test_wide_flash_matches_plain(cuda, window, pad, causal):
     """bf16 flash at D 256 (RecurrentGemma with AQUA off, its 16 heads cut
-    to 4 over one KV head) against the plain version: the window form and
-    a padded admission's lengths."""
+    to 4 over one KV head) against the plain version: the window form, a
+    padded admission's lengths, non-causal calls and (pad -1) a lane of
+    length 0."""
     gen = torch.Generator(device="cuda").manual_seed(window or 1)
     b, h, kv, s, d, bf = 2, 4, 1, 500, 256, torch.bfloat16
     q = _rand(gen, b, h, s, d, dtype=bf)
     k = _rand(gen, b, kv, s, d, dtype=bf)
     v = _rand(gen, b, kv, s, d, dtype=bf)
-    lengths = (torch.tensor([s - pad, s - pad - 40], dtype=torch.int32,
-                            device=cuda) if pad else None)
-    out = fk.flash_attention(q, k, v, causal=True, window=window,
+    lengths = (torch.tensor([s - pad, s - pad - 40] if pad > 0 else [s, 0],
+                            dtype=torch.int32, device=cuda) if pad else None)
+    out = fk.flash_attention(q, k, v, causal=causal, window=window,
                              lengths=lengths)
-    ref = fk.flash_attention_plain(q, k, v, causal=True, window=window,
+    ref = fk.flash_attention_plain(q, k, v, causal=causal, window=window,
                                    lengths=lengths)
     torch.cuda.synchronize()
-    assert _within_tol(out, ref, bf)
+    assert _empty_lane_held(out, ref, bf, pad < 0)
 
 
-def test_float32_routes_refuse_dv_above_128(cuda):
-    """The float32 prefill and flash take a value width up to 128: wider
-    raises ``ValueError`` (a known gap against JAX, ROADMAP queue 3),
-    never a silent path."""
-    b, h, kv, s, d = 1, 4, 1, 64, 256
-    q = torch.zeros(b, h, s, d, device=cuda)
-    k = torch.zeros(b, kv, s, d, device=cuda)
-    lengths = torch.full((b,), s, dtype=torch.int32, device=cuda)
-    block_idx, _, chunk = ops.prefill_blocks(q, lengths, 0.5, 8, 64)
-    with pytest.raises(ValueError):
-        pk.aqua_prefill_attention(q, k, k, block_idx, lengths, block_dims=8,
-                                  q_blk=chunk)
-    with pytest.raises(ValueError):
-        fk.flash_attention(q, k, k)
+# the wide kernels' other fixed depths and a narrow last value slice:
+# (kernel, D, Dv, k_ratio, q_blk): a 16-chunk union with Dv 256 (k_ratio
+# 0.5), a 24-chunk union with Dv 160 (a 32-column second slice, one V box
+# of two), a 32-chunk union with Dv 136 (q_blk 16), flash at D 160 (depth
+# 192) and D 200 (depth 256, a 72-column second slice)
+WIDE_SHAPES = [("prefill", 256, 256, 0.5, 128),
+               ("prefill", 256, 160, 0.75, 128),
+               ("prefill", 256, 136, 0.75, 16),
+               ("flash", 160, 160, None, None),
+               ("flash", 200, 200, None, None)]
 
 
-def test_flash_and_prefill_bitwise_repeatable(cuda):
-    """bf16: two calls on the same inputs give the same bits, whatever the
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel,d,dv,k_ratio,q_blk", WIDE_SHAPES)
+def test_wide_depths_and_slices_match_plain(cuda, dtype, kernel, d, dv,
+                                            k_ratio, q_blk):
+    """Head dims past 128 off RecurrentGemma's shape against the plain
+    versions, under a window and with a lane cut short."""
+    gen = torch.Generator(device="cuda").manual_seed(d + dv)
+    b, h, kv, s = 2, 4, 1, 450
+    q = _rand(gen, b, h, s, d, dtype=dtype)
+    k = _rand(gen, b, kv, s, d, dtype=dtype)
+    v = _rand(gen, b, kv, s, dv, dtype=dtype)
+    lengths = torch.tensor([s, s - 99], dtype=torch.int32, device=cuda)
+    if kernel == "prefill":
+        block_idx, _, chunk = ops.prefill_blocks(q, lengths, k_ratio, 8,
+                                                 q_blk)
+        kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5,
+                  window=170)
+        out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+        ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
+    else:
+        out = fk.flash_attention(q, k, v, causal=True, window=170,
+                                 lengths=lengths)
+        ref = fk.flash_attention_plain(q, k, v, causal=True, window=170,
+                                       lengths=lengths)
+    torch.cuda.synchronize()
+    assert out.shape == (b, h, s, dv)
+    assert _within_tol(out, ref, dtype)
+
+
+def test_float32_routes_take_dv_256(cuda):
+    """The float32 prefill (192 of 256 dims selected a q-tile, unions up to
+    256 across the q-tiles of 16 rows, every dim; plain and under a
+    window) and flash (with lengths, and under a window) at D = Dv = 256,
+    RecurrentGemma's head dim as a float32 run computes it, against their
+    plain versions at the float32 limit. Past 256 both dtypes raise
+    ``ValueError`` (JAX's Pallas kernels take any width; no config has a
+    wider head)."""
+    gen = torch.Generator(device="cuda").manual_seed(256)
+    b, h, kv, s, d, f32 = 2, 4, 1, 600, 256, torch.float32
+    q = _rand(gen, b, s, h, d, dtype=f32).transpose(1, 2)   # strided view
+    k = _rand(gen, b, kv, s, d, dtype=f32)
+    v = _rand(gen, b, kv, s, d, dtype=f32)
+    lengths = torch.tensor([s, s - 77], dtype=torch.int32, device=cuda)
+    for k_ratio, q_blk, window in ((0.75, 128, None), (0.75, 128, 200),
+                                   (0.75, 16, None), (1.0, 128, None)):
+        block_idx, _, chunk = ops.prefill_blocks(q, lengths, k_ratio, 8,
+                                                 q_blk)
+        kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5,
+                  window=window)
+        before = LAUNCHES.copy()
+        out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+        ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
+        torch.cuda.synchronize()
+        assert LAUNCHES - before == {"aqua_prefill": 1}
+        assert out.shape == (b, h, s, d)
+        assert _within_tol(out, ref, f32), (k_ratio, q_blk, window)
+    for window, lens in ((None, lengths), (200, None)):
+        out = fk.flash_attention(q, k, v, causal=True, window=window,
+                                 lengths=lens)
+        ref = fk.flash_attention_plain(q, k, v, causal=True, window=window,
+                                       lengths=lens)
+        torch.cuda.synchronize()
+        assert _within_tol(out, ref, f32), window
+    for dtype in (f32, torch.bfloat16):
+        wq = torch.zeros(1, 4, 64, 264, device=cuda, dtype=dtype)
+        wk = torch.zeros(1, 1, 64, 264, device=cuda, dtype=dtype)
+        ln = torch.full((1,), 64, dtype=torch.int32, device=cuda)
+        idx, _, chunk = ops.prefill_blocks(wq, ln, 1.0, 8, 64)
+        with pytest.raises(ValueError):
+            pk.aqua_prefill_attention(wq, wk, wk, idx, ln, block_dims=8,
+                                      q_blk=chunk)
+        with pytest.raises(ValueError):
+            fk.flash_attention(wq, wk, wk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_value_slices_equal_narrow_calls(cuda, dtype):
+    """A value width of 256 runs as two 128-column slices, each walking the
+    same key tiles with the same scores: the output's halves are bit for
+    bit the calls on V's halves (RecurrentGemma's 192 of 256 selected dims,
+    under a window)."""
+    gen = torch.Generator(device="cuda").manual_seed(128)
+    b, h, kv, s, d = 2, 4, 1, 700, 256
+    q = _rand(gen, b, h, s, d, dtype=dtype)
+    k = _rand(gen, b, kv, s, d, dtype=dtype)
+    v = _rand(gen, b, kv, s, d, dtype=dtype)
+    lengths = torch.tensor([s, s - 123], dtype=torch.int32, device=cuda)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths, 0.75, 8, 128)
+    kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5,
+              window=300)
+    out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+    halves = [pk.aqua_prefill_attention(q, k, v[..., c:c + 128], block_idx,
+                                        lengths, **kw) for c in (0, 128)]
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.cat(halves, -1))
+
+
+# (dtype, d, h, kv): the narrow kernels at Qwen3-0.6B's geometry, and at
+# head dim 256 (RecurrentGemma's, 8 heads over one KV head) the engine's
+# wide kernels and the float32 slices
+REPEAT_CASES = [(torch.bfloat16, 128, 16, 8), (torch.bfloat16, 256, 8, 1),
+                (torch.float32, 256, 8, 1)]
+
+
+@pytest.mark.parametrize("dtype,d,h,kv", REPEAT_CASES)
+def test_flash_and_prefill_bitwise_repeatable(cuda, dtype, d, h, kv):
+    """Two calls on the same inputs give the same bits, whatever the
     timing of the ring and of the consumers' turns: flash (causal and
     windowed) and the prefill (plain, q_offset, participating chunks,
     window)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
-    b, h, kv, d, s, blk, bf = 2, 16, 8, 128, 1000, 128, torch.bfloat16
+    b, s, blk, bf = 2, 1000, 128, dtype
     q = _rand(gen, b, h, s, d, dtype=bf)
     k = _rand(gen, b, kv, s, d, dtype=bf)
     v = _rand(gen, b, kv, s, d, dtype=bf)
