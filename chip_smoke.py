@@ -39,7 +39,12 @@ Phases, each of which raises (non-zero exit) on failure:
    (B=1, S=1024, ``"form": "served"``: one wave of blocks, where
    per-block latency decides); flash at head_dim 80 (Danube's geometry)
    and the prefill at k_ratio 0.5 (an 8-chunk union with Dv 128), the
-   shapes that take the generic kernels (``"form": "generic"``); the
+   shapes that take the generic kernels (``"form": "generic"``); a lane
+   of length 0 beside a bucket-padded one (B=2, S=1024) in the prefill
+   and flash, narrow (Qwen3-0.6B's geometry) and generic (the shapes
+   above), bf16 and float32 (``"form": "empty_lane"``: each of its rows
+   the mean of V, held against the plain version; zeros, the kernels'
+   earlier answer, must fail); the
    prefill's ``q_offset`` form
    (chunked prefill: rows 3072-4095 of S=4096, also held against those
    rows of the monolithic call) and its participating-chunk walk
@@ -332,7 +337,38 @@ Phases, each of which raises (non-zero exit) on failure:
    phases, timed the same way, with SDPA in float32 as the library call;
    float32 bounds at the faster of 67 TFLOP/s outside the tensor cores
    and a third of 495 TFLOP/s TF32 (three passes).
-7. The ``{"kernels": [...]}`` line (the paged decode's and the prefill's
+7. Training and the evaluation path (``{"train": ...}`` and ``{"eval":
+   ...}`` lines). (a) Qwen3-0.6B at its full width and depth (28 layers,
+   d 1024, vocab 151936; float32 params, bf16 compute, remat) trained 10
+   steps through ``Trainer.run`` at JAX's CLI defaults (batch 8 of 64
+   tokens, lcg data, warmup 1), the launch counters zeroed before and
+   read after: no kernel launched (``auto`` under grad is ``dense``);
+   every loss finite, the last below the first; the step's wall-clock ms
+   (synchronized; the step is host-bound, and ``train_profile.py`` reads
+   the device's busy time), median of steps 2-10, tokens/s, peak memory
+   beside the state reckoned from the shapes (params, grads, two
+   moments: 16 bytes a param), the step's bounds (operations at 989
+   TFLOP/s; the optimizer's float32 passes at 3.35 TB/s). On the first
+   step's params and batch: bf16-compute gradients against a
+   float32-compute step (the loss within GRAD_LOSS_RTOL, every leaf's
+   cosine at least GRAD_COS_MIN, the global norm within GRAD_NORM_RTOL);
+   the planted fault, each block's attention output detached (what an
+   unguarded kernel would give autograd), must fail them; the same
+   forward on ``flash`` must raise the guard's ``NotImplementedError``.
+   (b) JAX's bench model (``benchmarks/common.py``: reduced Qwen3-0.6B,
+   vocab 128, d_model 96, 4 / 2 heads of 24, float32) trained 400 steps
+   on the copy task (sequence 64, batch 16, lr 3e-3, warmup 20; no kernel
+   launched) and calibrated on ``calibration_batches``; ``ServeEngine.
+   score`` on 4 held-out batches (seed0 50 000) with AQUA off and at
+   k_ratio 0.75 and 0.5 (block_dims 8), the counters zeroed before and
+   read after: flash, then the prefill kernel, once a layer a batch; each
+   score within F32_RTOL * |plain| + F32_ATOL of the plain backend's; the
+   copied half's ppl with AQUA off at most COPY_PPL_MAX; greedy tokens of
+   the continuous-batching engine (k_ratio 0.5) continuing the copy (at
+   least COPY_MATCH_MIN of them); a checkpoint resume (4 steps, a save
+   to a temporary directory, a fresh ``Trainer`` that restores, 4 more)
+   against 8 straight steps within RESUME_RTOL.
+8. The ``{"kernels": [...]}`` line (the paged decode's and the prefill's
    phases at groups 1 and 3 and at the MoE geometry under
    ``group_geometries``, with the launches of those configs' drives;
    flash's padded-admission form under ``lengths_form``, with the flash
@@ -347,12 +383,15 @@ Phases, each of which raises (non-zero exit) on failure:
    Whisper drive's launches; the prefill's and flash's wide kernels at
    RecurrentGemma-9B's geometry under ``wide_form`` (bf16) and
    ``wide_form_float32``, with the launches of the hybrid's AQUA and
-   AQUA-off drives in that dtype.
+   AQUA-off drives in that dtype; the length-0 checks under
+   ``empty_lane_form``; ``launches_by_path`` adds the score
+   path's launches (``score``) and the training runs' (``train``: none).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -1113,6 +1152,55 @@ def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
                 device_us=device_us(kernel),
                 live_pair_share=pairs / (s * (s + 1) / 2), bound_ms=bms,
                 bound_by=by, peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def empty_lane_phase(kernel: str, variant: str, dtype: str, gen,
+                     s: int = 1024, pad: int = 21) -> dict:
+    """A lane of length 0 beside a bucket-padded admission (B=2, lengths
+    ``s - pad`` and 0): each row of the empty lane must be the mean of its
+    V over all S keys (JAX's dense reference and the plain version), every
+    row of both lanes held against the plain version at its dtype's
+    limit; the planted fault is the kernels' earlier answer, zeros in the
+    empty lane. ``variant`` "narrow": Qwen3-0.6B's geometry (head_dim 128;
+    the prefill at K_RATIO, a 12-chunk union); "generic": the generic
+    kernels' shapes (flash at H2O-Danube-1.8B's head_dim 80, the prefill
+    at k_ratio 0.5, an 8-chunk union). Causal, q_blk 128."""
+    import torch
+    from repro_torch.kernels import aqua_prefill as pk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels.ops import prefill_blocks
+
+    generic = variant == "generic"
+    geom, h, kvh, d = (("h2o-danube-1.8b", 32, 8, 80)
+                       if generic and kernel == "flash_attention"
+                       else ("qwen3-0.6b", 16, 8, 128))
+    b, dev, dt = 2, "cuda", getattr(torch, dtype)
+    q = torch.randn(b, h, s, d, device=dev, generator=gen).to(dt)
+    k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(dt)
+    v = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(dt)
+    lengths = torch.tensor([s - pad, 0], dtype=torch.int32, device=dev)
+    shape = dict(B=b, H=h, KV=kvh, S=s, D=d, lengths=[s - pad, 0])
+    if kernel == "flash_attention":
+        out = fk.flash_attention(q, k, v, causal=True, lengths=lengths)
+        ref = fk.flash_attention_plain(q, k, v, causal=True,
+                                       lengths=lengths)
+    else:
+        k_ratio = 0.5 if generic else K_RATIO
+        block_idx, _, q_blk = prefill_blocks(q, lengths, k_ratio,
+                                             BLOCK_DIMS, 128)
+        kw = dict(block_dims=BLOCK_DIMS, q_blk=q_blk, causal=True,
+                  scale=d ** -0.5)
+        out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+        ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
+        shape["k_ratio"] = k_ratio
+    zeros = out.clone()
+    zeros[1] = 0
+    mean = v[1].float().mean(1).repeat_interleave(h // kvh, 0)[:, None]
+    return dict(name=kernel, geometry=geom, form="empty_lane",
+                variant=variant, dtype=dtype, route=attention_route(
+                    q.element_size()), shape=shape,
+                mean_of_v_err=(out[1].float() - mean).abs().max().item(),
+                **check_kernel(out, ref, {"zeros_in_empty_lane": zeros}))
 
 
 def flash_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
@@ -3527,6 +3615,334 @@ def hf_serve_phase(card: str, gen) -> dict:
     return dict(result, phases=phases, f32_launches=f32_launches)
 
 
+# the training phase (7a): Qwen3-0.6B at its full width and depth through
+# Trainer.run at JAX's CLI defaults (batch 8 of 64 tokens, lcg data,
+# warmup 1), 10 steps
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 8, 64
+# its first step's bf16-compute gradients against a float32-compute step
+# on the same params and batch: the loss within 1e-3 relative, every
+# leaf's cosine at least 0.999 and the global norm within 1e-3 relative
+# (each about 10x the sound readings on the H100: 6.8e-5, 0.99963 and
+# 2.8e-5, PERF.md). The planted fault (each block's attention output
+# detached, as an unguarded kernel's would be: zero gradients into q, k
+# and v) must fail them; its forward is the sound one, so its cosine and
+# norm fail, not its loss.
+GRAD_LOSS_RTOL, GRAD_COS_MIN, GRAD_NORM_RTOL = 1e-3, 0.999, 1e-3
+# the evaluation path (7b): JAX's bench model (benchmarks/common.py),
+# trained on the copy task; its ppl over the copied half with AQUA off
+# (JAX's eval_nll; the reference's rows read 1.0005 at k_ratio 0.5)
+COPY_PPL_MAX = 1.01
+# greedy tokens of the continuous-batching engine that continue the copy
+COPY_MATCH_MIN = 0.9
+# a checkpoint resume (4 steps, a save, a fresh Trainer that restores, 4
+# more) against 8 straight steps: CUDA's embedding backward adds with
+# atomics (no deterministic algorithms are asked for), so each loss within
+# 1e-4 relative and the params within 1e-4 of their norm
+RESUME_RTOL = 1e-4
+
+
+def _detached_dense():
+    """A ``dense`` backend whose output carries no gradient: what a kernel
+    launched without the guard would give autograd."""
+    from repro_torch.core import attention as attn
+
+    def prefill(*args, **kw):
+        out, weights = attn._dense_prefill(*args, **kw)
+        return out.detach(), weights
+    if "dense-detached" not in attn.available_backends():
+        attn.register_backend(attn.AttentionBackend("dense-detached",
+                                                    prefill))
+    return "dense-detached"
+
+
+def _with_backend(mcfg, backend: str):
+    return dataclasses.replace(mcfg, attention=dataclasses.replace(
+        mcfg.attention, backend=backend))
+
+
+def grad_agreement(grads, want) -> dict:
+    """Per-leaf cosines and the global norms of two gradient trees."""
+    import torch
+    from repro_torch import tree as tree_lib
+    cos = {}
+    for (k, g), w in zip(tree_lib.items(grads), tree_lib.leaves(want)):
+        g, w = g.double().flatten(), w.double().flatten()
+        den = g.norm() * w.norm()
+        cos[k] = float(g @ w / den) if den > 0 else 0.0
+    norm = lambda t: float(torch.sqrt(sum(  # noqa: E731
+        x.double().square().sum() for x in tree_lib.leaves(t))))
+    gn, wn = norm(grads), norm(want)
+    worst = min(cos, key=cos.get)
+    return dict(min_cosine=cos[worst], min_cosine_leaf=worst,
+                global_norm=gn, reference_norm=wn,
+                norm_rel_err=abs(gn - wn) / wn)
+
+
+def qwen3_training(card: str) -> dict:
+    """7a: Qwen3-0.6B trained TRAIN_STEPS steps at full width and depth
+    (float32 params, bf16 compute, remat on) through ``Trainer.run``, the
+    launch counters zeroed before and read after (the training forward
+    runs no kernel: ``auto`` under grad is ``dense``); its step times,
+    peak memory against the state reckoned from the shapes, the step's
+    bounds; then the gradient agreement, its planted fault and the
+    guard."""
+    import gc
+    import statistics
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import Trainer, loss_and_grads
+    from repro_torch.models import build_model
+
+    mcfg = get_config("qwen3-0.6b")
+    assert mcfg.remat and mcfg.dtype == "bfloat16" \
+        and mcfg.param_dtype == "float32", mcfg
+    # JAX's CLI at --steps 10: warmup max(1, steps // 10)
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=1,
+                       checkpoint_every=max(10, TRAIN_STEPS // 4))
+    dcfg = DataConfig(vocab_size=mcfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    trainer = Trainer(mcfg, tcfg, dcfg)
+    step_fn, times = trainer._step_fn, []
+
+    # wall-clock ms a step, synchronized on both sides (the step is
+    # host-bound: CUDA events around it read the same; train_profile.py
+    # reads the device's busy time)
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+    trainer._step_fn = timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, losses = trainer.run(TRAIN_STEPS, log_every=5)
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert not any(launches.values()), launches
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], \
+        losses
+    params = state.params
+    n = sum(t.numel() for t in tree_lib.leaves(params))
+    # float32 params, grads and both moments
+    reckoned = 4 * n * 4
+    # operations: every matrix product forward (2 per multiply-add), twice
+    # that backward, remat's recompute of each block's forward, and the
+    # attention's scores and P·V over all S keys (the dense reference)
+    att = mcfg.attention
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_blocks = sum(t.numel() for t in tree_lib.leaves(params["layers"]))
+    n_unembed = mcfg.vocab_size * mcfg.d_model
+    attn_fwd = (4 * TRAIN_BATCH * TRAIN_SEQ ** 2 * att.num_heads
+                * att.head_dim * mcfg.num_layers)
+    fwd = 2 * tokens * (n_blocks + n_unembed) + attn_fwd
+    ops = 3 * fwd + 2 * tokens * n_blocks + attn_fwd
+    # bytes: the optimizer alone reads params, grads and moments and writes
+    # params and moments, float32
+    nbytes = 7 * 4 * n
+    bms, by = bound(nbytes, ops)
+    step_ms = statistics.median(times[1:])
+    del trainer, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gradient check on the first step's params and batch
+    fresh = Trainer(mcfg, tcfg, dcfg)
+    params = fresh.init_state(tcfg.seed).params
+    batch = fresh.batch(0)
+    l16, g16 = loss_and_grads(fresh.model, params, batch)
+    m32 = build_model(dataclasses.replace(mcfg, dtype="float32"))
+    l32, g32 = loss_and_grads(m32, params, batch)
+    agree = grad_agreement(g16, g32)
+    agree["loss"], agree["reference_loss"] = float(l16), float(l32)
+    agree["loss_rel_err"] = abs(float(l16) - float(l32)) / abs(float(l32))
+    del g16
+    faulty = build_model(_with_backend(mcfg, _detached_dense()))
+    lf, gf = loss_and_grads(faulty, params, batch)
+    fault = grad_agreement(gf, g32)
+    fault["loss_rel_err"] = abs(float(lf) - float(l32)) / abs(float(l32))
+    del gf, g32
+
+    def within(a):
+        return (a["loss_rel_err"] <= GRAD_LOSS_RTOL
+                and a["min_cosine"] >= GRAD_COS_MIN
+                and a["norm_rel_err"] <= GRAD_NORM_RTOL)
+    agree["ok"], fault["ok"] = within(agree), within(fault)
+    assert agree["ok"], agree
+    assert not fault["ok"], fault
+    reset_counts()
+    try:
+        loss_and_grads(build_model(_with_backend(mcfg, "flash")), params,
+                       batch)
+        guard = "did not raise"
+    except NotImplementedError as e:
+        guard = str(e)
+    assert guard != "did not raise" and "no reverse mode" in guard, guard
+    assert not any(launch_counts().values()), launch_counts()
+    del fresh, params, m32, faulty
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        card=card, model=mcfg.name, layers=mcfg.num_layers,
+        d_model=mcfg.d_model, vocab=mcfg.vocab_size, params=n,
+        param_dtype=mcfg.param_dtype, compute_dtype=mcfg.dtype,
+        remat=mcfg.remat, batch=TRAIN_BATCH, seq=TRAIN_SEQ, data="lcg",
+        steps=TRAIN_STEPS, losses=losses, run_s=run_s,
+        step_wall_ms=step_ms, step_times_wall_ms=times,
+        tokens_per_s=tokens / (step_ms / 1e3),
+        peak_bytes=peak, reckoned_state_bytes=reckoned,
+        flop_bound_ms=ops / BF16_OPS_PER_S * 1e3,
+        byte_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_ms=bms,
+        bound_by=by, ops=ops, optimizer_bytes=nbytes,
+        launches=launches, grad_agreement=agree, planted_fault=fault,
+        guard=guard, limits=dict(loss_rtol=GRAD_LOSS_RTOL,
+                                 min_cosine=GRAD_COS_MIN,
+                                 norm_rtol=GRAD_NORM_RTOL))
+
+
+def eval_phase(card: str) -> dict:
+    """7b: the evaluation path of ``benchmarks/common.py`` on the card. The
+    bench model (reduced Qwen3-0.6B, vocab 128, d_model 96: 4 / 2 heads of
+    24, float32) trained 400 steps on the copy task (no kernel launched),
+    calibrated on ``calibration_batches``, then ``ServeEngine.score`` on
+    4 held-out batches (seed0 50 000) with AQUA off and at k_ratio 0.75
+    and 0.5 (block_dims 8): each score through the kernels (launch
+    counters zeroed before, read after) against the same score through
+    the plain backend (``dense``, flash's plain form, with AQUA off;
+    ``aqua-block-sparse-plain`` with it), within the float32 limit; the
+    copied half's ppl;
+    the trained model's greedy tokens through the continuous-batching
+    engine; a checkpoint resume against straight steps."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import AquaConfig, ServingConfig, reduced
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.calibration import calibrate, capture_forward
+    from repro_torch.data.pipeline import (DataConfig, calibration_batches,
+                                           make_batch)
+    from repro_torch.launch.train import Trainer, to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import cross_entropy
+    from repro_torch.serving import (ContinuousBatchingEngine, Request,
+                                     ServeEngine)
+
+    cfg = reduced("qwen3-0.6b", vocab=128, d_model=96)
+    assert cfg.dtype == "float32" and not cfg.remat
+    dcfg = DataConfig(vocab_size=128, seq_len=64, global_batch=16,
+                      kind="copy")
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=20, total_steps=400)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, losses = Trainer(cfg, tcfg, dcfg).run(400, log_every=100)
+    train_s = time.perf_counter() - t0
+    assert not any(launch_counts().values()), launch_counts()
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    params = state.params
+    proj = calibrate(capture_forward(build_model(cfg)), params,
+                     calibration_batches(cfg, num_batches=4, batch=4,
+                                         seq=64), cfg)
+    held = [make_batch(dcfg, 50_000 + i) for i in range(4)]
+    rows, score_launches = [], {}
+    for k in (None, 0.75, 0.5):
+        ck = cfg if k is None else cfg.with_aqua(
+            AquaConfig(k_ratio=k, block_dims=8))
+        plain = "dense" if k is None else "aqua-block-sparse-plain"
+        eng = ServeEngine(ck, params, proj, max_seq=64)
+        ref = ServeEngine(ck, params, proj, max_seq=64, backend=plain)
+        reset_counts()
+        got = [float(eng.score(b)) for b in held]
+        launches = launch_counts()
+        want = [float(ref.score(b)) for b in held]
+        err = max(abs(g - w) / (F32_RTOL * abs(w) + F32_ATOL)
+                  for g, w in zip(got, want))
+        copy_nll = []
+        for b in held:
+            b = to_device(b, eng.device)
+            logits = eng.model.forward(eng.params, b, aqua_proj=eng.proj)
+            copy_nll.append(float(cross_entropy(logits, b["labels"],
+                                                b["loss_mask"])))
+        kernel = "flash_attention" if k is None else "aqua_prefill"
+        assert launches[kernel] > 0 and err <= 1.0, (k, launches, err)
+        for name, n in launches.items():
+            score_launches[name] = score_launches.get(name, 0) + n
+        rows.append(dict(k_ratio=k, block_dims=None if k is None else 8,
+                         ppl=math.exp(np.mean(got)),
+                         plain_ppl=math.exp(np.mean(want)),
+                         copy_ppl=math.exp(np.mean(copy_nll)),
+                         scores=got, plain_scores=want,
+                         worst_ratio_to_limit=err, kernel=kernel,
+                         launches=launches[kernel], plain_backend=plain))
+    assert rows[0]["copy_ppl"] <= COPY_PPL_MAX, rows[0]
+    # greedy continuations of the copy through the continuous-batching
+    # engine (k_ratio 0.5): a prompt of the prefix and 7 copied tokens,
+    # 16 new tokens that should continue the copy
+    c5 = cfg.with_aqua(AquaConfig(k_ratio=0.5, block_dims=8))
+    cb = ContinuousBatchingEngine(c5, params, proj, serving=ServingConfig(
+        max_lanes=4, max_seq=128, max_new_tokens=16))
+    b = held[0]
+    reqs = [Request(uid=i, tokens=b["tokens"][i, :40], max_new_tokens=16)
+            for i in range(8)]
+    reset_counts()
+    outs = cb.run(reqs)
+    cb_launches = launch_counts()
+    target = b["labels"][:8, 39:55]
+    match = float(np.mean([np.array(outs[i].tokens) == target[i]
+                           for i in range(8)]))
+    assert match >= COPY_MATCH_MIN and cb_launches["aqua_prefill"] > 0 \
+        and cb_launches["aqua_paged_decode"] + cb_launches[
+            "aqua_decode"] > 0, (match, cb_launches)
+    # a checkpoint resume
+    rt = TrainConfig(learning_rate=3e-3, warmup_steps=2, total_steps=8,
+                     checkpoint_every=4)
+    ck = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        s1, l1 = Trainer(cfg, rt, dcfg).run(8, log_every=100)
+        _, l2 = Trainer(cfg, rt, dcfg, ckpt_dir=ck).run(4, log_every=100)
+        saved = sorted(os.listdir(ck))
+        s3, l3 = Trainer(cfg, rt, dcfg, ckpt_dir=ck).run(4, log_every=100)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l2 + l3, l1))
+    diff = torch.sqrt(sum((a - b).double().square().sum() for a, b in zip(
+        tree_lib.leaves(s3.params), tree_lib.leaves(s1.params))))
+    scale = torch.sqrt(sum(a.double().square().sum()
+                           for a in tree_lib.leaves(s1.params)))
+    param_err = float(diff / scale)
+    resume = dict(steps=[4, 4], straight=8, saved=saved, losses=l2 + l3,
+                  straight_losses=l1, loss_rel_err=loss_err,
+                  param_rel_err=param_err, rtol=RESUME_RTOL,
+                  deterministic_algorithms=False)
+    assert int(s3.step) == 8 and loss_err <= RESUME_RTOL \
+        and param_err <= RESUME_RTOL, resume
+    del cb, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(card=card, model="reduced qwen3-0.6b (vocab 128, d_model 96)",
+                heads=cfg.attention.num_heads,
+                kv_heads=cfg.attention.num_kv_heads,
+                head_dim=cfg.attention.head_dim, dtype=cfg.dtype,
+                train_steps=400, train_s=train_s, first_loss=losses[0],
+                last_loss=losses[-1], rows=rows,
+                score_launches=score_launches, f32_rtol=F32_RTOL,
+                f32_atol=F32_ATOL, copy_ppl_max=COPY_PPL_MAX,
+                serve=dict(engine="ContinuousBatchingEngine", k_ratio=0.5,
+                           requests=8, lanes=4, copy_match=match,
+                           min_match=COPY_MATCH_MIN, launches=cb_launches),
+                resume=resume)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3728,11 +4144,17 @@ def main() -> int:
             for dtype in ("bfloat16", "float32")}
     for pair in wide.values():
         phases += pair
-    for p in phases:
+    # a lane of length 0 (ServeEngine.generate passes a caller's lengths
+    # through): the narrow and generic kernels of both, in both dtypes
+    empty = [empty_lane_phase(name, variant, dtype, gen)
+             for name in ("aqua_prefill", "flash_attention")
+             for variant in ("narrow", "generic")
+             for dtype in ("bfloat16", "float32")]
+    for p in phases + empty:
         log(p)
     log({"read_rate": read_rate()})
     log_time("kernel phases")
-    bad = [p for p in phases if not p["ok"]]
+    bad = [p for p in phases + empty if not p["ok"]]
     assert not bad, f"kernel disagrees with its plain version: {bad}"
 
     serve = serve_phase(card, prof)
@@ -3740,6 +4162,11 @@ def main() -> int:
     configs.update(frontend_drive_phase(card))
     recurrent = recurrent_drive_phase(card)
     hf = hf_serve_phase(card, gen)
+    train = qwen3_training(card)
+    log({"train": train})
+    evaluation = eval_phase(card)
+    log({"eval": evaluation})
+    log_time("training and evaluation")
     src = "src/repro_torch/kernels/csrc/"
     tpu = "src/repro/kernels/"
     sources = {
@@ -3824,6 +4251,17 @@ def main() -> int:
             max_abs_err=lp["max_abs_err"], ms=lp["ms"],
             plain_ms=lp["plain_ms"], bound_ms=lp["bound_ms"],
             bound_by=lp["bound_by"], library_ms=lp["library_ms"])
+    # a lane of length 0 in each kernel, dtype and variant (correctness
+    # forms: no times)
+    for k in kernels:
+        rows = [dict(variant=p["variant"], dtype=p["dtype"],
+                     geometry=p["geometry"], shape=p["shape"],
+                     max_abs_err=p["max_abs_err"], tol_ratio=p["tol_ratio"],
+                     mean_of_v_err=p["mean_of_v_err"],
+                     fault_tol_ratios=p["fault_tol_ratios"])
+                for p in empty if p["name"] == k["name"]]
+        if rows:
+            k["empty_lane_form"] = rows
     # the float32 routes, launched by the HF checkpoint's drives
     for p in hf["phases"]:
         assert hf["f32_launches"][p["name"]] > 0, (p["name"], hf)
@@ -3849,6 +4287,12 @@ def main() -> int:
             k["group_geometries"] = rows
         k["launches_by_config"] = {c: configs[c]["launches"][k["name"]]
                                    for c in configs}
+    # the evaluation path's launches (ServeEngine.score): the prefill
+    # kernel with AQUA on, flash with it off; the training runs none
+    for k in kernels:
+        k["launches_by_path"]["score"] = evaluation["score_launches"][
+            k["name"]]
+        k["launches_by_path"]["train"] = train["launches"][k["name"]]
     assert sorted(k["name"] for k in kernels) == sorted(KERNELS)
     log_time("done")
     log(card)                      # name, power.limit as nvidia-smi prints

@@ -2,7 +2,7 @@
 """Race the prefill, flash and decode kernels of several checkouts on one
 GPU.
 
-    python3 kernel_race.py OUT.jsonl PARENT_DIR . . PARENT_DIR
+    python3 kernel_race.py [--lengths] OUT.jsonl PARENT_DIR . . PARENT_DIR
 
 Each directory is a checkout of the repo whose ``src/`` is the tree under
 test; ``git archive <commit>`` unpacked into a gitignored directory gives
@@ -43,6 +43,13 @@ Per tree:
   calls; the five repeats of 2000 calls, sorted), and of one
   ``cuTensorMapEncodeTiled`` call through ctypes beside a no-op ctypes
   call (the bf16 flash encodes two maps a launch, the prefill five).
+
+With ``--lengths`` only the forms that mask keys by ``lengths`` run, at
+S=2048 with the last 21 rows past the length (a bucket-padded
+admission): flash's generic kernel (head_dim 80, H2O-Danube-1.8B's
+geometry) with and without ``lengths``, flash at Qwen3-0.6B's geometry,
+and the prefill's generic kernel (k_ratio 0.5, which always passes
+``lengths``); no step graph and no host timings.
 
 Each phase appends one JSON line to OUT with ``"tree"`` set to its
 directory; the card's name and power limit (``nvidia-smi``) head the
@@ -137,7 +144,19 @@ def f32_step_graph(cs) -> dict:
     return cs.step_graph_phase("f32_paged", eng, reqs, trace=True)
 
 
-def one_tree(tree: str, out_path: str) -> int:
+def lengths_phases(cs, gen) -> list:
+    """The forms that mask keys by ``lengths`` (``--lengths``)."""
+    return [lambda: cs.flash_phase("h2o-danube-1.8b", 32, 8, gen, d=80,
+                                   form="generic"),
+            lambda: cs.flash_phase("h2o-danube-1.8b", 32, 8, gen, d=80,
+                                   form="generic_lengths", pad=21),
+            lambda: cs.flash_phase("qwen3-0.6b", 16, 8, gen,
+                                   form="lengths", pad=21),
+            lambda: cs.prefill_phase("qwen3-0.6b", 16, 8, gen, k_ratio=0.5,
+                                     form="generic_lengths", pad=21)]
+
+
+def one_tree(tree: str, out_path: str, only_lengths: bool = False) -> int:
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
@@ -156,6 +175,8 @@ def one_tree(tree: str, out_path: str) -> int:
             if "C7511" in line or "spill" in line and "bf16" in line:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if only_lengths:
+        return run_phases(cs, tree, out_path, lengths_phases(cs, gen))
     phases = []
     for geom, h, kvh in (("qwen3-0.6b", 16, 8), ("llama3.1-8b", 32, 8)):
         phases += [lambda g=geom, h=h, kv=kvh: cs.prefill_phase(g, h, kv, gen),
@@ -198,6 +219,13 @@ def one_tree(tree: str, out_path: str) -> int:
                        cs.paged_variant_phase(g, h, kv, qt, pt, gen, s=2048,
                                               len_range=(128, 1056),
                                               form="served")]
+    return run_phases(cs, tree, out_path, phases, gen)
+
+
+def run_phases(cs, tree: str, out_path: str, phases: list, gen=None) -> int:
+    """Each phase's line to OUT; with ``gen`` also the float32 step graph
+    and the host timings. 0 if every kernel agreed with its plain
+    version."""
     ok = True
     with open(out_path, "a") as out:
         for run in phases:
@@ -210,20 +238,27 @@ def one_tree(tree: str, out_path: str) -> int:
             line = dict({k: p.get(k) for k in KEEP}, tree=tree)
             out.write(json.dumps(line) + "\n")
             ok = ok and p["ok"]
-        graph = f32_step_graph(cs)
-        out.write(json.dumps({"tree": tree, "step_graph": graph}) + "\n")
-        out.write(json.dumps({"tree": tree, "host_us": host_us(gen)}) + "\n")
+        if gen is not None:
+            graph = f32_step_graph(cs)
+            out.write(json.dumps({"tree": tree, "step_graph": graph})
+                      + "\n")
+            out.write(json.dumps({"tree": tree, "host_us": host_us(gen)})
+                      + "\n")
     return 0 if ok else 1
 
 
 def main() -> int:
-    if sys.argv[1] == "--one":
-        return one_tree(sys.argv[2], sys.argv[3])
+    args = sys.argv[1:]
+    only_lengths = args[0] == "--lengths"
+    if only_lengths:
+        args = args[1:]
+    if args[0] == "--one":
+        return one_tree(args[1], args[2], only_lengths)
     import torch
     if not torch.cuda.is_available():
         print("kernel_race: no CUDA device", file=sys.stderr)
         return 1
-    out_path, trees = sys.argv[1], sys.argv[2:]
+    out_path, trees = args[0], args[1:]
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
@@ -231,8 +266,9 @@ def main() -> int:
     print("card:", cs.card_line(), flush=True)
     rc = 0
     for tree in trees:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", tree, out_path]).returncode
+        r = subprocess.run([sys.executable, os.path.abspath(__file__)]
+                           + ["--lengths"] * only_lengths
+                           + ["--one", tree, out_path]).returncode
         print(f"tree {tree}: rc {r}", flush=True)
         rc = rc or r
     rows = [json.loads(line) for line in open(out_path)]

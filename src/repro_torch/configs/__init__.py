@@ -13,7 +13,7 @@ from typing import Dict
 from repro_torch.configs.base import (  # noqa: F401
     AquaConfig, AttentionConfig, CacheSpec, FrontendConfig, ModelConfig,
     MoEConfig, QuantSpec, RGLRUConfig, ServingConfig, SparsitySpec,
-    SSMConfig, reduce_config,
+    SSMConfig, TrainConfig, reduce_config,
     resolve_cache_specs, resolve_eviction, resolve_sparsity_spec,
 )
 

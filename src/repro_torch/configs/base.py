@@ -1,12 +1,12 @@
 """Configuration dataclasses of the PyTorch port (stdlib only).
 
 The port's own copy of the JAX package's ``configs/base.py``, cut to what
-the serving path uses: ``AquaConfig``, ``AttentionConfig``,
+the serving and training paths use: ``AquaConfig``, ``AttentionConfig``,
 ``MoEConfig``, ``SSMConfig``, ``RGLRUConfig``, ``FrontendConfig``,
 ``ModelConfig``, ``reduce_config``,
 ``CacheSpec``,
-``QuantSpec``, ``SparsitySpec`` (with their resolvers) and
-``ServingConfig``.
+``QuantSpec``, ``SparsitySpec`` (with their resolvers),
+``ServingConfig`` and ``TrainConfig``.
 Field names and defaults match the JAX package so a config built from the
 same arguments means the same thing in both.
 """
@@ -153,6 +153,7 @@ class ModelConfig:
     max_positions: int = 32768    # learned-position table (use_rope=False)
     dtype: str = "bfloat16"       # activation/compute dtype
     param_dtype: str = "float32"
+    remat: bool = True            # activation checkpointing per block
     # long-context capability flag of the JAX package's shape table
     skip_long_context: bool = False
 
@@ -214,7 +215,8 @@ def reduce_config(cfg: ModelConfig, *, layers: int = 2, d_model: int = 64,
     if cfg.num_encoder_layers:
         kw["num_encoder_layers"] = 2
     return replace(cfg, num_layers=layers, d_model=d_model, vocab_size=vocab,
-                   d_ff=ff, attention=att, moe=moe, dtype="float32", **kw)
+                   d_ff=ff, attention=att, moe=moe, remat=False,
+                   dtype="float32", **kw)
 
 
 @dataclass(frozen=True)
@@ -403,3 +405,22 @@ class ServingConfig:
         if cache.page_size is not None:
             assert self.max_seq % cache.page_size == 0, \
                 (self.max_seq, cache.page_size)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and checkpoint knobs of ``launch/train.py``
+    (the JAX package's ``TrainConfig``, field for field)."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    microbatches: int = 1          # gradient accumulation
+    grad_compress: bool = False    # int8 error-feedback allreduce
+    seed: int = 0
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3

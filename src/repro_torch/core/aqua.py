@@ -3,7 +3,10 @@
 * offline SVD projection (per GQA group), via eigh of the Gram matrix;
 * dynamic magnitude-based dim-block selection (per query, or per query
   chunk for the prefill kernel), which a :class:`SelectionTape` can
-  record and replay.
+  record and replay;
+* the fidelity helpers of the JAX package: the GQA calibration matrix,
+  approximate scores, AQUA-Memory's static slice, the information
+  retention loss (§6.2), LoKi's slicing mask and weight folding.
 
 Tie-break: ``jax.lax.top_k`` keeps the lower index among equal values and
 ``torch.topk`` promises no order, so selection here is a *stable*
@@ -30,6 +33,21 @@ def compute_projection(d_calib: torch.Tensor) -> torch.Tensor:
     eigval, eigvec = torch.linalg.eigh(gram)
     order = torch.argsort(eigval, descending=True, stable=True)
     return eigvec[:, order]
+
+
+def gqa_calibration_matrix(queries: torch.Tensor, keys: torch.Tensor
+                           ) -> torch.Tensor:
+    """Stack a GQA group's queries and its shared key head (paper §6.3):
+    queries (group_size, M, d_head), keys (M, d_head) -> ((group_size +
+    1) * M, d_head)."""
+    g, m, d = queries.shape
+    return torch.cat([queries.reshape(g * m, d), keys], dim=0)
+
+
+def check_orthogonal(p: torch.Tensor, atol: float = 1e-3) -> torch.Tensor:
+    """Whether ``p p^T`` is the identity within ``atol`` (0-d bool)."""
+    eye = torch.eye(p.shape[-1], dtype=p.dtype, device=p.device)
+    return (p @ p.transpose(-1, -2) - eye).abs().max() < atol
 
 
 def ceil_to(n: int, m: int) -> int:
@@ -209,3 +227,42 @@ def project(x: torch.Tensor, p: Optional[torch.Tensor]) -> torch.Tensor:
     if p is None:
         return x
     return x @ p.to(x.dtype)
+
+
+def approx_scores(q_hat: torch.Tensor, khat: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """S̃ = (q̂ ⊙ m) K̂ᵀ, alg. 1 lines 6-8 in masked-dense form: q_hat
+    (..., d), khat (..., S, d), mask broadcastable to q_hat -> (..., S)."""
+    return torch.einsum("...d,...sd->...s", q_hat * mask, khat)
+
+
+def static_slice(v_hat: torch.Tensor, cfg, head_dim: int) -> torch.Tensor:
+    """AQUA-Memory (paper §8.4 stage 1): drop the trailing
+    (lowest-variance) principal dims before caching, keeping
+    ``cfg.kept_dims(head_dim)``."""
+    return v_hat[..., :cfg.kept_dims(head_dim)]
+
+
+def info_retention_loss(v: torch.Tensor, v_hat: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """L_info = | ||v|| - ||v̂ ⊙ m|| | / ||v|| over the last axis (paper
+    §6.2), in float32."""
+    norm_v = torch.linalg.vector_norm(v.float(), dim=-1)
+    norm_kept = torch.linalg.vector_norm(v_hat.float() * mask, dim=-1)
+    return (norm_v - norm_kept).abs() / torch.clamp(norm_v, min=1e-12)
+
+
+def slicing_mask(d: int, k_dims: int, like: torch.Tensor) -> torch.Tensor:
+    """The LoKi-style static slice (the first ``k_dims`` dims), the
+    baseline of the paper's Fig. 2: a 0/1 mask of ``like``'s shape and
+    dtype."""
+    m = (torch.arange(d, device=like.device) < k_dims).to(like.dtype)
+    return m.expand(*like.shape[:-1], d)
+
+
+def fold_projection_into_weights(wq: torch.Tensor, wk: torch.Tensor,
+                                 p: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(W_Q P, W_K P): legal only when nothing (RoPE) sits between the
+    projection and its use. wq / wk (..., d_head); p (d_head, d_head)."""
+    return wq @ p, wk @ p

@@ -309,12 +309,18 @@ def get_backend(name: str) -> AttentionBackend:
 
 
 def resolve_backend(name: str = "auto",
-                    aqua: Optional[AquaConfig] = None) -> AttentionBackend:
+                    aqua: Optional[AquaConfig] = None,
+                    grad: bool = False) -> AttentionBackend:
     """``auto`` is ``aqua-block-sparse`` with AQUA on and ``flash`` with it
     off; an AQUA-native backend with AQUA off resolves to ``flash`` (there
-    are no projections to select over). ``dense`` is never chosen
-    automatically."""
+    are no projections to select over). ``grad`` (a call that autograd
+    differentiates): ``auto`` is ``aqua-masked-dense`` with AQUA on and
+    ``dense`` with it off, JAX's ``auto`` off the TPU and the only
+    backends reverse mode runs through (the kernels have none and raise
+    under grad). ``dense`` is never chosen automatically otherwise."""
     aqua_on = _aqua_on(aqua)
+    if name in (None, "", "auto") and grad:
+        name = "aqua-masked-dense" if aqua_on else "dense"
     if name in (None, "", "auto"):
         name = "aqua-block-sparse" if aqua_on else "flash"
     be = get_backend(name)
@@ -510,7 +516,10 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     causal = cfg.causal and kv_x is None
     aqua_on = _aqua_on(aqua)
     qh, kh = _aqua_project(q, k, aqua, proj, cfg.head_dim)
-    backend = resolve_backend(cfg.backend, aqua=aqua)
+    backend = resolve_backend(cfg.backend, aqua=aqua,
+                              grad=torch.is_grad_enabled()
+                              and (q.requires_grad or k.requires_grad
+                                   or v.requires_grad))
     if kv_x is not None:
         backend = get_backend("dense")
     if backend.aqua_native and not _whole_blocks(aqua, cfg.head_dim):

@@ -27,12 +27,32 @@ from collections import Counter
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("aqua_decode", "aqua_prefill", "flash_attention")
 LAUNCHES: Counter = Counter()
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when autograd would differentiate
+    through kernel ``name``: grad mode on and some input requires grad.
+    The hand-written kernels, like JAX's Pallas kernels, have no reverse
+    mode, and their outputs (written through raw pointers) carry no
+    ``grad_fn``: a loss through them would backpropagate nothing into
+    q, k and v. Both devices refuse, as JAX's interpret mode does."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the hand-written kernels have no reverse mode (as "
+            "JAX's Pallas kernels have none); differentiate through the "
+            "`dense` or `aqua-masked-dense` attention backend (what "
+            "`auto` picks under grad), or run inference under "
+            "torch.no_grad()")
+
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -252,6 +252,7 @@ def aqua_decode_attention(q_hat: torch.Tensor, khat: torch.Tensor,
     key cache; v (B, KV, S, Dv); block_idx (B, H, NB_sel) int32 selected
     dim-blocks; lengths (B,) int32. ``scale`` defaults to 1/sqrt(D).
     Returns (B, H, Dv) in v's dtype."""
+    _build.refuse_grad("aqua_decode", q_hat, khat, v)
     if scale is None:
         scale = 1.0 / q_hat.shape[-1] ** 0.5
     if _on_cpu(q_hat):
@@ -279,6 +280,7 @@ def aqua_paged_decode_attention(q_hat: torch.Tensor, k_pool: torch.Tensor,
     take k_scale / v_scale (P, SH) float32 and return float32. part_idx
     (B, KP) int32 (sorted logical pages, ``core.selection``) restricts
     the walk to those pages."""
+    _build.refuse_grad("aqua_paged_decode", q_hat, k_pool, v_pool)
     if scale is None:
         scale = 1.0 / q_hat.shape[-1] ** 0.5
     if _on_cpu(q_hat):

@@ -171,7 +171,10 @@ def aqua_prefill_attention(q_hat: torch.Tensor, khat: torch.Tensor,
     none) keeps only keys ``kpos > qpos - window``, causal or not, as the
     Pallas kernels do. ``scale`` defaults to 1/sqrt(D). Returns (B, H, T,
     Dv); rows at or past a row's length attend every valid key, as the
-    Pallas kernel's (an MoE routes a padded admission's pad rows)."""
+    Pallas kernel's (an MoE routes a padded admission's pad rows); a lane
+    of length 0 gets the mean of its V over all S keys in every row, as
+    the plain version and JAX's dense reference give."""
+    _build.refuse_grad("aqua_prefill", q_hat, khat, v)
     if scale is None:
         scale = 1.0 / q_hat.shape[-1] ** 0.5
     if not 0 <= q_offset <= khat.shape[2] - q_hat.shape[2]:

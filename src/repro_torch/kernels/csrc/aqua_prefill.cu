@@ -7,7 +7,10 @@
 // q_blk chunk shares the chunk's NB_sel dim-blocks selected from its summed
 // |q̂|. Keys at or past lengths[b] are masked; rows at or past it (a
 // padded admission's pad rows, which an MoE routes) see every valid key,
-// as in the Pallas kernel. A lane with lengths[b] = 0 writes zeros.
+// as in the Pallas kernel. A lane with lengths[b] = 0 gets the mean of its
+// V over all S keys in every row, as the plain version and JAX's dense
+// reference give (attn_tile::empty_lane; the Pallas kernel averages the
+// keys of the tiles its causal band visits instead).
 //
 // Sliding window (window > 0; <= 0 means none, as in flash_attention.cu):
 // a query at position qpos sees only keys kpos > qpos - window, on top of
@@ -161,9 +164,10 @@ struct Args {
 template <bool kPart, int NKS, int KIND, int STAGES, bool kSlices>
 __device__ __forceinline__ void prefill_block(
     const KMaps& kmaps, const CUtensorMap& vmap, const bf16* __restrict__ q,
-    const int* __restrict__ block_idx, const int* __restrict__ lengths, bf16* __restrict__ out,
-    int H, int KV, int Tq, int S, int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc,
-    Strides qst, Strides ost, float scale_log2, int causal, int window, Part part, int kstage) {
+    const bf16* __restrict__ v, const int* __restrict__ block_idx,
+    const int* __restrict__ lengths, bf16* __restrict__ out, int H, int KV, int Tq, int S,
+    int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides vst,
+    Strides ost, float scale_log2, int causal, int window, Part part, int kstage) {
   using namespace attn_tile;
   // heaviest blocks first (the last rows walk the most key tiles), heads
   // fastest: a causal grid's long blocks do not start last
@@ -191,6 +195,12 @@ __device__ __forceinline__ void prefill_block(
   // kPart: half-word c of the array (2 per word) marks which of the
   // block's q-tiles list key chunk c
   uint32_t* marks = reinterpret_cast<uint32_t*>(Qs + kstage * kRows / kKeys);
+  if (lengths[b] <= 0) {
+    empty_lane(v + b * vst.b + kv * vst.h + c0, vst.s, S, dv, reinterpret_cast<float*>(Ks),
+               out + b * ost.b + h * ost.h + row0 * ost.s + c0, ost.h, ost.s, 1,
+               rlast - row0 + 1);
+    return;
+  }
   __shared__ uint32_t tile_dims[16][8];  // per covered q-tile: its selected dims
   __shared__ uint32_t union_chunks;      // 8-dim chunks holding a selected dim
   __shared__ int uc[32];               // union position -> 8-dim chunk
@@ -367,13 +377,13 @@ __device__ __forceinline__ void prefill_block(
 template <bool kPart, int NKS, int KIND>
 __global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16(
     const __grid_constant__ KMaps kmaps, const __grid_constant__ CUtensorMap vmap,
-    const bf16* __restrict__ q, const int* __restrict__ block_idx,
+    const bf16* __restrict__ q, const bf16* __restrict__ v, const int* __restrict__ block_idx,
     const int* __restrict__ lengths, bf16* __restrict__ out, int H, int KV, int Tq, int S,
-    int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides ost,
-    float scale_log2, int causal, int window, Part part, int kstage) {
+    int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides vst,
+    Strides ost, float scale_log2, int causal, int window, Part part, int kstage) {
   prefill_block<kPart, NKS, KIND, attn_tile::kStages, false>(
-      kmaps, vmap, q, block_idx, lengths, out, H, KV, Tq, S, q_offset, Dv, nb_sel, bd, q_blk,
-      nqc, qst, ost, scale_log2, causal, window, part, kstage);
+      kmaps, vmap, q, v, block_idx, lengths, out, H, KV, Tq, S, q_offset, Dv, nb_sel, bd,
+      q_blk, nqc, qst, vst, ost, scale_log2, causal, window, part, kstage);
 }
 
 // A union or a value width past 128, up to 256 (RecurrentGemma-9B's
@@ -383,13 +393,13 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16(
 template <bool kPart, int NKS, int STAGES>
 __global__ void __launch_bounds__(attn_tile::kThreads, 1) aqua_prefill_bf16_wide(
     const __grid_constant__ KMaps kmaps, const __grid_constant__ CUtensorMap vmap,
-    const bf16* __restrict__ q, const int* __restrict__ block_idx,
+    const bf16* __restrict__ q, const bf16* __restrict__ v, const int* __restrict__ block_idx,
     const int* __restrict__ lengths, bf16* __restrict__ out, int H, int KV, int Tq, int S,
-    int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides ost,
-    float scale_log2, int causal, int window, Part part, int kstage) {
+    int q_offset, int Dv, int nb_sel, int bd, int q_blk, int nqc, Strides qst, Strides vst,
+    Strides ost, float scale_log2, int causal, int window, Part part, int kstage) {
   prefill_block<kPart, NKS, 2, STAGES, true>(
-      kmaps, vmap, q, block_idx, lengths, out, H, KV, Tq, S, q_offset, Dv, nb_sel, bd, q_blk,
-      nqc, qst, ost, scale_log2, causal, window, part, kstage);
+      kmaps, vmap, q, v, block_idx, lengths, out, H, KV, Tq, S, q_offset, Dv, nb_sel, bd,
+      q_blk, nqc, qst, vst, ost, scale_log2, causal, window, part, kstage);
 }
 
 // Widest union of 8-dim chunks holding a selected dim that a block of
@@ -427,9 +437,9 @@ int launch_bf16(Kernel kernel, const Args& a, int (&done)[16]) {
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Tq + kRows - 1) / kRows * a.H, (a.Dv + kMaxDv - 1) / kMaxDv, a.B);
   kernel<<<grid, kThreads, bytes, a.st>>>(
-      kmaps, vmap, (const bf16*)a.q, a.block_idx, a.lengths, (bf16*)a.out, a.H, a.KV, a.Tq,
-      a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc, a.qs, a.os, a.scale * kLog2e,
-      a.causal, a.window, a.part, kstage);
+      kmaps, vmap, (const bf16*)a.q, (const bf16*)a.v, a.block_idx, a.lengths, (bf16*)a.out,
+      a.H, a.KV, a.Tq, a.S, a.q_offset, a.Dv, a.nb_sel, a.bd, a.q_blk, a.nqc, a.qs, a.vs, a.os,
+      a.scale * kLog2e, a.causal, a.window, a.part, kstage);
   return (int)cudaGetLastError();
 }
 

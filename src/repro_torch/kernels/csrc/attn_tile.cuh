@@ -803,4 +803,47 @@ inline cudaError_t make_chunk_map(CUtensorMap* map, const void* base, int B, int
   return encode_map(map, base, 5, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
+// ---------------------------------------------------------------------------
+// A lane of length 0
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void put_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put_f32(bf16* p, float x) { *p = __float2bfloat16(x); }
+
+// A block whose lane has length 0 sees no key: each of its rows gets the
+// mean of V over all S keys, what the plain versions and JAX's dense
+// reference give (a softmax over scores all masked to NEG_INF is
+// uniform). vb: the lane's V at the block's first column (key stride vs);
+// ob: its first output row and column, `heads` heads oh apart of `rows`
+// rows os apart; dv columns. `scratch`: dv floats of shared memory that
+// nothing else uses. Every thread of the block calls it, then returns.
+template <class T>
+__device__ __forceinline__ void empty_lane_inline(const T* __restrict__ vb, long long vs, int S,
+                                                  int dv, float* scratch, T* __restrict__ ob,
+                                                  long long oh, long long os, int heads,
+                                                  int rows) {
+  for (int c = threadIdx.x; c < dv; c += blockDim.x) {
+    float sum = 0.f;
+    for (int k = 0; k < S; ++k) sum += to_f32(vb[k * vs + c]);
+    scratch[c] = sum / S;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < heads * rows * dv; e += blockDim.x) {
+    const int c = e % dv, r = e / dv % rows, hh = e / dv / rows;
+    put_f32(ob + hh * oh + r * os + c, scratch[c]);
+  }
+}
+
+// The same, not inlined: a cold path that must not change the register
+// allocation of the kernels it sits in (the generic bf16 flash inlines it
+// instead: a call there cost its wgmma pipeline a C7511).
+template <class T>
+__device__ __noinline__ void empty_lane(const T* __restrict__ vb, long long vs, int S, int dv,
+                           float* scratch, T* __restrict__ ob, long long oh, long long os,
+                           int heads, int rows) {
+  empty_lane_inline(vb, vs, S, dv, scratch, ob, oh, os, heads, rows);
+}
+
 }  // namespace attn_tile

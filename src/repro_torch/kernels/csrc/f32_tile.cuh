@@ -212,6 +212,12 @@ __device__ __forceinline__ void attend(const Problem& p) {
   uint32_t* marks = umask + p.nuw;  // kPart: per key chunk, the covered tiles listing it
   __shared__ int ucol[kMaxDepth];   // union position -> first dim of its unit
   __shared__ int nu_s;
+  if (p.lengths != nullptr && p.lengths[b] <= 0) {
+    attn_tile::empty_lane(p.v + b * p.vs.b + kv * p.vs.h + col0, p.vs.s, p.S, dv, Qs,
+                          p.out + b * p.os.b + h * p.os.h + row0 * p.os.s + col0, p.os.h,
+                          p.os.s, 1, rlast - row0 + 1);
+    return;
+  }
 
   // the selection: each covered tile's units and their union
   for (int e = tid; e < (kMaxTiles + 1) * p.nuw; e += kThreads) tmask[e] = 0;

@@ -7,7 +7,10 @@
 // sliding-window mask j > i - window, and when lengths is non-null the
 // key mask j < lengths[b] (a bucket-padded admission: its pad rows i >=
 // lengths[b] see every valid key, as JAX's dense reference with lengths
-// computes them; an MoE routes those rows with the real ones). Online softmax in float32 with
+// computes them; an MoE routes those rows with the real ones; a lane of
+// length 0 gets the mean of its V over all S keys in every row, as that
+// reference and the plain version give: attn_tile::empty_lane). Online
+// softmax in float32 with
 // NEG_INF = -1e30 and the finalize acc / max(l, 1e-30), as the Pallas
 // kernel. The same kernel serves the dense baseline (AQUA off) and
 // per-dim AQUA prefill (block_dims = 1) on the masked q̂.
@@ -99,10 +102,11 @@ using attn_tile::Strides;
 // PERF.md).
 template <int NKS, int KIND, bool kLen, int STAGES, bool kSlices>
 __device__ __forceinline__ void flash_block(const CUtensorMap& kmap, const CUtensorMap& vmap,
-                                            const bf16* __restrict__ q, bf16* __restrict__ out,
+                                            const bf16* __restrict__ q,
+                                            const bf16* __restrict__ v, bf16* __restrict__ out,
                                             const int* __restrict__ lengths, int H, int KV, int S,
-                                            int D, Strides qst, Strides ost, float scale_log2,
-                                            int causal, int window, int hpb) {
+                                            int D, Strides qst, Strides vst, Strides ost,
+                                            float scale_log2, int causal, int window, int hpb) {
   using namespace attn_tile;
   // A block holds hpb heads of one KV group (2 when the group size is
   // even) x rpb = kRows / hpb rows each: a 64-row causal granularity with
@@ -151,6 +155,18 @@ __device__ __forceinline__ void flash_block(const CUtensorMap& kmap, const CUten
 
   // key tiles this block can see: [jbeg, jend), keys below klim
   const int klim = kLen ? max(0, min(lengths[b], S)) : S;
+  // a lane of length 0: every row the mean of V over all S keys
+  // (attn_tile::empty_lane; inlined in the generic kernel)
+  if (kLen && klim == 0) {
+    const bf16* vb = v + b * vst.b + kv * vst.h + c0;
+    bf16* ob = out + b * ost.b + h0 * ost.h + row0 * ost.s + c0;
+    float* scratch = reinterpret_cast<float*>(Ks);
+    if (NKS > 0)
+      empty_lane(vb, vst.s, S, dv, scratch, ob, ost.h, ost.s, hpb, rlast - row0 + 1);
+    else
+      empty_lane_inline(vb, vst.s, S, dv, scratch, ob, ost.h, ost.s, hpb, rlast - row0 + 1);
+    return;
+  }
   const int kend = kLen ? (causal ? min(klim, rlast + 1) : klim) : (causal ? rlast + 1 : S);
   const int jbeg = window > 0 ? max(0, row0 - window + 1) / kKeys : 0;
   const int jend = kLen ? max(jbeg, (kend + kKeys - 1) / kKeys) : (kend + kKeys - 1) / kKeys;
@@ -219,11 +235,12 @@ __device__ __forceinline__ void flash_block(const CUtensorMap& kmap, const CUten
 template <int NKS, int KIND, bool kLen>
 __global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-    const bf16* __restrict__ q, bf16* __restrict__ out, const int* __restrict__ lengths, int H,
-    int KV, int S, int D, Strides qst, Strides ost, float scale_log2, int causal, int window,
-    int hpb) {
+    const bf16* __restrict__ q, const bf16* __restrict__ v, bf16* __restrict__ out,
+    const int* __restrict__ lengths, int H, int KV, int S, int D, Strides qst, Strides vst,
+    Strides ost, float scale_log2, int causal, int window, int hpb) {
   flash_block<NKS, KIND, kLen, attn_tile::kStages, false>(
-      kmap, vmap, q, out, lengths, H, KV, S, D, qst, ost, scale_log2, causal, window, hpb);
+      kmap, vmap, q, v, out, lengths, H, KV, S, D, qst, vst, ost, scale_log2, causal, window,
+      hpb);
 }
 
 // Head dims past 128, up to 256 (RecurrentGemma-9B's 256 with AQUA off): a
@@ -233,11 +250,11 @@ __global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16(
 template <int NKS, bool kLen, int STAGES>
 __global__ void __launch_bounds__(attn_tile::kThreads, 1) flash_bf16_wide(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-    const bf16* __restrict__ q, bf16* __restrict__ out, const int* __restrict__ lengths, int H,
-    int KV, int S, int D, Strides qst, Strides ost, float scale_log2, int causal, int window,
-    int hpb) {
-  flash_block<NKS, 2, kLen, STAGES, true>(kmap, vmap, q, out, lengths, H, KV, S, D, qst, ost,
-                                          scale_log2, causal, window, hpb);
+    const bf16* __restrict__ q, const bf16* __restrict__ v, bf16* __restrict__ out,
+    const int* __restrict__ lengths, int H, int KV, int S, int D, Strides qst, Strides vst,
+    Strides ost, float scale_log2, int causal, int window, int hpb) {
+  flash_block<NKS, 2, kLen, STAGES, true>(kmap, vmap, q, v, out, lengths, H, KV, S, D, qst, vst,
+                                          ost, scale_log2, causal, window, hpb);
 }
 
 // Launch `kernel` (an instantiation of flash_block with this NKS, KIND and
@@ -260,8 +277,9 @@ int launch_bf16(Kernel kernel, int (&done)[16], const void* q, const void* k, co
   if (err != cudaSuccess) return (int)err;
   const int hpb = (H / KV) % 2 == 0 ? 2 : 1, rpb = kRows / hpb;
   const dim3 grid((S + rpb - 1) / rpb * (H / hpb), (D + kMaxDv - 1) / kMaxDv, B);
-  kernel<<<grid, kThreads, bytes, st>>>(kmap, vmap, (const bf16*)q, (bf16*)out, lengths, H, KV,
-                                        S, D, qs, os, scale * kLog2e, causal, window, hpb);
+  kernel<<<grid, kThreads, bytes, st>>>(kmap, vmap, (const bf16*)q, (const bf16*)v, (bf16*)out,
+                                        lengths, H, KV, S, D, qs, vs, os, scale * kLog2e, causal,
+                                        window, hpb);
   return (int)cudaGetLastError();
 }
 

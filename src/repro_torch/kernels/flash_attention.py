@@ -108,8 +108,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with a contiguous last axis; kv head = h // (H / KV). ``window``
     keeps keys with ``kpos > qpos - window``; ``lengths`` (B,) int32 keys
     with ``kpos < lengths[b]`` (a bucket-padded admission's pad rows then
-    see every valid key, as JAX's dense reference computes them). Returns
-    (B, H, S, D) in v's dtype."""
+    see every valid key, as JAX's dense reference computes them; a lane
+    of length 0 gets the mean of its V over all S keys in every row, as
+    that reference does). Returns (B, H, S, D) in v's dtype."""
+    _build.refuse_grad("flash_attention", q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     dev = q.device.type

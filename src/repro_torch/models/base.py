@@ -3,12 +3,14 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kvcache import lane_index
+from repro_torch.models.layers import cross_entropy
 from repro_torch.runtime import resolve_device, torch_dtype
 
 
@@ -65,6 +67,31 @@ def extra_tensors(extra) -> list:
         return [extra]
     items = extra.values() if isinstance(extra, dict) else extra
     return [t for item in items for t in extra_tensors(item)]
+
+
+def _wants_grad(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_wants_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_wants_grad(v) for v in tree)
+    return False
+
+
+def remat(cfg: ModelConfig, fn: Callable, *args, pick: Optional[int] = None):
+    """``fn(*args)``, one block of a layer loop, or with ``pick`` only
+    ``fn(*args)[pick]`` (the part the loss needs), under activation
+    checkpointing (``torch.utils.checkpoint``, non-reentrant: the block
+    runs again in the backward pass instead of keeping its activations)
+    when ``cfg.remat`` is on, grad mode is on and some argument requires
+    grad: JAX's ``jax.checkpoint`` over the scanned body. Inference runs
+    the block as it is."""
+    block = fn if pick is None else (lambda *a: fn(*a)[pick])
+    if cfg.remat and torch.is_grad_enabled() and _wants_grad(args):
+        return torch.utils.checkpoint.checkpoint(block, *args,
+                                                 use_reentrant=False)
+    return block(*args)
 
 
 class LM:
@@ -174,6 +201,20 @@ class LM:
             shape[batch_axis] = write_mask.shape[0]
             old.copy_(torch.where(write_mask.reshape(shape), new, old))
         return old_state
+
+    def loss(self, params, batch):
+        """(loss, {"ce": loss}): the mean next-token cross-entropy of
+        ``batch["labels"]`` (weighted by ``batch["loss_mask"]`` where the
+        batch has one) plus, for a model whose ``forward`` returns it, the
+        MoE router's ``aux_loss``, as JAX's ``LM.loss``."""
+        logits = self.forward(params, batch)
+        aux = {}
+        if isinstance(logits, tuple):
+            logits, aux = logits
+        loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        if "aux_loss" in aux:
+            loss = loss + aux["aux_loss"]
+        return loss, {"ce": loss}
 
     def reset_lane(self, state: DecodeState, lane,
                    max_seq: int) -> DecodeState:

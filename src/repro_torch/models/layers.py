@@ -1,5 +1,7 @@
-"""Shared model layers: norms, MLP, embeddings (PyTorch port)."""
+"""Shared model layers: norms, MLP, embeddings, the loss (PyTorch port)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -106,3 +108,16 @@ def with_unembedding(params: dict, tied: bool) -> dict:
         return params
     table = params["embed" if tied else "unembed"]["table"]
     return {**params, UNEMBED_F32: table.float()}
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy: logits (B, S, V) float32, labels (B,
+    S) int; with ``mask`` (B, S) the mean over its weight (at least 1)."""
+    logits = logits.float()
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -23,8 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.kvcache import SSMCache
 from repro_torch.models import layers as L
-from repro_torch.models.base import LM, DecodeState
-from repro_torch.models.transformer import _stack_layers, layer_params
+from repro_torch.models.base import LM, DecodeState, remat
+from repro_torch.models.transformer import (_stack_layers, layer_params,
+                                            unstack_layers)
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int):
@@ -231,8 +232,8 @@ class Mamba2LM(LM):
     def forward(self, params, batch, aqua_proj=None, capture: bool = False):
         """Logits (B, S, V) float32 (no attention: nothing to capture)."""
         x = L.embed(params["embed"], batch["tokens"], self.dtype)
-        for i in range(self.cfg.num_layers):
-            x, _ = self._block_seq(layer_params(params["layers"], i), x)
+        for p in unstack_layers(params["layers"], self.cfg.num_layers):
+            x = remat(self.cfg, self._block_seq, p, x, pick=0)
         logits = self._unembed(params, x)
         return (logits, {"qk": []}) if capture else logits
 

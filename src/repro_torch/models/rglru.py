@@ -37,7 +37,7 @@ from repro_torch.core import kvcache as kv
 from repro_torch.core.h2o import h2o_budget
 from repro_torch.core.kvcache import HybridCache, RGLRUCache
 from repro_torch.models import layers as L
-from repro_torch.models.base import DecodeState
+from repro_torch.models.base import DecodeState, remat
 from repro_torch.models.mamba2 import linear_scan
 from repro_torch.models.transformer import (DenseLM, _stack_caches,
                                             block_forward, block_step,
@@ -187,7 +187,9 @@ class HybridLM(DenseLM):
     def _run(self, params, x, aqua_proj, on_attn=None, on_rec=None):
         """Every layer over the sequence ``x``; ``on_attn(aux)`` and
         ``on_rec(conv_tail, h_last)`` receive each layer's cache-form
-        outputs."""
+        outputs. A layer whose outputs no callback takes runs under
+        :func:`remat` (the training forward, as JAX checkpoints both
+        kinds of block)."""
         cfg = self.cfg
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
@@ -195,13 +197,17 @@ class HybridLM(DenseLM):
         for i, kind in enumerate(self.kinds):
             p = params["layers"][i]
             if kind == "recurrent":
-                x, tail = recurrent_block_forward(cfg, p, x)
-                if on_rec is not None:
+                if on_rec is None:
+                    x = remat(cfg, recurrent_block_forward, cfg, p, x, pick=0)
+                else:
+                    x, tail = recurrent_block_forward(cfg, p, x)
                     on_rec(*tail)
             else:
-                x, aux = block_forward(cfg, p, x, positions,
-                                       self._proj(aqua_proj, ai))
-                if on_attn is not None:
+                args = (cfg, p, x, positions, self._proj(aqua_proj, ai))
+                if on_attn is None:
+                    x = remat(cfg, block_forward, *args, pick=0)
+                else:
+                    x, aux = block_forward(*args)
                     on_attn(aux)
                 ai += 1
         return x
@@ -212,7 +218,8 @@ class HybridLM(DenseLM):
         qk = []
         x = self._run(params, L.embed(params["embed"], batch["tokens"],
                                       self.dtype), aqua_proj,
-                      on_attn=lambda aux: qk.append((aux["q"], aux["k"])))
+                      on_attn=(lambda aux: qk.append((aux["q"], aux["k"])))
+                      if capture else None)
         logits = self._unembed(params, x)
         return (logits, {"qk": qk}) if capture else logits
 

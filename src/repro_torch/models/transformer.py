@@ -22,7 +22,7 @@ from repro_torch.core import kvcache as kv
 from repro_torch.core.h2o import h2o_budget
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.base import LM, DecodeState
+from repro_torch.models.base import LM, DecodeState, remat
 
 
 def layer_params(tree, i: int):
@@ -30,6 +30,17 @@ def layer_params(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack_layers(tree, n: int) -> list:
+    """Every layer's views of a stacked param tree at once
+    (``torch.unbind``): under autograd its backward stacks the layers'
+    gradients once, where :func:`layer_params` layer by layer adds each
+    into a zero tensor of the whole stack (traffic quadratic in depth)."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def init_block(gen: torch.Generator, cfg, dtype, device) -> dict:
@@ -96,6 +107,12 @@ def block_forward(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     f, aux["aux_loss"] = ffn_apply(cfg, p["ffn"],
                                    L.rms_norm(x, p["ln2"], cfg.norm_eps))
     return x + f, aux
+
+
+def _block_slim(cfg, p, x, positions, proj, lengths=None):
+    """:func:`block_forward` keeping only the FFN's ``aux_loss``."""
+    x, aux = block_forward(cfg, p, x, positions, proj, lengths)
+    return x, aux["aux_loss"]
 
 
 def check_splice(seq_len: int, num_embeds: int) -> None:
@@ -191,15 +208,24 @@ class DenseLM(LM):
     def _proj(self, aqua_proj, i):
         return None if aqua_proj is None else aqua_proj[i]
 
-    def _run_layers(self, params, x, aqua_proj, lengths=None):
+    def _run_layers(self, params, x, aqua_proj, lengths=None,
+                    slim: bool = False):
+        """Every block over ``x``: (x, each block's aux). ``slim`` keeps
+        only each aux's ``aux_loss`` and runs the blocks under
+        :func:`remat` (the training forward)."""
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
+        layers = unstack_layers(params["layers"], self.cfg.num_layers)
         auxes = []
         for i in range(self.cfg.num_layers):
-            x, aux = block_forward(self.cfg, layer_params(params["layers"], i),
-                                   x, positions, self._proj(aqua_proj, i),
-                                   lengths)
-            auxes.append(aux)
+            args = (self.cfg, layers[i], x, positions,
+                    self._proj(aqua_proj, i), lengths)
+            if slim:
+                x, aux_loss = remat(self.cfg, _block_slim, *args)
+                auxes.append({"aux_loss": aux_loss})
+            else:
+                x, aux = block_forward(*args)
+                auxes.append(aux)
         return x, auxes
 
     # -- full-sequence forward ----------------------------------------
@@ -210,7 +236,7 @@ class DenseLM(LM):
         Without: logits, or for ``moe`` (logits, {"aux_loss": the summed
         losses times ``MoEConfig.router_aux_weight``}), as in JAX."""
         x, auxes = self._run_layers(params, self._embed(params, batch),
-                                    aqua_proj)
+                                    aqua_proj, slim=not capture)
         logits = self._unembed(params, x)
         moe = self.cfg.family == "moe"
         aux_loss = sum(a["aux_loss"] for a in auxes) if moe else None
@@ -470,10 +496,9 @@ class EncDecLM(DenseLM):
                                        x.device).to(self.dtype)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        for i in range(cfg.num_encoder_layers):
-            x, _ = block_forward(self.enc_cfg,
-                                 layer_params(params["enc_layers"], i), x,
-                                 positions, None)
+        for p in unstack_layers(params["enc_layers"],
+                                cfg.num_encoder_layers):
+            x, _ = block_forward(self.enc_cfg, p, x, positions, None)
         return L.rms_norm(x, params["enc_ln"], cfg.norm_eps)
 
     def _dec_block_fwd(self, p, x, enc_out, positions, proj):
@@ -488,18 +513,27 @@ class EncDecLM(DenseLM):
         return x + L.mlp(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
                          cfg.act), aux
 
-    def _run_decoder(self, params, batch, enc_out, aqua_proj):
+    def _run_decoder(self, params, batch, enc_out, aqua_proj,
+                     slim: bool = False):
+        """The decoder over ``batch["tokens"]``: (x, each block's attention
+        aux). ``slim`` keeps no aux and runs the blocks under
+        :func:`remat` (the training forward; JAX checkpoints the
+        decoder's scanned body, not the encoder's)."""
         tokens = batch["tokens"]
         s = tokens.shape[1]
         x = L.embed(params["embed"], tokens, self.dtype)
         x = x + params["pos"][:s].to(self.dtype)
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        layers = unstack_layers(params["dec_layers"], self.cfg.num_layers)
         auxes = []
         for i in range(self.cfg.num_layers):
-            x, aux = self._dec_block_fwd(
-                layer_params(params["dec_layers"], i), x, enc_out, positions,
-                self._proj(aqua_proj, i))
-            auxes.append(aux)
+            args = (layers[i], x, enc_out, positions,
+                    self._proj(aqua_proj, i))
+            if slim:
+                x = remat(self.cfg, self._dec_block_fwd, *args, pick=0)
+            else:
+                x, aux = self._dec_block_fwd(*args)
+                auxes.append(aux)
         return x, auxes
 
     def forward(self, params, batch, aqua_proj=None, capture: bool = False):
@@ -507,7 +541,8 @@ class EncDecLM(DenseLM):
         ``batch["frames"]``; with ``capture`` also {"qk": the decoder
         self-attention's (q, k) per layer}."""
         enc_out = self.encode(params, batch["frames"])
-        x, auxes = self._run_decoder(params, batch, enc_out, aqua_proj)
+        x, auxes = self._run_decoder(params, batch, enc_out, aqua_proj,
+                                     slim=not capture)
         logits = self._unembed(params, x)
         if capture:
             return logits, {"qk": [(a["q"], a["k"]) for a in auxes]}

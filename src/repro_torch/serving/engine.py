@@ -128,7 +128,7 @@ from repro_torch.core.dispatch import (TILE_SELECTING_BACKENDS, DispatchPlan,
                                        resolve_dispatch_plan)
 from repro_torch.models import build_model
 from repro_torch.models.base import PagingSpec
-from repro_torch.models.layers import with_unembedding
+from repro_torch.models.layers import cross_entropy, with_unembedding
 from repro_torch.runtime import resolve_device
 from repro_torch.serving.admit_graph import AdmitGraph, admission
 from repro_torch.serving.scheduler import (LaneScheduler, PagePool, Request,
@@ -244,6 +244,22 @@ class ServeEngine:
             out.append(self._sample(logits, temperature, i))
         return GenerationResult(tokens=np.stack(out, axis=1),
                                 logits_last=logits.float().cpu().numpy())
+
+    @torch.no_grad()
+    def score(self, batch: Dict[str, object]) -> torch.Tensor:
+        """Teacher-forced mean NLL (0-d float32 tensor) of
+        ``batch["labels"]`` given ``batch["tokens"]`` (and a frontend's
+        inputs) at the engine's AQUA operating point, every position
+        counted, as JAX's ``score``: the full-sequence forward on the
+        engine's backend (on the card the prefill kernel, or flash with
+        AQUA off), under ``torch.no_grad()``."""
+        inputs = {k: torch.as_tensor(v).to(
+            self.device, torch.int32 if k in ("tokens", "labels") else None)
+            for k, v in batch.items()}
+        logits = self.model.forward(self.params, inputs, aqua_proj=self.proj)
+        if isinstance(logits, tuple):
+            logits = logits[0]
+        return cross_entropy(logits, inputs["labels"])
 
     def cache_bytes(self, batch_size: int) -> int:
         """KV-cache footprint at ``batch_size`` (AQUA-Memory savings show

@@ -215,7 +215,7 @@ def test_port_sources_never_import_jax_or_repro():
                      r"|(import|from)\s+(safetensors|ml_dtypes)\b)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "kernel_race.py",
-              ROOT / "pixtral_divergence.py"]
+              ROOT / "pixtral_divergence.py", ROOT / "train_profile.py"]
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/checkpoint/safetensors.py",
             "src/repro_torch/checkpoint/hf.py",
