@@ -12,8 +12,9 @@ Phases, each of which raises (non-zero exit) on failure:
    and spill lines (and any wgmma serialization warning), and require
    tensor-core instructions (HMMA or HGMMA) in the SASS of the bf16
    prefill, flash and decode kernels and of every instantiation of the
-   float32 prefill and flash kernels (HMMA: ``mma.sync`` on TF32)
-   (``cuobjdump -sass``), the decode's
+   float32 prefill and flash kernels (HGMMA: ``wgmma`` on TF32; the
+   tensor-core instruction counts of each logged) (``cuobjdump -sass``),
+   the decode's
    group route in its full-precision, int8, participating-page and
    int8 participating-page instantiations, and the warp-specialized
    design's register
@@ -21,7 +22,8 @@ Phases, each of which raises (non-zero exit) on failure:
    prefill and flash kernels, their wide kernels (head dims past 128,
    ``aqua_prefill_bf16_wide`` / ``flash_bf16_wide``) on HGMMA too; no
    spills and no serialized wgmma (ptxas C7511) in those wide kernels or
-   in any float32 prefill and flash instantiation; float32 FMAs (FFMA) in
+   in any float32 prefill and flash instantiation (nor any other
+   serialization warning there, such as C7514); float32 FMAs (FFMA) in
    every instantiation of the decode's float32 group route and no spills
    in its ptxas lines.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
@@ -581,6 +583,14 @@ def ptxas_serialized(log: str) -> list:
     return re.findall(r"C7511\).*in the function '(\S+?)'", log)
 
 
+def ptxas_any_serialized(log: str) -> list:
+    """Kernel functions whose wgmmas ptxas serialized for any reason
+    (C7511, or C7514: accumulators read while their products ran), from
+    the ptxas lines of one nvcc build."""
+    return re.findall(r"wgmma\.mma_async instructions are serialized.*in the "
+                      r"function '(\S+?)'", log)
+
+
 def tol_ratio(out, ref) -> float:
     """Worst ratio of |out - ref| to the per-element tolerance of out's
     dtype (<= 1 is within it)."""
@@ -808,8 +818,8 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
 
 def attention_route(element_size: int) -> str:
     """The prefill's and flash's route for an element size: bf16 on
-    ``wgmma``, float32 on ``mma.sync`` with three TF32 passes."""
-    return "wgmma" if element_size == 2 else "tf32x3_mma"
+    ``wgmma``, float32 on ``wgmma`` with three TF32 passes."""
+    return "wgmma" if element_size == 2 else "tf32x3_wgmma"
 
 
 def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
@@ -819,7 +829,7 @@ def prefill_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
     """The prefill, B=1, causal, over ``s`` rows (any count: the last
     q-tile may be partial); the served form (``form="served"``) at the
     drives' longest prompt. bf16 runs on ``wgmma``; float32 (``dtype``,
-    the served checkpoint's) on ``mma.sync`` in three TF32 passes.
+    the served checkpoint's) on ``wgmma`` in three TF32 passes.
     ``pad`` > 0: a bucket-padded admission, the last ``pad`` rows past
     the length, held too (they see every valid key; an MoE routes them
     with the real rows). ``d``: the head dim (D = Dv)."""
@@ -1145,7 +1155,7 @@ def prefill_window_phase(geom: str, h: int, kvh: int, d: int, gen,
     extra = sdpa_causal_ms(qm, k, v, scale) if d > 128 else {}
     return dict(name="aqua_prefill", geometry=geom, form="window",
                 dtype=dtype, route=attention_route(el),
-                value_slices=-(-d // 128),
+                value_slices=-(-d // 128) if el == 2 else 1,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, Dv=d, q_blk=q_blk,
                            window=window),
                 **check, **times, no_window_ms=no_window_ms, **extra,
@@ -1209,7 +1219,7 @@ def flash_phase(geom: str, h: int, kvh: int, gen, s: int = 2048,
     """Flash attention, B=1, causal, over ``s`` rows of head_dim ``d``;
     the served form (``form="served"``) at the drives' longest prompt.
     bf16 runs on ``wgmma``; float32 (``dtype``, the served checkpoint's)
-    on ``mma.sync`` in three TF32 passes. ``pad`` > 0: a bucket-padded
+    on ``wgmma`` in three TF32 passes. ``pad`` > 0: a bucket-padded
     admission's call, keys past ``s - pad`` masked by ``lengths``, every
     row held (pad rows see every valid key, as JAX's dense reference)."""
     import torch
@@ -1309,7 +1319,7 @@ def flash_window_phase(geom: str, h: int, kvh: int, d: int, gen,
     no_window_ms = graph_ms(lambda: kernel(window=None))
     return dict(name="flash_attention", geometry=geom, form="window",
                 dtype=dtype, route=attention_route(el),
-                value_slices=-(-d // 128),
+                value_slices=-(-d // 128) if el == 2 else 1,
                 shape=dict(B=b, H=h, KV=kvh, S=s, D=d, causal=True,
                            window=window),
                 **check, **times, no_window_ms=no_window_ms,
@@ -3974,13 +3984,13 @@ def main() -> int:
     # the bf16 routes of the prefill, flash and decode kernels run on
     # tensor cores; the prefill's and flash's are warp-specialized
     # (USETMAXREG) and copy by TMA tensor maps (UTMALDG); their float32
-    # routes run on the tensor cores too (HMMA: mma.sync on TF32)
+    # routes run on the tensor cores too (HGMMA: wgmma on TF32)
     sass = {}
     for name, fn_tag, design in (
             ("aqua_prefill", "aqua_prefill_bf16", ("USETMAXREG", "UTMALDG")),
             ("flash_attention", "flash_bf16", ("USETMAXREG", "UTMALDG")),
-            ("aqua_prefill", "aqua_prefill_f32", ("HMMA",)),
-            ("flash_attention", "flash_f32", ("HMMA",)),
+            ("aqua_prefill", "aqua_prefill_f32", ("HGMMA",)),
+            ("flash_attention", "flash_f32", ("HGMMA",)),
             # head dims past 128 (RecurrentGemma's 256): the same engine's
             # wide kernels, on wgmma
             ("aqua_prefill", "aqua_prefill_bf16_wide",
@@ -4040,8 +4050,21 @@ def main() -> int:
                                 if "_wide" in fn or "_f32" in fn})
             serialized += [fn for fn in ptxas_serialized(build_logs[name])
                            if "_wide" in fn or "_f32" in fn]
+            serialized += [fn for fn in ptxas_any_serialized(build_logs[name])
+                           if "_f32" in fn and fn not in serialized]
     assert not any(wide_spills.values()) and not serialized, \
         (wide_spills, serialized)
+    # the float32 engine's instantiations (VEC 1 / 4; the narrow form at
+    # 64 and 128 columns, the wide form at three key-tile and column
+    # shapes, flash at two; the prefill also with kPart), each on HGMMA
+    f32_tc = {name: {fn: c["HGMMA"] for fn, c in sass[name].items()
+                     if fn_tag in fn}
+              for name, fn_tag in (("aqua_prefill", "aqua_prefill_f32"),
+                                   ("flash_attention", "flash_f32"))}
+    assert [len(f32_tc["aqua_prefill"]), len(f32_tc["flash_attention"])] \
+        == [20, 8] and all(n > 0 for c in f32_tc.values()
+                           for n in c.values()), f32_tc
+    log({"sass_f32_hgmma": f32_tc})
     log({"ptxas_spill_bytes_wide_and_f32": wide_spills or
          "not checked: the libraries were built by an earlier run",
          "ptxas_serialized_wide_and_f32": serialized})

@@ -2,7 +2,7 @@
 """Race the prefill, flash and decode kernels of several checkouts on one
 GPU.
 
-    python3 kernel_race.py [--lengths] OUT.jsonl PARENT_DIR . . PARENT_DIR
+    python3 kernel_race.py [--lengths | --f32] OUT.jsonl PARENT_DIR . . PARENT_DIR
 
 Each directory is a checkout of the repo whose ``src/`` is the tree under
 test; ``git archive <commit>`` unpacked into a gitignored directory gives
@@ -49,7 +49,11 @@ S=2048 with the last 21 rows past the length (a bucket-padded
 admission): flash's generic kernel (head_dim 80, H2O-Danube-1.8B's
 geometry) with and without ``lengths``, flash at Qwen3-0.6B's geometry,
 and the prefill's generic kernel (k_ratio 0.5, which always passes
-``lengths``); no step graph and no host timings.
+``lengths``); no step graph and no host timings. With ``--f32`` only the
+float32 prefill and flash forms run: the served forms at Qwen3-0.6B's
+geometry, the generic shapes (the prefill at k_ratio 0.5, flash at
+head_dim 80) and RecurrentGemma-9B's window and no-window forms at
+head_dim 256 beside causal SDPA; no step graph and no host timings.
 
 Each phase appends one JSON line to OUT with ``"tree"`` set to its
 directory; the card's name and power limit (``nvidia-smi``) head the
@@ -156,7 +160,25 @@ def lengths_phases(cs, gen) -> list:
                                      form="generic_lengths", pad=21)]
 
 
-def one_tree(tree: str, out_path: str, only_lengths: bool = False) -> int:
+def f32_phases(cs, gen) -> list:
+    """The float32 prefill and flash forms (``--f32``)."""
+    f32 = "float32"
+    return [lambda: cs.prefill_phase("qwen3-0.6b", 16, 8, gen, s=1024,
+                                     form="served", dtype=f32),
+            lambda: cs.flash_phase("qwen3-0.6b", 16, 8, gen, s=1024,
+                                   form="served", dtype=f32),
+            lambda: cs.prefill_phase("qwen3-0.6b", 16, 8, gen, k_ratio=0.5,
+                                     form="generic", dtype=f32),
+            lambda: cs.flash_phase("h2o-danube-1.8b", 32, 8, gen, d=80,
+                                   form="generic", dtype=f32),
+            lambda: cs.prefill_window_phase(
+                "recurrentgemma-9b", 16, 1, 256, gen, s=4096, window=2048,
+                heads=True, dtype=f32),
+            lambda: cs.flash_window_phase("recurrentgemma-9b", 16, 1, 256,
+                                          gen, dtype=f32)]
+
+
+def one_tree(tree: str, out_path: str, only: str = None) -> int:
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
@@ -175,8 +197,10 @@ def one_tree(tree: str, out_path: str, only_lengths: bool = False) -> int:
             if "C7511" in line or "spill" in line and "bf16" in line:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if only_lengths:
+    if only == "--lengths":
         return run_phases(cs, tree, out_path, lengths_phases(cs, gen))
+    if only == "--f32":
+        return run_phases(cs, tree, out_path, f32_phases(cs, gen))
     phases = []
     for geom, h, kvh in (("qwen3-0.6b", 16, 8), ("llama3.1-8b", 32, 8)):
         phases += [lambda g=geom, h=h, kv=kvh: cs.prefill_phase(g, h, kv, gen),
@@ -249,11 +273,11 @@ def run_phases(cs, tree: str, out_path: str, phases: list, gen=None) -> int:
 
 def main() -> int:
     args = sys.argv[1:]
-    only_lengths = args[0] == "--lengths"
-    if only_lengths:
+    only = args[0] if args[0] in ("--lengths", "--f32") else None
+    if only:
         args = args[1:]
     if args[0] == "--one":
-        return one_tree(args[1], args[2], only_lengths)
+        return one_tree(args[1], args[2], only)
     import torch
     if not torch.cuda.is_available():
         print("kernel_race: no CUDA device", file=sys.stderr)
@@ -267,7 +291,7 @@ def main() -> int:
     rc = 0
     for tree in trees:
         r = subprocess.run([sys.executable, os.path.abspath(__file__)]
-                           + ["--lengths"] * only_lengths
+                           + [only] * bool(only)
                            + ["--one", tree, out_path]).returncode
         print(f"tree {tree}: rc {r}", flush=True)
         rc = rc or r

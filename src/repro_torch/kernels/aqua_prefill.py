@@ -18,7 +18,7 @@ past the causal bound and past ``lengths`` and, under a window, the tiles
 before each block's band (so the work scales with the window), and reads q/k/v through
 strides so the model's (B, S, KV, G, D) layout needs no transpose. Both
 dtypes run on the tensor cores: bf16 on ``wgmma`` (``csrc/attn_tile.cuh``),
-float32 on ``mma.sync`` with every product split into three TF32 passes,
+float32 on ``wgmma`` with every product split into three TF32 passes,
 which hold the float32 limits (``csrc/f32_tile.cuh``); see the headers
 for the tiling. The bf16 kernel copies K̂ and V by TMA tensor maps and q̂ in
 16-byte pieces: it needs D and Dv multiples of 8, D <= 256, 16-byte
@@ -26,9 +26,10 @@ aligned bases and outer strides, under 2**40 bytes (``ValueError``
 otherwise). The float32 kernel copies 16-byte pieces where the views,
 ``block_dims``, D and Dv allow, else 4-byte ones; it gathers the union of
 the selections of the ``q_blk`` tiles a 64-row block covers, at most 256
-dims. Both take a selection and a Dv of at most 256 (``ValueError`` past
-those; JAX's Pallas kernel takes any), a Dv above 128 (RecurrentGemma's
-head_dim 256) in 128-column slices, one per block, and need
+dims, and computes the scores once for every output column. Both take a
+selection and a Dv of at most 256 (``ValueError`` past those; JAX's
+Pallas kernel takes any; the bf16 kernel a Dv above 128, RecurrentGemma's
+head_dim 256, in 128-column slices, one per block) and need
 ``q_blk % 8 == 0``.
 
 Dispatch is by device: CPU tensors run :func:`aqua_prefill_plain`, CUDA

@@ -88,32 +88,40 @@
 // keep their template arguments.
 //
 // float32 route (what a served HF checkpoint runs: config_from_hf gives
-// float32 params and activations), on the tensor cores with the
-// three-pass TF32 split of f32_tile.cuh, which holds the plain float32
-// version's 1e-5 limits that one TF32 pass misses by ~50x: one block of
-// 256 threads per (b, h, 64 query rows, 128-column value slice), two warp
-// groups taking one half
-// of each key tile each, mma.sync m16n8k8, the union of the covered q_blk
-// tiles' selected dims gathered by cp.async (16-byte copies when bd, D and
-// Dv are multiples of 4 and the views 16-byte aligned, else 4-byte), two
-// stages of 64-key tiles (one where two do not fit: a union past ~200
-// dims), the softmax in registers. What bounds it: the
-// operations, each run as three TF32 products at 495 TFLOP/s (165 TFLOP/s
-// of float32 work), against 67 TFLOP/s of scalar float32. It takes unions
-// of at most 256 dims (always when D <= 256, or q_blk >= 64 with NB_sel·bd
-// <= 128), Dv <= 256 (slices past 128 recompute the scores, as on the bf16
-// route) and q_blk >= 8. A chunk whose q_offset is a multiple
-// of 64 (and of q_blk) has the same 64-row blocks and unions as the
-// monolithic call: its rows are bitwise the monolithic rows, as on the
-// bf16 route.
+// float32 params and activations; both bodies, _kernel and kPart's
+// _part_kernel), on the tensor cores with the engine of f32_tile.cuh: wgmma
+// on TF32 with every product split into three passes (hi = tf32(x), lo =
+// x - hi), which hold the plain float32 version's 1e-5 limits that one
+// TF32 pass misses by ~50x. What bounds it: the operations, each run as
+// three TF32 products at 495 TFLOP/s, 165 TFLOP/s of float32 work
+// (against 67 TFLOP/s of scalar float32). One block of two warpgroups
+// computes each (row, key) score once for every output column, Dv up to
+// 256 (no value slices on the grid): at depths and Dv up to 128 with
+// q_blk % 128 == 0 and a grid of 1.5 waves or more, 128-row blocks whose
+// warpgroups each own 64 rows; else 64-row blocks whose warpgroups split
+// the depth of the scores (exchanging partial scores through shared
+// memory) and the output columns. K̂ (the union of the covered q_blk
+// tiles' selected dims, gathered by cp.async: 16-byte copies when bd, D
+// and Dv are multiples of 4 and the views 16-byte aligned, else 4-byte)
+// and V (landing row-major, then transposed: tf32 wgmma takes K-major
+// operands only) are split into hi and lo once a block by the threads
+// that copied them, into a ring of two stages at every depth (32-key
+// tiles at depths and Dv up to 128, 16-key tiles past them); Q̂ is split
+// once a key tile by the thread whose A fragment holds it, P once by the
+// thread that holds it. It takes unions of at most 256 dims (always when
+// D <= 256, or q_blk >= 64 with NB_sel·bd <= 128), Dv <= 256 and q_blk
+// >= 8. A chunk whose q_offset is a multiple of 64 (and of q_blk) has the
+// same blocks, or in the other form the same arithmetic of each row, as
+// the monolithic call: its rows are bitwise the monolithic rows, as on
+// the bf16 route.
 //
 // kPart: kc_part (B, NQC, KT) lists each q-tile's participating k_blk-key
 // chunks, ascending (-1 = none), k_blk % 64 == 0. A block (of either
 // route) marks, per key chunk, which of its q-tiles list it, visits the
-// 64-key tiles of the marked chunks in ascending order and masks each row
-// by its own tile's mark. Masks use the logical key positions, so dropped
-// chunks cost no bytes and the identity list walks exactly the tiles of
-// the dense walk (bitwise equal).
+// key tiles (64 keys bf16, 16 or 32 float32) of the marked chunks in
+// ascending order and masks each row by its own tile's mark. Masks use the
+// logical key positions, so dropped chunks cost no bytes and the identity
+// list walks exactly the tiles of the dense walk (bitwise equal).
 
 #include <algorithm>
 #include <climits>
@@ -488,31 +496,43 @@ int dispatch_bf16(const Args& a) {
 // float32: tensor cores, three TF32 passes (f32_tile.cuh)
 // ---------------------------------------------------------------------------
 
-template <int VEC, bool kPart, int NDV>
+template <int VEC, bool kPart, int NK, int NV, bool kWide>
 __global__ void __launch_bounds__(f32_tile::kThreads, 1)
     aqua_prefill_f32(const __grid_constant__ f32_tile::Problem p) {
-  f32_tile::attend<VEC, kPart, NDV>(p);
+  f32_tile::attend<VEC, kPart, NK, NV, kWide>(p);
 }
 
-template <int VEC, bool kPart, int NDV>
+template <int VEC, bool kPart, int NK, int NV, bool kWide>
 int launch_f32(const f32_tile::Problem& p, int B, cudaStream_t st) {
   static int done[16] = {0};
-  const int bytes = f32_tile::smem_bytes(p, p.nst);
-  cudaError_t err = attn_tile::allow_smem(aqua_prefill_f32<VEC, kPart, NDV>, bytes, done);
+  const int bytes = f32_tile::smem_bytes(p);
+  cudaError_t err =
+      attn_tile::allow_smem(aqua_prefill_f32<VEC, kPart, NK, NV, kWide>, bytes, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.Tq + f32_tile::kRows - 1) / f32_tile::kRows * p.H, f32_tile::slices(p), B);
-  aqua_prefill_f32<VEC, kPart, NDV><<<grid, f32_tile::kThreads, bytes, st>>>(p);
+  const dim3 grid((p.Tq + p.rows - 1) / p.rows * p.H, 1, B);
+  aqua_prefill_f32<VEC, kPart, NK, NV, kWide><<<grid, f32_tile::kThreads, bytes, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Dv 128 and 256 (every served head_dim but Danube's; slices of 128) take
-// a kernel with its P·V width fixed at compile time; 4-byte copies
-// (unaligned views) only the generic one
+// The form, key tile and column share that plan chose: the narrow form
+// (128-row blocks, 32-key tiles, 64 or 128 columns: the served head_dim
+// 128 at q_blk 128) or the wide one (64-row blocks; 32 keys and 64
+// columns a warpgroup at a depth up to 128 with a smaller q_blk, else 16
+// keys and 64 or 128 columns: head_dim 256); 4-byte copies for unaligned
+// views
+template <int VEC, bool kPart>
+int launch_f32_tile(const f32_tile::Problem& p, int B, cudaStream_t st) {
+  if (p.rows != f32_tile::kRows)
+    return p.nv == 128 ? launch_f32<VEC, kPart, 32, 128, false>(p, B, st)
+                       : launch_f32<VEC, kPart, 32, 64, false>(p, B, st);
+  if (p.nv == 128) return launch_f32<VEC, kPart, 16, 128, true>(p, B, st);
+  return p.nk == 32 ? launch_f32<VEC, kPart, 32, 64, true>(p, B, st)
+                    : launch_f32<VEC, kPart, 16, 64, true>(p, B, st);
+}
+
 template <bool kPart>
 int launch_f32_part(const f32_tile::Problem& p, int vec, int B, cudaStream_t st) {
-  if (vec == 1) return launch_f32<1, kPart, 0>(p, B, st);
-  return p.Dv % f32_tile::kSlice == 0 ? launch_f32<4, kPart, 16>(p, B, st)
-                                      : launch_f32<4, kPart, 0>(p, B, st);
+  return vec == 1 ? launch_f32_tile<1, kPart>(p, B, st) : launch_f32_tile<4, kPart>(p, B, st);
 }
 
 // vec: floats per copy, 4 (16-byte copies: the wrapper found the bases
@@ -547,7 +567,7 @@ int dispatch_f32(const Args& a, int vec) {
   p.scale_log2 = a.scale * f32_tile::kLog2e;
   p.causal = a.causal;
   p.window = a.window;
-  if ((vec != 1 && vec != 4) || a.bd <= 0 || !f32_tile::plan(p, vec))
+  if ((vec != 1 && vec != 4) || a.bd <= 0 || !f32_tile::plan(p, vec, a.B))
     return (int)cudaErrorInvalidValue;
   return p.kc_part != nullptr ? launch_f32_part<true>(p, vec, a.B, a.st)
                               : launch_f32_part<false>(p, vec, a.B, a.st);

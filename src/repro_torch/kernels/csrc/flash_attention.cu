@@ -62,16 +62,18 @@
 // float32 route (what a served HF checkpoint runs with AQUA off or with
 // per-dim selection, the launcher's default block_dims 1: config_from_hf
 // gives float32 params and activations), on the tensor cores with the
-// three-pass TF32 split of f32_tile.cuh, which holds the plain float32
-// version's 1e-5 limits that one TF32 pass misses by ~50x: one block of
-// 256 threads per (b, h, 64 query rows, 128-column value slice), two warp
-// groups taking one half of each key tile each, mma.sync m16n8k8, K and V
-// tiles of 64 keys by cp.async (16-byte copies when D is a multiple of 4
-// and the views 16-byte aligned, else 4-byte) in two stages (one at D
-// past ~200), the softmax in registers. What bounds it: the operations,
-// each run as three TF32 products at 495 TFLOP/s (165 TFLOP/s of float32
-// work), against 67 TFLOP/s of scalar float32. D <= 256 (slices past 128
-// recompute the scores, as on the bf16 route).
+// engine of f32_tile.cuh: wgmma on TF32 with every product split into
+// three passes, which hold the plain float32 version's 1e-5 limits that
+// one TF32 pass misses by ~50x. What bounds it: the operations, each run
+// as three TF32 products at 495 TFLOP/s, 165 TFLOP/s of float32 work
+// (against 67 TFLOP/s of scalar float32). Each (row, key) score is
+// computed once for every output column, D up to 256 (no value slices):
+// D up to 128 in 128-row blocks over 32-key tiles (a grid of 1.5 waves
+// or more; else 64-row blocks), D past 128 in 64-row blocks whose two
+// warpgroups split the depth of the scores and the output columns, over
+// 16-key tiles; two ring stages of K and V split into hi and lo once a
+// block (16-byte cp.async copies when D is a multiple of 4 and the views
+// 16-byte aligned, else 4-byte), the softmax in registers. D <= 256.
 
 #include <algorithm>
 
@@ -311,21 +313,32 @@ int launch_shape(int D, Args... args) {
 // float32: tensor cores, three TF32 passes (f32_tile.cuh)
 // ---------------------------------------------------------------------------
 
-template <int VEC, int NDV>
+template <int VEC, int NK, int NV, bool kWide>
 __global__ void __launch_bounds__(f32_tile::kThreads, 1)
     flash_f32(const __grid_constant__ f32_tile::Problem p) {
-  f32_tile::attend<VEC, false, NDV>(p);
+  f32_tile::attend<VEC, false, NK, NV, kWide>(p);
 }
 
-template <int VEC, int NDV>
+template <int VEC, int NK, int NV, bool kWide>
 int launch_f32(const f32_tile::Problem& p, int B, cudaStream_t st) {
   static int done[16] = {0};
-  const int bytes = f32_tile::smem_bytes(p, p.nst);
-  cudaError_t err = attn_tile::allow_smem(flash_f32<VEC, NDV>, bytes, done);
+  const int bytes = f32_tile::smem_bytes(p);
+  cudaError_t err = attn_tile::allow_smem(flash_f32<VEC, NK, NV, kWide>, bytes, done);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.Tq + f32_tile::kRows - 1) / f32_tile::kRows * p.H, f32_tile::slices(p), B);
-  flash_f32<VEC, NDV><<<grid, f32_tile::kThreads, bytes, st>>>(p);
+  const dim3 grid((p.Tq + p.rows - 1) / p.rows * p.H, 1, B);
+  flash_f32<VEC, NK, NV, kWide><<<grid, f32_tile::kThreads, bytes, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// the form, key tile and column share that plan chose (as the prefill's
+// launch_f32_tile; D is Dv: past 128 the wide form at 16 keys)
+template <int VEC>
+int launch_f32_tile(const f32_tile::Problem& p, int B, cudaStream_t st) {
+  if (p.rows != f32_tile::kRows)
+    return p.nv == 128 ? launch_f32<VEC, 32, 128, false>(p, B, st)
+                       : launch_f32<VEC, 32, 64, false>(p, B, st);
+  return p.nv == 128 ? launch_f32<VEC, 16, 128, true>(p, B, st)
+                     : launch_f32<VEC, 32, 64, true>(p, B, st);
 }
 
 // vec: floats per copy, 4 (16-byte copies: the wrapper found the bases
@@ -353,12 +366,8 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* out, const i
   p.scale_log2 = scale * f32_tile::kLog2e;
   p.causal = causal;
   p.window = window;
-  if ((vec != 1 && vec != 4) || !f32_tile::plan(p, vec)) return (int)cudaErrorInvalidValue;
-  // head dims 128 and 256 (slices of 128) take a kernel with its P·V width
-  // fixed at compile time; 4-byte copies (unaligned views) only the
-  // generic one
-  if (vec == 1) return launch_f32<1, 0>(p, B, st);
-  return D % f32_tile::kSlice == 0 ? launch_f32<4, 16>(p, B, st) : launch_f32<4, 0>(p, B, st);
+  if ((vec != 1 && vec != 4) || !f32_tile::plan(p, vec, B)) return (int)cudaErrorInvalidValue;
+  return vec == 1 ? launch_f32_tile<1>(p, B, st) : launch_f32_tile<4>(p, B, st);
 }
 
 }  // namespace

@@ -12,15 +12,16 @@ products against S·2D bytes of K/V per KV head). The kernel walks only the
 key tiles inside the causal bound and the window, and reads q/k/v through
 strides so the model's (B, S, KV, G, D) layout needs no transpose. Both
 dtypes run on the tensor cores: bf16 on ``wgmma`` (``csrc/attn_tile.cuh``),
-float32 on ``mma.sync`` with every product split into three TF32 passes,
+float32 on ``wgmma`` with every product split into three TF32 passes,
 which hold the float32 limits (``csrc/f32_tile.cuh``); see the headers
 for the tiling. The bf16 kernel copies K and V by TMA tensor maps and Q
 in 16-byte pieces: it needs D % 8 == 0, 16-byte aligned bases and outer
 strides, under 2**40 bytes (``ValueError`` otherwise). The float32 kernel
 copies 16-byte pieces where D % 4 == 0 and the views allow, else 4-byte
 ones. Both take D <= 256 (``ValueError`` past it; JAX's Pallas kernel
-takes any), a D above 128 (RecurrentGemma's 256) with its output in
-128-column slices, one per block.
+takes any); the bf16 kernel computes a D above 128 (RecurrentGemma's 256)
+in 128-column slices of the output, one per block, the float32 kernel
+every column in one block.
 
 Dispatch is by device: CPU tensors run :func:`flash_attention_plain`, CUDA
 tensors launch the kernel or raise. Launches count in

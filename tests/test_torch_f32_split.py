@@ -1,28 +1,35 @@
 """The float32 prefill and flash kernels' arithmetic, emulated on the CPU.
 
 ``csrc/f32_tile.cuh`` runs every product of attention on TF32 tensor
-cores as a three-pass split: x = hi + lo with hi = tf32(x) and lo =
-tf32(x - hi) (``cvt.rna``: round to nearest, ties away from zero), and
-a·b = lo_a·hi_b + hi_a·lo_b + hi_a·hi_b, per k-step of 8 into an
-accumulator of its own, the small terms first, then added to the running
-sum in float32. The online softmax runs in the log2
-domain over 64-key tiles, each split into two 32-key halves: two streams
-(a warp group each) with their own max, sum and output, merged at the
-end. P is split the same way before P·V, whose products add up in an
-accumulator of their own per tile, added to the output in float32. This
-module emulates that arithmetic in plain PyTorch (TF32 rounding by
-masking the low 13 bits of the float32's int32 view) and holds it to the
+cores (``wgmma``) as a three-pass split: x = hi + lo with hi = tf32(x)
+(``cvt.rna``: round to nearest, ties away from zero) and lo = x - hi,
+which the tensor cores read at TF32 width (its low 13 bits dropped), and
+a·b = lo_a·hi_b + hi_a·lo_b + hi_a·hi_b. A block of 64 query rows walks
+its key tiles in ascending order (32 keys when the gathered depth and Dv
+are at most 128, else 16) in one online softmax in the log2 domain. Its
+two warpgroups split the depth: each sums its half of the k-steps (8 dims
+each, the first half the larger) by k-groups of two k-steps, each
+k-group's six products (three passes of two k-steps) chained into an
+accumulator of their own, the small terms first, folded into the running
+sum in float32; the two halves' sums are then added. P is split the same
+way before P·V, whose products over a tile add up in an accumulator of
+their own, added to the output (rescaled) in float32. The depth is the
+block's union of selected dims: the prefill gathers the dims selected by
+the ``q_blk`` tiles a 64-row block covers, each row zero where its own tile
+did not select. This module emulates that arithmetic in plain PyTorch (TF32
+by rounding or masking the float32's int32 view) and holds it to the
 kernels' plain versions at their float32 limit, per element |out - ref|
 <= 1e-5·|ref| + 1e-5 (``tests/test_torch_gpu.py``'s ``TOL``): the split
 must stay within it, one TF32 pass (the control) must break it, and the
-reading grows with the scores' scale. Shapes: a reduced width, one
-(KV head, query head) pair of Qwen3-0.6B's served prefill (S 1024, head
-dim 128, 96 selected dims), and one of head dim 256 (S 1024; the prefill
-at 192 selected dims, flash at all 256: the depth the kernels reach). Inputs are standard normal draws from seeded
-numpy generators, as in every GPU test and ``chip_smoke.py`` phase
-(scores with a standard deviation near 1); q scaled by c scales the
-scores by c. The split's reading grows with c and reaches the limit near
-c = 6 at the served shape (scores with a standard deviation near 5).
+reading grows with the scores' scale. Shapes: a reduced width, one (KV
+head, query head) pair of Qwen3-0.6B's served prefill (S 1024, head dim
+128, 96 selected dims), and one of head dim 256 (S 1024; the prefill at
+192 selected dims, flash at all 256: the depth the kernels reach). Inputs
+are standard normal draws from seeded numpy generators, as in every GPU
+test and ``chip_smoke.py`` phase (scores with a standard deviation near
+1); q scaled by c scales the scores by c. The split's reading grows with c
+and reaches the limit near c = 6 at the served shape (scores with a
+standard deviation near 5).
 """
 import math
 
@@ -35,9 +42,9 @@ from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ops
 
 RTOL = ATOL = 1e-5        # the float32 limit of the kernels' GPU tests
-KEYS = 64                 # keys per tile of the kernels' walk
-HALF = 32                 # keys of a tile per warp group
-K_STEP = 8                # depth of one m16n8k8 product
+ROWS = 64                 # query rows of a block
+K_STEP = 8                # depth of one k8 product
+K_GROUP = 2               # k-steps of the scores a fresh accumulator sums
 NEG_INF = -1e30
 
 
@@ -49,18 +56,30 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """float32 as the tensor cores read it at TF32 width: its 13 low bits
+    dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
 def split(x: torch.Tensor) -> tuple:
+    """hi = tf32(x), and lo = x - hi as the products read it."""
     hi = tf32(x)
-    return hi, tf32(x - hi)
+    return hi, tf32_read(x - hi)
 
 
-def product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
-    """a (M, K) · b (K, N) as the kernel's scores accumulate: per k-step of
-    8, lo_a·hi_b, hi_a·lo_b, then hi_a·hi_b (passes 3), or tf32(a)·tf32(b)
-    alone (passes 1), into a fresh float32 accumulator, added to the
-    running sum. (The kernel's P·V sums a tile's k-steps into one
-    accumulator before adding it; the order differs from this one by
-    float32 rounding only.)"""
+def tile_keys(depth: int, dv: int) -> int:
+    """Keys of a tile of the kernels' walk (``f32_tile::tile_keys``)."""
+    return 32 if depth <= 128 and dv <= 128 else 16
+
+
+def product(a: torch.Tensor, b: torch.Tensor, passes: int,
+            group: int = K_GROUP) -> torch.Tensor:
+    """a (M, K) · b (K, N) as the kernel accumulates: per k-step of 8,
+    lo_a·hi_b, hi_a·lo_b, then hi_a·hi_b (passes 3), or hi_a·hi_b alone
+    (passes 1), the k-steps of each k-group of ``group`` (the scores' two;
+    a tile's P·V all of its own) summed into a fresh float32 accumulator,
+    added to the running sum."""
     m, k, n = a.shape[0], a.shape[1], b.shape[1]
 
     def steps(x, y):        # (k / 8, m, n): each k-step's product
@@ -71,38 +90,39 @@ def product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     if passes == 3:
         step = steps(al, bh) + steps(ah, bl) + step
     acc = torch.zeros(m, n, dtype=torch.float32)
-    for x in step:
-        acc = acc + x
+    for i in range(0, len(step), group):
+        part = step[i]
+        for x in step[i + 1:i + group]:
+            part = part + x
+        acc = acc + part
     return acc
 
 
 def emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             visible: torch.Tensor, scale: float, passes: int) -> torch.Tensor:
-    """One head: q (T, D) rows (zeros in the dims their tile did not
-    select), k (S, D), v (S, Dv), visible (T, S) bool. Two streams of the
-    online softmax in the log2 domain, over the first and the second
-    32-key half of every 64-key tile, merged at the end; O / max(l,
-    1e-30)."""
-    t, s = q.shape[0], k.shape[0]
-    streams = []
-    for half in range(KEYS // HALF):
-        o = torch.zeros(t, v.shape[1])
-        m = torch.full((t, 1), NEG_INF)
-        l = torch.zeros(t, 1)
-        for k0 in range(half * HALF, s, KEYS):
-            keys = slice(k0, min(k0 + HALF, s))
-            x = product(q, k[keys].T, passes) * (scale * math.log2(math.e))
-            x = torch.where(visible[:, keys], x, torch.full_like(x, NEG_INF))
-            m_new = torch.maximum(m, x.max(dim=1, keepdim=True).values)
-            corr = torch.exp2(m - m_new)
-            p = torch.exp2(x - m_new)
-            m, l = m_new, l * corr + p.sum(dim=1, keepdim=True)
-            o = o * corr + product(p, v[keys], passes)
-        streams.append((m, l, o))
-    (m0, l0, o0), (m1, l1, o1) = streams
-    m = torch.maximum(m0, m1)
-    c0, c1 = torch.exp2(m0 - m), torch.exp2(m1 - m)
-    return (o0 * c0 + o1 * c1) / torch.clamp(l0 * c0 + l1 * c1, min=1e-30)
+    """One block of one head: q (R, depth) rows gathered to the block's
+    union (zeros in the dims their tile did not select), k (S, depth)
+    gathered alike, v (S, Dv), visible (R, S) bool. The online softmax in
+    the log2 domain over the key tiles in ascending order, the scores the
+    sum of the two halves of the k-steps; O / max(l, 1e-30)."""
+    r, s, depth = q.shape[0], k.shape[0], q.shape[1]
+    nk = tile_keys(depth, v.shape[1])
+    cut = (depth // K_STEP + 1) // 2 * K_STEP      # the first half's dims
+    o = torch.zeros(r, v.shape[1])
+    m = torch.full((r, 1), NEG_INF)
+    l = torch.zeros(r, 1)
+    for k0 in range(0, s, nk):
+        keys = slice(k0, min(k0 + nk, s))
+        x = (product(q[:, :cut], k[keys, :cut].T, passes)
+             + product(q[:, cut:], k[keys, cut:].T, passes))
+        x = x * (scale * math.log2(math.e))
+        x = torch.where(visible[:, keys], x, torch.full_like(x, NEG_INF))
+        m_new = torch.maximum(m, x.max(dim=1, keepdim=True).values)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        m, l = m_new, l * corr + p.sum(dim=1, keepdim=True)
+        o = o * corr + product(p, v[keys], passes, group=nk // K_STEP)
+    return o / torch.clamp(l, min=1e-30)
 
 
 @pytest.fixture(autouse=True)
@@ -160,12 +180,21 @@ def readings(case: str, score_scale: float = 1.0, passes=(3, 1)) -> dict:
         mask = sel.repeat_interleave(8, -1).repeat_interleave(chunk, 2)
         q = q * mask[:, :, :s]
     else:
+        chunk, sel = s, torch.ones(1, h, 1, d // 8)
         ref = fk.flash_attention_plain(q, k, v, causal=True)
     g = h // kvh
     out = {}
     for n in passes:
-        emu = torch.stack([emulate(q[0, i], k[0, i // g], v[0, i // g],
-                                   visible, sm, n) for i in range(h)])
+        emu = torch.zeros(h, s, d)
+        for i in range(h):
+            for r0 in range(0, s, ROWS):
+                r1 = min(r0 + ROWS, s)
+                # the block's union: the dims its q_blk tiles select
+                blocks = sel[0, i, r0 // chunk:(r1 - 1) // chunk + 1].amax(0)
+                dims = (blocks > 0).repeat_interleave(8).nonzero()[:, 0]
+                emu[i, r0:r1] = emulate(
+                    q[0, i, r0:r1][:, dims], k[0, i // g, :r1][:, dims],
+                    v[0, i // g, :r1], visible[r0:r1, :r1], sm, n)
         out[n] = reading(emu, ref[0])
     return out
 

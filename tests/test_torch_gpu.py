@@ -637,12 +637,134 @@ def test_float32_routes_take_dv_256(cuda):
             fk.flash_attention(wq, wk, wk)
 
 
+def test_f32_prefill_chunk_rows_bitwise_equal_monolithic_at_256(cuda):
+    """float32 at D = Dv = 256 (RecurrentGemma's head dim: 16-key tiles,
+    the union of 192 selected dims): a chunk at a q_offset that is a
+    multiple of the 64-row blocks has the monolithic call's blocks and
+    unions, so its rows are bitwise the monolithic rows, and both hold the
+    plain version at the float32 limit."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, h, kv, d, s, off, q_blk = 1, 4, 1, 256, 640, 384, 128
+    f32 = torch.float32
+    q = _rand(gen, b, h, s, d, dtype=f32)
+    k = _rand(gen, b, kv, s, d, dtype=f32)
+    v = _rand(gen, b, kv, s, d, dtype=f32)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=cuda)
+    kw = dict(block_dims=8, q_blk=q_blk, causal=True, scale=d ** -0.5)
+    full_idx, _, _ = ops.prefill_blocks(q, lengths, 0.75, 8, q_blk)
+    mono = pk.aqua_prefill_attention(q, k, v, full_idx, lengths, **kw)
+    chunk_idx = full_idx[:, :, off // q_blk:].contiguous()
+    chunk = pk.aqua_prefill_attention(q[:, :, off:], k, v, chunk_idx, lengths,
+                                      q_offset=off, **kw)
+    ref = pk.aqua_prefill_plain(q[:, :, off:], k, v, chunk_idx, lengths,
+                                q_offset=off, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(chunk, mono[:, :, off:])
+    assert _within_tol(chunk, ref, f32)
+
+
+def test_f32_prefill_forms_agree_bitwise(cuda):
+    """The float32 engine's two forms compute a row alike: the monolithic
+    call at S 4096 (32 x 16 blocks of 128 rows: the narrow form) and its
+    last 512 rows as a chunk (4 x 16 blocks: the wide form, 64-row blocks
+    whose warpgroups split the depth and the columns) give the same bits,
+    both at the float32 limit of the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, h, kv, d, s, off, q_blk = 1, 16, 8, 128, 4096, 3584, 128
+    f32 = torch.float32
+    q = _rand(gen, b, h, s, d, dtype=f32)
+    k = _rand(gen, b, kv, s, d, dtype=f32)
+    v = _rand(gen, b, kv, s, d, dtype=f32)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=cuda)
+    kw = dict(block_dims=8, q_blk=q_blk, causal=True, scale=d ** -0.5)
+    full_idx, _, _ = ops.prefill_blocks(q, lengths, 0.75, 8, q_blk)
+    mono = pk.aqua_prefill_attention(q, k, v, full_idx, lengths, **kw)
+    chunk_idx = full_idx[:, :, off // q_blk:].contiguous()
+    chunk = pk.aqua_prefill_attention(q[:, :, off:], k, v, chunk_idx, lengths,
+                                      q_offset=off, **kw)
+    ref = pk.aqua_prefill_plain(q[:, :, off:], k, v, chunk_idx, lengths,
+                                q_offset=off, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(chunk, mono[:, :, off:])
+    assert _within_tol(chunk, ref, f32)
+
+
+@pytest.mark.parametrize("kernel", ["prefill", "flash"])
+@pytest.mark.parametrize("edge", ["empty_lane", "unaligned_view"])
+def test_f32_edges_at_dv_256(cuda, kernel, edge):
+    """float32 at D = Dv = 256 against the plain version at the float32
+    limit: a lane of length 0 beside a full one (every row of it the mean
+    of V), and views whose base is one float off a 16-byte boundary (the
+    4-byte copies, VEC 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(256 + len(edge))
+    b, h, kv, s, d, f32 = 2, 4, 1, 330, 256, torch.float32
+    empty = edge == "empty_lane"
+    lengths = torch.tensor([s, 0 if empty else s - 41], dtype=torch.int32,
+                           device=cuda)
+    if empty:
+        q, k, v = (_rand(gen, b, n, s, d, dtype=f32) for n in (h, kv, kv))
+    else:
+        q, k, v = (_rand(gen, b, n, s, d + 1, dtype=f32)[..., 1:]
+                   for n in (h, kv, kv))
+        assert q.data_ptr() % 16 and not q.is_contiguous()
+    if kernel == "flash":
+        out = fk.flash_attention(q, k, v, causal=True, lengths=lengths)
+        ref = fk.flash_attention_plain(q, k, v, causal=True, lengths=lengths)
+    else:
+        block_idx, _, chunk = ops.prefill_blocks(q, lengths, 0.75, 8, 128)
+        kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5)
+        out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+        ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, **kw)
+    torch.cuda.synchronize()
+    assert _empty_lane_held(out, ref, f32, empty)
+    if empty:
+        mean = v[1].mean(1).repeat_interleave(h // kv, 0)[:, None]
+        assert _within_tol(out[1], mean.expand_as(out[1]), f32)
+
+
+def test_f32_part_kernel_at_dv_256(cuda):
+    """The float32 participating-chunk prefill at D = Dv = 256 (ragged, a
+    q_offset, 64-row blocks covering two 32-row q-tiles) against the
+    masked-dense plain version at the float32 limit; the identity table
+    walks the dense walk's tiles, bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(2560)
+    b, h, kv, s, t, off, d, blk = 2, 4, 1, 600, 450, 150, 256, 64
+    f32 = torch.float32
+    q = _rand(gen, b, h, t, d, dtype=f32)
+    k = _rand(gen, b, kv, s, d, dtype=f32)
+    v = _rand(gen, b, kv, s, d, dtype=f32)
+    lengths = torch.tensor([s, s - 70], dtype=torch.int32, device=cuda)
+    block_idx, _, chunk = ops.prefill_blocks(q, lengths - off, 0.75, 8, 32)
+    nqc, nkc = block_idx.shape[2], -(-s // blk)
+    table = selection.chunk_participating_tiles(
+        torch.rand(b, nkc, generator=gen, device=cuda), nqc=nqc, q_blk=32,
+        k_blk=blk, kept_tiles=4, pin_tiles=1, q_offset=off)
+    kw = dict(block_dims=8, q_blk=chunk, causal=True, scale=d ** -0.5,
+              q_offset=off, k_blk=blk)
+    out = pk.aqua_prefill_attention(q, k, v, block_idx, lengths,
+                                    kc_part=table, **kw)
+    ref = pk.aqua_prefill_plain(q, k, v, block_idx, lengths, kc_part=table,
+                                **kw)
+    ident = torch.arange(nkc, dtype=torch.int32, device=cuda).expand(
+        b, nqc, nkc).contiguous()
+    walk = pk.aqua_prefill_attention(q, k, v, block_idx, lengths,
+                                     kc_part=ident, **kw)
+    dense = pk.aqua_prefill_attention(q, k, v, block_idx, lengths, **kw)
+    torch.cuda.synchronize()
+    valid = ((off + torch.arange(t, device=cuda))[None]
+             < lengths[:, None])[:, None, :, None]
+    assert _within_tol(out, ref, f32, valid)
+    assert torch.equal(walk, dense)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_value_slices_equal_narrow_calls(cuda, dtype):
-    """A value width of 256 runs as two 128-column slices, each walking the
-    same key tiles with the same scores: the output's halves are bit for
-    bit the calls on V's halves (RecurrentGemma's 192 of 256 selected dims,
-    under a window)."""
+    """A value width of 256 runs in bf16 as two 128-column slices, each
+    walking the same key tiles with the same scores, and in float32 in one
+    block whose warpgroups take 128 columns each, every column from the
+    same P: either way the output's halves are bit for bit the calls on
+    V's halves (RecurrentGemma's 192 of 256 selected dims, under a
+    window)."""
     gen = torch.Generator(device="cuda").manual_seed(128)
     b, h, kv, s, d = 2, 4, 1, 700, 256
     q = _rand(gen, b, h, s, d, dtype=dtype)
@@ -661,7 +783,7 @@ def test_value_slices_equal_narrow_calls(cuda, dtype):
 
 # (dtype, d, h, kv): the narrow kernels at Qwen3-0.6B's geometry, and at
 # head dim 256 (RecurrentGemma's, 8 heads over one KV head) the engine's
-# wide kernels and the float32 slices
+# wide kernels and the float32 engine's wide form
 REPEAT_CASES = [(torch.bfloat16, 128, 16, 8), (torch.bfloat16, 256, 8, 1),
                 (torch.float32, 256, 8, 1)]
 
