@@ -370,6 +370,30 @@ Phases, each of which raises (non-zero exit) on failure:
    least COPY_MATCH_MIN of them); a checkpoint resume (4 steps, a save
    to a temporary directory, a fresh ``Trainer`` that restores, 4 more)
    against 8 straight steps within RESUME_RTOL.
+7b. Serving on a mesh (the ``{"serve_mesh": ...}`` line). Two ranks on
+   the card ask NCCL for a communicator (what it says is recorded); then
+   the kernels, built once here, serve on four spawned ranks, a 2x2 data
+   x model mesh sharing the card over gloo. Qwen3-0.6B at full width and
+   depth, random weights from MESH_SEED made on the host, each rank's
+   blocks copied to the card (``bridge.params_from_numpy(mesh=)``), AQUA
+   k 0.75 bd 8 calibrated on the host by rank 0; 8 lanes (4 a rank),
+   64-token pages, the prefix_paged trace; float32 with prefix sharing,
+   bf16 without. Every rank: a mesh-native plan, no fallback, eager
+   steps, exactly the path's launches (the prefill once a layer a fresh
+   admission, the paged decode once a layer a step), the same tokens as
+   every other rank. Rank 0: the prefill and the paged decode against
+   their plain versions at the rank's shard-local shapes (8 heads over 4
+   KV heads, 4 lanes; ``mesh_shard_form`` in the kernels line); the
+   trace on one device with the kernels and with their plain versions,
+   the mesh's logits held to both by request (float32: HF_LOGIT_SCALE
+   times the float32 limit, and the kernels' tokens exactly; bf16:
+   LOGIT_RTOL); in bf16 each request whose tokens part from one device's
+   shown against a float32-activation forward at the parting token
+   (``parted_rows``). Bf16 also: every rank's KV shard swapped for its
+   model peer's must break the limit; and the trace on a data-only 4x1
+   mesh of the same ranks, whose step and admissions run as CUDA graphs,
+   with exactly the path's launches on every rank, held to one device at
+   LOGIT_RTOL.
 8. The ``{"kernels": [...]}`` line (the paged decode's and the prefill's
    phases at groups 1 and 3 and at the MoE geometry under
    ``group_geometries``, with the launches of those configs' drives;
@@ -693,9 +717,10 @@ def swapped_group_heads(block_idx):
 def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
                  s: int = 4096, len_range: tuple = (2048, 4096),
                  form: str = None, dtype: str = "bfloat16",
-                 shared_pages: int = 0, idle: int = 0, d: int = 128) -> dict:
-    """The decode (contiguous or paged, 64-token pages) at B=8 over a
-    table of ``s`` positions, lengths uniform in ``len_range``; the served
+                 shared_pages: int = 0, idle: int = 0, d: int = 128,
+                 b: int = 8) -> dict:
+    """The decode (contiguous or paged, 64-token pages) at B=``b`` (8) over
+    a table of ``s`` positions, lengths uniform in ``len_range``; the served
     form (``form="served"``) takes the drives' contexts. bf16 takes the
     group route; float32 (``dtype``, the served checkpoint's) the float32
     group route (``group_f32``). ``shared_pages`` > 0 (paged): every
@@ -713,7 +738,7 @@ def decode_phase(geom: str, h: int, kvh: int, paged: bool, gen,
     from repro_torch.kernels import aqua_decode as dk
     from repro_torch.kernels.ops import round_k_dims
 
-    b, ps = 8, 64
+    ps = 64
     dev, bf = "cuda", getattr(torch, dtype)
     q = torch.randn(b, h, d, device=dev, generator=gen).to(bf)
     k = torch.randn(b, kvh, s, d, device=dev, generator=gen).to(bf)
@@ -1537,7 +1562,8 @@ def clone_layers(layers):
         for t in (getattr(layers, f.name),)})
 
 
-def serve_drive(eng, reqs, positions: bool = False, tape=None) -> dict:
+def serve_drive(eng, reqs, positions: bool = False, tape=None,
+                gather=None) -> dict:
     """Serve ``reqs``; returns tokens per uid, each admission's logits, the
     logits of the first decode steps with each lane's uid and the tokens
     it held at that step (with ``positions``, also the positions every
@@ -1550,7 +1576,9 @@ def serve_drive(eng, reqs, positions: bool = False, tape=None) -> dict:
     once per slot), and the residents held at the end, per layer. With an
     MoE routing ``tape`` (``models.moe.RoutingTape``, installed), each
     admission's and each checked step's routing, every layer's, and the
-    routing choices every admission and every step kept and dropped."""
+    routing choices every admission and every step kept and dropped.
+    ``gather``: applied to each checked step's logits (a mesh rank's own
+    lanes, all-gathered over the data axes into every lane's)."""
     import torch
     from repro_torch.models import moe
     tokens, admit_logits, steps, admit_routes = {}, {}, [], {}
@@ -1581,6 +1609,8 @@ def serve_drive(eng, reqs, positions: bool = False, tape=None) -> dict:
             # the first event of a new decode step: ``tokens`` still holds
             # what each lane had fed in
             logits = eng.last_step_logits
+            if gather is not None:
+                logits = gather(logits)
             assert torch.isfinite(logits).all(), \
                 f"decode step {eng.stats.decode_steps}"
             routes = None if tape is None else tape.latest(decode=True)
@@ -1626,7 +1656,8 @@ def serve_drive(eng, reqs, positions: bool = False, tape=None) -> dict:
 
 def compare_logits(run: dict, ref: dict, max_new: int,
                    per_element: bool = False, scale: float = 1.0,
-                   check: bool = True, routed: bool = None) -> dict:
+                   check: bool = True, routed: bool = None,
+                   by_uid: bool = False, selections=None) -> dict:
     """Logits of the kernel drive against the plain drive of the same
     trace: every admission (same prompt), and in each checked decode step
     every lane that was still generating and held the same tokens in both
@@ -1643,7 +1674,16 @@ def compare_logits(run: dict, ref: dict, max_new: int,
     difference can flip an expert at a near tie or a capacity drop; the
     rows this excluded are counted (``routed`` False compares every row,
     as against a drive that replayed the run's routing; with ``routed``
-    True or False an empty comparison is reported, not refused)."""
+    True or False an empty comparison is reported, not refused).
+    ``by_uid``: a decode row is matched to the reference's by its
+    request, not its lane (a mesh engine fills its lanes in another
+    order). ``selections``: both drives' dim-block selections of the
+    checked decode steps (``decode_selections``): as with routing, a
+    lane is compared only up to the step before its selection first
+    differs from the reference's in some layer and head (a rounding
+    difference can rank two near-tied dim-blocks of |q̂| the other way);
+    the rows this excluded are counted, and each such lane's first step
+    reported with the layers and (layer, head) pairs that differ."""
     import torch
 
     def row_check(got, want, what):
@@ -1671,39 +1711,56 @@ def compare_logits(run: dict, ref: dict, max_new: int,
                        for u, want in ref["admit_logits"].items()
                        if alike[u]), default=0.0)
     worst_step, rows, first_divergent = 0.0, 0, {}
-    routed_apart = 0
+    routed_apart = selected_apart = 0
+    sel_apart = {}
     assert len(run["step_logits"]) == len(ref["step_logits"]) \
         == DECODE_STEPS_CHECKED
     for i, (got, want) in enumerate(zip(run["step_logits"],
                                         ref["step_logits"])):
-        assert got["uids"] == want["uids"], (i, got["uids"], want["uids"])
+        assert by_uid or got["uids"] == want["uids"], \
+            (i, got["uids"], want["uids"])
         for lane, u in enumerate(want["uids"]):
             held = want["held"].get(u)
             if held is None or len(held) >= max_new \
                     or got["held"].get(u) != held:
                 continue
+            glane = got["uids"].index(u) if by_uid else lane
             if routed and alike.get(u, False) and not same(
-                    [r[:, lane] for r in got["routes"]],
+                    [r[:, glane] for r in got["routes"]],
                     [r[:, lane] for r in want["routes"]]):
                 alike[u] = False          # from this step on
             if not alike.get(u, True):
                 routed_apart += 1
                 continue
+            if selections is not None and u not in sel_apart:
+                differ = (selections[0][i][:, glane]
+                          != selections[1][i][:, lane]).any(dim=-1)
+                if bool(differ.any()):        # (layers, heads)
+                    sel_apart[u] = dict(step=i + 1,
+                                        layers=int(differ.any(-1).sum()),
+                                        layer_heads=int(differ.sum()))
+            if u in sel_apart:
+                selected_apart += 1
+                continue
             if want["positions"] is not None and not bool(
-                    (got["positions"][:, lane]
+                    (got["positions"][:, glane]
                      == want["positions"][:, lane]).all()):
                 first_divergent.setdefault(lane, i + 1)
                 continue
             worst_step = max(worst_step, row_check(
-                got["logits"][lane], want["logits"][lane],
+                got["logits"][glane], want["logits"][lane],
                 f"decode step {i + 1} lane {lane}"))
             rows += 1
     assert rows > 0 or not need_rows, "no decode-step logits were compared"
     pairs = [(a, b) for uid in ref["tokens"]
              for a, b in zip(run["tokens"][uid], ref["tokens"][uid])]
     out = {}
+    if selections is not None:
+        out = dict(decode_rows_selected_apart=selected_apart,
+                   first_selection_apart_by_uid={
+                       str(u): v for u, v in sel_apart.items()})
     if routed:
-        out = dict(admissions_routed_apart=sum(
+        out = dict(out, admissions_routed_apart=sum(
             not same(run["admit_routes"][u], ref["admit_routes"][u])
             for u in ref["admit_logits"]),
             decode_rows_routed_apart=routed_apart)
@@ -3953,6 +4010,483 @@ def eval_phase(card: str) -> dict:
                 resume=resume)
 
 
+MESH_SHAPE = (2, 2)
+MESH_DIR = os.path.join(ROOT, "build", "mesh_phase")
+MESH_SEED = 3
+MESH_REQUESTS = 8
+
+
+def nccl_probe_rank(out_dir: str) -> None:
+    """One of two ranks on one card asking NCCL for a communicator and one
+    all-reduce (spawned by ``mesh_phase``): writes what NCCL said, its
+    error or "ok". Its subject is the error: the mesh's ranks share the
+    card, so their collectives run over gloo."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    rank = int(os.environ["RANK"])
+    wait = datetime.timedelta(seconds=60)
+    store = dist.TCPStore("127.0.0.1", int(os.environ["MASTER_PORT"]), 2,
+                          rank == 0, timeout=wait)
+    torch.cuda.set_device(0)
+    try:
+        pg = dist.ProcessGroupNCCL(store, rank, 2)
+        t = torch.ones(1, device="cuda")
+        pg.allreduce([t]).wait(wait)
+        torch.cuda.synchronize()
+        said = "ok"
+    except Exception as e:        # what NCCL says is what is recorded
+        said = str(e)
+    with open(os.path.join(out_dir, f"nccl{rank}.txt"), "w") as f:
+        f.write(said)
+
+
+def host_model(mesh, dtype: str) -> tuple:
+    """Qwen3-0.6B at full width and depth with AQUA (K_RATIO, BLOCK_DIMS),
+    its random weights of ``dtype`` from MESH_SEED made on the host (every
+    rank makes the same: the CPU generator), so that each rank copies only
+    its blocks to the card, as the launcher places them; projections
+    calibrated on the host by rank 0 (32-token windows of the corpus) and
+    given to every rank (``collectives.from_rank0``, on the card): (config,
+    host params, projections)."""
+    import torch
+    from repro_torch.configs import AquaConfig, get_config
+    from repro_torch.core.calibration import (AquaProjections, calibrate,
+                                              capture_forward)
+    from repro_torch.data.corpus import calibration_batches
+    from repro_torch.distributed import collectives
+    from repro_torch.models import build_model
+    mcfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype=dtype,
+                               param_dtype=dtype).with_aqua(
+        AquaConfig(k_ratio=K_RATIO, block_dims=BLOCK_DIMS))
+    model = build_model(mcfg, "cpu")
+    host = model.init(torch.Generator().manual_seed(MESH_SEED))
+    a = mcfg.attention
+    p = torch.zeros(mcfg.num_layers, a.num_kv_heads, a.head_dim, a.head_dim,
+                    device=mesh.device)
+    if mesh.rank == 0:
+        p = calibrate(capture_forward(model), host, calibration_batches(
+            mcfg.vocab_size, os.path.join(ROOT, "corpora",
+                                          "calibration.txt"),
+            num_batches=2, batch=2, seq=32, model_cfg=mcfg), mcfg,
+            device=mesh.device).p
+    return mcfg, host, AquaProjections(p=collectives.from_rank0(p, mesh))
+
+
+def shard_kernel_checks(eng, serving, dtype: str, f32: bool) -> dict:
+    """The prefill and the paged decode, each kernel's wrapper against its
+    plain version on the card, at the shard-local shapes the mesh engine
+    ``eng`` gives them (its heads and KV heads, its lanes, the trace's
+    longest prompt and its contexts, 64-token pages; float32 with 8 shared
+    pages, as prefix sharing maps them), each with its planted faults
+    (``prefill_phase``, ``decode_phase``)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    a = eng.model.cfg.attention
+    geom = f"mesh_2x2_rank_{a.num_heads}h_{a.num_kv_heads}kv"
+    pre = SHARED_PREFIX["prefix_paged"]
+    out = dict(
+        aqua_prefill=prefill_phase(geom, a.num_heads, a.num_kv_heads, gen,
+                                   s=pre + 1024, form="mesh_shard",
+                                   dtype=dtype, d=a.head_dim),
+        aqua_paged_decode=decode_phase(
+            geom, a.num_heads, a.num_kv_heads, True, gen,
+            s=serving.max_seq, len_range=(pre + 128, pre + 1024 + 32),
+            form="mesh_shard", dtype=dtype, d=a.head_dim,
+            shared_pages=pre // serving.cache.page_size if f32 else 0,
+            b=eng._local_lanes))
+    bad = [k for k, v in out.items() if not v["ok"]]
+    assert not bad, f"{dtype}: at the mesh's shard-local shapes {bad} " \
+        f"disagree with their plain versions: {out}"
+    return out
+
+
+def parted_rows(mcfg, ref_eng, reqs, run, ref) -> list:
+    """Where the bf16 mesh drive's greedy tokens part from the single-device
+    engine's: at each request's first parting token, the logits of a
+    plain forward in float32 activations over the same bf16 weights and
+    projections (as ``pixtral_divergence.py`` holds a parting), on the
+    prompt and the tokens both drives agreed on. ``gap_over_limit``: the
+    float32 logits of the two parting tokens apart, over the bf16 limit
+    (LOGIT_RTOL of the row's largest magnitude); below 1 the two tokens
+    are a near tie that any bf16 computation within the limit may break
+    either way."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    f32 = build_model(dataclasses.replace(
+        mcfg, dtype="float32", attention=dataclasses.replace(
+            mcfg.attention, backend="aqua-block-sparse-plain")), "cuda")
+    rows = []
+    for r in reqs:
+        got, want = run["tokens"][r.uid], ref["tokens"][r.uid]
+        j = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                 None)
+        if j is None:
+            continue
+        # the prompt and the agreed tokens, bucket-padded as the engine
+        # pads an admission
+        batch = ref_eng._prefill_batch(np.concatenate(
+            [np.asarray(r.tokens, np.int32), np.asarray(want[:j], np.int32)]))
+        row = f32.prefill(ref_eng.params, batch, ref_eng.scfg.max_seq,
+                          aqua_proj=ref_eng.proj)[0][0].float()
+        limit = LOGIT_RTOL * row.abs().max().item()
+        top2 = torch.topk(row, 2).values
+        rows.append(dict(uid=r.uid, step=j, mesh_token=got[j],
+                         single_device_token=want[j],
+                         float32_argmax=int(row.argmax()),
+                         gap_over_limit=abs(row[got[j]] - row[want[j]]).item()
+                         / limit,
+                         float32_top2_margin_over_limit=(
+                             top2[0] - top2[1]).item() / limit,
+                         near_tie=abs(row[got[j]] - row[want[j]]).item()
+                         < limit))
+    del f32
+    return rows
+
+
+def decode_selections(tape, mcfg, eng, lanes: int, heads: int):
+    """(DECODE_STEPS_CHECKED, layers, lanes, heads, selected blocks) int32:
+    the decode dim-block selections of a drive's checked steps, from the
+    ``SelectionTape`` installed over its one serve on ``eng`` (one decode
+    call a layer a step, nothing else in the drive selects per row; an
+    engine that captured its step graph in that serve made one warm-up
+    step first), on the tape's device."""
+    import torch
+    nsel = mcfg.aqua.topk_dims(mcfg.attention.head_dim) // \
+        mcfg.aqua.block_dims
+    first = mcfg.num_layers if eng.step_graph is not None else 0
+    calls = first + DECODE_STEPS_CHECKED * mcfg.num_layers
+    assert int(tape.calls[0]) >= calls and not tape.overflowed
+    return tape.buf["decode"][first:calls, :lanes * heads * nsel].reshape(
+        DECODE_STEPS_CHECKED, mcfg.num_layers, lanes, heads,
+        nsel).to(torch.int32)
+
+
+def mesh_drive(mesh, dtype: str) -> dict:
+    """One drive of the mesh phase on this rank (module docstring, section
+    7b): the prefix_paged trace on a 2x2 mesh engine over this rank's
+    blocks (float32: prefix sharing on; bf16: off), every step's logits
+    gathered over the data axes; the launches must be the path's exactly.
+    Rank 0 then serves the trace on one device, with the kernels and with
+    their plain versions, holds the mesh's logits to both by request,
+    and holds the prefill and the paged decode to their plain versions
+    at this rank's shard-local shapes; bf16 shows each parted row against
+    a float32 forward (``parted_rows``). Bf16 also plants the swapped KV
+    shard (``mesh_fault``) and serves the trace on a data-only 4x1 mesh
+    of the same ranks (``data_only_drive``)."""
+    import gc
+    import torch
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs import CacheSpec, ServingConfig
+    from repro_torch.core.aqua import SelectionTape
+    from repro_torch.distributed import collectives
+    from repro_torch.serving import ContinuousBatchingEngine
+    mcfg, host, proj = host_model(mesh, dtype)
+    f32 = dtype == "float32"
+    serving = ServingConfig(max_lanes=8, max_seq=2048, max_new_tokens=32,
+                            cache=CacheSpec(page_size=64,
+                                            prefix_sharing=f32))
+    reqs = drive_trace(MESH_REQUESTS, mcfg.vocab_size,
+                       shared_prefix=SHARED_PREFIX["prefix_paged"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatchingEngine(
+        mcfg, params_from_numpy(host, mesh.device, mesh=mesh), proj,
+        serving=serving, mesh=mesh)
+    plan = eng.dispatch_plan()
+    assert plan.mesh_native and plan.prefix_sharing == f32, plan
+    assert eng.step_graph is None and not eng.uses_graphs
+
+    def gather(t):
+        return collectives.all_gather(t, mesh, mesh.data_axes)
+    # float32 (held to one device per logit): every decode selection
+    # recorded, whole over heads and lanes on rank 0
+    tape = SelectionTape("cuda") if f32 else None
+    if f32:
+        tape.install("record")
+    reset_counts()
+    run = serve_drive(eng, [dataclasses.replace(r) for r in reqs],
+                      gather=gather)
+    launches = launch_counts()
+    sel = None
+    if f32:
+        tape.remove()
+        a = eng.model.cfg.attention
+        sel = gather(collectives.all_gather(decode_selections(
+            tape, mcfg, eng, eng._local_lanes, a.num_heads), mesh, "model",
+            dim=3).transpose(0, 2).contiguous()).transpose(0, 2).cpu()
+    layers = mcfg.num_layers
+    fresh = run["admissions"] - eng.page_pool.prefix_hits
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(aqua_prefill=layers * fresh,
+                aqua_paged_decode=layers * run["decode_steps"])
+    assert launches == want, (mesh.rank, launches, want)
+    assert eng.mesh_fallback_events() == (), eng.mesh_fallback_events()
+    assert eng.step_graph is None
+    out = dict(
+        plan=dict(backend=plan.backend, layout=plan.cache_layout,
+                  mesh_native=plan.mesh_native,
+                  prefix_sharing=plan.prefix_sharing),
+        tokens={str(u): t for u, t in run["tokens"].items()},
+        launches=launches, launches_expected=want,
+        admissions=run["admissions"],
+        prefix_hits=eng.page_pool.prefix_hits,
+        decode_steps=run["decode_steps"],
+        decode_step_ms=run["decode_step_ms"], admit_ms=run["admit_ms"],
+        tokens_per_s=run["tokens_per_s"], wall_s=run["wall_s"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        rank_kv_cache_bytes=eng.rank_cache_bytes(),
+        kv_cache_bytes=eng.cache_bytes(),
+        rank_param_bytes=sum(t.numel() * t.element_size()
+                             for t in _leaves(eng.params)),
+        step_graph=None, fallback_events=[])
+    ref = None
+    if mesh.rank == 0:
+        out["shard_kernels"] = shard_kernel_checks(eng, serving, dtype, f32)
+    del eng
+    gc.collect()
+    if mesh.rank == 0:
+        whole = params_from_numpy(host, "cuda")
+        sels = {}
+
+        def single(backend):
+            """The trace on one device (``backend``), float32 recording
+            its decode selections; returns the engine, the drive and the
+            tape (which its graphs write: it must outlive them)."""
+            t = SelectionTape("cuda") if f32 else None
+            if f32:
+                t.install("record")
+            e = ContinuousBatchingEngine(mcfg, whole, proj, serving=serving,
+                                         backend=backend)
+            r = serve_drive(e, [dataclasses.replace(q) for q in reqs])
+            if f32:
+                t.remove()
+                sels[backend] = decode_selections(
+                    t, mcfg, e, serving.max_lanes,
+                    mcfg.attention.num_heads).cpu()
+            return e, r, t
+        ref_eng, ref, ref_tape = single("aqua-block-sparse")
+        plain_eng, plain, plain_tape = single("aqua-block-sparse-plain")
+        del plain_eng, plain_tape
+        out["reference"] = dict(tokens_per_s=ref["tokens_per_s"],
+                                decode_step_ms=ref["decode_step_ms"],
+                                step_graph=ref_eng.step_graph is not None)
+        kw = dict(per_element=f32, scale=HF_LOGIT_SCALE, by_uid=True)
+        out["vs_single_device"] = compare_logits(
+            run, ref, 32, **kw, selections=None if not f32 else (
+                sel, sels["aqua-block-sparse"]))
+        out["vs_single_device_plain"] = compare_logits(
+            run, plain, 32, **kw, selections=None if not f32 else (
+                sel, sels["aqua-block-sparse-plain"]))
+        if f32:
+            assert run["tokens"] == ref["tokens"], "float32 mesh tokens"
+            # the same comparison between the two one-device drives: their
+            # selections part at near ties too
+            out["single_device_kernel_vs_plain"] = compare_logits(
+                ref, plain, 32, per_element=True, scale=HF_LOGIT_SCALE,
+                selections=(sels["aqua-block-sparse"],
+                            sels["aqua-block-sparse-plain"]))
+        else:
+            out["parted_rows"] = parted_rows(mcfg, ref_eng, reqs, run, ref)
+        del ref_eng, ref_tape, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not f32:
+        out["fault"] = mesh_fault(mesh, mcfg, host, proj, serving, reqs,
+                                  ref)
+        out["data_only"] = data_only_drive(mesh, mcfg, host, proj, serving,
+                                           reqs, ref)
+    del run, ref, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def mesh_fault(mesh, mcfg, host, proj, serving, reqs, ref) -> dict:
+    """The planted fault: every rank's KV shard (``wk``, ``wv``) swapped for
+    its model peer's; two admissions (one token each) whose logits rank 0
+    holds to the reference drive's: the worst row must break the limit."""
+    import torch
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.serving import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(
+        mcfg, params_from_numpy(host, mesh.device, mesh=mesh), proj,
+        serving=serving, mesh=mesh)
+    attn = eng.params["layers"]["attn"]
+    r = mesh.axis_index("model")
+    for key in ("wk", "wv"):
+        n = attn[key].shape[2]
+        attn[key].copy_(host["layers"]["attn"][key][
+            :, :, (1 - r) * n:(2 - r) * n])
+    fault = serve_drive(eng, [dataclasses.replace(q, max_new_tokens=1)
+                              for q in reqs[:2]])
+    del eng
+    if ref is None:
+        return {}
+    worst = max(((fault["admit_logits"][u] - want).abs().max()
+                 / (LOGIT_RTOL * want.abs().max())).item()
+                for u, want in ref["admit_logits"].items()
+                if u in fault["admit_logits"])
+    assert worst > 1.0, f"the swapped KV shard passed the limit: {worst}"
+    return dict(kind="KV shard swapped across the model axis",
+                admissions=len(fault["admit_logits"]),
+                worst_err_over_limit=worst)
+
+
+def data_only_drive(mesh, mcfg, host, proj, serving, reqs, ref) -> dict:
+    """The bf16 trace on a data-only 4x1 mesh of the same four ranks (no
+    collective inside the step or the admission, so the engine captures
+    its step graph and its admission graphs: the owner replays its
+    admissions, every other rank grafts them eagerly into its replica of
+    the pool; the sampled tokens are all-gathered over ``data``). Every
+    rank holds the whole weights. The launches must be the path's; rank
+    0 holds the logits to the single-device engine's (``ref``) by
+    request."""
+    import torch
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import SERVING_AXES, Mesh
+    from repro_torch.serving import ContinuousBatchingEngine
+    import torch.distributed as dist
+    data = Mesh((mesh.size, 1), SERVING_AXES, mesh.rank,
+                dist.PrefixStore("data_only", mesh.store),
+                backend=mesh.backend, device=mesh.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatchingEngine(
+        mcfg, params_from_numpy(host, data.device, mesh=data), proj,
+        serving=serving, mesh=data)
+    plan = eng.dispatch_plan()
+    assert plan.mesh_native and eng.uses_graphs, plan
+    reset_counts()
+    run = serve_drive(eng, [dataclasses.replace(r) for r in reqs],
+                      gather=lambda t: collectives.all_gather(
+                          t, data, data.data_axes))
+    launches = launch_counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(aqua_prefill=mcfg.num_layers * run["admissions"],
+                aqua_paged_decode=mcfg.num_layers * run["decode_steps"])
+    assert launches == want, (mesh.rank, launches, want)
+    assert eng.step_graph is not None and eng.admit_graphs, \
+        "the data-only mesh captured no graph"
+    assert eng.mesh_fallback_events() == ()
+    out = dict(shape=f"{mesh.size}x1", tokens={str(u): t for u, t in
+                                              run["tokens"].items()},
+               launches=launches, launches_expected=want,
+               admissions=run["admissions"],
+               decode_steps=run["decode_steps"],
+               decode_step_ms=run["decode_step_ms"],
+               admit_ms=run["admit_ms"], tokens_per_s=run["tokens_per_s"],
+               step_graph=True, admit_graph_buckets=sorted(eng.admit_graphs),
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del eng
+    if ref is not None:
+        out["vs_single_device"] = compare_logits(run, ref, 32, by_uid=True)
+    return out
+
+
+def mesh_rank_main(out_dir: str) -> None:
+    """One rank of the mesh phase (spawned by ``mesh_phase``): its mesh
+    from the environment (gloo: the ranks share the card), both drives,
+    its report as JSON in ``out_dir``."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    mesh = make_serving_mesh(MESH_SHAPE)
+    report = dict(rank=mesh.rank, coord=mesh.coord, backend=mesh.backend,
+                  device=str(mesh.device), mesh=mesh.describe())
+    for dtype in ("float32", "bfloat16"):
+        report[dtype] = mesh_drive(mesh, dtype)
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def mesh_phase(card: str) -> dict:
+    """Section 7b: what NCCL says of two ranks on one card, then the 2x2
+    mesh's four ranks on the card over gloo (``mesh_rank_main``), the
+    kernels built once, here, before they start. Every rank's tokens must
+    be the same, its launches the path's, and rank 0's comparisons hold;
+    a failed rank fails the phase."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    t0 = time.perf_counter()
+    spawn_ranks(2, nccl_probe_rank, (MESH_DIR,))
+    nccl = [open(os.path.join(MESH_DIR, f"nccl{r}.txt")).read()
+            for r in range(2)]
+    log({"mesh_nccl_two_ranks_one_card": nccl})
+    log_time("mesh phase: NCCL probe")
+    spawn_ranks(math.prod(MESH_SHAPE), mesh_rank_main, (MESH_DIR,))
+    reports = []
+    for r in range(math.prod(MESH_SHAPE)):
+        with open(os.path.join(MESH_DIR, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    wall = time.perf_counter() - t0
+    out = dict(card=card, note="4 ranks sharing one card", shape="2x2",
+               backend=reports[0]["backend"], nccl=nccl, wall_s=wall)
+    for dtype in ("float32", "bfloat16"):
+        drives = [rep[dtype] for rep in reports]
+        assert all(d["tokens"] == drives[0]["tokens"] for d in drives), \
+            f"{dtype}: the ranks' tokens differ"
+        assert all(d["launches"] == d["launches_expected"] for d in drives)
+        first = drives[0]
+        out[dtype] = dict(
+            plan=first["plan"],
+            vs_single_device=first["vs_single_device"],
+            vs_single_device_plain=first["vs_single_device_plain"],
+            single_device_kernel_vs_plain=first.get(
+                "single_device_kernel_vs_plain"),
+            shard_kernels=first["shard_kernels"],
+            parted_rows=first.get("parted_rows"),
+            reference=first["reference"],
+            fault=first.get("fault"),
+            admissions=first["admissions"],
+            prefix_hits=first["prefix_hits"],
+            decode_steps=first["decode_steps"],
+            tokens_per_s_rank0=first["tokens_per_s"],
+            kv_cache_bytes=first["kv_cache_bytes"],
+            ranks=[dict(rank=rep["rank"], coord=rep["coord"],
+                        launches=d["launches"],
+                        decode_step_ms=d["decode_step_ms"],
+                        admit_ms=d["admit_ms"],
+                        peak_memory_bytes=d["peak_memory_bytes"],
+                        rank_kv_cache_bytes=d["rank_kv_cache_bytes"],
+                        rank_param_bytes=d["rank_param_bytes"])
+                   for rep, d in zip(reports, drives)])
+    data = [rep["bfloat16"]["data_only"] for rep in reports]
+    assert all(d["tokens"] == data[0]["tokens"] for d in data), \
+        "data-only mesh: the ranks' tokens differ"
+    out["data_only_bfloat16"] = dict(
+        shape=data[0]["shape"], vs_single_device=data[0]["vs_single_device"],
+        admissions=data[0]["admissions"],
+        decode_steps=data[0]["decode_steps"],
+        admit_graph_buckets=data[0]["admit_graph_buckets"],
+        tokens_per_s_rank0=data[0]["tokens_per_s"],
+        ranks=[dict(rank=r, launches=d["launches"],
+                    decode_step_ms=d["decode_step_ms"],
+                    admit_ms=d["admit_ms"],
+                    peak_memory_bytes=d["peak_memory_bytes"])
+               for r, d in enumerate(data)])
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    log({"serve_mesh": out})
+    log_time("mesh phase")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4190,6 +4724,7 @@ def main() -> int:
     evaluation = eval_phase(card)
     log({"eval": evaluation})
     log_time("training and evaluation")
+    mesh = mesh_phase(card)
     src = "src/repro_torch/kernels/csrc/"
     tpu = "src/repro/kernels/"
     sources = {
@@ -4316,6 +4851,17 @@ def main() -> int:
         k["launches_by_path"]["score"] = evaluation["score_launches"][
             k["name"]]
         k["launches_by_path"]["train"] = train["launches"][k["name"]]
+        # the mesh drives' launches on rank 0 (every rank's are the same),
+        # and the kernels held to their plain versions at the mesh's
+        # shard-local shapes
+        for dtype in ("float32", "bfloat16"):
+            k["launches_by_path"][f"mesh_2x2_{dtype}_rank0"] = \
+                mesh[dtype]["ranks"][0]["launches"][k["name"]]
+            if k["name"] in mesh[dtype]["shard_kernels"]:
+                k.setdefault("mesh_shard_form", []).append(
+                    mesh[dtype]["shard_kernels"][k["name"]])
+        k["launches_by_path"]["mesh_4x1_bfloat16_rank0"] = \
+            mesh["data_only_bfloat16"]["ranks"][0]["launches"][k["name"]]
     assert sorted(k["name"] for k in kernels) == sorted(KERNELS)
     log_time("done")
     log(card)                      # name, power.limit as nvidia-smi prints

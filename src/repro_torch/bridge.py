@@ -14,6 +14,12 @@ encoder-decoder's is ``embed``, ``pos`` (max_positions, d), ``enc_layers``
 norm ``ln_x``, an ungated MLP) and ``ln_f``, as JAX's ``EncDecLM`` makes it.
 A Mamba-2's ``layers`` are stacked SSD blocks; a hybrid's are a list of
 per-layer dicts (recurrent and attention blocks), as in JAX.
+
+On a serving mesh ``params_from_numpy(..., mesh=)`` places this rank's
+blocks (``distributed.sharding.param_pspec``): each array (or host
+tensor) is cut on the host before it is copied, so a whole sharded
+tensor never lands on the device. It is the one way weights reach a
+mesh's ranks: the serving engine on a mesh takes the rank's blocks.
 """
 from __future__ import annotations
 
@@ -30,18 +36,32 @@ from repro_torch.runtime import resolve_device
 FLOAT32_PARAMS = ("router", "wr", "wi", "lam", "a_log", "dt_bias", "d_skip")
 
 
-def params_from_numpy(tree, device=None, dtype=None):
+def params_from_numpy(tree, device=None, dtype=None, mesh=None):
     """Nested dicts (and lists: a hybrid's per-layer params) of numpy
-    arrays -> the same dicts and lists of tensors on ``device`` (None =
-    the CUDA card), cast to ``dtype`` if given (the ``FLOAT32_PARAMS`` to
-    float32)."""
-    dev = resolve_device(device)
+    arrays or host tensors -> the same dicts and lists of tensors on
+    ``device`` (None = the CUDA card), cast to ``dtype`` if given (the
+    ``FLOAT32_PARAMS`` to float32). ``mesh``: this rank's blocks only, by
+    ``param_pspec`` of each leaf's path and (global) shape, cut on the
+    host."""
+    return _to_tensors(tree, resolve_device(device), dtype, mesh, ())
+
+
+def _to_tensors(tree, dev, dtype, mesh, path):
     if isinstance(tree, dict):
-        return {k: params_from_numpy(
-                    v, dev, torch.float32 if dtype is not None
-                    and k in FLOAT32_PARAMS else dtype)
+        return {k: _to_tensors(v, dev, torch.float32 if dtype is not None
+                               and k in FLOAT32_PARAMS else dtype, mesh,
+                               path + (k,))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, dev, dtype) for v in tree]
-    t = torch.from_numpy(np.array(tree, copy=True)).to(dev)
+        return [_to_tensors(v, dev, dtype, mesh, path + (str(i),))
+                for i, v in enumerate(tree)]
+    arr = tree if isinstance(tree, torch.Tensor) else np.asarray(tree)
+    if mesh is not None:
+        from repro_torch.distributed import sharding as dsh
+        arr = dsh.shard(arr, dsh.param_pspec(path, tuple(arr.shape), mesh),
+                        mesh)
+    if isinstance(arr, torch.Tensor):
+        t = arr.to(dev, copy=True)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True)).to(dev)
     return t if dtype is None else t.to(dtype)

@@ -361,9 +361,14 @@ class ServingConfig:
     one batch row of the shared decode state; the decode step always runs
     over all ``max_lanes`` lanes. ``prefill_budget_tokens`` caps the
     prefill tokens advanced between decode steps (chunked prefill; a
-    multiple of ``prompt_bucket``, and of the page size when paged). The
-    port does not serve ``mesh_shape`` yet: the engine raises
-    ``NotImplementedError`` when it is set."""
+    multiple of ``prompt_bucket``, and of the page size when paged).
+    ``mesh_shape`` over ``mesh_axes`` (data x model, or pod x data x
+    model) serves on a mesh: decode lanes over the data axes, params and
+    the KV cache over ``model`` by ``distributed.sharding``'s rules, one
+    rank per position (``launch.mesh``). The dense family is served there
+    with full-precision caches and no sliding window; int8 pools, hot
+    residents, windows and the other families are still refused on a mesh
+    (``NotImplementedError`` from the engine)."""
 
     max_lanes: int = 8
     max_seq: int = 4096
@@ -379,6 +384,7 @@ class ServingConfig:
     sparsity: Optional[SparsitySpec] = None
     prefill_budget_tokens: Optional[int] = None
     mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_axes: Tuple[str, ...] = ("data", "model")
 
     @property
     def cache_spec(self) -> CacheSpec:
@@ -405,6 +411,12 @@ class ServingConfig:
         if cache.page_size is not None:
             assert self.max_seq % cache.page_size == 0, \
                 (self.max_seq, cache.page_size)
+        if self.mesh_shape is not None:
+            assert len(self.mesh_shape) == len(self.mesh_axes), \
+                (self.mesh_shape, self.mesh_axes)
+            assert all(s >= 1 for s in self.mesh_shape), self.mesh_shape
+            assert all(a in ("pod", "data", "model")
+                       for a in self.mesh_axes), self.mesh_axes
 
 
 @dataclass(frozen=True)

@@ -56,6 +56,20 @@ self-attention); ``prefill_attention(..., kv_x=)`` and
 output. As in JAX, these run on the ``dense`` reference (materialized
 scores, plain tensor operations), never on a kernel.
 
+On a serving mesh (``tp``, a ``distributed.layout.MeshLayout``, passed
+down by the model) every function here runs on this rank's shard-local
+shapes: its KV heads (or query groups) and, in the decode state, its
+lanes; the kernels take those tensors as they are. The collectives GSPMD
+inserts implicitly in the JAX package are named: k and v all-gathered
+over ``model`` after the projection where ``wk``/``wv`` shard head_dim,
+the output all-reduced after the row-parallel ``wo``, and H2O's and the
+page ranking's sums over heads. Where the mesh geometry keeps the
+kernels out (a batch the data axes do not divide, pages off the kernel's
+8-token blocks: ``distributed.sharding.kernel_shardable``), the call
+serves through the reference core instead and records the fallback,
+with the JAX package's reason, in the engine's sink
+(:func:`log_mesh_fallback`).
+
 Conventions: x (B, S, d_model); q (B, S, KV, G, D); k, v (B, S, KV, D);
 proj P (KV, D, D) per layer.
 """
@@ -63,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -72,6 +87,8 @@ from repro_torch.core import aqua as aqua_lib
 from repro_torch.core import h2o as h2o_lib
 from repro_torch.core import kvcache as kv
 from repro_torch.core import selection
+from repro_torch.core.dispatch import REASON_NONDIVISIBLE_MESH
+from repro_torch.distributed import sharding as dsh
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.aqua_decode import (aqua_decode_attention,
                                              aqua_decode_plain,
@@ -82,6 +99,29 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 
 NEG_INF = -1e30
+
+logger = logging.getLogger(__name__)
+
+
+# ---------------------------------------------------------------------------
+# Mesh fallbacks: the per-engine record
+# ---------------------------------------------------------------------------
+
+
+def log_mesh_fallback(tp, backend_name: str, mode: str, reason: str) -> None:
+    """Record that ``mode`` ("prefill" or "decode") of ``backend_name``
+    served through the reference core on ``tp``'s mesh for ``reason`` (a
+    ``core.dispatch.REASON_*``) in the engine's sink (``tp.fallback_sink``,
+    read by ``ContinuousBatchingEngine.mesh_fallback_events``), warning
+    once per engine and key."""
+    key = (backend_name, mode, reason)
+    if key in tp.fallback_sink:
+        return
+    tp.fallback_sink.add(key)
+    logger.warning(
+        "attention backend %r: %s is falling back to the reference path "
+        "for mesh-native serving%s", backend_name, mode,
+        f" ({reason})" if reason else "")
 
 
 # ---------------------------------------------------------------------------
@@ -149,17 +189,21 @@ def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig,
-        positions: torch.Tensor, src: Optional[torch.Tensor] = None
-        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        positions: torch.Tensor, src: Optional[torch.Tensor] = None,
+        tp=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns q (B,S,KV,G,D), k (B,S,KV,D), v (B,S,KV,D), RoPE'd unless
     ``cfg.use_rope`` is off (learned or sinusoidal positions). ``src``
     (B, T, d_model): keys and values from it instead (cross-attention: no
     RoPE). The biases (``qkv_bias``) add before qk-norm and RoPE, as in
-    JAX; every prefill, chunk and decode path projects through here."""
+    JAX; every prefill, chunk and decode path projects through here.
+    ``tp``: on a mesh where ``wk``/``wv`` shard head_dim, k and v are
+    all-gathered over ``model`` before the biases, qk-norm and RoPE."""
     kv_src = x if src is None else src
     q = _proj_in(x, params["wq"])
     k = _proj_in(kv_src, params["wk"])
     v = _proj_in(kv_src, params["wv"])
+    if tp is not None:
+        k, v = tp.kv_full(k), tp.kv_full(v)
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -173,10 +217,12 @@ def qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig,
             rope(k, positions, cfg.rope_theta), v)
 
 
-def _proj_out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """out (..., KV, G, D) @ wo (KV, G, D, M) -> (..., M)."""
+def _proj_out(out: torch.Tensor, wo: torch.Tensor, tp=None) -> torch.Tensor:
+    """out (..., KV, G, D) @ wo (KV, G, D, M) -> (..., M); on a mesh
+    (``tp``) where ``wo`` is row-parallel, all-reduced over ``model``."""
     lead = out.shape[:-3]
-    return out.reshape(*lead, -1) @ wo.to(out.dtype).reshape(-1, wo.shape[-1])
+    y = out.reshape(*lead, -1) @ wo.to(out.dtype).reshape(-1, wo.shape[-1])
+    return y if tp is None else tp.attn_out(y)
 
 
 # ---------------------------------------------------------------------------
@@ -448,14 +494,14 @@ def _block_sparse_backend(name: str, prefill_kernel, decode_kernel,
         return out.reshape(b, kvh, g, -1)
 
     def paged_decode(q_hat, cache: kv.PagedAttnCache, *, cfg, aqua,
-                     token_sparsity=None):
+                     token_sparsity=None, tp=None):
         b, kvh, g, dk = q_hat.shape
         q = q_hat.reshape(b, kvh * g, dk).contiguous()
         kept_pages, pin = token_sparsity or (None, 0)
         plan = selection.build_decode_plan(
             q, cache, topk_dims=aqua.topk_dims(cfg.head_dim),
             block_dims=aqua.block_dims, kept_pages=kept_pages,
-            pin_recent_pages=pin, kept=aqua.kept_dims(cfg.head_dim))
+            pin_recent_pages=pin, kept=aqua.kept_dims(cfg.head_dim), tp=tp)
         out = paged_decode_kernel(
             q, cache.k_pool, cache.v_pool, plan.block_idx.contiguous(),
             page_table=cache.page_table.to(torch.int32).contiguous(),
@@ -494,7 +540,7 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
                       positions: Optional[torch.Tensor] = None,
                       return_aux: bool = False,
                       lengths: Optional[torch.Tensor] = None,
-                      kv_x: Optional[torch.Tensor] = None):
+                      kv_x: Optional[torch.Tensor] = None, tp=None):
     """Self-attention over a sequence, causal unless ``cfg.causal`` is off
     (windowed where ``cfg.window`` is set), dispatched through the backend
     registry (``cfg.backend``). ``lengths`` (B,) masks ragged rows' keys.
@@ -504,7 +550,9 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     Returns out (B, S, d_model) [, aux with the post-RoPE ``q``/``k``
     (calibration capture), ``q_hat`` (the projected query in stored form
     under AQUA, else None), ``k_cache`` (k in the cache's stored form:
-    projected and sliced under AQUA) and ``v``]."""
+    projected and sliced under AQUA) and ``v``]. ``tp``: this rank's mesh
+    layout (heads shard-local; a kernel backend whose geometry the mesh
+    does not admit serves the reference, recorded as a fallback)."""
     s = x.shape[1]
     if kv_x is not None and lengths is not None:
         raise ValueError(
@@ -512,7 +560,7 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
             "would need encoder-side lengths (unsupported)")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    q, k, v = qkv(params, x, cfg, positions, src=kv_x)
+    q, k, v = qkv(params, x, cfg, positions, src=kv_x, tp=tp)
     causal = cfg.causal and kv_x is None
     aqua_on = _aqua_on(aqua)
     qh, kh = _aqua_project(q, k, aqua, proj, cfg.head_dim)
@@ -524,6 +572,12 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
         backend = get_backend("dense")
     if backend.aqua_native and not _whole_blocks(aqua, cfg.head_dim):
         backend = backend.per_dim
+    if (tp is not None and backend.kernel and not dsh.kernel_shardable(
+            tp.mesh, cfg, aqua if backend.aqua_native else None,
+            batch=x.shape[0])):
+        log_mesh_fallback(tp, backend.name, "prefill",
+                          REASON_NONDIVISIBLE_MESH)
+        backend = get_backend("aqua-masked-dense" if aqua_on else "dense")
     if backend.aqua_native:
         qq, kk = qh, kh
     elif aqua_on:
@@ -533,7 +587,7 @@ def prefill_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     out, weights = backend.prefill(qq, kk, v, cfg=cfg, aqua=aqua,
                                    positions=positions, lengths=lengths,
                                    causal=causal)
-    out = _proj_out(out.to(v.dtype), params["wo"])
+    out = _proj_out(out.to(v.dtype), params["wo"], tp)
     if return_aux:
         return out, {"q": q, "k": k, "weights": weights,
                      "q_hat": qh if aqua_on else None, "k_cache": kh,
@@ -547,7 +601,7 @@ def build_cache_from_prefill(k_cache: torch.Tensor, v: torch.Tensor,
                              window: Optional[int] = None,
                              aqua: Optional[AquaConfig] = None,
                              q_hat: Optional[torch.Tensor] = None,
-                             head_dim: Optional[int] = None
+                             head_dim: Optional[int] = None, tp=None
                              ) -> kv.AttnCache:
     """Contiguous decode state after a prefill, for the slot policy that
     ``window`` and ``aqua.h2o_ratio`` imply. k_cache (B, S, KV, Dk) in
@@ -564,7 +618,8 @@ def build_cache_from_prefill(k_cache: torch.Tensor, v: torch.Tensor,
       tokens; ``acc_score`` holds each kept slot's per-KV-head mass.
 
     Window rings and H2O place slots assuming a rectangular batch, so
-    they refuse ``lengths``, as in JAX."""
+    they refuse ``lengths``, as in JAX. ``tp``: on a mesh, the H2O mass
+    sums over every rank's heads."""
     b, s, kvh, dk = k_cache.shape
     budget = h2o_lib.h2o_budget(aqua, max_seq)
     if lengths is not None and (window is not None or budget is not None):
@@ -587,7 +642,11 @@ def build_cache_from_prefill(k_cache: torch.Tensor, v: torch.Tensor,
         sc = torch.where(seen, sc, torch.full_like(sc, NEG_INF))
         acc = torch.softmax(sc, dim=-1).sum(dim=(2, 3))    # (B, KV, S)
         recent = h2o_lib.recent_len(aqua, slots)
+        if tp is not None:
+            acc = tp.sum_groups(acc)
         score = acc.sum(dim=1)
+        if tp is not None:
+            score = tp.sum_heads(score)
         score[:, s - recent:] = -float("inf")          # recents kept apart
         heavy = aqua_lib.topk_indices(score, slots - recent)
         sel = torch.cat([torch.sort(heavy, dim=-1)[0],
@@ -628,7 +687,7 @@ def prefixed_tail_attention(params: dict, x: torch.Tensor,
                             prefix_positions: torch.Tensor, prefix_len: int,
                             positions: torch.Tensor,
                             lengths: Optional[torch.Tensor] = None,
-                            select_q_blk: Optional[int] = None):
+                            select_q_blk: Optional[int] = None, tp=None):
     """Causal attention of a prompt chunk against a read-only cache prefix
     plus itself: the masked-dense reference chunk step (the JAX package
     serves every chunk step on it).
@@ -640,8 +699,8 @@ def prefixed_tail_attention(params: dict, x: torch.Tensor,
     (1,) masks chunk padding. ``select_q_blk`` switches the AQUA selection
     from per query to per ``q_blk`` tile (:func:`_chunk_tile_mask`).
     Returns (out (1, T, d_model), k_cache (1, T, KV, Dk) in stored form,
-    v (1, T, KV, Dv))."""
-    q, k, v = qkv(params, x, cfg, positions)
+    v (1, T, KV, Dv)). ``tp``: this rank's mesh layout."""
+    q, k, v = qkv(params, x, cfg, positions, tp=tp)
     qh, kh = _aqua_project(q, k, aqua, proj, cfg.head_dim)
     if _aqua_on(aqua):
         if select_q_blk is not None:
@@ -669,7 +728,7 @@ def prefixed_tail_attention(params: dict, x: torch.Tensor,
     weights = torch.softmax(scores, dim=-1)
     vals = torch.cat([prefix_v.to(v.dtype), v.transpose(1, 2)], dim=2)
     out = torch.einsum("bkgst,bktd->bskgd", weights.to(v.dtype), vals)
-    return _proj_out(out.to(v.dtype), params["wo"]), kk, v
+    return _proj_out(out.to(v.dtype), params["wo"], tp), kk, v
 
 
 def chunk_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
@@ -678,7 +737,7 @@ def chunk_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
                     prefix_positions: torch.Tensor, prefix_len: int,
                     positions: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None,
-                    select_q_blk: Optional[int] = None):
+                    select_q_blk: Optional[int] = None, tp=None):
     """One layer's chunked-prefill attention (arguments and result as in
     :func:`prefixed_tail_attention`), dispatched by backend.
 
@@ -700,8 +759,8 @@ def chunk_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
             params, x, cfg, aqua, proj, prefix_k=prefix_k,
             prefix_v=prefix_v, prefix_positions=prefix_positions,
             prefix_len=prefix_len, positions=positions, lengths=lengths,
-            select_q_blk=select_q_blk)
-    q, k, v = qkv(params, x, cfg, positions)
+            select_q_blk=select_q_blk, tp=tp)
+    q, k, v = qkv(params, x, cfg, positions, tp=tp)
     qh, kh = _aqua_project(q, k, aqua, proj, cfg.head_dim)
     t = x.shape[1]
     if lengths is None:
@@ -713,7 +772,7 @@ def chunk_attention(params: dict, x: torch.Tensor, cfg: AttentionConfig,
     out = backend.chunk(qh, k_stripe, v_stripe, cfg=cfg, aqua=aqua,
                         q_offset=prefix_len, lengths=prefix_len + lengths,
                         q_blk=select_q_blk)
-    return _proj_out(out.to(v.dtype), params["wo"]), kh, v
+    return _proj_out(out.to(v.dtype), params["wo"], tp), kh, v
 
 
 # ---------------------------------------------------------------------------
@@ -742,8 +801,8 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
                      proj: Optional[torch.Tensor] = None,
                      write_mask: Optional[torch.Tensor] = None,
                      token_sparsity: Optional[Tuple[int, int]] = None,
-                     cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                     ) -> torch.Tensor:
+                     cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     tp=None) -> torch.Tensor:
     """One decode step. x_t (B, d_model); ``cache`` an :class:`AttnCache`
     or :class:`PagedAttnCache` (one layer), updated in place. Returns out
     (B, d_model) in x_t's dtype. ``write_mask`` (B,) bool freezes
@@ -763,6 +822,11 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
     only each lane's participating pages (``core.selection``, ranked by
     this layer's ``acc_pool``) are attended, by the kernel and by the
     reference path alike.
+
+    ``tp``: this rank's mesh layout. The lanes and heads are shard-local;
+    where the engine found the mesh geometry closed to the kernels
+    (``tp.decode_kernel_reason``), a step the kernel would serve runs the
+    masked-dense core instead and records the fallback.
     """
     if cross is not None:
         k_enc, v_enc = cross
@@ -773,7 +837,7 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
         out = torch.einsum("bkgs,bskd->bkgd", w.to(v_enc.dtype), v_enc)
         return _proj_out(out, params["wo"]).to(x_t.dtype)
     pos = cache.count
-    q, k, v = qkv(params, x_t[:, None, :], cfg, pos[:, None])
+    q, k, v = qkv(params, x_t[:, None, :], cfg, pos[:, None], tp=tp)
     q, k_t, v_t = q[:, 0], k[:, 0], v[:, 0]        # (B,KV,G,D), (B,KV,D)
     aqua_on = _aqua_on(aqua)
     if aqua_on:
@@ -787,12 +851,12 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
     paged = isinstance(cache, kv.PagedAttnCache)
     if paged:
         slot, evict = kv.paged_select_slot(cache, window=window, h2o=h2o,
-                                           recent_len=recent)
+                                           recent_len=recent, tp=tp)
         kv.paged_insert(cache, slot, k_t, v_t, write_mask=write_mask,
                         evict_page=evict)
     else:
         kv.insert(cache, kv.select_slot(cache, window=window, h2o=h2o,
-                                        recent_len=recent),
+                                        recent_len=recent, tp=tp),
                   k_t, v_t, write_mask=write_mask)
 
     backend = resolve_backend(cfg.backend, aqua=aqua)
@@ -803,11 +867,16 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
     # hot residents live only in the dequantized lane view: the int8
     # kernel reads the raw pages (JAX's REASON_QUANT_RESIDENCY)
     residents = paged and cache.has_residents
-    if (backend.aqua_native and full_cache and not residents
-            and _whole_blocks(aqua, cfg.head_dim)):
+    kernel = (backend.aqua_native and full_cache and not residents
+              and _whole_blocks(aqua, cfg.head_dim))
+    if kernel and tp is not None and tp.decode_kernel_reason is not None:
+        log_mesh_fallback(tp, backend.name, "decode",
+                          tp.decode_kernel_reason)
+        kernel = False
+    if kernel:
         if paged:
             out = backend.paged_decode(q, cache, cfg=cfg, aqua=aqua,
-                                       token_sparsity=token_sparsity)
+                                       token_sparsity=token_sparsity, tp=tp)
         else:
             out = backend.decode(q, cache, cfg=cfg, aqua=aqua)
     else:
@@ -820,7 +889,7 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
             part = selection.participating_pages(
                 cache.acc_pool, cache.page_table, cache.count,
                 page_size=cache.page_size, kept_pages=token_sparsity[0],
-                pin_recent_pages=token_sparsity[1])
+                pin_recent_pages=token_sparsity[1], tp=tp)
             keep = selection.participation_slot_mask(
                 part, page_size=cache.page_size, num_slots=cache.num_slots)
             positions = torch.where(keep, positions,
@@ -830,9 +899,9 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
             window=window)
         if h2o:
             if paged:
-                kv.paged_accumulate_h2o(cache, weights, write_mask)
+                kv.paged_accumulate_h2o(cache, weights, write_mask, tp)
             else:
-                kv.accumulate_h2o(cache, weights, write_mask)
+                kv.accumulate_h2o(cache, weights, write_mask, tp)
     # an int8 pool's kernel (and its dequantized view) give float32, as
     # in JAX; the residual stream keeps the model dtype
-    return _proj_out(out, params["wo"]).to(x_t.dtype)
+    return _proj_out(out, params["wo"], tp).to(x_t.dtype)

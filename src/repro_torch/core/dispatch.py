@@ -7,15 +7,21 @@ sparsity engages, and the reasons for each fallback. The ``REASON_*``
 strings are the JAX package's, word for word, so a plan of the port reads
 like the reference's.
 
-Only single-device plans are ported (``mesh=None``): a mesh raises
-``NotImplementedError``, as the engine does. "Kernel" here means the
-port's CUDA kernels where the JAX package says Pallas; the reason strings
-keep the reference's wording.
+A plan on a serving mesh (``mesh``, a ``launch.mesh.Mesh`` or any object
+with a ``shape`` dict) resolves as JAX's does: ``mesh_native`` when the
+attention kernels serve on shard-local shapes, else the reasons, among
+them ``REASON_NONDIVISIBLE_MESH`` (a decode batch the data axes do not
+divide) and ``REASON_PAGE_GEOMETRY`` (pages off the kernel's 8-token
+blocks). Which meshes the engine serves at all is the engine's to say:
+int8 pools, hot residents, sliding windows and families other than
+``dense`` are still refused there. "Kernel" here means the port's CUDA
+kernels where the JAX package says Pallas; the reason strings keep the
+reference's wording.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 # Cache layouts a plan can pick.
 CACHE_CONTIGUOUS = "contiguous"
@@ -69,8 +75,9 @@ TILE_SELECTING_BACKENDS = ("aqua-block-sparse", "aqua-block-sparse-plain")
 class DispatchPlan:
     """The engine's resolved serving-dispatch decision (fields as in the
     JAX package): ``backend`` name, ``cache_layout``, ``mesh_native``
-    (always False here: no mesh), ``prefix_sharing``, ``reasons`` (why
-    not mesh-native), ``chunked_prefill`` and ``chunked_reasons`` (why
+    (the kernels serve on the mesh's shard-local shapes: what
+    ``launch.serve --expect-kernel-mesh`` requires), ``prefix_sharing``,
+    ``reasons`` (why not mesh-native), ``chunked_prefill`` and ``chunked_reasons`` (why
     admissions stay monolithic), ``quantization`` ("none" / "int8" /
     "int8-mixed") and ``token_sparsity`` ("none" / "hierarchical") with
     ``token_reasons``."""
@@ -93,10 +100,13 @@ class DispatchPlan:
 
 def resolve_dispatch_plan(*, attention, aqua, serving, mesh,
                           prefix_sharing: bool = False,
+                          batch: Optional[int] = None,
                           family: str = "dense",
                           frontend: str = "none") -> DispatchPlan:
-    """Resolve the plan for a model's ``attention``/``aqua`` configs and a
-    ``ServingConfig``, with the JAX package's rules for ``mesh=None``.
+    """Resolve the plan for a model's ``attention``/``aqua`` configs, a
+    ``ServingConfig`` and a serving ``mesh`` (or None), with the JAX
+    package's rules. ``batch`` is the decode batch (default
+    ``serving.max_lanes``).
     ``prefix_sharing`` is the engine's effective decision (the config's,
     folded with the slot policy), recorded as it is, as in JAX.
     ``family`` and ``frontend`` (the model's family and frontend kind)
@@ -106,15 +116,16 @@ def resolve_dispatch_plan(*, attention, aqua, serving, mesh,
                                           resolve_sparsity_spec)
     from repro_torch.core.attention import resolve_backend
     from repro_torch.core.h2o import h2o_budget
+    from repro_torch.distributed import sharding as dsh
 
-    if mesh is not None:
-        raise NotImplementedError("mesh serving is not ported yet")
     cache_spec, quant_spec = resolve_cache_specs(serving)
     sparsity_spec = resolve_sparsity_spec(serving)
     paged = cache_spec.paged
     aqua_on = aqua is not None and aqua.enabled
     h2o = aqua_on and h2o_budget(aqua, serving.max_seq) is not None
-    reasons = [REASON_NO_MESH]
+    if batch is None:
+        batch = serving.max_lanes
+    reasons = [REASON_NO_MESH] if mesh is None else []
     be = None
     backend_name = "none"
     if attention is not None:
@@ -134,6 +145,14 @@ def resolve_dispatch_plan(*, attention, aqua, serving, mesh,
             reasons.append(REASON_H2O)
         if quant_spec.quantized and quant_spec.hot_resident_fraction > 0:
             reasons.append(REASON_QUANT_RESIDENCY)
+        if mesh is not None and not dsh.kernel_shardable(
+                mesh, attention, aqua, batch=batch,
+                page_size=cache_spec.page_size):
+            if (cache_spec.page_size is not None
+                    and cache_spec.page_size % dsh.KERNEL_PAGE_MULTIPLE != 0):
+                reasons.append(REASON_PAGE_GEOMETRY)
+            else:
+                reasons.append(REASON_NONDIVISIBLE_MESH)
     if quant_spec.mode != "none" and any(
             r not in (REASON_NO_MESH, REASON_QUANT_RESIDENCY)
             for r in reasons):
@@ -174,7 +193,8 @@ def resolve_dispatch_plan(*, attention, aqua, serving, mesh,
     return DispatchPlan(
         backend=backend_name,
         cache_layout=CACHE_PAGED if paged else CACHE_CONTIGUOUS,
-        mesh_native=False, prefix_sharing=prefix_sharing,
+        mesh_native=mesh is not None and not reasons,
+        prefix_sharing=prefix_sharing,
         reasons=tuple(reasons), chunked_prefill=not chunked_reasons,
         chunked_reasons=tuple(chunked_reasons),
         quantization=quant_spec.mode,

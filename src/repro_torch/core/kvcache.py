@@ -131,12 +131,15 @@ def cache_slots(max_seq: int, window: Optional[int] = None,
 
 
 def select_slot(cache: AttnCache, *, window: Optional[int] = None,
-                h2o: bool = False, recent_len: int = 0) -> torch.Tensor:
+                h2o: bool = False, recent_len: int = 0,
+                tp=None) -> torch.Tensor:
     """Slot (B,) for the incoming token: the ring (window only), the
     full-cache slot, or under H2O a free slot while one is left, else the
     victim — the least summed ``acc_score`` among slots outside the
     ``recent_len`` newest positions, slots out of the window first when a
-    window is set too (first index among ties, as ``jnp.argmin``)."""
+    window is set too (first index among ties, as ``jnp.argmin``). On a
+    mesh whose ``model`` axis shards the KV heads, ``tp``
+    (``distributed.layout.MeshLayout``) sums the score over every head."""
     s = cache.num_slots
     count = cache.count
     if window is not None and not h2o:
@@ -147,6 +150,8 @@ def select_slot(cache: AttnCache, *, window: Optional[int] = None,
     # empties are never victims by score (the free slot takes them)
     protected = (pos > cur - recent_len) | (pos < 0)
     score = cache.acc_score.sum(dim=1)                  # (B, S)
+    if tp is not None:
+        score = tp.sum_heads(score)
     score = torch.where(protected, torch.full_like(score, float("inf")),
                         score)
     if window is not None:
@@ -228,11 +233,15 @@ def valid_mask_from(positions: torch.Tensor, count: torch.Tensor, *,
 
 
 def accumulate_h2o(cache: AttnCache, attn_weights: torch.Tensor,
-                   write_mask: Optional[torch.Tensor] = None) -> AttnCache:
+                   write_mask: Optional[torch.Tensor] = None,
+                   tp=None) -> AttnCache:
     """Add one step's attention probabilities (B, KV, G, S), summed over
     the G query heads of each KV group, to ``acc_score``, in place; rows
-    where ``write_mask`` is False add nothing."""
+    where ``write_mask`` is False add nothing. ``tp``: the sum over query
+    heads spans every rank of ``model`` where those shard it."""
     upd = attn_weights.float().sum(dim=2)
+    if tp is not None:
+        upd = tp.sum_groups(upd)
     if write_mask is not None:
         upd = torch.where(write_mask[:, None, None], upd,
                           torch.zeros_like(upd))
@@ -468,15 +477,16 @@ def paged_lane_view(cache: PagedAttnCache) -> AttnCache:
                      count=cache.count)
 
 
-def paged_lane_pages(cache: PagedAttnCache, lane: int, dtype=None):
-    """One lane's mapped pages as a contiguous view: (k (1, KV, S_log,
-    Dk), v (1, KV, S_log, Dv), positions (1, S_log)). int8 pools come back
+def paged_lane_pages(cache: PagedAttnCache, row: torch.Tensor, dtype=None):
+    """The pages a lane's page-table ``row`` (NP,) maps, as a contiguous
+    view: (k (1, KV, S_log, Dk), v (1, KV, S_log, Dv), positions (1,
+    S_log)). int8 pools come back
     dequantized (to ``dtype``, float32 by default), so quantization stays
     a storage detail of the pool (resident pages read their
     full-precision copy); full-precision pools are cast to ``dtype`` when
     given. Unmapped pages read position -1. The chunked prefill reads the
     prefix it already wrote through this."""
-    tbl = cache.page_table[lane].long()                     # (NP,)
+    tbl = row.long()                                        # (NP,)
     phys = tbl.clamp(min=0)
     pk, pv = cache.k_pool[phys], cache.v_pool[phys]         # (NP, KV, ps, D)
     if cache.quantized:
@@ -506,7 +516,7 @@ def gather_positions(cache: PagedAttnCache) -> torch.Tensor:
 
 def paged_select_slot(cache: PagedAttnCache, *,
                       window: Optional[int] = None, h2o: bool = False,
-                      recent_len: int = 0
+                      recent_len: int = 0, tp=None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Paged twin of :func:`select_slot`: ``(slot (B,), evict_page (B,) |
     None)``. Full-cache and ring policies are the contiguous cache's
@@ -515,7 +525,8 @@ def paged_select_slot(cache: PagedAttnCache, *,
     page with the least summed ``acc_pool`` mass goes — pages holding one
     of the ``recent_len`` newest positions are protected, and under a
     window a page wholly out of it goes first — and the token lands in its
-    first slot. :func:`paged_insert` clears the victim page."""
+    first slot. :func:`paged_insert` clears the victim page. ``tp``: as
+    :func:`select_slot`'s."""
     b, npl = cache.page_table.shape
     ps = cache.page_size
     count = cache.count
@@ -532,6 +543,8 @@ def paged_select_slot(cache: PagedAttnCache, *,
     # unmapped entries read page 0, as in JAX: such a lane has empties
     acc = cache.acc_pool[cache.page_table.long().clamp(min=0)]
     score = acc.sum(dim=(2, 3))                         # (B, NP)
+    if tp is not None:
+        score = tp.sum_heads(score)
     score = torch.where(page_prot, torch.full_like(score, float("inf")),
                         score)
     if window is not None:
@@ -636,17 +649,19 @@ def _write_through(cache: PagedAttnCache, phys: torch.Tensor,
 
 
 def paged_accumulate_h2o(cache: PagedAttnCache, attn_weights: torch.Tensor,
-                         write_mask: Optional[torch.Tensor] = None
-                         ) -> PagedAttnCache:
+                         write_mask: Optional[torch.Tensor] = None,
+                         tp=None) -> PagedAttnCache:
     """Scatter-add one step's probabilities over the *logical* slot view
     (B, KV, G, S_log), summed over the G heads of each KV group, into
     ``acc_pool`` through the page table, in place. Rows masked off and
     unmapped pages add exactly 0 (to page 0); no two lanes share a page
     under H2O (no prefix sharing), so every other address is written once
-    and the sum is order-free."""
+    and the sum is order-free. ``tp``: as :func:`accumulate_h2o`'s."""
     b, npl = cache.page_table.shape
     ps = cache.page_size
     upd = attn_weights.float().sum(dim=2)                 # (B, KV, S_log)
+    if tp is not None:
+        upd = tp.sum_groups(upd)
     mapped = (cache.page_table >= 0).repeat_interleave(ps, dim=1)
     if write_mask is not None:
         mapped = mapped & write_mask[:, None]
@@ -787,23 +802,23 @@ def _promote(cache: PagedAttnCache, req: AttnCache, tbl: torch.Tensor,
 
 
 def paged_graft(cache: PagedAttnCache, req: AttnCache, lane,
-                num_slots: int) -> PagedAttnCache:
+                num_slots: int, row: torch.Tensor) -> PagedAttnCache:
     """Copy logical slots [0, num_slots) of a B=1 contiguous cache (an
-    admission prefill) into ``lane``'s pages, in place. Every page the
-    lane maps is cleared first (positions -1, scores 0, and scales 0 for
-    int8 pools; residents on them demoted): pool pages are recycled, so a
-    previous tenant's state must never read as valid. int8 pools get
+    admission prefill) into the pages that ``row`` (NP,), the lane's
+    page-table row, maps, in place, and set ``lane``'s count. Every page
+    the row maps is cleared first (positions -1, scores 0, and scales 0
+    for int8 pools; residents on them demoted): pool pages are recycled,
+    so a previous tenant's state must never read as valid. int8 pools get
     per-page scales over the grafted tokens, and with hot residents the
     lane's freshest page is promoted (:func:`_promote`); an H2O prefill's
-    ``acc_score`` lands in ``acc_pool``. The lane's page-table row is
-    installed before this runs.
+    ``acc_score`` lands in ``acc_pool``.
 
     ``lane`` is a Python int or a 0-d / 1-element int tensor on the
-    cache's device; nothing is read on the host (an admission graph
-    captures this), and when no page is mapped the pool stays as it was,
-    bit for bit."""
-    lane = lane_index(lane, cache.count.device)
-    tbl = _lane_table(cache, lane)
+    cache's device, or None: no count is set (a mesh rank that holds a
+    replica of the pool but not the lane). ``row`` is a device tensor;
+    nothing is read on the host (an admission graph captures this), and
+    when no page is mapped the pool stays as it was, bit for bit."""
+    tbl = row.long()
     _clear_pages(cache, tbl)
     if cache.has_residents:
         _promote(cache, req, tbl, num_slots)
@@ -812,31 +827,37 @@ def paged_graft(cache: PagedAttnCache, req: AttnCache, lane,
                   req.positions[0, :num_slots],
                   None if req.acc_score is None
                   else req.acc_score[0][:, :num_slots].transpose(0, 1))
-    _set_lane(cache.count, lane, req.count[:1])
+    if lane is not None:
+        _set_lane(cache.count, lane_index(lane, cache.count.device),
+                  req.count[:1])
     return cache
 
 
 def paged_write_tail(cache: PagedAttnCache, lane, k_tail: torch.Tensor,
                      v_tail: torch.Tensor, positions: torch.Tensor,
-                     start_page: int, new_count) -> PagedAttnCache:
+                     start_page: int, new_count,
+                     row: torch.Tensor) -> PagedAttnCache:
     """Write a prefill chunk's k (T, KV, Dk) / v (T, KV, Dv) / positions
-    (T,) into ``lane``'s pages from the page-aligned logical page
-    ``start_page``, in place. The lane's pages from ``start_page`` on are
-    cleared first (positions -1, scores 0, and scales 0 for int8 pools):
-    pool pages are recycled. On int8 pools each written page gets its
-    scale from the chunk's tokens (padding rows included, as in JAX);
-    pages below ``start_page`` keep theirs. Rows whose page is unmapped
-    are dropped. ``lane`` and ``new_count`` are Python ints or device
-    tensors; nothing is read on the host."""
-    lane = lane_index(lane, cache.count.device)
-    tbl = _lane_table(cache, lane)                           # (NP,)
+    (T,) into the pages that ``row`` (NP,), the lane's page-table row,
+    maps, from the page-aligned logical page ``start_page``, in place, and
+    set ``lane``'s count to ``new_count``. The row's pages from
+    ``start_page`` on are cleared first (positions -1, scores 0, and
+    scales 0 for int8 pools): pool pages are recycled. On int8 pools each
+    written page gets its scale from the chunk's tokens (padding rows
+    included, as in JAX); pages below ``start_page`` keep theirs. Rows
+    whose page is unmapped are dropped. ``lane`` and ``new_count`` are
+    Python ints or device tensors, ``lane`` None as :func:`paged_graft`'s;
+    nothing is read on the host."""
+    tbl = row.long()                                         # (NP,)
     from_start = torch.arange(tbl.shape[0], device=tbl.device) >= start_page
     _clear_pages(cache, torch.where(from_start, tbl,
                                     torch.full_like(tbl, -1)))
     t = min(k_tail.shape[0], cache.num_slots - start_page * cache.page_size)
     _write_tokens(cache, tbl, start_page, k_tail[:t], v_tail[:t],
                   positions[:t])
-    _set_lane(cache.count, lane, new_count)
+    if lane is not None:
+        _set_lane(cache.count, lane_index(lane, cache.count.device),
+                  new_count)
     return cache
 
 

@@ -48,22 +48,27 @@ class SelectionPlan:
     pages: Optional[torch.Tensor] = None
 
 
-def page_scores(acc_pool: torch.Tensor, page_table: torch.Tensor
-                ) -> torch.Tensor:
-    """Per-lane page mass: (P, KV, ps) pool x (B, NP) table -> (B, NP)."""
+def page_scores(acc_pool: torch.Tensor, page_table: torch.Tensor,
+                tp=None) -> torch.Tensor:
+    """Per-lane page mass: (P, KV, ps) pool x (B, NP) table -> (B, NP).
+    ``tp`` (``distributed.layout.MeshLayout``): on a mesh whose ``model``
+    axis shards the KV heads, the mass over every head."""
     score = acc_pool[page_table.long().clamp(min=0)].sum(dim=(2, 3))
+    if tp is not None:
+        score = tp.sum_heads(score)
     return torch.where(page_table >= 0, score, torch.zeros_like(score))
 
 
 def participating_pages(acc_pool: torch.Tensor, page_table: torch.Tensor,
                         count: torch.Tensor, *, page_size: int,
-                        kept_pages: int,
-                        pin_recent_pages: int) -> torch.Tensor:
+                        kept_pages: int, pin_recent_pages: int,
+                        tp=None) -> torch.Tensor:
     """Stage-1 selection: (B, kept_pages) int32 logical page indices,
     sorted ascending (see the module docstring). ``count`` (B,) is the
-    lane's token count: the page holding ``count - 1`` anchors the pin."""
+    lane's token count: the page holding ``count - 1`` anchors the pin.
+    ``tp``: as :func:`page_scores`'."""
     npl = page_table.shape[1]
-    score = page_scores(acc_pool, page_table)                 # (B, NP)
+    score = page_scores(acc_pool, page_table, tp)             # (B, NP)
     pidx = torch.arange(npl, device=score.device)[None, :]
     tail = ((count.long()[:, None] - 1) // page_size).clamp(min=0)
     pinned = (pidx > tail - pin_recent_pages) & (pidx <= tail)
@@ -99,13 +104,13 @@ def reference_participating_pages(acc_pool, page_table, count, *,
 def build_decode_plan(q_hat: torch.Tensor, cache, *, topk_dims: int,
                       block_dims: int, kept_pages: Optional[int] = None,
                       pin_recent_pages: int = 2,
-                      kept: Optional[int] = None) -> SelectionPlan:
+                      kept: Optional[int] = None, tp=None) -> SelectionPlan:
     """One decode step's :class:`SelectionPlan`. q_hat (B, H, Dk)
     projected queries; ``cache`` a single-layer ``PagedAttnCache``.
     ``topk_dims`` selected dims (``AquaConfig.topk_dims``) among the first
     ``kept`` dims of q̂ (None: all of them; the rest is zero padding, never
     selected). ``kept_pages`` None (or the full page count) disables
-    stage 1."""
+    stage 1. ``tp``: as :func:`page_scores`'."""
     real = q_hat if kept is None else q_hat[..., :kept]
     block_idx = aqua_lib.topk_block_indices(real, topk_dims, block_dims)
     pages = None
@@ -113,7 +118,7 @@ def build_decode_plan(q_hat: torch.Tensor, cache, *, topk_dims: int,
         pages = participating_pages(
             cache.acc_pool, cache.page_table, cache.count,
             page_size=cache.page_size, kept_pages=kept_pages,
-            pin_recent_pages=pin_recent_pages)
+            pin_recent_pages=pin_recent_pages, tp=tp)
     return SelectionPlan(block_idx=block_idx, pages=pages)
 
 

@@ -26,7 +26,25 @@ Paged drives share page-aligned prompt prefixes unless
 Runs on the CUDA card (``--device cuda``, the default; exits non-zero
 without one) or, when asked, on the CPU (``--device cpu``: the kernels'
 plain versions). What the engine does not serve yet is refused with its
-own message: meshes (``--mesh``, ``--expect-kernel-mesh``).
+own message.
+
+``--mesh DxM`` (or ``PxDxM``) serves on a data x model mesh, one rank
+per position, as the JAX launcher's ``--mesh`` does on a device mesh:
+outside ``torchrun`` the launcher builds the kernels once (on the card)
+and spawns the ranks itself (``launch.mesh.spawn_ranks``); each rank runs
+this same drive, rank 0 prints, and a failed rank fails the run. Each
+rank makes or loads the whole weights on the host (random weights from
+the CPU generator), calibrates there, and copies only its blocks to its
+device (``bridge.params_from_numpy(mesh=)``). The
+serve line names the collective backend (chosen from the topology before
+anything runs: gloo where ranks share a card) and whether the decode step
+is a CUDA graph (not with a ``model`` axis > 1: its collectives run
+eagerly). ``--expect-kernel-mesh`` fails unless the plan serves the
+attention kernels on shard-local shapes; with ``--verify`` on a mesh the
+greedy reference is the single-device engine (the paged one where prefix
+sharing engages on the kernel path), at temperature > 0 each request
+alone on a same-mesh engine, and a mesh-native plan must record no
+kernel fallback.
 
 CLI::
 
@@ -37,6 +55,10 @@ CLI::
         --calibration-corpus corpora/calibration.txt --block-dims 8 \\
         --page-size 64 --max-seq 2048 --verify
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
+        --device cpu --mesh 2x2 --backend aqua-block-sparse --block-dims 8 \\
+        --verify --expect-kernel-mesh
+
 ``main(argv)`` returns a :class:`ServeRun` (the engine, the streamed
 tokens and the stats), so scripts and tests can call it in-process.
 """
@@ -46,12 +68,14 @@ import argparse
 import dataclasses
 import math
 import os
+import sys
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import ALL_ARCHS, get_config, reduced
 from repro_torch.configs.base import (AquaConfig, CacheSpec, ModelConfig,
                                       QuantSpec, ServingConfig, SparsitySpec)
@@ -61,6 +85,8 @@ from repro_torch.core.calibration import (AquaProjections, calibrate,
                                           load_projections, save_projections)
 from repro_torch.data.corpus import (add_frontend_inputs, calibration_batches,
                                      lcg_batch, request_frontend_inputs)
+from repro_torch.launch.mesh import (make_serving_mesh, parse_mesh_spec,
+                                     spawn_ranks)
 from repro_torch.models import build_model
 from repro_torch.models.base import PagingSpec
 from repro_torch.models.transformer import check_splice
@@ -188,24 +214,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prepend a fixed random prefix of this length to "
                          "every trace prompt (what prefix sharing shares)")
     ap.add_argument("--mesh", default="",
-                    help="serving mesh 'DATAxMODEL' (not ported: anything "
-                         "but ''/1x1 is refused)")
+                    help="serving mesh 'DATAxMODEL' (e.g. 2x2) or "
+                         "'PODxDATAxMODEL', one rank per position "
+                         "(spawned unless under torchrun); empty/1x1 = "
+                         "single device")
     ap.add_argument("--verify", action="store_true",
                     help="re-serve the trace on a reference engine and "
                          "require token-identical outputs (exits 1 on "
                          "mismatch)")
     ap.add_argument("--expect-kernel-mesh", action="store_true",
-                    help="require the mesh kernel path (not ported: "
-                         "refused)")
+                    help="require the mesh kernel path: fail unless the "
+                         "engine plans the attention kernels on shard-local "
+                         "shapes of the mesh")
     return ap
-
-
-def _mesh_shape(spec: str):
-    """``--mesh`` -> a shape tuple, or None for ''/1x1 (single device)."""
-    if not spec:
-        return None
-    shape = tuple(int(x) for x in spec.lower().split("x"))
-    return None if math.prod(shape) == 1 else shape
 
 
 def _fail(msg: str):
@@ -217,14 +238,41 @@ def _refused(err: NotImplementedError):
     raise SystemExit(f"[serve] refused: {err}")
 
 
-def main(argv=None) -> ServeRun:
+def _rank_main(argv) -> None:
+    """One spawned rank of a ``--mesh`` drive (``spawn_ranks``)."""
+    main(argv)
+
+
+def main(argv=None) -> Optional[ServeRun]:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.expect_kernel_mesh:
-        _refused(NotImplementedError("mesh serving is not ported yet"))
     try:
         dev = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"[serve] {e} (--device cpu)") from None
+    mesh_spec = parse_mesh_spec(args.mesh)
+    if mesh_spec is not None and args.rectangular:
+        raise SystemExit("[serve] --rectangular serves one device; drop "
+                         "--mesh")
+    if mesh_spec is not None and "RANK" not in os.environ:
+        # not under torchrun: build the kernels once, here, then start one
+        # rank per mesh position (each re-enters main under its RANK)
+        n = math.prod(mesh_spec[0])
+        if dev.type == "cuda":
+            from repro_torch.kernels import _build
+            _build.build_all()
+        print(f"[serve] spawning {n} ranks for mesh {args.mesh}", flush=True)
+        try:
+            spawn_ranks(n, _rank_main, (argv,))
+        except Exception as e:        # a rank failed: the run fails
+            raise SystemExit(f"[serve] a mesh rank failed: {e}") from None
+        return None
+    mesh = None
+    if mesh_spec is not None:
+        mesh = make_serving_mesh(*mesh_spec, device=dev)
+        dev = mesh.device
+        print(f"[serve] {mesh.describe()}", flush=True)
+    rank0 = mesh is None or mesh.rank == 0
 
     if args.hf_checkpoint is not None:
         from repro_torch.checkpoint.hf import (config_from_hf,
@@ -250,20 +298,24 @@ def main(argv=None) -> ServeRun:
         # where JAX's raise: checked before the weights are made
         check_splice(CALIBRATION_SEQ, cfg.frontend.num_embeds)
 
-    model = build_model(cfg, dev)
+    # on a mesh the whole weights stay on the host: each rank copies only
+    # its blocks to its device (below), and calibrates on the host
+    wdev = dev if mesh is None else torch.device("cpu")
+    model = build_model(cfg, wdev)
     load_s = None
     if args.hf_checkpoint is not None:
         t0 = time.time()
-        params = load_hf_checkpoint(args.hf_checkpoint, cfg, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        params = load_hf_checkpoint(args.hf_checkpoint, cfg, device=wdev)
+        if wdev.type == "cuda":
+            torch.cuda.synchronize(wdev)
         load_s = time.time() - t0
-        print(f"[serve] loaded {cfg.param_dtype} params onto {dev} in "
+        print(f"[serve] loaded {cfg.param_dtype} params onto {wdev} in "
               f"{load_s:.2f}s")
     else:
-        params = model.init(torch.Generator(device=dev).manual_seed(0))
-    # the float32 unembedding, made once for every engine below
-    params = with_unembedding(params, model.tied_unembedding)
+        params = model.init(torch.Generator(device=wdev).manual_seed(0))
+    if mesh is None:
+        # the float32 unembedding, made once for every engine below
+        params = with_unembedding(params, model.tied_unembedding)
 
     proj = None
     if aqua is not None and args.projections is not None \
@@ -288,9 +340,20 @@ def main(argv=None) -> ServeRun:
                                  num_batches=CALIBRATION_BATCHES, batch=2,
                                  seq=CALIBRATION_SEQ, model_cfg=cfg),
                              cfg, device=dev)
-        if args.projections is not None:
+        if args.projections is not None and rank0:
             save_projections(args.projections, proj)
             print(f"[serve] saved AQUA projections to {args.projections}")
+
+    if mesh is not None and proj is not None:
+        # every rank calibrated alike; rank 0's projections, bit for bit
+        from repro_torch.distributed.collectives import from_rank0
+        proj = AquaProjections(p=from_rank0(proj.p, mesh))
+    host_params = None
+    if mesh is not None:
+        # this rank's blocks, cut on the host (the engine refuses whole
+        # tensors on a mesh); rank 0's --verify reference places the whole
+        host_params, params = params, params_from_numpy(params, dev,
+                                                        mesh=mesh)
 
     if args.rectangular:
         return dataclasses.replace(
@@ -312,13 +375,32 @@ def main(argv=None) -> ServeRun:
                          sparsity=SparsitySpec(
                              page_keep_ratio=args.page_keep_ratio,
                              pin_recent_pages=args.pin_recent_pages),
-                         mesh_shape=_mesh_shape(args.mesh))
+                         mesh_shape=None if mesh is None else mesh.dims,
+                         mesh_axes=("data", "model") if mesh is None
+                         else mesh.axes)
     try:
         eng = ContinuousBatchingEngine(cfg, params, proj, serving=scfg,
-                                       backend=args.backend, device=dev)
+                                       backend=args.backend, device=dev,
+                                       mesh=mesh)
     except NotImplementedError as e:
         _refused(e)
     plan = eng.dispatch_plan()
+    if args.expect_kernel_mesh and not plan.mesh_native:
+        # the caller declares the kernel path required for this geometry:
+        # a plan that serves the reference fails loudly, as in JAX
+        print("[serve] EXPECT-KERNEL FAILED: engine did not plan the "
+              "kernel-native mesh path "
+              f"(backend={plan.backend!r} layout={plan.cache_layout}); "
+              f"reasons: {'; '.join(plan.reasons)}", flush=True)
+        raise SystemExit(1)
+    if mesh is not None:
+        print(f"[serve] mesh plan: backend {plan.backend!r}, "
+              f"{plan.cache_layout}, mesh-native {plan.mesh_native}; "
+              f"this rank holds {eng.rank_cache_bytes():,} KV-cache bytes; "
+              "decode step "
+              + ("a CUDA graph" if eng.uses_graphs else
+                 "eager (no CUDA graph: collectives inside the step)"
+                 if dev.type == "cuda" else "eager (CPU)"), flush=True)
     if args.prefill_budget is not None and not plan.chunked_prefill:
         print("[serve] chunked prefill OFF (monolithic admission): "
               f"{'; '.join(plan.chunked_reasons)}")
@@ -381,10 +463,20 @@ def main(argv=None) -> ServeRun:
           f"{eng.cache_bytes():,}")
     if eng.paged:
         _report_pool(eng, cfg, args, dev)
+    if (args.verify or args.expect_kernel_mesh) and mesh is not None \
+            and plan.mesh_native:
+        # the plan said kernels: any fallback event means the reference
+        # core served some call instead
+        events = eng.mesh_fallback_events()
+        if events:
+            _fail(f"backend {plan.backend!r} should serve the kernels on "
+                  f"the mesh but fell back: {events}")
+        print(f"[serve] verify: backend {plan.backend!r} served the kernels "
+              "on shard-local shapes of the mesh (no kernel fallback)")
     ref_stats = None
     if args.verify:
         ref_stats = _verify_tokens(eng, cfg, params, proj, scfg, plan, reqs,
-                                   streamed, args, dev)
+                                   streamed, args, dev, host_params)
     return ServeRun(engine=eng, streamed=streamed, stats=st, requests=reqs,
                     projections=proj, seconds=dt, load_seconds=load_s,
                     reference_stats=ref_stats)
@@ -460,30 +552,41 @@ def _report_pool(eng, cfg: ModelConfig, args, dev) -> None:
 
 
 def _verify_tokens(eng, cfg, params, proj, scfg, plan, reqs, streamed, args,
-                   dev) -> Optional[ScheduleStats]:
+                   dev, host_params=None) -> Optional[ScheduleStats]:
     """Token identity with a reference engine, as the JAX launcher routes
-    it (single device here always). Greedy: the contiguous engine, or, for
-    int8 pools and hierarchical drives (whose rounding or page dropping is
-    part of the result), the paged engine with the same specs; always
-    admitting monolithically, so a chunked drive is pinned to the engine
-    it replaces. A prefix-shared drive goes to the paged engine only
-    where the plan is mesh-native, as in JAX: never here, so its
-    reference is the contiguous engine, which prefills whole prompts.
-    Temperature > 0: each request re-served alone on a fresh engine of
-    the same specs (placement independence). Then, for a chunked
-    greedy drive, the warm max inter-token gap check. Returns the
-    greedy reference engine's stats after its first drive (None when
-    sampling)."""
+    it: the reference is single-device. Greedy: the contiguous engine, or,
+    for int8 pools and hierarchical drives (whose rounding or page
+    dropping is part of the result), and for a prefix-shared drive whose
+    plan is mesh-native (a shared tail prefills through another
+    reduction than a whole prompt), the paged engine with the same specs;
+    always admitting monolithically, so a chunked drive is pinned to the
+    engine it replaces. Temperature > 0: each request re-served alone on
+    a fresh engine of the same specs (on a mesh, a same-mesh engine:
+    placement independence). Then, for a chunked greedy drive, the warm
+    max inter-token gap check. On a mesh (``params`` the rank's blocks),
+    rank 0 runs the single-device reference on the whole ``host_params``
+    and decides. Returns the greedy reference engine's stats after its
+    first drive (None when sampling, and on other ranks)."""
+    mesh = eng.mesh
+    rank0 = mesh is None or mesh.rank == 0
     ref_stats = None
     if args.temperature > 0:
-        where = "solo"
+        where = "solo" if mesh is None else "solo same-mesh"
         ref = {}
         for r in reqs:
             solo = ContinuousBatchingEngine(cfg, params, proj, serving=scfg,
-                                            backend=args.backend, device=dev)
+                                            backend=args.backend, device=dev,
+                                            mesh=mesh)
             ref.update(solo.run([dataclasses.replace(r, arrival=0.0)]))
+        if not rank0:
+            return None
+    elif not rank0:
+        return None
     else:
-        if plan.quantization != "none" or plan.token_sparsity != "none":
+        prefix_engaged = (plan.prefix_sharing and plan.mesh_native
+                          and args.shared_prefix_len > 0)
+        if (prefix_engaged or plan.quantization != "none"
+                or plan.token_sparsity != "none"):
             where = ("single-device paged" if plan.quantization == "none"
                      else f"single-device paged {plan.quantization}")
             if plan.token_sparsity != "none":
@@ -493,9 +596,12 @@ def _verify_tokens(eng, cfg, params, proj, scfg, plan, reqs, streamed, args,
             where = "single-device contiguous"
             ref_scfg = dataclasses.replace(scfg, cache=CacheSpec(),
                                            quant=QuantSpec())
-        ref_scfg = dataclasses.replace(ref_scfg, prefill_budget_tokens=None)
+        ref_scfg = dataclasses.replace(ref_scfg, prefill_budget_tokens=None,
+                                       mesh_shape=None)
         if args.prefill_budget is not None:
             where += " monolithic-admit"
+        if mesh is not None:
+            params = params_from_numpy(host_params, dev)
         ref_eng = ContinuousBatchingEngine(cfg, params, proj,
                                            serving=ref_scfg,
                                            backend=args.backend, device=dev)
@@ -508,7 +614,9 @@ def _verify_tokens(eng, cfg, params, proj, scfg, plan, reqs, streamed, args,
     print(f"[serve] verify: all {len(streamed)} requests token-identical to "
           f"the {where} reference engine")
     if (args.prefill_budget is not None and plan.chunked_prefill
-            and args.temperature == 0):
+            and args.temperature == 0 and mesh is None):
+        # (on a mesh the ranks share the host and the card, and the
+        # re-drive would need every rank: no wall-clock gap check there)
         # interleaving exists to keep decode lanes from stalling behind a
         # whole co-tenant prefill: the worst gap must come down against
         # the monolithic reference on the same trace. Both engines re-serve

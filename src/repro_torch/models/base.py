@@ -113,6 +113,17 @@ class LM:
         self.dtype = torch_dtype(cfg.dtype)
         self.param_dtype = torch_dtype(cfg.param_dtype)
         self._paging: Optional[PagingSpec] = None
+        # this rank's mesh layout (``enable_mesh``); None on one device
+        self.tp = None
+
+    def enable_mesh(self, layout) -> None:
+        """Serve as one rank of a mesh: ``layout`` is the rank's
+        ``distributed.layout.MeshLayout`` (the model's config must hold the
+        rank's heads: ``layout.local_config``). Dense family only."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} is not served on a mesh yet")
+        self.tp = layout
 
     def enable_paging(self, spec: Optional[PagingSpec]) -> None:
         if spec is not None and not self.supports_paging:
@@ -149,16 +160,18 @@ class LM:
         raise NotImplementedError
 
     def graft_paged(self, state: DecodeState, req_state: DecodeState,
-                    lane: int, num_slots: int) -> DecodeState:
+                    lane: Optional[int], num_slots: int,
+                    row: torch.Tensor) -> DecodeState:
         raise NotImplementedError
 
     def prefill_chunk(self, params, batch, state: DecodeState, lane: int,
                       prefix_len: int, aqua_proj=None, select_q_blk=None,
-                      logits: bool = True
+                      logits: bool = True, row=None
                       ) -> Tuple[Optional[torch.Tensor], DecodeState]:
         """Advance ``lane``'s cache by one chunked-prefill chunk starting
-        at position ``prefix_len``; returns (logits (1, V) or, with
-        ``logits=False``, None, state)."""
+        at position ``prefix_len`` (paged: through the pages of the lane's
+        table ``row``); returns (logits (1, V) or, with ``logits=False``,
+        None, state)."""
         raise NotImplementedError
 
     # -- lane surgery -------------------------------------------------

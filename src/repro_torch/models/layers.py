@@ -1,4 +1,9 @@
-"""Shared model layers: norms, MLP, embeddings, the loss (PyTorch port)."""
+"""Shared model layers: norms, MLP, embeddings, the loss (PyTorch port).
+
+On a serving mesh ``tp`` (a ``distributed.layout.MeshLayout``) is this
+rank's layout: the MLP's ``w2`` is row-parallel (its output all-reduced
+over ``model``), and the embedding and unembedding take the rank's block
+of the vocab (or of d_model) with the exchange the layout names."""
 from __future__ import annotations
 
 from typing import Optional
@@ -31,13 +36,14 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     return p
 
 
-def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, act: str = "silu", tp=None) -> torch.Tensor:
     """``act(x w1) [* x w3] w2``: gated where the params hold ``w3`` (the
     model makes them iff ``act == "silu"``, as in JAX)."""
     h = act_fn(act)(x @ p["w1"].to(x.dtype))
     if "w3" in p:
         h = h * (x @ p["w3"].to(x.dtype))
-    return h @ p["w2"].to(x.dtype)
+    y = h @ p["w2"].to(x.dtype)
+    return y if tp is None else tp.ffn_out(y)
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int,
@@ -77,11 +83,14 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
                              device)}
 
 
-def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
+def embed(p: dict, tokens: torch.Tensor, dtype, tp=None) -> torch.Tensor:
+    if tp is not None:
+        return tp.embed(p["table"], tokens, dtype)
     return p["table"][tokens.long()].to(dtype)
 
 
-def unembed(params: dict, table_key: str, x: torch.Tensor) -> torch.Tensor:
+def unembed(params: dict, table_key: str, x: torch.Tensor,
+            tp=None) -> torch.Tensor:
     """Logits in float32 from the float32 (V, d) matrix that
     ``with_unembedding`` made once where ``params`` carry it, else from
     ``params[table_key]["table"]`` cast here (the same GEMM on the same
@@ -89,6 +98,8 @@ def unembed(params: dict, table_key: str, x: torch.Tensor) -> torch.Tensor:
     w = params.get(UNEMBED_F32)
     if w is None:
         w = params[table_key]["table"].float()
+    if tp is not None:
+        return tp.unembed(w, x)
     return x.float() @ w.T
 
 

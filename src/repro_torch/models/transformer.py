@@ -85,33 +85,34 @@ def _stack_layers(make, n: int):
     return out
 
 
-def ffn_apply(cfg, p: dict, x: torch.Tensor):
+def ffn_apply(cfg, p: dict, x: torch.Tensor, tp=None):
     """The block's FFN: (y, the MoE layer's load-balance aux loss), the
-    loss None for a dense MLP."""
+    loss None for a dense MLP. ``tp``: the rank's mesh layout (dense
+    only: other families are not served on a mesh)."""
     if cfg.family == "moe":
         return moe_lib.moe_ffn(cfg, p, x)
-    return L.mlp(p, x, cfg.act), None
+    return L.mlp(p, x, cfg.act, tp), None
 
 
 def block_forward(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                   proj: Optional[torch.Tensor],
-                  lengths: Optional[torch.Tensor] = None):
+                  lengths: Optional[torch.Tensor] = None, tp=None):
     """One block over a sequence. Returns (x, aux) where aux holds the
     attention's q/k (capture), the layer's cache-form k̂ and v, and the
     FFN's ``aux_loss`` (None for a dense MLP)."""
     h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     h, aux = attn.prefill_attention(p["attn"], h_in, cfg.attention, cfg.aqua,
                                     proj, positions, return_aux=True,
-                                    lengths=lengths)
+                                    lengths=lengths, tp=tp)
     x = x + h
     f, aux["aux_loss"] = ffn_apply(cfg, p["ffn"],
-                                   L.rms_norm(x, p["ln2"], cfg.norm_eps))
+                                   L.rms_norm(x, p["ln2"], cfg.norm_eps), tp)
     return x + f, aux
 
 
-def _block_slim(cfg, p, x, positions, proj, lengths=None):
+def _block_slim(cfg, p, x, positions, proj, lengths=None, tp=None):
     """:func:`block_forward` keeping only the FFN's ``aux_loss``."""
-    x, aux = block_forward(cfg, p, x, positions, proj, lengths)
+    x, aux = block_forward(cfg, p, x, positions, proj, lengths, tp)
     return x, aux["aux_loss"]
 
 
@@ -136,17 +137,17 @@ def _stack_caches(caches) -> kv.AttnCache:
 def block_step(cfg, p: dict, x_t: torch.Tensor, cache,
                proj: Optional[torch.Tensor],
                write_mask: Optional[torch.Tensor] = None,
-               token_sparsity=None) -> torch.Tensor:
+               token_sparsity=None, tp=None) -> torch.Tensor:
     h = attn.decode_attention(p["attn"], L.rms_norm(x_t, p["ln1"],
                                                     cfg.norm_eps),
                               cache, cfg.attention, cfg.aqua, proj,
                               write_mask=write_mask,
-                              token_sparsity=token_sparsity)
+                              token_sparsity=token_sparsity, tp=tp)
     x = x_t + h
     # the lanes, idle ones too, are one (B, 1) sequence batch: an MoE
     # routes them as one block
     f, _ = ffn_apply(cfg, p["ffn"],
-                     L.rms_norm(x, p["ln2"], cfg.norm_eps)[:, None])
+                     L.rms_norm(x, p["ln2"], cfg.norm_eps)[:, None], tp)
     return x + f[:, 0]
 
 
@@ -158,7 +159,13 @@ class DenseLM(LM):
     go through ``patch_proj`` (no bias) and replace the embeddings of the
     first n positions at ``forward`` and ``prefill`` (so the engine's
     ``prefill_into`` and admissions); the prompt must be at least n long
-    (:func:`check_splice`)."""
+    (:func:`check_splice`).
+
+    On a serving mesh (``enable_mesh``, family ``dense``) the model is one
+    rank's: its config holds the rank's attention heads, its params are
+    the rank's blocks (``bridge.params_from_numpy(mesh=)``) and every
+    block passes the layout on, so the collectives it names run where
+    GSPMD would insert them."""
 
     supports_paging = True
 
@@ -191,12 +198,13 @@ class DenseLM(LM):
     def _unembed(self, params, x):
         return L.unembed(params, "embed" if self.tied_unembedding
                          else "unembed",
-                         L.rms_norm(x, params["ln_f"], self.cfg.norm_eps))
+                         L.rms_norm(x, params["ln_f"], self.cfg.norm_eps),
+                         self.tp)
 
     def _embed(self, params, batch) -> torch.Tensor:
         """Token embeddings, with a VLM batch's projected "patches" over
         the first positions."""
-        x = L.embed(params["embed"], batch["tokens"], self.dtype)
+        x = L.embed(params["embed"], batch["tokens"], self.dtype, self.tp)
         if (self.cfg.frontend.kind == "vision_patches"
                 and "patches" in batch):
             pe = L.linear(params["patch_proj"],
@@ -219,7 +227,7 @@ class DenseLM(LM):
         auxes = []
         for i in range(self.cfg.num_layers):
             args = (self.cfg, layers[i], x, positions,
-                    self._proj(aqua_proj, i), lengths)
+                    self._proj(aqua_proj, i), lengths, self.tp)
             if slim:
                 x, aux_loss = remat(self.cfg, _block_slim, *args)
                 auxes.append({"aux_loss": aux_loss})
@@ -303,7 +311,7 @@ class DenseLM(LM):
         layers = _stack_caches([attn.build_cache_from_prefill(
             a["k_cache"], a["v"], max_seq, lengths,
             window=cfg.attention.window, aqua=cfg.aqua, q_hat=a["q_hat"],
-            head_dim=cfg.attention.head_dim) for a in auxes])
+            head_dim=cfg.attention.head_dim, tp=self.tp) for a in auxes])
         if lengths is None:
             x_last = x[:, -1]
         else:
@@ -316,32 +324,35 @@ class DenseLM(LM):
         """tokens (B,) -> (logits (B, V) float32, state updated in place).
         A paged state with ``PagingSpec.kept_pages`` set decodes through
         hierarchical AQUA, the participating pages ranked per layer."""
-        x = L.embed(params["embed"], tokens, self.dtype)
+        x = L.embed(params["embed"], tokens, self.dtype, self.tp)
         pg = self._paging
         sparsity = (None if pg is None or pg.kept_pages is None
                     else (pg.kept_pages, pg.pin_recent_pages))
         for i in range(self.cfg.num_layers):
             x = block_step(self.cfg, layer_params(params["layers"], i), x,
                            state.layers.layer(i), self._proj(aqua_proj, i),
-                           write_mask=write_mask, token_sparsity=sparsity)
+                           write_mask=write_mask, token_sparsity=sparsity,
+                           tp=self.tp)
         return self._unembed(params, x), state
 
     # -- paged lane surgery ---------------------------------------------
     def graft_paged(self, state: DecodeState, req_state: DecodeState,
-                    lane: int, num_slots: int) -> DecodeState:
+                    lane: Optional[int], num_slots: int, row) -> DecodeState:
         """Copy logical slots [0, num_slots) of a B=1 contiguous prefill
-        cache into ``lane``'s pages, layer by layer (the page-table row is
-        installed first, by the engine)."""
+        cache into the pages that ``row`` (NP,), the lane's page-table
+        row, maps, layer by layer, and set ``lane``'s count (``lane``
+        None: no count, a mesh rank's replica of the pool for a lane of
+        another data rank)."""
         for i in range(self.cfg.num_layers):
             kv.paged_graft(state.layers.layer(i), req_state.layers.layer(i),
-                           lane, num_slots)
+                           lane, num_slots, row)
         return state
 
     # -- chunked prefill and prefix-shared admission ---------------------
     def prefill_chunk(self, params, batch, state: DecodeState, lane: int,
                       prefix_len: int, aqua_proj=None,
                       select_q_blk: Optional[int] = None,
-                      logits: bool = True):
+                      logits: bool = True, row=None):
         """Advance ``lane``'s cache by one prefill chunk, in place: the
         chunk's tokens ``batch["tokens"]`` (1, T) (bucket-padded, valid
         count ``batch["lengths"]`` (1,)) sit at positions ``prefix_len +
@@ -360,12 +371,17 @@ class DenseLM(LM):
         ``prefix_len`` pages' worth of slots are another prompt's
         read-only pages that the lane's row maps, the batch is the
         prompt's tail, and the engine passes ``select_q_blk=None``
-        (per-query selection)."""
+        (per-query selection).
+
+        Paged, the prefix is read from, and the chunk written to, the
+        pages that ``row`` (NP,), the lane's page-table row, maps; ``lane``
+        only takes the count (None: no count, a mesh rank's replica of the
+        pool for a lane of another data rank)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         lengths = batch.get("lengths")
         t = tokens.shape[1]
-        x = L.embed(params["embed"], tokens, self.dtype)
+        x = L.embed(params["embed"], tokens, self.dtype, self.tp)
         positions = (prefix_len + torch.arange(t, dtype=torch.int32,
                                                device=x.device))[None]
         paged = self._paging is not None
@@ -374,7 +390,7 @@ class DenseLM(LM):
             p = layer_params(params["layers"], i)
             cache = state.layers.layer(i)
             if paged:
-                pk, pv, ppos = kv.paged_lane_pages(cache, lane,
+                pk, pv, ppos = kv.paged_lane_pages(cache, row,
                                                    dtype=self.dtype)
             else:
                 pk, pv = cache.k[lane][None], cache.v[lane][None]
@@ -388,13 +404,15 @@ class DenseLM(LM):
                 cfg.attention, cfg.aqua, self._proj(aqua_proj, i),
                 prefix_k=pk, prefix_v=pv, prefix_positions=ppos,
                 prefix_len=prefix_len, positions=positions, lengths=lengths,
-                select_q_blk=select_q_blk)
+                select_q_blk=select_q_blk, tp=self.tp)
             x = x + h
             x = x + ffn_apply(cfg, p["ffn"],
-                              L.rms_norm(x, p["ln2"], cfg.norm_eps))[0]
+                              L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                              self.tp)[0]
             if paged:
                 kv.paged_write_tail(cache, lane, k_t[0], v_t[0], positions[0],
-                                    prefix_len // cache.page_size, tail_count)
+                                    prefix_len // cache.page_size, tail_count,
+                                    row)
             else:
                 kv.lane_write_tail(cache, lane, k_t[0], v_t[0], positions[0],
                                    prefix_len, tail_count)

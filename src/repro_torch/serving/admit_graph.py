@@ -69,18 +69,22 @@ def admission(model, params, state, aqua_proj, max_seq: int,
     ``lane`` (a Python int or a (1,) device tensor) of ``state``, in place
     (paged: after installing the page-table ``row`` (NP,), grafting
     logical slots [0, ``num_slots``), T by default). Returns the logits
-    (1, V) float32. Reads no tensor value on the host."""
+    (1, V) float32. Reads no tensor value on the host. Paged with ``lane``
+    None: the pages ``row`` maps are written and no lane's row or count
+    is touched (a mesh rank's replica of the pool, for a lane of another
+    data rank)."""
     batch = dict(extra or {}, tokens=tokens)
     if lengths is not None:
         batch["lengths"] = lengths
     if row is None:
         return model.prefill_into(params, batch, max_seq, state, lane,
                                   aqua_proj=aqua_proj)[0]
-    kvc.install_table_row(state.layers, lane, row)
+    if lane is not None:
+        kvc.install_table_row(state.layers, lane, row)
     logits, req_state = model.prefill(params, batch, max_seq,
                                       aqua_proj=aqua_proj)
     model.graft_paged(state, req_state, lane, tokens.shape[1]
-                      if num_slots is None else num_slots)
+                      if num_slots is None else num_slots, row)
     return logits
 
 

@@ -105,7 +105,28 @@ admission promotes its lane's freshest page, inserts write through, and
 decode reads the dequantized lane view with the residents overlaid (the
 masked-dense core, as in JAX: the int8 kernel reads raw pages).
 
-Not ported yet (the engine raises ``NotImplementedError``): meshes.
+Serving on a mesh (``mesh=``, a :class:`~repro_torch.launch.mesh.Mesh`,
+or ``ServingConfig.mesh_shape``, which builds one from the ``torchrun``
+environment): the engine is one rank of an SPMD program, one per mesh
+position, every rank driving the same trace. Params and the KV cache
+shard over ``model`` by ``distributed.sharding``'s rules (the rank's
+model holds its heads, ``distributed.layout.MeshLayout`` names the
+collectives), decode lanes over the data axes (an order interleaved
+across data shards fills them); a lane count the data axes do not divide
+keeps every lane on every rank. The slot axis stays whole on every rank
+(JAX's kernel-native layout, ``slot_absorb=False``). An admission (B=1)
+is computed by every data rank that holds the lane's cache: paged, every
+data rank (each writes its replica of the pool, which never shards over
+data; only the owner installs the lane's table row), contiguous, the
+owning data rank. Decode computes the rank's own lanes; the sampled
+tokens are all-gathered over the data axes, so every rank's host-side
+lanes and scheduler stay in lockstep (arrivals are in decode steps; no
+rank reads its clock to schedule). With a ``model`` axis of 1 the decode
+step and the owner's admissions keep their CUDA graphs; with ``model`` >
+1 (collectives inside the step, over gloo where ranks share a card) both
+run eagerly and ``step_graph`` stays None. Still refused on a mesh
+(``NotImplementedError``): int8 pools and hot residents, sliding
+windows, and families other than ``dense``.
 """
 from __future__ import annotations
 
@@ -124,7 +145,9 @@ from repro_torch.core import aqua as aqua_lib
 from repro_torch.core import kvcache as kvc
 from repro_torch.core.attention import resolve_backend
 from repro_torch.core.calibration import AquaProjections
-from repro_torch.core.dispatch import (TILE_SELECTING_BACKENDS, DispatchPlan,
+from repro_torch.core.dispatch import (REASON_NONDIVISIBLE_MESH,
+                                       REASON_PAGE_GEOMETRY,
+                                       TILE_SELECTING_BACKENDS, DispatchPlan,
                                        resolve_dispatch_plan)
 from repro_torch.models import build_model
 from repro_torch.models.base import PagingSpec
@@ -308,23 +331,38 @@ class ContinuousBatchingEngine:
     ``step_graph`` is the captured decode step (None on the CPU and before
     the first ``serve()``); ``admit_graphs`` the captured admissions by
     prompt bucket (empty on the CPU); ``graph_accounting()`` their
-    capture ms and pool bytes.
+    capture ms and pool bytes; ``uses_graphs`` whether the engine captures
+    them at all (on the card, unless a mesh's ``model`` axis puts
+    collectives inside the step).
+
+    ``mesh``: serve as this rank of a mesh (see the module docstring);
+    ``params`` are then the rank's blocks, placed from host arrays by
+    ``bridge.params_from_numpy(mesh=)`` (a whole tensor is refused), and
+    ``projections`` whole (the engine keeps the rank's KV heads).
+    ``mesh_fallback_events()`` lists the (backend, mode, reason) of every
+    call that served the reference core instead of a kernel on the mesh.
     """
 
     def __init__(self, cfg: ModelConfig, params,
                  projections: Optional[AquaProjections] = None,
                  serving: ServingConfig = ServingConfig(),
                  rng_seed: int = 0, backend: Optional[str] = None,
-                 device=None):
+                 device=None, mesh=None):
         if backend is not None and cfg.attention is not None:
             resolve_backend(backend, aqua=cfg.aqua)
             cfg = dataclasses.replace(
                 cfg, attention=dataclasses.replace(cfg.attention,
                                                    backend=backend))
         serving.validate()
-        if serving.mesh_shape is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
         cache, quant = resolve_cache_specs(serving)
+        if mesh is None and serving.mesh_shape is not None:
+            from repro_torch.launch.mesh import make_serving_mesh
+            mesh = make_serving_mesh(serving.mesh_shape, serving.mesh_axes,
+                                     device="cuda" if device is None
+                                     else device)
+        if mesh is not None:
+            _check_mesh(mesh, cfg, serving, quant, device)
+        self.mesh = mesh
         self.sparsity_spec = resolve_sparsity_spec(serving)
         # an attention-free model (ssm) holds no slots to evict
         self.eviction = ("none" if cfg.attention is None
@@ -350,12 +388,19 @@ class ContinuousBatchingEngine:
         # routing depends on the chunk boundaries)
         self._plan = resolve_dispatch_plan(attention=cfg.attention,
                                            aqua=cfg.aqua, serving=serving,
-                                           mesh=None,
+                                           mesh=mesh,
                                            prefix_sharing=self._prefix_ok,
                                            family=cfg.family,
                                            frontend=cfg.frontend.kind)
-        self.device = resolve_device(device)
-        self.model = build_model(cfg, self.device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        self.layout = None
+        self._lane_blocks, self._lane_lo = 1, 0
+        self._local_lanes = serving.max_lanes
+        self._lane_order = None
+        if mesh is None:
+            self.model = build_model(cfg, self.device)
+        else:
+            params = self._install_mesh(params)
         if cache.paged and not self.model.supports_paging:
             raise ValueError(f"family {cfg.family!r} does not support the "
                              "paged KV cache")
@@ -368,9 +413,11 @@ class ContinuousBatchingEngine:
                 "AQUA enabled: calibrated projections required"
             # once, at load: cut to the kept dims and zero-padded to the
             # stored width, so q̂ and K̂ come out in stored form
-            self.proj = aqua_lib.stored_projection(
-                projections.p.to(self.device), cfg.aqua,
-                cfg.attention.head_dim)
+            p = projections.p.to(self.device)
+            if self.layout is not None:
+                p = self.layout.shard_projection(p)
+            self.proj = aqua_lib.stored_projection(p, cfg.aqua,
+                                                   cfg.attention.head_dim)
         self._rng_seed = rng_seed
         self._serves = 0
         self._serve_idx = 0
@@ -385,8 +432,11 @@ class ContinuousBatchingEngine:
         self.admit_graphs: Dict[int, AdmitGraph] = {}
         self.frontend_admit_graphs: Dict[int, AdmitGraph] = {}
         self._admit_pool = None
-        self._graphed_admissions = (self.device.type == "cuda"
-                                    and self._supports_ragged)
+        # collectives inside the step and the admission (a model axis > 1)
+        # keep both eager
+        self.uses_graphs = self.device.type == "cuda" and (
+            mesh is None or mesh.axis_size("model") == 1)
+        self._graphed_admissions = self.uses_graphs and self._supports_ragged
         self._num_slots = self.model.cache_slots(serving.max_seq)
         self._paged = cache.paged
         self._kept_pages = None
@@ -430,6 +480,8 @@ class ContinuousBatchingEngine:
         self._chunk_align = serving.prompt_bucket
         if self._paged:
             self._chunk_align = math.lcm(self._chunk_align, cache.page_size)
+        if mesh is not None:
+            self._check_state_layout()
         self._tile_q_blk = None
         aq = cfg.aqua
         if (self._chunked and self._plan.backend in TILE_SELECTING_BACKENDS
@@ -438,10 +490,95 @@ class ContinuousBatchingEngine:
             self._tile_q_blk = aq.prefill_q_blk
             self._chunk_align = math.lcm(self._chunk_align, self._tile_q_blk)
 
+    def _install_mesh(self, params):
+        """Build this rank's model (its heads, ``MeshLayout``), keep its
+        blocks of ``params``, and lay the lanes over the data axes.
+        Returns the rank's params."""
+        from repro_torch.distributed.layout import MeshLayout
+        mesh, s, cfg = self.mesh, self.scfg, self.cfg
+        self.layout = MeshLayout.build(cfg, mesh)
+        for r in (REASON_NONDIVISIBLE_MESH, REASON_PAGE_GEOMETRY):
+            if r in self._plan.reasons:
+                self.layout.decode_kernel_reason = r
+        self.model = build_model(self.layout.local_config(cfg), self.device)
+        self.model.enable_mesh(self.layout)
+        params = self.layout.check_params(params)
+        dsize = mesh.data_size()
+        if dsize > 1 and s.max_lanes % dsize == 0:
+            # lanes in whole per-data-shard blocks; admissions fill them
+            # interleaved across the shards, as JAX's engine does
+            self._lane_blocks = dsize
+            self._local_lanes = s.max_lanes // dsize
+            self._lane_lo = mesh.data_index() * self._local_lanes
+            per = self._local_lanes
+            self._lane_order = [g * per + i for i in range(per)
+                                for g in range(dsize)]
+        return params
+
+    def _check_state_layout(self) -> None:
+        """The rank's decode state is exactly its blocks of the whole state
+        under ``distributed.sharding.decode_state_pspec`` in the
+        kernel-native layout (``slot_absorb=False``): shapes on the meta
+        device."""
+        from repro_torch.distributed import sharding as dsh
+        s = self.scfg
+        whole = build_model(self.cfg, "cpu")
+        whole.enable_paging(self.model.paging)
+        kv_ok, b_ok = dsh.state_shardable(
+            self.mesh, kv_heads=self.cfg.attention.num_kv_heads,
+            batch=s.max_lanes)
+        glob = whole.init_decode_state(s.max_lanes, s.max_seq,
+                                       device="meta").layers
+        mine = self.model.init_decode_state(self._local_lanes, s.max_seq,
+                                            device="meta").layers
+        for f in dataclasses.fields(glob):
+            name, g, loc = f.name, getattr(glob, f.name), getattr(mine,
+                                                                  f.name)
+            if g is None:
+                continue
+            spec = dsh.decode_state_pspec(name, tuple(g.shape), self.mesh,
+                                          kv_shardable=kv_ok,
+                                          batch_shardable=b_ok,
+                                          slot_absorb=False)
+            want = dsh.local_shape(g.shape, spec, self.mesh)
+            if tuple(loc.shape) != want:
+                raise AssertionError(f"rank's {name} {tuple(loc.shape)} is "
+                                     f"not its block {want} of {spec}")
+
+    def _local_lane(self, lane: int) -> Optional[int]:
+        """``lane``'s index in this rank's decode state, or None when
+        another data rank holds it."""
+        i = lane - self._lane_lo
+        return i if 0 <= i < self._local_lanes else None
+
+    def _agree(self, tok: Optional[int], lane: int) -> int:
+        """The token that ``lane``'s data rank sampled (on a mesh every data
+        rank takes that rank's: ``tok`` None where this rank did not sample
+        it); the lockstep of the host-side lanes."""
+        mesh = self.mesh
+        if mesh is None or mesh.data_size() == 1:
+            return tok
+        from repro_torch.distributed.collectives import all_gather
+        t = torch.tensor([-1 if tok is None else tok], dtype=torch.int64,
+                         device=self.device)
+        got = all_gather(t, mesh, mesh.data_axes).tolist()
+        return int(got[lane // self._local_lanes
+                       if self._lane_blocks > 1 else 0])
+
     def dispatch_plan(self) -> DispatchPlan:
         """The engine's resolved :class:`DispatchPlan` (backend, layout,
         precision, chunked prefill, token sparsity, and the reasons)."""
         return self._plan
+
+    def mesh_fallback_events(self):
+        """(backend, mode, reason) of every call of THIS engine that served
+        the reference core on its mesh instead of a kernel: empty means
+        every kernel-backend step ran the kernels on shard-local shapes
+        (``launch.serve --verify`` requires it of a mesh-native plan). The
+        reasons are ``core.dispatch.REASON_*``, as in the plan."""
+        if self.layout is None:
+            return ()
+        return tuple(sorted(self.layout.fallback_sink))
 
     @property
     def paged(self) -> bool:
@@ -559,8 +696,8 @@ class ContinuousBatchingEngine:
         once), emptied in place at every later one."""
         if self.last_state is None:
             self.last_state = self.model.init_decode_state(
-                self.scfg.max_lanes, self.scfg.max_seq)
-            if self.device.type == "cuda":
+                self._local_lanes, self.scfg.max_seq)
+            if self.uses_graphs:
                 self.step_graph = StepGraph(self.model, self.params,
                                             self.last_state,
                                             aqua_proj=self.proj)
@@ -587,10 +724,16 @@ class ContinuousBatchingEngine:
         if self._paged:
             pages, row = self._reserve_pages(lane, page_plan)
         shared = 0 if page_plan is None else len(page_plan[0])
+        # on a mesh: this rank's index of the lane, None when another data
+        # rank holds it (then a paged admission still writes this rank's
+        # replica of the pool, a contiguous one is that rank's alone)
+        local = self._local_lane(lane)
         if shared:
-            logits = self._admit_prefix(req, lane, state, row, shared)
-        elif self._graphed_admissions:
-            logits = self._admit_graphed(req, lane, row)
+            logits = self._admit_prefix(req, local, state, row, shared)
+        elif local is None and not self._paged:
+            logits = None
+        elif self._graphed_admissions and local is not None:
+            logits = self._admit_graphed(req, local, row)
         else:
             # what an admission graph captures, run eagerly (the CPU, and
             # window / H2O admissions: the exact prompt grafted into every
@@ -599,7 +742,7 @@ class ContinuousBatchingEngine:
             batch = self._prefill_batch(req.tokens)
             logits = admission(
                 self.model, self.params, state, self.proj, self.scfg.max_seq,
-                batch["tokens"], batch.get("lengths"), lane,
+                batch["tokens"], batch.get("lengths"), local,
                 None if row is None else torch.from_numpy(row).to(
                     self.device),
                 num_slots=None if self._supports_ragged else self._num_slots,
@@ -633,25 +776,29 @@ class ContinuousBatchingEngine:
         return graph.admit(np.asarray(req.tokens, np.int32), lane, row,
                            extra)
 
-    def _admit_prefix(self, req: Request, lane: int, state, row: np.ndarray,
-                      shared: int) -> torch.Tensor:
+    def _admit_prefix(self, req: Request, lane: Optional[int], state,
+                      row: np.ndarray, shared: int) -> torch.Tensor:
         """A prefix-shared admission (JAX's ``_admit_prefix``): the lane's
         row maps ``shared`` indexed prefix pages read-only, and only the
         prompt's tail prefills, bucket-padded within the slots the prefix
         leaves, against them, per-query dim selection; its K/V land from
         the first private page. Eager on the card too (the prefix length
-        is a host int in ``prefill_with_prefix``). Returns logits (1, V)."""
+        is a host int in ``prefill_with_prefix``). ``lane`` is the index in
+        this rank's state, None on a mesh rank that holds the pool but not
+        the lane (pages are read and written through ``row`` either way).
+        Returns logits (1, V)."""
         pool = self.page_pool
         prefix_len = shared * self.cache_spec.page_size
         pool.prefix_hits += 1
         pool.tokens_saved += prefix_len
-        kvc.install_table_row(state.layers, lane,
-                              torch.from_numpy(row).to(self.device))
+        row_t = torch.from_numpy(row).to(self.device)
+        if lane is not None:
+            kvc.install_table_row(state.layers, lane, row_t)
         batch = self._prefill_batch(np.asarray(req.tokens)[prefix_len:],
                                     budget=self.scfg.max_seq - prefix_len)
         logits, _ = self.model.prefill_with_prefix(
             self.params, batch, state, lane, prefix_len, aqua_proj=self.proj,
-            select_q_blk=None)
+            select_q_blk=None, row=row_t)
         return logits
 
     def _reserve_pages(self, lane: int, page_plan) -> tuple:
@@ -689,12 +836,17 @@ class ContinuousBatchingEngine:
 
     def _finish_admit(self, req: Request, lane: int, logits, lanes: LaneState):
         """The admission tail: sample the first token from the prefill
-        logits and install the lane's bookkeeping. Returns (token, done)."""
-        self.last_admit_logits = logits
-        tok = int(sample_tokens(logits, np.array([req.temperature],
-                                                 np.float32),
-                                np.array([req.top_k]),
-                                np.array([self._seed(req.uid, 0)]))[0])
+        logits and install the lane's bookkeeping (on a mesh, the token the
+        lane's data rank sampled: ``logits`` None where this rank computed
+        none). Returns (token, done)."""
+        tok = None
+        if logits is not None:
+            self.last_admit_logits = logits
+            tok = int(sample_tokens(logits, np.array([req.temperature],
+                                                     np.float32),
+                                    np.array([req.top_k]),
+                                    np.array([self._seed(req.uid, 0)]))[0])
+        tok = self._agree(tok, lane)
         done = ((req.eos_id >= 0 and tok == req.eos_id)
                 or req.max_new_tokens <= 1)
         lanes.last_token[lane] = tok
@@ -733,11 +885,13 @@ class ContinuousBatchingEngine:
         backends, per query past a shared prefix, as the prefix-shared
         admission selects)."""
         lane = sched.assign(req, prefilling=True)
-        job = dict(req=req, pages=None, select=self._tile_q_blk)
+        job = dict(req=req, pages=None, select=self._tile_q_blk, row=None)
         if self._paged:
             job["pages"], row = self._reserve_pages(lane, page_plan)
-            kvc.install_table_row(state.layers, lane,
-                                  torch.from_numpy(row).to(self.device))
+            job["row"] = torch.from_numpy(row).to(self.device)
+            local = self._local_lane(lane)
+            if local is not None:
+                kvc.install_table_row(state.layers, local, job["row"])
             if page_plan[0]:
                 pool = self.page_pool
                 prefix_len = len(page_plan[0]) * self.cache_spec.page_size
@@ -770,29 +924,46 @@ class ContinuousBatchingEngine:
     def _chunk(self, job: dict, lane: int, cursor: int, count: int,
                state, final: bool):
         """Run one chunk of ``job``'s prefill into ``lane``; returns the
-        logits of its last valid row for the ``final`` chunk, else None."""
+        logits of its last valid row for the ``final`` chunk, else None
+        (and None on a mesh rank that does not compute the lane's
+        chunks: contiguous, another data rank's lane)."""
+        local = self._local_lane(lane)
+        if local is None and not self._paged:
+            return None
         logits, _ = self.model.prefill_chunk(
             self.params, self._chunk_batch(job["req"], cursor, count), state,
-            lane, cursor, aqua_proj=self.proj, select_q_blk=job["select"],
-            logits=final)
+            local, cursor, aqua_proj=self.proj, select_q_blk=job["select"],
+            logits=final, row=job["row"])
         return logits
 
     def _step(self, state, lanes: LaneState):
         """One decode step over all lanes (on the card: one replay of the
         step graph); inactive lanes are frozen by the write mask and report
-        ``pad_id``. Returns (tok, emitted, done)."""
+        ``pad_id``. On a mesh the step runs this rank's lanes and the
+        sampled tokens are all-gathered over the data axes. Returns (tok,
+        emitted, done)."""
+        mine = slice(self._lane_lo, self._lane_lo + self._local_lanes)
         if self.step_graph is not None:
-            logits = self.step_graph.replay(lanes.last_token, lanes.active)
+            logits = self.step_graph.replay(lanes.last_token[mine],
+                                            lanes.active[mine])
         else:
             logits, _ = self.model.decode_step(
-                self.params, state, torch.from_numpy(lanes.last_token),
+                self.params, state,
+                torch.from_numpy(lanes.last_token[mine]).to(self.device),
                 aqua_proj=self.proj,
-                write_mask=torch.from_numpy(lanes.active))
+                write_mask=torch.from_numpy(lanes.active[mine]).to(
+                    self.device))
         self.last_step_logits = logits
         seeds = np.array([self._seed(int(u), int(g)) if t > 0 else 0
-                          for u, g, t in zip(lanes.uid, lanes.generated,
-                                             lanes.temperature)])
-        tok = sample_tokens(logits, lanes.temperature, lanes.top_k, seeds)
+                          for u, g, t in zip(lanes.uid[mine],
+                                             lanes.generated[mine],
+                                             lanes.temperature[mine])])
+        tok = sample_tokens(logits, lanes.temperature[mine],
+                            lanes.top_k[mine], seeds)
+        if self._lane_blocks > 1:
+            from repro_torch.distributed.collectives import all_gather
+            tok = all_gather(torch.from_numpy(tok).to(self.device),
+                             self.mesh, self.mesh.data_axes).cpu().numpy()
         emitted = lanes.active.copy()
         tok = np.where(emitted, tok, self.scfg.pad_id).astype(np.int32)
         lanes.generated += emitted.astype(np.int32)
@@ -809,7 +980,8 @@ class ContinuousBatchingEngine:
         ``self.stats`` (and ``self.page_pool`` when paged)."""
         self._serve_idx = self._serves
         self._serves += 1
-        sched = LaneScheduler(self.scfg.max_lanes)
+        sched = LaneScheduler(self.scfg.max_lanes,
+                              lane_order=self._lane_order)
         for r in requests:
             sched.submit(self._normalize(r))
         if self._paged:
@@ -1000,6 +1172,40 @@ class ContinuousBatchingEngine:
 
     def cache_bytes(self) -> int:
         """KV-cache footprint of the lane state (shape-only, see
-        :func:`decode_state_bytes`): the page pool is counted once."""
-        return decode_state_bytes(self.model, self.scfg.max_lanes,
+        :func:`decode_state_bytes`): the page pool is counted once. On a
+        mesh, the whole state's, as one device would hold it (each rank
+        holds its blocks: ``rank_cache_bytes``)."""
+        model = self.model
+        if self.mesh is not None:
+            model = build_model(self.cfg, "cpu")
+            model.enable_paging(self.model.paging)
+        return decode_state_bytes(model, self.scfg.max_lanes,
                                   self.scfg.max_seq)
+
+    def rank_cache_bytes(self) -> int:
+        """The KV-cache bytes this rank holds (its lanes and heads)."""
+        return decode_state_bytes(self.model, self._local_lanes,
+                                  self.scfg.max_seq)
+
+
+def _check_mesh(mesh, cfg: ModelConfig, serving: ServingConfig, quant,
+                device) -> None:
+    """Refuse what is not served on a mesh yet, naming it, and a mesh that
+    contradicts the config or the device asked for."""
+    if (serving.mesh_shape is not None
+            and tuple(serving.mesh_shape) != tuple(mesh.dims)):
+        raise ValueError(f"ServingConfig.mesh_shape {serving.mesh_shape} "
+                         f"but the mesh is {mesh.dims}")
+    if device is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device {device} but the mesh's rank is on "
+                         f"{mesh.device}")
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is not served on a mesh yet")
+    if cfg.attention.window is not None:
+        raise NotImplementedError(
+            "sliding-window attention is not served on a mesh yet")
+    if quant.quantized:
+        raise NotImplementedError(
+            "int8 KV pools (and their hot residents) are not served on a "
+            "mesh yet: their per-page scales take an amax over KV heads")

@@ -116,9 +116,14 @@ class LaneScheduler:
     """Admit/retire requests into a fixed set of decode lanes. Pending
     requests are arrival-ordered (FIFO among equal arrivals); lanes are
     recycled LIFO. A chunked admission holds its lane in the PREFILLING
-    state with a prompt cursor until its final chunk."""
+    state with a prompt cursor until its final chunk.
 
-    def __init__(self, max_lanes: int):
+    ``lane_order`` overrides the 0..L-1 assignment preference: the mesh
+    engine passes an order interleaved across its data shards, so light
+    traffic spreads over the data-parallel groups (host-side only)."""
+
+    def __init__(self, max_lanes: int,
+                 lane_order: Optional[Sequence[int]] = None):
         assert max_lanes >= 1
         self.max_lanes = max_lanes
         self._pending: List[Request] = []
@@ -132,7 +137,12 @@ class LaneScheduler:
         self._prefill_cursor: Dict[int, int] = {}
         self._prefill_target: Dict[int, int] = {}
         self._prefill_order: List[int] = []
-        self._free: List[int] = list(range(max_lanes - 1, -1, -1))
+        order = (list(range(max_lanes)) if lane_order is None
+                 else list(lane_order))
+        assert sorted(order) == list(range(max_lanes)), \
+            f"lane_order must permute 0..{max_lanes - 1}: {lane_order}"
+        # a stack: pop() assigns, so the preferred-first order is reversed
+        self._free: List[int] = order[::-1]
 
     def submit(self, req: Request) -> None:
         key = (float(req.arrival), self._seq)

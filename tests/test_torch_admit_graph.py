@@ -126,7 +126,8 @@ def test_lane_surgery_reads_no_value_on_the_host():
     kv.paged_write_tail(cache, lane, torch.zeros(6, 2, 8, device=META),
                         torch.zeros(6, 2, 8, device=META),
                         torch.zeros(6, dtype=torch.int32, device=META), 1,
-                        torch.ones((), dtype=torch.int32, device=META))
+                        torch.ones((), dtype=torch.int32, device=META),
+                        cache.page_table[1])
     kv.paged_reset_lane(cache, lane)
     kv.install_table_row(cache, lane, torch.zeros(4, dtype=torch.int32,
                                                   device=META))
@@ -275,7 +276,7 @@ def test_graft_equals_the_masked_graft(pool, row, h2o):
     before = {k: t.clone() for k, t in _fields(got).items()}
     req = _prefill_cache(16, 11, h2o, got.k_pool.dtype
                          if not got.quantized else torch.float32)
-    kv.paged_graft(got, req, torch.tensor(1), 13)
+    kv.paged_graft(got, req, torch.tensor(1), 13, got.page_table[1])
     _masked_graft(want, req, 1, 13)
     assert_bitwise(_fields(got), _fields(want))
     if row == "none":
@@ -300,7 +301,8 @@ def test_write_tail_equals_the_masked_write_tail(pool, row, start_page):
         k, v = k.to(got.k_pool.dtype), v.to(got.v_pool.dtype)
     pos = torch.arange(6, dtype=torch.int32) + start_page * PS
     count = start_page * PS + torch.tensor([5], dtype=torch.int32)[0]
-    kv.paged_write_tail(got, torch.tensor([1]), k, v, pos, start_page, count)
+    kv.paged_write_tail(got, torch.tensor([1]), k, v, pos, start_page, count,
+                        got.page_table[1])
     _masked_write_tail(want, 1, k, v, pos, start_page, count)
     assert_bitwise(_fields(got), _fields(want))
 

@@ -45,6 +45,7 @@ from repro_torch.core import kvcache as kv
 from repro_torch.core import selection as sel
 from repro_torch.kernels import aqua_prefill as pk
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import run_mesh_threads
 from repro_torch.serving.scheduler import LaneScheduler, Request
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -322,11 +323,24 @@ def test_dispatch_plan_reports_the_chunk_geometry_guard():
     assert plan.chunked_reasons == (dispatch.REASON_CHUNK_GEOMETRY,)
     plan, _ = _plan_pair(16, "aqua-block-sparse", 8, "paged", 1.0)
     assert plan.chunked_prefill and plan.chunked_reasons == ()
-    with pytest.raises(NotImplementedError):
-        dispatch.resolve_dispatch_plan(
+    # a plan on a real port mesh (refused before meshes were ported): the
+    # block-sparse kernels serve mesh-native with the chunk geometry kept,
+    # and AQUA off the reference decode keeps JAX's reason
+    def rank(mesh):
+        return [dispatch.resolve_dispatch_plan(
             attention=AttentionConfig(num_heads=4, num_kv_heads=2,
-                                      head_dim=32),
-            aqua=None, serving=ServingConfig(), mesh=object())
+                                      head_dim=32, backend=be),
+            aqua=aq, serving=ServingConfig(max_lanes=4, prompt_bucket=8,
+                                           prefill_budget_tokens=16),
+            mesh=mesh) for be, aq in (
+                ("aqua-block-sparse", AquaConfig(k_ratio=0.5, block_dims=8,
+                                                 prefill_q_blk=16)),
+                ("flash", None))]
+    for kernel, flash in run_mesh_threads((2, 2), rank, timeout=60):
+        assert kernel.mesh_native and kernel.reasons == ()
+        assert kernel.chunked_prefill
+        assert not flash.mesh_native
+        assert flash.reasons == (dispatch.REASON_REFERENCE_BACKEND,)
 
 
 # ---------------------------------------------------------------------------
@@ -399,10 +413,11 @@ def test_paged_write_tail_and_lane_pages_match_jax(kv_dtype, gran):
         pos = np.arange(start_page * ps, start_page * ps + t, dtype=np.int32)
         jc = jax_kv.paged_write_tail(jc, 0, jnp.asarray(kt), jnp.asarray(vt),
                                      jnp.asarray(pos), start_page, count)
-        kv.paged_write_tail(tc, 0, _t(kt), _t(vt), _t(pos), start_page, count)
+        kv.paged_write_tail(tc, 0, _t(kt), _t(vt), _t(pos), start_page, count,
+                            tc.page_table[0])
         _same(tc, jc, fields)
         for dtype, jdtype in ((None, None), (torch.bfloat16, jnp.bfloat16)):
-            got = kv.paged_lane_pages(tc, 0, dtype=dtype)
+            got = kv.paged_lane_pages(tc, tc.page_table[0], dtype=dtype)
             want = jax_kv.paged_lane_pages(jc, 0, dtype=jdtype)
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(_np(g.float() if dtype else g),

@@ -28,6 +28,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import (AquaConfig, CacheSpec, QuantSpec,
                                  ServingConfig, reduced)
 from repro_torch.core.calibration import AquaProjections
+from repro_torch.launch.mesh import run_mesh_threads
 from repro_torch.serving import ContinuousBatchingEngine, poisson_trace
 
 AQUA_KW = dict(k_ratio=0.75, block_dims=8, prefill_q_blk=16)
@@ -137,13 +138,28 @@ def test_engine_refuses_what_is_not_ported(models):
     assert eng.page_pool.prefix_hits == 2
     assert eng.page_pool.tokens_saved == 2 * 16
     _, _, _, tcfg, tparams, tproj = models
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(tcfg, tparams, tproj, device="cpu",
-                                 serving=ServingConfig(mesh_shape=(2, 2),
-                                                       **SERVE))
+    # a 2x2 mesh is served (it was refused before meshes were ported):
+    # ServingConfig(mesh_shape=(2, 2)) on four ranks (threads here), every
+    # rank's greedy tokens the JAX engine's
+    jcfg, params, jproj = models[:3]
+    mesh_serve = dict(SERVE, max_lanes=4)
+    want = JaxEngine(jcfg, params, jproj,
+                     serving=JaxServingConfig(**mesh_serve),
+                     backend="aqua-block-sparse").run(
+        jax_poisson_trace(6, **TRACE))
+
+    def rank(mesh):
+        eng = ContinuousBatchingEngine(
+            tcfg, params_from_numpy(tparams, "cpu", mesh=mesh), tproj,
+            mesh=mesh, backend="aqua-block-sparse",
+            serving=ServingConfig(mesh_shape=(2, 2), **mesh_serve))
+        assert eng.dispatch_plan().mesh_native
+        return {u: o.tokens for u, o in eng.run(
+            poisson_trace(6, **TRACE)).items()}
+    for got in run_mesh_threads((2, 2), rank, timeout=120):
+        assert got == {u: list(o.tokens) for u, o in want.items()}
     # int8 pools under H2O are served (they were refused before they were
     # ported): greedy tokens equal the JAX engine's on an evicting trace
-    jcfg, params, jproj = models[:3]
     h2o_trace = dict(TRACE, prompt_lens=(36, 44))
     want = JaxEngine(
         dataclasses.replace(jcfg, aqua=dataclasses.replace(

@@ -143,14 +143,14 @@ def test_resident_pool_trace_matches_jax(gran):
         jc = _set_row(jc, tc, lane, row)
         jreq, treq = _req(rng, n)
         jc = jax_kv.paged_graft(jc, jreq, jnp.int32(lane), n)
-        kv.paged_graft(tc, treq, torch.tensor(lane), n)
+        kv.paged_graft(tc, treq, torch.tensor(lane), n, tc.page_table[lane])
         _assert_same(tc, jc, f"graft {lane}")
     # lane 0 again, recycling its resident page 2 (demoted, then the new
     # freshest page 11 promoted)
     jc = _set_row(jc, tc, 0, [5, 0, 11, 2])
     jreq, treq = _req(rng, 11)
     jc = jax_kv.paged_graft(jc, jreq, jnp.int32(0), 11)
-    kv.paged_graft(tc, treq, 0, 11)
+    kv.paged_graft(tc, treq, 0, 11, tc.page_table[0])
     _assert_same(tc, jc, "regraft")
     assert (tc.hot_ids >= 0).all()
     evictions = 0
@@ -186,7 +186,7 @@ def test_resident_pool_trace_matches_jax(gran):
                                  jnp.int32(PS + 6))
     kv.paged_write_tail(tc, torch.tensor([1]), torch.from_numpy(k_tail),
                         torch.from_numpy(v_tail), torch.from_numpy(pos), 1,
-                        PS + 6)
+                        PS + 6, tc.page_table[1])
     _assert_same(tc, jc, "tail write")
     jc = jax_kv.paged_reset_lane(jc, jnp.int32(0))
     kv.paged_reset_lane(tc, 0)
@@ -203,7 +203,7 @@ def test_resident_pool_code_reads_no_value_on_the_host():
     lane = torch.ones(1, dtype=torch.int64, device=META)
     kv.install_table_row(tc, lane, torch.zeros(NPL, dtype=torch.int32,
                                                device=META))
-    kv.paged_graft(tc, req, lane, 13)
+    kv.paged_graft(tc, req, lane, 13, tc.page_table[1])
     slot, ev = kv.paged_select_slot(tc, window=4, h2o=True, recent_len=2)
     z = torch.zeros(B, KVH, D, device=META)
     kv.paged_insert(tc, slot, z, z, evict_page=ev,
@@ -211,10 +211,11 @@ def test_resident_pool_code_reads_no_value_on_the_host():
     t = torch.zeros(6, KVH, D, device=META)
     kv.paged_write_tail(tc, lane, t, t, torch.zeros(6, dtype=torch.int32,
                                                     device=META), 1,
-                        torch.ones(1, dtype=torch.int32, device=META))
+                        torch.ones(1, dtype=torch.int32, device=META),
+                        tc.page_table[1])
     kv.paged_reset_lane(tc, lane)
     assert kv.paged_lane_view(tc).k.device == META
-    assert kv.paged_lane_pages(tc, lane)[0].device == META
+    assert kv.paged_lane_pages(tc, tc.page_table[1])[0].device == META
 
 
 # ---------------------------------------------------------------------------

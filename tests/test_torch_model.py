@@ -190,7 +190,7 @@ def test_paged_graft_and_reset_match_jax():
     tpc.page_table.copy_(torch.from_numpy(table))
     tpc.pos_pool.fill_(5)       # a previous tenant's stale positions
     jp = jax_kv.paged_graft(jp, jreq, 0, 12)
-    kv.paged_graft(tpc, treq, 0, 12)
+    kv.paged_graft(tpc, treq, 0, 12, tpc.page_table[0])
     for name in ("k_pool", "v_pool", "pos_pool", "count"):
         np.testing.assert_array_equal(getattr(tpc, name).numpy(),
                                       np.asarray(getattr(jp, name)))

@@ -257,7 +257,7 @@ def test_sharer_tail_write_leaves_shared_pages_bitwise(kv_dtype):
                               jnp.asarray(v_t), jnp.asarray(pos),
                               jnp.int32(2), jnp.int32(14))
     kv.paged_write_tail(tc, 1, torch.from_numpy(k_t), torch.from_numpy(v_t),
-                        torch.from_numpy(pos), 2, 14)
+                        torch.from_numpy(pos), 2, 14, tc.page_table[1])
     after = _fields(tc)
     for name, t in shared.items():
         np.testing.assert_array_equal(after[name][[0, 1]], t, err_msg=name)
@@ -335,11 +335,11 @@ def test_prefill_with_prefix_matches_jax(models, kv_dtype):
                          aqua_proj=proj)
     for lane in (0, 1):
         kv.install_table_row(ts.layers, lane, torch.from_numpy(rows[lane]))
-    tm.graft_paged(ts, treq, 0, 32)
+    tm.graft_paged(ts, treq, 0, 32, torch.from_numpy(rows[0]))
     tlogits, _ = tm.prefill_with_prefix(
         tparams, {"tokens": torch.from_numpy(tail_pad),
                   "lengths": torch.tensor([13])}, ts, 1, PREFIX,
-        aqua_proj=proj, select_q_blk=None)
+        aqua_proj=proj, select_q_blk=None, row=torch.from_numpy(rows[1]))
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **TOL)
     for i in range(tcfg.num_layers):
         got = kv.paged_lane_view(ts.layers.layer(i))
@@ -375,7 +375,8 @@ def test_prefill_with_prefix_reads_no_value_on_the_host(models):
         params, {"tokens": torch.zeros(1, 16, dtype=torch.int32,
                                        device=META),
                  "lengths": torch.ones(1, dtype=torch.int32, device=META)},
-        state, 1, PREFIX, aqua_proj=tproj.p.to(META), select_q_blk=None)
+        state, 1, PREFIX, aqua_proj=tproj.p.to(META), select_q_blk=None,
+        row=state.layers.page_table[0, 1])
     assert logits.device == META and logits.shape == (1, tcfg.vocab_size)
 
 

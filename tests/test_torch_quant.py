@@ -128,7 +128,7 @@ def test_int8_graft_and_reset_match_jax(gran):
                         positions=torch.from_numpy(pos),
                         count=torch.tensor([9], dtype=torch.int32))
     jp = jax_kv.paged_graft(jp, jreq, 0, 12)
-    kv.paged_graft(tp, treq, 0, 12)
+    kv.paged_graft(tp, treq, 0, 12, tp.page_table[0])
     _assert_same(tp, jp, QUANT_FIELDS)
     # decode on, then retire lane 0 and lane 1
     for lane in (0, 1):

@@ -213,13 +213,56 @@ def test_cli_registry_model_with_synthetic_calibration(capsys):
 
 
 @pytest.mark.parametrize("extra,words", [
-    (["--mesh", "2x2"], "mesh serving is not ported yet"),
-    (["--expect-kernel-mesh"], "mesh serving is not ported yet"),
+    (["--mesh", "2x2", "--verify"],
+     "served the kernels on shard-local shapes of the mesh"),
+    ([], "EXPECT-KERNEL FAILED: engine did not plan the kernel-native mesh "
+         "path (backend='aqua-block-sparse' layout=contiguous); reasons: "
+         "no serving mesh installed"),
 ])
-def test_cli_refuses_what_the_engine_does_not_serve(extra, words):
-    with pytest.raises(SystemExit) as ei:
-        main(["--device", "cpu", "--reduced", "--block-dims", "8", *extra])
-    assert words in str(ei.value.code)
+def test_cli_refuses_what_the_engine_does_not_serve(ckpt, tmp_path, capsys,
+                                                    extra, words):
+    """What the launcher refused until meshes were ported. ``--mesh 2x2``
+    serves: the launcher spawns four ranks (real processes, CPU), the plan
+    is mesh-native with no kernel fallback and ``--verify`` holds every
+    token to the single-device engine, whose tokens, on the projections
+    the mesh drive calibrated, are the JAX engine's.
+    ``--expect-kernel-mesh`` without a mesh fails with the JAX launcher's
+    message."""
+    import subprocess
+    import sys
+    out, jcfg, jparams = ckpt
+    proj_path = str(tmp_path / "proj.npz")
+    argv = _argv(out, proj_path, "--expect-kernel-mesh", *extra)
+    if not extra:
+        with pytest.raises(SystemExit) as ei:
+            main(argv)
+        assert ei.value.code == 1
+        assert words in capsys.readouterr().out
+        return
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *argv], env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "mesh 2x2 (data, model) over 4 ranks, collectives over gloo" \
+        in proc.stdout
+    assert words in proc.stdout
+    assert (f"[serve] verify: all {TRACE['requests']} requests "
+            "token-identical to the single-device contiguous reference "
+            "engine") in proc.stdout
+    run = main(_argv(out, proj_path))
+    want = JaxEngine(dataclasses.replace(jcfg, aqua=JaxAquaConfig(**AQUA)),
+                     jparams, jax_load_projections(proj_path),
+                     serving=_jax_serving([], TRACE),
+                     backend="aqua-block-sparse").run(jax_poisson_trace(
+        TRACE["requests"], mean_interarrival=TRACE["mean_interarrival"],
+        prompt_lens=TRACE["prompt_lens"], max_new_tokens=TRACE["steps"],
+        vocab_size=jcfg.vocab_size, seed=0))
+    for uid, o in want.items():
+        assert run.streamed[uid] == list(o.tokens), uid
 
 
 # what the launcher refused until the engine served it: int8 pools under
