@@ -394,6 +394,32 @@ Phases, each of which raises (non-zero exit) on failure:
    mesh of the same ranks, whose step and admissions run as CUDA graphs,
    with exactly the path's launches on every rank, held to one device at
    LOGIT_RTOL.
+7c. This slice's drives on the same 2x2 mesh, in the same four ranks
+   (``MESH_POLICY_DRIVES``; the ``[serve_mesh NAME]`` lines and the
+   ``policies`` of the ``serve_mesh`` line): Qwen3-0.6B uncut on int8
+   pools (scales per page and KV head; mesh-native), with hot residents
+   (a quarter of the pool; decode on the masked-dense core and
+   ``REASON_QUANT_RESIDENCY`` recorded, as in JAX) and, depth cut to 8,
+   hierarchical int8 (page_keep_ratio 0.25); H2O-Danube-1.8B uncut with
+   its 4096-token window, max_seq 8192, prompts past the window (decode
+   on the wrapped ring, ``REASON_WINDOW``); OLMoE-1B-7B uncut, expert
+   parallel (32 experts a rank, ``w2`` on f, every decode step's 8 lanes
+   gathered and routed as one block); Pixtral-12B at full width, depth
+   cut to 10, 256 patch embeddings a request. 4 requests of 16 new
+   tokens, about 24 decode steps. The ranks take turns making the whole
+   model on the card from the single-device drives' seed and keep their
+   blocks; rank 0 calibrates. Every rank: JAX's plan and fallback
+   events, eager steps, exactly the path's launches, the same tokens as
+   every other rank, step and admission ms, peak memory. Rank 0: the
+   trace on one device with the kernels and with their plain versions
+   (the mesh's lane order), the mesh held to both by request at
+   LOGIT_RTOL (MoE: against the self-routed kernel drive a row up to its
+   first other route, the excluded rows counted; the plain drive replays
+   the mesh's routing, every row held), parted rows against a float32
+   forward, and the drive's kernels against their plain versions at the
+   rank's shapes with their planted faults (``mesh_shard_form``). The
+   int8 drive's fault: every rank's page scales swapped for its model
+   peer's after two admissions must break the limit.
 8. The ``{"kernels": [...]}`` line (the paged decode's and the prefill's
    phases at groups 1 and 3 and at the MoE geometry under
    ``group_geometries``, with the launches of those configs' drives;
@@ -1356,14 +1382,16 @@ def flash_window_phase(geom: str, h: int, kvh: int, d: int, gen,
 
 def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
                         part: bool, gen, s: int = 4096, len_range=None,
-                        form: str = None) -> dict:
+                        form: str = None, b: int = 8,
+                        granularity: str = "page_head") -> dict:
     """The paged decode over int8 pools (``quant``) and/or over the
-    participating pages of hierarchical AQUA (``part``), B=8 over a table of
-    ``s`` positions, lengths uniform in ``len_range`` (default: s/2 to s);
-    the served form (``form="served"``) takes the drives' contexts, where
-    lanes shorter than the kept pages walk pages past their tail (lane 0
-    then takes the longest context, so that it drops pages for the planted
-    page swap)."""
+    participating pages of hierarchical AQUA (``part``), B=``b`` (8) over a
+    table of ``s`` positions, lengths uniform in ``len_range`` (default:
+    s/2 to s); the served form (``form="served"``) takes the drives'
+    contexts, where lanes shorter than the kept pages walk pages past their
+    tail (lane 0 then takes the longest context, so that it drops pages for
+    the planted page swap). int8 scales per page and KV head
+    (``granularity`` "page_head") or one per page ("page")."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import SparsitySpec
@@ -1371,7 +1399,7 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
     from repro_torch.kernels import aqua_decode as dk
     from repro_torch.kernels.ops import round_k_dims
 
-    b, d, ps = 8, 128, 64
+    d, ps = 128, 64
     npl = s // ps
     lo, hi = len_range or (s // 2, s)
     dev, bf = "cuda", torch.bfloat16
@@ -1394,9 +1422,11 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
         return pool
     k_pool, v_pool = to_pool(k), to_pool(v)
     scales = dict(k_scale=None, v_scale=None)
-    if quant:                  # per-(page, kv head) symmetric int8
+    if quant:                  # per-(page, kv head) or per-page int8
         for name, pool in (("k", k_pool), ("v", v_pool)):
             sc = pool.float().abs().amax(dim=(2, 3)) / 127.0    # (P, KV)
+            if granularity == "page":
+                sc = sc.amax(dim=1, keepdim=True)               # (P, 1)
             q8 = torch.round(pool.float() / sc[:, :, None, None]).clamp(
                 -127, 127).to(torch.int8)
             scales[name + "_scale"] = sc.contiguous()
@@ -1449,10 +1479,10 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
     # contiguous (dequantized) view, masked-q̂ and masked positions
     kc = (k_pool[table.long()].float() if not quant else
           k_pool[table.long()].float()
-          * scales["k_scale"][table.long()][..., None, None])
+          * scales["k_scale"][table.long()][..., :, None, None])
     vc = (v_pool[table.long()].float() if not quant else
           v_pool[table.long()].float()
-          * scales["v_scale"][table.long()][..., None, None])
+          * scales["v_scale"][table.long()][..., :, None, None])
     kc = kc.transpose(1, 2).reshape(b, kvh, s, d).to(bf)
     vc = vc.transpose(1, 2).reshape(b, kvh, s, d).to(bf)
     sel = torch.zeros(b, h, d // BLOCK_DIMS, device=dev)
@@ -1478,7 +1508,8 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
         nbytes += 4 * part_idx.numel()
     if quant:
         pages_read = -(-rows // ps)
-        nbytes += 2 * 4 * kvh * float(pages_read.sum())
+        nbytes += 2 * 4 * scales["k_scale"].shape[1] * float(
+            pages_read.sum())
     ops = 2 * float(rows.sum()) * h * (nsel + d)
     bms, by = bound(nbytes, ops)
     route = dk.decode_route(bf, quant=quant, part=part, d=d, dv=d,
@@ -1497,7 +1528,9 @@ def paged_variant_phase(geom: str, h: int, kvh: int, quant: bool,
                            lengths=[lo, hi],
                            kept_pages=None if part_idx is None
                            else part_idx.shape[1],
-                           kv_dtype="int8" if quant else "bf16"),
+                           kv_dtype="int8" if quant else "bf16",
+                           scale_granularity=granularity if quant
+                           else None),
                 **check, **times, bound_ms=bms, bound_by=by,
                 read_bytes=read, **byte_rate(nbytes, times["ms"]))
 
@@ -2141,8 +2174,10 @@ def paged_serving():
 
 
 def drive_trace(n: int, vocab: int, prompts=(128, 512, 1024),
-                shared_prefix: int = 0, mcfg=None):
-    """The drives' Poisson trace: ``n`` requests, 32 new tokens each; with
+                shared_prefix: int = 0, mcfg=None, max_new: int = 32,
+                interarrival: float = 4.0):
+    """The drives' Poisson trace: ``n`` requests, ``max_new`` (32) new
+    tokens each, ``interarrival`` (4) decode steps apart on average; with
     ``shared_prefix``, every prompt behind one random prefix of that many
     tokens (drawn as the launcher's ``--shared-prefix-len`` draws it).
     A model config ``mcfg`` with a frontend gives each request its own
@@ -2151,8 +2186,9 @@ def drive_trace(n: int, vocab: int, prompts=(128, 512, 1024),
     import numpy as np
     from repro_torch.data.corpus import request_frontend_inputs
     from repro_torch.serving import poisson_trace
-    reqs = poisson_trace(n, mean_interarrival=4.0, prompt_lens=prompts,
-                         max_new_tokens=32, vocab_size=vocab, seed=0)
+    reqs = poisson_trace(n, mean_interarrival=interarrival,
+                         prompt_lens=prompts, max_new_tokens=max_new,
+                         vocab_size=vocab, seed=0)
     pre = np.random.default_rng(1).integers(0, vocab, size=(shared_prefix,),
                                             dtype=np.int32)
     for r in reqs:
@@ -2331,19 +2367,11 @@ def traced_drive(card: str) -> dict:
     return result
 
 
-def load_model(name: str, seed: int, dtype: str = "bfloat16",
-               calib_seq: int = 32, layers: int = None) -> tuple:
-    """A model at its published width and depth (``layers``: its depth
-    cut to that many layers) with AQUA (K_RATIO, BLOCK_DIMS), random
-    weights and activations of ``dtype`` from ``seed``, and projections
-    calibrated on ``calib_seq``-token windows of the corpus (with a
-    frontend's stub inputs): (config, params, projections)."""
-    import torch
+def drive_config(name: str, dtype: str = "bfloat16", layers: int = None):
+    """A registered config at its published width and depth (``layers``:
+    its depth cut to that many layers) in ``dtype``, with AQUA (K_RATIO,
+    BLOCK_DIMS) where it has attention."""
     from repro_torch.configs import AquaConfig, get_config
-    from repro_torch.core.calibration import calibrate, capture_forward
-    from repro_torch.data.corpus import calibration_batches
-    from repro_torch.models import build_model
-    from repro_torch.models.layers import with_unembedding
     mcfg = dataclasses.replace(get_config(name), dtype=dtype,
                                param_dtype=dtype)
     if layers is not None:
@@ -2351,13 +2379,31 @@ def load_model(name: str, seed: int, dtype: str = "bfloat16",
     if mcfg.attention is not None:
         mcfg = mcfg.with_aqua(AquaConfig(k_ratio=K_RATIO,
                                          block_dims=BLOCK_DIMS))
+    return mcfg
+
+
+def load_model(name: str, seed: int, dtype: str = "bfloat16",
+               calib_seq: int = 32, layers: int = None,
+               calibrate_proj: bool = True) -> tuple:
+    """A model at its published width and depth (``layers``: its depth
+    cut to that many layers) with AQUA (K_RATIO, BLOCK_DIMS), random
+    weights and activations of ``dtype`` from ``seed``, and projections
+    calibrated on ``calib_seq``-token windows of the corpus (with a
+    frontend's stub inputs; None without ``calibrate_proj``): (config,
+    params, projections)."""
+    import torch
+    from repro_torch.core.calibration import calibrate, capture_forward
+    from repro_torch.data.corpus import calibration_batches
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import with_unembedding
+    mcfg = drive_config(name, dtype, layers)
     model = build_model(mcfg)
     # the float32 unembedding made once, as the engines and the launcher
     # make it
     mparams = with_unembedding(
         model.init(torch.Generator(device="cuda").manual_seed(seed)),
         model.tied_unembedding)
-    if mcfg.aqua is None:
+    if mcfg.aqua is None or not calibrate_proj:
         return mcfg, mparams, None   # attention-free: nothing to calibrate
     mproj = calibrate(capture_forward(model), mparams, calibration_batches(
         mcfg.vocab_size, os.path.join(ROOT, "corpora", "calibration.txt"),
@@ -4128,6 +4174,7 @@ def parted_rows(mcfg, ref_eng, reqs, run, ref) -> list:
         # pads an admission
         batch = ref_eng._prefill_batch(np.concatenate(
             [np.asarray(r.tokens, np.int32), np.asarray(want[:j], np.int32)]))
+        batch.update(ref_eng._frontend_inputs(r))
         row = f32.prefill(ref_eng.params, batch, ref_eng.scfg.max_seq,
                           aqua_proj=ref_eng.proj)[0][0].float()
         limit = LOGIT_RTOL * row.abs().max().item()
@@ -4392,6 +4439,528 @@ def data_only_drive(mesh, mcfg, host, proj, serving, reqs, ref) -> dict:
     return out
 
 
+#: this slice's drives on the 2x2 mesh (module docstring, section 7c):
+#: (drive, config, weight seed, layers (None: uncut), lanes, prompt
+#: lengths, max_seq, KV dtype, hot-resident fraction, page_keep_ratio,
+#: calibration window). Qwen3-0.6B's weights are the single-device drives'
+#: (seed 0), Danube's (seed 1), OLMoE's (seed 4) and Pixtral's (seed 6)
+#: too; hierarchical int8 (a kernel form no other drive here launches) and
+#: Pixtral-12B run at a cut depth: Pixtral's four ranks' blocks, its
+#: whole weights on rank 0 for the single-device references and one
+#: rank's transient whole copy at placement would not fit the card at 40
+#: layers.
+MESH_POLICY_DRIVES = (
+    ("int8", "qwen3-0.6b", 0, None, 8, (128, 512, 1024), 2048, "int8", 0.0,
+     1.0, 32),
+    ("hot_int8", "qwen3-0.6b", 0, None, 8, (128, 512, 1024), 2048, "int8",
+     0.25, 1.0, 32),
+    ("hier_int8", "qwen3-0.6b", 0, 8, 8, (512, 1024), 2048, "int8", 0.0,
+     0.25, 32),
+    ("window", "h2o-danube-1.8b", 1, None, 4, (4160, 4480, 4800, 5120), 8192,
+     "bf16", 0.0, 1.0, 32),
+    ("moe", "olmoe-1b-7b", 4, None, 8, (121, 509, 1003), 2048, "bf16", 0.0,
+     1.0, 32),
+    ("vlm", "pixtral-12b", 6, 10, 4, (300, 700, 1000), 2048, "bf16", 0.0,
+     1.0, 320),
+)
+#: requests, new tokens each and mean arrival gap (decode steps) of a
+#: policy drive's trace: about 24 decode steps, 16 of them checked
+MESH_POLICY_REQUESTS, MESH_POLICY_NEW, MESH_POLICY_GAP = 4, 16, 2.0
+#: the policy drives whose single-device references replay the mesh's
+#: dim-block selections (``core.aqua.SelectionTape``) and, for the MoE,
+#: its routing (``models.moe.RoutingTape``): in bf16 at OLMoE's and
+#: Pixtral's width a rank's other reduction order ranks near-tied
+#: blocks of |q̂| (and near-tied experts) the other way in some layer and
+#: head of nearly every lane (OLMoE on the H100: 11 of 16 layers apart at
+#: a lane's first step; every admission routed apart), as Pixtral's two
+#: one-device drives part; the self-selecting kernel drive is reported
+#: beside
+MESH_POLICY_SELECTING = ("moe", "vlm")
+#: the kernel a policy drive launches once a layer a decode step (None:
+#: decode on the masked-dense core, as in JAX)
+MESH_POLICY_STEP_KERNEL = {
+    "int8": "aqua_paged_quant_decode", "hot_int8": None,
+    "hier_int8": "aqua_paged_part_quant_decode", "window": None,
+    "moe": "aqua_paged_decode", "vlm": "aqua_paged_decode"}
+
+
+def mesh_policy_plan(name: str) -> dict:
+    """The JAX package's plan of a policy drive on 2x2, as
+    ``tests/test_torch_mesh_policies.py`` and
+    ``tests/test_torch_mesh_families.py`` hold the port's to it: int8
+    pools without residents serve the kernels on shard-local shapes, hot
+    residents and the window keep decode on the reference core, with
+    JAX's reasons."""
+    from repro_torch.core import dispatch as d
+    native = dict(mesh_native=True, reasons=(), quantization="none",
+                  token_sparsity="none")
+    return dict(
+        int8=dict(native, quantization="int8"),
+        hot_int8=dict(native, mesh_native=False,
+                      reasons=(d.REASON_QUANT_RESIDENCY,),
+                      quantization="int8-mixed"),
+        hier_int8=dict(native, quantization="int8",
+                       token_sparsity="hierarchical"),
+        window=dict(native, mesh_native=False, reasons=(d.REASON_WINDOW,)),
+        moe=native, vlm=native)[name]
+
+
+def mesh_barrier(mesh) -> None:
+    """Every rank of the mesh reaches this point (an all-reduce over each
+    axis)."""
+    import torch
+    from repro_torch.distributed import collectives
+    collectives.all_reduce(torch.zeros(1, device=mesh.device), mesh,
+                           mesh.axes)
+
+
+def mesh_model(mesh, name: str, seed: int, layers, calib: int) -> tuple:
+    """A policy drive's model on this rank: the ranks take turns to make
+    the whole model on the card from ``seed`` (``load_model``'s weights,
+    the single-device drives' own), keep their blocks
+    (``bridge.params_from_numpy(mesh=)``) and free the whole, so the card
+    holds one whole copy at a time; rank 0 calibrates the projections on
+    it and every rank takes rank 0's (``collectives.from_rank0``): (config,
+    the rank's params, projections)."""
+    import gc
+    import torch
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.core.calibration import AquaProjections
+    from repro_torch.distributed import collectives
+    from repro_torch.models.layers import UNEMBED_F32
+    mcfg = drive_config(name, layers=layers)
+    a = mcfg.attention
+    mine, p = None, torch.zeros(mcfg.num_layers, a.num_kv_heads, a.head_dim,
+                                a.head_dim, device=mesh.device)
+    for turn in range(mesh.size):
+        mesh_barrier(mesh)
+        if mesh.rank != turn:
+            continue
+        _, whole, proj = load_model(name, seed, calib_seq=calib,
+                                    layers=layers,
+                                    calibrate_proj=mesh.rank == 0)
+        whole.pop(UNEMBED_F32)
+        mine = params_from_numpy(whole, mesh.device, mesh=mesh)
+        if proj is not None:
+            p = proj.p
+        del whole, proj
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh_barrier(mesh)
+    return mcfg, mine, AquaProjections(p=collectives.from_rank0(p, mesh))
+
+
+def scale_swap_fault(mesh, mcfg, mine, proj, serving, reqs) -> dict:
+    """The planted fault of the int8 drive: two of its requests, both
+    arriving at once with 4 new tokens, served twice on the mesh: clean,
+    and with every rank's page scales (``k_scale``, ``v_scale``) swapped
+    for its model peer's once both are admitted. Rank 0 holds the faulty
+    decode steps' logits of both lanes to the clean drive's at LOGIT_RTOL:
+    the worst row must break the limit."""
+    from repro_torch.distributed import collectives
+    from repro_torch.serving import ContinuousBatchingEngine
+    rs = [dataclasses.replace(r, arrival=0.0, max_new_tokens=4)
+          for r in reqs[:2]]
+    uids = {r.uid for r in rs}
+
+    def drive(swap: bool) -> list:
+        eng = ContinuousBatchingEngine(mcfg, mine, proj, serving=serving,
+                                       mesh=mesh)
+        steps, admitted = [], 0
+        for ev in eng.serve([dataclasses.replace(r) for r in rs]):
+            if ev.index == 0:
+                admitted += 1
+                if swap and admitted == len(rs):
+                    st, m = eng.last_state.layers, mesh.axis_index("model")
+                    n = st.k_scale.shape[0]
+                    for t in (st.k_scale, st.v_scale):
+                        both = collectives.all_gather(t, mesh, "model",
+                                                      dim=0)
+                        t.copy_(both[(1 - m) * n:(2 - m) * n])
+            elif eng.stats.decode_steps > len(steps):
+                logits = collectives.all_gather(eng.last_step_logits, mesh,
+                                                mesh.data_axes)
+                # the two requests' lanes (the last step retires both)
+                lanes = [i for i, u in enumerate(eng.last_lanes.uid)
+                         if int(u) in uids]
+                steps.append(logits[lanes].float().clone())
+        del eng
+        return steps
+    clean, faulty = drive(False), drive(True)
+    assert len(clean) == len(faulty) > 0
+    worst = max(((f - c).abs().amax(dim=-1)
+                 / (LOGIT_RTOL * c.abs().amax(dim=-1))).max().item()
+                for f, c in zip(faulty, clean))
+    assert worst > 1.0, f"the swapped page scales passed the limit: {worst}"
+    return dict(kind="int8 page scales swapped across the model axis",
+                decode_steps=len(clean), worst_err_over_limit=worst)
+
+
+def policy_shard_kernels(name: str, eng, prompts) -> list:
+    """The kernels of a policy drive's path at the shard-local shapes its
+    2x2 engine ``eng`` gives them, each against its plain version with its
+    planted faults: the int8 paged decode (4 lanes, 8 heads over 4 KV
+    heads) with scales per page and KV head and with one per page; the
+    int8 decode over participating pages; the prefill's window form at a
+    Danube rank's 16 heads over 4 KV heads of 80 dims; the paged decode
+    and the prefill at an OLMoE rank's 8 heads over 8 KV heads (group 1)
+    and a Pixtral rank's 16 over 4, the admissions bucket-padded."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    a = eng.model.cfg.attention
+    h, kvh, b = a.num_heads, a.num_kv_heads, eng._local_lanes
+    geom = f"mesh_2x2_{name}_rank_{h}h_{kvh}kv"
+    ctx = (min(prompts) + 1, max(prompts) + MESH_POLICY_NEW)
+    s = eng.scfg.max_seq
+    if name == "int8":
+        return [paged_variant_phase(geom, h, kvh, True, False, gen, s=s,
+                                    len_range=ctx, form="mesh_shard", b=b,
+                                    granularity=g)
+                for g in ("page_head", "page")]
+    if name == "hier_int8":
+        return [paged_variant_phase(geom, h, kvh, True, True, gen, s=s,
+                                    len_range=ctx, form="mesh_shard", b=b)]
+    if name == "window":
+        return [dict(prefill_window_phase(geom, h, kvh, a.head_dim, gen,
+                                          s=max(prompts),
+                                          window=a.window),
+                     form="mesh_shard_window")]
+    if name in ("moe", "vlm"):
+        longest = eng._padded_prompt_len(max(prompts))
+        return [decode_phase(geom, h, kvh, True, gen, s=s, len_range=ctx,
+                             form="mesh_shard", d=a.head_dim, b=b),
+                prefill_phase(geom, h, kvh, gen, s=longest,
+                              form="mesh_shard", d=a.head_dim,
+                              pad=longest - max(prompts))]
+    return []
+
+
+def copied_tape(tape, mcfg, router, lanes: int, rows: int, warmup: bool):
+    """A ``RoutingTape`` over ``router`` (a single-device model's stacked
+    router) holding ``tape``'s recording, to replay it call for call.
+    ``warmup``: the replaying engine captures its step graph in the serve,
+    after one eager warm-up step, which takes the first decode call: the
+    recording's decode calls move one call on."""
+    from repro_torch.models import moe
+    out = moe.RoutingTape(mcfg, router, lanes, rows)
+    for d in (True, False):
+        skip = mcfg.num_layers if d and warmup else 0
+        for name in ("topi", "kept", "n"):
+            dst, src = getattr(out, name)[d], getattr(tape, name)[d]
+            dst[skip:].copy_(src[:src.shape[0] - skip])
+    return out
+
+
+def selection_tape(mcfg, lanes: int, heads: int):
+    """A ``SelectionTape`` on the card sized for ``lanes`` x ``heads``
+    decode rows (and a prefill's every head and tile)."""
+    from repro_torch.core.aqua import SelectionTape
+    return SelectionTape("cuda", slots=(8192, 1024),
+                         numel=(lanes * heads * 16, 4096))
+
+
+def gathered_selections(tape, mesh, lanes: int, heads: int, nsel: int):
+    """A mesh rank's recorded selections (``tape``: its heads and lanes)
+    put together into one device's, call for call, on rank 0 (None on
+    the others): {stream: [each call's indices, flat, every head (and,
+    decode, every lane) in one device's order]}. Every rank made the same
+    calls; the heads are gathered over ``model``, a decode call's lanes
+    over the data axes."""
+    import torch
+    from repro_torch.distributed import collectives
+    parts = {}
+    for c, stream in enumerate(tape.STREAMS):
+        calls = min(int(tape.calls[c]), tape.buf[stream].shape[0])
+        buf = tape.buf[stream][:calls].to(torch.int32).contiguous()
+        n = tape.n[stream][:calls, None].contiguous()
+        axes = ("model",) + (mesh.data_axes if stream == "decode" else ())
+        for axis in axes:
+            buf = collectives.all_gather(buf, mesh, axis, dim=1)
+            n = collectives.all_gather(n, mesh, axis, dim=1)
+        parts[stream] = (buf.cpu(), n.cpu())
+    if mesh.rank != 0:
+        return None
+    m, d = mesh.axis_size("model"), mesh.data_size()
+    out = {}
+    for stream, (buf, n) in parts.items():
+        ranks = m * (d if stream == "decode" else 1)
+        width = buf.shape[1] // ranks
+        rows = []
+        for row, counts in zip(buf, n):
+            blocks = [row[r * width:r * width + int(counts[r])]
+                      for r in range(ranks)]
+            if stream == "decode":        # (lanes, heads, nsel) a rank
+                per = [torch.cat([b.view(lanes, heads, nsel)
+                                  for b in blocks[i * m:(i + 1) * m]], 1)
+                       for i in range(d)]
+                rows.append(torch.cat(per, 0).reshape(-1))
+            else:                         # (1, heads, tiles, nsel) a rank
+                rows.append(torch.cat([b.view(1, heads, -1, nsel)
+                                       for b in blocks], 1).reshape(-1))
+        out[stream] = rows
+    return out
+
+
+def replayed_selections(mcfg, lanes: int, calls: dict, warmup: bool):
+    """A ``SelectionTape`` installed to replay ``calls``
+    (``gathered_selections``) on one device of ``lanes`` lanes. ``warmup``:
+    the engine captures its step graph after one eager warm-up step,
+    which takes the first decode call of each layer: the recording's
+    decode calls move on by a step."""
+    t = selection_tape(mcfg, lanes, mcfg.attention.num_heads)
+    for stream, rows in calls.items():
+        first = mcfg.num_layers if stream == "decode" and warmup else 0
+        for i, flat in enumerate(rows):
+            t.buf[stream][first + i, :flat.numel()] = flat.to(
+                t.buf[stream].device)
+    t.install("replay")
+    return t
+
+
+def policy_references(spec, mcfg, proj, serving, reqs, run, lane_order,
+                      tape, sel) -> dict:
+    """Rank 0's references of a policy drive: the whole weights made
+    again from the seed, the trace served on one device (the mesh
+    engine's lane order, so that an MoE's decode blocks hold the same
+    lanes in the same order) with the kernels and with their plain
+    versions, the mesh's logits held to both by request at LOGIT_RTOL.
+    ``sel`` (``MESH_POLICY_SELECTING``): the mesh's selections put
+    together (``gathered_selections``); both references replay them and
+    an MoE's routing (``tape``), so that they part from the mesh only by
+    rounding, and a third, self-selecting (and self-routed) kernel drive
+    is reported beside, a row compared up to its first other route or
+    selection (the excluded rows counted). Each request whose tokens part
+    from the single-device kernel drive's is shown against a
+    float32-activation forward at the parting token (``parted_rows``)."""
+    import gc
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.serving import ContinuousBatchingEngine
+    name, arch, seed, layers = spec[:4]
+    calib = spec[-1]
+    _, whole, _ = load_model(arch, seed, calib_seq=calib, layers=layers,
+                             calibrate_proj=False)
+    routed = mcfg.family == "moe"
+    heads = mcfg.attention.num_heads
+    drives, keep = {}, []
+    kinds = [("aqua-block-sparse", sel is not None),
+             ("aqua-block-sparse-plain", sel is not None)]
+    if sel is not None:
+        kinds.append(("aqua-block-sparse", False))
+    for backend, replay in kinds:
+        e = ContinuousBatchingEngine(mcfg, whole, proj, serving=serving,
+                                     backend=backend)
+        e._lane_order = list(lane_order) if lane_order else None
+        rt = st = None
+        if routed:
+            router = whole["layers"]["ffn"]["router"]
+            if replay:
+                rt = copied_tape(tape, mcfg, router, serving.max_lanes,
+                                 serving.max_seq, e.uses_graphs)
+                rt.install("replay")
+            else:
+                rt = moe.RoutingTape(mcfg, router, serving.max_lanes,
+                                     serving.max_seq)
+                rt.install("record")
+        if sel is not None:
+            if replay:
+                st = replayed_selections(mcfg, serving.max_lanes, sel,
+                                         e.uses_graphs)
+            else:
+                st = selection_tape(mcfg, serving.max_lanes, heads)
+                st.install("record")
+        reset_counts()
+        r = serve_drive(e, [dataclasses.replace(q) for q in reqs], tape=rt)
+        for t in (rt, st):
+            if t is not None:
+                t.remove()
+        if st is not None:
+            assert not st.overflowed
+            r["selections"] = decode_selections(st, mcfg, e,
+                                                serving.max_lanes, heads)
+        r["launches"] = launch_counts()
+        r["step_graph"] = e.step_graph is not None
+        drives[(backend, replay)] = (r, e)
+        keep.append((rt, st))           # the engines' graphs write them
+    key = (lambda b: (b, sel is not None))
+    ref, ref_eng = drives[key("aqua-block-sparse")]
+    plain = drives[key("aqua-block-sparse-plain")][0]
+    assert sum(plain["launches"].values()) == 0, plain["launches"]
+    held = dict(by_uid=True, routed=False if routed else None)
+    out = dict(
+        reference=dict(tokens_per_s=ref["tokens_per_s"],
+                       decode_step_ms=ref["decode_step_ms"],
+                       admit_ms=ref["admit_ms"],
+                       step_graph=ref["step_graph"],
+                       replays_mesh_selections=sel is not None,
+                       replays_mesh_routing=routed),
+        vs_single_device=compare_logits(run, ref, MESH_POLICY_NEW, **held),
+        vs_single_device_plain=compare_logits(run, plain, MESH_POLICY_NEW,
+                                              **held),
+        single_device_kernel_vs_plain=compare_logits(
+            ref, plain, MESH_POLICY_NEW, check=False, **held),
+        parted_rows=parted_rows(mcfg, ref_eng, reqs, run, ref))
+    assert all(out[k]["decode_rows_compared"] > 0 for k in (
+        "vs_single_device", "vs_single_device_plain")), out
+    if sel is not None:
+        own = drives[("aqua-block-sparse", False)][0]
+        mesh_sel = torch.stack(sel["decode"][:DECODE_STEPS_CHECKED
+                                             * mcfg.num_layers]).view(
+            DECODE_STEPS_CHECKED, mcfg.num_layers, serving.max_lanes,
+            heads, -1)
+        out["vs_single_device_self_selecting"] = compare_logits(
+            run, own, MESH_POLICY_NEW, check=False, by_uid=True,
+            routed=routed,
+            selections=(mesh_sel, own["selections"].cpu()))
+        if routed:
+            out["single_device_drops"] = routing_drops(own, reqs, mcfg)
+    del drives, keep, ref_eng, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def policy_mesh_drive(mesh, spec) -> dict:
+    """One drive of section 7c on this rank (``MESH_POLICY_DRIVES``): its
+    model's blocks (``mesh_model``), a 2x2 engine on 64-token pages whose
+    plan must be JAX's (``mesh_policy_plan``) and whose steps are eager,
+    the trace (``MESH_POLICY_REQUESTS`` requests of ``MESH_POLICY_NEW``
+    tokens, a frontend's own stub inputs each) with the counters zeroed
+    just before and read just after: the prefill once a layer an
+    admission (every data rank writes the pool), the drive's decode
+    kernel once a layer a step
+    (``MESH_POLICY_STEP_KERNEL``), nothing else; the fallback events JAX
+    records (hot residents: ``REASON_QUANT_RESIDENCY``). An MoE drive
+    records its routing on this rank's ``RoutingTape`` (every lane of a
+    step routed as one block). Rank 0 then holds the mesh to the
+    single-device engines (``policy_references``) and the drive's kernels
+    to their plain versions at the rank's shapes
+    (``policy_shard_kernels``); the int8 drive plants its fault
+    (``scale_swap_fault``) on every rank."""
+    import gc
+    import torch
+    from repro_torch.configs import (CacheSpec, QuantSpec, ServingConfig,
+                                     SparsitySpec)
+    from repro_torch.distributed import collectives
+    from repro_torch.models import moe
+    from repro_torch.serving import ContinuousBatchingEngine
+    (name, arch, seed, layers, lanes, prompts, max_seq, kv, hot, keep,
+     calib) = spec
+    t0 = time.perf_counter()
+    mcfg, mine, proj = mesh_model(mesh, arch, seed, layers, calib)
+    setup_s = time.perf_counter() - t0
+    serving = ServingConfig(
+        max_lanes=lanes, max_seq=max_seq, max_new_tokens=MESH_POLICY_NEW,
+        cache=CacheSpec(page_size=64, prefix_sharing=False),
+        quant=QuantSpec(kv_dtype=kv, hot_resident_fraction=hot),
+        sparsity=SparsitySpec(page_keep_ratio=keep) if keep < 1.0 else None)
+    reqs = drive_trace(MESH_POLICY_REQUESTS, mcfg.vocab_size, prompts,
+                       mcfg=mcfg, max_new=MESH_POLICY_NEW,
+                       interarrival=MESH_POLICY_GAP)
+    eng = ContinuousBatchingEngine(mcfg, mine, proj, serving=serving,
+                                   mesh=mesh)
+    plan = eng.dispatch_plan()
+    got = dict(mesh_native=plan.mesh_native, reasons=plan.reasons,
+               quantization=plan.quantization,
+               token_sparsity=plan.token_sparsity)
+    assert got == mesh_policy_plan(name), (name, got)
+    assert eng.step_graph is None and not eng.uses_graphs
+    tape = None
+    if mcfg.family == "moe":
+        tape = moe.RoutingTape(mcfg, eng.params["layers"]["ffn"]["router"],
+                               lanes, max_seq, mesh=mesh)
+        tape.install("record")
+    a = eng.model.cfg.attention
+    stape = None
+    if name in MESH_POLICY_SELECTING:
+        stape = selection_tape(mcfg, eng._local_lanes, a.num_heads)
+        stape.install("record")
+
+    def gather(t):
+        return collectives.all_gather(t, mesh, mesh.data_axes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = serve_drive(eng, [dataclasses.replace(r) for r in reqs],
+                      tape=tape, gather=gather)
+    launches = launch_counts()
+    if tape is not None:
+        tape.remove()
+    sel = None
+    if stape is not None:
+        # every call's selections, every lane's and head's, as one device
+        # makes them (on rank 0)
+        stape.remove()
+        assert not stape.overflowed
+        sel = gathered_selections(
+            stape, mesh, eng._local_lanes, a.num_heads,
+            mcfg.aqua.topk_dims(a.head_dim) // mcfg.aqua.block_dims)
+    want = dict.fromkeys(KERNELS, 0)
+    want["aqua_prefill"] = mcfg.num_layers * run["admissions"]
+    if MESH_POLICY_STEP_KERNEL[name] is not None:
+        want[MESH_POLICY_STEP_KERNEL[name]] = \
+            mcfg.num_layers * run["decode_steps"]
+    assert launches == want, (name, mesh.rank, launches, want)
+    events = eng.mesh_fallback_events()
+    want_events = (((plan.backend, "decode", plan.reasons[0]),)
+                   if name == "hot_int8" else ())
+    assert events == want_events, (name, events)
+    layout = eng.layout
+    out = dict(
+        setup_s=setup_s, layers=mcfg.num_layers,
+        layers_cut_from=None if layers is None else drive_config(
+            arch).num_layers,
+        plan=dict(got, backend=plan.backend, layout=plan.cache_layout),
+        fallback_events=[list(e) for e in events],
+        tokens={str(u): t for u, t in run["tokens"].items()},
+        launches=launches, launches_expected=want,
+        admissions=run["admissions"], decode_steps=run["decode_steps"],
+        decode_step_ms=run["decode_step_ms"], admit_ms=run["admit_ms"],
+        tokens_per_s=run["tokens_per_s"], wall_s=run["wall_s"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        rank_kv_cache_bytes=eng.rank_cache_bytes(),
+        kv_cache_bytes=eng.cache_bytes(),
+        rank_param_bytes=sum(t.numel() * t.element_size()
+                             for t in _leaves(eng.params)),
+        rank_heads=[eng.model.cfg.attention.num_heads,
+                    eng.model.cfg.attention.num_kv_heads],
+        local_lanes=eng._local_lanes)
+    if eng.hot_pages:
+        out.update(hot_pages=run["hot_pages"],
+                   resident_promotions_seen=run["resident_promotions_seen"],
+                   residents_at_end=run["residents_at_end"],
+                   hot_ids=eng.last_state.layers.hot_ids[0].tolist())
+    if tape is not None:
+        out.update(experts=layout.experts, expert_block=layout.expert_block,
+                   w2_rows=layout.w2_rows, router_cols=layout.router_cols,
+                   route_totals=run["route_totals"],
+                   drops=routing_drops(run, reqs, mcfg))
+    lane_order = eng._lane_order
+    if mesh.rank == 0:
+        out["shard_kernels"] = policy_shard_kernels(name, eng, prompts)
+        bad = [p["name"] for p in out["shard_kernels"] if not p["ok"]]
+        assert not bad, f"{name}: at the rank's shapes {bad} disagree " \
+            f"with their plain versions: {out['shard_kernels']}"
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if name == "int8":
+        fault = scale_swap_fault(mesh, mcfg, mine, proj, serving, reqs)
+        if mesh.rank == 0:
+            out["fault"] = fault
+    del mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        out.update(policy_references(spec, mcfg, proj, serving, reqs, run,
+                                     lane_order, tape, sel))
+    del run, tape, stape
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_barrier(mesh)
+    return out
+
+
 def mesh_rank_main(out_dir: str) -> None:
     """One rank of the mesh phase (spawned by ``mesh_phase``): its mesh
     from the environment (gloo: the ranks share the card), both drives,
@@ -4406,6 +4975,13 @@ def mesh_rank_main(out_dir: str) -> None:
                   device=str(mesh.device), mesh=mesh.describe())
     for dtype in ("float32", "bfloat16"):
         report[dtype] = mesh_drive(mesh, dtype)
+    report["policies"] = {}
+    for spec in MESH_POLICY_DRIVES:
+        t0 = time.perf_counter()
+        report["policies"][spec[0]] = policy_mesh_drive(mesh, spec)
+        if mesh.rank == 0:
+            print(f"[mesh {spec[0]}] {time.perf_counter() - t0:.1f} s",
+                  flush=True)
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
         json.dump(report, f)
 
@@ -4467,6 +5043,60 @@ def mesh_phase(card: str) -> dict:
                         rank_kv_cache_bytes=d["rank_kv_cache_bytes"],
                         rank_param_bytes=d["rank_param_bytes"])
                    for rep, d in zip(reports, drives)])
+    out["policies"] = {}
+    for spec in MESH_POLICY_DRIVES:
+        name = spec[0]
+        drives = [rep["policies"][name] for rep in reports]
+        assert all(d["tokens"] == drives[0]["tokens"] for d in drives), \
+            f"{name}: the ranks' tokens differ"
+        assert all(d["launches"] == d["launches_expected"] for d in drives)
+        first = drives[0]
+        out["policies"][name] = dict(
+            config=spec[1], layers=first["layers"],
+            layers_cut_from=first["layers_cut_from"], lanes=spec[4],
+            prompts=list(spec[5]), max_seq=spec[6], kv_dtype=spec[7],
+            hot_resident_fraction=spec[8], page_keep_ratio=spec[9],
+            plan=first["plan"], fallback_events=first["fallback_events"],
+            **{k: first[k] for k in (
+                "vs_single_device", "vs_single_device_plain", "parted_rows",
+                "reference", "shard_kernels", "admissions", "decode_steps",
+                "kv_cache_bytes", "rank_heads", "local_lanes", "setup_s")},
+            **{k: first[k] for k in (
+                "single_device_kernel_vs_plain",
+                "vs_single_device_self_selecting", "fault", "hot_pages",
+                "resident_promotions_seen", "residents_at_end", "experts",
+                "expert_block", "w2_rows", "router_cols", "drops",
+                "single_device_drops")
+               if k in first},
+            tokens_per_s_rank0=first["tokens_per_s"],
+            ranks=[dict(rank=rep["rank"], coord=rep["coord"],
+                        launches=d["launches"],
+                        decode_step_ms=d["decode_step_ms"],
+                        admit_ms=d["admit_ms"],
+                        peak_memory_bytes=d["peak_memory_bytes"],
+                        rank_kv_cache_bytes=d["rank_kv_cache_bytes"],
+                        rank_param_bytes=d["rank_param_bytes"],
+                        **({"hot_ids": d["hot_ids"]} if "hot_ids" in d
+                           else {}))
+                   for rep, d in zip(reports, drives)])
+        if "hot_ids" in first:
+            assert all(d["hot_ids"] == first["hot_ids"] for d in drives), \
+                f"{name}: the ranks hold other residents"
+        vs = first["vs_single_device"]
+        log(f"[serve_mesh {name}] {spec[1]} {first['layers']} layers"
+            + ("" if first["layers_cut_from"] is None else
+               f" (depth cut from {first['layers_cut_from']})")
+            + f" on 2x2: plan {first['plan']}, fallbacks "
+            f"{first['fallback_events']}, launches a rank "
+            f"{first['launches']}; against one device (kernels): "
+            f"{vs['admissions_compared']} admissions (worst "
+            f"{vs['admit_worst_err_over_limit']:.3f} of the limit), "
+            f"{vs['decode_rows_compared']} decode rows (worst "
+            f"{vs['decode_worst_err_over_limit']:.3f}), greedy token match "
+            f"{vs['greedy_token_match']:.3f}; step ms by rank "
+            f"{[round(d['decode_step_ms'], 2) for d in drives]}, admission "
+            f"ms {[round(d['admit_ms'], 2) for d in drives]}, peak bytes "
+            f"{[d['peak_memory_bytes'] for d in drives]} on {card}")
     data = [rep["bfloat16"]["data_only"] for rep in reports]
     assert all(d["tokens"] == data[0]["tokens"] for d in data), \
         "data-only mesh: the ranks' tokens differ"
@@ -4862,6 +5492,22 @@ def main() -> int:
                     mesh[dtype]["shard_kernels"][k["name"]])
         k["launches_by_path"]["mesh_4x1_bfloat16_rank0"] = \
             mesh["data_only_bfloat16"]["ranks"][0]["launches"][k["name"]]
+        # this slice's policy and family drives on 2x2, and the kernels at
+        # their ranks' shapes, each with its drive's launches
+        for drive, res in mesh["policies"].items():
+            launched = res["ranks"][0]["launches"][k["name"]]
+            k["launches_by_path"][f"mesh_2x2_{drive}_rank0"] = launched
+            for p in res["shard_kernels"]:
+                if p["name"] != k["name"]:
+                    continue
+                assert launched > 0, (drive, k["name"])
+                k.setdefault("mesh_shard_form", []).append(dict(
+                    drive=drive, geometry=p["geometry"], form=p["form"],
+                    shape=p["shape"], launches=launched,
+                    max_abs_err=p["max_abs_err"], ms=p["ms"],
+                    plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+                    bound_by=p["bound_by"], library_ms=p["library_ms"],
+                    fault_tol_ratios=p["fault_tol_ratios"]))
     assert sorted(k["name"] for k in kernels) == sorted(KERNELS)
     log_time("done")
     log(card)                      # name, power.limit as nvidia-smi prints

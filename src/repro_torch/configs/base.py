@@ -365,10 +365,10 @@ class ServingConfig:
     ``mesh_shape`` over ``mesh_axes`` (data x model, or pod x data x
     model) serves on a mesh: decode lanes over the data axes, params and
     the KV cache over ``model`` by ``distributed.sharding``'s rules, one
-    rank per position (``launch.mesh``). The dense family is served there
-    with full-precision caches and no sliding window; int8 pools, hot
-    residents, windows and the other families are still refused on a mesh
-    (``NotImplementedError`` from the engine)."""
+    rank per position (``launch.mesh``). The ``dense``, ``moe`` and
+    ``vlm`` families are served there under every cache policy; the
+    ``encdec``, ``ssm`` and ``hybrid`` families are still refused on a
+    mesh (``NotImplementedError`` from the engine)."""
 
     max_lanes: int = 8
     max_seq: int = 4096

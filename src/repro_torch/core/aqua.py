@@ -150,7 +150,9 @@ class SelectionTape:
     call counters live on the device and every write is in place, so CUDA
     graphs captured while a tape is installed record and replay too
     (calls past the last slot share it: ``overflowed``); the tape must
-    outlive such graphs."""
+    outlive such graphs. ``n[stream]`` holds each recorded call's index
+    count (its selection's numel), so a recording made on a mesh rank's
+    heads and lanes can be put together into one device's."""
 
     STREAMS = ("decode", "prefill")
 
@@ -158,6 +160,9 @@ class SelectionTape:
         dev = torch.device(device)
         self.buf = {s: torch.zeros(n, m, dtype=torch.int16, device=dev)
                     for s, n, m in zip(self.STREAMS, slots, numel)}
+        # each slot's call's index count (its shape's numel)
+        self.n = {s: torch.zeros(n, dtype=torch.int64, device=dev)
+                  for s, n in zip(self.STREAMS, slots)}
         self.calls = torch.zeros(2, dtype=torch.int64, device=dev)
         self.mode = "record"
         self._device = dev
@@ -194,6 +199,7 @@ class SelectionTape:
             tape.index_copy_(0, slot, F.pad(
                 block_idx.reshape(1, n).to(torch.int16),
                 (0, tape.shape[1] - n)))
+            self.n[stream].index_fill_(0, slot, n)
         else:
             block_idx = tape.index_select(0, slot)[0, :n].reshape(
                 block_idx.shape).to(block_idx.dtype)

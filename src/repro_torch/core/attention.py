@@ -87,7 +87,8 @@ from repro_torch.core import aqua as aqua_lib
 from repro_torch.core import h2o as h2o_lib
 from repro_torch.core import kvcache as kv
 from repro_torch.core import selection
-from repro_torch.core.dispatch import REASON_NONDIVISIBLE_MESH
+from repro_torch.core.dispatch import (REASON_NONDIVISIBLE_MESH,
+                                       REASON_QUANT_RESIDENCY)
 from repro_torch.distributed import sharding as dsh
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.aqua_decode import (aqua_decode_attention,
@@ -853,7 +854,7 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
         slot, evict = kv.paged_select_slot(cache, window=window, h2o=h2o,
                                            recent_len=recent, tp=tp)
         kv.paged_insert(cache, slot, k_t, v_t, write_mask=write_mask,
-                        evict_page=evict)
+                        evict_page=evict, tp=tp)
     else:
         kv.insert(cache, kv.select_slot(cache, window=window, h2o=h2o,
                                         recent_len=recent, tp=tp),
@@ -864,11 +865,15 @@ def decode_attention(params: dict, x_t: torch.Tensor, cache,
     if (token_sparsity is not None and
             (not full_cache or token_sparsity[0] >= cache.pages_per_lane)):
         token_sparsity = None                  # every page participates
-    # hot residents live only in the dequantized lane view: the int8
-    # kernel reads the raw pages (JAX's REASON_QUANT_RESIDENCY)
-    residents = paged and cache.has_residents
-    kernel = (backend.aqua_native and full_cache and not residents
+    kernel = (backend.aqua_native and full_cache
               and _whole_blocks(aqua, cfg.head_dim))
+    if kernel and paged and cache.has_residents:
+        # hot residents live only in the dequantized lane view: the int8
+        # kernel reads the raw pages (on a mesh recorded, as in JAX)
+        if tp is not None:
+            log_mesh_fallback(tp, backend.name, "decode",
+                              REASON_QUANT_RESIDENCY)
+        kernel = False
     if kernel and tp is not None and tp.decode_kernel_reason is not None:
         log_mesh_fallback(tp, backend.name, "decode",
                           tp.decode_kernel_reason)

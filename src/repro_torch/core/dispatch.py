@@ -13,10 +13,9 @@ attention kernels serve on shard-local shapes, else the reasons, among
 them ``REASON_NONDIVISIBLE_MESH`` (a decode batch the data axes do not
 divide) and ``REASON_PAGE_GEOMETRY`` (pages off the kernel's 8-token
 blocks). Which meshes the engine serves at all is the engine's to say:
-int8 pools, hot residents, sliding windows and families other than
-``dense`` are still refused there. "Kernel" here means the port's CUDA
-kernels where the JAX package says Pallas; the reason strings keep the
-reference's wording.
+the ``encdec``, ``ssm`` and ``hybrid`` families are still refused there.
+"Kernel" here means the port's CUDA kernels where the JAX package says
+Pallas; the reason strings keep the reference's wording.
 """
 from __future__ import annotations
 

@@ -388,10 +388,12 @@ def quantize_tokens(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.clamp(-QUANT_MAX, QUANT_MAX).to(torch.int8)
 
 
-def _page_scales(tok: torch.Tensor, ps: int, sh: int) -> torch.Tensor:
+def _page_scales(tok: torch.Tensor, ps: int, sh: int,
+                 tp=None) -> torch.Tensor:
     """Per-page scales for (T, KV, D) tokens laid out from a page boundary
     -> (ceil(T / ps), SH); the partial last page pads with zeros (which
-    never grow the amax)."""
+    never grow the amax). ``tp``: on a mesh, one scale per page (SH 1,
+    ``tp.max_heads``) takes its amax over every rank's KV heads."""
     t, kvh, d = tok.shape
     npg = -(-t // ps)
     x = torch.nn.functional.pad(tok.float().abs(), (0, 0, 0, 0, 0,
@@ -399,12 +401,15 @@ def _page_scales(tok: torch.Tensor, ps: int, sh: int) -> torch.Tensor:
     amax = x.reshape(npg, ps, kvh, d).amax(dim=(1, 3))      # (NPG, KV)
     if sh == 1:
         amax = amax.amax(dim=-1, keepdim=True)
+        if tp is not None:
+            amax = tp.max_heads(amax)
     return amax / QUANT_MAX
 
 
 def _insert_quant_token(pool: torch.Tensor, scale: torch.Tensor,
                         phys: torch.Tensor, off: torch.Tensor,
-                        x_new: torch.Tensor, any_ok: torch.Tensor) -> None:
+                        x_new: torch.Tensor, any_ok: torch.Tensor,
+                        tp=None) -> None:
     """Quantized single-token insert with a per-page *running* scale, in
     place: grow each page's scale to cover the new token's amax,
     requantizing the page's stored ints when it grows, then write the
@@ -413,11 +418,15 @@ def _insert_quant_token(pool: torch.Tensor, scale: torch.Tensor,
     not write repeats a writing row's page requantization and token write
     (same page, same values). With no writing row (``any_ok`` False) the
     scales stay, the ratio is exactly 1 and every row rewrites its slot,
-    so the pool keeps its ints bit for bit."""
+    so the pool keeps its ints bit for bit. ``tp``: as
+    :func:`_page_scales`' (every rank of ``model`` then grows the page by
+    the same ratio)."""
     x = x_new.float()                                    # (B, KV, D)
     amax = x.abs().amax(dim=-1)                          # (B, KV)
     if scale.shape[1] == 1:
         amax = amax.amax(dim=-1, keepdim=True)           # (B, 1)
+        if tp is not None:
+            amax = tp.max_heads(amax)
     s_old = scale[phys]                                  # (B, SH)
     s_cand = torch.where(any_ok, torch.maximum(s_old, amax / QUANT_MAX),
                          s_old)
@@ -582,8 +591,8 @@ def _stand_in_values(ok, donor, any_ok, new: torch.Tensor,
 def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor,
                  write_mask: Optional[torch.Tensor] = None,
-                 evict_page: Optional[torch.Tensor] = None
-                 ) -> PagedAttnCache:
+                 evict_page: Optional[torch.Tensor] = None,
+                 tp=None) -> PagedAttnCache:
     """Write one token's k/v at logical ``slot`` through the page table, in
     place (quantized with the page's running scale for int8 pools, and
     written through to the page's full-precision copy where it is a hot
@@ -592,7 +601,12 @@ def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
     their count. ``evict_page`` (B,) (page-granular H2O, -1 = none): the
     victim logical page's positions, scores and, for int8 pools, scales
     are cleared first (and the page is demoted from residency), so its
-    other slots read as empty from the next step on."""
+    other slots read as empty from the next step on.
+
+    ``tp``: this rank's mesh layout: one scale per page grows by the amax
+    over every rank's heads; where lanes split over the data axes and the
+    pool keeps residents, every data rank's victims are demoted on every
+    rank (the resident set is pool-wide, as in JAX)."""
     b = cache.page_table.shape[0]
     ps = cache.page_size
     rows = torch.arange(b, device=slot.device)
@@ -605,8 +619,12 @@ def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
         ev_ok = (evict_page >= 0) & (ev >= 0)
         if write_mask is not None:
             ev_ok &= write_mask
-        _clear_pages(cache, torch.where(ev_ok, ev.long(),
-                                        torch.full_like(ev.long(), -1)))
+        victims = torch.where(ev_ok, ev.long(),
+                              torch.full_like(ev.long(), -1))
+        _clear_pages(cache, victims)
+        if cache.has_residents and tp is not None and tp.lanes is not None:
+            every = tp.gather_lanes(victims)
+            _demote_residents(cache.hot_ids, every.clamp(min=0), every >= 0)
     (phys, off), donor, any_ok = _stand_in(
         ok, entry.long().clamp(min=0), (slot % ps).long())
     if cache.quantized:
@@ -614,7 +632,7 @@ def paged_insert(cache: PagedAttnCache, slot: torch.Tensor,
                                  (cache.v_pool, cache.v_scale, v_new)):
             donated = torch.where(ok[:, None, None], new,
                                   new.index_select(0, donor))
-            _insert_quant_token(pool, scale, phys, off, donated, any_ok)
+            _insert_quant_token(pool, scale, phys, off, donated, any_ok, tp)
         if cache.has_residents:
             _write_through(cache, phys, off, ok, k_new, v_new)
     else:
@@ -656,17 +674,23 @@ def paged_accumulate_h2o(cache: PagedAttnCache, attn_weights: torch.Tensor,
     ``acc_pool`` through the page table, in place. Rows masked off and
     unmapped pages add exactly 0 (to page 0); no two lanes share a page
     under H2O (no prefix sharing), so every other address is written once
-    and the sum is order-free. ``tp``: as :func:`accumulate_h2o`'s."""
-    b, npl = cache.page_table.shape
+    and the sum is order-free. ``tp``: as :func:`accumulate_h2o`'s; where
+    lanes split over the data axes and the pool keeps residents (whose
+    promotion reads the pool-wide mass), every lane's update lands on
+    every data rank's replica, as in JAX's one pool."""
+    table = cache.page_table
     ps = cache.page_size
     upd = attn_weights.float().sum(dim=2)                 # (B, KV, S_log)
     if tp is not None:
         upd = tp.sum_groups(upd)
-    mapped = (cache.page_table >= 0).repeat_interleave(ps, dim=1)
+    mapped = (table >= 0).repeat_interleave(ps, dim=1)
     if write_mask is not None:
         mapped = mapped & write_mask[:, None]
     upd = torch.where(mapped[:, None, :], upd, torch.zeros_like(upd))
-    phys = cache.page_table.long().clamp(min=0).repeat_interleave(ps, dim=1)
+    if cache.has_residents and tp is not None and tp.lanes is not None:
+        upd, table = tp.gather_lanes(upd), tp.gather_lanes(table)
+    npl = table.shape[1]
+    phys = table.long().clamp(min=0).repeat_interleave(ps, dim=1)
     off = torch.arange(ps, device=phys.device).repeat(npl)
     kvi = torch.arange(upd.shape[1], device=phys.device)
     cache.acc_pool.index_put_(
@@ -732,7 +756,7 @@ def _clear_pages(cache: PagedAttnCache, tbl: torch.Tensor) -> None:
 def _write_tokens(cache: PagedAttnCache, tbl: torch.Tensor, start_page: int,
                   k_tok: torch.Tensor, v_tok: torch.Tensor,
                   positions: torch.Tensor,
-                  acc: Optional[torch.Tensor] = None) -> None:
+                  acc: Optional[torch.Tensor] = None, tp=None) -> None:
     """Write T tokens (k (T, KV, Dk), v (T, KV, Dv), positions (T,), and
     an H2O prefill's scores ``acc`` (T, KV)) to logical slots
     ``start_page * page_size + arange(T)`` of the lane whose table row is
@@ -755,7 +779,7 @@ def _write_tokens(cache: PagedAttnCache, tbl: torch.Tensor, start_page: int,
     if cache.quantized:
         for pool, scale, tok in ((cache.k_pool, cache.k_scale, k_tok),
                                  (cache.v_pool, cache.v_scale, v_tok)):
-            pg = _page_scales(tok, ps, scale.shape[1])      # (NPG, SH)
+            pg = _page_scales(tok, ps, scale.shape[1], tp)  # (NPG, SH)
             pg_tbl = tbl[start_page:start_page + pg.shape[0]]
             pg_ok = pg_tbl >= 0
             (pg_phys,), pg_donor, pg_any = _stand_in(pg_ok,
@@ -774,19 +798,23 @@ def _write_tokens(cache: PagedAttnCache, tbl: torch.Tensor, start_page: int,
 
 
 def _promote(cache: PagedAttnCache, req: AttnCache, tbl: torch.Tensor,
-             num_slots: int) -> None:
+             num_slots: int, tp=None) -> None:
     """The graft's precision policy, in place: the lane's freshest page
     (logical page ``(num_slots - 1) // page_size``, which eviction
     protects as recent) becomes a hot resident in place of the resident
     with the least summed ``acc_pool`` mass (a free slot first; the first
     index among ties, as ``jnp.argmin``), with the grafted tokens of that
     page, zero-padded, as its full-precision copy. An unmapped page
-    promotes nothing (every write rewrites what its address holds)."""
+    promotes nothing (every write rewrites what its address holds).
+    ``tp``: on a mesh the mass sums every rank's KV heads, so every rank
+    picks the same slot (the page itself is the same on every rank)."""
     ps = cache.page_size
     lp = (num_slots - 1) // ps
     new_page = tbl[lp:lp + 1]                                # (1,)
     hot_ids = cache.hot_ids
     mass = cache.acc_pool[hot_ids.long().clamp(min=0)].sum(dim=(1, 2))
+    if tp is not None:
+        mass = tp.sum_heads(mass)
     mass = torch.where(hot_ids >= 0, mass, torch.full_like(mass,
                                                            -float("inf")))
     vslot = torch.argmin(mass).reshape(1)
@@ -802,7 +830,7 @@ def _promote(cache: PagedAttnCache, req: AttnCache, tbl: torch.Tensor,
 
 
 def paged_graft(cache: PagedAttnCache, req: AttnCache, lane,
-                num_slots: int, row: torch.Tensor) -> PagedAttnCache:
+                num_slots: int, row: torch.Tensor, tp=None) -> PagedAttnCache:
     """Copy logical slots [0, num_slots) of a B=1 contiguous cache (an
     admission prefill) into the pages that ``row`` (NP,), the lane's
     page-table row, maps, in place, and set ``lane``'s count. Every page
@@ -817,16 +845,17 @@ def paged_graft(cache: PagedAttnCache, req: AttnCache, lane,
     cache's device, or None: no count is set (a mesh rank that holds a
     replica of the pool but not the lane). ``row`` is a device tensor;
     nothing is read on the host (an admission graph captures this), and
-    when no page is mapped the pool stays as it was, bit for bit."""
+    when no page is mapped the pool stays as it was, bit for bit. ``tp``:
+    this rank's mesh layout (:func:`_page_scales`, :func:`_promote`)."""
     tbl = row.long()
     _clear_pages(cache, tbl)
     if cache.has_residents:
-        _promote(cache, req, tbl, num_slots)
+        _promote(cache, req, tbl, num_slots, tp)
     _write_tokens(cache, tbl, 0, req.k[0][:, :num_slots].transpose(0, 1),
                   req.v[0][:, :num_slots].transpose(0, 1),
                   req.positions[0, :num_slots],
                   None if req.acc_score is None
-                  else req.acc_score[0][:, :num_slots].transpose(0, 1))
+                  else req.acc_score[0][:, :num_slots].transpose(0, 1), tp)
     if lane is not None:
         _set_lane(cache.count, lane_index(lane, cache.count.device),
                   req.count[:1])
@@ -836,7 +865,7 @@ def paged_graft(cache: PagedAttnCache, req: AttnCache, lane,
 def paged_write_tail(cache: PagedAttnCache, lane, k_tail: torch.Tensor,
                      v_tail: torch.Tensor, positions: torch.Tensor,
                      start_page: int, new_count,
-                     row: torch.Tensor) -> PagedAttnCache:
+                     row: torch.Tensor, tp=None) -> PagedAttnCache:
     """Write a prefill chunk's k (T, KV, Dk) / v (T, KV, Dv) / positions
     (T,) into the pages that ``row`` (NP,), the lane's page-table row,
     maps, from the page-aligned logical page ``start_page``, in place, and
@@ -847,14 +876,14 @@ def paged_write_tail(cache: PagedAttnCache, lane, k_tail: torch.Tensor,
     included, as in JAX); pages below ``start_page`` keep theirs. Rows
     whose page is unmapped are dropped. ``lane`` and ``new_count`` are
     Python ints or device tensors, ``lane`` None as :func:`paged_graft`'s;
-    nothing is read on the host."""
+    nothing is read on the host. ``tp``: as :func:`paged_graft`'s."""
     tbl = row.long()                                         # (NP,)
     from_start = torch.arange(tbl.shape[0], device=tbl.device) >= start_page
     _clear_pages(cache, torch.where(from_start, tbl,
                                     torch.full_like(tbl, -1)))
     t = min(k_tail.shape[0], cache.num_slots - start_page * cache.page_size)
     _write_tokens(cache, tbl, start_page, k_tail[:t], v_tail[:t],
-                  positions[:t])
+                  positions[:t], tp=tp)
     if lane is not None:
         _set_lane(cache.count, lane_index(lane, cache.count.device),
                   new_count)

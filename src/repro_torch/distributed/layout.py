@@ -1,9 +1,11 @@
-"""One rank's tensor-parallel layout of a dense model on a serving mesh.
+"""One rank's tensor-parallel layout of a transformer on a serving mesh.
 
 GSPMD derives the collectives of a sharded program from the shardings of
 its operands; the port names each one. :class:`MeshLayout` reads the
-``param_pspec`` of every weight the dense family's serving path touches
-and keeps what this rank holds and what it must exchange over ``model``:
+``param_pspec`` of every weight the serving path of the ``dense``,
+``moe`` and ``vlm`` families touches and keeps what this rank holds and
+what it must exchange over ``model`` (and, for MoE routing, over the
+data axes):
 
 * ``heads``: what ``wq`` shards, "kv" (KV heads, and their query groups
   with them), "group" (the query groups, where the KV heads do not
@@ -18,10 +20,38 @@ and keeps what this rank holds and what it must exchange over ``model``:
   d_model (look up, all-gather the columns); ``unembed_rows`` /
   ``unembed_cols`` the same for the unembedding matrix (local logits
   all-gathered in vocab order, or partial logits all-reduced);
+* ``patch_cols`` (``vlm``): ``patch_proj`` (1024 -> d_model) falls to the
+  generic rule and shards its output dim; the projected patches are
+  all-gathered over ``model`` before the splice;
 * the cross-head sums GSPMD would all-reduce silently: H2O's victim
-  scores and hierarchical page ranking sum over KV heads
-  (:meth:`sum_heads`), H2O's accumulated mass over query heads
-  (:meth:`sum_groups`).
+  scores, hierarchical page ranking and hot residents' promotion mass sum
+  over KV heads (:meth:`sum_heads`), H2O's accumulated mass over query
+  heads (:meth:`sum_groups`);
+* int8 pools: with ``scale_granularity="page_head"`` each page's scales
+  shard with its KV heads (``k_scale``/``v_scale`` (P, KV)), so the
+  per-page amax never leaves the rank: no collective. With ``"page"``
+  (one scale per page, SH 1, replicated; ``scale_per_page``) the page
+  amax of an admission and the running scale of a decode insert span KV
+  heads on other ranks: :meth:`max_heads` takes the max over ``model``
+  (all-reduce, op max), so every rank grows, and requantizes, the same
+  pages by the same ratio;
+* ``moe``: the router (d, E) shards E (``router_cols``): the local
+  logits are all-gathered over ``model`` before the softmax and top-k
+  (:meth:`router_logits`), so every rank routes alike. The experts
+  (``experts``) are "ep" where ``model`` divides E (``w1``/``w3`` (E, d,
+  f) shard E, ``expert_block``), "ff" where it does not (they shard f),
+  or None. ``w2`` (E, f, d) shards f (``w2_rows``) whenever f divides,
+  even under "ep": then the rank's experts' hidden ``h`` is all-gathered
+  over ``model`` along E and its f-block multiplies the rank's ``w2``
+  block. The expert outputs (and the shared experts' MLP, ordinary
+  tensor parallelism: ``shared_tp``) are partial sums, all-reduced over
+  ``model`` in one call. ``shared_gate`` (d, 1) is replicated.
+  A decode step routes every lane as one block (``capacity`` and a
+  token's slot depend on the block), so where lanes split over the data
+  axes (``lanes``, set by the engine) the lanes' hidden states are
+  all-gathered over ``pod`` x ``data`` in global lane order
+  (:meth:`gather_lanes`), the block routed whole, and the rank keeps its
+  rows; admissions (one row) need no data exchange.
 
 It also carries the serving engine's per-engine fallback record
 (``fallback_sink``, see ``core.attention.log_mesh_fallback``) and whether
@@ -84,12 +114,21 @@ class MeshLayout:
     embed_cols: Optional[Tuple[int, int]]
     unembed_rows: Optional[Tuple[int, int]]
     unembed_cols: Optional[Tuple[int, int]]
+    patch_cols: bool = False
+    router_cols: Optional[Tuple[int, int]] = None
+    experts: Optional[str] = None
+    expert_block: Optional[Tuple[int, int]] = None
+    w2_rows: Optional[Tuple[int, int]] = None
+    shared_tp: bool = False
+    lanes: Optional[Tuple[int, int]] = None
+    scale_per_page: bool = False
     decode_kernel_reason: Optional[str] = None
     fallback_sink: set = dataclasses.field(default_factory=set)
 
     @classmethod
     def build(cls, cfg, mesh) -> "MeshLayout":
-        """The layout of a dense ``cfg`` (a global config) on ``mesh``."""
+        """The layout of a ``dense``, ``moe`` or ``vlm`` ``cfg`` (a global
+        config) on ``mesh``."""
         shapes = param_shapes(cfg)
         specs = spec_tree(shapes, mesh)
         attn = specs["layers"]["attn"]
@@ -108,14 +147,30 @@ class MeshLayout:
             block = _block(spec, shape, mesh)
             if block is not None:
                 rows_or_cols[2 * i + (_sharded_dim(spec) == -1)] = block
+        ffn, ffn_shapes = specs["layers"]["ffn"], shapes["layers"]["ffn"]
+        moe = {}
+        if cfg.family == "moe":
+            w1 = ffn["w1"]                               # (L, E, d, f)
+            moe = dict(
+                router_cols=_block(ffn["router"], ffn_shapes["router"].shape,
+                                   mesh),
+                experts=("ep" if w1[-3] is not None else
+                         "ff" if w1[-1] is not None else None),
+                expert_block=(_block(w1, ffn_shapes["w1"].shape, mesh)
+                              if w1[-3] is not None else None),
+                w2_rows=_block(ffn["w2"], ffn_shapes["w2"].shape, mesh),
+                shared_tp="shared" in ffn and any(
+                    s is not None for s in ffn["shared"]["w2"]))
         return cls(mesh=mesh, shapes=shapes, specs=specs, heads=heads,
                    gather_kv=attn["wk"][-1] is not None,
                    reduce_attn=any(s is not None for s in attn["wo"]),
-                   reduce_ffn=any(s is not None
-                                  for s in specs["layers"]["ffn"]["w2"]),
+                   reduce_ffn=any(s is not None for s in ffn["w2"]),
                    embed_rows=rows_or_cols[0], embed_cols=rows_or_cols[1],
                    unembed_rows=rows_or_cols[2],
-                   unembed_cols=rows_or_cols[3])
+                   unembed_cols=rows_or_cols[3],
+                   patch_cols="patch_proj" in specs and any(
+                       s is not None for s in specs["patch_proj"]["w"]),
+                   **moe)
 
     # -- what this rank holds ------------------------------------------
     @property
@@ -191,6 +246,16 @@ class MeshLayout:
         whole: KV heads shard over ``model``."""
         return self.reduce(x) if self.heads == "kv" else x
 
+    def max_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """A max over KV heads made whole where an int8 page has one scale
+        (``scale_per_page``, set by the engine for granularity "page") and
+        KV heads shard over ``model`` (a rank's one KV head of
+        "page_head" keeps its own scale)."""
+        if self.heads != "kv" or not self.scale_per_page:
+            return x
+        return collectives.all_reduce(x.contiguous(), self.mesh, "model",
+                                      op="max")
+
     def sum_groups(self, x: torch.Tensor) -> torch.Tensor:
         """A sum over the query heads of a KV head (H2O's accumulated mass)
         made whole: query groups shard over ``model``."""
@@ -220,3 +285,21 @@ class MeshLayout:
         if self.unembed_rows is not None:
             logits = self.gather(logits, -1)
         return logits
+
+    def patches(self, pe: torch.Tensor) -> torch.Tensor:
+        """Projected patches (..., d_model / model) -> (..., d_model)."""
+        return self.gather(pe, -1) if self.patch_cols else pe
+
+    # -- MoE ---------------------------------------------------------------
+    def router_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The rank's experts' router logits (..., E / model) -> every
+        expert's (..., E), in expert order."""
+        return self.gather(logits, -1) if self.router_cols is not None \
+            else logits
+
+    def gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
+        """A decode step's rows of this rank's lanes (B / data, ...) ->
+        every lane's (B, ...) in global lane order (``lanes`` set: lanes
+        split over the data axes)."""
+        return collectives.all_gather(x, self.mesh, self.mesh.data_axes,
+                                      dim=0)

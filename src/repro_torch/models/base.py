@@ -13,6 +13,9 @@ from repro_torch.core.kvcache import lane_index
 from repro_torch.models.layers import cross_entropy
 from repro_torch.runtime import resolve_device, torch_dtype
 
+#: the families served on a mesh (their decode state is the slot cache)
+MESH_FAMILIES = ("dense", "moe", "vlm")
+
 
 @dataclass
 class DecodeState:
@@ -119,8 +122,9 @@ class LM:
     def enable_mesh(self, layout) -> None:
         """Serve as one rank of a mesh: ``layout`` is the rank's
         ``distributed.layout.MeshLayout`` (the model's config must hold the
-        rank's heads: ``layout.local_config``). Dense family only."""
-        if self.cfg.family != "dense":
+        rank's heads: ``layout.local_config``). The ``dense``, ``moe`` and
+        ``vlm`` families; ``encdec``, ``ssm`` and ``hybrid`` raise."""
+        if self.cfg.family not in MESH_FAMILIES:
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not served on a mesh yet")
         self.tp = layout

@@ -11,6 +11,15 @@ choice. Everything is static in shape and reads no tensor on the host
 (``topk_indices``, comparisons against ``arange``, ``cumsum``), so the
 serving engine's CUDA graphs capture it. The einsums are plain products,
 as in JAX, where no Pallas kernel computes them.
+
+On a serving mesh (``tp``, a ``distributed.layout.MeshLayout``) the
+rank holds its blocks of the router and the experts, and
+:func:`moe_ffn` runs the collectives the layout names: the router
+logits all-gathered over ``model`` (every rank routes alike), the
+expert-parallel hidden states all-gathered along E where ``w2`` shards
+f, the expert and shared outputs' partial sums all-reduced; a decode
+step's lanes are gathered over the data axes and routed as one global
+block, as one device routes them.
 """
 from __future__ import annotations
 
@@ -24,15 +33,17 @@ from repro_torch.models import layers as L
 
 BLOCK = 128  # tokens per dispatch block
 
-# Routing tapes by device (``RoutingTape.install``)
-_TAPES: Dict[torch.device, "RoutingTape"] = {}
+# Routing tapes by device and mesh rank (``RoutingTape.install``)
+_TAPES: Dict[tuple, "RoutingTape"] = {}
 
 
-def _key(device) -> torch.device:
+def _key(device, mesh=None) -> tuple:
+    """A tape's key: its device, and the rank where a mesh installs it
+    (ranks that are threads of one process share a device)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return device
+    return device, None if mesh is None else mesh.rank
 
 
 class RoutingTape:
@@ -49,11 +60,15 @@ class RoutingTape:
     every write is in place, so CUDA graphs captured while a tape is
     installed record and replay too (calls past the tape's length share
     its last slot); the tape must outlive such graphs. ``router``: the
-    model's stacked (L, d, E) router, by which a call finds its layer."""
+    model's stacked (L, d, E) router, by which a call finds its layer (a
+    mesh rank's block of it: (L, d, E / model)). ``mesh``: the rank whose
+    calls the tape takes (None: one device); ``lanes`` counts every lane
+    of the decode batch, which a mesh routes as one block."""
 
     def __init__(self, cfg, router: torch.Tensor, lanes: int, rows: int,
-                 calls: int = 1024, admissions: int = 64):
+                 calls: int = 1024, admissions: int = 64, mesh=None):
         self.layers, self.lanes, self.rows = cfg.num_layers, lanes, rows
+        self._mesh = mesh
         self.num_experts, self.top_k = cfg.moe.num_experts, cfg.moe.top_k
         self._router = router
         dev = router.device
@@ -77,10 +92,10 @@ class RoutingTape:
         assert mode in ("record", "replay"), mode
         self.mode = mode
         self.calls.zero_()
-        _TAPES[_key(self._router.device)] = self
+        _TAPES[_key(self._router.device, self._mesh)] = self
 
     def remove(self) -> None:
-        _TAPES.pop(_key(self._router.device), None)
+        _TAPES.pop(_key(self._router.device, self._mesh), None)
 
     def latest(self, decode: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         """(top-k experts (L, n, K) int64, kept (L, n, K) bool) of the
@@ -201,13 +216,23 @@ def blocked_dispatch(gates: torch.Tensor, top_k: int, cap: int
     return _place(gates, topi, torch.ones_like(topi, dtype=torch.bool), cap)
 
 
-def moe_ffn(cfg, p: dict, x: torch.Tensor
+def moe_ffn(cfg, p: dict, x: torch.Tensor, tp=None, decode: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, M) -> (y (B, S, M), load-balance aux loss). The B·S tokens
     are routed in blocks of min(BLOCK, B·S), the last zero-padded: a
     decode step routes its lanes (idle ones too) as one block, an
-    admission its bucket-padded rows (pad rows too)."""
+    admission its bucket-padded rows (pad rows too).
+
+    ``tp``: this rank's mesh layout (``p`` the rank's blocks; see the
+    module docstring). ``decode``: ``x`` holds a decode step's lanes, one
+    row each; where they split over the data axes (``tp.lanes``) every
+    lane is gathered and routed in one block, and the rank's rows come
+    back."""
     m = cfg.moe
+    lanes = None
+    if tp is not None and decode and tp.lanes is not None:
+        lanes = tp.lanes
+        x = tp.gather_lanes(x)
     b, s, dm = x.shape
     n = b * s
     g = min(BLOCK, n)
@@ -217,23 +242,51 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor
         xf = F.pad(xf, (0, 0, 0, pad))
     t = xf.shape[0] // g
     xb = xf.reshape(t, g, dm)
-    gates = torch.softmax(xb.float() @ p["router"].float(), dim=-1)
-    tape = _TAPES.get(x.device)
+    logits = xb.float() @ p["router"].float()
+    if tp is not None:
+        logits = tp.router_logits(logits)
+    gates = torch.softmax(logits, dim=-1)
+    tape = _TAPES.get(_key(x.device, None if tp is None else tp.mesh))
     if tape is None:
         dispatch, combine, aux = blocked_dispatch(gates, m.top_k,
                                                   capacity(cfg, g))
     else:
         dispatch, combine, aux = tape.route(p["router"], gates, m.top_k,
                                             capacity(cfg, g))
+    ep = tp is not None and tp.expert_block is not None
+    if ep:
+        # the rank's experts' capacity buffers only
+        lo, ne = tp.expert_block
+        dispatch = dispatch[:, :, lo:lo + ne]
     ein = torch.einsum("tgec,tgm->tecm", dispatch.to(x.dtype), xb)
     h = F.silu(torch.einsum("tecm,emf->tecf", ein, p["w1"].to(x.dtype)))
     h = h * torch.einsum("tecm,emf->tecf", ein, p["w3"].to(x.dtype))
-    eout = torch.einsum("tecf,efm->tecm", h, p["w2"].to(x.dtype))
+    w2 = p["w2"]
+    if ep and tp.w2_rows is not None:
+        # w2 shards f: every expert's h, the rank's block of f
+        lo_f, nf = tp.w2_rows
+        h = tp.gather(h, 1)[..., lo_f:lo_f + nf]
+    elif ep:
+        combine = combine[:, :, lo:lo + ne]
+        w2 = w2[lo:lo + ne]
+    eout = torch.einsum("tecf,efm->tecm", h, w2.to(x.dtype))
     y = torch.einsum("tgec,tecm->tgm", combine.to(x.dtype), eout)
     y = y.reshape(-1, dm)[:n]
+    # partial sums over model: the rank's experts (EP) or w2's f block
+    # (expert-ff TP, or EP with w2 on f), and the shared MLP's
+    # row-parallel w2
+    partial = ep or (tp is not None and tp.w2_rows is not None)
     if m.num_shared > 0:
         g_sh = torch.sigmoid(xf[:n] @ p["shared_gate"].to(x.dtype))
-        y = y + g_sh * L.mlp(p["shared"], xf[:n], "silu")
-    return y.reshape(b, s, dm), aux
-
-
+        sh = g_sh * L.mlp(p["shared"], xf[:n], "silu")
+        if tp is not None and tp.shared_tp != partial:
+            sh = tp.reduce(sh) if tp.shared_tp else sh
+            y = tp.reduce(y) if partial else y
+            partial = False
+        y = y + sh
+    if partial:
+        y = tp.reduce(y)
+    y = y.reshape(b, s, dm)
+    if lanes is not None:
+        y = y[lanes[0]:lanes[0] + lanes[1]]
+    return y, aux

@@ -85,12 +85,13 @@ def _stack_layers(make, n: int):
     return out
 
 
-def ffn_apply(cfg, p: dict, x: torch.Tensor, tp=None):
+def ffn_apply(cfg, p: dict, x: torch.Tensor, tp=None, decode: bool = False):
     """The block's FFN: (y, the MoE layer's load-balance aux loss), the
-    loss None for a dense MLP. ``tp``: the rank's mesh layout (dense
-    only: other families are not served on a mesh)."""
+    loss None for a dense MLP. ``tp``: the rank's mesh layout; ``decode``:
+    ``x`` is a decode step's lanes (an MoE routes them as one block, on a
+    mesh gathered over the data axes)."""
     if cfg.family == "moe":
-        return moe_lib.moe_ffn(cfg, p, x)
+        return moe_lib.moe_ffn(cfg, p, x, tp, decode)
     return L.mlp(p, x, cfg.act, tp), None
 
 
@@ -147,7 +148,8 @@ def block_step(cfg, p: dict, x_t: torch.Tensor, cache,
     # the lanes, idle ones too, are one (B, 1) sequence batch: an MoE
     # routes them as one block
     f, _ = ffn_apply(cfg, p["ffn"],
-                     L.rms_norm(x, p["ln2"], cfg.norm_eps)[:, None], tp)
+                     L.rms_norm(x, p["ln2"], cfg.norm_eps)[:, None], tp,
+                     decode=True)
     return x + f[:, 0]
 
 
@@ -161,11 +163,12 @@ class DenseLM(LM):
     ``prefill_into`` and admissions); the prompt must be at least n long
     (:func:`check_splice`).
 
-    On a serving mesh (``enable_mesh``, family ``dense``) the model is one
-    rank's: its config holds the rank's attention heads, its params are
-    the rank's blocks (``bridge.params_from_numpy(mesh=)``) and every
-    block passes the layout on, so the collectives it names run where
-    GSPMD would insert them."""
+    On a serving mesh (``enable_mesh``; ``dense``, ``moe`` and ``vlm``)
+    the model is one rank's: its config holds the rank's attention heads,
+    its params are the rank's blocks (``bridge.params_from_numpy(mesh=)``:
+    the experts, the router and ``patch_proj`` too) and every block passes
+    the layout on, so the collectives it names run where GSPMD would
+    insert them."""
 
     supports_paging = True
 
@@ -209,6 +212,8 @@ class DenseLM(LM):
                 and "patches" in batch):
             pe = L.linear(params["patch_proj"],
                           batch["patches"].to(self.dtype))
+            if self.tp is not None:
+                pe = self.tp.patches(pe)
             check_splice(x.shape[1], pe.shape[1])
             x[:, :pe.shape[1]] = pe
         return x
@@ -345,7 +350,7 @@ class DenseLM(LM):
         another data rank)."""
         for i in range(self.cfg.num_layers):
             kv.paged_graft(state.layers.layer(i), req_state.layers.layer(i),
-                           lane, num_slots, row)
+                           lane, num_slots, row, self.tp)
         return state
 
     # -- chunked prefill and prefix-shared admission ---------------------
@@ -412,7 +417,7 @@ class DenseLM(LM):
             if paged:
                 kv.paged_write_tail(cache, lane, k_t[0], v_t[0], positions[0],
                                     prefix_len // cache.page_size, tail_count,
-                                    row)
+                                    row, self.tp)
             else:
                 kv.lane_write_tail(cache, lane, k_t[0], v_t[0], positions[0],
                                    prefix_len, tail_count)

@@ -124,9 +124,16 @@ lanes and scheduler stay in lockstep (arrivals are in decode steps; no
 rank reads its clock to schedule). With a ``model`` axis of 1 the decode
 step and the owner's admissions keep their CUDA graphs; with ``model`` >
 1 (collectives inside the step, over gloo where ranks share a card) both
-run eagerly and ``step_graph`` stays None. Still refused on a mesh
-(``NotImplementedError``): int8 pools and hot residents, sliding
-windows, and families other than ``dense``.
+run eagerly and ``step_graph`` stays None; so does an MoE's decode step
+where lanes split over the data axes (its routing block gathers every
+lane). Every cache policy is served on a mesh: int8 pools (per-page
+scales with their KV heads, or one per page, its amax taken over
+``model``), hot residents (promotion's mass summed over every head;
+decode on the masked-dense core, ``REASON_QUANT_RESIDENCY`` recorded as
+a fallback, as in JAX), sliding windows (each data rank owns its lanes'
+rings; exact-length admissions), H2O and hierarchical AQUA. The families
+``dense``, ``moe`` and ``vlm`` are served; ``encdec``, ``ssm`` and
+``hybrid`` are refused (``NotImplementedError``, by name).
 """
 from __future__ import annotations
 
@@ -150,7 +157,7 @@ from repro_torch.core.dispatch import (REASON_NONDIVISIBLE_MESH,
                                        TILE_SELECTING_BACKENDS, DispatchPlan,
                                        resolve_dispatch_plan)
 from repro_torch.models import build_model
-from repro_torch.models.base import PagingSpec
+from repro_torch.models.base import MESH_FAMILIES, PagingSpec
 from repro_torch.models.layers import cross_entropy, with_unembedding
 from repro_torch.runtime import resolve_device
 from repro_torch.serving.admit_graph import AdmitGraph, admission
@@ -361,7 +368,7 @@ class ContinuousBatchingEngine:
                                      device="cuda" if device is None
                                      else device)
         if mesh is not None:
-            _check_mesh(mesh, cfg, serving, quant, device)
+            _check_mesh(mesh, cfg, serving, device)
         self.mesh = mesh
         self.sparsity_spec = resolve_sparsity_spec(serving)
         # an attention-free model (ssm) holds no slots to evict
@@ -432,10 +439,13 @@ class ContinuousBatchingEngine:
         self.admit_graphs: Dict[int, AdmitGraph] = {}
         self.frontend_admit_graphs: Dict[int, AdmitGraph] = {}
         self._admit_pool = None
-        # collectives inside the step and the admission (a model axis > 1)
-        # keep both eager
+        # collectives inside the step and the admission (a model axis > 1,
+        # or an MoE routing lanes gathered over the data axes) keep both
+        # eager
         self.uses_graphs = self.device.type == "cuda" and (
-            mesh is None or mesh.axis_size("model") == 1)
+            mesh is None or (mesh.axis_size("model") == 1
+                             and not (cfg.family == "moe"
+                                      and self._lane_blocks > 1)))
         self._graphed_admissions = self.uses_graphs and self._supports_ragged
         self._num_slots = self.model.cache_slots(serving.max_seq)
         self._paged = cache.paged
@@ -497,6 +507,9 @@ class ContinuousBatchingEngine:
         from repro_torch.distributed.layout import MeshLayout
         mesh, s, cfg = self.mesh, self.scfg, self.cfg
         self.layout = MeshLayout.build(cfg, mesh)
+        quant = resolve_cache_specs(s)[1]
+        self.layout.scale_per_page = (quant.quantized
+                                      and quant.scale_granularity == "page")
         for r in (REASON_NONDIVISIBLE_MESH, REASON_PAGE_GEOMETRY):
             if r in self._plan.reasons:
                 self.layout.decode_kernel_reason = r
@@ -513,6 +526,7 @@ class ContinuousBatchingEngine:
             per = self._local_lanes
             self._lane_order = [g * per + i for i in range(per)
                                 for g in range(dsize)]
+            self.layout.lanes = (self._lane_lo, per)
         return params
 
     def _check_state_layout(self) -> None:
@@ -1188,7 +1202,7 @@ class ContinuousBatchingEngine:
                                   self.scfg.max_seq)
 
 
-def _check_mesh(mesh, cfg: ModelConfig, serving: ServingConfig, quant,
+def _check_mesh(mesh, cfg: ModelConfig, serving: ServingConfig,
                 device) -> None:
     """Refuse what is not served on a mesh yet, naming it, and a mesh that
     contradicts the config or the device asked for."""
@@ -1199,13 +1213,8 @@ def _check_mesh(mesh, cfg: ModelConfig, serving: ServingConfig, quant,
     if device is not None and torch.device(device).type != mesh.device.type:
         raise ValueError(f"device {device} but the mesh's rank is on "
                          f"{mesh.device}")
-    if cfg.family != "dense":
+    if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not served on a mesh yet")
-    if cfg.attention.window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not served on a mesh yet")
-    if quant.quantized:
-        raise NotImplementedError(
-            "int8 KV pools (and their hot residents) are not served on a "
-            "mesh yet: their per-page scales take an amax over KV heads")
+            f"the {cfg.family!r} family is not served on a mesh yet: its "
+            "decode state carries more than the slot cache (encdec: cross "
+            "K/V; ssm and hybrid: recurrent states)")

@@ -1,6 +1,8 @@
 """Serving policies of the port on a mesh, on the CPU: chunked prefill,
 H2O, hierarchical AQUA, pod and one-axis meshes, params placed on the
-host, and what the engine still refuses on a mesh.
+host, what a mesh refused until it was served (int8 pools with hot
+residents, a sliding window, MoE: now held to JAX's mesh engine), and
+what the engine still refuses on a mesh (encdec, ssm, hybrid).
 
 The port's ranks run as threads (``launch.mesh.run_mesh_threads``). The
 chunked and H2O drives hold JAX's tokens (its single-device engine for
@@ -19,6 +21,7 @@ import torch
 from repro.configs import reduced as jax_reduced
 from repro.configs.base import AquaConfig as JaxAquaConfig
 from repro.configs.base import CacheSpec as JaxCacheSpec
+from repro.configs.base import QuantSpec as JaxQuantSpec
 from repro.configs.base import ServingConfig as JaxServingConfig
 from repro.core.calibration import identity_projections as jax_identity
 from repro.launch.mesh import make_serving_mesh as jax_serving_mesh
@@ -244,24 +247,64 @@ def _refusal(cfg, params, scfg):
     return run_mesh_threads((1, 2), rank, timeout=TIMEOUT)[0]
 
 
+def _served_like_jax(arch, scfg, jscfg):
+    """A short trace of ``arch`` (reduced, float32, AQUA through the
+    kernel backend) on a 1x2 mesh: every rank's tokens and plan against
+    the JAX mesh engine's on the same params."""
+    jcfg = dataclasses.replace(jax_reduced(arch), remat=False,
+                               dtype="float32",
+                               aqua=JaxAquaConfig(k_ratio=0.5, block_dims=8))
+    tcfg = dataclasses.replace(reduced(arch), remat=False, dtype="float32",
+                               aqua=AquaConfig(k_ratio=0.5, block_dims=8))
+    params = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    a = tcfg.attention
+    trace = _trace(3, 4, seed=11, lo=18, hi=28)
+    jeng = JaxEngine(jcfg, params, jax_identity(
+        tcfg.num_layers, a.num_kv_heads, a.head_dim), serving=jscfg,
+        backend=KERNEL, mesh=jax_serving_mesh((1, 2)))
+    want = _tokens(jeng.run([JaxRequest(**r) for r in trace]))
+    res = _serve_mesh((1, 2), tcfg, tparams, identity_projections(
+        tcfg.num_layers, a.num_kv_heads, a.head_dim, device="cpu"), scfg,
+        trace, KERNEL)
+    assert res[0][0] == want
+    assert all(dataclasses.asdict(r[2]) == dataclasses.asdict(
+        jeng.dispatch_plan()) for r in res)
+    assert all(r[1] == jeng.mesh_fallback_events() for r in res)
+
+
 @pytest.mark.parametrize("case,words", [
     ("int8", "int8 KV pools"),
     ("window", "sliding-window"),
     ("moe", "'moe' family"),
+    ("encdec", "'encdec' family"),
+    ("ssm", "'ssm' family"),
+    ("hybrid", "'hybrid' family"),
 ])
 def test_mesh_refuses_what_it_does_not_serve_yet(models, case, words):
-    _, _, tcfg, tparams = models
-    scfg = ServingConfig(max_lanes=2, max_seq=32)
-    if case == "int8":
-        scfg = dataclasses.replace(
-            scfg, cache=CacheSpec(page_size=8),
-            quant=QuantSpec(kv_dtype="int8", hot_resident_fraction=0.5))
-    elif case in ("window", "moe"):
-        arch = "h2o-danube-1.8b" if case == "window" else "olmoe-1b-7b"
-        tcfg = dataclasses.replace(reduced(arch), dtype="float32")
-        tparams = build_model(tcfg, "cpu").init(
-            torch.Generator().manual_seed(0))
-    assert words in _refusal(tcfg, tparams, scfg)
+    """What a mesh refused until it was served: int8 KV pools with hot
+    residents, Danube's sliding window and the MoE family now serve on a
+    1x2 mesh with the JAX mesh engine's tokens. The families whose decode
+    state carries more than the slot cache (encdec, ssm, hybrid) are still
+    refused, by name."""
+    base = dict(max_lanes=2, max_seq=32, max_new_tokens=4, prompt_bucket=8)
+    if case in ("int8", "window", "moe"):
+        arch = {"int8": "qwen3-0.6b", "window": "h2o-danube-1.8b",
+                "moe": "olmoe-1b-7b"}[case]
+        quant = dict(kv_dtype="int8", hot_resident_fraction=0.5) \
+            if case == "int8" else None
+        _served_like_jax(
+            arch, ServingConfig(**base, cache=CacheSpec(page_size=8),
+                                quant=QuantSpec(**(quant or {}))),
+            JaxServingConfig(**base, cache=JaxCacheSpec(page_size=8),
+                             quant=JaxQuantSpec(**(quant or {}))))
+        return
+    arch = {"encdec": "whisper-tiny", "ssm": "mamba2-370m",
+            "hybrid": "recurrentgemma-9b"}[case]
+    tcfg = dataclasses.replace(reduced(arch), dtype="float32")
+    tparams = build_model(tcfg, "cpu").init(torch.Generator().manual_seed(0))
+    assert words in _refusal(tcfg, tparams, ServingConfig(max_lanes=2,
+                                                          max_seq=32))
 
 
 def test_mesh_shape_must_match_the_mesh_and_needs_ranks(models):
